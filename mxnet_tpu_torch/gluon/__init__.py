@@ -1,0 +1,5 @@
+"""Gluon frontend (ref: python/mxnet/gluon/)."""
+from . import nn  # noqa: F401
+from .block import Block, CachedOp, HybridBlock  # noqa: F401
+from .parameter import (DeferredInitializationError, Parameter,  # noqa: F401
+                        ParameterDict)

@@ -1,0 +1,57 @@
+"""Random number handling (ref: python/mxnet/random.py).
+
+One explicit ``torch.Generator`` per device, owned by a
+:class:`GeneratorPool`.  ``seed(s)`` reseeds every generator of the
+process pool; initializers and dropout draw from the generator of the
+device they fill.  A CPU and a CUDA generator seeded alike give
+different numbers, so tests make shared inputs with numpy.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+
+class GeneratorPool:
+    """Seeded ``torch.Generator``s, one per device, created on first use."""
+
+    def __init__(self, seed_state=None):
+        self._lock = threading.Lock()
+        self._gens = {}
+        self.seed(seed_state)
+
+    def seed(self, seed_state=None):
+        if seed_state is None:
+            seed_state = int(np.random.randint(0, 2**31 - 1))
+        with self._lock:
+            self._seed = int(seed_state)
+            self._gens.clear()
+
+    def generator(self, device):
+        """The generator for ``device`` (a ``torch.device`` or string)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        with self._lock:
+            gen = self._gens.get(device)
+            if gen is None:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(self._seed)
+                self._gens[device] = gen
+            return gen
+
+
+#: the process-wide pool behind :func:`seed` and :func:`generator`
+default_pool = GeneratorPool()
+
+
+def seed(seed_state=None, ctx="all"):
+    """Seed the generators of every device (ref: mx.random.seed)."""
+    default_pool.seed(seed_state)
+
+
+def generator(device):
+    """The default pool's generator for ``device``."""
+    return default_pool.generator(device)
