@@ -9,6 +9,11 @@ of ``_collect_params_with_prefix`` (``encoder.layers.0.attn_in_weight``).
 
 Deferred init: a Parameter whose shape has unknown dims waits until its
 layer infers them from the first input.
+
+Gradients: a Parameter whose ``grad_req`` is ``'write'`` or ``'add'`` is
+an autograd variable (``autograd.mark_variables``); its gradient is the
+value's ``.grad``, allocated as zeros at first use, so a serving process
+that never trains holds no gradient memory.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError
 from ..context import Context, current_context
@@ -29,16 +35,19 @@ class DeferredInitializationError(MXNetError):
 
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False):
         self.name = name
+        self._data = None            # torch.nn.Parameter
         self.grad_req = grad_req
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._data = None            # torch.nn.Parameter
         self._deferred_init = None   # (init, ctx, default_init)
         self._owners = []            # (weakref to block, attribute name)
 
@@ -57,6 +66,21 @@ class Parameter:
             raise MXNetError(f"cannot update shape {self._shape} -> "
                              f"{new_shape} for {self.name}")
         self._shape = new_shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """``'write'``, ``'add'`` or ``'null'``; ``'null'`` drops the
+        gradient and stops tracking the value."""
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"Parameter {self.name}: grad_req must be "
+                             f"'write', 'add' or 'null', not {req!r}")
+        self._grad_req = req
+        if self._data is not None:
+            autograd.mark_variables([self._data], [self._data.grad], req)
 
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
@@ -109,8 +133,8 @@ class Parameter:
         data = torch.empty(self._shape, dtype=to_torch_dtype(self.dtype),
                            device=ctx.torch_device())
         initializer(init_mod.InitDesc(self.name), data)
-        self._data = torch.nn.Parameter(
-            data, requires_grad=self.grad_req != "null")
+        self._data = torch.nn.Parameter(data, requires_grad=False)
+        autograd.mark_variables([self._data], [None], self._grad_req)
         self._deferred_init = None
         self._publish()
 
@@ -137,6 +161,34 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name} lives on "
                              f"{self.context}, not {ctx}")
         return self._data
+
+    def list_data(self):
+        """The value on each device: one, in this port."""
+        return [self.data()]
+
+    def list_ctx(self):
+        """The devices the value lives on: one, in this port."""
+        self.data()
+        return [self.context]
+
+    def grad(self, ctx=None):
+        """The gradient buffer, the value's ``.grad`` (zeros until a
+        backward writes it)."""
+        data = self.data(ctx)
+        if self._grad_req == "null":
+            raise MXNetError(f"Parameter {self.name} has no gradient "
+                             "(grad_req='null')")
+        if data.grad is None:
+            data.grad = torch.zeros_like(data)
+        return data.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zeros, in place."""
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad.zero_()
 
     @property
     def context(self):
@@ -199,6 +251,16 @@ class ParameterDict:
                    force_reinit=False):
         for p in self.values():
             p.initialize(init=init, ctx=ctx, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every Parameter, e.g.
+        ``setattr('grad_req', 'null')`` or ``setattr('lr_mult', 0.1)``."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def items(self):
         return self._params.items()

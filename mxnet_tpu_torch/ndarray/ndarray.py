@@ -4,7 +4,9 @@ Ref: include/mxnet/ndarray.h.  Inside blocks and ops the port computes
 on plain ``torch.Tensor``s; ``NDArray`` is kept only where the MXNet
 surface hands arrays to and from user code (``nd.array``,
 ``.asnumpy()``, ``.wait_to_read()``, ``.context``), as ``ModelServer``
-does.  The tensor is ``.data``.
+does, and where the training loop touches them (``attach_grad``,
+``.grad``, ``.backward()``, ``detach``, ``asscalar``).  The tensor is
+``.data``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from ..base import MXNetError
 from ..context import Context, current_context
 
-__all__ = ["NDArray", "array", "zeros", "arange", "to_torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "arange", "to_torch_dtype",
+           "as_tensor"]
 
 _DTYPES = {
     "float32": torch.float32, "float": torch.float32,
@@ -40,6 +43,11 @@ def to_torch_dtype(dtype):
     if name not in _DTYPES:
         raise MXNetError(f"unsupported dtype {dtype!r}")
     return _DTYPES[name]
+
+
+def as_tensor(x):
+    """The tensor of an NDArray, or ``x`` itself."""
+    return x.data if isinstance(x, NDArray) else x
 
 
 def _device_of(ctx):
@@ -79,11 +87,47 @@ class NDArray:
             t = t.float()
         return t.cpu().numpy()
 
+    def asscalar(self):
+        """The value of a one-element array as a Python number (blocking)."""
+        if self.data.numel() != 1:
+            raise MXNetError(f"asscalar needs a one-element array, not "
+                             f"shape {self.shape}")
+        return self.data.detach().reshape(()).item()
+
     def wait_to_read(self):
         """Block until the work producing this array is done (ref:
         WaitToRead): synchronises the tensor's device."""
         if self.data.is_cuda:
             torch.cuda.synchronize(self.data.device)
+
+    # -- autograd -----------------------------------------------------------
+
+    def attach_grad(self, grad_req="write", stype=None):
+        """Make this array a variable with a zero gradient buffer (ref:
+        NDArray.attach_grad).  An array computed under ``record()`` is
+        detached from its graph first, as in MXNet."""
+        from .. import autograd
+
+        self.data = self.data.detach()
+        autograd.mark_variables([self.data], [torch.zeros_like(self.data)],
+                                grad_req)
+
+    @property
+    def grad(self):
+        """The gradient buffer as an NDArray, or None."""
+        g = self.data.grad
+        return None if g is None else NDArray(g)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Run the reverse pass from this array (ref: NDArray.backward)."""
+        from .. import autograd
+
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def detach(self):
+        """The same values, cut from the graph."""
+        return NDArray(self.data.detach())
 
     def __repr__(self):
         return (f"\n{self.asnumpy()}\n<NDArray {'x'.join(map(str, self.shape))}"

@@ -1,27 +1,43 @@
-"""Flash-attention forward: the Hopper kernel, its plain version, its wrapper.
+"""Flash attention: the Hopper kernels, their plain versions, their wrappers.
 
-Replaces the forward Pallas kernels of ``mxnet_tpu/ops/pallas/
-flash_attention.py``, ``_flash_fwd_kernel`` (K/V resident) and
-``_flash_fwd_stream_kernel`` (K/V streamed), with one CUDA kernel,
-``csrc/flash_attention_fwd.cu``, that streams K/V tiles through shared
-memory.  The source's header says what bounds it on an H100 and what its
+Replaces the Pallas kernels of ``mxnet_tpu/ops/pallas/flash_attention.py``
+with CUDA kernels that stream tiles through shared memory:
+
+- the forward, ``_flash_fwd_kernel`` (K/V resident) and
+  ``_flash_fwd_stream_kernel`` (K/V streamed), by one kernel in
+  ``csrc/flash_attention_fwd.cu``;
+- the backward, ``_flash_dq_kernel``/``_flash_dq_stream_kernel`` and
+  ``_flash_dkv_kernel``/``_flash_dkv_stream_kernel``, by a dQ kernel and a
+  dK/dV kernel in ``csrc/flash_attention_bwd.cu`` (a second library, so
+  the forward's build is unchanged).
+
+The sources' headers say what bounds each kernel on an H100 and what its
 design does about it.
 
-- :func:`flash_attention_plain` is the same function in plain PyTorch:
-  the CPU path, and what the kernel is held against on the card.
-- :func:`flash_attention_fwd` is the wrapper.  It dispatches on the
-  tensors' device alone: CPU tensors go to the plain version, CUDA
-  tensors to the kernel, and what the kernel does not take raises.
+- :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
+  the same functions in plain PyTorch: the CPU path, and what the kernels
+  are held against on the card.  The plain backward follows the TPU
+  kernels' arithmetic (``p = exp(s - lse)``, ``delta = rowsum(dO*O)``),
+  not autograd of the forward.
+- :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
+  wrappers.  They dispatch on the tensors' device alone: CPU tensors go to
+  the plain version, CUDA tensors to the kernels, and what the kernels do
+  not take raises.  :func:`flash_attention_bwd` launches the dQ and the
+  dK/dV kernel through their own wrappers, which count their launches.
+- :class:`FlashAttentionFunction` joins them for autograd (ref:
+  ``_flash_sdpa``, a ``jax.custom_vjp``).
 - :func:`flash_attention` is the entry the attention op calls (ref:
   ``flash_attention`` at ``ops/pallas/flash_attention.py:725``).  It keeps
   the JAX entry's shape rules that send a case to the oracle
   (``ops.attention.sdpa_reference``) before any launch.
 
-Masking follows the TPU kernel: the additive key-padding row uses -1e9,
+Masking follows the TPU kernels: the additive key-padding row uses -1e9,
 not -inf, and the running max starts at -1e9, so a batch row whose keys
-are all padding (a dead row of a padded serving batch) returns the mean
-of V instead of NaN.  Keys past ``sk``, and keys after the query under
-``causal``, are excluded outright.
+are all padding (a dead row of a padded batch) returns the mean of V
+instead of NaN; its lse is -1e9 in fp32, so the backward's ``p`` is 1 for
+each of its keys and its gradients are non-zero, as the TPU kernels give
+them.  Keys past ``sk``, and keys after the query under ``causal``, are
+excluded outright in both directions.
 """
 from __future__ import annotations
 
@@ -63,8 +79,14 @@ class KernelCounts:
             self.plain_calls_on_cuda = 0
 
 
+#: the forward kernel's counters; ``plain_calls_on_cuda`` counts the
+#: entry's oracle routes
 counts = KernelCounts()
+#: the backward kernels' counters, one per kernel
+dq_counts = KernelCounts()
+dkv_counts = KernelCounts()
 library = KernelLibrary("flash_attention_fwd.cu")
+bwd_library = KernelLibrary("flash_attention_bwd.cu")
 
 
 def _bind(lib):
@@ -171,12 +193,168 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
                  stream)
-    if err != 0:
-        msg = library.load().mxtt_cuda_error_string(err).decode()
-        raise MXNetError(f"flash attention kernel launch failed: {msg} "
-                         f"(cudaError {err})")
+    _raise_on_error(library, err, "flash attention")
     counts.add("launches")
     return o, lse
+
+
+def _raise_on_error(lib, err, what):
+    if err != 0:
+        msg = lib.load().mxtt_cuda_error_string(err).decode()
+        raise MXNetError(f"{what} kernel launch failed: {msg} "
+                         f"(cudaError {err})")
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
+                              causal=False, scale=None):
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)``.
+
+    Follows the TPU kernels (ref: ``_flash_backward``, ``ops/pallas/
+    flash_attention.py:524``), not autograd of the forward:
+    ``delta = rowsum(dO*O)``; ``s = scale*(q k^T) + kmask``, masked as the
+    forward masks it; ``p = exp(s - lse)``; ``ds = p*(dO v^T - delta)``;
+    ``dq = scale*ds k``, ``dk = scale*ds^T q``, ``dv = p^T dO``.  Every
+    product is fp32 (p is not rounded to bf16); the outputs take the
+    inputs' dtypes.  ``lse`` is the forward's ``(b*h, sq)`` fp32 tensor."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    s = scale * torch.matmul(qf, kf.transpose(-1, -2))
+    if kmask is not None:
+        s = s + kmask.float().reshape(b, 1, 1, sk)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        p = p.masked_fill(~keep, 0.0)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bind_bwd(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, n_out in (("mxtt_flash_attention_bwd_dq", 1),
+                        ("mxtt_flash_attention_bwd_dkv", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p,
+                                               ctypes.c_float, i, i, p]
+            fn.restype = ctypes.c_int
+    if lib.mxtt_cuda_error_string.argtypes is None:
+        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return lib.mxtt_flash_attention_bwd_dq, lib.mxtt_flash_attention_bwd_dkv
+
+
+def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
+                causal, scale):
+    """Launch one backward kernel on ``outs`` (see the C interface in
+    ``csrc/flash_attention_bwd.cu``)."""
+    b, h, sq, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *do.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 kmask.data_ptr() if kmask is not None else None,
+                 *(t.data_ptr() for t in outs), b, h, sq, k.shape[2], d,
+                 ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                 int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
+    _raise_on_error(bwd_library, err, what)
+    counter.add("launches")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, kmask=None, *,
+                           causal=False, scale=None):
+    """dQ by the dQ kernel (CUDA tensors only; arguments as checked by
+    :func:`flash_attention_bwd`, with ``delta = rowsum(dO*O)`` fp32
+    ``(b*h, sq)``)."""
+    fn, _ = _bind_bwd(bwd_library.load())
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch(fn, dq_counts, "flash attention dQ", q, k, v, do, lse,
+                delta, kmask, (dq,), causal, scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kmask=None, *,
+                            causal=False, scale=None):
+    """(dK, dV) by the dK/dV kernel, arguments as
+    :func:`flash_attention_bwd_dq`."""
+    _, fn = _bind_bwd(bwd_library.load())
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch(fn, dkv_counts, "flash attention dK/dV", q, k, v, do, lse,
+                delta, kmask, (dk, dv), causal, scale)
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, kmask=None, *, causal=False,
+                        scale=None):
+    """Flash-attention backward, ``(dq, dk, dv)``, as
+    :func:`flash_attention_bwd_plain`.
+
+    CPU tensors take the plain version.  CUDA tensors launch the dQ kernel
+    and then the dK/dV kernel on the current stream, or raise
+    :class:`MXNetError` for what the forward kernel would not take and for
+    a failed launch.  ``delta = rowsum(dO*O)`` is one torch expression, as
+    the reference leaves it to XLA (``ops/pallas/flash_attention.py:532``).
+    ``do`` may have any strides (autograd hands over views); a head dim
+    that is not contiguous is copied.  The gradients come back contiguous.
+    """
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, kmask,
+                                         causal=causal, scale=scale)
+    _check(q, k, v, kmask)
+    b, h, sq, d = q.shape
+    if do.shape != q.shape or do.device != q.device or o.shape != q.shape:
+        raise MXNetError(f"flash attention backward: dO {tuple(do.shape)} "
+                         f"and O {tuple(o.shape)} must match q "
+                         f"{tuple(q.shape)} on {q.device}")
+    if lse.shape != (b * h, sq) or lse.dtype != torch.float32:
+        raise MXNetError(f"flash attention backward: lse must be float32 "
+                         f"({b * h}, {sq}), got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    lse = lse.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(b * h, sq)
+    args = (q, k, v, do, lse, delta, kmask)
+    dq = flash_attention_bwd_dq(*args, causal=causal, scale=scale)
+    dk, dv = flash_attention_bwd_dkv(*args, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention for autograd: the forward wrapper, then the backward
+    wrapper on the saved ``(q, k, v, kmask, o, lse)`` (ref: ``_flash_sdpa``
+    with ``_flash_sdpa_fwd``/``_flash_sdpa_bwd``, ``ops/pallas/
+    flash_attention.py:681-707``).  The key-padding row gets no gradient.
+    Both directions dispatch on the device like their wrappers: CPU tensors
+    take the plain forward and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, kmask, causal=causal,
+                                     scale=scale)
+        ctx.save_for_backward(q, k, v, kmask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kmask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, kmask,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def as_key_padding_mask(mask, q, k):
@@ -203,6 +381,11 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
     attention with ``sq != sk`` (the oracle's mask is end-aligned, the
     kernel's start-aligned) and a head dim that is not a multiple of 64.
     On CUDA tensors each such call counts in ``counts.plain_calls_on_cuda``.
+
+    When autograd records and q, k or v needs a gradient, the call goes
+    through :class:`FlashAttentionFunction`, which keeps what the backward
+    reads; otherwise (serving, under ``no_grad``) only the forward runs and
+    nothing is kept.
     """
     from ..attention import sdpa_reference
 
@@ -215,5 +398,8 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
             counts.add("plain_calls_on_cuda")
         return sdpa_reference(q, k, v, mask, scale=scale, causal=causal)
     s = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, km, bool(causal), s)
     out, _ = flash_attention_fwd(q, k, v, km, causal=bool(causal), scale=s)
     return out

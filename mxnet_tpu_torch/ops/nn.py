@@ -1,5 +1,5 @@
 """Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that BERT
-serving runs."""
+serving and training and the ported losses run."""
 from __future__ import annotations
 
 import torch
@@ -46,6 +46,8 @@ def _k_activation(data, act_type):
         return torch.sigmoid(data)
     if act_type == "tanh":
         return torch.tanh(data)
+    if act_type == "softrelu":
+        return tF.softplus(data)
     if act_type == "gelu":
         return tF.gelu(data, approximate="none")
     raise MXNetError(f"Activation: unknown act_type {act_type!r}")
@@ -83,3 +85,21 @@ def _k_dropout(data, p=0.5, mode="training", axes=()):
 
 
 register("Dropout", _k_dropout, aliases=("dropout",))
+
+
+def _k_softmax(data, axis=-1, temperature=None):
+    """Ref: ops/nn.py:541."""
+    x = data / temperature if temperature else data
+    return torch.softmax(x, dim=axis)
+
+
+register("softmax", _k_softmax, aliases=("SoftmaxActivation",))
+
+
+def _k_log_softmax(data, axis=-1, temperature=None):
+    """Ref: ops/nn.py:548."""
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
+
+
+register("log_softmax", _k_log_softmax)

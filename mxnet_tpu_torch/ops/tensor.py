@@ -1,6 +1,7 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that BERT
-serving runs (reshape, slice_axis, take, Embedding, arange,
-broadcast_lesser)."""
+serving and training and the ported losses run (reshape, slice_axis,
+take, pick, Embedding, arange, broadcast_lesser, broadcast_mul, the sum
+and mean reductions, and the elementwise square, abs, relu and log)."""
 from __future__ import annotations
 
 import torch
@@ -89,3 +90,70 @@ def _k_broadcast_lesser(lhs, rhs):
 
 
 register("broadcast_lesser", _k_broadcast_lesser)
+
+
+def _k_broadcast_mul(lhs, rhs):
+    return lhs * rhs
+
+
+register("broadcast_mul", _k_broadcast_mul)
+
+register("square", torch.square)
+register("abs", torch.abs)
+register("relu", torch.relu)
+register("log", torch.log)
+
+
+def _reduce_axes(data, axis, exclude):
+    """The axes to reduce (ref: ``_excl``, ops/tensor.py:162): None for
+    every axis; with ``exclude``, every axis not named."""
+    if isinstance(axis, list):
+        axis = tuple(axis)
+    if not exclude:
+        return axis
+    if axis is None:
+        return ()
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    axis = tuple(a % data.dim() for a in axis)
+    return tuple(i for i in range(data.dim()) if i not in axis)
+
+
+def _reduce(fn, data, axis, keepdims, exclude):
+    axes = _reduce_axes(data, axis, exclude)
+    if axes is None:
+        out = fn(data)
+        return out.reshape((1,) * data.dim()) if keepdims else out
+    if axes == ():  # torch reads an empty dim list as "every axis"
+        return data
+    return fn(data, dim=axes, keepdim=keepdims)
+
+
+def _k_sum(data, axis=None, keepdims=False, exclude=False):
+    """Ref: ops/tensor.py:144."""
+    return _reduce(torch.sum, data, axis, keepdims, exclude)
+
+
+def _k_mean(data, axis=None, keepdims=False, exclude=False):
+    """Ref: ops/tensor.py:146."""
+    return _reduce(torch.mean, data, axis, keepdims, exclude)
+
+
+register("sum", _k_sum, aliases=("sum_axis",))
+register("mean", _k_mean)
+
+
+def _k_pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data``'s element at ``index`` along ``axis`` (ref: ops/tensor.py:
+    525); float indices truncate; ``clip`` clamps them into range,
+    ``wrap`` takes them modulo the axis size."""
+    if mode not in ("clip", "wrap"):
+        raise MXNetError(f"pick: mode must be 'clip' or 'wrap', got {mode!r}")
+    axis = axis % data.dim()
+    n = data.shape[axis]
+    idx = index.to(torch.int64)
+    idx = idx.remainder(n) if mode == "wrap" else idx.clamp(0, n - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)
+
+
+register("pick", _k_pick)

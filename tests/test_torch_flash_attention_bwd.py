@@ -1,0 +1,298 @@
+"""Flash-attention backward of the PyTorch port against the JAX package.
+
+On the CPU the port's backward wrapper takes the kernels' plain version,
+``flash_attention_bwd_plain``.  It is held against the JAX Pallas backward
+kernels ``_flash_backward`` (K/V and Q/dO resident) and
+``_flash_backward_stream`` (streamed), run in interpret mode on the same
+q, k, v, dO and the same o and lse (the JAX forward's), made with numpy
+from a seed; against ``torch.autograd`` through the oracle; and the port's
+``FlashAttentionFunction`` against autograd through the plain forward.
+The tests marked ``gpu`` hold each CUDA kernel against the plain backward
+on the card, and check that attention gradients reach the parameters of
+the layer (on the card the forward's output used to come back detached).
+
+Tolerances.  fp32 against the JAX kernels: 2e-4 absolute plus 1e-5
+relative (both sum in fp32 over up to 256 keys, in other orders; a dead
+row's gradients sum dO over every query and reach ~30).  bf16: 5e-2
+absolute plus 2e-2 relative (the outputs are rounded to bf16, one ulp of
+values near 4).  Against autograd: 1e-4 absolute plus 1e-4 relative.  The
+dead row is left out of the comparisons with autograd: there the fp32 lse
+rounds to -1e9, so the flash formula's p is 1 where softmax's is 1/sk,
+and the port, like the JAX kernels, gives the flash formula's gradient.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops.attention import sdpa_reference
+from mxnet_tpu_torch.ops.kernels import flash_attention as tfa
+
+MASKS = ("none", "additive", "bool", "dead_row", "causal")
+
+
+def _inputs(b, h, s, d, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, s, d).astype(np.float32) * 0.5
+    k = rng.randn(b, h, s, d).astype(np.float32) * 0.5
+    v = rng.randn(b, h, s, d).astype(np.float32)
+    do = rng.randn(b, h, s, d).astype(np.float32)
+    return q, k, v, do
+
+
+def _key_mask(kind, b, sk, seed=1):
+    """(additive (b, sk) row or None, 4-d mask as the model passes it or
+    None, causal)."""
+    if kind in ("none", "causal"):
+        return None, None, kind == "causal"
+    rng = np.random.RandomState(seed)
+    valid = rng.randint(1, sk + 1, size=b)
+    if kind == "dead_row":
+        valid[-1] = 0
+    keep = np.arange(sk)[None, :] < valid[:, None]
+    row = np.where(keep, 0.0, -1e9).astype(np.float32)
+    mask4 = keep.reshape(b, 1, 1, sk) if kind == "bool" \
+        else row.reshape(b, 1, 1, sk)
+    return row, mask4, False
+
+
+def _jax_backward(q, k, v, do, mask4, causal, stream, dtype="float32"):
+    """The JAX forward's (o, lse) and its backward kernels' (dq, dk, dv),
+    as numpy float32."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops.pallas import flash_attention as jfa
+
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
+    jrow = None if mask4 is None else \
+        jfa._as_key_padding_mask(jnp.asarray(mask4), jq, jk)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jo, jlse = jfa._flash_forward(jq, jk, jv, causal=causal, scale=scale,
+                                  kmask=jrow)
+    jbwd = jfa._flash_backward_stream if stream else jfa._flash_backward
+    grads = jbwd(jq, jk, jv, jo, jlse, jdo, causal=causal, scale=scale,
+                 kmask=jrow)
+    as_np = lambda x: np.array(x, np.float32)  # noqa: E731
+    return as_np(jo), as_np(jlse), [as_np(g) for g in grads]
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [128, 256])
+def test_plain_backward_matches_jax_backward_kernels(s, d, mask, stream,
+                                                     interpret_pallas):
+    b, h = 2, 2
+    q, k, v, do = _inputs(b, h, s, d)
+    _, mask4, causal = _key_mask(mask, b, s)
+    jo, jlse, jgrads = _jax_backward(q, k, v, do, mask4, causal, stream)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    trow = None if mask4 is None else \
+        tfa.as_key_padding_mask(torch.from_numpy(mask4), tq, tk)
+    tgrads = tfa.flash_attention_bwd(
+        tq, tk, tv, torch.from_numpy(jo),
+        torch.from_numpy(jlse.reshape(b * h, s)), tdo, trow, causal=causal,
+        scale=1.0 / np.sqrt(d))
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), j, atol=2e-4, rtol=1e-5,
+                                   err_msg=name)
+
+
+def test_plain_backward_matches_jax_backward_kernel_bf16(interpret_pallas):
+    b, h, s, d = 2, 2, 128, 128
+    q, k, v, do = _inputs(b, h, s, d, seed=3)
+    _, mask4, _ = _key_mask("dead_row", b, s)
+    jo, jlse, jgrads = _jax_backward(q, k, v, do, mask4, False, False,
+                                     "bfloat16")
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    tq, tk, tv, tdo = (bf(x) for x in (q, k, v, do))
+    trow = tfa.as_key_padding_mask(torch.from_numpy(mask4), tq, tk)
+    tgrads = tfa.flash_attention_bwd(
+        tq, tk, tv, bf(jo), torch.from_numpy(jlse.reshape(b * h, s)), tdo,
+        trow, causal=False, scale=1.0 / np.sqrt(d))
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.float().numpy(), j, atol=5e-2,
+                                   rtol=2e-2, err_msg=name)
+
+
+def _autograd_grads(fn, q, k, v, do):
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = fn(*ts)
+    return torch.autograd.grad(out, ts, torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("mask", ["none", "additive", "causal"])
+def test_plain_backward_matches_autograd_of_the_oracle(mask):
+    b, h, s, d = 2, 3, 96, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=5)
+    row, mask4, causal = _key_mask(mask, b, s)
+    scale = 1.0 / np.sqrt(d)
+    ref = _autograd_grads(lambda a, c, e: sdpa_reference(
+        a, c, e, None if mask4 is None else torch.from_numpy(mask4),
+        scale=scale, causal=causal), q, k, v, do)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    km = None if row is None else torch.from_numpy(row)
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, km, causal=causal,
+                                       scale=scale)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, km,
+                                        causal=causal, scale=scale)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("mask", ["none", "additive", "causal"])
+def test_function_on_cpu_matches_autograd_of_the_plain_forward(mask):
+    """The autograd.Function's CPU path (plain forward, plain backward)
+    against torch.autograd through the plain forward."""
+    b, h, s, d = 2, 2, 70, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=7)
+    row, _, causal = _key_mask(mask, b, s)
+    km = None if row is None else torch.from_numpy(row)
+    scale = 0.125
+    ref = _autograd_grads(lambda a, c, e: tfa.flash_attention_plain(
+        a, c, e, km, causal=causal, scale=scale)[0], q, k, v, do)
+    before = (tfa.dq_counts.launches, tfa.dkv_counts.launches)
+    got = _autograd_grads(lambda a, c, e: tfa.FlashAttentionFunction.apply(
+        a, c, e, km, causal, scale), q, k, v, do)
+    assert (tfa.dq_counts.launches, tfa.dkv_counts.launches) == before
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_entry_records_only_when_a_gradient_is_needed():
+    """The entry goes through the Function only when autograd records and
+    an input needs a gradient; its output then carries a graph, and the
+    key-padding mask gets no gradient."""
+    b, h, s, d = 2, 2, 64, 64
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(b, h, s, d))
+    assert tfa.flash_attention(q, k, v, mask=torch.zeros(b, 1, 1, s)) \
+        .grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    mask = torch.zeros(b, 1, 1, s, requires_grad=True)
+    with torch.no_grad():
+        assert tfa.flash_attention(qg, k, v, mask=mask).grad_fn is None
+    out = tfa.flash_attention(qg, k, v, mask=mask)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    out.backward(do)
+    assert qg.grad is not None and mask.grad is None
+
+
+# -- on the card ----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels have no CPU "
+                    "mode); run on the GPU machine with -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+# causal runs at sq == sk only: the entry sends causal sq != sk to the oracle
+CARD_CASES = [(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
+              for m in MASKS if m != "causal" or sq == sk]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("sq,sk,mask", CARD_CASES)
+def test_backward_kernels_match_plain_on_card(sq, sk, mask, d, dtype,
+                                              cuda_device):
+    """Each kernel against the plain backward: fp32 within 1e-4 absolute
+    plus 1e-4 relative (sums over up to 300 keys in other orders), bf16
+    within 3e-2 plus 2e-2 (outputs rounded to bf16)."""
+    b, h = 2, 3
+    rng = np.random.RandomState(11)
+    dt = getattr(torch, dtype)
+    q, do = (torch.from_numpy(rng.randn(b, h, sq, d).astype(np.float32)
+                              * 0.5).to(cuda_device, dt) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, h, sk, d).astype(np.float32)
+                             * 0.5).to(cuda_device, dt) for _ in range(2))
+    row, _, causal = _key_mask(mask, b, sk)
+    km = None if row is None else torch.from_numpy(row).to(cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, km, causal=causal)
+    before = (tfa.dq_counts.launches, tfa.dkv_counts.launches)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, km, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.dq_counts.launches, tfa.dkv_counts.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                        causal=causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dt and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+
+
+@pytest.mark.gpu
+def test_backward_reads_packed_head_views_on_card(cuda_device):
+    """q, k, v as strided views of one packed QKV tensor and dO as the
+    transposed view autograd hands over, read in place."""
+    b, s, h, d = 2, 100, 3, 64
+    rng = np.random.RandomState(9)
+    packed = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32)
+                              * 0.5).to(cuda_device)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in packed.chunk(3, dim=-1))
+    do = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)) \
+        .to(cuda_device).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    row, _, _ = _key_mask("dead_row", b, s)
+    km = torch.from_numpy(row).to(cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, km)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, km)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_attention_gradients_reach_attn_in_weight_on_card(cuda_device):
+    """The repaired fault: on the card, the attention output must carry a
+    graph, so the QKV projection's parameters get the attention part of
+    their gradient.  The card's gradients equal the CPU's (plain forward
+    and plain backward) within 1e-4 plus 1e-4 relative."""
+    import mxnet_tpu_torch as tmx
+
+    b, s = 2, 64
+    rng = np.random.RandomState(2)
+    x = rng.randn(b, s, 128).astype(np.float32)
+    row = np.where(np.arange(s)[None] < np.array([[64], [40]]), 0.0,
+                   -1e9).astype(np.float32).reshape(b, 1, 1, s)
+    w_in = (rng.randn(384, 128) * 0.05).astype(np.float32)
+    w_out = (rng.randn(128, 128) * 0.05).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        params = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in (w_in, np.zeros(384, np.float32), w_out,
+                            np.zeros(128, np.float32))]
+        xt = torch.from_numpy(x).to(dev)
+        before = tfa.dkv_counts.launches
+        out = tmx.nd.multihead_attention(
+            xt, xt, xt, *params, torch.from_numpy(row).to(dev), num_heads=2)
+        out.square().sum().backward()
+        grads[str(dev)] = [p.grad.cpu() for p in params]
+        if dev != "cpu":
+            assert tfa.dkv_counts.launches == before + 1
+    cpu, card = grads["cpu"], grads[str(cuda_device)]
+    assert float(card[0].abs().sum()) > 0 and float(card[1].abs().sum()) > 0
+    for c, g in zip(cpu, card):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_backward_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 2, 64, 64, device=cuda_device)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    with pytest.raises(MXNetError, match="lse"):
+        tfa.flash_attention_bwd(q, q, q, q, lse.reshape(1, 2, 64), q)
+    q96 = torch.zeros(1, 2, 64, 96, device=cuda_device)
+    with pytest.raises(MXNetError, match="head dims"):
+        tfa.flash_attention_bwd(q96, q96, q96, q96, lse, q96)
