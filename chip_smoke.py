@@ -27,7 +27,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
    20 steps; every trainable parameter must have a finite gradient after
    the first backward and the loss must fall; then 2 steps at batch 4
    with dropout 0 on the card and on the CPU from the same weights must
-   agree.
+   agree;
+6. ResNet kernels: the BatchNorm-statistics kernel and the three fused
+   1x1-convolution kernels against their plain versions at every shape
+   ResNet-50 gives them (batch 128 at 224^2 in training, 64 in predict
+   mode), in fp32 and bf16, with and without ReLU, timed beside the plain
+   version, a library yardstick (``torch.var_mean``; ``torch.matmul`` at
+   the same shape, the product alone) and the least time; and their
+   autograd Functions against autograd through the plain forwards;
+7. ResNet training: ResNet-50 v1, NHWC, 1000 classes, with
+   ``MXTPU_CONV_EPILOGUE=pallas``, takes 20 steps through
+   ``parallel.DataParallelTrainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
+   bf16 compute, fp32 masters) at batch 128, 224^2, on one synthetic
+   batch; the launch counts are read around the 20 steps; the loss must
+   fall, every trainable parameter change and stay finite, the moving
+   statistics move;
+8. ResNet predict: the trained net in predict mode at batch 64, fp32; the
+   launches of ``bn_act_matmul`` are read around the timed forwards;
+9. ResNet references, fp32 with TF32 off, batch 8 at 112^2: 2 steps of the
+   fused net on the card, the same on the CPU, and the standard (unfused)
+   net on the card, from the same weights, must agree.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
@@ -36,12 +55,15 @@ CUDA toolkit, and the repository beside this file.
     python3 chip_smoke.py --profile-train
 
 also writes a ``torch.profiler`` table of two training steps to
-``chiprun_out/train_profile.txt`` and prints its top rows.
+``chiprun_out/train_profile.txt`` and prints its top rows;
+``--profile-resnet`` does the same for two ResNet-50 steps, into
+``chiprun_out/resnet_profile.txt``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -72,6 +94,29 @@ TRAIN_GRAD_RTOL = 1e-3
 # backward kernels vs their plain version: fp32 sums over up to 512 keys
 # in other orders; bf16 outputs are rounded to bf16
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 2e-2)}
+
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 128, 224, 20
+PREDICT_BATCH = 64
+# fused 1x1 kernels vs their plain version: y within these (atol, rtol):
+# fp32 sums over up to 2048 products in other orders; bf16 outputs are
+# rounded to bf16 (2^-8 relative), and another order may round a sum to
+# the neighbouring value
+FUSED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# ResNet-50 references (fp32, TF32 off, b=8, 112^2, 2 SGD steps from the
+# same weights).  The first loss is a forward alone: within 1e-4 relative
+# (sums in other orders through 53 layers).  The first step's update of the
+# first bottleneck's conv1 weight, -lr*(grad + wd*w): within 0.1 of its L2
+# norm.  A ReLU input within rounding of zero (the two sides' forwards
+# differ by ~1e-6) can open on one side and not on the other, which moves
+# the gradient of every layer below it; full ResNet-50 at this size has
+# several such inputs, and the step-1 gradients of all layers differ by
+# 2.5-3.2% in L2 between card and CPU and between the fused and standard
+# paths (measured on one H100), while two fused runs on the card agree to
+# 1e-5.  The second loss follows that update at lr 0.1, where the loss on
+# one batch swings by tens of percent from step to step: within 0.1.
+RESNET_LOSS1_RTOL = 1e-4
+RESNET_UPDATE_RTOL = 0.1
+RESNET_LOSS2_RTOL = 0.1
 
 
 def log(*args):
@@ -586,7 +631,8 @@ def train_bert(mx, card, attn_ms, profile=False):
         trainer.step(1)
         losses.append(loss.asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()}
+    counts = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
+              if name.startswith("flash_attention")}
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     median_ms = statistics.median(step_ms[2:])
@@ -615,7 +661,9 @@ def train_bert(mx, card, attn_ms, profile=False):
         log(f"train: parameters without a finite gradient after the first "
             f"backward: {missing}")
     if profile:
-        profile_steps(mx, net, trainer, batch)
+        profile_steps(lambda: [train_step(mx, net, trainer, batch)
+                               for _ in range(2)],
+                      "train_profile.txt", "train")
     del net, trainer, batch
     torch.cuda.empty_cache()
     checks.update(train_card_vs_cpu(mx, data))
@@ -665,24 +713,394 @@ def train_card_vs_cpu(mx, data):
             "card_vs_cpu_grad": grad_err <= TRAIN_GRAD_RTOL}
 
 
-def profile_steps(mx, net, trainer, batch):
-    """A torch.profiler table of two training steps, by CUDA time, into
-    chiprun_out/train_profile.txt; its top rows are printed."""
+def profile_steps(run_two_steps, filename, title):
+    """A torch.profiler table of ``run_two_steps()`` by CUDA time, into
+    chiprun_out/<filename>; its top rows are printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with tprofile(activities=acts) as prof:
-        for _ in range(2):
-            train_step(mx, net, trainer, batch)
+        run_two_steps()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "train_profile.txt").write_text(table)
-    log("train profile (2 steps, by CUDA time):")
+    (out / filename).write_text(table)
+    log(f"{title} profile (2 steps, by CUDA time):")
     log("\n".join(table.splitlines()[:28]))
+
+
+# -- phase 6: the ResNet kernels ----------------------------------------------
+
+
+def resnet_kernel_shapes():
+    """The (M, K, N) each fused kernel gets from ResNet-50 v1 (stride on
+    conv1): in training at batch 128, 224^2 (stage sizes 56, 28, 14, 7),
+    conv1 and downsample through ``matmul_bn_stats``, conv3 through
+    ``bn_act_matmul_stats``, bn2's C through ``bn_stats``; in predict mode
+    at batch 64, conv3 through ``bn_act_matmul``."""
+    mm, act_stats, act, stats = [], [], [], []
+    for i, (width, s) in enumerate(zip((64, 128, 256, 512),
+                                       (56, 28, 14, 7))):
+        m = RESNET_BATCH * s * s
+        cin = 64 if i == 0 else 2 * width
+        mm += [(m, cin, width), (m, 4 * width, width), (m, cin, 4 * width)]
+        act_stats.append((m, width, 4 * width))
+        act.append((PREDICT_BATCH * s * s, width, 4 * width))
+        stats.append((m, width))
+    return sorted(set(mm)), act_stats, act, stats
+
+
+def gemm_bound(m, k, n, dtype, prologue, stats):
+    """Least time (ms): x, w read once, y written once (plus scale and
+    shift read, the fp32 sums written); 2*M*K*N operations at the dtype's
+    peak."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = ((m * k + k * n + m * n) * item + (2 * k * 4 if prologue else 0)
+              + (2 * n * 4 if stats else 0))
+    return least_ms(nbytes, 2.0 * m * k * n, dtype)
+
+
+def check_stats(got, ref, y, rounded):
+    """Column sums of ``y`` and its squares: within 1e-5 of the sum of
+    magnitudes (fp32 sums in other orders), plus, where y was rounded to
+    bf16, 2^-7 of it (2^-6 for the squares): each element may round to the
+    neighbouring bf16 value.  Returns the largest error and whether it
+    holds."""
+    yf = y.float()
+    mags = (yf.abs().sum(dim=0), (yf * yf).sum(dim=0))
+    worst, ok = 0.0, True
+    for i, (g, r, mag) in enumerate(zip(got, ref, mags)):
+        bound = (1e-5 + 2.0 ** -7 * (i + 1) * rounded) * mag + 1e-5
+        err = (g.reshape(-1) - r.reshape(-1)).abs()
+        worst = max(worst, err.max().item())
+        ok = ok and bool((err <= bound).all())
+    return worst, ok
+
+
+def check_resnet_kernels(dev):
+    """Rows 7-10 of the kernel table against their plain versions at the
+    ResNet-50 shapes on ``dev``; returns each kernel's record at its main
+    shape (stage 1: bf16 in training, fp32 in predict mode)."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import batch_norm as kbn
+    from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mm, act_stats, act, stats = resnet_kernel_shapes()
+    # each kernel's record: stage 1, in the dtype of its main path
+    main_case = {"bn_stats": (stats[0], "bfloat16", False),
+                 "matmul_bn_stats": ((RESNET_BATCH * 56 * 56, 256, 64),
+                                     "bfloat16", False),
+                 "bn_act_matmul_stats": (act_stats[0], "bfloat16", True),
+                 "bn_act_matmul": (act[0], "float32", True)}
+    main = {}
+    log(f"resnet kernels: kernel vs plain (y atol/rtol fp32 "
+        f"{FUSED_TOL['float32']}, bf16 {FUSED_TOL['bfloat16']}; sums within "
+        f"1e-5 of their magnitudes, plus 2^-7 where y is bf16); library = "
+        f"torch.matmul at the same shape (the product alone) or "
+        f"torch.var_mean")
+
+    def rand(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.rand(*shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def record(name, key, err, ok, kern, plain, lib, bound, label):
+        log(f"  {name:20s} {label} err={err:.3g} kernel={kern:.4f}ms "
+            f"plain={plain:.4f}ms library={lib:.4f}ms bound={bound[0]:.4f}ms "
+            f"({bound[1]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} kernel disagrees with its plain "
+                             f"version: {label}")
+        if key:
+            main[name] = {"max_abs_err": err, "ms": kern, "plain_ms": plain,
+                          "bound_ms": bound[0], "bound_by": bound[1],
+                          "library_ms": lib, "shape": label}
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for m, c in stats:
+            x = rand(m, c, dtype=dt, shift=-0.3)
+            got, ref = kbn.bn_stats_fwd(x), kbn.bn_stats_plain(x)
+            err, ok = check_stats(got, ref, x, False)
+            bound = least_ms(m * c * x.element_size() + 2 * c * 4,
+                             3.0 * m * c, "float32")
+            record("bn_stats",
+                   main_case["bn_stats"] == ((m, c), dtype, False), err, ok,
+                   cuda_ms(lambda: kbn.bn_stats_fwd(x), 10),
+                   cuda_ms(lambda: kbn.bn_stats_plain(x), 3),
+                   cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0),
+                           10), bound, f"M={m} C={c} {dtype}")
+            del x
+        cases = [("matmul_bn_stats", shape, False) for shape in mm]
+        cases += [("bn_act_matmul_stats", shape, relu)
+                  for shape in act_stats for relu in (True, False)]
+        cases += [("bn_act_matmul", shape, relu)
+                  for shape in act for relu in (True, False)]
+        for name, (m, k, n), relu in cases:
+            x = rand(m, k, dtype=dt, shift=-0.5)
+            w = rand(k, n, dtype=dt, scale=2.0 / k ** 0.5,
+                     shift=-1.0 / k ** 0.5)
+            prologue = name != "matmul_bn_stats"
+            args = ((x, rand(1, k, shift=0.5), rand(1, k, shift=-0.5), w, relu)
+                    if prologue else (x, w))
+            fwd = getattr(kcf, f"{name}_fwd")
+            plain = getattr(kcf, f"{name}_plain")
+            got, ref = fwd(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            atol, rtol = FUSED_TOL[dtype]
+            err = (got[0].float() - ref[0].float()).abs().max().item()
+            ok = bool(torch.isfinite(got[0]).all()) and torch.allclose(
+                got[0].float(), ref[0].float(), atol=atol, rtol=rtol)
+            if len(got) == 3:
+                ok = ok and check_stats(got[1:], ref[1:], ref[0],
+                                        dtype == "bfloat16")[1]
+            del got, ref
+            record(name, main_case[name] == ((m, k, n), dtype, relu), err, ok,
+                   cuda_ms(lambda: fwd(*args), 10),
+                   cuda_ms(lambda: plain(*args), 3),
+                   cuda_ms(lambda: torch.matmul(x, w), 10),
+                   gemm_bound(m, k, n, dtype, prologue,
+                              name.endswith("stats")),
+                   f"M={m} K={k} N={n} {dtype} relu={relu}")
+            del x, w, args
+        torch.cuda.empty_cache()
+    check_fused_function_gradients(kbn, kcf, dev)
+    return main
+
+
+def check_fused_function_gradients(kbn, kcf, dev):
+    """The four autograd Functions on the card (kernel forwards, plain
+    backwards) against torch.autograd through the plain forwards, fp32 at
+    a stage-4 shape: within 1e-4 absolute plus 1e-4 relative of each
+    gradient's largest magnitude."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m, k, n = 6272, 512, 256
+    x = torch.rand(m, k, generator=gen, device=dev) - 0.5
+    w = (torch.rand(k, n, generator=gen, device=dev) - 0.5) * 0.1
+    sc = torch.rand(1, k, generator=gen, device=dev) + 0.5
+    sh = torch.rand(1, k, generator=gen, device=dev) - 0.5
+    cot = [torch.randn(m, n, generator=gen, device=dev),
+           torch.randn(1, n, generator=gen, device=dev),
+           torch.randn(1, n, generator=gen, device=dev) * 0.01]
+    ccot = [torch.randn(k, generator=gen, device=dev) for _ in range(2)]
+
+    def grads(fn, args, cots):
+        ts = [a.clone().requires_grad_(True) for a in args]
+        outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(
+            sum((o.float() * c).sum() for o, c in zip(outs, cots)), ts)
+
+    cases = [
+        ("matmul_bn_stats", kcf.matmul_bn_stats, kcf.matmul_bn_stats_plain,
+         (x, w), cot),
+        ("bn_act_matmul", lambda *a: kcf.bn_act_matmul(*a, True),
+         lambda *a: kcf.bn_act_matmul_plain(*a, True), (x, sc, sh, w), cot),
+        ("bn_act_matmul_stats", lambda *a: kcf.bn_act_matmul_stats(*a, True),
+         lambda *a: kcf.bn_act_matmul_stats_plain(*a, True),
+         (x, sc, sh, w), cot),
+        ("bn_stats", kbn.bn_stats, kbn.bn_stats_plain, (x,), ccot)]
+    worst, ok = 0.0, True
+    for name, fn, plain, args, cots in cases:
+        for g, r in zip(grads(fn, args, cots), grads(plain, args, cots)):
+            scale = r.abs().max().item()
+            worst = max(worst, (g - r).abs().max().item() / max(scale, 1e-30))
+            ok = ok and bool(((g - r).abs() <= 1e-4 * scale
+                              + 1e-4 * r.abs()).all())
+    log(f"resnet kernels: autograd Functions on the card vs autograd of the "
+        f"plain forwards, M={m} K={k} N={n} fp32: max err / max |grad| "
+        f"{worst:.3g} (atol 1e-4 of the largest, rtol 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fused kernels' autograd Functions disagree "
+                         "with autograd through the plain forwards")
+
+
+# -- phases 7-9: ResNet-50 ----------------------------------------------------
+
+
+def resnet50(mx, ctx, fuse):
+    """ResNet-50 v1, NHWC, 1000 classes, Xavier from seed 0 (deferred
+    shapes); ``fuse`` sets MXTPU_CONV_EPILOGUE, which the bottlenecks read
+    when they are built."""
+    os.environ["MXTPU_CONV_EPILOGUE"] = "pallas" if fuse else ""
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC", classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def resnet_trainer(mx, net, compute_dtype=None):
+    """train_imagenet.py's optimizer settings."""
+    return mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+        compute_dtype=compute_dtype)
+
+
+def synthetic_images(rng, batch, image):
+    x = rng.rand(batch, image, image, 3).astype("float32")
+    y = rng.randint(0, 1000, batch).astype("float32")
+    return x, y
+
+
+def train_resnet(mx, card, profile=False):
+    """20 bf16 steps of fused ResNet-50 through DataParallelTrainer at
+    b=128, 224^2; then predict mode at b=64.  Returns the launch counts of
+    both runs."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    net = resnet50(mx, gpu, fuse=True)
+    x, y = synthetic_images(np.random.RandomState(0), RESNET_BATCH,
+                            RESNET_IMAGE)
+    xg, yg = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    trainer = resnet_trainer(mx, net, compute_dtype="bfloat16")
+    trainer.build(xg)  # deferred shapes: one predict-mode probe
+    start = [p.detach().clone() for p in trainer._params]
+    names = [n for n, _ in trainer._named]
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+
+    kernels.reset_counts()
+    for _ in range(RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(xg, yg)
+        losses.append(loss.asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: (c.launches, c.plain_calls_on_cuda)
+              for k, c in kernels.KERNEL_COUNTS.items()}
+
+    n = RESNET_STEPS
+    median_ms = statistics.median(step_ms[2:])
+    log(f"resnet train: ResNet-50 v1 NHWC fused, b={RESNET_BATCH} "
+        f"{RESNET_IMAGE}^2, bf16 compute, SGD momentum, {n} steps; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step median {median_ms:.3f} "
+        f"ms over steps 3-{n} (first {step_ms[0]:.1f} ms), "
+        f"{RESNET_BATCH / (median_ms / 1e3):.1f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    log(f"resnet train: losses {[round(v, 4) for v in losses]}")
+    log(f"resnet train: (launches, plain calls on cuda) {counts}")
+    unchanged, bad, still = [], [], []
+    for name, p0, p1, tr in zip(names, start, trainer._params,
+                                trainer._trainable):
+        if not bool(torch.isfinite(p1).all()):
+            bad.append(name)
+        if tr and torch.equal(p0, p1):
+            unchanged.append(name)
+        if "running" in name and torch.equal(p0, p1):
+            still.append(name)
+    expect = {"matmul_bn_stats": 20 * n, "bn_stats": 16 * n,
+              "bn_act_matmul_stats": 16 * n}
+    checks = {
+        "launches": all(counts[k][0] == v for k, v in expect.items()),
+        "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
+        "finite_losses": all(np.isfinite(losses)),
+        # at lr 0.1 the loss on one batch swings from step to step: the
+        # mean of the last 5 must be below the first
+        "loss_falls": statistics.mean(losses[-5:]) < losses[0],
+        "parameters_change": not unchanged,
+        "parameters_finite": not bad,
+        "running_stats_move": not still,
+    }
+    if unchanged or bad or still:
+        log(f"resnet train: unchanged {unchanged[:5]}, non-finite "
+            f"{bad[:5]}, running stats that did not move {still[:5]}")
+    if profile:
+        profile_steps(lambda: [trainer.step(xg, yg) for _ in range(2)],
+                      "resnet_profile.txt", "resnet train")
+
+    # predict mode on the trained weights, b=64, fp32
+    trainer.sync_to_block()
+    del trainer
+    torch.cuda.empty_cache()
+    xp = xg[:PREDICT_BATCH].contiguous()
+    net(xp)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = net(xp)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3 / reps
+    pcounts = {k: (c.launches, c.plain_calls_on_cuda)
+               for k, c in kernels.KERNEL_COUNTS.items()}
+    log(f"resnet predict: b={PREDICT_BATCH} fp32 forward {fwd_ms:.3f} ms, "
+        f"{PREDICT_BATCH / (fwd_ms / 1e3):.1f} images/s; (launches, plain "
+        f"calls on cuda) {pcounts}")
+    checks["predict_launches"] = pcounts["bn_act_matmul"][0] == 16 * reps
+    checks["predict_plain_calls_on_cuda"] = all(
+        c[1] == 0 for c in pcounts.values())
+    checks["predict_output"] = tuple(out.shape) == (PREDICT_BATCH, 1000) \
+        and bool(torch.isfinite(out.data).all())
+    del net, xg, yg, xp, out
+    torch.cuda.empty_cache()
+    checks.update(resnet_references(mx))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"resnet checks failed: {failed}")
+    return ({k: counts[k][0] for k in expect},
+            pcounts["bn_act_matmul"][0])
+
+
+def resnet_references(mx):
+    """Two fp32 steps at b=8, 112^2 (TF32 off) from the same weights: the
+    fused net on the card, on the CPU, and the standard net on the card.
+    Their losses and the first step's update of the first bottleneck's
+    conv1 weight must agree."""
+    import numpy as np
+
+    x, y = synthetic_images(np.random.RandomState(1), 8, 112)
+    key = "features.4.0.body.0.weight"
+    runs, weights = {}, None
+    for label, ctx, fuse in (("fused card", mx.gpu(0), True),
+                             ("fused cpu", mx.cpu(), True),
+                             ("standard card", mx.gpu(0), False)):
+        net = resnet50(mx, ctx, fuse)
+        trainer = resnet_trainer(mx, net)
+        if weights is None:
+            trainer.build(mx.nd.array(x, ctx=ctx))
+            weights = {k: p.data().detach().cpu().numpy().copy() for k, p in
+                       net._collect_params_with_prefix().items()}
+        else:
+            mx.load_numpy_params(net, weights)
+        xa, ya = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        losses = [trainer.step(xa, ya).asscalar()]
+        trainer.sync_to_block()
+        after = net._collect_params_with_prefix()[key].data()
+        update = after.detach().cpu().numpy() - weights[key]
+        losses.append(trainer.step(xa, ya).asscalar())
+        runs[label] = (losses, update)
+        del net, trainer
+    (ref1, ref2), ref_upd = runs["fused card"]
+    checks = {}
+    for label in ("fused cpu", "standard card"):
+        (l1, l2), upd = runs[label]
+        err1, err2 = abs(ref1 - l1) / abs(l1), abs(ref2 - l2) / abs(l2)
+        upd_err = float(np.linalg.norm(ref_upd - upd) / np.linalg.norm(upd))
+        log(f"resnet reference: fused card vs {label}, b=8 112^2 fp32, 2 "
+            f"steps: losses {[ref1, ref2]} vs {[l1, l2]}, rel err "
+            f"{err1:.3g} (rtol {RESNET_LOSS1_RTOL}) and {err2:.3g} (rtol "
+            f"{RESNET_LOSS2_RTOL}); step-1 update of {key} rel err (L2) "
+            f"{upd_err:.3g} (rtol {RESNET_UPDATE_RTOL})")
+        slug = label.replace(" ", "_")
+        checks[f"{slug}_loss1"] = err1 <= RESNET_LOSS1_RTOL
+        checks[f"{slug}_update"] = upd_err <= RESNET_UPDATE_RTOL
+        checks[f"{slug}_loss2"] = err2 <= RESNET_LOSS2_RTOL
+    return checks
 
 
 def main():
@@ -690,7 +1108,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-train", action="store_true",
-                    help="also profile two training steps")
+                    help="also profile two BERT training steps")
+    ap.add_argument("--profile-resnet", action="store_true",
+                    help="also profile two ResNet-50 training steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -723,8 +1143,11 @@ def main():
     bwd = check_flash_attention_bwd(mx)
     serve = serve_bert(mx, card, flash["ms"])
     train = train_bert(mx, card, bwd, profile=args.profile_train)
+    rkern = check_resnet_kernels(torch.device("cuda", 0))
+    rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
+    cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
     fwd_launches = serve["launches"] + train["flash_attention_fwd"]
     record = {"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
@@ -741,6 +1164,23 @@ def main():
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:471,299",
              launches=train["flash_attention_bwd_dkv"], **bwd["dkv"]),
+        dict(name="bn_stats", route="cuda",
+             source="mxnet_tpu_torch/csrc/batch_norm.cu",
+             replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",
+             launches=rtrain["bn_stats"], **rkern["bn_stats"]),
+        dict(name="matmul_bn_stats", route="cuda",
+             source="mxnet_tpu_torch/csrc/conv_fused.cu",
+             replaces=f"{cf_src}:123",
+             launches=rtrain["matmul_bn_stats"], **rkern["matmul_bn_stats"]),
+        dict(name="bn_act_matmul", route="cuda",
+             source="mxnet_tpu_torch/csrc/conv_fused.cu",
+             replaces=f"{cf_src}:227", launches=rpredict,
+             **rkern["bn_act_matmul"]),
+        dict(name="bn_act_matmul_stats", route="cuda",
+             source="mxnet_tpu_torch/csrc/conv_fused.cu",
+             replaces=f"{cf_src}:323",
+             launches=rtrain["bn_act_matmul_stats"],
+             **rkern["bn_act_matmul_stats"]),
     ]}
     log(card)
     log(json.dumps(record))

@@ -15,5 +15,5 @@ from . import autograd, lr_scheduler, ops, optimizer, random  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import gluon  # noqa: F401
-from . import models, serve  # noqa: F401
+from . import models, parallel, serve  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

@@ -82,6 +82,11 @@ class Block(torch.nn.Module):
     def _children(self):
         return self._modules
 
+    def _ordered_params(self):
+        """``(name, Parameter)`` in a stable order: the order of
+        :meth:`collect_params` (ref: ``Block._ordered_params``)."""
+        return list(self.collect_params().items())
+
     def collect_params(self):
         ret = ParameterDict(self._params.prefix)
         ret.update(self._params)
@@ -157,6 +162,14 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+def commit_aux(value, new_value):
+    """Write ``new_value`` into the auxiliary state ``value`` (BatchNorm's
+    moving statistics) in place, outside autograd; the ops return the new
+    statistics and the layer that owns them commits them."""
+    with torch.no_grad():
+        value.copy_(new_value)
 
 
 class CachedOp:

@@ -1,10 +1,11 @@
 """Basic Gluon layers (ref: python/mxnet/gluon/nn/basic_layers.py): the
-ones BERT uses."""
+ones BERT and ResNet use."""
 from __future__ import annotations
 
 import math
 
-from ..block import HybridBlock
+from ... import autograd
+from ..block import HybridBlock, commit_aux
 
 
 class HybridSequential(HybridBlock):
@@ -27,6 +28,9 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._layers)
+
+    def __getitem__(self, i):
+        return self._layers[i]
 
 
 class Dense(HybridBlock):
@@ -107,3 +111,69 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class Activation(HybridBlock):
+    """Ref: nn.Activation -> Activation op."""
+
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
+        self._act = activation
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act)
+
+
+class Flatten(HybridBlock):
+    """Every axis after the first folded into one."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+
+class BatchNorm(HybridBlock):
+    """Ref: nn.BatchNorm (``gluon/nn/basic_layers.py:191``).  The moving
+    statistics are ``grad_req='null'`` parameters; the BatchNorm op
+    returns their new values and the layer commits them in place after
+    each training forward."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=running_mean_initializer, allow_deferred_init=True)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=running_variance_initializer, allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        train = autograd.is_training()
+        out, new_mm, new_mv = F.BatchNorm(x, gamma, beta, running_mean,
+                                          running_var, _train=train,
+                                          **self._kwargs)
+        if train and not self._kwargs["use_global_stats"]:
+            commit_aux(running_mean, new_mm)
+            commit_aux(running_var, new_mv)
+        return out

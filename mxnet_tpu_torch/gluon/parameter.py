@@ -50,6 +50,11 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self._deferred_init = None   # (init, ctx, default_init)
         self._owners = []            # (weakref to block, attribute name)
+        # the value blocks see in place of _data while a trainer that keeps
+        # its own copies runs a forward (parallel.DataParallelTrainer)
+        self._traced_value = None
+        # hints for the initializer (``InitDesc.attrs``), set by layers
+        self._init_attrs = None
 
     # -- shape with merge-of-unknowns (MXNet uses 0 for unknown dims) ------
 
@@ -132,7 +137,7 @@ class Parameter:
             initializer = init_mod.create(initializer)
         data = torch.empty(self._shape, dtype=to_torch_dtype(self.dtype),
                            device=ctx.torch_device())
-        initializer(init_mod.InitDesc(self.name), data)
+        initializer(init_mod.InitDesc(self.name, self._init_attrs), data)
         self._data = torch.nn.Parameter(data, requires_grad=False)
         autograd.mark_variables([self._data], [None], self._grad_req)
         self._deferred_init = None
@@ -149,7 +154,11 @@ class Parameter:
     # -- access -------------------------------------------------------------
 
     def data(self, ctx=None):
-        """The value, a ``torch.nn.Parameter``."""
+        """The value, a ``torch.nn.Parameter`` (or, inside a forward that
+        :class:`~mxnet_tpu_torch.parallel.DataParallelTrainer` runs, the
+        trainer's tensor for it)."""
+        if self._traced_value is not None:
+            return self._traced_value
         if self._data is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(

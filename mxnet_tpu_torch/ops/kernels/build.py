@@ -2,11 +2,13 @@
 
 Each ``mxnet_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
-loaded with ``ctypes``.  Nothing is built at import: a kernel library
-builds at its first launch (or ahead of time through :func:`build_all`,
-one ``nvcc`` per source, all started together).  Libraries go to
-``mxnet_tpu_torch/_build/``, named by a hash of the source and the flags,
-so an edited source is rebuilt; ``.gitignore`` lists the directory.
+loaded with ``ctypes``; headers under ``csrc/`` (``*.cuh``) hold device
+code that several sources include.  Nothing is built at import: a kernel
+library builds at its first launch (or ahead of time through
+:func:`build_all`, one ``nvcc`` per source, all started together).
+Libraries go to ``mxnet_tpu_torch/_build/``, named by a hash of the
+source, the headers and the flags, so an edited source is rebuilt;
+``.gitignore`` lists the directory.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ class KernelLibrary:
 
     def _target(self):
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared device code
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"
 
@@ -93,7 +97,41 @@ class KernelLibrary:
             if self._lib is None:
                 path = self.finish_build(self.start_build())
                 self._lib = ctypes.CDLL(str(path))
+                fn = self._lib.mxtt_cuda_error_string
+                fn.argtypes = [ctypes.c_int]
+                fn.restype = ctypes.c_char_p
             return self._lib
+
+    def raise_on_error(self, err, what):
+        """Raise :class:`MXNetError` for a non-zero ``cudaError_t`` that a
+        launch function of this library returned."""
+        if err != 0:
+            msg = self.load().mxtt_cuda_error_string(err).decode()
+            raise MXNetError(f"{what} kernel launch failed: {msg} "
+                             f"(cudaError {err})")
+
+
+class KernelCounts:
+    """Launch counters of one kernel wrapper.
+
+    ``launches`` grows by one per call that launches the kernel.
+    ``plain_calls_on_cuda`` grows by one each time an entry sends CUDA
+    tensors to the plain version by one of the JAX package's shape rules,
+    decided before any launch."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.plain_calls_on_cuda = 0
+
+    def add(self, name):
+        with self._lock:
+            setattr(self, name, getattr(self, name) + 1)
+
+    def reset(self):
+        with self._lock:
+            self.launches = 0
+            self.plain_calls_on_cuda = 0
 
 
 def build_all(libraries):

@@ -43,41 +43,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
 from ...base import MXNetError
-from .build import KernelLibrary
+from .build import KernelCounts, KernelLibrary
 
 NEG_INF = -1e9
 #: head dims the kernel is instantiated for (multiples of 64, up to 256)
 HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class KernelCounts:
-    """Launch counters of one kernel wrapper.
-
-    ``launches`` grows by one per kernel launch.  ``plain_calls_on_cuda``
-    grows by one each time the entry sends CUDA tensors to the oracle by
-    a shape rule (a full score mask, causal with sq != sk, a head dim the
-    kernel does not take)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.launches = 0
-        self.plain_calls_on_cuda = 0
-
-    def add(self, name):
-        with self._lock:
-            setattr(self, name, getattr(self, name) + 1)
-
-    def reset(self):
-        with self._lock:
-            self.launches = 0
-            self.plain_calls_on_cuda = 0
-
 
 #: the forward kernel's counters; ``plain_calls_on_cuda`` counts the
 #: entry's oracle routes
@@ -97,8 +72,6 @@ def _bind(lib):
                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
                        ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
-        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
     return fn
 
 
@@ -193,16 +166,9 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
                  stream)
-    _raise_on_error(library, err, "flash attention")
+    library.raise_on_error(err, "flash attention")
     counts.add("launches")
     return o, lse
-
-
-def _raise_on_error(lib, err, what):
-    if err != 0:
-        msg = lib.load().mxtt_cuda_error_string(err).decode()
-        raise MXNetError(f"{what} kernel launch failed: {msg} "
-                         f"(cudaError {err})")
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
@@ -245,9 +211,6 @@ def _bind_bwd(lib):
             fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p,
                                                ctypes.c_float, i, i, p]
             fn.restype = ctypes.c_int
-    if lib.mxtt_cuda_error_string.argtypes is None:
-        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
     return lib.mxtt_flash_attention_bwd_dq, lib.mxtt_flash_attention_bwd_dkv
 
 
@@ -268,7 +231,7 @@ def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
                  *(t.data_ptr() for t in outs), b, h, sq, k.shape[2], d,
                  ctypes.cast(strides, ctypes.c_void_p), float(scale),
                  int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
-    _raise_on_error(bwd_library, err, what)
+    bwd_library.raise_on_error(err, what)
     counter.add("launches")
 
 

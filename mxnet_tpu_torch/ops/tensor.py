@@ -1,7 +1,8 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that BERT
-serving and training and the ported losses run (reshape, slice_axis,
-take, pick, Embedding, arange, broadcast_lesser, broadcast_mul, the sum
-and mean reductions, and the elementwise square, abs, relu and log)."""
+serving and training, the ported losses and ResNet run (reshape, flatten,
+slice_axis, take, pick, Embedding, arange, broadcast_lesser,
+broadcast_mul, the sum and mean reductions, and the elementwise square,
+abs, relu and log)."""
 from __future__ import annotations
 
 import torch
@@ -23,6 +24,14 @@ def _k_reshape(data, shape):
 
 
 register("reshape", _k_reshape, aliases=("Reshape",))
+
+
+def _k_flatten(data):
+    """Every axis after the first folded into one (ref: ops/tensor.py:333)."""
+    return data.reshape(data.shape[0], -1)
+
+
+register("flatten", _k_flatten, aliases=("Flatten",))
 
 
 def _k_slice_axis(data, axis, begin, end):
