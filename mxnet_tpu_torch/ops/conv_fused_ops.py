@@ -104,20 +104,13 @@ def _k_bn_fold(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     channel-last activation without writing a normalized copy of it; the
     consumer applies ``data*scale + shift``, typically inside
     ``conv1x1_bn_act``'s input read.  Training takes the batch's statistics
-    in one pass: the ``bn_stats`` kernel where the JAX package's gate
-    (``stats_supported``) takes the shape, else the plain sums."""
+    in one pass through ``bn_stats``: its kernel where the JAX package's
+    gate (``stats_supported``) takes the shape, else the plain sums."""
     C = data.shape[-1]
     n = data.numel() // C
     ss = qq = None
     if _train:
-        x2d = data.reshape(n, C)
-        if _kbn.stats_supported(n, C):
-            ss, qq = _kbn.bn_stats(x2d)
-        else:
-            if data.is_cuda:
-                _kbn.counts.add("plain_calls_on_cuda")
-            xf = x2d.float()
-            ss, qq = xf.sum(dim=0), (xf * xf).sum(dim=0)
+        ss, qq = _kbn.bn_stats(data.reshape(n, C))
     return _fold_stats(ss, qq, n, gamma, beta, moving_mean, moving_var,
                        eps=eps, momentum=momentum, fix_gamma=fix_gamma,
                        train=bool(_train))

@@ -12,10 +12,10 @@ what bounds it on an H100 and how it is built.
   launches the kernel or raises for what the kernel does not take.
 - :class:`BnStatsFunction` is its ``torch.autograd.Function``, with the
   JAX package's backward ``dx = ds + 2*x*dq`` (``_bn_stats_bwd``).
-- :func:`bn_stats` is the differentiable function the ops call (ref: the
-  ``jax.custom_vjp`` ``bn_stats``); the ops decide with
-  :func:`stats_supported` first, as the JAX package's ops do, and count
-  the shapes it refuses on CUDA tensors in ``counts.plain_calls_on_cuda``.
+- :func:`bn_stats` is the entry the ops call (ref: the ``jax.custom_vjp``
+  ``bn_stats``).  As the JAX package's ops do, it sends a shape that
+  :func:`stats_supported` refuses to the plain sums before any launch; on
+  CUDA tensors such a call counts in ``counts.plain_calls_on_cuda``.
 """
 from __future__ import annotations
 
@@ -117,5 +117,9 @@ class BnStatsFunction(torch.autograd.Function):
 
 def bn_stats(x2d):
     """``(M, C) -> (sum[C], sumsq[C])`` fp32, differentiable (ref:
-    ``bn_stats``, ``ops/pallas/batch_norm.py:64``)."""
+    ``bn_stats``, ``ops/pallas/batch_norm.py:64``): the kernel where
+    :func:`stats_supported` takes the shape, else the plain sums."""
+    if x2d.is_cuda and not stats_supported(*x2d.shape):
+        counts.add("plain_calls_on_cuda")
+        return bn_stats_plain(x2d)
     return BnStatsFunction.apply(x2d)

@@ -153,16 +153,13 @@ register("Pooling", _k_pooling, aliases=("pooling",))
 
 
 def _bn_stats_use_pallas():
-    """``MXTPU_BN_STATS=pallas``: the one-pass statistics kernel (row 7 of
-    the kernel table) for channel-last training BatchNorm."""
+    """``MXTPU_BN_STATS=pallas``: training BatchNorm takes its statistics
+    through autograd, from the one-pass statistics kernel (row 7 of the
+    kernel table) on channel-last input, instead of the default
+    closed-form Function (ops/nn.py:227-258).  A shape the kernel's gate
+    refuses takes ``bn_stats``' plain sums, which square in fp32 where the
+    JAX op squares in the data's dtype: they differ for bf16 input only."""
     return getenv("BN_STATS", "jnp").lower() == "pallas"
-
-
-def _bn_fused_enabled():
-    """The closed-form train BatchNorm (default; ``MXTPU_BN_FUSED=0``
-    reverts to autograd of the statistics; ``MXTPU_BN_STATS=pallas`` takes
-    precedence), as ``_bn_fused_enabled`` (ops/nn.py:241)."""
-    return getenv("BN_FUSED", "1") != "0" and not _bn_stats_use_pallas()
 
 
 def _bn_shape(x, red):
@@ -240,7 +237,7 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     train = _train and not use_global_stats
-    if train and _bn_fused_enabled():
+    if train and not _bn_stats_use_pallas():
         out, mean, var = _BnTrainFused.apply(data, g.float(), beta.float(),
                                              float(eps), red)
         with torch.no_grad():
@@ -251,17 +248,12 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         return out, new_mm, new_mv
     if train:
         n = math.prod(data.shape[i] for i in red)
-        mean = sumsq_mean = None
-        if axis == data.dim() - 1 and _bn_stats_use_pallas():
+        if axis == data.dim() - 1:
             from .kernels import batch_norm as _kbn
 
-            C = data.shape[-1]
-            if _kbn.stats_supported(n, C):
-                s, q = _kbn.bn_stats(data.reshape(n, C))
-                mean, sumsq_mean = s / n, q / n
-            elif data.is_cuda:
-                _kbn.counts.add("plain_calls_on_cuda")
-        if mean is None:
+            s, q = _kbn.bn_stats(data.reshape(n, data.shape[-1]))
+            mean, sumsq_mean = s / n, q / n
+        else:
             mean = data.float().mean(dim=red)
             sumsq_mean = torch.square(data).float().mean(dim=red)
         var = torch.clamp_min(sumsq_mean - torch.square(mean), 0.0)
