@@ -47,7 +47,35 @@ Phases (any failure ends the run with a non-zero exit and no result):
 9. ResNet references, fp32 with TF32 off, batch 8 at 112^2: 2 steps of the
    fused net on the card, the same on the CPU, and the standard (unfused)
    net on the card, from the same weights, must agree; the fused net on
-   the card with its input moved by one ulp gives the floor of those gaps.
+   the card with its input moved by one ulp gives the floor of those gaps;
+10. RNN kernels: the LSTM and GRU forward and backward kernels against
+    their plain versions (every forward output and every gradient) at
+    DeepAR training (T=96, N=32, H=40), DeepAR predict (T=73 and 96,
+    N=1600; T=96, N=3200), the GRU phase (T=35, N=32, H=200) and a large-H LSTM (T=35,
+    N=32, H=512), in fp32 and bf16, each backward run twice for
+    bit-identity; timed beside the plain versions, the bound, and cuDNN's
+    layer (``torch.nn.LSTM``/``GRU``, fp32) against the port's layer
+    (input GEMM plus kernel), forward and backward; and the autograd
+    Functions against autograd through the plain forwards;
+11. DeepAR train: ``deepar(40, 2)`` (GluonTS defaults: 2x40 LSTM,
+    Student-t head, dropout 0.1), Xavier, 20 Adam steps (lr 1e-3) at
+    batch 32, context 72 + prediction 24, on fresh covariate batches from
+    ``data.timeseries.InstanceSplitter`` over ``synthetic_dataset``; the
+    launch counts are read around the 20 steps; every parameter must have
+    a finite gradient after the first backward and the mean NLL of the
+    last 5 steps must be below the first;
+12. DeepAR predict: 16 context series of 72 points, 100 samples each
+    (N=1600), 24 sampling steps; then 32 series (GluonTS's default predict
+    batch: N=3200, past the JAX package's size rule for its kernel); the
+    launches are read around each;
+13. DeepAR card vs CPU: the same weights, dropout 0, fp32, batch 4: the
+    first NLL, ``lstm.l0_h2h_weight``'s gradient, 2 Adam steps' losses,
+    the first predict step's (mu, sigma, nu) (``DeepARNetwork.next_params``,
+    which ``predict`` calls) and ``predict``'s paths must agree;
+14. GRU: ``gluon.rnn.GRU(200, num_layers=2)``, TNC, T=35, N=32, input 200
+    (MXNet 1.x's word-language-model example with ``--model gru``), 20
+    Adam steps on an L2 loss against a fixed target; the launch counts
+    are read around the 20 steps and the loss must fall.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
@@ -125,6 +153,33 @@ RESNET_FC_UPDATE_RTOL = 5e-4
 RESNET_TOP_UPDATE_RTOL = 0.03
 RESNET_UPDATE_RTOL = 0.06
 RESNET_LOSS2_RTOL = 0.08
+
+# the recurrence kernels vs their plain versions, max |err| over max(1,
+# max |ref|): fp32, the same products and activations summed in other
+# orders through up to 96 dependent steps and, for dWh, over up to 307,200
+# rows; bf16 forward outputs (ys, hn, cn) are rounded to bf16 (2^-8
+# relative), so a value within rounding of a midpoint may round the other
+# way: two ulps
+RNN_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+DEEPAR_BATCH, DEEPAR_CONTEXT, DEEPAR_PREDICT = 32, 72, 24
+DEEPAR_STEPS, DEEPAR_SAMPLES = 20, 100
+# DeepAR card vs CPU (fp32, TF32 off, dropout 0, batch 4, same weights).
+# The first NLL is a mean over 4 x 96 positions of a 2-layer, 96-step
+# recurrence whose sums run in other orders on the two devices: 1e-5
+# relative.  l0_h2h_weight's gradient sums over all 96 steps of both
+# layers' backward: 1e-4 of its largest magnitude.  The losses of 2 Adam
+# steps (the second after an update of every weight): 1e-4 relative.  The
+# first predict step's (mu, sigma, nu), O(1) values out of the same
+# network: 1e-4 absolute.  predict's paths (4 series x 4 samples, 3 steps):
+# the same RandomState draws scaled by those parameters, each step's value
+# fed back as the next step's lag: 1e-4 of the largest |value|.
+DEEPAR_NLL_RTOL = 1e-5
+DEEPAR_GRAD_RTOL = 1e-4
+DEEPAR_LOSS_RTOL = 1e-4
+DEEPAR_PARAM_ATOL = 1e-4
+DEEPAR_PATH_RTOL = 1e-4
+# MXNet 1.x's example/gluon/word_language_model defaults with --model gru
+GRU_HIDDEN, GRU_T, GRU_BATCH, GRU_STEPS = 200, 35, 32, 20
 
 
 def log(*args):
@@ -1139,6 +1194,486 @@ def resnet_references(mx):
     return checks
 
 
+# -- phase 10: the RNN kernels -------------------------------------------------
+
+
+def rnn_kernel_shapes():
+    """(label, T, N, H, I) the recurrence kernels get: DeepAR training
+    (T=96, N=32, H=40; I=40 is its second layer), DeepAR predict (N=1600,
+    the path grows from T=73 to 96; N=3200 at GluonTS's default batch of
+    32 series, which the JAX package's size rule sends to its loop), the
+    GRU phase (T=35, N=32, H=200) and a large-H LSTM near that rule's
+    limit (T=35, N=32, H=512)."""
+    return (("deepar_train", 96, 32, 40, 40), ("deepar_predict", 73, 1600, 40, 40),
+            ("deepar_predict", 96, 1600, 40, 40),
+            ("deepar_predict", 96, 3200, 40, 40),
+            ("gru_phase", 35, 32, 200, 200), ("large_h", 35, 32, 512, 512))
+
+
+def rnn_bound(cell, direction, T, N, H, dtype):
+    """Least time (ms) of one recurrence kernel call: each input read once
+    and each output written once, in their dtypes (x_proj, wh, h0 and c0,
+    ys, hn and cn in ``dtype``; saved gates, cell states or hn_lin, and
+    every gradient in fp32); ``2*T*N*G*H*H`` operations for the forward's
+    recurrent product, twice that for the backward (dh_prev and dWh) at
+    the fp32 rate."""
+    G = 4 if cell == "lstm" else 3
+    item = 2 if dtype == "bfloat16" else 4
+    tn = T * N
+    if direction == "fwd":
+        nbytes = (tn * G * H * item + G * H * H * item + (G - 2) * N * H * item
+                  + tn * H * item + (G - 2) * N * H * item + tn * G * H * 4
+                  + tn * H * 4 + (G * H * item if cell == "gru" else 0))
+        return least_ms(nbytes, 2.0 * tn * G * H * H, dtype)
+    nbytes = (tn * H * 4 + tn * G * H * 4 + tn * H * 4 + tn * H * item
+              + G * H * H * 4 + 2 * (G - 2) * N * H * 4
+              + tn * G * H * 4 + G * H * H * 4 + (G - 2) * N * H * 4
+              + (G * H * 4 if cell == "gru" else 0))
+    return least_ms(nbytes, 4.0 * tn * G * H * H, "float32")
+
+
+def rnn_inputs(cell, T, N, H, I, dtype, dev, gen):
+    """Inputs of one case on ``dev``: x (T, N, I), Xavier-scaled Wi, Wh and
+    biases, small states, and unit cotangents."""
+    G = 4 if cell == "lstm" else 3
+    import torch
+
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale)
+
+    t = {"x": rnd(T, N, I, scale=0.5), "wi": rnd(G * H, I, scale=I ** -0.5),
+         "wh": rnd(G * H, H, scale=H ** -0.5), "b": rnd(G * H, scale=0.1),
+         "bh": rnd(G * H, scale=0.1), "h0": rnd(N, H, scale=0.1),
+         "c0": rnd(N, H, scale=0.1), "dys": rnd(T, N, H),
+         "dhn": rnd(N, H), "dcn": rnd(N, H)}
+    t["xp"] = (torch.matmul(t["x"], t["wi"].T) + t["b"]).to(dt)
+    for k in ("wh", "h0", "c0", "bh"):
+        t[k] = t[k].to(dt)
+    return t
+
+
+def rel_err(got, ref):
+    """Largest |got - ref| over the largest |ref| (at least 1)."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return (got.float() - ref.float()).abs().max().item() / scale
+
+
+def cudnn_layer(cell, t, H, I, N):
+    """torch.nn.LSTM/GRU (cuDNN) with the same weights: gate orders i,f,g,o
+    and r,z,n and the linear-before-reset GRU equal the JAX package's."""
+    import torch
+
+    mod = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(I, H).to(
+        t["x"].device)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(t["wi"])
+        mod.weight_hh_l0.copy_(t["wh"].float())
+        mod.bias_ih_l0.copy_(t["b"])
+        mod.bias_hh_l0.copy_(t["bh"].float() if cell == "gru"
+                             else torch.zeros_like(t["b"]))
+    h0 = t["h0"].float()[None]
+    state = (h0, t["c0"].float()[None]) if cell == "lstm" else h0
+    return mod, state
+
+
+def check_rnn_kernels(mx, dev):
+    """Rows 11-14 against their plain versions at every shape of
+    :func:`rnn_kernel_shapes`, fp32 and bf16, LSTM and GRU, forward
+    outputs and every backward output; timed beside the plain versions,
+    cuDNN's layer (fp32, against the port's layer: input GEMM plus kernel)
+    and the bound.  Returns each kernel's record at its main shape (fp32;
+    DeepAR training for the LSTM, the GRU phase for the GRU)."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    main = {}
+    log(f"rnn kernels: kernel vs plain, max |err| / max(1, max |ref|) within "
+        f"{RNN_TOL} (forward outputs in x_proj's dtype; gates, states and "
+        f"every gradient fp32); backward inputs are the plain forward's "
+        f"saved tensors; cudnn = torch.nn.LSTM/GRU, fp32, vs the port's "
+        f"layer (x @ Wi.T + b, then the kernel); per-step = kernel / T")
+    for label, T, N, H, I in rnn_kernel_shapes():
+        for cell in ("lstm", "gru"):
+            for dtype in ("float32", "bfloat16"):
+                t = rnn_inputs(cell, T, N, H, I, dtype, dev, gen)
+                if cell == "lstm":
+                    f_args = (t["xp"], t["wh"], t["h0"], t["c0"])
+                    fwd, fplain = kr.lstm_fwd, kr.lstm_fwd_plain
+                    bwd, bplain = kr.lstm_bwd, kr.lstm_bwd_plain
+                    ref = fplain(*f_args)
+                    b_args = (t["wh"], t["h0"], t["c0"], ref[0], ref[3],
+                              ref[4], t["dys"], t["dhn"], t["dcn"])
+                else:
+                    f_args = (t["xp"], t["wh"], t["bh"], t["h0"])
+                    fwd, fplain = kr.gru_fwd, kr.gru_fwd_plain
+                    bwd, bplain = kr.gru_bwd, kr.gru_bwd_plain
+                    ref = fplain(*f_args)
+                    b_args = (t["wh"], t["h0"], ref[0], ref[2], ref[3],
+                              t["dys"], t["dhn"])
+                got = fwd(*f_args)
+                bgot, bref = bwd(*b_args), bplain(*b_args)
+                torch.cuda.synchronize()
+                ferr = max(rel_err(g, r) for g, r in zip(got, ref))
+                berr = max(rel_err(g, r) for g, r in zip(bgot, bref))
+                ok = (ferr <= RNN_TOL[dtype] and berr <= RNN_TOL["float32"]
+                      and all(bool(torch.isfinite(g).all()) for g in got)
+                      and all(g.dtype == r.dtype and g.shape == r.shape
+                              for g, r in zip(got, ref)))
+                again = bwd(*b_args)
+                ok = ok and all(torch.equal(a, b) for a, b in zip(bgot, again))
+                del got, bgot, bref, again
+                f_ms = cuda_ms(lambda: fwd(*f_args), 10)
+                b_ms = cuda_ms(lambda: bwd(*b_args), 10)
+                fp_ms = cuda_ms(lambda: fplain(*f_args), 2, warmup=1)
+                bp_ms = cuda_ms(lambda: bplain(*b_args), 2, warmup=1)
+                fbound = rnn_bound(cell, "fwd", T, N, H, dtype)
+                bbound = rnn_bound(cell, "bwd", T, N, H, dtype)
+                lib = ""
+                rec = {}
+                if dtype == "float32":
+                    rec = rnn_layer_times(cell, t, T, N, H, I)
+                    lib = (f" | layer fwd port {rec['port_fwd']:.4f} cudnn "
+                           f"{rec['cudnn_fwd']:.4f} ms, bwd port "
+                           f"{rec['port_bwd']:.4f} cudnn "
+                           f"{rec['cudnn_bwd']:.4f} ms")
+                log(f"  {label:14s} {cell} T={T} N={N} H={H} {dtype:8s} "
+                    f"err fwd {ferr:.3g} bwd {berr:.3g} | fwd {f_ms:.4f} ms "
+                    f"({1e3 * f_ms / T:.2f} us/step, bound {fbound[0]:.4f} "
+                    f"{fbound[1]}, plain {fp_ms:.3f}) bwd {b_ms:.4f} ms "
+                    f"({1e3 * b_ms / T:.2f} us/step, bound {bbound[0]:.4f} "
+                    f"{bbound[1]}, plain {bp_ms:.3f}){lib} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{cell} kernels disagree with their "
+                                     f"plain versions: {label} T={T} "
+                                     f"{dtype}")
+                if dtype == "float32" and (label, cell) in (
+                        ("deepar_train", "lstm"), ("gru_phase", "gru")):
+                    for d, ms, pms, bound, err, lib_ms in (
+                            ("fwd", f_ms, fp_ms, fbound, ferr,
+                             rec["cudnn_fwd"]),
+                            ("bwd", b_ms, bp_ms, bbound, berr,
+                             rec["cudnn_bwd"])):
+                        main[f"{cell}_{d}"] = {
+                            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                            "bound_ms": bound[0], "bound_by": bound[1],
+                            "library_ms": lib_ms, "us_per_step": 1e3 * ms / T,
+                            "port_layer_ms": rec[f"port_{d}"],
+                            "shape": f"T={T} N={N} H={H} I={I} fp32"}
+                del t, f_args, b_args, ref
+        torch.cuda.empty_cache()
+    check_rnn_functions(kr, dev, gen)
+    return main
+
+
+def rnn_layer_times(cell, t, T, N, H, I):
+    """The port's layer (input GEMM + kernel) and cuDNN's, forward and
+    backward (autograd through each, the graph kept across calls), fp32."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    mod, state = cudnn_layer(cell, t, H, I, N)
+    x = t["x"].detach().requires_grad_(True)
+    wi = t["wi"].detach().requires_grad_(True)
+    wh = t["wh"].detach().requires_grad_(True)
+
+    def port():
+        xp = torch.matmul(x, wi.T) + t["b"]
+        if cell == "lstm":
+            return kr.lstm_layer(xp, wh, t["h0"], t["c0"])[0]
+        return kr.gru_layer(xp, wh, t["bh"], t["h0"])[0]
+
+    out = {"port_fwd": cuda_ms(port, 10),
+           "cudnn_fwd": cuda_ms(lambda: mod(x, state), 10)}
+    y = port()
+    out["port_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        y, (x, wi, wh), t["dys"], retain_graph=True), 10)
+    yc = mod(x, state)[0]
+    params = (x, mod.weight_ih_l0, mod.weight_hh_l0)
+    out["cudnn_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        yc, params, t["dys"], retain_graph=True), 10)
+    return out
+
+
+def check_rnn_functions(kr, dev, gen):
+    """lstm_layer and gru_layer on the card (kernel forward and backward)
+    against torch.autograd through the plain forward, fp32 at the DeepAR
+    and GRU-phase shapes: every gradient within RNN_TOL of its largest
+    magnitude."""
+    import torch
+
+    worst = 0.0
+    for cell, T, N, H in (("lstm", 96, 32, 40), ("gru", 35, 32, 200)):
+        t = rnn_inputs(cell, T, N, H, H, "float32", dev, gen)
+        keys = ("xp", "wh", "h0", "c0") if cell == "lstm" else \
+            ("xp", "wh", "bh", "h0")
+        grads = []
+        for fn in ((kr.lstm_layer, kr.lstm_layer_plain) if cell == "lstm"
+                   else (kr.gru_layer, kr.gru_layer_plain)):
+            ins = [t[k].clone().requires_grad_(True) for k in keys]
+            outs = fn(*ins)
+            loss = (outs[0] * t["dys"]).sum() + (outs[1] * t["dhn"]).sum()
+            grads.append(torch.autograd.grad(loss, ins))
+        worst = max(worst, max(rel_err(g, r) for g, r in zip(*grads)))
+    ok = worst <= RNN_TOL["float32"]
+    log(f"rnn kernels: lstm_layer/gru_layer on the card vs autograd of the "
+        f"plain forward, fp32: max err / max |grad| {worst:.3g} (limit "
+        f"{RNN_TOL['float32']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the RNN autograd Functions disagree with autograd "
+                         "through the plain forward")
+
+
+# -- phases 11-13: DeepAR -----------------------------------------------------
+
+
+def deepar_net(mx, ctx, dropout=0.1):
+    """GluonTS's DeepAR defaults: 2x40 LSTM, Student-t head, Xavier from
+    seed 0 (deferred input width)."""
+    mx.random.seed(0)
+    net = mx.models.deepar(40, 2, dropout=dropout)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def deepar_data():
+    """The port's GluonTS-style pipeline: 16 synthetic hourly series of 200
+    points and a splitter of context 72, prediction 24."""
+    import numpy as np
+
+    from mxnet_tpu_torch.data import timeseries as dts
+
+    ds = dts.synthetic_dataset(np.random.RandomState(0))
+    return ds, dts.InstanceSplitter(DEEPAR_CONTEXT, DEEPAR_PREDICT, seed=0)
+
+
+def train_deepar(mx, card):
+    """20 Adam steps of DeepAR at batch 32 on fresh covariate batches, then
+    predict; then card vs CPU.  Returns the launch counts of both runs."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    gpu = mx.gpu(0)
+    net = deepar_net(mx, gpu)
+    ds, splitter = deepar_data()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    losses, step_ms, missing = [], [], []
+    kernels.reset_counts()
+    for step in range(DEEPAR_STEPS):
+        inst = splitter.training_instances(ds, DEEPAR_BATCH)
+        series = mx.nd.array(inst["target"], ctx=gpu)
+        covs = mx.nd.array(inst["covariates"], ctx=gpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            nll = net(series, covs)
+        nll.backward()
+        if step == 0:
+            for name, p in net.collect_params().items():
+                g = p.data().grad
+                if g is None or not bool(torch.isfinite(g).all()):
+                    missing.append(name)
+        trainer.step(DEEPAR_BATCH)
+        losses.append(nll.asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: (kernels.KERNEL_COUNTS[k].launches,
+                  kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
+              for k in ("lstm_fwd", "lstm_bwd")}
+    n = DEEPAR_STEPS
+    median_ms = statistics.median(step_ms[2:])
+    log(f"deepar train: 2x40 LSTM, Student-t, dropout 0.1, b={DEEPAR_BATCH}"
+        f" context {DEEPAR_CONTEXT} + prediction {DEEPAR_PREDICT}, 3 "
+        f"covariates, Adam 1e-3, {n} steps; nll {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step median {median_ms:.3f} ms over steps "
+        f"3-{n} (first {step_ms[0]:.1f} ms), "
+        f"{DEEPAR_BATCH / (median_ms / 1e3):.1f} series/s on {card}")
+    log(f"deepar train: losses {[round(v, 4) for v in losses]}")
+    log(f"deepar train: (launches, plain calls on cuda) {counts} (2 x {n} "
+        f"= {2 * n} each)")
+    checks = {
+        "finite_losses": all(np.isfinite(losses)),
+        "first_backward_gradients": not missing,
+        "nll_falls": statistics.mean(losses[-5:]) < losses[0],
+        "launches": all(c[0] == 2 * n for c in counts.values()),
+        "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
+    }
+    if missing:
+        log(f"deepar train: parameters without a finite gradient after the "
+            f"first backward: {missing}")
+
+    pred = splitter.prediction_instances(ds)
+    plaunch = {}
+    for label, reps in (("deepar_predict", 1), ("deepar_predict_b32", 2)):
+        # reps 2: the 16 series twice, GluonTS's default predict batch
+        context = mx.nd.array(np.tile(pred["target"], (reps, 1)), ctx=gpu)
+        covs = np.tile(pred["covariates"], (reps, 1, 1))
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        samples = net.predict(context, prediction_length=DEEPAR_PREDICT,
+                              num_samples=DEEPAR_SAMPLES, covariates=covs,
+                              seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (kr.lstm_fwd_counts.launches,
+               kr.lstm_fwd_counts.plain_calls_on_cuda)
+        plaunch[label] = got[0]
+        p50 = np.median(samples[0], axis=0)
+        p90 = np.percentile(samples[0], 90, axis=0)
+        nser = samples.shape[0]
+        log(f"deepar predict: {nser} series x {DEEPAR_SAMPLES} samples "
+            f"(N={nser * DEEPAR_SAMPLES}), {DEEPAR_PREDICT} steps in "
+            f"{wall:.3f} s on {card}; lstm_fwd (launches, plain calls on "
+            f"cuda) {got} (2 x {DEEPAR_PREDICT} = {2 * DEEPAR_PREDICT})")
+        log(f"deepar predict: series 0 p50[:6] "
+            f"{np.round(p50[:6], 3).tolist()} p90[:6] "
+            f"{np.round(p90[:6], 3).tolist()}")
+        checks[f"{label}_launches"] = got == (2 * DEEPAR_PREDICT, 0)
+        checks[f"{label}_samples"] = samples.shape == (
+            nser, DEEPAR_SAMPLES, DEEPAR_PREDICT) and bool(
+                np.isfinite(samples).all())
+    del net, trainer
+    torch.cuda.empty_cache()
+    checks.update(deepar_card_vs_cpu(mx, splitter, ds))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"deepar checks failed: {failed}")
+    return {k: c[0] for k, c in counts.items()}, plaunch, median_ms
+
+
+def deepar_card_vs_cpu(mx, splitter, ds):
+    """Batch 4, dropout 0, fp32 with TF32 off, the same weights on the card
+    and on the CPU: the first NLL, l0_h2h_weight's gradient, 2 Adam steps'
+    losses, the first predict step's (mu, sigma, nu) and predict's paths
+    (4 samples, 3 steps) must agree."""
+    import numpy as np
+    import torch
+
+    inst = splitter.training_instances(ds, 4)
+    pred = splitter.prediction_instances(ds)
+    ctx_np, cov_np = pred["target"][:4], pred["covariates"][:4]
+    runs, weights = [], None
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = deepar_net(mx, ctx, dropout=0.0)
+        batch = [mx.nd.array(inst[k], ctx=ctx)
+                 for k in ("target", "covariates")]
+        if weights is None:
+            with mx.autograd.pause():
+                net(*batch)
+            weights = {k: p.data().detach().cpu().numpy().copy() for k, p in
+                       net._collect_params_with_prefix().items()}
+        else:
+            mx.load_numpy_params(net, weights)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-3})
+        losses = []
+        for step in range(2):
+            with mx.autograd.record():
+                nll = net(*batch)
+            nll.backward()
+            if step == 0:
+                grad = net._collect_params_with_prefix()[
+                    "lstm.l0_h2h_weight"].grad().detach().cpu().numpy().copy()
+            trainer.step(4)
+            losses.append(nll.asscalar())
+        mx.load_numpy_params(net, weights)
+        dev = next(iter(net.collect_params().values())).data().device
+        params = net.next_params(ctx_np, torch.from_numpy(cov_np).to(dev))
+        paths = net.predict(ctx_np, prediction_length=3, num_samples=4,
+                            covariates=cov_np[:, :DEEPAR_CONTEXT + 3], seed=1)
+        runs.append((losses, grad, params, paths))
+        del net, trainer
+    (gl, gg, gp, gpath), (cl, cg, cp, cpath) = runs
+    nll_err = abs(gl[0] - cl[0]) / abs(cl[0])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    grad_err = float(np.abs(gg - cg).max() / np.abs(cg).max())
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(gp, cp))
+    path_err = float(np.abs(gpath - cpath).max() / np.abs(cpath).max())
+    log(f"deepar card vs cpu, b=4 dropout 0 fp32: first nll {gl[0]:.7f} vs "
+        f"{cl[0]:.7f} rel err {nll_err:.3g} (limit {DEEPAR_NLL_RTOL}); "
+        f"l0_h2h_weight gradient max abs err / max |grad| {grad_err:.3g} "
+        f"(limit {DEEPAR_GRAD_RTOL}); 2 Adam steps' losses {gl} vs {cl} max "
+        f"rel err {loss_err:.3g} (limit {DEEPAR_LOSS_RTOL}); first predict "
+        f"step's (mu, sigma, nu) max abs err {param_err:.3g} (limit "
+        f"{DEEPAR_PARAM_ATOL}); predict paths max err / max |path| "
+        f"{path_err:.3g} (limit {DEEPAR_PATH_RTOL})")
+    return {"card_vs_cpu_nll": nll_err <= DEEPAR_NLL_RTOL,
+            "card_vs_cpu_grad": grad_err <= DEEPAR_GRAD_RTOL,
+            "card_vs_cpu_losses": loss_err <= DEEPAR_LOSS_RTOL,
+            "card_vs_cpu_predict_params": param_err <= DEEPAR_PARAM_ATOL,
+            "card_vs_cpu_predict_paths": path_err <= DEEPAR_PATH_RTOL}
+
+
+# -- phase 14: the GRU ----------------------------------------------------------
+
+
+def train_gru(mx, card):
+    """gluon.rnn.GRU(200, num_layers=2), TNC, T=35, N=32, input 200, 20
+    Adam steps on an L2 loss against a fixed target.  Returns the launch
+    counts and the median step."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    class GruRegression(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.gru = mx.gluon.rnn.GRU(GRU_HIDDEN, num_layers=2)
+
+        def hybrid_forward(self, F, x, target):
+            return F.mean(F.square(self.gru(x) - target)) * 0.5
+
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = GruRegression()
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    rng = np.random.RandomState(5)
+    x = mx.nd.array(rng.randn(GRU_T, GRU_BATCH, GRU_HIDDEN) * 0.5, ctx=gpu)
+    target = mx.nd.array(np.tanh(rng.randn(GRU_T, GRU_BATCH, GRU_HIDDEN)),
+                         ctx=gpu)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    losses, step_ms = [], []
+    kernels.reset_counts()
+    for _ in range(GRU_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = net(x, target)
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: (kernels.KERNEL_COUNTS[k].launches,
+                  kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
+              for k in ("gru_fwd", "gru_bwd")}
+    n = GRU_STEPS
+    median_ms = statistics.median(step_ms[2:])
+    log(f"gru: gluon.rnn.GRU({GRU_HIDDEN}, num_layers=2) TNC T={GRU_T} "
+        f"N={GRU_BATCH}, L2 loss, Adam 1e-3, {n} steps; loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; step median {median_ms:.3f} "
+        f"ms over steps 3-{n} on {card}; (launches, plain calls on cuda) "
+        f"{counts} (2 x {n} = {2 * n} each)")
+    checks = {"finite_losses": all(np.isfinite(losses)),
+              "loss_falls": losses[-1] < losses[0],
+              "launches": all(c[0] == 2 * n for c in counts.values()),
+              "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values())}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"gru checks failed: {failed}")
+    return {k: c[0] for k, c in counts.items()}, median_ms
+
+
 def main():
     import torch
 
@@ -1181,9 +1716,14 @@ def main():
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
+    rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
+    dtrain, dpredict, _ = train_deepar(mx, card)
+    gtrain, _ = train_gru(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
+    rnn_src = "mxnet_tpu/ops/pallas/rnn.py"
+    rnn_cu = "mxnet_tpu_torch/csrc/rnn.cu"
     fwd_launches = serve["launches"] + train["flash_attention_fwd"]
     record = {"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
@@ -1217,6 +1757,21 @@ def main():
              replaces=f"{cf_src}:323",
              launches=rtrain["bn_act_matmul_stats"],
              **rkern["bn_act_matmul_stats"]),
+        dict(name="lstm_fwd", route="cuda", source=rnn_cu,
+             replaces=f"{rnn_src}:41",
+             launches=dtrain["lstm_fwd"] + sum(dpredict.values()),
+             launches_by_path={"deepar_train": dtrain["lstm_fwd"],
+                               **dpredict},
+             **rnn["lstm_fwd"]),
+        dict(name="lstm_bwd", route="cuda", source=rnn_cu,
+             replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
+             **rnn["lstm_bwd"]),
+        dict(name="gru_fwd", route="cuda", source=rnn_cu,
+             replaces=f"{rnn_src}:300", launches=gtrain["gru_fwd"],
+             **rnn["gru_fwd"]),
+        dict(name="gru_bwd", route="cuda", source=rnn_cu,
+             replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
+             **rnn["gru_bwd"]),
     ]}
     log(card)
     log(json.dumps(record))

@@ -3,12 +3,12 @@
 ``KERNEL_LIBRARIES`` lists every compiled library (one per CUDA source)
 and ``KERNEL_COUNTS`` every kernel's launch counters, by kernel name.
 """
-from . import batch_norm, conv_fused, flash_attention
+from . import batch_norm, conv_fused, flash_attention, rnn
 from .build import build_all
 
 #: every kernel library of the port, one per source under ``csrc/``
 KERNEL_LIBRARIES = (flash_attention.library, flash_attention.bwd_library,
-                    batch_norm.library, conv_fused.library)
+                    batch_norm.library, conv_fused.library, rnn.library)
 
 #: every kernel's launch counters (:class:`~.build.KernelCounts`)
 KERNEL_COUNTS = {
@@ -19,6 +19,10 @@ KERNEL_COUNTS = {
     "matmul_bn_stats": conv_fused.matmul_bn_stats_counts,
     "bn_act_matmul": conv_fused.bn_act_matmul_counts,
     "bn_act_matmul_stats": conv_fused.bn_act_matmul_stats_counts,
+    "lstm_fwd": rnn.lstm_fwd_counts,
+    "lstm_bwd": rnn.lstm_bwd_counts,
+    "gru_fwd": rnn.gru_fwd_counts,
+    "gru_bwd": rnn.gru_bwd_counts,
 }
 
 

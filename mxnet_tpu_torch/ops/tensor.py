@@ -1,8 +1,9 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that BERT
-serving and training, the ported losses and ResNet run (reshape, flatten,
-slice_axis, take, pick, Embedding, arange, broadcast_lesser,
-broadcast_mul, the sum and mean reductions, and the elementwise square,
-abs, relu and log)."""
+serving and training, the ported losses, ResNet and DeepAR run (reshape,
+flatten, slice_axis, take, pick, Embedding, arange, broadcast_lesser,
+broadcast_mul, expand_dims, squeeze, stack, concat, swapaxes, pad, the
+sum and mean reductions, and the elementwise square, abs, relu, log and
+gammaln)."""
 from __future__ import annotations
 
 import torch
@@ -111,6 +112,72 @@ register("square", torch.square)
 register("abs", torch.abs)
 register("relu", torch.relu)
 register("log", torch.log)
+register("gammaln", torch.lgamma)
+
+
+def _k_expand_dims(data, axis):
+    """Ref: ops/tensor.py:345."""
+    return data.unsqueeze(axis)
+
+
+register("expand_dims", _k_expand_dims)
+
+
+def _k_squeeze(data, axis=None):
+    """Every size-1 axis, or the ones named (ref: ops/tensor.py:351)."""
+    if axis is None:
+        return data.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    for ax in axes:
+        if data.shape[ax] != 1:
+            raise MXNetError(f"squeeze: axis {ax} of shape "
+                             f"{tuple(data.shape)} is not 1")
+    return data.squeeze(axes)
+
+
+register("squeeze", _k_squeeze)
+
+
+def _k_stack(*args, axis=0):
+    """Ref: ops/tensor.py:357."""
+    return torch.stack(args, dim=axis)
+
+
+register("stack", _k_stack)
+
+
+def _k_concat(*args, dim=1):
+    """Ref: ops/tensor.py:363."""
+    return torch.cat(args, dim=dim)
+
+
+register("concat", _k_concat, aliases=("Concat",))
+
+
+def _k_swapaxes(data, dim1=0, dim2=1):
+    """Ref: ops/tensor.py:441."""
+    return data.transpose(dim1, dim2)
+
+
+register("swapaxes", _k_swapaxes, aliases=("SwapAxis",))
+
+
+def _k_pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """MXNet's flat ``pad_width`` (before, after) per axis, first axis
+    first (ref: ops/tensor.py:431); of the modes, ``constant``."""
+    if mode != "constant":
+        raise MXNetError(f"pad: mode {mode!r} is not ported")
+    if len(pad_width) != 2 * data.dim():
+        raise MXNetError(f"pad: pad_width needs 2 values per axis of a "
+                         f"{data.dim()}-d input, got {tuple(pad_width)}")
+    flat = []
+    for ax in reversed(range(data.dim())):  # torch lists the last axis first
+        flat += [int(pad_width[2 * ax]), int(pad_width[2 * ax + 1])]
+    return torch.nn.functional.pad(data, flat, mode="constant",
+                                   value=constant_value)
+
+
+register("pad", _k_pad, aliases=("Pad",))
 
 
 def _reduce_axes(data, axis, exclude):
