@@ -33,15 +33,22 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ResNet-50 gives them (batch 128 at 224^2 in training, 64 in predict
    mode), in fp32 and bf16, with and without ReLU, timed beside the plain
    version, a library yardstick (``torch.var_mean``; ``torch.matmul`` at
-   the same shape, the product alone) and the least time; and their
-   autograd Functions against autograd through the plain forwards;
+   the same shape, the product alone) and the least time; at each bf16
+   training shape the fused kernels' TMA route and simple route are held
+   against each other and timed side by side (also by their device time
+   from torch.profiler), and the fused forward of one step is summed from
+   them; and their autograd Functions against autograd through the plain
+   forwards;
 7. ResNet training: ResNet-50 v1, NHWC, 1000 classes, with
    ``MXTPU_CONV_EPILOGUE=pallas``, takes 20 steps through
    ``parallel.DataParallelTrainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
    bf16 compute, fp32 masters) at batch 128, 224^2, on one synthetic
-   batch; the launch counts are read around the 20 steps; the loss must
-   fall, every trainable parameter change and stay finite, the moving
-   statistics move;
+   batch; the launch counts are read around the 20 steps, and every fused
+   launch must have taken the TMA route; the losses after the first two
+   updates must be below the first, every trainable parameter change and
+   stay finite, the moving statistics move; then the first 4 steps again
+   from the same weights with the fused kernels pinned to the simple
+   route (PR 3's template), whose losses the TMA run's must track;
 8. ResNet predict: the trained net in predict mode at batch 64, fp32; the
    launches of ``bn_act_matmul`` are read around the timed forwards;
 9. ResNet references, fp32 with TF32 off, batch 8 at 112^2: 2 steps of the
@@ -86,11 +93,13 @@ CUDA toolkit, and the repository beside this file.
 also writes a ``torch.profiler`` table of two training steps to
 ``chiprun_out/train_profile.txt`` and prints its top rows;
 ``--profile-resnet`` does the same for two ResNet-50 steps, into
-``chiprun_out/resnet_profile.txt``.
+``chiprun_out/resnet_profile.txt``, and prints the fused kernels' share of
+the device time.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -131,6 +140,14 @@ PREDICT_BATCH = 64
 # rounded to bf16 (2^-8 relative), and another order may round a sum to
 # the neighbouring value
 FUSED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the bf16 training step against the same steps from the same weights with
+# the fused 1x1 kernels pinned to the simple route (PR 3's template): the
+# products and the statistics sum in other orders, and at lr 0.1 each
+# update widens the gap (the two runs part after ~8 steps).  On one H100
+# (PERF.md, PR 5) the losses of steps 1-4 were 4.0e-5, 2.6e-4, 1.6e-3 and
+# 7.5e-3 apart, relative; the limits are about ten times those, five at
+# step 4.  A fused kernel that is wrong moves the first loss by far more.
+RESNET_ROUTE_RTOL = (4e-4, 3e-3, 1.5e-2, 4e-2)
 # ResNet-50 references (fp32, TF32 off, b=8, 112^2, 2 SGD steps from the
 # same weights).  The first loss is a forward alone: within 1e-4 relative
 # (sums in other orders through 53 layers).  The first step's updates,
@@ -778,7 +795,8 @@ def train_card_vs_cpu(mx, data):
 
 def profile_steps(run_two_steps, filename, title):
     """A torch.profiler table of ``run_two_steps()`` by CUDA time, into
-    chiprun_out/<filename>; its top rows are printed."""
+    chiprun_out/<filename>; its top rows are printed.  Returns the device
+    time (us) by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -786,13 +804,58 @@ def profile_steps(run_two_steps, filename, title):
     with tprofile(activities=acts) as prof:
         run_two_steps()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=60)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=60)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / filename).write_text(table)
     log(f"{title} profile (2 steps, by CUDA time):")
     log("\n".join(table.splitlines()[:28]))
+    return kernel_times(averages)
+
+
+def kernel_times(averages):
+    """Device time (us) by kernel name from a profiler's key averages: the
+    entries that ran on the card (kernels, copies, fills)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in averages:
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            out[e.key] = e.self_cuda_time_total if t is None else t
+    return out
+
+
+@contextlib.contextmanager
+def simple_route(kcf):
+    """Within the block the fused 1x1 kernels' route rule (``kcf.route``)
+    picks the simple route, PR 3's template, for every launch."""
+    rule = kcf.route
+    kcf.route = lambda *args: "simple"
+    try:
+        yield
+    finally:
+        kcf.route = rule
+
+
+def device_ms(fn, iters, tags):
+    """Mean device time (ms) a call of ``fn`` spends in the kernels whose
+    names hold one of ``tags``, from torch.profiler over ``iters`` calls
+    after one warm call: the kernels alone, without the host's time
+    between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = kernel_times(prof.key_averages())
+    return sum(t for k, t in times.items()
+               if any(tag in k for tag in tags)) / iters / 1e3
 
 
 # -- phase 6: the ResNet kernels ----------------------------------------------
@@ -800,20 +863,31 @@ def profile_steps(run_two_steps, filename, title):
 
 def resnet_kernel_shapes():
     """The (M, K, N) each fused kernel gets from ResNet-50 v1 (stride on
-    conv1): in training at batch 128, 224^2 (stage sizes 56, 28, 14, 7),
-    conv1 and downsample through ``matmul_bn_stats``, conv3 through
-    ``bn_act_matmul_stats``, bn2's C through ``bn_stats``; in predict mode
-    at batch 64, conv3 through ``bn_act_matmul``."""
-    mm, act_stats, act, stats = [], [], [], []
-    for i, (width, s) in enumerate(zip((64, 128, 256, 512),
-                                       (56, 28, 14, 7))):
+    conv1): in training at batch 128, 224^2 (stage sizes 56, 28, 14, 7;
+    3, 4, 6, 3 bottlenecks), conv1 and downsample through
+    ``matmul_bn_stats``, conv3 through ``bn_act_matmul_stats``, bn2's C
+    through ``bn_stats``; in predict mode at batch 64, conv3 through
+    ``bn_act_matmul``.  ``per_step`` maps (kernel, (M, K, N)) to its
+    launches in one training step (20 and 16 in all)."""
+    per_step, act, stats = {}, [], []
+    for i, (width, s, blocks) in enumerate(zip((64, 128, 256, 512),
+                                               (56, 28, 14, 7),
+                                               (3, 4, 6, 3))):
         m = RESNET_BATCH * s * s
         cin = 64 if i == 0 else 2 * width
-        mm += [(m, cin, width), (m, 4 * width, width), (m, cin, 4 * width)]
-        act_stats.append((m, width, 4 * width))
+        for key, n in ((("matmul_bn_stats", (m, cin, width)), 1),
+                       (("matmul_bn_stats", (m, cin, 4 * width)), 1),
+                       (("matmul_bn_stats", (m, 4 * width, width)),
+                        blocks - 1),
+                       (("bn_act_matmul_stats", (m, width, 4 * width)),
+                        blocks)):
+            per_step[key] = per_step.get(key, 0) + n
         act.append((PREDICT_BATCH * s * s, width, 4 * width))
         stats.append((m, width))
-    return sorted(set(mm)), act_stats, act, stats
+    mm = sorted(shape for kind, shape in per_step if kind == "matmul_bn_stats")
+    act_stats = [shape for kind, shape in per_step
+                 if kind == "bn_act_matmul_stats"]
+    return mm, act_stats, act, stats, per_step
 
 
 def gemm_bound(m, k, n, dtype, prologue, stats):
@@ -846,14 +920,20 @@ def check_stats(got, y):
 def check_resnet_kernels(dev):
     """Rows 7-10 of the kernel table against their plain versions at the
     ResNet-50 shapes on ``dev``; returns each kernel's record at its main
-    shape (stage 1: bf16 in training, fp32 in predict mode)."""
+    shape (stage 1: bf16 in training, fp32 in predict mode).  At each bf16
+    training shape the fused kernels' two routes are timed side by side
+    (CUDA events around back-to-back calls, and the kernels' own device
+    time from torch.profiler) and held against each other; the fused
+    forward of one training step is summed from them, old route against
+    new."""
     import torch
 
     from mxnet_tpu_torch.ops.kernels import batch_norm as kbn
     from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    mm, act_stats, act, stats = resnet_kernel_shapes()
+    mm, act_stats, act, stats, per_step = resnet_kernel_shapes()
+    routes = {}  # (kernel, shape) -> times of both routes, bf16 training
     # each kernel's record: stage 1, in the dtype of its main path
     main_case = {"bn_stats": (stats[0], "bfloat16", False),
                  "matmul_bn_stats": ((RESNET_BATCH * 56 * 56, 256, 64),
@@ -873,18 +953,19 @@ def check_resnet_kernels(dev):
                 + shift).to(dtype)
 
     def record(name, key, err, ok, kern, plain, lib, bound, label,
-               stats_err=None):
+               stats_err=None, extra=None):
         sums = "" if stats_err is None else f" sums_rel={stats_err:.3g}"
-        log(f"  {name:20s} {label} err={err:.3g}{sums} kernel={kern:.4f}ms "
-            f"plain={plain:.4f}ms library={lib:.4f}ms bound={bound[0]:.4f}ms "
-            f"({bound[1]}) {'ok' if ok else 'FAIL'}")
+        more = "".join(f" {k}={v:.4f}ms" for k, v in (extra or {}).items())
+        log(f"  {name:20s} {label} err={err:.3g}{sums} kernel={kern:.4f}ms"
+            f"{more} plain={plain:.4f}ms library={lib:.4f}ms "
+            f"bound={bound[0]:.4f}ms ({bound[1]}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} kernel disagrees with its plain "
                              f"version: {label}")
         if key:
             main[name] = {"max_abs_err": err, "ms": kern, "plain_ms": plain,
                           "bound_ms": bound[0], "bound_by": bound[1],
-                          "library_ms": lib, "shape": label}
+                          "library_ms": lib, "shape": label, **(extra or {})}
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -910,8 +991,10 @@ def check_resnet_kernels(dev):
                   for shape in act for relu in (True, False)]
         for name, (m, k, n), relu in cases:
             x = rand(m, k, dtype=dt, shift=-0.5)
-            w = rand(k, n, dtype=dt, scale=2.0 / k ** 0.5,
-                     shift=-1.0 / k ** 0.5)
+            # w as the main path hands it over: a (Cout, Cin) weight's
+            # transpose, so the kernels take it without a copy
+            w = rand(n, k, dtype=dt, scale=2.0 / k ** 0.5,
+                     shift=-1.0 / k ** 0.5).t()
             prologue = name != "matmul_bn_stats"
             args = ((x, rand(1, k, shift=0.5), rand(1, k, shift=-0.5), w, relu)
                     if prologue else (x, w))
@@ -929,18 +1012,66 @@ def check_resnet_kernels(dev):
             if len(got) == 3:
                 serr, sok = check_stats(got[1:], got[0])
                 ok = ok and sok
+            extra = None
+            if (dtype == "bfloat16" and (name, (m, k, n)) in per_step
+                    and relu == prologue):  # the training step's call
+                extra = {"device_ms": device_ms(lambda: fwd(*args), 10,
+                                                ("tma_mm_kernel",
+                                                 "stats_reduce_kernel"))}
+                with simple_route(kcf):
+                    simple = fwd(*args)
+                    extra["simple_ms"] = cuda_ms(lambda: fwd(*args), 5)
+                    extra["simple_device_ms"] = device_ms(
+                        lambda: fwd(*args), 3,
+                        ("fused_mm_kernel", "stats_reduce_kernel"))
+                ok = ok and torch.allclose(got[0].float(), simple[0].float(),
+                                           atol=atol, rtol=rtol)
+                ok = ok and check_stats(simple[1:], simple[0])[1]
+                del simple
             del got, ref
+            kern = cuda_ms(lambda: fwd(*args), 10)
             record(name, main_case[name] == ((m, k, n), dtype, relu), err, ok,
-                   cuda_ms(lambda: fwd(*args), 10),
-                   cuda_ms(lambda: plain(*args), 3),
+                   kern, cuda_ms(lambda: plain(*args), 3),
                    cuda_ms(lambda: torch.matmul(x, w), 10),
                    gemm_bound(m, k, n, dtype, prologue,
                               name.endswith("stats")),
-                   f"M={m} K={k} N={n} {dtype} relu={relu}", serr)
+                   f"M={m} K={k} N={n} {dtype} relu={relu}", serr, extra)
+            if extra:
+                routes[(name, (m, k, n))] = dict(extra, ms=kern)
             del x, w, args
         torch.cuda.empty_cache()
+    step_routes(routes, per_step)
     check_fused_function_gradients(kbn, kcf, dev)
     return main
+
+
+def step_routes(routes, per_step):
+    """The fused forward of one bf16 training step, each shape's time x its
+    launches per step, on the TMA route against the simple route; fails
+    where the TMA route's kernels take longer than the simple route's."""
+    log("resnet kernels: the fused 1x1 forward of one bf16 training step "
+        "(time x launches a step; events around back-to-back calls, device = "
+        "the kernels' own time), TMA route against the simple route:")
+    total = dict.fromkeys(("ms", "device_ms", "simple_ms",
+                           "simple_device_ms"), 0.0)
+    slower = []
+    for (name, (m, k, n)), t in sorted(routes.items(),
+                                       key=lambda kv: -kv[0][1][0]):
+        count = per_step[(name, (m, k, n))]
+        for key in total:
+            total[key] += t[key] * count
+        log(f"  {name:20s} M={m} K={k} N={n} x{count}: tma {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), simple {t['simple_ms']:.4f} ms "
+            f"(device {t['simple_device_ms']:.4f})")
+        if t["device_ms"] > t["simple_device_ms"]:
+            slower.append((name, (m, k, n)))
+    log(f"  one step, {sum(per_step.values())} launches: tma "
+        f"{total['ms']:.4f} ms (device {total['device_ms']:.4f}), simple "
+        f"{total['simple_ms']:.4f} ms (device "
+        f"{total['simple_device_ms']:.4f})")
+    if len(routes) != len(per_step) or slower:
+        raise SystemExit(f"the TMA route is slower than the simple route at "
+                         f"{slower}, or a training shape went untimed")
 
 
 def check_fused_function_gradients(kbn, kcf, dev):
@@ -1051,6 +1182,8 @@ def train_resnet(mx, card, profile=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {k: (c.launches, c.plain_calls_on_cuda)
               for k, c in kernels.KERNEL_COUNTS.items()}
+    fused = ("matmul_bn_stats", "bn_act_matmul_stats")
+    simple = {k: kernels.KERNEL_COUNTS[k].simple_launches for k in fused}
 
     n = RESNET_STEPS
     median_ms = statistics.median(step_ms[2:])
@@ -1060,8 +1193,10 @@ def train_resnet(mx, card, profile=False):
         f"ms over steps 3-{n} (first {step_ms[0]:.1f} ms), "
         f"{RESNET_BATCH / (median_ms / 1e3):.1f} images/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
-    log(f"resnet train: losses {[round(v, 4) for v in losses]}")
-    log(f"resnet train: (launches, plain calls on cuda) {counts}")
+    log(f"resnet train: losses {[round(v, 4) for v in losses]}; mean of "
+        f"the last 5 {statistics.mean(losses[-5:]):.4f}")
+    log(f"resnet train: (launches, plain calls on cuda) {counts}; "
+        f"launches on the simple route {simple}")
     unchanged, bad, still = [], [], []
     for name, p0, p1, tr in zip(names, start, trainer._params,
                                 trainer._trainable):
@@ -1075,11 +1210,17 @@ def train_resnet(mx, card, profile=False):
               "bn_act_matmul_stats": 16 * n}
     checks = {
         "launches": all(counts[k][0] == v for k, v in expect.items()),
+        # every fused launch of the bf16 step on the TMA route
+        "tma_route": all(v == 0 for v in simple.values()),
         "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
         "finite_losses": all(np.isfinite(losses)),
-        # at lr 0.1 the loss on one batch swings from step to step: the
-        # mean of the last 5 must be below the first
-        "loss_falls": statistics.mean(losses[-5:]) < losses[0],
+        # at lr 0.1 the loss on one batch swings from step to step and,
+        # after about 8 steps, its path depends on the rounding of every
+        # sum (runs that differ only in the fused kernels' summation order
+        # part there): the first two updates must each leave it below the
+        # first loss, and the first steps must track the simple route's
+        # (route_gap below)
+        "loss_falls": max(losses[1:3]) < losses[0],
         "parameters_change": not unchanged,
         "parameters_finite": not bad,
         "running_stats_move": not still,
@@ -1088,8 +1229,20 @@ def train_resnet(mx, card, profile=False):
         log(f"resnet train: unchanged {unchanged[:5]}, non-finite "
             f"{bad[:5]}, running stats that did not move {still[:5]}")
     if profile:
-        profile_steps(lambda: [trainer.step(xg, yg) for _ in range(2)],
-                      "resnet_profile.txt", "resnet train")
+        times = profile_steps(lambda: [trainer.step(xg, yg)
+                                       for _ in range(2)],
+                              "resnet_profile.txt", "resnet train")
+        busy = sum(times.values())
+        shares = {tag: sum(t for k, t in times.items() if tag in k) / busy
+                  for tag in ("tma_mm_kernel", "fused_mm_kernel",
+                              "stats_reduce_kernel")}
+        log(f"resnet train: device time of 2 profiled steps {busy / 1e3:.3f} "
+            f"ms; shares: fused 1x1 kernels, TMA route "
+            f"{shares['tma_mm_kernel']:.1%}, simple route "
+            f"{shares['fused_mm_kernel']:.1%}; stats_reduce_kernel (theirs "
+            f"and bn_stats') {shares['stats_reduce_kernel']:.1%}")
+
+    checks.update(resnet_route_gap(mx, start, xg, yg, losses))
 
     # predict mode on the trained weights, b=64, fp32
     trainer.sync_to_block()
@@ -1123,6 +1276,41 @@ def train_resnet(mx, card, profile=False):
         raise SystemExit(f"resnet checks failed: {failed}")
     return ({k: counts[k][0] for k in expect},
             pcounts["bn_act_matmul"][0])
+
+
+def resnet_route_gap(mx, start, xg, yg, losses):
+    """The first steps of the bf16 training run again from its starting
+    weights ``start``, with the fused 1x1 kernels pinned to the simple
+    route; the training run's ``losses`` (TMA route) must stay within
+    RESNET_ROUTE_RTOL of these, step by step."""
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
+
+    trainer = resnet_trainer(mx, resnet50(mx, mx.gpu(0), fuse=True),
+                             compute_dtype="bfloat16")
+    trainer.build(xg)
+    with torch.no_grad():
+        for p, p0 in zip(trainer._params, start):
+            p.copy_(p0)
+    n = len(RESNET_ROUTE_RTOL)
+    kernels.reset_counts()
+    with simple_route(kcf):
+        simple = [trainer.step(xg, yg).asscalar() for _ in range(n)]
+    fused = ("matmul_bn_stats", "bn_act_matmul_stats")
+    pinned = all(kernels.KERNEL_COUNTS[k].simple_launches
+                 == kernels.KERNEL_COUNTS[k].launches > 0 for k in fused)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, simple)]
+    log(f"resnet train: the first {n} losses on the TMA route "
+        f"{losses[:n]} against the simple route's {simple} from the same "
+        f"weights: relative gaps {[f'{g:.3g}' for g in gaps]}, limits "
+        f"{list(RESNET_ROUTE_RTOL)}; every fused launch of the simple run "
+        f"on the simple route: {pinned}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"route_gap": all(g <= t for g, t in zip(gaps, RESNET_ROUTE_RTOL)),
+            "route_gap_pinned": pinned}
 
 
 def resnet_references(mx):

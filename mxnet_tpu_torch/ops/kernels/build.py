@@ -117,12 +117,13 @@ class KernelCounts:
     ``launches`` grows by one per call that launches the kernel.
     ``plain_calls_on_cuda`` grows by one each time an entry sends CUDA
     tensors to the plain version by one of the JAX package's shape rules,
-    decided before any launch."""
+    decided before any launch.  ``extra`` names further counters, such as
+    a wrapper's launches on one of its routes."""
 
-    def __init__(self):
+    def __init__(self, *extra):
         self._lock = threading.Lock()
-        self.launches = 0
-        self.plain_calls_on_cuda = 0
+        self._names = ("launches", "plain_calls_on_cuda", *extra)
+        self.reset()
 
     def add(self, name):
         with self._lock:
@@ -130,8 +131,8 @@ class KernelCounts:
 
     def reset(self):
         with self._lock:
-            self.launches = 0
-            self.plain_calls_on_cuda = 0
+            for name in self._names:
+                setattr(self, name, 0)
 
 
 def build_all(libraries):

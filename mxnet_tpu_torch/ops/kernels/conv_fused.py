@@ -2,7 +2,7 @@
 plain versions, their wrappers.
 
 Replaces the Pallas kernels of ``mxnet_tpu/ops/pallas/conv_fused.py`` with
-one templated tiled GEMM in ``csrc/conv_fused.cu``, instantiated as:
+the kernels of ``csrc/conv_fused.cu``, in three kinds:
 
 - ``matmul_bn_stats`` (``_mm_stats_kernel``): ``y = x @ w`` plus the
   per-column ``(sum, sumsq)`` of the stored y;
@@ -14,6 +14,15 @@ x is ``(M, K)``, w ``(K, N)``, y ``(M, N)`` in x's dtype with fp32
 accumulation; scale and shift are the folded BatchNorm ``(1, K)`` fp32;
 the sums are ``(1, N)`` fp32.  The source's header says what bounds the
 kernels on an H100 and what their design does about it.
+
+Each kind has two routes, chosen by :func:`route` before any launch from
+dtype, shape and pointer alignment: ``"tma"``, the persistent TMA/wgmma
+kernel, for every bf16 call whose operands a TMA tensor map can address
+(K and N multiples of 8, x, wt and y 16-byte aligned) and whose plan fits
+a block's shared memory (K up to about 20,000; every ResNet-50 training
+shape); ``"simple"``, the tiled template, for the rest
+(fp32, ragged K or N, misaligned views).  Each launch counts in
+``launches`` and, on the simple route, in ``simple_launches`` too.
 
 For each of the three:
 
@@ -31,6 +40,7 @@ For each of the three:
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -39,13 +49,27 @@ from ...base import MXNetError
 from .build import KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BM = 64  # the kernel's output rows per block (csrc/conv_fused.cu)
 _KINDS = {"matmul_bn_stats": 0, "bn_act_matmul": 1, "bn_act_matmul_stats": 2}
+_ROUTES = {"simple": 0, "tma": 1}  # ROUTE_SIMPLE, ROUTE_TMA in the source
 
-matmul_bn_stats_counts = KernelCounts()
-bn_act_matmul_counts = KernelCounts()
-bn_act_matmul_stats_counts = KernelCounts()
+matmul_bn_stats_counts = KernelCounts("simple_launches")
+bn_act_matmul_counts = KernelCounts("simple_launches")
+bn_act_matmul_stats_counts = KernelCounts("simple_launches")
 library = KernelLibrary("conv_fused.cu")
+
+
+def route(x, wt, y, has_plan=None):
+    """The route of a launch on contiguous ``x (M, K)``, ``wt (N, K)`` and
+    ``y (M, N)``: ``"tma"`` for bf16 with K and N multiples of 8 and all
+    three 16-byte aligned (what a TMA tensor map addresses) and, where
+    ``has_plan(M, K, N)`` is given, a TMA plan that fits the device; else
+    ``"simple"``."""
+    M, K, N = x.shape[0], x.shape[1], wt.shape[0]
+    if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, wt, y))
+            and (has_plan is None or has_plan(M, K, N))):
+        return "tma"
+    return "simple"
 
 
 def _pick(total, candidates, limit_bytes, row_bytes):
@@ -127,10 +151,12 @@ def bn_act_matmul_stats_plain(x, scale, shift, w, relu=True):
 def _bind(lib):
     fn = lib.mxtt_conv_fused
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i,
-                       i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, p, ll, i, i, i, p]
         fn.restype = ctypes.c_int
+        parts = lib.mxtt_conv_fused_partials
+        parts.argtypes = [i, ll, i, i]
+        parts.restype = ll
     return fn
 
 
@@ -141,9 +167,12 @@ def _vector(v, K, x, name):
     return v.reshape(K).contiguous()
 
 
-def _launch(kind, x, w, scale=None, shift=None, relu=False):
-    """Check the operands and launch kernel ``kind`` on CUDA tensors;
-    returns ``(y, sum, sumsq)`` (the sums None for ``bn_act_matmul``)."""
+def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
+            forced=None):
+    """Check the operands and launch kernel ``kind`` on CUDA tensors on the
+    route :func:`route` picks (or ``forced``, which only the card tests
+    pass), and count the launch in ``counts``; returns ``(y, sum, sumsq)``
+    (the sums None for ``bn_act_matmul``)."""
     what = kind.replace("_", " ")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise MXNetError(f"{what}: x must be (M, K) and w (K, N), got "
@@ -166,25 +195,41 @@ def _launch(kind, x, w, scale=None, shift=None, relu=False):
         shift = _vector(shift, K, x, f"{what}: shift")
     dev = x.device
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
-    stats = code != 1
-    if stats:
-        part = torch.empty((2, -(-M // _BM), N), dtype=torch.float32,
-                           device=dev)
-        s = torch.empty((1, N), dtype=torch.float32, device=dev)
-        q = torch.empty((1, N), dtype=torch.float32, device=dev)
-    else:
-        part = s = q = None
-    fn = _bind(library.load())
+    lib = library.load()
+    fn = _bind(lib)
+    # the plans and the launch read the current device
+    here = torch.cuda.current_device() == dev.index
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
+        chosen = route(x, wt, y, lambda *mkn: lib.mxtt_conv_fused_partials(
+            _ROUTES["tma"], *mkn) > 0)
+        if forced not in (None, "simple", chosen):
+            raise MXNetError(f"{what}: the {forced} route takes bfloat16 "
+                             f"with K and N multiples of 8, 16-byte aligned "
+                             f"operands and a plan that fits, got {x.dtype} "
+                             f"{(M, K, N)}")
+        chosen = forced or chosen
+        stats = code != 1
+        if stats:
+            P = lib.mxtt_conv_fused_partials(_ROUTES[chosen], M, K, N)
+            # one allocation: the (2, P, N) partials, then sum and sumsq
+            part = torch.empty((2 * P + 2, N), dtype=torch.float32,
+                               device=dev)
+            s, q = part[2 * P:2 * P + 1], part[2 * P + 1:]
+        else:
+            part = s = q = None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(code, int(bool(relu)), x.data_ptr(), ptr(scale), ptr(shift),
-                 wt.data_ptr(), y.data_ptr(), ptr(part), ptr(s), ptr(q), M, K,
-                 N, _DTYPE_CODES[x.dtype], stream)
+        err = fn(_ROUTES[chosen], code, int(bool(relu)), x.data_ptr(),
+                 ptr(scale), ptr(shift), wt.data_ptr(), y.data_ptr(),
+                 ptr(part), ptr(s), ptr(q), M, K, N, _DTYPE_CODES[x.dtype],
+                 stream)
     library.raise_on_error(err, what)
+    counts.add("launches")
+    if chosen == "simple":
+        counts.add("simple_launches")
     return y, s, q
 
 
@@ -195,9 +240,7 @@ def matmul_bn_stats_fwd(x, w):
     float32/bfloat16, mixed devices, a failed launch)."""
     if not x.is_cuda:
         return matmul_bn_stats_plain(x, w)
-    out = _launch("matmul_bn_stats", x, w)
-    matmul_bn_stats_counts.add("launches")
-    return out
+    return _launch("matmul_bn_stats", matmul_bn_stats_counts, x, w)
 
 
 def bn_act_matmul_fwd(x, scale, shift, w, relu=True):
@@ -206,8 +249,8 @@ def bn_act_matmul_fwd(x, scale, shift, w, relu=True):
     values."""
     if not x.is_cuda:
         return bn_act_matmul_plain(x, scale, shift, w, relu)
-    y, _, _ = _launch("bn_act_matmul", x, w, scale, shift, relu)
-    bn_act_matmul_counts.add("launches")
+    y, _, _ = _launch("bn_act_matmul", bn_act_matmul_counts, x, w, scale,
+                      shift, relu)
     return y
 
 
@@ -216,9 +259,8 @@ def bn_act_matmul_stats_fwd(x, scale, shift, w, relu=True):
     as :func:`bn_act_matmul_fwd`."""
     if not x.is_cuda:
         return bn_act_matmul_stats_plain(x, scale, shift, w, relu)
-    out = _launch("bn_act_matmul_stats", x, w, scale, shift, relu)
-    bn_act_matmul_stats_counts.add("launches")
-    return out
+    return _launch("bn_act_matmul_stats", bn_act_matmul_stats_counts, x, w,
+                   scale, shift, relu)
 
 
 # -- autograd: the JAX package's backward rules -------------------------------

@@ -231,6 +231,57 @@ def test_functions_match_autograd_of_the_plain_forward():
             _close(g, r, (1e-4, 1e-4))
 
 
+def _resnet_training_shapes(b):
+    """The (M, K, N) of ResNet-50 v1's fused 1x1 convolutions in training at
+    batch b, 224^2 (stride on conv1): conv1, conv1 of the later blocks and
+    the downsample through ``matmul_bn_stats``, conv3 through
+    ``bn_act_matmul_stats``."""
+    shapes = set()
+    for i, (width, s) in enumerate(zip((64, 128, 256, 512), (56, 28, 14, 7))):
+        m = b * s * s
+        cin = 64 if i == 0 else 2 * width
+        shapes |= {(m, cin, width), (m, 4 * width, width),
+                   (m, cin, 4 * width), (m, width, 4 * width)}
+    return sorted(shapes)
+
+
+def _operands(M, K, N, dtype=torch.bfloat16):
+    """x (M, K), wt (N, K), y (M, N) that share one aligned element: the
+    route reads only dtype, shape and pointers."""
+    one = torch.empty(1, dtype=dtype)
+    return one.expand(M, K), one.expand(N, K), one.expand(M, N)
+
+
+@pytest.mark.parametrize("M,K,N", sorted(set(_resnet_training_shapes(128)
+                                             + _resnet_training_shapes(2))))
+def test_route_takes_tma_for_every_resnet_training_shape(M, K, N):
+    assert tcf.route(*_operands(M, K, N)) == "tma"
+
+
+@pytest.mark.parametrize("case", ["float32", "k_ragged", "n_ragged",
+                                  "misaligned_x", "misaligned_wt"])
+def test_route_takes_simple_where_tma_cannot_address(case):
+    """fp32, K or N not a multiple of 8, and a view one element past an
+    aligned start take the simple route."""
+    M, K, N = 6272, 64, 256
+    if case == "float32":
+        ops = _operands(M, K, N, torch.float32)
+    elif case == "k_ragged":
+        ops = _operands(M, K + 4, N)
+    elif case == "n_ragged":
+        ops = _operands(M, K, N - 2)
+    else:
+        x, wt, y = _operands(M, K, N)
+        shifted = torch.empty(M * K + 1, dtype=torch.bfloat16)[1:]
+        if case == "misaligned_x":
+            x = shifted.view(M, K)
+        else:
+            wt = shifted[:N * K].view(N, K)
+        assert x.storage_offset() + wt.storage_offset() == 1
+        ops = (x, wt, y)
+    assert tcf.route(*ops) == "simple"
+
+
 # -- the ops against the JAX package's --------------------------------------
 
 
@@ -473,13 +524,15 @@ def test_fused_kernels_match_plain_on_card(M, K, N, relu, dtype,
              ("bn_act_matmul_stats", (x, sc, sh, w, relu))]
     if not relu:
         cases.append(("matmul_bn_stats", (x, w)))
+    simple = dtype == "float32" or (M, K, N) in RAGGED_SHAPES
     for name, args in cases:
         counts = getattr(tcf, f"{name}_counts")
-        before = counts.launches
+        before = (counts.launches, counts.simple_launches)
         got = getattr(tcf, f"{name}_fwd")(*args)
         ref = getattr(tcf, f"{name}_plain")(*args)
         torch.cuda.synchronize()
-        assert counts.launches == before + 1
+        assert (counts.launches, counts.simple_launches) == (
+            before[0] + 1, before[1] + simple)
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         assert got[0].dtype == x.dtype and got[0].shape == (M, N)
@@ -487,6 +540,88 @@ def test_fused_kernels_match_plain_on_card(M, K, N, relu, dtype,
                                    rtol=rtol, msg=name)
         if len(got) == 3:
             _check_stats(got[1:], got[0])
+
+
+# bf16 shapes the TMA route takes beyond RESNET_SHAPES: ResNet-50's first
+# stage at b=128, then M, K and N that no tile divides (K, N multiples of 8)
+TMA_SHAPES = RESNET_SHAPES + [(401408, 64, 64), (401408, 256, 64),
+                              (401408, 64, 256), (6349, 64, 192),
+                              (130, 136, 72), (300, 72, 136), (200, 40, 24)]
+
+
+def _on_route(name, args, route):
+    """``<name>_fwd(*args)`` on CUDA tensors pinned to ``route`` through the
+    wrapper's private ``forced``; returns ``(y,)`` or ``(y, sum, sumsq)``."""
+    if name == "matmul_bn_stats":
+        (x, w), extra = args, ()
+    else:
+        x, sc, sh, w, relu = args
+        extra = (sc, sh, relu)
+    out = tcf._launch(name, getattr(tcf, f"{name}_counts"), x, w, *extra,
+                      forced=route)
+    return out[:1] if name == "bn_act_matmul" else out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("M,K,N", TMA_SHAPES)
+def test_tma_route_matches_plain_and_simple_on_card(M, K, N, relu,
+                                                    cuda_device):
+    """The TMA route against the plain version (y within CARD_TOL, sums
+    within _check_stats) and against the simple route on the same inputs
+    (y within the bf16 CARD_TOL: the products sum in another order); two
+    runs give bit-identical sums; each launch counts on its route."""
+    x, w, sc, sh = _card_inputs(M, K, N, "bfloat16", cuda_device, seed=M + N)
+    atol, rtol = CARD_TOL["bfloat16"]
+    cases = [("bn_act_matmul", (x, sc, sh, w, relu)),
+             ("bn_act_matmul_stats", (x, sc, sh, w, relu))]
+    if not relu:
+        cases.append(("matmul_bn_stats", (x, w)))
+    for name, args in cases:
+        counts = getattr(tcf, f"{name}_counts")
+        fwd = getattr(tcf, f"{name}_fwd")
+        before = (counts.launches, counts.simple_launches)
+        got = fwd(*args)
+        again = fwd(*args)
+        simple = _on_route(name, args, "simple")
+        ref = getattr(tcf, f"{name}_plain")(*args)
+        torch.cuda.synchronize()
+        assert (counts.launches, counts.simple_launches) == (
+            before[0] + 3, before[1] + 1), name
+        got, again, simple, ref = (t if isinstance(t, tuple) else (t,)
+                                   for t in (got, again, simple, ref))
+        assert got[0].dtype == x.dtype and got[0].shape == (M, N)
+        for other in (ref, simple):
+            torch.testing.assert_close(got[0].float(), other[0].float(),
+                                       atol=atol, rtol=rtol, msg=name)
+        assert torch.equal(got[0], again[0])
+        if len(got) == 3:
+            _check_stats(got[1:], got[0])
+            assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+
+
+@pytest.mark.gpu
+def test_tma_route_refuses_what_it_cannot_address(cuda_device):
+    x, w, _, _ = _card_inputs(128, 64, 64, "float32", cuda_device)
+    with pytest.raises(MXNetError, match="tma route"):
+        _on_route("matmul_bn_stats", (x, w), "tma")
+    xb = torch.zeros(128 * 64 + 1, dtype=torch.bfloat16,
+                     device=cuda_device)[1:].view(128, 64)
+    with pytest.raises(MXNetError, match="tma route"):
+        _on_route("matmul_bn_stats", (xb, w.to(torch.bfloat16)), "tma")
+    # at K = 20480 the prologue's coefficients and two ring slots exceed a
+    # block's shared memory: no TMA plan, so the rule takes the simple route
+    x, w, sc, sh = _card_inputs(128, 20480, 64, "bfloat16", cuda_device)
+    c = tcf.bn_act_matmul_counts
+    before = c.simple_launches
+    got = tcf.bn_act_matmul_fwd(x, sc, sh, w, True)
+    assert c.simple_launches == before + 1
+    atol, rtol = CARD_TOL["bfloat16"]
+    torch.testing.assert_close(
+        got.float(), tcf.bn_act_matmul_plain(x, sc, sh, w, True).float(),
+        atol=atol, rtol=rtol)
+    with pytest.raises(MXNetError, match="tma route"):
+        _on_route("bn_act_matmul", (x, sc, sh, w, True), "tma")
 
 
 @pytest.mark.gpu
