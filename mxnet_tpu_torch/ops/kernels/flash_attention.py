@@ -29,7 +29,8 @@ design does about it.
 - :func:`flash_attention` is the entry the attention op calls (ref:
   ``flash_attention`` at ``ops/pallas/flash_attention.py:725``).  It keeps
   the JAX entry's shape rules that send a case to the oracle
-  (``ops.attention.sdpa_reference``) before any launch.
+  (``ops.attention.sdpa_reference``) before any launch, lengths
+  included.
 
 Masking follows the TPU kernels: the additive key-padding row uses -1e9,
 not -inf, and the running max starts at -1e9, so a batch row whose keys
@@ -46,7 +47,7 @@ import math
 
 import torch
 
-from ...base import MXNetError
+from ...base import MXNetError, getenv
 from .build import KernelCounts, KernelLibrary
 
 NEG_INF = -1e9
@@ -335,15 +336,42 @@ def as_key_padding_mask(mask, q, k):
     return row.to(torch.float32).contiguous()
 
 
+def _headdim64_allowed():
+    """Whether a head dim that is a multiple of 64 but not of 128 may take
+    the kernels: yes unless ``MXTPU_FLASH_HEADDIM64`` (falling back to
+    ``MXNET_FLASH_HEADDIM64``) reads false (ref: ``_headdim64_allowed``,
+    ``ops/pallas/flash_attention.py:638``, off the TPU).  The card needs
+    no compile probe: a kernel that fails raises."""
+    forced = getenv("FLASH_HEADDIM64", None, bool)
+    return True if forced is None else forced
+
+
+def _tiles_ok(q, k, block=128):
+    """The JAX entry's shape rule (ref: ``_tiles_ok``, ``ops/pallas/
+    flash_attention.py:608``): sq and sk multiples of 128 and at least
+    128, and a head dim that is a multiple of 128, or of 64 where
+    :func:`_headdim64_allowed`."""
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    if d % 128 != 0 and (d % 64 != 0 or not _headdim64_allowed()):
+        return False
+    return sq % block == 0 and sk % block == 0 and sq >= block \
+        and sk >= block
+
+
 def flash_attention(q, k, v, mask=None, scale=None, causal=False):
     """Fused attention, q/k/v ``(batch, heads, seq, head_dim)``.
 
     Key-padding masks, bool or additive of shape ``(b, 1, 1, sk)``, ride
-    inside the kernel.  As in the JAX entry, three cases go to the
-    oracle ``sdpa_reference`` instead: a full score mask, causal
-    attention with ``sq != sk`` (the oracle's mask is end-aligned, the
-    kernel's start-aligned) and a head dim that is not a multiple of 64.
-    On CUDA tensors each such call counts in ``counts.plain_calls_on_cuda``.
+    inside the kernel.  As in the JAX entry, these cases go to the oracle
+    ``sdpa_reference`` instead, decided before any launch: a shape that
+    :func:`_tiles_ok` refuses (sq or sk below 128 or not a multiple of
+    128; a head dim that is not a multiple of 64, or of 128 when
+    ``MXTPU_FLASH_HEADDIM64`` is false), causal attention with
+    ``sq != sk`` (the oracle's mask is end-aligned, the kernel's
+    start-aligned) and a full score mask.  On CUDA tensors each such call
+    counts in ``counts.plain_calls_on_cuda``.  The kernel wrappers
+    themselves take any length.
 
     When autograd records and q, k or v needs a gradient, the call goes
     through :class:`FlashAttentionFunction`, which keeps what the backward
@@ -353,7 +381,7 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
     from ..attention import sdpa_reference
 
     km = as_key_padding_mask(mask, q, k)
-    to_oracle = (q.shape[-1] % 64 != 0
+    to_oracle = (not _tiles_ok(q, k)
                  or (causal and q.shape[2] != k.shape[2])
                  or (mask is not None and km is None))
     if to_oracle:

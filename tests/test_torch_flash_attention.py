@@ -116,12 +116,14 @@ def test_dead_row_is_mean_of_v_not_nan():
 
 
 @pytest.mark.parametrize("case", ["score_mask", "causal_cross_length",
-                                  "head_dim_96", "key_padding"])
+                                  "head_dim_96", "key_padding",
+                                  "length_100"])
 def test_entry_matches_jax_entry(case, interpret_pallas):
     """The port's entry follows the JAX entry's routing: a full score
-    mask, causal attention with sq != sk (the oracle's end-aligned mask)
-    and a head dim that is not a multiple of 64 go to the oracle; a
-    (b,1,1,sk) key-padding mask rides the kernel."""
+    mask, causal attention with sq != sk (the oracle's end-aligned mask),
+    a head dim that is not a multiple of 64 and a length that is not a
+    multiple of 128 go to the oracle; a (b,1,1,sk) key-padding mask rides
+    the kernel."""
     import jax.numpy as jnp
 
     from mxnet_tpu.ops.pallas.flash_attention import \
@@ -129,6 +131,7 @@ def test_entry_matches_jax_entry(case, interpret_pallas):
 
     b, h = 2, 2
     sq, sk, d = (128, 256, 64) if case == "causal_cross_length" else \
+        (100, 100, 64) if case == "length_100" else \
         (128, 128, 96 if case == "head_dim_96" else 64)
     q, k, v = _qkv(b, h, sq, sk, d, seed=5)
     causal = case == "causal_cross_length"
@@ -137,7 +140,7 @@ def test_entry_matches_jax_entry(case, interpret_pallas):
         rng = np.random.RandomState(6)
         mask = np.where(rng.rand(b, 1, sq, sk) > 0.3, 0.0,
                         -1e9).astype(np.float32)
-    elif case == "key_padding":
+    elif case in ("key_padding", "length_100"):
         _, mask, _ = _key_mask("additive", b, sk)
     jo = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                 mask=None if mask is None else jnp.asarray(mask),

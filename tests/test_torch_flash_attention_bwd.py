@@ -166,8 +166,9 @@ def test_function_on_cpu_matches_autograd_of_the_plain_forward(mask):
 def test_entry_records_only_when_a_gradient_is_needed():
     """The entry goes through the Function only when autograd records and
     an input needs a gradient; its output then carries a graph, and the
-    key-padding mask gets no gradient."""
-    b, h, s, d = 2, 2, 64, 64
+    key-padding mask gets no gradient.  s=128: shorter lengths go to the
+    oracle, as in the JAX entry."""
+    b, h, s, d = 2, 2, 128, 64
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(b, h, s, d))
     assert tfa.flash_attention(q, k, v, mask=torch.zeros(b, 1, 1, s)) \
         .grad_fn is None
@@ -179,6 +180,59 @@ def test_entry_records_only_when_a_gradient_is_needed():
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     out.backward(do)
     assert qg.grad is not None and mask.grad is None
+
+
+def _entry_mask(b, s):
+    """An additive (b,1,1,s) mask: batch row 1 all padding (a dead row),
+    row 0's last 10 keys padding."""
+    keep = np.ones((b, s), bool)
+    keep[1] = False
+    keep[0, -10:] = False
+    return np.where(keep, 0.0, -1e9).astype(np.float32).reshape(b, 1, 1, s)
+
+
+@pytest.mark.parametrize("s,headdim64,flash", [
+    (100, None, False), (128, None, True), (128, "0", False)],
+    ids=["s100_oracle", "s128_flash", "s128_headdim64_off_oracle"])
+def test_entry_gradients_match_jax_entry(s, headdim64, flash, monkeypatch,
+                                         interpret_pallas):
+    """The port's entry routes as the JAX entry does: sq or sk below 128
+    or not a multiple of 128, and d=64 with ``MXTPU_FLASH_HEADDIM64=0``,
+    go to the oracle; s=128 takes the flash formula.  Forward and the
+    gradients of q, k and v agree within 1e-6 absolute plus 1e-6 relative
+    (at s=128 the dead row's gradients reach ~18, where one fp32 ulp is
+    2e-6); on the dead row the oracle's softmax gradient and the flash
+    formula's differ by ~sk times, so a wrong route fails by far more."""
+    import jax
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops.pallas.flash_attention import \
+        flash_attention as jflash
+
+    if headdim64 is None:
+        monkeypatch.delenv("MXTPU_FLASH_HEADDIM64", raising=False)
+        monkeypatch.delenv("MXNET_FLASH_HEADDIM64", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_FLASH_HEADDIM64", headdim64)
+    b, h, d = 2, 2, 64
+    rng = np.random.RandomState(0)
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32) * 0.5
+                   for _ in range(4))
+    mask = _entry_mask(b, s)
+    jo, vjp = jax.vjp(lambda a, c, e: jflash(a, c, e,
+                                             mask=jnp.asarray(mask)),
+                      *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*ts, mask=torch.from_numpy(mask))
+    assert (type(out.grad_fn).__name__
+            == "FlashAttentionFunctionBackward") == flash
+    tgrads = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo),
+                               atol=1e-6, rtol=1e-6, err_msg="o")
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6,
+                                   rtol=1e-6, err_msg=name)
 
 
 # -- on the card ----------------------------------------------------------
@@ -261,10 +315,10 @@ def test_attention_gradients_reach_attn_in_weight_on_card(cuda_device):
     and plain backward) within 1e-4 plus 1e-4 relative."""
     import mxnet_tpu_torch as tmx
 
-    b, s = 2, 64
+    b, s = 2, 128  # shorter lengths go to the oracle, as in the JAX entry
     rng = np.random.RandomState(2)
     x = rng.randn(b, s, 128).astype(np.float32)
-    row = np.where(np.arange(s)[None] < np.array([[64], [40]]), 0.0,
+    row = np.where(np.arange(s)[None] < np.array([[128], [80]]), 0.0,
                    -1e9).astype(np.float32).reshape(b, 1, 1, s)
     w_in = (rng.randn(384, 128) * 0.05).astype(np.float32)
     w_out = (rng.randn(128, 128) * 0.05).astype(np.float32)
