@@ -16,15 +16,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
    at the training shape (b=32, h=12, s=128, d=64), the serving shape
    (b=8, h=12, s=512, d=64) and d=128, in fp32 and bf16, with no mask, a
    key-padding mask with a dead row, and causal; and the autograd
-   Function's gradients against autograd through the plain forward;
+   Function's gradients against autograd through the plain forward.
+   The forward and dQ kernels run on their tensor-core route and are
+   timed beside their SIMT route; the fp32 attention bounds are at the
+   3xTF32 rate (the CUDA-core bound printed beside); the share of key
+   tiles they visit, their wrappers' host time per call and SDPA's
+   kernels (its backend) are printed;
 4. serve: BERT-base (12 layers, 768 units, 12 heads of 64, vocab 30522,
    random weights from a seed) behind ``serve.ModelServer``, 32 requests
    from 4 client threads; the kernels' launch counts are read around this
-   run, and 3 responses are compared with the same weights on the CPU;
+   run (every launch on the tensor-core route), and 3 responses are compared with the same weights on the CPU;
 5. train: BERT-base with MLM+NSP heads (dropout 0.1) takes 20 AdamW steps
    through ``autograd.record``, ``backward`` and ``gluon.Trainer`` at
    batch 32, sequence 128, fp32; the launch counts are read around the
-   20 steps; every trainable parameter must have a finite gradient after
+   20 steps, and every forward and dQ launch must have taken the
+   tensor-core route; every trainable parameter must have a finite gradient after
    the first backward and the loss must fall; then 2 steps at batch 4
    with dropout 0 on the card and on the CPU from the same weights must
    agree;
@@ -94,7 +100,8 @@ also writes a ``torch.profiler`` table of two training steps to
 ``chiprun_out/train_profile.txt`` and prints its top rows;
 ``--profile-resnet`` does the same for two ResNet-50 steps, into
 ``chiprun_out/resnet_profile.txt``, and prints the fused kernels' share of
-the device time.
+the device time.  ``--attention-only`` runs phases 1-3's attention
+kernels and stops (no result line).
 """
 from __future__ import annotations
 
@@ -115,6 +122,10 @@ ROOT = Path(__file__).resolve().parent
 # bf16 FLOP/s, and HBM3 bytes/s
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# fp32 products on the tensor cores as 3xTF32 (three TF32 products, 495
+# TFLOP/s dense, per fp32 product): the fp32 attention bounds' rate, which
+# a tensor-core kernel can beat the CUDA cores' 67 TFLOP/s by
+TF32X3_FLOPS = 495e12 / 3
 
 SERVE_REQUESTS = 32
 SERVE_THREADS = 4
@@ -242,24 +253,138 @@ def valid_pairs(b, h, sq, sk, valid, causal):
     return b * h * sq * sk
 
 
-def least_ms(nbytes, flops, dtype):
+def least_ms(nbytes, flops, dtype, rate=None):
     """The least time (ms) for ``nbytes`` moved at the memory rate and
-    ``flops`` at the peak rate of ``dtype``, and which of the two bounds
-    it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    ``flops`` at ``rate`` (default: the peak rate of ``dtype``), and which
+    of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / (rate or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def attention_bound(b, h, sq, sk, d, dtype, valid, causal):
+def attention_rates(dtype):
+    """The attention kernels' bound rates: fp32 at 3xTF32 on the tensor
+    cores, and on the CUDA cores (the bound rows 1-6 had until the
+    tensor-core kernels); bf16 at the bf16 tensor-core rate."""
+    if dtype == "float32":
+        return TF32X3_FLOPS, PEAK_FLOPS["float32"]
+    return PEAK_FLOPS[dtype], PEAK_FLOPS[dtype]
+
+
+def attention_bound(b, h, sq, sk, d, dtype, valid, causal, cores=False):
     """Least time (ms) of the forward: q, k, v and the mask read once, o
     and lse written once, and the QK and PV products over the valid
-    pairs."""
+    pairs, at the 3xTF32 rate (``cores``: the CUDA cores') in fp32."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = (b * h * (sq + 2 * sk) * d * item + b * h * sq * d * item
               + b * h * sq * 4 + (b * sk * 4 if valid is not None else 0))
     pairs = valid_pairs(b, h, sq, sk, valid, causal)
-    return least_ms(nbytes, 4.0 * pairs * d, dtype)
+    return least_ms(nbytes, 4.0 * pairs * d, dtype,
+                    attention_rates(dtype)[int(cores)])
+
+
+def graph_ms(fn, iters=20):
+    """Device time (ms) of one call of ``fn``: ``iters`` calls captured in
+    one CUDA graph and replayed under CUDA events, so no host time falls
+    between the launches (and the wrapper is shown to be capturable)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(graph.replay, iters=5) / iters
+    del graph
+    return ms
+
+
+def host_us(fn, iters=200):
+    """Host time (us) of one call of ``fn``: the wrapper's Python, checks,
+    allocations and launch, without waiting for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def sass_mix(library, name, ops=("HMMA", "MUFU", "LDS", "F2F", "FFMA",
+                                  "BAR", "SYNCS")):
+    """Counts of a few opcodes in the SASS of each kernel of ``library``
+    whose name holds ``name`` (cuobjdump from the CUDA toolkit), or None
+    where cuobjdump is missing: shows which unit does the products."""
+    import shutil
+
+    from mxnet_tpu_torch.ops.kernels.build import nvcc_path
+
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).with_name(
+        "cuobjdump"))
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(library._target())],
+                         capture_output=True, text=True, timeout=120).stdout
+    mixes, current = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            current = fn if name in fn else None
+            if current:
+                mixes[current] = dict.fromkeys(ops, 0)
+        elif current and "/*" in line:
+            text = line.split("*/", 1)[-1].strip()
+            op = text.split()[0] if text else ""
+            if op.startswith("@"):
+                op = text.split()[1]
+            for o in ops:
+                if op.startswith(o):
+                    mixes[current][o] += 1
+    return mixes
+
+
+def short_name(mangled):
+    """A kernel's name and template arguments out of its mangled name."""
+    import re
+
+    found = re.search(r"[a-z_]+kernelI\w{0,40}?E(?=v|E)", mangled)
+    return found.group(0) if found else mangled[:80]
+
+
+def tile_share(launch):
+    """The share of key tiles a tensor-core attention kernel visited in
+    ``launch(tiles)``, from the counter it adds to: (visited, of)."""
+    import torch
+
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+    launch(tiles)
+    visited, total = tiles.tolist()
+    return visited, total
+
+
+def sdpa_kernel_names(tF, q, k, v, attn_mask, causal):
+    """The device kernels of one SDPA forward and backward at these
+    inputs, by torch.profiler: the backend PyTorch picked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = tF.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask,
+                                              is_causal=causal)
+        torch.autograd.grad(out, (qs, ks, vs), torch.ones_like(out))
+        torch.cuda.synchronize()
+    times = kernel_times(prof.key_averages())
+    return [k for k, _ in sorted(times.items(), key=lambda kv: -kv[1])][:4]
 
 
 def check_flash_attention(mx):
@@ -281,7 +406,9 @@ def check_flash_attention(mx):
     main = None
     log("flash_attention_fwd: kernel vs plain (o atol / lse atol: fp32 "
         "1e-4 / 1e-3, bf16 2e-2 / 1e-3); q, k, v are head views of a "
-        "packed QKV tensor")
+        "packed QKV tensor (the tensor-core route); bound at 3xTF32 "
+        "(fp32), the CUDA-core bound in brackets; tiles: key tiles "
+        "visited of those without skipping")
     for d, h in ((64, 12), (128, 6)):
         b, s = 8, 512
         packed = torch.from_numpy(rng.randn(b, s, 3 * h * d)
@@ -295,6 +422,7 @@ def check_flash_attention(mx):
             for mask in ("none", "key_padding", "causal"):
                 km = row if mask == "key_padding" else None
                 causal = mask == "causal"
+                assert fa.route(q, k, v) == "mma"
                 o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal)
                 po, plse = fa.flash_attention_plain(q, k, v, km,
                                                     causal=causal)
@@ -314,14 +442,22 @@ def check_flash_attention(mx):
                 lib_ms = cuda_ms(lambda: tF.scaled_dot_product_attention(
                     q, k, v, attn_mask=attn_mask, is_causal=causal),
                     iters=20)
-                bound_ms, bound_by = attention_bound(
-                    b, h, s, s, d, dtype,
-                    valid if mask == "key_padding" else None, causal)
+                simt_ms = cuda_ms(lambda: fa._launch_fwd(
+                    q, k, v, km, causal, None, forced="simt"), iters=20)
+                vl = valid if mask == "key_padding" else None
+                bound_ms, bound_by = attention_bound(b, h, s, s, d, dtype,
+                                                     vl, causal)
+                cores_ms, _ = attention_bound(b, h, s, s, d, dtype, vl,
+                                              causal, cores=True)
+                visited, total = tile_share(lambda t: fa._launch_fwd(
+                    q, k, v, km, causal, None, tiles=t))
                 log(f"  b={b} h={h} s={s} d={d} {dtype:8s} {mask:11s} "
                     f"o_err={o_err:.3g} lse_err={lse_err:.3g} "
-                    f"kernel={kern_ms:.4f}ms plain={plain_ms:.4f}ms "
-                    f"sdpa={lib_ms:.4f}ms bound={bound_ms:.4f}ms "
-                    f"({bound_by}) {'ok' if ok else 'FAIL'}")
+                    f"kernel={kern_ms:.4f}ms simt={simt_ms:.4f}ms "
+                    f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+                    f"bound={bound_ms:.4f}ms ({bound_by}; "
+                    f"{cores_ms:.4f}) tiles {visited}/{total} "
+                    f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"flash attention kernel disagrees "
                                      f"with its plain version: d={d} "
@@ -329,20 +465,42 @@ def check_flash_attention(mx):
                 if (d, dtype, mask) == (64, "float32", "key_padding"):
                     main = {"max_abs_err": o_err, "ms": kern_ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": lib_ms}
+                            "bound_by": bound_by, "library_ms": lib_ms,
+                            "simt_ms": simt_ms, "cuda_core_bound_ms":
+                            cores_ms, "tiles_visited": [visited, total]}
+                    host = host_us(lambda: fa.flash_attention_fwd(
+                        q, k, v, km))
+                    names = sdpa_kernel_names(tF, q, k, v, attn_mask,
+                                              False)
+                    dev_ms = graph_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, km))
+                    sdpa_dev = device_ms(
+                        lambda: tF.scaled_dot_product_attention(
+                            q, k, v, attn_mask=attn_mask), 20, ("fmha",))
+                    main.update(host_us=host, device_ms=dev_ms,
+                                library_device_ms=sdpa_dev)
+                    log(f"  main case: device time {dev_ms:.4f} ms (a CUDA "
+                        f"graph of 20 launches), SDPA's {sdpa_dev:.4f} "
+                        f"(torch.profiler); the "
+                        f"wrapper's host time {host:.1f} us a call; SDPA's "
+                        f"kernels here (forward and backward, by device "
+                        f"time): {names}")
     return main
 
 
-def bwd_bound(b, h, sq, sk, d, dtype, valid, causal, n_ops, n_out):
+def bwd_bound(b, h, sq, sk, d, dtype, valid, causal, n_ops, n_out,
+              cores=False):
     """Least time (ms) of one backward kernel: q, k, v, dO read once, lse
     and delta (fp32) and the mask read once, ``n_out`` (b,h,s,d) outputs
-    written once; ``n_ops * d`` operations per valid pair."""
+    written once; ``n_ops * d`` operations per valid pair, at the rates of
+    :func:`attention_bound`."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = (b * h * (2 * sq + 2 * sk) * d * item + 2 * b * h * sq * 4
               + (b * sk * 4 if valid is not None else 0)
               + n_out * b * h * sq * d * item)
     pairs = valid_pairs(b, h, sq, sk, valid, causal)
-    return least_ms(nbytes, float(n_ops) * pairs * d, dtype)
+    return least_ms(nbytes, float(n_ops) * pairs * d, dtype,
+                    attention_rates(dtype)[int(cores)])
 
 
 def check_flash_attention_bwd(mx):
@@ -365,7 +523,10 @@ def check_flash_attention_bwd(mx):
     log(f"flash_attention_bwd: dQ and dK/dV kernels vs plain (fp32 atol/"
         f"rtol {BWD_TOL['float32']}, bf16 {BWD_TOL['bfloat16']}); the "
         f"key-padding case has a dead row except at the training shape's "
-        f"main case")
+        f"main case; dQ on the tensor-core route, its SIMT route timed "
+        f"beside; bounds at 3xTF32 (fp32), the CUDA-core bound after the "
+        f"slash; tiles: the dQ kernel's key tiles visited of those without "
+        f"skipping")
     shapes = (("train", TRAIN_BATCH, 12, TRAIN_SEQ, 64),
               ("serve", 8, 12, 512, 64), ("d128", 8, 6, 512, 128))
     for label, b, h, s, d in shapes:
@@ -408,8 +569,14 @@ def check_flash_attention_bwd(mx):
                                        rtol=rtol)
                 delta = (do.float() * o.float()).sum(-1).reshape(b * h, s)
                 args = (q, k, v, do, lse, delta, km)
+                assert fa.route(q, k, v, do) == "mma"
                 dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
                     *args, causal=causal), iters=20)
+                simt_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+                    *args, causal=causal, forced="simt"), iters=20)
+                visited, total = tile_share(
+                    lambda t: fa.flash_attention_bwd_dq(
+                        *args, causal=causal, tiles=t))
                 dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
                     *args, causal=causal), iters=20)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
@@ -420,11 +587,16 @@ def check_flash_attention_bwd(mx):
                                      6, 1)
                 dkv_bound = bwd_bound(b, h, s, s, d, dtype, dvalid, causal,
                                       8, 2)
+                dq_cores = bwd_bound(b, h, s, s, d, dtype, dvalid, causal,
+                                     6, 1, cores=True)[0]
+                dkv_cores = bwd_bound(b, h, s, s, d, dtype, dvalid, causal,
+                                      8, 2, cores=True)[0]
                 log(f"  {label:5s} b={b} h={h} s={s} d={d} {dtype:8s} "
                     f"{mask:20s} err dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/"
-                    f"{errs[2]:.3g} dQ={dq_ms:.4f}ms (bound "
-                    f"{dq_bound[0]:.4f} {dq_bound[1]}) dKdV={dkv_ms:.4f}ms "
-                    f"(bound {dkv_bound[0]:.4f} {dkv_bound[1]}) "
+                    f"{errs[2]:.3g} dQ={dq_ms:.4f}ms simt={simt_ms:.4f}ms "
+                    f"(bound {dq_bound[0]:.4f} {dq_bound[1]}/{dq_cores:.4f})"
+                    f" tiles {visited}/{total} dKdV={dkv_ms:.4f}ms (bound "
+                    f"{dkv_bound[0]:.4f} {dkv_bound[1]}/{dkv_cores:.4f}) "
                     f"plain={plain_ms:.4f}ms sdpa_bwd={lib_ms:.4f}ms "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -435,22 +607,55 @@ def check_flash_attention_bwd(mx):
                                             "key_padding"):
                     fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(
                         q, k, v, km), iters=20)
-                    for name, ms, err, (bms, bby) in (
-                            ("dq", dq_ms, errs[0], dq_bound),
-                            ("dkv", dkv_ms, max(errs[1:]), dkv_bound)):
+                    fwd_simt_ms = cuda_ms(lambda: fa._launch_fwd(
+                        q, k, v, km, False, None, forced="simt"), iters=20)
+                    sdpa_fwd_ms = cuda_ms(
+                        lambda: tF.scaled_dot_product_attention(
+                            q, k, v, attn_mask=km.view(b, 1, 1, s)),
+                        iters=20)
+                    for name, ms, err, (bms, bby), cores in (
+                            ("dq", dq_ms, errs[0], dq_bound, dq_cores),
+                            ("dkv", dkv_ms, max(errs[1:]), dkv_bound,
+                             dkv_cores)):
                         main[name] = {"max_abs_err": err, "ms": ms,
                                       "plain_ms": plain_ms, "bound_ms": bms,
-                                      "bound_by": bby, "library_ms": lib_ms}
+                                      "bound_by": bby, "library_ms": lib_ms,
+                                      "cuda_core_bound_ms": cores}
+                    dq_dev = graph_ms(lambda: fa.flash_attention_bwd_dq(
+                        *args, causal=causal))
+                    sdpa_bwd_dev = device_ms(sdpa_backward(
+                        tF, q, k, v, do, km, causal), 10, ("fmha_cutlassB",))
+                    fwd_dev = graph_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, km))
+                    sdpa_fwd_dev = device_ms(
+                        lambda: tF.scaled_dot_product_attention(
+                            q, k, v, attn_mask=km.view(b, 1, 1, s)), 20,
+                        ("fmha",))
+                    main["dq"].update(simt_ms=simt_ms,
+                                      tiles_visited=[visited, total],
+                                      device_ms=dq_dev,
+                                      library_device_ms=sdpa_bwd_dev,
+                                      host_us=host_us(
+                                          lambda: fa.flash_attention_bwd_dq(
+                                              *args, causal=causal)))
                     main["fwd_ms"] = fwd_ms
-                    log(f"  train shape fp32 key padding: forward kernel "
-                        f"{fwd_ms:.4f} ms")
+                    log(f"  train shape fp32 key padding (device times: "
+                        f"ours from CUDA graphs, SDPA's from torch.profiler)"
+                        f": forward kernel {fwd_ms:.4f} ms (device "
+                        f"{fwd_dev:.4f}), its SIMT "
+                        f"route {fwd_simt_ms:.4f}, SDPA's forward "
+                        f"{sdpa_fwd_ms:.4f} (device {sdpa_fwd_dev:.4f}); dQ "
+                        f"{dq_ms:.4f} ms (device {dq_dev:.4f}) against 6/14 "
+                        f"of SDPA's backward {6 / 14 * lib_ms:.4f} (device "
+                        f"{6 / 14 * sdpa_bwd_dev:.4f}); the dQ wrapper's "
+                        f"host time {main['dq']['host_us']:.1f} us a call")
     check_function_gradients(fa, dev, rng)
     return main
 
 
-def sdpa_backward_ms(tF, q, k, v, do, km, causal):
-    """The backward of ``scaled_dot_product_attention`` at the same shape
-    and mask, timed on its own (the graph is kept across calls)."""
+def sdpa_backward(tF, q, k, v, do, km, causal):
+    """A callable that runs the backward of ``scaled_dot_product_attention``
+    at the same shape and mask (the graph is kept across calls)."""
     import torch
 
     b, s = q.shape[0], q.shape[2]
@@ -458,8 +663,14 @@ def sdpa_backward_ms(tF, q, k, v, do, km, causal):
     attn_mask = None if km is None else km.to(q.dtype).view(b, 1, 1, s)
     out = tF.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask,
                                           is_causal=causal)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                               retain_graph=True), iters=10)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
+def sdpa_backward_ms(tF, q, k, v, do, km, causal):
+    """The backward of ``scaled_dot_product_attention`` at the same shape
+    and mask, timed on its own."""
+    return cuda_ms(sdpa_backward(tF, q, k, v, do, km, causal), iters=10)
 
 
 def check_function_gradients(fa, dev, rng):
@@ -554,6 +765,7 @@ def serve_bert(mx, card, attn_ms):
     wall = time.perf_counter() - t1
     server.shutdown(drain=True, timeout=120)
     launches = fa.counts.launches
+    simt = fa.counts.simt_launches
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     if any(t.is_alive() for t in threads):
@@ -567,12 +779,13 @@ def serve_bert(mx, card, attn_ms):
         f"{st['latency']['p99_ms']} ms; bucket hits {st['bucket_hits']} "
         f"on {card}")
     log(f"serve: graph {st['graph']}; flash launches {launches} "
-        f"(12 x {n_batches} batches = {12 * n_batches}); plain calls on "
-        f"cuda {plain_on_cuda}")
+        f"(12 x {n_batches} batches = {12 * n_batches}), {simt} on the "
+        f"SIMT route; plain calls on cuda {plain_on_cuda}")
     checks = {
         "served": st["served"] == SERVE_REQUESTS and st["failed"] == 0,
         "post_warmup_compiles": st["graph"]["post_warmup_compiles"] == 0,
         "launches": launches == 12 * n_batches,
+        "tensor_core_route": simt == 0,
         "plain_calls_on_cuda": plain_on_cuda == 0,
         "shapes": all(seq.shape == (len(r), 768) and pooled.shape == (768,)
                       and np.isfinite(seq).all() and np.isfinite(pooled).all()
@@ -713,6 +926,7 @@ def train_bert(mx, card, attn_ms, profile=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
               if name.startswith("flash_attention")}
+    simt = fa.counts.simt_launches + fa.dq_counts.simt_launches
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     median_ms = statistics.median(step_ms[2:])
@@ -724,8 +938,9 @@ def train_bert(mx, card, attn_ms, profile=False):
         f"{step_ms[0]:.1f} ms), {tokens_s:.0f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     log(f"train: losses {[round(x, 4) for x in losses]}")
-    log(f"train: launches {counts} (12 x {n} = {12 * n} each); plain calls "
-        f"on cuda {plain_on_cuda}; attention kernels at this shape (fwd "
+    log(f"train: launches {counts} (12 x {n} = {12 * n} each), {simt} of "
+        f"the forward's and dQ's on the SIMT route; plain calls on cuda "
+        f"{plain_on_cuda}; attention kernels at this shape (fwd "
         f"{attn_ms['fwd_ms']:.4f} + dQ {attn_ms['dq']['ms']:.4f} + dK/dV "
         f"{attn_ms['dkv']['ms']:.4f} ms) x 12 = "
         f"{12 * (attn_ms['fwd_ms'] + attn_ms['dq']['ms'] + attn_ms['dkv']['ms']) / median_ms:.1%}"
@@ -735,6 +950,7 @@ def train_bert(mx, card, attn_ms, profile=False):
         "loss_falls": losses[-1] < losses[0],
         "first_backward_gradients": not missing,
         "launches": all(c == 12 * n for c in counts.values()),
+        "tensor_core_route": simt == 0,
         "plain_calls_on_cuda": plain_on_cuda == 0,
     }
     if missing:
@@ -1870,6 +2086,9 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="run phases 1-3's attention kernels only (no "
+                         "result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1897,9 +2116,20 @@ def main():
     log(f"build: {time.perf_counter() - t:.1f}s")
     for lib in kernels.KERNEL_LIBRARIES:
         log(f"build log of {lib.source.name}:\n{lib.build_log}")
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    for lib in (fa.library, fa.bwd_library):
+        mixes = sass_mix(lib, "mma_kernel")
+        log(f"SASS of the tensor-core kernels in {lib.source.name} "
+            f"(opcode counts): "
+            + ("cuobjdump not found" if mixes is None else "; ".join(
+                f"{short_name(fn)}: {mix}" for fn, mix in mixes.items())))
 
     flash = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
+    if args.attention_only:
+        log(card)
+        log(json.dumps({"flash_attention_fwd": flash, **bwd}))
+        return 0
     serve = serve_bert(mx, card, flash["ms"])
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))

@@ -24,33 +24,51 @@
 // masked by kmask (-1e9) has lse = -1e9 in fp32, so p = 1 for each of its
 // keys and its gradients are non-zero, as the TPU kernels give them.
 //
-// Design.  128 threads per block, a 16 x 8 thread grid, fp32 FMAs on the
-// CUDA cores (no mma/wgmma/TMA).
-//   dQ:   one block per (b*h, BQ-row q tile).  Q, dO, lse and delta of
-//         the tile are loaded once; K and V are streamed in BK-key tiles.
-//         Per tile: S and dP (each thread an RM x BK/16 micro-tile, both
-//         from one pass over d), dS into shared memory, then dQ += dS K
-//         with each thread an RM x d/16 fp32 accumulator in registers.
-//         dQ is written once, scaled.
+// The dQ kernel has two routes, picked by the wrapper before the launch
+// (ops/kernels/flash_attention.py:route); the dK/dV kernel has one.
+//
+// dQ on the tensor cores (flash_bwd_dq_mma_kernel, every row of q, k, v
+// and dO 16-byte aligned: contiguous tensors and the head views autograd
+// hands over).  The tile machinery is attention_tiles.cuh's: 4 warps own
+// 64 query rows; Q and dO arrive by cp.async.bulk with the ring's first
+// K/V tiles; K and V stream through a two-stage ring of bulk row copies,
+// 32 keys a tile at d <= 192 and 16 at 256 (3 blocks an SM at d = 64,
+// 70 KB of shared memory and 126 registers in fp32); key tiles of padding
+// are skipped.  Per tile: S = Q K^T and dP = dO V^T on mma.sync.m16n8k8
+// TF32 (3xTF32 in fp32, one product in bf16), dS = P (dP - delta) in fp32
+// registers, never rounded, then dQ += dS K with dS taken from the
+// accumulators as the A operand (3xTF32; bf16 K needs hi and lo of dS
+// only).  dQ is written once, scaled.
+//
+// The SIMT kernels: 128 threads per block, a 16 x 8 thread grid, fp32
+// FMAs on the CUDA cores.
+//   dQ (other strided views): one block per (b*h, BQ-row q tile).  Q,
+//         dO, lse and delta of the tile are loaded once; K and V are
+//         streamed in BK-key tiles.  Per tile: S and dP (each thread an
+//         RM x BK/16 micro-tile, both from one pass over d), dS into
+//         shared memory, then dQ += dS K with each thread an RM x d/16
+//         fp32 accumulator in registers.  dQ is written once, scaled.
 //   dK/dV: one block per (b*h, BKV-key tile).  K, V and the tile's mask
 //         values are loaded once; Q, dO, lse and delta are streamed in
 //         BQ-row tiles.  Per tile: S^T and dP^T, then P^T and dS^T into
 //         shared memory, then dV += P^T dO and dK += dS^T Q in registers.
-//         No atomics: each block owns its keys.
-// Under `causal` the dQ kernel stops at the last key tile its rows see and
-// the dK/dV kernel starts at the first q tile that sees its keys.  Row
-// strides of the shared tiles are padded by one float so the strided reads
-// hit distinct banks.  Tiles shrink at d >= 128 (BQ = 32 for dQ, BKV = BQ
-// = 32 for dK/dV) to stay inside 227 KB of shared memory and 255
-// registers: 84/108/157/206 KB (dQ) and 101/75/108/140 KB (dK/dV) at
-// d = 64/128/192/256.
+//         No atomics: each block owns its keys.  It visits every q tile.
+// Under `causal` the dQ kernels stop at the last key tile their rows see
+// and the dK/dV kernel starts at the first q tile that sees its keys.  Row
+// strides of the SIMT kernels' shared tiles are padded by one float so the
+// strided reads hit distinct banks.  Their tiles shrink at d >= 128
+// (BQ = 32 for dQ, BKV = BQ = 32 for dK/dV) to stay inside 227 KB of
+// shared memory and 255 registers: 84/108/157/206 KB (dQ) and
+// 101/75/108/140 KB (dK/dV) at d = 64/128/192/256.
 //
 // Bound on an H100 SXM (chip_smoke.py computes it per call): dQ does
 // 6*d and dK/dV 8*d operations per (query, key) pair the row attends to,
 // and each reads q, k, v, dO, lse, delta and the mask once and writes its
 // outputs once.  At the training shape (b=32, h=12, s=128, d=64, fp32,
-// every key valid) that is 1.2 and 1.6 GFLOP against ~25 MB: operations
-// bound, about 36 and 48 us at the 67 TFLOP/s fp32 peak of the CUDA cores.
+// key padding as chip_smoke.py draws it) that is 1.4 and 1.9 GFLOP over
+// the valid pairs against ~63 and ~76 MB: bytes bound, 0.0189 and 0.0227
+// ms at 3.35 TB/s (the 3xTF32 rate, 495/3 TFLOP/s, would take 0.0086 and
+// 0.0114).
 //
 // Built by nvcc into a C-ABI shared library (mxnet_tpu_torch/ops/kernels/
 // build.py) and bound with ctypes.  Each launch goes on the caller's
@@ -60,33 +78,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
 constexpr int NT = 128;  // threads per block: a 16 x 8 grid
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// A strided (b,h,s,d) head tensor with a contiguous last dim.
-template <typename T>
-struct Heads {
-  const T* p;
-  long long sb, sh, ss;
-  __device__ __forceinline__ const T* row0(int bi, int hi) const {
-    return p + bi * sb + hi * sh;
-  }
-};
+using mxtt::attn::Heads;
+using mxtt::attn::to_f;
+using mxtt::attn::from_f;
 
 struct Args {
   const void* q;
@@ -249,6 +248,163 @@ flash_bwd_dq_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
 #pragma unroll
       for (int j = 0; j < CN; ++j)
         out[tx + 16 * j] = from_f<T>(scale * acc[i][j]);
+    }
+  }
+}
+
+// -- dQ on the tensor cores (attention_tiles.cuh) ------------------------------
+
+template <typename T, int D, int BKT>
+__global__ void __launch_bounds__(mxtt::attn::kThreads)
+flash_bwd_dq_mma_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ kmask, T* __restrict__ dq,
+                        int h, int sq, int sk, float scale, int causal,
+                        int* tiles) {
+  namespace at = mxtt::attn;
+  namespace sm = mxtt::sm90;
+  using P = at::Plan<T, D, BKT, 2>;
+  constexpr bool S = at::Split<T>::value;
+  constexpr int LD = P::LD;
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  T* Qs = reinterpret_cast<T*>(tile_smem);  // [kRows][LD]
+  T* dOs = Qs + at::kRows * LD;        // [kRows][LD]
+  T* ring = dOs + at::kRows * LD;      // stage s: K tile, then V tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile_smem + P::kBarOffset);
+  int* list = reinterpret_cast<int*>(full + at::kStages + 1);
+
+  const int bh = blockIdx.x;
+  const int bi = bh / h;
+  const int hi = bh - bi * h;
+  const int q0 = blockIdx.y * at::kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows of the tile
+  const T* kb = k.row0(bi, hi);
+  const T* vb = v.row0(bi, hi);
+  const float* km = kmask ? kmask + (long long)bi * sk : nullptr;
+
+  int n_kt = (sk + BKT - 1) / BKT;
+  if (causal) {
+    // key tiles wholly after this q tile's last row contribute nothing
+    const int last_q = min(q0 + at::kRows, sq) - 1;
+    n_kt = min(n_kt, last_q / BKT + 1);
+  }
+  uint64_t* qbar = full + at::kStages;  // the Q and dO tiles'
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= at::kStages; ++s) sm::mbar_init(&full[s], 1);
+    sm::mbar_init_fence();
+  }
+  if (warp == 0) {  // Q and dO first, while the block plans its key tiles
+    __syncwarp();
+    T* const dst[2] = {Qs, dOs};
+    const T* const src[2] = {q.row0(bi, hi), dout.row0(bi, hi)};
+    const long long ss[2] = {q.ss, dout.ss};
+    at::load_tiles<T, D, LD, at::kRows, 2>(dst, src, ss, q0, sq, qbar);
+  }
+  const int n = at::plan_key_tiles<BKT>(km, sk, n_kt, causal ? q0 : sk, list);
+  if (tiles != nullptr && threadIdx.x == 0) {
+    atomicAdd(tiles, n);
+    atomicAdd(tiles + 1, n_kt);
+  }
+  if (warp == 0) {
+    for (int i = 0; i < min(at::kStages, n); ++i)
+      at::load_kv<T, D, LD, BKT>(ring, i, kb, k.ss, vb, v.ss, list[1 + i],
+                                 sk, full);
+  }
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    row_lse[r] = row < sq ? lse[(long long)bh * sq + row] : 0.f;
+    row_delta[r] = row < sq ? delta[(long long)bh * sq + row] : 0.f;
+  }
+  sm::mbar_wait(qbar, 0);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % at::kStages;
+    const int k0 = list[1 + i] * BKT;
+    const T* Ks = ring + stage * 2 * P::kTile;
+    const T* Vs = Ks + P::kTile;
+    sm::mbar_wait(&full[stage], (i / at::kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T
+    float s[BKT / 8][4], dp[BKT / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 8) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      at::a_rows<S>(Qs, LD, r0, c, qh, ql);
+      at::a_rows<S>(dOs, LD, r0, c, oh, ol);
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        at::b_rows<S>(Ks, LD, 8 * j, c, bh, bl);
+        at::mma3<S, S>(s[j], qh, ql, bh, bl);
+        at::b_rows<S>(Vs, LD, 8 * j, c, bh, bl);
+        at::mma3<S, S>(dp[j], oh, ol, bh, bl);
+      }
+    }
+
+    // dS = P (dP - delta), P = exp(scale S + mask - lse), fp32, kept in s
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // keys 2t + c of the block, rows g, g+8
+        const int kpos = k0 + 8 * j + 2 * t + c;
+        const bool in = kpos < sk;
+        const float add = km != nullptr && in ? km[kpos] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          float ds = 0.f;
+          if (in && (!causal || q0 + r0 + g + 8 * r >= kpos)) {
+            const float p = at::exp_diff(scale * s[j][e] + add, row_lse[r]);
+            ds = p * (dp[j][e] - row_delta[r]);
+          }
+          s[j][e] = ds;
+        }
+      }
+    }
+
+    // dQ += dS K: dS is fp32 (hi and lo); K's lo only in fp32
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j) {
+      uint32_t ah[4], al[4];
+      at::a_scores<true>(s[j], ah, al);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        uint32_t bh[2], bl[2];
+        at::b_keys<S>(Ks, LD, 8 * j, 8 * c, bh, bl);
+        at::mma3<true, S>(acc[c], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (warp == 0 && i + at::kStages < n)
+      at::load_kv<T, D, LD, BKT>(ring, stage, kb, k.ss, vb, v.ss,
+                                 list[1 + i + at::kStages], sk, full);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row < sq) {
+      T* out = dq + ((long long)bh * sq + row) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        out[8 * c] = from_f<T>(scale * acc[c][2 * r]);
+        out[8 * c + 1] = from_f<T>(scale * acc[c][2 * r + 1]);
+      }
     }
   }
 }
@@ -442,6 +598,38 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int D, int BKT>
+cudaError_t launch_dq_mma(const Args& a, int* tiles, cudaStream_t stream) {
+  using P = mxtt::attn::Plan<T, D, BKT, 2>;
+  const size_t smem = P::bytes((a.sk + BKT - 1) / BKT);
+  auto kern = flash_bwd_dq_mma_kernel<T, D, BKT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(a.b * a.h),
+                  (unsigned)((a.sq + mxtt::attn::kRows - 1) /
+                             mxtt::attn::kRows));
+  kern<<<grid, mxtt::attn::kThreads, smem, stream>>>(
+      heads<T>(a.q, a.st), heads<T>(a.k, a.st + 3), heads<T>(a.v, a.st + 6),
+      heads<T>(a.dout, a.st + 9), a.lse, a.delta, a.kmask,
+      static_cast<T*>(a.out0), a.h, a.sq, a.sk, a.scale, a.causal, tiles);
+  return cudaGetLastError();
+}
+
+// keys a tile of the tensor-core dQ kernel per head dim (shared memory)
+template <typename T>
+cudaError_t dispatch_dq_mma(int d, const Args& a, int* tiles,
+                            cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_dq_mma<T, 64, mxtt::attn::kKeysD64>(a, tiles, stream);
+    case 128: return launch_dq_mma<T, 128, 32>(a, tiles, stream);
+    case 192: return launch_dq_mma<T, 192, 32>(a, tiles, stream);
+    case 256: return launch_dq_mma<T, 256, 16>(a, tiles, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // tiles per head dim: (BQ, BK) for dQ, (BKV, BQ) for dK/dV
 template <typename T>
 cudaError_t dispatch_dq(int d, const Args& a, cudaStream_t stream) {
@@ -481,16 +669,27 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // elements for q, k, v and dout, in that order; each head dim must be
 // contiguous.  lse and delta are contiguous (b*h, sq) fp32, kmask a
 // (b, sk) fp32 row or null.  dq is a contiguous (b,h,sq,d) tensor of q's
-// dtype; dk and dv contiguous (b,h,sk,d) of k's.  Each returns a
-// cudaError_t.
+// dtype; dk and dv contiguous (b,h,sk,d) of k's.  The dQ kernel's route:
+// 0 = SIMT, 1 = tensor cores (every row of q, k, v and dout 16-byte
+// aligned); tiles, on route 1 and when not null, gains the key tiles the
+// blocks visited ([0]) and would visit without skipping ([1]).  Each
+// returns a cudaError_t.
 extern "C" int mxtt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* kmask, void* dq,
     int b, int h, int sq, int sk, int d, const long long* strides,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int route, int* tiles,
+    void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, kmask, dq, nullptr, b,
                            h, sq, sk, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype == 0) return (int)dispatch_dq_mma<float>(d, a, tiles, st);
+    if (dtype == 1)
+      return (int)dispatch_dq_mma<__nv_bfloat16>(d, a, tiles, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_dq<float>(d, a, st);
   if (dtype == 1) return (int)dispatch_dq<__nv_bfloat16>(d, a, st);
   return (int)cudaErrorInvalidValue;

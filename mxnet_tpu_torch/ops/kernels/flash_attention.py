@@ -11,8 +11,16 @@ with CUDA kernels that stream tiles through shared memory:
   dK/dV kernel in ``csrc/flash_attention_bwd.cu`` (a second library, so
   the forward's build is unchanged).
 
-The sources' headers say what bounds each kernel on an H100 and what its
-design does about it.
+The forward and the dQ kernel have two routes, chosen by :func:`route`
+before any launch: ``"mma"``, the tensor-core kernels of
+``csrc/attention_tiles.cuh`` (3xTF32 products in fp32, a ring of K/V rows
+copied by ``cp.async.bulk``, key tiles of padding skipped), wherever every
+row of q, k, v (and dO) starts on a 16-byte boundary: every contiguous
+tensor and every head view of a packed QKV tensor; ``"simt"``, the CUDA-
+core kernels, for other views.  Each launch counts in ``launches`` and,
+on the SIMT route, in ``simt_launches`` too.  The dK/dV kernel has one
+route.  The sources' headers say what bounds each kernel on an H100 and
+what its design does about it.
 
 - :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
   the same functions in plain PyTorch: the CPU path, and what the kernels
@@ -55,11 +63,13 @@ NEG_INF = -1e9
 HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+_ROUTES = {"simt": 0, "mma": 1}  # the C functions' route argument
+
 #: the forward kernel's counters; ``plain_calls_on_cuda`` counts the
 #: entry's oracle routes
-counts = KernelCounts()
+counts = KernelCounts("simt_launches")
 #: the backward kernels' counters, one per kernel
-dq_counts = KernelCounts()
+dq_counts = KernelCounts("simt_launches")
 dkv_counts = KernelCounts()
 library = KernelLibrary("flash_attention_fwd.cu")
 bwd_library = KernelLibrary("flash_attention_bwd.cu")
@@ -71,9 +81,28 @@ def _bind(lib):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       ctypes.c_float, i, i, p]
+                       ctypes.c_float, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def route(*heads):
+    """The route of a launch on (b, h, s, d) head tensors: ``"mma"`` when
+    every row of each starts on a 16-byte boundary (the ring copies whole
+    rows with ``cp.async.bulk``): its pointer and its batch, head and
+    sequence strides, in bytes, are multiples of 16, where that dim has
+    more than one entry; else ``"simt"``."""
+    for t in heads:
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(
+                n > 1 and (st * es) % 16
+                for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return "simt"
+    return "mma"
+
+
+def _tile_counter(tiles):
+    return ctypes.c_void_p(tiles.data_ptr()) if tiles is not None else None
 
 
 def flash_attention_plain(q, k, v, kmask=None, *, causal=False, scale=None):
@@ -144,18 +173,26 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
     """Flash-attention forward, ``(o, lse)``, as :func:`flash_attention_plain`.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise :class:`MXNetError` for what it does
-    not take (dtype other than float32/bfloat16, head dim not in
-    ``HEAD_DIMS``, non-contiguous head dim, mismatched shapes or devices)
-    and for a failed launch."""
+    on the current stream, by the :func:`route` of q, k and v, or raise
+    :class:`MXNetError` for what it does not take (dtype other than
+    float32/bfloat16, head dim not in ``HEAD_DIMS``, non-contiguous head
+    dim, mismatched shapes or devices) and for a failed launch."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kmask, causal=causal,
                                      scale=scale)
+    return _launch_fwd(q, k, v, kmask, causal, scale)
+
+
+def _launch_fwd(q, k, v, kmask, causal, scale, forced=None, tiles=None):
+    """Launch the forward on CUDA tensors; ``forced`` pins a route (card
+    tests), ``tiles`` is an int32 (2,) tensor that the tensor-core route
+    adds its visited and unskipped key tiles to."""
     _check(q, k, v, kmask)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    rt = forced or route(q, k, v)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     fn = _bind(library.load())
@@ -166,9 +203,11 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
                  o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
-                 stream)
+                 _ROUTES[rt], _tile_counter(tiles), stream)
     library.raise_on_error(err, "flash attention")
     counts.add("launches")
+    if rt == "simt":
+        counts.add("simt_launches")
     return o, lse
 
 
@@ -204,21 +243,21 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
 
 
 def _bind_bwd(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_out in (("mxtt_flash_attention_bwd_dq", 1),
-                        ("mxtt_flash_attention_bwd_dkv", 2)):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, n_out, extra in (("mxtt_flash_attention_bwd_dq", 1, [i, p]),
+                               ("mxtt_flash_attention_bwd_dkv", 2, [])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p,
-                                               ctypes.c_float, i, i, p]
+            fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p, f, i, i] \
+                + extra + [p]
             fn.restype = ctypes.c_int
     return lib.mxtt_flash_attention_bwd_dq, lib.mxtt_flash_attention_bwd_dkv
 
 
 def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
-                causal, scale):
+                causal, scale, extra=()):
     """Launch one backward kernel on ``outs`` (see the C interface in
-    ``csrc/flash_attention_bwd.cu``)."""
+    ``csrc/flash_attention_bwd.cu``); ``extra`` goes before the stream."""
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -231,20 +270,26 @@ def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
                  kmask.data_ptr() if kmask is not None else None,
                  *(t.data_ptr() for t in outs), b, h, sq, k.shape[2], d,
                  ctypes.cast(strides, ctypes.c_void_p), float(scale),
-                 int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
+                 int(bool(causal)), _DTYPE_CODES[q.dtype], *extra, stream)
     bwd_library.raise_on_error(err, what)
     counter.add("launches")
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, kmask=None, *,
-                           causal=False, scale=None):
-    """dQ by the dQ kernel (CUDA tensors only; arguments as checked by
-    :func:`flash_attention_bwd`, with ``delta = rowsum(dO*O)`` fp32
-    ``(b*h, sq)``)."""
+                           causal=False, scale=None, forced=None,
+                           tiles=None):
+    """dQ by the dQ kernel, on the :func:`route` of q, k, v and dO (CUDA
+    tensors only; arguments as checked by :func:`flash_attention_bwd`,
+    with ``delta = rowsum(dO*O)`` fp32 ``(b*h, sq)``).  ``forced`` pins a
+    route (card tests); ``tiles`` as in :func:`_launch_fwd`."""
     fn, _ = _bind_bwd(bwd_library.load())
+    rt = forced or route(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(fn, dq_counts, "flash attention dQ", q, k, v, do, lse,
-                delta, kmask, (dq,), causal, scale)
+                delta, kmask, (dq,), causal, scale,
+                (_ROUTES[rt], _tile_counter(tiles)))
+    if rt == "simt":
+        dq_counts.add("simt_launches")
     return dq
 
 

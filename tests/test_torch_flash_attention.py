@@ -32,20 +32,30 @@ def _qkv(b, h, sq, sk, d, seed=0):
     return q, k, v
 
 
+# valid lengths of sk=512 that make whole key tiles dead or leave one live
+# key at a tile edge (the tensor-core kernel's tiles hold 32 keys at
+# d=64 and 128, 16 at d=64 where sk <= 128)
+TILE_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
 def _key_mask(kind, b, sk, seed=1):
     """(additive (b, sk) row or None, 4-d mask as the model passes it or
-    None, causal)."""
+    None, causal).  ``valid_<n>``: batch row 0 has n valid keys, the rest
+    all; ``causal_key_padding``: random valid lengths and causal."""
     if kind in ("none", "causal"):
         return None, None, kind == "causal"
     rng = np.random.RandomState(seed)
     valid = rng.randint(1, sk + 1, size=b)
     if kind == "dead_row":
         valid[-1] = 0
+    elif kind.startswith("valid_"):
+        valid[:] = sk
+        valid[0] = int(kind[len("valid_"):])
     keep = np.arange(sk)[None, :] < valid[:, None]
     row = np.where(keep, 0.0, -1e9).astype(np.float32)
     mask4 = keep.reshape(b, 1, 1, sk) if kind == "bool" \
         else row.reshape(b, 1, 1, sk)
-    return row, mask4, False
+    return row, mask4, kind == "causal_key_padding"
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
@@ -187,6 +197,46 @@ def test_key_padding_mask_normalisation():
     assert tfa.as_key_padding_mask(None, q, k) is None
 
 
+def test_route_rule():
+    """The tensor-core route takes rows that start on 16-byte boundaries:
+    contiguous tensors and head views of a packed QKV tensor; other views
+    take the SIMT route.  Strides of single-entry dims do not count."""
+    q = torch.zeros(2, 3, 100, 64)
+    packed = torch.zeros(2, 100, 3 * 3 * 64)
+    heads = [t.reshape(2, 100, 3, 64).transpose(1, 2)
+             for t in packed.chunk(3, dim=-1)]
+    assert tfa.route(q, q, q) == "mma" and tfa.route(*heads) == "mma"
+    assert tfa.route(q.bfloat16(), *(t.bfloat16() for t in heads)) == "mma"
+    odd = torch.zeros(2, 3, 100, 65)[..., :64]
+    assert tfa.route(q, odd, q) == "simt"
+    assert tfa.route(q, q, q, torch.zeros(2, 3, 100, 66)[..., 1:65]) == "simt"
+    single = torch.zeros(2, 3, 64).as_strided((2, 3, 1, 64), (192, 64, 3, 1))
+    assert tfa.route(single, q) == "mma"
+
+
+def visited_key_tiles(row, b, h, sq, sk, bk, causal):
+    """The key tiles the tensor-core kernels visit, by their rule, and the
+    tiles they would visit without skipping: a tile whose keys all have
+    mask values <= -1e9 is skipped when every query row of the block of
+    64 sees a live key."""
+    visited = total = 0
+    for bi in range(b):
+        live = np.nonzero(row[bi] > -1e9)[0] if row is not None else \
+            np.arange(sk)
+        for q0 in range(0, sq, 64):
+            n_kt = -(-sk // bk)
+            if causal:
+                n_kt = min(n_kt, (min(q0 + 64, sq) - 1) // bk + 1)
+            first = live[0] if len(live) else None
+            skip = row is not None and first is not None and \
+                first <= (q0 if causal else sk)
+            for kt in range(n_kt):
+                total += h
+                tile_live = ((live >= kt * bk) & (live < (kt + 1) * bk)).any()
+                visited += h if (not skip or tile_live) else 0
+    return visited, total
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 70, 45, 64))
     before = (tfa.counts.launches, tfa.counts.plain_calls_on_cuda)
@@ -210,11 +260,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# every mask at three shapes; at sk=512, valid lengths at tile edges and
+# causal with key padding
+CARD_CASES = ([(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
+               for m in MASKS]
+              + [(512, 512, f"valid_{n}") for n in TILE_EDGES]
+              + [(512, 512, "causal_key_padding"),
+                 (128, 128, "causal_key_padding")])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
-@pytest.mark.parametrize("mask", MASKS)
-@pytest.mark.parametrize("sq,sk", [(128, 128), (100, 77), (1, 300)])
+@pytest.mark.parametrize("sq,sk,mask", CARD_CASES)
 def test_kernel_matches_plain_on_card(sq, sk, mask, d, dtype, cuda_device):
     """fp32 o within 1e-4, bf16 within 2e-2 (one bf16 ulp of values near
     1, from probabilities rounded at different sum orders); lse within
@@ -235,6 +293,52 @@ def test_kernel_matches_plain_on_card(sq, sk, mask, d, dtype, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("mask", ["dead_row", "causal", "valid_65"])
+def test_each_route_matches_plain_on_card(mask, d, dtype, route,
+                                          cuda_device):
+    """Each route pinned, tolerances as above; the SIMT route counts in
+    ``simt_launches``."""
+    b, h, s = 2, 3, 200
+    q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+               for x in _qkv(b, h, s, s, d, seed=4))
+    row, _, causal = _key_mask(mask, b, s)
+    km = None if row is None else torch.from_numpy(row).to(cuda_device)
+    before = tfa.counts.simt_launches
+    o, lse = tfa._launch_fwd(q, k, v, km, causal, None, forced=route)
+    torch.cuda.synchronize()
+    assert tfa.counts.simt_launches == before + (route == "simt")
+    po, plse = tfa.flash_attention_plain(q, k, v, km, causal=causal)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", [f"valid_{n}" for n in TILE_EDGES]
+                         + ["causal_key_padding", "none"])
+def test_kernel_skips_dead_key_tiles_on_card(mask, d, cuda_device):
+    """The tensor-core kernel visits exactly the key tiles its rule
+    keeps (32 keys a tile at d=64 and 128), and two launches on the same
+    inputs are bit-identical."""
+    b, h, s = 2, 3, 512
+    q, k, v = (torch.from_numpy(x).to(cuda_device)
+               for x in _qkv(b, h, s, s, d, seed=6))
+    row, _, causal = _key_mask(mask, b, s)
+    km = None if row is None else torch.from_numpy(row).to(cuda_device)
+    tiles = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    o1, lse1 = tfa._launch_fwd(q, k, v, km, causal, None, tiles=tiles)
+    o2, lse2 = tfa._launch_fwd(q, k, v, km, causal, None)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    expect = visited_key_tiles(row, b, h, s, s, 32, causal)
+    assert tuple(tiles.tolist()) == expect
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_reads_packed_head_views_on_card(dtype, cuda_device):
     """Heads as strided views of one packed (b, s, 3*h*d) QKV tensor, the
@@ -245,7 +349,7 @@ def test_kernel_reads_packed_head_views_on_card(dtype, cuda_device):
                               * 0.5).to(cuda_device, getattr(torch, dtype))
     q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
                for t in packed.chunk(3, dim=-1))
-    assert not q.is_contiguous()
+    assert not q.is_contiguous() and tfa.route(q, k, v) == "mma"
     row, _, _ = _key_mask("dead_row", b, s)
     km = torch.from_numpy(row).to(cuda_device)
     o, lse = tfa.flash_attention_fwd(q, k, v, km)

@@ -40,20 +40,30 @@ def _inputs(b, h, s, d, seed=0):
     return q, k, v, do
 
 
+# valid lengths of sk=512 that make whole key tiles dead or leave one live
+# key at a tile edge (the dQ kernel's tiles: 32 keys at d=64, 128 and
+# 192, 16 at d=256)
+TILE_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
 def _key_mask(kind, b, sk, seed=1):
     """(additive (b, sk) row or None, 4-d mask as the model passes it or
-    None, causal)."""
+    None, causal).  ``valid_<n>``: batch row 0 has n valid keys, the rest
+    all; ``causal_key_padding``: random valid lengths and causal."""
     if kind in ("none", "causal"):
         return None, None, kind == "causal"
     rng = np.random.RandomState(seed)
     valid = rng.randint(1, sk + 1, size=b)
     if kind == "dead_row":
         valid[-1] = 0
+    elif kind.startswith("valid_"):
+        valid[:] = sk
+        valid[0] = int(kind[len("valid_"):])
     keep = np.arange(sk)[None, :] < valid[:, None]
     row = np.where(keep, 0.0, -1e9).astype(np.float32)
     mask4 = keep.reshape(b, 1, 1, sk) if kind == "bool" \
         else row.reshape(b, 1, 1, sk)
-    return row, mask4, False
+    return row, mask4, kind == "causal_key_padding"
 
 
 def _jax_backward(q, k, v, do, mask4, causal, stream, dtype="float32"):
@@ -247,9 +257,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# causal runs at sq == sk only: the entry sends causal sq != sk to the oracle
-CARD_CASES = [(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
-              for m in MASKS if m != "causal" or sq == sk]
+# causal runs at sq == sk only: the entry sends causal sq != sk to the
+# oracle; at sk=512, valid lengths at tile edges and causal with key padding
+CARD_CASES = ([(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
+               for m in MASKS if m != "causal" or sq == sk]
+              + [(512, 512, f"valid_{n}") for n in TILE_EDGES]
+              + [(512, 512, "causal_key_padding"),
+                 (128, 128, "causal_key_padding")])
 
 
 @pytest.mark.gpu
@@ -283,6 +297,63 @@ def test_backward_kernels_match_plain_on_card(sq, sk, mask, d, dtype,
         assert g.dtype == dt and torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                    rtol=rtol, msg=name)
+
+
+def _card_backward_inputs(b, h, s, d, dtype, mask, dev, seed=12):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32)
+                                    * 0.5).to(dev, getattr(torch, dtype))
+                   for _ in range(4))
+    row, _, causal = _key_mask(mask, b, s)
+    km = None if row is None else torch.from_numpy(row).to(dev)
+    o, lse = tfa.flash_attention_fwd(q, k, v, km, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, s)
+    return (q, k, v, do, lse, delta, km), o, causal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("mask", ["dead_row", "causal", "valid_65"])
+def test_each_dq_route_matches_plain_on_card(mask, d, dtype, route,
+                                             cuda_device):
+    """The dQ kernel on each route pinned, tolerances as above; the SIMT
+    route counts in ``simt_launches``."""
+    args, o, causal = _card_backward_inputs(2, 3, 200, d, dtype, mask,
+                                            cuda_device)
+    before = tfa.dq_counts.simt_launches
+    dq = tfa.flash_attention_bwd_dq(*args, causal=causal, forced=route)
+    torch.cuda.synchronize()
+    assert tfa.dq_counts.simt_launches == before + (route == "simt")
+    q, k, v, do, lse, _, km = args
+    ref, _, _ = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                              causal=causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    torch.testing.assert_close(dq.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mask", ["valid_1", "valid_65", "dead_row",
+                                  "causal_key_padding"])
+def test_dq_kernel_skips_tiles_and_repeats_bit_for_bit_on_card(
+        mask, d, cuda_device):
+    """The tensor-core dQ kernel skips dead key tiles (it visits fewer
+    than all where a live row has a dead tile) and two launches on the
+    same inputs are bit-identical."""
+    args, _, causal = _card_backward_inputs(2, 3, 512, d, "float32", mask,
+                                            cuda_device)
+    tiles = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    dq1 = tfa.flash_attention_bwd_dq(*args, causal=causal, tiles=tiles)
+    dq2 = tfa.flash_attention_bwd_dq(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    visited, total = tiles.tolist()
+    assert 0 < visited <= total
+    if mask in ("valid_1", "valid_65"):
+        assert visited < total
 
 
 @pytest.mark.gpu
