@@ -41,7 +41,7 @@
 // TFLOP/s); at BERT-base's serve shape (b=8, h=12, s=512, d=64, key
 // padding) 3.3 GFLOP, 0.0200 ms.  The kernel reaches neither that nor
 // the tensor cores' issue rate: its warps wait on the latency of the
-// dependent products and of the softmax between them (PERF.md, PR 6).
+// dependent products and of the softmax between them (PERF.md §6).
 //
 // The SIMT route (flash_fwd_kernel, any other strided view): one thread
 // block of 128 threads per (b*h, 64-row q tile).  The q tile is loaded
