@@ -17,20 +17,19 @@ Phases (any failure ends the run with a non-zero exit and no result):
    (b=8, h=12, s=512, d=64) and d=128, in fp32 and bf16, with no mask, a
    key-padding mask with a dead row, and causal; and the autograd
    Function's gradients against autograd through the plain forward.
-   The forward and dQ kernels run on their tensor-core route and are
-   timed beside their SIMT route; the fp32 attention bounds are at the
-   3xTF32 rate (the CUDA-core bound printed beside); the share of key
-   tiles they visit, their wrappers' host time per call and SDPA's
-   kernels (its backend) are printed;
+   The fp32 attention bounds are at the 3xTF32 rate (the CUDA-core bound
+   printed beside); the share of key tiles the forward and dQ kernels
+   visit, their wrappers' host time per call, the SASS opcode mix of
+   their kernels and SDPA's kernels (its backend, read by torch.profiler
+   in a process of its own) are printed;
 4. serve: BERT-base (12 layers, 768 units, 12 heads of 64, vocab 30522,
    random weights from a seed) behind ``serve.ModelServer``, 32 requests
    from 4 client threads; the kernels' launch counts are read around this
-   run (every launch on the tensor-core route), and 3 responses are compared with the same weights on the CPU;
+   run, and 3 responses are compared with the same weights on the CPU;
 5. train: BERT-base with MLM+NSP heads (dropout 0.1) takes 20 AdamW steps
    through ``autograd.record``, ``backward`` and ``gluon.Trainer`` at
    batch 32, sequence 128, fp32; the launch counts are read around the
-   20 steps, and every forward and dQ launch must have taken the
-   tensor-core route; every trainable parameter must have a finite gradient after
+   20 steps; every trainable parameter must have a finite gradient after
    the first backward and the loss must fall; then 2 steps at batch 4
    with dropout 0 on the card and on the CPU from the same weights must
    agree;
@@ -100,8 +99,7 @@ also writes a ``torch.profiler`` table of two training steps to
 ``chiprun_out/train_profile.txt`` and prints its top rows;
 ``--profile-resnet`` does the same for two ResNet-50 steps, into
 ``chiprun_out/resnet_profile.txt``, and prints the fused kernels' share of
-the device time.  ``--attention-only`` runs phases 1-3's attention
-kernels and stops (no result line).
+the device time.
 """
 from __future__ import annotations
 
@@ -284,26 +282,6 @@ def attention_bound(b, h, sq, sk, d, dtype, valid, causal, cores=False):
                     attention_rates(dtype)[int(cores)])
 
 
-def graph_ms(fn, iters=20):
-    """Device time (ms) of one call of ``fn``: ``iters`` calls captured in
-    one CUDA graph and replayed under CUDA events, so no host time falls
-    between the launches (and the wrapper is shown to be capturable)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    ms = cuda_ms(graph.replay, iters=5) / iters
-    del graph
-    return ms
-
-
 def host_us(fn, iters=200):
     """Host time (us) of one call of ``fn``: the wrapper's Python, checks,
     allocations and launch, without waiting for the card."""
@@ -371,20 +349,44 @@ def tile_share(launch):
     return visited, total
 
 
-def sdpa_kernel_names(tF, q, k, v, attn_mask, causal):
-    """The device kernels of one SDPA forward and backward at these
-    inputs, by torch.profiler: the backend PyTorch picked."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
+SDPA_PROBE = r"""
+import json, sys
+import torch
+import torch.nn.functional as tF
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+torch.backends.cuda.matmul.allow_tf32 = False
+b, h, s, d, n_valid = (int(x) for x in sys.argv[1:])
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=g)
+           .requires_grad_(True) for _ in range(3))
+mask = torch.zeros(b, 1, 1, s, device="cuda")
+mask[..., n_valid:] = -1e9
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    out = tF.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+times = {}
+for e in prof.key_averages():
+    if e.device_type == DeviceType.CUDA:
+        t = getattr(e, "self_device_time_total", None)
+        times[e.key] = e.self_cuda_time_total if t is None else t
+print(json.dumps(sorted(times, key=lambda n: -times[n])[:4]))
+"""
 
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = tF.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask,
-                                              is_causal=causal)
-        torch.autograd.grad(out, (qs, ks, vs), torch.ones_like(out))
-        torch.cuda.synchronize()
-    times = kernel_times(prof.key_averages())
-    return [k for k, _ in sorted(times.items(), key=lambda kv: -kv[1])][:4]
+
+def sdpa_kernel_names(b, h, s, d):
+    """The device kernels, longest first, of one fp32 SDPA forward and
+    backward on (b, h, s, d) inputs with an additive key-padding mask: the
+    backend PyTorch picks.  Read by torch.profiler in a process of its
+    own, so that no profiler session of this process comes before the
+    ResNet phase's device readings."""
+    out = subprocess.run([sys.executable, "-c", SDPA_PROBE, str(b), str(h),
+                          str(s), str(d), str(s // 2)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or not out.stdout.strip():
+        return f"not read: {out.stderr.strip()[-300:]}"
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def check_flash_attention(mx):
@@ -406,7 +408,7 @@ def check_flash_attention(mx):
     main = None
     log("flash_attention_fwd: kernel vs plain (o atol / lse atol: fp32 "
         "1e-4 / 1e-3, bf16 2e-2 / 1e-3); q, k, v are head views of a "
-        "packed QKV tensor (the tensor-core route); bound at 3xTF32 "
+        "packed QKV tensor, read in place; bound at 3xTF32 "
         "(fp32), the CUDA-core bound in brackets; tiles: key tiles "
         "visited of those without skipping")
     for d, h in ((64, 12), (128, 6)):
@@ -422,7 +424,7 @@ def check_flash_attention(mx):
             for mask in ("none", "key_padding", "causal"):
                 km = row if mask == "key_padding" else None
                 causal = mask == "causal"
-                assert fa.route(q, k, v) == "mma"
+                assert all(fa.rows_aligned(t) for t in (q, k, v))
                 o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal)
                 po, plse = fa.flash_attention_plain(q, k, v, km,
                                                     causal=causal)
@@ -442,8 +444,6 @@ def check_flash_attention(mx):
                 lib_ms = cuda_ms(lambda: tF.scaled_dot_product_attention(
                     q, k, v, attn_mask=attn_mask, is_causal=causal),
                     iters=20)
-                simt_ms = cuda_ms(lambda: fa._launch_fwd(
-                    q, k, v, km, causal, None, forced="simt"), iters=20)
                 vl = valid if mask == "key_padding" else None
                 bound_ms, bound_by = attention_bound(b, h, s, s, d, dtype,
                                                      vl, causal)
@@ -453,7 +453,7 @@ def check_flash_attention(mx):
                     q, k, v, km, causal, None, tiles=t))
                 log(f"  b={b} h={h} s={s} d={d} {dtype:8s} {mask:11s} "
                     f"o_err={o_err:.3g} lse_err={lse_err:.3g} "
-                    f"kernel={kern_ms:.4f}ms simt={simt_ms:.4f}ms "
+                    f"kernel={kern_ms:.4f}ms "
                     f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                     f"bound={bound_ms:.4f}ms ({bound_by}; "
                     f"{cores_ms:.4f}) tiles {visited}/{total} "
@@ -466,25 +466,12 @@ def check_flash_attention(mx):
                     main = {"max_abs_err": o_err, "ms": kern_ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms,
-                            "simt_ms": simt_ms, "cuda_core_bound_ms":
-                            cores_ms, "tiles_visited": [visited, total]}
-                    host = host_us(lambda: fa.flash_attention_fwd(
+                            "cuda_core_bound_ms": cores_ms,
+                            "tiles_visited": [visited, total]}
+                    main["host_us"] = host_us(lambda: fa.flash_attention_fwd(
                         q, k, v, km))
-                    names = sdpa_kernel_names(tF, q, k, v, attn_mask,
-                                              False)
-                    dev_ms = graph_ms(lambda: fa.flash_attention_fwd(
-                        q, k, v, km))
-                    sdpa_dev = device_ms(
-                        lambda: tF.scaled_dot_product_attention(
-                            q, k, v, attn_mask=attn_mask), 20, ("fmha",))
-                    main.update(host_us=host, device_ms=dev_ms,
-                                library_device_ms=sdpa_dev)
-                    log(f"  main case: device time {dev_ms:.4f} ms (a CUDA "
-                        f"graph of 20 launches), SDPA's {sdpa_dev:.4f} "
-                        f"(torch.profiler); the "
-                        f"wrapper's host time {host:.1f} us a call; SDPA's "
-                        f"kernels here (forward and backward, by device "
-                        f"time): {names}")
+                    log(f"  main case: the wrapper's host time "
+                        f"{main['host_us']:.1f} us a call")
     return main
 
 
@@ -523,8 +510,7 @@ def check_flash_attention_bwd(mx):
     log(f"flash_attention_bwd: dQ and dK/dV kernels vs plain (fp32 atol/"
         f"rtol {BWD_TOL['float32']}, bf16 {BWD_TOL['bfloat16']}); the "
         f"key-padding case has a dead row except at the training shape's "
-        f"main case; dQ on the tensor-core route, its SIMT route timed "
-        f"beside; bounds at 3xTF32 (fp32), the CUDA-core bound after the "
+        f"main case; bounds at 3xTF32 (fp32), the CUDA-core bound after the "
         f"slash; tiles: the dQ kernel's key tiles visited of those without "
         f"skipping")
     shapes = (("train", TRAIN_BATCH, 12, TRAIN_SEQ, 64),
@@ -569,14 +555,11 @@ def check_flash_attention_bwd(mx):
                                        rtol=rtol)
                 delta = (do.float() * o.float()).sum(-1).reshape(b * h, s)
                 args = (q, k, v, do, lse, delta, km)
-                assert fa.route(q, k, v, do) == "mma"
+                assert all(fa.rows_aligned(t) for t in (q, k, v, do))
                 dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
                     *args, causal=causal), iters=20)
-                simt_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-                    *args, causal=causal, forced="simt"), iters=20)
-                visited, total = tile_share(
-                    lambda t: fa.flash_attention_bwd_dq(
-                        *args, causal=causal, tiles=t))
+                visited, total = tile_share(lambda t: fa._launch_dq(
+                    *args, causal, None, tiles=t))
                 dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
                     *args, causal=causal), iters=20)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
@@ -593,7 +576,7 @@ def check_flash_attention_bwd(mx):
                                       8, 2, cores=True)[0]
                 log(f"  {label:5s} b={b} h={h} s={s} d={d} {dtype:8s} "
                     f"{mask:20s} err dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/"
-                    f"{errs[2]:.3g} dQ={dq_ms:.4f}ms simt={simt_ms:.4f}ms "
+                    f"{errs[2]:.3g} dQ={dq_ms:.4f}ms "
                     f"(bound {dq_bound[0]:.4f} {dq_bound[1]}/{dq_cores:.4f})"
                     f" tiles {visited}/{total} dKdV={dkv_ms:.4f}ms (bound "
                     f"{dkv_bound[0]:.4f} {dkv_bound[1]}/{dkv_cores:.4f}) "
@@ -607,8 +590,6 @@ def check_flash_attention_bwd(mx):
                                             "key_padding"):
                     fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(
                         q, k, v, km), iters=20)
-                    fwd_simt_ms = cuda_ms(lambda: fa._launch_fwd(
-                        q, k, v, km, False, None, forced="simt"), iters=20)
                     sdpa_fwd_ms = cuda_ms(
                         lambda: tF.scaled_dot_product_attention(
                             q, k, v, attn_mask=km.view(b, 1, 1, s)),
@@ -621,41 +602,26 @@ def check_flash_attention_bwd(mx):
                                       "plain_ms": plain_ms, "bound_ms": bms,
                                       "bound_by": bby, "library_ms": lib_ms,
                                       "cuda_core_bound_ms": cores}
-                    dq_dev = graph_ms(lambda: fa.flash_attention_bwd_dq(
-                        *args, causal=causal))
-                    sdpa_bwd_dev = device_ms(sdpa_backward(
-                        tF, q, k, v, do, km, causal), 10, ("fmha_cutlassB",))
-                    fwd_dev = graph_ms(lambda: fa.flash_attention_fwd(
-                        q, k, v, km))
-                    sdpa_fwd_dev = device_ms(
-                        lambda: tF.scaled_dot_product_attention(
-                            q, k, v, attn_mask=km.view(b, 1, 1, s)), 20,
-                        ("fmha",))
-                    main["dq"].update(simt_ms=simt_ms,
-                                      tiles_visited=[visited, total],
-                                      device_ms=dq_dev,
-                                      library_device_ms=sdpa_bwd_dev,
-                                      host_us=host_us(
-                                          lambda: fa.flash_attention_bwd_dq(
-                                              *args, causal=causal)))
+                    main["dq"].update(
+                        tiles_visited=[visited, total],
+                        host_us=host_us(lambda: fa.flash_attention_bwd_dq(
+                            *args, causal=causal)))
                     main["fwd_ms"] = fwd_ms
-                    log(f"  train shape fp32 key padding (device times: "
-                        f"ours from CUDA graphs, SDPA's from torch.profiler)"
-                        f": forward kernel {fwd_ms:.4f} ms (device "
-                        f"{fwd_dev:.4f}), its SIMT "
-                        f"route {fwd_simt_ms:.4f}, SDPA's forward "
-                        f"{sdpa_fwd_ms:.4f} (device {sdpa_fwd_dev:.4f}); dQ "
-                        f"{dq_ms:.4f} ms (device {dq_dev:.4f}) against 6/14 "
-                        f"of SDPA's backward {6 / 14 * lib_ms:.4f} (device "
-                        f"{6 / 14 * sdpa_bwd_dev:.4f}); the dQ wrapper's "
-                        f"host time {main['dq']['host_us']:.1f} us a call")
+                    names = sdpa_kernel_names(b, h, s, d)
+                    log(f"  train shape fp32 key padding: forward kernel "
+                        f"{fwd_ms:.4f} ms, SDPA's forward {sdpa_fwd_ms:.4f};"
+                        f" dQ {dq_ms:.4f} ms against 6/14 of SDPA's "
+                        f"backward {6 / 14 * lib_ms:.4f}; the dQ wrapper's "
+                        f"host time {main['dq']['host_us']:.1f} us a call; "
+                        f"SDPA's kernels at this shape (forward and "
+                        f"backward, by device time): {names}")
     check_function_gradients(fa, dev, rng)
     return main
 
 
-def sdpa_backward(tF, q, k, v, do, km, causal):
-    """A callable that runs the backward of ``scaled_dot_product_attention``
-    at the same shape and mask (the graph is kept across calls)."""
+def sdpa_backward_ms(tF, q, k, v, do, km, causal):
+    """The backward of ``scaled_dot_product_attention`` at the same shape
+    and mask, timed on its own (the graph is kept across calls)."""
     import torch
 
     b, s = q.shape[0], q.shape[2]
@@ -663,14 +629,8 @@ def sdpa_backward(tF, q, k, v, do, km, causal):
     attn_mask = None if km is None else km.to(q.dtype).view(b, 1, 1, s)
     out = tF.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask,
                                           is_causal=causal)
-    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                       retain_graph=True)
-
-
-def sdpa_backward_ms(tF, q, k, v, do, km, causal):
-    """The backward of ``scaled_dot_product_attention`` at the same shape
-    and mask, timed on its own."""
-    return cuda_ms(sdpa_backward(tF, q, k, v, do, km, causal), iters=10)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                               retain_graph=True), iters=10)
 
 
 def check_function_gradients(fa, dev, rng):
@@ -765,7 +725,6 @@ def serve_bert(mx, card, attn_ms):
     wall = time.perf_counter() - t1
     server.shutdown(drain=True, timeout=120)
     launches = fa.counts.launches
-    simt = fa.counts.simt_launches
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     if any(t.is_alive() for t in threads):
@@ -779,13 +738,12 @@ def serve_bert(mx, card, attn_ms):
         f"{st['latency']['p99_ms']} ms; bucket hits {st['bucket_hits']} "
         f"on {card}")
     log(f"serve: graph {st['graph']}; flash launches {launches} "
-        f"(12 x {n_batches} batches = {12 * n_batches}), {simt} on the "
-        f"SIMT route; plain calls on cuda {plain_on_cuda}")
+        f"(12 x {n_batches} batches = {12 * n_batches}); plain calls on "
+        f"cuda {plain_on_cuda}")
     checks = {
         "served": st["served"] == SERVE_REQUESTS and st["failed"] == 0,
         "post_warmup_compiles": st["graph"]["post_warmup_compiles"] == 0,
         "launches": launches == 12 * n_batches,
-        "tensor_core_route": simt == 0,
         "plain_calls_on_cuda": plain_on_cuda == 0,
         "shapes": all(seq.shape == (len(r), 768) and pooled.shape == (768,)
                       and np.isfinite(seq).all() and np.isfinite(pooled).all()
@@ -926,7 +884,6 @@ def train_bert(mx, card, attn_ms, profile=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
               if name.startswith("flash_attention")}
-    simt = fa.counts.simt_launches + fa.dq_counts.simt_launches
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     median_ms = statistics.median(step_ms[2:])
@@ -938,9 +895,8 @@ def train_bert(mx, card, attn_ms, profile=False):
         f"{step_ms[0]:.1f} ms), {tokens_s:.0f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     log(f"train: losses {[round(x, 4) for x in losses]}")
-    log(f"train: launches {counts} (12 x {n} = {12 * n} each), {simt} of "
-        f"the forward's and dQ's on the SIMT route; plain calls on cuda "
-        f"{plain_on_cuda}; attention kernels at this shape (fwd "
+    log(f"train: launches {counts} (12 x {n} = {12 * n} each); plain calls "
+        f"on cuda {plain_on_cuda}; attention kernels at this shape (fwd "
         f"{attn_ms['fwd_ms']:.4f} + dQ {attn_ms['dq']['ms']:.4f} + dK/dV "
         f"{attn_ms['dkv']['ms']:.4f} ms) x 12 = "
         f"{12 * (attn_ms['fwd_ms'] + attn_ms['dq']['ms'] + attn_ms['dkv']['ms']) / median_ms:.1%}"
@@ -950,7 +906,6 @@ def train_bert(mx, card, attn_ms, profile=False):
         "loss_falls": losses[-1] < losses[0],
         "first_backward_gradients": not missing,
         "launches": all(c == 12 * n for c in counts.values()),
-        "tensor_core_route": simt == 0,
         "plain_calls_on_cuda": plain_on_cuda == 0,
     }
     if missing:
@@ -2086,9 +2041,6 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
-    ap.add_argument("--attention-only", action="store_true",
-                    help="run phases 1-3's attention kernels only (no "
-                         "result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2126,10 +2078,6 @@ def main():
 
     flash = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
-    if args.attention_only:
-        log(card)
-        log(json.dumps({"flash_attention_fwd": flash, **bwd}))
-        return 0
     serve = serve_bert(mx, card, flash["ms"])
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))

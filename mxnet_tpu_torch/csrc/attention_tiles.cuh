@@ -21,7 +21,8 @@
 //   completing on the stage's mbarrier; so do the block's Q (and dO)
 //   rows, on a barrier of their own, issued first.  The rows are read in
 //   place from strided head views (the packed QKV layout); they must
-//   start on 16-byte boundaries, which the wrapper's route rule checks.
+//   start on 16-byte boundaries, and the wrapper copies a view whose rows
+//   do not.
 //   The pad (16 bytes a row) makes every fragment read conflict-free.
 // * exp is ex2.approx of (x - m) log2(e): one MUFU op.
 // * Key tiles that hold only padding are skipped (`plan_key_tiles`): a
@@ -51,14 +52,11 @@ constexpr int kRows = 16 * kWarps;  // query rows of a block
 constexpr int kStages = 2;          // the K/V ring
 
 // keys a tile at d = 64: 32 keep four forward blocks (three dQ blocks) on
-// an SM, where 64 kept two; tools/flash_tile_sweep.py builds and times
-// other values.  The forward takes 16 where sk <= kShortKeys (five blocks
-// an SM, and finer skipping over few tiles).  At d >= 128 the kernels'
-// dispatch tables fix the tiles.
-#ifndef MXTT_ATTN_KEYS_D64
-#define MXTT_ATTN_KEYS_D64 32
-#endif
-constexpr int kKeysD64 = MXTT_ATTN_KEYS_D64;
+// an SM, where 64 kept two (PERF.md §6 has the timings of 16, 32 and 64).
+// The forward takes 16 where sk <= kShortKeys (five blocks an SM, and
+// finer skipping over few tiles).  At d >= 128 the kernels' dispatch
+// tables fix the tiles.
+constexpr int kKeysD64 = 32;
 constexpr int kShortKeys = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }

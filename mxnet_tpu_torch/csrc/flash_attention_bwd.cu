@@ -24,42 +24,32 @@
 // masked by kmask (-1e9) has lse = -1e9 in fp32, so p = 1 for each of its
 // keys and its gradients are non-zero, as the TPU kernels give them.
 //
-// The dQ kernel has two routes, picked by the wrapper before the launch
-// (ops/kernels/flash_attention.py:route); the dK/dV kernel has one.
+// dQ on the tensor cores (flash_bwd_dq_mma_kernel).  The tile machinery
+// is attention_tiles.cuh's: 4 warps own 64 query rows; Q and dO arrive
+// by cp.async.bulk with the ring's first K/V tiles; K and V stream
+// through a two-stage ring of bulk row copies, read in place from head
+// views whose rows start on 16-byte boundaries (contiguous tensors and
+// the head views autograd hands over; the wrapper copies any other
+// view), 32 keys a tile at d <= 192 and 16 at 256 (3 blocks an SM at
+// d = 64, 70 KB of shared memory and 126 registers in fp32); key tiles of
+// padding are skipped.  Per tile: S = Q K^T and dP = dO V^T on
+// mma.sync.m16n8k8 TF32 (3xTF32 in fp32, one product in bf16),
+// dS = P (dP - delta) in fp32 registers, never rounded, then dQ += dS K
+// with dS taken from the accumulators as the A operand (3xTF32; bf16 K
+// needs hi and lo of dS only).  dQ is written once, scaled.  Under
+// `causal` it stops at the last key tile its rows see.
 //
-// dQ on the tensor cores (flash_bwd_dq_mma_kernel, every row of q, k, v
-// and dO 16-byte aligned: contiguous tensors and the head views autograd
-// hands over).  The tile machinery is attention_tiles.cuh's: 4 warps own
-// 64 query rows; Q and dO arrive by cp.async.bulk with the ring's first
-// K/V tiles; K and V stream through a two-stage ring of bulk row copies,
-// 32 keys a tile at d <= 192 and 16 at 256 (3 blocks an SM at d = 64,
-// 70 KB of shared memory and 126 registers in fp32); key tiles of padding
-// are skipped.  Per tile: S = Q K^T and dP = dO V^T on mma.sync.m16n8k8
-// TF32 (3xTF32 in fp32, one product in bf16), dS = P (dP - delta) in fp32
-// registers, never rounded, then dQ += dS K with dS taken from the
-// accumulators as the A operand (3xTF32; bf16 K needs hi and lo of dS
-// only).  dQ is written once, scaled.
-//
-// The SIMT kernels: 128 threads per block, a 16 x 8 thread grid, fp32
-// FMAs on the CUDA cores.
-//   dQ (other strided views): one block per (b*h, BQ-row q tile).  Q,
-//         dO, lse and delta of the tile are loaded once; K and V are
-//         streamed in BK-key tiles.  Per tile: S and dP (each thread an
-//         RM x BK/16 micro-tile, both from one pass over d), dS into
-//         shared memory, then dQ += dS K with each thread an RM x d/16
-//         fp32 accumulator in registers.  dQ is written once, scaled.
-//   dK/dV: one block per (b*h, BKV-key tile).  K, V and the tile's mask
-//         values are loaded once; Q, dO, lse and delta are streamed in
-//         BQ-row tiles.  Per tile: S^T and dP^T, then P^T and dS^T into
-//         shared memory, then dV += P^T dO and dK += dS^T Q in registers.
-//         No atomics: each block owns its keys.  It visits every q tile.
-// Under `causal` the dQ kernels stop at the last key tile their rows see
-// and the dK/dV kernel starts at the first q tile that sees its keys.  Row
-// strides of the SIMT kernels' shared tiles are padded by one float so the
-// strided reads hit distinct banks.  Their tiles shrink at d >= 128
-// (BQ = 32 for dQ, BKV = BQ = 32 for dK/dV) to stay inside 227 KB of
-// shared memory and 255 registers: 84/108/157/206 KB (dQ) and
-// 101/75/108/140 KB (dK/dV) at d = 64/128/192/256.
+// dK/dV (flash_bwd_dkv_kernel), on the CUDA cores: 128 threads per block,
+// a 16 x 8 thread grid, fp32 FMAs; one block per (b*h, BKV-key tile).  K,
+// V and the tile's mask values are loaded once; Q, dO, lse and delta are
+// streamed in BQ-row tiles.  Per tile: S^T and dP^T, then P^T and dS^T
+// into shared memory, then dV += P^T dO and dK += dS^T Q in registers.
+// No atomics: each block owns its keys.  It visits every q tile; under
+// `causal` it starts at the first q tile that sees its keys.  Row
+// strides of its shared tiles are padded by one float so the strided
+// reads hit distinct banks.  Its tiles shrink at d >= 128 (BKV = BQ = 32)
+// to stay inside 227 KB of shared memory and 255 registers: 101/75/108/
+// 140 KB at d = 64/128/192/256.
 //
 // Bound on an H100 SXM (chip_smoke.py computes it per call): dQ does
 // 6*d and dK/dV 8*d operations per (query, key) pair the row attends to,
@@ -114,145 +104,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     dst[r * LD + c] = r0 + r < s ? to_f(src[(r0 + r) * ss + c]) : 0.f;
   }
 }
-
-template <int D, int BQ, int BK>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-}
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ kmask, T* __restrict__ dq,
-                    int h, int sq, int sk, float scale, int causal) {
-  constexpr int LD = D + 1;    // padded row stride of the Q/dO/K/V tiles
-  constexpr int LDS = BK + 1;  // padded row stride of the dS tile
-  constexpr int RM = BQ / 8;   // q rows per thread
-  constexpr int KN = BK / 16;  // keys per thread in S and dP
-  constexpr int CN = D / 16;   // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [BQ][LD]
-  float* dOs = Qs + BQ * LD;      // [BQ][LD]
-  float* Ks = dOs + BQ * LD;      // [BK][LD]
-  float* Vs = Ks + BK * LD;       // [BK][LD]
-  float* dSs = Vs + BK * LD;      // [BQ][LDS]
-  float* row_lse = dSs + BQ * LDS;  // [BQ]
-  float* row_delta = row_lse + BQ;  // [BQ]
-
-  const int bh = blockIdx.x;
-  const int bi = bh / h;
-  const int hi = bh - bi * h;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  const float* km = kmask ? kmask + (long long)bi * sk : nullptr;
-  load_tile<T, D, BQ, LD>(Qs, q.row0(bi, hi), q.ss, q0, sq);
-  load_tile<T, D, BQ, LD>(dOs, dout.row0(bi, hi), dout.ss, q0, sq);
-  if (tid < BQ) {
-    const bool in = q0 + tid < sq;
-    row_lse[tid] = in ? lse[(long long)bh * sq + q0 + tid] : 0.f;
-    row_delta[tid] = in ? delta[(long long)bh * sq + q0 + tid] : 0.f;
-  }
-
-  float acc[RM][CN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-
-  int n_kt = (sk + BK - 1) / BK;
-  if (causal) {
-    // key tiles wholly after this q tile's last row contribute nothing
-    const int last_q = min(q0 + BQ, sq) - 1;
-    n_kt = min(n_kt, last_q / BK + 1);
-  }
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K and dS are consumed
-    load_tile<T, D, BK, LD>(Ks, k.row0(bi, hi), k.ss, k0, sk);
-    load_tile<T, D, BK, LD>(Vs, v.row0(bi, hi), v.ss, k0, sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: rows ty + 8i, keys tx + 16j
-    float s[RM][KN], dp[RM][KN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < KN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[RM], ov[RM], kv[KN], vv[KN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qv[i] = Qs[(ty + 8 * i) * LD + c];
-        ov[i] = dOs[(ty + 8 * i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < KN; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + c];
-        vv[j] = Vs[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < KN; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 8 * i;
-#pragma unroll
-      for (int j = 0; j < KN; ++j) {
-        const int kc = tx + 16 * j;
-        const int kpos = k0 + kc;
-        float ds = 0.f;
-        if (kpos < sk && (!causal || q0 + r >= kpos)) {
-          float x = scale * s[i][j];
-          if (km != nullptr) x += km[kpos];
-          const float p = expf(x - row_lse[r]);
-          ds = p * (dp[i][j] - row_delta[r]);
-        }
-        dSs[r * LDS + kc] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K: rows ty + 8i, columns tx + 16j
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) dsv[i] = dSs[(ty + 8 * i) * LDS + kk];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty + 8 * i;
-    if (q0 + r < sq) {
-      T* out = dq + ((long long)bh * sq + q0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        out[tx + 16 * j] = from_f<T>(scale * acc[i][j]);
-    }
-  }
-}
-
-// -- dQ on the tensor cores (attention_tiles.cuh) ------------------------------
 
 template <typename T, int D, int BKT>
 __global__ void __launch_bounds__(mxtt::attn::kThreads)
@@ -567,21 +418,6 @@ Heads<T> heads(const void* p, const long long* st) {
   return Heads<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
 }
 
-template <typename T, int D, int BQ, int BK>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D, BQ, BK>();
-  auto kern = flash_bwd_dq_kernel<T, D, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(a.b * a.h), (unsigned)((a.sq + BQ - 1) / BQ));
-  kern<<<grid, NT, smem, stream>>>(
-      heads<T>(a.q, a.st), heads<T>(a.k, a.st + 3), heads<T>(a.v, a.st + 6),
-      heads<T>(a.dout, a.st + 9), a.lse, a.delta, a.kmask,
-      static_cast<T*>(a.out0), a.h, a.sq, a.sk, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
 template <typename T, int D, int BKV, int BQ>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D, BKV, BQ>();
@@ -630,18 +466,7 @@ cudaError_t dispatch_dq_mma(int d, const Args& a, int* tiles,
   }
 }
 
-// tiles per head dim: (BQ, BK) for dQ, (BKV, BQ) for dK/dV
-template <typename T>
-cudaError_t dispatch_dq(int d, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch_dq<T, 64, 64, 64>(a, stream);
-    case 128: return launch_dq<T, 128, 32, 64>(a, stream);
-    case 192: return launch_dq<T, 192, 32, 64>(a, stream);
-    case 256: return launch_dq<T, 256, 32, 64>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// tiles (BKV, BQ) of the dK/dV kernel per head dim
 template <typename T>
 cudaError_t dispatch_dkv(int d, const Args& a, cudaStream_t stream) {
   switch (d) {
@@ -669,29 +494,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // elements for q, k, v and dout, in that order; each head dim must be
 // contiguous.  lse and delta are contiguous (b*h, sq) fp32, kmask a
 // (b, sk) fp32 row or null.  dq is a contiguous (b,h,sq,d) tensor of q's
-// dtype; dk and dv contiguous (b,h,sk,d) of k's.  The dQ kernel's route:
-// 0 = SIMT, 1 = tensor cores (every row of q, k, v and dout 16-byte
-// aligned); tiles, on route 1 and when not null, gains the key tiles the
-// blocks visited ([0]) and would visit without skipping ([1]).  Each
-// returns a cudaError_t.
+// dtype; dk and dv contiguous (b,h,sk,d) of k's.  For the dQ kernel every
+// row of q, k, v and dout starts on a 16-byte boundary, and tiles, when
+// not null, gains the key tiles the blocks visited ([0]) and would visit
+// without skipping ([1]).  Each returns a cudaError_t.
 extern "C" int mxtt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* kmask, void* dq,
     int b, int h, int sq, int sk, int d, const long long* strides,
-    float scale, int causal, int dtype, int route, int* tiles,
-    void* stream) {
+    float scale, int causal, int dtype, int* tiles, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, kmask, dq, nullptr, b,
                            h, sq, sk, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    if (dtype == 0) return (int)dispatch_dq_mma<float>(d, a, tiles, st);
-    if (dtype == 1)
-      return (int)dispatch_dq_mma<__nv_bfloat16>(d, a, tiles, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch_dq<float>(d, a, st);
-  if (dtype == 1) return (int)dispatch_dq<__nv_bfloat16>(d, a, st);
+  if (dtype == 0) return (int)dispatch_dq_mma<float>(d, a, tiles, st);
+  if (dtype == 1) return (int)dispatch_dq_mma<__nv_bfloat16>(d, a, tiles, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,16 +11,13 @@ with CUDA kernels that stream tiles through shared memory:
   dK/dV kernel in ``csrc/flash_attention_bwd.cu`` (a second library, so
   the forward's build is unchanged).
 
-The forward and the dQ kernel have two routes, chosen by :func:`route`
-before any launch: ``"mma"``, the tensor-core kernels of
+The forward and the dQ kernel run on the tensor cores, built on
 ``csrc/attention_tiles.cuh`` (3xTF32 products in fp32, a ring of K/V rows
-copied by ``cp.async.bulk``, key tiles of padding skipped), wherever every
-row of q, k, v (and dO) starts on a 16-byte boundary: every contiguous
-tensor and every head view of a packed QKV tensor; ``"simt"``, the CUDA-
-core kernels, for other views.  Each launch counts in ``launches`` and,
-on the SIMT route, in ``simt_launches`` too.  The dK/dV kernel has one
-route.  The sources' headers say what bounds each kernel on an H100 and
-what its design does about it.
+copied by ``cp.async.bulk``, key tiles of padding skipped).  The ring reads
+rows in place where each starts on a 16-byte boundary: every contiguous
+tensor and every head view of a packed QKV tensor; the wrappers copy any
+other view first (:func:`_aligned_rows`).  The sources' headers say what
+bounds each kernel on an H100 and what its design does about it.
 
 - :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
   the same functions in plain PyTorch: the CPU path, and what the kernels
@@ -36,9 +33,10 @@ what its design does about it.
   ``_flash_sdpa``, a ``jax.custom_vjp``).
 - :func:`flash_attention` is the entry the attention op calls (ref:
   ``flash_attention`` at ``ops/pallas/flash_attention.py:725``).  It keeps
-  the JAX entry's shape rules that send a case to the oracle
-  (``ops.attention.sdpa_reference``) before any launch, lengths
-  included.
+  the JAX entry's rules that send a case to the oracle
+  (``ops.attention.sdpa_reference``) before any launch; the length and
+  head-dim rule of ``_tiles_ok`` applies to CPU tensors only, as the
+  kernels on the card take every length.
 
 Masking follows the TPU kernels: the additive key-padding row uses -1e9,
 not -inf, and the running max starts at -1e9, so a batch row whose keys
@@ -63,13 +61,11 @@ NEG_INF = -1e9
 HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ROUTES = {"simt": 0, "mma": 1}  # the C functions' route argument
-
 #: the forward kernel's counters; ``plain_calls_on_cuda`` counts the
 #: entry's oracle routes
-counts = KernelCounts("simt_launches")
+counts = KernelCounts()
 #: the backward kernels' counters, one per kernel
-dq_counts = KernelCounts("simt_launches")
+dq_counts = KernelCounts()
 dkv_counts = KernelCounts()
 library = KernelLibrary("flash_attention_fwd.cu")
 bwd_library = KernelLibrary("flash_attention_bwd.cu")
@@ -81,24 +77,26 @@ def _bind(lib):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       ctypes.c_float, i, i, i, p, p]
+                       ctypes.c_float, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def route(*heads):
-    """The route of a launch on (b, h, s, d) head tensors: ``"mma"`` when
-    every row of each starts on a 16-byte boundary (the ring copies whole
-    rows with ``cp.async.bulk``): its pointer and its batch, head and
-    sequence strides, in bytes, are multiples of 16, where that dim has
-    more than one entry; else ``"simt"``."""
-    for t in heads:
-        es = t.element_size()
-        if t.data_ptr() % 16 or any(
-                n > 1 and (st * es) % 16
-                for n, st in zip(t.shape[:3], t.stride()[:3])):
-            return "simt"
-    return "mma"
+def rows_aligned(t):
+    """Whether every row of the (b, h, s, d) head tensor ``t`` starts on a
+    16-byte boundary, as the kernels' ring of ``cp.async.bulk`` row copies
+    needs: its pointer and its batch, head and sequence strides, in bytes,
+    are multiples of 16, where that dim has more than one entry."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        n > 1 and (st * es) % 16
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _aligned_rows(t):
+    """``t`` itself where :func:`rows_aligned`, else a contiguous copy."""
+    return t if rows_aligned(t) else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _tile_counter(tiles):
@@ -173,26 +171,26 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
     """Flash-attention forward, ``(o, lse)``, as :func:`flash_attention_plain`.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, by the :func:`route` of q, k and v, or raise
-    :class:`MXNetError` for what it does not take (dtype other than
-    float32/bfloat16, head dim not in ``HEAD_DIMS``, non-contiguous head
-    dim, mismatched shapes or devices) and for a failed launch."""
+    on the current stream (a view whose rows are not 16-byte aligned is
+    copied first), or raise :class:`MXNetError` for what it does not take
+    (dtype other than float32/bfloat16, head dim not in ``HEAD_DIMS``,
+    non-contiguous head dim, mismatched shapes or devices) and for a failed
+    launch."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kmask, causal=causal,
                                      scale=scale)
     return _launch_fwd(q, k, v, kmask, causal, scale)
 
 
-def _launch_fwd(q, k, v, kmask, causal, scale, forced=None, tiles=None):
-    """Launch the forward on CUDA tensors; ``forced`` pins a route (card
-    tests), ``tiles`` is an int32 (2,) tensor that the tensor-core route
-    adds its visited and unskipped key tiles to."""
+def _launch_fwd(q, k, v, kmask, causal, scale, tiles=None):
+    """Launch the forward on CUDA tensors; ``tiles`` is an int32 (2,)
+    tensor that the kernel adds its visited and unskipped key tiles to."""
     _check(q, k, v, kmask)
+    q, k, v = (_aligned_rows(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    rt = forced or route(q, k, v)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     fn = _bind(library.load())
@@ -203,11 +201,9 @@ def _launch_fwd(q, k, v, kmask, causal, scale, forced=None, tiles=None):
                  o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
-                 _ROUTES[rt], _tile_counter(tiles), stream)
+                 _tile_counter(tiles), stream)
     library.raise_on_error(err, "flash attention")
     counts.add("launches")
-    if rt == "simt":
-        counts.add("simt_launches")
     return o, lse
 
 
@@ -244,7 +240,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
 
 def _bind_bwd(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, n_out, extra in (("mxtt_flash_attention_bwd_dq", 1, [i, p]),
+    for name, n_out, extra in (("mxtt_flash_attention_bwd_dq", 1, [p]),
                                ("mxtt_flash_attention_bwd_dkv", 2, [])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -276,20 +272,21 @@ def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, kmask=None, *,
-                           causal=False, scale=None, forced=None,
-                           tiles=None):
-    """dQ by the dQ kernel, on the :func:`route` of q, k, v and dO (CUDA
-    tensors only; arguments as checked by :func:`flash_attention_bwd`,
-    with ``delta = rowsum(dO*O)`` fp32 ``(b*h, sq)``).  ``forced`` pins a
-    route (card tests); ``tiles`` as in :func:`_launch_fwd`."""
+                           causal=False, scale=None):
+    """dQ by the dQ kernel (CUDA tensors only; arguments as checked by
+    :func:`flash_attention_bwd`, with ``delta = rowsum(dO*O)`` fp32
+    ``(b*h, sq)``; a view whose rows are not 16-byte aligned is copied
+    first)."""
+    return _launch_dq(q, k, v, do, lse, delta, kmask, causal, scale)
+
+
+def _launch_dq(q, k, v, do, lse, delta, kmask, causal, scale, tiles=None):
+    """Launch the dQ kernel; ``tiles`` as in :func:`_launch_fwd`."""
     fn, _ = _bind_bwd(bwd_library.load())
-    rt = forced or route(q, k, v, do)
+    q, k, v, do = (_aligned_rows(t) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(fn, dq_counts, "flash attention dQ", q, k, v, do, lse,
-                delta, kmask, (dq,), causal, scale,
-                (_ROUTES[rt], _tile_counter(tiles)))
-    if rt == "simt":
-        dq_counts.add("simt_launches")
+                delta, kmask, (dq,), causal, scale, (_tile_counter(tiles),))
     return dq
 
 
@@ -385,8 +382,9 @@ def _headdim64_allowed():
     """Whether a head dim that is a multiple of 64 but not of 128 may take
     the kernels: yes unless ``MXTPU_FLASH_HEADDIM64`` (falling back to
     ``MXNET_FLASH_HEADDIM64``) reads false (ref: ``_headdim64_allowed``,
-    ``ops/pallas/flash_attention.py:638``, off the TPU).  The card needs
-    no compile probe: a kernel that fails raises."""
+    ``ops/pallas/flash_attention.py:638``, off the TPU).  Read for CPU
+    tensors only: on the card every head dim of ``HEAD_DIMS`` launches,
+    and a kernel that fails raises."""
     forced = getenv("FLASH_HEADDIM64", None, bool)
     return True if forced is None else forced
 
@@ -395,7 +393,8 @@ def _tiles_ok(q, k, block=128):
     """The JAX entry's shape rule (ref: ``_tiles_ok``, ``ops/pallas/
     flash_attention.py:608``): sq and sk multiples of 128 and at least
     128, and a head dim that is a multiple of 128, or of 64 where
-    :func:`_headdim64_allowed`."""
+    :func:`_headdim64_allowed`.  The entry applies it to CPU tensors, so
+    that the CPU path gives the JAX entry's results."""
     sq, d = q.shape[2], q.shape[3]
     sk = k.shape[2]
     if d % 128 != 0 and (d % 64 != 0 or not _headdim64_allowed()):
@@ -409,14 +408,17 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
 
     Key-padding masks, bool or additive of shape ``(b, 1, 1, sk)``, ride
     inside the kernel.  As in the JAX entry, these cases go to the oracle
-    ``sdpa_reference`` instead, decided before any launch: a shape that
-    :func:`_tiles_ok` refuses (sq or sk below 128 or not a multiple of
-    128; a head dim that is not a multiple of 64, or of 128 when
-    ``MXTPU_FLASH_HEADDIM64`` is false), causal attention with
-    ``sq != sk`` (the oracle's mask is end-aligned, the kernel's
-    start-aligned) and a full score mask.  On CUDA tensors each such call
-    counts in ``counts.plain_calls_on_cuda``.  The kernel wrappers
-    themselves take any length.
+    ``sdpa_reference`` instead, decided before any launch: causal
+    attention with ``sq != sk`` (the oracle's mask is end-aligned, the
+    kernel's start-aligned), a full score mask and a head dim that is not
+    a multiple of 64; on CPU tensors also a shape that :func:`_tiles_ok`
+    refuses (sq or sk below 128 or not a multiple of 128; a head dim that
+    is not a multiple of 128 when ``MXTPU_FLASH_HEADDIM64`` is false).  On
+    CUDA tensors each oracle call counts in ``counts.plain_calls_on_cuda``;
+    the kernels there take every length, so a dead row of a padded batch
+    at a length that is not a multiple of 128 gets the flash formula's
+    gradients on the card (``p = 1`` per key) where the JAX entry and the
+    CPU give the oracle's (ROADMAP.md, deliberate differences).
 
     When autograd records and q, k or v needs a gradient, the call goes
     through :class:`FlashAttentionFunction`, which keeps what the backward
@@ -426,9 +428,10 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
     from ..attention import sdpa_reference
 
     km = as_key_padding_mask(mask, q, k)
-    to_oracle = (not _tiles_ok(q, k)
+    to_oracle = (q.shape[-1] % 64 != 0
                  or (causal and q.shape[2] != k.shape[2])
-                 or (mask is not None and km is None))
+                 or (mask is not None and km is None)
+                 or (not q.is_cuda and not _tiles_ok(q, k)))
     if to_oracle:
         if q.is_cuda:
             counts.add("plain_calls_on_cuda")

@@ -197,21 +197,25 @@ def test_key_padding_mask_normalisation():
     assert tfa.as_key_padding_mask(None, q, k) is None
 
 
-def test_route_rule():
-    """The tensor-core route takes rows that start on 16-byte boundaries:
-    contiguous tensors and head views of a packed QKV tensor; other views
-    take the SIMT route.  Strides of single-entry dims do not count."""
+def test_rows_aligned_rule():
+    """The kernels read rows in place where each starts on a 16-byte
+    boundary: contiguous tensors and head views of a packed QKV tensor;
+    other views are copied to contiguous ones first.  Strides of
+    single-entry dims do not count."""
     q = torch.zeros(2, 3, 100, 64)
     packed = torch.zeros(2, 100, 3 * 3 * 64)
     heads = [t.reshape(2, 100, 3, 64).transpose(1, 2)
              for t in packed.chunk(3, dim=-1)]
-    assert tfa.route(q, q, q) == "mma" and tfa.route(*heads) == "mma"
-    assert tfa.route(q.bfloat16(), *(t.bfloat16() for t in heads)) == "mma"
-    odd = torch.zeros(2, 3, 100, 65)[..., :64]
-    assert tfa.route(q, odd, q) == "simt"
-    assert tfa.route(q, q, q, torch.zeros(2, 3, 100, 66)[..., 1:65]) == "simt"
+    for t in (q, *heads, q.bfloat16(), *(t.bfloat16() for t in heads)):
+        assert tfa.rows_aligned(t) and tfa._aligned_rows(t) is t
+    for odd in (torch.zeros(2, 3, 100, 65)[..., :64],
+                torch.zeros(2, 3, 100, 66)[..., 1:65]):
+        assert not tfa.rows_aligned(odd)
+        copy = tfa._aligned_rows(odd)
+        assert copy.is_contiguous() and tfa.rows_aligned(copy)
+        assert torch.equal(copy, odd)
     single = torch.zeros(2, 3, 64).as_strided((2, 3, 1, 64), (192, 64, 3, 1))
-    assert tfa.route(single, q) == "mma"
+    assert tfa.rows_aligned(single)
 
 
 def visited_key_tiles(row, b, h, sq, sk, bk, causal):
@@ -292,24 +296,32 @@ def test_kernel_matches_plain_on_card(sq, sk, mask, d, dtype, cuda_device):
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-6)
 
 
+def _unaligned(t):
+    """``t`` as a view whose rows do not start on 16-byte boundaries."""
+    b, h, s, d = t.shape
+    wide = torch.zeros(b, h, s, d + 1, dtype=t.dtype, device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["mma", "simt"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("mask", ["dead_row", "causal", "valid_65"])
-def test_each_route_matches_plain_on_card(mask, d, dtype, route,
-                                          cuda_device):
-    """Each route pinned, tolerances as above; the SIMT route counts in
-    ``simt_launches``."""
+def test_unaligned_views_match_plain_on_card(mask, d, dtype, cuda_device):
+    """Views whose rows are not 16-byte aligned are copied and launch the
+    kernel once; tolerances as above."""
     b, h, s = 2, 3, 200
-    q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    q, k, v = (_unaligned(torch.from_numpy(x).to(cuda_device,
+                                                 getattr(torch, dtype)))
                for x in _qkv(b, h, s, s, d, seed=4))
+    assert not any(tfa.rows_aligned(t) for t in (q, k, v))
     row, _, causal = _key_mask(mask, b, s)
     km = None if row is None else torch.from_numpy(row).to(cuda_device)
-    before = tfa.counts.simt_launches
-    o, lse = tfa._launch_fwd(q, k, v, km, causal, None, forced=route)
+    before = tfa.counts.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, km, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.counts.simt_launches == before + (route == "simt")
+    assert tfa.counts.launches == before + 1
     po, plse = tfa.flash_attention_plain(q, k, v, km, causal=causal)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=0)
@@ -349,7 +361,8 @@ def test_kernel_reads_packed_head_views_on_card(dtype, cuda_device):
                               * 0.5).to(cuda_device, getattr(torch, dtype))
     q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
                for t in packed.chunk(3, dim=-1))
-    assert not q.is_contiguous() and tfa.route(q, k, v) == "mma"
+    assert not q.is_contiguous()
+    assert all(tfa._aligned_rows(t) is t for t in (q, k, v))
     row, _, _ = _key_mask("dead_row", b, s)
     km = torch.from_numpy(row).to(cuda_device)
     o, lse = tfa.flash_attention_fwd(q, k, v, km)
