@@ -562,6 +562,14 @@ def check_flash_attention_bwd(mx):
                     *args, causal, None, tiles=t))
                 dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
                     *args, causal=causal), iters=20)
+                blocks = tile_share(lambda t: fa._launch_dkv(
+                    *args, causal, None, blocks=t))
+                if blocks != dkv_block_model(vl if km is not None else None,
+                                             b, h, s, causal):
+                    raise SystemExit(
+                        f"the dK/dV kernel visited {blocks} blocks of keys, "
+                        f"its rule {dkv_block_model(vl, b, h, s, causal)}: "
+                        f"{label} {dtype} {mask}")
                 plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, o, lse, do, km, causal=causal), iters=5)
                 lib_ms = sdpa_backward_ms(tF, q, k, v, do, km, causal)
@@ -580,6 +588,7 @@ def check_flash_attention_bwd(mx):
                     f"(bound {dq_bound[0]:.4f} {dq_bound[1]}/{dq_cores:.4f})"
                     f" tiles {visited}/{total} dKdV={dkv_ms:.4f}ms (bound "
                     f"{dkv_bound[0]:.4f} {dkv_bound[1]}/{dkv_cores:.4f}) "
+                    f"blocks {blocks[0]}/{blocks[1]} "
                     f"plain={plain_ms:.4f}ms sdpa_bwd={lib_ms:.4f}ms "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -606,17 +615,51 @@ def check_flash_attention_bwd(mx):
                         tiles_visited=[visited, total],
                         host_us=host_us(lambda: fa.flash_attention_bwd_dq(
                             *args, causal=causal)))
+                    main["dkv"].update(
+                        blocks_visited=list(blocks),
+                        host_us=host_us(lambda: fa.flash_attention_bwd_dkv(
+                            *args, causal=causal)))
                     main["fwd_ms"] = fwd_ms
                     names = sdpa_kernel_names(b, h, s, d)
                     log(f"  train shape fp32 key padding: forward kernel "
                         f"{fwd_ms:.4f} ms, SDPA's forward {sdpa_fwd_ms:.4f};"
                         f" dQ {dq_ms:.4f} ms against 6/14 of SDPA's "
-                        f"backward {6 / 14 * lib_ms:.4f}; the dQ wrapper's "
-                        f"host time {main['dq']['host_us']:.1f} us a call; "
+                        f"backward {6 / 14 * lib_ms:.4f}; the dQ and dK/dV "
+                        f"wrappers' host time {main['dq']['host_us']:.1f} "
+                        f"and {main['dkv']['host_us']:.1f} us a call; "
                         f"SDPA's kernels at this shape (forward and "
                         f"backward, by device time): {names}")
+                    held = {"dkv_at_or_below_8/14_of_sdpa_bwd":
+                            dkv_ms <= 8 / 14 * lib_ms,
+                            "dq_plus_dkv_below_sdpa_bwd":
+                            dq_ms + dkv_ms < lib_ms}
+                    log(f"  train shape fp32 key padding, same call: dK/dV "
+                        f"{dkv_ms:.4f} ms against 8/14 of SDPA's backward "
+                        f"{8 / 14 * lib_ms:.4f}; dQ + dK/dV "
+                        f"{dq_ms + dkv_ms:.4f} ms against SDPA's backward "
+                        f"{lib_ms:.4f}; dK/dV blocks of 64 keys visited "
+                        f"{blocks[0]} of {blocks[1]}; "
+                        + ", ".join(f"{k}: {'held' if v else 'MISSED'}"
+                                    for k, v in held.items())
+                        + " (printed, not gated)")
     check_function_gradients(fa, dev, rng)
     return main
+
+
+def dkv_block_model(valid, b, h, s, causal, block=64):
+    """The blocks of ``block`` keys the dK/dV kernel visits by its rule,
+    and all its blocks, for sq = sk = s and batch row i's first
+    ``valid[i]`` keys live (``valid`` None: no mask): a block is skipped
+    when all its keys are padding and the row's first live key is at most
+    the block's first key under causal, or exists at all."""
+    n = -(-s // block)
+    skipped = 0
+    if valid is not None:
+        for nv in valid:
+            if nv > 0:
+                skipped += sum(1 for kb in range(n) if block * kb >= nv)
+    # under causal the first live key (0) is at most every block's first
+    return (b * n - skipped) * h, b * n * h
 
 
 def sdpa_backward_ms(tF, q, k, v, do, km, causal):
@@ -1061,14 +1104,15 @@ def resnet_kernel_shapes():
     return mm, act_stats, act, stats, per_step
 
 
-def gemm_bound(m, k, n, dtype, prologue, stats):
+def gemm_bound(m, k, n, dtype, prologue, stats, rate=None):
     """Least time (ms): x, w read once, y written once (plus scale and
-    shift read, the fp32 sums written); 2*M*K*N operations at the dtype's
-    peak."""
+    shift read, the fp32 sums written); 2*M*K*N operations at ``rate``
+    (default the dtype's peak: for fp32 the CUDA cores'; TF32X3_FLOPS for
+    the fp32 products of the TF32 route)."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = ((m * k + k * n + m * n) * item + (2 * k * 4 if prologue else 0)
               + (2 * n * 4 if stats else 0))
-    return least_ms(nbytes, 2.0 * m * k * n, dtype)
+    return least_ms(nbytes, 2.0 * m * k * n, dtype, rate)
 
 
 def check_stats(got, y):
@@ -1105,6 +1149,7 @@ def check_resnet_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     mm, act_stats, act, stats, per_step = resnet_kernel_shapes()
     routes = {}  # (kernel, shape) -> times of both routes, bf16 training
+    predict = {}  # shape -> times of fp32 bn_act_matmul with ReLU
     # each kernel's record: stage 1, in the dtype of its main path
     main_case = {"bn_stats": (stats[0], "bfloat16", False),
                  "matmul_bn_stats": ((RESNET_BATCH * 56 * 56, 256, 64),
@@ -1129,7 +1174,8 @@ def check_resnet_kernels(dev):
         more = "".join(f" {k}={v:.4f}ms" for k, v in (extra or {}).items())
         log(f"  {name:20s} {label} err={err:.3g}{sums} kernel={kern:.4f}ms"
             f"{more} plain={plain:.4f}ms library={lib:.4f}ms "
-            f"bound={bound[0]:.4f}ms ({bound[1]}) {'ok' if ok else 'FAIL'}")
+            f"bound={bound[0]:.4f}ms ({', '.join(bound[1:])})"
+            f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} kernel disagrees with its plain "
                              f"version: {label}")
@@ -1184,6 +1230,20 @@ def check_resnet_kernels(dev):
                 serr, sok = check_stats(got[1:], got[0])
                 ok = ok and sok
             extra = None
+            tf32 = dtype == "float32" and name == "bn_act_matmul"
+            if tf32:  # the TF32 route, held against the simple route
+                c = kcf.bn_act_matmul_counts
+                before = c.tf32_launches
+                fwd(*args)
+                ok = ok and c.tf32_launches == before + 1
+                with simple_route(kcf):
+                    simple = fwd(*args)
+                    extra = {"simple_ms": cuda_ms(lambda: fwd(*args), 5)}
+                ok = ok and torch.allclose(got[0], simple, atol=atol,
+                                           rtol=rtol)
+                extra["cuda_core_bound_ms"] = gemm_bound(m, k, n, dtype,
+                                                         True, False)[0]
+                del simple
             if (dtype == "bfloat16" and (name, (m, k, n)) in per_step
                     and relu == prologue):  # the training step's call
                 extra = {"device_ms": device_ms(lambda: fwd(*args), 10,
@@ -1201,19 +1261,49 @@ def check_resnet_kernels(dev):
                 del simple
             del got, ref
             kern = cuda_ms(lambda: fwd(*args), 10)
+            lib = cuda_ms(lambda: torch.matmul(x, w), 10)
+            bound = gemm_bound(m, k, n, dtype, prologue,
+                               name.endswith("stats"),
+                               TF32X3_FLOPS if tf32 else None)
             record(name, main_case[name] == ((m, k, n), dtype, relu), err, ok,
-                   kern, cuda_ms(lambda: plain(*args), 3),
-                   cuda_ms(lambda: torch.matmul(x, w), 10),
-                   gemm_bound(m, k, n, dtype, prologue,
-                              name.endswith("stats")),
+                   kern, cuda_ms(lambda: plain(*args), 3), lib,
+                   bound + ("3xTF32",) * tf32,
                    f"M={m} K={k} N={n} {dtype} relu={relu}", serr, extra)
-            if extra:
+            if tf32:
+                if relu:  # the predict forward's call
+                    predict[(m, k, n)] = dict(extra, ms=kern, library_ms=lib,
+                                              bound_ms=bound[0])
+            elif extra:
                 routes[(name, (m, k, n))] = dict(extra, ms=kern)
             del x, w, args
         torch.cuda.empty_cache()
     step_routes(routes, per_step)
+    predict_routes(predict)
     check_fused_function_gradients(kbn, kcf, dev)
     return main
+
+
+def predict_routes(predict):
+    """fp32 ``bn_act_matmul`` at the four shapes of ResNet-50's predict
+    forward (b=64): the TF32 route against ``torch.matmul`` (the product
+    alone) and the simple route, each shape and the forward's 16 launches
+    (3, 4, 6, 3 a stage); printed, not gated."""
+    log("resnet kernels: fp32 bn_act_matmul (ReLU) at the predict forward's "
+        "shapes, TF32 route against torch.matmul and the simple route "
+        "(events around back-to-back calls):")
+    total = dict.fromkeys(("ms", "library_ms", "simple_ms", "bound_ms"), 0.0)
+    for (m, k, n), t in sorted(predict.items(), key=lambda kv: -kv[0][0]):
+        count = {64: 3, 128: 4, 256: 6, 512: 3}[k]
+        for key in total:
+            total[key] += t[key] * count
+        log(f"  M={m} K={k} N={n} x{count}: tf32 {t['ms']:.4f} ms, "
+            f"torch.matmul {t['library_ms']:.4f} "
+            f"({'at or below' if t['ms'] <= t['library_ms'] else 'ABOVE'}), "
+            f"simple {t['simple_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"(3xTF32) / {t['cuda_core_bound_ms']:.4f} (CUDA cores)")
+    log(f"  one predict forward, 16 launches: tf32 {total['ms']:.4f} ms, "
+        f"torch.matmul {total['library_ms']:.4f}, simple "
+        f"{total['simple_ms']:.4f}, bound {total['bound_ms']:.4f}")
 
 
 def step_routes(routes, per_step):
@@ -1435,6 +1525,12 @@ def train_resnet(mx, card, profile=False):
         f"{PREDICT_BATCH / (fwd_ms / 1e3):.1f} images/s; (launches, plain "
         f"calls on cuda) {pcounts}")
     checks["predict_launches"] = pcounts["bn_act_matmul"][0] == 16 * reps
+    # every fp32 bn_act_matmul of the forward on the TF32 route
+    bam = kernels.KERNEL_COUNTS["bn_act_matmul"]
+    log(f"resnet predict: bn_act_matmul launches on the TF32 route "
+        f"{bam.tf32_launches}, on the simple route {bam.simple_launches}")
+    checks["predict_tf32_route"] = (bam.simple_launches == 0
+                                    and bam.tf32_launches == 16 * reps)
     checks["predict_plain_calls_on_cuda"] = all(
         c[1] == 0 for c in pcounts.values())
     checks["predict_output"] = tuple(out.shape) == (PREDICT_BATCH, 1000) \
@@ -2069,8 +2165,11 @@ def main():
     for lib in kernels.KERNEL_LIBRARIES:
         log(f"build log of {lib.source.name}:\n{lib.build_log}")
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
-    for lib in (fa.library, fa.bwd_library):
-        mixes = sass_mix(lib, "mma_kernel")
+    from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
+    for lib, kname in ((fa.library, "mma_kernel"),
+                       (fa.bwd_library, "mma_kernel"),
+                       (kcf.library, "tf32_mm_kernel")):
+        mixes = sass_mix(lib, kname)
         log(f"SASS of the tensor-core kernels in {lib.source.name} "
             f"(opcode counts): "
             + ("cuobjdump not found" if mixes is None else "; ".join(

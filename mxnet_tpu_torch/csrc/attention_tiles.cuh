@@ -1,7 +1,9 @@
-// The tile machinery of the query-stationary flash-attention kernels for
-// Hopper (sm_90a): the forward (flash_attention_fwd.cu) and the dQ kernel
-// (flash_attention_bwd.cu).  A block of four warps owns 64 query rows of
-// one (batch, head), 16 a warp, and walks the key tiles of its row.
+// The tile machinery of the flash-attention kernels for Hopper (sm_90a):
+// the query-stationary forward (flash_attention_fwd.cu) and dQ kernel,
+// where a block of four warps owns 64 query rows of one (batch, head), 16
+// a warp, and walks the key tiles of its row; and the key-stationary
+// dK/dV kernel (flash_attention_bwd.cu), its mirror: the block owns 64
+// keys, 16 a warp, holds their K and V rows and walks the query tiles.
 //
 // * Products on the tensor cores, fp32-accurate: warp-level
 //   mma.sync.m16n8k8 in TF32 with fp32 accumulation.  An fp32 operand is
@@ -19,7 +21,8 @@
 // * K and V arrive by a two-stage ring: each key row is one
 //   cp.async.bulk copy (TMA's bulk engine) into a padded shared row,
 //   completing on the stage's mbarrier; so do the block's Q (and dO)
-//   rows, on a barrier of their own, issued first.  The rows are read in
+//   rows, on a barrier of their own, issued first.  (In the dK/dV kernel
+//   the roles swap: K and V are the block's rows, Q and dO the ring's.)  The rows are read in
 //   place from strided head views (the packed QKV layout); they must
 //   start on 16-byte boundaries, and the wrapper copies a view whose rows
 //   do not.
@@ -31,6 +34,9 @@
 //   exp(s - 1e9 - m) is 0.0 in fp32, so skipping is exact; a row with no
 //   live key (a dead row of a padded batch) still visits every tile and
 //   keeps the TPU kernels' result (mean of V, p = 1 in the backward).
+//   Seen from the keys (`dead_key_block`): a block of 64 keys that are
+//   all padding has p = 0 in every row that sees it and a live key, so
+//   its dK and dV are zeros when every such row has one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +46,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace mxtt {
 namespace attn {
@@ -96,40 +103,10 @@ struct Heads {
 
 // -- TF32 fragments -----------------------------------------------------------
 
-// x as (hi, lo) TF32 terms: hi keeps the top 19 bits, rounded half away
-// from zero; lo = x - hi is exact in fp32, and the tensor core reads its
-// top 19 bits.  Without SPLIT, x is exact in TF32 and lo unused.
-template <bool SPLIT>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (SPLIT) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-// c (16 x 8, fp32) += a (16 x 8) b (8 x 8), TF32 operands.  Lane 4g + t
-// holds a = (g, t), (g+8, t), (g, t+4), (g+8, t+4); b = (t, g), (t+4, g);
-// c = (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b with the small terms first: lo*hi, hi*lo, hi*hi
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
-                                     const uint32_t* al, const uint32_t* bh,
-                                     const uint32_t* bl) {
-  if constexpr (SA) mma_tf32(c, al, bh);
-  if constexpr (SB) mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
+// split, mma_tf32 and mma3: tf32x3.cuh
+using tf32x3::mma3;
+using tf32x3::mma_tf32;
+using tf32x3::split;
 
 // the A fragment of rows r0.., columns k0.. of a row-major tile
 template <bool SPLIT, typename T>
@@ -260,7 +237,8 @@ __device__ __forceinline__ void load_tiles(T* const* dst, const T* const* src,
 }
 
 // Warp 0 fills stage `stage` of the ring (K tile, then V tile) with the
-// rows of key tile kt, BK keys from kt * BK.
+// rows of key tile kt, BK keys from kt * BK.  The dK/dV kernel streams Q
+// and dO rows through it the same way (kb, vb = Q, dO; kt a query tile).
 template <typename T, int D, int LD, int BK>
 __device__ __forceinline__ void load_kv(T* ring, int stage, const T* kb,
                                         long long k_ss, const T* vb,
@@ -271,6 +249,14 @@ __device__ __forceinline__ void load_kv(T* ring, int stage, const T* kb,
   const T* const src[2] = {kb, vb};
   const long long ss[2] = {k_ss, v_ss};
   load_tiles<T, D, LD, BK, 2>(dst, src, ss, kt * BK, sk, &full[stage]);
+}
+
+// (a, b) at p and p + 1, rounded to T (p even: one 8- or 4-byte store)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // Multiplies a tile of kRows rows in place by `scale`, rounded to T (the
@@ -333,6 +319,37 @@ __device__ int plan_key_tiles(const float* km, int sk, int n_kt,
   }
   __syncthreads();
   return list[0];
+}
+
+// Whether the block of kRows keys from k0 may be skipped by the dK/dV
+// kernel: each of its keys below sk has a mask value <= -1e9, and every
+// query row that sees the block has a live key, which holds when the
+// first live key is at most `first_row` (k0 under causal, where the rows
+// from k0 on see it and row r sees keys 0..r; else sk: any live key).
+// Then p = exp(s - 1e9 - lse) is 0.0 in fp32 in each of those rows, so
+// the block's dK and dV are zeros.  Without a mask, never.  Every thread
+// of the block calls it; the whole key row is read only for a dead block.
+__device__ bool dead_key_block(const float* km, int sk, int k0,
+                               int first_row) {
+  __shared__ int first_live;
+  if (km == nullptr) return false;
+  const int tid = threadIdx.x;
+  const int key = k0 + tid;
+  if (__syncthreads_or(tid < kRows && key < sk && km[key] > kNegInf))
+    return false;
+  if (tid == 0) first_live = INT_MAX;
+  __syncthreads();
+  int first = INT_MAX;
+  for (int i = tid; i < sk; i += kThreads) {
+    if (km[i] > kNegInf) {  // this thread's keys rise: its first is its least
+      first = i;
+      break;
+    }
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  if ((tid & 31) == 0 && first < INT_MAX) atomicMin(&first_live, first);
+  __syncthreads();
+  return first_live <= first_row;
 }
 
 }  // namespace attn

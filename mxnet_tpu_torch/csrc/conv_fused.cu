@@ -27,11 +27,13 @@
 // K = 64, N = 256) kind 2 moves 51 MB in and 205 MB out against 13.2 GFLOP,
 // so it is bound by bytes (about 77 us at 3.35 TB/s); so is kind 0 at
 // K = 256, N = 64.  ResNet-50's last stage (M = 6,272, K and N up to 2,048)
-// sits near the ridge, where the tensor cores' rate counts too.  In fp32 on
-// the CUDA cores the first stage is bound by operations (about 197 us at
-// 67 TFLOP/s).
+// sits near the ridge, where the tensor cores' rate counts too.  In fp32
+// kind 1 (ResNet-50's predict forward at b = 64: M = 200,704, K = 64,
+// N = 256 at the first stage) moves 51 MB in and 205 MB out against 6.6
+// GFLOP: on the CUDA cores bound by operations (98 us at 67 TFLOP/s), as
+// 3xTF32 on the tensor cores (495/3 TFLOP/s, 40 us) bound by bytes (77 us).
 //
-// Two routes; the caller picks one (ops/kernels/conv_fused.py) and the
+// Three routes; the caller picks one (ops/kernels/conv_fused.py) and the
 // entry refuses a route its operands do not allow.
 //
 // The TMA route, bf16 with K and N multiples of 8 and x, wt, y 16-byte
@@ -73,12 +75,22 @@
 //     tiles to blocks depends only on (M, N, SM count), and no float
 //     atomics are used.
 //
-// The simple route takes everything else (fp32, ragged K or N, misaligned
-// views): one templated tiled GEMM, <T, PROLOGUE, RELU, STATS>.  A block
-// of 256 threads owns a 64 x 64 output tile and walks K in steps of 32:
-// each step loads a 64 x 32 tile of x (through the prologue) and of wt into
-// shared memory, 8 elements a thread with neighbouring threads on
-// neighbouring k.  bf16 multiplies on the tensor cores with WMMA 16x16x16
+// The TF32 route, fp32 kind 1 with K and N multiples of 8 and x, wt, y
+// 16-byte aligned (every shape of ResNet-50's predict forward), runs its
+// products on the tensor cores as 3xTF32 (tf32x3.cuh) with mma.sync:
+// persistent blocks, one an SM, walk 128 x 128 tiles of y; x and wt
+// arrive in chunks of 32 k by TMA (128-byte swizzle) into a four-slot
+// ring that runs ahead across the block's tiles; each of eight warps
+// applies the prologue to its A fragments in registers, splits A and B
+// into TF32 hi and lo there, and stores its 32 x 64 of y from its
+// accumulators.  See tf32_mm_kernel.
+//
+// The simple route takes everything else (fp32 kinds 0 and 2, ragged K or
+// N, misaligned views): one templated tiled GEMM, <T, PROLOGUE, RELU,
+// STATS>.  A block of 256 threads owns a 64 x 64 output tile and walks K
+// in steps of 32: each step loads a 64 x 32 tile of x (through the
+// prologue) and of wt into shared memory, 8 elements a thread with
+// neighbouring threads on neighbouring k.  bf16 multiplies on the tensor cores with WMMA 16x16x16
 // fragments (mma.sync underneath), each of the 8 warps owning two output
 // fragments; fp32 multiplies on the CUDA cores, each thread a 4 x 4
 // register tile.  The fp32 tile then goes through shared memory to the
@@ -106,6 +118,7 @@
 
 #include "hopper.cuh"
 #include "stats_reduce.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -702,19 +715,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a row-major (rows, cols) bf16 matrix read or written in boxes of
-// (box_rows, box_cols), box_cols * 2 = 128 bytes, with the 128-byte swizzle
+// a row-major (rows, cols) bf16 (or, with `fp32`, float32) matrix read or
+// written in boxes of (box_rows, box_cols), box_cols elements = 128 bytes,
+// with the 128-byte swizzle
 bool encode(CUtensorMap* map, const void* ptr, long long rows, int cols,
-            int box_rows, int box_cols, CUtensorMapL2promotion l2) {
+            int box_rows, int box_cols, CUtensorMapL2promotion l2,
+            bool fp32 = false) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (fp32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, l2,
+  return fn(map,
+            fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(ptr), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, l2,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -824,25 +841,246 @@ cudaError_t dispatch(int kind, int relu, const void* x, const float* scale,
 
 }  // namespace tma
 
+// -- the TF32 route: fp32 bn_act_matmul on the tensor cores ------------------
+
+namespace tf32 {
+
+using namespace mxtt::sm90;
+using mxtt::tf32x3::mma3;
+using mxtt::tf32x3::split;
+
+constexpr int TM = 128;  // rows of a tile
+constexpr int TN = 128;  // columns of a tile
+constexpr int TK = 32;   // k per chunk: one 128-byte swizzled row of fp32
+constexpr int WARPS_M = 4, WARPS_N = 2;  // warp tiles of 32 x 64
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int STAGES = 4;
+constexpr int CHUNK = TM * TK;  // floats of one x (or wt) chunk, 16 KB
+constexpr int ALIGN = 1024;     // a swizzle atom
+constexpr int SMEM = ALIGN + STAGES * 2 * CHUNK * 4 + 8 * STAGES;
+
+// element (r, k) of a chunk as TMA leaves it with the 128-byte swizzle:
+// rows of 32 floats whose 16-byte groups are permuted by group ^ (r % 8).
+// The fragments' reads (8 rows g, 4 columns t) hit 32 distinct banks.
+__device__ __forceinline__ float swizzled(const float* tile, int r, int k) {
+  return tile[r * TK + ((((k >> 2) ^ (r & 7)) << 2) | (k & 3))];
+}
+
+template <bool RELU>
+__device__ __forceinline__ float bn_act(float x, float sc, float sh) {
+  const float a = __fadd_rn(__fmul_rn(x, sc), sh);
+  return RELU ? fmaxf(a, 0.f) : a;
+}
+
+// Thread 0 of a block: the block's i-th chunk (its tile i / chunks, k
+// chunk i % chunks) of x and wt into ring slot i % STAGES, completing on
+// that slot's barrier.
+__device__ __forceinline__ void issue_chunk(float* ring, uint64_t* full,
+                                            const CUtensorMap* tm_x,
+                                            const CUtensorMap* tm_w, int i,
+                                            int chunks, int tiles_n) {
+  const int tile = (int)blockIdx.x + (i / chunks) * (int)gridDim.x;
+  const int c = i % chunks, stage = i % STAGES;
+  float* xs = ring + stage * 2 * CHUNK;
+  mbar_expect_tx(&full[stage], 2 * CHUNK * 4);
+  tma_load_2d(xs, tm_x, &full[stage], c * TK, (tile / tiles_n) * TM);
+  tma_load_2d(xs + CHUNK, tm_w, &full[stage], c * TK, (tile % tiles_n) * TN);
+}
+
+// Persistent blocks, one an SM: block b computes the 128 x 128 tiles b,
+// b + P, b + 2P, ... of y (tile i: row tile i / tiles_n, column tile
+// i % tiles_n, so the blocks that read one x tile run side by side and
+// the later reads hit L2).  The chunks of x and wt (tile rows x 32 k)
+// arrive by TMA into a ring of STAGES slots in the order the block uses
+// them, across its tiles, so the next tile's loads run under this tile's
+// products and stores; thread 0 refills a slot after the block has
+// passed a barrier behind it.  Eight warps own 32 x 64 of a tile each and
+// multiply with mma.sync.m16n8k8 in 3xTF32: A is x through the prologue
+// (scale and shift read per chunk from global memory, zeros past K),
+// split in registers; B is wt as it is stored, split in registers.  Each
+// lane stores its accumulators' column pairs straight to y.
+template <bool RELU>
+__global__ void __launch_bounds__(THREADS, 1)
+    tf32_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ shift, float* __restrict__ y,
+                   int M, int K, int N, int tiles_n, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  float* ring = reinterpret_cast<float*>(base);  // slot: x chunk, wt chunk
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * CHUNK);
+
+  const int chunks = (K + TK - 1) / TK;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x;
+  const int total = mine * chunks;  // chunks this block multiplies
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = (warp / WARPS_N) * 32;  // this warp's rows of a tile
+  const int wc = (warp % WARPS_N) * 64;  // and columns
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int i = 0; i < min(STAGES, total); ++i)
+      issue_chunk(ring, full, &tm_x, &tm_w, i, chunks, tiles_n);
+  }
+  __syncthreads();
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int i = 0; i < total; ++i) {
+    const int stage = i % STAGES, c = i % chunks;
+    // the prologue's coefficients of this lane's k: 8 s + t (+ 4)
+    float sc[4][2], sh[4][2];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int k = c * TK + 8 * s + t + 4 * hf;
+        sc[s][hf] = k < K ? scale[k] : 0.f;
+        sh[s][hf] = k < K ? shift[k] : 0.f;
+      }
+    const float* xs = ring + stage * 2 * CHUNK;
+    const float* ws = xs + CHUNK;
+    mbar_wait(&full[stage], (i / STAGES) & 1);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = 8 * s + t;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        const int r = wr + 16 * mb + g;
+        split<true>(bn_act<RELU>(swizzled(xs, r, k), sc[s][0], sh[s][0]),
+                    ah[mb][0], al[mb][0]);
+        split<true>(bn_act<RELU>(swizzled(xs, r + 8, k), sc[s][0], sh[s][0]),
+                    ah[mb][1], al[mb][1]);
+        split<true>(bn_act<RELU>(swizzled(xs, r, k + 4), sc[s][1], sh[s][1]),
+                    ah[mb][2], al[mb][2]);
+        split<true>(
+            bn_act<RELU>(swizzled(xs, r + 8, k + 4), sc[s][1], sh[s][1]),
+            ah[mb][3], al[mb][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int n = wc + 8 * nb + g;
+        uint32_t bh[2], bl[2];
+        split<true>(swizzled(ws, n, k), bh[0], bl[0]);
+        split<true>(swizzled(ws, n, k + 4), bh[1], bl[1]);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+          mma3<true, true>(acc[mb][nb], ah[mb], al[mb], bh, bl);
+      }
+    }
+    __syncthreads();  // every warp is done with this slot
+    if (threadIdx.x == 0 && i + STAGES < total)
+      issue_chunk(ring, full, &tm_x, &tm_w, i + STAGES, chunks, tiles_n);
+    if (c < chunks - 1) continue;
+
+    // the tile's y: rows g, g + 8 and columns 2t, 2t + 1 of each fragment
+    const int tile = (int)blockIdx.x + (i / chunks) * (int)gridDim.x;
+    const int m0 = (tile / tiles_n) * TM + wr;
+    const int n0 = (tile % tiles_n) * TN + wc + 2 * t;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + 16 * mb + g + 8 * hf;
+        if (m >= M) continue;
+        float* row = y + (long long)m * N;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int n = n0 + 8 * nb;  // N is even: n < N means n + 1 < N
+          if (n < N)
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(acc[mb][nb][2 * hf], acc[mb][nb][2 * hf + 1]);
+          acc[mb][nb][2 * hf] = acc[mb][nb][2 * hf + 1] = 0.f;
+        }
+      }
+  }
+}
+
+// fp32 kind 1 with K and N multiples of 8 and x, wt, y 16-byte aligned
+// (what the tensor maps and the pair stores address)
+bool allowed(int kind, const void* x, const void* wt, const void* y,
+             int dtype, long long M, int K, int N) {
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  return kind == 1 && dtype == 0 && K % 8 == 0 && N % 8 == 0 &&
+         aligned(x) && aligned(wt) && aligned(y);
+}
+
+// whether an (M, K, N) call has a grid: its tiles fit an int
+bool has_plan(long long M, int K, int N) {
+  return M >= 1 && K >= 1 && N >= 1 &&
+         ((M + TM - 1) / TM) * ((N + TN - 1) / TN) <= INT_MAX;
+}
+
+template <bool RELU>
+cudaError_t launch(const void* x, const float* scale, const float* shift,
+                   const void* wt, void* y, long long M, int K, int N,
+                   cudaStream_t stream) {
+  if (!has_plan(M, K, N) || M > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!tma::encode(&tx, x, M, K, TM, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   true) ||
+      !tma::encode(&tw, wt, N, K, TN, TK,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, true))
+    return cudaErrorInvalidValue;
+  auto kernel = tf32_mm_kernel<RELU>;
+  static std::atomic<unsigned long long> allowed_on{0};
+  const int dev = tma::current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  cudaError_t err;
+  if (!(allowed_on.load() >> dev & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    allowed_on.fetch_or(1ull << dev);
+  }
+  const int tiles_n = (N + TN - 1) / TN;
+  const int tiles = (int)((M + TM - 1) / TM) * tiles_n;
+  const int blocks = std::min(tiles, std::max(1, tma::sm_count()));
+  kernel<<<blocks, THREADS, SMEM, stream>>>(
+      tx, tw, scale, shift, static_cast<float*>(y), (int)M, K, N, tiles_n,
+      tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+
 }  // namespace
 
-constexpr int ROUTE_SIMPLE = 0, ROUTE_TMA = 1;
+constexpr int ROUTE_SIMPLE = 0, ROUTE_TMA = 1, ROUTE_TF32 = 2;
 
 // The rows P of the (2, P, N) fp32 statistics scratch that a call of
 // mxtt_conv_fused with this route and shape needs (on the current
-// device, for the TMA route), or -1 where the route has no plan.
+// device, for the TMA route; 0 for the TF32 route, which takes no
+// statistics), or -1 where the route has no plan.
 extern "C" long long mxtt_conv_fused_partials(int route, long long M, int K,
                                               int N) {
   if (M < 1 || K < 1 || N < 1) return -1;
   if (route == ROUTE_SIMPLE) return (M + BM - 1) / BM;
+  if (route == ROUTE_TF32) return tf32::has_plan(M, K, N) ? 0 : -1;
   tma::Plan pl;
   if (route == ROUTE_TMA && tma::make_plan(M, K, N, tma::sm_count(), &pl))
     return pl.per_panel;
   return -1;
 }
 
-// route: ROUTE_SIMPLE or ROUTE_TMA (bf16, K and N multiples of 8, x, wt
-// and y 16-byte aligned; refused otherwise).  kind: 0 = matmul_bn_stats
+// route: ROUTE_SIMPLE, ROUTE_TMA (bf16, K and N multiples of 8, x, wt
+// and y 16-byte aligned; refused otherwise) or ROUTE_TF32 (kind 1 in
+// fp32 with K and N multiples of 8 and x, wt, y 16-byte aligned; refused
+// otherwise).  kind: 0 = matmul_bn_stats
 // (relu must be 0), 1 = bn_act_matmul, 2 = bn_act_matmul_stats.  dtype:
 // 0 = float32, 1 = bfloat16.  x (M, K), wt (N, K) and y (M, N) contiguous
 // in that dtype; scale and shift (K,) fp32 (read by kinds 1 and 2); part a
@@ -856,6 +1094,13 @@ extern "C" int mxtt_conv_fused(int route, int kind, int relu, const void* x,
                                float* sum, float* sumsq, long long M, int K,
                                int N, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == ROUTE_TF32) {
+    if (!tf32::allowed(kind, x, wt, y, dtype, M, K, N))
+      return (int)cudaErrorInvalidValue;
+    return relu ? (int)tf32::launch<true>(x, scale, shift, wt, y, M, K, N, st)
+                : (int)tf32::launch<false>(x, scale, shift, wt, y, M, K, N,
+                                           st);
+  }
   if (route == ROUTE_TMA) {
     if (!tma::allowed(x, wt, y, dtype, M, K, N))
       return (int)cudaErrorInvalidValue;

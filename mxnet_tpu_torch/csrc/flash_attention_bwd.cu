@@ -39,17 +39,29 @@
 // needs hi and lo of dS only).  dQ is written once, scaled.  Under
 // `causal` it stops at the last key tile its rows see.
 //
-// dK/dV (flash_bwd_dkv_kernel), on the CUDA cores: 128 threads per block,
-// a 16 x 8 thread grid, fp32 FMAs; one block per (b*h, BKV-key tile).  K,
-// V and the tile's mask values are loaded once; Q, dO, lse and delta are
-// streamed in BQ-row tiles.  Per tile: S^T and dP^T, then P^T and dS^T
-// into shared memory, then dV += P^T dO and dK += dS^T Q in registers.
-// No atomics: each block owns its keys.  It visits every q tile; under
-// `causal` it starts at the first q tile that sees its keys.  Row
-// strides of its shared tiles are padded by one float so the strided
-// reads hit distinct banks.  Its tiles shrink at d >= 128 (BKV = BQ = 32)
-// to stay inside 227 KB of shared memory and 255 registers: 101/75/108/
-// 140 KB at d = 64/128/192/256.
+// dK/dV on the tensor cores (flash_bwd_dkv_mma_kernel), the key-stationary
+// mirror of the dQ kernel: 4 warps own 64 keys, 16 a warp; their K and V
+// rows arrive once by cp.async.bulk, and Q and dO stream through the
+// two-stage ring in tiles of BQ queries (32 at d = 64, 16 above, for
+// shared memory).  Per tile: S^T = K Q^T and dP^T = V dO^T on mma.sync
+// (K, V rows as A; Q, dO rows as B; 3xTF32 in fp32), then
+// P^T = exp(scale S^T + mask - lse) and dS^T = P^T (dP^T - delta) in fp32
+// registers, never rounded; the tile's queries are the accumulators'
+// columns, so each lane reads lse and delta of its columns (2t, 2t + 1 of
+// each 8-query block) with ordinary loads, issued before it waits for the
+// tile (a row of them is not 16-byte aligned at odd sq).  Then
+// dV += P^T dO and dK += dS^T Q with P^T, dS^T taken from the accumulators
+// as the A operand and the Q and dO rows read in b_keys' order.  dK is
+// written once, scaled.  A warp's dK and dV accumulators take D fp32
+// registers a thread: up to d = 128 one pass holds them all; at d = 192
+// and 256 the kernel makes two passes over the query tiles, each for half
+// of the columns (S^T and dP^T computed again), to stay within 255
+// registers without spilling.  Under `causal` a block starts at the first
+// query tile that sees its keys.  A block of keys that are all padding,
+// where every row that sees it has a live key, writes zeros and returns
+// (attention_tiles.cuh, `dead_key_block`); rows with no live key (dead
+// rows) have p = 1 and keep every block.  No atomics: each block owns its
+// keys, and two runs give the same bits.
 //
 // Bound on an H100 SXM (chip_smoke.py computes it per call): dQ does
 // 6*d and dK/dV 8*d operations per (query, key) pair the row attends to,
@@ -72,7 +84,6 @@
 
 namespace {
 
-constexpr int NT = 128;  // threads per block: a 16 x 8 grid
 using mxtt::attn::Heads;
 using mxtt::attn::to_f;
 using mxtt::attn::from_f;
@@ -92,18 +103,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-// rows [r0, r0 + R) of a (s, D) head slice into an fp32 tile with row
-// stride LD; rows at or past `s` are zeros
-template <typename T, int D, int R, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long ss, int r0, int s) {
-  for (int i = threadIdx.x; i < R * D; i += NT) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * LD + c] = r0 + r < s ? to_f(src[(r0 + r) * ss + c]) : 0.f;
-  }
-}
 
 template <typename T, int D, int BKT>
 __global__ void __launch_bounds__(mxtt::attn::kThreads)
@@ -260,154 +259,186 @@ flash_bwd_dq_mma_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
   }
 }
 
-template <int D, int BKV, int BQ>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * BKV * (D + 1) + 2 * BQ * (D + 1) +
-                                  2 * BKV * (BQ + 1) + 2 * BQ + BKV);
-}
-
-template <typename T, int D, int BKV, int BQ>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ kmask, T* __restrict__ dk,
-                     T* __restrict__ dv, int h, int sq, int sk, float scale,
-                     int causal) {
-  constexpr int LD = D + 1;    // padded row stride of the K/V/Q/dO tiles
-  constexpr int LDP = BQ + 1;  // padded row stride of the P^T, dS^T tiles
-  constexpr int RM = BKV / 8;  // keys per thread
-  constexpr int QN = BQ / 16;  // queries per thread in S^T and dP^T
-  constexpr int CN = D / 16;   // dk/dv columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;                // [BKV][LD]
-  float* Vs = Ks + BKV * LD;       // [BKV][LD]
-  float* Qs = Vs + BKV * LD;       // [BQ][LD]
-  float* dOs = Qs + BQ * LD;       // [BQ][LD]
-  float* Ps = dOs + BQ * LD;       // [BKV][LDP] P^T
-  float* dSs = Ps + BKV * LDP;     // [BKV][LDP] dS^T
-  float* t_lse = dSs + BKV * LDP;  // [BQ]
-  float* t_delta = t_lse + BQ;     // [BQ]
-  float* t_km = t_delta + BQ;      // [BKV] this tile's mask values
+template <typename T, int D, int BQ, int DC>
+__global__ void __launch_bounds__(mxtt::attn::kThreads)
+flash_bwd_dkv_mma_kernel(Heads<T> q, Heads<T> k, Heads<T> v, Heads<T> dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ kmask, T* __restrict__ dk,
+                         T* __restrict__ dv, int h, int sq, int sk,
+                         float scale, int causal, int* blocks) {
+  namespace at = mxtt::attn;
+  namespace sm = mxtt::sm90;
+  using P = at::Plan<T, D, BQ, 2>;  // K and V stationary, Q and dO streamed
+  constexpr bool S = at::Split<T>::value;
+  constexpr int LD = P::LD;
+  constexpr int NP = D / DC;  // passes over the query tiles
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  T* Ks = reinterpret_cast<T*>(tile_smem);  // [kRows][LD]
+  T* Vs = Ks + at::kRows * LD;         // [kRows][LD]
+  T* ring = Vs + at::kRows * LD;       // stage s: Q tile, then dO tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile_smem + P::kBarOffset);
 
   const int bh = blockIdx.x;
   const int bi = bh / h;
   const int hi = bh - bi * h;
-  const int k0 = blockIdx.y * BKV;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int k0 = blockIdx.y * at::kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's keys of the block
+  const float* km = kmask ? kmask + (long long)bi * sk : nullptr;
+  const int rows = min(at::kRows, sk - k0);
+  const long long out0 = ((long long)bh * sk + k0) * D;
 
-  load_tile<T, D, BKV, LD>(Ks, k.row0(bi, hi), k.ss, k0, sk);
-  load_tile<T, D, BKV, LD>(Vs, v.row0(bi, hi), v.ss, k0, sk);
-  if (tid < BKV) {
-    t_km[tid] = (kmask != nullptr && k0 + tid < sk)
-                    ? kmask[(long long)bi * sk + k0 + tid]
-                    : 0.f;
+  const bool skip = at::dead_key_block(km, sk, k0, causal ? k0 : sk);
+  if (blocks != nullptr && threadIdx.x == 0) {
+    if (!skip) atomicAdd(blocks, 1);
+    atomicAdd(blocks + 1, 1);
   }
-
-  float acc_k[RM][CN], acc_v[RM][CN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  if (skip) {
+    for (int i = threadIdx.x; i < rows * D; i += at::kThreads) {
+      dk[out0 + i] = from_f<T>(0.f);
+      dv[out0 + i] = from_f<T>(0.f);
+    }
+    return;
+  }
 
   const int n_qt = (sq + BQ - 1) / BQ;
-  // q tiles whose rows all come before this key tile see none of it
-  const int qt0 = causal ? k0 / BQ : 0;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are consumed
-    load_tile<T, D, BQ, LD>(Qs, q.row0(bi, hi), q.ss, q0, sq);
-    load_tile<T, D, BQ, LD>(dOs, dout.row0(bi, hi), dout.ss, q0, sq);
-    if (tid < BQ) {
-      const bool in = q0 + tid < sq;
-      t_lse[tid] = in ? lse[(long long)bh * sq + q0 + tid] : 0.f;
-      t_delta[tid] = in ? delta[(long long)bh * sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: keys ty + 8i, queries tx + 16j
-    float s[RM][QN], dp[RM][QN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < QN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float kv[RM], vv[RM], qv[QN], ov[QN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        kv[i] = Ks[(ty + 8 * i) * LD + c];
-        vv[i] = Vs[(ty + 8 * i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < QN; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * LD + c];
-        ov[j] = dOs[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < QN; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kr = ty + 8 * i;
-      const int kpos = k0 + kr;
-#pragma unroll
-      for (int j = 0; j < QN; ++j) {
-        const int qc = tx + 16 * j;
-        const int qpos = q0 + qc;
-        float p = 0.f, ds = 0.f;
-        if (kpos < sk && qpos < sq && (!causal || qpos >= kpos)) {
-          const float x = scale * s[i][j] + t_km[kr];
-          p = expf(x - t_lse[qc]);
-          ds = p * (dp[i][j] - t_delta[qc]);
-        }
-        Ps[kr * LDP + qc] = p;
-        dSs[kr * LDP + qc] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q: keys ty + 8i, columns tx + 16j
-#pragma unroll 2
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[RM], dsv[RM], ov[CN], qv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        pv[i] = Ps[(ty + 8 * i) * LDP + qq];
-        dsv[i] = dSs[(ty + 8 * i) * LDP + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        ov[j] = dOs[qq * LD + tx + 16 * j];
-        qv[j] = Qs[qq * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
-        }
-    }
+  // under causal, query tiles wholly before k0 see none of these keys
+  const int qt0 = causal ? min(k0 / BQ, n_qt) : 0;
+  const int n = n_qt - qt0;
+  const T* qb = q.row0(bi, hi);
+  const T* ob = dout.row0(bi, hi);
+  uint64_t* kvbar = full + at::kStages;  // the K and V tiles'
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= at::kStages; ++s) sm::mbar_init(&full[s], 1);
+    sm::mbar_init_fence();
   }
+  __syncthreads();
+  if (warp == 0) {
+    T* const dst[2] = {Ks, Vs};
+    const T* const src[2] = {k.row0(bi, hi), v.row0(bi, hi)};
+    const long long ss[2] = {k.ss, v.ss};
+    at::load_tiles<T, D, LD, at::kRows, 2>(dst, src, ss, k0, sk, kvbar);
+    for (int i = 0; i < min(at::kStages, NP * n); ++i)
+      at::load_kv<T, D, LD, BQ>(ring, i, qb, q.ss, ob, dout.ss, qt0 + i % n,
+                                sq, full);
+  }
+  // the mask values of this lane's keys, rows g and g + 8
+  float add[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k0 + r0 + g + 8 * r;
+    add[r] = km != nullptr && kpos < sk ? km[kpos] : 0.f;
+  }
+  const float* lse_b = lse + (long long)bh * sq;
+  const float* delta_b = delta + (long long)bh * sq;
+  sm::mbar_wait(kvbar, 0);
+
+  for (int pass = 0; pass < NP; ++pass) {
+    const int col0 = pass * DC;  // this pass's columns of dK and dV
+    float acc_k[DC / 8][4], acc_v[DC / 8][4];
+#pragma unroll
+    for (int c = 0; c < DC / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[c][e] = acc_v[c][e] = 0.f;
+
+    for (int i = 0; i < n; ++i) {
+      const int it = pass * n + i;  // the ring's count
+      const int stage = it % at::kStages;
+      const int q0 = (qt0 + i) * BQ;
+      // lse and delta of this lane's queries: 2t + c of each 8-query block
+      float c_lse[BQ / 8][2], c_delta[BQ / 8][2];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qpos = q0 + 8 * j + 2 * t + c;
+          c_lse[j][c] = qpos < sq ? lse_b[qpos] : 0.f;
+          c_delta[j][c] = qpos < sq ? delta_b[qpos] : 0.f;
+        }
+      const T* Qs = ring + stage * 2 * P::kTile;
+      const T* dOs = Qs + P::kTile;
+      sm::mbar_wait(&full[stage], (it / at::kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: keys as rows, queries as columns
+      float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < D; c += 8) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        at::a_rows<S>(Ks, LD, r0, c, kh, kl);
+        at::a_rows<S>(Vs, LD, r0, c, vh, vl);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          at::b_rows<S>(Qs, LD, 8 * j, c, bh, bl);
+          at::mma3<S, S>(s[j], kh, kl, bh, bl);
+          at::b_rows<S>(dOs, LD, 8 * j, c, bh, bl);
+          at::mma3<S, S>(dp[j], vh, vl, bh, bl);
+        }
+      }
+
+      // P^T = exp(scale S^T + mask - lse) into s, dS^T = P^T (dP^T - delta)
+      // into dp, fp32
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {  // queries 2t + c, keys g and g + 8
+          const int qpos = q0 + 8 * j + 2 * t + c;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const int kpos = k0 + r0 + g + 8 * r;
+            float p = 0.f, ds = 0.f;
+            if (qpos < sq && kpos < sk && (!causal || qpos >= kpos)) {
+              p = at::exp_diff(scale * s[j][e] + add[r], c_lse[j][c]);
+              ds = p * (dp[j][e] - c_delta[j][c]);
+            }
+            s[j][e] = p;
+            dp[j][e] = ds;
+          }
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T fp32 (hi and lo); the
+      // lo terms of dO and Q only in fp32
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        at::a_scores<true>(s[j], ph, pl);
+        at::a_scores<true>(dp[j], dh, dl);
+#pragma unroll
+        for (int c = 0; c < DC / 8; ++c) {
+          uint32_t bh[2], bl[2];
+          at::b_keys<S>(dOs, LD, 8 * j, col0 + 8 * c, bh, bl);
+          at::mma3<true, S>(acc_v[c], ph, pl, bh, bl);
+          at::b_keys<S>(Qs, LD, 8 * j, col0 + 8 * c, bh, bl);
+          at::mma3<true, S>(acc_k[c], dh, dl, bh, bl);
+        }
+      }
+      __syncthreads();  // every warp is done with this stage
+      const int next = it + at::kStages;
+      if (warp == 0 && next < NP * n)
+        at::load_kv<T, D, LD, BQ>(ring, stage, qb, q.ss, ob, dout.ss,
+                                  qt0 + next % n, sq, full);
+    }
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kr = ty + 8 * i;
-    if (k0 + kr < sk) {
-      const long long off = ((long long)bh * sk + k0 + kr) * D;
+    for (int r = 0; r < 2; ++r) {
+      const int kr = r0 + g + 8 * r;
+      if (kr < rows) {
+        T* ok = dk + out0 + (long long)kr * D + col0 + 2 * t;
+        T* ov = dv + out0 + (long long)kr * D + col0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        dk[off + tx + 16 * j] = from_f<T>(scale * acc_k[i][j]);
-        dv[off + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+        for (int c = 0; c < DC / 8; ++c) {
+          at::store2(ok + 8 * c, scale * acc_k[c][2 * r],
+                     scale * acc_k[c][2 * r + 1]);
+          at::store2(ov + 8 * c, acc_v[c][2 * r], acc_v[c][2 * r + 1]);
+        }
       }
     }
   }
@@ -418,19 +449,22 @@ Heads<T> heads(const void* p, const long long* st) {
   return Heads<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
 }
 
-template <typename T, int D, int BKV, int BQ>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D, BKV, BQ>();
-  auto kern = flash_bwd_dkv_kernel<T, D, BKV, BQ>;
+template <typename T, int D, int BQ, int DC>
+cudaError_t launch_dkv_mma(const Args& a, int* blocks, cudaStream_t stream) {
+  using P = mxtt::attn::Plan<T, D, BQ, 2>;
+  const size_t smem = P::bytes(0);
+  auto kern = flash_bwd_dkv_mma_kernel<T, D, BQ, DC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(a.b * a.h), (unsigned)((a.sk + BKV - 1) / BKV));
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid((unsigned)(a.b * a.h),
+                  (unsigned)((a.sk + mxtt::attn::kRows - 1) /
+                             mxtt::attn::kRows));
+  kern<<<grid, mxtt::attn::kThreads, smem, stream>>>(
       heads<T>(a.q, a.st), heads<T>(a.k, a.st + 3), heads<T>(a.v, a.st + 6),
       heads<T>(a.dout, a.st + 9), a.lse, a.delta, a.kmask,
       static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.h, a.sq, a.sk,
-      a.scale, a.causal);
+      a.scale, a.causal, blocks);
   return cudaGetLastError();
 }
 
@@ -466,14 +500,16 @@ cudaError_t dispatch_dq_mma(int d, const Args& a, int* tiles,
   }
 }
 
-// tiles (BKV, BQ) of the dK/dV kernel per head dim
+// query tiles BQ (shared memory) and the columns DC of dK and dV a pass
+// holds in registers, per head dim, for the dK/dV kernel
 template <typename T>
-cudaError_t dispatch_dkv(int d, const Args& a, cudaStream_t stream) {
+cudaError_t dispatch_dkv_mma(int d, const Args& a, int* blocks,
+                             cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_dkv<T, 64, 64, 64>(a, stream);
-    case 128: return launch_dkv<T, 128, 32, 32>(a, stream);
-    case 192: return launch_dkv<T, 192, 32, 32>(a, stream);
-    case 256: return launch_dkv<T, 256, 32, 32>(a, stream);
+    case 64: return launch_dkv_mma<T, 64, 32, 64>(a, blocks, stream);
+    case 128: return launch_dkv_mma<T, 128, 16, 128>(a, blocks, stream);
+    case 192: return launch_dkv_mma<T, 192, 16, 96>(a, blocks, stream);
+    case 256: return launch_dkv_mma<T, 256, 16, 128>(a, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -494,10 +530,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // elements for q, k, v and dout, in that order; each head dim must be
 // contiguous.  lse and delta are contiguous (b*h, sq) fp32, kmask a
 // (b, sk) fp32 row or null.  dq is a contiguous (b,h,sq,d) tensor of q's
-// dtype; dk and dv contiguous (b,h,sk,d) of k's.  For the dQ kernel every
-// row of q, k, v and dout starts on a 16-byte boundary, and tiles, when
+// dtype; dk and dv contiguous (b,h,sk,d) of k's.  Every row of q, k, v
+// and dout starts on a 16-byte boundary.  For the dQ kernel tiles, when
 // not null, gains the key tiles the blocks visited ([0]) and would visit
-// without skipping ([1]).  Each returns a cudaError_t.
+// without skipping ([1]); for the dK/dV kernel blocks gains the blocks of
+// 64 keys that were not skipped ([0]) and all of them ([1]).  Each returns
+// a cudaError_t.
 extern "C" int mxtt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* kmask, void* dq,
@@ -515,12 +553,13 @@ extern "C" int mxtt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* kmask, void* dk,
     void* dv, int b, int h, int sq, int sk, int d, const long long* strides,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int* blocks, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, kmask, dk, dv, b, h,
                            sq, sk, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dkv<float>(d, a, st);
-  if (dtype == 1) return (int)dispatch_dkv<__nv_bfloat16>(d, a, st);
+  if (dtype == 0) return (int)dispatch_dkv_mma<float>(d, a, blocks, st);
+  if (dtype == 1)
+    return (int)dispatch_dkv_mma<__nv_bfloat16>(d, a, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,14 +15,18 @@ accumulation; scale and shift are the folded BatchNorm ``(1, K)`` fp32;
 the sums are ``(1, N)`` fp32.  The source's header says what bounds the
 kernels on an H100 and what their design does about it.
 
-Each kind has two routes, chosen by :func:`route` before any launch from
-dtype, shape and pointer alignment: ``"tma"``, the persistent TMA/wgmma
+Three routes, chosen by :func:`route` before any launch from kind, dtype,
+shape, pointer alignment and plan: ``"tma"``, the persistent TMA/wgmma
 kernel, for every bf16 call whose operands a TMA tensor map can address
 (K and N multiples of 8, x, wt and y 16-byte aligned) and whose plan fits
 a block's shared memory (K up to about 20,000; every ResNet-50 training
-shape); ``"simple"``, the tiled template, for the rest
-(fp32, ragged K or N, misaligned views).  Each launch counts in
-``launches`` and, on the simple route, in ``simple_launches`` too.
+shape); ``"tf32"``, the persistent kernel that multiplies fp32 on the
+tensor cores as 3xTF32, for ``bn_act_matmul`` in fp32 under the same
+shape and alignment rule (every shape of ResNet-50's predict forward);
+``"simple"``, the tiled template, for the rest (fp32 ``matmul_bn_stats``
+and ``bn_act_matmul_stats``, ragged K or N, misaligned views).  Each
+launch counts in ``launches`` and, on the simple and TF32 routes, in
+``simple_launches`` or ``tf32_launches`` too.
 
 For each of the three:
 
@@ -50,25 +54,33 @@ from .build import KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"matmul_bn_stats": 0, "bn_act_matmul": 1, "bn_act_matmul_stats": 2}
-_ROUTES = {"simple": 0, "tma": 1}  # ROUTE_SIMPLE, ROUTE_TMA in the source
+# ROUTE_SIMPLE, ROUTE_TMA, ROUTE_TF32 in the source
+_ROUTES = {"simple": 0, "tma": 1, "tf32": 2}
 
 matmul_bn_stats_counts = KernelCounts("simple_launches")
-bn_act_matmul_counts = KernelCounts("simple_launches")
+bn_act_matmul_counts = KernelCounts("simple_launches", "tf32_launches")
 bn_act_matmul_stats_counts = KernelCounts("simple_launches")
 library = KernelLibrary("conv_fused.cu")
 
 
-def route(x, wt, y, has_plan=None):
-    """The route of a launch on contiguous ``x (M, K)``, ``wt (N, K)`` and
-    ``y (M, N)``: ``"tma"`` for bf16 with K and N multiples of 8 and all
-    three 16-byte aligned (what a TMA tensor map addresses) and, where
-    ``has_plan(M, K, N)`` is given, a TMA plan that fits the device; else
-    ``"simple"``."""
+def route(kind, x, wt, y, has_plan=None):
+    """The route of a launch of ``kind`` (a key of ``_KINDS``) on
+    contiguous ``x (M, K)``, ``wt (N, K)`` and ``y (M, N)``: where K and N
+    are multiples of 8 and all three are 16-byte aligned (what a TMA tensor
+    map addresses), ``"tma"`` for bf16 and ``"tf32"`` for fp32
+    ``bn_act_matmul``, each where ``has_plan(route, M, K, N)``, when given,
+    finds a plan for the device; else ``"simple"``."""
     M, K, N = x.shape[0], x.shape[1], wt.shape[0]
-    if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+    if x.dtype == torch.bfloat16:
+        fast = "tma"
+    elif x.dtype == torch.float32 and kind == "bn_act_matmul":
+        fast = "tf32"
+    else:
+        return "simple"
+    if (K % 8 == 0 and N % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, wt, y))
-            and (has_plan is None or has_plan(M, K, N))):
-        return "tma"
+            and (has_plan is None or has_plan(fast, M, K, N))):
+        return fast
     return "simple"
 
 
@@ -171,8 +183,9 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
             forced=None):
     """Check the operands and launch kernel ``kind`` on CUDA tensors on the
     route :func:`route` picks (or ``forced``, which only the card tests
-    pass), and count the launch in ``counts``; returns ``(y, sum, sumsq)``
-    (the sums None for ``bn_act_matmul``)."""
+    pass: the simple route, or the one the rule picks), and count the
+    launch in ``counts``; returns ``(y, sum, sumsq)`` (the sums None for
+    ``bn_act_matmul``)."""
     what = kind.replace("_", " ")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise MXNetError(f"{what}: x must be (M, K) and w (K, N), got "
@@ -200,10 +213,13 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
     # the plans and the launch read the current device
     here = torch.cuda.current_device() == dev.index
     with contextlib.nullcontext() if here else torch.cuda.device(dev):
-        chosen = route(x, wt, y, lambda *mkn: lib.mxtt_conv_fused_partials(
-            _ROUTES["tma"], *mkn) > 0)
+        chosen = route(kind, x, wt, y,
+                       lambda r, *mkn: lib.mxtt_conv_fused_partials(
+                           _ROUTES[r], *mkn) >= 0)
         if forced not in (None, "simple", chosen):
-            raise MXNetError(f"{what}: the {forced} route takes bfloat16 "
+            takes = ("bfloat16" if forced == "tma"
+                     else "float32 bn_act_matmul")
+            raise MXNetError(f"{what}: the {forced} route takes {takes} "
                              f"with K and N multiples of 8, 16-byte aligned "
                              f"operands and a plan that fits, got {x.dtype} "
                              f"{(M, K, N)}")
@@ -228,8 +244,8 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
                  stream)
     library.raise_on_error(err, what)
     counts.add("launches")
-    if chosen == "simple":
-        counts.add("simple_launches")
+    if chosen != "tma":
+        counts.add(f"{chosen}_launches")
     return y, s, q
 
 

@@ -11,13 +11,14 @@ with CUDA kernels that stream tiles through shared memory:
   dK/dV kernel in ``csrc/flash_attention_bwd.cu`` (a second library, so
   the forward's build is unchanged).
 
-The forward and the dQ kernel run on the tensor cores, built on
-``csrc/attention_tiles.cuh`` (3xTF32 products in fp32, a ring of K/V rows
-copied by ``cp.async.bulk``, key tiles of padding skipped).  The ring reads
-rows in place where each starts on a 16-byte boundary: every contiguous
-tensor and every head view of a packed QKV tensor; the wrappers copy any
-other view first (:func:`_aligned_rows`).  The sources' headers say what
-bounds each kernel on an H100 and what its design does about it.
+The three kernels run on the tensor cores, built on
+``csrc/attention_tiles.cuh`` (3xTF32 products in fp32, a ring of rows
+copied by ``cp.async.bulk``: K/V for the forward and dQ, Q/dO for dK/dV;
+key tiles, or blocks of 64 keys for dK/dV, of padding skipped).  The ring
+reads rows in place where each starts on a 16-byte boundary: every
+contiguous tensor and every head view of a packed QKV tensor; the wrappers
+copy any other view first (:func:`_aligned_rows`).  The sources' headers
+say what bounds each kernel on an H100 and what its design does about it.
 
 - :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
   the same functions in plain PyTorch: the CPU path, and what the kernels
@@ -240,20 +241,21 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
 
 def _bind_bwd(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, n_out, extra in (("mxtt_flash_attention_bwd_dq", 1, [p]),
-                               ("mxtt_flash_attention_bwd_dkv", 2, [])):
+    for name, n_out in (("mxtt_flash_attention_bwd_dq", 1),
+                        ("mxtt_flash_attention_bwd_dkv", 2)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p, f, i, i] \
-                + extra + [p]
+            fn.argtypes = [p] * (7 + n_out) + [i, i, i, i, i, p, f, i, i, p,
+                                               p]
             fn.restype = ctypes.c_int
     return lib.mxtt_flash_attention_bwd_dq, lib.mxtt_flash_attention_bwd_dkv
 
 
 def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
-                causal, scale, extra=()):
+                causal, scale, counter_tensor):
     """Launch one backward kernel on ``outs`` (see the C interface in
-    ``csrc/flash_attention_bwd.cu``); ``extra`` goes before the stream."""
+    ``csrc/flash_attention_bwd.cu``), with its int32 (2,) tile or block
+    counter ``counter_tensor`` or None."""
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -266,7 +268,8 @@ def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
                  kmask.data_ptr() if kmask is not None else None,
                  *(t.data_ptr() for t in outs), b, h, sq, k.shape[2], d,
                  ctypes.cast(strides, ctypes.c_void_p), float(scale),
-                 int(bool(causal)), _DTYPE_CODES[q.dtype], *extra, stream)
+                 int(bool(causal)), _DTYPE_CODES[q.dtype],
+                 _tile_counter(counter_tensor), stream)
     bwd_library.raise_on_error(err, what)
     counter.add("launches")
 
@@ -286,7 +289,7 @@ def _launch_dq(q, k, v, do, lse, delta, kmask, causal, scale, tiles=None):
     q, k, v, do = (_aligned_rows(t) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(fn, dq_counts, "flash attention dQ", q, k, v, do, lse,
-                delta, kmask, (dq,), causal, scale, (_tile_counter(tiles),))
+                delta, kmask, (dq,), causal, scale, tiles)
     return dq
 
 
@@ -294,11 +297,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kmask=None, *,
                             causal=False, scale=None):
     """(dK, dV) by the dK/dV kernel, arguments as
     :func:`flash_attention_bwd_dq`."""
+    return _launch_dkv(q, k, v, do, lse, delta, kmask, causal, scale)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, kmask, causal, scale, blocks=None):
+    """Launch the dK/dV kernel; ``blocks`` is an int32 (2,) tensor that
+    the kernel adds its blocks of 64 keys that were not skipped and all
+    its blocks to."""
     _, fn = _bind_bwd(bwd_library.load())
+    q, k, v, do = (_aligned_rows(t) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch(fn, dkv_counts, "flash attention dK/dV", q, k, v, do, lse,
-                delta, kmask, (dk, dv), causal, scale)
+                delta, kmask, (dk, dv), causal, scale, blocks)
     return dk, dv
 
 

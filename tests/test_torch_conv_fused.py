@@ -255,17 +255,40 @@ def _operands(M, K, N, dtype=torch.bfloat16):
 @pytest.mark.parametrize("M,K,N", sorted(set(_resnet_training_shapes(128)
                                              + _resnet_training_shapes(2))))
 def test_route_takes_tma_for_every_resnet_training_shape(M, K, N):
-    assert tcf.route(*_operands(M, K, N)) == "tma"
+    for kind in tcf._KINDS:
+        assert tcf.route(kind, *_operands(M, K, N)) == "tma", kind
+
+
+def _resnet_predict_shapes(b):
+    """The (M, K, N) of ResNet-50 v1's conv3 in predict mode at batch b,
+    224^2, which go through ``bn_act_matmul``."""
+    return [(b * s * s, width, 4 * width)
+            for width, s in zip((64, 128, 256, 512), (56, 28, 14, 7))]
+
+
+@pytest.mark.parametrize("M,K,N", _resnet_predict_shapes(64)
+                         + _resnet_predict_shapes(2))
+def test_route_takes_tf32_for_every_resnet_predict_shape(M, K, N):
+    """fp32 ``bn_act_matmul`` at the predict forward's shapes takes the
+    TF32 route; fp32 statistics kinds at the same shapes keep the simple
+    route."""
+    ops = _operands(M, K, N, torch.float32)
+    assert tcf.route("bn_act_matmul", *ops) == "tf32"
+    for kind in ("matmul_bn_stats", "bn_act_matmul_stats"):
+        assert tcf.route(kind, *ops) == "simple", kind
 
 
 @pytest.mark.parametrize("case", ["float32", "k_ragged", "n_ragged",
                                   "misaligned_x", "misaligned_wt"])
 def test_route_takes_simple_where_tma_cannot_address(case):
-    """fp32, K or N not a multiple of 8, and a view one element past an
-    aligned start take the simple route."""
+    """fp32 (but for ``bn_act_matmul``, which takes the TF32 route), K or
+    N not a multiple of 8, and a view one element past an aligned start
+    take the simple route."""
     M, K, N = 6272, 64, 256
+    kinds = tuple(tcf._KINDS)
     if case == "float32":
         ops = _operands(M, K, N, torch.float32)
+        kinds = ("matmul_bn_stats", "bn_act_matmul_stats")
     elif case == "k_ragged":
         ops = _operands(M, K + 4, N)
     elif case == "n_ragged":
@@ -279,7 +302,31 @@ def test_route_takes_simple_where_tma_cannot_address(case):
             wt = shifted[:N * K].view(N, K)
         assert x.storage_offset() + wt.storage_offset() == 1
         ops = (x, wt, y)
-    assert tcf.route(*ops) == "simple"
+    for kind in kinds:
+        assert tcf.route(kind, *ops) == "simple", kind
+
+
+@pytest.mark.parametrize("case", ["k_ragged", "n_ragged", "misaligned_x",
+                                  "misaligned_wt"])
+def test_route_keeps_fp32_bn_act_matmul_simple_where_tma_cannot_address(
+        case):
+    """fp32 ``bn_act_matmul`` whose operands a tensor map cannot address
+    (K or N not a multiple of 8, a view one element past an aligned start)
+    takes the simple route."""
+    M, K, N = 3136, 512, 2048
+    if case == "k_ragged":
+        ops = _operands(M, K - 4, N, torch.float32)
+    elif case == "n_ragged":
+        ops = _operands(M, K, N + 2, torch.float32)
+    else:
+        x, wt, y = _operands(M, K, N, torch.float32)
+        shifted = torch.empty(M * K + 1)[1:]
+        if case == "misaligned_x":
+            x = shifted.view(M, K)
+        else:
+            wt = shifted[:N * K].view(N, K)
+        ops = (x, wt, y)
+    assert tcf.route("bn_act_matmul", *ops) == "simple"
 
 
 # -- the ops against the JAX package's --------------------------------------
@@ -524,15 +571,21 @@ def test_fused_kernels_match_plain_on_card(M, K, N, relu, dtype,
              ("bn_act_matmul_stats", (x, sc, sh, w, relu))]
     if not relu:
         cases.append(("matmul_bn_stats", (x, w)))
-    simple = dtype == "float32" or (M, K, N) in RAGGED_SHAPES
     for name, args in cases:
+        # fp32 bn_act_matmul takes the TF32 route, the other fp32 kinds the
+        # simple one; every ragged shape (K or N not a multiple of 8) too
+        simple = (M, K, N) in RAGGED_SHAPES or (
+            dtype == "float32" and name != "bn_act_matmul")
+        tf32 = dtype == "float32" and not simple
         counts = getattr(tcf, f"{name}_counts")
-        before = (counts.launches, counts.simple_launches)
+        before = (counts.launches, counts.simple_launches,
+                  getattr(counts, "tf32_launches", 0))
         got = getattr(tcf, f"{name}_fwd")(*args)
         ref = getattr(tcf, f"{name}_plain")(*args)
         torch.cuda.synchronize()
-        assert (counts.launches, counts.simple_launches) == (
-            before[0] + 1, before[1] + simple)
+        assert (counts.launches, counts.simple_launches,
+                getattr(counts, "tf32_launches", 0)) == (
+            before[0] + 1, before[1] + simple, before[2] + tf32)
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         assert got[0].dtype == x.dtype and got[0].shape == (M, N)
@@ -598,6 +651,71 @@ def test_tma_route_matches_plain_and_simple_on_card(M, K, N, relu,
         if len(got) == 3:
             _check_stats(got[1:], got[0])
             assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+
+
+# fp32 bn_act_matmul shapes the TF32 route takes: ResNet-50's predict
+# forward at b=64 and b=2, then M, K and N that no tile divides (K, N
+# multiples of 8)
+TF32_SHAPES = (_resnet_predict_shapes(64) + _resnet_predict_shapes(2)
+               + [(6349, 64, 192), (130, 136, 72), (300, 72, 136),
+                  (200, 40, 24), (1, 8, 8)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("M,K,N", TF32_SHAPES)
+def test_tf32_route_matches_plain_and_simple_on_card(M, K, N, relu,
+                                                     cuda_device):
+    """fp32 bn_act_matmul on the TF32 route against the plain version and
+    against the simple route on the same inputs, both within the fp32
+    CARD_TOL; two runs give bit-identical y; each launch counts on its
+    route."""
+    x, w, sc, sh = _card_inputs(M, K, N, "float32", cuda_device, seed=M + K)
+    args = (x, sc, sh, w, relu)
+    c = tcf.bn_act_matmul_counts
+    before = (c.launches, c.simple_launches, c.tf32_launches)
+    got = tcf.bn_act_matmul_fwd(*args)
+    again = tcf.bn_act_matmul_fwd(*args)
+    (simple,) = _on_route("bn_act_matmul", args, "simple")
+    ref = tcf.bn_act_matmul_plain(*args)
+    torch.cuda.synchronize()
+    assert (c.launches, c.simple_launches, c.tf32_launches) == (
+        before[0] + 3, before[1] + 1, before[2] + 2)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    atol, rtol = CARD_TOL["float32"]
+    for other in (ref, simple):
+        torch.testing.assert_close(got, other, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["misaligned_x", "k_ragged", "n_ragged"])
+def test_fp32_bn_act_matmul_takes_simple_route_where_tf32_cannot(
+        case, cuda_device):
+    """fp32 bn_act_matmul whose x is not 16-byte aligned, or whose K or N
+    is not a multiple of 8, takes the simple route, matches the plain
+    version, and refuses a pinned TF32 route."""
+    M, K, N = 1000, 64, 256
+    if case == "k_ragged":
+        K = 60
+    elif case == "n_ragged":
+        N = 250
+    x, w, sc, sh = _card_inputs(M, K, N, "float32", cuda_device, seed=7)
+    if case == "misaligned_x":
+        x = torch.zeros(M * K + 1, device=cuda_device)[1:].view(M, K) \
+            .copy_(x)
+        assert x.data_ptr() % 16
+    c = tcf.bn_act_matmul_counts
+    before = (c.simple_launches, c.tf32_launches)
+    got = tcf.bn_act_matmul_fwd(x, sc, sh, w, True)
+    assert (c.simple_launches, c.tf32_launches) == (before[0] + 1,
+                                                    before[1])
+    atol, rtol = CARD_TOL["float32"]
+    torch.testing.assert_close(
+        got, tcf.bn_act_matmul_plain(x, sc, sh, w, True), atol=atol,
+        rtol=rtol)
+    with pytest.raises(MXNetError, match="tf32 route"):
+        _on_route("bn_act_matmul", (x, sc, sh, w, True), "tf32")
 
 
 @pytest.mark.gpu

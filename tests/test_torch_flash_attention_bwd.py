@@ -127,6 +127,77 @@ def test_plain_backward_matches_jax_backward_kernel_bf16(interpret_pallas):
                                    rtol=2e-2, err_msg=name)
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_jax_backward_gives_dead_key_blocks_exact_zeros(causal, stream,
+                                                        interpret_pallas):
+    """The premise of the dK/dV kernel's skipping, in the JAX package's own
+    backward kernels: batch row 0's keys 64..127 are padding (-1e9) and
+    its first live key is 0 (<= 64, so under causal too every row that
+    sees them has a live key): their dk and dv are exactly 0.0.  Batch row
+    1 has no live key (a dead row): p = 1 for each of its keys, so its
+    dk and dv are not zero and its blocks must not be skipped."""
+    b, h, s, d = 2, 2, 128, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=4)
+    keep = np.ones((b, s), bool)
+    keep[0, 64:] = False
+    keep[1] = False
+    mask4 = np.where(keep, 0.0, -1e9).astype(np.float32).reshape(b, 1, 1, s)
+    _, _, (_, dk, dv) = _jax_backward(q, k, v, do, mask4, causal, stream)
+    for name, g in (("dk", dk), ("dv", dv)):
+        assert not g[0, :, 64:].any(), name
+        assert np.abs(g[0, :, :64]).min(axis=-1).max() > 0, name
+        assert np.abs(g[1]).max(axis=-1).min() > 0, name
+
+
+def skipped_key_blocks(row, sk, causal, block=64):
+    """The (batch row, block) pairs of ``block`` keys that the dK/dV kernel
+    skips, by its rule (``dead_key_block`` in ``csrc/attention_tiles.cuh``):
+    every key of the block is padding (<= -1e9) and every query row that
+    sees the block has a live key, that is the batch row's first live key
+    is at most the block's first key under causal, or exists at all."""
+    skipped = set()
+    if row is None:
+        return skipped
+    for bi in range(row.shape[0]):
+        live = np.nonzero(row[bi] > -1e9)[0]
+        if not len(live):
+            continue
+        for k0 in range(0, sk, block):
+            block_live = ((live >= k0) & (live < k0 + block)).any()
+            if not block_live and live[0] <= (k0 if causal else sk):
+                skipped.add((bi, k0 // block))
+    return skipped
+
+
+def visited_key_blocks(row, b, h, sk, causal):
+    """(blocks the dK/dV kernel visits, blocks there are) over b*h heads."""
+    total = b * h * -(-sk // 64)
+    return total - h * len(skipped_key_blocks(row, sk, causal)), total
+
+
+@pytest.mark.parametrize("mask", ["valid_1", "valid_65", "valid_128",
+                                  "dead_row", "additive",
+                                  "causal_key_padding"])
+def test_skipped_key_blocks_have_zero_dk_dv_in_plain_backward(mask):
+    """Every block of 64 keys that the model of the dK/dV kernel's rule
+    skips has exactly zero dk and dv in the plain backward, on the CPU
+    (sk = 300 leaves a ragged last block); the valid_* cases skip some."""
+    b, h, s, d = 3, 2, 300, 64
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(b, h, s, d, seed=8))
+    row, _, causal = _key_mask(mask, b, s, seed=3)
+    km = torch.from_numpy(row)
+    o, lse = tfa.flash_attention_plain(q, k, v, km, causal=causal)
+    _, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                              causal=causal)
+    skipped = skipped_key_blocks(row, s, causal)
+    if mask.startswith("valid_"):
+        assert skipped
+    for bi, kb in skipped:
+        for g in (dk, dv):
+            assert not g[bi, :, 64 * kb:64 * (kb + 1)].any(), (bi, kb)
+
+
 def _autograd_grads(fn, q, k, v, do):
     ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     out = fn(*ts)
@@ -327,22 +398,26 @@ def _unaligned(t):
 def test_dq_on_unaligned_views_matches_plain_on_card(mask, d, dtype,
                                                      cuda_device):
     """q, k, v and dO as views whose rows are not 16-byte aligned: the dQ
-    wrapper copies them and launches once; tolerances as above."""
+    and the dK/dV wrappers copy them and launch once each; tolerances as
+    above."""
     args, o, causal = _card_backward_inputs(2, 3, 200, d, dtype, mask,
                                             cuda_device)
     q, k, v, do = (_unaligned(t) for t in args[:4])
     assert not any(tfa.rows_aligned(t) for t in (q, k, v, do))
     args = (q, k, v, do, *args[4:])
-    before = tfa.dq_counts.launches
+    before = (tfa.dq_counts.launches, tfa.dkv_counts.launches)
     dq = tfa.flash_attention_bwd_dq(*args, causal=causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.dq_counts.launches == before + 1
+    assert (tfa.dq_counts.launches, tfa.dkv_counts.launches) == \
+        (before[0] + 1, before[1] + 1)
     q, k, v, do, lse, _, km = args
-    ref, _, _ = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
-                                              causal=causal)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                        causal=causal)
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
-    torch.testing.assert_close(dq.float(), ref.float(), atol=atol,
-                               rtol=rtol)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=name)
 
 
 @pytest.mark.gpu
@@ -365,6 +440,41 @@ def test_dq_kernel_skips_tiles_and_repeats_bit_for_bit_on_card(
     assert 0 < visited <= total
     if mask in ("valid_1", "valid_65"):
         assert visited < total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mask", ["valid_1", "valid_65", "valid_128",
+                                  "dead_row", "causal_key_padding", "none"])
+def test_dkv_kernel_skips_blocks_and_repeats_bit_for_bit_on_card(
+        mask, d, dtype, cuda_device):
+    """The dK/dV kernel visits exactly the blocks of 64 keys that the
+    model of its rule keeps (skipped_key_blocks), the skipped blocks' dk
+    and dv are zeros, the rest match the plain backward (tolerances as
+    above), and two launches on the same inputs are bit-identical."""
+    b, h, s = 2, 3, 512
+    args, o, causal = _card_backward_inputs(b, h, s, d, dtype, mask,
+                                            cuda_device)
+    blocks = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    dk1, dv1 = tfa._launch_dkv(*args, causal, None, blocks=blocks)
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    row, _, _ = _key_mask(mask, b, s)
+    assert tuple(blocks.tolist()) == visited_key_blocks(row, b, h, s, causal)
+    if mask.startswith("valid_"):
+        assert blocks[0] < blocks[1]
+    for bi, kb in skipped_key_blocks(row, s, causal):
+        for g in (dk1, dv1):
+            assert not g[bi, :, 64 * kb:64 * (kb + 1)].any()
+    q, k, v, do, lse, _, km = args
+    _, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                              causal=causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    for g, r in ((dk1, dk), (dv1, dv)):
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol)
 
 
 @pytest.mark.gpu
