@@ -853,11 +853,12 @@ constexpr int TM = 128;  // rows of a tile
 constexpr int TN = 128;  // columns of a tile
 constexpr int TK = 32;   // k per chunk: one 128-byte swizzled row of fp32
 constexpr int WARPS_M = 4, WARPS_N = 2;  // warp tiles of 32 x 64
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int CONSUMERS = WARPS_M * WARPS_N;
+constexpr int THREADS = 32 * (CONSUMERS + 1);  // and the producer warp
 constexpr int STAGES = 4;
 constexpr int CHUNK = TM * TK;  // floats of one x (or wt) chunk, 16 KB
 constexpr int ALIGN = 1024;     // a swizzle atom
-constexpr int SMEM = ALIGN + STAGES * 2 * CHUNK * 4 + 8 * STAGES;
+constexpr int SMEM = ALIGN + STAGES * 2 * CHUNK * 4 + 16 * STAGES;
 
 // element (r, k) of a chunk as TMA leaves it with the 128-byte swizzle:
 // rows of 32 floats whose 16-byte groups are permuted by group ^ (r % 8).
@@ -872,7 +873,7 @@ __device__ __forceinline__ float bn_act(float x, float sc, float sh) {
   return RELU ? fmaxf(a, 0.f) : a;
 }
 
-// Thread 0 of a block: the block's i-th chunk (its tile i / chunks, k
+// The producer: the block's i-th chunk (its tile i / chunks, k
 // chunk i % chunks) of x and wt into ring slot i % STAGES, completing on
 // that slot's barrier.
 __device__ __forceinline__ void issue_chunk(float* ring, uint64_t* full,
@@ -893,8 +894,9 @@ __device__ __forceinline__ void issue_chunk(float* ring, uint64_t* full,
 // the later reads hit L2).  The chunks of x and wt (tile rows x 32 k)
 // arrive by TMA into a ring of STAGES slots in the order the block uses
 // them, across its tiles, so the next tile's loads run under this tile's
-// products and stores; thread 0 refills a slot after the block has
-// passed a barrier behind it.  Eight warps own 32 x 64 of a tile each and
+// products and stores; a producer warp refills a slot once each consumer
+// warp has arrived on its `empty` barrier, so the consumers never wait
+// for one another.  Eight consumer warps own 32 x 64 of a tile each and
 // multiply with mma.sync.m16n8k8 in 3xTF32: A is x through the prologue
 // (scale and shift read per chunk from global memory, zeros past K),
 // split in registers; B is wt as it is stored, split in registers.  Each
@@ -911,6 +913,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
   float* ring = reinterpret_cast<float*>(base);  // slot: x chunk, wt chunk
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * CHUNK);
+  uint64_t* empty = full + STAGES;
 
   const int chunks = (K + TK - 1) / TK;
   const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
@@ -922,12 +925,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wc = (warp % WARPS_N) * 64;  // and columns
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
     mbar_init_fence();
-    for (int i = 0; i < min(STAGES, total); ++i)
-      issue_chunk(ring, full, &tm_x, &tm_w, i, chunks, tiles_n);
   }
   __syncthreads();
+  if (warp == CONSUMERS) {  // the producer: one lane issues
+    if (lane == 0) {
+      for (int i = 0; i < total; ++i) {
+        if (i >= STAGES)  // the slot's previous chunk has been read
+          mbar_wait(&empty[i % STAGES], (i / STAGES - 1) & 1);
+        issue_chunk(ring, full, &tm_x, &tm_w, i, chunks, tiles_n);
+      }
+    }
+    return;
+  }
 
   float acc[2][8][4];
 #pragma unroll
@@ -980,9 +994,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           mma3<true, true>(acc[mb][nb], ah[mb], al[mb], bh, bl);
       }
     }
-    __syncthreads();  // every warp is done with this slot
-    if (threadIdx.x == 0 && i + STAGES < total)
-      issue_chunk(ring, full, &tm_x, &tm_w, i + STAGES, chunks, tiles_n);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with it
     if (c < chunks - 1) continue;
 
     // the tile's y: rows g, g + 8 and columns 2t, 2t + 1 of each fragment
