@@ -78,12 +78,12 @@
 // The TF32 route, fp32 kind 1 with K and N multiples of 8 and x, wt, y
 // 16-byte aligned (every shape of ResNet-50's predict forward), runs its
 // products on the tensor cores as 3xTF32 (tf32x3.cuh) with mma.sync:
-// persistent blocks, one an SM, walk 128 x 128 tiles of y; x and wt
+// persistent blocks, two an SM, walk 64 x 128 tiles of y; x and wt
 // arrive in chunks of 32 k by TMA (128-byte swizzle) into a four-slot
-// ring that runs ahead across the block's tiles; each of eight warps
-// applies the prologue to its A fragments in registers, splits A and B
-// into TF32 hi and lo there, and stores its 32 x 64 of y from its
-// accumulators.  See tf32_mm_kernel.
+// ring that a producer warp keeps ahead across the block's tiles; each of
+// four consumer warps applies the prologue to its A fragments in
+// registers, splits A and B into TF32 hi and lo there, and stores its
+// 32 x 64 of y from its accumulators.  See tf32_mm_kernel.
 //
 // The simple route takes everything else (fp32 kinds 0 and 2, ragged K or
 // N, misaligned views): one templated tiled GEMM, <T, PROLOGUE, RELU,
@@ -849,16 +849,19 @@ using namespace mxtt::sm90;
 using mxtt::tf32x3::mma3;
 using mxtt::tf32x3::split;
 
-constexpr int TM = 128;  // rows of a tile
+constexpr int TM = 64;   // rows of a tile
 constexpr int TN = 128;  // columns of a tile
 constexpr int TK = 32;   // k per chunk: one 128-byte swizzled row of fp32
-constexpr int WARPS_M = 4, WARPS_N = 2;  // warp tiles of 32 x 64
+constexpr int WARPS_M = 2, WARPS_N = 2;  // warp tiles of 32 x 64
 constexpr int CONSUMERS = WARPS_M * WARPS_N;
 constexpr int THREADS = 32 * (CONSUMERS + 1);  // and the producer warp
+constexpr int PER_SM = 2;  // blocks an SM
 constexpr int STAGES = 4;
-constexpr int CHUNK = TM * TK;  // floats of one x (or wt) chunk, 16 KB
-constexpr int ALIGN = 1024;     // a swizzle atom
-constexpr int SMEM = ALIGN + STAGES * 2 * CHUNK * 4 + 16 * STAGES;
+constexpr int X_CHUNK = TM * TK;  // floats of one x chunk, 8 KB
+constexpr int W_CHUNK = TN * TK;  // and of one wt chunk, 16 KB
+constexpr int SLOT = X_CHUNK + W_CHUNK;
+constexpr int ALIGN = 1024;  // a swizzle atom
+constexpr int SMEM = ALIGN + STAGES * SLOT * 4 + 16 * STAGES;
 
 // element (r, k) of a chunk as TMA leaves it with the 128-byte swizzle:
 // rows of 32 floats whose 16-byte groups are permuted by group ^ (r % 8).
@@ -882,27 +885,32 @@ __device__ __forceinline__ void issue_chunk(float* ring, uint64_t* full,
                                             int chunks, int tiles_n) {
   const int tile = (int)blockIdx.x + (i / chunks) * (int)gridDim.x;
   const int c = i % chunks, stage = i % STAGES;
-  float* xs = ring + stage * 2 * CHUNK;
-  mbar_expect_tx(&full[stage], 2 * CHUNK * 4);
+  float* xs = ring + stage * SLOT;
+  mbar_expect_tx(&full[stage], SLOT * 4);
   tma_load_2d(xs, tm_x, &full[stage], c * TK, (tile / tiles_n) * TM);
-  tma_load_2d(xs + CHUNK, tm_w, &full[stage], c * TK, (tile % tiles_n) * TN);
+  tma_load_2d(xs + X_CHUNK, tm_w, &full[stage], c * TK,
+              (tile % tiles_n) * TN);
 }
 
-// Persistent blocks, one an SM: block b computes the 128 x 128 tiles b,
-// b + P, b + 2P, ... of y (tile i: row tile i / tiles_n, column tile
-// i % tiles_n, so the blocks that read one x tile run side by side and
-// the later reads hit L2).  The chunks of x and wt (tile rows x 32 k)
+// Persistent blocks, two an SM (P in all): block b computes the 64 x 128
+// tiles b, b + P, b + 2P, ... of y (tile i: row tile i / tiles_n, column
+// tile i % tiles_n, so the blocks that read one x tile run side by side
+// and the later reads hit L2).  The chunks of x and wt (tile rows x 32 k)
 // arrive by TMA into a ring of STAGES slots in the order the block uses
 // them, across its tiles, so the next tile's loads run under this tile's
 // products and stores; a producer warp refills a slot once each consumer
 // warp has arrived on its `empty` barrier, so the consumers never wait
-// for one another.  Eight consumer warps own 32 x 64 of a tile each and
-// multiply with mma.sync.m16n8k8 in 3xTF32: A is x through the prologue
-// (scale and shift read per chunk from global memory, zeros past K),
-// split in registers; B is wt as it is stored, split in registers.  Each
-// lane stores its accumulators' column pairs straight to y.
+// for one another.  64-row tiles keep the last round of tiles full where
+// 128-row ones would not: at ResNet-50's fourth stage (M = 3,136, N =
+// 2,048) 784 tiles fill 264 blocks three times, where 400 take four
+// rounds of 132 (0.116 against 0.151 ms on an H100, PERF.md §6).  Four
+// consumer warps own 32 x 64 of a tile each and multiply with
+// mma.sync.m16n8k8 in 3xTF32: A is x through the prologue (scale and
+// shift read per chunk from global memory, zeros past K), split in
+// registers; B is wt as it is stored, split in registers.  Each lane
+// stores its accumulators' column pairs straight to y.
 template <bool RELU>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, PER_SM)
     tf32_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_w,
                    const float* __restrict__ scale,
@@ -912,7 +920,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* base =
       smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
   float* ring = reinterpret_cast<float*>(base);  // slot: x chunk, wt chunk
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * CHUNK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * SLOT);
   uint64_t* empty = full + STAGES;
 
   const int chunks = (K + TK - 1) / TK;
@@ -963,8 +971,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         sc[s][hf] = k < K ? scale[k] : 0.f;
         sh[s][hf] = k < K ? shift[k] : 0.f;
       }
-    const float* xs = ring + stage * 2 * CHUNK;
-    const float* ws = xs + CHUNK;
+    const float* xs = ring + stage * SLOT;
+    const float* ws = xs + X_CHUNK;
     mbar_wait(&full[stage], (i / STAGES) & 1);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -1062,7 +1070,7 @@ cudaError_t launch(const void* x, const float* scale, const float* shift,
   }
   const int tiles_n = (N + TN - 1) / TN;
   const int tiles = (int)((M + TM - 1) / TM) * tiles_n;
-  const int blocks = std::min(tiles, std::max(1, tma::sm_count()));
+  const int blocks = std::min(tiles, PER_SM * std::max(1, tma::sm_count()));
   kernel<<<blocks, THREADS, SMEM, stream>>>(
       tx, tw, scale, shift, static_cast<float*>(y), (int)M, K, N, tiles_n,
       tiles);
