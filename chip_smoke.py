@@ -19,9 +19,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
    Function's gradients against autograd through the plain forward.
    The fp32 attention bounds are at the 3xTF32 rate (the CUDA-core bound
    printed beside); the share of key tiles the forward and dQ kernels
-   visit, their wrappers' host time per call, the SASS opcode mix of
-   their kernels and SDPA's kernels (its backend, read by torch.profiler
-   in a process of its own) are printed;
+   visit and of 64-key blocks the dK/dV kernel visits (held to a model
+   of its rule), their wrappers' host time per call, the SASS opcode mix
+   of their kernels and SDPA's kernels (its backend, read by
+   torch.profiler in a process of its own) are printed, and at the
+   training shape dK/dV against 8/14 of SDPA's backward and dQ + dK/dV
+   against all of it, in the same call (printed, not gated);
 4. serve: BERT-base (12 layers, 768 units, 12 heads of 64, vocab 30522,
    random weights from a seed) behind ``serve.ModelServer``, 32 requests
    from 4 client threads; the kernels' launch counts are read around this
@@ -42,8 +45,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
    training shape the fused kernels' TMA route and simple route are held
    against each other and timed side by side (also by their device time
    from torch.profiler), and the fused forward of one step is summed from
-   them; and their autograd Functions against autograd through the plain
-   forwards;
+   them; fp32 ``bn_act_matmul`` (the predict forward's) runs on its TF32
+   route, bound at the 3xTF32 rate (the CUDA-core bound beside), held
+   against the simple route and timed beside it and ``torch.matmul`` at
+   all four predict shapes, summed over one forward's 16 launches; and
+   their autograd Functions against autograd through the plain forwards;
 7. ResNet training: ResNet-50 v1, NHWC, 1000 classes, with
    ``MXTPU_CONV_EPILOGUE=pallas``, takes 20 steps through
    ``parallel.DataParallelTrainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
@@ -55,7 +61,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    from the same weights with the fused kernels pinned to the simple
    route (PR 3's template), whose losses the TMA run's must track;
 8. ResNet predict: the trained net in predict mode at batch 64, fp32; the
-   launches of ``bn_act_matmul`` are read around the timed forwards;
+   launches of ``bn_act_matmul`` are read around the timed forwards, and
+   every one must have taken the TF32 route;
 9. ResNet references, fp32 with TF32 off, batch 8 at 112^2: 2 steps of the
    fused net on the card, the same on the CPU, and the standard (unfused)
    net on the card, from the same weights, must agree; the fused net on
@@ -564,12 +571,12 @@ def check_flash_attention_bwd(mx):
                     *args, causal=causal), iters=20)
                 blocks = tile_share(lambda t: fa._launch_dkv(
                     *args, causal, None, blocks=t))
-                if blocks != dkv_block_model(vl if km is not None else None,
-                                             b, h, s, causal):
+                rule = dkv_block_model(vl if km is not None else None, b, h,
+                                       s, causal)
+                if blocks != rule:
                     raise SystemExit(
                         f"the dK/dV kernel visited {blocks} blocks of keys, "
-                        f"its rule {dkv_block_model(vl, b, h, s, causal)}: "
-                        f"{label} {dtype} {mask}")
+                        f"its rule {rule}: {label} {dtype} {mask}")
                 plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, o, lse, do, km, causal=causal), iters=5)
                 lib_ms = sdpa_backward_ms(tF, q, k, v, do, km, causal)

@@ -43,7 +43,8 @@
 // mirror of the dQ kernel: 4 warps own 64 keys, 16 a warp; their K and V
 // rows arrive once by cp.async.bulk, and Q and dO stream through the
 // two-stage ring in tiles of BQ queries (32 at d = 64, 16 above, for
-// shared memory).  Per tile: S^T = K Q^T and dP^T = V dO^T on mma.sync
+// shared memory; 3 blocks an SM at d = 64, 70 KB and 168 registers in
+// fp32).  Per tile: S^T = K Q^T and dP^T = V dO^T on mma.sync
 // (K, V rows as A; Q, dO rows as B; 3xTF32 in fp32), then
 // P^T = exp(scale S^T + mask - lse) and dS^T = P^T (dP^T - delta) in fp32
 // registers, never rounded; the tile's queries are the accumulators'
@@ -85,7 +86,6 @@
 namespace {
 
 using mxtt::attn::Heads;
-using mxtt::attn::to_f;
 using mxtt::attn::from_f;
 
 struct Args {
