@@ -70,23 +70,30 @@ Phases (any failure ends the run with a non-zero exit and no result):
 10. RNN kernels: the LSTM and GRU forward and backward kernels against
     their plain versions (every forward output and every gradient) at
     DeepAR training (T=96, N=32, H=40), DeepAR predict (T=73 and 96,
-    N=1600; T=96, N=3200), the GRU phase (T=35, N=32, H=200) and a large-H LSTM (T=35,
-    N=32, H=512), in fp32 and bf16, each backward run twice for
-    bit-identity; timed beside the plain versions, the bound, and cuDNN's
-    layer (``torch.nn.LSTM``/``GRU``, fp32) against the port's layer
-    (input GEMM plus kernel), forward and backward; and the autograd
-    Functions against autograd through the plain forwards;
+    N=1600; T=96, N=3200), the GRU phase (T=35, N=32, H=200) and a
+    large-H LSTM (T=35, N=32, H=512), in fp32 and bf16, each kernel run
+    twice for bit-identity; timed beside the plain versions, the bound,
+    and cuDNN's layer (``torch.nn.LSTM``/``GRU``, fp32) against the port's
+    layer (input GEMM plus kernel), forward and backward; the LSTM forward
+    and the GRU backward on every route that takes the shape (register,
+    tensor-core, cluster, split), each held against the plain version
+    and timed (the redesigned kernels at the main and predict shapes also
+    by torch.profiler's device time); the redesigned routes' kernels must
+    show 0 spill bytes in nvcc's report; at the GRU phase the backward's
+    cluster sizes; the wrappers' host time a call at the main shapes; and
+    the autograd Functions against autograd through the plain forwards;
 11. DeepAR train: ``deepar(40, 2)`` (GluonTS defaults: 2x40 LSTM,
     Student-t head, dropout 0.1), Xavier, 20 Adam steps (lr 1e-3) at
     batch 32, context 72 + prediction 24, on fresh covariate batches from
     ``data.timeseries.InstanceSplitter`` over ``synthetic_dataset``; the
-    launch counts are read around the 20 steps; every parameter must have
-    a finite gradient after the first backward and the mean NLL of the
-    last 5 steps must be below the first;
+    launch counts are read around the 20 steps, every ``lstm_fwd`` on
+    the register route; every parameter must have a finite gradient after
+    the first backward and the mean NLL of the last 5 steps must be below
+    the first;
 12. DeepAR predict: 16 context series of 72 points, 100 samples each
     (N=1600), 24 sampling steps; then 32 series (GluonTS's default predict
     batch: N=3200, past the JAX package's size rule for its kernel); the
-    launches are read around each;
+    launches are read around each, every one on the tensor-core route;
 13. DeepAR card vs CPU: the same weights, dropout 0, fp32, batch 4: the
     first NLL, ``lstm.l0_h2h_weight``'s gradient, 2 Adam steps' losses,
     the first predict step's (mu, sigma, nu) (``DeepARNetwork.next_params``,
@@ -94,7 +101,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
 14. GRU: ``gluon.rnn.GRU(200, num_layers=2)``, TNC, T=35, N=32, input 200
     (MXNet 1.x's word-language-model example with ``--model gru``), 20
     Adam steps on an L2 loss against a fixed target; the launch counts
-    are read around the 20 steps and the loss must fall.
+    are read around the 20 steps, every ``gru_bwd`` on the cluster route,
+    and the loss must fall.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
@@ -106,7 +114,11 @@ also writes a ``torch.profiler`` table of two training steps to
 ``chiprun_out/train_profile.txt`` and prints its top rows;
 ``--profile-resnet`` does the same for two ResNet-50 steps, into
 ``chiprun_out/resnet_profile.txt``, and prints the fused kernels' share of
-the device time.
+the device time.  ``python3 chip_smoke.py --rnn-study`` runs none of the
+phases: it builds variants of ``csrc/rnn.cu`` (the other activation forms,
+each redesigned route with its stores, activations, lo products or
+products taken out) and times them against the source, and the LSTM
+forward's register and tensor-core routes over N.
 """
 from __future__ import annotations
 
@@ -335,6 +347,27 @@ def sass_mix(library, name, ops=("HMMA", "MUFU", "LDS", "F2F", "FFMA",
                 if op.startswith(o):
                     mixes[current][o] += 1
     return mixes
+
+
+def spill_bytes(build_log, names):
+    """(spill store bytes, spill load bytes) of each kernel of a library
+    whose mangled name holds one of ``names``, from nvcc's ``-Xptxas -v``
+    report."""
+    import re
+
+    out, current = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1) if any(n in m.group(1) for n in names) \
+                else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            out[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return out
 
 
 def short_name(mangled):
@@ -1060,23 +1093,38 @@ def simple_route(kcf):
         kcf.route = rule
 
 
-def device_ms(fn, iters, tags):
-    """Mean device time (ms) a call of ``fn`` spends in the kernels whose
-    names hold one of ``tags``, from torch.profiler over ``iters`` calls
-    after one warm call: the kernels alone, without the host's time
-    between launches."""
+def device_ms(fn, iters, tags, attempts=3):
+    """Device time (ms) a call of ``fn`` spends in the kernels whose names
+    hold one of ``tags`` (each launched once a call, as in every use here),
+    from torch.profiler over ``iters`` calls after one warm call: the sum
+    over those kernels of each one's mean time a recorded launch, without
+    the host's time between launches.  On the H100 torch.profiler has now
+    and then left a launch, or every launch of a session, unrecorded
+    (PERF.md): a mean over the recorded launches does not count a missed
+    one as 0, and a session that records none of the kernels is taken
+    again, up to ``attempts`` sessions in all (0 only if all missed)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = kernel_times(prof.key_averages())
-    return sum(t for k, t in times.items()
-               if any(tag in k for tag in tags)) / iters / 1e3
+    total = 0.0
+    for _ in range(attempts):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count and any(
+                    tag in e.key for tag in tags):
+                t = getattr(e, "self_device_time_total", None)
+                total += (e.self_cuda_time_total if t is None else t) / \
+                    e.count
+        if total > 0:
+            break
+    return total / 1e3
 
 
 # -- phase 6: the ResNet kernels ----------------------------------------------
@@ -1672,13 +1720,14 @@ def rnn_kernel_shapes():
             ("gru_phase", 35, 32, 200, 200), ("large_h", 35, 32, 512, 512))
 
 
-def rnn_bound(cell, direction, T, N, H, dtype):
+def rnn_bound(cell, direction, T, N, H, dtype, rate=None):
     """Least time (ms) of one recurrence kernel call: each input read once
     and each output written once, in their dtypes (x_proj, wh, h0 and c0,
     ys, hn and cn in ``dtype``; saved gates, cell states or hn_lin, and
     every gradient in fp32); ``2*T*N*G*H*H`` operations for the forward's
-    recurrent product, twice that for the backward (dh_prev and dWh) at
-    the fp32 rate."""
+    recurrent product at ``rate`` (default: the dtype's peak; the
+    tensor-core route's is TF32X3_FLOPS), twice that for the backward
+    (dh_prev and dWh) at the fp32 rate."""
     G = 4 if cell == "lstm" else 3
     item = 2 if dtype == "bfloat16" else 4
     tn = T * N
@@ -1686,7 +1735,7 @@ def rnn_bound(cell, direction, T, N, H, dtype):
         nbytes = (tn * G * H * item + G * H * H * item + (G - 2) * N * H * item
                   + tn * H * item + (G - 2) * N * H * item + tn * G * H * 4
                   + tn * H * 4 + (G * H * item if cell == "gru" else 0))
-        return least_ms(nbytes, 2.0 * tn * G * H * H, dtype)
+        return least_ms(nbytes, 2.0 * tn * G * H * H, dtype, rate)
     nbytes = (tn * H * 4 + tn * G * H * 4 + tn * H * 4 + tn * H * item
               + G * H * H * 4 + 2 * (G - 2) * N * H * 4
               + tn * G * H * 4 + G * H * H * 4 + (G - 2) * N * H * 4
@@ -1752,7 +1801,7 @@ def check_rnn_kernels(mx, dev):
     from mxnet_tpu_torch.ops.kernels import rnn as kr
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    main = {}
+    main, predict = {}, []
     log(f"rnn kernels: kernel vs plain, max |err| / max(1, max |ref|) within "
         f"{RNN_TOL} (forward outputs in x_proj's dtype; gates, states and "
         f"every gradient fp32); backward inputs are the plain forward's "
@@ -1787,13 +1836,41 @@ def check_rnn_kernels(mx, dev):
                               for g, r in zip(got, ref)))
                 again = bwd(*b_args)
                 ok = ok and all(torch.equal(a, b) for a, b in zip(bgot, again))
-                del got, bgot, bref, again
+                fagain = fwd(*f_args)
+                ok = ok and all(torch.equal(a, b) for a, b in zip(got, fagain))
+                del again, fagain
                 f_ms = cuda_ms(lambda: fwd(*f_args), 10)
                 b_ms = cuda_ms(lambda: bwd(*b_args), 10)
                 fp_ms = cuda_ms(lambda: fplain(*f_args), 2, warmup=1)
                 bp_ms = cuda_ms(lambda: bplain(*b_args), 2, warmup=1)
                 fbound = rnn_bound(cell, "fwd", T, N, H, dtype)
                 bbound = rnn_bound(cell, "bwd", T, N, H, dtype)
+                # the redesigned kernel's route, and every route that
+                # takes this shape (the split route is the shared-memory
+                # kernel that every launch took before the redesigned
+                # routes), each held against the plain version and timed
+                if cell == "lstm":
+                    d_new, route = "fwd", kr.plan(4, False, N, H, dev)[0]
+                    routes_ms, rerr = route_times(
+                        lambda r: kr._lstm_fwd(*f_args, route=r), ref,
+                        lambda r: kr.plan(4, False, N, H, dev, r))
+                else:
+                    d_new, route = "bwd", kr.plan(3, True, N, H, dev)[0]
+                    routes_ms, rerr = route_times(
+                        lambda r: kr._gru_bwd(*b_args, route=r), bref,
+                        lambda r: kr.plan(3, True, N, H, dev, r))
+                split_ms = routes_ms["split"]
+                cores = ""
+                if route == "mma":  # 3xTF32 products: their rate's bound
+                    cores = (f" (3xTF32; {fbound[0]:.4f} {fbound[1]} at the "
+                             f"CUDA cores)")
+                    fbound = rnn_bound(cell, "fwd", T, N, H, dtype,
+                                       TF32X3_FLOPS)
+                if rerr > 0:
+                    raise SystemExit(f"{cell}_{d_new}: a route disagrees "
+                                     f"with the plain version by {rerr:.3g} "
+                                     f"past RNN_TOL at {label} T={T} "
+                                     f"{dtype}")
                 lib = ""
                 rec = {}
                 if dtype == "float32":
@@ -1805,16 +1882,38 @@ def check_rnn_kernels(mx, dev):
                 log(f"  {label:14s} {cell} T={T} N={N} H={H} {dtype:8s} "
                     f"err fwd {ferr:.3g} bwd {berr:.3g} | fwd {f_ms:.4f} ms "
                     f"({1e3 * f_ms / T:.2f} us/step, bound {fbound[0]:.4f} "
-                    f"{fbound[1]}, plain {fp_ms:.3f}) bwd {b_ms:.4f} ms "
+                    f"{fbound[1]}{cores}, plain {fp_ms:.3f}) bwd "
+                    f"{b_ms:.4f} ms "
                     f"({1e3 * b_ms / T:.2f} us/step, bound {bbound[0]:.4f} "
-                    f"{bbound[1]}, plain {bp_ms:.3f}){lib} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{bbound[1]}, plain {bp_ms:.3f}) | {cell}_{d_new} on "
+                    f"the {route} route; by route (ms) "
+                    + ", ".join(f"{r} {v:.4f}" for r, v in routes_ms.items())
+                    + f"{lib} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"{cell} kernels disagree with their "
                                      f"plain versions: {label} T={T} "
                                      f"{dtype}")
-                if dtype == "float32" and (label, cell) in (
-                        ("deepar_train", "lstm"), ("gru_phase", "gru")):
+                main_shape = (label, cell) in (("deepar_train", "lstm"),
+                                               ("gru_phase", "gru"))
+                new_dev_ms = None
+                if dtype == "float32" and (main_shape or (
+                        label == "deepar_predict" and cell == "lstm")):
+                    # the redesigned kernel's device time: where its
+                    # wrapper's host time exceeds it, events over calls
+                    # read the host
+                    new_dev_ms = device_ms(
+                        (lambda: fwd(*f_args)) if cell == "lstm"
+                        else (lambda: bwd(*b_args)), 5,
+                        ("lstm_fwd",) if cell == "lstm"
+                        else ("gru_bwd", "dw_"))
+                    log(f"  {cell}_{d_new} at {label} T={T} N={N}: device "
+                        f"{new_dev_ms:.4f} ms (torch.profiler)")
+                if dtype == "float32" and main_shape:
+                    hosts = {"fwd": host_us(lambda: fwd(*f_args), 100),
+                             "bwd": host_us(lambda: bwd(*b_args), 100)}
+                    log(f"  {cell} wrappers' host time a call at {label}: "
+                        f"fwd {hosts['fwd']:.1f} us, bwd "
+                        f"{hosts['bwd']:.1f} us")
                     for d, ms, pms, bound, err, lib_ms in (
                             ("fwd", f_ms, fp_ms, fbound, ferr,
                              rec["cudnn_fwd"]),
@@ -1825,16 +1924,83 @@ def check_rnn_kernels(mx, dev):
                             "bound_ms": bound[0], "bound_by": bound[1],
                             "library_ms": lib_ms, "us_per_step": 1e3 * ms / T,
                             "port_layer_ms": rec[f"port_{d}"],
+                            "host_us": hosts[d],
                             "shape": f"T={T} N={N} H={H} I={I} fp32"}
-                del t, f_args, b_args, ref
+                    main[f"{cell}_{d_new}"].update(kernel_route=route,
+                                                   split_route_ms=split_ms,
+                                                   route_ms=routes_ms,
+                                                   device_ms=new_dev_ms)
+                    if cell == "gru":
+                        main["gru_bwd"].update(gru_bwd_parts(kr, b_args, dev))
+                if dtype == "float32" and label == "deepar_predict" \
+                        and cell == "lstm":
+                    predict.append({
+                        "shape": f"T={T} N={N} H={H} I={I} fp32", "ms": f_ms,
+                        "device_ms": new_dev_ms,
+                        "kernel_route": route, "split_route_ms": split_ms,
+                        "route_ms": routes_ms,
+                        "bound_ms": fbound[0], "bound_by": fbound[1],
+                        "library_ms": rec["cudnn_fwd"],
+                        "port_layer_ms": rec["port_fwd"]})
+                del t, f_args, b_args, ref, got, bgot, bref
         torch.cuda.empty_cache()
+    main["lstm_fwd"]["predict"] = predict
     check_rnn_functions(kr, dev, gen)
     return main
 
 
+def route_times(call, want, has_plan):
+    """Each route of the kernel wrappers' ``ROUTES`` that has a plan for
+    the call (``has_plan(route)`` does not raise): ``call(route)``'s
+    outputs against ``want`` (the plain version's), as the main check
+    holds them, and its time.  Returns ({route: ms}, the largest error past
+    RNN_TOL, 0 if none)."""
+    import torch
+
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    times, worst = {}, 0.0
+    tol = RNN_TOL["bfloat16" if want[0].dtype == torch.bfloat16
+                  else "float32"]
+    for r in kr.ROUTES:
+        try:
+            has_plan(r)
+        except MXNetError:
+            continue
+        got = call(r)
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        worst = max(worst, err - tol if err > tol else 0.0)
+        del got
+        times[r] = cuda_ms(lambda: call(r), 10)  # noqa: B023
+    return times, worst
+
+
+def gru_bwd_parts(kr, b_args, dev):
+    """At the GRU phase: the cluster route's time at each cluster size the
+    shared memory allows there, (C, NB, JB) = (4, 1, 50), (8, 2, 25),
+    (8, 1, 25), (16, 4, 13) and (16, 2, 13), beside the plan's own (the
+    recurrence's and the dW product's device times are --rnn-study's: late
+    in this process torch.profiler has read them as 0)."""
+    H = b_args[0].shape[1]
+    sizes = {}
+    for pl in (("cluster", 1, 50), ("cluster", 2, 25), ("cluster", 1, 25),
+               ("cluster", 4, 13), ("cluster", 2, 13)):
+        sizes[f"C={-(-H // pl[2])} NB={pl[1]} JB={pl[2]}"] = cuda_ms(
+            lambda: kr._gru_bwd(*b_args, route=pl), 10)
+    route, nb, jb = kr.plan(3, True, b_args[2].shape[1], H, dev)
+    log(f"  gru_bwd at the GRU phase: plan {route} C={-(-H // jb)} NB={nb} "
+        f"JB={jb}; cluster sizes (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sizes.items()))
+    return {"cluster_sizes_ms": sizes}
+
+
 def rnn_layer_times(cell, t, T, N, H, I):
     """The port's layer (input GEMM + kernel) and cuDNN's, forward and
-    backward (autograd through each, the graph kept across calls), fp32."""
+    backward (autograd through each, the graph kept across calls), fp32:
+    each the least of three runs of 10 calls, the two layers in turns
+    (port, cuDNN, cuDNN, port, port, cuDNN): at small shapes both are
+    host-bound, and the host is shared."""
     import torch
 
     from mxnet_tpu_torch.ops.kernels import rnn as kr
@@ -1850,15 +2016,23 @@ def rnn_layer_times(cell, t, T, N, H, I):
             return kr.lstm_layer(xp, wh, t["h0"], t["c0"])[0]
         return kr.gru_layer(xp, wh, t["bh"], t["h0"])[0]
 
-    out = {"port_fwd": cuda_ms(port, 10),
-           "cudnn_fwd": cuda_ms(lambda: mod(x, state), 10)}
     y = port()
-    out["port_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-        y, (x, wi, wh), t["dys"], retain_graph=True), 10)
     yc = mod(x, state)[0]
     params = (x, mod.weight_ih_l0, mod.weight_hh_l0)
-    out["cudnn_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-        yc, params, t["dys"], retain_graph=True), 10)
+    calls = {
+        "port_fwd": port, "cudnn_fwd": lambda: mod(x, state),
+        "port_bwd": lambda: torch.autograd.grad(
+            y, (x, wi, wh), t["dys"], retain_graph=True),
+        "cudnn_bwd": lambda: torch.autograd.grad(
+            yc, params, t["dys"], retain_graph=True)}
+    out = {}
+    for d in ("fwd", "bwd"):
+        for order in (("port", "cudnn"), ("cudnn", "port"),
+                      ("port", "cudnn")):
+            for side in order:
+                key = f"{side}_{d}"
+                out[key] = min(out.get(key, float("inf")),
+                               cuda_ms(calls[key], 10))
     return out
 
 
@@ -1891,6 +2065,179 @@ def check_rnn_functions(kr, dev, gen):
                          "through the plain forward")
 
 
+# -- --rnn-study: what bounds the redesigned recurrence routes ----------------
+
+# Variants of csrc/rnn.cu, each one (old, new) replacement: the other
+# activation forms on the register and tensor-core routes, and each route
+# with one part taken out (their outputs are wrong: timing only).
+_MMA_ACT = "act[q][j] = q == 2 ? tanh_fast(pre) : sigmoid_fast(pre);"
+_MMA_TANH = "h[e] = act[3][j] * tanh_fast(c[e]);"
+_REG_ACT = "const float act = q == 2 ? tanhf(pre) : sigmoid_f(pre);"
+_REG_TANH = "h = go * tanhf(c);"
+_MMA_STORES = """        for (int q = 0; q < 4; ++q)
+          store2(gates + row * G4 + q * H + u0, act[q][0], act[q][1]);
+        store2(cs + row * H + u0, c[e], c[e + 1]);
+        store2(ys + row * H + u0, h[e], h[e + 1]);"""
+_REG_STORES = """        gates[(row * 4 + q) * H + u] = act;
+        if (q == 1) cs[row * H + u] = c;
+        if (q == 2) ys[row * H + u] = from_f<T>(h);"""
+_CLUSTER_PRODUCTS = """      if (L.rt == 1)
+        cluster_products<1>(part_t, w_s, ex_t, L, nn, H);
+      else if (L.rt == 2)
+        cluster_products<2>(part_t, w_s, ex_t, L, nn, H);
+      else
+        cluster_products<4>(part_t, w_s, ex_t, L, nn, H);"""
+# the recurrence card tests' (T, N, H) (tests/test_torch_rnn.py's
+# CARD_SHAPES): the study times the route the plan takes at each beside the
+# split route
+RNN_CARD_SHAPES = ((96, 32, 40), (7, 1600, 40), (96, 3200, 40), (9, 3, 17),
+                   (35, 32, 200), (12, 32, 512), (5, 70, 130), (6, 1, 96),
+                   (5, 17, 97), (3, 1, 417), (5, 896, 64))
+RNN_VARIANTS = {
+    "reg_fast_act": [(_REG_ACT, "const float act = q == 2 ? tanh_fast(pre) "
+                                ": sigmoid_fast(pre);"),
+                     (_REG_TANH, "h = go * tanh_fast(c);")],
+    "reg_no_stores": [(_REG_STORES, "")],
+    "reg_no_act": [(_REG_ACT, "const float act = pre * 0.25f;"),
+                   (_REG_TANH, "h = go * c;")],
+    "mma_expf_act": [(_MMA_ACT, "act[q][j] = q == 2 ? tanhf(pre) : "
+                                "sigmoid_f(pre);"),
+                     (_MMA_TANH, "h[e] = act[3][j] * tanhf(c[e]);")],
+    "mma_no_stores": [(_MMA_STORES, "")],
+    "mma_no_act": [(_MMA_ACT, "act[q][j] = pre * 0.25f;"),
+                   (_MMA_TANH, "h[e] = act[3][j] * c[e];")],
+    "mma_1xtf32": [("x3::mma3<true, true>(acc[s & 1][q], ah, al, bh[s][q], "
+                    "bl[s][q]);", "x3::mma_tf32(acc[s & 1][q], ah, "
+                                  "bh[s][q]);")],
+    "cluster_no_products": [(_CLUSTER_PRODUCTS, "")],
+}
+
+
+def rnn_study(card):
+    """Build the variants of RNN_VARIANTS beside csrc/rnn.cu and time, in
+    turns in this process: the LSTM forward's register and tensor-core
+    routes over N (T=96, H=40), each route against its variants at the
+    main shapes, the LSTM forward's and the GRU backward's planned route
+    beside the split route at every RNN_CARD_SHAPES case, fp32 and bf16,
+    by the kernels' device time (torch.profiler; short calls are host-bound
+    by events), the host time a call of the port's LSTM layer's parts and
+    of cuDNN's layer at DeepAR's training shape, and at the GRU phase the
+    GRU backward's recurrence with and without its products and its dW
+    product (device time)."""
+    import shutil
+
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import build
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    csrc = ROOT / "mxnet_tpu_torch" / "csrc"
+    src = (csrc / "rnn.cu").read_text()
+    libs = {"source": kr.library}
+    for name, reps in RNN_VARIANTS.items():
+        text = src
+        for old, new in reps:
+            if old not in text:
+                raise SystemExit(f"rnn study: variant {name} no longer "
+                                 f"matches csrc/rnn.cu")
+            text = text.replace(old, new)
+        d = build.BUILD_DIR / "variants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, d / header.name)
+        (d / "rnn.cu").write_text(text)
+        libs[name] = build.KernelLibrary("rnn.cu")
+        libs[name].source = d / "rnn.cu"
+    t0 = time.perf_counter()
+    build.build_all(list(libs.values()))
+    log(f"rnn study on {card}: {len(libs)} builds of rnn.cu in "
+        f"{time.perf_counter() - t0:.1f} s; times are the least of 2 turns "
+        f"of 20 calls (CUDA events), variants in turn with the source")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def turns(call, names, timer=None):
+        best = {}
+        for _ in range(2):
+            for n in names:
+                kr.library = libs[n]
+                ms = timer(call) if timer else cuda_ms(call, 20)
+                best[n] = min(best.get(n, float("inf")), ms)
+        kr.library = libs["source"]
+        return ", ".join(f"{n} {v:.4f}" for n, v in best.items())
+
+    def lstm_args(T, N, H):
+        t = rnn_inputs("lstm", T, N, H, H, "float32", dev, gen)
+        return (t["xp"], t["wh"], t["h0"], t["c0"])
+
+    for N in (32, 128, 256, 512, 640, 768, 896, 1024, 1600, 3200):
+        args = lstm_args(96, N, 40)
+        got = {r: cuda_ms(lambda: kr._lstm_fwd(*args, route=r), 20)  # noqa
+               for r in ("reg", "mma")}
+        log(f"  lstm_fwd T=96 N={N} H=40 fp32 ms: reg {got['reg']:.4f}, "
+            f"mma {got['mma']:.4f}; the plan takes "
+            f"{kr.plan(4, False, N, 40, dev)[0]}")
+    for route, shapes in (("reg", ((96, 32), (96, 512))),
+                          ("mma", ((96, 32), (96, 1600), (96, 3200)))):
+        names = ["source"] + [n for n in RNN_VARIANTS
+                              if n.startswith(route)]
+        for T, N in shapes:
+            args = lstm_args(T, N, 40)
+            log(f"  lstm_fwd {route} route T={T} N={N} H=40 fp32 ms: "
+                + turns(lambda: kr._lstm_fwd(*args, route=route), names))
+    for T, N, H in RNN_CARD_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            lt = rnn_inputs("lstm", T, N, H, H, dtype, dev, gen)
+            f_args = (lt["xp"], lt["wh"], lt["h0"], lt["c0"])
+            gt = rnn_inputs("gru", T, N, H, H, dtype, dev, gen)
+            g_ref = kr.gru_fwd_plain(gt["xp"], gt["wh"], gt["bh"], gt["h0"])
+            g_args = (gt["wh"], gt["h0"], g_ref[0], g_ref[2], g_ref[3],
+                      gt["dys"], gt["dhn"])
+            got = []
+            for name, call, rt, tags in (
+                    ("lstm_fwd", lambda r: kr._lstm_fwd(*f_args, route=r),
+                     kr.plan(4, False, N, H, dev)[0], ("lstm_fwd",)),
+                    ("gru_bwd", lambda r: kr._gru_bwd(*g_args, route=r),
+                     kr.plan(3, True, N, H, dev)[0], ("gru_bwd", "dw_"))):
+                ms = {r: device_ms(lambda: call(r), 5, tags)  # noqa: B023
+                      for r in dict.fromkeys((rt, "split"))}
+                got.append(f"{name} {rt} {ms[rt]:.4f}, split "
+                           f"{ms['split']:.4f}")
+            log(f"  card shape T={T} N={N} H={H} {dtype}, device ms: "
+                + "; ".join(got))
+            del lt, gt, f_args, g_args, g_ref
+    # the port's layer at DeepAR's training shape is host-bound: its parts'
+    # host time a call (without waiting for the card) beside cuDNN's layer
+    t = rnn_inputs("lstm", 96, DEEPAR_BATCH, 40, 40, "float32", dev, gen)
+    x, wi, wh = (t[k].detach().requires_grad_(True)
+                 for k in ("x", "wi", "wh"))
+    xp = (torch.matmul(x, wi.T) + t["b"]).detach().requires_grad_(True)
+    mod, state = cudnn_layer("lstm", t, 40, 40, DEEPAR_BATCH)
+    parts = {
+        "input projection (matmul + add)": lambda: torch.matmul(x, wi.T)
+        + t["b"],
+        "lstm_layer (autograd Function + wrapper)": lambda: kr.lstm_layer(
+            xp, wh, t["h0"], t["c0"]),
+        "lstm_fwd wrapper": lambda: kr.lstm_fwd(t["xp"], t["wh"], t["h0"],
+                                                t["c0"]),
+        "cuDNN's layer": lambda: mod(x, state)}
+    log(f"  host us a call, T=96 N={DEEPAR_BATCH} H=40 fp32: "
+        + ", ".join(f"{k} {host_us(f):.1f}" for k, f in parts.items()))
+    del t, x, wi, wh, xp, mod, state
+    t = rnn_inputs("gru", GRU_T, GRU_BATCH, GRU_HIDDEN, GRU_HIDDEN,
+                   "float32", dev, gen)
+    ref = kr.gru_fwd_plain(t["xp"], t["wh"], t["bh"], t["h0"])
+    b_args = (t["wh"], t["h0"], ref[0], ref[2], ref[3], t["dys"], t["dhn"])
+    log(f"  gru_bwd cluster route T={GRU_T} N={GRU_BATCH} H={GRU_HIDDEN} "
+        f"fp32, the recurrence's device ms: "
+        + turns(lambda: kr.gru_bwd(*b_args),
+                ["source", "cluster_no_products"],
+                lambda call: device_ms(call, 10, ("gru_bwd",)))
+        + "; the dW product's: "
+        + turns(lambda: kr.gru_bwd(*b_args), ["source"],
+                lambda call: device_ms(call, 10, ("dw_",))))
+
+
 # -- phases 11-13: DeepAR -----------------------------------------------------
 
 
@@ -1916,7 +2263,8 @@ def deepar_data():
 
 def train_deepar(mx, card):
     """20 Adam steps of DeepAR at batch 32 on fresh covariate batches, then
-    predict; then card vs CPU.  Returns the launch counts of both runs."""
+    predict; then card vs CPU.  Returns the launch counts of both runs, the
+    median step and lstm_fwd's launches by route on each path."""
     import numpy as np
     import torch
 
@@ -1950,6 +2298,7 @@ def train_deepar(mx, card):
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("lstm_fwd", "lstm_bwd")}
+    routes = lstm_fwd_routes(kr)
     n = DEEPAR_STEPS
     median_ms = statistics.median(step_ms[2:])
     log(f"deepar train: 2x40 LSTM, Student-t, dropout 0.1, b={DEEPAR_BATCH}"
@@ -1960,20 +2309,22 @@ def train_deepar(mx, card):
         f"{DEEPAR_BATCH / (median_ms / 1e3):.1f} series/s on {card}")
     log(f"deepar train: losses {[round(v, 4) for v in losses]}")
     log(f"deepar train: (launches, plain calls on cuda) {counts} (2 x {n} "
-        f"= {2 * n} each)")
+        f"= {2 * n} each); lstm_fwd launches by route {routes}")
     checks = {
         "finite_losses": all(np.isfinite(losses)),
         "first_backward_gradients": not missing,
         "nll_falls": statistics.mean(losses[-5:]) < losses[0],
         "launches": all(c[0] == 2 * n for c in counts.values()),
         "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
+        "lstm_fwd_register_route": routes == {"split": 0, "reg": 2 * n,
+                                              "mma": 0},
     }
     if missing:
         log(f"deepar train: parameters without a finite gradient after the "
             f"first backward: {missing}")
 
     pred = splitter.prediction_instances(ds)
-    plaunch = {}
+    plaunch, by_route = {}, {"deepar_train": routes}
     for label, reps in (("deepar_predict", 1), ("deepar_predict_b32", 2)):
         # reps 2: the 16 series twice, GluonTS's default predict batch
         context = mx.nd.array(np.tile(pred["target"], (reps, 1)), ctx=gpu)
@@ -1988,6 +2339,7 @@ def train_deepar(mx, card):
         wall = time.perf_counter() - t0
         got = (kr.lstm_fwd_counts.launches,
                kr.lstm_fwd_counts.plain_calls_on_cuda)
+        proutes = by_route[label] = lstm_fwd_routes(kr)
         plaunch[label] = got[0]
         p50 = np.median(samples[0], axis=0)
         p90 = np.percentile(samples[0], 90, axis=0)
@@ -1995,11 +2347,14 @@ def train_deepar(mx, card):
         log(f"deepar predict: {nser} series x {DEEPAR_SAMPLES} samples "
             f"(N={nser * DEEPAR_SAMPLES}), {DEEPAR_PREDICT} steps in "
             f"{wall:.3f} s on {card}; lstm_fwd (launches, plain calls on "
-            f"cuda) {got} (2 x {DEEPAR_PREDICT} = {2 * DEEPAR_PREDICT})")
+            f"cuda) {got} (2 x {DEEPAR_PREDICT} = {2 * DEEPAR_PREDICT}), by "
+            f"route {proutes}")
         log(f"deepar predict: series 0 p50[:6] "
             f"{np.round(p50[:6], 3).tolist()} p90[:6] "
             f"{np.round(p90[:6], 3).tolist()}")
         checks[f"{label}_launches"] = got == (2 * DEEPAR_PREDICT, 0)
+        checks[f"{label}_tensor_core_route"] = proutes == {
+            "split": 0, "reg": 0, "mma": 2 * DEEPAR_PREDICT}
         checks[f"{label}_samples"] = samples.shape == (
             nser, DEEPAR_SAMPLES, DEEPAR_PREDICT) and bool(
                 np.isfinite(samples).all())
@@ -2009,7 +2364,15 @@ def train_deepar(mx, card):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"deepar checks failed: {failed}")
-    return {k: c[0] for k, c in counts.items()}, plaunch, median_ms
+    return ({k: c[0] for k, c in counts.items()}, plaunch, median_ms,
+            by_route)
+
+
+def lstm_fwd_routes(kr):
+    """lstm_fwd's launches by route since the counts were last reset."""
+    c = kr.lstm_fwd_counts
+    return {"split": c.split_launches, "reg": c.reg_launches,
+            "mma": c.mma_launches}
 
 
 def deepar_card_vs_cpu(mx, splitter, ds):
@@ -2081,7 +2444,7 @@ def deepar_card_vs_cpu(mx, splitter, ds):
 def train_gru(mx, card):
     """gluon.rnn.GRU(200, num_layers=2), TNC, T=35, N=32, input 200, 20
     Adam steps on an L2 loss against a fixed target.  Returns the launch
-    counts and the median step."""
+    counts, the median step and gru_bwd's launches by route."""
     import numpy as np
     import torch
 
@@ -2119,21 +2482,26 @@ def train_gru(mx, card):
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("gru_fwd", "gru_bwd")}
+    bwd = kernels.KERNEL_COUNTS["gru_bwd"]
+    routes = {"split": bwd.split_launches, "cluster": bwd.cluster_launches}
     n = GRU_STEPS
     median_ms = statistics.median(step_ms[2:])
     log(f"gru: gluon.rnn.GRU({GRU_HIDDEN}, num_layers=2) TNC T={GRU_T} "
         f"N={GRU_BATCH}, L2 loss, Adam 1e-3, {n} steps; loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f}; step median {median_ms:.3f} "
         f"ms over steps 3-{n} on {card}; (launches, plain calls on cuda) "
-        f"{counts} (2 x {n} = {2 * n} each)")
+        f"{counts} (2 x {n} = {2 * n} each); gru_bwd launches by route "
+        f"{routes}")
     checks = {"finite_losses": all(np.isfinite(losses)),
               "loss_falls": losses[-1] < losses[0],
               "launches": all(c[0] == 2 * n for c in counts.values()),
-              "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values())}
+              "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
+              "gru_bwd_cluster_route": routes == {"split": 0,
+                                                  "cluster": 2 * n}}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"gru checks failed: {failed}")
-    return {k: c[0] for k, c in counts.items()}, median_ms
+    return {k: c[0] for k, c in counts.items()}, median_ms, routes
 
 
 def main():
@@ -2144,6 +2512,9 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
+    ap.add_argument("--rnn-study", action="store_true",
+                    help="only time the recurrence routes against their "
+                         "variants (what bounds each) and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2166,11 +2537,23 @@ def main():
     log(f"device: {name} x{count}; nvidia-smi: {card}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
+    if args.rnn_study:
+        rnn_study(card)
+        return 0
     t = time.perf_counter()
     kernels.build_all_kernels()
     log(f"build: {time.perf_counter() - t:.1f}s")
     for lib in kernels.KERNEL_LIBRARIES:
         log(f"build log of {lib.source.name}:\n{lib.build_log}")
+    from mxnet_tpu_torch.ops.kernels import rnn as krnn
+    spills = spill_bytes(krnn.library.build_log,
+                         ("lstm_fwd_reg_kernel", "lstm_fwd_mma_kernel",
+                          "gru_bwd_cluster_kernel"))
+    log(f"spill bytes (stores, loads) of the register, tensor-core and "
+        f"cluster routes' kernels: {sorted(set(spills.values()))} over "
+        f"{len(spills)} instantiations (24 + 16 + 2)")
+    if len(spills) != 42 or any(v != (0, 0) for v in spills.values()):
+        raise SystemExit(f"a redesigned route's kernel spills: {spills}")
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
     for lib, kname in ((fa.library, "mma_kernel"),
@@ -2189,8 +2572,8 @@ def main():
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
-    dtrain, dpredict, _ = train_deepar(mx, card)
-    gtrain, _ = train_gru(mx, card)
+    dtrain, dpredict, _, droutes = train_deepar(mx, card)
+    gtrain, _, groutes = train_gru(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -2234,7 +2617,7 @@ def main():
              launches=dtrain["lstm_fwd"] + sum(dpredict.values()),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
                                **dpredict},
-             **rnn["lstm_fwd"]),
+             launches_by_route=droutes, **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
              **rnn["lstm_bwd"]),
@@ -2243,7 +2626,7 @@ def main():
              **rnn["gru_fwd"]),
         dict(name="gru_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
-             **rnn["gru_bwd"]),
+             launches_by_route=groutes, **rnn["gru_bwd"]),
     ]}
     log(card)
     log(json.dumps(record))

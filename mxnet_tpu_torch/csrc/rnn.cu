@@ -8,20 +8,26 @@
 // are gate-major inside 4H (LSTM: i, f, g, o) and 3H (GRU: r, z, n, the
 // cuDNN linear-before-reset cell).
 //
-// Design.  On the TPU one program walked a grid of T steps with h and c
-// resident in VMEM.  Here one launch runs all T steps ("persistent"): the
-// grid is (unit tiles) x (row tiles); block (u, b) owns hidden units
-// [u*JB, u*JB+JB) of batch rows [b*NB, b*NB+NB), keeps the rows of Wh for
-// its units (forward) or the columns (backward) in shared memory for the
-// whole launch, and carries its own c (LSTM) and its part of dh/dc in
-// shared memory.
+// On the TPU one program walked a grid of T steps with h and c resident in
+// VMEM.  Here one launch runs all T steps ("persistent").  A step is a
+// (N x H) by (H x G*H) product and G*N*H activations: at DeepAR's width
+// (N=32, H=40) a few hundred thousand FMAs, so a step costs the latency of
+// its dependent chain (product, activations, the exchange of h or of the
+// gate gradients, a synchronisation), not bytes or operations; at DeepAR
+// predict's N = 1,600-3,200 the forward is bound by its bytes (x_proj in,
+// the gates out: ~0.5 GB at N=3200).  Four routes; mxtt_rnn_plan picks one
+// per (kernel, N, H) before any launch:
 //
-// - One unit tile (Wh fits one block: H up to ~110 for the LSTM, ~125 for
-//   the GRU): blocks are independent.  Each keeps its rows' whole h in
-//   shared memory and needs only __syncthreads between phases.  A normal
-//   launch; the number of row tiles is free.
-// - Several unit tiles (larger H): a step needs every unit's h (forward) or
-//   every unit's gate gradients (backward) of the row, which other blocks
+// - The split route (every kernel; the only one of the LSTM backward and
+//   the GRU forward): the grid is (unit tiles) x (row tiles); block (u, b)
+//   owns hidden units [u*JB, u*JB+JB) of batch rows [b*NB, b*NB+NB), keeps
+//   the rows of Wh for its units (forward) or the columns (backward) in
+//   shared memory for the whole launch, and carries its own c (LSTM) and
+//   its part of dh/dc in shared memory.  Where Wh fits one block (H up to
+//   ~110 for the LSTM, ~125 for the GRU) blocks are independent: each keeps
+//   its rows' whole h in shared memory and needs only __syncthreads between
+//   phases.  Otherwise a step needs every unit's h (forward) or every
+//   unit's gate gradients (backward) of the row, which other blocks
 //   computed.  They go through global memory: the forward through a double
 //   buffer hbuf (2, N, H) fp32, the backward through dxp (LSTM) or the dgh
 //   scratch (GRU), which are written at a new t every step.  A grid barrier
@@ -30,6 +36,27 @@
 //   be resident: the launch is cooperative (cudaLaunchCooperativeKernel),
 //   after a check with the occupancy API, and fails rather than deadlock.
 //   Reads of exchanged data use __ldcg (L2), never a stale L1 line.
+// - The register route (LSTM forward at H <= kRegMaxH where the
+//   tensor-core route does not take the call; DeepAR training): one block
+//   a batch row, a thread a gate of a unit with its row of Wh in
+//   registers, the four gates of a unit in one quad of lanes
+//   (__shfl_sync), c in registers, h broadcast from a double buffer in
+//   shared memory, x_proj loaded kXpAhead steps ahead, one __syncthreads a
+//   step (lstm_fwd_reg_kernel).
+// - The tensor-core route (LSTM forward, N >= kMmaMinN, even H <=
+//   kMmaMaxH; DeepAR predict): 16 rows a block, the step's product as
+//   3xTF32 mma.sync (tf32x3.cuh) with Wh's fragments in registers and each
+//   lane holding all four gates of its cells, x_proj streamed through a
+//   ring of bulk copies (lstm_fwd_mma_kernel).
+// - The cluster route (GRU backward, where Wh's columns fit the blocks of
+//   a cluster of at most kClusterMax and the card holds every cluster at
+//   once): a cluster owns a slab of batch rows and all H units, its block
+//   k the columns of Wh of units [k*JB, k*JB+JB) in shared memory.  Each step a block pushes its units' gate
+//   gradients into every block's shared memory with st.async, which counts
+//   them on the receiver's mbarrier, and each forms dh of its units from
+//   its own copy once all have landed.  No grid or cluster barrier a step,
+//   no global exchange; clusters never wait for each other
+//   (gru_bwd_cluster_kernel).
 //
 // The backward's weight gradients (dWh and, for the GRU, dbh) sum over all
 // T*N rows.  They are not accumulated in the recurrence: a second kernel
@@ -38,22 +65,24 @@
 // partials a third kernel adds in a fixed order.  No float atomics, so every
 // output is bit-identical from run to run.
 //
-// Bound on an H100 SXM.  A step is a (N x H) by (H x G*H) product and G*N*H
-// activations: at DeepAR's width (N=32, H=40) a few hundred thousand FMAs,
-// so the work is latency over T dependent steps (two or three block-wide
-// or grid-wide synchronisations each), not bytes (~5 MB for the whole
-// forward, ~1.5 us at 3.35 TB/s) nor operations.  This first version does
-// plain fp32 FMAs from shared memory (no tensor cores, no prefetch of the
-// next step's x_proj); the gap to the bound is recorded in PERF.md.
+// The products are fp32 FMAs on every route but the tensor-core one.
+// PERF.md records each route's time on an H100 against its bound.
 //
 // Built by nvcc into a C-ABI shared library (mxnet_tpu_torch/ops/kernels/
 // build.py) and bound with ctypes.  Every launch goes on the caller's
 // stream; each function returns a cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+
+#include "hopper.cuh"
+#include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -63,6 +92,27 @@ constexpr int kTile = 64;      // dW product: 64 x 64 outputs per block
 constexpr int kTileK = 16;     // dW product: rows per shared-memory stage
 constexpr int kInFlight = 8;   // L2 loads a thread issues before it waits
 constexpr size_t kSmemBudget = 200 * 1024;  // a recurrence block's plan
+constexpr int kRegMaxH = 96;       // register route: widest H
+constexpr int kXpAhead = 4;        // register route: steps of x_proj ahead
+constexpr int kClusterMax = 16;    // cluster route: blocks (above 8:
+                                   // non-portable)
+constexpr int kClusterUnits = 32;  // cluster route: the plan's units a block
+constexpr int kItems = 2;          // cluster route: (row, unit) items a thread
+constexpr int kWInFlight = 16;     // cluster route: Wh loads a thread issues
+                                   // before it waits
+constexpr int kMmaRows = 16;       // tensor-core route: rows a block
+constexpr int kMmaStages = 4;      // tensor-core route: steps of x_proj ahead
+constexpr int kMmaMaxH = 64;       // tensor-core route: widest H (even)
+constexpr int kMmaMinN = 896;      // tensor-core route: fewest rows (the
+                                   // register route is faster below)
+
+// The routes of mxtt_rnn_plan and the launch entries.
+enum Route {
+  ROUTE_SPLIT = 0,
+  ROUTE_REG = 1,
+  ROUTE_CLUSTER = 2,
+  ROUTE_MMA = 3
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -81,6 +131,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The tensor-core route's activations: ex2.approx (__expf) and an
+// approximate reciprocal in place of expf and a division, and tanh as
+// 2 sigmoid(2x) - 1; a few instructions each, within ~1e-6 of sigmoid_f
+// and tanhf (absolute, and relative away from 0), far inside the kernels'
+// tolerance over 96 steps.  They made that route 14-42% faster on an H100;
+// the register route, latency-bound at DeepAR's training shape, gained
+// nothing from them and keeps expf and tanhf (PERF.md).
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 2.f * sigmoid_fast(2.f * x) - 1.f;
 }
 
 __device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
@@ -533,6 +598,578 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- LSTM forward, register route ---------------------------------------------
+
+// One block per batch row, 4*KP threads (KP = H rounded up to 8): thread
+// 4u + q owns gate q (i, f, g, o) of unit u < H and keeps row q*H + u of Wh
+// (KP floats, zero past H) in registers for the whole launch.  A step: the
+// product with h (float4 broadcasts of h from shared memory, four partial
+// sums), the gate's activation, the quad's four gates exchanged by
+// __shfl_sync, the cell update in registers (every lane of the quad holds
+// the unit's c), h into the other half of a double buffer, one
+// __syncthreads.  x_proj of step t + kXpAhead is loaded while step t runs,
+// so no global load waits on the step's chain; stores are off it.
+template <typename T, int KP>
+__global__ void __launch_bounds__(4 * KP)
+    lstm_fwd_reg_kernel(const T* __restrict__ xp, const float* __restrict__ wh,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c0, T* __restrict__ ys,
+                        T* __restrict__ hn, T* __restrict__ cn,
+                        float* __restrict__ gates, float* __restrict__ cs,
+                        int Tn, int N, int H) {
+  __shared__ __align__(16) float h_s[2][KP];
+  const int n = blockIdx.x;
+  const int u = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const int quad = threadIdx.x & 28;  // the quad's first lane in the warp
+  const bool live = u < H;
+  float w[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+    w[k] = live && k < H ? wh[((size_t)q * H + u) * H + k] : 0.f;
+  for (int k = threadIdx.x; k < 2 * KP; k += blockDim.x)
+    h_s[k / KP][k % KP] = k < H ? h0[(size_t)n * H + k] : 0.f;
+  float c = live ? c0[(size_t)n * H + u] : 0.f;
+  float h = live ? h0[(size_t)n * H + u] : 0.f;
+  const size_t x0 = ((size_t)n * 4 + q) * H + u, xstep = (size_t)N * 4 * H;
+  float xr[kXpAhead];
+#pragma unroll
+  for (int d = 0; d < kXpAhead; ++d)
+    xr[d] = live && d < Tn ? to_f(xp[x0 + d * xstep]) : 0.f;
+  __syncthreads();
+  for (int t0 = 0; t0 < Tn; t0 += kXpAhead) {
+#pragma unroll
+    for (int d = 0; d < kXpAhead; ++d) {
+      const int t = t0 + d;
+      if (t >= Tn) break;
+      const float x = xr[d];
+      if (live && t + kXpAhead < Tn)
+        xr[d] = to_f(xp[x0 + (size_t)(t + kXpAhead) * xstep]);
+      const float4* hv = reinterpret_cast<const float4*>(h_s[t & 1]);
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int k4 = 0; k4 < KP / 4; ++k4) {
+        const float4 v = hv[k4];
+        a0 = fmaf(w[4 * k4], v.x, a0);
+        a1 = fmaf(w[4 * k4 + 1], v.y, a1);
+        a2 = fmaf(w[4 * k4 + 2], v.z, a2);
+        a3 = fmaf(w[4 * k4 + 3], v.w, a3);
+      }
+      const float pre = x + ((a0 + a1) + (a2 + a3));
+      const float act = q == 2 ? tanhf(pre) : sigmoid_f(pre);
+      const float gi = __shfl_sync(0xffffffffu, act, quad);
+      const float gf = __shfl_sync(0xffffffffu, act, quad + 1);
+      const float gg = __shfl_sync(0xffffffffu, act, quad + 2);
+      const float go = __shfl_sync(0xffffffffu, act, quad + 3);
+      c = gf * c + gi * gg;
+      h = go * tanhf(c);
+      if (live) {
+        const size_t row = (size_t)t * N + n;
+        if (q == 0) h_s[(t + 1) & 1][u] = h;
+        gates[(row * 4 + q) * H + u] = act;
+        if (q == 1) cs[row * H + u] = c;
+        if (q == 2) ys[row * H + u] = from_f<T>(h);
+      }
+      __syncthreads();
+    }
+  }
+  if (live && q == 0) hn[(size_t)n * H + u] = from_f<T>(h);
+  if (live && q == 1) cn[(size_t)n * H + u] = from_f<T>(c);
+}
+
+// -- LSTM forward, tensor-core route ------------------------------------------
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(mxtt::sm90::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(mxtt::sm90::smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The shared memory of a tensor-core-route block, in bytes: the ring's
+// kMmaStages mbarriers (64 bytes), h [2][kMmaRows][8*KS + 4] fp32 (a double
+// buffer; the row stride is 4 mod 8 floats, so a fragment's 32 reads take
+// distinct banks), and the x_proj ring [kMmaStages][kMmaRows][4H] in T.
+template <typename T>
+size_t mma_smem(int KS, int H) {
+  return 64 + sizeof(float) * 2 * kMmaRows * (8 * KS + 4) +
+         sizeof(T) * (size_t)kMmaStages * kMmaRows * 4 * H;
+}
+
+// Blocks of kMmaRows (16) batch rows, KS warps (KS = H/8 rounded up):
+// warp w owns units [8w, 8w+8).  A step is the (16 x H) by (H x 4H)
+// product on the tensor cores as 3xTF32 mma.sync.m16n8k8 (tf32x3.cuh; h
+// split every step, Wh once): warp w's four n-tiles are gate q's columns
+// of its 8 units, so lane 4g + t holds all four gates of its cells (rows
+// g, g+8; units 8w + 2t, 8w + 2t + 1) in its accumulators, and the cell
+// update runs in its registers.  Wh's fragments stay in registers (hi and
+// lo), h in a double buffer in shared memory, c in registers; x_proj
+// streams in whole steps (the block's rows are contiguous) through a ring
+// of bulk copies, kMmaStages steps ahead; one __syncthreads a step.  H is
+// even (pairs of units move as float2).
+template <typename T, int KS>
+__global__ void __launch_bounds__(32 * KS)
+    lstm_fwd_mma_kernel(const T* __restrict__ xp, const float* __restrict__ wh,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c0, T* __restrict__ ys,
+                        T* __restrict__ hn, T* __restrict__ cn,
+                        float* __restrict__ gates, float* __restrict__ cs,
+                        int Tn, int N, int H) {
+  namespace x3 = mxtt::tf32x3;
+  namespace sm = mxtt::sm90;
+  constexpr int HS = 8 * KS + 4;
+  extern __shared__ __align__(16) unsigned char mma_smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(mma_smem_raw);
+  float* h_s = reinterpret_cast<float*>(mma_smem_raw + 64);
+  T* ring = reinterpret_cast<T*>(mma_smem_raw + 64 +
+                                 sizeof(float) * 2 * kMmaRows * HS);
+  const int G4 = 4 * H;
+  const size_t stage = (size_t)kMmaRows * G4;
+  const int n0 = blockIdx.x * kMmaRows, nn = min(kMmaRows, N - n0);
+  const uint32_t stage_bytes = (uint32_t)(nn * G4 * sizeof(T));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int u0 = 8 * warp + 2 * tq;  // the lane's units u0, u0 + 1
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMmaStages; ++s) sm::mbar_init(&full[s], 1);
+    sm::mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < 2 * kMmaRows * HS; i += blockDim.x) {
+    const int r = (i / HS) % kMmaRows, k = i % HS;
+    h_s[i] = i < kMmaRows * HS && r < nn && k < H
+                 ? h0[(size_t)(n0 + r) * H + k]
+                 : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kMmaStages && s < Tn; ++s) {
+      sm::mbar_expect_tx(&full[s], stage_bytes);
+      bulk_copy(ring + s * stage, xp + ((size_t)s * N + n0) * G4,
+                stage_bytes, &full[s]);
+    }
+  uint32_t bh[KS][4][2], bl[KS][4][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int unit = 8 * warp + g, k = 8 * s + tq + 4 * i;
+        const float w =
+            unit < H && k < H ? wh[((size_t)q * H + unit) * H + k] : 0.f;
+        x3::split<true>(w, bh[s][q][i], bl[s][q][i]);
+      }
+  // the lane's cells e = 2 * half + j: row g + 8 * half, unit u0 + j
+  const bool live_u = u0 < H;
+  float c[4], h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1), u = u0 + (e & 1);
+    const bool live = live_u && r < nn;
+    c[e] = live ? c0[(size_t)(n0 + r) * H + u] : 0.f;
+    h[e] = live ? h0[(size_t)(n0 + r) * H + u] : 0.f;
+  }
+  for (int t = 0; t < Tn; ++t) {
+    const int st = t % kMmaStages;
+    const float* hv = h_s + (t & 1) * kMmaRows * HS;
+    float acc[2][4][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[p][q][0] = acc[p][q][1] = acc[p][q][2] = acc[p][q][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int k = 8 * s + tq;
+      const float a[4] = {hv[g * HS + k], hv[(g + 8) * HS + k],
+                          hv[g * HS + k + 4], hv[(g + 8) * HS + k + 4]};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x3::split<true>(a[i], ah[i], al[i]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        x3::mma3<true, true>(acc[s & 1][q], ah, al, bh[s][q], bl[s][q]);
+    }
+    sm::mbar_wait(&full[st], (uint32_t)(t / kMmaStages) & 1u);
+    const T* xs = ring + st * stage;
+    float* hw = h_s + ((t + 1) & 1) * kMmaRows * HS;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      const bool live = live_u && r < nn;
+      float act[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 x = live ? load2(xs + r * G4 + q * H + u0)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * half + j;
+          const float pre =
+              (j ? x.y : x.x) + (acc[0][q][e] + acc[1][q][e]);
+          act[q][j] = q == 2 ? tanh_fast(pre) : sigmoid_fast(pre);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 2 * half + j;
+        c[e] = act[1][j] * c[e] + act[0][j] * act[2][j];
+        h[e] = act[3][j] * tanh_fast(c[e]);
+      }
+      if (live) {
+        const int e = 2 * half;
+        store2(hw + r * HS + u0, h[e], h[e + 1]);
+        const size_t row = (size_t)t * N + n0 + r;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          store2(gates + row * G4 + q * H + u0, act[q][0], act[q][1]);
+        store2(cs + row * H + u0, c[e], c[e + 1]);
+        store2(ys + row * H + u0, h[e], h[e + 1]);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && t + kMmaStages < Tn) {
+      sm::mbar_expect_tx(&full[st], stage_bytes);
+      bulk_copy(ring + st * stage,
+                xp + ((size_t)(t + kMmaStages) * N + n0) * G4, stage_bytes,
+                &full[st]);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half, e = 2 * half;
+    if (live_u && r < nn) {
+      store2(hn + (size_t)(n0 + r) * H + u0, h[e], h[e + 1]);
+      store2(cn + (size_t)(n0 + r) * H + u0, c[e], c[e + 1]);
+    }
+  }
+}
+
+// -- GRU backward, cluster route ----------------------------------------------
+
+// The shared memory of a cluster-route block, in floats from (H, NB, JB),
+// then two mbarriers:
+// w_s [2*pu][wsp]: w_s[kk][4j + g] = Wh[g][j][j0+kk] for g < 3, 0 for
+//   g = 3: a row per owned unit (rows padded to wsp = 4 mod 32 floats, so
+//   the float4 reads of 8 neighbouring rows take distinct banks);
+// ex [2][nbp][4H]: two exchange slots, each the step's dgh of the slab's
+//   rows as (dg_r, dg_z, dg_n * r, 0) per unit, which every block of the
+//   cluster writes;
+// part [2][s][nbp][2*pu]: the partial sums of the s chunks of the
+//   reduction, double-buffered.
+// A thread of the product owns units pu and pu + pu_count of one chunk of
+// float4 columns and walks the rows rt at a time.
+struct ClusterLayout {
+  int ws, wsp, pu, s, ch, rt, nbp;
+  size_t ex, part, part_slot, bar, bytes;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int H, int NB,
+                                                        int JB) {
+  ClusterLayout L;
+  L.ws = 4 * H;
+  L.wsp = L.ws + (36 - L.ws % 32) % 32;
+  L.pu = (JB + 1) / 2;
+  L.s = kThreads / L.pu;
+  L.s = L.s < 1 ? 1 : (L.s > H ? H : L.s);
+  L.ch = (H + L.s - 1) / L.s;
+  L.rt = NB >= 3 ? 4 : NB;
+  L.nbp = (NB + L.rt - 1) / L.rt * L.rt;
+  L.ex = (size_t)2 * L.pu * L.wsp;
+  L.part = L.ex + (size_t)2 * L.nbp * L.ws;
+  L.part_slot = (size_t)L.s * L.nbp * 2 * L.pu;
+  L.bar = (L.part + 2 * L.part_slot + 1) / 2 * 2;  // 8-byte aligned
+  L.bytes = (L.bar + 4) * sizeof(float);
+  return L;
+}
+
+// part[s][n][kk] = sum over the float4 columns of chunk s of ex[n] .
+// w_s[kk], for every row n < nn (rounded up to RT) and both units of each
+// thread, two partial sums each added at the end; all in a fixed order.
+template <int RT>
+__device__ __forceinline__ void cluster_products(float* part,
+                                                 const float* w_s,
+                                                 const float* ex,
+                                                 const ClusterLayout L,
+                                                 int nn, int H) {
+  for (int it = threadIdx.x; it < L.pu * L.s; it += blockDim.x) {
+    const int pu = it % L.pu, s = it / L.pu;
+    const int k0 = s * L.ch, k1 = min(k0 + L.ch, H);
+    const float4* wa =
+        reinterpret_cast<const float4*>(w_s + (size_t)pu * L.wsp);
+    const float4* wb =
+        reinterpret_cast<const float4*>(w_s + (size_t)(pu + L.pu) * L.wsp);
+    for (int r0 = 0; r0 < nn; r0 += RT) {
+      float acc[RT][4];
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+      for (int k = k0; k < k1; ++k) {
+        const float4 a = wa[k], b = wb[k];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float4 e =
+              reinterpret_cast<const float4*>(ex + (size_t)(r0 + r) * L.ws)[k];
+          acc[r][0] = fmaf(e.x, a.x, acc[r][0]);
+          acc[r][1] = fmaf(e.y, a.y, acc[r][1]);
+          acc[r][2] = fmaf(e.x, b.x, acc[r][2]);
+          acc[r][3] = fmaf(e.y, b.y, acc[r][3]);
+          acc[r][0] = fmaf(e.z, a.z, acc[r][0]);
+          acc[r][2] = fmaf(e.z, b.z, acc[r][2]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float* p = part + ((size_t)s * L.nbp + r0 + r) * 2 * L.pu;
+        p[pu] = acc[r][0] + acc[r][1];
+        p[pu + L.pu] = acc[r][2] + acc[r][3];
+      }
+    }
+  }
+}
+
+// A step's inputs of item (row m, unit j): r, z, n, hn_lin, h_prev, dy.
+template <typename T>
+__device__ __forceinline__ void gru_bwd_fetch(
+    float* v, const float* __restrict__ gates,
+    const float* __restrict__ hnlin, const T* __restrict__ ys,
+    const float* __restrict__ h0, const float* __restrict__ dys, int t,
+    int N, int H, int m, int j) {
+  const size_t row = (size_t)t * N + m;
+  const float* gt = gates + row * 3 * H + j;
+  v[0] = gt[0];
+  v[1] = gt[H];
+  v[2] = gt[2 * H];
+  v[3] = hnlin[row * H + j];
+  v[4] = t > 0 ? to_f(ys[(row - N) * H + j]) : h0[(size_t)m * H + j];
+  v[5] = dys[row * H + j];
+}
+
+// A cluster barrier: the arrive releases this thread's earlier memory
+// operations to the cluster, the wait acquires the others'.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `addr` (this block's shared memory) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* addr,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(mxtt::sm90::smem_addr(addr)), "r"(rank));
+  return out;
+}
+
+// 16 bytes into another block's shared memory (shared::cluster address
+// `dst`), counted on that block's mbarrier `bar` as complete_tx bytes.
+__device__ __forceinline__ void push4(uint32_t dst, float a, float b,
+                                      float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+      "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+      : "memory");
+}
+
+// Waits for the phase of parity `parity` of this block's mbarrier `bar`,
+// acquiring at cluster scope what the pushes released into it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = mxtt::sm90::smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The inputs and outputs of gru_bwd_kernel (no bar).  Grid (C, row slabs)
+// in clusters of C = ceil(H/JB) blocks along x: the cluster of slab y owns
+// rows [y*NB, y*NB+NB), its block k units [k*JB, k*JB+JB).  A step t: each
+// block waits on its mbarrier of slot t&1 until all C blocks' pushes of
+// step t have landed (nn*H*16 bytes); forms its partial products of the
+// slot with its columns of Wh; a __syncthreads; then each (row, unit) item
+// of the block (at most kItems a thread; its inputs were loaded a step
+// ahead, its dh carried in a register) adds dh*z and the partials in a
+// fixed order, forms step t-1's gate gradients, pushes its dgh into slot
+// (t-1)&1 of every block of the cluster with st.async (16 bytes, counted
+// on that block's mbarrier), writes dxp and dgh, and loads step t-2's
+// inputs.  No barrier across blocks a step: a block pushes step t-1 only
+// after all of step t has reached it, which every other block sent only
+// after it had read step t+1 from the slot now written, so two slots
+// suffice.  Cluster barriers only after the mbarriers are set up and
+// before exit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gru_bwd_cluster_kernel(const float* __restrict__ dys,
+                           const float* __restrict__ gates,
+                           const float* __restrict__ hnlin,
+                           const T* __restrict__ ys,
+                           const float* __restrict__ h0,
+                           const float* __restrict__ wh,
+                           const float* __restrict__ dhn,
+                           float* __restrict__ dxp, float* __restrict__ dgh,
+                           float* __restrict__ dh0, int Tn, int N, int H,
+                           int NB, int JB) {
+  extern __shared__ __align__(16) float cl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const ClusterLayout L = cluster_layout(H, NB, JB);
+  const int C = (H + JB - 1) / JB;
+  const int j0 = (int)cluster.block_rank() * JB, jn = min(JB, H - j0);
+  const int n0 = blockIdx.y * NB, nn = min(NB, N - n0);
+  float* w_s = cl_smem;
+  float* ex = cl_smem + L.ex;
+  float* part = cl_smem + L.part;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cl_smem + L.bar);
+  const size_t slot = (size_t)L.nbp * L.ws;
+  const uint32_t step_bytes = (uint32_t)nn * H * 16;
+  if (threadIdx.x == 0) {
+    mxtt::sm90::mbar_init(&full[0], 1);
+    mxtt::sm90::mbar_init(&full[1], 1);
+    mxtt::sm90::mbar_init_fence();
+    for (int t = Tn - 1; t >= 0 && t >= Tn - 2; --t)
+      mxtt::sm90::mbar_expect_tx(&full[t & 1], step_bytes);
+  }
+  // Wh's columns, kWInFlight loads a thread before it stores any: the
+  // prologue is latency-bound (up to ~200 KB a block) and at few steps it
+  // is most of the launch
+  const int wn = L.wsp * 2 * L.pu;
+  for (int i0 = threadIdx.x; i0 < wn; i0 += kWInFlight * blockDim.x) {
+    float v[kWInFlight];
+#pragma unroll
+    for (int u = 0; u < kWInFlight; ++u) {
+      const int idx = i0 + u * blockDim.x;
+      const int c = idx / (2 * L.pu), kk = idx % (2 * L.pu);
+      const int j = c >> 2, g = c & 3;
+      v[u] = idx < wn && c < L.ws && g < 3 && kk < jn
+                 ? wh[((size_t)g * H + j) * H + j0 + kk]
+                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kWInFlight; ++u) {
+      const int idx = i0 + u * blockDim.x;
+      if (idx < wn)
+        w_s[(size_t)(idx % (2 * L.pu)) * L.wsp + idx / (2 * L.pu)] = v[u];
+    }
+  }
+  for (size_t idx = threadIdx.x; idx < 2 * slot; idx += blockDim.x)
+    ex[idx] = 0.f;
+  const int items = nn * jn;
+  float pf[kItems][6], dh_c[kItems], dhz[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * blockDim.x;
+    dh_c[it] = dhz[it] = 0.f;
+    if (idx < items) {
+      const int m = n0 + idx / jn, j = j0 + idx % jn;
+      dh_c[it] = dhn[(size_t)m * H + j];
+      if (Tn > 0)
+        gru_bwd_fetch(pf[it], gates, hnlin, ys, h0, dys, Tn - 1, N, H, m, j);
+    }
+  }
+  // every block has started, zeroed its slots and set up its mbarriers
+  cluster_barrier();
+  // Round t: step t's products and dh (t < Tn), then the items of step
+  // t-1 (t > 0): gate gradients from the carried dh and the prefetched
+  // inputs, pushed to every block and stored; step t-2's inputs loaded.
+  for (int t = Tn; t >= 0; --t) {
+    if (t < Tn) {
+      mbar_wait_cluster(&full[t & 1], (uint32_t)((Tn - 1 - t) >> 1) & 1u);
+      if (threadIdx.x == 0 && t >= 2)  // the slot's next use: step t-2
+        mxtt::sm90::mbar_expect_tx(&full[t & 1], step_bytes);
+      float* part_t = part + (t & 1) * L.part_slot;
+      const float* ex_t = ex + (t & 1) * slot;
+      if (L.rt == 1)
+        cluster_products<1>(part_t, w_s, ex_t, L, nn, H);
+      else if (L.rt == 2)
+        cluster_products<2>(part_t, w_s, ex_t, L, nn, H);
+      else
+        cluster_products<4>(part_t, w_s, ex_t, L, nn, H);
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int idx = threadIdx.x + it * blockDim.x;
+        if (idx >= items) continue;
+        const int n = idx / jn, kk = idx % jn;
+        float v = dhz[it];
+        for (int s = 0; s < L.s; ++s)
+          v += part_t[((size_t)s * L.nbp + n) * 2 * L.pu + kk];
+        dh_c[it] = v;
+      }
+    }
+    if (t == 0) break;
+    const int u = t - 1;  // the items' step
+    float* ex_u = ex + (u & 1) * slot;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int idx = threadIdx.x + it * blockDim.x;
+      if (idx >= items) continue;
+      const int n = idx / jn, j = j0 + idx % jn;
+      const float r = pf[it][0], z = pf[it][1], nv = pf[it][2];
+      const float hl = pf[it][3], hp = pf[it][4];
+      const float dh = dh_c[it] + pf[it][5];
+      const float dn = dh * (1.f - z);
+      const float dz = dh * (hp - nv);
+      const float dgn = dn * (1.f - nv * nv);
+      const float dr = dgn * hl;
+      const float dgr = dr * r * (1.f - r);
+      const float dgz = dz * z * (1.f - z);
+      const float dq = dgn * r;
+      dhz[it] = dh * z;
+      const float* e = ex_u + (size_t)n * L.ws + 4 * j;
+      for (int p = 0; p < C; ++p)
+        push4(cluster_addr(e, p), dgr, dgz, dq, 0.f,
+              cluster_addr(&full[u & 1], p));
+      const size_t row = (size_t)u * N + n0 + n;
+      float* dx = dxp + row * 3 * H + j;
+      dx[0] = dgr;
+      dx[H] = dgz;
+      dx[2 * H] = dgn;
+      float* dg = dgh + row * 3 * H + j;
+      dg[0] = dgr;
+      dg[H] = dgz;
+      dg[2 * H] = dq;
+      if (u > 0)
+        gru_bwd_fetch(pf[it], gates, hnlin, ys, h0, dys, u - 1, N, H,
+                      n0 + n, j);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * blockDim.x;
+    if (idx < items)
+      dh0[(size_t)(n0 + idx / jn) * H + j0 + idx % jn] = dh_c[it];
+  }
+  cluster_barrier();  // no push to or from this block is still in flight
+}
+
 // -- weight gradients ---------------------------------------------------------
 
 // part[slab][r][k] = sum over rows m of the slab, in order, of A[m][r] *
@@ -677,26 +1314,15 @@ cudaError_t launch_recurrence(void (*kernel)(KArgs...), int ut, int bt,
 
 int tiles(int total, int per) { return (total + per - 1) / per; }
 
-// The plan of a recurrence kernel (G = 4: LSTM, 3: GRU; forward or
-// backward) on the current device: NB batch rows and JB hidden units per
-// block.  Where one block holds all of Wh (JB = H), blocks own whole rows,
-// need no exchange, and take about 4 blocks per SM.  Otherwise a block's
-// rows are as many as fit half the budget and the units are split so that
-// every block has an SM of its own, so all are resident for the grid
-// barrier.  Returns cudaSuccess, cudaErrorInvalidConfiguration where no plan
-// fits the shared memory and the SMs, or the error of a device query.
-cudaError_t plan_recurrence(int G, bool backward, int N, int H, int* NB_out,
-                            int* JB_out) {
-  if (N < 1 || H < 1 || (G != 3 && G != 4)) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  const size_t budget = std::min(kSmemBudget, (size_t)optin);
+// The split route's plan of a recurrence kernel (G = 4: LSTM, 3: GRU;
+// forward or backward) on a device with `sms` SMs: NB batch rows and JB
+// hidden units per block.  Where one block holds all of Wh (JB = H),
+// blocks own whole rows, need no exchange, and take about 4 blocks per SM.
+// Otherwise a block's rows are as many as fit half the budget and the
+// units are split so that every block has an SM of its own, so all are
+// resident for the grid barrier.
+cudaError_t plan_split(int G, bool backward, int N, int H, int sms,
+                       size_t budget, int* NB_out, int* JB_out) {
   auto smem = [&](int nb, int jb) {
     return backward ? bwd_smem(G, H, nb, jb) : fwd_smem(G, H, nb, jb, G == 4);
   };
@@ -724,6 +1350,129 @@ bool bad_plan(int Tn, int N, int H, int NB, int JB) {
          tiles(N, NB) > 65535;
 }
 
+size_t cluster_smem(int H, int NB, int JB) {
+  return cluster_layout(H, NB, JB).bytes;
+}
+
+// Whether (NB, JB) is a cluster-route plan of (N, H) within `budget`
+// bytes of shared memory a block.
+bool cluster_fits(int N, int H, int NB, int JB, size_t budget) {
+  return NB >= 1 && JB >= 1 && JB <= H && N >= 1 &&
+         tiles(H, JB) <= kClusterMax &&
+         (long long)NB * JB <= (long long)kItems * kThreads &&
+         tiles(N, NB) <= 65535 && cluster_smem(H, NB, JB) <= budget;
+}
+
+// The launch configuration of a cluster-route kernel over C x rows blocks
+// in clusters of C, and the clusters the device can hold at once.
+template <typename K>
+cudaError_t cluster_config(K* kernel, int C, int rows, size_t smem,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* active) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)C, (unsigned)rows);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(active, kernel, cfg);
+}
+
+// The cluster route's plan of the GRU backward: the smallest cluster
+// (a power of two up to kClusterMax) whose blocks own at most
+// kClusterUnits units each (any number at kClusterMax) and fit `budget`,
+// and whose clusters the device holds all at once; NB rows a cluster so
+// that the clusters' blocks about cover the SMs, fewer where the shared
+// memory or kItems a thread ask for it.  cudaErrorInvalidConfiguration
+// where none fits.
+cudaError_t plan_cluster(int N, int H, int sms, size_t budget, int* NB_out,
+                         int* JB_out) {
+  for (int c = 1; c <= kClusterMax; c *= 2) {
+    const int JB = tiles(H, c);
+    if (JB > kClusterUnits && c < kClusterMax) continue;
+    const int C = tiles(H, JB);
+    int NB = std::max(1, std::min(N, tiles(N * C, sms)));
+    while (NB > 1 && !cluster_fits(N, H, NB, JB, budget)) NB = tiles(NB, 2);
+    if (!cluster_fits(N, H, NB, JB, budget)) continue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int active = 0;
+    cudaError_t err =
+        cluster_config(gru_bwd_cluster_kernel<float>, C, 1,
+                       cluster_smem(H, NB, JB), nullptr, &cfg, &attr, &active);
+    if (err != cudaSuccess) return err;
+    // every cluster resident at once: a second wave would pay the T
+    // steps' latency again (slower than the split route on an H100)
+    if ((long long)active < tiles(N, NB)) continue;
+    *NB_out = NB;
+    *JB_out = JB;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// The plan of a recurrence kernel on the current device: its route, NB
+// batch rows a block (a cluster, on the cluster route) and JB hidden units
+// a block.  want < 0 takes the kernel's own choice: for the LSTM forward
+// the tensor-core route at N >= kMmaMinN and even H <= kMmaMaxH, else the
+// register route at H <= kRegMaxH; the cluster route for the GRU backward
+// where plan_cluster finds one; else the split route.  want >= 0 asks for
+// that route.  Returns cudaSuccess, cudaErrorInvalidConfiguration
+// where the route has no plan for the kernel and size, or the error of a
+// device query.
+cudaError_t plan_recurrence(int G, bool backward, int N, int H, int want,
+                            int* route, int* NB_out, int* JB_out) {
+  if (N < 1 || H < 1 || (G != 3 && G != 4) || want > ROUTE_MMA)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  const size_t budget = std::min(kSmemBudget, (size_t)optin);
+  const bool lstm_fwd = G == 4 && !backward, gru_bwd = G == 3 && backward;
+  const bool mma_ok = lstm_fwd && H <= kMmaMaxH && H % 2 == 0;
+  if (want == ROUTE_MMA || (want < 0 && mma_ok && N >= kMmaMinN)) {
+    if (!mma_ok) return cudaErrorInvalidConfiguration;
+    *route = ROUTE_MMA;
+    *NB_out = kMmaRows;
+    *JB_out = H;
+    return cudaSuccess;
+  }
+  if (want == ROUTE_REG || (want < 0 && lstm_fwd && H <= kRegMaxH)) {
+    if (!lstm_fwd || H > kRegMaxH) return cudaErrorInvalidConfiguration;
+    *route = ROUTE_REG;
+    *NB_out = 1;
+    *JB_out = H;
+    return cudaSuccess;
+  }
+  if (want == ROUTE_CLUSTER || (want < 0 && gru_bwd)) {
+    if (!gru_bwd) return cudaErrorInvalidConfiguration;
+    err = plan_cluster(N, H, sms, budget, NB_out, JB_out);
+    if (err == cudaSuccess) *route = ROUTE_CLUSTER;
+    if (err != cudaErrorInvalidConfiguration || want == ROUTE_CLUSTER)
+      return err;
+  }
+  *route = ROUTE_SPLIT;
+  return plan_split(G, backward, N, H, sms, budget, NB_out, JB_out);
+}
+
 template <typename T>
 cudaError_t lstm_fwd(const void* xp, const float* wh, const float* h0,
                      const float* c0, void* ys, void* hn, void* cn,
@@ -735,6 +1484,75 @@ cudaError_t lstm_fwd(const void* xp, const float* wh, const float* h0,
       fwd_smem(4, H, NB, JB, true), stream, static_cast<const T*>(xp), wh,
       h0, c0, static_cast<T*>(ys), static_cast<T*>(hn), static_cast<T*>(cn),
       gates, cs, hbuf, bar, Tn, N, H, NB, JB);
+}
+
+// The register route over N blocks of 4*KP threads, KP = H rounded up to 8.
+template <typename T>
+cudaError_t lstm_fwd_reg(const void* xp, const float* wh, const float* h0,
+                         const float* c0, void* ys, void* hn, void* cn,
+                         float* gates, float* cs, int Tn, int N, int H,
+                         cudaStream_t stream) {
+#define MXTT_REG_CASE(KP)                                                    \
+  case KP:                                                                   \
+    lstm_fwd_reg_kernel<T, KP><<<(unsigned)N, 4 * KP, 0, stream>>>(          \
+        static_cast<const T*>(xp), wh, h0, c0, static_cast<T*>(ys),          \
+        static_cast<T*>(hn), static_cast<T*>(cn), gates, cs, Tn, N, H);      \
+    break;
+  switch ((H + 7) / 8 * 8) {
+    MXTT_REG_CASE(8)
+    MXTT_REG_CASE(16)
+    MXTT_REG_CASE(24)
+    MXTT_REG_CASE(32)
+    MXTT_REG_CASE(40)
+    MXTT_REG_CASE(48)
+    MXTT_REG_CASE(56)
+    MXTT_REG_CASE(64)
+    MXTT_REG_CASE(72)
+    MXTT_REG_CASE(80)
+    MXTT_REG_CASE(88)
+    MXTT_REG_CASE(96)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MXTT_REG_CASE
+  return cudaGetLastError();
+}
+
+// The tensor-core route over N/16 blocks of 32*KS threads, KS = H/8
+// rounded up.
+template <typename T>
+cudaError_t lstm_fwd_mma(const void* xp, const float* wh, const float* h0,
+                         const float* c0, void* ys, void* hn, void* cn,
+                         float* gates, float* cs, int Tn, int N, int H,
+                         cudaStream_t stream) {
+  const int KS = (H + 7) / 8;
+  const size_t smem = mma_smem<T>(KS, H);
+  const unsigned grid = (unsigned)tiles(N, kMmaRows);
+  cudaError_t err;
+#define MXTT_MMA_CASE(K)                                                     \
+  case K:                                                                    \
+    err = cudaFuncSetAttribute(lstm_fwd_mma_kernel<T, K>,                    \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                               (int)smem);                                   \
+    if (err != cudaSuccess) return err;                                      \
+    lstm_fwd_mma_kernel<T, K><<<grid, 32 * K, smem, stream>>>(               \
+        static_cast<const T*>(xp), wh, h0, c0, static_cast<T*>(ys),          \
+        static_cast<T*>(hn), static_cast<T*>(cn), gates, cs, Tn, N, H);      \
+    break;
+  switch (KS) {
+    MXTT_MMA_CASE(1)
+    MXTT_MMA_CASE(2)
+    MXTT_MMA_CASE(3)
+    MXTT_MMA_CASE(4)
+    MXTT_MMA_CASE(5)
+    MXTT_MMA_CASE(6)
+    MXTT_MMA_CASE(7)
+    MXTT_MMA_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MXTT_MMA_CASE
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -749,55 +1567,118 @@ cudaError_t gru_fwd(const void* xp, const float* wh, const float* bh,
       bar, Tn, N, H, NB, JB);
 }
 
+// The GRU backward's recurrence on the cluster route: checked against
+// what the device can hold (cudaOccupancyMaxActiveClusters) before the
+// launch, which fails with cudaErrorInvalidConfiguration where no cluster
+// of this size fits.
+template <typename T>
+cudaError_t gru_bwd_cluster(const float* dys, const float* gates,
+                            const float* hnlin, const void* ys,
+                            const float* h0, const float* wh,
+                            const float* dhn, float* dxp, float* dgh,
+                            float* dh0, int Tn, int N, int H, int NB, int JB,
+                            cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  cudaError_t err = cluster_config(gru_bwd_cluster_kernel<T>, tiles(H, JB),
+                                   tiles(N, NB), cluster_smem(H, NB, JB),
+                                   stream, &cfg, &attr, &active);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  return cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<T>, dys, gates,
+                            hnlin, static_cast<const T*>(ys), h0, wh, dhn,
+                            dxp, dgh, dh0, Tn, N, H, NB, JB);
+}
+
 template <typename T>
 cudaError_t gru_bwd(const float* dys, const float* gates, const float* hnlin,
                     const void* ys, const float* h0, const float* wh,
                     const float* dhn, float* dxp, float* dgh, float* dwh,
                     float* dbh, float* dh0, float* part, unsigned int* bar,
-                    int Tn, int N, int H, int NB, int JB, int P,
+                    int Tn, int N, int H, int route, int NB, int JB, int P,
                     cudaStream_t stream) {
-  cudaError_t err = launch_recurrence(
-      gru_bwd_kernel<T>, tiles(H, JB), tiles(N, NB), bwd_smem(3, H, NB, JB),
-      stream, dys, gates, hnlin, static_cast<const T*>(ys), h0, wh, dhn, dxp,
-      dgh, dh0, bar, Tn, N, H, NB, JB);
+  cudaError_t err;
+  if (route == ROUTE_CLUSTER)
+    err = gru_bwd_cluster<T>(dys, gates, hnlin, ys, h0, wh, dhn, dxp, dgh,
+                             dh0, Tn, N, H, NB, JB, stream);
+  else
+    err = launch_recurrence(
+        gru_bwd_kernel<T>, tiles(H, JB), tiles(N, NB),
+        bwd_smem(3, H, NB, JB), stream, dys, gates, hnlin,
+        static_cast<const T*>(ys), h0, wh, dhn, dxp, dgh, dh0, bar, Tn, N, H,
+        NB, JB);
   if (err != cudaSuccess) return err;
   return launch_dw<T>(dgh, h0, ys, part, dwh, dbh, (long long)Tn * N, N, 3,
                       H, P, stream);
 }
 
+// Whether the current device lets a block take `bytes` of shared memory.
+bool smem_ok(size_t bytes) {
+  int dev = 0, optin = 0;
+  return cudaGetDevice(&dev) == cudaSuccess &&
+         cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev) == cudaSuccess &&
+         bytes <= (size_t)optin;
+}
+
 }  // namespace
 
-// The plan of a recurrence kernel, as plan_recurrence above: NB rows and JB
-// units per block for the launches below.  backward: 0 = forward kernel.
-// Returns a cudaError_t (cudaErrorInvalidConfiguration: no plan fits).
-extern "C" int mxtt_rnn_plan(int G, int backward, int N, int H, int* NB,
-                             int* JB) {
-  return (int)plan_recurrence(G, backward != 0, N, H, NB, JB);
+// The plan of a recurrence kernel, as plan_recurrence above: its route
+// (ROUTE_SPLIT, ROUTE_REG, ROUTE_CLUSTER or ROUTE_MMA), NB rows and JB
+// units per block for the launches below.  backward: 0 = forward kernel;
+// want: -1 the kernel's own choice, else a route.  Returns a cudaError_t
+// (cudaErrorInvalidConfiguration: no plan of that route fits).
+extern "C" int mxtt_rnn_plan(int G, int backward, int N, int H, int want,
+                             int* route, int* NB, int* JB) {
+  return (int)plan_recurrence(G, backward != 0, N, H, want, route, NB, JB);
 }
 
 // dtype: 0 = float32, 1 = bfloat16, of x_proj and of ys/hn/cn.  Every
-// tensor is contiguous, in the layouts of the kernels above; hbuf is a
-// (2, N, H) fp32 scratch, bar one zeroed uint32.  NB rows and JB units per
-// block, from mxtt_rnn_plan.  Returns a cudaError_t.
+// tensor is contiguous, in the layouts of the kernels above.  route, NB
+// and JB from mxtt_rnn_plan.  The split route takes hbuf, a (2, N, H) fp32
+// scratch, and bar, one zeroed uint32; the register and tensor-core routes
+// neither (null); the tensor-core route takes xp 16-byte aligned.
+// Returns a cudaError_t.
 extern "C" int mxtt_lstm_fwd(const void* xp, const float* wh,
                              const float* h0, const float* c0, void* ys,
                              void* hn, void* cn, float* gates, float* cs,
                              float* hbuf, unsigned int* bar, int Tn, int N,
-                             int H, int NB, int JB, int dtype, void* stream) {
+                             int H, int route, int NB, int JB, int dtype,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_plan(Tn, N, H, NB, JB)) return (int)cudaErrorInvalidValue;
+  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_MMA) {
+    if (NB != kMmaRows || JB != H || H > kMmaMaxH || H % 2 != 0 ||
+        reinterpret_cast<uintptr_t>(xp) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)lstm_fwd_mma<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
+                                      Tn, N, H, st);
+    return (int)lstm_fwd_mma<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
+                                            cs, Tn, N, H, st);
+  }
+  if (route == ROUTE_REG) {
+    if (NB != 1 || JB != H || H > kRegMaxH) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)lstm_fwd_reg<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
+                                      Tn, N, H, st);
+    return (int)lstm_fwd_reg<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
+                                            cs, Tn, N, H, st);
+  }
+  if (route != ROUTE_SPLIT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)lstm_fwd<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs, hbuf,
                                 bar, Tn, N, H, NB, JB, st);
-  if (dtype == 1)
-    return (int)lstm_fwd<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
-                                        cs, hbuf, bar, Tn, N, H, NB, JB, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)lstm_fwd<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
+                                      hbuf, bar, Tn, N, H, NB, JB, st);
 }
 
 // All fp32 but ys (dtype as above), read as h_prev by the dW product.
 // part is a (P, 4H, H) fp32 scratch.  Out: dxp (Tn, N, 4H), dwh (4H, H),
-// dh0, dc0 (N, H).
+// dh0, dc0 (N, H).  The split route only.
 extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
                              const float* cs, const float* h0,
                              const float* c0, const void* ys,
@@ -823,7 +1704,8 @@ extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
                                        4, H, P, st);
 }
 
-// As mxtt_lstm_fwd, for the GRU: bh (3H) fp32; hnlin (Tn, N, H) fp32.
+// As mxtt_lstm_fwd, for the GRU (the split route only): bh (3H) fp32;
+// hnlin (Tn, N, H) fp32.
 extern "C" int mxtt_gru_fwd(const void* xp, const float* wh, const float* bh,
                             const float* h0, void* ys, void* hn,
                             float* gates, float* hnlin, float* hbuf,
@@ -840,27 +1722,32 @@ extern "C" int mxtt_gru_fwd(const void* xp, const float* wh, const float* bh,
   return (int)cudaErrorInvalidValue;
 }
 
-// As mxtt_lstm_bwd, for the GRU: dgh is a (Tn, N, 3H) fp32 scratch, part a
+// As mxtt_lstm_bwd, for the GRU, on the split or the cluster route (bar
+// null on the cluster route): dgh is a (Tn, N, 3H) fp32 scratch, part a
 // (P, 3H, H+1) one.  Out: dxp (Tn, N, 3H), dwh (3H, H), dbh (3H), dh0.
 extern "C" int mxtt_gru_bwd(const float* dys, const float* gates,
                             const float* hnlin, const void* ys,
                             const float* h0, const float* wh,
                             const float* dhn, float* dxp, float* dgh,
                             float* dwh, float* dbh, float* dh0, float* part,
-                            unsigned int* bar, int Tn, int N, int H, int NB,
-                            int JB, int P, int dtype, void* stream) {
+                            unsigned int* bar, int Tn, int N, int H,
+                            int route, int NB, int JB, int P, int dtype,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535)
+  if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535 || dtype < 0 ||
+      dtype > 1 || (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
+    return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_CLUSTER &&
+      !(cluster_fits(N, H, NB, JB, ~(size_t)0) &&
+        smem_ok(cluster_smem(H, NB, JB))))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)gru_bwd<float>(dys, gates, hnlin, ys, h0, wh, dhn, dxp, dgh,
-                               dwh, dbh, dh0, part, bar, Tn, N, H, NB, JB, P,
-                               st);
-  if (dtype == 1)
-    return (int)gru_bwd<__nv_bfloat16>(dys, gates, hnlin, ys, h0, wh, dhn,
-                                       dxp, dgh, dwh, dbh, dh0, part, bar,
-                                       Tn, N, H, NB, JB, P, st);
-  return (int)cudaErrorInvalidValue;
+                               dwh, dbh, dh0, part, bar, Tn, N, H, route, NB,
+                               JB, P, st);
+  return (int)gru_bwd<__nv_bfloat16>(dys, gates, hnlin, ys, h0, wh, dhn, dxp,
+                                     dgh, dwh, dbh, dh0, part, bar, Tn, N, H,
+                                     route, NB, JB, P, st);
 }
 
 extern "C" const char* mxtt_cuda_error_string(int err) {

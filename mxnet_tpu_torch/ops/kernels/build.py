@@ -125,9 +125,10 @@ class KernelCounts:
         self._names = ("launches", "plain_calls_on_cuda", *extra)
         self.reset()
 
-    def add(self, name):
+    def add(self, *names):
         with self._lock:
-            setattr(self, name, getattr(self, name) + 1)
+            for name in names:
+                setattr(self, name, getattr(self, name) + 1)
 
     def reset(self):
         with self._lock:

@@ -15,7 +15,15 @@ what bounds them on an H100 and how they are built.
   dispatch on the tensor's device alone: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises (a dtype other
   than float32 or bfloat16, a size that no plan of :func:`plan` fits, a
-  failed launch).
+  failed launch).  :func:`plan` picks the kernel's route before the
+  launch: for the LSTM forward ``"mma"`` (3xTF32 tensor-core tiles of 16
+  rows) at N >= 896 and even H <= 64, else ``"reg"`` (Wh in registers) at
+  H <= 96; ``"cluster"`` for the GRU backward where Wh's columns fit a
+  cluster of blocks and the card holds all the clusters at once; else
+  ``"split"`` (Wh in shared memory, units split over the blocks of a
+  cooperative launch where it does not fit one).
+  The counts of ``lstm_fwd`` and ``gru_bwd`` add one per launch under
+  ``<route>_launches`` beside ``launches``.
 - :func:`lstm_layer` and :func:`gru_layer` are the differentiable entries
   (ref: the ``jax.custom_vjp`` functions of the same names, :243 and
   :457): forward and backward through the wrappers, missing cotangents
@@ -38,11 +46,15 @@ from .build import KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_PLAN = 9  # cudaErrorInvalidConfiguration, from mxtt_rnn_plan
+# ROUTE_SPLIT, ROUTE_REG, ROUTE_CLUSTER and ROUTE_MMA in the source
+ROUTES = {"split": 0, "reg": 1, "cluster": 2, "mma": 3}
+_ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
 
-lstm_fwd_counts = KernelCounts()
+lstm_fwd_counts = KernelCounts("split_launches", "reg_launches",
+                               "mma_launches")
 lstm_bwd_counts = KernelCounts()
 gru_fwd_counts = KernelCounts()
-gru_bwd_counts = KernelCounts()
+gru_bwd_counts = KernelCounts("split_launches", "cluster_launches")
 library = KernelLibrary("rnn.cu")
 
 
@@ -189,25 +201,42 @@ def gru_layer_plain(x_proj, wh, bh, h0):
 # -- the kernels' plan ---------------------------------------------------------
 
 
-def plan(G, backward, N, H, dev):
-    """``(NB, JB)``: batch rows and hidden units per block of a recurrence
-    kernel (``G`` 4 the LSTM, 3 the GRU; forward or backward) on the CUDA
-    device ``dev``.  ``mxtt_rnn_plan`` in ``csrc/rnn.cu`` makes it, from the
-    kernels' own shared-memory layouts and the device's SMs; a size that no
-    plan fits raises :class:`MXNetError`."""
+_plans = {}
+
+
+def plan(G, backward, N, H, dev, route=None):
+    """``(route, NB, JB)``: the route (a key of :data:`ROUTES`), batch rows
+    per block (per cluster, on the cluster route) and hidden units per
+    block of a recurrence kernel (``G`` 4 the LSTM, 3 the GRU; forward or
+    backward) on the CUDA device ``dev``.  ``mxtt_rnn_plan`` in
+    ``csrc/rnn.cu`` makes it from the kernels' own shared-memory layouts
+    and the device's SMs; ``route`` asks for one route, else the kernel
+    takes its own.  Cached per (G, backward, N, H, device, route); a size
+    that no plan fits raises :class:`MXNetError`."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (G, bool(backward), N, H, dev, route)
+    got = _plans.get(key)
+    if got is not None:
+        return got
     fn = library.load().mxtt_rnn_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
         fn.restype = ctypes.c_int
-    nb, jb = ctypes.c_int(), ctypes.c_int()
+    rt, nb, jb = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    want = -1 if route is None else ROUTES[route]
     with torch.cuda.device(dev):
-        err = fn(G, int(backward), N, H, ctypes.byref(nb), ctypes.byref(jb))
+        err = fn(G, int(backward), N, H, want, ctypes.byref(rt),
+                 ctypes.byref(nb), ctypes.byref(jb))
     if err == _NO_PLAN:
         cell = "lstm" if G == 4 else "gru"
         raise MXNetError(f"{cell}_{'bwd' if backward else 'fwd'} kernel: no "
-                         f"plan fits N={N}, H={H} on {dev}")
+                         f"{route + ' ' if route else ''}plan fits N={N}, "
+                         f"H={H} on {dev}")
     library.raise_on_error(err, "rnn plan")
-    return nb.value, jb.value
+    got = _plans[key] = (_ROUTE_NAMES[rt.value], nb.value, jb.value)
+    return got
 
 
 def _sms(dev):
@@ -288,34 +317,57 @@ def _f32(*ts):
 
 
 def _launch(fn, name, ptrs, ints, dev):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[p.data_ptr() for p in ptrs], *ints, stream)
+    """``fn(*pointers, *ints, stream)`` on ``dev``'s current stream; a
+    ``None`` pointer passes null."""
+    args = [0 if p is None else p.data_ptr() for p in ptrs]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if torch.cuda.current_device() == dev.index:
+        err = fn(*args, *ints, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, *ints, stream)
     library.raise_on_error(err, name)
+
+
+def _split_scratch(route, shape, dev):
+    """The split route's exchange buffer (``shape`` fp32, None for no
+    buffer) and zeroed barrier word; neither on the other routes."""
+    if route != "split":
+        return None, None
+    hbuf = torch.empty(shape, device=dev) if shape else None
+    return hbuf, torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 def lstm_fwd(x_proj, wh, h0, c0):
     """``(ys, hn, cn, gates, cs)`` as :func:`lstm_fwd_plain`: the plain
-    version on the CPU, one launch of the forward kernel on CUDA."""
+    version on the CPU, one launch of the forward kernel on CUDA, on the
+    route of :func:`plan`."""
+    return _lstm_fwd(x_proj, wh, h0, c0)
+
+
+def _lstm_fwd(x_proj, wh, h0, c0, route=None):
+    """:func:`lstm_fwd`; ``route`` pins a route (a key of :data:`ROUTES`,
+    with its plan from :func:`plan`)."""
     T, N, H = _check("lstm_fwd", x_proj, 4, wh, (h0, c0))
     if not x_proj.is_cuda:
         return lstm_fwd_plain(x_proj, wh, h0, c0)
     dev, dt = x_proj.device, x_proj.dtype
-    NB, JB = plan(4, False, N, H, dev)
+    rt, NB, JB = plan(4, False, N, H, dev, route)
     xp = x_proj.contiguous()
+    if rt == "mma" and xp.data_ptr() % 16:  # the ring's bulk copies
+        xp = xp.clone()
     w, h0f, c0f = _f32(wh, h0, c0)
     ys = torch.empty(T, N, H, dtype=dt, device=dev)
     hn = torch.empty(N, H, dtype=dt, device=dev)
     cn = torch.empty(N, H, dtype=dt, device=dev)
     gates = torch.empty(T, N, 4, H, device=dev)
     cs = torch.empty(T, N, H, device=dev)
-    hbuf = torch.empty(2, N, H, device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _bind(library.load(), "mxtt_lstm_fwd", 11, 6)
+    hbuf, bar = _split_scratch(rt, (2, N, H), dev)
+    fn = _bind(library.load(), "mxtt_lstm_fwd", 11, 7)
     _launch(fn, "lstm_fwd",
             (xp, w, h0f, c0f, ys, hn, cn, gates, cs, hbuf, bar),
-            (T, N, H, NB, JB, _DTYPE_CODES[dt]), dev)
-    lstm_fwd_counts.add("launches")
+            (T, N, H, ROUTES[rt], NB, JB, _DTYPE_CODES[dt]), dev)
+    lstm_fwd_counts.add("launches", f"{rt}_launches")
     return ys, hn, cn, gates, cs
 
 
@@ -328,7 +380,7 @@ def lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn):
     if not ys.is_cuda:
         return lstm_bwd_plain(wh, h0, c0, ys, gates, cs, dys, dhn, dcn)
     dev = ys.device
-    NB, JB = plan(4, True, N, H, dev)
+    _, NB, JB = plan(4, True, N, H, dev)
     ins = _f32(dys, gates, cs, h0, c0, wh, dhn, dcn)
     dxp = torch.empty(T, N, 4 * H, device=dev)
     dwh = torch.empty(4 * H, H, device=dev)
@@ -352,7 +404,7 @@ def gru_fwd(x_proj, wh, bh, h0):
     if not x_proj.is_cuda:
         return gru_fwd_plain(x_proj, wh, bh, h0)
     dev, dt = x_proj.device, x_proj.dtype
-    NB, JB = plan(3, False, N, H, dev)
+    _, NB, JB = plan(3, False, N, H, dev)
     xp = x_proj.contiguous()
     w, b, h0f = _f32(wh, bh, h0)
     ys = torch.empty(T, N, H, dtype=dt, device=dev)
@@ -370,14 +422,23 @@ def gru_fwd(x_proj, wh, bh, h0):
 
 def gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn):
     """``(dxp, dwh, dbh, dh0)`` fp32 as :func:`gru_bwd_plain`: the plain
-    version on the CPU; on CUDA the backward kernel, then the
-    weight-gradient product (with dbh) and its fixed-order sum."""
+    version on the CPU; on CUDA the backward kernel on the route of
+    :func:`plan`, then the weight-gradient product (with dbh) and its
+    fixed-order sum."""
+    return _gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn)
+
+
+def _gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn, route=None):
+    """:func:`gru_bwd`; ``route`` pins a route (with its plan from
+    :func:`plan`) or, as a tuple ``(route, NB, JB)``, a whole plan, such as
+    a cluster size of the cluster route, which the kernel's entry checks."""
     T, N, H = _check_bwd("gru_bwd", ys, 3, wh, gates, (hn_lin, dys),
                          (h0, dhn))
     if not ys.is_cuda:
         return gru_bwd_plain(wh, h0, ys, gates, hn_lin, dys, dhn)
     dev = ys.device
-    NB, JB = plan(3, True, N, H, dev)
+    rt, NB, JB = route if isinstance(route, tuple) else \
+        plan(3, True, N, H, dev, route)
     d, g, hl, h0f, w, dh = _f32(dys, gates, hn_lin, h0, wh, dhn)
     dxp = torch.empty(T, N, 3 * H, device=dev)
     dgh = torch.empty(T, N, 3 * H, device=dev)
@@ -386,12 +447,13 @@ def gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn):
     dh0 = torch.empty(N, H, device=dev)
     P = dw_slabs(T * N, 3 * H, H + 1, _sms(dev))
     part = torch.empty(P, 3 * H, H + 1, device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _bind(library.load(), "mxtt_gru_bwd", 14, 7)
+    _, bar = _split_scratch(rt, None, dev)
+    fn = _bind(library.load(), "mxtt_gru_bwd", 14, 8)
     _launch(fn, "gru_bwd",
             (d, g, hl, ys.contiguous(), h0f, w, dh, dxp, dgh, dwh, dbh, dh0,
-             part, bar), (T, N, H, NB, JB, P, _DTYPE_CODES[ys.dtype]), dev)
-    gru_bwd_counts.add("launches")
+             part, bar),
+            (T, N, H, ROUTES[rt], NB, JB, P, _DTYPE_CODES[ys.dtype]), dev)
+    gru_bwd_counts.add("launches", f"{rt}_launches")
     return dxp, dwh, dbh, dh0
 
 

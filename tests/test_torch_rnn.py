@@ -48,7 +48,8 @@ def _t(*arrays):
     return [torch.from_numpy(a.copy()) for a in arrays]
 
 
-@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40)])
+# (6, 19, 40): DeepAR's width over more rows than one 16-row tile
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (6, 19, 40)])
 def test_lstm_plain_matches_jax_kernel(interpret_pallas, T, N, H):
     import jax
     import jax.numpy as jnp
@@ -78,7 +79,8 @@ def test_lstm_plain_matches_jax_kernel(interpret_pallas, T, N, H):
                                    **GRAD_TOL)
 
 
-@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40)])
+# (4, 5, 200): the GRU phase's width, which the cluster route takes
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (4, 5, 200)])
 def test_gru_plain_matches_jax_kernel(interpret_pallas, T, N, H):
     import jax
     import jax.numpy as jnp
@@ -104,6 +106,63 @@ def test_gru_plain_matches_jax_kernel(interpret_pallas, T, N, H):
                                    **GRAD_TOL)
         np.testing.assert_allclose(_np(f), np.asarray(r), err_msg=name,
                                    **GRAD_TOL)
+
+
+def _tf32_split(x):
+    """``csrc/tf32x3.cuh``'s split of fp32 ``x``: hi is x rounded to TF32
+    on its bits, ``(bits + 0x1000) & 0xffffe000``; lo = x - hi in fp32, as
+    the tensor core reads it (truncated to TF32)."""
+    mask = np.uint32(0xffffe000)
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & mask).view(np.float32)
+    lo = (x - hi).astype(np.float32)
+    return hi, (lo.view(np.uint32) & mask).view(np.float32)
+
+
+def _tf32x3_matmul(a, b):
+    """``a @ b`` as the tensor-core route forms it: lo*hi, hi*lo, then
+    hi*hi, each product of TF32 values exact in fp32, summed in fp32."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    return ((al @ bh) + (ah @ bl)) + (ah @ bh)
+
+
+def _sigmoid(x):
+    return (1.0 / (1.0 + np.exp(-x))).astype(np.float32)
+
+
+# DeepAR's training shape, and predict's rows at a shorter path
+@pytest.mark.parametrize("T,N,H", [(96, 32, 40), (24, 1600, 40)])
+def test_tf32x3_products_keep_the_lstm_forward_within_card_tol(T, N, H):
+    """The tensor-core route's premise, checked on the CPU: with every
+    step's h @ Wh^T formed as 3xTF32 (h split every step, Wh once), the
+    forward recurrence stays within CARD_TOL["float32"] of the fp32 plain
+    version, every output, over all T dependent steps."""
+    a = _inputs(T, N, H, 4, seed=T + N, wscale=H ** -0.5)
+    w = a["wh"].reshape(4 * H, H)
+    h, c = a["h0"], a["c0"]
+    ys, gates, cs = [], [], []
+    for t in range(T):
+        pre = a["xp"][t] + _tf32x3_matmul(h, w.T)
+        i, f, o = (_sigmoid(pre[:, k * H:(k + 1) * H]) for k in (0, 1, 3))
+        g = np.tanh(pre[:, 2 * H:3 * H])
+        c = (f * c + i * g).astype(np.float32)
+        h = (o * np.tanh(c)).astype(np.float32)
+        ys.append(h)
+        gates.append(np.stack((i, f, g, o), 1))
+        cs.append(c)
+    ref = tk.lstm_fwd_plain(*_t(a["xp"], a["wh"], a["h0"], a["c0"]))
+    got = (np.stack(ys), h, c, np.stack(gates), np.stack(cs))
+    for name, m, r in zip(("ys", "hn", "cn", "gates", "cs"), got, ref):
+        _close_card(torch.from_numpy(np.ascontiguousarray(m)), r,
+                    "float32", name)
+    # one TF32 product alone (no lo terms) keeps ~11 bits: the premise
+    # fails without the split
+    hi = lambda x: _tf32_split(x)[0]  # noqa: E731
+    one = a["xp"][0] + hi(a["h0"]) @ hi(w).T
+    exact = a["xp"][0] + a["h0"].astype(np.float64) @ w.T.astype(np.float64)
+    three = a["xp"][0] + _tf32x3_matmul(a["h0"], w.T)
+    assert np.abs(one - exact).max() > 10 * np.abs(three - exact).max()
 
 
 def test_missing_cotangents_are_zeros_and_dtypes_follow_inputs():
@@ -369,6 +428,27 @@ def test_begin_state_follows_the_input_device():
         tmx.gluon.rnn.GRU(4, layout="CNT")
 
 
+def test_rnn_study_variants_match_the_source_once():
+    """Every replacement of ``chip_smoke.py --rnn-study``'s variants finds
+    its text in ``csrc/rnn.cu`` exactly once, so the study builds what it
+    names, and the study times the card tests' shapes."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    src = (root / "mxnet_tpu_torch" / "csrc" / "rnn.cu").read_text()
+    for name, reps in chip_smoke.RNN_VARIANTS.items():
+        for old, new in reps:
+            assert src.count(old) == 1, name
+            assert new not in src or new == "", name
+    assert list(chip_smoke.RNN_CARD_SHAPES) == CARD_SHAPES
+
+
 # -- on the card ----------------------------------------------------------
 
 
@@ -387,9 +467,13 @@ def cuda_device():
 CARD_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # (T, N, H): DeepAR training and predict (16 and 32 series), one unit tile
 # with few rows,
-# the GRU phase's width and the large-H LSTM (units split over blocks)
+# the GRU phase's width and the large-H LSTM (units split over blocks);
+# then the routes' edges: N=1 at the register route's widest H, N=17 at
+# the first H past it, the cluster route's widest H (one cluster), and the
+# tensor-core route's fewest rows at its widest H
 CARD_SHAPES = [(96, 32, 40), (7, 1600, 40), (96, 3200, 40), (9, 3, 17),
-               (35, 32, 200), (12, 32, 512), (5, 70, 130)]
+               (35, 32, 200), (12, 32, 512), (5, 70, 130), (6, 1, 96),
+               (5, 17, 97), (3, 1, 417), (5, 896, 64)]
 
 
 def _card(T, N, H, G, dtype, dev, seed=0):
@@ -409,12 +493,19 @@ def _close_card(got, ref, dtype, name):
                                rtol=rtol, msg=lambda m: f"{name}: {m}")
 
 
+def _route_counts(counts):
+    return {r: getattr(counts, f"{r}_launches") for r in tk.ROUTES
+            if hasattr(counts, f"{r}_launches")}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,N,H", CARD_SHAPES)
 def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     t = _card(T, N, H, 4, dtype, cuda_device)
+    route = tk.plan(4, False, N, H, cuda_device)[0]
     before = (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches)
+    by_route = _route_counts(tk.lstm_fwd_counts)
     fwd = tk.lstm_fwd(t["xp"], t["wh"], t["h0"], t["c0"])
     ref = tk.lstm_fwd_plain(t["xp"], t["wh"], t["h0"], t["c0"])
     for name, g, r in zip(("ys", "hn", "cn", "gates", "cs"), fwd, ref):
@@ -427,10 +518,14 @@ def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     torch.cuda.synchronize()
     assert (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches) == \
         (before[0] + 1, before[1] + 1)
+    by_route[route] += 1
+    assert _route_counts(tk.lstm_fwd_counts) == by_route
     for name, g, r in zip(("dxp", "dwh", "dh0", "dc0"), bwd, bref):
         _close_card(g, r, "float32", name)
     again = tk.lstm_bwd(*args)  # no atomics: bit-identical
     assert all(torch.equal(x, y) for x, y in zip(bwd, again))
+    fagain = tk.lstm_fwd(t["xp"], t["wh"], t["h0"], t["c0"])
+    assert all(torch.equal(x, y) for x, y in zip(fwd, fagain))
 
 
 @pytest.mark.gpu
@@ -444,6 +539,8 @@ def test_gru_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
         assert g.dtype == r.dtype and g.shape == r.shape, name
         _close_card(g, r, dtype, name)
     args = (t["wh"], t["h0"], ref[0], ref[2], ref[3], t["dys"], t["dhn"])
+    route = tk.plan(3, True, N, H, cuda_device)[0]
+    by_route = _route_counts(tk.gru_bwd_counts)
     bwd = tk.gru_bwd(*args)
     bref = tk.gru_bwd_plain(*args)
     torch.cuda.synchronize()
@@ -451,6 +548,39 @@ def test_gru_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
         _close_card(g, r, "float32", name)
     again = tk.gru_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(bwd, again))
+    by_route[route] += 2
+    assert _route_counts(tk.gru_bwd_counts) == by_route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,N,H", [(96, 32, 40), (35, 32, 200), (7, 19, 40),
+                                   (9, 3, 18)])
+def test_new_routes_match_the_split_route_on_card(T, N, H, cuda_device):
+    """The register and tensor-core routes (LSTM forward, at any N: H <=
+    96, and even H <= 64) and the cluster route (GRU backward; at H=200
+    clusters of 4, 8 and 16 blocks) against the split route on the same
+    inputs, fp32."""
+    if H <= 96:
+        t = _card(T, N, H, 4, "float32", cuda_device, seed=2)
+        args = (t["xp"], t["wh"], t["h0"], t["c0"])
+        split = tk._lstm_fwd(*args, route="split")
+        for route in ("reg", "mma") if H <= 64 and H % 2 == 0 else ("reg",):
+            got = tk._lstm_fwd(*args, route=route)
+            for name, g, r in zip(("ys", "hn", "cn", "gates", "cs"), got,
+                                  split):
+                _close_card(g, r, "float32", f"{route} {name}")
+    g3 = _card(T, N, H, 3, "float32", cuda_device, seed=3)
+    ys, _, gates, hl = tk.gru_fwd_plain(g3["xp"], g3["wh"], g3["bh"],
+                                        g3["h0"])
+    bargs = (g3["wh"], g3["h0"], ys, gates, hl, g3["dys"], g3["dhn"])
+    split = tk._gru_bwd(*bargs, route="split")
+    plans = [tk.plan(3, True, N, H, cuda_device, "cluster")]
+    if H == 200:  # clusters of 4, 8 and 16 blocks
+        plans += [("cluster", 1, 50), ("cluster", 2, 25), ("cluster", 4, 13)]
+    for pl in plans:
+        got = tk._gru_bwd(*bargs, route=pl)
+        for name, g, r in zip(("dxp", "dwh", "dbh", "dh0"), got, split):
+            _close_card(g, r, "float32", f"{pl} {name}")
 
 
 @pytest.mark.gpu
@@ -486,9 +616,13 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
 @pytest.mark.gpu
 def test_every_gated_shape_has_a_kernel_plan(cuda_device):
     """Every (N, H) the JAX package's rule takes, and DeepAR predict at
-    GluonTS's default batch past it, gets a plan on the card; with the
-    units split, at most one block per SM, so every block of the
-    cooperative launch is resident.  A width no plan fits raises."""
+    GluonTS's default batch past it, gets a plan on the card: the register
+    route (one row a block, H <= 96) or, from 896 rows at even H <= 64,
+    the tensor-core route (16 rows a block) for the LSTM forward, the
+    cluster route (at most 16 blocks a cluster) for the GRU backward where
+    it fits, the split route otherwise, where with the units split there
+    is at most one block per SM, so every block of the cooperative launch
+    is resident.  A width no plan fits raises."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for G in (3, 4):
         for backward in (False, True):
@@ -496,17 +630,50 @@ def test_every_gated_shape_has_a_kernel_plan(cuda_device):
                 for N in (1, 2, 7, 32, 100, 333, 1000, 1600, 2200):
                     if not trnn._lstm_kernel_fits(N, H, G):
                         continue
-                    NB, JB = tk.plan(G, backward, N, H, cuda_device)
+                    route, NB, JB = tk.plan(G, backward, N, H, cuda_device)
                     assert 1 <= NB <= N and 1 <= JB <= H
-                    if JB < H:
-                        assert -(-N // NB) * -(-H // JB) <= sms, (N, H, G)
+                    if route == "reg":
+                        assert (G, backward, NB, JB) == (4, False, 1, H)
+                        assert H <= 96
+                        assert N < 896 or H > 64 or H % 2
+                    elif route == "mma":
+                        assert (G, backward, NB, JB) == (4, False, 16, H)
+                        assert N >= 896 and H <= 64 and H % 2 == 0
+                    elif route == "cluster":
+                        assert (G, backward) == (3, True)
+                        assert -(-H // JB) <= 16 and NB * JB <= 512
+                        assert -(-N // NB) * -(-H // JB) <= 2 * sms
+                    else:
+                        assert route == "split", route
+                        assert not (G == 4 and not backward and H <= 96)
+                        if JB < H:
+                            assert -(-N // NB) * -(-H // JB) <= sms, (N, H, G)
             with pytest.raises(MXNetError, match="no plan"):
                 tk.plan(G, backward, 32, 4096, cuda_device)
-    assert tk.plan(4, False, 32, 40, cuda_device) == (1, 40)  # DeepAR train
-    for backward in (False, True):  # predict, 32 series x 100 samples
-        assert tk.plan(4, backward, 3200, 40, cuda_device) == (7, 40)
-    assert tk.plan(3, True, 32, 200, cuda_device)[1] < 200    # the GRU phase
-    assert tk.plan(4, True, 32, 512, cuda_device)[1] < 512
+    # DeepAR train and predict (16 and 32 series x 100 samples)
+    assert tk.plan(4, False, 32, 40, cuda_device) == ("reg", 1, 40)
+    for N in (1600, 3200):
+        assert tk.plan(4, False, N, 40, cuda_device) == ("mma", 16, 40)
+    assert tk.plan(4, True, 3200, 40, cuda_device) == ("split", 7, 40)
+    assert tk.plan(4, False, 895, 64, cuda_device)[0] == "reg"
+    assert tk.plan(4, False, 896, 64, cuda_device)[0] == "mma"
+    for H in (41, 66):
+        assert tk.plan(4, False, 1600, H, cuda_device)[0] == "reg"
+    assert tk.plan(4, False, 32, 97, cuda_device)[0] == "split"
+    route, NB, JB = tk.plan(3, True, 32, 200, cuda_device)  # the GRU phase
+    assert route == "cluster" and -(-200 // JB) <= 16
+    assert tk.plan(3, True, 1, 417, cuda_device)[0] == "cluster"
+    assert tk.plan(3, True, 1, 418, cuda_device)[0] == "split"
+    # 17 clusters of 16 blocks at H=417 do not fit the card at once
+    assert tk.plan(3, True, 17, 417, cuda_device)[0] == "split"
+    assert tk.plan(3, True, 32, 512, cuda_device)[0] == "split"
+    assert tk.plan(4, True, 32, 512, cuda_device)[2] < 512
+    with pytest.raises(MXNetError, match="no reg plan"):
+        tk.plan(4, False, 32, 97, cuda_device, "reg")
+    with pytest.raises(MXNetError, match="no mma plan"):
+        tk.plan(4, False, 32, 41, cuda_device, "mma")
+    with pytest.raises(MXNetError, match="no cluster plan"):
+        tk.plan(4, True, 32, 40, cuda_device, "cluster")
 
 
 @pytest.mark.gpu
