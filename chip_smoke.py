@@ -76,12 +76,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
     and cuDNN's layer (``torch.nn.LSTM``/``GRU``, fp32) against the port's
     layer (input GEMM plus kernel), forward and backward; the LSTM forward
     and the GRU backward on every route that takes the shape (register,
-    tensor-core, cluster, split), each held against the plain version
-    and timed (the redesigned kernels at the main and predict shapes also
-    by torch.profiler's device time); the redesigned routes' kernels must
-    show 0 spill bytes in nvcc's report; at the GRU phase the backward's
-    cluster sizes; the wrappers' host time a call at the main shapes; and
-    the autograd Functions against autograd through the plain forwards;
+    tensor-core, cluster, split), each held against the plain version;
+    at the main paths' shapes (DeepAR training and predict, the GRU
+    phase; fp32) the planned route timed beside the split route and by
+    torch.profiler's device time; the redesigned routes' kernels must
+    show 0 spill bytes in nvcc's report; the wrappers' host time a call
+    at the main shapes; and the autograd Functions against autograd
+    through the plain forwards;
 11. DeepAR train: ``deepar(40, 2)`` (GluonTS defaults: 2x40 LSTM,
     Student-t head, dropout 0.1), Xavier, 20 Adam steps (lr 1e-3) at
     batch 32, context 72 + prediction 24, on fresh covariate batches from
@@ -114,11 +115,7 @@ also writes a ``torch.profiler`` table of two training steps to
 ``chiprun_out/train_profile.txt`` and prints its top rows;
 ``--profile-resnet`` does the same for two ResNet-50 steps, into
 ``chiprun_out/resnet_profile.txt``, and prints the fused kernels' share of
-the device time.  ``python3 chip_smoke.py --rnn-study`` runs none of the
-phases: it builds variants of ``csrc/rnn.cu`` (the other activation forms,
-each redesigned route with its stores, activations, lo products or
-products taken out) and times them against the source, and the LSTM
-forward's register and tensor-core routes over N.
+the device time.
 """
 from __future__ import annotations
 
@@ -1094,37 +1091,38 @@ def simple_route(kcf):
 
 
 def device_ms(fn, iters, tags, attempts=3):
-    """Device time (ms) a call of ``fn`` spends in the kernels whose names
-    hold one of ``tags`` (each launched once a call, as in every use here),
-    from torch.profiler over ``iters`` calls after one warm call: the sum
-    over those kernels of each one's mean time a recorded launch, without
-    the host's time between launches.  On the H100 torch.profiler has now
-    and then left a launch, or every launch of a session, unrecorded
-    (PERF.md): a mean over the recorded launches does not count a missed
-    one as 0, and a session that records none of the kernels is taken
-    again, up to ``attempts`` sessions in all (0 only if all missed)."""
+    """Mean device time (ms) a call of ``fn`` spends in the kernels whose
+    names hold one of ``tags``, from torch.profiler over ``iters`` calls
+    after one warm call: the kernels alone, without the host's time
+    between launches.  On the H100 torch.profiler has now and then left a
+    launch, or every launch of a session, unrecorded (PERF.md §6), and
+    a missed launch would count as 0: a session in which no tagged kernel
+    was recorded, or one's launches are not a whole number a call, is
+    logged and taken again, up to ``attempts`` sessions; the last one
+    counts whatever it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(attempts):
+    for attempt in range(1, attempts + 1):
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.count and any(
-                    tag in e.key for tag in tags):
-                t = getattr(e, "self_device_time_total", None)
-                total += (e.self_cuda_time_total if t is None else t) / \
-                    e.count
-        if total > 0:
+        launches = {e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and any(tag in e.key for tag in tags)}
+        if launches and all(c % iters == 0 for c in launches.values()):
             break
-    return total / 1e3
+        log(f"  device_ms: torch.profiler session {attempt} of {attempts} "
+            f"recorded {launches or 'no launches'} of {tags} over {iters} "
+            f"calls; " + ("taken again" if attempt < attempts
+                          else "counted as it is"))
+    times = kernel_times(prof.key_averages())
+    return sum(t for k, t in times.items()
+               if any(tag in k for tag in tags)) / iters / 1e3
 
 
 # -- phase 6: the ResNet kernels ----------------------------------------------
@@ -1845,21 +1843,27 @@ def check_rnn_kernels(mx, dev):
                 bp_ms = cuda_ms(lambda: bplain(*b_args), 2, warmup=1)
                 fbound = rnn_bound(cell, "fwd", T, N, H, dtype)
                 bbound = rnn_bound(cell, "bwd", T, N, H, dtype)
+                main_shape = (label, cell) in (("deepar_train", "lstm"),
+                                               ("gru_phase", "gru"))
+                predict_shape = (label, cell) == ("deepar_predict", "lstm")
                 # the redesigned kernel's route, and every route that
-                # takes this shape (the split route is the shared-memory
-                # kernel that every launch took before the redesigned
-                # routes), each held against the plain version and timed
+                # takes this shape, each held against the plain version;
+                # on the main paths' shapes (fp32) the planned route and
+                # the split route (the shared-memory kernel that every
+                # launch took before the redesigned routes) are timed
                 if cell == "lstm":
-                    d_new, route = "fwd", kr.plan(4, False, N, H, dev)[0]
-                    routes_ms, rerr = route_times(
-                        lambda r: kr._lstm_fwd(*f_args, route=r), ref,
-                        lambda r: kr.plan(4, False, N, H, dev, r))
+                    d_new, want, G = "fwd", ref, 4
+                    call = (lambda r: kr._lstm_fwd(*f_args, route=r))
                 else:
-                    d_new, route = "bwd", kr.plan(3, True, N, H, dev)[0]
-                    routes_ms, rerr = route_times(
-                        lambda r: kr._gru_bwd(*b_args, route=r), bref,
-                        lambda r: kr.plan(3, True, N, H, dev, r))
-                split_ms = routes_ms["split"]
+                    d_new, want, G = "bwd", bref, 3
+                    call = (lambda r: kr._gru_bwd(*b_args, route=r))
+                route = kr.plan(G, cell == "gru", N, H, dev)[0]
+                timed = (route, "split") if dtype == "float32" and (
+                    main_shape or predict_shape) else ()
+                routes_ms, rerr, checked = route_times(
+                    call, want,
+                    lambda r: kr.plan(G, cell == "gru", N, H, dev, r), timed)
+                split_ms = routes_ms.get("split")
                 cores = ""
                 if route == "mma":  # 3xTF32 products: their rate's bound
                     cores = (f" (3xTF32; {fbound[0]:.4f} {fbound[1]} at the "
@@ -1886,18 +1890,17 @@ def check_rnn_kernels(mx, dev):
                     f"{b_ms:.4f} ms "
                     f"({1e3 * b_ms / T:.2f} us/step, bound {bbound[0]:.4f} "
                     f"{bbound[1]}, plain {bp_ms:.3f}) | {cell}_{d_new} on "
-                    f"the {route} route; by route (ms) "
-                    + ", ".join(f"{r} {v:.4f}" for r, v in routes_ms.items())
+                    f"the {route} route; routes held to plain "
+                    f"{'/'.join(checked)}, timed (ms) "
+                    + (", ".join(f"{r} {v:.4f}" for r, v in routes_ms.items())
+                       or "none")
                     + f"{lib} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"{cell} kernels disagree with their "
                                      f"plain versions: {label} T={T} "
                                      f"{dtype}")
-                main_shape = (label, cell) in (("deepar_train", "lstm"),
-                                               ("gru_phase", "gru"))
                 new_dev_ms = None
-                if dtype == "float32" and (main_shape or (
-                        label == "deepar_predict" and cell == "lstm")):
+                if dtype == "float32" and (main_shape or predict_shape):
                     # the redesigned kernel's device time: where its
                     # wrapper's host time exceeds it, events over calls
                     # read the host
@@ -1930,10 +1933,7 @@ def check_rnn_kernels(mx, dev):
                                                    split_route_ms=split_ms,
                                                    route_ms=routes_ms,
                                                    device_ms=new_dev_ms)
-                    if cell == "gru":
-                        main["gru_bwd"].update(gru_bwd_parts(kr, b_args, dev))
-                if dtype == "float32" and label == "deepar_predict" \
-                        and cell == "lstm":
+                if dtype == "float32" and predict_shape:
                     predict.append({
                         "shape": f"T={T} N={N} H={H} I={I} fp32", "ms": f_ms,
                         "device_ms": new_dev_ms,
@@ -1949,18 +1949,19 @@ def check_rnn_kernels(mx, dev):
     return main
 
 
-def route_times(call, want, has_plan):
+def route_times(call, want, has_plan, timed=()):
     """Each route of the kernel wrappers' ``ROUTES`` that has a plan for
     the call (``has_plan(route)`` does not raise): ``call(route)``'s
     outputs against ``want`` (the plain version's), as the main check
-    holds them, and its time.  Returns ({route: ms}, the largest error past
-    RNN_TOL, 0 if none)."""
+    holds them, and the time of those in ``timed``.  Returns ({route: ms}
+    of the timed routes, the largest error past RNN_TOL (0 if none), the
+    routes checked)."""
     import torch
 
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops.kernels import rnn as kr
 
-    times, worst = {}, 0.0
+    times, worst, checked = {}, 0.0, []
     tol = RNN_TOL["bfloat16" if want[0].dtype == torch.bfloat16
                   else "float32"]
     for r in kr.ROUTES:
@@ -1972,31 +1973,15 @@ def route_times(call, want, has_plan):
         err = max(rel_err(g, w) for g, w in zip(got, want))
         worst = max(worst, err - tol if err > tol else 0.0)
         del got
-        times[r] = cuda_ms(lambda: call(r), 10)  # noqa: B023
-    return times, worst
-
-
-def gru_bwd_parts(kr, b_args, dev):
-    """At the GRU phase: the cluster route's time at each cluster size the
-    shared memory allows there, (C, NB, JB) = (4, 1, 50), (8, 2, 25),
-    (8, 1, 25), (16, 4, 13) and (16, 2, 13), beside the plan's own (the
-    recurrence's and the dW product's device times are --rnn-study's: late
-    in this process torch.profiler has read them as 0)."""
-    H = b_args[0].shape[1]
-    sizes = {}
-    for pl in (("cluster", 1, 50), ("cluster", 2, 25), ("cluster", 1, 25),
-               ("cluster", 4, 13), ("cluster", 2, 13)):
-        sizes[f"C={-(-H // pl[2])} NB={pl[1]} JB={pl[2]}"] = cuda_ms(
-            lambda: kr._gru_bwd(*b_args, route=pl), 10)
-    route, nb, jb = kr.plan(3, True, b_args[2].shape[1], H, dev)
-    log(f"  gru_bwd at the GRU phase: plan {route} C={-(-H // jb)} NB={nb} "
-        f"JB={jb}; cluster sizes (ms): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sizes.items()))
-    return {"cluster_sizes_ms": sizes}
+        checked.append(r)
+        if r in timed:
+            times[r] = cuda_ms(lambda: call(r), 10)  # noqa: B023
+    return times, worst, checked
 
 
 def rnn_layer_times(cell, t, T, N, H, I):
-    """The port's layer (input GEMM + kernel) and cuDNN's, forward and
+    """The port's layer (``input_projection``, then the kernel's autograd
+    Function, as ``ops/rnn.py`` runs a layer) and cuDNN's, forward and
     backward (autograd through each, the graph kept across calls), fp32:
     each the least of three runs of 10 calls, the two layers in turns
     (port, cuDNN, cuDNN, port, port, cuDNN): at small shapes both are
@@ -2011,7 +1996,7 @@ def rnn_layer_times(cell, t, T, N, H, I):
     wh = t["wh"].detach().requires_grad_(True)
 
     def port():
-        xp = torch.matmul(x, wi.T) + t["b"]
+        xp = kr.input_projection(x, wi, t["b"])
         if cell == "lstm":
             return kr.lstm_layer(xp, wh, t["h0"], t["c0"])[0]
         return kr.gru_layer(xp, wh, t["bh"], t["h0"])[0]
@@ -2063,179 +2048,6 @@ def check_rnn_functions(kr, dev, gen):
     if not ok:
         raise SystemExit("the RNN autograd Functions disagree with autograd "
                          "through the plain forward")
-
-
-# -- --rnn-study: what bounds the redesigned recurrence routes ----------------
-
-# Variants of csrc/rnn.cu, each one (old, new) replacement: the other
-# activation forms on the register and tensor-core routes, and each route
-# with one part taken out (their outputs are wrong: timing only).
-_MMA_ACT = "act[q][j] = q == 2 ? tanh_fast(pre) : sigmoid_fast(pre);"
-_MMA_TANH = "h[e] = act[3][j] * tanh_fast(c[e]);"
-_REG_ACT = "const float act = q == 2 ? tanhf(pre) : sigmoid_f(pre);"
-_REG_TANH = "h = go * tanhf(c);"
-_MMA_STORES = """        for (int q = 0; q < 4; ++q)
-          store2(gates + row * G4 + q * H + u0, act[q][0], act[q][1]);
-        store2(cs + row * H + u0, c[e], c[e + 1]);
-        store2(ys + row * H + u0, h[e], h[e + 1]);"""
-_REG_STORES = """        gates[(row * 4 + q) * H + u] = act;
-        if (q == 1) cs[row * H + u] = c;
-        if (q == 2) ys[row * H + u] = from_f<T>(h);"""
-_CLUSTER_PRODUCTS = """      if (L.rt == 1)
-        cluster_products<1>(part_t, w_s, ex_t, L, nn, H);
-      else if (L.rt == 2)
-        cluster_products<2>(part_t, w_s, ex_t, L, nn, H);
-      else
-        cluster_products<4>(part_t, w_s, ex_t, L, nn, H);"""
-# the recurrence card tests' (T, N, H) (tests/test_torch_rnn.py's
-# CARD_SHAPES): the study times the route the plan takes at each beside the
-# split route
-RNN_CARD_SHAPES = ((96, 32, 40), (7, 1600, 40), (96, 3200, 40), (9, 3, 17),
-                   (35, 32, 200), (12, 32, 512), (5, 70, 130), (6, 1, 96),
-                   (5, 17, 97), (3, 1, 417), (5, 896, 64))
-RNN_VARIANTS = {
-    "reg_fast_act": [(_REG_ACT, "const float act = q == 2 ? tanh_fast(pre) "
-                                ": sigmoid_fast(pre);"),
-                     (_REG_TANH, "h = go * tanh_fast(c);")],
-    "reg_no_stores": [(_REG_STORES, "")],
-    "reg_no_act": [(_REG_ACT, "const float act = pre * 0.25f;"),
-                   (_REG_TANH, "h = go * c;")],
-    "mma_expf_act": [(_MMA_ACT, "act[q][j] = q == 2 ? tanhf(pre) : "
-                                "sigmoid_f(pre);"),
-                     (_MMA_TANH, "h[e] = act[3][j] * tanhf(c[e]);")],
-    "mma_no_stores": [(_MMA_STORES, "")],
-    "mma_no_act": [(_MMA_ACT, "act[q][j] = pre * 0.25f;"),
-                   (_MMA_TANH, "h[e] = act[3][j] * c[e];")],
-    "mma_1xtf32": [("x3::mma3<true, true>(acc[s & 1][q], ah, al, bh[s][q], "
-                    "bl[s][q]);", "x3::mma_tf32(acc[s & 1][q], ah, "
-                                  "bh[s][q]);")],
-    "cluster_no_products": [(_CLUSTER_PRODUCTS, "")],
-}
-
-
-def rnn_study(card):
-    """Build the variants of RNN_VARIANTS beside csrc/rnn.cu and time, in
-    turns in this process: the LSTM forward's register and tensor-core
-    routes over N (T=96, H=40), each route against its variants at the
-    main shapes, the LSTM forward's and the GRU backward's planned route
-    beside the split route at every RNN_CARD_SHAPES case, fp32 and bf16,
-    by the kernels' device time (torch.profiler; short calls are host-bound
-    by events), the host time a call of the port's LSTM layer's parts and
-    of cuDNN's layer at DeepAR's training shape, and at the GRU phase the
-    GRU backward's recurrence with and without its products and its dW
-    product (device time)."""
-    import shutil
-
-    import torch
-
-    from mxnet_tpu_torch.ops.kernels import build
-    from mxnet_tpu_torch.ops.kernels import rnn as kr
-
-    csrc = ROOT / "mxnet_tpu_torch" / "csrc"
-    src = (csrc / "rnn.cu").read_text()
-    libs = {"source": kr.library}
-    for name, reps in RNN_VARIANTS.items():
-        text = src
-        for old, new in reps:
-            if old not in text:
-                raise SystemExit(f"rnn study: variant {name} no longer "
-                                 f"matches csrc/rnn.cu")
-            text = text.replace(old, new)
-        d = build.BUILD_DIR / "variants" / name
-        d.mkdir(parents=True, exist_ok=True)
-        for header in csrc.glob("*.cuh"):
-            shutil.copy(header, d / header.name)
-        (d / "rnn.cu").write_text(text)
-        libs[name] = build.KernelLibrary("rnn.cu")
-        libs[name].source = d / "rnn.cu"
-    t0 = time.perf_counter()
-    build.build_all(list(libs.values()))
-    log(f"rnn study on {card}: {len(libs)} builds of rnn.cu in "
-        f"{time.perf_counter() - t0:.1f} s; times are the least of 2 turns "
-        f"of 20 calls (CUDA events), variants in turn with the source")
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(4)
-
-    def turns(call, names, timer=None):
-        best = {}
-        for _ in range(2):
-            for n in names:
-                kr.library = libs[n]
-                ms = timer(call) if timer else cuda_ms(call, 20)
-                best[n] = min(best.get(n, float("inf")), ms)
-        kr.library = libs["source"]
-        return ", ".join(f"{n} {v:.4f}" for n, v in best.items())
-
-    def lstm_args(T, N, H):
-        t = rnn_inputs("lstm", T, N, H, H, "float32", dev, gen)
-        return (t["xp"], t["wh"], t["h0"], t["c0"])
-
-    for N in (32, 128, 256, 512, 640, 768, 896, 1024, 1600, 3200):
-        args = lstm_args(96, N, 40)
-        got = {r: cuda_ms(lambda: kr._lstm_fwd(*args, route=r), 20)  # noqa
-               for r in ("reg", "mma")}
-        log(f"  lstm_fwd T=96 N={N} H=40 fp32 ms: reg {got['reg']:.4f}, "
-            f"mma {got['mma']:.4f}; the plan takes "
-            f"{kr.plan(4, False, N, 40, dev)[0]}")
-    for route, shapes in (("reg", ((96, 32), (96, 512))),
-                          ("mma", ((96, 32), (96, 1600), (96, 3200)))):
-        names = ["source"] + [n for n in RNN_VARIANTS
-                              if n.startswith(route)]
-        for T, N in shapes:
-            args = lstm_args(T, N, 40)
-            log(f"  lstm_fwd {route} route T={T} N={N} H=40 fp32 ms: "
-                + turns(lambda: kr._lstm_fwd(*args, route=route), names))
-    for T, N, H in RNN_CARD_SHAPES:
-        for dtype in ("float32", "bfloat16"):
-            lt = rnn_inputs("lstm", T, N, H, H, dtype, dev, gen)
-            f_args = (lt["xp"], lt["wh"], lt["h0"], lt["c0"])
-            gt = rnn_inputs("gru", T, N, H, H, dtype, dev, gen)
-            g_ref = kr.gru_fwd_plain(gt["xp"], gt["wh"], gt["bh"], gt["h0"])
-            g_args = (gt["wh"], gt["h0"], g_ref[0], g_ref[2], g_ref[3],
-                      gt["dys"], gt["dhn"])
-            got = []
-            for name, call, rt, tags in (
-                    ("lstm_fwd", lambda r: kr._lstm_fwd(*f_args, route=r),
-                     kr.plan(4, False, N, H, dev)[0], ("lstm_fwd",)),
-                    ("gru_bwd", lambda r: kr._gru_bwd(*g_args, route=r),
-                     kr.plan(3, True, N, H, dev)[0], ("gru_bwd", "dw_"))):
-                ms = {r: device_ms(lambda: call(r), 5, tags)  # noqa: B023
-                      for r in dict.fromkeys((rt, "split"))}
-                got.append(f"{name} {rt} {ms[rt]:.4f}, split "
-                           f"{ms['split']:.4f}")
-            log(f"  card shape T={T} N={N} H={H} {dtype}, device ms: "
-                + "; ".join(got))
-            del lt, gt, f_args, g_args, g_ref
-    # the port's layer at DeepAR's training shape is host-bound: its parts'
-    # host time a call (without waiting for the card) beside cuDNN's layer
-    t = rnn_inputs("lstm", 96, DEEPAR_BATCH, 40, 40, "float32", dev, gen)
-    x, wi, wh = (t[k].detach().requires_grad_(True)
-                 for k in ("x", "wi", "wh"))
-    xp = (torch.matmul(x, wi.T) + t["b"]).detach().requires_grad_(True)
-    mod, state = cudnn_layer("lstm", t, 40, 40, DEEPAR_BATCH)
-    parts = {
-        "input projection (matmul + add)": lambda: torch.matmul(x, wi.T)
-        + t["b"],
-        "lstm_layer (autograd Function + wrapper)": lambda: kr.lstm_layer(
-            xp, wh, t["h0"], t["c0"]),
-        "lstm_fwd wrapper": lambda: kr.lstm_fwd(t["xp"], t["wh"], t["h0"],
-                                                t["c0"]),
-        "cuDNN's layer": lambda: mod(x, state)}
-    log(f"  host us a call, T=96 N={DEEPAR_BATCH} H=40 fp32: "
-        + ", ".join(f"{k} {host_us(f):.1f}" for k, f in parts.items()))
-    del t, x, wi, wh, xp, mod, state
-    t = rnn_inputs("gru", GRU_T, GRU_BATCH, GRU_HIDDEN, GRU_HIDDEN,
-                   "float32", dev, gen)
-    ref = kr.gru_fwd_plain(t["xp"], t["wh"], t["bh"], t["h0"])
-    b_args = (t["wh"], t["h0"], ref[0], ref[2], ref[3], t["dys"], t["dhn"])
-    log(f"  gru_bwd cluster route T={GRU_T} N={GRU_BATCH} H={GRU_HIDDEN} "
-        f"fp32, the recurrence's device ms: "
-        + turns(lambda: kr.gru_bwd(*b_args),
-                ["source", "cluster_no_products"],
-                lambda call: device_ms(call, 10, ("gru_bwd",)))
-        + "; the dW product's: "
-        + turns(lambda: kr.gru_bwd(*b_args), ["source"],
-                lambda call: device_ms(call, 10, ("dw_",))))
 
 
 # -- phases 11-13: DeepAR -----------------------------------------------------
@@ -2512,9 +2324,6 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
-    ap.add_argument("--rnn-study", action="store_true",
-                    help="only time the recurrence routes against their "
-                         "variants (what bounds each) and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2537,9 +2346,6 @@ def main():
     log(f"device: {name} x{count}; nvidia-smi: {card}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    if args.rnn_study:
-        rnn_study(card)
-        return 0
     t = time.perf_counter()
     kernels.build_all_kernels()
     log(f"build: {time.perf_counter() - t:.1f}s")

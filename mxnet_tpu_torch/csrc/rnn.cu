@@ -105,6 +105,10 @@ constexpr int kMmaStages = 4;      // tensor-core route: steps of x_proj ahead
 constexpr int kMmaMaxH = 64;       // tensor-core route: widest H (even)
 constexpr int kMmaMinN = 896;      // tensor-core route: fewest rows (the
                                    // register route is faster below)
+// kMmaMinN is the crossover measured at DeepAR's width, H=40 (T=96, fp32,
+// on an H100).  At other widths it lies elsewhere: N=512-640 at H=32 and
+// 64, 640-768 at H=48, 1280-1600 at H=16 (PERF.md §6), so there the
+// plan can take a route up to 1.6x slower than the other.
 
 // The routes of mxtt_rnn_plan and the launch entries.
 enum Route {

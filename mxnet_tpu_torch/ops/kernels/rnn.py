@@ -24,6 +24,8 @@ what bounds them on an H100 and how they are built.
   cooperative launch where it does not fit one).
   The counts of ``lstm_fwd`` and ``gru_bwd`` add one per launch under
   ``<route>_launches`` beside ``launches``.
+- :func:`input_projection` is the layers' input GEMM, outside the
+  recurrence: one call with the bias.
 - :func:`lstm_layer` and :func:`gru_layer` are the differentiable entries
   (ref: the ``jax.custom_vjp`` functions of the same names, :243 and
   :457): forward and backward through the wrappers, missing cotangents
@@ -198,6 +200,13 @@ def gru_layer_plain(x_proj, wh, bh, h0):
     return gru_fwd_plain(x_proj, wh, bh, h0)[:2]
 
 
+def input_projection(xs, wi, b):
+    """``xs @ wi.T + b``, ``(T, N, G*H)`` from ``xs (T, N, I)``, ``wi (G*H,
+    I)`` and ``b (G*H)``: one call, the product with the bias added in its
+    epilogue (less host time than a transpose, a product and an add)."""
+    return torch.nn.functional.linear(xs, wi, b)
+
+
 # -- the kernels' plan ---------------------------------------------------------
 
 
@@ -213,13 +222,14 @@ def plan(G, backward, N, H, dev, route=None):
     and the device's SMs; ``route`` asks for one route, else the kernel
     takes its own.  Cached per (G, backward, N, H, device, route); a size
     that no plan fits raises :class:`MXNetError`."""
-    dev = torch.device(dev)
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
     key = (G, bool(backward), N, H, dev, route)
     got = _plans.get(key)
     if got is not None:
         return got
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+        key = (G, bool(backward), N, H, dev, route)
     fn = library.load().mxtt_rnn_plan
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
@@ -313,7 +323,9 @@ def _check_bwd(name, ys, G, wh, gates, seqs, states):
 
 
 def _f32(*ts):
-    return [t.float().contiguous() for t in ts]
+    """Each of ``ts`` as contiguous fp32, itself where it already is."""
+    return [t if t.dtype is torch.float32 and t.is_contiguous()
+            else t.float().contiguous() for t in ts]
 
 
 def _launch(fn, name, ptrs, ints, dev):
@@ -321,7 +333,7 @@ def _launch(fn, name, ptrs, ints, dev):
     ``None`` pointer passes null."""
     args = [0 if p is None else p.data_ptr() for p in ptrs]
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if torch.cuda.current_device() == dev.index:
+    if torch._C._cuda_getDevice() == dev.index:
         err = fn(*args, *ints, stream)
     else:
         with torch.cuda.device(dev):
@@ -430,8 +442,9 @@ def gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn):
 
 def _gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn, route=None):
     """:func:`gru_bwd`; ``route`` pins a route (with its plan from
-    :func:`plan`) or, as a tuple ``(route, NB, JB)``, a whole plan, such as
-    a cluster size of the cluster route, which the kernel's entry checks."""
+    :func:`plan`) or, as a tuple ``(route, NB, JB)``, a whole plan, which
+    the kernel's entry checks: the card tests run the cluster route at
+    cluster sizes other than the plan's through it."""
     T, N, H = _check_bwd("gru_bwd", ys, 3, wh, gates, (hn_lin, dys),
                          (h0, dhn))
     if not ys.is_cuda:

@@ -9,7 +9,7 @@ Gate order: LSTM ``i, f, g, o``; GRU ``r, z, n``.
 
 Each layer and direction is either the plain time loop (:func:`_scan_dir`,
 every mode; the CPU path and the oracle) or, for the LSTM and GRU, the
-input projection ``x @ Wi.T + b`` as one ``torch.matmul`` and the
+input projection ``x @ Wi.T + b`` as one GEMM call and the
 recurrence in the kernels of :mod:`.kernels.rnn`.  ``MXTPU_RNN_IMPL``
 picks: ``scan`` the loop always; ``pallas`` the kernel path; ``auto`` (the
 default) the kernel path on CUDA tensors and the loop elsewhere, as the
@@ -145,7 +145,7 @@ def _kernel_lstm_dir(xs, init, wi, wh, bi, bh, reverse):
     reverse direction is flip, forward, flip (ref: ops/rnn.py:210)."""
     if reverse:
         xs = xs.flip(0)
-    x_proj = torch.matmul(xs, wi.T) + (bi + bh)
+    x_proj = _krnn.input_projection(xs, wi, bi + bh)
     ys, hn, cn = _krnn.lstm_layer(x_proj, wh, *init)
     return (hn, cn), (ys.flip(0) if reverse else ys)
 
@@ -155,7 +155,7 @@ def _kernel_gru_dir(xs, init, wi, wh, bi, bh, reverse):
     the reset gate multiplies its n slot (ref: ops/rnn.py:195)."""
     if reverse:
         xs = xs.flip(0)
-    x_proj = torch.matmul(xs, wi.T) + bi
+    x_proj = _krnn.input_projection(xs, wi, bi)
     ys, hn = _krnn.gru_layer(x_proj, wh, bh, init[0])
     return (hn,), (ys.flip(0) if reverse else ys)
 

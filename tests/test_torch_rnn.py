@@ -428,25 +428,25 @@ def test_begin_state_follows_the_input_device():
         tmx.gluon.rnn.GRU(4, layout="CNT")
 
 
-def test_rnn_study_variants_match_the_source_once():
-    """Every replacement of ``chip_smoke.py --rnn-study``'s variants finds
-    its text in ``csrc/rnn.cu`` exactly once, so the study builds what it
-    names, and the study times the card tests' shapes."""
-    import sys
-    from pathlib import Path
-
-    root = Path(__file__).resolve().parents[1]
-    sys.path.insert(0, str(root))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(str(root))
-    src = (root / "mxnet_tpu_torch" / "csrc" / "rnn.cu").read_text()
-    for name, reps in chip_smoke.RNN_VARIANTS.items():
-        for old, new in reps:
-            assert src.count(old) == 1, name
-            assert new not in src or new == "", name
-    assert list(chip_smoke.RNN_CARD_SHAPES) == CARD_SHAPES
+@pytest.mark.parametrize("T,N,I,GH", [(5, 4, 6, 32), (3, 1, 40, 160),
+                                       (0, 2, 8, 24)])
+def test_input_projection_matches_matmul_plus_bias(T, N, I, GH):
+    """The recurrences' input projection, one GEMM call with the bias,
+    equals ``x @ Wi.T + b`` with its gradients, empty sequences included."""
+    rng = np.random.default_rng(T + N + I)
+    ins = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                        requires_grad=True)
+           for s in ((T, N, I), (GH, I), (GH,))]
+    got = tk.input_projection(*ins)
+    want = torch.matmul(ins[0], ins[1].T) + ins[2]
+    assert got.shape == want.shape == (T, N, GH)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    cot = torch.tensor(rng.standard_normal((T, N, GH)), dtype=torch.float32)
+    for g, r in zip(torch.autograd.grad(got, ins, cot),
+                    torch.autograd.grad(want, ins, cot)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # -- on the card ----------------------------------------------------------
