@@ -1095,11 +1095,13 @@ def device_ms(fn, iters, tags, attempts=3):
     names hold one of ``tags``, from torch.profiler over ``iters`` calls
     after one warm call: the kernels alone, without the host's time
     between launches.  On the H100 torch.profiler has now and then left a
-    launch, or every launch of a session, unrecorded (PERF.md §6), and
-    a missed launch would count as 0: a session in which no tagged kernel
-    was recorded, or one's launches are not a whole number a call, is
-    logged and taken again, up to ``attempts`` sessions; the last one
-    counts whatever it recorded."""
+    launch, or every launch of a session, unrecorded (PERF.md §6): a
+    session in which no tagged kernel was recorded, or one's launches are
+    not a whole number a call, is logged and taken again, up to
+    ``attempts`` sessions.  Each kernel's time counts as its mean over the
+    launches recorded times its launches a call (the recorded count over
+    ``iters``, rounded), so a launch left out of the last session does not
+    count as 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -1119,10 +1121,10 @@ def device_ms(fn, iters, tags, attempts=3):
         log(f"  device_ms: torch.profiler session {attempt} of {attempts} "
             f"recorded {launches or 'no launches'} of {tags} over {iters} "
             f"calls; " + ("taken again" if attempt < attempts
-                          else "counted as it is"))
+                          else "counted over the launches recorded"))
     times = kernel_times(prof.key_averages())
-    return sum(t for k, t in times.items()
-               if any(tag in k for tag in tags)) / iters / 1e3
+    return sum(times[k] / n * max(1, round(n / iters))
+               for k, n in launches.items()) / 1e3
 
 
 # -- phase 6: the ResNet kernels ----------------------------------------------
@@ -1846,35 +1848,41 @@ def check_rnn_kernels(mx, dev):
                 main_shape = (label, cell) in (("deepar_train", "lstm"),
                                                ("gru_phase", "gru"))
                 predict_shape = (label, cell) == ("deepar_predict", "lstm")
-                # the redesigned kernel's route, and every route that
-                # takes this shape, each held against the plain version;
-                # on the main paths' shapes (fp32) the planned route and
-                # the split route (the shared-memory kernel that every
-                # launch took before the redesigned routes) are timed
-                if cell == "lstm":
-                    d_new, want, G = "fwd", ref, 4
-                    call = (lambda r: kr._lstm_fwd(*f_args, route=r))
-                else:
-                    d_new, want, G = "bwd", bref, 3
-                    call = (lambda r: kr._gru_bwd(*b_args, route=r))
-                route = kr.plan(G, cell == "gru", N, H, dev)[0]
-                timed = (route, "split") if dtype == "float32" and (
-                    main_shape or predict_shape) else ()
-                routes_ms, rerr, checked = route_times(
-                    call, want,
-                    lambda r: kr.plan(G, cell == "gru", N, H, dev, r), timed)
-                split_ms = routes_ms.get("split")
+                # every route that takes this shape, each direction, held
+                # against the plain version; on the main paths' shapes
+                # (fp32) the planned route and the split route (the
+                # shared-memory kernel every launch took before the
+                # redesigned routes) are timed, both directions (the
+                # forward alone at predict's, whose path runs no backward)
+                G = 4 if cell == "lstm" else 3
+                pinned = {"fwd": kr._lstm_fwd if cell == "lstm"
+                          else kr._gru_fwd,
+                          "bwd": kr._lstm_bwd if cell == "lstm"
+                          else kr._gru_bwd}
+                routes = {}
+                for d, args, want in (("fwd", f_args, ref),
+                                      ("bwd", b_args, bref)):
+                    back = d == "bwd"
+                    route = kr.plan(G, back, N, H, dev)[0]
+                    timed = (route, "split") if dtype == "float32" and (
+                        main_shape or (predict_shape and not back)) else ()
+                    routes_ms, rerr, checked = route_times(
+                        lambda r: pinned[d](*args, route=r),  # noqa: B023
+                        want,
+                        lambda r: kr.plan(G, back, N, H, dev, r),  # noqa: B023
+                        timed)
+                    if rerr > 0:
+                        raise SystemExit(f"{cell}_{d}: a route disagrees "
+                                         f"with the plain version by "
+                                         f"{rerr:.3g} past RNN_TOL at "
+                                         f"{label} T={T} {dtype}")
+                    routes[d] = (route, routes_ms, checked)
                 cores = ""
-                if route == "mma":  # 3xTF32 products: their rate's bound
+                if routes["fwd"][0] == "mma":  # 3xTF32 products: their bound
                     cores = (f" (3xTF32; {fbound[0]:.4f} {fbound[1]} at the "
                              f"CUDA cores)")
                     fbound = rnn_bound(cell, "fwd", T, N, H, dtype,
                                        TF32X3_FLOPS)
-                if rerr > 0:
-                    raise SystemExit(f"{cell}_{d_new}: a route disagrees "
-                                     f"with the plain version by {rerr:.3g} "
-                                     f"past RNN_TOL at {label} T={T} "
-                                     f"{dtype}")
                 lib = ""
                 rec = {}
                 if dtype == "float32":
@@ -1889,55 +1897,65 @@ def check_rnn_kernels(mx, dev):
                     f"{fbound[1]}{cores}, plain {fp_ms:.3f}) bwd "
                     f"{b_ms:.4f} ms "
                     f"({1e3 * b_ms / T:.2f} us/step, bound {bbound[0]:.4f} "
-                    f"{bbound[1]}, plain {bp_ms:.3f}) | {cell}_{d_new} on "
-                    f"the {route} route; routes held to plain "
-                    f"{'/'.join(checked)}, timed (ms) "
-                    + (", ".join(f"{r} {v:.4f}" for r, v in routes_ms.items())
-                       or "none")
+                    f"{bbound[1]}, plain {bp_ms:.3f}) | "
+                    + "; ".join(
+                        f"{cell}_{d} on the {r} route, routes held to plain "
+                        f"{'/'.join(chk)}, timed (ms) "
+                        + (", ".join(f"{k} {v:.4f}" for k, v in rms.items())
+                           or "none")
+                        for d, (r, rms, chk) in routes.items())
                     + f"{lib} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"{cell} kernels disagree with their "
                                      f"plain versions: {label} T={T} "
                                      f"{dtype}")
-                new_dev_ms = None
+                dev_ms = {}
                 if dtype == "float32" and (main_shape or predict_shape):
-                    # the redesigned kernel's device time: where its
-                    # wrapper's host time exceeds it, events over calls
-                    # read the host
-                    new_dev_ms = device_ms(
-                        (lambda: fwd(*f_args)) if cell == "lstm"
-                        else (lambda: bwd(*b_args)), 5,
-                        ("lstm_fwd",) if cell == "lstm"
-                        else ("gru_bwd", "dw_"))
-                    log(f"  {cell}_{d_new} at {label} T={T} N={N}: device "
-                        f"{new_dev_ms:.4f} ms (torch.profiler)")
+                    # each kernel's device time: where its wrapper's host
+                    # time exceeds it, events over calls read the host; the
+                    # backward's with and without its dW product
+                    for d, fn, tags in (
+                            ("fwd", lambda: fwd(*f_args), (f"{cell}_fwd",)),
+                            ("bwd", lambda: bwd(*b_args),
+                             (f"{cell}_bwd", "dw_")),
+                            ("recurrence", lambda: bwd(*b_args),
+                             (f"{cell}_bwd",))):
+                        if main_shape or d == "fwd":
+                            dev_ms[d] = device_ms(fn, 5, tags)
+                    log(f"  {cell} at {label} T={T} N={N}, device ms "
+                        f"(torch.profiler): "
+                        + ", ".join(f"{cell}_{d} {v:.4f}" if d != "recurrence"
+                                    else f"{cell}_bwd without the dW product "
+                                    f"{v:.4f}" for d, v in dev_ms.items()))
                 if dtype == "float32" and main_shape:
                     hosts = {"fwd": host_us(lambda: fwd(*f_args), 100),
                              "bwd": host_us(lambda: bwd(*b_args), 100)}
                     log(f"  {cell} wrappers' host time a call at {label}: "
                         f"fwd {hosts['fwd']:.1f} us, bwd "
                         f"{hosts['bwd']:.1f} us")
-                    for d, ms, pms, bound, err, lib_ms in (
-                            ("fwd", f_ms, fp_ms, fbound, ferr,
-                             rec["cudnn_fwd"]),
-                            ("bwd", b_ms, bp_ms, bbound, berr,
-                             rec["cudnn_bwd"])):
+                    for d, ms, pms, bound, err in (
+                            ("fwd", f_ms, fp_ms, fbound, ferr),
+                            ("bwd", b_ms, bp_ms, bbound, berr)):
+                        route, routes_ms, _ = routes[d]
                         main[f"{cell}_{d}"] = {
                             "max_abs_err": err, "ms": ms, "plain_ms": pms,
                             "bound_ms": bound[0], "bound_by": bound[1],
-                            "library_ms": lib_ms, "us_per_step": 1e3 * ms / T,
+                            "library_ms": rec[f"cudnn_{d}"],
+                            "us_per_step": 1e3 * ms / T,
                             "port_layer_ms": rec[f"port_{d}"],
-                            "host_us": hosts[d],
+                            "host_us": hosts[d], "kernel_route": route,
+                            "split_route_ms": routes_ms.get("split"),
+                            "route_ms": routes_ms, "device_ms": dev_ms[d],
                             "shape": f"T={T} N={N} H={H} I={I} fp32"}
-                    main[f"{cell}_{d_new}"].update(kernel_route=route,
-                                                   split_route_ms=split_ms,
-                                                   route_ms=routes_ms,
-                                                   device_ms=new_dev_ms)
+                    main[f"{cell}_bwd"]["recurrence_device_ms"] = \
+                        dev_ms["recurrence"]
                 if dtype == "float32" and predict_shape:
+                    route, routes_ms, _ = routes["fwd"]
                     predict.append({
                         "shape": f"T={T} N={N} H={H} I={I} fp32", "ms": f_ms,
-                        "device_ms": new_dev_ms,
-                        "kernel_route": route, "split_route_ms": split_ms,
+                        "device_ms": dev_ms["fwd"],
+                        "kernel_route": route,
+                        "split_route_ms": routes_ms.get("split"),
                         "route_ms": routes_ms,
                         "bound_ms": fbound[0], "bound_by": fbound[1],
                         "library_ms": rec["cudnn_fwd"],
@@ -2076,7 +2094,8 @@ def deepar_data():
 def train_deepar(mx, card):
     """20 Adam steps of DeepAR at batch 32 on fresh covariate batches, then
     predict; then card vs CPU.  Returns the launch counts of both runs, the
-    median step and lstm_fwd's launches by route on each path."""
+    median step, lstm_fwd's launches by route on each path and lstm_bwd's
+    in training."""
     import numpy as np
     import torch
 
@@ -2110,7 +2129,8 @@ def train_deepar(mx, card):
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("lstm_fwd", "lstm_bwd")}
-    routes = lstm_fwd_routes(kr)
+    routes = launches_by_route(kr.lstm_fwd_counts)
+    bwd_routes = launches_by_route(kr.lstm_bwd_counts)
     n = DEEPAR_STEPS
     median_ms = statistics.median(step_ms[2:])
     log(f"deepar train: 2x40 LSTM, Student-t, dropout 0.1, b={DEEPAR_BATCH}"
@@ -2121,7 +2141,8 @@ def train_deepar(mx, card):
         f"{DEEPAR_BATCH / (median_ms / 1e3):.1f} series/s on {card}")
     log(f"deepar train: losses {[round(v, 4) for v in losses]}")
     log(f"deepar train: (launches, plain calls on cuda) {counts} (2 x {n} "
-        f"= {2 * n} each); lstm_fwd launches by route {routes}")
+        f"= {2 * n} each); launches by route: lstm_fwd {routes}, lstm_bwd "
+        f"{bwd_routes}")
     checks = {
         "finite_losses": all(np.isfinite(losses)),
         "first_backward_gradients": not missing,
@@ -2130,6 +2151,7 @@ def train_deepar(mx, card):
         "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
         "lstm_fwd_register_route": routes == {"split": 0, "reg": 2 * n,
                                               "mma": 0},
+        "lstm_bwd_register_route": bwd_routes == {"split": 0, "reg": 2 * n},
     }
     if missing:
         log(f"deepar train: parameters without a finite gradient after the "
@@ -2151,7 +2173,7 @@ def train_deepar(mx, card):
         wall = time.perf_counter() - t0
         got = (kr.lstm_fwd_counts.launches,
                kr.lstm_fwd_counts.plain_calls_on_cuda)
-        proutes = by_route[label] = lstm_fwd_routes(kr)
+        proutes = by_route[label] = launches_by_route(kr.lstm_fwd_counts)
         plaunch[label] = got[0]
         p50 = np.median(samples[0], axis=0)
         p90 = np.percentile(samples[0], 90, axis=0)
@@ -2177,14 +2199,15 @@ def train_deepar(mx, card):
     if failed:
         raise SystemExit(f"deepar checks failed: {failed}")
     return ({k: c[0] for k, c in counts.items()}, plaunch, median_ms,
-            by_route)
+            by_route, bwd_routes)
 
 
-def lstm_fwd_routes(kr):
-    """lstm_fwd's launches by route since the counts were last reset."""
-    c = kr.lstm_fwd_counts
-    return {"split": c.split_launches, "reg": c.reg_launches,
-            "mma": c.mma_launches}
+def launches_by_route(counts):
+    """A kernel's launches by route since the counts were last reset."""
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    return {r: getattr(counts, f"{r}_launches") for r in kr.ROUTES
+            if hasattr(counts, f"{r}_launches")}
 
 
 def deepar_card_vs_cpu(mx, splitter, ds):
@@ -2256,7 +2279,8 @@ def deepar_card_vs_cpu(mx, splitter, ds):
 def train_gru(mx, card):
     """gluon.rnn.GRU(200, num_layers=2), TNC, T=35, N=32, input 200, 20
     Adam steps on an L2 loss against a fixed target.  Returns the launch
-    counts, the median step and gru_bwd's launches by route."""
+    counts, the median step and gru_fwd's and gru_bwd's launches by
+    route."""
     import numpy as np
     import torch
 
@@ -2294,22 +2318,23 @@ def train_gru(mx, card):
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("gru_fwd", "gru_bwd")}
-    bwd = kernels.KERNEL_COUNTS["gru_bwd"]
-    routes = {"split": bwd.split_launches, "cluster": bwd.cluster_launches}
+    routes = {k: launches_by_route(kernels.KERNEL_COUNTS[k])
+              for k in ("gru_fwd", "gru_bwd")}
     n = GRU_STEPS
     median_ms = statistics.median(step_ms[2:])
     log(f"gru: gluon.rnn.GRU({GRU_HIDDEN}, num_layers=2) TNC T={GRU_T} "
         f"N={GRU_BATCH}, L2 loss, Adam 1e-3, {n} steps; loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f}; step median {median_ms:.3f} "
         f"ms over steps 3-{n} on {card}; (launches, plain calls on cuda) "
-        f"{counts} (2 x {n} = {2 * n} each); gru_bwd launches by route "
-        f"{routes}")
+        f"{counts} (2 x {n} = {2 * n} each); launches by route {routes}")
     checks = {"finite_losses": all(np.isfinite(losses)),
               "loss_falls": losses[-1] < losses[0],
               "launches": all(c[0] == 2 * n for c in counts.values()),
               "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
-              "gru_bwd_cluster_route": routes == {"split": 0,
-                                                  "cluster": 2 * n}}
+              "gru_fwd_cluster_route": routes["gru_fwd"] == {
+                  "split": 0, "cluster": 2 * n},
+              "gru_bwd_cluster_route": routes["gru_bwd"] == {
+                  "split": 0, "cluster": 2 * n}}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"gru checks failed: {failed}")
@@ -2354,11 +2379,12 @@ def main():
     from mxnet_tpu_torch.ops.kernels import rnn as krnn
     spills = spill_bytes(krnn.library.build_log,
                          ("lstm_fwd_reg_kernel", "lstm_fwd_mma_kernel",
-                          "gru_bwd_cluster_kernel"))
+                          "gru_bwd_cluster_kernel", "lstm_bwd_reg_kernel",
+                          "gru_fwd_cluster_kernel"))
     log(f"spill bytes (stores, loads) of the register, tensor-core and "
         f"cluster routes' kernels: {sorted(set(spills.values()))} over "
-        f"{len(spills)} instantiations (24 + 16 + 2)")
-    if len(spills) != 42 or any(v != (0, 0) for v in spills.values()):
+        f"{len(spills)} instantiations (24 + 16 + 2 + 12 + 6)")
+    if len(spills) != 60 or any(v != (0, 0) for v in spills.values()):
         raise SystemExit(f"a redesigned route's kernel spills: {spills}")
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
@@ -2378,7 +2404,7 @@ def main():
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
-    dtrain, dpredict, _, droutes = train_deepar(mx, card)
+    dtrain, dpredict, _, droutes, dbroutes = train_deepar(mx, card)
     gtrain, _, groutes = train_gru(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
@@ -2426,13 +2452,13 @@ def main():
              launches_by_route=droutes, **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
-             **rnn["lstm_bwd"]),
+             launches_by_route=dbroutes, **rnn["lstm_bwd"]),
         dict(name="gru_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:300", launches=gtrain["gru_fwd"],
-             **rnn["gru_fwd"]),
+             launches_by_route=groutes["gru_fwd"], **rnn["gru_fwd"]),
         dict(name="gru_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
-             launches_by_route=groutes, **rnn["gru_bwd"]),
+             launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
     ]}
     log(card)
     log(json.dumps(record))

@@ -18,12 +18,12 @@
 // the gates out: ~0.5 GB at N=3200).  Four routes; mxtt_rnn_plan picks one
 // per (kernel, N, H) before any launch:
 //
-// - The split route (every kernel; the only one of the LSTM backward and
-//   the GRU forward): the grid is (unit tiles) x (row tiles); block (u, b)
-//   owns hidden units [u*JB, u*JB+JB) of batch rows [b*NB, b*NB+NB), keeps
-//   the rows of Wh for its units (forward) or the columns (backward) in
-//   shared memory for the whole launch, and carries its own c (LSTM) and
-//   its part of dh/dc in shared memory.  Where Wh fits one block (H up to
+// - The split route (every kernel, where no other takes the size): the
+//   grid is (unit tiles) x (row tiles); block (u, b) owns hidden units
+//   [u*JB, u*JB+JB) of batch rows [b*NB, b*NB+NB), keeps the rows of Wh
+//   for its units (forward) or the columns (backward) in shared memory for
+//   the whole launch, and carries its own c (LSTM) and its part of dh/dc
+//   in shared memory.  Where Wh fits one block (H up to
 //   ~110 for the LSTM, ~125 for the GRU) blocks are independent: each keeps
 //   its rows' whole h in shared memory and needs only __syncthreads between
 //   phases.  Otherwise a step needs every unit's h (forward) or every
@@ -36,27 +36,31 @@
 //   be resident: the launch is cooperative (cudaLaunchCooperativeKernel),
 //   after a check with the occupancy API, and fails rather than deadlock.
 //   Reads of exchanged data use __ldcg (L2), never a stale L1 line.
-// - The register route (LSTM forward at H <= kRegMaxH where the
-//   tensor-core route does not take the call; DeepAR training): one block
-//   a batch row, a thread a gate of a unit with its row of Wh in
-//   registers, the four gates of a unit in one quad of lanes
-//   (__shfl_sync), c in registers, h broadcast from a double buffer in
-//   shared memory, x_proj loaded kXpAhead steps ahead, one __syncthreads a
-//   step (lstm_fwd_reg_kernel).
+// - The register route (the LSTM at H <= kRegMaxH: its backward, and its
+//   forward where the tensor-core route does not take the call; DeepAR
+//   training): one block a batch row, a thread a gate of a unit with its
+//   row of Wh (forward) or its column (backward) in registers, the four
+//   gates of a unit in one quad of lanes (__shfl_sync), c (and dc) in
+//   registers, h (the gate gradients) broadcast from a double buffer in
+//   shared memory, inputs loaded kXpAhead steps ahead, one __syncthreads a
+//   step (lstm_fwd_reg_kernel, lstm_bwd_reg_kernel).
 // - The tensor-core route (LSTM forward, N >= kMmaMinN, even H <=
 //   kMmaMaxH; DeepAR predict): 16 rows a block, the step's product as
 //   3xTF32 mma.sync (tf32x3.cuh) with Wh's fragments in registers and each
 //   lane holding all four gates of its cells, x_proj streamed through a
 //   ring of bulk copies (lstm_fwd_mma_kernel).
-// - The cluster route (GRU backward, where Wh's columns fit the blocks of
-//   a cluster of at most kClusterMax and the card holds every cluster at
-//   once): a cluster owns a slab of batch rows and all H units, its block
-//   k the columns of Wh of units [k*JB, k*JB+JB) in shared memory.  Each step a block pushes its units' gate
-//   gradients into every block's shared memory with st.async, which counts
-//   them on the receiver's mbarrier, and each forms dh of its units from
-//   its own copy once all have landed.  No grid or cluster barrier a step,
-//   no global exchange; clusters never wait for each other
-//   (gru_bwd_cluster_kernel).
+// - The cluster route (the GRU backward, and its forward from H =
+//   kClusterFwdMinH, where Wh's columns or rows fit the blocks of a
+//   cluster of at most kClusterMax and the card holds every cluster at
+//   once; the GRU phase): a cluster owns a slab of batch rows and all H
+//   units, its block k the columns (backward) or rows (forward) of Wh of
+//   units [k*JB, k*JB+JB) in shared memory.  Each step a block pushes its
+//   units' gate gradients (backward) or new h (forward) into every block's
+//   shared memory with st.async, which counts them on the receiver's
+//   mbarrier, and each forms its units' next step from its own copy once
+//   all have landed.  No grid or cluster barrier a step, no global
+//   exchange; clusters never wait for each other (gru_bwd_cluster_kernel,
+//   gru_fwd_cluster_kernel).
 //
 // The backward's weight gradients (dWh and, for the GRU, dbh) sum over all
 // T*N rows.  They are not accumulated in the recurrence: a second kernel
@@ -78,6 +82,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "tf32x3.cuh"
@@ -100,11 +105,18 @@ constexpr int kClusterUnits = 32;  // cluster route: the plan's units a block
 constexpr int kItems = 2;          // cluster route: (row, unit) items a thread
 constexpr int kWInFlight = 16;     // cluster route: Wh loads a thread issues
                                    // before it waits
+constexpr int kClusterAhead = 2;   // GRU forward's cluster route: steps of
+                                   // x_proj ahead (a step is microseconds)
+constexpr int kClusterFwdMinH = 64;  // GRU forward's cluster route: narrowest
+                                     // H the plan gives it
 constexpr int kMmaRows = 16;       // tensor-core route: rows a block
 constexpr int kMmaStages = 4;      // tensor-core route: steps of x_proj ahead
 constexpr int kMmaMaxH = 64;       // tensor-core route: widest H (even)
 constexpr int kMmaMinN = 896;      // tensor-core route: fewest rows (the
                                    // register route is faster below)
+// kClusterFwdMinH is the crossover with the split route's independent
+// blocks measured at N=32 (T=35, fp32, on an H100): the split route is
+// faster to H=56, the cluster route from H=64 (PERF.md §6).
 // kMmaMinN is the crossover measured at DeepAR's width, H=40 (T=96, fp32,
 // on an H100).  At other widths it lies elsewhere: N=512-640 at H=32 and
 // 64, 640-768 at H=48, 1280-1600 at H=16 (PERF.md §6), so there the
@@ -680,6 +692,111 @@ __global__ void __launch_bounds__(4 * KP)
   if (live && q == 1) cn[(size_t)n * H + u] = from_f<T>(c);
 }
 
+// -- LSTM backward, register route --------------------------------------------
+
+// One block per batch row, 4*KP threads (KP = H rounded up to 8), steps in
+// reverse: thread 4u + q owns gate q of unit u and keeps column u of
+// Wh[q] (Wh[q][j][u] for j < H, zero past H) in registers for the whole
+// launch.  A step: the product of the previous step's gate gradients with
+// that column (float4 broadcasts of dgp_q from a double buffer in shared
+// memory, rows padded to KP + 4 floats so the quad's four rows take
+// distinct banks; four partial sums), the quad's four partials exchanged by
+// __shfl_sync and added in a fixed order (dh of unit u, in every lane of
+// the quad), dh + dy, dc and the lane's gate gradient, carried in registers
+// (every lane of the quad holds the unit's dh and dc); the gradient into
+// the other half of the buffer and to dxp, one __syncthreads.  A lane
+// loads its own gate, c_prev and dy kXpAhead steps ahead and takes the
+// quad's other gates by __shfl_sync (registers are the limit at H = 96);
+// cs of the step is c_prev of the one after it; stores are off the chain.
+// Same inputs and
+// outputs as lstm_bwd_kernel (dxp, dh0, dc0; the dW product follows).
+template <int KP>
+__global__ void __launch_bounds__(4 * KP)
+    lstm_bwd_reg_kernel(const float* __restrict__ dys,
+                        const float* __restrict__ gates,
+                        const float* __restrict__ cs,
+                        const float* __restrict__ c0,
+                        const float* __restrict__ wh,
+                        const float* __restrict__ dhn,
+                        const float* __restrict__ dcn,
+                        float* __restrict__ dxp, float* __restrict__ dh0,
+                        float* __restrict__ dc0, int Tn, int N, int H) {
+  constexpr int DS = KP + 4;
+  __shared__ __align__(16) float dg_s[2][4 * DS];
+  const int n = blockIdx.x;
+  const int u = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const int quad = threadIdx.x & 28;  // the quad's first lane in the warp
+  const bool live = u < H;
+  float w[KP];
+#pragma unroll
+  for (int j = 0; j < KP; ++j)
+    w[j] = live && j < H ? wh[((size_t)q * H + j) * H + u] : 0.f;
+  // the ring: the lane's gate, c_prev and dy of step Tn-1-s in slot s % 4
+  const size_t gstep = (size_t)N * 4 * H, step = (size_t)N * H;
+  const size_t g0 = (size_t)n * 4 * H + u, s0 = (size_t)n * H + u;
+  float rq[kXpAhead] = {}, rc[kXpAhead] = {}, rd[kXpAhead] = {};
+  auto fetch = [&](int d, int t) {
+    rq[d] = gates[t * gstep + g0 + (size_t)q * H];
+    rc[d] = t > 0 ? cs[(t - 1) * step + s0] : c0[s0];
+    rd[d] = dys[t * step + s0];
+  };
+#pragma unroll
+  for (int d = 0; d < kXpAhead; ++d)
+    if (live && d < Tn) fetch(d, Tn - 1 - d);
+  float dh = live ? dhn[s0] : 0.f, dc = live ? dcn[s0] : 0.f;
+  float c = live && Tn > 0 ? cs[(Tn - 1) * step + s0] : 0.f;  // cs of the step
+  // dh of unit u from the gradients of the step after (slot `slot`)
+  auto carry = [&](int slot) {
+    const float4* gv = reinterpret_cast<const float4*>(dg_s[slot] + q * DS);
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+    for (int k4 = 0; k4 < KP / 4; ++k4) {
+      const float4 v = gv[k4];
+      a0 = fmaf(w[4 * k4], v.x, a0);
+      a1 = fmaf(w[4 * k4 + 1], v.y, a1);
+      a2 = fmaf(w[4 * k4 + 2], v.z, a2);
+      a3 = fmaf(w[4 * k4 + 3], v.w, a3);
+    }
+    const float p = (a0 + a1) + (a2 + a3);
+    const float p0 = __shfl_sync(0xffffffffu, p, quad);
+    const float p1 = __shfl_sync(0xffffffffu, p, quad + 1);
+    const float p2 = __shfl_sync(0xffffffffu, p, quad + 2);
+    const float p3 = __shfl_sync(0xffffffffu, p, quad + 3);
+    return ((p0 + p1) + p2) + p3;
+  };
+  for (int b0 = 0; b0 < Tn; b0 += kXpAhead) {
+#pragma unroll
+    for (int d = 0; d < kXpAhead; ++d) {
+      const int s = b0 + d, t = Tn - 1 - s;
+      if (s >= Tn) break;
+      const float own = rq[d], cp = rc[d], dy = rd[d];
+      if (live && s + kXpAhead < Tn) fetch(d, t - kXpAhead);
+      // the quad's four gates, off the chain
+      const float i = __shfl_sync(0xffffffffu, own, quad);
+      const float f = __shfl_sync(0xffffffffu, own, quad + 1);
+      const float g = __shfl_sync(0xffffffffu, own, quad + 2);
+      const float o = __shfl_sync(0xffffffffu, own, quad + 3);
+      if (s > 0) dh = carry((s - 1) & 1);
+      const float dhv = dh + dy;
+      const float tc = tanhf(c);
+      const float dcv = dhv * o * (1.f - tc * tc) + dc;
+      // lstm_bwd_kernel's four expressions, the lane's own
+      const float m = q == 0 ? g : q == 1 ? cp : q == 2 ? i : tc;
+      const float base = (q == 3 ? dhv : dcv) * m;
+      const float dgp =
+          q == 2 ? base * (1.f - own * own) : base * own * (1.f - own);
+      dc = dcv * f;
+      c = cp;
+      dg_s[s & 1][q * DS + u] = live ? dgp : 0.f;
+      if (live) dxp[t * gstep + g0 + (size_t)q * H] = dgp;
+      __syncthreads();
+    }
+  }
+  if (Tn > 0) dh = carry((Tn - 1) & 1);
+  if (live && q == 0) dh0[s0] = dh;
+  if (live && q == 1) dc0[s0] = dc;
+}
+
 // -- LSTM forward, tensor-core route ------------------------------------------
 
 // A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
@@ -996,6 +1113,36 @@ __device__ __forceinline__ void push4(uint32_t dst, float a, float b,
       : "memory");
 }
 
+// push4 for one float (4 bytes).
+__device__ __forceinline__ void push1(uint32_t dst, float a, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "r"(__float_as_uint(a)), "r"(bar)
+      : "memory");
+}
+
+// w_s[dst(i)] = val(i) for every i < n: a cluster-route block's slice of
+// Wh, kWInFlight loads a thread before it stores any (the prologue is
+// latency-bound, up to ~200 KB a block, and at few steps it is most of the
+// launch).
+template <typename Val, typename Dst>
+__device__ __forceinline__ void fill_w(float* w_s, int n, Val val, Dst dst) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kWInFlight * blockDim.x) {
+    float v[kWInFlight];
+#pragma unroll
+    for (int u = 0; u < kWInFlight; ++u) {
+      const int idx = i0 + u * blockDim.x;
+      v[u] = idx < n ? val(idx) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kWInFlight; ++u) {
+      const int idx = i0 + u * blockDim.x;
+      if (idx < n) w_s[dst(idx)] = v[u];
+    }
+  }
+}
+
 // Waits for the phase of parity `parity` of this block's mbarrier `bar`,
 // acquiring at cluster scope what the pushes released into it.
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
@@ -1061,28 +1208,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = Tn - 1; t >= 0 && t >= Tn - 2; --t)
       mxtt::sm90::mbar_expect_tx(&full[t & 1], step_bytes);
   }
-  // Wh's columns, kWInFlight loads a thread before it stores any: the
-  // prologue is latency-bound (up to ~200 KB a block) and at few steps it
-  // is most of the launch
-  const int wn = L.wsp * 2 * L.pu;
-  for (int i0 = threadIdx.x; i0 < wn; i0 += kWInFlight * blockDim.x) {
-    float v[kWInFlight];
-#pragma unroll
-    for (int u = 0; u < kWInFlight; ++u) {
-      const int idx = i0 + u * blockDim.x;
-      const int c = idx / (2 * L.pu), kk = idx % (2 * L.pu);
-      const int j = c >> 2, g = c & 3;
-      v[u] = idx < wn && c < L.ws && g < 3 && kk < jn
-                 ? wh[((size_t)g * H + j) * H + j0 + kk]
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kWInFlight; ++u) {
-      const int idx = i0 + u * blockDim.x;
-      if (idx < wn)
-        w_s[(size_t)(idx % (2 * L.pu)) * L.wsp + idx / (2 * L.pu)] = v[u];
-    }
-  }
+  // Wh's columns
+  const int pu2 = 2 * L.pu;
+  fill_w(
+      w_s, L.wsp * pu2,
+      [&](int idx) {
+        const int c = idx / pu2, kk = idx % pu2;
+        const int j = c >> 2, g = c & 3;
+        return c < L.ws && g < 3 && kk < jn
+                   ? wh[((size_t)g * H + j) * H + j0 + kk]
+                   : 0.f;
+      },
+      [&](int idx) { return (idx % pu2) * L.wsp + idx / pu2; });
   for (size_t idx = threadIdx.x; idx < 2 * slot; idx += blockDim.x)
     ex[idx] = 0.f;
   const int items = nn * jn;
@@ -1170,6 +1307,241 @@ __global__ void __launch_bounds__(kThreads)
     const int idx = threadIdx.x + it * blockDim.x;
     if (idx < items)
       dh0[(size_t)(n0 + idx / jn) * H + j0 + idx % jn] = dh_c[it];
+  }
+  cluster_barrier();  // no push to or from this block is still in flight
+}
+
+// -- GRU forward, cluster route -----------------------------------------------
+
+// The shared memory of a forward cluster-route block, in floats from (H,
+// NB, JB), then two mbarriers:
+// w_s [JB][3][wp]: w_s[jj][g][k] = Wh[g][j0+jj][k], zero past H: the rows
+//   of the owned units (wp = hk, plus 4 where hk is a multiple of 8, so the
+//   float4 reads of 8 neighbouring units take distinct banks);
+// ex [2][nbp][hk]: two exchange slots, each the h of the slab's rows that
+//   enters a step (hk = H rounded up to 4, zero past H), which every block
+//   of the cluster writes;
+// part [2][s][nbp][3][JB]: the partial sums of the s chunks of the
+//   reduction over k, double-buffered.
+// A thread of the product owns one unit and one chunk of ch float4
+// columns, and walks the rows rt at a time.
+struct ClusterFwdLayout {
+  int hk, wp, s, ch, rt, nbp;
+  size_t ex, part, part_slot, bar, bytes;
+};
+
+__host__ __device__ inline ClusterFwdLayout cluster_fwd_layout(int H, int NB,
+                                                               int JB) {
+  ClusterFwdLayout L;
+  L.hk = (H + 3) / 4 * 4;
+  L.wp = L.hk % 8 ? L.hk : L.hk + 4;
+  const int k4 = L.hk / 4;
+  int s = kThreads / JB;
+  s = s < 1 ? 1 : (s > k4 ? k4 : s);
+  L.ch = (k4 + s - 1) / s;
+  L.s = (k4 + L.ch - 1) / L.ch;  // no empty chunk
+  L.rt = NB >= 3 ? 4 : NB;
+  L.nbp = (NB + L.rt - 1) / L.rt * L.rt;
+  L.ex = (size_t)JB * 3 * L.wp;
+  L.part = L.ex + (size_t)2 * L.nbp * L.hk;
+  L.part_slot = (size_t)L.s * L.nbp * 3 * JB;
+  L.bar = (L.part + 2 * L.part_slot + 1) / 2 * 2;  // 8-byte aligned
+  L.bytes = (L.bar + 4) * sizeof(float);
+  return L;
+}
+
+// part[s][n][g][jj] = sum over the float4 columns of chunk s of ex[n] .
+// w_s[jj][g], for every row n < nn (rounded up to RT), every unit jj < JB
+// and the three gates, two partial sums each added at the end; all in a
+// fixed order.
+template <int RT>
+__device__ __forceinline__ void cluster_fwd_products(
+    float* part, const float* w_s, const float* ex, const ClusterFwdLayout L,
+    int nn, int JB) {
+  const int k4 = L.hk / 4, wq = L.wp / 4;
+  for (int it = threadIdx.x; it < JB * L.s; it += blockDim.x) {
+    const int jj = it % JB, s = it / JB;
+    const int k0 = s * L.ch, k1 = min(k0 + L.ch, k4);
+    const float4* wr =
+        reinterpret_cast<const float4*>(w_s + (size_t)jj * 3 * L.wp);
+    for (int r0 = 0; r0 < nn; r0 += RT) {
+      float acc[RT][3][2];
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) acc[r][g][0] = acc[r][g][1] = 0.f;
+      for (int k = k0; k < k1; ++k) {
+        const float4 w[3] = {wr[k], wr[wq + k], wr[2 * wq + k]};
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float4 h =
+              reinterpret_cast<const float4*>(ex + (size_t)(r0 + r) * L.hk)[k];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[r][g][0] = fmaf(h.x, w[g].x, acc[r][g][0]);
+            acc[r][g][1] = fmaf(h.y, w[g].y, acc[r][g][1]);
+          }
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[r][g][0] = fmaf(h.z, w[g].z, acc[r][g][0]);
+            acc[r][g][1] = fmaf(h.w, w[g].w, acc[r][g][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          part[((size_t)(s * L.nbp + r0 + r) * 3 + g) * JB + jj] =
+              acc[r][g][0] + acc[r][g][1];
+    }
+  }
+}
+
+// The inputs and outputs of gru_fwd_kernel (no hbuf, no bar).  Grid (C,
+// row slabs) in clusters of C = ceil(H/JB) blocks along x: the cluster of
+// slab y owns rows [y*NB, y*NB+NB), its block k units [k*JB, k*JB+JB).
+// Slot 0 of every block starts as the slab's h0; h_t for t >= 1 lands in
+// slot t&1.  A step t: each block waits on its mbarrier of slot t&1 until
+// all C blocks' pushes of h_t have landed (nn*H*4 bytes; not at t = 0),
+// forms its partial products of the slot with its rows of Wh, a
+// __syncthreads, then each (row, unit) item of the block (at most kItems a
+// thread, its h carried in a register) adds the partials and bh in a fixed
+// order, takes the activations with x_proj loaded kClusterAhead steps
+// before, pushes h_{t+1} into slot (t+1)&1 of every block of the cluster
+// with st.async (4 bytes, counted on that block's mbarrier), then stores
+// ys, gates and hnlin.  No barrier across blocks a step: a block pushes
+// h_{t+2} only after all of h_{t+1} has reached it, which every other
+// block sent only after its products of step t had read the slot now
+// written, so two slots suffice (and two buffers of partials, the
+// __syncthreads of step t+1 lying between the reads of step t and the
+// writes of step t+2).  Cluster barriers only after the set-up and before
+// exit.  The launch bounds state at least one block an SM: without it
+// nvcc held some instantiations to 80 registers and spilled.
+template <typename T, int RT>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_fwd_cluster_kernel(const T* __restrict__ xp,
+                           const float* __restrict__ wh,
+                           const float* __restrict__ bh,
+                           const float* __restrict__ h0, T* __restrict__ ys,
+                           T* __restrict__ hn, float* __restrict__ gates,
+                           float* __restrict__ hnlin, int Tn, int N, int H,
+                           int NB, int JB) {
+  extern __shared__ __align__(16) float cl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const ClusterFwdLayout L = cluster_fwd_layout(H, NB, JB);
+  const int C = (H + JB - 1) / JB;
+  const int j0 = (int)cluster.block_rank() * JB, jn = min(JB, H - j0);
+  const int n0 = blockIdx.y * NB, nn = min(NB, N - n0);
+  float* w_s = cl_smem;
+  float* ex = cl_smem + L.ex;
+  float* part = cl_smem + L.part;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cl_smem + L.bar);
+  const size_t slot = (size_t)L.nbp * L.hk;
+  const uint32_t step_bytes = (uint32_t)nn * H * 4;
+  if (threadIdx.x == 0) {
+    mxtt::sm90::mbar_init(&full[0], 1);
+    mxtt::sm90::mbar_init(&full[1], 1);
+    mxtt::sm90::mbar_init_fence();
+    for (int t = 1; t <= 2 && t < Tn; ++t)  // h_1 and h_2
+      mxtt::sm90::mbar_expect_tx(&full[t & 1], step_bytes);
+  }
+  // Wh's rows of the owned units
+  fill_w(
+      w_s, JB * 3 * L.wp,
+      [&](int idx) {
+        const int row = idx / L.wp, k = idx % L.wp;
+        const int jj = row / 3, g = row % 3;
+        return jj < jn && k < H ? wh[((size_t)g * H + j0 + jj) * H + k] : 0.f;
+      },
+      [](int idx) { return idx; });
+  for (int idx = threadIdx.x; idx < (int)(2 * slot); idx += blockDim.x) {
+    const int n = idx / L.hk, k = idx % L.hk;  // slot 0's rows come first
+    ex[idx] = n < nn && k < H ? h0[(size_t)(n0 + n) * H + k] : 0.f;
+  }
+  const int items = nn * jn;
+  // x_proj of steps t .. t + kClusterAhead - 1 in xr[it][0 ..]: a step
+  // shifts the ring by one and loads the step kClusterAhead ahead, so each
+  // move reads a load issued a step (microseconds) before
+  float hc[kItems], bz[kItems][3];
+  T xr[kItems][kClusterAhead][3];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * blockDim.x;
+    hc[it] = 0.f;
+    if (idx < items) {
+      const int m = n0 + idx / jn, j = j0 + idx % jn;
+      hc[it] = h0[(size_t)m * H + j];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) bz[it][g] = bh[g * H + j];
+#pragma unroll
+      for (int d = 0; d < kClusterAhead; ++d)
+        if (d < Tn)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            xr[it][d][g] = xp[(((size_t)d * N + m) * 3 + g) * H + j];
+    }
+  }
+  // every block has started, filled its slots and set up its mbarriers
+  cluster_barrier();
+  for (int t = 0; t < Tn; ++t) {
+    if (t > 0) {
+      mbar_wait_cluster(&full[t & 1], (uint32_t)((t - 1) >> 1) & 1u);
+      if (threadIdx.x == 0 && t + 2 < Tn)  // the slot's next use: h_{t+2}
+        mxtt::sm90::mbar_expect_tx(&full[t & 1], step_bytes);
+    }
+    float* part_t = part + (t & 1) * L.part_slot;
+    cluster_fwd_products<RT>(part_t, w_s, ex + (t & 1) * slot, L, nn, JB);
+    __syncthreads();
+    float* ex_u = ex + ((t + 1) & 1) * slot;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int idx = threadIdx.x + it * blockDim.x;
+      if (idx >= items) continue;
+      const int n = idx / jn, jj = idx % jn, j = j0 + jj;
+      float gh[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float v = 0.f;
+        for (int s = 0; s < L.s; ++s)
+          v += part_t[((size_t)(s * L.nbp + n) * 3 + g) * JB + jj];
+        gh[g] = v + bz[it][g];
+      }
+      const float x0 = to_f(xr[it][0][0]), x1 = to_f(xr[it][0][1]);
+      const float x2 = to_f(xr[it][0][2]);
+      const size_t row = (size_t)t * N + n0 + n;
+#pragma unroll
+      for (int d = 0; d + 1 < kClusterAhead; ++d)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) xr[it][d][g] = xr[it][d + 1][g];
+      if (t + kClusterAhead < Tn)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          xr[it][kClusterAhead - 1][g] =
+              xp[((row + (size_t)kClusterAhead * N) * 3 + g) * H + j];
+      const float r = sigmoid_f(x0 + gh[0]);
+      const float z = sigmoid_f(x1 + gh[1]);
+      const float nv = tanhf(x2 + r * gh[2]);
+      const float h = (1.f - z) * nv + z * hc[it];
+      hc[it] = h;
+      if (t + 1 < Tn) {
+        const float* e = ex_u + (size_t)n * L.hk + j;
+        for (int p = 0; p < C; ++p)
+          push1(cluster_addr(e, p), h, cluster_addr(&full[(t + 1) & 1], p));
+      }
+      ys[row * H + j] = from_f<T>(h);
+      float* gt = gates + row * 3 * H + j;
+      gt[0] = r;
+      gt[H] = z;
+      gt[2 * H] = nv;
+      hnlin[row * H + j] = gh[2];
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * blockDim.x;
+    if (idx < items)
+      hn[(size_t)(n0 + idx / jn) * H + j0 + idx % jn] = from_f<T>(hc[it]);
   }
   cluster_barrier();  // no push to or from this block is still in flight
 }
@@ -1354,17 +1726,28 @@ bool bad_plan(int Tn, int N, int H, int NB, int JB) {
          tiles(N, NB) > 65535;
 }
 
-size_t cluster_smem(int H, int NB, int JB) {
-  return cluster_layout(H, NB, JB).bytes;
+// A cluster-route block's shared memory, backward or forward layout.
+size_t cluster_smem(bool backward, int H, int NB, int JB) {
+  return backward ? cluster_layout(H, NB, JB).bytes
+                  : cluster_fwd_layout(H, NB, JB).bytes;
 }
 
 // Whether (NB, JB) is a cluster-route plan of (N, H) within `budget`
 // bytes of shared memory a block.
-bool cluster_fits(int N, int H, int NB, int JB, size_t budget) {
+bool cluster_fits(bool backward, int N, int H, int NB, int JB,
+                  size_t budget) {
   return NB >= 1 && JB >= 1 && JB <= H && N >= 1 &&
          tiles(H, JB) <= kClusterMax &&
          (long long)NB * JB <= (long long)kItems * kThreads &&
-         tiles(N, NB) <= 65535 && cluster_smem(H, NB, JB) <= budget;
+         tiles(N, NB) <= 65535 && cluster_smem(backward, H, NB, JB) <= budget;
+}
+
+// The forward cluster kernel for rows walked rt at a time.
+template <typename T>
+auto gru_fwd_cluster_for(int rt) {
+  return rt == 1   ? gru_fwd_cluster_kernel<T, 1>
+         : rt == 2 ? gru_fwd_cluster_kernel<T, 2>
+                   : gru_fwd_cluster_kernel<T, 4>;
 }
 
 // The launch configuration of a cluster-route kernel over C x rows blocks
@@ -1395,28 +1778,34 @@ cudaError_t cluster_config(K* kernel, int C, int rows, size_t smem,
   return cudaOccupancyMaxActiveClusters(active, kernel, cfg);
 }
 
-// The cluster route's plan of the GRU backward: the smallest cluster
-// (a power of two up to kClusterMax) whose blocks own at most
+// The cluster route's plan of the GRU backward or forward: the smallest
+// cluster (a power of two up to kClusterMax) whose blocks own at most
 // kClusterUnits units each (any number at kClusterMax) and fit `budget`,
 // and whose clusters the device holds all at once; NB rows a cluster so
 // that the clusters' blocks about cover the SMs, fewer where the shared
 // memory or kItems a thread ask for it.  cudaErrorInvalidConfiguration
 // where none fits.
-cudaError_t plan_cluster(int N, int H, int sms, size_t budget, int* NB_out,
-                         int* JB_out) {
+cudaError_t plan_cluster(bool backward, int N, int H, int sms, size_t budget,
+                         int* NB_out, int* JB_out) {
   for (int c = 1; c <= kClusterMax; c *= 2) {
     const int JB = tiles(H, c);
     if (JB > kClusterUnits && c < kClusterMax) continue;
     const int C = tiles(H, JB);
     int NB = std::max(1, std::min(N, tiles(N * C, sms)));
-    while (NB > 1 && !cluster_fits(N, H, NB, JB, budget)) NB = tiles(NB, 2);
-    if (!cluster_fits(N, H, NB, JB, budget)) continue;
+    while (NB > 1 && !cluster_fits(backward, N, H, NB, JB, budget))
+      NB = tiles(NB, 2);
+    if (!cluster_fits(backward, N, H, NB, JB, budget)) continue;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     int active = 0;
+    const size_t smem = cluster_smem(backward, H, NB, JB);
     cudaError_t err =
-        cluster_config(gru_bwd_cluster_kernel<float>, C, 1,
-                       cluster_smem(H, NB, JB), nullptr, &cfg, &attr, &active);
+        backward
+            ? cluster_config(gru_bwd_cluster_kernel<float>, C, 1, smem,
+                             nullptr, &cfg, &attr, &active)
+            : cluster_config(
+                  gru_fwd_cluster_for<float>(cluster_fwd_layout(H, NB, JB).rt),
+                  C, 1, smem, nullptr, &cfg, &attr, &active);
     if (err != cudaSuccess) return err;
     // every cluster resident at once: a second wave would pay the T
     // steps' latency again (slower than the split route on an H100)
@@ -1432,11 +1821,13 @@ cudaError_t plan_cluster(int N, int H, int sms, size_t budget, int* NB_out,
 // batch rows a block (a cluster, on the cluster route) and JB hidden units
 // a block.  want < 0 takes the kernel's own choice: for the LSTM forward
 // the tensor-core route at N >= kMmaMinN and even H <= kMmaMaxH, else the
-// register route at H <= kRegMaxH; the cluster route for the GRU backward
-// where plan_cluster finds one; else the split route.  want >= 0 asks for
-// that route.  Returns cudaSuccess, cudaErrorInvalidConfiguration
-// where the route has no plan for the kernel and size, or the error of a
-// device query.
+// register route at H <= kRegMaxH; the register route for the LSTM
+// backward at H <= kRegMaxH; the cluster route for the GRU backward, and
+// for the GRU forward at H >= kClusterFwdMinH, where plan_cluster finds
+// one; else the split route.  want >= 0 asks for that
+// route.  Returns cudaSuccess, cudaErrorInvalidConfiguration where the
+// route has no plan for the kernel and size, or the error of a device
+// query.
 cudaError_t plan_recurrence(int G, bool backward, int N, int H, int want,
                             int* route, int* NB_out, int* JB_out) {
   if (N < 1 || H < 1 || (G != 3 && G != 4) || want > ROUTE_MMA)
@@ -1450,7 +1841,7 @@ cudaError_t plan_recurrence(int G, bool backward, int N, int H, int want,
                                dev);
   if (err != cudaSuccess) return err;
   const size_t budget = std::min(kSmemBudget, (size_t)optin);
-  const bool lstm_fwd = G == 4 && !backward, gru_bwd = G == 3 && backward;
+  const bool lstm_fwd = G == 4 && !backward, gru = G == 3;
   const bool mma_ok = lstm_fwd && H <= kMmaMaxH && H % 2 == 0;
   if (want == ROUTE_MMA || (want < 0 && mma_ok && N >= kMmaMinN)) {
     if (!mma_ok) return cudaErrorInvalidConfiguration;
@@ -1459,16 +1850,17 @@ cudaError_t plan_recurrence(int G, bool backward, int N, int H, int want,
     *JB_out = H;
     return cudaSuccess;
   }
-  if (want == ROUTE_REG || (want < 0 && lstm_fwd && H <= kRegMaxH)) {
-    if (!lstm_fwd || H > kRegMaxH) return cudaErrorInvalidConfiguration;
+  if (want == ROUTE_REG || (want < 0 && !gru && H <= kRegMaxH)) {
+    if (gru || H > kRegMaxH) return cudaErrorInvalidConfiguration;
     *route = ROUTE_REG;
     *NB_out = 1;
     *JB_out = H;
     return cudaSuccess;
   }
-  if (want == ROUTE_CLUSTER || (want < 0 && gru_bwd)) {
-    if (!gru_bwd) return cudaErrorInvalidConfiguration;
-    err = plan_cluster(N, H, sms, budget, NB_out, JB_out);
+  if (want == ROUTE_CLUSTER ||
+      (want < 0 && gru && (backward || H >= kClusterFwdMinH))) {
+    if (!gru) return cudaErrorInvalidConfiguration;
+    err = plan_cluster(backward, N, H, sms, budget, NB_out, JB_out);
     if (err == cudaSuccess) *route = ROUTE_CLUSTER;
     if (err != cudaErrorInvalidConfiguration || want == ROUTE_CLUSTER)
       return err;
@@ -1490,17 +1882,13 @@ cudaError_t lstm_fwd(const void* xp, const float* wh, const float* h0,
       gates, cs, hbuf, bar, Tn, N, H, NB, JB);
 }
 
-// The register route over N blocks of 4*KP threads, KP = H rounded up to 8.
-template <typename T>
-cudaError_t lstm_fwd_reg(const void* xp, const float* wh, const float* h0,
-                         const float* c0, void* ys, void* hn, void* cn,
-                         float* gates, float* cs, int Tn, int N, int H,
-                         cudaStream_t stream) {
-#define MXTT_REG_CASE(KP)                                                    \
-  case KP:                                                                   \
-    lstm_fwd_reg_kernel<T, KP><<<(unsigned)N, 4 * KP, 0, stream>>>(          \
-        static_cast<const T*>(xp), wh, h0, c0, static_cast<T*>(ys),          \
-        static_cast<T*>(hn), static_cast<T*>(cn), gates, cs, Tn, N, H);      \
+// f(std::integral_constant<int, KP>()) for KP = H rounded up to 8, the
+// register routes' instantiations (H <= kRegMaxH), then the launch's error.
+template <typename F>
+cudaError_t reg_dispatch(int H, F&& f) {
+#define MXTT_REG_CASE(KP)                  \
+  case KP:                                 \
+    f(std::integral_constant<int, KP>());  \
     break;
   switch ((H + 7) / 8 * 8) {
     MXTT_REG_CASE(8)
@@ -1520,6 +1908,31 @@ cudaError_t lstm_fwd_reg(const void* xp, const float* wh, const float* h0,
   }
 #undef MXTT_REG_CASE
   return cudaGetLastError();
+}
+
+// The register routes over N blocks of 4*KP threads.
+template <typename T>
+cudaError_t lstm_fwd_reg(const void* xp, const float* wh, const float* h0,
+                         const float* c0, void* ys, void* hn, void* cn,
+                         float* gates, float* cs, int Tn, int N, int H,
+                         cudaStream_t stream) {
+  return reg_dispatch(H, [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    lstm_fwd_reg_kernel<T, KP><<<(unsigned)N, 4 * KP, 0, stream>>>(
+        static_cast<const T*>(xp), wh, h0, c0, static_cast<T*>(ys),
+        static_cast<T*>(hn), static_cast<T*>(cn), gates, cs, Tn, N, H);
+  });
+}
+
+cudaError_t lstm_bwd_reg(const float* dys, const float* gates, const float* cs,
+                         const float* c0, const float* wh, const float* dhn,
+                         const float* dcn, float* dxp, float* dh0, float* dc0,
+                         int Tn, int N, int H, cudaStream_t stream) {
+  return reg_dispatch(H, [&](auto kp) {
+    constexpr int KP = decltype(kp)::value;
+    lstm_bwd_reg_kernel<KP><<<(unsigned)N, 4 * KP, 0, stream>>>(
+        dys, gates, cs, c0, wh, dhn, dcn, dxp, dh0, dc0, Tn, N, H);
+  });
 }
 
 // The tensor-core route over N/16 blocks of 32*KS threads, KS = H/8
@@ -1559,11 +1972,37 @@ cudaError_t lstm_fwd_mma(const void* xp, const float* wh, const float* h0,
   return cudaGetLastError();
 }
 
+// The GRU forward's recurrence on the cluster route, checked as
+// gru_bwd_cluster below.
+template <typename T>
+cudaError_t gru_fwd_cluster(const void* xp, const float* wh, const float* bh,
+                            const float* h0, void* ys, void* hn, float* gates,
+                            float* hnlin, int Tn, int N, int H, int NB, int JB,
+                            cudaStream_t stream) {
+  const auto kernel = gru_fwd_cluster_for<T>(cluster_fwd_layout(H, NB, JB).rt);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  cudaError_t err =
+      cluster_config(kernel, tiles(H, JB), tiles(N, NB),
+                     cluster_smem(false, H, NB, JB), stream, &cfg, &attr,
+                     &active);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xp), wh, bh,
+                            h0, static_cast<T*>(ys), static_cast<T*>(hn),
+                            gates, hnlin, Tn, N, H, NB, JB);
+}
+
 template <typename T>
 cudaError_t gru_fwd(const void* xp, const float* wh, const float* bh,
                     const float* h0, void* ys, void* hn, float* gates,
                     float* hnlin, float* hbuf, unsigned int* bar, int Tn,
-                    int N, int H, int NB, int JB, cudaStream_t stream) {
+                    int N, int H, int route, int NB, int JB,
+                    cudaStream_t stream) {
+  if (route == ROUTE_CLUSTER)
+    return gru_fwd_cluster<T>(xp, wh, bh, h0, ys, hn, gates, hnlin, Tn, N, H,
+                              NB, JB, stream);
   return launch_recurrence(
       gru_fwd_kernel<T>, tiles(H, JB), tiles(N, NB),
       fwd_smem(3, H, NB, JB, false), stream, static_cast<const T*>(xp), wh,
@@ -1586,7 +2025,7 @@ cudaError_t gru_bwd_cluster(const float* dys, const float* gates,
   cudaLaunchAttribute attr;
   int active = 0;
   cudaError_t err = cluster_config(gru_bwd_cluster_kernel<T>, tiles(H, JB),
-                                   tiles(N, NB), cluster_smem(H, NB, JB),
+                                   tiles(N, NB), cluster_smem(true, H, NB, JB),
                                    stream, &cfg, &attr, &active);
   if (err != cudaSuccess) return err;
   if (active < 1) return cudaErrorInvalidConfiguration;
@@ -1617,14 +2056,16 @@ cudaError_t gru_bwd(const float* dys, const float* gates, const float* hnlin,
                       H, P, stream);
 }
 
-// Whether the current device lets a block take `bytes` of shared memory.
-bool smem_ok(size_t bytes) {
+// Whether (NB, JB) is a cluster-route plan of (N, H) whose shared memory
+// the current device lets a block take.
+bool cluster_plan_ok(bool backward, int N, int H, int NB, int JB) {
   int dev = 0, optin = 0;
-  return cudaGetDevice(&dev) == cudaSuccess &&
+  return cluster_fits(backward, N, H, NB, JB, ~(size_t)0) &&
+         cudaGetDevice(&dev) == cudaSuccess &&
          cudaDeviceGetAttribute(&optin,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                 dev) == cudaSuccess &&
-         bytes <= (size_t)optin;
+         cluster_smem(backward, H, NB, JB) <= (size_t)optin;
 }
 
 }  // namespace
@@ -1682,23 +2123,30 @@ extern "C" int mxtt_lstm_fwd(const void* xp, const float* wh,
 
 // All fp32 but ys (dtype as above), read as h_prev by the dW product.
 // part is a (P, 4H, H) fp32 scratch.  Out: dxp (Tn, N, 4H), dwh (4H, H),
-// dh0, dc0 (N, H).  The split route only.
+// dh0, dc0 (N, H).  The split or the register route (bar null on the
+// register route).
 extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
                              const float* cs, const float* h0,
                              const float* c0, const void* ys,
                              const float* wh, const float* dhn,
                              const float* dcn, float* dxp, float* dwh,
                              float* dh0, float* dc0, float* part,
-                             unsigned int* bar, int Tn, int N, int H, int NB,
-                             int JB, int P, int dtype, void* stream) {
+                             unsigned int* bar, int Tn, int N, int H,
+                             int route, int NB, int JB, int P, int dtype,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535 || dtype < 0 ||
-      dtype > 1)
+      dtype > 1 || (route != ROUTE_SPLIT && route != ROUTE_REG) ||
+      (route == ROUTE_REG && (NB != 1 || JB != H || H > kRegMaxH)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_recurrence(
-      lstm_bwd_kernel, tiles(H, JB), tiles(N, NB), bwd_smem(4, H, NB, JB),
-      st, dys, gates, cs, c0, wh, dhn, dcn, dxp, dh0, dc0, bar, Tn, N, H, NB,
-      JB);
+  cudaError_t err =
+      route == ROUTE_REG
+          ? lstm_bwd_reg(dys, gates, cs, c0, wh, dhn, dcn, dxp, dh0, dc0, Tn,
+                         N, H, st)
+          : launch_recurrence(lstm_bwd_kernel, tiles(H, JB), tiles(N, NB),
+                              bwd_smem(4, H, NB, JB), st, dys, gates, cs, c0,
+                              wh, dhn, dcn, dxp, dh0, dc0, bar, Tn, N, H, NB,
+                              JB);
   if (err != cudaSuccess) return (int)err;
   const long long M = (long long)Tn * N;
   if (dtype == 0)
@@ -1708,22 +2156,25 @@ extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
                                        4, H, P, st);
 }
 
-// As mxtt_lstm_fwd, for the GRU (the split route only): bh (3H) fp32;
-// hnlin (Tn, N, H) fp32.
+// As mxtt_lstm_fwd, for the GRU, on the split or the cluster route (hbuf
+// and bar null on the cluster route): bh (3H) fp32; hnlin (Tn, N, H) fp32.
 extern "C" int mxtt_gru_fwd(const void* xp, const float* wh, const float* bh,
                             const float* h0, void* ys, void* hn,
                             float* gates, float* hnlin, float* hbuf,
-                            unsigned int* bar, int Tn, int N, int H, int NB,
-                            int JB, int dtype, void* stream) {
+                            unsigned int* bar, int Tn, int N, int H,
+                            int route, int NB, int JB, int dtype,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_plan(Tn, N, H, NB, JB)) return (int)cudaErrorInvalidValue;
+  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 1 ||
+      (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
+    return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_CLUSTER && !cluster_plan_ok(false, N, H, NB, JB))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)gru_fwd<float>(xp, wh, bh, h0, ys, hn, gates, hnlin, hbuf,
-                               bar, Tn, N, H, NB, JB, st);
-  if (dtype == 1)
-    return (int)gru_fwd<__nv_bfloat16>(xp, wh, bh, h0, ys, hn, gates, hnlin,
-                                       hbuf, bar, Tn, N, H, NB, JB, st);
-  return (int)cudaErrorInvalidValue;
+                               bar, Tn, N, H, route, NB, JB, st);
+  return (int)gru_fwd<__nv_bfloat16>(xp, wh, bh, h0, ys, hn, gates, hnlin,
+                                     hbuf, bar, Tn, N, H, route, NB, JB, st);
 }
 
 // As mxtt_lstm_bwd, for the GRU, on the split or the cluster route (bar
@@ -1741,9 +2192,7 @@ extern "C" int mxtt_gru_bwd(const float* dys, const float* gates,
   if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535 || dtype < 0 ||
       dtype > 1 || (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
     return (int)cudaErrorInvalidValue;
-  if (route == ROUTE_CLUSTER &&
-      !(cluster_fits(N, H, NB, JB, ~(size_t)0) &&
-        smem_ok(cluster_smem(H, NB, JB))))
+  if (route == ROUTE_CLUSTER && !cluster_plan_ok(true, N, H, NB, JB))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)gru_bwd<float>(dys, gates, hnlin, ys, h0, wh, dhn, dxp, dgh,

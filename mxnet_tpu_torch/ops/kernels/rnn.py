@@ -18,12 +18,14 @@ what bounds them on an H100 and how they are built.
   failed launch).  :func:`plan` picks the kernel's route before the
   launch: for the LSTM forward ``"mma"`` (3xTF32 tensor-core tiles of 16
   rows) at N >= 896 and even H <= 64, else ``"reg"`` (Wh in registers) at
-  H <= 96; ``"cluster"`` for the GRU backward where Wh's columns fit a
-  cluster of blocks and the card holds all the clusters at once; else
-  ``"split"`` (Wh in shared memory, units split over the blocks of a
-  cooperative launch where it does not fit one).
-  The counts of ``lstm_fwd`` and ``gru_bwd`` add one per launch under
-  ``<route>_launches`` beside ``launches``.
+  H <= 96; ``"reg"`` for the LSTM backward at H <= 96 (a column of Wh in
+  registers); ``"cluster"`` for the GRU backward, and for the GRU forward
+  at H >= 64, where the blocks of a cluster hold Wh's columns (rows) and
+  the card holds all the clusters at once; else ``"split"`` (Wh in shared
+  memory, units split over the blocks of a cooperative launch where it
+  does not fit one).
+  Each count adds one per launch under ``<route>_launches`` beside
+  ``launches``.
 - :func:`input_projection` is the layers' input GEMM, outside the
   recurrence: one call with the bias.
 - :func:`lstm_layer` and :func:`gru_layer` are the differentiable entries
@@ -54,8 +56,8 @@ _ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
 
 lstm_fwd_counts = KernelCounts("split_launches", "reg_launches",
                                "mma_launches")
-lstm_bwd_counts = KernelCounts()
-gru_fwd_counts = KernelCounts()
+lstm_bwd_counts = KernelCounts("split_launches", "reg_launches")
+gru_fwd_counts = KernelCounts("split_launches", "cluster_launches")
 gru_bwd_counts = KernelCounts("split_launches", "cluster_launches")
 library = KernelLibrary("rnn.cu")
 
@@ -220,8 +222,11 @@ def plan(G, backward, N, H, dev, route=None):
     backward) on the CUDA device ``dev``.  ``mxtt_rnn_plan`` in
     ``csrc/rnn.cu`` makes it from the kernels' own shared-memory layouts
     and the device's SMs; ``route`` asks for one route, else the kernel
-    takes its own.  Cached per (G, backward, N, H, device, route); a size
-    that no plan fits raises :class:`MXNetError`."""
+    takes its own (the module's docstring gives the rule): ``"reg"`` takes
+    the LSTM's two directions, ``"mma"`` its forward, ``"cluster"`` the
+    GRU's two directions, ``"split"`` all four.  Cached per (G, backward,
+    N, H, device, route); a size that no plan fits raises
+    :class:`MXNetError`."""
     key = (G, bool(backward), N, H, dev, route)
     got = _plans.get(key)
     if got is not None:
@@ -385,14 +390,21 @@ def _lstm_fwd(x_proj, wh, h0, c0, route=None):
 
 def lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn):
     """``(dxp, dwh, dh0, dc0)`` fp32 as :func:`lstm_bwd_plain`: the plain
-    version on the CPU; on CUDA the backward kernel, then the
-    weight-gradient product and its fixed-order sum (one wrapper call)."""
+    version on the CPU; on CUDA the backward kernel on the route of
+    :func:`plan`, then the weight-gradient product and its fixed-order sum
+    (one wrapper call)."""
+    return _lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn)
+
+
+def _lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn, route=None):
+    """:func:`lstm_bwd`; ``route`` pins a route (with its plan from
+    :func:`plan`)."""
     T, N, H = _check_bwd("lstm_bwd", ys, 4, wh, gates, (cs, dys),
                          (h0, c0, dhn, dcn))
     if not ys.is_cuda:
         return lstm_bwd_plain(wh, h0, c0, ys, gates, cs, dys, dhn, dcn)
     dev = ys.device
-    _, NB, JB = plan(4, True, N, H, dev)
+    rt, NB, JB = plan(4, True, N, H, dev, route)
     ins = _f32(dys, gates, cs, h0, c0, wh, dhn, dcn)
     dxp = torch.empty(T, N, 4 * H, device=dev)
     dwh = torch.empty(4 * H, H, device=dev)
@@ -400,35 +412,43 @@ def lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn):
     dc0 = torch.empty(N, H, device=dev)
     P = dw_slabs(T * N, 4 * H, H, _sms(dev))
     part = torch.empty(P, 4 * H, H, device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _bind(library.load(), "mxtt_lstm_bwd", 15, 7)
+    _, bar = _split_scratch(rt, None, dev)
+    fn = _bind(library.load(), "mxtt_lstm_bwd", 15, 8)
     _launch(fn, "lstm_bwd",
             (*ins[:5], ys.contiguous(), *ins[5:], dxp, dwh, dh0, dc0, part,
-             bar), (T, N, H, NB, JB, P, _DTYPE_CODES[ys.dtype]), dev)
-    lstm_bwd_counts.add("launches")
+             bar), (T, N, H, ROUTES[rt], NB, JB, P, _DTYPE_CODES[ys.dtype]),
+            dev)
+    lstm_bwd_counts.add("launches", f"{rt}_launches")
     return dxp, dwh, dh0, dc0
 
 
 def gru_fwd(x_proj, wh, bh, h0):
     """``(ys, hn, gates, hn_lin)`` as :func:`gru_fwd_plain`: the plain
-    version on the CPU, one launch of the forward kernel on CUDA."""
+    version on the CPU, one launch of the forward kernel on CUDA, on the
+    route of :func:`plan`."""
+    return _gru_fwd(x_proj, wh, bh, h0)
+
+
+def _gru_fwd(x_proj, wh, bh, h0, route=None):
+    """:func:`gru_fwd`; ``route`` pins a route or a whole plan, as
+    :func:`_gru_bwd`'s."""
     T, N, H = _check("gru_fwd", x_proj, 3, wh, (h0,), bh)
     if not x_proj.is_cuda:
         return gru_fwd_plain(x_proj, wh, bh, h0)
     dev, dt = x_proj.device, x_proj.dtype
-    _, NB, JB = plan(3, False, N, H, dev)
+    rt, NB, JB = route if isinstance(route, tuple) else \
+        plan(3, False, N, H, dev, route)
     xp = x_proj.contiguous()
     w, b, h0f = _f32(wh, bh, h0)
     ys = torch.empty(T, N, H, dtype=dt, device=dev)
     hn = torch.empty(N, H, dtype=dt, device=dev)
     gates = torch.empty(T, N, 3, H, device=dev)
     hn_lin = torch.empty(T, N, H, device=dev)
-    hbuf = torch.empty(2, N, H, device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _bind(library.load(), "mxtt_gru_fwd", 10, 6)
+    hbuf, bar = _split_scratch(rt, (2, N, H), dev)
+    fn = _bind(library.load(), "mxtt_gru_fwd", 10, 7)
     _launch(fn, "gru_fwd", (xp, w, b, h0f, ys, hn, gates, hn_lin, hbuf, bar),
-            (T, N, H, NB, JB, _DTYPE_CODES[dt]), dev)
-    gru_fwd_counts.add("launches")
+            (T, N, H, ROUTES[rt], NB, JB, _DTYPE_CODES[dt]), dev)
+    gru_fwd_counts.add("launches", f"{rt}_launches")
     return ys, hn, gates, hn_lin
 
 

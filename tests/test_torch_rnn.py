@@ -48,8 +48,10 @@ def _t(*arrays):
     return [torch.from_numpy(a.copy()) for a in arrays]
 
 
-# (6, 19, 40): DeepAR's width over more rows than one 16-row tile
-@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (6, 19, 40)])
+# (6, 19, 40): DeepAR's width over more rows than one 16-row tile;
+# (4, 32, 40): DeepAR training's rows and width
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (6, 19, 40),
+                                   (4, 32, 40)])
 def test_lstm_plain_matches_jax_kernel(interpret_pallas, T, N, H):
     import jax
     import jax.numpy as jnp
@@ -79,8 +81,10 @@ def test_lstm_plain_matches_jax_kernel(interpret_pallas, T, N, H):
                                    **GRAD_TOL)
 
 
-# (4, 5, 200): the GRU phase's width, which the cluster route takes
-@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (4, 5, 200)])
+# (4, 5, 200): the GRU phase's width, which the cluster routes take;
+# (3, 32, 200): the GRU phase's rows and width
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (4, 5, 200),
+                                   (3, 32, 200)])
 def test_gru_plain_matches_jax_kernel(interpret_pallas, T, N, H):
     import jax
     import jax.numpy as jnp
@@ -163,6 +167,138 @@ def test_tf32x3_products_keep_the_lstm_forward_within_card_tol(T, N, H):
     exact = a["xp"][0] + a["h0"].astype(np.float64) @ w.T.astype(np.float64)
     three = a["xp"][0] + _tf32x3_matmul(a["h0"], w.T)
     assert np.abs(one - exact).max() > 10 * np.abs(three - exact).max()
+
+
+def _lstm_bwd_register_order(a, ys, gates, cs):
+    """The LSTM backward as its register route sums, in fp32 numpy: per
+    step, lane (u, q) forms sum_j dgp_q[j] * Wh[q][j][u] in four
+    interleaved partial sums (j mod 4) over Wh's column zero-padded to KP
+    (H rounded up to 8), each quad's four partials are added in the fixed
+    order ((p_i + p_f) + p_g) + p_o, and dh, dc carry over.  Returns
+    ``(dxp, dwh, dh0, dc0)``, dwh as one product after the recurrence."""
+    T, N, H = ys.shape
+    KP = -(-H // 8) * 8
+    w = np.zeros((4, KP, H), np.float32)  # w[q, j, u] = Wh[q][j][u]
+    w[:, :H] = a["wh"].reshape(4, H, H)
+    dh, dc = a["dhn"], a["dcn"]
+    dg = np.zeros((N, 4, KP), np.float32)
+    dxp = np.zeros((T, N, 4, H), np.float32)
+    one = np.float32(1)
+    for t in reversed(range(T)):
+        if t < T - 1:
+            acc = np.zeros((4, N, 4, H), np.float32)  # partial m, n, q, u
+            for k4 in range(KP // 4):
+                for m in range(4):
+                    j = 4 * k4 + m
+                    acc[m] += dg[:, :, j, None] * w[None, :, j]
+            p = (acc[0] + acc[1]) + (acc[2] + acc[3])
+            dh = ((p[:, 0] + p[:, 1]) + p[:, 2]) + p[:, 3]
+        i, f, g, o = (gates[t, :, q] for q in range(4))
+        cp = cs[t - 1] if t > 0 else a["c0"]
+        dhv = dh + a["dys"][t]
+        tc = np.tanh(cs[t])
+        dcv = dhv * o * (one - tc * tc) + dc
+        dgp = ((dcv * g) * i * (one - i), (dcv * cp) * f * (one - f),
+               (dcv * i) * (one - g * g), (dhv * tc) * o * (one - o))
+        for q in range(4):
+            dg[:, q, :H] = dxp[t, :, q] = dgp[q]
+        dc = dcv * f
+    acc = np.zeros((4, N, 4, H), np.float32)
+    for k4 in range(KP // 4):
+        for m in range(4):
+            acc[m] += dg[:, :, 4 * k4 + m, None] * w[None, :, 4 * k4 + m]
+    p = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    dh = ((p[:, 0] + p[:, 1]) + p[:, 2]) + p[:, 3]
+    h_prev = np.concatenate([a["h0"][None], ys[:-1]], 0).reshape(T * N, H)
+    dwh = dxp.reshape(T * N, 4 * H).T @ h_prev
+    return dxp.reshape(T, N, 4 * H), dwh, dh, dc
+
+
+# DeepAR training's shape, and a ragged width (KP = 24 > H = 17)
+@pytest.mark.parametrize("T,N,H", [(96, 32, 40), (12, 3, 17)])
+def test_register_order_keeps_the_lstm_backward_within_card_tol(
+        interpret_pallas, T, N, H):
+    """The LSTM backward's register route, its summation order modelled on
+    the CPU (:func:`_lstm_bwd_register_order`), stays within
+    CARD_TOL["float32"] of the JAX kernel, every output, over all T
+    dependent steps."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.pallas import rnn as jrnn
+
+    a = _inputs(T, N, H, 4, seed=T + H, wscale=H ** -0.5)
+    jin = [jnp.asarray(a[k]) for k in ("xp", "wh", "h0", "c0")]
+    ys, _, _, gates, cs = (np.asarray(x) for x in jrnn._lstm_forward(*jin))
+    ref = jrnn._lstm_backward(jin[1], jin[2], jin[3], ys, gates, cs,
+                              *(jnp.asarray(a[k])
+                                for k in ("dys", "dhn", "dcn")))
+    got = _lstm_bwd_register_order(a, ys, gates, cs)
+    for name, m, r in zip(("dxp", "dwh", "dh0", "dc0"), got, ref):
+        r = torch.from_numpy(np.array(r).reshape(m.shape))
+        _close_card(torch.from_numpy(np.ascontiguousarray(m)), r, "float32",
+                    name)
+
+
+def _gru_fwd_cluster_order(a, JB):
+    """The GRU forward as its cluster route sums, in fp32 numpy: block
+    units of JB, each product of a unit's row of Wh[g] with h split over
+    chunks of ch float4 columns (the layout's, from 256 threads a block),
+    two partial sums a chunk (components x, z and y, w), the chunks'
+    partials added in order, then bh.  Returns ``(ys, hn, gates,
+    hn_lin)``."""
+    T, N, G3 = a["xp"].shape
+    H = G3 // 3
+    hk = -(-H // 4) * 4
+    k4 = hk // 4
+    s = min(max(256 // JB, 1), k4)
+    ch = -(-k4 // s)
+    w = np.zeros((3, H, hk), np.float32)
+    w[:, :, :H] = a["wh"].reshape(3, H, H)
+    b = a["bh"].reshape(3, H)
+    xp = a["xp"].reshape(T, N, 3, H)
+    h = a["h0"].copy()
+    ys, gates, hl = [], [], []
+    one = np.float32(1)
+    for t in range(T):
+        hp = np.zeros((N, hk), np.float32)
+        hp[:, :H] = h
+        gh = np.zeros((3, N, H), np.float32)
+        for c0 in range(0, k4, ch):
+            acc = np.zeros((2, 3, N, H), np.float32)
+            for k in range(c0, min(c0 + ch, k4)):
+                for m in range(4):
+                    kk = 4 * k + m
+                    acc[m % 2] += hp[None, :, kk, None] * w[:, None, :, kk]
+            gh = gh + (acc[0] + acc[1])
+        gh = gh + b[:, None]
+        r = (one / (one + np.exp(-(xp[t, :, 0] + gh[0])))).astype(np.float32)
+        z = (one / (one + np.exp(-(xp[t, :, 1] + gh[1])))).astype(np.float32)
+        n = np.tanh(xp[t, :, 2] + r * gh[2])
+        h = (one - z) * n + z * h
+        ys.append(h)
+        gates.append(np.stack((r, z, n), 1))
+        hl.append(gh[2])
+    return np.stack(ys), h, np.stack(gates), np.stack(hl)
+
+
+# the GRU phase's shape (clusters of 8 blocks of 25 units), and a width
+# whose last float4 column and last block are ragged
+@pytest.mark.parametrize("T,N,H,JB", [(35, 32, 200, 25), (6, 3, 97, 25)])
+def test_cluster_order_keeps_the_gru_forward_within_card_tol(
+        interpret_pallas, T, N, H, JB):
+    """The GRU forward's cluster route, its summation order modelled on
+    the CPU (:func:`_gru_fwd_cluster_order`), stays within
+    CARD_TOL["float32"] of the JAX kernel, every output, over all T
+    dependent steps."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.pallas import rnn as jrnn
+
+    a = _inputs(T, N, H, 3, seed=T + H, wscale=H ** -0.5)
+    ref = jrnn._gru_forward(*(jnp.asarray(a[k])
+                              for k in ("xp", "wh", "bh", "h0")))
+    got = _gru_fwd_cluster_order(a, JB)
+    for name, m, r in zip(("ys", "hn", "gates", "hn_lin"), got, ref):
+        _close_card(torch.from_numpy(np.ascontiguousarray(m)),
+                    torch.from_numpy(np.array(r)), "float32", name)
 
 
 def test_missing_cotangents_are_zeros_and_dtypes_follow_inputs():
@@ -504,8 +640,10 @@ def _route_counts(counts):
 def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     t = _card(T, N, H, 4, dtype, cuda_device)
     route = tk.plan(4, False, N, H, cuda_device)[0]
+    broute = tk.plan(4, True, N, H, cuda_device)[0]
     before = (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches)
     by_route = _route_counts(tk.lstm_fwd_counts)
+    bby_route = _route_counts(tk.lstm_bwd_counts)
     fwd = tk.lstm_fwd(t["xp"], t["wh"], t["h0"], t["c0"])
     ref = tk.lstm_fwd_plain(t["xp"], t["wh"], t["h0"], t["c0"])
     for name, g, r in zip(("ys", "hn", "cn", "gates", "cs"), fwd, ref):
@@ -524,6 +662,8 @@ def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
         _close_card(g, r, "float32", name)
     again = tk.lstm_bwd(*args)  # no atomics: bit-identical
     assert all(torch.equal(x, y) for x, y in zip(bwd, again))
+    bby_route[broute] += 2
+    assert _route_counts(tk.lstm_bwd_counts) == bby_route
     fagain = tk.lstm_fwd(t["xp"], t["wh"], t["h0"], t["c0"])
     assert all(torch.equal(x, y) for x, y in zip(fwd, fagain))
 
@@ -533,11 +673,17 @@ def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
 @pytest.mark.parametrize("T,N,H", CARD_SHAPES)
 def test_gru_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     t = _card(T, N, H, 3, dtype, cuda_device, seed=1)
+    froute = tk.plan(3, False, N, H, cuda_device)[0]
+    fby_route = _route_counts(tk.gru_fwd_counts)
     fwd = tk.gru_fwd(t["xp"], t["wh"], t["bh"], t["h0"])
     ref = tk.gru_fwd_plain(t["xp"], t["wh"], t["bh"], t["h0"])
     for name, g, r in zip(("ys", "hn", "gates", "hn_lin"), fwd, ref):
         assert g.dtype == r.dtype and g.shape == r.shape, name
         _close_card(g, r, dtype, name)
+    fagain = tk.gru_fwd(t["xp"], t["wh"], t["bh"], t["h0"])
+    assert all(torch.equal(x, y) for x, y in zip(fwd, fagain))
+    fby_route[froute] += 2
+    assert _route_counts(tk.gru_fwd_counts) == fby_route
     args = (t["wh"], t["h0"], ref[0], ref[2], ref[3], t["dys"], t["dhn"])
     route = tk.plan(3, True, N, H, cuda_device)[0]
     by_route = _route_counts(tk.gru_bwd_counts)
@@ -552,35 +698,68 @@ def test_gru_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     assert _route_counts(tk.gru_bwd_counts) == by_route
 
 
+def _same_again(call, first, name):
+    """A second call of ``call`` returns ``first`` bit for bit."""
+    again = call()
+    assert all(torch.equal(x, y) for x, y in zip(first, again)), name
+
+
+# the main paths' shapes, then shapes that pad in registers (H = 17, 18
+# past a multiple of 8) or in a cluster's last block (H = 97, 417) or rows
+# (the forward's 3 rows a cluster at N=17, H=417)
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,N,H", [(96, 32, 40), (35, 32, 200), (7, 19, 40),
-                                   (9, 3, 18)])
-def test_new_routes_match_the_split_route_on_card(T, N, H, cuda_device):
+                                   (9, 3, 18), (9, 3, 17), (5, 17, 97),
+                                   (3, 1, 417), (4, 17, 417)])
+def test_new_routes_match_the_split_route_on_card(T, N, H, dtype,
+                                                  cuda_device):
     """The register and tensor-core routes (LSTM forward, at any N: H <=
-    96, and even H <= 64) and the cluster route (GRU backward; at H=200
+    96, and even H <= 64), the register route of the LSTM backward (H <=
+    96) and the cluster routes (GRU forward and backward; at H=200
     clusters of 4, 8 and 16 blocks) against the split route on the same
-    inputs, fp32."""
+    inputs, each rerun bit for bit."""
     if H <= 96:
-        t = _card(T, N, H, 4, "float32", cuda_device, seed=2)
+        t = _card(T, N, H, 4, dtype, cuda_device, seed=2)
         args = (t["xp"], t["wh"], t["h0"], t["c0"])
         split = tk._lstm_fwd(*args, route="split")
         for route in ("reg", "mma") if H <= 64 and H % 2 == 0 else ("reg",):
             got = tk._lstm_fwd(*args, route=route)
             for name, g, r in zip(("ys", "hn", "cn", "gates", "cs"), got,
                                   split):
-                _close_card(g, r, "float32", f"{route} {name}")
-    g3 = _card(T, N, H, 3, "float32", cuda_device, seed=3)
-    ys, _, gates, hl = tk.gru_fwd_plain(g3["xp"], g3["wh"], g3["bh"],
-                                        g3["h0"])
+                _close_card(g, r, dtype, f"{route} {name}")
+            _same_again(lambda: tk._lstm_fwd(*args, route=route), got,
+                        route)
+        bargs = (t["wh"], t["h0"], t["c0"], split[0], split[3], split[4],
+                 t["dys"], t["dhn"], t["dcn"])
+        bsplit = tk._lstm_bwd(*bargs, route="split")
+        got = tk._lstm_bwd(*bargs, route="reg")
+        for name, g, r in zip(("dxp", "dwh", "dh0", "dc0"), got, bsplit):
+            _close_card(g, r, "float32", f"reg {name}")
+        _same_again(lambda: tk._lstm_bwd(*bargs, route="reg"), got, "reg")
+    g3 = _card(T, N, H, 3, dtype, cuda_device, seed=3)
+    fargs = (g3["xp"], g3["wh"], g3["bh"], g3["h0"])
+    fsplit = tk._gru_fwd(*fargs, route="split")
+    ys, _, gates, hl = tk.gru_fwd_plain(*fargs)
     bargs = (g3["wh"], g3["h0"], ys, gates, hl, g3["dys"], g3["dhn"])
-    split = tk._gru_bwd(*bargs, route="split")
-    plans = [tk.plan(3, True, N, H, cuda_device, "cluster")]
-    if H == 200:  # clusters of 4, 8 and 16 blocks
-        plans += [("cluster", 1, 50), ("cluster", 2, 25), ("cluster", 4, 13)]
-    for pl in plans:
-        got = tk._gru_bwd(*bargs, route=pl)
-        for name, g, r in zip(("dxp", "dwh", "dbh", "dh0"), got, split):
-            _close_card(g, r, "float32", f"{pl} {name}")
+    bsplit = tk._gru_bwd(*bargs, route="split")
+    for back, call, split, names, tol in (
+            (False, tk._gru_fwd, fsplit, ("ys", "hn", "gates", "hn_lin"),
+             dtype),
+            (True, tk._gru_bwd, bsplit, ("dxp", "dwh", "dbh", "dh0"),
+             "float32")):
+        ins = bargs if back else fargs
+        if (back, N, H) == (True, 17, 417):  # no cluster plan (above)
+            continue
+        plans = [tk.plan(3, back, N, H, cuda_device, "cluster")]
+        if H == 200:  # clusters of 4, 8 and 16 blocks
+            plans += [("cluster", 1, 50), ("cluster", 2, 25),
+                      ("cluster", 4, 13)]
+        for pl in plans:
+            got = call(*ins, route=pl)
+            for name, g, r in zip(names, got, split):
+                _close_card(g, r, tol, f"{pl} {name}")
+            _same_again(lambda: call(*ins, route=pl), got, str(pl))
 
 
 @pytest.mark.gpu
@@ -617,12 +796,13 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
 def test_every_gated_shape_has_a_kernel_plan(cuda_device):
     """Every (N, H) the JAX package's rule takes, and DeepAR predict at
     GluonTS's default batch past it, gets a plan on the card: the register
-    route (one row a block, H <= 96) or, from 896 rows at even H <= 64,
-    the tensor-core route (16 rows a block) for the LSTM forward, the
-    cluster route (at most 16 blocks a cluster) for the GRU backward where
-    it fits, the split route otherwise, where with the units split there
-    is at most one block per SM, so every block of the cooperative launch
-    is resident.  A width no plan fits raises."""
+    route (one row a block, H <= 96) for the LSTM backward and forward or,
+    from 896 rows at even H <= 64, the tensor-core route (16 rows a block)
+    for the LSTM forward, the cluster route (at most 16 blocks a cluster)
+    for the GRU backward, and for the GRU forward from H=64, where it
+    fits, the split route otherwise, where with
+    the units split there is at most one block per SM, so every block of
+    the cooperative launch is resident.  A width no plan fits raises."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for G in (3, 4):
         for backward in (False, True):
@@ -633,19 +813,18 @@ def test_every_gated_shape_has_a_kernel_plan(cuda_device):
                     route, NB, JB = tk.plan(G, backward, N, H, cuda_device)
                     assert 1 <= NB <= N and 1 <= JB <= H
                     if route == "reg":
-                        assert (G, backward, NB, JB) == (4, False, 1, H)
-                        assert H <= 96
-                        assert N < 896 or H > 64 or H % 2
+                        assert (G, NB, JB) == (4, 1, H) and H <= 96
+                        assert backward or N < 896 or H > 64 or H % 2
                     elif route == "mma":
                         assert (G, backward, NB, JB) == (4, False, 16, H)
                         assert N >= 896 and H <= 64 and H % 2 == 0
                     elif route == "cluster":
-                        assert (G, backward) == (3, True)
+                        assert G == 3 and (backward or H >= 64)
                         assert -(-H // JB) <= 16 and NB * JB <= 512
                         assert -(-N // NB) * -(-H // JB) <= 2 * sms
                     else:
                         assert route == "split", route
-                        assert not (G == 4 and not backward and H <= 96)
+                        assert not (G == 4 and H <= 96)
                         if JB < H:
                             assert -(-N // NB) * -(-H // JB) <= sms, (N, H, G)
             with pytest.raises(MXNetError, match="no plan"):
@@ -654,19 +833,28 @@ def test_every_gated_shape_has_a_kernel_plan(cuda_device):
     assert tk.plan(4, False, 32, 40, cuda_device) == ("reg", 1, 40)
     for N in (1600, 3200):
         assert tk.plan(4, False, N, 40, cuda_device) == ("mma", 16, 40)
-    assert tk.plan(4, True, 3200, 40, cuda_device) == ("split", 7, 40)
+    assert tk.plan(4, True, 32, 40, cuda_device) == ("reg", 1, 40)
+    assert tk.plan(4, True, 3200, 40, cuda_device) == ("reg", 1, 40)
+    assert tk.plan(4, True, 32, 97, cuda_device)[0] == "split"
     assert tk.plan(4, False, 895, 64, cuda_device)[0] == "reg"
     assert tk.plan(4, False, 896, 64, cuda_device)[0] == "mma"
     for H in (41, 66):
         assert tk.plan(4, False, 1600, H, cuda_device)[0] == "reg"
     assert tk.plan(4, False, 32, 97, cuda_device)[0] == "split"
-    route, NB, JB = tk.plan(3, True, 32, 200, cuda_device)  # the GRU phase
-    assert route == "cluster" and -(-200 // JB) <= 16
-    assert tk.plan(3, True, 1, 417, cuda_device)[0] == "cluster"
+    for backward in (True, False):  # the GRU phase
+        route, NB, JB = tk.plan(3, backward, 32, 200, cuda_device)
+        assert route == "cluster" and -(-200 // JB) <= 16
+        assert tk.plan(3, backward, 1, 417, cuda_device)[0] == "cluster"
+        assert tk.plan(3, backward, 32, 512, cuda_device)[0] == "split"
     assert tk.plan(3, True, 1, 418, cuda_device)[0] == "split"
-    # 17 clusters of 16 blocks at H=417 do not fit the card at once
+    # 17 clusters of 16 blocks at H=417 do not fit the card at once: the
+    # backward's blocks hold one row each, the forward's (less shared
+    # memory a block) three, in 6 clusters
     assert tk.plan(3, True, 17, 417, cuda_device)[0] == "split"
-    assert tk.plan(3, True, 32, 512, cuda_device)[0] == "split"
+    assert tk.plan(3, False, 17, 417, cuda_device)[:2] == ("cluster", 3)
+    for H, route in ((40, "split"), (63, "split"), (64, "cluster"),
+                     (96, "cluster")):  # the crossover, kClusterFwdMinH
+        assert tk.plan(3, False, 32, H, cuda_device)[0] == route
     assert tk.plan(4, True, 32, 512, cuda_device)[2] < 512
     with pytest.raises(MXNetError, match="no reg plan"):
         tk.plan(4, False, 32, 97, cuda_device, "reg")
@@ -674,6 +862,10 @@ def test_every_gated_shape_has_a_kernel_plan(cuda_device):
         tk.plan(4, False, 32, 41, cuda_device, "mma")
     with pytest.raises(MXNetError, match="no cluster plan"):
         tk.plan(4, True, 32, 40, cuda_device, "cluster")
+    with pytest.raises(MXNetError, match="no reg plan"):
+        tk.plan(4, True, 32, 97, cuda_device, "reg")
+    with pytest.raises(MXNetError, match="no reg plan"):
+        tk.plan(3, False, 32, 40, cuda_device, "reg")
 
 
 @pytest.mark.gpu
