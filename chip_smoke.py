@@ -41,7 +41,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ResNet-50 gives them (batch 128 at 224^2 in training, 64 in predict
    mode), in fp32 and bf16, with and without ReLU, timed beside the plain
    version, a library yardstick (``torch.var_mean``; ``torch.matmul`` at
-   the same shape, the product alone) and the least time; at each bf16
+   the same shape, the product alone) and the least time; the
+   BN-statistics kernel also by its device time from torch.profiler and
+   its wrapper's host time a call, at all four stage shapes; at each bf16
    training shape the fused kernels' TMA route and simple route are held
    against each other and timed side by side (also by their device time
    from torch.profiler), and the fused forward of one step is summed from
@@ -54,8 +56,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``MXTPU_CONV_EPILOGUE=pallas``, takes 20 steps through
    ``parallel.DataParallelTrainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
    bf16 compute, fp32 masters) at batch 128, 224^2, on one synthetic
-   batch; the launch counts are read around the 20 steps, and every fused
-   launch must have taken the TMA route; the losses after the first two
+   batch; the launch counts are read around the 20 steps, every fused
+   launch must have taken the TMA route and every BN-statistics launch
+   the 16-byte loads (none its scalar route); the losses after the first two
    updates must be below the first, every trainable parameter change and
    stay finite, the moving statistics move; then the first 4 steps again
    from the same weights with the fused kernels pinned to the simple
@@ -1226,7 +1229,8 @@ def check_resnet_kernels(dev):
     def record(name, key, err, ok, kern, plain, lib, bound, label,
                stats_err=None, extra=None):
         sums = "" if stats_err is None else f" sums_rel={stats_err:.3g}"
-        more = "".join(f" {k}={v:.4f}ms" for k, v in (extra or {}).items())
+        more = "".join(f" {k}={v:.1f}us" if k.endswith("_us")
+                       else f" {k}={v:.4f}ms" for k, v in (extra or {}).items())
         log(f"  {name:20s} {label} err={err:.3g}{sums} kernel={kern:.4f}ms"
             f"{more} plain={plain:.4f}ms library={lib:.4f}ms "
             f"bound={bound[0]:.4f}ms ({', '.join(bound[1:])})"
@@ -1239,23 +1243,34 @@ def check_resnet_kernels(dev):
                           "bound_ms": bound[0], "bound_by": bound[1],
                           "library_ms": lib, "shape": label, **(extra or {})}
 
+    bn_stages = []  # row 7 at each stage and dtype
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for m, c in stats:
+        for (m, c), n_step in zip(stats, (3, 4, 6, 3)):
             x = rand(m, c, dtype=dt, shift=-0.3)
             got, ref = kbn.bn_stats_fwd(x), kbn.bn_stats_plain(x)
             err = max((g - r).abs().max().item() for g, r in zip(got, ref))
             serr, ok = check_stats(got, x)
             ok = ok and check_stats(ref, x)[1]
+            again = kbn.bn_stats_fwd(x)
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
             bound = least_ms(m * c * x.element_size() + 2 * c * 4,
                              3.0 * m * c, "float32")
+            extra = {"device_ms": device_ms(lambda: kbn.bn_stats_fwd(x), 10,
+                                            ("bn_stats_kernel",)),
+                     "host_us": host_us(lambda: kbn.bn_stats_fwd(x))}
+            kern = cuda_ms(lambda: kbn.bn_stats_fwd(x), 10)
+            plain = cuda_ms(lambda: kbn.bn_stats_plain(x), 3)
+            lib = cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0), 10)
+            label = f"M={m} C={c} {dtype}"
             record("bn_stats",
                    main_case["bn_stats"] == ((m, c), dtype, False), err, ok,
-                   cuda_ms(lambda: kbn.bn_stats_fwd(x), 10),
-                   cuda_ms(lambda: kbn.bn_stats_plain(x), 3),
-                   cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0),
-                           10), bound, f"M={m} C={c} {dtype}", serr)
-            del x
+                   kern, plain, lib, bound, label, serr, extra)
+            bn_stages.append(dict(shape=label, max_abs_err=err, ms=kern,
+                                  plain_ms=plain, bound_ms=bound[0],
+                                  library_ms=lib, launches_per_step=n_step,
+                                  **extra))
+            del x, got, ref, again
         cases = [("matmul_bn_stats", shape, False) for shape in mm]
         cases += [("bn_act_matmul_stats", shape, relu)
                   for shape in act_stats for relu in (True, False)]
@@ -1332,6 +1347,7 @@ def check_resnet_kernels(dev):
                 routes[(name, (m, k, n))] = dict(extra, ms=kern)
             del x, w, args
         torch.cuda.empty_cache()
+    main["bn_stats"]["stages"] = bn_stages
     step_routes(routes, per_step)
     predict_routes(predict)
     check_fused_function_gradients(kbn, kcf, dev)
@@ -1500,6 +1516,7 @@ def train_resnet(mx, card, profile=False):
               for k, c in kernels.KERNEL_COUNTS.items()}
     fused = ("matmul_bn_stats", "bn_act_matmul_stats")
     simple = {k: kernels.KERNEL_COUNTS[k].simple_launches for k in fused}
+    scalar = kernels.KERNEL_COUNTS["bn_stats"].scalar_launches
 
     n = RESNET_STEPS
     median_ms = statistics.median(step_ms[2:])
@@ -1512,7 +1529,8 @@ def train_resnet(mx, card, profile=False):
     log(f"resnet train: losses {[round(v, 4) for v in losses]}; mean of "
         f"the last 5 {statistics.mean(losses[-5:]):.4f}")
     log(f"resnet train: (launches, plain calls on cuda) {counts}; "
-        f"launches on the simple route {simple}")
+        f"launches on the simple route {simple}; bn_stats launches on its "
+        f"scalar route {scalar}")
     unchanged, bad, still = [], [], []
     for name, p0, p1, tr in zip(names, start, trainer._params,
                                 trainer._trainable):
@@ -1528,6 +1546,8 @@ def train_resnet(mx, card, profile=False):
         "launches": all(counts[k][0] == v for k, v in expect.items()),
         # every fused launch of the bf16 step on the TMA route
         "tma_route": all(v == 0 for v in simple.values()),
+        # every bn_stats launch with 16-byte loads
+        "bn_stats_vector_loads": scalar == 0,
         "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
         "finite_losses": all(np.isfinite(losses)),
         # at lr 0.1 the loss on one batch swings from step to step and,
@@ -1551,12 +1571,13 @@ def train_resnet(mx, card, profile=False):
         busy = sum(times.values())
         shares = {tag: sum(t for k, t in times.items() if tag in k) / busy
                   for tag in ("tma_mm_kernel", "fused_mm_kernel",
-                              "stats_reduce_kernel")}
+                              "stats_reduce_kernel", "bn_stats_kernel")}
         log(f"resnet train: device time of 2 profiled steps {busy / 1e3:.3f} "
             f"ms; shares: fused 1x1 kernels, TMA route "
             f"{shares['tma_mm_kernel']:.1%}, simple route "
-            f"{shares['fused_mm_kernel']:.1%}; stats_reduce_kernel (theirs "
-            f"and bn_stats') {shares['stats_reduce_kernel']:.1%}")
+            f"{shares['fused_mm_kernel']:.1%}; their stats_reduce_kernel "
+            f"{shares['stats_reduce_kernel']:.1%}; bn_stats_kernel "
+            f"{shares['bn_stats_kernel']:.1%}")
 
     checks.update(resnet_route_gap(mx, start, xg, yg, losses))
 

@@ -198,6 +198,115 @@ def test_bn_stats_plain_matches_jax_kernel(dtype, jax_kernels):
     _close(_np(tdx), _jnp_to_np(jdx), TOL[dtype]["grad"], "dx")
 
 
+def _bn_stats_order(x, P, groups, runs=16):
+    """A float32 model of the order in which the CUDA kernel
+    (``csrc/batch_norm.cu``) sums ``x`` (M, C), for ``P`` row blocks of
+    ``groups`` row groups: block p takes rows [p*R, (p+1)*R), R =
+    ceil(M/P); row group g of it adds rows g, g + groups, ... of its run in
+    order (squares rounded before the add, as ``__fmul_rn`` does); a warp's
+    ``32 * groups / 512`` row groups are added by a butterfly (((g0 + g1) +
+    (g2 + g3)) for 4), then the warps in order; the last block adds the P
+    partials in ``runs`` contiguous runs of ceil(P/runs), each in order,
+    then the runs in order.  Every add and product is rounded to float32,
+    as on the card, so on the card the model gives the kernel's sums bit
+    for bit."""
+    x = np.asarray(x, np.float32)
+    M, C = x.shape
+    R = -(-M // P)
+    K = -(-R // groups)
+    xb = np.zeros((P, K * groups, C), np.float32)
+    for p in range(P):  # rows past M, or past a block's run, add +0.0
+        run = x[p * R:min(M, (p + 1) * R)]
+        xb[p, :len(run)] = run
+    xb = xb.reshape(P, K, groups, C)
+    acc = np.zeros((2, P, groups, C), np.float32)
+    for k in range(K):
+        v = xb[:, k]
+        acc[0] += v
+        acc[1] += v * v
+    per_warp = max(1, 32 * groups // 512)
+    acc = acc.reshape(2, P, groups // per_warp, per_warp, C)
+    off = 1
+    while off < per_warp:  # the butterfly of shuffles
+        acc = acc + acc[:, :, :, np.arange(per_warp) ^ off]
+        off *= 2
+    part = np.zeros((2, P, C), np.float32)
+    for e in range(groups // per_warp):
+        part += acc[:, :, e, 0]
+    per = -(-P // runs)
+    out = np.zeros((2, C), np.float32)
+    for g in range(runs):
+        run = np.zeros((2, C), np.float32)
+        for p in range(g * per, min(P, (g + 1) * per)):
+            run += part[:, p]
+        out += run
+    return out[0], out[1]
+
+
+def _stats_within(got, x, what=""):
+    """``got`` (sum, sumsq) of ``x`` against fp64 sums: within 1e-5 of each
+    column's sum of magnitudes plus 1e-5 (``_check_stats``' rule: fp32
+    sums in any fixed order stay well inside it at these sizes)."""
+    xd = np.asarray(x, np.float64)
+    for g, r, mag in zip(got, (xd.sum(0), (xd * xd).sum(0)),
+                         (np.abs(xd).sum(0), (xd * xd).sum(0))):
+        err = np.abs(np.asarray(g, np.float64) - r)
+        assert (err <= 1e-5 * mag + 1e-5).all(), (what, err.max())
+
+
+# (M, C, P, row groups): the kernel's bf16 and fp32 16-byte routes (64, 32
+# row groups) and its scalar route (8) at small sizes, ragged M and C
+# among them
+ORDER_CASES = [(256, 64, 3, 64), (4096, 128, 7, 32), (1000, 70, 5, 8),
+               (37, 3, 4, 8), (8, 512, 1, 64), (777, 24, 13, 32),
+               (1, 5, 1, 8), (8192, 64, 40, 64), (3000, 40, 33, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,C,P,groups", ORDER_CASES)
+def test_bn_stats_order_model_matches_jax_kernel(M, C, P, groups, dtype,
+                                                 jax_kernels):
+    """The model of the kernel's summation order against the JAX Pallas
+    kernel in interpret mode.  Where the JAX gate refuses the shape (ragged
+    M or C), the JAX kernel runs on x padded with zero rows and columns up
+    to its gate's multiples, which leaves the real columns' sums as they
+    are.  Both sum the same values: bf16 inputs are rounded to bf16 first."""
+    import jax.numpy as jnp
+
+    _, jbn = jax_kernels
+    rng = np.random.RandomState(M + C)
+    x = (rng.randn(M, C) + 0.3).astype(np.float32)
+    x = torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
+    Mp, Cp = -(-M // 8) * 8, -(-C // 8) * 8
+    xp = np.zeros((Mp, Cp), np.float32)
+    xp[:M, :C] = x
+    assert jbn.stats_supported(Mp, Cp)
+    js, jq = jbn.bn_stats(jnp.asarray(xp, getattr(jnp, dtype)))
+    model = _bn_stats_order(x, P, groups)
+    _stats_within(model, x, "model against fp64")
+    xd = x.astype(np.float64)
+    for m, j, mag in zip(model, (js, jq), (np.abs(xd).sum(0),
+                                          (xd * xd).sum(0))):
+        err = np.abs(m - np.asarray(j, np.float64)[:C])
+        assert (err <= 1e-5 * mag + 1e-5).all(), err.max()
+
+
+@pytest.mark.parametrize("M,C", [(401408, 64), (100352, 128), (25088, 256),
+                                 (6272, 512), (1, 3), (1000, 70)])
+@pytest.mark.parametrize("code,vec", [(0, 1), (1, 1), (0, 0), (1, 0)])
+def test_row_blocks_fill_the_card_once(M, C, code, vec):
+    """The grid at ResNet-50's four stage shapes (b=128) and ragged ones on
+    132 SMs: no more blocks than are resident at once, at least one, and
+    each thread a full unrolled load of rows where M gives that many."""
+    groups = tbn.row_groups(code, vec)
+    assert groups == {(0, 1): 32, (1, 1): 64}.get((code, vec), 8)
+    strips = -(-C // tbn.STRIP)
+    P = tbn.row_blocks(M, C, groups, 132)
+    assert P >= 1 and (P == 1 or P * strips <= 132)
+    if M >= groups * tbn.UNROLL * P:
+        assert -(-M // P) >= groups * tbn.UNROLL
+
+
 @pytest.mark.parametrize("M,K,N", [(M, K, N) for M in (8, 100, 512, 6272)
                                    for K in (48, 64, 256, 1024)
                                    for N in (24, 64, 2048)])
@@ -742,23 +851,90 @@ def test_tma_route_refuses_what_it_cannot_address(cuda_device):
         _on_route("bn_act_matmul", (x, sc, sh, w, True), "tma")
 
 
+def _bn_stats_input(M, C, dtype, dev, offset=0):
+    """x (M, C) from a seed on ``dev``: a contiguous tensor, or with
+    ``offset`` a contiguous view that many elements into its storage (so
+    its data pointer is not 16-byte aligned)."""
+    g = torch.Generator().manual_seed(M + C)
+    flat = (torch.randn(offset + M * C, generator=g) + 0.5).to(
+        dev, getattr(torch, dtype))
+    x = flat[offset:].view(M, C)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    return x
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,C", [(6272, 64), (1568, 128), (392, 256),
-                                 (98, 512), (1, 3), (1000, 70), (5, 1)])
-def test_bn_stats_kernel_matches_plain_on_card(M, C, dtype, cuda_device):
-    g = torch.Generator().manual_seed(M + C)
-    x = (torch.randn(M, C, generator=g) + 0.5).to(cuda_device,
-                                                  getattr(torch, dtype))
-    before = tbn.counts.launches
+@pytest.mark.parametrize("M,C,offset", [
+    (6272, 64, 0), (1568, 128, 0), (392, 256, 0), (98, 512, 0), (1, 3, 0),
+    (1000, 70, 0), (5, 1, 0),
+    # ResNet-50's four stage shapes at b=128, as its training step hands
+    # them over
+    (401408, 64, 0), (100352, 128, 0), (25088, 256, 0), (6272, 512, 0),
+    # misaligned views: the scalar route
+    (6272, 64, 1), (98, 512, 3)])
+def test_bn_stats_kernel_matches_plain_on_card(M, C, offset, dtype,
+                                               cuda_device):
+    x = _bn_stats_input(M, C, dtype, cuda_device, offset)
+    vec = C % (8 if dtype == "bfloat16" else 4) == 0 and offset == 0
+    before = (tbn.counts.launches, tbn.counts.scalar_launches)
     got = tbn.bn_stats_fwd(x)
     ref = tbn.bn_stats_plain(x)
     torch.cuda.synchronize()
-    assert tbn.counts.launches == before + 1
+    assert (tbn.counts.launches, tbn.counts.scalar_launches) == (
+        before[0] + 1, before[1] + (not vec))
     _check_stats(got, x)
     _check_stats(ref, x)
     again = tbn.bn_stats_fwd(x)  # no atomics: bit-identical
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,C,offset", [(6272, 64, 0), (1568, 128, 0),
+                                        (98, 512, 0), (1000, 70, 0),
+                                        (37, 3, 0), (777, 24, 0),
+                                        (1568, 128, 1)])
+def test_bn_stats_kernel_matches_its_order_model_on_card(M, C, offset, dtype,
+                                                         cuda_device):
+    """The kernel's sums equal, bit for bit, the float32 model of its
+    summation order (``_bn_stats_order``) on the plan it launched."""
+    x = _bn_stats_input(M, C, dtype, cuda_device, offset)
+    P, vec, groups = tbn.launch_plan(x)
+    assert vec == (offset == 0 and C % (8 if dtype == "bfloat16" else 4)
+                   == 0)
+    got = tbn.bn_stats_fwd(x)
+    want = _bn_stats_order(x.float().cpu().numpy(), P, groups)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), torch.from_numpy(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,C", [(401408, 64), (6272, 512), (1000, 70)])
+def test_bn_stats_kernel_replays_in_a_cuda_graph_on_card(M, C, dtype,
+                                                         cuda_device):
+    """Captured in a CUDA graph, the launch replays three times with sums
+    bit-identical to the eager calls': the last block of each strip resets
+    its ticket counter, so every replay starts from zeroed counters."""
+    x = _bn_stats_input(M, C, dtype, cuda_device)
+    eager = tbn.bn_stats_fwd(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tbn.bn_stats_fwd(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tbn.bn_stats_fwd(x)
+    for _ in range(3):
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    again = tbn.bn_stats_fwd(x)  # eager after the replays
+    assert all(torch.equal(a, b) for a, b in zip(again, eager))
 
 
 @pytest.mark.gpu
@@ -813,6 +989,8 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
                               torch.zeros(1, 64, device=cuda_device), x)
     with pytest.raises(MXNetError, match="contiguous"):
         tbn.bn_stats_fwd(x.t()[:, :32])
+    with pytest.raises(MXNetError, match="C >= 1"):
+        tbn.bn_stats_fwd(torch.zeros(4, 0, device=cuda_device))
 
 
 @pytest.mark.gpu
