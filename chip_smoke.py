@@ -106,10 +106,22 @@ Phases (any failure ends the run with a non-zero exit and no result):
     (MXNet 1.x's word-language-model example with ``--model gru``), 20
     Adam steps on an L2 loss against a fixed target; the launch counts
     are read around the 20 steps, every ``gru_bwd`` on the cluster route,
-    and the loss must fall.
+    and the loss must fall;
+15. captured steps, after every profiled phase (a CUDA-graph capture
+    before the ResNet phase zeroed its profiler readings): each training
+    path again from the same weights and batches as its eager phase
+    above, 20 steps through ``Trainer(whole_step=True).whole_step`` (BERT,
+    DeepAR, the GRU) or ``DataParallelTrainer.step`` (ResNet; its eager
+    phases above pass ``capture=False``), then for ResNet one
+    ``step_many`` over 4 stacked batches.  Each prints its step median
+    over steps 3-20 beside the eager phase's, and must show one graph
+    captured, one replay a step after the warm-up, no
+    ``whole_step_fallbacks``, the eager step's launches (by kernel and
+    route) at every step, no plain call on CUDA, and the first 4 losses
+    and the parameters after them bit-identical to the eager phase's.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
+The last lines are the total wall time, the kernels' JSON record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
 CUDA toolkit, and the repository beside this file.
 
     python3 chip_smoke.py --profile-train
@@ -229,6 +241,38 @@ GRU_HIDDEN, GRU_T, GRU_BATCH, GRU_STEPS = 200, 35, 32, 20
 
 def log(*args):
     print(*args, flush=True)
+
+
+#: what each eager training phase leaves for its captured phase (15): the
+#: first 4 losses, the parameters after them, the launches a step and the
+#: step median
+EAGER_RUNS = {}
+
+
+def counts_now():
+    """Every kernel's counters now, ``{kernel: {counter: n}}``."""
+    from mxnet_tpu_torch.ops import kernels
+
+    return {k: c.snapshot() for k, c in kernels.KERNEL_COUNTS.items()}
+
+
+def counts_gain(before, after):
+    """The counters that grew from ``before`` to ``after``."""
+    return {k: {n: v - before[k][n] for n, v in after[k].items()
+                if v != before[k][n]}
+            for k in after if after[k] != before[k]}
+
+
+def eager_record(label, losses, params, total, steps, median_ms):
+    """Keep an eager phase's first 4 losses, its parameters after them (a
+    copy), its launches a step (``total`` over ``steps``) and its step
+    median for the captured phase."""
+    per_step = {k: {n: v / steps for n, v in d.items()}
+                for k, d in counts_gain({k: {n: 0 for n in d}
+                                         for k, d in total.items()},
+                                        total).items()}
+    EAGER_RUNS[label] = {"losses": list(losses[:4]), "params": params,
+                         "launches": per_step, "median_ms": median_ms}
 
 
 def card_line():
@@ -965,11 +1009,15 @@ def train_bert(mx, card, attn_ms, profile=False):
         trainer.step(1)
         losses.append(loss.asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 3:
+            after4 = [p.data().detach().clone() for p in params.values()]
     counts = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
               if name.startswith("flash_attention")}
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     median_ms = statistics.median(step_ms[2:])
+    eager_record("bert", losses, after4, counts_now(), TRAIN_STEPS,
+                 median_ms)
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
     n = TRAIN_STEPS
     log(f"train: BERT-base MLM+NSP b={TRAIN_BATCH} s={TRAIN_SEQ} fp32 "
@@ -1470,12 +1518,13 @@ def resnet50(mx, ctx, fuse):
     return net
 
 
-def resnet_trainer(mx, net, compute_dtype=None):
-    """train_imagenet.py's optimizer settings."""
+def resnet_trainer(mx, net, compute_dtype=None, capture=False):
+    """train_imagenet.py's optimizer settings; the step eager unless
+    ``capture``."""
     return mx.parallel.DataParallelTrainer(
         net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
         {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, capture=capture)
 
 
 def synthetic_images(rng, batch, image):
@@ -1506,14 +1555,19 @@ def train_resnet(mx, card, profile=False):
     losses, step_ms = [], []
 
     kernels.reset_counts()
-    for _ in range(RESNET_STEPS):
+    for i in range(RESNET_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trainer.step(xg, yg)
         losses.append(loss.asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 3:
+            after4 = [p.detach().clone() for p in trainer._params]
     counts = {k: (c.launches, c.plain_calls_on_cuda)
               for k, c in kernels.KERNEL_COUNTS.items()}
+    eager_record("resnet", losses, after4, counts_now(), RESNET_STEPS,
+                 statistics.median(step_ms[2:]))
+    EAGER_RUNS["resnet"]["start"] = start
     fused = ("matmul_bn_stats", "bn_act_matmul_stats")
     simple = {k: kernels.KERNEL_COUNTS[k].simple_launches for k in fused}
     scalar = kernels.KERNEL_COUNTS["bn_stats"].scalar_launches
@@ -2147,6 +2201,9 @@ def train_deepar(mx, card):
         trainer.step(DEEPAR_BATCH)
         losses.append(nll.asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 3:
+            after4 = [p.data().detach().clone()
+                      for p in net.collect_params().values()]
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("lstm_fwd", "lstm_bwd")}
@@ -2154,6 +2211,7 @@ def train_deepar(mx, card):
     bwd_routes = launches_by_route(kr.lstm_bwd_counts)
     n = DEEPAR_STEPS
     median_ms = statistics.median(step_ms[2:])
+    eager_record("deepar", losses, after4, counts_now(), n, median_ms)
     log(f"deepar train: 2x40 LSTM, Student-t, dropout 0.1, b={DEEPAR_BATCH}"
         f" context {DEEPAR_CONTEXT} + prediction {DEEPAR_PREDICT}, 3 "
         f"covariates, Adam 1e-3, {n} steps; nll {losses[0]:.4f} -> "
@@ -2297,15 +2355,10 @@ def deepar_card_vs_cpu(mx, splitter, ds):
 # -- phase 14: the GRU ----------------------------------------------------------
 
 
-def train_gru(mx, card):
-    """gluon.rnn.GRU(200, num_layers=2), TNC, T=35, N=32, input 200, 20
-    Adam steps on an L2 loss against a fixed target.  Returns the launch
-    counts, the median step and gru_fwd's and gru_bwd's launches by
-    route."""
+def gru_net_and_data(mx):
+    """The GRU regression net (Xavier from seed 0, deferred input width),
+    its input and its fixed target on the card."""
     import numpy as np
-    import torch
-
-    from mxnet_tpu_torch.ops import kernels
 
     class GruRegression(mx.gluon.HybridBlock):
         def __init__(self, **kwargs):
@@ -2323,11 +2376,25 @@ def train_gru(mx, card):
     x = mx.nd.array(rng.randn(GRU_T, GRU_BATCH, GRU_HIDDEN) * 0.5, ctx=gpu)
     target = mx.nd.array(np.tanh(rng.randn(GRU_T, GRU_BATCH, GRU_HIDDEN)),
                          ctx=gpu)
+    return net, x, target
+
+
+def train_gru(mx, card):
+    """gluon.rnn.GRU(200, num_layers=2), TNC, T=35, N=32, input 200, 20
+    Adam steps on an L2 loss against a fixed target.  Returns the launch
+    counts, the median step and gru_fwd's and gru_bwd's launches by
+    route."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    net, x, target = gru_net_and_data(mx)
     trainer = mx.gluon.Trainer(net.collect_params(), "adam",
                                {"learning_rate": 1e-3})
     losses, step_ms = [], []
     kernels.reset_counts()
-    for _ in range(GRU_STEPS):
+    for i in range(GRU_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with mx.autograd.record():
@@ -2336,6 +2403,9 @@ def train_gru(mx, card):
         trainer.step(1)
         losses.append(loss.asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 3:
+            after4 = [p.data().detach().clone()
+                      for p in net.collect_params().values()]
     counts = {k: (kernels.KERNEL_COUNTS[k].launches,
                   kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
               for k in ("gru_fwd", "gru_bwd")}
@@ -2343,6 +2413,7 @@ def train_gru(mx, card):
               for k in ("gru_fwd", "gru_bwd")}
     n = GRU_STEPS
     median_ms = statistics.median(step_ms[2:])
+    eager_record("gru", losses, after4, counts_now(), n, median_ms)
     log(f"gru: gluon.rnn.GRU({GRU_HIDDEN}, num_layers=2) TNC T={GRU_T} "
         f"N={GRU_BATCH}, L2 loss, Adam 1e-3, {n} steps; loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f}; step median {median_ms:.3f} "
@@ -2362,9 +2433,220 @@ def train_gru(mx, card):
     return {k: c[0] for k, c in counts.items()}, median_ms, routes
 
 
+# -- phase 15: captured steps ----------------------------------------------------
+
+
+def own_loss(out):
+    """The loss of a block whose output is already its loss."""
+    return out
+
+
+def the_graph(trainer):
+    """The one CUDA graph a trainer's captured step holds."""
+    if hasattr(trainer, "_graphs"):  # DataParallelTrainer
+        return next(iter(trainer._graphs.values())).graph
+    closure = next(iter(trainer._whole_step_compiler._closures.values()))
+    return next(iter(closure.graphs.values()))[0].graph
+
+
+def captured_phase(label, card, step, tensors, steps, trainer):
+    """``steps`` calls of ``step(i)`` (a captured training step), timed as
+    the eager phase times its steps, against ``EAGER_RUNS[label]``: one
+    graph captured, a replay a step after the warm-up, no fallback, the
+    eager step's launches at every step, no plain call on CUDA, and the
+    first 4 losses and the parameters after them (``tensors()``) bit for
+    bit.  Then ``trainer``'s graph alone, replayed 5 times, gives the
+    replay's time by CUDA events; the rest of the step median is the
+    host's work before the replay.  Returns ``(checks, median_ms)``."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.gluon import trainer as mtrainer
+    from mxnet_tpu_torch.ops import kernels
+
+    eager = EAGER_RUNS[label]
+    kernels.reset_counts()
+    mtrainer.reset_trainer_step_stats()
+    c0 = _imperative.graph_capture_count()
+    r0 = _imperative.graph_replay_count()
+    losses, step_ms, gains = [], [], []
+    for i in range(steps):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(i)
+        losses.append(loss.asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gains.append(counts_gain(before, counts_now()))
+        if i == 3:
+            same_params = all(torch.equal(a, b) for a, b in
+                              zip(tensors(), eager["params"]))
+    captured = _imperative.graph_capture_count() - c0
+    replays = _imperative.graph_replay_count() - r0
+    fallbacks = mtrainer.trainer_step_stats()["whole_step_fallbacks"]
+    plain = sum(c.plain_calls_on_cuda
+                for c in kernels.KERNEL_COUNTS.values())
+    want = eager["launches"]
+    off = [i for i, g in enumerate(gains) if g != want]
+    same_losses = losses[:4] == eager["losses"]
+    median_ms = statistics.median(step_ms[2:])
+    graph = the_graph(trainer)
+    replay_ms = cuda_ms(graph.replay, 5, warmup=1)
+    log(f"captured {label}: {steps} steps; step median {median_ms:.3f} ms "
+        f"over steps 3-{steps} (eager {eager['median_ms']:.3f} ms, the same "
+        f"call; first {step_ms[0]:.1f}, second {step_ms[1]:.1f} ms) on "
+        f"{card}; the graph's replay alone {replay_ms:.3f} ms by events, "
+        f"so {median_ms - replay_ms:.3f} ms of host work before it; graphs "
+        f"captured {captured}, replays {replays}, whole_step_fallbacks "
+        f"{fallbacks}, plain calls on cuda {plain}")
+    log(f"captured {label}: launches a replay {gains[-1]} (eager a step "
+        f"{want}); steps whose launches differ: {off}")
+    log(f"captured {label}: first 4 losses {losses[:4]}, eager "
+        f"{eager['losses']}: bit-identical {same_losses}; parameters after "
+        f"4 steps bit-identical {same_params}; losses "
+        f"{[round(v, 4) for v in losses]}")
+    checks = {"one_capture": captured == 1,
+              "replay_a_step": replays == steps - 1,
+              "no_fallback": fallbacks == 0,
+              "launches_equal_eager": not off,
+              "plain_calls_on_cuda": plain == 0,
+              "finite_losses": bool(np.isfinite(losses).all()),
+              "losses_bit_identical": same_losses,
+              "params_bit_identical": same_params}
+    return checks, median_ms
+
+
+def captured_bert(mx, card):
+    """BERT-base MLM+NSP, b=32, s=128, AdamW, dropout 0.1, through
+    ``Trainer(whole_step=True).whole_step``."""
+    import numpy as np
+
+    gpu = mx.gpu(0)
+    net = pretrain_net(mx, gpu, dropout=0.1)
+    data = synthetic_batch(np.random.RandomState(3), TRAIN_BATCH, TRAIN_SEQ,
+                           30522)
+    batch = [mx.nd.array(a, ctx=gpu) for a in data]
+    trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01},
+                               whole_step=True)
+    params = list(net.collect_params().values())
+    return captured_phase(
+        "bert", card,
+        lambda i: trainer.whole_step(net, own_loss, batch, batch_size=1),
+        lambda: [p.data() for p in params], TRAIN_STEPS, trainer)
+
+
+def captured_resnet(mx, card):
+    """ResNet-50 b=128 bf16 through the captured ``DataParallelTrainer``,
+    from the eager phase's starting weights; then ``step_many`` over 4
+    stacked batches: 4 replays, no new capture, the eager launches 4
+    times, finite losses."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+
+    x, y = synthetic_images(np.random.RandomState(0), RESNET_BATCH,
+                            RESNET_IMAGE)
+    xg, yg = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    trainer = resnet_trainer(mx, resnet50(mx, mx.gpu(0), fuse=True),
+                             compute_dtype="bfloat16", capture=True)
+    trainer.build(xg)
+    with torch.no_grad():
+        for p, p0 in zip(trainer._params, EAGER_RUNS["resnet"]["start"]):
+            p.copy_(p0)
+    checks, median_ms = captured_phase(
+        "resnet", card, lambda i: trainer.step(xg, yg),
+        lambda: trainer._params, RESNET_STEPS, trainer)
+    more = [synthetic_images(np.random.RandomState(s), RESNET_BATCH,
+                             RESNET_IMAGE) for s in (1, 2, 3)]
+    xs = torch.stack([xg] + [torch.from_numpy(a).cuda() for a, _ in more])
+    ys = torch.stack([yg] + [torch.from_numpy(b).cuda() for _, b in more])
+    c0 = _imperative.graph_capture_count()
+    r0 = _imperative.graph_replay_count()
+    before = counts_now()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many = trainer.step_many(xs, ys)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    gain = counts_gain(before, counts_now())
+    want = {k: {n: 4 * v for n, v in d.items()}
+            for k, d in EAGER_RUNS["resnet"]["launches"].items()}
+    vals = many.asnumpy()
+    log(f"captured resnet: step_many over 4 stacked batches {wall:.3f} ms "
+        f"({wall / 4:.3f} ms a step), losses {vals.tolist()}; graphs "
+        f"captured {_imperative.graph_capture_count() - c0}, replays "
+        f"{_imperative.graph_replay_count() - r0}; launches {gain}")
+    checks.update({
+        "step_many_replays": (_imperative.graph_replay_count() - r0 == 4
+                              and _imperative.graph_capture_count() == c0),
+        "step_many_launches": gain == want,
+        "step_many_losses": vals.shape == (4,) and bool(
+            np.isfinite(vals).all())})
+    del trainer, xs, ys
+    torch.cuda.empty_cache()
+    return checks, median_ms
+
+
+def captured_deepar(mx, card):
+    """DeepAR through ``Trainer(whole_step=True).whole_step`` on the eager
+    phase's sequence of fresh covariate batches."""
+    gpu = mx.gpu(0)
+    net = deepar_net(mx, gpu)
+    ds, splitter = deepar_data()
+    batches = []
+    for _ in range(DEEPAR_STEPS):
+        inst = splitter.training_instances(ds, DEEPAR_BATCH)
+        batches.append((mx.nd.array(inst["target"], ctx=gpu),
+                        mx.nd.array(inst["covariates"], ctx=gpu)))
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3}, whole_step=True)
+    params = list(net.collect_params().values())
+    return captured_phase(
+        "deepar", card,
+        lambda i: trainer.whole_step(net, own_loss, batches[i],
+                                     batch_size=DEEPAR_BATCH),
+        lambda: [p.data() for p in params], DEEPAR_STEPS, trainer)
+
+
+def captured_gru(mx, card):
+    """The GRU phase through ``Trainer(whole_step=True).whole_step``."""
+    net, x, target = gru_net_and_data(mx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3}, whole_step=True)
+    params = list(net.collect_params().values())
+    return captured_phase(
+        "gru", card,
+        lambda i: trainer.whole_step(net, own_loss, (x, target),
+                                     batch_size=1),
+        lambda: [p.data() for p in params], GRU_STEPS, trainer)
+
+
+def captured_steps(mx, card):
+    """Phase 15 on every training path; returns the step medians,
+    ``{path: (eager ms, captured ms)}``."""
+    import torch
+
+    medians, failed = {}, []
+    for label, fn in (("bert", captured_bert), ("resnet", captured_resnet),
+                      ("deepar", captured_deepar), ("gru", captured_gru)):
+        checks, median_ms = fn(mx, card)
+        medians[label] = (EAGER_RUNS[label]["median_ms"], median_ms)
+        failed += [f"{label}: {k}" for k, ok in checks.items() if not ok]
+        EAGER_RUNS.pop(label)
+        torch.cuda.empty_cache()
+    log(f"captured steps: step medians (eager, captured) ms {medians}")
+    if failed:
+        raise SystemExit(f"captured step checks failed: {failed}")
+    return medians
+
+
 def main():
     import torch
 
+    wall0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-train", action="store_true",
                     help="also profile two BERT training steps")
@@ -2427,6 +2709,7 @@ def main():
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
     dtrain, dpredict, _, droutes, dbroutes = train_deepar(mx, card)
     gtrain, _, groutes = train_gru(mx, card)
+    captured_steps(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -2481,6 +2764,7 @@ def main():
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
              launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
     ]}
+    log(f"chip_smoke: total wall time {time.perf_counter() - wall0:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,24 +9,39 @@ a single device, no kvstore is created.  The update is fused by default
 fused_update`); ``aggregate_num=1`` or ``MXNET_OPTIMIZER_AGGREGATION_SIZE=1``
 gives the sequential path, which the fused one equals bit for bit.
 
+:meth:`Trainer.whole_step` runs forward, loss, backward and update as one
+step; with ``Trainer(..., whole_step=True)`` or ``MXTPU_WHOLE_STEP=1``
+that step is one CUDA-graph replay on the card after a warm-up and a
+capture per input signature (``gluon/whole_step.py``), bit-identical to
+the eager step.
+
 What later slices bring raises :class:`MXNetError` here instead of being
 ignored: a distributed kvstore, ``update_on_kvstore``, gradient
-compression, ZeRO (``zero_shard``), ``whole_step`` and ``mesh_shape``.
+compression, ZeRO (``zero_shard``) and ``mesh_shape``.
 """
 from __future__ import annotations
 
+import torch
+
+from .. import autograd
 from .. import optimizer as _opt
 from ..base import MXNetError, getenv
 from .parameter import ParameterDict
 
 # step counters (ref: trainer.py:23-52), those of the paths the port has
-_step_stats = {"steps": 0, "params_fused": 0, "dispatches": 0}
+_step_stats = {"steps": 0, "params_fused": 0, "dispatches": 0,
+               "whole_step_steps": 0, "whole_step_compiles": 0,
+               "whole_step_fallbacks": 0}
 
 
 def trainer_step_stats():
     """Counters since the last reset: steps, params_fused (parameters
     updated by a multi-tensor call), dispatches (update calls: one per
-    fused group, one per sequential parameter) and dispatches_per_step."""
+    fused group, one per sequential parameter, one per whole step),
+    dispatches_per_step, whole_step_steps (steps through
+    :meth:`Trainer.whole_step` with the whole step on), whole_step_compiles
+    (input signatures it saw first) and whole_step_fallbacks (calls a
+    :class:`~.whole_step.Bypass` sent to the eager step)."""
     s = dict(_step_stats)
     s["dispatches_per_step"] = (round(s["dispatches"] / s["steps"], 2)
                                 if s["steps"] else 0.0)
@@ -66,10 +81,10 @@ class Trainer:
                 getenv("MESH_SHAPE", None):
             raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)",
                          "distributed")
-        if whole_step or (whole_step is None
-                          and getenv("WHOLE_STEP", False, bool)):
-            raise _later("whole_step (MXTPU_WHOLE_STEP)",
-                         "whole step and checkpoints")
+        if whole_step is None:
+            whole_step = getenv("WHOLE_STEP", False, bool)
+        self._whole_step = bool(whole_step)
+        self._whole_step_compiler = None
         self._params = [p for p in params if p.grad_req != "null"]
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
@@ -141,3 +156,87 @@ class Trainer:
             for i, w, g, st in entries:
                 self._optimizer.update_multi_precision(i, w, g, st)
                 self._dispatches += 1
+
+    # -- the whole step (ref: gluon/trainer.py:472-596) ------------------------
+
+    @property
+    def whole_step_enabled(self):
+        return self._whole_step
+
+    def whole_step(self, block, loss_fn, x, y=None, batch_size=None):
+        """One full training step of ``block``: forward, ``loss_fn``,
+        backward and the update.  Returns the loss summed to a scalar.
+
+        ``x`` is one array or a tuple of arrays (a block of several
+        inputs); ``loss_fn(out, y)``, or ``loss_fn(out)`` with ``y`` None,
+        maps the block's output to a loss of any shape, and the gradients
+        are those of its sum (``loss.backward()``'s all-ones seed).
+        ``batch_size`` (default ``x``'s first dimension) sets
+        ``rescale_grad`` as in :meth:`step`.
+
+        With the whole step enabled the step runs through
+        ``gluon/whole_step.py``: on the card, after one eager warm-up step
+        and one capture per input signature, each call is one CUDA-graph
+        replay; on the CPU the same body runs eagerly.  Disabled, or for a
+        configuration it bypasses (``grad_req='add'``, parameters on
+        several devices, a trainer parameter outside ``block``), the call
+        runs :meth:`_eager_whole_step`, which gives the same result; a
+        bypass warns once per reason and counts in
+        ``whole_step_fallbacks``.  Pass stable ``block`` and ``loss_fn``
+        objects: the captured graphs are cached by their identity."""
+        inputs = tuple(x) if isinstance(x, (list, tuple)) else (x,)
+        if batch_size is None:
+            batch_size = int(inputs[0].shape[0])
+        if not self._whole_step:
+            return self._eager_whole_step(block, loss_fn, inputs, y,
+                                          batch_size)
+        from . import whole_step as _ws
+
+        if self._whole_step_compiler is None:
+            self._whole_step_compiler = _ws.WholeStepCompiler(self)
+        if any(p._data is None for p in self._params):
+            # deferred shapes: the eager step completes them; it is this
+            # signature's warm-up
+            loss = self._eager_whole_step(block, loss_fn, inputs, y,
+                                          batch_size)
+            self._whole_step_compiler.note_warm(block, loss_fn, inputs, y)
+            _step_stats["whole_step_steps"] += 1
+            return loss
+        self._optimizer.rescale_grad = self._scale / batch_size
+        try:
+            loss, wstats = self._whole_step_compiler.step(
+                block, loss_fn, inputs, y)
+        except _ws.Bypass as b:
+            self._whole_step_compiler.warn_fallback(b.reason)
+            _step_stats["whole_step_fallbacks"] += 1
+            return self._eager_whole_step(block, loss_fn, inputs, y,
+                                          batch_size)
+        _step_stats["steps"] += 1
+        _step_stats["dispatches"] += 1
+        _step_stats["params_fused"] += len(self._params)
+        _step_stats["whole_step_steps"] += 1
+        _step_stats["whole_step_compiles"] += wstats["compiles"]
+        return loss
+
+    def _eager_whole_step(self, block, loss_fn, inputs, y, batch_size):
+        """The eager twin of :meth:`whole_step`: ``autograd.record``, the
+        forward and loss, ``backward`` of the loss's sum, then
+        :meth:`step`."""
+        from ..ndarray.ndarray import NDArray, as_tensor
+        from .whole_step import as_step_tensor
+
+        device = next((p._data.device for p in self._params
+                       if p._data is not None), None)
+        if device is None:  # deferred shapes: the inputs' device
+            first = as_tensor(inputs[0])
+            device = first.device if isinstance(first, torch.Tensor) \
+                else torch.device("cpu")
+        xs = [as_step_tensor(v, device) for v in inputs]
+        with autograd.record():
+            out = block(*xs)
+            loss = loss_fn(out, as_step_tensor(y, device)) \
+                if y is not None else loss_fn(out)
+            loss = as_tensor(loss).sum()
+        autograd.backward(loss)
+        self.step(batch_size)
+        return NDArray(loss.detach())

@@ -1,11 +1,15 @@
 """Attention ops (ref: mxnet_tpu/ops/attention.py).
 
-``scaled_dot_product_attention`` goes to the flash-attention entry
-(``ops/kernels/flash_attention.py``): CUDA tensors launch the Hopper
-kernel or raise, CPU tensors take the kernel's plain version.  Nothing
-catches a kernel failure and quietly computes the oracle instead.
-:func:`sdpa_reference` is the oracle, kept for the cases the entry
-routes to it by shape and for tests.
+``scaled_dot_product_attention`` routes as the JAX op does off a TPU
+(``mxnet_tpu/ops/attention.py:25-31, 57-67``): CPU tensors take
+:func:`sdpa_reference`, the oracle, as the JAX op takes it on any backend
+but the TPU; CUDA tensors, the TPU's counterpart, go to the
+flash-attention entry (``ops/kernels/flash_attention.py``), which
+launches the Hopper kernels or raises.  ``MXTPU_DISABLE_PALLAS`` (falling
+back to ``MXNET_DISABLE_PALLAS``), which sends the JAX op to the oracle,
+cannot do so on the card, where nothing falls back to a plain version: a
+CUDA tensor raises while it is set.  Nothing catches a kernel failure and
+quietly computes the oracle instead.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import math
 
 import torch
 
+from ..base import MXNetError, getenv
 from .kernels.flash_attention import NEG_INF, flash_attention
 from .registry import register
 
@@ -42,6 +47,16 @@ def sdpa_reference(q, k, v, mask=None, *, scale=None, causal=False):
 
 
 def _k_sdpa(q, k, v, mask=None, scale=None, causal=False, dropout_p=0.0):
+    """The oracle for CPU tensors; the flash entry for CUDA tensors, which
+    raise while ``MXTPU_DISABLE_PALLAS`` is set."""
+    if not q.is_cuda:
+        return sdpa_reference(q, k, v, mask, scale=scale, causal=causal)
+    if getenv("DISABLE_PALLAS", False, bool):
+        raise MXNetError(
+            "scaled_dot_product_attention: MXTPU_DISABLE_PALLAS is set, but "
+            "a CUDA tensor cannot take the oracle: nothing on a CUDA path "
+            "falls back to a plain version (ROADMAP.md, the rules for every "
+            "slice); unset it to run on the card")
     return flash_attention(q, k, v, mask=mask, scale=scale, causal=causal)
 
 

@@ -111,6 +111,10 @@ class KernelLibrary:
                              f"(cudaError {err})")
 
 
+#: every KernelCounts of the process, in the order they were made
+_ALL_COUNTS = []
+
+
 class KernelCounts:
     """Launch counters of one kernel wrapper.
 
@@ -118,12 +122,17 @@ class KernelCounts:
     ``plain_calls_on_cuda`` grows by one each time an entry sends CUDA
     tensors to the plain version by one of the JAX package's shape rules,
     decided before any launch.  ``extra`` names further counters, such as
-    a wrapper's launches on one of its routes."""
+    a wrapper's launches on one of its routes.
+
+    A CUDA graph's replay launches its kernels without running the
+    wrappers: :class:`CapturedLaunches` takes what the counters gained
+    while a graph was captured and adds it again at each replay."""
 
     def __init__(self, *extra):
         self._lock = threading.Lock()
         self._names = ("launches", "plain_calls_on_cuda", *extra)
         self.reset()
+        _ALL_COUNTS.append(self)
 
     def add(self, *names):
         with self._lock:
@@ -134,6 +143,44 @@ class KernelCounts:
         with self._lock:
             for name in self._names:
                 setattr(self, name, 0)
+
+    def snapshot(self):
+        """``{counter: value}`` now."""
+        with self._lock:
+            return {name: getattr(self, name) for name in self._names}
+
+    def shift(self, delta, sign=1):
+        """Add ``sign`` times ``delta`` (``{counter: n}``) to the counters."""
+        with self._lock:
+            for name, n in delta.items():
+                setattr(self, name, getattr(self, name) + sign * n)
+
+
+class CapturedLaunches:
+    """What every :class:`KernelCounts` gained while a CUDA graph was
+    captured.  The capture records launches without running them, so
+    :meth:`finish` takes the gain back out of the counters, and
+    :meth:`replay` adds it once per replay of the graph."""
+
+    def __init__(self):
+        self._before = [(c, c.snapshot()) for c in _ALL_COUNTS]
+        self.delta = []
+
+    def finish(self):
+        """Compute the gain since construction and take it back out."""
+        for counts, before in self._before:
+            now = counts.snapshot()
+            gain = {k: now[k] - before.get(k, 0) for k in now
+                    if now[k] != before.get(k, 0)}
+            if gain:
+                counts.shift(gain, -1)
+                self.delta.append((counts, gain))
+        self._before = None
+        return self
+
+    def replay(self):
+        for counts, gain in self.delta:
+            counts.shift(gain)
 
 
 def build_all(libraries):

@@ -19,9 +19,20 @@ for bit (the reference's contract, ``tests/test_trainer_fused.py:88``).
 The step count ``t`` and the lr are read after the tick, as at :584-590.
 Adam's bias corrections ``1 - beta**t`` are computed in float32, as the
 reference computes them in its float32 graph.
+
+The per-step scalars (lr, t, wd, rescale and Adam's two bias corrections)
+are computed on the host and reach the rules as 0-d views of one small
+float32 tensor on the weights' device, never as Python numbers, on every
+path: a CUDA graph that captures the update
+(:func:`whole_step_plan`, :func:`apply_whole_step_plan`, the whole step
+of ``gluon.whole_step``) then reads each step's values from that buffer
+instead of baking one step's into the graph, and the eager and captured
+steps do the same arithmetic.  What changes the graph's structure (the
+rule, its constants, whether an L2 decay term runs) is part of the plan.
 """
 from __future__ import annotations
 
+import functools
 import pickle
 
 import numpy as np
@@ -63,93 +74,117 @@ def create(name, **kwargs):
 # update rules: lists of tensors, updated in place (ref: optimizer_op-inl.h)
 
 
-def _prep(ws, gs, *, rescale, clip, wd):
-    """``clip(g * rescale) + wd * w``, as new tensors."""
-    gp = torch._foreach_mul(gs, rescale)
+def device_scalars(values, device, out=None):
+    """``values`` as one float32 tensor on ``device`` (or copied into
+    ``out``, a float32 tensor there); to a CUDA device through pinned
+    memory, without a host synchronisation."""
+    host = torch.tensor(values, dtype=torch.float32)
+    device = torch.device(device)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    if out is not None:
+        return out.copy_(host, non_blocking=True)
+    return host.to(device, non_blocking=True)
+
+
+def _prep(ws, gs, s, *, clip, decay):
+    """``clip(g * rescale) + wd * w``, as new tensors; the decay term runs
+    only where ``decay`` (the host's ``wd != 0``) says so."""
+    gp = torch._foreach_mul(gs, s["rescale"])
     if clip is not None:
         torch._foreach_clamp_min_(gp, -clip)
         torch._foreach_clamp_max_(gp, clip)
-    if wd:
-        torch._foreach_add_(gp, torch._foreach_mul(ws, wd))
+    if decay:
+        torch._foreach_add_(gp, torch._foreach_mul(ws, s["wd"]))
     return gp
 
 
-def _k_sgd(ws, gs, states, *, lr, t, wd, rescale, clip):
+def _k_sgd(ws, gs, states, s, *, clip, decay):
     """``w -= lr * g'``."""
-    gp = _prep(ws, gs, rescale=rescale, clip=clip, wd=wd)
-    torch._foreach_mul_(gp, lr)
+    gp = _prep(ws, gs, s, clip=clip, decay=decay)
+    torch._foreach_mul_(gp, s["lr"])
     torch._foreach_sub_(ws, gp)
 
 
-def _k_sgd_mom(ws, gs, states, *, lr, t, wd, rescale, clip, momentum):
+def _k_sgd_mom(ws, gs, states, s, *, clip, decay, momentum):
     """``mom = momentum * mom - lr * g'; w += mom``."""
     (moms,) = states
-    gp = _prep(ws, gs, rescale=rescale, clip=clip, wd=wd)
+    gp = _prep(ws, gs, s, clip=clip, decay=decay)
     torch._foreach_mul_(moms, momentum)
-    torch._foreach_mul_(gp, lr)
+    torch._foreach_mul_(gp, s["lr"])
     torch._foreach_sub_(moms, gp)
     torch._foreach_add_(ws, moms)
 
 
-def _k_nag(ws, gs, states, *, lr, t, wd, rescale, clip, momentum):
+def _k_nag(ws, gs, states, s, *, clip, decay, momentum):
     """``mom = momentum * mom + g'; w -= lr * (g' + momentum * mom)``."""
     (moms,) = states
-    gp = _prep(ws, gs, rescale=rescale, clip=clip, wd=wd)
+    gp = _prep(ws, gs, s, clip=clip, decay=decay)
     torch._foreach_mul_(moms, momentum)
     torch._foreach_add_(moms, gp)
     step = torch._foreach_mul(moms, momentum)
     torch._foreach_add_(step, gp)
-    torch._foreach_mul_(step, lr)
+    torch._foreach_mul_(step, s["lr"])
     torch._foreach_sub_(ws, step)
 
 
+@functools.lru_cache(maxsize=1024)
 def _bias_correction(beta, t):
-    """``1 - beta**t`` in float32."""
+    """``1 - beta**t`` in float32 (kept per (beta, t): every parameter of a
+    step asks for the same one)."""
     b = torch.tensor(beta, dtype=torch.float32)
     return float(1.0 - b ** torch.tensor(float(t), dtype=torch.float32))
 
 
-def _adam_direction(gp, means, variances, *, t, beta1, beta2, epsilon):
+def _adam_direction(gp, means, variances, s, *, beta1, beta2, epsilon):
     """Update the moments in place; return ``mhat`` and
-    ``sqrt(vhat) + eps`` as new tensors."""
+    ``sqrt(vhat) + eps`` as new tensors (the bias corrections ``c1``,
+    ``c2`` come with the scalars)."""
     torch._foreach_mul_(means, beta1)
     torch._foreach_add_(means, torch._foreach_mul(gp, 1 - beta1))
     torch._foreach_mul_(variances, beta2)
     sq = torch._foreach_mul(gp, gp)
     torch._foreach_mul_(sq, 1 - beta2)
     torch._foreach_add_(variances, sq)
-    mhat = torch._foreach_div(means, _bias_correction(beta1, t))
-    denom = torch._foreach_div(variances, _bias_correction(beta2, t))
+    mhat = torch._foreach_div(means, s["c1"])
+    denom = torch._foreach_div(variances, s["c2"])
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, epsilon)
     return mhat, denom
 
 
-def _k_adam(ws, gs, states, *, lr, t, wd, rescale, clip, beta1, beta2,
-            epsilon):
+def _k_adam(ws, gs, states, s, *, clip, decay, beta1, beta2, epsilon):
     """Adam with L2 weight decay folded into the gradient:
     ``w -= lr * mhat / (sqrt(vhat) + eps)``."""
     means, variances = states
-    gp = _prep(ws, gs, rescale=rescale, clip=clip, wd=wd)
-    mhat, denom = _adam_direction(gp, means, variances, t=t, beta1=beta1,
+    gp = _prep(ws, gs, s, clip=clip, decay=decay)
+    mhat, denom = _adam_direction(gp, means, variances, s, beta1=beta1,
                                   beta2=beta2, epsilon=epsilon)
-    torch._foreach_mul_(mhat, lr)
+    torch._foreach_mul_(mhat, s["lr"])
     torch._foreach_div_(mhat, denom)
     torch._foreach_sub_(ws, mhat)
 
 
-def _k_adamw(ws, gs, states, *, lr, t, wd, rescale, clip, beta1, beta2,
-             epsilon):
+def _k_adamw(ws, gs, states, s, *, clip, decay, beta1, beta2, epsilon):
     """Adam with decoupled weight decay:
     ``w -= lr * (mhat / (sqrt(vhat) + eps) + wd * w)``."""
     means, variances = states
-    gp = _prep(ws, gs, rescale=rescale, clip=clip, wd=0.0)
-    mhat, denom = _adam_direction(gp, means, variances, t=t, beta1=beta1,
+    gp = _prep(ws, gs, s, clip=clip, decay=False)
+    mhat, denom = _adam_direction(gp, means, variances, s, beta1=beta1,
                                   beta2=beta2, epsilon=epsilon)
     torch._foreach_div_(mhat, denom)
-    torch._foreach_add_(mhat, torch._foreach_mul(ws, wd))
-    torch._foreach_mul_(mhat, lr)
+    torch._foreach_add_(mhat, torch._foreach_mul(ws, s["wd"]))
+    torch._foreach_mul_(mhat, s["lr"])
     torch._foreach_sub_(ws, mhat)
+
+
+def _run_rule(rule, static, names, sv, ws, gs, states):
+    """One call of ``rule`` over lists, its scalars the 0-d views of the
+    float32 tensor ``sv`` (in the order of ``names``)."""
+    cols = [list(c) for c in zip(*states)] if states and states[0] else []
+    scalars = {n: sv[j] for j, n in enumerate(names)}
+    with torch.no_grad():
+        rule(ws, gs, cols, scalars, **dict(static))
 
 
 def _state_list(state):
@@ -268,27 +303,36 @@ class Optimizer:
         """``(rule, hyper-parameters)`` of this optimizer's update."""
         raise NotImplementedError
 
-    def _tick(self, index):
-        """Count one update of ``index``; its scalars, read after the tick."""
-        self._update_count(index)
-        return {"lr": self._get_lr(index),
-                "t": self._index_update_count[index],
-                "wd": self._get_wd(index),
-                "rescale": float(self.rescale_grad)}
+    def _extra_scalars(self, t):
+        """Per-step scalars of a rule beyond lr, t, wd and rescale."""
+        return {}
 
-    def _apply(self, rule, hyper, scalars, ws, gs, states):
-        cols = [list(c) for c in zip(*states)] if states and states[0] \
-            else []
-        with torch.no_grad():
-            rule(ws, gs, cols, clip=self.clip_gradient, **scalars,
-                 **dict(hyper))
+    def _tick(self, index):
+        """Count one update of ``index``; its scalars, read after the tick,
+        as ``{name: float}``."""
+        self._update_count(index)
+        t = self._index_update_count[index]
+        return {"lr": self._get_lr(index), "t": t,
+                "wd": self._get_wd(index),
+                "rescale": float(self.rescale_grad),
+                **self._extra_scalars(t)}
+
+    def _static(self, index, scalars):
+        """What the update's graph depends on beyond its tensors: the
+        rule's constants, ``clip`` and whether the L2 decay term runs."""
+        _rule, hyper = self._rule(index)
+        return hyper + (("clip", self.clip_gradient),
+                        ("decay", scalars["wd"] != 0))
 
     def update(self, index, weight, grad, state):
         """One parameter's update, in place: the sequential path."""
-        rule, hyper = self._rule(index)
+        rule, _ = self._rule(index)
         scalars = self._tick(index)
-        self._apply(rule, hyper, scalars, [_tensor(weight)],
-                    [_tensor(grad)], [_state_list(state)])
+        w = _tensor(weight)
+        names = tuple(scalars)
+        _run_rule(rule, self._static(index, scalars), names,
+                  device_scalars([scalars[n] for n in names], w.device),
+                  [w], [_tensor(grad)], [_state_list(state)])
 
     def update_multi_precision(self, index, weight, grad, state):
         self.update(index, weight, grad, state)
@@ -309,21 +353,79 @@ class Optimizer:
                 self.update(i, w, g, st)
                 stats["seq_updates"] += 1
                 continue
-            rule, hyper = self._rule(i)
+            rule, _ = self._rule(i)
             scalars = self._tick(i)
-            key = (rule, hyper, w.dtype, w.device,
-                   tuple(sorted(scalars.items())))
+            key = (rule, self._static(i, scalars), w.dtype, w.device,
+                   tuple(scalars.items()))
             groups.setdefault(key, []).append((w, g, _state_list(st)))
         agg = max(1, int(self.aggregate_num))
-        for (rule, hyper, _dt, _dev, scalars), members in groups.items():
+        for (rule, static, _dt, dev, scalars), members in groups.items():
+            names = tuple(n for n, _ in scalars)
+            sv = device_scalars([v for _, v in scalars], dev)
             for c0 in range(0, len(members), agg):
                 chunk = members[c0:c0 + agg]
-                self._apply(rule, hyper, dict(scalars),
-                            [m[0] for m in chunk], [m[1] for m in chunk],
-                            [m[2] for m in chunk])
+                _run_rule(rule, static, names, sv, [m[0] for m in chunk],
+                          [m[1] for m in chunk], [m[2] for m in chunk])
                 stats["fused_calls"] += 1
                 stats["params_fused"] += len(chunk)
         return stats
+
+    # -- the whole step's update (ref: optimizer.py:609-754) ------------------
+
+    def whole_step_plan(self, indices, weights, states):
+        """The grouping of :meth:`fused_update` for an update that a CUDA
+        graph captures (``gluon.whole_step``): the same (rule, dtype,
+        device, constants, scalar values) groups in the same order, chunked
+        by ``aggregate_num``, without running them.
+
+        Returns ``(plan, svals, None)``: ``plan`` a hashable tuple of
+        ``(rule, static, n_states, dtype, idxs, names)`` chunks (``idxs``
+        index into the given order, ``names`` the chunk's scalars) and
+        ``svals`` the float scalar values of each chunk; or ``(None, None,
+        reason)`` when a parameter has no fused form.  Validation runs
+        before any tick, so a refused plan leaves no trace; a plan ticks
+        every index exactly as :meth:`fused_update` does."""
+        entries = [(i, _tensor(w), _state_list(st))
+                   for i, w, st in zip(indices, weights, states)]
+        for i, w, sts in entries:
+            if not w.is_floating_point():
+                return None, None, f"non-float parameter {i} ({w.dtype})"
+            if any(s.dtype != w.dtype or s.shape != w.shape
+                   or s.device != w.device for s in sts):
+                return None, None, (f"parameter {i}'s state layout does "
+                                    f"not match its fused rule")
+        groups = {}
+        for pos, (i, w, sts) in enumerate(entries):
+            rule, _ = self._rule(i)
+            scalars = self._tick(i)
+            key = (rule, self._static(i, scalars), w.dtype, w.device,
+                   tuple(scalars.items()), len(sts))
+            groups.setdefault(key, []).append(pos)
+        agg = max(1, int(self.aggregate_num))
+        plan, svals = [], []
+        for (rule, static, dt, _dev, scalars, n_states), members in \
+                groups.items():
+            names = tuple(n for n, _ in scalars)
+            for c0 in range(0, len(members), agg):
+                plan.append((rule, static, n_states, dt,
+                             tuple(members[c0:c0 + agg]), names))
+                svals.append(tuple(float(v) for _, v in scalars))
+        return tuple(plan), svals, None
+
+
+def apply_whole_step_plan(plan, ws, gs, states, sval_raws):
+    """Run every chunk of a :meth:`Optimizer.whole_step_plan` plan over the
+    given tensors, in place: ``ws`` and ``gs`` the weights and gradients
+    in the plan's order, ``states[j]`` parameter ``j``'s state tensors,
+    ``sval_raws[c]`` chunk ``c``'s scalars as a float32 tensor on the
+    weights' device (a CUDA graph reads them from there at each replay).
+    The same rule calls over the same chunks as :meth:`Optimizer.
+    fused_update`, so the result equals it bit for bit."""
+    for (rule, static, n_states, _dt, idxs, names), sv in zip(plan,
+                                                             sval_raws):
+        _run_rule(rule, static, names, sv, [ws[j] for j in idxs],
+                  [gs[j] for j in idxs],
+                  [list(states[j])[:n_states] for j in idxs])
 
 
 Optimizer.create_optimizer = staticmethod(create)
@@ -384,6 +486,10 @@ class Adam(Optimizer):
     def _hyper(self):
         return (("beta1", self.beta1), ("beta2", self.beta2),
                 ("epsilon", self.epsilon))
+
+    def _extra_scalars(self, t):
+        return {"c1": _bias_correction(self.beta1, t),
+                "c2": _bias_correction(self.beta2, t)}
 
     def _rule(self, index):
         return _k_adam, self._hyper()

@@ -9,6 +9,18 @@ forward on those copies, and writes them back into the block's Parameters
 only in :meth:`~DataParallelTrainer.sync_to_block`.  The update rules are
 its own (``apply_opt``), not ``optimizer.py``'s.
 
+The step is captured as the JAX class compiles it into one ``jax.jit``
+call (ref: ``step``, :489-517): on the card, the first call of an input
+signature runs the step eagerly on a side stream (the warm-up), the next
+captures it in a CUDA graph (``gluon.whole_step.CapturedStep``) and
+replays it, and every later call copies its batch and its scalars (lr, t
+and Adam's bias corrections, computed on the host in float32, into one
+small device buffer) into the graph's static buffers and replays it.
+Masters, optimizer states and moving statistics are updated in place.  On
+the CPU the same body runs eagerly; the signature counters are kept on
+both.  :meth:`~DataParallelTrainer.step_many` is K such steps with no
+host synchronisation between them.
+
 What needs a mesh of more than one device, sharded parameters or states,
 rematerialization or checkpoints raises, naming the slice that brings it.
 """
@@ -17,8 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _imperative
 from .. import autograd
+from .. import optimizer as _opt
 from ..base import MXNetError
+from ..gluon import whole_step as _ws
 from ..ndarray.ndarray import NDArray, to_torch_dtype
 
 
@@ -63,12 +78,14 @@ class DataParallelTrainer:
     non-trainable ones (BatchNorm's moving statistics) stay fp32, and the
     gradients land in fp32 on the masters.  ``accum_steps`` splits the
     batch into that many micro-batches whose mean gradient makes one
-    update; the moving statistics are those of the last micro-batch."""
+    update; the moving statistics are those of the last micro-batch.
+    ``capture=False`` runs the step body eagerly at every call on the card
+    too (the eager twin of the captured step, bit for bit)."""
 
     def __init__(self, block, loss_fn, optimizer="sgd", optimizer_params=None,
                  mesh=None, shard_params=False, donate=True,
                  shard_opt_states=False, compute_dtype=None, remat=False,
-                 param_spec_fn=None, accum_steps=1):
+                 param_spec_fn=None, accum_steps=1, capture=True):
         if mesh is not None:
             raise _later("a device mesh", 7)
         if shard_params or param_spec_fn is not None:
@@ -98,6 +115,9 @@ class DataParallelTrainer:
         self._trainable = None
         self._device = None
         self._t = 0
+        self._capture = bool(capture)
+        self._seen_sigs = set()
+        self._graphs = {}      # input signature -> CapturedStep
 
     # -- set-up ---------------------------------------------------------------
 
@@ -196,11 +216,13 @@ class DataParallelTrainer:
                 [(s / self._accum).to(m.dtype)
                  for s, m in zip(gsum, trainable)])
 
-    def _apply_opt(self, raw, g, state, lr, t):
+    def _apply_opt(self, raw, g, state, sv):
         """The update of one master (ref: ``apply_opt``, data_parallel.py:
-        266-290); returns ``(new_raw, new_state)``."""
+        266-290); returns ``(new_raw, new_state)``.  ``sv`` holds the step's
+        scalars as 0-d tensors: lr, t and the bias corrections."""
         op = self._opt_params
         name = self._opt_name
+        lr = sv[0]
         wd = float(op.get("wd", 0.0))
         clip = op.get("clip_gradient")
         if clip is not None:
@@ -220,8 +242,8 @@ class DataParallelTrainer:
             g = g + wd * raw
         nm = beta1 * m + (1 - beta1) * g
         nv = beta2 * v + (1 - beta2) * torch.square(g)
-        mhat = nm / _f32_correction(beta1, t)
-        vhat = nv / _f32_correction(beta2, t)
+        mhat = nm / sv[2]
+        vhat = nv / sv[3]
         upd = mhat / (torch.sqrt(vhat) + eps)
         if name == "adamw":
             upd = upd + wd * raw
@@ -233,15 +255,11 @@ class DataParallelTrainer:
             upd = ratio * upd
         return raw - lr * upd, (nm, nv)
 
-    def step(self, x, y):
-        """One training step on batch ``x`` (an array, or a tuple of arrays
-        for a block of several inputs) with labels ``y``; returns the mean
-        loss as a scalar NDArray."""
-        self.build(x)
-        xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        xs = tuple(_as_tensor(v, self._device) for v in xs)
-        y = _as_tensor(y, self._device)
-        self._t += 1
+    def _body(self, *inputs):
+        """The step on tensors (the batch, the labels and the scalar
+        buffer): gradients, then every trainable master and its state
+        updated in place; returns the loss."""
+        xs, y, sv = inputs[:-2], inputs[-2], inputs[-1]
         loss, grads = self._grads(xs, y)
         grads = iter(grads)
         with torch.no_grad():
@@ -250,16 +268,64 @@ class DataParallelTrainer:
                     continue
                 raw = self._params[i]
                 new_raw, new_state = self._apply_opt(
-                    raw.detach(), next(grads), self._states[i], self._lr,
-                    self._t)
+                    raw.detach(), next(grads), self._states[i], sv)
                 raw.copy_(new_raw)
-                self._states[i] = new_state
-        return NDArray(loss)
+                if isinstance(new_state, tuple):
+                    for dst, src in zip(self._states[i], new_state):
+                        dst.copy_(src)
+                elif new_state is not None:
+                    self._states[i].copy_(new_state)
+        return loss
+
+    def _step_scalars(self):
+        """This step's lr, t and Adam's bias corrections (float32, as the
+        reference's float32 step computes them), as a float32 tensor on the
+        trainer's device."""
+        op = self._opt_params
+        return _opt.device_scalars(
+            [self._lr, float(self._t),
+             _f32_correction(float(op.get("beta1", 0.9)), self._t),
+             _f32_correction(float(op.get("beta2", 0.999)), self._t)],
+            self._device)
+
+    def _step_tensors(self, xs, y):
+        """One step on tensors already on the device; returns the loss as
+        a tensor of its own."""
+        self._t += 1
+        sv = self._step_scalars()
+        values = xs + (y, sv)
+        sig = _ws.signature(values)
+        first = sig not in self._seen_sigs
+        if first:
+            self._seen_sigs.add(sig)
+            _imperative.count("step_signatures")
+        _imperative.count("step_dispatches")
+        if self._device.type != "cuda" or not self._capture:
+            return self._body(*values).detach()
+        if first:  # the warm-up
+            return _ws.side_stream_run(lambda: self._body(*values),
+                                       self._device).detach()
+        graph = self._graphs.get(sig)
+        if graph is None:
+            graph = self._graphs[sig] = _ws.CapturedStep(
+                self._body, [v.clone() for v in values], self._device)
+        return graph.replay(values).clone()
+
+    def step(self, x, y):
+        """One training step on batch ``x`` (an array, or a tuple of arrays
+        for a block of several inputs) with labels ``y``; returns the mean
+        loss as a scalar NDArray."""
+        self.build(x)
+        xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        xs = tuple(_as_tensor(v, self._device) for v in xs)
+        return NDArray(self._step_tensors(xs, _as_tensor(y, self._device)))
 
     def step_many(self, x, y, n_steps=None):
         """``n_steps`` steps on the same batch, or, with ``n_steps`` None,
-        one step per leading index of ``x`` and ``y``; returns the losses as
-        a ``(K,)`` NDArray.  The same as as many :meth:`step` calls."""
+        one step per leading index of ``x`` and ``y`` (one staged stack);
+        returns the losses as a ``(K,)`` NDArray.  The same as as many
+        :meth:`step` calls; on the card each is one replay of the captured
+        step, with no host synchronisation between them."""
         multi = isinstance(x, (tuple, list))
         if n_steps is None:
             n_steps = (x[0] if multi else x).shape[0]
@@ -269,7 +335,13 @@ class DataParallelTrainer:
             batches = [(x, y)] * int(n_steps)
         if n_steps < 1:
             raise MXNetError(f"step_many needs n_steps >= 1, got {n_steps}")
-        losses = [self.step(xb, yb).data for xb, yb in batches]
+        self.build(batches[0][0])
+        losses = []
+        for xb, yb in batches:
+            xs = tuple(xb) if multi else (xb,)
+            losses.append(self._step_tensors(
+                tuple(_as_tensor(v, self._device) for v in xs),
+                _as_tensor(yb, self._device)))
         return NDArray(torch.stack(losses))
 
     @property

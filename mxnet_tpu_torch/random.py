@@ -2,8 +2,11 @@
 
 One explicit ``torch.Generator`` per device, owned by a
 :class:`GeneratorPool`.  ``seed(s)`` reseeds every generator of the
-process pool; initializers and dropout draw from the generator of the
-device they fill.  A CPU and a CUDA generator seeded alike give
+process pool in place; initializers and dropout draw from the generator of
+the device they fill.  A captured training step registers its device's
+generators with its CUDA graph (:meth:`GeneratorPool.generators`), so
+each replay advances them as the eager step does and dropout draws the
+same masks; reseeding in place keeps those registrations valid.  A CPU and a CUDA generator seeded alike give
 different numbers, so tests make shared inputs with numpy.
 """
 from __future__ import annotations
@@ -27,7 +30,8 @@ class GeneratorPool:
             seed_state = int(np.random.randint(0, 2**31 - 1))
         with self._lock:
             self._seed = int(seed_state)
-            self._gens.clear()
+            for gen in self._gens.values():
+                gen.manual_seed(self._seed)
 
     def generator(self, device):
         """The generator for ``device`` (a ``torch.device`` or string)."""
@@ -41,6 +45,13 @@ class GeneratorPool:
                 gen.manual_seed(self._seed)
                 self._gens[device] = gen
             return gen
+
+    def generators(self, device):
+        """The generators made so far for ``device``."""
+        device = torch.device(device)
+        with self._lock:
+            return [g for d, g in self._gens.items() if d.type == device.type
+                    and (device.index is None or d.index == device.index)]
 
 
 #: the process-wide pool behind :func:`seed` and :func:`generator`

@@ -10,9 +10,8 @@ update: 1e-6 absolute plus 1e-5 relative (the same arithmetic summed in
 other orders; Adam's ``beta**t`` is float32 in both).  The fused step
 against the sequential one: bit for bit.  The BERT run: losses within
 1e-5 relative and parameters within 1e-5 absolute after 5 steps (two
-packages through two encoder layers: sums in other orders; the JAX
-package's CPU path is its attention oracle, the port's the plain flash
-forward and backward).
+packages through two encoder layers: sums in other orders; on the CPU
+both packages' attention op takes its oracle).
 """
 import numpy as np
 import pytest
@@ -426,7 +425,7 @@ def test_split_and_load():
     ({"kvstore": "dist_sync"}, "distributed"),
     ({"update_on_kvstore": True}, "update_on_kvstore"),
     ({"zero_shard": True}, "ZeRO"),
-    ({"whole_step": True}, "whole_step"),
+    ({"sharding_plan": {"dp": 2}}, "sharding_plan"),
     ({"mesh_shape": "dp=2,mp=2"}, "mesh_shape"),
     ({"compression_params": {"type": "2bit"}}, "compression"),
 ])
@@ -438,7 +437,9 @@ def test_trainer_raises_for_what_later_slices_bring(kwargs, match):
 
 def test_trainer_env_knobs_are_not_ignored(monkeypatch):
     monkeypatch.setenv("MXTPU_WHOLE_STEP", "1")
-    with pytest.raises(tmx.MXNetError, match="whole_step"):
+    assert tmx.gluon.Trainer(_params([(2,)]), "sgd").whole_step_enabled
+    monkeypatch.setenv("MXTPU_ZERO_SHARD", "1")
+    with pytest.raises(tmx.MXNetError, match="ZeRO"):
         tmx.gluon.Trainer(_params([(2,)]), "sgd")
 
 
@@ -524,9 +525,9 @@ def _synthetic_batch(rng, bs, seq_len, vocab, mask_frac=0.15):
     ("sgd", {"learning_rate": 0.05, "momentum": 0.9}),
 ], ids=["adamw", "sgd_mom"])
 def test_short_bert_pretraining_run_matches_jax(opt, args):
-    """A narrow BERT with heads of 64, so the port takes the flash path
-    (units 128, 2 heads, 2 layers, hidden 256, vocab 1000, dropout 0),
-    with MLM+NSP heads: 5 Trainer steps per package on one batch."""
+    """A narrow BERT with heads of 64 (units 128, 2 heads, 2 layers,
+    hidden 256, vocab 1000, dropout 0), with MLM+NSP heads: 5 Trainer
+    steps per package on one batch."""
     import mxnet_tpu as jmx
     from mxnet_tpu.models.bert import BERTModel as JBERT
 
