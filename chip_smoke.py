@@ -27,8 +27,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    against all of it, in the same call (printed, not gated);
 4. serve: BERT-base (12 layers, 768 units, 12 heads of 64, vocab 30522,
    random weights from a seed) behind ``serve.ModelServer``, 32 requests
-   from 4 client threads; the kernels' launch counts are read around this
-   run, and 3 responses are compared with the same weights on the CPU;
+   from 4 client threads, each of the 9 buckets a captured CUDA graph
+   (captured at ``start()``, one replay a batch); the kernels' launch
+   counts, the graphs captured and the replays are read around this run,
+   every response must equal the eager forward of its padded batch bit
+   for bit, and 3 responses are compared with the same weights on the
+   CPU; each bucket's forward is timed eager and replayed; then
+   ``load_parameters`` puts other weights into the served block while the
+   server runs, and the next 4 responses must equal the eager forward
+   with them, with no new capture;
 5. train: BERT-base with MLM+NSP heads (dropout 0.1) takes 20 AdamW steps
    through ``autograd.record``, ``backward`` and ``gluon.Trainer`` at
    batch 32, sequence 128, fp32; the launch counts are read around the
@@ -63,9 +70,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    stay finite, the moving statistics move; then the first 4 steps again
    from the same weights with the fused kernels pinned to the simple
    route (PR 3's template), whose losses the TMA run's must track;
-8. ResNet predict: the trained net in predict mode at batch 64, fp32; the
-   launches of ``bn_act_matmul`` are read around the timed forwards, and
-   every one must have taken the TF32 route;
+8. ResNet predict: the trained net in predict mode at batch 64, fp32,
+   timed eager (not hybridized) and then as replays of its captured
+   forward; the launches of ``bn_act_matmul`` are read around the timed
+   replays, and every one must have taken the TF32 route;
 9. ResNet references, fp32 with TF32 off, batch 8 at 112^2: 2 steps of the
    fused net on the card, the same on the CPU, and the standard (unfused)
    net on the card, from the same weights, must agree; the fused net on
@@ -118,7 +126,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
     captured, one replay a step after the warm-up, no
     ``whole_step_fallbacks``, the eager step's launches (by kernel and
     route) at every step, no plain call on CUDA, and the first 4 losses
-    and the parameters after them bit-identical to the eager phase's.
+    and the parameters after them bit-identical to the eager phase's;
+16. checkpoints, from phase 15's weights and batches: (a) BERT-base
+    MLM+NSP (AdamW, dropout 0.1): 6 captured steps (the reference); 3
+    steps, ``CheckpointManager.save`` without ``sync``, steps 4-6 while it
+    drains; then a net and trainer with other weights restore it and take
+    steps 4-6, captured and eager: every run's steps 4-6 (losses,
+    parameters, launches) bit-identical to the reference's and the
+    restored weights to the reference's after step 3; (b) ResNet-50 (bf16,
+    ``DataParallelTrainer`` captured): 3 steps, ``save_states(async_save=
+    True)``, 3 more; a fresh, built trainer loads it and its 3 steps equal
+    steps 4-6 bit for bit; then ``save_parameters``/``load_parameters``
+    into a fresh ResNet-50, whose b=64 fp32 predict forward must equal the
+    source block's.  Each prints the bytes written, how long ``save()``
+    held the training thread, the time to commit, the restore time and
+    the step median with a save in flight beside one without.
+
+The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-16: every
+torch.profiler session (phases 6 and 10, and the profiles below) comes
+before the first CUDA graph (phase 8's predict forwards), as graphs
+captured before them broke the profiler's device readings (PERF.md §6).
 
 The last lines are the total wall time, the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device, the
@@ -138,9 +165,11 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -247,6 +276,9 @@ def log(*args):
 #: first 4 losses, the parameters after them, the launches a step and the
 #: step median
 EAGER_RUNS = {}
+#: each eager training phase's launches a step, by kernel and counter (the
+#: checkpoint phase, 16, holds its resumed steps to them)
+STEP_LAUNCHES = {}
 
 
 def counts_now():
@@ -273,6 +305,7 @@ def eager_record(label, losses, params, total, steps, median_ms):
                                         total).items()}
     EAGER_RUNS[label] = {"losses": list(losses[:4]), "params": params,
                          "launches": per_step, "median_ms": median_ms}
+    STEP_LAUNCHES[label] = per_step
 
 
 def card_line():
@@ -811,9 +844,14 @@ def serving_block(mx):
     return BertServing
 
 
-def serve_bert(mx, card, attn_ms):
+def serve_bert(mx, card, attn_ms, tmpdir):
+    """Phase 4: BERT-base behind ``ModelServer`` on captured buckets; then
+    weights reloaded under the running server.  Returns the flash
+    forward's launches over the served and warm-up batches."""
     import numpy as np
+    import torch
 
+    from mxnet_tpu_torch import _imperative
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -822,8 +860,18 @@ def serve_bert(mx, card, attn_ms):
     bert = mx.models.bert_base(use_decoder=False, use_classifier=False)
     bert.initialize(init=mx.init.Normal(0.02), ctx=mx.gpu(0))
     net = BertServing(bert)
+    eager_net = BertServing(bert)   # not hybridized: the eager forward
     spec = mx.serve.BucketSpec(batch_sizes=(1, 4, 8), example_shape=(None,),
                                lengths=(128, 256, 512), dtype="int32")
+    batches = []   # (the requests' examples, the padded batch) per batch
+    pad = spec.pad_batch
+
+    def recording_pad(examples, batch, length):
+        padded = pad(examples, batch, length)
+        batches.append((list(examples), padded))
+        return padded
+
+    spec.pad_batch = recording_pad
     rng = np.random.RandomState(1)
     lengths = rng.randint(16, 513, size=SERVE_REQUESTS)
     reqs = [rng.randint(1, 30522, size=int(n)).astype(np.int32)
@@ -832,9 +880,12 @@ def serve_bert(mx, card, attn_ms):
     server = mx.serve.ModelServer(net, spec, ctx=mx.gpu(0))
 
     kernels.reset_counts()
+    c0 = _imperative.graph_capture_count()
+    r0 = _imperative.graph_replay_count()
     t0 = time.perf_counter()
     server.start()
     t_warm = time.perf_counter() - t0
+    captured = _imperative.graph_capture_count() - c0
 
     def client(idx):
         futs = [(i, server.submit(reqs[i])) for i in idx]
@@ -850,39 +901,59 @@ def serve_bert(mx, card, attn_ms):
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t1
-    server.shutdown(drain=True, timeout=120)
     launches = fa.counts.launches
     plain_on_cuda = fa.counts.plain_calls_on_cuda
+    replays = _imperative.graph_replay_count() - r0
 
     if any(t.is_alive() for t in threads):
+        server.shutdown(drain=False, timeout=120)
         raise SystemExit("serve: client threads did not finish")
     st = server.stats()
-    n_batches = st["batches"] + st["warmup_batches"]
-    log(f"serve: warmup {st['warmup_batches']} buckets in {t_warm:.2f}s; "
+    n_buckets = st["warmup_batches"]
+    # a bucket's warm-up is one eager forward and one captured one
+    n_forwards = st["batches"] + 2 * n_buckets
+    log(f"serve: warmup {n_buckets} buckets in {t_warm:.2f}s; "
         f"{st['served']}/{SERVE_REQUESTS} served in {st['batches']} "
         f"batches, {wall:.3f}s wall, {SERVE_REQUESTS / wall:.2f} req/s; "
         f"latency p50 {st['latency']['p50_ms']} ms p99 "
         f"{st['latency']['p99_ms']} ms; bucket hits {st['bucket_hits']} "
         f"on {card}")
-    log(f"serve: graph {st['graph']}; flash launches {launches} "
-        f"(12 x {n_batches} batches = {12 * n_batches}); plain calls on "
-        f"cuda {plain_on_cuda}")
+    log(f"serve: graph {st['graph']}; CUDA graphs captured {captured} (one "
+        f"a bucket), replays {replays} ({st['batches']} batches + "
+        f"{n_buckets} at warm-up); flash launches {launches} (12 x "
+        f"{n_forwards} forwards = {12 * n_forwards}); plain calls on cuda "
+        f"{plain_on_cuda}")
     checks = {
         "served": st["served"] == SERVE_REQUESTS and st["failed"] == 0,
         "post_warmup_compiles": st["graph"]["post_warmup_compiles"] == 0,
-        "launches": launches == 12 * n_batches,
+        "graphs_captured": captured == n_buckets == 9,
+        "replay_a_batch": replays == st["batches"] + n_buckets,
+        "launches": launches == 12 * n_forwards,
         "plain_calls_on_cuda": plain_on_cuda == 0,
         "shapes": all(seq.shape == (len(r), 768) and pooled.shape == (768,)
                       and np.isfinite(seq).all() and np.isfinite(pooled).all()
                       for r, (seq, pooled) in zip(reqs, results)),
     }
 
-    # the largest bucket's forward timed alone, beside its 12 attention
-    # launches timed in the kernel phase at the same shape
-    big = mx.nd.array(spec.pad_batch(reqs[:8], 8, 512), ctx=mx.gpu(0))
-    fwd_ms = cuda_ms(lambda: net(big), iters=5)
-    log(f"serve: b8xl512 forward {fwd_ms:.3f} ms; 12 flash launches x "
-        f"{attn_ms:.4f} ms = {12 * attn_ms / fwd_ms:.1%} of it")
+    def replay_equals_eager(served, answers):
+        """Every response of ``served`` (examples, padded batch) against
+        the eager forward of its padded batch, bit for bit."""
+        same = True
+        for examples, padded in served:
+            seq, pooled = (o.data for o in eager_net(
+                mx.nd.array(padded, ctx=mx.gpu(0))))
+            seq, pooled = seq.cpu().numpy(), pooled.cpu().numpy()
+            for row, ex in enumerate(examples):
+                got = answers[id(ex)]
+                same &= (np.array_equal(got[0], seq[row, :len(ex)])
+                         and np.array_equal(got[1], pooled[row]))
+        return same
+
+    answers = {id(r): res for r, res in zip(reqs, results)}
+    checks["replay_equals_eager"] = replay_equals_eager(batches, answers)
+    log(f"serve: every response bit-identical to the eager forward of its "
+        f"padded batch: {checks['replay_equals_eager']} "
+        f"({len(batches)} batches)")
 
     # the same weights on the CPU (plain attention), three requests
     cpu_bert = mx.models.bert_base(use_decoder=False, use_classifier=False)
@@ -900,6 +971,55 @@ def serve_bert(mx, card, attn_ms):
     checks["cpu_parity"] = cpu_err <= CPU_ATOL
     log(f"serve: card vs cpu max abs err over 3 responses {cpu_err:.3g} "
         f"(atol {CPU_ATOL})")
+    del cpu_net, cpu_bert
+
+    # each bucket's forward, eager and replayed (the hybridized call: the
+    # input copied in, the replay, the outputs copied out), by CUDA events
+    times = {}
+    for b in spec.batch_sizes:
+        for n in spec.lengths:
+            x = mx.nd.array(pad([r[:n] for r in reqs[:b]], b, n),
+                            ctx=mx.gpu(0))
+            times[spec.key(b, n)] = (cuda_ms(lambda: eager_net(x), iters=5),
+                                     cuda_ms(lambda: net(x), iters=5))
+    log(f"serve: forward ms by bucket (eager, replayed) on {card}: "
+        + ", ".join(f"{k} {e:.3f}/{r:.3f}" for k, (e, r) in times.items()))
+    fwd_ms = times["b8xl512"][0]
+    log(f"serve: b8xl512 eager forward {fwd_ms:.3f} ms; 12 flash launches x "
+        f"{attn_ms:.4f} ms = {12 * attn_ms / fwd_ms:.1%} of it")
+
+    # other weights loaded into the served block while the server runs: the
+    # replays read them, with no new capture
+    mx.random.seed(1)
+    other = mx.models.bert_base(use_decoder=False, use_classifier=False)
+    other.initialize(init=mx.init.Normal(0.02), ctx=mx.gpu(0))
+    fname = os.path.join(tmpdir, "bert-base-other.params")
+    other = BertServing(other)
+    other(mx.nd.array(reqs[0][None], ctx=mx.gpu(0)))  # deferred shapes
+    other.save_parameters(fname)
+    del other
+    c1 = _imperative.graph_capture_count()
+    t0 = time.perf_counter()
+    net.load_parameters(fname)
+    t_load = time.perf_counter() - t0
+    first = len(batches)
+    later = reqs[3:7]
+    fresh = [server.predict(r, timeout=300) for r in later]
+    server.shutdown(drain=True, timeout=120)
+    st = server.stats()
+    reloaded = replay_equals_eager(
+        batches[first:], {id(r): res for r, res in zip(later, fresh)})
+    changed = not np.array_equal(fresh[0][1], results[3][1])
+    checks["reload_seen_by_replays"] = (
+        reloaded and changed and len(batches) - first == len(later)
+        and _imperative.graph_capture_count() == c1
+        and st["graph"]["post_warmup_compiles"] == 0)
+    log(f"serve: load_parameters of other weights under the running server "
+        f"({os.path.getsize(fname)} bytes, {t_load:.3f} s); the next "
+        f"{len(later)} responses bit-identical to the eager forward with "
+        f"them: {reloaded}; differ from before: {changed}; new captures "
+        f"{_imperative.graph_capture_count() - c1}")
+    os.remove(fname)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"serve checks failed: {failed}")
@@ -958,8 +1078,8 @@ def synthetic_batch(rng, bs, seq_len, vocab, mask_frac=0.15):
             positions)
 
 
-def pretrain_net(mx, ctx, dropout):
-    mx.random.seed(0)
+def pretrain_net(mx, ctx, dropout, seed=0):
+    mx.random.seed(seed)
     net = pretrain_block(mx)(mx.models.bert_base(
         use_decoder=True, use_classifier=True, dropout=dropout))
     net.initialize(init=mx.init.Normal(0.02), ctx=ctx)
@@ -1640,20 +1760,33 @@ def train_resnet(mx, card, profile=False):
     del trainer
     torch.cuda.empty_cache()
     xp = xg[:PREDICT_BATCH].contiguous()
+    reps = 5
+
+    def forwards():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = net(xp)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / reps
+
+    # eager (the block not hybridized), then the hybridized block's graph:
+    # a warm-up and a capture, then replays, whose launches are counted
+    net.hybridize(False)
     net(xp)  # warm
+    _, eager_ms = forwards()
+    net.hybridize()
+    net(xp)
+    net(xp)
     torch.cuda.synchronize()
     kernels.reset_counts()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = net(xp)
-    torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) * 1e3 / reps
+    out, fwd_ms = forwards()
     pcounts = {k: (c.launches, c.plain_calls_on_cuda)
                for k, c in kernels.KERNEL_COUNTS.items()}
-    log(f"resnet predict: b={PREDICT_BATCH} fp32 forward {fwd_ms:.3f} ms, "
-        f"{PREDICT_BATCH / (fwd_ms / 1e3):.1f} images/s; (launches, plain "
-        f"calls on cuda) {pcounts}")
+    log(f"resnet predict: b={PREDICT_BATCH} fp32 forward, replayed "
+        f"{fwd_ms:.3f} ms, {PREDICT_BATCH / (fwd_ms / 1e3):.1f} images/s "
+        f"(eager {eager_ms:.3f} ms); (launches, plain calls on cuda) of the "
+        f"replays {pcounts}")
     checks["predict_launches"] = pcounts["bn_act_matmul"][0] == 16 * reps
     # every fp32 bn_act_matmul of the forward on the TF32 route
     bam = kernels.KERNEL_COUNTS["bn_act_matmul"]
@@ -2643,6 +2776,327 @@ def captured_steps(mx, card):
     return medians
 
 
+# -- phase 16: checkpoints -----------------------------------------------------
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def timed_steps(step, n, gains=None):
+    """``n`` calls of ``step()``, each timed on the host with the card
+    synchronised before and after; returns ``(losses, ms)`` and appends
+    each call's launch gain to ``gains``."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step().asscalar())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if gains is not None:
+            gains.append(counts_gain(before, counts_now()))
+    return losses, ms
+
+
+def timed_save(save):
+    """``save()`` on the host clock and its device copies by CUDA events;
+    returns ``(result, host ms, device ms, commit clock start)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = save()
+    end.record()
+    hold_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return out, hold_ms, start.elapsed_time(end), t0
+
+
+def same_tensors(a, b):
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def checkpoint_bert(mx, card, tmpdir):
+    """Phase 16 (a): BERT-base MLM+NSP, b=32, s=128, AdamW, dropout 0.1,
+    from phase 15's weights and batch.  A reference of 6 captured steps;
+    run A saves after step 3 without ``sync`` and takes steps 4-6 while it
+    drains; runs B (captured) and C (eager) restore it into a net and
+    trainer with other weights and take steps 4-6."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    data = synthetic_batch(np.random.RandomState(3), TRAIN_BATCH, TRAIN_SEQ,
+                           30522)
+    batch = [mx.nd.array(a, ctx=gpu) for a in data]
+
+    def make(seed, whole_step):
+        net = pretrain_net(mx, gpu, dropout=0.1, seed=seed)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                                   {"learning_rate": 1e-4, "wd": 0.01},
+                                   whole_step=whole_step)
+        params = list(net.collect_params().values())
+        return (lambda: trainer.whole_step(net, own_loss, batch,
+                                           batch_size=1),
+                net, trainer, lambda: [p.data().detach().clone()
+                                       for p in params])
+
+    kernels.reset_counts()
+    step, net, trainer, weights = make(0, True)
+    ref_losses, _ = timed_steps(step, 3)
+    ref_w3 = weights()
+    more, ref_ms = timed_steps(step, 3)
+    ref_losses += more
+    ref_w6 = weights()
+    del step, net, trainer
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(tmpdir, "bert")
+    step, net, trainer, weights = make(0, True)
+    a_losses, _ = timed_steps(step, 3)
+    mgr = CheckpointManager(ckdir, keep_n=2)
+    fut, hold_ms, copy_ms, t0 = timed_save(
+        lambda: mgr.save(3, params=net, trainer=trainer))
+    done = []
+    fut.add_done_callback(lambda f: done.append(time.perf_counter()))
+    more, a_ms = timed_steps(step, 3)
+    a_losses += more
+    mgr.wait_until_finished()
+    commit_s = done[0] - t0
+    nbytes = dir_bytes(ckdir)
+    a_w6 = weights()
+    # a second save reuses the first one's device and host buffers; 3
+    # more steps run while it drains
+    _, hold2_ms, copy2_ms, _ = timed_save(
+        lambda: mgr.save(6, params=net, trainer=trainer))
+    _, a2_ms = timed_steps(step, 3)
+    mgr.wait_until_finished()
+    del step, net, trainer, mgr
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for label, whole in (("B", True), ("C", False)):
+        step, net, trainer, weights = make(1, whole)
+        gains = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        meta = CheckpointManager(ckdir).restore(step=3, params=net,
+                                                trainer=trainer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        w3 = weights()
+        losses, _ = timed_steps(step, 3, gains)
+        runs[label] = {"restored": same_tensors(w3, ref_w3),
+                       "losses": losses == ref_losses[3:],
+                       "params": same_tensors(weights(), ref_w6),
+                       "step": meta["step"] == 3,
+                       "gains": gains, "restore_s": restore_s}
+        del step, net, trainer, w3
+        torch.cuda.empty_cache()
+    plain = sum(c.plain_calls_on_cuda
+                for c in kernels.KERNEL_COUNTS.values())
+    flash = {k: {"launches": 12} for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+    want = STEP_LAUNCHES["bert"]
+    log(f"checkpoint bert: {nbytes} bytes written; save() held the training "
+        f"thread {hold_ms:.3f} ms (its device copies {copy_ms:.3f} ms by "
+        f"events; a second save {hold2_ms:.3f} ms, device {copy2_ms:.3f} "
+        f"ms); committed {commit_s:.3f} s after the call; restore "
+        f"B {runs['B']['restore_s']:.3f} s, C {runs['C']['restore_s']:.3f} "
+        f"s; step median of steps 4-6 with the save in flight "
+        f"{statistics.median(a_ms):.3f} ms (steps {[round(v, 3) for v in a_ms]}; "
+        f"steps 7-9 during the second save {[round(v, 3) for v in a2_ms]}), "
+        f"without {statistics.median(ref_ms):.3f} ms "
+        f"({[round(v, 3) for v in ref_ms]}) on {card}")
+    summary = {k: {n: v for n, v in r.items() if n != "gains"}
+               for k, r in runs.items()}
+    log(f"checkpoint bert: reference losses {ref_losses}; run A steps 4-6 "
+        f"{a_losses[3:]}; runs B, C: {summary}")
+    log(f"checkpoint bert: launches a step, B {runs['B']['gains']}, C "
+        f"{runs['C']['gains']}; plain calls on cuda {plain}")
+    checks = {
+        "a_losses_bit_identical": a_losses == ref_losses,
+        "a_params_bit_identical": same_tensors(a_w6, ref_w6),
+        "committed": os.path.isdir(os.path.join(ckdir, "ckpt-00000003")),
+        "plain_calls_on_cuda": plain == 0,
+    }
+    for label, r in runs.items():
+        checks[f"{label}_restored_step3_weights"] = r["restored"]
+        checks[f"{label}_losses_bit_identical"] = r["losses"] and r["step"]
+        checks[f"{label}_params_bit_identical"] = r["params"]
+        checks[f"{label}_launches"] = all(
+            g == want and all(g.get(k, {}).get("launches") == 12
+                              for k in flash)
+            for g in r["gains"])
+    shutil.rmtree(ckdir)
+    return checks, {"bytes": nbytes, "save_hold_ms": [hold_ms, hold2_ms],
+                    "save_copy_ms": [copy_ms, copy2_ms], "commit_s": commit_s,
+                    "restore_s": [runs["B"]["restore_s"],
+                                  runs["C"]["restore_s"]],
+                    "median_ms_saving": [statistics.median(a_ms),
+                                         statistics.median(a2_ms)],
+                    "median_ms": statistics.median(ref_ms)}
+
+
+def checkpoint_resnet(mx, card, tmpdir):
+    """Phase 16 (b): ResNet-50 v1 NHWC b=128 bf16 through the captured
+    ``DataParallelTrainer`` from phase 15's weights and batch: 3 steps,
+    ``save_states(async_save=True)``, 3 more; a fresh, built trainer over
+    the block (re-initialised with other weights) loads it and takes 3
+    steps.  Then ``sync_to_block``, ``save_parameters`` and
+    ``load_parameters`` into a fresh ResNet-50, whose b=64 fp32 predict
+    forward must equal the source block's."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    x, y = synthetic_images(np.random.RandomState(0), RESNET_BATCH,
+                            RESNET_IMAGE)
+    xg, yg = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    net = resnet50(mx, gpu, fuse=True)
+    trainer = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True)
+    trainer.build(xg)
+    kernels.reset_counts()
+    timed_steps(lambda: trainer.step(xg, yg), 3)
+    prefix = os.path.join(tmpdir, "resnet50")
+    fut, hold_ms, copy_ms, t0 = timed_save(
+        lambda: trainer.save_states(prefix, async_save=True))
+    done = []
+    fut.add_done_callback(lambda f: done.append(time.perf_counter()))
+    ref_losses, saving_ms = timed_steps(lambda: trainer.step(xg, yg), 3)
+    fut.result()
+    commit_s = done[0] - t0
+    ref_w6 = [p.detach().clone() for p in trainer._params]
+    nbytes = sum(os.path.getsize(f"{prefix}-{n}.npz")
+                 for n in ("meta", "shards-p0"))
+    _, plain_ms = timed_steps(lambda: trainer.step(xg, yg), 3)
+    plain = sum(c.plain_calls_on_cuda
+                for c in kernels.KERNEL_COUNTS.values())
+    # a second save reuses the first one's device and host buffers
+    fut, hold2_ms, copy2_ms, _ = timed_save(
+        lambda: trainer.save_states(prefix + "-2", async_save=True))
+    _, saving2_ms = timed_steps(lambda: trainer.step(xg, yg), 3)
+    fut.result()
+    del trainer
+    torch.cuda.empty_cache()
+
+    mx.random.seed(5)
+    net.initialize(mx.init.Xavier(), ctx=gpu, force_reinit=True)
+    fresh = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True)
+    fresh.build(xg)  # a predict-mode probe of 2 samples, as in phase 7
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fresh.load_states(prefix)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    gains = []
+    losses, _ = timed_steps(lambda: fresh.step(xg, yg), 3, gains)
+    simple = {k: kernels.KERNEL_COUNTS[k].simple_launches
+              for k in ("matmul_bn_stats", "bn_act_matmul_stats")}
+    plain += sum(c.plain_calls_on_cuda
+                 for c in kernels.KERNEL_COUNTS.values())
+    resumed = {"losses": losses == ref_losses,
+               "params": same_tensors([p.detach() for p in fresh._params],
+                                      ref_w6)}
+    expect = {"matmul_bn_stats": 20, "bn_stats": 16, "bn_act_matmul_stats": 16}
+    want = STEP_LAUNCHES["resnet"]
+    log(f"checkpoint resnet: {nbytes} bytes written; save_states held the "
+        f"training thread {hold_ms:.3f} ms (its device copies {copy_ms:.3f} "
+        f"ms by events; a second save {hold2_ms:.3f} ms, device "
+        f"{copy2_ms:.3f} ms); written {commit_s:.3f} s after the call; "
+        f"load_states {restore_s:.3f} s; step median of steps 4-6 with the "
+        f"save in flight {statistics.median(saving_ms):.3f} ms (steps "
+        f"{[round(v, 3) for v in saving_ms]}; steps 10-12 during the second "
+        f"save {[round(v, 3) for v in saving2_ms]}), of steps 7-9 without "
+        f"{statistics.median(plain_ms):.3f} ms "
+        f"({[round(v, 3) for v in plain_ms]}) on {card}")
+    log(f"checkpoint resnet: steps 4-6 {ref_losses}, resumed {losses}: "
+        f"{resumed}; launches a step {gains}; simple-route launches "
+        f"{simple}; plain calls on cuda {plain}")
+    checks = {
+        "resnet_resumed_losses_bit_identical": resumed["losses"],
+        "resnet_resumed_params_bit_identical": resumed["params"],
+        "resnet_launches": all(
+            g == want and all(g.get(k, {}).get("launches") == v
+                              for k, v in expect.items())
+            for g in gains),
+        "resnet_tma_route": all(v == 0 for v in simple.values()),
+        "resnet_plain_calls_on_cuda": plain == 0,
+    }
+
+    # the trained weights through a .params file into a fresh ResNet-50
+    fresh.sync_to_block()
+    del fresh
+    torch.cuda.empty_cache()
+    fname = os.path.join(tmpdir, "resnet50.params")
+    net.save_parameters(fname)
+    copy = resnet50(mx, gpu, fuse=True)
+    t2 = time.perf_counter()
+    copy.load_parameters(fname)
+    load_s = time.perf_counter() - t2
+    xp = xg[:PREDICT_BATCH].contiguous()
+    outs, bam = [], []
+    for block in (net, net, copy):   # the source: eager, then captured
+        before = counts_now()
+        outs.append(block(xp).data.clone())
+        torch.cuda.synchronize()
+        bam.append(counts_gain(before, counts_now())
+                   .get("bn_act_matmul", {}).get("launches", 0))
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    log(f"checkpoint resnet: save_parameters {os.path.getsize(fname)} bytes, "
+        f"load_parameters into a fresh resnet50_v1 {load_s:.3f} s; b="
+        f"{PREDICT_BATCH} fp32 predict forwards (source eager, source "
+        f"captured, copy) bit-identical {same}, bn_act_matmul launches {bam}")
+    checks["resnet_params_file_forward_bit_identical"] = same
+    checks["resnet_params_file_launches"] = bam == [16, 16, 16]
+    del net, copy, xp, outs
+    os.remove(fname)
+    for p in (prefix, prefix + "-2"):
+        for n in ("meta", "shards-p0"):
+            os.remove(f"{p}-{n}.npz")
+    torch.cuda.empty_cache()
+    return checks, {"bytes": nbytes, "save_hold_ms": [hold_ms, hold2_ms],
+                    "save_copy_ms": [copy_ms, copy2_ms], "commit_s": commit_s,
+                    "restore_s": restore_s,
+                    "median_ms_saving": [statistics.median(saving_ms),
+                                         statistics.median(saving2_ms)],
+                    "median_ms": statistics.median(plain_ms)}
+
+
+def checkpoints(mx, card):
+    """Phase 16 on BERT-base and ResNet-50, in a temporary directory of the
+    checkout that is removed after."""
+    tmpdir = tempfile.mkdtemp(prefix="ckpt-smoke-", dir=ROOT)
+    try:
+        checks, bert = checkpoint_bert(mx, card, tmpdir)
+        more, resnet = checkpoint_resnet(mx, card, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    checks.update(more)
+    log(f"checkpoints: {json.dumps({'bert': bert, 'resnet': resnet})}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"checkpoint checks failed: {failed}")
+    return {"bert": bert, "resnet": resnet}
+
+
 def main():
     import torch
 
@@ -2700,16 +3154,23 @@ def main():
             + ("cuobjdump not found" if mixes is None else "; ".join(
                 f"{short_name(fn)}: {mix}" for fn, mix in mixes.items())))
 
+    # every torch.profiler session (phases 6 and 10, and the profiles of 5
+    # and 7) runs before the first CUDA graph (phase 8's predict forwards,
+    # phase 4's buckets): graphs captured earlier broke the profiler's
+    # device readings (PERF.md §6)
     flash = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
-    serve = serve_bert(mx, card, flash["ms"])
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))
-    rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
+    rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
+    with tempfile.TemporaryDirectory(prefix="serve-smoke-", dir=ROOT) as d:
+        serve = serve_bert(mx, card, flash["ms"], d)
+    torch.cuda.empty_cache()
     dtrain, dpredict, _, droutes, dbroutes = train_deepar(mx, card)
     gtrain, _, groutes = train_gru(mx, card)
     captured_steps(mx, card)
+    checkpoints(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"

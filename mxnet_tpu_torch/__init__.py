@@ -16,4 +16,5 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import gluon  # noqa: F401
 from . import models, parallel, serve  # noqa: F401
+from . import checkpoint, utils  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

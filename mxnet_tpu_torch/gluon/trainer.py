@@ -15,12 +15,21 @@ that step is one CUDA-graph replay on the card after a warm-up and a
 capture per input signature (``gluon/whole_step.py``), bit-identical to
 the eager step.
 
+:meth:`Trainer.save_states`/:meth:`Trainer.load_states` write and read
+the JAX package's versioned pickle, so either package resumes the
+other's optimizer; loading copies into the existing state tensors in
+place, so a captured whole step keeps replaying on them.
+
 What later slices bring raises :class:`MXNetError` here instead of being
 ignored: a distributed kvstore, ``update_on_kvstore``, gradient
-compression, ZeRO (``zero_shard``) and ``mesh_shape``.
+compression, ZeRO (``zero_shard``) and ``mesh_shape``, and states blobs
+of those.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from .. import autograd
@@ -217,6 +226,117 @@ class Trainer:
         _step_stats["whole_step_steps"] += 1
         _step_stats["whole_step_compiles"] += wstats["compiles"]
         return loss
+
+    # -- state io (ref: gluon/trainer.py:764-885, 1037-1072) -----------------
+
+    # Pickle-blob layout version: {"version": 1, "states": {i: {ctx:
+    # state}}, "num_update", "index_update_count"}; the round-0 layout
+    # without "version" loads as v1.
+    STATES_FORMAT_VERSION = 1
+
+    def _states_blob(self):
+        """The states layout with the live state tensors as leaves (the
+        checkpoint manager copies them before the next step)."""
+        states = {i: ({} if st is None else {str(p.context): st})
+                  for i, (p, st) in enumerate(zip(self._params,
+                                                  self._states))}
+        return {"version": self.STATES_FORMAT_VERSION, "states": states,
+                "num_update": self._optimizer.num_update,
+                "index_update_count":
+                    dict(self._optimizer._index_update_count)}
+
+    def states_dict(self):
+        """Versioned optimizer-state snapshot with numpy leaves (ref:
+        Trainer.states_dict).  The JAX package's leaves are its immutable
+        device arrays; the port's states are written in place by every
+        later step, so the snapshot holds host copies."""
+        from ..checkpoint.snapshot import host_leaves
+
+        return host_leaves(self._states_blob())
+
+    def load_states_dict(self, blob, source="<states blob>"):
+        """Inverse of :meth:`states_dict` (leaves numpy arrays, NDArrays or
+        tensors): restores the update counters and copies each saved state
+        into the existing state tensor in place (one is created where none
+        exists yet), so a captured step replays on the loaded values.
+        Everything is checked before anything is changed."""
+        if isinstance(blob, dict) and "version" not in blob and set(
+                blob) == {"states", "num_update", "index_update_count"}:
+            # the round-0 layout is exactly v1 minus the version key
+            blob = dict(blob, version=self.STATES_FORMAT_VERSION)
+        if not isinstance(blob, dict) or "version" not in blob:
+            raise MXNetError(
+                f"{source}: unversioned Trainer states blob with an "
+                "unrecognized layout — not written by any "
+                "save_states; if it predates state versioning, load "
+                "the parameters alone and let the optimizer restart.")
+        if blob["version"] != self.STATES_FORMAT_VERSION:
+            raise MXNetError(
+                f"{source}: Trainer states format v{blob['version']} "
+                f"does not match this build's "
+                f"v{self.STATES_FORMAT_VERSION}; save and load with "
+                "matching mxnet_tpu versions.")
+        for key, what in (("kvstore", "a kvstore-side updater's states"),
+                          ("zero", "ZeRO-sharded states"),
+                          ("mesh_shape", "states saved on a mesh")):
+            if blob.get(key) is not None:
+                raise _later(f"{source}: loading {what} ({key!r})",
+                             "distributed")
+        loads = []
+        for i, p in enumerate(self._params):
+            saved = blob["states"].get(i, {})
+            if saved:
+                loads.append((i, *self._check_state(
+                    i, p, next(iter(saved.values())), source)))
+        self._optimizer.num_update = blob["num_update"]
+        self._optimizer._index_update_count = dict(
+            blob["index_update_count"])
+        for i, state, leaves in loads:
+            self._states[i] = state
+            with torch.no_grad():
+                for dst, src in zip(_opt._state_list(state), leaves):
+                    dst.copy_(src.to(dst.dtype))
+
+    def _check_state(self, i, p, saved, source):
+        """``(state, leaves)``: the state tensors of parameter ``i`` (the
+        existing ones, or new ones where none exist) and the saved values
+        as CPU tensors, checked against them; ``(None, [])`` for a saved
+        None."""
+        from ..ndarray.ndarray import NDArray
+
+        if saved is None:
+            return None, []
+        leaves = []
+        for v in (saved if isinstance(saved, (tuple, list)) else (saved,)):
+            if isinstance(v, NDArray):
+                v = v.data
+            leaves.append(v.detach().cpu() if isinstance(v, torch.Tensor)
+                          else torch.from_numpy(np.array(v)))
+        state = self._states[i]
+        if state is None:
+            state = self._optimizer.create_state_multi_precision(i, p.data())
+        want = [tuple(t.shape) for t in _opt._state_list(state)]
+        if want != [tuple(t.shape) for t in leaves]:
+            raise MXNetError(
+                f"{source}: the saved optimizer state of {p.name} holds "
+                f"arrays of shapes {[tuple(t.shape) for t in leaves]}, "
+                f"but this optimizer keeps {want}")
+        return state, leaves
+
+    def save_states(self, fname):
+        """Pickle :meth:`states_dict` to ``fname`` atomically (a temp file
+        renamed over it), in the JAX package's layout."""
+        from ..checkpoint import atomic_file
+
+        payload = self.states_dict()
+        with atomic_file(fname) as tmp:
+            with open(tmp, "wb") as f:
+                pickle.dump(payload, f)
+
+    def load_states(self, fname):
+        with open(fname, "rb") as f:
+            blob = pickle.load(f)
+        self.load_states_dict(blob, source=fname)
 
     def _eager_whole_step(self, block, loss_fn, inputs, y, batch_size):
         """The eager twin of :meth:`whole_step`: ``autograd.record``, the

@@ -114,10 +114,11 @@ class CapturedStep:
     ``body(*static)`` is captured once; :meth:`replay` copies new values
     into ``static`` (tensors of the same shapes and dtypes), replays the
     graph, adds the launches recorded at capture to the kernels' counters
-    and returns the body's output, the graph's own buffer.  A capture
-    that fails raises."""
+    and returns the body's output, the graph's own buffer.  ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) lets several graphs share one
+    memory pool.  A capture that fails raises."""
 
-    def __init__(self, body, static, device):
+    def __init__(self, body, static, device, pool=None):
         self.static = list(static)
         self.graph = torch.cuda.CUDAGraph()
         gens = _random.default_pool.generators(device)
@@ -125,7 +126,7 @@ class CapturedStep:
             self.graph.register_generator_state(gen)
         launches = CapturedLaunches()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, pool=pool):
                 self.out = body(*self.static)
         except BaseException:
             _release_generators(gens)

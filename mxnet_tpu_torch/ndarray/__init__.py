@@ -7,9 +7,25 @@ and ``contrib.X`` is the op registered as ``_contrib_X``
 (``F.contrib.conv1x1_bn_act``).
 ``NDArray``, ``array`` and ``zeros`` build the arrays user code hands to
 blocks; ``arange`` is the op (a tensor on ``ctx``), and the NDArray form
-is ``ndarray.ndarray.arange``.
+is ``ndarray.ndarray.arange``.  ``save``/``load`` write and read the
+JAX package's ``.params`` container (``utils.serialization``).
 """
 from .ndarray import NDArray, array, to_torch_dtype, zeros  # noqa: F401
+
+
+def save(fname, data):
+    """Save a list of arrays or a dict str -> array (ref: mx.nd.save)."""
+    from ..utils import serialization
+
+    serialization.save_ndarrays(fname, data)
+
+
+def load(fname):
+    """Load what :func:`save` wrote: NDArrays on the CPU, in a list or a
+    dict (ref: mx.nd.load)."""
+    from ..utils import serialization
+
+    return serialization.load_ndarrays(fname)
 
 
 class _ContribNamespace:

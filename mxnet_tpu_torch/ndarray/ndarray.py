@@ -147,7 +147,9 @@ def array(source_array, ctx=None, dtype=None):
     src = np.asarray(source_array)
     if dtype is None:
         dtype = np.float32 if src.dtype == np.float64 else src.dtype
-    t = torch.from_numpy(np.ascontiguousarray(src.astype(dtype, copy=False)))
+    # ascontiguousarray makes a 0-d array 1-d: keep the source's shape
+    t = torch.from_numpy(np.ascontiguousarray(
+        src.astype(dtype, copy=False))).reshape(src.shape)
     return NDArray(t.to(_device_of(ctx), copy=True))
 
 

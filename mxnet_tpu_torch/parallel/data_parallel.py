@@ -21,10 +21,18 @@ the CPU the same body runs eagerly; the signature counters are kept on
 both.  :meth:`~DataParallelTrainer.step_many` is K such steps with no
 host synchronisation between them.
 
+:meth:`~DataParallelTrainer.save_states` writes the JAX class's
+checkpoint (``{prefix}-meta.npz`` and ``{prefix}-shards-p0.npz``, the
+one-device mesh's), so either package resumes the other's;
+:meth:`~DataParallelTrainer.load_states` copies into the masters and
+states in place, so the captured step replays on the loaded values.
+
 What needs a mesh of more than one device, sharded parameters or states,
-rematerialization or checkpoints raises, naming the slice that brings it.
+or rematerialization raises, naming the slice that brings it.
 """
 from __future__ import annotations
+
+import glob
 
 import numpy as np
 import torch
@@ -118,6 +126,9 @@ class DataParallelTrainer:
         self._capture = bool(capture)
         self._seen_sigs = set()
         self._graphs = {}      # input signature -> CapturedStep
+        self._snapshot = None  # checkpoint.Snapshot of save_states
+        self._writer = None    # its writer thread
+        self._saving = None    # the future of the last save_states
 
     # -- set-up ---------------------------------------------------------------
 
@@ -358,9 +369,108 @@ class DataParallelTrainer:
         for (_, p), raw in zip(self._named, self._params):
             p.set_data(raw.detach())
 
+    # -- checkpoints (ref: data_parallel.py:586-716) ---------------------------
+
+    #: the mesh a one-device trainer runs on, as the JAX package's
+    #: ``make_mesh(devices=jax.devices()[:1])`` names it
+    MESH_AXES = ("dp",)
+    MESH_SHAPE = (1,)
+
+    @staticmethod
+    def _shard_id(shape):
+        """The on-disk id of a whole (unsharded) array: ``start:stop`` per
+        dim, ``"full"`` for a 0-d one (the JAX class's ``_shard_id``)."""
+        return "/".join(f"0:{dim}" for dim in shape) or "full"
+
+    def _ckpt_tensors(self):
+        """``{key: tensor}`` over the masters (moving statistics included)
+        and the optimizer states, keyed as the JAX class keys them."""
+        out = {}
+        for (name, _), raw in zip(self._named, self._params):
+            out[f"param::{name}"] = raw
+        for i, st in enumerate(self._states):
+            if st is None:
+                continue
+            for j, leaf in enumerate(st if isinstance(st, tuple) else (st,)):
+                out[f"state::{i}::{j}"] = leaf
+        return out
+
     def save_states(self, prefix, async_save=False):
-        raise _later("save_states", 6)
+        """Checkpoint the masters, the optimizer states, the step counter
+        and the learning rate (ref: DataParallelTrainer.save_states):
+        ``{prefix}-meta.npz`` (``t``, ``lr``, ``mesh_shape``,
+        ``mesh_axes``) and ``{prefix}-shards-p0.npz``
+        (``param::{name}@@{shard}``, ``state::{i}::{j}@@{shard}``).
+
+        The values are those at the call: they are copied on the current
+        stream before this returns (the captured step writes them in
+        place).  With ``async_save=True`` the copy to the host and the
+        writes run on a writer thread and a future is returned; call
+        ``.result()`` before relying on the files (it re-raises a write
+        error).  A second save first waits for the first."""
+        from ..checkpoint.snapshot import Snapshot, host_leaves, writer
+
+        if self._params is None:
+            raise MXNetError("save_states before the first step: nothing "
+                             "to checkpoint yet")
+        if self._saving is not None:
+            self._saving.result()
+        if self._snapshot is None:
+            self._snapshot, self._writer = Snapshot(), writer()
+        pending = self._snapshot.take(self._ckpt_tensors())
+        meta = dict(t=np.int64(self._t), lr=np.float64(self._lr),
+                    mesh_shape=np.array(self.MESH_SHAPE, np.int64),
+                    mesh_axes=np.array(list(self.MESH_AXES)))
+
+        def _write():
+            shards = {f"{k}@@{self._shard_id(v.shape)}": v for k, v in
+                      host_leaves(pending.fetch(), copy=False).items()}
+            np.savez(f"{prefix}-shards-p0.npz", **shards)
+            np.savez(f"{prefix}-meta.npz", **meta)
+
+        self._saving = self._writer.submit(_write)
+        if async_save:
+            return self._saving
+        self._saving.result()
+        return None
 
     def load_states(self, prefix):
-        raise _later("load_states", 6)
-
+        """Restore :meth:`save_states`' checkpoint (either package's) onto
+        the same one-device mesh.  The trainer must be built; the values
+        are copied into its masters, moving statistics and optimizer
+        states in place, so its captured step replays on them."""
+        if self._params is None:
+            raise MXNetError("load_states requires a built trainer: call "
+                             "trainer.build(example_x) first")
+        if self._saving is not None:
+            self._saving.result()
+        meta = np.load(f"{prefix}-meta.npz", allow_pickle=False)
+        saved_axes = [str(a) for a in meta["mesh_axes"]]
+        saved_shape = [int(v) for v in meta["mesh_shape"]]
+        cur = list(zip(self.MESH_AXES, self.MESH_SHAPE))
+        if list(zip(saved_axes, saved_shape)) != cur:
+            raise MXNetError(
+                f"checkpoint mesh {list(zip(saved_axes, saved_shape))} != "
+                f"current mesh {cur}; resharding on load isn't supported")
+        where = {}
+        files = [np.load(f, allow_pickle=False)
+                 for f in sorted(glob.glob(f"{prefix}-shards-p*.npz"))]
+        try:
+            for z in files:
+                where.update({k: z for k in z.files})
+            loads = []
+            for key, dst in self._ckpt_tensors().items():
+                sid = self._shard_id(dst.shape)
+                z = where.get(f"{key}@@{sid}")
+                if z is None:
+                    raise MXNetError(
+                        f"checkpoint {prefix} missing shard {sid} of {key}")
+                loads.append((dst, z[f"{key}@@{sid}"]))
+        finally:
+            for z in files:
+                z.close()
+        with torch.no_grad():
+            for dst, src in loads:
+                dst.copy_(torch.from_numpy(src).to(dst.dtype))
+        self._t = int(meta["t"])
+        self._lr = float(meta["lr"])

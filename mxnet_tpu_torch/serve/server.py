@@ -7,10 +7,15 @@ Request path::
     -> pad into a (batch, length) bucket -> ONE forward on the device
     -> split + unpad -> per-request Future resolves with numpy output
 
-Every bucket of the :class:`~.buckets.BucketSpec` grid runs once at
-``start()`` (warmup), after which the block's input-signature counters
-(``gluon.block.CachedOp``) show no new signature under mixed traffic:
-``stats()["graph"]["post_warmup_compiles"] == 0``.
+Every bucket of the :class:`~.buckets.BucketSpec` grid runs at
+``start()`` (warmup), twice on the card: the hybridized block's first
+call of a bucket runs eagerly and its second captures the bucket's
+forward as a CUDA graph (``gluon.block.CachedOp``), so every batch after ``start()``
+is one replay, and the block's input-signature counters show no new
+signature under mixed traffic:
+``stats()["graph"]["post_warmup_compiles"] == 0``.  A replay writes its
+outputs into the graph's own buffers; ``CachedOp`` returns copies, and
+each batch's rows are read back to the host before the next batch runs.
 
 - **backpressure**: the queue is bounded; ``submit()`` on a full queue
   raises :class:`ServerOverloadedError` at once.
@@ -21,7 +26,9 @@ Every bucket of the :class:`~.buckets.BucketSpec` grid runs once at
   finishes every queued request, and leaves no in-flight work.
 
 The JAX package's tracer spans, profiler scopes, int8 batch hook,
-metrics-endpoint export and checkpoint hot reload are not ported yet.
+metrics-endpoint export and ``reload_weights()`` are not ported yet;
+``block.load_parameters`` on the served block copies new weights in
+place, and the next replay reads them.
 The batcher thread launches the kernels on its own current CUDA stream.
 """
 from __future__ import annotations
@@ -88,7 +95,7 @@ class ModelServer:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self, warmup=True):
-        """Hybridize, run every bucket once, start the batcher thread.
+        """Hybridize, warm every bucket up, start the batcher thread.
 
         A drained server can be start()ed again: the queue reopens and
         the bucket signatures seen the first time are reused."""
@@ -111,14 +118,16 @@ class ModelServer:
         return self
 
     def _warmup(self):
-        """Run one dummy batch per bucket, smallest shape first."""
+        """Run a dummy batch per bucket, smallest shape first; on the card
+        a second one, which captures the bucket's graph."""
         for shape in self._spec.bucket_shapes():
             x = _nd_array(np.full(shape, self._spec.pad_value,
                                   dtype=self._spec.dtype), ctx=self._ctx)
-            out = self._net(x)
-            for o in (out if isinstance(out, (list, tuple)) else [out]):
-                if isinstance(o, NDArray):
-                    o.wait_to_read()
+            for _ in range(2 if x.data.is_cuda else 1):
+                out = self._net(x)
+                for o in (out if isinstance(out, (list, tuple)) else [out]):
+                    if isinstance(o, NDArray):
+                        o.wait_to_read()
             self._stats.incr("warmup_batches")
 
     def __enter__(self):
