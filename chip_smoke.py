@@ -24,7 +24,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
    of their kernels and SDPA's kernels (its backend, read by
    torch.profiler in a process of its own) are printed, and at the
    training shape dK/dV against 8/14 of SDPA's backward and dQ + dK/dV
-   against all of it, in the same call (printed, not gated);
+   against all of it, in the same call (printed, not gated); and the
+   forward, dQ and dK/dV kernels at Transformer-big's bucket-64 shape
+   (b=64, h=16, s=64, d=64, fp32), causal with no mask and key-padded, each
+   against the plain version and timed beside it, SDPA and the bound;
 4. serve: BERT-base (12 layers, 768 units, 12 heads of 64, vocab 30522,
    random weights from a seed) behind ``serve.ModelServer``, 32 requests
    from 4 client threads, each of the 9 buckets a captured CUDA graph
@@ -142,7 +145,38 @@ Phases (any failure ends the run with a non-zero exit and no result):
     held the training thread, the time to commit, the restore time and
     the step median with a save in flight beside one without.
 
-The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-16: every
+17. Transformer-big training: ``transformer_big(32000, 32000)``
+    (6+6 layers, 1024 units, 16 heads of 64, FFN 4096, dropout 0.3),
+    Xavier, behind the example's teacher-forcing wrapper and
+    label-smoothed loss (examples/nmt/train_transformer.py, copied), 20
+    ``DataParallelTrainer`` steps (Adam lr 3e-4, beta2 0.98, fp32) at
+    batch 64 on the port's ``NMTBucketIter`` batches (buckets 16, 32, 64;
+    a Zipf-distributed copy task from numpy seed 0), eager, then the same
+    20 from the same weights captured: the losses finite and the last 5's
+    mean below the first, 18 launches of each flash kernel every step, no
+    plain call, one graph a bucket and a replay a step after its warm-up,
+    the first 4 losses and the parameters after them bit-identical to the
+    eager run's, the positional constant unchanged; then the starting
+    weights with dropout 0, batch 2 at bucket 16, 2 Adam steps through
+    ``gluon.Trainer`` on the card and on the CPU: the first loss,
+    ``dec_layers.0.cross_in_weight``'s gradient and both losses must
+    agree; per-bucket step medians in tokens/s are printed;
+18. Transformer-big decoding: the trained model, hybridized, in predict
+    mode, decodes 8 bucket-32 sources with ``greedy_decode`` and
+    ``beam_search_decode`` (beam 4, alpha 0.6), up to 32 tokens, three
+    times (the eager warm-up, the captures, the replays): bit-identical
+    sequences and scores, a graph a prefix signature, beam 1 equal to
+    greedy, 18 forward launches a decode step, no plain call; the CPU fed
+    the card's greedy sequences must give each step's logits within
+    ``CPU_ATOL`` and the card's token where its top-2 margin exceeds
+    ``TFM_MARGIN``; the time a step and a sentence, eager and replayed;
+18b. the cells: two stacked ``LSTMCell(200)`` and two ``GRUCell(200)``
+    (``HybridSequentialRNNCell``), given the weights of
+    ``gluon.rnn.LSTM``/``GRU(200, num_layers=2)``, unrolled over T=35,
+    N=32 TNC, must give the fused layers' outputs (the recurrence kernels,
+    rows 11 and 13) within ``CELL_RTOL``.
+
+The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -266,6 +300,25 @@ DEEPAR_PARAM_ATOL = 1e-4
 DEEPAR_PATH_RTOL = 1e-4
 # MXNet 1.x's example/gluon/word_language_model defaults with --model gru
 GRU_HIDDEN, GRU_T, GRU_BATCH, GRU_STEPS = 200, 35, 32, 20
+# Transformer-big as examples/nmt/train_transformer.py runs it (--model big
+# --batch-size 64 --buckets 16,32,64; vocabularies 32,000; Adam lr 3e-4,
+# beta2 0.98; label smoothing 0.1): 7 full batches a bucket, 20 steps
+TFM_VOCAB, TFM_BATCH, TFM_BUCKETS = 32000, 64, (16, 32, 64)
+TFM_WIDTHS = dict(units=1024, hidden_size=4096, num_layers=6, num_heads=16)
+TFM_BATCHES_A_BUCKET, TFM_STEPS = 7, 20
+TFM_OPT = {"learning_rate": 3e-4, "beta2": 0.98}
+# attention launches of one Transformer-big forward: 6 encoder
+# self-attentions, 6 causal decoder self-attentions, 6 cross-attentions
+TFM_ATTENTIONS = 18
+# decoding: 8 source rows of bucket 32, beam 4 with GNMT alpha 0.6 (Vaswani
+# et al. 2017, 6.1), up to 32 tokens
+TFM_DECODE_ROWS, TFM_DECODE_LEN, TFM_BEAM, TFM_ALPHA = 8, 32, 4, 0.6
+# the CPU's argmax must be the card's token where its top-2 margin is above
+# this: twice the logits' card-vs-CPU tolerance (CPU_ATOL)
+TFM_MARGIN = 2e-3
+# the cells against the fused layers, max |err| over max |fused|: fp32,
+# the same products summed in other orders through 35 steps of 2 layers
+CELL_RTOL = 1e-4
 
 
 def log(*args):
@@ -761,6 +814,97 @@ def check_flash_attention_bwd(mx):
                         + " (printed, not gated)")
     check_function_gradients(fa, dev, rng)
     return main
+
+
+def check_transformer_attention():
+    """Rows 1, 3 and 4 at Transformer-big's bucket-64 training shape (b=64,
+    h=16, s=64, d=64, fp32; head views of packed tensors): causal with no
+    mask (the decoder's self-attention) and key-padded, not causal (the
+    encoder's self-attention and the cross-attention), each against the
+    plain version and timed beside it, SDPA and the bound.  Returns
+    ``{kernel: {case: record}}``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(7)
+    b, h, s, d = TFM_BATCH, 16, TFM_BUCKETS[-1], 64
+    dtype = "float32"
+    packed = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32)
+                              * 0.5).to(dev)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in packed.chunk(3, dim=-1))
+    do = torch.from_numpy(rng.randn(b, s, h * d).astype(np.float32)).to(
+        dev).reshape(b, s, h, d).transpose(1, 2)
+    valid = rng.randint(33, s + 1, size=b)
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd_dq": {},
+           "flash_attention_bwd_dkv": {}}
+    log(f"flash attention at Transformer-big's bucket-64 shape b={b} h={h} "
+        f"s={s} d={d} {dtype} (fwd atol 1e-4, bwd atol/rtol "
+        f"{BWD_TOL[dtype]}); bounds at 3xTF32")
+    for case in ("causal", "key_padding"):
+        causal = case == "causal"
+        vl = valid if case == "key_padding" else None
+        km = None
+        if vl is not None:
+            keep = torch.from_numpy(np.arange(s)[None, :] < vl[:, None])
+            km = torch.where(keep, 0.0, -1e9).to(dev, torch.float32)
+        o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal)
+        po, _ = fa.flash_attention_plain(q, k, v, km, causal=causal)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, km,
+                                       causal=causal)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
+                                           causal=causal)
+        torch.cuda.synchronize()
+        o_err = (o - po).abs().max().item()
+        errs = [(g - r).abs().max().item() for g, r in zip(grads, ref)]
+        atol, rtol = BWD_TOL[dtype]
+        ok = o_err <= 1e-4 and all(
+            torch.allclose(g, r, atol=atol, rtol=rtol)
+            for g, r in zip(grads, ref))
+        delta = (do * o).sum(-1).reshape(b * h, s)
+        args = (q, k, v, do, lse, delta, km)
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, km, causal=causal), iters=20)
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            *args, causal=causal), iters=20)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+            *args, causal=causal), iters=20)
+        plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, km, causal=causal), iters=5)
+        plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, km, causal=causal), iters=5)
+        attn_mask = None if km is None else km.view(b, 1, 1, s)
+        sdpa_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=causal), iters=20)
+        sdpa_bwd = sdpa_backward_ms(tF, q, k, v, do, km, causal)
+        fb = attention_bound(b, h, s, s, d, dtype, vl, causal)
+        qb = bwd_bound(b, h, s, s, d, dtype, vl, causal, 6, 1)
+        kb = bwd_bound(b, h, s, s, d, dtype, vl, causal, 8, 2)
+        log(f"  {case:11s} err o/dq/dk/dv {o_err:.3g}/{errs[0]:.3g}/"
+            f"{errs[1]:.3g}/{errs[2]:.3g}; fwd {fwd_ms:.4f} ms (plain "
+            f"{plain_fwd:.4f}, sdpa {sdpa_fwd:.4f}, bound {fb[0]:.4f} "
+            f"{fb[1]}); dQ {dq_ms:.4f} (bound {qb[0]:.4f}) dK/dV "
+            f"{dkv_ms:.4f} (bound {kb[0]:.4f}); plain bwd {plain_bwd:.4f}, "
+            f"sdpa bwd {sdpa_bwd:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash attention kernels disagree with their "
+                             f"plain versions at Transformer-big's shape: "
+                             f"{case}")
+        for name, ms, err, (bms, bby), plain_ms, lib_ms in (
+                ("flash_attention_fwd", fwd_ms, o_err, fb, plain_fwd,
+                 sdpa_fwd),
+                ("flash_attention_bwd_dq", dq_ms, errs[0], qb, plain_bwd,
+                 sdpa_bwd),
+                ("flash_attention_bwd_dkv", dkv_ms, max(errs[1:]), kb,
+                 plain_bwd, sdpa_bwd)):
+            out[name][case] = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bms,
+                               "bound_by": bby, "library_ms": lib_ms}
+    return out
 
 
 def dkv_block_model(valid, b, h, s, causal, block=64):
@@ -3097,6 +3241,471 @@ def checkpoints(mx, card):
     return {"bert": bert, "resnet": resnet}
 
 
+# -- phases 17-18b: Transformer-big and the recurrent cells ------------------
+
+
+def nmt_blocks(mx):
+    """examples/nmt/train_transformer.py's loss and teacher-forcing
+    wrapper (copied: the example imports the JAX package)."""
+
+    class LabelSmoothedCE(mx.gluon.loss.Loss):
+        """Per-token label-smoothed cross entropy with padding mask."""
+
+        def __init__(self, smoothing=0.1, weight=None, batch_axis=0,
+                     **kwargs):
+            super().__init__(weight, batch_axis, **kwargs)
+            self._eps = smoothing
+
+        def hybrid_forward(self, F, pred, label):
+            # pred: (B, T, V) logits; label: (B, T) int (0 = padding)
+            logp = F.log_softmax(pred)
+            nll = -F.pick(logp, label, axis=-1)
+            smooth = -F.mean(logp, axis=-1)
+            loss = (1 - self._eps) * nll + self._eps * smooth
+            mask = label != 0
+            return F.sum(loss * mask) / (F.sum(mask) + 1e-6)
+
+    class Seq2SeqTrainNet(mx.gluon.HybridBlock):
+        """Wraps the model with teacher forcing: inputs (src, tgt_in)."""
+
+        def __init__(self, model, **kwargs):
+            super().__init__(**kwargs)
+            self.model = model
+
+        def hybrid_forward(self, F, src, tgt_in, src_valid_len=None):
+            return self.model(src, tgt_in, src_valid_len)
+
+    return LabelSmoothedCE, Seq2SeqTrainNet
+
+
+def nmt_batches(mx):
+    """Encoded pairs from numpy seed 0 through the port's
+    ``NMTBucketIter``: the first ``TFM_STEPS`` batches as ``(bucket, (src,
+    tgt_in, src_valid_len), tgt_out)``.  Each pair is the example's copy
+    task (the target is the source, BOS 1 before it, EOS 2 after both)
+    over ids 3..31,999 drawn with Zipf's law (exponent 1.1, as words
+    are), at lengths uniform within each bucket, so most rows are
+    padded."""
+    import numpy as np
+
+    from mxnet_tpu_torch.data import nmt
+
+    rng = np.random.RandomState(0)
+    zipf = 1.0 / np.arange(1, TFM_VOCAB - 2) ** 1.1
+    zipf /= zipf.sum()
+    pairs, lo = [], 0
+    for hi in TFM_BUCKETS:
+        for _ in range(TFM_BATCHES_A_BUCKET * TFM_BATCH):
+            n = rng.randint(max(lo + 1, 2), hi + 1)
+            ids = [int(i) + 3 for i in rng.choice(TFM_VOCAB - 3, n - 1,
+                                                  p=zipf)]
+            pairs.append((ids + [2], [1] + ids + [2]))
+        lo = hi
+    it = nmt.NMTBucketIter(pairs, TFM_BATCH, buckets=TFM_BUCKETS, seed=0)
+    if it.dropped:
+        raise SystemExit(f"nmt data: {it.dropped} pairs fit no bucket")
+    out = []
+    for _ in range(TFM_STEPS):
+        b = it.next()
+        src, tgt_in = b.data
+        out.append((b.bucket_key, (src, tgt_in, b.src_valid_length),
+                    b.label[0]))
+    return out
+
+
+def transformer_train_net(mx, seed=0):
+    """``Seq2SeqTrainNet(transformer_big(32000, 32000))`` on the card,
+    Xavier from ``seed`` (the generators reseeded first, so two nets made
+    alike draw the same dropout masks)."""
+    _, seq2seq = nmt_blocks(mx)
+    mx.random.seed(seed)
+    net = seq2seq(mx.models.transformer_big(TFM_VOCAB, TFM_VOCAB))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def transformer_steps(mx, trainer, batches):
+    """One ``trainer.step`` a batch, each timed to the loss on the host;
+    returns ``(losses, step ms, launches gained a step, parameters after
+    4 steps)``."""
+    import torch
+
+    losses, step_ms, gains, after4 = [], [], [], None
+    for i, (_, x, y) in enumerate(batches):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(x, y).asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gains.append(counts_gain(before, counts_now()))
+        if i == 3:
+            after4 = [p.detach().clone() for p in trainer._params]
+    return losses, step_ms, gains, after4
+
+
+def bucket_rates(batches, step_ms, skip):
+    """``{bucket: (median ms, source+target tokens/s)}`` over each bucket's
+    steps after its first ``skip`` (the eager first step; the captured
+    run's warm-up and capture)."""
+    out = {}
+    for key in TFM_BUCKETS:
+        ms = [t for (b, _, _), t in zip(batches, step_ms) if b == key]
+        med = statistics.median(ms[skip:])
+        out[key] = (med, 2 * TFM_BATCH * key / (med / 1e3))
+    return out
+
+
+def train_transformer(mx, card):
+    """Phase 17: 20 eager ``DataParallelTrainer`` steps of Transformer-big
+    on the bucketed batches, then the same 20 from the same weights
+    captured; then card vs CPU.  Returns ``(eager launches, the captured
+    trainer's net)``."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.gluon import trainer as mtrainer
+    from mxnet_tpu_torch.models.transformer import positional_encoding
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    ce, _ = nmt_blocks(mx)
+    batches = nmt_batches(mx)
+    pos = torch.from_numpy(positional_encoding(
+        512, TFM_WIDTHS["units"])).cuda()
+    attn = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+    runs = {}
+    for capture in (False, True):
+        net = transformer_train_net(mx)
+        trainer = DataParallelTrainer(net, ce(), "adam", dict(TFM_OPT),
+                                      capture=capture)
+        trainer.build(batches[0][1])  # completes the deferred shapes
+        if not capture:
+            start = {k: p.data().detach().cpu().numpy().copy() for k, p in
+                     net.model._collect_params_with_prefix().items()}
+            n_params = sum(v.size for k, v in start.items()
+                           if k != "pos_const")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        mtrainer.reset_trainer_step_stats()
+        c0 = _imperative.graph_capture_count()
+        r0 = _imperative.graph_replay_count()
+        losses, step_ms, gains, after4 = transformer_steps(
+            mx, trainer, batches)
+        runs[capture] = dict(
+            losses=losses, step_ms=step_ms, gains=gains, after4=after4,
+            total={k: kernels.KERNEL_COUNTS[k].launches for k in attn},
+            plain=sum(c.plain_calls_on_cuda
+                      for c in kernels.KERNEL_COUNTS.values()),
+            captures=_imperative.graph_capture_count() - c0,
+            replays=_imperative.graph_replay_count() - r0,
+            graphs=len(trainer._graphs),
+            fallbacks=mtrainer.trainer_step_stats()["whole_step_fallbacks"],
+            peak=torch.cuda.max_memory_allocated() / 2**30,
+            rates=bucket_rates(batches, step_ms, 2 if capture else 1))
+        const = next(raw for (_, p), raw in zip(trainer._named,
+                                                trainer._params)
+                     if p is net.model.pos_const)
+        runs[capture]["const_kept"] = bool(torch.equal(const, pos))
+        if capture:
+            trainer.sync_to_block()
+            runs[capture]["block_const_kept"] = bool(torch.equal(
+                net.model.pos_const.data(), pos))
+        else:
+            del net
+        del trainer
+        torch.cuda.empty_cache()
+    eager, cap = runs[False], runs[True]
+    want = {k: TFM_ATTENTIONS for k in attn}
+    keys = [b for b, _, _ in batches]
+    log(f"transformer: Transformer-big ({n_params} parameters, 6+6 layers, "
+        f"1024 units, 16 heads of 64, FFN 4096, dropout 0.3, vocab "
+        f"{TFM_VOCAB}) through DataParallelTrainer, Adam lr "
+        f"{TFM_OPT['learning_rate']} beta2 {TFM_OPT['beta2']}, label "
+        f"smoothing 0.1, fp32 TF32 off, batch {TFM_BATCH}, buckets "
+        f"{keys} on {card}")
+    for label, run in (("eager", eager), ("captured", cap)):
+        log(f"transformer {label}: loss {run['losses'][0]:.4f} -> "
+            f"{run['losses'][-1]:.4f}; per bucket (median ms, src+tgt "
+            f"tokens/s, padded) " + ", ".join(
+                f"{k}: {ms:.3f} ms {tps:.0f}"
+                for k, (ms, tps) in run["rates"].items())
+            + f"; first step {run['step_ms'][0]:.1f} ms; peak memory "
+            f"{run['peak']:.2f} GiB; launches {run['total']} "
+            f"({TFM_ATTENTIONS} x {TFM_STEPS} each); plain calls on cuda "
+            f"{run['plain']}")
+    log(f"transformer: losses eager {[round(v, 4) for v in eager['losses']]}")
+    log(f"transformer captured: graphs captured {cap['captures']} (one a "
+        f"bucket: {cap['graphs']} held), replays {cap['replays']}, "
+        f"whole_step_fallbacks {cap['fallbacks']}; first 4 losses "
+        f"{cap['losses'][:4]}, eager {eager['losses'][:4]}")
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(cap["after4"], eager["after4"]))
+    checks = {
+        "finite_losses": bool(np.isfinite(eager["losses"]).all()
+                              and np.isfinite(cap["losses"]).all()),
+        "loss_falls": np.mean(eager["losses"][-5:]) < eager["losses"][0],
+        "launches_a_step": all(
+            {k: g.get(k, {}).get("launches", 0) for k in attn} == want
+            for run in (eager, cap) for g in run["gains"]),
+        "plain_calls_on_cuda": eager["plain"] == cap["plain"] == 0,
+        "one_graph_a_bucket": cap["captures"] == cap["graphs"]
+        == len(TFM_BUCKETS),
+        "replay_a_step": cap["replays"] == TFM_STEPS - len(TFM_BUCKETS),
+        "no_fallback": cap["fallbacks"] == 0,
+        "captured_losses_bit_identical": cap["losses"][:4]
+        == eager["losses"][:4],
+        "captured_params_bit_identical": same_params,
+        "constant_unchanged": eager["const_kept"] and cap["const_kept"]
+        and cap["block_const_kept"],
+    }
+    for run in (eager, cap):
+        run.pop("after4")
+    checks.update(transformer_card_vs_cpu(mx, start, batches, ce))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"transformer checks failed: {failed}")
+    return eager["total"], net
+
+
+def big_model(mx, ctx, weights, dropout):
+    """Transformer-big with ``dropout`` on ``ctx`` holding ``weights``."""
+    model = mx.models.transformer.TransformerModel(
+        TFM_VOCAB, TFM_VOCAB, dropout=dropout, **TFM_WIDTHS)
+    model.initialize(mx.init.Zero(), ctx=ctx)
+    mx.load_numpy_params(model, weights)
+    return model
+
+
+def transformer_card_vs_cpu(mx, weights, batches, ce):
+    """The starting weights with dropout 0, batch 2 at bucket 16, through
+    ``autograd.record``/``backward``/``gluon.Trainer`` (Adam) on the card
+    and on the CPU: the first loss, ``dec_layers.0.cross_in_weight``'s
+    gradient and the losses of 2 steps must agree."""
+    import numpy as np
+
+    _, x, y = next(b for b in batches if b[0] == TFM_BUCKETS[0])
+    small = [a[:2] for a in x] + [y[:2]]
+    out = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        model = big_model(mx, ctx, weights, 0.0)
+        arrays = [mx.nd.array(a, ctx=ctx) for a in small]
+        trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                                   dict(TFM_OPT))
+        loss_fn = ce()
+        losses = []
+        for step in range(2):
+            with mx.autograd.record():
+                loss = loss_fn(model(*arrays[:3]), arrays[3])
+            loss.backward()
+            if step == 0:
+                grad = model.dec_layers[0].cross_in_weight.grad() \
+                    .detach().cpu().numpy().copy()
+            trainer.step(1)
+            losses.append(loss.asscalar())
+        out.append((losses, grad))
+        del model, trainer
+    (gl, gg), (cl, cg) = out
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    grad_err = float(np.abs(gg - cg).max() / np.abs(cg).max())
+    log(f"transformer: card vs cpu, batch 2 at bucket {TFM_BUCKETS[0]}, "
+        f"dropout 0, 2 Adam steps: losses card {gl} cpu {cl}, max rel err "
+        f"{loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); dec_layers.0."
+        f"cross_in_weight gradient max abs err / max |grad| {grad_err:.3g} "
+        f"(rtol {TRAIN_GRAD_RTOL})")
+    return {"card_vs_cpu_loss": loss_err <= TRAIN_LOSS_RTOL,
+            "card_vs_cpu_grad": grad_err <= TRAIN_GRAD_RTOL}
+
+
+def live_prefix(seq, eos=2):
+    seq = list(seq)
+    return seq[:seq.index(eos) + 1] if eos in seq else seq
+
+
+def decode_transformer(mx, card, net):
+    """Phase 18: the trained model, hybridized, in predict mode, decodes 8
+    bucket-32 sources greedily and by beam search, three times each (the
+    eager warm-up, the captures, the replays), then once more not
+    hybridized (the eager forward at shapes already seen).  Returns the
+    forward launches of the three calls."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.ops import kernels
+
+    model = net.model
+    model.hybridize()
+    _, (src, _, svl), _ = next(b for b in nmt_batches(mx)
+                               if b[0] == TFM_DECODE_LEN)
+    gpu = mx.gpu(0)
+    s = mx.nd.array(src[:TFM_DECODE_ROWS], ctx=gpu)
+    v = mx.nd.array(svl[:TFM_DECODE_ROWS], ctx=gpu)
+    kernels.reset_counts()
+    c0 = _imperative.graph_capture_count()
+    runs, times = [], []
+    for _ in range(3):
+        call = []
+        for fn in (lambda: model.greedy_decode(
+                       s, max_len=TFM_DECODE_LEN, src_valid_len=v),
+                   lambda: model.beam_search_decode(
+                       s, beam_size=TFM_BEAM, max_len=TFM_DECODE_LEN,
+                       alpha=TFM_ALPHA, src_valid_len=v)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call.append(fn())
+            call.append((time.perf_counter() - t0) * 1e3)
+        runs.append(call[0::2])
+        times.append(call[1::2])
+    launches = kernels.KERNEL_COUNTS["flash_attention_fwd"].launches
+    plain = sum(c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+    captures = _imperative.graph_capture_count() - c0
+    sigs = model._cached_op._seen_sigs
+    beam_steps = sum(1 for sig in sigs
+                     if sig[2][0][0][0] == TFM_BEAM * TFM_DECODE_ROWS)
+    greedy, (seqs, scores) = runs[0]
+    greedy_steps = greedy.shape[1] - 1
+    same = all(np.array_equal(g, greedy) and np.array_equal(b[0], seqs)
+               and np.array_equal(b[1], scores) for g, b in runs[1:])
+    beam1, _ = model.beam_search_decode(s, beam_size=1,
+                                        max_len=TFM_DECODE_LEN,
+                                        src_valid_len=v)
+    beam1_ok = all(
+        g[:len(b)] == b or b[:len(g)] == g
+        for g, b in ((live_prefix(g), live_prefix(b))
+                     for g, b in zip(greedy, beam1)))
+    vs_cpu = decode_card_vs_cpu(mx, model, s, v, greedy)
+    # the eager forward once every shape has been seen (the warm-up call
+    # also meets each shape first: the wrappers' and cuBLAS's first calls)
+    model.hybridize(False)
+    for fn in (lambda: model.greedy_decode(
+                   s, max_len=TFM_DECODE_LEN, src_valid_len=v),
+               lambda: model.beam_search_decode(
+                   s, beam_size=TFM_BEAM, max_len=TFM_DECODE_LEN,
+                   alpha=TFM_ALPHA, src_valid_len=v)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(fn())
+        times.append((time.perf_counter() - t0) * 1e3)
+    eager_same = np.array_equal(runs[-2], greedy) and all(
+        np.array_equal(a, b) for a, b in zip(runs[-1], (seqs, scores)))
+    for label, i, steps in (("greedy", 0, greedy_steps),
+                            ("beam", 1, beam_steps)):
+        log(f"decode {label}: {steps} steps; " + "; ".join(
+            f"{what} {ms:.1f} ms ({ms / steps:.3f} ms a step, "
+            f"{ms / TFM_DECODE_ROWS:.2f} ms a sentence)"
+            for what, ms in (("warm-up (eager, each shape's first call)",
+                              times[0][i]),
+                             ("captures", times[1][i]),
+                             ("replayed", times[2][i]),
+                             ("eager, not hybridized", times[3 + i])))
+            + f" on {card}")
+    log(f"decode: greedy {greedy.tolist()[:2]}...; beam scores "
+        f"{scores.tolist()}; graphs captured {captures} for {len(sigs)} "
+        f"signatures; forward launches {launches} ({TFM_ATTENTIONS} x 3 x "
+        f"{greedy_steps + beam_steps}); plain calls on cuda {plain}; three "
+        f"calls bit-identical {same}, and the unhybridized call "
+        f"{eager_same}; beam 1 == greedy {beam1_ok}")
+    checks = {"calls_bit_identical": same and eager_same,
+              "one_graph_a_signature": captures == len(sigs)
+              == greedy_steps + beam_steps,
+              "beam1_is_greedy": beam1_ok,
+              "launches_a_step": launches == TFM_ATTENTIONS * 3 * (
+                  greedy_steps + beam_steps),
+              "plain_calls_on_cuda": plain == 0,
+              "finite_scores": bool(np.isfinite(scores).all())}
+    checks.update(vs_cpu)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"decode checks failed: {failed}")
+    return launches
+
+
+def decode_card_vs_cpu(mx, model, s, v, greedy):
+    """The CPU, fed the card's greedy sequences (teacher forcing, one
+    call), against the card's last-position logits at each step (the
+    replayed prefixes): within ``CPU_ATOL``, and the card's token the
+    CPU's argmax wherever the CPU's top-2 margin is above ``TFM_MARGIN``."""
+    import numpy as np
+
+    card = np.stack([model(s.data, mx.nd.array(greedy[:, :t + 1],
+                                               ctx=mx.gpu(0)).data,
+                           v.data)[:, -1].cpu().numpy()
+                     for t in range(greedy.shape[1] - 1)], axis=1)
+    # card: (rows, steps, vocab), the logits each decode step read
+    weights = {k: p.data().detach().cpu().numpy() for k, p in
+               model._collect_params_with_prefix().items()}
+    cpu_model = big_model(mx, mx.cpu(), weights, 0.3)
+    cpu = mx.nd.array(greedy[:, :-1], ctx=mx.cpu())
+    logits = cpu_model(mx.nd.array(s.asnumpy(), ctx=mx.cpu()), cpu,
+                       mx.nd.array(v.asnumpy(), ctx=mx.cpu())).asnumpy()
+    err = float(np.abs(logits - card).max())
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    sure = top2[..., 1] - top2[..., 0] > TFM_MARGIN
+    agree = logits.argmax(-1) == greedy[:, 1:]
+    log(f"decode: card vs cpu (teacher forcing) last-position logits max "
+        f"abs err {err:.3g} over {card.shape[:2]} steps (atol {CPU_ATOL}); "
+        f"{int(sure.sum())} of {sure.size} steps with a CPU top-2 margin "
+        f"above {TFM_MARGIN}, the card's token the CPU's argmax at "
+        f"{int((agree & sure).sum())} of them (and at "
+        f"{int(agree.sum())} of all)")
+    return {"card_vs_cpu_logits": err <= CPU_ATOL,
+            "card_vs_cpu_tokens": bool(agree[sure].all())}
+
+
+def check_cells(mx, card):
+    """Phase 18b: ``HybridSequentialRNNCell`` of two ``LSTMCell(200)`` and
+    of two ``GRUCell(200)``, unrolled over T=35, N=32 TNC on the card,
+    given the weights of ``gluon.rnn.LSTM(200, num_layers=2)`` and
+    ``GRU``, whose recurrence kernels (rows 11 and 13) are the yardstick:
+    outputs within ``CELL_RTOL`` of the largest.  Returns the fused
+    layers' forward launches."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    rnn = mx.gluon.rnn
+    launches, failed = {}, []
+    for cell_cls, layer_cls, kernel in ((rnn.LSTMCell, rnn.LSTM, "lstm_fwd"),
+                                        (rnn.GRUCell, rnn.GRU, "gru_fwd")):
+        mx.random.seed(0)
+        fused = layer_cls(GRU_HIDDEN, num_layers=2)
+        fused.initialize(mx.init.Xavier(), ctx=gpu)
+        x = mx.nd.array(np.random.RandomState(11).randn(
+            GRU_T, GRU_BATCH, GRU_HIDDEN).astype(np.float32) * 0.5, ctx=gpu)
+        kernels.reset_counts()
+        want = fused(x)
+        torch.cuda.synchronize()
+        launches[kernel] = kernels.KERNEL_COUNTS[kernel].launches
+        stack = rnn.HybridSequentialRNNCell()
+        for _ in range(2):
+            stack.add(cell_cls(GRU_HIDDEN))
+        stack.initialize(ctx=gpu)
+        fp = fused._collect_params_with_prefix()
+        mx.load_numpy_params(stack, {
+            f"{layer}.{kind}": fp[f"l{layer}_{kind}"].data().detach().cpu()
+            .numpy() for layer in range(2)
+            for kind in ("i2h_weight", "h2h_weight", "i2h_bias",
+                         "h2h_bias")})
+        got, _ = stack.unroll(GRU_T, x, layout="TNC")
+        want = want.asnumpy()
+        err = float(np.abs(got.asnumpy() - want).max() / np.abs(want).max())
+        ok = err <= CELL_RTOL and launches[kernel] == 2
+        log(f"cells: 2 x {cell_cls.__name__}({GRU_HIDDEN}) unrolled T="
+            f"{GRU_T} N={GRU_BATCH} TNC against {layer_cls.__name__}("
+            f"{GRU_HIDDEN}, num_layers=2) ({launches[kernel]} {kernel} "
+            f"launches) on {card}: max err / max |out| {err:.3g} (rtol "
+            f"{CELL_RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(cell_cls.__name__)
+    if failed:
+        raise SystemExit(f"cells disagree with the fused layers: {failed}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3160,6 +3769,7 @@ def main():
     # device readings (PERF.md §6)
     flash = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
+    tfm_attn = check_transformer_attention()
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
@@ -3171,27 +3781,43 @@ def main():
     gtrain, _, groutes = train_gru(mx, card)
     captured_steps(mx, card)
     checkpoints(mx, card)
+    tfm_train, tfm_net = train_transformer(mx, card)
+    tfm_decode = decode_transformer(mx, card, tfm_net)
+    del tfm_net
+    torch.cuda.empty_cache()
+    cells = check_cells(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
     rnn_src = "mxnet_tpu/ops/pallas/rnn.py"
     rnn_cu = "mxnet_tpu_torch/csrc/rnn.cu"
-    fwd_launches = serve["launches"] + train["flash_attention_fwd"]
+    fwd_by_path = {"serve": serve["launches"],
+                   "train": train["flash_attention_fwd"],
+                   "transformer_train": tfm_train["flash_attention_fwd"],
+                   "transformer_decode": tfm_decode}
+    bwd_by_path = {k: {"train": train[k], "transformer_train": tfm_train[k]}
+                   for k in ("flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv")}
     record = {"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-             replaces=f"{src}:30,104", launches=fwd_launches,
-             launches_by_path={"serve": serve["launches"],
-                               "train": train["flash_attention_fwd"]},
-             **flash),
+             replaces=f"{src}:30,104", launches=sum(fwd_by_path.values()),
+             launches_by_path=fwd_by_path,
+             transformer_big_b64=tfm_attn["flash_attention_fwd"], **flash),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:427,252",
-             launches=train["flash_attention_bwd_dq"], **bwd["dq"]),
+             launches=sum(bwd_by_path["flash_attention_bwd_dq"].values()),
+             launches_by_path=bwd_by_path["flash_attention_bwd_dq"],
+             transformer_big_b64=tfm_attn["flash_attention_bwd_dq"],
+             **bwd["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:471,299",
-             launches=train["flash_attention_bwd_dkv"], **bwd["dkv"]),
+             launches=sum(bwd_by_path["flash_attention_bwd_dkv"].values()),
+             launches_by_path=bwd_by_path["flash_attention_bwd_dkv"],
+             transformer_big_b64=tfm_attn["flash_attention_bwd_dkv"],
+             **bwd["dkv"]),
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",
              replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",
@@ -3211,15 +3837,19 @@ def main():
              **rkern["bn_act_matmul_stats"]),
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",
-             launches=dtrain["lstm_fwd"] + sum(dpredict.values()),
+             launches=(dtrain["lstm_fwd"] + sum(dpredict.values())
+                       + cells["lstm_fwd"]),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
-                               **dpredict},
+                               **dpredict, "cells": cells["lstm_fwd"]},
              launches_by_route=droutes, **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
              launches_by_route=dbroutes, **rnn["lstm_bwd"]),
         dict(name="gru_fwd", route="cuda", source=rnn_cu,
-             replaces=f"{rnn_src}:300", launches=gtrain["gru_fwd"],
+             replaces=f"{rnn_src}:300",
+             launches=gtrain["gru_fwd"] + cells["gru_fwd"],
+             launches_by_path={"gru_train": gtrain["gru_fwd"],
+                               "cells": cells["gru_fwd"]},
              launches_by_route=groutes["gru_fwd"], **rnn["gru_fwd"]),
         dict(name="gru_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],

@@ -14,6 +14,10 @@ Gradients: a Parameter whose ``grad_req`` is ``'write'`` or ``'add'`` is
 an autograd variable (``autograd.mark_variables``); its gradient is the
 value's ``.grad``, allocated as zeros at first use, so a serving process
 that never trains holds no gradient memory.
+
+A :class:`Constant` (``ParameterDict.get_constant``) is a Parameter with
+``grad_req='null'`` whose value is fixed at construction: trainers skip
+it, checkpoints save and load it like any other parameter.
 """
 from __future__ import annotations
 
@@ -227,6 +231,39 @@ class Parameter:
                 f"dtype={self.dtype})")
 
 
+class Constant(Parameter):
+    """A non-differentiable parameter holding a fixed value (ref:
+    ``gluon.Constant``, ``mxnet_tpu/gluon/parameter.py:245``): its
+    ``grad_req`` is ``'null'``, so no trainer updates it, and
+    ``save_parameters``/``load_parameters`` carry it like any parameter.
+
+    Unlike the JAX package, whose ``initialize(init)`` lets the global
+    initializer overwrite the value (ROADMAP.md, reference caveat (g)),
+    the value survives every ``initialize`` call, ``force_reinit``
+    included, as in MXNet 1.x, where the global initializer is only the
+    default of a parameter without its own."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value.data
+        value = value.detach().cpu() if isinstance(value, torch.Tensor) \
+            else torch.from_numpy(np.array(value))
+        if value.dtype == torch.float64:
+            value = value.to(torch.float32)
+        self.value = value
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=str(value.dtype).replace("torch.", ""))
+
+    def _finish_init(self, init, ctx, default_init):
+        """The value itself, whatever initializer was asked for."""
+        self._data = torch.nn.Parameter(
+            self.value.to(ctx.torch_device(), copy=True),
+            requires_grad=False)
+        autograd.mark_variables([self._data], [None], self._grad_req)
+        self._deferred_init = None
+        self._publish()
+
+
 class ParameterDict:
     """Ordered name -> Parameter mapping with a prefix (ref: gluon.ParameterDict)."""
 
@@ -249,6 +286,17 @@ class ParameterDict:
         param = Parameter(full, **kwargs)
         self._params[full] = param
         return param
+
+    def get_constant(self, name, value=None):
+        """The :class:`Constant` ``prefix + name``, made from ``value`` on
+        first use (ref: ``ParameterDict.get_constant``)."""
+        full = self._prefix + name
+        if full not in self._params:
+            if value is None:
+                raise MXNetError(f"no constant {full} yet, and no value "
+                                 "to make it from")
+            self._params[full] = Constant(full, value)
+        return self._params[full]
 
     def update(self, other):
         for k, v in other.items():

@@ -150,6 +150,11 @@ def bert_base(vocab_size=30522, **kwargs):
     return BERTModel(vocab_size, 768, 3072, 12, 12, **kwargs)
 
 
+def bert_large(vocab_size=30522, **kwargs):
+    """BERT-large: 24 layers, 1024 units, 16 heads of 64."""
+    return BERTModel(vocab_size, 1024, 4096, 24, 16, **kwargs)
+
+
 def bert_tiny(vocab_size=1000, **kwargs):
     """Small config for tests."""
     return BERTModel(vocab_size, 64, 128, 2, 4, max_length=128, **kwargs)

@@ -3,8 +3,9 @@ boundary.
 
 Every registered op is an attribute here, a plain function on
 ``torch.Tensor``s (``F.FullyConnected``, ``F.multihead_attention``, ...),
-and ``contrib.X`` is the op registered as ``_contrib_X``
-(``F.contrib.conv1x1_bn_act``).
+``contrib.X`` is the op registered as ``_contrib_X``
+(``F.contrib.conv1x1_bn_act``) and ``random.X`` the one registered as
+``_random_X`` (``F.random.uniform``, drawn from the device's generator).
 ``NDArray``, ``array`` and ``zeros`` build the arrays user code hands to
 blocks; ``arange`` is the op (a tensor on ``ctx``), and the NDArray form
 is ``ndarray.ndarray.arange``.  ``save``/``load`` write and read the
@@ -28,21 +29,25 @@ def load(fname):
     return serialization.load_ndarrays(fname)
 
 
-class _ContribNamespace:
-    """``mx.nd.contrib.X`` -> the op registered as ``_contrib_X`` (ref:
-    ``mxnet_tpu/ndarray/__init__.py:17-38``)."""
+class _OpNamespace:
+    """``mx.nd.<namespace>.X`` -> the op registered as ``_<namespace>_X``
+    (ref: ``mxnet_tpu/ndarray/__init__.py:17-38``)."""
+
+    def __init__(self, namespace):
+        self._namespace = namespace
 
     def __getattr__(self, name):
         from .. import ops
 
-        key = "_contrib_" + name
+        key = f"_{self._namespace}_{name}"
         if key not in ops.list_ops():
             raise AttributeError(
-                f"contrib namespace has no operator {name!r}")
+                f"{self._namespace} namespace has no operator {name!r}")
         return ops.get(key)
 
 
-contrib = _ContribNamespace()
+contrib = _OpNamespace("contrib")
+random = _OpNamespace("random")
 
 
 def __getattr__(name):

@@ -1,13 +1,16 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that BERT
-serving and training, the ported losses, ResNet and DeepAR run (reshape,
-flatten, slice_axis, take, pick, Embedding, arange, broadcast_lesser,
-broadcast_mul, expand_dims, squeeze, stack, concat, swapaxes, pad, the
-sum and mean reductions, and the elementwise square, abs, relu, log and
-gammaln)."""
+serving and training, the ported losses, ResNet, DeepAR, the Transformer
+and the recurrent cells run (reshape, flatten, slice_axis, take, pick,
+Embedding, arange, broadcast_lesser, broadcast_mul, expand_dims, squeeze,
+stack, concat, split, swapaxes, pad, flip, where, SequenceMask,
+SequenceReverse, the sum and mean reductions, the elementwise square,
+abs, relu, sigmoid, tanh, log and gammaln, and the uniform draw behind
+``F.random.uniform``)."""
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..ndarray.ndarray import to_torch_dtype
@@ -79,16 +82,21 @@ def _k_embedding(data, weight, input_dim=None, output_dim=None,
 register("Embedding", _k_embedding, aliases=("embedding",))
 
 
+def _device(ctx):
+    """The ``torch.device`` of ``ctx``: a Context, a ``torch.device``, or
+    None for :func:`current_context`."""
+    if ctx is None:
+        ctx = current_context()
+    return ctx.torch_device() if isinstance(ctx, Context) else ctx
+
+
 def _k_arange(start, stop=None, step=1.0, dtype=None, ctx=None):
     """``torch.arange`` on ``ctx`` (a Context or ``torch.device``;
     default :func:`current_context`)."""
     if stop is None:
         start, stop = 0, start
-    if ctx is None:
-        ctx = current_context()
-    device = ctx.torch_device() if isinstance(ctx, Context) else ctx
     return torch.arange(start, stop, step, dtype=to_torch_dtype(dtype),
-                        device=device)
+                        device=_device(ctx))
 
 
 register("arange", _k_arange)
@@ -111,6 +119,8 @@ register("broadcast_mul", _k_broadcast_mul)
 register("square", torch.square)
 register("abs", torch.abs)
 register("relu", torch.relu)
+register("sigmoid", torch.sigmoid)
+register("tanh", torch.tanh)
 register("log", torch.log)
 register("gammaln", torch.lgamma)
 
@@ -152,6 +162,100 @@ def _k_concat(*args, dim=1):
 
 
 register("concat", _k_concat, aliases=("Concat",))
+
+
+def _k_split(data, num_outputs, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts along ``axis``, a tuple (ref:
+    ops/tensor.py:369)."""
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise MXNetError(f"split: axis {axis} of size {n} does not divide "
+                         f"into {num_outputs} equal parts")
+    parts = torch.split(data, n // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = tuple(p.squeeze(axis) for p in parts)
+    return tuple(parts)
+
+
+register("split", _k_split, aliases=("SliceChannel", "split_v2"))
+
+
+def _k_flip(data, axis):
+    """Ref: ops/tensor.py:424."""
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(data, axes)
+
+
+register("flip", _k_flip, aliases=("reverse",))
+
+
+def _k_where(condition, x, y):
+    """``x`` where ``condition`` is non-zero, else ``y`` (ref:
+    ops/tensor.py:569)."""
+    return torch.where(condition != 0, x, y)
+
+
+register("where", _k_where)
+
+
+def _time_lengths(data, sequence_length):
+    """``(steps, lengths)`` broadcastable over ``data``'s first two axes
+    (time, batch)."""
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    return steps, sequence_length.to(torch.int64).to(data.device)[None, :]
+
+
+def _k_sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                     value=0.0, axis=0):
+    """Steps at or past each batch column's length set to ``value``; time
+    on ``axis`` (0 or 1), batch on the other (ref: ops/tensor.py:711)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    if axis == 1:
+        data = data.transpose(0, 1)
+    steps, lengths = _time_lengths(data, sequence_length)
+    keep = (steps < lengths).reshape(
+        steps.shape[0], lengths.shape[1], *(1,) * (data.dim() - 2))
+    out = torch.where(keep, data, torch.full((), value, dtype=data.dtype,
+                                             device=data.device))
+    return out.transpose(0, 1) if axis == 1 else out
+
+
+register("SequenceMask", _k_sequence_mask, aliases=("sequence_mask",))
+
+
+def _k_sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                        axis=0):
+    """Each batch column's first ``length`` steps reversed in place, the
+    padding after them kept (ref: ops/tensor.py:744).  Time is axis 0, as
+    in MXNet; the reference ignores ``axis``, the port raises for another
+    value."""
+    if axis != 0:
+        raise MXNetError(f"SequenceReverse: time must be axis 0, got {axis}")
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (0,))
+    steps, lengths = _time_lengths(data, sequence_length)
+    idx = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    idx = idx.reshape(idx.shape + (1,) * (data.dim() - 2)).expand(data.shape)
+    return torch.gather(data, 0, idx)
+
+
+register("SequenceReverse", _k_sequence_reverse,
+         aliases=("sequence_reverse",))
+
+
+def _k_random_uniform(low=0.0, high=1.0, shape=(1,), dtype=None, ctx=None):
+    """Draws from U[low, high) on ``ctx`` (a Context or ``torch.device``;
+    default :func:`current_context`), from that device's explicit
+    generator (ref: ``mxnet_tpu/random.py:133``); ``F.random.uniform``."""
+    device = _device(ctx)
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    out = torch.empty(shape, dtype=to_torch_dtype(dtype), device=device)
+    return out.uniform_(float(low), float(high),
+                        generator=_random.generator(device))
+
+
+register("_random_uniform", _k_random_uniform)
 
 
 def _k_swapaxes(data, dim1=0, dim2=1):
