@@ -559,13 +559,85 @@ def sdpa_kernel_names(b, h, s, d):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def check_flash_attention(mx):
-    """Kernel vs plain at BERT-base attention shapes; returns the record
-    of the main-path case (fp32, key padding, b=8, h=12, s=512, d=64).
+def decode_rows(mx):
+    """Phase 18's source rows and their valid lengths, as numpy: the first
+    ``TFM_DECODE_ROWS`` of the first bucket-32 batch."""
+    _, (src, _, svl), _ = next(b for b in nmt_batches(mx)
+                               if b[0] == TFM_DECODE_LEN)
+    return src[:TFM_DECODE_ROWS], svl[:TFM_DECODE_ROWS]
 
-    q, k and v are strided views of one packed ``(b, s, 3*h*d)`` tensor,
-    the layout the attention op hands the kernel (the packed QKV
-    projection split into heads without a copy)."""
+
+def fwd_shapes(mx):
+    """The forward check's shapes: ``(label, b, h, sq, sk, d, dtypes,
+    masks, valid, layout, seed)``.  BERT-base's serve shape and its d=128
+    twin; Transformer-big's bucket-64 training shape (b=64, h=16, s=64),
+    causal (the decoder's self-attention) and key-padded (the encoder's
+    and the cross-attention); and its decode steps at 8 (greedy) and 32
+    (beam 4) rows for prefixes of t = 1, 17 and 31: cross-attention of t
+    queries on the 32 source keys under their key-padding row, and causal
+    self-attention at sq = sk = t.  ``layout`` "packed": q, k and v head
+    views of one ``(b, s, 3*h*d)`` tensor (the self-attention's packed
+    projection); "cross": q a head view of a ``(b, sq, h*d)`` tensor, k and
+    v of two ``(b, sk, h*d)`` ones (the three-projection branch).  A seed
+    of None draws on from the shape before."""
+    import numpy as np
+
+    bert = np.array([512, 500, 384, 300, 256, 130, 17, 0])
+    both, masks = ("float32", "bfloat16"), ("none", "key_padding", "causal")
+    shapes = [("bert", 8, 12, 512, 512, 64, both, masks, bert, "packed", 0),
+              ("d128", 8, 6, 512, 512, 128, both, masks, bert, "packed",
+               None)]
+    s = TFM_BUCKETS[-1]
+    shapes.append(("transformer_big_b64", TFM_BATCH, 16, s, s, 64,
+                   ("float32",), ("causal", "key_padding"),
+                   np.random.RandomState(7).randint(33, s + 1,
+                                                    size=TFM_BATCH),
+                   "packed", 7))
+    valid = np.asarray(decode_rows(mx)[1]).astype(np.int64)
+    for rows in (TFM_DECODE_ROWS, TFM_BEAM * TFM_DECODE_ROWS):
+        vl = np.repeat(valid, rows // TFM_DECODE_ROWS)  # beam's row order
+        for t in (1, 17, TFM_DECODE_LEN - 1):
+            label = f"decode_b{rows}_t{t}"
+            shapes.append((label, rows, 16, t, TFM_DECODE_LEN, 64,
+                           ("float32",), ("key_padding",), vl, "cross", 8))
+            shapes.append((label, rows, 16, t, t, 64, ("float32",),
+                           ("causal",), None, "packed", None))
+    return shapes
+
+
+def fwd_inputs(rng, b, h, sq, sk, d, layout, dev):
+    """Draws fp32 tensors in ``layout`` (:func:`fwd_shapes`); returns a
+    function of a dtype that gives q, k and v as head views of them cast
+    to it."""
+    import numpy as np
+    import torch
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * 0.5).to(dev)
+
+    def heads(t):
+        return t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+
+    if layout == "packed":
+        base = [rand(b, sq, 3 * h * d)]
+    else:
+        base = [rand(b, sq, h * d), rand(b, sk, h * d), rand(b, sk, h * d)]
+
+    def views(dtype):
+        cast = [t.to(getattr(torch, dtype)) for t in base]
+        if layout == "packed":
+            cast = cast[0].chunk(3, dim=-1)
+        return [heads(t) for t in cast]
+
+    return views
+
+
+def check_flash_attention(mx):
+    """Kernel vs plain, o and lse, at the shapes of :func:`fwd_shapes`.
+    Returns the record of the main-path case (BERT's serve shape, fp32,
+    key padding: b=8, h=12, s=512, d=64) and ``{label: {mask: record}}``
+    of Transformer-big's shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as tF
@@ -574,25 +646,25 @@ def check_flash_attention(mx):
 
     dev = torch.device("cuda", 0)
     tol = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 1e-3)}
-    rng = np.random.RandomState(0)
-    main = None
+    main, by_shape, rng = None, {}, None
     log("flash_attention_fwd: kernel vs plain (o atol / lse atol: fp32 "
         "1e-4 / 1e-3, bf16 2e-2 / 1e-3); q, k, v are head views of a "
-        "packed QKV tensor, read in place; bound at 3xTF32 "
-        "(fp32), the CUDA-core bound in brackets; tiles: key tiles "
-        "visited of those without skipping")
-    for d, h in ((64, 12), (128, 6)):
-        b, s = 8, 512
-        packed = torch.from_numpy(rng.randn(b, s, 3 * h * d)
-                                  .astype(np.float32) * 0.5).to(dev)
-        valid = np.array([512, 500, 384, 300, 256, 130, 17, 0])
-        keep = torch.from_numpy(np.arange(s)[None, :] < valid[:, None])
-        row = torch.where(keep, 0.0, -1e9).to(dev, torch.float32)
-        for dtype in ("float32", "bfloat16"):
-            q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in
-                       packed.to(getattr(torch, dtype)).chunk(3, dim=-1))
-            for mask in ("none", "key_padding", "causal"):
-                km = row if mask == "key_padding" else None
+        "packed QKV tensor (cross: of the q, k and v projections), read in "
+        "place; bound at 3xTF32 (fp32), the CUDA-core bound in brackets; "
+        "tiles: key tiles visited of those without skipping")
+    for (label, b, h, sq, sk, d, dtypes, masks, valid, layout,
+         seed) in fwd_shapes(mx):
+        if seed is not None:
+            rng = np.random.RandomState(seed)
+        views = fwd_inputs(rng, b, h, sq, sk, d, layout, dev)
+        for dtype in dtypes:
+            q, k, v = views(dtype)
+            for mask in masks:
+                km = None
+                if mask == "key_padding":
+                    keep = torch.from_numpy(np.arange(sk)[None, :]
+                                            < valid[:, None])
+                    km = torch.where(keep, 0.0, -1e9).to(dev, torch.float32)
                 causal = mask == "causal"
                 assert all(fa.rows_aligned(t) for t in (q, k, v))
                 o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal)
@@ -610,18 +682,19 @@ def check_flash_attention(mx):
                 plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, km, causal=causal), iters=5)
                 attn_mask = None if km is None else \
-                    km.to(q.dtype).view(b, 1, 1, s)
+                    km.to(q.dtype).view(b, 1, 1, sk)
                 lib_ms = cuda_ms(lambda: tF.scaled_dot_product_attention(
                     q, k, v, attn_mask=attn_mask, is_causal=causal),
                     iters=20)
                 vl = valid if mask == "key_padding" else None
-                bound_ms, bound_by = attention_bound(b, h, s, s, d, dtype,
+                bound_ms, bound_by = attention_bound(b, h, sq, sk, d, dtype,
                                                      vl, causal)
-                cores_ms, _ = attention_bound(b, h, s, s, d, dtype, vl,
+                cores_ms, _ = attention_bound(b, h, sq, sk, d, dtype, vl,
                                               causal, cores=True)
                 visited, total = tile_share(lambda t: fa._launch_fwd(
                     q, k, v, km, causal, None, tiles=t))
-                log(f"  b={b} h={h} s={s} d={d} {dtype:8s} {mask:11s} "
+                log(f"  {label:19s} b={b} h={h} sq={sq} sk={sk} d={d} "
+                    f"{dtype:8s} {mask:11s} "
                     f"o_err={o_err:.3g} lse_err={lse_err:.3g} "
                     f"kernel={kern_ms:.4f}ms "
                     f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
@@ -630,19 +703,23 @@ def check_flash_attention(mx):
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"flash attention kernel disagrees "
-                                     f"with its plain version: d={d} "
-                                     f"{dtype} {mask}")
-                if (d, dtype, mask) == (64, "float32", "key_padding"):
-                    main = {"max_abs_err": o_err, "ms": kern_ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": lib_ms,
-                            "cuda_core_bound_ms": cores_ms,
-                            "tiles_visited": [visited, total]}
+                                     f"with its plain version: {label} "
+                                     f"d={d} {dtype} {mask}")
+                rec = {"max_abs_err": o_err, "ms": kern_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+                if label.startswith(("transformer", "decode")):
+                    by_shape.setdefault(label, {})[mask] = dict(
+                        rec, lse_err=lse_err)
+                if (label, dtype, mask) == ("bert", "float32",
+                                            "key_padding"):
+                    main = dict(rec, cuda_core_bound_ms=cores_ms,
+                                tiles_visited=[visited, total])
                     main["host_us"] = host_us(lambda: fa.flash_attention_fwd(
                         q, k, v, km))
                     log(f"  main case: the wrapper's host time "
                         f"{main['host_us']:.1f} us a call")
-    return main
+    return main, by_shape
 
 
 def bwd_bound(b, h, sq, sk, d, dtype, valid, causal, n_ops, n_out,
@@ -662,8 +739,12 @@ def bwd_bound(b, h, sq, sk, d, dtype, valid, causal, n_ops, n_out,
 
 def check_flash_attention_bwd(mx):
     """dQ and dK/dV kernels vs the plain backward; returns the records of
-    the main-path case (fp32, key padding, the training shape) and the
-    forward kernel's time at that shape.
+    the main-path case (fp32, key padding, the training shape), the
+    forward kernel's time at that shape, and under "transformer_big_b64"
+    ``{"dq"/"dkv": {mask: record}}`` at Transformer-big's bucket-64
+    training shape (b=64, h=16, s=64, d=64, fp32; causal, the decoder's
+    self-attention, and key-padded, the encoder's and the
+    cross-attention).
 
     q, k and v are head views of one packed ``(b, s, 3*h*d)`` tensor and
     dO a head view of a ``(b, s, h*d)`` one, the layouts autograd hands
@@ -683,21 +764,29 @@ def check_flash_attention_bwd(mx):
         f"main case; bounds at 3xTF32 (fp32), the CUDA-core bound after the "
         f"slash; tiles: the dQ kernel's key tiles visited of those without "
         f"skipping")
-    shapes = (("train", TRAIN_BATCH, 12, TRAIN_SEQ, 64),
-              ("serve", 8, 12, 512, 64), ("d128", 8, 6, 512, 128))
-    for label, b, h, s, d in shapes:
-        packed = torch.from_numpy(rng.randn(b, s, 3 * h * d)
+    both = ("float32", "bfloat16")
+    shapes = (("train", TRAIN_BATCH, 12, TRAIN_SEQ, 64, both, rng),
+              ("serve", 8, 12, 512, 64, both, rng),
+              ("d128", 8, 6, 512, 128, both, rng),
+              ("transformer_big_b64", TFM_BATCH, 16, TFM_BUCKETS[-1], 64,
+               ("float32",), np.random.RandomState(7)))
+    for label, b, h, s, d, dtypes, srng in shapes:
+        packed = torch.from_numpy(srng.randn(b, s, 3 * h * d)
                                   .astype(np.float32) * 0.5).to(dev)
-        dout = torch.from_numpy(rng.randn(b, s, h * d)
+        dout = torch.from_numpy(srng.randn(b, s, h * d)
                                 .astype(np.float32)).to(dev)
         if label == "train":
-            valid = rng.randint(32, s + 1, size=b)
+            valid = srng.randint(32, s + 1, size=b)
+        elif label == "transformer_big_b64":
+            valid = srng.randint(33, s + 1, size=b)
         else:
             valid = np.array([512, 500, 384, 300, 256, 130, 17, 0])
         cases = ["none", "key_padding", "causal"]
         if label == "train":
             cases.insert(1, "key_padding_dead_row")
-        for dtype in ("float32", "bfloat16"):
+        elif label == "transformer_big_b64":
+            cases = ["causal", "key_padding"]
+        for dtype in dtypes:
             dt = getattr(torch, dtype)
             q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in
                        packed.to(dt).chunk(3, dim=-1))
@@ -765,6 +854,16 @@ def check_flash_attention_bwd(mx):
                     raise SystemExit(f"flash attention backward kernels "
                                      f"disagree with their plain version: "
                                      f"{label} {dtype} {mask}")
+                if label == "transformer_big_b64":
+                    tfm = main.setdefault(label, {"dq": {}, "dkv": {}})
+                    for name, ms, err, (bms, bby) in (
+                            ("dq", dq_ms, errs[0], dq_bound),
+                            ("dkv", dkv_ms, max(errs[1:]), dkv_bound)):
+                        tfm[name][mask] = {
+                            "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bms,
+                            "bound_by": bby, "library_ms": lib_ms}
+                    tfm["dkv"][mask]["blocks_visited"] = list(blocks)
                 if (label, dtype, mask) == ("train", "float32",
                                             "key_padding"):
                     fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(
@@ -814,97 +913,6 @@ def check_flash_attention_bwd(mx):
                         + " (printed, not gated)")
     check_function_gradients(fa, dev, rng)
     return main
-
-
-def check_transformer_attention():
-    """Rows 1, 3 and 4 at Transformer-big's bucket-64 training shape (b=64,
-    h=16, s=64, d=64, fp32; head views of packed tensors): causal with no
-    mask (the decoder's self-attention) and key-padded, not causal (the
-    encoder's self-attention and the cross-attention), each against the
-    plain version and timed beside it, SDPA and the bound.  Returns
-    ``{kernel: {case: record}}``."""
-    import numpy as np
-    import torch
-    import torch.nn.functional as tF
-
-    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
-
-    dev = torch.device("cuda", 0)
-    rng = np.random.RandomState(7)
-    b, h, s, d = TFM_BATCH, 16, TFM_BUCKETS[-1], 64
-    dtype = "float32"
-    packed = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32)
-                              * 0.5).to(dev)
-    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
-               for t in packed.chunk(3, dim=-1))
-    do = torch.from_numpy(rng.randn(b, s, h * d).astype(np.float32)).to(
-        dev).reshape(b, s, h, d).transpose(1, 2)
-    valid = rng.randint(33, s + 1, size=b)
-    out = {"flash_attention_fwd": {}, "flash_attention_bwd_dq": {},
-           "flash_attention_bwd_dkv": {}}
-    log(f"flash attention at Transformer-big's bucket-64 shape b={b} h={h} "
-        f"s={s} d={d} {dtype} (fwd atol 1e-4, bwd atol/rtol "
-        f"{BWD_TOL[dtype]}); bounds at 3xTF32")
-    for case in ("causal", "key_padding"):
-        causal = case == "causal"
-        vl = valid if case == "key_padding" else None
-        km = None
-        if vl is not None:
-            keep = torch.from_numpy(np.arange(s)[None, :] < vl[:, None])
-            km = torch.where(keep, 0.0, -1e9).to(dev, torch.float32)
-        o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal)
-        po, _ = fa.flash_attention_plain(q, k, v, km, causal=causal)
-        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, km,
-                                       causal=causal)
-        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
-                                           causal=causal)
-        torch.cuda.synchronize()
-        o_err = (o - po).abs().max().item()
-        errs = [(g - r).abs().max().item() for g, r in zip(grads, ref)]
-        atol, rtol = BWD_TOL[dtype]
-        ok = o_err <= 1e-4 and all(
-            torch.allclose(g, r, atol=atol, rtol=rtol)
-            for g, r in zip(grads, ref))
-        delta = (do * o).sum(-1).reshape(b * h, s)
-        args = (q, k, v, do, lse, delta, km)
-        fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, km, causal=causal), iters=20)
-        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-            *args, causal=causal), iters=20)
-        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-            *args, causal=causal), iters=20)
-        plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, km, causal=causal), iters=5)
-        plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, km, causal=causal), iters=5)
-        attn_mask = None if km is None else km.view(b, 1, 1, s)
-        sdpa_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, is_causal=causal), iters=20)
-        sdpa_bwd = sdpa_backward_ms(tF, q, k, v, do, km, causal)
-        fb = attention_bound(b, h, s, s, d, dtype, vl, causal)
-        qb = bwd_bound(b, h, s, s, d, dtype, vl, causal, 6, 1)
-        kb = bwd_bound(b, h, s, s, d, dtype, vl, causal, 8, 2)
-        log(f"  {case:11s} err o/dq/dk/dv {o_err:.3g}/{errs[0]:.3g}/"
-            f"{errs[1]:.3g}/{errs[2]:.3g}; fwd {fwd_ms:.4f} ms (plain "
-            f"{plain_fwd:.4f}, sdpa {sdpa_fwd:.4f}, bound {fb[0]:.4f} "
-            f"{fb[1]}); dQ {dq_ms:.4f} (bound {qb[0]:.4f}) dK/dV "
-            f"{dkv_ms:.4f} (bound {kb[0]:.4f}); plain bwd {plain_bwd:.4f}, "
-            f"sdpa bwd {sdpa_bwd:.4f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"flash attention kernels disagree with their "
-                             f"plain versions at Transformer-big's shape: "
-                             f"{case}")
-        for name, ms, err, (bms, bby), plain_ms, lib_ms in (
-                ("flash_attention_fwd", fwd_ms, o_err, fb, plain_fwd,
-                 sdpa_fwd),
-                ("flash_attention_bwd_dq", dq_ms, errs[0], qb, plain_bwd,
-                 sdpa_bwd),
-                ("flash_attention_bwd_dkv", dkv_ms, max(errs[1:]), kb,
-                 plain_bwd, sdpa_bwd)):
-            out[name][case] = {"max_abs_err": err, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": bms,
-                               "bound_by": bby, "library_ms": lib_ms}
-    return out
 
 
 def dkv_block_model(valid, b, h, s, causal, block=64):
@@ -3359,7 +3367,7 @@ def train_transformer(mx, card):
     """Phase 17: 20 eager ``DataParallelTrainer`` steps of Transformer-big
     on the bucketed batches, then the same 20 from the same weights
     captured; then card vs CPU.  Returns ``(eager launches, the captured
-    trainer's net)``."""
+    trainer's net, the starting weights)``."""
     import numpy as np
     import torch
 
@@ -3466,7 +3474,7 @@ def train_transformer(mx, card):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"transformer checks failed: {failed}")
-    return eager["total"], net
+    return eager["total"], net, start
 
 
 def big_model(mx, ctx, weights, dropout):
@@ -3523,25 +3531,63 @@ def live_prefix(seq, eos=2):
     return seq[:seq.index(eos) + 1] if eos in seq else seq
 
 
-def decode_transformer(mx, card, net):
-    """Phase 18: the trained model, hybridized, in predict mode, decodes 8
-    bucket-32 sources greedily and by beam search, three times each (the
-    eager warm-up, the captures, the replays), then once more not
-    hybridized (the eager forward at shapes already seen).  Returns the
-    forward launches of the three calls."""
+def eos_model(mx, weights, s, v):
+    """Phase 17's starting weights with ``out_proj``'s bias reset so that
+    the argmax moves from step to step and some rows end early.
+
+    Deep and untrained, the model maps every position to nearly the same
+    last hidden state, so one token wins everywhere.  The bias first
+    subtracts the mean logits of a teacher-forced pass (BOS and the
+    source as the target), which leaves the part of the logits that
+    moves with the position and the row.  Then EOS's bias is raised: along
+    the greedy path of the centred model (eager, not hybridized), a row's
+    first EOS comes at the first step where its EOS logit plus the rise
+    beats every other logit; until then its path is the centred one.  The
+    rise is set halfway between the 4th and 5th smallest of the rows'
+    least gaps over the first 15 steps, so that half the rows are
+    expected to emit EOS by step 15.  Returns ``(model, rise, the rows
+    expected to)``."""
+    import numpy as np
+    import torch
+
+    eos = 2
+    model = big_model(mx, mx.gpu(0), weights, 0.3)
+    bias = model.out_proj.bias.data()
+
+    def logits(tgt):
+        tgt = torch.from_numpy(np.ascontiguousarray(tgt, np.int32))
+        return model(s.data, tgt.to(s.data.device), v.data).detach()
+
+    src = s.asnumpy().astype(np.int32)
+    forced = np.concatenate([np.ones_like(src[:, :1]), src[:, :-1]], axis=1)
+    with torch.no_grad():
+        bias.sub_(logits(forced).mean(dim=(0, 1)))
+    greedy = model.greedy_decode(s, max_len=TFM_DECODE_LEN, src_valid_len=v)
+    lg = logits(greedy[:, :-1]).cpu().numpy()
+    gap = np.delete(lg, eos, axis=-1).max(-1) - lg[..., eos]
+    least = gap[:, :15].min(axis=1)
+    rise = float(np.sort(least)[3:5].mean())
+    with torch.no_grad():
+        bias[eos] += rise
+    return model, rise, np.flatnonzero(least < rise).tolist()
+
+
+def decode_transformer(mx, card, model, s, v, label, varied=False):
+    """Phase 18: ``model`` (phase 17's trained model, or with ``varied``
+    :func:`eos_model`'s), hybridized, in predict mode, decodes the 8
+    bucket-32 sources ``s`` greedily and by beam search, three times each
+    (the eager warm-up, the captures, the replays), then once more not
+    hybridized (the eager forward at shapes already seen).  With
+    ``varied`` the decoded tokens must differ, across the rows and along
+    one at least, and some rows of both decodes must end with EOS.  Returns the forward launches of the three
+    calls."""
     import numpy as np
     import torch
 
     from mxnet_tpu_torch import _imperative
     from mxnet_tpu_torch.ops import kernels
 
-    model = net.model
     model.hybridize()
-    _, (src, _, svl), _ = next(b for b in nmt_batches(mx)
-                               if b[0] == TFM_DECODE_LEN)
-    gpu = mx.gpu(0)
-    s = mx.nd.array(src[:TFM_DECODE_ROWS], ctx=gpu)
-    v = mx.nd.array(svl[:TFM_DECODE_ROWS], ctx=gpu)
     kernels.reset_counts()
     c0 = _imperative.graph_capture_count()
     runs, times = [], []
@@ -3575,7 +3621,7 @@ def decode_transformer(mx, card, net):
         g[:len(b)] == b or b[:len(g)] == g
         for g, b in ((live_prefix(g), live_prefix(b))
                      for g, b in zip(greedy, beam1)))
-    vs_cpu = decode_card_vs_cpu(mx, model, s, v, greedy)
+    vs_cpu = decode_card_vs_cpu(mx, model, s, v, greedy, label)
     # the eager forward once every shape has been seen (the warm-up call
     # also meets each shape first: the wrappers' and cuBLAS's first calls)
     model.hybridize(False)
@@ -3590,9 +3636,9 @@ def decode_transformer(mx, card, net):
         times.append((time.perf_counter() - t0) * 1e3)
     eager_same = np.array_equal(runs[-2], greedy) and all(
         np.array_equal(a, b) for a, b in zip(runs[-1], (seqs, scores)))
-    for label, i, steps in (("greedy", 0, greedy_steps),
-                            ("beam", 1, beam_steps)):
-        log(f"decode {label}: {steps} steps; " + "; ".join(
+    for kind, i, steps in (("greedy", 0, greedy_steps),
+                           ("beam", 1, beam_steps)):
+        log(f"decode {label} {kind}: {steps} steps; " + "; ".join(
             f"{what} {ms:.1f} ms ({ms / steps:.3f} ms a step, "
             f"{ms / TFM_DECODE_ROWS:.2f} ms a sentence)"
             for what, ms in (("warm-up (eager, each shape's first call)",
@@ -3601,7 +3647,7 @@ def decode_transformer(mx, card, net):
                              ("replayed", times[2][i]),
                              ("eager, not hybridized", times[3 + i])))
             + f" on {card}")
-    log(f"decode: greedy {greedy.tolist()[:2]}...; beam scores "
+    log(f"decode {label}: greedy {greedy.tolist()[:2]}...; beam scores "
         f"{scores.tolist()}; graphs captured {captures} for {len(sigs)} "
         f"signatures; forward launches {launches} ({TFM_ATTENTIONS} x 3 x "
         f"{greedy_steps + beam_steps}); plain calls on cuda {plain}; three "
@@ -3615,14 +3661,33 @@ def decode_transformer(mx, card, net):
                   greedy_steps + beam_steps),
               "plain_calls_on_cuda": plain == 0,
               "finite_scores": bool(np.isfinite(scores).all())}
+    if varied:
+        live = [live_prefix(g)[1:] for g in greedy]
+        ended = {"greedy": [i for i, g in enumerate(live) if g[-1:] == [2]],
+                 "beam": [i for i, b in enumerate(seqs) if 2 in b[1:]]}
+        words = [[t for t in g if t != 2] for g in live]
+        distinct = len({t for w in words for t in w})
+        moving = [i for i, w in enumerate(words) if len(set(w)) > 1]
+        log(f"decode {label}: {distinct} distinct tokens but EOS over the "
+            f"greedy rows' live prefixes, rows whose token moves {moving}; "
+            f"rows ended with EOS: greedy "
+            f"{ended['greedy']} (at steps "
+            f"{[len(live[i]) for i in ended['greedy']]}), beam "
+            f"{ended['beam']}; greedy ran {greedy_steps} steps, beam "
+            f"{beam_steps} of {TFM_DECODE_LEN - 1}; beam's output widths "
+            f"{[len(live_prefix(b)) for b in seqs]} padded to "
+            f"{seqs.shape[1]}")
+        checks.update(tokens_vary=distinct > 1 and bool(moving),
+                      greedy_rows_end=bool(ended["greedy"]),
+                      beam_rows_end=bool(ended["beam"]))
     checks.update(vs_cpu)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"decode checks failed: {failed}")
+        raise SystemExit(f"decode {label} checks failed: {failed}")
     return launches
 
 
-def decode_card_vs_cpu(mx, model, s, v, greedy):
+def decode_card_vs_cpu(mx, model, s, v, greedy, label):
     """The CPU, fed the card's greedy sequences (teacher forcing, one
     call), against the card's last-position logits at each step (the
     replayed prefixes): within ``CPU_ATOL``, and the card's token the
@@ -3644,7 +3709,8 @@ def decode_card_vs_cpu(mx, model, s, v, greedy):
     top2 = np.sort(logits, axis=-1)[..., -2:]
     sure = top2[..., 1] - top2[..., 0] > TFM_MARGIN
     agree = logits.argmax(-1) == greedy[:, 1:]
-    log(f"decode: card vs cpu (teacher forcing) last-position logits max "
+    log(f"decode {label}: card vs cpu (teacher forcing) last-position "
+        f"logits max "
         f"abs err {err:.3g} over {card.shape[:2]} steps (atol {CPU_ATOL}); "
         f"{int(sure.sum())} of {sure.size} steps with a CPU top-2 margin "
         f"above {TFM_MARGIN}, the card's token the CPU's argmax at "
@@ -3660,7 +3726,7 @@ def check_cells(mx, card):
     given the weights of ``gluon.rnn.LSTM(200, num_layers=2)`` and
     ``GRU``, whose recurrence kernels (rows 11 and 13) are the yardstick:
     outputs within ``CELL_RTOL`` of the largest.  Returns the fused
-    layers' forward launches."""
+    layers' forward launches, and the same by route."""
     import numpy as np
     import torch
 
@@ -3668,7 +3734,7 @@ def check_cells(mx, card):
 
     gpu = mx.gpu(0)
     rnn = mx.gluon.rnn
-    launches, failed = {}, []
+    launches, routes, failed = {}, {}, []
     for cell_cls, layer_cls, kernel in ((rnn.LSTMCell, rnn.LSTM, "lstm_fwd"),
                                         (rnn.GRUCell, rnn.GRU, "gru_fwd")):
         mx.random.seed(0)
@@ -3680,6 +3746,7 @@ def check_cells(mx, card):
         want = fused(x)
         torch.cuda.synchronize()
         launches[kernel] = kernels.KERNEL_COUNTS[kernel].launches
+        routes[kernel] = launches_by_route(kernels.KERNEL_COUNTS[kernel])
         stack = rnn.HybridSequentialRNNCell()
         for _ in range(2):
             stack.add(cell_cls(GRU_HIDDEN))
@@ -3703,7 +3770,7 @@ def check_cells(mx, card):
             failed.append(cell_cls.__name__)
     if failed:
         raise SystemExit(f"cells disagree with the fused layers: {failed}")
-    return launches
+    return launches, routes
 
 
 def main():
@@ -3767,9 +3834,9 @@ def main():
     # and 7) runs before the first CUDA graph (phase 8's predict forwards,
     # phase 4's buckets): graphs captured earlier broke the profiler's
     # device readings (PERF.md §6)
-    flash = check_flash_attention(mx)
+    flash, tfm_fwd = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
-    tfm_attn = check_transformer_attention()
+    tfm_bwd = bwd.pop("transformer_big_b64")
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
@@ -3781,11 +3848,20 @@ def main():
     gtrain, _, groutes = train_gru(mx, card)
     captured_steps(mx, card)
     checkpoints(mx, card)
-    tfm_train, tfm_net = train_transformer(mx, card)
-    tfm_decode = decode_transformer(mx, card, tfm_net)
+    tfm_train, tfm_net, tfm_start = train_transformer(mx, card)
+    s, v = (mx.nd.array(a, ctx=mx.gpu(0)) for a in decode_rows(mx))
+    tfm_decode = decode_transformer(mx, card, tfm_net.model, s, v, "trained")
     del tfm_net
     torch.cuda.empty_cache()
-    cells = check_cells(mx, card)
+    eos, rise, expected = eos_model(mx, tfm_start, s, v)
+    log(f"decode eos: phase 17's starting weights, out_proj's EOS bias "
+        f"raised by {rise:.4f}; rows expected to emit EOS by step 15: "
+        f"{expected}")
+    tfm_decode_eos = decode_transformer(mx, card, eos, s, v, "eos",
+                                        varied=True)
+    del eos, tfm_start
+    torch.cuda.empty_cache()
+    cells, cell_routes = check_cells(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -3794,7 +3870,8 @@ def main():
     fwd_by_path = {"serve": serve["launches"],
                    "train": train["flash_attention_fwd"],
                    "transformer_train": tfm_train["flash_attention_fwd"],
-                   "transformer_decode": tfm_decode}
+                   "transformer_decode": tfm_decode,
+                   "transformer_decode_eos": tfm_decode_eos}
     bwd_by_path = {k: {"train": train[k], "transformer_train": tfm_train[k]}
                    for k in ("flash_attention_bwd_dq",
                              "flash_attention_bwd_dkv")}
@@ -3803,20 +3880,21 @@ def main():
              source="mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces=f"{src}:30,104", launches=sum(fwd_by_path.values()),
              launches_by_path=fwd_by_path,
-             transformer_big_b64=tfm_attn["flash_attention_fwd"], **flash),
+             transformer_big_b64=tfm_fwd.pop("transformer_big_b64"),
+             transformer_decode=tfm_fwd, **flash),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:427,252",
              launches=sum(bwd_by_path["flash_attention_bwd_dq"].values()),
              launches_by_path=bwd_by_path["flash_attention_bwd_dq"],
-             transformer_big_b64=tfm_attn["flash_attention_bwd_dq"],
+             transformer_big_b64=tfm_bwd["dq"],
              **bwd["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:471,299",
              launches=sum(bwd_by_path["flash_attention_bwd_dkv"].values()),
              launches_by_path=bwd_by_path["flash_attention_bwd_dkv"],
-             transformer_big_b64=tfm_attn["flash_attention_bwd_dkv"],
+             transformer_big_b64=tfm_bwd["dkv"],
              **bwd["dkv"]),
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",
@@ -3841,7 +3919,8 @@ def main():
                        + cells["lstm_fwd"]),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
                                **dpredict, "cells": cells["lstm_fwd"]},
-             launches_by_route=droutes, **rnn["lstm_fwd"]),
+             launches_by_route=dict(droutes, cells=cell_routes["lstm_fwd"]),
+             **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
              launches_by_route=dbroutes, **rnn["lstm_bwd"]),
@@ -3850,7 +3929,11 @@ def main():
              launches=gtrain["gru_fwd"] + cells["gru_fwd"],
              launches_by_path={"gru_train": gtrain["gru_fwd"],
                                "cells": cells["gru_fwd"]},
-             launches_by_route=groutes["gru_fwd"], **rnn["gru_fwd"]),
+             launches_by_route={
+                 r: groutes["gru_fwd"].get(r, 0)
+                 + cell_routes["gru_fwd"].get(r, 0)
+                 for r in {**groutes["gru_fwd"], **cell_routes["gru_fwd"]}},
+             **rnn["gru_fwd"]),
         dict(name="gru_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
              launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
