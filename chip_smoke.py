@@ -174,9 +174,31 @@ Phases (any failure ends the run with a non-zero exit and no result):
     (``HybridSequentialRNNCell``), given the weights of
     ``gluon.rnn.LSTM``/``GRU(200, num_layers=2)``, unrolled over T=35,
     N=32 TNC, must give the fused layers' outputs (the recurrence kernels,
-    rows 11 and 13) within ``CELL_RTOL``.
+    rows 11 and 13) within ``CELL_RTOL``;
+19. the kvstore on the card: ``KVStore('device')`` and ``('nccl')`` on
+    CUDA tensors (5 values a key, on the cards there are) against the same
+    calls on CPU copies (``cpu(0..4)``), bit for bit: push and pull,
+    pushpull, broadcast, 2-bit compression and ``set_optimizer`` (SGD with
+    momentum and Adam, 3 pushes each); then the fused multi-key pushpull
+    of every BERT-base gradient (two values a key), its buckets and
+    dispatches, timed;
+20. BERT-base under ``dist_sync``: 2 ranks that the port's launcher starts
+    (``python -m mxnet_tpu_torch.tools.launch``, each running this script
+    with ``--dist-worker``), rank r on ``gpu(r)`` with 2 or more cards
+    (NCCL), both on ``gpu(0)`` with one (gloo), train BERT-base MLM+NSP
+    (fp32, dropout 0, Adam) on their halves of a 16 x 128 batch for 6
+    steps through ``Trainer(kvstore='dist_sync')``: the backend the rule
+    names, both ranks' parameters bit-identical after every step, every
+    trainable parameter finite and changed, 12 launches of each flash
+    kernel a rank a step, no plain call, and the losses within
+    ``DIST_LOSS_RTOL`` of one process training the same two halves on
+    gpu(0); the all-reduce time and bytes a step;
+20b. ``kvstore='device'`` over gpu(0) and gpu(1), where 2 cards are
+    visible: the same steps with a forward a card, within the same limit
+    of one card, the replicas bit-identical; on one card it says so and
+    does not run.
 
-The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b: every
+The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19, 20, 20b: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -316,6 +338,24 @@ TFM_DECODE_ROWS, TFM_DECODE_LEN, TFM_BEAM, TFM_ALPHA = 8, 32, 4, 0.6
 # the CPU's argmax must be the card's token where its top-2 margin is above
 # this: twice the logits' card-vs-CPU tolerance (CPU_ATOL)
 TFM_MARGIN = 2e-3
+# phase 19, the kvstore on the card: values a key for the API calls, calls
+# timed of the fused pushpull over BERT-base's gradients, and the
+# optimizers set on the kvstore (3 pushes each)
+KV_SLOTS, KV_ITERS = 5, 5
+KV_OPTIMIZERS = (("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+                 ("adam", {"learning_rate": 0.01}))
+# Adam through the kvstore, card against CPU: torch.sqrt rounds some values
+# the other way on the card (PERF.md, PR 14), which moves an update by an
+# ulp of its denominator; everything else in phase 19 is bit-identical
+KV_ADAM_RTOL = 1e-6
+# phase 20, BERT-base under dist_sync: 2 ranks, each on half of a batch of
+# 16 x 128, 6 Adam steps; the losses against one process over the same
+# halves within BERT's card-vs-CPU limit (fp32, gradients summed in other
+# orders); the launch's own time limit
+DIST_RANKS, DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 16, 128, 6
+DIST_ADAM = {"learning_rate": 1e-4}
+DIST_LOSS_RTOL = TRAIN_LOSS_RTOL
+DIST_TIMEOUT_S = 600
 # the cells against the fused layers, max |err| over max |fused|: fp32,
 # the same products summed in other orders through 35 steps of 2 layers
 CELL_RTOL = 1e-4
@@ -3773,6 +3813,430 @@ def check_cells(mx, card):
     return launches, routes
 
 
+# -- phase 19: the kvstore on the card ----------------------------------------------
+
+
+def kv_api(mx, kv_type, ctxs, data):
+    """init, push, pull, pushpull, broadcast, 2-bit compression (3 pushes)
+    and ``set_optimizer`` (3 pushes each of SGD with momentum and Adam) of
+    one key over ``ctxs``, from the numpy arrays of ``data``; every result
+    as numpy, by name."""
+    import numpy as np
+
+    from mxnet_tpu_torch import kvstore as kvs
+
+    def arr(a, c):
+        return mx.nd.array(a, ctx=c)
+
+    res = {}
+    kv = kvs.create(kv_type)
+    kv.init("w", arr(data["init"], ctxs[0]))
+    kv.push("w", [arr(v, c) for v, c in zip(data["vals"], ctxs)])
+    outs = [arr(np.zeros_like(data["init"]), c) for c in ctxs]
+    kv.pull("w", out=outs)
+    res["pull"] = [o.asnumpy() for o in outs]
+    vs = [arr(v * 2 + 1, c) for v, c in zip(data["vals"], ctxs)]
+    kv.pushpull("w", vs, out=vs)
+    res["pushpull"] = [v.asnumpy() for v in vs]
+    outs = [arr(np.zeros_like(data["init"]), c) for c in ctxs]
+    kv.broadcast("b", arr(data["init"] * 3, ctxs[-1]), out=outs)
+    res["broadcast"] = [o.asnumpy() for o in outs]
+    kc = kvs.create(kv_type)
+    kc.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kc.init(0, arr(np.zeros_like(data["init"]), ctxs[0]))
+    for step, grads in enumerate(data["compress"]):
+        vs = [arr(g, c) for g, c in zip(grads, ctxs)]
+        kc.pushpull(0, vs, out=vs)
+        res[f"compression_{step}"] = [v.asnumpy() for v in vs]
+    for opt, args in KV_OPTIMIZERS:
+        ko = kvs.create(kv_type)
+        ko.set_optimizer(mx.optimizer.create(opt, **args))
+        ko.init(0, arr(data["init"], ctxs[0]))
+        for step, grads in enumerate(data["compress"]):
+            ko.push(0, [arr(g, c) for g, c in zip(grads, ctxs)])
+            o = arr(np.zeros_like(data["init"]), ctxs[-1])
+            ko.pull(0, out=o)
+            res[f"{opt}_{step}"] = [o.asnumpy()]
+    return res
+
+
+def bert_gradient_shapes(mx):
+    """The shapes of BERT-base's trainable parameters (MLM+NSP)."""
+    import numpy as np
+
+    net = pretrain_net(mx, mx.gpu(0), dropout=0.0)
+    data = synthetic_batch(np.random.RandomState(0), 2, 32, 30522)
+    with mx.autograd.pause():
+        net(*[mx.nd.array(a, ctx=mx.gpu(0)) for a in data])
+    return [tuple(p.shape) for p in net.collect_params().values()
+            if p.grad_req != "null"]
+
+
+def kv_fused(mx, kv_type, slots, card_grads):
+    """One multi-key pushpull of BERT-base's gradients (two values a key)
+    into the values themselves; returns the stats and the results as CPU
+    tensors."""
+    from mxnet_tpu_torch import kvstore as kvs
+
+    kv = kvs.create(kv_type)
+    grads = [[g.to(c.torch_device(), copy=True) for g in slot]
+             for slot, c in zip(card_grads, slots)]
+    keys = list(range(len(grads[0])))
+    for k in keys:
+        kv.init(k, mx.nd.NDArray(grads[0][k].clone(), slots[0]))
+    vals = [[mx.nd.NDArray(grads[s][k], slots[s]) for s in range(len(slots))]
+            for k in keys]
+    stats = kv.pushpull(keys, vals, out=vals)
+    return kv, keys, vals, stats, [v[0].data.to("cpu", copy=True)
+                                   for v in vals]
+
+
+def check_kvstore(mx, card):
+    """Phase 19: ``KVStore('device')`` and ``('nccl')`` on CUDA tensors
+    against the same calls on CPU copies, bit for bit: init, push and pull
+    of 5 values a key, pushpull, broadcast, 2-bit compression and
+    ``set_optimizer``; then the fused multi-key pushpull of every
+    BERT-base gradient (two values a key), timed.  Returns the fused
+    pushpull's record."""
+    import numpy as np
+    import torch
+
+    n_gpu = torch.cuda.device_count()
+    rng = np.random.RandomState(19)
+    data = {"init": rng.randn(256, 768).astype(np.float32),
+            "vals": [rng.randn(256, 768).astype(np.float32)
+                     for _ in range(KV_SLOTS)],
+            "compress": [[(rng.randn(256, 768) * 0.6).astype(np.float32)
+                          for _ in range(KV_SLOTS)] for _ in range(3)]}
+    gpus = [mx.gpu(i % n_gpu) for i in range(KV_SLOTS)]
+    cpus = [mx.cpu(i) for i in range(KV_SLOTS)]
+    failed = []
+    for kv_type in ("device", "nccl"):
+        got = kv_api(mx, kv_type, gpus, data)
+        want = kv_api(mx, kv_type, cpus, data)
+        differ = {}
+        for name in want:
+            n_diff = sum(int((a != b).sum())
+                         for a, b in zip(got[name], want[name]))
+            if n_diff:
+                differ[name] = (n_diff, max(
+                    float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(got[name], want[name])))
+        log(f"kvstore {kv_type!r}: {KV_SLOTS} values a key on "
+            f"{[str(c) for c in gpus]} against {[str(c) for c in cpus]}: "
+            f"{len(want)} results ({', '.join(want)}); values that differ "
+            f"(count, max err / max |value|): {differ or 'none'}")
+        # Adam's sqrt rounds otherwise on the card (below): its updates
+        # are held within KV_ADAM_RTOL, everything else bit for bit
+        failed += [f"{kv_type}:{name}" for name, (_, err) in differ.items()
+                   if not (name.startswith("adam") and err <= KV_ADAM_RTOL)]
+    v = torch.from_numpy(np.abs(data["init"]) * 1e-2)
+    sqrt_diff = {
+        name: int((fn(v.cuda()).cpu() != fn(v)).sum())
+        for name, fn in (("torch.sqrt", torch.sqrt),
+                         ("torch._foreach_sqrt",
+                          lambda t: torch._foreach_sqrt([t])[0]))}
+    log(f"kvstore: the square roots of the same {v.numel()} fp32 values on "
+        f"the card and on the CPU differ at {sqrt_diff} of them (Adam's "
+        f"denominator; its results are held within {KV_ADAM_RTOL} "
+        f"relative)")
+    shapes = bert_gradient_shapes(mx)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    card_grads = [[torch.randn(s, generator=gen, device="cuda")
+                   for s in shapes] for _ in range(2)]
+    nbytes = sum(4 * int(np.prod(s)) for s in shapes)
+    record = {}
+    for kv_type in ("device", "nccl"):
+        slots = [mx.gpu(s % n_gpu) for s in range(2)]
+        kv, keys, vals, stats, got = kv_fused(mx, kv_type, slots,
+                                              card_grads)
+        ms = cuda_ms(lambda: kv.pushpull(keys, vals, out=vals), KV_ITERS,
+                     warmup=1)
+        del kv, vals
+        _, _, _, cpu_stats, want = kv_fused(
+            mx, kv_type, [mx.cpu(0), mx.cpu(1)], card_grads)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"kvstore {kv_type!r}: fused pushpull of BERT-base's {len(keys)} "
+            f"gradients ({nbytes / 2**20:.1f} MiB a value, 2 values a key, "
+            f"MXTPU_KVSTORE_BUCKET_MB default 32) on {[str(c) for c in slots]}: "
+            f"{stats['buckets']} buckets, {stats['dispatches']} dispatches "
+            f"(cpu(0), cpu(1): {cpu_stats['buckets']} buckets, "
+            f"{cpu_stats['dispatches']} dispatches), {ms:.3f} ms a call "
+            f"(CUDA events, {KV_ITERS} calls) on {card}; against the CPU "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            failed.append(f"{kv_type}:fused")
+        record[kv_type] = {"keys": len(keys), "bytes": nbytes,
+                           "buckets": stats["buckets"],
+                           "dispatches": stats["dispatches"], "ms": ms}
+        del got, want
+    del card_grads
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"kvstore on the card disagrees with the CPU: "
+                         f"{failed}")
+    return record
+
+
+# -- phases 20 and 20b: BERT-base under dist_sync, and over several cards ----------
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_halves(mx, data, ctx, parts):
+    """The batch's rows split into ``parts`` equal slices, as NDArrays on
+    ``ctx`` (a context, or one a slice)."""
+    n = DIST_BATCH // parts
+    ctxs = ctx if isinstance(ctx, list) else [ctx] * parts
+    return [[mx.nd.array(a[r * n:(r + 1) * n], ctx=ctxs[r]) for a in data]
+            for r in range(parts)]
+
+
+def dist_worker(workdir):
+    """A rank of phase 20 (``chip_smoke.py --dist-worker DIR`` under the
+    port's launcher): BERT-base MLM+NSP from ``DIR/start.params`` trains
+    ``DIST_STEPS`` Adam steps on its half of ``DIR/batch.npz`` through
+    ``Trainer(kvstore='dist_sync')``, and writes ``DIR/rank<r>.json``."""
+    import hashlib
+    import logging
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    dist.init()
+    rank = dist.rank()
+    ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
+    torch.cuda.set_device(ctx.device_id)
+    npz = np.load(workdir / "batch.npz")
+    data = [npz[f"arr_{i}"] for i in range(len(npz.files))]
+    batch = dist_halves(mx, data, ctx, DIST_RANKS)[rank]
+    net = pretrain_net(mx, ctx, dropout=0.0)
+    net.load_parameters(str(workdir / "start.params"), ctx=ctx)
+    params = net._collect_params_with_prefix()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               dict(DIST_ADAM), kvstore="dist_sync")
+    timed = {"ms": 0.0, "bytes": 0, "calls": 0}
+    allreduce = dist.allreduce
+
+    def timed_allreduce(value):
+        t = value.data if isinstance(value, mx.nd.NDArray) else value
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = allreduce(value)
+        torch.cuda.synchronize()
+        timed["ms"] += (time.perf_counter() - t0) * 1e3
+        timed["bytes"] += t.numel() * t.element_size()
+        timed["calls"] += 1
+        return out
+
+    dist.allreduce = timed_allreduce
+    out = {"rank": rank, "backend": dist.backend(), "device": str(ctx),
+           "losses": [], "digests": [], "step_ms": [], "allreduce_ms": [],
+           "allreduce_bytes": [], "allreduce_calls": []}
+    kernels.reset_counts()
+    for _ in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = net(*batch)
+        loss.backward()
+        for k in ("ms", "bytes", "calls"):
+            timed[k] = 0
+        trainer.step(DIST_RANKS)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["allreduce_ms"].append(timed["ms"])
+        out["allreduce_bytes"].append(timed["bytes"])
+        out["allreduce_calls"].append(timed["calls"])
+        total = allreduce(mx.nd.NDArray(loss.data.detach().reshape(1)))
+        out["losses"].append(float(total.asnumpy()[0]) / DIST_RANKS)
+        h = hashlib.sha256()
+        for p in params.values():
+            h.update(p.data().detach().cpu().numpy().tobytes())
+        out["digests"].append(h.hexdigest())
+    out["launches"] = {name: c.launches
+                       for name, c in kernels.KERNEL_COUNTS.items()
+                       if name.startswith("flash_attention")}
+    out["plain_calls_on_cuda"] = fa.counts.plain_calls_on_cuda
+    start = mx.nd.load(str(workdir / "start.params"))
+    out["not_finite"] = [k for k, p in params.items()
+                         if not bool(torch.isfinite(p.data()).all())]
+    out["unchanged"] = [
+        k for k, p in params.items() if p.grad_req != "null"
+        and torch.equal(p.data().detach().cpu(), start[k].data)]
+    with open(workdir / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def dist_reference(mx, net, data, ctxs):
+    """One process: the batch as ``len(ctxs)`` slices, one a context of
+    ``ctxs`` (a single context takes every slice), summed into one step;
+    returns the losses (the mean of the slices') and the launches."""
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    parts = dist_halves(mx, data, ctxs if len(ctxs) > 1 else ctxs[0],
+                        DIST_RANKS)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(DIST_ADAM))
+    losses, step_ms = [], []
+    kernels.reset_counts()
+    for _ in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            ls = [net(*p) for p in parts]
+        mx.autograd.backward(ls)
+        trainer.step(DIST_RANKS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(sum(float(l.asscalar()) for l in ls) / DIST_RANKS)
+    launches = {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
+                if name.startswith("flash_attention")}
+    return losses, launches, step_ms
+
+
+def train_bert_dist(mx, card):
+    """Phase 20: BERT-base MLM+NSP (12 layers, 768, fp32, dropout 0, Adam)
+    trained by 2 ranks that the port's launcher starts, each on its half of
+    a batch of DIST_BATCH x DIST_SEQ, for DIST_STEPS steps through
+    ``Trainer(kvstore='dist_sync')``; rank r on gpu(r) with 2 or more
+    cards (NCCL), both on gpu(0) with one (gloo).  Gates: the backend the
+    rule names, both ranks' parameters bit-identical after every step,
+    every trainable parameter finite and changed, 12 launches of each
+    flash kernel a rank a step, no plain call, and the losses within
+    ``DIST_LOSS_RTOL`` of one process training the same halves on gpu(0).
+    Phase 20b then runs ``kvstore='device'`` over gpu(0) and gpu(1) where
+    there are 2 cards.  Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.parallel import dist
+
+    gpu = mx.gpu(0)
+    n_gpu = torch.cuda.device_count()
+    want_backend = dist.choose_backend(DIST_RANKS)
+    data = synthetic_batch(np.random.RandomState(20), DIST_BATCH, DIST_SEQ,
+                           30522)
+    checks, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="dist-smoke-", dir=ROOT) as d:
+        d = Path(d)
+        np.savez(d / "batch.npz", *data)
+        net = pretrain_net(mx, gpu, dropout=0.0)
+        with mx.autograd.pause():
+            net(*[mx.nd.array(a[:2], ctx=gpu) for a in data])
+        net.save_parameters(str(d / "start.params"))
+        torch.cuda.synchronize()
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+               str(DIST_RANKS), "--launcher", "local", "-p",
+               str(free_port()), sys.executable, str(ROOT / "chip_smoke.py"),
+               "--dist-worker", str(d)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
+                              capture_output=True, timeout=DIST_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr).strip().splitlines()
+        log("dist: the workers' log (last lines):\n  " + "\n  ".join(
+            line for line in tail[-12:]))
+        if proc.returncode:
+            raise SystemExit(f"dist: the launch exited {proc.returncode}")
+        ranks = [json.loads((d / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+        ref_losses, ref_launches, ref_ms = dist_reference(mx, net, data,
+                                                          [gpu])
+        del net
+        torch.cuda.empty_cache()
+        device_run = None
+        if n_gpu >= 2:
+            net2 = pretrain_net(mx, [mx.gpu(0), mx.gpu(1)], dropout=0.0)
+            net2.load_parameters(str(d / "start.params"),
+                                 ctx=[mx.gpu(0), mx.gpu(1)])
+            device_run = dist_reference(mx, net2, data,
+                                        [mx.gpu(0), mx.gpu(1)])
+            replicas_same = all(
+                torch.equal(p.data(mx.gpu(0)).cpu(), p.data(mx.gpu(1)).cpu())
+                for p in net2.collect_params().values())
+            del net2
+            torch.cuda.empty_cache()
+    r0 = ranks[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       ref_losses))
+    same_params = all(r["digests"] == r0["digests"] for r in ranks)
+    per_rank = 12 * DIST_STEPS
+    checks.update({
+        "backend": all(r["backend"] == want_backend for r in ranks),
+        "ranks_bit_identical_every_step": same_params,
+        "finite": not any(r["not_finite"] for r in ranks),
+        "changed": not any(r["unchanged"] for r in ranks),
+        "launches": all(n == per_rank for r in ranks
+                        for n in r["launches"].values()),
+        "plain_calls_on_cuda": all(r["plain_calls_on_cuda"] == 0
+                                   for r in ranks),
+        "losses_vs_one_process": loss_err <= DIST_LOSS_RTOL,
+    })
+    ar_ms = [statistics.median(r["allreduce_ms"][1:]) for r in ranks]
+    step_ms = [statistics.median(r["step_ms"][1:]) for r in ranks]
+    log(f"dist: BERT-base MLM+NSP fp32 dropout 0 Adam, {DIST_RANKS} ranks "
+        f"({', '.join(r['device'] for r in ranks)}; backend "
+        f"{r0['backend']}, the rule says {want_backend} with {n_gpu} "
+        f"card(s)), {DIST_STEPS} steps of {DIST_BATCH // DIST_RANKS} x "
+        f"{DIST_SEQ} a rank, kvstore='dist_sync' (update_on_kvstore "
+        f"True): launch {launch_s:.1f} s; losses {r0['losses']} vs one "
+        f"process {ref_losses}: max rel err {loss_err:.3g} (rtol "
+        f"{DIST_LOSS_RTOL}); parameters bit-identical across ranks after "
+        f"every step: {same_params}; launches a rank {r0['launches']} "
+        f"({per_rank} each); on {card}")
+    log(f"dist: a step: median {step_ms} ms a rank (one process over both "
+        f"halves: {statistics.median(ref_ms[1:]):.3f} ms); all-reduce "
+        f"{ar_ms} ms a rank a step ({r0['allreduce_calls'][-1]} calls, "
+        f"{r0['allreduce_bytes'][-1]} bytes a step, "
+        f"{r0['allreduce_bytes'][-1] / (ar_ms[0] / 1e3) / 1e9:.3f} GB/s; "
+        f"the {r0['backend']} path stages through the host) on {card}")
+    launches["dist_bert_train"] = {k: sum(r["launches"][k] for r in ranks)
+                                   for k in r0["launches"]}
+    launches["dist_bert_reference"] = ref_launches
+    if device_run is None:
+        log(f"dist 20b: kvstore='device' over gpu(0..n-1): needs 2 GPUs, "
+            f"{n_gpu} visible")
+    else:
+        d_losses, d_launches, d_ms = device_run
+        d_err = max(abs(a - b) / abs(b) for a, b in zip(d_losses,
+                                                        ref_losses))
+        checks["device_over_cards_losses"] = d_err <= DIST_LOSS_RTOL
+        checks["device_over_cards_replicas"] = replicas_same
+        checks["device_over_cards_launches"] = all(
+            n == per_rank * 2 for n in d_launches.values())
+        launches["device_bert_train"] = d_launches
+        log(f"dist 20b: kvstore='device' over gpu(0), gpu(1): losses "
+            f"{d_losses}, max rel err {d_err:.3g} against one card; "
+            f"replicas bit-identical {replicas_same}; launches {d_launches}; "
+            f"step median {statistics.median(d_ms[1:]):.3f} ms on {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"dist checks failed: {failed}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3782,7 +4246,11 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
+    ap.add_argument("--dist-worker", metavar="DIR", default=None,
+                    help="run one rank of phase 20 (the launcher does)")
     args = ap.parse_args()
+    if args.dist_worker is not None:
+        return dist_worker(args.dist_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -3862,6 +4330,8 @@ def main():
     del eos, tfm_start
     torch.cuda.empty_cache()
     cells, cell_routes = check_cells(mx, card)
+    kv_record = check_kvstore(mx, card)
+    dist_launches = train_bert_dist(mx, card)
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -3871,8 +4341,11 @@ def main():
                    "train": train["flash_attention_fwd"],
                    "transformer_train": tfm_train["flash_attention_fwd"],
                    "transformer_decode": tfm_decode,
-                   "transformer_decode_eos": tfm_decode_eos}
-    bwd_by_path = {k: {"train": train[k], "transformer_train": tfm_train[k]}
+                   "transformer_decode_eos": tfm_decode_eos,
+                   **{path: n["flash_attention_fwd"]
+                      for path, n in dist_launches.items()}}
+    bwd_by_path = {k: {"train": train[k], "transformer_train": tfm_train[k],
+                       **{path: n[k] for path, n in dist_launches.items()}}
                    for k in ("flash_attention_bwd_dq",
                              "flash_attention_bwd_dkv")}
     record = {"kernels": [
@@ -3938,6 +4411,7 @@ def main():
              replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
              launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
     ]}
+    log(f"kvstore: fused pushpull of BERT-base's gradients {kv_record}")
     log(f"chip_smoke: total wall time {time.perf_counter() - wall0:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -17,5 +17,7 @@ from . import initializer as init  # noqa: F401
 from . import gluon  # noqa: F401
 from . import models, parallel, serve  # noqa: F401
 from . import checkpoint, utils  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import data, io, rnn  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

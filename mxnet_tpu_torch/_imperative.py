@@ -3,7 +3,11 @@
 
 Blocks and ops compute on ``torch.Tensor``s.  A call that arrives with
 NDArray inputs (user code, ``ModelServer``) is unwrapped here, and its
-tensor outputs are wrapped back, keeping the nesting of tuples and lists.
+tensor outputs are wrapped back, keeping the nesting of tuples and lists,
+on the first NDArray input's context.  The outermost call also sets the
+replica context (``context.replica_scope``): that NDArray's context, or
+the first tensor's device, so that every block inside reads the
+parameters' copies on it.
 
 It also keeps the process's dispatch counters of the captured training
 step (ref: ``compiled_executable_count`` and ``device_dispatch_count``):
@@ -17,25 +21,34 @@ import threading
 
 import torch
 
-from .ndarray.ndarray import NDArray
+from .context import Context, current_replica, replica_scope
+from .ndarray.ndarray import NDArray, _on
 
 
-def _wrap(out):
+def _wrap(out, ctx):
     if isinstance(out, torch.Tensor):
-        return NDArray(out)
+        return NDArray(out, ctx if _on(out, ctx) else None)
     if isinstance(out, (list, tuple)):
-        return type(out)(_wrap(o) for o in out)
+        return type(out)(_wrap(o, ctx) for o in out)
     return out
 
 
 def invoke(fn, *args):
     """Call ``fn`` on the tensors inside NDArray ``args``; return NDArray
     outputs when any input was an NDArray, else ``fn``'s own outputs."""
-    boundary = any(isinstance(a, NDArray) for a in args)
-    if not boundary:
-        return fn(*args)
-    out = fn(*(a.data if isinstance(a, NDArray) else a for a in args))
-    return _wrap(out)
+    first = next((a for a in args if isinstance(a, NDArray)), None)
+    if first is None:
+        if current_replica() is not None:
+            return fn(*args)
+        t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+        if t is None:
+            return fn(*args)
+        with replica_scope(Context.from_device(t.device)):
+            return fn(*args)
+    ctx = first.context
+    with replica_scope(ctx):
+        out = fn(*(a.data if isinstance(a, NDArray) else a for a in args))
+    return _wrap(out, ctx)
 
 
 _counters = {"step_signatures": 0, "step_dispatches": 0,

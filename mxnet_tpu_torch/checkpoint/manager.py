@@ -27,10 +27,14 @@ to pinned host memory on a side stream, serialises and commits.  At most
 one save is in flight, and its errors surface at
 ``wait_until_finished()``, which also runs before the next save.
 
+A Trainer whose states live in its kvstore's updater (``update_on_kvstore``)
+is saved and restored like any other: its blob's ``"kvstore"`` entry is
+the updater's pickled states (``gluon.trainer.states_file_blob``).
+
 Not in the port yet: input pipelines (``pipeline=``, slice 8), and
-multi-process jobs, ZeRO-sharded optimizer states and resharding onto
-another topology (slice 7); each raises :class:`MXNetError` naming its
-slice.
+multi-process manifests, ZeRO-sharded optimizer states and resharding onto
+another topology (slice 7, part 2); each raises :class:`MXNetError` naming
+its slice.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from .. import random as _random
 from ..base import MXNetError
 from . import atomic
 from .snapshot import Snapshot, host_leaves, writer
+from ..gluon.trainer import states_file_blob
 
 MANIFEST = "MANIFEST.json"
 
@@ -59,6 +64,9 @@ def _later(what, slice_no):
     return MXNetError(f"CheckpointManager: {what} is not ported yet; it "
                       f"comes with slice {slice_no} of the port "
                       "(ROADMAP.md queue 1)")
+
+
+_RESHARD = "7, part 2 (the distributed slice's resharding)"
 
 
 def _is_corrupt_failure(e):
@@ -251,8 +259,9 @@ class CheckpointManager:
             p = os.path.join(tmp, "trainer-shard0.states")
             with open(p, "wb") as f:
                 # protocol 5 writes the arrays from their own memory
-                pickle.dump(host_leaves(state["trainer"], copy=False), f,
-                            protocol=5)
+                pickle.dump(states_file_blob(
+                    host_leaves(state["trainer"], copy=False)), f,
+                    protocol=5)
             atomic.fsync_file(p)
         atomic.write_json(os.path.join(tmp, "rng-shard0.json"),
                           state["rng"])
@@ -398,10 +407,10 @@ class CheckpointManager:
         saved_procs = int(manifest.get("num_processes", 1))
         if saved_procs != 1:
             # strict_topology or not: every multi-process layout and its
-            # resharding onto this job's topology waits for slice 7
+            # resharding onto this job's topology waits for slice 7, part 2
             raise _later(
                 f"restoring {mpath}, saved by a {saved_procs}-process job "
-                "(multi-process checkpoints and resharding)", 7)
+                "(multi-process checkpoints and resharding)", _RESHARD)
         loaded = self._restore_params(d, params)
         self._restore_trainer(d, trainer)
         if restore_rng:

@@ -8,9 +8,15 @@ The default context is ``gpu(0)``.  Where no CUDA device is present,
 code that relies on the default raises instead of falling back to the
 CPU: a caller who wants the CPU says so with ``cpu()`` (argument or
 ``with mx.cpu():``).
+
+The *replica* context (:func:`replica_scope`, :func:`current_replica`) is
+the context of the arrays a block call was given: a Parameter with copies
+on several contexts hands out the copy on it (``Parameter.data()``), as
+the JAX package's blocks pick ``p.data(x.context)``.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -18,6 +24,7 @@ import torch
 from .base import MXNetError
 
 _default = threading.local()
+_replica = threading.local()
 
 
 class Context:
@@ -110,3 +117,19 @@ def current_context():
             "no CUDA device is visible and no context was given; pass "
             "ctx=mx.cpu() (or use `with mx.cpu():`) to run on the CPU")
     return gpu(0)
+
+
+def current_replica():
+    """The context of the block call in progress (None outside one)."""
+    return getattr(_replica, "ctx", None)
+
+
+@contextlib.contextmanager
+def replica_scope(ctx):
+    """Make ``ctx`` the replica context of the calls inside."""
+    prev = getattr(_replica, "ctx", None)
+    _replica.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _replica.ctx = prev

@@ -336,7 +336,7 @@ class CachedOp:
             return out
         pos = [j for j, i in enumerate(inputs) if isinstance(i, torch.Tensor)]
         got = self._graphs.get(sig)
-        if got is not None and any(p._data is not v
+        if got is not None and any(p._replica() is not v
                                    for p, v in zip(got[1], got[2])):
             got = None   # a parameter's value was replaced: capture again
         if got is None:
@@ -352,5 +352,5 @@ class CachedOp:
             params = list(self.block.collect_params().values())
             got = self._graphs[sig] = (CapturedStep(
                 forward, [inputs[j].clone() for j in pos], device,
-                pool=self._pool), params, [p._data for p in params])
+                pool=self._pool), params, [p._replica() for p in params])
         return _clone_outputs(got[0].replay([inputs[j] for j in pos]))

@@ -1,11 +1,22 @@
 """Gluon Parameter / ParameterDict (ref: python/mxnet/gluon/parameter.py).
 
 A :class:`Parameter` keeps the Gluon metadata (name, shape with 0 for
-unknown dims, init, grad_req) and its value, a ``torch.nn.Parameter`` on
-one device.  The value is registered in every block that holds the
-Parameter as an attribute, under that attribute's name, so a block's
+unknown dims, init, grad_req) and its value, a ``torch.nn.Parameter``.
+The value on the first context is registered in every block that holds
+the Parameter as an attribute, under that attribute's name, so a block's
 ``named_parameters()`` and ``state_dict()`` keys are the structural names
 of ``_collect_params_with_prefix`` (``encoder.layers.0.attn_in_weight``).
+
+Contexts (ref: ``mxnet_tpu/gluon/parameter.py:87-226``):
+``initialize(ctx=[c0, c1, ...])`` makes one copy per context, each its
+own ``torch.nn.Parameter`` with its own gradient, all with the first
+copy's initial values.  ``data(ctx)``/``grad(ctx)`` give one copy,
+``list_data``/``list_grad``/``list_ctx`` all of them, in context order;
+``data()`` gives the copy on the replica context of the block call in
+progress (``context.replica_scope``) where there is one, else the first.
+``set_data`` writes every copy; ``reset_ctx`` moves the value to other
+contexts.  A Parameter on one context is exactly the single value it was
+before multi-context parameters came.
 
 Deferred init: a Parameter whose shape has unknown dims waits until its
 layer infers them from the first input.
@@ -29,7 +40,7 @@ import torch
 from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError
-from ..context import Context, current_context
+from ..context import Context, current_context, current_replica
 from ..ndarray.ndarray import NDArray, to_torch_dtype
 
 
@@ -42,7 +53,8 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False):
         self.name = name
-        self._data = None            # torch.nn.Parameter
+        self._data = None            # torch.nn.Parameter on the first context
+        self._ctx_data = None        # {Context: torch.nn.Parameter}, ordered
         self.grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
@@ -59,6 +71,9 @@ class Parameter:
         self._traced_value = None
         # hints for the initializer (``InitDesc.attrs``), set by layers
         self._init_attrs = None
+        # trainers whose kvstore keeps (and updates) its own copy of the
+        # value: set_data writes that copy too
+        self._kv_trainers = weakref.WeakSet()
 
     # -- shape with merge-of-unknowns (MXNet uses 0 for unknown dims) ------
 
@@ -88,8 +103,8 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name}: grad_req must be "
                              f"'write', 'add' or 'null', not {req!r}")
         self._grad_req = req
-        if self._data is not None:
-            autograd.mark_variables([self._data], [self._data.grad], req)
+        for v in self._values():
+            autograd.mark_variables([v], [v.grad], req)
 
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
@@ -115,17 +130,17 @@ class Parameter:
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
+        """Make the value on ``ctx`` (a Context or a list of them; default
+        :func:`current_context`), one copy per context, now or, with
+        unknown dims, at the first forward."""
         default_init = default_init or init_mod.Uniform()
         if self._data is not None and not force_reinit:
             return
-        if isinstance(ctx, (list, tuple)):
-            if len(ctx) != 1:
-                raise MXNetError(
-                    f"Parameter {self.name}: the port keeps one device per "
-                    f"parameter, got {ctx}")
-            ctx = ctx[0]
         if ctx is None:
             ctx = current_context()
+        ctx = _ctx_list(ctx)
+        if len(ctx) == 1:
+            ctx = ctx[0]
         if not self._shape_known():
             if self.allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init)
@@ -135,16 +150,33 @@ class Parameter:
                 f"{self._shape} and allow_deferred_init=False")
         self._finish_init(init, ctx, default_init)
 
-    def _finish_init(self, init, ctx, default_init):
+    def _initial_value(self, init, ctx, default_init):
+        """The value to start from, on ``ctx``."""
         initializer = init or self.init or default_init
         if isinstance(initializer, str):
             initializer = init_mod.create(initializer)
         data = torch.empty(self._shape, dtype=to_torch_dtype(self.dtype),
                            device=ctx.torch_device())
         initializer(init_mod.InitDesc(self.name, self._init_attrs), data)
-        self._data = torch.nn.Parameter(data, requires_grad=False)
-        autograd.mark_variables([self._data], [None], self._grad_req)
+        return data
+
+    def _finish_init(self, init, ctx, default_init):
+        ctxs = _ctx_list(ctx)
+        self._place(ctxs, self._initial_value(init, ctxs[0], default_init))
         self._deferred_init = None
+
+    def _place(self, ctxs, data):
+        """Make the copies on ``ctxs`` from ``data`` (the first copy is
+        ``data`` itself when it lies on the first context)."""
+        values = {}
+        for c in ctxs:
+            t = data if not values and data.device == c.torch_device() \
+                else data.detach().to(c.torch_device(), copy=True)
+            v = torch.nn.Parameter(t, requires_grad=False)
+            autograd.mark_variables([v], [None], self._grad_req)
+            values[c] = v
+        self._ctx_data = values
+        self._data = values[ctxs[0]]
         self._publish()
 
     def _finish_deferred_init(self):
@@ -157,12 +189,10 @@ class Parameter:
 
     # -- access -------------------------------------------------------------
 
-    def data(self, ctx=None):
-        """The value, a ``torch.nn.Parameter`` (or, inside a forward that
-        :class:`~mxnet_tpu_torch.parallel.DataParallelTrainer` runs, the
-        trainer's tensor for it)."""
-        if self._traced_value is not None:
-            return self._traced_value
+    def _values(self):
+        return list(self._ctx_data.values()) if self._ctx_data else []
+
+    def _check_initialized(self):
         if self._data is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(
@@ -170,23 +200,45 @@ class Parameter:
                     "(deferred); run a forward pass first")
             raise MXNetError(f"Parameter {self.name} has not been "
                              "initialized. Call .initialize() first")
-        if ctx is not None and Context(ctx) != self.context:
-            raise MXNetError(f"Parameter {self.name} lives on "
-                             f"{self.context}, not {ctx}")
-        return self._data
+
+    def _replica(self, ctx=None):
+        """The copy on ``ctx``; with None, on the replica context of the
+        block call in progress where the value has one, else the first."""
+        self._check_initialized()
+        if ctx is None:
+            if len(self._ctx_data) > 1:
+                cur = current_replica()
+                if cur is not None and cur in self._ctx_data:
+                    return self._ctx_data[cur]
+            return self._data
+        got = self._ctx_data.get(Context(ctx))
+        if got is None:
+            raise MXNetError(f"Parameter {self.name} is not initialized on "
+                             f"{ctx}; it lives on {list(self._ctx_data)}")
+        return got
+
+    def data(self, ctx=None):
+        """The value on ``ctx`` (see the module docstring for None), a
+        ``torch.nn.Parameter``; inside a forward that
+        :class:`~mxnet_tpu_torch.parallel.DataParallelTrainer` runs, the
+        trainer's tensor for it."""
+        if self._traced_value is not None:
+            return self._traced_value
+        return self._replica(ctx)
 
     def list_data(self):
-        """The value on each device: one, in this port."""
-        return [self.data()]
+        """The value on each context, in context order."""
+        self._check_initialized()
+        return self._values()
 
     def list_ctx(self):
-        """The devices the value lives on: one, in this port."""
-        self.data()
-        return [self.context]
+        """The contexts the value lives on, in order."""
+        self._check_initialized()
+        return list(self._ctx_data)
 
     def grad(self, ctx=None):
-        """The gradient buffer, the value's ``.grad`` (zeros until a
-        backward writes it)."""
+        """The gradient buffer of the value on ``ctx``, its ``.grad``
+        (zeros until a backward writes it)."""
         data = self.data(ctx)
         if self._grad_req == "null":
             raise MXNetError(f"Parameter {self.name} has no gradient "
@@ -196,23 +248,27 @@ class Parameter:
         return data.grad
 
     def list_grad(self):
-        return [self.grad()]
+        """The gradient buffer on each context, in context order."""
+        return [self.grad(c) for c in self.list_ctx()]
 
     def zero_grad(self):
-        """Set the gradient buffer to zeros, in place."""
-        if self._data is not None and self._data.grad is not None:
-            self._data.grad.zero_()
+        """Set every gradient buffer to zeros, in place."""
+        for v in self._values():
+            if v.grad is not None:
+                v.grad.zero_()
 
     @property
     def context(self):
-        """The Context of the value (None before initialization)."""
+        """The first Context of the value (None before initialization)."""
         if self._data is None:
             return None
-        return Context.from_device(self._data.device)
+        return next(iter(self._ctx_data))
 
     def set_data(self, data):
-        """Copy ``data`` (numpy, NDArray or tensor) into the value in place,
-        finishing a deferred init first."""
+        """Copy ``data`` (numpy, NDArray or tensor) into the value on every
+        context in place, finishing a deferred init first, and into the
+        copy a Trainer's kvstore updates (``update_on_kvstore``), as MXNet
+        1.x resets that kvstore."""
         if isinstance(data, NDArray):
             data = data.data
         src = data if isinstance(data, torch.Tensor) \
@@ -224,11 +280,40 @@ class Parameter:
                     f"Parameter {self.name}: set_data before initialize()")
             self._finish_init(*self._deferred_init)
         with torch.no_grad():
-            self._data.copy_(src.to(self._data.dtype))
+            for v in self._values():
+                v.copy_(src.to(v.dtype))
+        for trainer in list(self._kv_trainers):
+            trainer._refresh_kv_value(self)
+
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (a Context or a list): one copy per
+        context of the first copy's values, with fresh gradients (ref:
+        Parameter.reset_ctx)."""
+        ctx = _ctx_list(ctx)
+        if self._data is None:
+            if self._deferred_init is None:
+                raise MXNetError(f"Parameter {self.name}: reset_ctx before "
+                                 "initialize()")
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx[0] if len(ctx) == 1 else ctx,
+                                   default_init)
+            return
+        for v in self._values():
+            autograd.mark_variables([v], [None], "null")
+        self._place(ctx, self._data.detach())
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self._shape}, "
                 f"dtype={self.dtype})")
+
+
+def _ctx_list(ctx):
+    """``ctx`` (a Context or a list of them) as a list of distinct
+    Contexts, in order."""
+    ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
+    if not ctxs:
+        raise MXNetError("an empty list of contexts")
+    return list(dict.fromkeys(Context(c) for c in ctxs))
 
 
 class Constant(Parameter):
@@ -254,14 +339,9 @@ class Constant(Parameter):
         super().__init__(name, grad_req="null", shape=tuple(value.shape),
                          dtype=str(value.dtype).replace("torch.", ""))
 
-    def _finish_init(self, init, ctx, default_init):
+    def _initial_value(self, init, ctx, default_init):
         """The value itself, whatever initializer was asked for."""
-        self._data = torch.nn.Parameter(
-            self.value.to(ctx.torch_device(), copy=True),
-            requires_grad=False)
-        autograd.mark_variables([self._data], [None], self._grad_req)
-        self._deferred_init = None
-        self._publish()
+        return self.value.to(ctx.torch_device(), copy=True)
 
 
 class ParameterDict:
@@ -312,6 +392,11 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every Parameter to ``ctx`` (ref: ParameterDict.reset_ctx)."""
+        for p in self.values():
+            p.reset_ctx(ctx)
 
     def setattr(self, name, value):
         """Set attribute ``name`` of every Parameter, e.g.

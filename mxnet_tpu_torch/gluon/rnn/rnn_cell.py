@@ -21,13 +21,23 @@ from ... import autograd
 from ... import ndarray as F
 from ..._imperative import _wrap
 from ...base import MXNetError
-from ...context import Context, current_context
+from ...context import Context, current_context, replica_scope
 from ...ndarray.ndarray import NDArray, as_tensor
 from ..block import HybridBlock
 
 
 def _boundary(*arrays):
-    return any(isinstance(a, NDArray) for a in arrays)
+    """The context of the first NDArray of ``arrays`` (None: none is)."""
+    return next((a.context for a in arrays if isinstance(a, NDArray)), None)
+
+
+def _at_boundary(ctx, fn, *args):
+    """``fn(*args)``; at an NDArray boundary (``ctx`` not None) under that
+    context's replica scope, its outputs wrapped on it."""
+    if ctx is None:
+        return fn(*args)
+    with replica_scope(ctx):
+        return _wrap(fn(*args), ctx)
 
 
 class RecurrentCell(HybridBlock):
@@ -58,8 +68,7 @@ class RecurrentCell(HybridBlock):
         x = as_tensor(x)
         states = self._zeros(x.shape[0], x.device) if states is None \
             else [as_tensor(s) for s in states]
-        out = self._step(x, states)
-        return _wrap(out) if boundary else out
+        return _at_boundary(boundary, self._step, x, states)
 
     def _step(self, x, states):
         """One step on tensors through the block's forward (hybridized:
@@ -82,9 +91,8 @@ class RecurrentCell(HybridBlock):
         states = None if begin_state is None else [as_tensor(s)
                                                    for s in begin_state]
         vl = None if valid_length is None else as_tensor(valid_length)
-        out = self._unroll(length, as_tensor(inputs), states, layout,
-                           merge_outputs, vl)
-        return _wrap(out) if boundary else out
+        return _at_boundary(boundary, self._unroll, length, as_tensor(inputs),
+                            states, layout, merge_outputs, vl)
 
     def _unroll(self, length, x, states, layout, merge_outputs, vl):
         axis = 1 if layout == "NTC" else 0

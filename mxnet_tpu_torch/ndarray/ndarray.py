@@ -7,6 +7,14 @@ surface hands arrays to and from user code (``nd.array``,
 does, and where the training loop touches them (``attach_grad``,
 ``.grad``, ``.backward()``, ``detach``, ``asscalar``).  The tensor is
 ``.data``.
+
+An NDArray keeps the :class:`~mxnet_tpu_torch.context.Context` it was made
+on (``array(..., ctx=)``, ``zeros``, ``as_in_context``, ``copyto``,
+``gluon.utils.split_and_load``, and a block's outputs take their first
+NDArray input's): the port's ``cpu(i)`` are one torch device, so
+``cpu(1)`` cannot be read back from the tensor.  An NDArray made from a
+bare tensor reads its context from the tensor's device (``gpu(i)`` for
+``cuda:i``).
 """
 from __future__ import annotations
 
@@ -50,19 +58,33 @@ def as_tensor(x):
     return x.data if isinstance(x, NDArray) else x
 
 
-def _device_of(ctx):
-    return (ctx or current_context()).torch_device()
+def _ctx_of(ctx):
+    return Context(ctx) if ctx is not None else current_context()
+
+
+def _on(t, ctx):
+    """Does tensor ``t`` live on the torch device ``ctx`` names?"""
+    if ctx.device_type == "cpu":
+        return not t.is_cuda
+    return t.is_cuda and (t.device.index or 0) == ctx.device_id
 
 
 class NDArray:
-    """An n-dimensional array on a device, wrapping ``data``, a tensor."""
+    """An n-dimensional array on a device, wrapping ``data``, a tensor, and
+    the context it was made on (``ctx``; default: the tensor's device)."""
 
-    __slots__ = ("data", "__weakref__")
+    __slots__ = ("data", "_ctx", "__weakref__")
 
-    def __init__(self, data):
+    def __init__(self, data, ctx=None):
         if not isinstance(data, torch.Tensor):
             raise MXNetError(f"NDArray wraps a torch.Tensor, got {type(data)}")
+        if ctx is not None:
+            ctx = Context(ctx)
+            if not _on(data, ctx):
+                raise MXNetError(f"NDArray: a tensor on {data.device} "
+                                 f"cannot be on {ctx}")
         self.data = data
+        self._ctx = ctx
 
     @property
     def shape(self):
@@ -78,7 +100,37 @@ class NDArray:
 
     @property
     def context(self):
+        if self._ctx is not None:
+            return self._ctx
         return Context.from_device(self.data.device)
+
+    ctx = context
+
+    def as_in_context(self, context):
+        """This array if it is on ``context``, else a copy there (ref:
+        NDArray.as_in_context)."""
+        context = Context(context)
+        if context == self.context:
+            return self
+        return self.copyto(context)
+
+    def copyto(self, other):
+        """A copy on the context ``other``, or the values copied into the
+        NDArray ``other`` in place (ref: NDArray.copyto); returns the copy."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise MXNetError(f"copyto: shape {self.shape} into "
+                                 f"{other.shape}")
+            with torch.no_grad():
+                other.data.copy_(self.data)
+            return other
+        other = Context(other)
+        return NDArray(self.data.detach().to(other.torch_device(), copy=True),
+                       other)
+
+    def copy(self):
+        """A copy on the same context."""
+        return self.copyto(self.context)
 
     def asnumpy(self):
         """Blocking copy to the host (bfloat16 arrives as float32)."""
@@ -116,7 +168,7 @@ class NDArray:
     def grad(self):
         """The gradient buffer as an NDArray, or None."""
         g = self.data.grad
-        return None if g is None else NDArray(g)
+        return None if g is None else NDArray(g, self._ctx)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         """Run the reverse pass from this array (ref: NDArray.backward)."""
@@ -127,7 +179,7 @@ class NDArray:
 
     def detach(self):
         """The same values, cut from the graph."""
-        return NDArray(self.data.detach())
+        return NDArray(self.data.detach(), self._ctx)
 
     def __repr__(self):
         return (f"\n{self.asnumpy()}\n<NDArray {'x'.join(map(str, self.shape))}"
@@ -137,31 +189,34 @@ class NDArray:
 def array(source_array, ctx=None, dtype=None):
     """An NDArray holding a copy of ``source_array`` on ``ctx`` (default
     :func:`current_context`); float64 sources become float32."""
+    ctx = _ctx_of(ctx)
     if isinstance(source_array, NDArray):
         source_array = source_array.data
     if isinstance(source_array, torch.Tensor):
         t = source_array
         if dtype is not None:
             t = t.to(to_torch_dtype(dtype))
-        return NDArray(t.to(_device_of(ctx), copy=True))
+        return NDArray(t.to(ctx.torch_device(), copy=True), ctx)
     src = np.asarray(source_array)
     if dtype is None:
         dtype = np.float32 if src.dtype == np.float64 else src.dtype
     # ascontiguousarray makes a 0-d array 1-d: keep the source's shape
     t = torch.from_numpy(np.ascontiguousarray(
         src.astype(dtype, copy=False))).reshape(src.shape)
-    return NDArray(t.to(_device_of(ctx), copy=True))
+    return NDArray(t.to(ctx.torch_device(), copy=True), ctx)
 
 
 def zeros(shape, ctx=None, dtype=None):
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    ctx = _ctx_of(ctx)
     return NDArray(torch.zeros(shape, dtype=to_torch_dtype(dtype),
-                               device=_device_of(ctx)))
+                               device=ctx.torch_device()), ctx)
 
 
 def arange(start, stop=None, step=1.0, ctx=None, dtype=None):
     if stop is None:
         start, stop = 0, start
+    ctx = _ctx_of(ctx)
     return NDArray(torch.arange(start, stop, step,
                                 dtype=to_torch_dtype(dtype),
-                                device=_device_of(ctx)))
+                                device=ctx.torch_device()), ctx)

@@ -229,8 +229,8 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     unbiased estimate and takes momentum the other way round.)"""
     if axis_name is not None:
         raise MXNetError("BatchNorm: cross-replica statistics (axis_name) "
-                         "come with the distributed slice (ROADMAP queue 1 "
-                         "slice 7)")
+                         "come with part 2 of the distributed slice "
+                         "(ROADMAP queue 1, slice 7, part 2)")
     g = torch.ones_like(gamma) if fix_gamma else gamma
     axis = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != axis)

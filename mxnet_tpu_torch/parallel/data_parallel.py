@@ -50,6 +50,9 @@ def _later(what, slice_no):
                       f"{slice_no} of the port (ROADMAP queue 1)")
 
 
+_PART2 = "7, part 2"
+
+
 def _f32_correction(beta, t):
     """``1 - beta**t`` computed in float32, as the reference's float32 step
     computes it."""
@@ -62,7 +65,8 @@ def _block_device(block):
         if p._data is not None:
             return p._data.device
         if p._deferred_init is not None:  # (init, ctx, default_init)
-            return p._deferred_init[1].torch_device()
+            ctx = p._deferred_init[1]
+            return (ctx[0] if isinstance(ctx, list) else ctx).torch_device()
     raise MXNetError("DataParallelTrainer: initialize() the block first")
 
 
@@ -95,14 +99,15 @@ class DataParallelTrainer:
                  shard_opt_states=False, compute_dtype=None, remat=False,
                  param_spec_fn=None, accum_steps=1, capture=True):
         if mesh is not None:
-            raise _later("a device mesh", 7)
+            raise _later("a device mesh", _PART2)
         if shard_params or param_spec_fn is not None:
             raise _later("sharded parameters (shard_params, param_spec_fn)",
-                         7)
+                         _PART2)
         if shard_opt_states:
-            raise _later("sharded optimizer states (shard_opt_states)", 7)
+            raise _later("sharded optimizer states (shard_opt_states)",
+                         _PART2)
         if remat:
-            raise _later("rematerialization (remat)", 7)
+            raise _later("rematerialization (remat)", _PART2)
         if optimizer not in ("sgd", "adam", "adamw", "lamb"):
             raise MXNetError(f"DataParallelTrainer supports sgd/adam/adamw/"
                              f"lamb, got {optimizer!r}")

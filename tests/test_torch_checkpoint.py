@@ -356,8 +356,9 @@ def test_port_trainer_states_resume_in_jax(opt, opt_args, tmp_path):
 
 def test_trainer_states_versions_and_later_slices(tmp_path):
     """The round-0 layout loads, an unrecognized or newer blob is
-    rejected with the JAX wording, and blobs of what the distributed
-    slice brings raise naming it."""
+    rejected with the JAX wording, blobs of what the distributed slice's
+    part 2 brings raise naming it, and a kvstore-side updater's blob
+    raises on a Trainer that updates locally, as in the JAX package."""
     net, tr = _port()
     _train(net, tr, 1)
     tr.load_states_dict({"states": {}, "num_update": 7,
@@ -367,9 +368,11 @@ def test_trainer_states_versions_and_later_slices(tmp_path):
         tr.load_states_dict({"weights": []})
     with pytest.raises(MXNetError, match="v99"):
         tr.load_states_dict({"version": 99, "states": {}})
-    for key in ("zero", "kvstore", "mesh_shape"):
+    for key, match in (("zero", "distributed slice"),
+                       ("kvstore", "kvstore-side updater"),
+                       ("mesh_shape", "distributed slice")):
         blob = dict(tr.states_dict(), **{key: {"x": 1}})
-        with pytest.raises(MXNetError, match="distributed slice"):
+        with pytest.raises(MXNetError, match=match):
             tr.load_states_dict(blob)
     bad = tr.states_dict()
     bad["states"][0] = {"cpu(0)": np.zeros((3, 3), np.float32)}

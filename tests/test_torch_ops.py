@@ -252,6 +252,8 @@ def test_ndarray_boundary():
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, mxnet_tpu_torch\n"
+            "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.dist\n"
+            "import mxnet_tpu_torch.tools.launch\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"

@@ -422,12 +422,13 @@ def test_split_and_load():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"kvstore": "dist_sync"}, "distributed"),
-    ({"update_on_kvstore": True}, "update_on_kvstore"),
+    ({"kvstore": "dist_async"}, "distributed"),
+    ({"kvstore": "dist_sync", "update_on_kvstore": True,
+      "whole_step": True}, "update_on_kvstore"),
     ({"zero_shard": True}, "ZeRO"),
     ({"sharding_plan": {"dp": 2}}, "sharding_plan"),
     ({"mesh_shape": "dp=2,mp=2"}, "mesh_shape"),
-    ({"compression_params": {"type": "2bit"}}, "compression"),
+    ({"compression_params": {"type": "1bit"}}, "compression"),
 ])
 def test_trainer_raises_for_what_later_slices_bring(kwargs, match):
     ps = _params([(2,)])
