@@ -196,9 +196,34 @@ Phases (any failure ends the run with a non-zero exit and no result):
 20b. ``kvstore='device'`` over gpu(0) and gpu(1), where 2 cards are
     visible: the same steps with a forward a card, within the same limit
     of one card, the replicas bit-identical; on one card it says so and
-    does not run.
+    does not run;
+21. ResNet-50 over a mesh: 2 ranks that the port's launcher starts (each
+    running this script with ``--mesh-worker DIR resnet``), both on gpu(0)
+    (gloo), train fused ResNet-50 v1 NHWC (bf16 compute, fp32 masters, SGD
+    lr 0.1 momentum 0.9) through ``DataParallelTrainer`` over
+    ``make_mesh()`` = ``{dp:2}`` for 6 steps at phase 7's global batch
+    (128 x 224^2, 64 a rank): the backend the rule names, both ranks'
+    masters and moving statistics bit-identical after every step, every
+    trainable parameter finite and changed, every moving statistic moved,
+    a rank's launches a step those of the one-process step (20, 16, 16 of
+    rows 8, 7, 10, all on the TMA route), the 106 BatchNorm all-reduces a
+    step, and the steps eager by rule; then the cross-replica check, fp32
+    at b=16, 112^2, 2 steps, against one process over the same images and
+    weights on gpu(0) at phase 9's limits, with the moving statistics
+    after step 1 within 1e-4; the all-reduce time and bytes a step, the
+    statistics' all-reduces and the step median are printed;
+21b. the same over gpu(0) and gpu(1) with NCCL where 2 cards are visible;
+    on one card it says so and does not run;
+22. BERT-base MLM+NSP (a loss a row, fp32, dropout 0, AdamW) through
+    ``DataParallelTrainer`` on 2 ranks for 4 steps at a global batch of
+    16 x 128: ``{dp:2}``; ``{dp:2}`` with ``shard_opt_states`` and
+    ``remat``, whose losses and gathered masters must be bit-identical to
+    the first's, with Adam states half of the unsharded and 24 forward
+    launches a rank a step; ``{tp:2}`` with ``shard_params``, each sharded
+    parameter half its size at rest; the ZeRO and tp runs' losses within
+    1e-4 of one process over the global batch on gpu(0).
 
-The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19, 20, 20b: every
+The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-22: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -356,6 +381,23 @@ DIST_RANKS, DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 16, 128, 6
 DIST_ADAM = {"learning_rate": 1e-4}
 DIST_LOSS_RTOL = TRAIN_LOSS_RTOL
 DIST_TIMEOUT_S = 600
+# phases 21-22, DataParallelTrainer over a mesh of 2 ranks that the
+# port's launcher starts (make_mesh() = {dp: 2}); both ranks on gpu(0)
+# under gloo (phase 21b: gpu(0), gpu(1) under NCCL where 2 cards are
+# visible).  Phase 21: fused ResNet-50 at phase 7's global batch, bf16
+# compute; the cross-replica check at b=16 112^2 fp32 against one process
+# at phase 9's limits, and the moving statistics after step 1 within 1e-4
+# relative (the global batch's statistics summed in other orders).  Phase
+# 22: BERT-base MLM+NSP, a loss a row (so the mean over the data ranks is
+# the batch's), fp32, dropout 0, AdamW; the losses within BERT's
+# card-vs-CPU limit of one process over the global batch
+MESH_RANKS, MESH_RESNET_STEPS = 2, 6
+MESH_REF_BATCH, MESH_REF_IMAGE = 16, 112
+MESH_STATS_RTOL = 1e-4
+MESH_BERT_BATCH, MESH_BERT_SEQ, MESH_BERT_STEPS = 16, 128, 4
+MESH_ADAMW = {"learning_rate": 1e-4, "wd": 0.01}
+MESH_LOSS_RTOL = TRAIN_LOSS_RTOL
+MESH_TIMEOUT_S = 400
 # the cells against the fused layers, max |err| over max |fused|: fp32,
 # the same products summed in other orders through 35 steps of 2 layers
 CELL_RTOL = 1e-4
@@ -1221,10 +1263,11 @@ def serve_bert(mx, card, attn_ms, tmpdir):
 # -- phase 5: training -------------------------------------------------------
 
 
-def pretrain_block(mx):
+def pretrain_block(mx, rows=False):
     class BERTForPretrain(mx.gluon.HybridBlock):
         """MLM + NSP loss head over the backbone, one scalar loss out
-        (after examples/bert/pretrain_bert.py)."""
+        (after examples/bert/pretrain_bert.py); with ``rows`` one loss a
+        row, whose mean is the batch's however it is split over ranks."""
 
         def __init__(self, model, **kwargs):
             super().__init__(**kwargs)
@@ -1238,8 +1281,12 @@ def pretrain_block(mx):
                                                 masked_positions)
             mlm_log = F.log_softmax(mlm_scores)
             mlm_ll = F.pick(mlm_log, mlm_targets, axis=-1)
-            mlm_loss = -F.sum(mlm_ll * mask_weight) / (F.sum(mask_weight) + 1)
             nsp_log = F.log_softmax(nsp_scores)
+            if rows:
+                return (-F.sum(mlm_ll * mask_weight, axis=-1)
+                        / mask_weight.shape[-1]
+                        - F.pick(nsp_log, nsp_labels, axis=-1))
+            mlm_loss = -F.sum(mlm_ll * mask_weight) / (F.sum(mask_weight) + 1)
             nsp_loss = -F.mean(F.pick(nsp_log, nsp_labels, axis=-1))
             return mlm_loss + nsp_loss
 
@@ -1270,9 +1317,9 @@ def synthetic_batch(rng, bs, seq_len, vocab, mask_frac=0.15):
             positions)
 
 
-def pretrain_net(mx, ctx, dropout, seed=0):
+def pretrain_net(mx, ctx, dropout, seed=0, rows=False):
     mx.random.seed(seed)
-    net = pretrain_block(mx)(mx.models.bert_base(
+    net = pretrain_block(mx, rows)(mx.models.bert_base(
         use_decoder=True, use_classifier=True, dropout=dropout))
     net.initialize(init=mx.init.Normal(0.02), ctx=ctx)
     return net
@@ -1830,13 +1877,13 @@ def resnet50(mx, ctx, fuse):
     return net
 
 
-def resnet_trainer(mx, net, compute_dtype=None, capture=False):
+def resnet_trainer(mx, net, compute_dtype=None, capture=False, mesh=None):
     """train_imagenet.py's optimizer settings; the step eager unless
     ``capture``."""
     return mx.parallel.DataParallelTrainer(
         net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
         {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
-        compute_dtype=compute_dtype, capture=capture)
+        compute_dtype=compute_dtype, capture=capture, mesh=mesh)
 
 
 def synthetic_images(rng, batch, image):
@@ -4237,6 +4284,439 @@ def train_bert_dist(mx, card):
     return launches
 
 
+# -- phases 21-22: DataParallelTrainer over a mesh ------------------------------
+
+
+def digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_step_record(step, mesh_mod):
+    """One timed step (``step()`` runs it): the loss, the step's
+    time, its collectives by kind and its launches by kernel and route."""
+    import torch
+
+    before = counts_now()
+    mesh_mod.reset_comm_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step().asnumpy())
+    torch.cuda.synchronize()
+    return {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "comm": mesh_mod.comm_stats(),
+            "launches": counts_gain(before, counts_now())}
+
+
+def mesh_worker_resnet(mx, ctx, mesh, workdir, out):
+    """Phase 21 on one rank: 6 bf16 steps of fused ResNet-50 at the global
+    batch, then 2 fp32 steps at b=16 112^2 from DIR/ref-start.params."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+
+    net = resnet50(mx, ctx, fuse=True)
+    x, y = synthetic_images(np.random.RandomState(0), RESNET_BATCH,
+                            RESNET_IMAGE)
+    xg, yg = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    tr = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True,
+                        mesh=mesh)
+    tr.build(xg)
+    start = [p.detach().clone() for p in tr._params]
+    names = [n for n, _ in tr._named]
+    steps = []
+    for _ in range(MESH_RESNET_STEPS):
+        rec = mesh_step_record(lambda: tr.step(xg, yg), mesh_mod)
+        rec["digest"] = digest(tr._params)
+        steps.append(rec)
+    out["resnet"] = {
+        "steps": steps, "eager_reason": tr.eager_reason,
+        "eager_steps": tr.stats["mesh_eager_steps"],
+        "not_finite": [n for n, p in zip(names, tr._params)
+                       if not bool(torch.isfinite(p).all())],
+        "unchanged": [n for n, p0, p, t in zip(names, start, tr._params,
+                                               tr._trainable)
+                      if t and torch.equal(p0, p)],
+        "stats_still": [n for n, p0, p in zip(names, start, tr._params)
+                        if "running" in n and torch.equal(p0, p)]}
+    del tr, net, xg, yg
+    torch.cuda.empty_cache()
+    # the cross-replica check: fp32 from the main process's weights
+    net = resnet50(mx, ctx, fuse=True)
+    x, y = synthetic_images(np.random.RandomState(1), MESH_REF_BATCH,
+                            MESH_REF_IMAGE)
+    with mx.autograd.pause():
+        net(mx.nd.array(x[:2], ctx=ctx))
+    net.load_parameters(str(workdir / "ref-start.params"), ctx=ctx)
+    tr = resnet_trainer(mx, net, mesh=mesh)
+    losses = [float(tr.step(x, y).asnumpy())]
+    tr.sync_to_block()
+    after1 = {k: p.data().detach().cpu().numpy().copy()
+              for k, p in net._collect_params_with_prefix().items()}
+    losses.append(float(tr.step(x, y).asnumpy()))
+    out["resnet_ref"] = {"losses": losses}
+    if mesh.rank == 0:
+        np.savez(workdir / "ref-mesh.npz", **after1)
+
+
+def mesh_worker_bert(mx, ctx, workdir, out):
+    """Phase 22 on one rank: BERT-base (a loss a row) from
+    DIR/bert-start.params, 4 AdamW steps on the global batch, three ways:
+    {dp:2}; {dp:2} with shard_opt_states and remat; {tp:2} with
+    shard_params."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+
+    npz = np.load(workdir / "bert-batch.npz")
+    batch = tuple(torch.from_numpy(npz[f"arr_{i}"]).cuda()
+                  for i in range(len(npz.files)))
+    y = torch.zeros(MESH_BERT_BATCH, device="cuda")
+    for label, shape, kw in (
+            ("dp", {"dp": 2}, {}),
+            ("dp_zero_remat", {"dp": 2},
+             dict(shard_opt_states=True, remat=True)),
+            ("tp", {"tp": 2}, dict(shard_params=True))):
+        net = pretrain_net(mx, ctx, dropout=0.0, rows=True)
+        net.load_parameters(str(workdir / "bert-start.params"), ctx=ctx)
+        tr = DataParallelTrainer(net, lambda out, _: out, "adamw",
+                                 dict(MESH_ADAMW),
+                                 mesh=mesh_mod.make_mesh(shape), **kw)
+        tr.build(batch)
+        sharded = [i for i, sp in enumerate(tr._specs) if sp]
+        rec = {
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for st in tr._states if st for t in st),
+            "full_state_bytes": sum(
+                2 * int(np.prod(shape)) * 4 for shape, t in
+                zip(tr._full_shapes, tr._trainable) if t),
+            "sharded_params": len(sharded),
+            "sharded_half": all(
+                2 * tr._params[i].numel() == int(np.prod(tr._full_shapes[i]))
+                for i in sharded),
+            "remat_children": getattr(tr, "_remat_count", None),
+            "steps": []}
+        for _ in range(MESH_BERT_STEPS):
+            st = mesh_step_record(lambda: tr.step(batch, y), mesh_mod)
+            st["digest"] = digest(tr._full_values())
+            rec["steps"].append(st)
+        rec["plain_calls_on_cuda"] = sum(
+            c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+        out[label] = rec
+        del tr, net
+        torch.cuda.empty_cache()
+
+
+def mesh_worker(workdir, phase):
+    """A rank of phase 21 or 22 (``chip_smoke.py --mesh-worker DIR PHASE``
+    under the port's launcher): writes ``DIR/<phase>-rank<r>.json``."""
+    import logging
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    mesh = mesh_mod.make_mesh()  # joins the group: {"dp": world size}
+    ctx = mx.gpu(mesh.rank if torch.cuda.device_count() >= mesh.size else 0)
+    torch.cuda.set_device(ctx.device_id)
+    out = {"rank": mesh.rank, "backend": dist.backend(),
+           "mesh": mesh.shape, "device": str(ctx),
+           "cards": torch.cuda.device_count()}
+    if phase == "resnet":
+        mesh_worker_resnet(mx, ctx, mesh, workdir, out)
+    else:
+        mesh_worker_bert(mx, ctx, workdir, out)
+    with open(workdir / f"{phase}-rank{mesh.rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def mesh_launch(workdir, phase, one_card):
+    """Start MESH_RANKS ranks of ``chip_smoke.py --mesh-worker`` through the
+    port's launcher (``one_card``: only gpu(0) visible to them); returns
+    their records in rank order."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(MESH_RANKS), "--launcher", "local", "-p", str(free_port()),
+           sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+           str(workdir), phase]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES",
+                                              "0").split(",")[0]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
+                          capture_output=True, timeout=MESH_TIMEOUT_S)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()
+    log(f"mesh {phase}: the workers' log ({time.perf_counter() - t0:.1f} s; "
+        "lines about the backend and the eager rule, and the last lines):\n  "
+        + "\n  ".join([ln for ln in tail if "backend" in ln
+                       or "eagerly" in ln][:6] + tail[-8:]))
+    if proc.returncode:
+        raise SystemExit(f"mesh {phase}: the launch exited {proc.returncode}")
+    ranks = [json.loads((workdir / f"{phase}-rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    for f in workdir.glob(f"{phase}-rank*.json"):
+        f.unlink()
+    return ranks
+
+
+def per_step(steps, key, kind, field):
+    import statistics as st
+
+    return st.median(s[key][kind][field] for s in steps[1:])
+
+
+def mesh_resnet_checks(ranks, want_backend, label):
+    """Phase 21's gates on the ranks' records; returns ``(checks, launches
+    a rank a step)``."""
+    r0 = ranks[0]["resnet"]
+    n = MESH_RESNET_STEPS
+    per = [{k: v.get("launches", 0) for k, v in s["launches"].items()}
+           for s in r0["steps"]]
+    expect = {"matmul_bn_stats": 20, "bn_stats": 16,
+              "bn_act_matmul_stats": 16}
+    simple = sum(s["launches"].get(k, {}).get("simple_launches", 0)
+                 for s in r0["steps"] for k in expect)
+    scalar = sum(s["launches"].get("bn_stats", {}).get("scalar_launches", 0)
+                 for s in r0["steps"])
+    plain = sum(v.get("plain_calls_on_cuda", 0) for s in r0["steps"]
+                for v in s["launches"].values())
+    checks = {
+        f"{label}_backend": all(r["backend"] == want_backend for r in ranks),
+        f"{label}_mesh": all(r["mesh"] == {"dp": MESH_RANKS} for r in ranks),
+        f"{label}_ranks_bit_identical_every_step": all(
+            [s["digest"] for s in r["resnet"]["steps"]]
+            == [s["digest"] for s in r0["steps"]] for r in ranks),
+        f"{label}_finite": not any(r["resnet"]["not_finite"] for r in ranks),
+        f"{label}_changed": not any(r["resnet"]["unchanged"] for r in ranks),
+        f"{label}_stats_move": not any(r["resnet"]["stats_still"]
+                                       for r in ranks),
+        f"{label}_launches": all(p.get(k) == v for p in per
+                                 for k, v in expect.items()),
+        f"{label}_tma_route": simple == 0 and scalar == 0,
+        f"{label}_plain_calls_on_cuda": plain == 0,
+        f"{label}_eager_by_rule": all(
+            r["resnet"]["eager_reason"] and r["resnet"]["eager_steps"] == n
+            for r in ranks),
+        f"{label}_stats_allreduced": all(
+            s["comm"]["stats"]["calls"] == 2 * 53 for s in r0["steps"]),
+    }
+    return checks, per[-1]
+
+
+def train_mesh_resnet(mx, card):
+    """Phase 21 (and 21b): fused ResNet-50 over make_mesh() = {dp:2}.
+    Returns the launches of both ranks' 6 steps by kernel."""
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    gpu = mx.gpu(0)
+    n_gpu = torch.cuda.device_count()
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="mesh-smoke-", dir=ROOT) as d:
+        d = Path(d)
+        x, y = synthetic_images(np.random.RandomState(1), MESH_REF_BATCH,
+                                MESH_REF_IMAGE)
+        net = resnet50(mx, gpu, fuse=True)
+        trainer = resnet_trainer(mx, net)
+        trainer.build(mx.nd.array(x, ctx=gpu))
+        net.save_parameters(str(d / "ref-start.params"))
+        start = {k: p.data().detach().cpu().numpy().copy()
+                 for k, p in net._collect_params_with_prefix().items()}
+        losses = [float(trainer.step(x, y).asnumpy())]
+        trainer.sync_to_block()
+        one = {k: p.data().detach().cpu().numpy().copy()
+               for k, p in net._collect_params_with_prefix().items()}
+        losses.append(float(trainer.step(x, y).asnumpy()))
+        del net, trainer
+        torch.cuda.empty_cache()
+        ranks = mesh_launch(d, "resnet", one_card=True)
+        mesh = dict(np.load(d / "ref-mesh.npz"))
+        c, per = mesh_resnet_checks(ranks, "gloo", "mesh_resnet")
+        checks.update(c)
+        # the cross-replica check against one process over the 16 images
+        ml = ranks[0]["resnet_ref"]["losses"]
+        gaps = {"loss1": abs(ml[0] - losses[0]) / abs(losses[0]),
+                "loss2": abs(ml[1] - losses[1]) / abs(losses[1])}
+        for w, k in (("fc", RESNET_FC_KEY), ("top", RESNET_TOP_KEY),
+                     ("deep", RESNET_DEEP_KEY)):
+            u1, u2 = one[k] - start[k], mesh[k] - start[k]
+            gaps[w] = float(np.linalg.norm(u2 - u1) / np.linalg.norm(u1))
+        gaps["stats"] = max(
+            float(np.abs(mesh[k] - one[k]).max() / np.abs(one[k]).max())
+            for k in one if "running" in k)
+        limits = {"loss1": RESNET_LOSS1_RTOL, "loss2": RESNET_LOSS2_RTOL,
+                  "fc": RESNET_FC_UPDATE_RTOL, "top": RESNET_TOP_UPDATE_RTOL,
+                  "deep": RESNET_UPDATE_RTOL, "stats": MESH_STATS_RTOL}
+        for k, v in gaps.items():
+            checks[f"mesh_resnet_cross_replica_{k}"] = v <= limits[k]
+        r0 = ranks[0]["resnet"]["steps"]
+        log(f"mesh resnet: ResNet-50 v1 NHWC fused, bf16 compute, SGD "
+            f"momentum, {MESH_RESNET_STEPS} steps at the global batch "
+            f"{RESNET_BATCH} x {RESNET_IMAGE}^2 over {ranks[0]['mesh']} "
+            f"({', '.join(r['device'] for r in ranks)}; backend "
+            f"{ranks[0]['backend']}, the rule's for 2 ranks on one card: "
+            f"gloo); losses {[round(s['loss'], 5) for s in r0]}; ranks "
+            f"bit-identical every step "
+            f"{checks['mesh_resnet_ranks_bit_identical_every_step']}; "
+            f"launches a rank a step {per}; eager by rule: "
+            f"{ranks[0]['resnet']['eager_reason']!r}; on {card}")
+        log(f"mesh resnet: a step: median "
+            f"{[st.median(s['ms'] for s in r['resnet']['steps'][1:]) for r in ranks]}"
+            f" ms a rank (one process at b={RESNET_BATCH}: phase 7); "
+            f"gradient all-reduce {per_step(r0, 'comm', 'grad', 'ms'):.3f} "
+            f"ms, {per_step(r0, 'comm', 'grad', 'bytes')} bytes in "
+            f"{per_step(r0, 'comm', 'grad', 'calls')} call(s) a step; "
+            f"BatchNorm statistics {per_step(r0, 'comm', 'stats', 'calls')} "
+            f"all-reduces a step ({per_step(r0, 'comm', 'stats', 'bytes')} "
+            f"bytes, {per_step(r0, 'comm', 'stats', 'ms'):.3f} ms); loss "
+            f"{per_step(r0, 'comm', 'loss', 'ms'):.3f} ms; on {card}")
+        log(f"mesh resnet: cross-replica check, b={MESH_REF_BATCH} "
+            f"{MESH_REF_IMAGE}^2 fp32, 2 steps, {{dp:2}} against one "
+            f"process over the same images and weights on gpu(0): losses "
+            f"{ml} vs {losses}; gaps "
+            + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+            + f"; limits {limits}")
+        launches = {"mesh_resnet_train": {
+            k: sum(s["launches"].get(k, {}).get("launches", 0)
+                   for r in ranks for s in r["resnet"]["steps"])
+            for k in ("matmul_bn_stats", "bn_stats", "bn_act_matmul_stats")}}
+        if n_gpu < 2:
+            log(f"mesh resnet 21b: {{dp:2}} over gpu(0), gpu(1) with NCCL: "
+                f"needs 2 GPUs, {n_gpu} visible")
+        else:
+            ranks2 = mesh_launch(d, "resnet", one_card=False)
+            c2, per2 = mesh_resnet_checks(ranks2, "nccl", "mesh_resnet_nccl")
+            checks.update(c2)
+            l1 = [s["loss"] for s in r0]
+            l2 = [s["loss"] for s in ranks2[0]["resnet"]["steps"]]
+            gap = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+            checks["mesh_resnet_nccl_losses"] = gap <= RESNET_ROUTE_RTOL[-1]
+            log(f"mesh resnet 21b: over {[r['device'] for r in ranks2]} "
+                f"with {ranks2[0]['backend']}: losses {l2}, max rel gap to "
+                f"phase 21 {gap:.3g}; gradient all-reduce "
+                f"{per_step(ranks2[0]['resnet']['steps'], 'comm', 'grad', 'ms'):.3f}"
+                f" ms a step; launches a rank a step {per2}; on {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"mesh resnet checks failed: {failed}")
+    return launches
+
+
+def train_mesh_bert(mx, card):
+    """Phase 22: BERT-base MLM+NSP (a loss a row) through the trainer on 2
+    ranks: {dp:2}; {dp:2} with ZeRO states and remat; {tp:2} with sharded
+    parameters.  Returns the launches by kernel of both ranks' runs."""
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    gpu = mx.gpu(0)
+    data = synthetic_batch(np.random.RandomState(22), MESH_BERT_BATCH,
+                           MESH_BERT_SEQ, 30522)
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="mesh-smoke-", dir=ROOT) as d:
+        d = Path(d)
+        np.savez(d / "bert-batch.npz", *data)
+        net = pretrain_net(mx, gpu, dropout=0.0, rows=True)
+        batch = tuple(torch.from_numpy(a).cuda() for a in data)
+        with mx.autograd.pause():
+            net(*[b[:2] for b in batch])
+        net.save_parameters(str(d / "bert-start.params"))
+        tr = mx.parallel.DataParallelTrainer(net, lambda out, _: out,
+                                             "adamw", dict(MESH_ADAMW),
+                                             capture=False)
+        y = torch.zeros(MESH_BERT_BATCH, device="cuda")
+        ref = [float(tr.step(batch, y).asnumpy())
+               for _ in range(MESH_BERT_STEPS)]
+        del tr, net, batch
+        torch.cuda.empty_cache()
+        ranks = mesh_launch(d, "bert", one_card=True)
+    runs = {k: [r[k] for r in ranks] for k in ("dp", "dp_zero_remat", "tp")}
+    want = {"dp": (12, 12, 12), "dp_zero_remat": (24, 12, 12),
+            "tp": (12, 12, 12)}
+    kinds = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    gaps = {}
+    for label, rs in runs.items():
+        losses = [s["loss"] for s in rs[0]["steps"]]
+        gaps[label] = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        checks[f"{label}_ranks_bit_identical"] = all(
+            [s["digest"] for s in r["steps"]]
+            == [s["digest"] for s in rs[0]["steps"]] for r in rs)
+        checks[f"{label}_launches"] = all(
+            s["launches"].get(k, {}).get("launches", 0) == n
+            for r in rs for s in r["steps"] for k, n in zip(kinds,
+                                                            want[label]))
+        checks[f"{label}_plain_calls_on_cuda"] = all(
+            r["plain_calls_on_cuda"] == 0 for r in rs)
+    checks["backend"] = all(r["backend"] == "gloo" for r in ranks)
+    for label in ("dp_zero_remat", "tp"):
+        checks[f"{label}_losses_vs_one_process"] = gaps[label] \
+            <= MESH_LOSS_RTOL
+    a, plain = runs["dp_zero_remat"][0], runs["dp"][0]
+    checks["zero_remat_bit_identical_to_dp"] = (
+        [s["loss"] for s in a["steps"]] == [s["loss"] for s in plain["steps"]]
+        and [s["digest"] for s in a["steps"]]
+        == [s["digest"] for s in plain["steps"]])
+    share = a["state_bytes"] / a["full_state_bytes"]
+    checks["zero_state_bytes_half"] = 0.45 <= share <= 0.55
+    checks["remat_wraps_the_model"] = a["remat_children"] == 1
+    tp = runs["tp"][0]
+    checks["tp_params_half_at_rest"] = tp["sharded_params"] > 0 \
+        and tp["sharded_half"]
+    for label, rs in runs.items():
+        steps = rs[0]["steps"]
+        log(f"mesh bert {label}: BERT-base MLM+NSP (a loss a row) fp32 "
+            f"dropout 0 AdamW, {MESH_BERT_STEPS} steps at the global batch "
+            f"{MESH_BERT_BATCH} x {MESH_BERT_SEQ} over {label} (backend "
+            f"{ranks[0]['backend']}): losses {[s['loss'] for s in steps]}, max "
+            f"rel gap to one process {gaps[label]:.3g} (limit "
+            f"{MESH_LOSS_RTOL}); flash launches a rank a step "
+            f"{ {k: steps[-1]['launches'].get(k, {}).get('launches') for k in kinds} };"
+            f" step median {[st.median(s['ms'] for s in r['steps'][1:]) for r in rs]}"
+            f" ms a rank; gradient all-reduce "
+            f"{per_step(steps, 'comm', 'grad', 'ms'):.3f} ms, "
+            f"{per_step(steps, 'comm', 'grad', 'bytes')} bytes in "
+            f"{per_step(steps, 'comm', 'grad', 'calls')} call(s); parameter "
+            f"all-gathers {per_step(steps, 'comm', 'param', 'calls')} "
+            f"({per_step(steps, 'comm', 'param', 'bytes')} bytes, "
+            f"{per_step(steps, 'comm', 'param', 'ms'):.3f} ms) a step; "
+            f"optimizer states {rs[0]['state_bytes'] / 2**20:.1f} of "
+            f"{rs[0]['full_state_bytes'] / 2**20:.1f} MiB a rank; "
+            f"{rs[0]['sharded_params']} parameters sharded at rest; on {card}")
+    log(f"mesh bert: one process over the global batch on gpu(0): losses "
+        f"{ref}; {{dp:2}} with ZeRO and remat bit-identical to {{dp:2}}: "
+        f"{checks['zero_remat_bit_identical_to_dp']}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"mesh bert checks failed: {failed}")
+    return {"mesh_bert_train": {
+        k: sum(s["launches"].get(k, {}).get("launches", 0)
+               for rs in runs.values() for r in rs for s in r["steps"])
+        for k in kinds}}
+
+
 def main():
     import torch
 
@@ -4248,9 +4728,15 @@ def main():
                     help="also profile two ResNet-50 training steps")
     ap.add_argument("--dist-worker", metavar="DIR", default=None,
                     help="run one rank of phase 20 (the launcher does)")
+    ap.add_argument("--mesh-worker", metavar=("DIR", "PHASE"), nargs=2,
+                    default=None,
+                    help="run one rank of phase 21 (resnet) or 22 (bert); "
+                    "the launcher does")
     args = ap.parse_args()
     if args.dist_worker is not None:
         return dist_worker(args.dist_worker)
+    if args.mesh_worker is not None:
+        return mesh_worker(*args.mesh_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -4332,6 +4818,8 @@ def main():
     cells, cell_routes = check_cells(mx, card)
     kv_record = check_kvstore(mx, card)
     dist_launches = train_bert_dist(mx, card)
+    mesh_resnet = train_mesh_resnet(mx, card)["mesh_resnet_train"]
+    dist_launches.update(train_mesh_bert(mx, card))
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -4372,11 +4860,19 @@ def main():
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",
              replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",
-             launches=rtrain["bn_stats"], **rkern["bn_stats"]),
+             launches=rtrain["bn_stats"] + mesh_resnet["bn_stats"],
+             launches_by_path={"resnet_train": rtrain["bn_stats"],
+                               "mesh_resnet_train": mesh_resnet["bn_stats"]},
+             **rkern["bn_stats"]),
         dict(name="matmul_bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:123",
-             launches=rtrain["matmul_bn_stats"], **rkern["matmul_bn_stats"]),
+             launches=(rtrain["matmul_bn_stats"]
+                       + mesh_resnet["matmul_bn_stats"]),
+             launches_by_path={
+                 "resnet_train": rtrain["matmul_bn_stats"],
+                 "mesh_resnet_train": mesh_resnet["matmul_bn_stats"]},
+             **rkern["matmul_bn_stats"]),
         dict(name="bn_act_matmul", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:227", launches=rpredict,
@@ -4384,7 +4880,11 @@ def main():
         dict(name="bn_act_matmul_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:323",
-             launches=rtrain["bn_act_matmul_stats"],
+             launches=(rtrain["bn_act_matmul_stats"]
+                       + mesh_resnet["bn_act_matmul_stats"]),
+             launches_by_path={
+                 "resnet_train": rtrain["bn_act_matmul_stats"],
+                 "mesh_resnet_train": mesh_resnet["bn_act_matmul_stats"]},
              **rkern["bn_act_matmul_stats"]),
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",

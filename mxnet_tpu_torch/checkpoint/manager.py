@@ -33,7 +33,7 @@ the updater's pickled states (``gluon.trainer.states_file_blob``).
 
 Not in the port yet: input pipelines (``pipeline=``, slice 8), and
 multi-process manifests, ZeRO-sharded optimizer states and resharding onto
-another topology (slice 7, part 2); each raises :class:`MXNetError` naming
+another topology (slice 7, part 2b); each raises :class:`MXNetError` naming
 its slice.
 """
 from __future__ import annotations
@@ -66,7 +66,7 @@ def _later(what, slice_no):
                       "(ROADMAP.md queue 1)")
 
 
-_RESHARD = "7, part 2 (the distributed slice's resharding)"
+_RESHARD = "7, part 2b (the distributed slice's resharding)"
 
 
 def _is_corrupt_failure(e):
@@ -407,7 +407,7 @@ class CheckpointManager:
         saved_procs = int(manifest.get("num_processes", 1))
         if saved_procs != 1:
             # strict_topology or not: every multi-process layout and its
-            # resharding onto this job's topology waits for slice 7, part 2
+            # resharding onto this job's topology waits for slice 7, part 2b
             raise _later(
                 f"restoring {mpath}, saved by a {saved_procs}-process job "
                 "(multi-process checkpoints and resharding)", _RESHARD)

@@ -30,7 +30,7 @@ that step is one CUDA-graph replay on the card after a warm-up and a
 capture per input signature (``gluon/whole_step.py``), bit-identical to
 the eager step.  Over a kvstore (several contexts or ``dist_*``) the
 captured step raises: the JAX package traces the collective into its
-step, which comes with slice 7, part 2; the eager whole step splits the
+step, which comes with slice 7, part 2b; the eager whole step splits the
 batch across the contexts.
 
 :meth:`Trainer.save_states`/:meth:`Trainer.load_states` write and read
@@ -43,7 +43,7 @@ updater's (``KVStore.save_optimizer_states``), as in the JAX package.
 
 What later slices bring raises :class:`MXNetError` here instead of being
 ignored: ZeRO (``zero_shard``), ``mesh_shape``/``sharding_plan`` and
-states blobs of those (slice 7, part 2), and ``dist_async`` (part 3).
+states blobs of those (slice 7, part 2b), and ``dist_async`` (part 3).
 """
 from __future__ import annotations
 
@@ -129,16 +129,16 @@ class Trainer:
                 raise MXNetError(f"unsupported compression type {ctype!r}")
         if zero_shard or (zero_shard is None
                           and getenv("ZERO_SHARD", False, bool)):
-            raise _later("ZeRO (zero_shard / MXTPU_ZERO_SHARD)", 2)
+            raise _later("ZeRO (zero_shard / MXTPU_ZERO_SHARD)", "2b")
         if mesh_shape is not None or sharding_plan is not None or \
                 getenv("MESH_SHAPE", None):
-            raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)", 2)
+            raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)", "2b")
         if whole_step is None:
             whole_step = getenv("WHOLE_STEP", False, bool)
         self._whole_step = bool(whole_step)
         if self._whole_step and _is_dist(kvstore):
             raise _later(f"the captured whole step over kvstore={kvstore!r} "
-                         f"(update_on_kvstore={update_on_kvstore})", 2)
+                         f"(update_on_kvstore={update_on_kvstore})", "2b")
         self._whole_step_compiler = None
         self._params = [p for p in params if p.grad_req != "null"]
         optimizer_params = dict(optimizer_params or {})
@@ -361,7 +361,7 @@ class Trainer:
         ``whole_step_fallbacks``.  Pass stable ``block`` and ``loss_fn``
         objects: the captured graphs are cached by their identity.  Over a
         kvstore (several contexts or ``dist_*``) the captured step raises,
-        naming slice 7, part 2; the eager one splits the batch's first
+        naming slice 7, part 2b; the eager one splits the batch's first
         axis into equal slices, one a context in order."""
         inputs = tuple(x) if isinstance(x, (list, tuple)) else (x,)
         if batch_size is None:
@@ -374,7 +374,7 @@ class Trainer:
         if self._kvstore is not None or len(ctxs) > 1:
             raise _later(f"the captured whole step over {len(ctxs)} "
                          f"contexts with kvstore={self._kv_type!r} "
-                         f"(update_on_kvstore={self._update_on_kvstore})", 2)
+                         f"(update_on_kvstore={self._update_on_kvstore})", "2b")
         from . import whole_step as _ws
 
         if self._whole_step_compiler is None:
@@ -477,7 +477,7 @@ class Trainer:
         for key, what in (("zero", "ZeRO-sharded states"),
                           ("mesh_shape", "states saved on a mesh")):
             if blob.get(key) is not None:
-                raise _later(f"{source}: loading {what} ({key!r})", 2)
+                raise _later(f"{source}: loading {what} ({key!r})", "2b")
         updater = self._kv_updater()
         if "kvstore" in blob:
             if updater is None:

@@ -35,7 +35,7 @@ Not ported yet, each raising :class:`MXNetError` naming its slice:
 ``dist_async``/``dist_device_async`` and the parameter-server client
 (slice 7, part 3), ``row_sparse_pull`` and sparse values (slice 9, with
 ``ndarray/sparse``), and the traced and ZeRO forms (``traced_*``,
-``zero_*``; slice 7, part 2).  The JAX package's fault points
+``zero_*``; slice 7, part 2b).  The JAX package's fault points
 (``engine.fault_point``) come with ``engine.py`` in slice 8; there are
 none here.
 """
@@ -54,7 +54,7 @@ def _later(what, where):
                       f"{where} (ROADMAP.md queue 1)")
 
 
-_PART2 = "part 2 of the distributed slice (slice 7, part 2)"
+_PART2 = "part 2b of the distributed slice (slice 7, part 2b)"
 _PART3 = "part 3 of the distributed slice (slice 7, part 3)"
 _SPARSE = "slice 9 (ndarray/sparse)"
 

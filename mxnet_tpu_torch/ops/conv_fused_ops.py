@@ -31,9 +31,20 @@ def _fold_stats(s, q, n, gamma, beta, moving_mean, moving_var, *, eps,
                 momentum, fix_gamma, train):
     """``(scale, shift, new_mm, new_mv)`` from the epilogue's sums (train)
     or the moving statistics (eval), with ``_k_batch_norm``'s arithmetic
-    (ref: ``_fold_stats``, conv_fused_ops.py:39)."""
+    (ref: ``_fold_stats``, conv_fused_ops.py:39).
+
+    In training the sums are first summed over
+    ``parallel.mesh.stats_group()`` (inside a ``DataParallelTrainer`` step
+    on a mesh of more than one rank: the data axes' ranks), after the
+    kernel that made them and before the fold, so the kernel's backward
+    receives the summed cotangents."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if train:
+        from ..parallel import mesh as _mesh
+
+        if _mesh.stats_group() is not None:
+            (s, q), k = _mesh.sum_stats([s, q])
+            n *= k
         mean = (s / n).reshape(-1)
         var = torch.clamp_min((q / n).reshape(-1) - torch.square(mean), 0.0)
         with torch.no_grad():

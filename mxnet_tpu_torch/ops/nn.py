@@ -166,13 +166,26 @@ def _bn_shape(x, red):
     return [1 if i in red else d for i, d in enumerate(x.shape)]
 
 
-def _bn_train_impl(x, g32, b32, eps, red):
+def _group_sum(group, a, b):
+    """``(a, b)`` summed over ``group`` in one all-reduce (no autograd:
+    the closed-form Function below calls it in its forward and its
+    backward, which is ``parallel.mesh.SumOverGroup`` inlined)."""
+    buf = group.all_reduce_(torch.cat([a, b]), "stats")
+    return buf[:a.numel()], buf[a.numel():]
+
+
+def _bn_train_impl(x, g32, b32, eps, red, group=None):
     """(out, mean, var, inv): both moments from one fp32 view of x, the
-    normalize as a per-channel scale and shift in x's dtype."""
+    normalize as a per-channel scale and shift in x's dtype.  With a
+    ``group`` the sums are those over its ranks' batches."""
     n = math.prod(x.shape[i] for i in red)
     xf = x.float()
-    mean = xf.sum(dim=red) / n
-    sq = (xf * xf).sum(dim=red) / n
+    s, q = xf.sum(dim=red), (xf * xf).sum(dim=red)
+    if group is not None:
+        s, q = _group_sum(group, s, q)
+        n *= group.size
+    mean = s / n
+    sq = q / n
     var = torch.clamp_min(sq - torch.square(mean), 0.0)
     inv = torch.rsqrt(var + eps)
     scale = g32 * inv
@@ -187,20 +200,26 @@ class _BnTrainFused(torch.autograd.Function):
     """Train BatchNorm with the closed-form backward of ``_bn_train_fused``
     (ops/nn.py:261-332): two sums over the activation (``sum dy`` and
     ``sum dy*(x-mean)``) and one elementwise pass for dx.  mean and var
-    carry no gradient: they feed the moving averages only."""
+    carry no gradient: they feed the moving averages only.
+
+    With a ``group`` (statistics over several ranks' batches) the forward
+    sums and the backward's two sums are summed over the group, as the
+    JAX op pmeans them (ops/nn.py:275-276, 302-303); dgamma and dbeta stay
+    this rank's, as the gradient of its own loss, which the trainer then
+    sums over the ranks."""
 
     @staticmethod
-    def forward(ctx, x, g32, b32, eps, red):
-        out, mean, var, inv = _bn_train_impl(x, g32, b32, eps, red)
+    def forward(ctx, x, g32, b32, eps, red, group):
+        out, mean, var, inv = _bn_train_impl(x, g32, b32, eps, red, group)
         ctx.save_for_backward(x, g32, mean, inv)
-        ctx.red = red
+        ctx.red, ctx.group = red, group
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, g32, mean, inv = ctx.saved_tensors
-        red = ctx.red
+        red, group = ctx.red, ctx.group
         n = math.prod(x.shape[i] for i in red)
         shape = _bn_shape(x, red)
         dyf = dy.float()
@@ -208,11 +227,15 @@ class _BnTrainFused(torch.autograd.Function):
         sum_dy = dyf.sum(dim=red)
         sum_dy_xm = (dyf * xm).sum(dim=red)
         dgamma = inv * sum_dy_xm
+        dbeta = sum_dy
+        if group is not None:
+            sum_dy, sum_dy_xm = _group_sum(group, sum_dy, sum_dy_xm)
+            n *= group.size
         k1 = (g32 * inv).reshape(shape)
         k2 = (sum_dy / n).reshape(shape)
         k3 = (inv * inv * sum_dy_xm / n).reshape(shape)
         dx = (k1 * (dyf - k2 - xm * k3)).to(x.dtype)
-        return dx, dgamma, sum_dy, None, None
+        return dx, dgamma, dbeta, None, None, None
 
 
 def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
@@ -226,20 +249,26 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     biased variance ``E[x^2] - E[x]^2`` clamped at 0, computed in fp32,
     and moves the averages as ``mm*momentum + mean*(1-momentum)``.  (Not
     ``torch.nn.functional.batch_norm``: it moves the variance by the
-    unbiased estimate and takes momentum the other way round.)"""
-    if axis_name is not None:
-        raise MXNetError("BatchNorm: cross-replica statistics (axis_name) "
-                         "come with part 2 of the distributed slice "
-                         "(ROADMAP queue 1, slice 7, part 2)")
+    unbiased estimate and takes momentum the other way round.)
+
+    Cross-replica statistics: in training, the sums behind the mean and
+    ``E[x^2]`` are summed over ``parallel.mesh.stats_group(axis_name)``
+    before the moments are taken: the group of mesh axis ``axis_name``,
+    or, inside a ``DataParallelTrainer`` step on a mesh of more than one
+    rank, the data axes' group (the JAX trainer's sharded batch reduces
+    globally).  Elsewhere nothing changes."""
+    from ..parallel import mesh as _mesh
+
     g = torch.ones_like(gamma) if fix_gamma else gamma
     axis = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != axis)
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     train = _train and not use_global_stats
+    group = _mesh.stats_group(axis_name) if train else None
     if train and not _bn_stats_use_pallas():
         out, mean, var = _BnTrainFused.apply(data, g.float(), beta.float(),
-                                             float(eps), red)
+                                             float(eps), red, group)
         with torch.no_grad():
             new_mm = moving_mean * momentum \
                 + mean.to(moving_mean.dtype) * (1 - momentum)
@@ -252,7 +281,15 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             from .kernels import batch_norm as _kbn
 
             s, q = _kbn.bn_stats(data.reshape(n, data.shape[-1]))
+            if group is not None:
+                (s, q), k = _mesh.sum_stats([s, q], axis_name)
+                n *= k
             mean, sumsq_mean = s / n, q / n
+        elif group is not None:
+            (s, q), k = _mesh.sum_stats(
+                [data.float().sum(dim=red),
+                 torch.square(data).float().sum(dim=red)], axis_name)
+            mean, sumsq_mean = s / (n * k), q / (n * k)
         else:
             mean = data.float().mean(dim=red)
             sumsq_mean = torch.square(data).float().mean(dim=red)
@@ -273,6 +310,26 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 
 register("BatchNorm", _k_batch_norm, aliases=("batch_norm",))
+
+
+def _k_sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                       momentum=0.9, fix_gamma=True, use_global_stats=False,
+                       output_mean_var=False, ndev=1, key=None,
+                       axis_name=None, _train=False):
+    """Cross-replica BatchNorm (ref: ``_contrib_SyncBatchNorm``,
+    contrib_ops.py:898): ``_k_batch_norm`` on channel axis 1.  Inside a
+    ``DataParallelTrainer`` step on a mesh the statistics are the data
+    axes' ranks' (as every BatchNorm's there); ``axis_name`` names one
+    mesh axis to sum them over instead.  ``ndev`` and ``key`` are taken
+    for the API and change nothing."""
+    return _k_batch_norm(data, gamma, beta, moving_mean, moving_var,
+                         eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                         use_global_stats=use_global_stats, axis=1,
+                         axis_name=axis_name, _train=_train)
+
+
+register("_contrib_SyncBatchNorm", _k_sync_batch_norm,
+         aliases=("SyncBatchNorm",))
 
 
 def _k_layer_norm(data, gamma, beta, axis=-1, eps=1e-5):

@@ -32,7 +32,8 @@ transport error that a dead peer causes raises :class:`MXNetError` with
 the peer-death message.
 
 Elastic resizing (``reinit``, ``shrink``, ``LeaseDir``) comes with slice
-7, part 3, and the world mesh with part 2; they raise naming it.
+7, part 3, and raises naming it.  :func:`world_mesh` is the
+``{"dp": world size}`` mesh over the ranks (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -267,8 +268,11 @@ def barrier(name="kvstore"):
 
 
 def world_mesh():
-    """The one-device-per-process mesh of the JAX package's traced step."""
-    raise _later("world_mesh (a mesh over the processes)", 2)
+    """The one-device-per-process mesh over every rank (ref:
+    ``world_mesh``): ``make_mesh({"dp": num_workers()})``."""
+    from .mesh import make_mesh
+
+    return make_mesh({"dp": num_workers()})
 
 
 def reinit(num_processes=None, process_id=None):

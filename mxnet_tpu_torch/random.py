@@ -27,12 +27,26 @@ import torch
 
 
 class GeneratorPool:
-    """Seeded ``torch.Generator``s, one per device, created on first use."""
+    """Seeded ``torch.Generator``s, one per device, created on first use.
+
+    A pool has a *stream* (0 unless :meth:`set_stream` says otherwise): its
+    generators are seeded from ``(seed, stream)``, ``seed`` itself for
+    stream 0.  The ``DataParallelTrainer`` gives a rank of a mesh its data
+    coordinate as its stream when it builds on a mesh of more than one
+    rank, so data ranks draw different dropout masks and the
+    tensor-parallel ranks of one data group, which compute the same rows,
+    draw the same ones."""
 
     def __init__(self, seed_state=None):
         self._lock = threading.Lock()
         self._gens = {}
+        self._stream = 0
         self.seed(seed_state)
+
+    def _stream_seed(self):
+        if not self._stream:
+            return self._seed
+        return (self._seed + self._stream * 0x9E3779B97F4A7C15) % (1 << 63)
 
     def seed(self, seed_state=None):
         if seed_state is None:
@@ -40,7 +54,15 @@ class GeneratorPool:
         with self._lock:
             self._seed = int(seed_state)
             for gen in self._gens.values():
-                gen.manual_seed(self._seed)
+                gen.manual_seed(self._stream_seed())
+
+    def set_stream(self, stream):
+        """Seed every generator from ``(seed, stream)`` in place, from the
+        start of that stream whatever was drawn before."""
+        with self._lock:
+            self._stream = int(stream)
+            for gen in self._gens.values():
+                gen.manual_seed(self._stream_seed())
 
     def generator(self, device):
         """The generator for ``device`` (a ``torch.device`` or string)."""
@@ -51,7 +73,7 @@ class GeneratorPool:
             gen = self._gens.get(device)
             if gen is None:
                 gen = torch.Generator(device=device)
-                gen.manual_seed(self._seed)
+                gen.manual_seed(self._stream_seed())
                 self._gens[device] = gen
             return gen
 
@@ -63,11 +85,15 @@ class GeneratorPool:
                     and (device.index is None or d.index == device.index)]
 
     def get_state(self):
-        """``{"seed": s, "generators": {device: state bytes as a list}}``."""
+        """``{"seed": s, "generators": {device: state bytes as a list}}``
+        (and ``"stream"`` where it is not 0)."""
         with self._lock:
-            return {"seed": self._seed,
-                    "generators": {str(d): g.get_state().tolist()
-                                   for d, g in self._gens.items()}}
+            state = {"seed": self._seed,
+                     "generators": {str(d): g.get_state().tolist()
+                                    for d, g in self._gens.items()}}
+            if self._stream:
+                state["stream"] = self._stream
+            return state
 
     def set_state(self, state):
         """Inverse of :meth:`get_state`, in place: each saved device's
@@ -75,6 +101,7 @@ class GeneratorPool:
         set with ``Generator.set_state``; no generator is replaced."""
         with self._lock:
             self._seed = int(state["seed"])
+            self._stream = int(state.get("stream", 0))
         for dev, raw in state["generators"].items():
             dev = torch.device(dev)
             if dev.type == "cuda" and not torch.cuda.is_available():

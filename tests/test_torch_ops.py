@@ -254,6 +254,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, mxnet_tpu_torch\n"
             "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.dist\n"
             "import mxnet_tpu_torch.tools.launch\n"
+            "import mxnet_tpu_torch.parallel.mesh\n"
+            "import mxnet_tpu_torch.parallel.spmd\n"
+            "import mxnet_tpu_torch.gluon.contrib.nn\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -266,6 +269,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 def test_no_port_source_imports_jax_or_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    names = {str(f.relative_to(REPO)) for f in files}
+    for mod in ("parallel/mesh.py", "parallel/spmd/__init__.py",
+                "parallel/spmd/mesh.py", "gluon/contrib/__init__.py",
+                "gluon/contrib/nn.py"):
+        assert f"mxnet_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -423,16 +423,32 @@ def test_data_parallel_trainer_compute_dtype_keeps_fp32_masters():
 
 
 def test_data_parallel_trainer_raises_for_later_slices():
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    from mxnet_tpu_torch.parallel import spmd as tspmd
+
     net = _small_net(tmx)
     net.initialize(ctx=CPU)
     loss = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
-    for kw, slice_no in ((dict(mesh=object()), 7),
-                         (dict(shard_params=True), 7),
-                         (dict(shard_opt_states=True), 7),
-                         (dict(param_spec_fn=lambda n, s: None), 7),
-                         (dict(remat=True), 7)):
-        with pytest.raises(MXNetError, match=f"slice {slice_no}"):
-            DataParallelTrainer(net, loss, "sgd", **kw)
+    # a mesh of more than one device in one process: one rank per device
+    for kw in (dict(axis_shapes={"dp": 2}), dict(devices=[CPU, CPU])):
+        with pytest.raises(MXNetError, match="one rank per device"):
+            tmesh.make_mesh(**kw)
+    with pytest.raises(MXNetError, match="parallel.mesh.Mesh"):
+        DataParallelTrainer(net, loss, "sgd", mesh=object())
+    # a param_spec_fn that placed nothing, as in the JAX class
+    x = np.random.RandomState(0).rand(4, 8, 8, 3).astype(np.float32)
+    tr = DataParallelTrainer(net, loss, "sgd",
+                             param_spec_fn=lambda n, s: None)
+    with pytest.raises(MXNetError, match="matched no parameters"):
+        tr.step(x, np.zeros(4, np.float32))
+    # the JAX tracing helpers and the sharded whole step: part 2b
+    for call in (lambda: tmesh.spmd_jit(None, None, (), ()),
+                 tmesh.shard_map, lambda: tmesh.pcast(None, "dp", "varying"),
+                 lambda: tmesh.vma(None), tspmd.ShardingPlan,
+                 tspmd.SpmdStepCompiler, tspmd.PipelineTrainStep,
+                 tspmd.stage_partition, tspmd.pipeline_apply):
+        with pytest.raises(MXNetError, match="slice 7, part 2b"):
+            call()
     # checkpoints came with slice 6; before a step there is nothing to save
     # and nothing to load into, as in the JAX class
     tr = DataParallelTrainer(net, loss, "sgd")
