@@ -221,9 +221,31 @@ Phases (any failure ends the run with a non-zero exit and no result):
     the first's, with Adam states half of the unsharded and 24 forward
     launches a rank a step; ``{tp:2}`` with ``shard_params``, each sharded
     parameter half its size at rest; the ZeRO and tp runs' losses within
-    1e-4 of one process over the global batch on gpu(0).
+    1e-4 of one process over the global batch on gpu(0);
+23. the Trainer's ZeRO over ``dist_sync`` ranks: 2 ranks that the launcher
+    starts (each running this script with ``--zero-worker DIR``; both on
+    gpu(0) under gloo with one card, rank r on gpu(r) under NCCL with 2+)
+    train BERT-base MLM+NSP (fp32, dropout 0, Adam) from phase 20's
+    weights on phase 20's halves through ``Trainer(kvstore='dist_sync',
+    update_on_kvstore=False, whole_step=True)``, ``ZERO_STEPS`` steps
+    unsharded and then as many with ``zero_shard=True`` (the eager world
+    step, ``gluon.whole_step.WorldStep``); the sharded run saves through
+    ``CheckpointManager`` after ``ZERO_SAVE_AT`` steps (a 2-process
+    manifest, each rank's half of the Adam states in its own file), and
+    this process restores it on gpu(0) into an unsharded one-process
+    Trainer and takes the remaining steps.  Gates: the backend the rule
+    names; both ranks bit-identical after every step; under gloo the
+    sharded weights bit-identical to the unsharded after every step;
+    ``zero_steps`` equal to the steps and no fallback; a rank's optimizer
+    state at most half the unsharded plus one chunk's pad; 12 launches of
+    each flash kernel a rank a step and no plain call; the losses within
+    ``DIST_LOSS_RTOL`` of phase 20's one-process reference, and the
+    resumed steps within it of the uninterrupted sharded run.  The step
+    times, the collectives' times and GB/s, the state bytes a rank and
+    the save and restore seconds are printed.
 
-The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-22: every
+The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
+21, 22: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -391,6 +413,11 @@ DIST_TIMEOUT_S = 600
 # 22: BERT-base MLM+NSP, a loss a row (so the mean over the data ranks is
 # the batch's), fp32, dropout 0, AdamW; the losses within BERT's
 # card-vs-CPU limit of one process over the global batch
+# phase 23, the Trainer's ZeRO over dist_sync ranks, from phase 20's weights
+# and halves: the whole step unsharded, then ZeRO-sharded (saved after
+# ZERO_SAVE_AT steps and resumed in one process)
+ZERO_STEPS, ZERO_SAVE_AT = 4, 2
+ZERO_TIMEOUT_S = 400
 MESH_RANKS, MESH_RESNET_STEPS = 2, 6
 MESH_REF_BATCH, MESH_REF_IMAGE = 16, 112
 MESH_STATS_RTOL = 1e-4
@@ -1787,7 +1814,11 @@ def predict_routes(predict):
 def step_routes(routes, per_step):
     """The fused forward of one bf16 training step, each shape's time x its
     launches per step, on the TMA route against the simple route; fails
-    where the TMA route's kernels take longer than the simple route's."""
+    where the TMA route's kernels take longer than the simple route's.
+    Where torch.profiler recorded no launch of a route in any session
+    (its device time reads 0, see :func:`device_ms`), that shape's two
+    routes are compared by their event times instead, and the log says
+    so."""
     log("resnet kernels: the fused 1x1 forward of one bf16 training step "
         "(time x launches a step; events around back-to-back calls, device = "
         "the kernels' own time), TMA route against the simple route:")
@@ -1799,10 +1830,14 @@ def step_routes(routes, per_step):
         count = per_step[(name, (m, k, n))]
         for key in total:
             total[key] += t[key] * count
+        timed = t["device_ms"] > 0 and t["simple_device_ms"] > 0
         log(f"  {name:20s} M={m} K={k} N={n} x{count}: tma {t['ms']:.4f} ms "
             f"(device {t['device_ms']:.4f}), simple {t['simple_ms']:.4f} ms "
-            f"(device {t['simple_device_ms']:.4f})")
-        if t["device_ms"] > t["simple_device_ms"]:
+            f"(device {t['simple_device_ms']:.4f})" + ("" if timed else
+            "; the profiler recorded no launch of a route: event times "
+            "compared"))
+        if (t["device_ms"] > t["simple_device_ms"] if timed
+                else t["ms"] > t["simple_ms"]):
             slower.append((name, (m, k, n)))
     log(f"  one step, {sum(per_step.values())} launches: tma "
         f"{total['ms']:.4f} ms (device {total['device_ms']:.4f}), simple "
@@ -4225,6 +4260,8 @@ def train_bert_dist(mx, card):
                 for p in net2.collect_params().values())
             del net2
             torch.cuda.empty_cache()
+        zero_launches = train_bert_zero(mx, card, d, data, ref_losses,
+                                        want_backend)
     r0 = ranks[0]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                        ref_losses))
@@ -4262,6 +4299,7 @@ def train_bert_dist(mx, card):
     launches["dist_bert_train"] = {k: sum(r["launches"][k] for r in ranks)
                                    for k in r0["launches"]}
     launches["dist_bert_reference"] = ref_launches
+    launches.update(zero_launches)
     if device_run is None:
         log(f"dist 20b: kvstore='device' over gpu(0..n-1): needs 2 GPUs, "
             f"{n_gpu} visible")
@@ -4282,6 +4320,244 @@ def train_bert_dist(mx, card):
     if failed:
         raise SystemExit(f"dist checks failed: {failed}")
     return launches
+
+
+# -- phase 23: the Trainer's ZeRO over dist_sync ranks ------------------------
+
+
+def zero_loss(out):
+    """The pretraining block's output is its loss."""
+    return out
+
+
+def zero_worker(workdir):
+    """A rank of phase 23 (``chip_smoke.py --zero-worker DIR`` under the
+    port's launcher): BERT-base from ``DIR/start.params`` on its half of
+    ``DIR/batch.npz``, ``ZERO_STEPS`` whole steps through
+    ``Trainer(kvstore='dist_sync', update_on_kvstore=False,
+    whole_step=True)``, unsharded and then with ``zero_shard=True`` (saved
+    into ``DIR/ckpt`` after ``ZERO_SAVE_AT`` steps); writes
+    ``DIR/zero-rank<r>.json``."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.gluon import trainer as trainer_mod
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    dist.init()
+    rank = dist.rank()
+    ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
+    torch.cuda.set_device(ctx.device_id)
+    npz = np.load(workdir / "batch.npz")
+    data = [npz[f"arr_{i}"] for i in range(len(npz.files))]
+    batch = tuple(dist_halves(mx, data, ctx, DIST_RANKS)[rank])
+    out = {"rank": rank, "backend": dist.backend(), "device": str(ctx),
+           "runs": {}}
+    for label, zero in (("unsharded", False), ("zero", True)):
+        net = pretrain_net(mx, ctx, dropout=0.0)
+        net.load_parameters(str(workdir / "start.params"), ctx=ctx)
+        params = list(net._collect_params_with_prefix().values())
+        tr = mx.gluon.Trainer(net.collect_params(), "adam", dict(DIST_ADAM),
+                              kvstore="dist_sync", update_on_kvstore=False,
+                              whole_step=True, zero_shard=zero)
+        mgr = CheckpointManager(workdir / "ckpt") if zero else None
+        rec = {"losses": [], "digests": [], "step_ms": [], "comm": []}
+        kernels.reset_counts()
+        trainer_mod.reset_trainer_step_stats()
+        for s in range(ZERO_STEPS):
+            mesh_mod.reset_comm_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.whole_step(net, zero_loss, batch,
+                                 batch_size=DIST_RANKS)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["comm"].append(mesh_mod.comm_stats())
+            rec["losses"].append(float(loss.asscalar()) / DIST_RANKS)
+            rec["digests"].append(digest(p.data() for p in params))
+            if mgr is not None and s + 1 == ZERO_SAVE_AT:
+                t0 = time.perf_counter()
+                mgr.save(s + 1, params=net, trainer=tr)
+                rec["save_s"] = time.perf_counter() - t0
+        rec["launches"] = {name: c.launches
+                           for name, c in kernels.KERNEL_COUNTS.items()
+                           if name.startswith("flash_attention")}
+        rec["plain_calls_on_cuda"] = fa.counts.plain_calls_on_cuda
+        rec["stats"] = trainer_mod.trainer_step_stats()
+        rec["state_bytes"] = tr.optimizer_state_bytes()
+        if zero:
+            layout, world = tr._zero_layout
+            # the most one chunk's zero pad adds to a rank's states
+            rec["pad_bytes"] = max(
+                (padded - total) * 4 * n_states
+                for n_states, _dt, _idxs, total, padded in layout)
+            rec["chunks"] = len(layout)
+        out["runs"][label] = rec
+        del tr, net, params, mgr
+        torch.cuda.empty_cache()
+    with open(workdir / f"zero-rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def comm_rate(rec, kind):
+    """Median ms a step, bytes a step and GB/s of one kind of collective
+    over a run's steps after the first."""
+    steps = rec["comm"][1:]
+    ms = statistics.median(c[kind]["ms"] for c in steps)
+    nbytes = steps[-1][kind]["bytes"]
+    return ms, nbytes, (nbytes / (ms / 1e3) / 1e9 if ms else 0.0)
+
+
+def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
+    """Phase 23 (see the module docstring), in phase 20's directory ``d``
+    (``start.params``, ``batch.npz``) against its one-process losses
+    ``ref_losses``.  Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(DIST_RANKS), "--launcher", "local", "-p", str(free_port()),
+           sys.executable, str(ROOT / "chip_smoke.py"), "--zero-worker",
+           str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
+                          capture_output=True, timeout=ZERO_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()
+    log("zero: the workers' log (the route lines and the last lines):\n  "
+        + "\n  ".join([ln for ln in tail if "eagerly" in ln
+                       or "backend" in ln][:4] + tail[-8:]))
+    if proc.returncode:
+        raise SystemExit(f"zero: the launch exited {proc.returncode}")
+    ranks = [json.loads((d / f"zero-rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    # the sharded checkpoint resumed in this process, unsharded, on gpu(0)
+    manifest = json.loads((d / "ckpt" / f"ckpt-{ZERO_SAVE_AT:08d}" /
+                           "MANIFEST.json").read_text())
+    net = pretrain_net(mx, gpu, dropout=0.0)
+    with mx.autograd.pause():
+        net(*[mx.nd.array(a[:2], ctx=gpu) for a in data])
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(DIST_ADAM))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = CheckpointManager(d / "ckpt").restore(params=net, trainer=trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    parts = dist_halves(mx, data, gpu, DIST_RANKS)
+    kernels.reset_counts()
+    resumed = []
+    for _ in range(ZERO_STEPS - ZERO_SAVE_AT):
+        with mx.autograd.record():
+            ls = [net(*p) for p in parts]
+        mx.autograd.backward(ls)
+        trainer.step(DIST_RANKS)
+        resumed.append(sum(float(l.asscalar()) for l in ls) / DIST_RANKS)
+    resume_launches = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()
+                       if k.startswith("flash_attention")}
+    del net, trainer, parts
+    torch.cuda.empty_cache()
+    shutil.rmtree(d / "ckpt", ignore_errors=True)
+
+    runs = {label: [r["runs"][label] for r in ranks]
+            for label in ("unsharded", "zero")}
+    z0, u0 = runs["zero"][0], runs["unsharded"][0]
+    gaps = {label: max(abs(a - b) / abs(b) for a, b in zip(
+        rs[0]["losses"], ref_losses[:ZERO_STEPS])) for label, rs in
+        runs.items()}
+    resume_gap = max(abs(a - b) / abs(b) for a, b in zip(
+        resumed, z0["losses"][ZERO_SAVE_AT:]))
+    per_rank = 12 * ZERO_STEPS
+    checks = {
+        "zero_backend": all(r["backend"] == want_backend for r in ranks),
+        "zero_manifest_two_processes": manifest["num_processes"] == DIST_RANKS
+        and meta["step"] == ZERO_SAVE_AT
+        and sum(f.startswith("trainer-shard") for f in manifest["files"])
+        == DIST_RANKS,
+    }
+    for label, rs in runs.items():
+        checks[f"zero_{label}_ranks_bit_identical"] = all(
+            r["digests"] == rs[0]["digests"] for r in rs)
+        checks[f"zero_{label}_launches"] = all(
+            n == per_rank for r in rs for n in r["launches"].values())
+        checks[f"zero_{label}_plain_calls_on_cuda"] = all(
+            r["plain_calls_on_cuda"] == 0 for r in rs)
+        checks[f"zero_{label}_losses_vs_one_process"] = \
+            gaps[label] <= DIST_LOSS_RTOL
+        checks[f"zero_{label}_whole_steps_eager"] = all(
+            r["stats"]["whole_step_eager"] == ZERO_STEPS
+            and r["stats"]["whole_step_fallbacks"] == 0 for r in rs)
+    checks["zero_steps_sharded"] = all(
+        r["stats"]["zero_steps"] == ZERO_STEPS
+        and r["stats"]["zero_fallbacks"] == 0 for r in runs["zero"])
+    checks["zero_state_bytes_half"] = all(
+        z["state_bytes"]["per_replica"]
+        <= u["state_bytes"]["per_replica"] / 2 + z["pad_bytes"]
+        for z, u in zip(runs["zero"], runs["unsharded"]))
+    if want_backend == "gloo":
+        checks["zero_bit_identical_to_unsharded"] = (
+            z0["digests"] == u0["digests"] and z0["losses"] == u0["losses"])
+    checks["zero_resumed_vs_uninterrupted"] = resume_gap <= DIST_LOSS_RTOL
+    rs_ms, rs_bytes, rs_gbs = comm_rate(z0, "grad")
+    ag_ms, ag_bytes, ag_gbs = comm_rate(z0, "param")
+    ar_ms, ar_bytes, ar_gbs = comm_rate(u0, "grad")
+    log(f"zero: BERT-base MLM+NSP fp32 dropout 0 Adam, {DIST_RANKS} ranks "
+        f"({', '.join(r['device'] for r in ranks)}; backend "
+        f"{ranks[0]['backend']}), {ZERO_STEPS} whole steps of "
+        f"{DIST_BATCH // DIST_RANKS} x {DIST_SEQ} a rank through "
+        f"Trainer(kvstore='dist_sync', update_on_kvstore=False, "
+        f"whole_step=True), unsharded then zero_shard=True ({z0['chunks']} "
+        f"flat chunks): launch {launch_s:.1f} s; losses unsharded "
+        f"{u0['losses']}, sharded {z0['losses']}, phase 20's one process "
+        f"{ref_losses[:ZERO_STEPS]}: max rel gaps {gaps} (rtol "
+        f"{DIST_LOSS_RTOL}); sharded bit-identical to unsharded: "
+        f"{z0['digests'] == u0['digests']}; launches a rank a run "
+        f"{z0['launches']} ({per_rank} each); on {card}")
+    log(f"zero: a step: median unsharded "
+        f"{[statistics.median(r['step_ms'][1:]) for r in runs['unsharded']]}"
+        f" ms, sharded "
+        f"{[statistics.median(r['step_ms'][1:]) for r in runs['zero']]} ms a "
+        f"rank; unsharded all-reduce {ar_ms:.3f} ms, {ar_bytes} bytes, "
+        f"{ar_gbs:.3f} GB/s; sharded reduce-scatter {rs_ms:.3f} ms, "
+        f"{rs_bytes} bytes, {rs_gbs:.3f} GB/s; all-gather {ag_ms:.3f} ms, "
+        f"{ag_bytes} bytes, {ag_gbs:.3f} GB/s a step (the "
+        f"{ranks[0]['backend']} path; comm_stats, host clock); optimizer "
+        f"state a rank {z0['state_bytes']['per_replica']} bytes sharded vs "
+        f"{u0['state_bytes']['per_replica']} unsharded (pad at most "
+        f"{z0['pad_bytes']} bytes); on {card}")
+    log(f"zero: checkpoint after step {ZERO_SAVE_AT}: save (both ranks, "
+        f"synchronous, 2-process manifest) "
+        f"{[round(r['save_s'], 3) for r in runs['zero']]} s a rank; restore "
+        f"into one unsharded process on gpu(0) {restore_s:.3f} s "
+        f"(resharding 2 -> 1); resumed losses {resumed} vs uninterrupted "
+        f"{z0['losses'][ZERO_SAVE_AT:]}: max rel gap {resume_gap:.3g} (rtol "
+        f"{DIST_LOSS_RTOL}); on {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"zero checks failed: {failed}")
+    return {"zero_bert_train": {
+                k: sum(r["launches"][k] for rs in runs.values() for r in rs)
+                for k in z0["launches"]},
+            "zero_bert_resume": resume_launches}
 
 
 # -- phases 21-22: DataParallelTrainer over a mesh ------------------------------
@@ -4728,6 +5004,8 @@ def main():
                     help="also profile two ResNet-50 training steps")
     ap.add_argument("--dist-worker", metavar="DIR", default=None,
                     help="run one rank of phase 20 (the launcher does)")
+    ap.add_argument("--zero-worker", metavar="DIR", default=None,
+                    help="run one rank of phase 23 (the launcher does)")
     ap.add_argument("--mesh-worker", metavar=("DIR", "PHASE"), nargs=2,
                     default=None,
                     help="run one rank of phase 21 (resnet) or 22 (bert); "
@@ -4735,6 +5013,8 @@ def main():
     args = ap.parse_args()
     if args.dist_worker is not None:
         return dist_worker(args.dist_worker)
+    if args.zero_worker is not None:
+        return zero_worker(args.zero_worker)
     if args.mesh_worker is not None:
         return mesh_worker(*args.mesh_worker)
     if not torch.cuda.is_available():

@@ -1,20 +1,22 @@
 """Asynchronous, atomic, resumable training checkpoints (ref:
-``mxnet_tpu/checkpoint/manager.py``, its single-process path).
+``mxnet_tpu/checkpoint/manager.py``).
 
 A checkpoint is a step-tagged directory, laid out as the JAX package lays
 it out, so either package restores the other's::
 
     <dir>/ckpt-00000042/
-        MANIFEST.json            format_version, step, epoch, files, extra
-        params-shard0.params     utils.serialization container
-        trainer-shard0.states    versioned Trainer states pickle
-        rng-shard0.json          mx.random.get_state() snapshot
+        MANIFEST.json            format_version, step, epoch, files, extra,
+                                 num_processes
+        params-shard<r>.params   utils.serialization container, a process
+        trainer-shard<r>.states  versioned Trainer states pickle
+        rng-shard<r>.json        mx.random.get_state() snapshot
 
-Commit protocol: the files are written into ``ckpt-<step>.tmp`` and
-fsync'd, then the manifest, then the directory is renamed onto its final
-name (the commit point) and the parent fsync'd.  ``latest()`` needs both
-the final name and the manifest, so a save killed at any point is never
-resumable state; its ``*.tmp`` leftovers are collected by the next commit.
+Commit protocol: every process writes its files into ``ckpt-<step>.tmp``
+and fsyncs them; after a barrier (``parallel.dist``) process 0 writes the
+manifest and renames the directory onto its final name (the commit
+point) and fsyncs the parent.  ``latest()`` needs both the final name and
+the manifest, so a save killed at any point is never resumable state; its
+``*.tmp`` leftovers are collected by the next commit.
 
 Saves are asynchronous, and they copy.  The port updates weights,
 optimizer states and moving statistics in place (a captured step writes
@@ -25,19 +27,28 @@ current stream into device buffers the manager keeps between saves
 (``snapshot.Snapshot``) and returns; the manager's writer thread copies them
 to pinned host memory on a side stream, serialises and commits.  At most
 one save is in flight, and its errors surface at
-``wait_until_finished()``, which also runs before the next save.
+``wait_until_finished()``, which also runs before the next save.  In a
+multi-process job every rank saves synchronously, on its own thread: the
+commit's barriers are collectives, which must not interleave with the
+training's.
 
 A Trainer whose states live in its kvstore's updater (``update_on_kvstore``)
 is saved and restored like any other: its blob's ``"kvstore"`` entry is
-the updater's pickled states (``gluon.trainer.states_file_blob``).
+the updater's pickled states (``gluon.trainer.states_file_blob``).  A
+ZeRO-sharded Trainer's blob holds the shards of the ranks this process
+has; a restore gathers the other ranks' from their files.
 
-Not in the port yet: input pipelines (``pipeline=``, slice 8), and
-multi-process manifests, ZeRO-sharded optimizer states and resharding onto
-another topology (slice 7, part 2b); each raises :class:`MXNetError` naming
-its slice.
+A checkpoint of another world size is resharded on restore (``reshard``):
+each rank reads the parameter and RNG files of :func:`reshard.source_rank`
+and ZeRO shards are gathered and sliced for this trainer;
+``strict_topology=True`` refuses it instead.
+
+Not in the port yet: input pipelines (``pipeline=``, slice 8), which raise
+:class:`MXNetError` naming it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import logging
 import os
@@ -46,12 +57,15 @@ import re
 import shutil
 import signal
 import threading
+import time
 
 import torch
 
 from .. import random as _random
 from ..base import MXNetError
+from ..parallel import dist
 from . import atomic
+from . import reshard as _reshard
 from .snapshot import Snapshot, host_leaves, writer
 from ..gluon.trainer import states_file_blob
 
@@ -66,7 +80,9 @@ def _later(what, slice_no):
                       "(ROADMAP.md queue 1)")
 
 
-_RESHARD = "7, part 2b (the distributed slice's resharding)"
+def _barrier(name):
+    if dist.is_multiprocess():
+        dist.barrier(name)
 
 
 def _is_corrupt_failure(e):
@@ -146,7 +162,11 @@ class CheckpointManager:
         self._step_re = re.compile(rf"^{re.escape(prefix)}-(\d+)$")
         self._tmp_re = re.compile(rf"^{re.escape(prefix)}-(\d+)\.tmp$")
         os.makedirs(self.directory, exist_ok=True)
-        self._recover()
+        if dist.rank() == 0:  # the ranks share the directory: one healer
+            self._recover()
+        # no rank scans (latest, restore) before the heal is done, else
+        # ranks of one job could resume different steps
+        _barrier("checkpoint-init")
         self._snapshot = Snapshot()
         self._writer = writer()
         self._pending = None  # (step, future) of the in-flight save
@@ -216,11 +236,20 @@ class CheckpointManager:
             pending = self._snapshot.take(tree)
             meta = {"format_version": self.FORMAT_VERSION,
                     "step": step, "epoch": epoch, "extra": extra,
-                    "num_processes": 1}
-            fut = self._writer.submit(self._write_commit, pending, step,
-                                      meta)
+                    "num_processes": dist.num_workers()}
+            if dist.is_multiprocess():
+                # the commit's barriers are collectives: run them here,
+                # in order with the training's, not on the writer thread
+                fut = concurrent.futures.Future()
+                try:
+                    fut.set_result(self._write_commit(pending, step, meta))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    fut.set_exception(e)
+            else:
+                fut = self._writer.submit(self._write_commit, pending, step,
+                                          meta)
             self._pending = (step, fut)
-            if sync:
+            if sync or dist.is_multiprocess():
                 self.wait_until_finished()
         finally:
             if prev_sig is not None:
@@ -243,45 +272,54 @@ class CheckpointManager:
 
     def _write_commit(self, pending, step, meta):
         state = pending.fetch()
+        rank = dist.rank()
         tmp = self._dir_for(step) + ".tmp"
         final = self._dir_for(step)
-        # a crashed earlier save at this step may have left stale files
-        if os.path.isdir(tmp):
+        # a crashed earlier save at this step may have left stale files:
+        # rank 0 clears them, and a barrier orders that before any write
+        if rank == 0 and os.path.isdir(tmp):
             shutil.rmtree(tmp)
+        _barrier("checkpoint-clear")
         os.makedirs(tmp, exist_ok=True)
         if state["params"] is not None:
             from ..utils import serialization
 
-            p = os.path.join(tmp, "params-shard0.params")
+            p = os.path.join(tmp, f"params-shard{rank}.params")
             serialization.save_ndarrays(p, state["params"])
             atomic.fsync_file(p)
         if state["trainer"] is not None:
-            p = os.path.join(tmp, "trainer-shard0.states")
+            p = os.path.join(tmp, f"trainer-shard{rank}.states")
             with open(p, "wb") as f:
                 # protocol 5 writes the arrays from their own memory
                 pickle.dump(states_file_blob(
                     host_leaves(state["trainer"], copy=False)), f,
                     protocol=5)
             atomic.fsync_file(p)
-        atomic.write_json(os.path.join(tmp, "rng-shard0.json"),
+        atomic.write_json(os.path.join(tmp, f"rng-shard{rank}.json"),
                           state["rng"])
+        # the JAX package's fault point "checkpoint.commit" comes with
+        # engine.py and the resilience tier (slice 8)
         atomic.fsync_dir(tmp)
-        meta["files"] = sorted(os.listdir(tmp))
-        atomic.write_json(os.path.join(tmp, MANIFEST), meta)
-        old = None
-        if os.path.isdir(final):
-            # re-save of the same step: park the committed copy aside so
-            # a kill in this window loses nothing (_recover renames it
-            # back if the commit never happened)
-            old = final + ".old"
-            if os.path.isdir(old):
-                shutil.rmtree(old)
-            os.rename(final, old)
-        os.rename(tmp, final)  # the commit point
-        atomic.fsync_dir(self.directory)
-        if old is not None:
-            shutil.rmtree(old, ignore_errors=True)
-        self._gc(step)
+        _barrier("checkpoint-save")
+        if rank == 0:
+            meta["files"] = sorted(os.listdir(tmp))
+            atomic.write_json(os.path.join(tmp, MANIFEST), meta)
+            old = None
+            if os.path.isdir(final):
+                # re-save of the same step: park the committed copy aside
+                # so a kill in this window loses nothing (_recover renames
+                # it back if the commit never happened)
+                old = final + ".old"
+                if os.path.isdir(old):
+                    shutil.rmtree(old)
+                os.rename(final, old)
+            os.rename(tmp, final)  # the commit point
+            atomic.fsync_dir(self.directory)
+            if old is not None:
+                shutil.rmtree(old, ignore_errors=True)
+        _barrier("checkpoint-commit")
+        if rank == 0:
+            self._gc(step)
         return final
 
     def _recover(self):
@@ -405,16 +443,33 @@ class CheckpointManager:
                 f"newer mxnet_tpu (this build reads <= "
                 f"v{self.FORMAT_VERSION}); upgrade to restore it")
         saved_procs = int(manifest.get("num_processes", 1))
-        if saved_procs != 1:
-            # strict_topology or not: every multi-process layout and its
-            # resharding onto this job's topology waits for slice 7, part 2b
-            raise _later(
-                f"restoring {mpath}, saved by a {saved_procs}-process job "
-                "(multi-process checkpoints and resharding)", _RESHARD)
-        loaded = self._restore_params(d, params)
-        self._restore_trainer(d, trainer)
+        procs = dist.num_workers()
+        resharding = saved_procs != procs
+        if resharding and strict_topology:
+            raise MXNetError(
+                f"{mpath}: world-size mismatch — checkpoint was saved "
+                f"by a {saved_procs}-process job but this job runs "
+                f"{procs} process(es), and strict_topology=True "
+                "forbids elastic resharding. Drop strict_topology to "
+                "repartition the checkpoint onto this topology "
+                "(rank-replicated param/RNG shards remap, ZeRO-1 "
+                "optimizer shards gather and re-slice), or restore with "
+                "the original world size.")
+        rank = dist.rank()
+        src = _reshard.source_rank(rank, saved_procs) if resharding \
+            else rank
+        if resharding:
+            # the JAX package's fault point "checkpoint.reshard" comes
+            # with engine.py and the resilience tier (slice 8)
+            _log.warning(
+                "elastic restore: repartitioning checkpoint step %s "
+                "saved at world %d onto world %d (rank %d reads saved "
+                "shard %d; pass strict_topology=True to forbid this)",
+                step, saved_procs, procs, rank, src)
+        loaded = self._restore_params(d, src, params)
+        self._restore_trainer(d, src, trainer)
         if restore_rng:
-            rpath = os.path.join(d, "rng-shard0.json")
+            rpath = os.path.join(d, f"rng-shard{src}.json")
             if os.path.isfile(rpath):
                 with open(rpath) as f:
                     _random.set_state(json.load(f))
@@ -423,16 +478,16 @@ class CheckpointManager:
                 "extra": manifest.get("extra"),
                 "params": loaded}
 
-    def _restore_params(self, d, params):
+    def _restore_params(self, d, rank, params):
         from ..ndarray.ndarray import NDArray
         from ..utils import serialization
 
-        pfile = os.path.join(d, "params-shard0.params")
+        pfile = os.path.join(d, f"params-shard{rank}.params")
         if not os.path.isfile(pfile):
             if params is not None:
                 raise MXNetError(
-                    f"{d}: no parameter shard for process 0 "
-                    "(params-shard0.params) — this step was saved "
+                    f"{d}: no parameter shard for process {rank} "
+                    f"(params-shard{rank}.params) — this step was saved "
                     "without params=; pass step= an entry of steps() "
                     "that has them")
             return None
@@ -474,17 +529,78 @@ class CheckpointManager:
                     dst.copy_(arr.data.to(dst.dtype))
         return None
 
-    def _restore_trainer(self, d, trainer):
-        tfile = os.path.join(d, "trainer-shard0.states")
+    def _restore_trainer(self, d, rank, trainer):
+        tfile = os.path.join(d, f"trainer-shard{rank}.states")
         if trainer is None:
             return
         if not os.path.isfile(tfile):
             raise MXNetError(
-                f"{d}: checkpoint has no trainer states for process 0 "
-                "(was it saved without trainer=?)")
+                f"{d}: checkpoint has no trainer states for process "
+                f"{rank} (was it saved without trainer=?)")
         with open(tfile, "rb") as f:
             blob = pickle.load(f)
+        self._merge_zero_shards(d, blob, own=f"trainer-shard{rank}.states")
+        blob = self._reshard_zero_for(trainer, blob, tfile)
         trainer.load_states_dict(blob, source=tfile)
+
+    @staticmethod
+    def _reshard_zero_for(trainer, blob, tfile):
+        """ZeRO's leg of a reshard: where the snapshot's world differs from
+        the number of contexts a sharded trainer runs on, the blob with its
+        shards re-sliced for that trainer on the host
+        (``reshard.reshard_states_blob``), so ``load_states_dict`` adopts
+        them; else the blob as it is (an unsharded trainer, or one rank a
+        process, gathers them into per-parameter states)."""
+        zero = blob.get("zero") if isinstance(blob, dict) else None
+        if not zero or not getattr(trainer, "_zero_shard", False):
+            return blob
+        world = len(trainer._param_contexts())
+        if world <= 1 or int(zero["world"]) == world:
+            return blob
+        t0 = time.perf_counter()
+        _log.warning("elastic restore: re-slicing ZeRO-1 optimizer shards "
+                     "from world %d onto world %d (%s)", int(zero["world"]),
+                     world, tfile)
+        blob = _reshard.reshard_states_blob(blob, world)
+        _reshard._book_reshard_ms(time.perf_counter() - t0)
+        return blob
+
+    @staticmethod
+    def _merge_zero_shards(d, blob, own=None):
+        """Gather ZeRO-1 shards on restore: a multi-process sharded save
+        leaves each rank's shards in its own ``trainer-shard<r>.states``;
+        where this blob does not hold every rank's, the others are read
+        from the sibling files."""
+        zero = blob.get("zero") if isinstance(blob, dict) else None
+        if not zero:
+            return
+        world = int(zero["world"])
+        have = {int(r) for r in zero["shards"]}
+        if have == set(range(world)):
+            return
+        rx = re.compile(r"^trainer-shard(\d+)\.states$")
+        for name in sorted(os.listdir(d)):
+            if have == set(range(world)):
+                break
+            m = rx.match(name)
+            if m is None or name == own:
+                continue
+            with open(os.path.join(d, name), "rb") as f:
+                peer = pickle.load(f)
+            pz = peer.get("zero") if isinstance(peer, dict) else None
+            if not pz:
+                continue
+            for r, chunks in pz["shards"].items():
+                if int(r) not in have:
+                    zero["shards"][r] = chunks
+                    have.add(int(r))
+        missing = set(range(world)) - have
+        if missing:
+            raise MXNetError(
+                f"{d}: ZeRO-1 optimizer-state shards for rank(s) "
+                f"{sorted(missing)} of {world} are missing — the "
+                "sharded save did not complete on every rank; restore "
+                "an earlier step")
 
     # -- preemption ---------------------------------------------------------
 

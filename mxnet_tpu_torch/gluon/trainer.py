@@ -28,10 +28,24 @@ which the fused one equals bit for bit.
 step; with ``Trainer(..., whole_step=True)`` or ``MXTPU_WHOLE_STEP=1``
 that step is one CUDA-graph replay on the card after a warm-up and a
 capture per input signature (``gluon/whole_step.py``), bit-identical to
-the eager step.  Over a kvstore (several contexts or ``dist_*``) the
-captured step raises: the JAX package traces the collective into its
-step, which comes with slice 7, part 2b; the eager whole step splits the
-batch across the contexts.
+the eager step.  Over several contexts, and over the ranks of a
+``dist_sync`` job, the whole step runs eagerly (the JAX package traces the
+collectives into its step; a captured step with collectives inside it is
+piece 4 of slice 7, part 2b): over contexts it is the eager split step,
+over ranks ``gluon/whole_step.py``'s world step, which sums flat buckets
+of the gradients over the process group.
+
+ZeRO-1 (arXiv 2004.13336; ``zero_shard=True`` or ``MXTPU_ZERO_SHARD=1``):
+the gradients of each flat bucket are reduce-scattered, each rank updates
+its 1/world slice with the same rule, holding 1/world of the optimizer
+state, and the updated slices are all-gathered.  Over several contexts
+this is :meth:`Trainer.step` itself (the kvstore's ``zero_*``
+collectives); across processes it is the world step.  Both are
+bit-identical to their unsharded steps (under NCCL the world step's
+reduce-scatter may add in another order; ``gluon/whole_step.py`` says what
+then holds).  A configuration ZeRO cannot shard takes the unsharded step,
+warns once per reason and counts ``zero_fallbacks``; one replica is the
+identity and counts nothing.
 
 :meth:`Trainer.save_states`/:meth:`Trainer.load_states` write and read
 the JAX package's versioned pickle, so either package resumes the
@@ -40,13 +54,16 @@ place, so a captured whole step keeps replaying on them.  With
 ``update_on_kvstore`` the states are the kvstore updater's: the blob's
 ``"kvstore"`` entry is its pickled states, and the files are the
 updater's (``KVStore.save_optimizer_states``), as in the JAX package.
+ZeRO's shards travel in the blob's ``"zero"`` entry, in the JAX layout
+(world, chunks, per-rank shards), and load sharded or unsharded.
 
 What later slices bring raises :class:`MXNetError` here instead of being
-ignored: ZeRO (``zero_shard``), ``mesh_shape``/``sharding_plan`` and
-states blobs of those (slice 7, part 2b), and ``dist_async`` (part 3).
+ignored: ``mesh_shape``/``sharding_plan`` and states blobs of those (slice
+7, part 2b, piece 2), and ``dist_async`` (part 3).
 """
 from __future__ import annotations
 
+import logging
 import pickle
 
 import numpy as np
@@ -59,10 +76,13 @@ from ..base import MXNetError, getenv
 from ..ndarray.ndarray import NDArray, as_tensor
 from .parameter import ParameterDict, _ctx_list
 
+_log = logging.getLogger("mxnet_tpu_torch.trainer")
+
 # step counters (ref: trainer.py:23-52), those of the paths the port has
 _step_stats = {"steps": 0, "params_fused": 0, "buckets_built": 0,
                "dispatches": 0, "whole_step_steps": 0,
-               "whole_step_compiles": 0, "whole_step_fallbacks": 0}
+               "whole_step_compiles": 0, "whole_step_fallbacks": 0,
+               "whole_step_eager": 0, "zero_steps": 0, "zero_fallbacks": 0}
 
 
 def trainer_step_stats():
@@ -73,8 +93,12 @@ def trainer_step_stats():
     reduces, moves and copies, and one broadcast per extra context),
     dispatches_per_step, whole_step_steps (steps through
     :meth:`Trainer.whole_step` with the whole step on), whole_step_compiles
-    (input signatures it saw first) and whole_step_fallbacks (calls a
-    :class:`~.whole_step.Bypass` sent to the eager step)."""
+    (input signatures the captured step saw first), whole_step_fallbacks
+    (calls a :class:`~.whole_step.Bypass` sent to the eager step),
+    whole_step_eager (whole steps over several contexts or ranks, which
+    run eagerly), zero_steps (steps whose update ran ZeRO-sharded) and
+    zero_fallbacks (``zero_shard`` steps that ran unsharded for a
+    configuration ZeRO cannot shard)."""
     s = dict(_step_stats)
     s["dispatches_per_step"] = (round(s["dispatches"] / s["steps"], 2)
                                 if s["steps"] else 0.0)
@@ -96,6 +120,27 @@ def _is_dist(kvstore):
     if isinstance(kvstore, _kvstore.KVStore):
         return kvstore._is_dist()
     return str(kvstore).startswith("dist")
+
+
+def _check_zero_blob(zero, source):
+    """The world of a ``"zero"`` snapshot, checked to hold every rank's
+    shards (the JAX package's message for a partial one)."""
+    if not isinstance(zero, dict) or not {"world", "chunks",
+                                          "shards"} <= set(zero):
+        raise MXNetError(
+            f"{source}: malformed ZeRO-1 optimizer-state snapshot (it "
+            "needs 'world', 'chunks' and 'shards', as states_dict() "
+            "writes them)")
+    world = int(zero["world"])
+    have = {int(r) for r in zero["shards"]}
+    if have != set(range(world)):
+        raise MXNetError(
+            f"{source}: ZeRO-1 optimizer-state snapshot was sharded "
+            f"across {world} rank(s) but only rank(s) "
+            f"{sorted(have)} are present in this blob — restore "
+            "through CheckpointManager, which gathers every rank's "
+            "trainer-shard<r>.states from the checkpoint directory")
+    return world
 
 
 def states_file_blob(blob):
@@ -122,23 +167,25 @@ class Trainer:
                                  f"valid: {_kvstore._VALID}")
             if kvstore in _kvstore._ASYNC:
                 raise _later(f"kvstore={kvstore!r} (asynchronous updates "
-                             "on a parameter server)", 3)
+                             "on a parameter server, update_on_kvstore="
+                             f"{update_on_kvstore})", 3)
         if compression_params:
             ctype = dict(compression_params).get("type", "2bit")
             if ctype not in ("2bit", "none"):
                 raise MXNetError(f"unsupported compression type {ctype!r}")
-        if zero_shard or (zero_shard is None
-                          and getenv("ZERO_SHARD", False, bool)):
-            raise _later("ZeRO (zero_shard / MXTPU_ZERO_SHARD)", "2b")
+        # ZeRO-1: the constructor's value, else MXTPU_ZERO_SHARD
+        if zero_shard is None:
+            zero_shard = getenv("ZERO_SHARD", False, bool)
+        self._zero_shard = bool(zero_shard)
         if mesh_shape is not None or sharding_plan is not None or \
                 getenv("MESH_SHAPE", None):
-            raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)", "2b")
+            with_zero = " with ZeRO states over the mesh" \
+                if self._zero_shard else ""
+            raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)"
+                         f"{with_zero}", "2b, piece 2")
         if whole_step is None:
             whole_step = getenv("WHOLE_STEP", False, bool)
         self._whole_step = bool(whole_step)
-        if self._whole_step and _is_dist(kvstore):
-            raise _later(f"the captured whole step over kvstore={kvstore!r} "
-                         f"(update_on_kvstore={update_on_kvstore})", "2b")
         self._whole_step_compiler = None
         self._params = [p for p in params if p.grad_req != "null"]
         optimizer_params = dict(optimizer_params or {})
@@ -153,6 +200,9 @@ class Trainer:
         self._kv_initialized = False
         self._contexts = None
         self._states = [None] * len(self._params)
+        self._zero_states = {}   # chunk -> {rank: tuple of shard tensors}
+        self._zero_layout = None  # (the plan's chunk layout, world)
+        self._zero_warned = set()
         self._dispatches = 0
         self._buckets = 0
         self._params_fused = 0
@@ -234,12 +284,15 @@ class Trainer:
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._dispatches = self._buckets = self._params_fused = 0
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        ran_zero = self._zero_shard and self._try_zero_step()
+        if not ran_zero:
+            self._allreduce_grads()
+            self._update(ignore_stale_grad)
         _step_stats["steps"] += 1
         _step_stats["dispatches"] += self._dispatches
         _step_stats["buckets_built"] += self._buckets
         _step_stats["params_fused"] += self._params_fused
+        _step_stats["zero_steps"] += int(ran_zero)
 
     def allreduce_grads(self):
         """Sum the gradients over the contexts and processes, into every
@@ -296,6 +349,10 @@ class Trainer:
         reference does."""
         if self._update_on_kvstore and self._kvstore is not None:
             return  # updated by the kvstore during push
+        # live ZeRO shards and an unsharded update (a fallback, or a
+        # direct step): gather the shards back into per-parameter states
+        # first, so the same trajectory goes on instead of zeroed states
+        self._unshard_zero_states()
         entries = []
         for i, p in enumerate(self._params):
             w = p.data()
@@ -333,6 +390,302 @@ class Trainer:
                                      [s for _, s in pairs])
                 self._dispatches += 1
 
+    # -- ZeRO-1, the eager tier (ref: gluon/trainer.py:201-470) -------------
+
+    def _zero_fallback(self, reason):
+        """Warn once per reason that a ``zero_shard`` step ran unsharded,
+        count it; returns False for :meth:`_try_zero_step`."""
+        if reason not in self._zero_warned:
+            self._zero_warned.add(reason)
+            _log.warning("ZeRO-1 sharded update bypassed -> unsharded path: "
+                         "%s", reason)
+        _step_stats["zero_fallbacks"] += 1
+        return False
+
+    def _zero_ineligible_reason(self, ctxs):
+        """Why the eager sharded step cannot run, or None (checked before
+        the plan ticks anything); the JAX package's reasons, word for
+        word."""
+        if not self._fusion_enabled():
+            return "aggregate_num == 1 (sequential step requested)"
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.enabled:
+            return "amp dynamic loss scaling (the overflow skip is a " \
+                "host-side decision)"
+        if self._update_on_kvstore and self._kvstore is not None:
+            return "update_on_kvstore=True (server-side optimizer)"
+        if self._kvstore is None:
+            return "no kvstore to reduce over"
+        if self._kvstore._compression is not None:
+            return "gradient compression (per-key error feedback)"
+        if self._kvstore._is_dist():
+            return "dist kvstore (the eager sharded step is single-" \
+                "process; multi-process ZeRO rides the whole-step path)"
+        ctxs0 = tuple(ctxs)
+        for p in self._params:
+            if getattr(p, "grad_stype", "default") != "default":
+                return f"sparse-grad parameter {p.name}"
+            if getattr(p, "stype", "default") != "default":
+                return f"sparse parameter {p.name}"
+            if p.grad_req == "add":
+                return f"grad_req='add' on {p.name}"
+            if tuple(p.list_ctx()) != ctxs0:
+                return "parameters span different context sets"
+        return None
+
+    def _try_zero_step(self):
+        """One ZeRO-1 eager step over the contexts; True when it ran (False:
+        run the unsharded step; with one replica sharding is the identity
+        and nothing is counted)."""
+        ctxs = list(self._contexts or [])
+        if len(ctxs) <= 1:
+            return False
+        reason = self._zero_ineligible_reason(ctxs)
+        if reason is not None:
+            return self._zero_fallback(reason)
+        plan, svals, reason = self._optimizer.whole_step_plan(
+            list(range(len(self._params))),
+            [p.data(ctxs[0]) for p in self._params],
+            [None] * len(self._params), zero_world=len(ctxs))
+        if reason is not None:
+            return self._zero_fallback(reason)
+        self._ensure_zero_states(plan, len(ctxs), dict(enumerate(ctxs)))
+        self._zero_eager_run(plan, svals, ctxs)
+        return True
+
+    def _zero_eager_run(self, plan, svals, ctxs):
+        """Reduce-scatter, the shard update, then the weights' all-gather:
+        the sharded twin of :meth:`_allreduce_grads` and :meth:`_update`,
+        bit-identical to them (the same pairwise adds, the same rule over
+        the same elements); each context holds 1/world of the state."""
+        n = len(ctxs)
+        kv = self._kvstore
+        stats = {"buckets": 0, "dispatches": 0}
+        g_shards, w_shards = [], []
+        for chunk in plan:
+            idxs, padded = chunk[4], chunk[7]
+            vlists = [_on_ctx(self._params[j], self._params[j].list_grad())
+                      for j in idxs]
+            g_shards.append(kv.zero_reduce_scatter(vlists, padded, ctxs,
+                                                   stats))
+            shard_n = padded // n
+            per_rank = []
+            for r, ctx in enumerate(ctxs):
+                flat = _kvstore.flatten_pad(
+                    [self._params[j].data(ctx) for j in idxs], padded)
+                per_rank.append(flat[r * shard_n:(r + 1) * shard_n])
+                stats["dispatches"] += 2
+            w_shards.append(per_rank)
+        for c, chunk in enumerate(plan):
+            for r in range(n):
+                self._optimizer.zero_fused_update(
+                    (chunk,), (svals[c],), [w_shards[c][r]],
+                    [g_shards[c][r]], [self._zero_states[c][r]])
+                stats["dispatches"] += 1
+        with torch.no_grad():
+            for c, chunk in enumerate(plan):
+                idxs = chunk[4]
+                shapes = [tuple(self._params[j].shape) for j in idxs]
+                outs = kv.zero_allgather(w_shards[c], shapes, ctxs, stats)
+                for r, ctx in enumerate(ctxs):
+                    for jj, j in enumerate(idxs):
+                        w = self._params[j].data(ctx)
+                        w.copy_(outs[r][jj])
+                        w._mx_fresh_grad = False
+        self._dispatches += stats["dispatches"]
+        self._buckets += stats["buckets"]
+        self._params_fused = len(self._params)
+
+    # -- ZeRO-1 states, shared by the eager tier and the world step -----------
+
+    @staticmethod
+    def _zero_layout_of(plan, world):
+        """``(n_states, dtype, idxs, total, padded)`` of each chunk, and the
+        world."""
+        return (tuple((c[2], c[3], c[4], c[6], c[7]) for c in plan),
+                int(world))
+
+    def _ensure_zero_states(self, plan, world, rank_ctx):
+        """Make the shard-sized states of every chunk for each rank of
+        ``rank_ctx`` (rank -> context) that has none.  Full per-parameter
+        states (an unsharded run, a loaded snapshot) are flattened,
+        zero-padded and sliced, which is exact, then released, so each
+        replica holds ~1/world of the state."""
+        layout = self._zero_layout_of(plan, world)
+        if self._zero_layout is not None and self._zero_layout != layout \
+                and self._zero_states:
+            raise MXNetError(
+                "ZeRO-1 shard layout changed mid-run (params, "
+                "aggregate_num, MXTPU_KVSTORE_BUCKET_MB, hyperparameter "
+                "grouping or world size changed since the shards were "
+                "allocated); snapshot with states_dict() and reload "
+                "into a fresh Trainer")
+        self._zero_layout = layout
+        for c, (_r, _s, n_states, dt, idxs, _n, _total, padded) in \
+                enumerate(plan):
+            entry = dict(self._zero_states.get(c) or {})
+            missing = [r for r in rank_ctx if r not in entry]
+            if not missing:
+                continue
+            shard_n = padded // world
+            full = None
+            if n_states and any(self._states[j] is not None for j in idxs):
+                full = []
+                for slot in range(n_states):
+                    parts = []
+                    for j in idxs:
+                        st = _opt._state_list(self._states[j])
+                        w = self._params[j].data()
+                        parts.append(st[slot] if st else torch.zeros_like(w))
+                    full.append(_kvstore.flatten_pad(parts, padded))
+            for r in missing:
+                dev = rank_ctx[r].torch_device()
+                entry[r] = tuple(
+                    torch.zeros(shard_n, dtype=dt, device=dev) if full is None
+                    else full[slot][r * shard_n:(r + 1) * shard_n].to(
+                        dev, copy=True)
+                    for slot in range(n_states))
+            self._zero_states[c] = entry
+            for j in idxs:
+                self._states[j] = None  # release the full copies
+
+    def _unshard_zero_states(self):
+        """Gather the live shards back into per-parameter states (exact)
+        and drop them, so an unsharded update after sharded steps goes on
+        from the same states.  Raises where this process does not hold
+        every rank's shards (a rank of a multi-process job)."""
+        if self._zero_states:
+            self._load_zero_states(
+                self._zero_snapshot(),
+                source="<live ZeRO-1 shards: an unsharded update path "
+                "engaged after sharded steps>", adopt=False)
+
+    def _zero_snapshot(self):
+        """The ``"zero"`` entry of a states blob, in the JAX package's
+        layout: ``world``, ``chunks`` (indices, n_states, dtype, total,
+        padded, shapes) and ``shards`` ({rank: {chunk: [slot tensors]}},
+        the live tensors)."""
+        layout, world = self._zero_layout
+        ranks = sorted({r for e in self._zero_states.values() for r in e})
+        return {
+            "world": world,
+            "chunks": [
+                {"indices": list(idxs), "n_states": n_states,
+                 "dtype": str(dt).replace("torch.", ""), "total": total,
+                 "padded": padded,
+                 "shapes": [[int(d) for d in self._params[j].shape]
+                            for j in idxs]}
+                for (n_states, dt, idxs, total, padded) in layout],
+            "shards": {r: {c: list(entry[r])
+                           for c, entry in sorted(self._zero_states.items())
+                           if r in entry}
+                       for r in ranks},
+        }
+
+    def optimizer_state_bytes(self):
+        """The optimizer state held: ``{"per_replica": the most one
+        replica holds, "total": over the replicas}`` in bytes.  Sharded
+        runs hold ~1/world a replica; an unsharded run the full state on
+        its first context (a rank of a multi-process job counts its own)."""
+        if self._zero_states:
+            per_rank = {}
+            for entry in self._zero_states.values():
+                for r, slots in entry.items():
+                    per_rank[r] = per_rank.get(r, 0) + sum(
+                        t.numel() * t.element_size() for t in slots)
+            vals = list(per_rank.values()) or [0]
+            return {"per_replica": max(vals), "total": sum(vals)}
+        total = sum(t.numel() * t.element_size()
+                    for st in self._states for t in _opt._state_list(st))
+        return {"per_replica": total, "total": total}
+
+    def _try_adopt_zero_snapshot(self, zero):
+        """Install a snapshot's shards as the live ones where its world is
+        this trainer's number of contexts and its chunks those of the plan
+        this trainer would build (the same bytes the gather and the next
+        step's re-slice would give); returns whether it did."""
+        from ..checkpoint.reshard import _chunk_of, _shard_np
+
+        ctxs = self._param_contexts()
+        world = int(zero["world"])
+        if not self._zero_shard or world <= 1 or len(ctxs) != world:
+            return False
+        shards = {int(r): v for r, v in zero["shards"].items()}
+        try:
+            plan = self._optimizer.zero_layout(
+                list(range(len(self._params))),
+                [p.data(ctxs[0]) for p in self._params], world)
+        except MXNetError:  # uninitialized parameters: nothing to adopt
+            return False
+        if set(shards) != set(range(world)) or plan is None \
+                or len(plan) != len(zero["chunks"]):
+            return False
+        for chunk, (_r, _s, n_states, dt, idxs, _n, total, padded) in zip(
+                zero["chunks"], plan):
+            if (int(chunk["n_states"]) != n_states
+                    or str(chunk["dtype"]) != str(dt).replace("torch.", "")
+                    or [int(j) for j in chunk["indices"]] != list(idxs)
+                    or int(chunk["total"]) != total
+                    or int(chunk["padded"]) != padded):
+                return False
+        new_states = {}
+        for c, (_r, _s, n_states, dt, idxs, _n, _t, padded) in \
+                enumerate(plan):
+            entry = {}
+            for r, ctx in enumerate(ctxs):
+                arrs = [_shard_np(_chunk_of(shards[r], c)[slot])
+                        for slot in range(n_states)]
+                if any(a.shape != (padded // world,) for a in arrs):
+                    return False
+                entry[r] = tuple(torch.from_numpy(np.array(a)).to(
+                    device=ctx.torch_device(), dtype=dt) for a in arrs)
+            new_states[c] = entry
+        self._zero_states = new_states
+        self._zero_layout = self._zero_layout_of(plan, world)
+        for chunk in plan:
+            for j in chunk[4]:
+                self._states[j] = None
+        return True
+
+    def _load_zero_states(self, zero, source, adopt=True):
+        """Load a ``"zero"`` snapshot: with ``adopt`` and a matching
+        sharded trainer its shards become the live ones; else every rank's
+        shards of a chunk are concatenated, the pad dropped, and the result
+        cut into per-parameter states on the first context, copied in
+        place where states exist (exact either way).  Needs every rank's
+        shards: a multi-process restore goes through
+        ``CheckpointManager``, which gathers them."""
+        from ..checkpoint.reshard import _chunk_of, _shard_np
+
+        world = _check_zero_blob(zero, source)
+        if adopt and self._try_adopt_zero_snapshot(zero):
+            return
+        shards = {int(r): v for r, v in zero["shards"].items()}
+        loads = []
+        for c, chunk in enumerate(zero["chunks"]):
+            n_states = int(chunk["n_states"])
+            idxs = [int(j) for j in chunk["indices"]]
+            shapes = [tuple(int(d) for d in sh) for sh in chunk["shapes"]]
+            fulls = [np.concatenate([
+                _shard_np(_chunk_of(shards[r], c)[slot])
+                for r in range(world)])[:int(chunk["total"])]
+                for slot in range(n_states)]
+            off = 0
+            for j, shape in zip(idxs, shapes):
+                n = int(np.prod(shape, dtype=np.int64))
+                saved = tuple(f[off:off + n].reshape(shape) for f in fulls)
+                off += n
+                if not n_states:
+                    loads.append((j, None, []))
+                    continue
+                loads.append((j, *self._check_state(
+                    j, self._params[j],
+                    saved[0] if n_states == 1 else saved, source)))
+        self._apply_state_loads(loads)
+        # the loaded snapshot supersedes any live shards
+        self._zero_states = {}
+        self._zero_layout = None
+
     # -- the whole step (ref: gluon/trainer.py:472-596) ------------------------
 
     @property
@@ -351,18 +704,23 @@ class Trainer:
         ``rescale_grad`` as in :meth:`step`.
 
         With the whole step enabled the step runs through
-        ``gluon/whole_step.py``: on the card, after one eager warm-up step
-        and one capture per input signature, each call is one CUDA-graph
-        replay; on the CPU the same body runs eagerly.  Disabled, or for a
-        configuration it bypasses (``grad_req='add'``, parameters on
-        several devices, a trainer parameter outside ``block``), the call
-        runs :meth:`_eager_whole_step`, which gives the same result; a
-        bypass warns once per reason and counts in
+        ``gluon/whole_step.py``: on one context, on the card, after one
+        eager warm-up step and one capture per input signature, each call
+        is one CUDA-graph replay; on the CPU the same body runs eagerly.
+        Over several contexts it is the eager split step (the first axis of
+        the inputs split into equal slices, one a context in order), and
+        over the ranks of a ``dist_sync`` job each rank steps on its own
+        batch and the gradients are summed over the process group (the
+        world step; the loss returned is the sum over the ranks).  Both run
+        eagerly, which is decided at the first call, logged once and
+        counted in ``whole_step_eager``.  With ``zero_shard`` both shard the
+        update (ZeRO-1).  Disabled, or for a configuration it bypasses
+        (``grad_req='add'``, ``update_on_kvstore``, compression, several
+        contexts in each of several processes, a trainer parameter outside
+        ``block``), the call runs :meth:`_eager_whole_step`, which gives
+        the same result; a bypass warns once per reason and counts in
         ``whole_step_fallbacks``.  Pass stable ``block`` and ``loss_fn``
-        objects: the captured graphs are cached by their identity.  Over a
-        kvstore (several contexts or ``dist_*``) the captured step raises,
-        naming slice 7, part 2b; the eager one splits the batch's first
-        axis into equal slices, one a context in order."""
+        objects: the captured graphs are cached by their identity."""
         inputs = tuple(x) if isinstance(x, (list, tuple)) else (x,)
         if batch_size is None:
             batch_size = int(inputs[0].shape[0])
@@ -370,11 +728,6 @@ class Trainer:
         if not self._whole_step:
             return self._eager_whole_step(block, loss_fn, inputs, y,
                                           batch_size)
-        ctxs = self._param_contexts()
-        if self._kvstore is not None or len(ctxs) > 1:
-            raise _later(f"the captured whole step over {len(ctxs)} "
-                         f"contexts with kvstore={self._kv_type!r} "
-                         f"(update_on_kvstore={self._update_on_kvstore})", "2b")
         from . import whole_step as _ws
 
         if self._whole_step_compiler is None:
@@ -387,20 +740,29 @@ class Trainer:
             self._whole_step_compiler.note_warm(block, loss_fn, inputs, y)
             _step_stats["whole_step_steps"] += 1
             return loss
+        if self._whole_step_compiler.route() == "contexts":
+            # the eager split step, which books its own step
+            _step_stats["whole_step_steps"] += 1
+            _step_stats["whole_step_eager"] += 1
+            return self._eager_whole_step(block, loss_fn, inputs, y,
+                                          batch_size)
         self._optimizer.rescale_grad = self._scale / batch_size
         try:
             loss, wstats = self._whole_step_compiler.step(
-                block, loss_fn, inputs, y)
+                block, loss_fn, inputs, y, batch_size)
         except _ws.Bypass as b:
             self._whole_step_compiler.warn_fallback(b.reason)
             _step_stats["whole_step_fallbacks"] += 1
             return self._eager_whole_step(block, loss_fn, inputs, y,
                                           batch_size)
         _step_stats["steps"] += 1
-        _step_stats["dispatches"] += 1
+        _step_stats["dispatches"] += wstats.get("dispatches", 1)
         _step_stats["params_fused"] += len(self._params)
+        _step_stats["buckets_built"] += wstats.get("buckets", 0)
+        _step_stats["zero_steps"] += int(wstats.get("zero", False))
         _step_stats["whole_step_steps"] += 1
-        _step_stats["whole_step_compiles"] += wstats["compiles"]
+        _step_stats["whole_step_eager"] += int(wstats.get("eager", False))
+        _step_stats["whole_step_compiles"] += wstats.get("compiles", 0)
         return loss
 
     # -- state io (ref: gluon/trainer.py:764-885, 1037-1072) -----------------
@@ -434,10 +796,13 @@ class Trainer:
         states = {i: ({} if st is None else {str(p.context): st})
                   for i, (p, st) in enumerate(zip(self._params,
                                                   self._states))}
-        return {"version": self.STATES_FORMAT_VERSION, "states": states,
-                "num_update": self._optimizer.num_update,
-                "index_update_count":
-                    dict(self._optimizer._index_update_count)}
+        blob = {"version": self.STATES_FORMAT_VERSION, "states": states,
+                **counters}
+        if self._zero_states:
+            # this process's ranks' shards (a rank of a multi-process job
+            # holds its own; CheckpointManager gathers them on restore)
+            blob["zero"] = self._zero_snapshot()
+        return blob
 
     def states_dict(self):
         """Versioned optimizer-state snapshot with numpy leaves (ref:
@@ -474,10 +839,9 @@ class Trainer:
                 f"does not match this build's "
                 f"v{self.STATES_FORMAT_VERSION}; save and load with "
                 "matching mxnet_tpu versions.")
-        for key, what in (("zero", "ZeRO-sharded states"),
-                          ("mesh_shape", "states saved on a mesh")):
-            if blob.get(key) is not None:
-                raise _later(f"{source}: loading {what} ({key!r})", "2b")
+        if blob.get("mesh_shape") is not None:
+            raise _later(f"{source}: loading states saved on a mesh "
+                         "('mesh_shape')", "2b, piece 2")
         updater = self._kv_updater()
         if "kvstore" in blob:
             if updater is None:
@@ -500,15 +864,29 @@ class Trainer:
                 "loading would silently leave the kvstore updater's "
                 "optimizer at step 0; recreate the Trainer with "
                 "update_on_kvstore=False to resume these states")
-        loads = []
-        for i, p in enumerate(self._params):
-            saved = blob["states"].get(i, {})
-            if saved:
-                loads.append((i, *self._check_state(
-                    i, p, next(iter(saved.values())), source)))
+        if blob.get("zero"):
+            # ZeRO shards: adopted as live shards, or gathered into
+            # per-parameter states (a sharded run resumes unsharded and
+            # back; a sharded trainer re-slices at its next step)
+            self._load_zero_states(blob["zero"], source)
+        else:
+            loads = []
+            for i, p in enumerate(self._params):
+                saved = blob["states"].get(i, {})
+                if saved:
+                    loads.append((i, *self._check_state(
+                        i, p, next(iter(saved.values())), source)))
+            # an unsharded snapshot supersedes live shards too
+            self._zero_states = {}
+            self._zero_layout = None
+            self._apply_state_loads(loads)
         self._optimizer.num_update = blob["num_update"]
         self._optimizer._index_update_count = dict(
             blob["index_update_count"])
+
+    def _apply_state_loads(self, loads):
+        """Set each ``(i, state, leaves)`` of :meth:`_check_state`: the
+        saved values copied into the state tensors in place."""
         for i, state, leaves in loads:
             self._states[i] = state
             with torch.no_grad():

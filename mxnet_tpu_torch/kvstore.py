@@ -31,13 +31,26 @@ pushed value to {-t, 0, t} with a per-(key, slot) residual (2-bit with
 error feedback), in plain torch ops, as the JAX package computes it in
 ``jnp`` outside any kernel.
 
+ZeRO-1 (arXiv 2004.13336) over several contexts:
+:meth:`KVStore.zero_reduce_scatter` packs each context's gradients of
+one bucket into a flat buffer zero-padded to :func:`zero_padded_size`
+and gives every rank the sum of its 1/world slice, added by the same
+:func:`_pairwise_tree_reduce` in the same slot order as the unsharded
+bucket, so a sharded step equals the unsharded one bit for bit;
+:meth:`KVStore.zero_allgather` brings the updated slices back.  A store
+that compresses, updates on the kvstore or is ``dist_*`` refuses them,
+as the JAX package's does (across processes ZeRO runs in
+``gluon.whole_step``'s world step).  :func:`flatten_pad` and
+:func:`unflatten_flat` are the flat-buffer helpers the ZeRO code shares
+(the JAX package's ``engine.flatten_pad``/``unflatten_array``).
+
 Not ported yet, each raising :class:`MXNetError` naming its slice:
 ``dist_async``/``dist_device_async`` and the parameter-server client
 (slice 7, part 3), ``row_sparse_pull`` and sparse values (slice 9, with
-``ndarray/sparse``), and the traced and ZeRO forms (``traced_*``,
-``zero_*``; slice 7, part 2b).  The JAX package's fault points
-(``engine.fault_point``) come with ``engine.py`` in slice 8; there are
-none here.
+``ndarray/sparse``), and the traced forms (``traced_*``: the gradient
+sum inside a captured step, slice 7, part 2b, piece 4).  The JAX
+package's fault points (``engine.fault_point``) come with ``engine.py``
+in slice 8; there are none here.
 """
 from __future__ import annotations
 
@@ -54,7 +67,8 @@ def _later(what, where):
                       f"{where} (ROADMAP.md queue 1)")
 
 
-_PART2 = "part 2b of the distributed slice (slice 7, part 2b)"
+_PART2 = ("slice 7, part 2b, piece 4 (the captured step with collectives "
+          "inside it)")
 _PART3 = "part 3 of the distributed slice (slice 7, part 3)"
 _SPARSE = "slice 9 (ndarray/sparse)"
 
@@ -307,11 +321,52 @@ class KVStore:
         raise _later("traced_pushpull (the gradient sum traced into a "
                      "captured step)", _PART2)
 
+    # -- ZeRO-1 over several contexts (ref: kvstore.py:316-373) ---------------
+
     def zero_reduce_scatter(self, vlists, padded, devices, stats):
-        raise _later("zero_reduce_scatter (ZeRO)", _PART2)
+        """Reduce-scatter one flat bucket (ZeRO-1, arXiv 2004.13336).
+
+        ``vlists`` holds one list a key of NDArrays, one a slot (context),
+        all of one dtype; each slot's values are packed into ONE flat
+        buffer of ``padded`` elements (zeros past their end), and rank
+        ``r`` receives the sum over the slots of that buffer's ``r``-th
+        of ``len(devices)`` equal slices, on ``devices[r]`` (a context).
+        The sum is :func:`_pairwise_tree_reduce` over the slots in slot
+        order, the order :meth:`_reduce_bucket` adds them in, element by
+        element, so a sharded eager step is bit-identical to the unsharded
+        one.  Returns one shard tensor a rank."""
+        if not self._fusion_eligible() or self._is_dist():
+            raise MXNetError(
+                "zero_reduce_scatter on an ineligible kvstore "
+                "(compression / update_on_kvstore / dist); the trainer "
+                "must bypass to the unsharded path")
+        n = len(devices)
+        shard_n = int(padded) // n
+        slots = [[_nd(v[s]) for v in vlists] for s in range(n)]
+        flats = [(flatten_pad([v.data for v in vals], padded),
+                  vals[0].context) for vals in slots]
+        stats["dispatches"] += 2 * n
+        shards = []
+        for r, ctx in enumerate(devices):
+            parts = [(f[r * shard_n:(r + 1) * shard_n], c) for f, c in flats]
+            shard, sctx = _pairwise_tree_reduce(parts, stats)
+            shards.append(_to(shard, sctx, Context(ctx), stats))
+        stats["buckets"] += 1
+        return shards
 
     def zero_allgather(self, shard_raws, shapes, devices, stats):
-        raise _later("zero_allgather (ZeRO)", _PART2)
+        """Every rank's updated shard (``shard_raws[q]`` on
+        ``devices[q]``) on every context, concatenated and cut into
+        tensors of ``shapes`` (views; the pad tail is never read).
+        Returns ``{rank: [tensors]}``."""
+        ctxs = [Context(c) for c in devices]
+        out = {}
+        for r, ctx in enumerate(ctxs):
+            moved = [_to(s, ctxs[q], ctx, stats)
+                     for q, s in enumerate(shard_raws)]
+            out[r] = unflatten_flat(torch.cat(moved), shapes)
+            stats["dispatches"] += 2
+        return out
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise _later("row_sparse_pull", _SPARSE)
@@ -379,6 +434,34 @@ def _numel(shape):
     for d in shape:
         n *= int(d)
     return n
+
+
+def zero_padded_size(total, world):
+    """A flat bucket's element count rounded up to a multiple of
+    ``world``, so that every rank's shard has the same size (ref:
+    ``zero_padded_size``, kvstore.py:691).  The pad is part of a ZeRO
+    plan's chunks, so two layouts that differ in it never share state."""
+    world = max(int(world), 1)
+    return ((int(total) + world - 1) // world) * world
+
+
+def flatten_pad(tensors, padded=None):
+    """Same-dtype tensors of one device packed into one new flat buffer of
+    ``padded`` elements (default: their total), zeros past their end: one
+    ``torch.cat``."""
+    parts = [t.reshape(-1) for t in tensors]
+    total = sum(p.numel() for p in parts)
+    if padded is not None and int(padded) > total:
+        parts.append(parts[0].new_zeros(int(padded) - total))
+    return torch.cat(parts)
+
+
+def unflatten_flat(flat, shapes):
+    """Inverse of :func:`flatten_pad`: views of ``flat``'s first elements
+    with ``shapes``."""
+    sizes = [_numel(s) for s in shapes]
+    return [piece.view(tuple(shape)) for piece, shape in zip(
+        torch.split(flat[:sum(sizes)], sizes), shapes)]
 
 
 def _pairwise_tree_reduce(parts, stats):

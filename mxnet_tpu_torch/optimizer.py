@@ -268,8 +268,10 @@ class Optimizer:
         self.num_update = max(self.num_update,
                               self._index_update_count[index])
 
-    def _get_lr(self, index):
-        lr = (self.lr_scheduler(self.num_update)
+    def _get_lr(self, index, num_update=None):
+        if num_update is None:
+            num_update = self.num_update
+        lr = (self.lr_scheduler(num_update)
               if self.lr_scheduler is not None else self.lr)
         if index in self.param_dict:
             lr *= self.param_dict[index].lr_mult
@@ -303,6 +305,12 @@ class Optimizer:
         """``(rule, hyper-parameters)`` of this optimizer's update."""
         raise NotImplementedError
 
+    def _has_rule(self):
+        """Whether this optimizer has a list rule (``_rule``): one that
+        overrides only :meth:`update` runs sequentially and has no fused
+        or whole-step form (ref: a ``_fused_spec`` of None)."""
+        return type(self)._rule is not Optimizer._rule
+
     def _extra_scalars(self, t):
         """Per-step scalars of a rule beyond lr, t, wd and rescale."""
         return {}
@@ -311,11 +319,28 @@ class Optimizer:
         """Count one update of ``index``; its scalars, read after the tick,
         as ``{name: float}``."""
         self._update_count(index)
-        t = self._index_update_count[index]
-        return {"lr": self._get_lr(index), "t": t,
+        return self._scalars(index, self._index_update_count[index],
+                             self.num_update)
+
+    def _scalars(self, index, t, num_update):
+        """``index``'s scalars at its ``t``-th update, the optimizer's
+        ``num_update`` then."""
+        return {"lr": self._get_lr(index, num_update), "t": t,
                 "wd": self._get_wd(index),
                 "rescale": float(self.rescale_grad),
                 **self._extra_scalars(t)}
+
+    def _next_scalars(self, indices):
+        """What :meth:`_tick` would give each of ``indices`` in turn, with
+        nothing counted."""
+        counts, num_update, out = {}, self.num_update, []
+        for i in indices:
+            t = counts.get(i, self._index_update_count.get(
+                i, self.begin_num_update)) + 1
+            counts[i] = t
+            num_update = max(num_update, t)
+            out.append(self._scalars(i, t, num_update))
+        return out
 
     def _static(self, index, scalars):
         """What the update's graph depends on beyond its tensors: the
@@ -349,7 +374,8 @@ class Optimizer:
         groups = {}
         for i, w, g, st in zip(indices, weights, grads, states):
             w, g = _tensor(w), _tensor(g)
-            if g.dtype != w.dtype or g.shape != w.shape:
+            if (not self._has_rule() or g.dtype != w.dtype
+                    or g.shape != w.shape):
                 self.update(i, w, g, st)
                 stats["seq_updates"] += 1
                 continue
@@ -370,9 +396,9 @@ class Optimizer:
                 stats["params_fused"] += len(chunk)
         return stats
 
-    # -- the whole step's update (ref: optimizer.py:609-754) ------------------
+    # -- the whole step's update (ref: optimizer.py:609-861) ------------------
 
-    def whole_step_plan(self, indices, weights, states):
+    def whole_step_plan(self, indices, weights, states, zero_world=None):
         """The grouping of :meth:`fused_update` for an update that a CUDA
         graph captures (``gluon.whole_step``): the same (rule, dtype,
         device, constants, scalar values) groups in the same order, chunked
@@ -384,33 +410,112 @@ class Optimizer:
         ``svals`` the float scalar values of each chunk; or ``(None, None,
         reason)`` when a parameter has no fused form.  Validation runs
         before any tick, so a refused plan leaves no trace; a plan ticks
-        every index exactly as :meth:`fused_update` does."""
+        every index exactly as :meth:`fused_update` does.
+
+        With ``zero_world=N`` the plan is ZeRO-1's (arXiv 2004.13336): each
+        group's chunks are also capped by the flat-bucket budget
+        (``MXTPU_KVSTORE_BUCKET_MB``, default 32: a chunk is one
+        reduce-scatter) and end in ``total, padded``, the chunk's element
+        count and that count rounded up to a multiple of N
+        (``kvstore.zero_padded_size``).  Its states are shard-sized
+        buffers the caller makes, so ``states`` is not checked."""
+        entries, reason = self._plan_entries(indices, weights, states,
+                                             zero_world)
+        if reason is not None:
+            return None, None, reason
+        return self._plan_chunks(entries, [self._tick(i) for i in indices],
+                                 zero_world) + (None,)
+
+    def zero_layout(self, indices, weights, world):
+        """The chunks of the ZeRO plan :meth:`whole_step_plan` would build
+        at ``zero_world=world`` for the next update, with no update counted
+        (a layout to check a saved snapshot against); None where it would
+        refuse."""
+        entries, reason = self._plan_entries(
+            indices, weights, [None] * len(indices), world)
+        if reason is not None:
+            return None
+        return self._plan_chunks(entries, self._next_scalars(indices),
+                                 world)[0]
+
+    def _plan_entries(self, indices, weights, states, zero_world):
+        """``(entries, None)``: ``(index, weight, states)`` of each
+        parameter; or ``(None, reason)`` when one has no fused form."""
+        if not self._has_rule():
+            return None, (f"optimizer {type(self).__name__} has no fused "
+                          f"kernel for param {indices[0]}" if indices
+                          else "no parameters")
         entries = [(i, _tensor(w), _state_list(st))
                    for i, w, st in zip(indices, weights, states)]
         for i, w, sts in entries:
             if not w.is_floating_point():
-                return None, None, f"non-float parameter {i} ({w.dtype})"
-            if any(s.dtype != w.dtype or s.shape != w.shape
-                   or s.device != w.device for s in sts):
-                return None, None, (f"parameter {i}'s state layout does "
-                                    f"not match its fused rule")
+                return None, f"non-float parameter {i} ({w.dtype})"
+            if zero_world is None and any(
+                    s.dtype != w.dtype or s.shape != w.shape
+                    or s.device != w.device for s in sts):
+                return None, (f"parameter {i}'s state layout does not "
+                              f"match its fused rule")
+        return entries, None
+
+    def _plan_chunks(self, entries, scalars, zero_world):
+        """``(plan, svals)`` of :meth:`whole_step_plan` from its entries and
+        each entry's scalars."""
         groups = {}
-        for pos, (i, w, sts) in enumerate(entries):
+        for pos, ((i, w, sts), sc) in enumerate(zip(entries, scalars)):
             rule, _ = self._rule(i)
-            scalars = self._tick(i)
-            key = (rule, self._static(i, scalars), w.dtype, w.device,
-                   tuple(scalars.items()), len(sts))
+            n_states = len(sts)
+            if zero_world is not None:  # the states the rule keeps
+                n_states = len(_state_list(self.create_state(
+                    i, w.new_empty(0))))
+            key = (rule, self._static(i, sc), w.dtype, w.device,
+                   tuple(sc.items()), n_states)
             groups.setdefault(key, []).append(pos)
         agg = max(1, int(self.aggregate_num))
+        cap = max(int(getenv("KVSTORE_BUCKET_MB", 32.0, float) * (1 << 20)),
+                  1)
         plan, svals = [], []
-        for (rule, static, dt, _dev, scalars, n_states), members in \
+        for (rule, static, dt, _dev, sc, n_states), members in \
                 groups.items():
-            names = tuple(n for n, _ in scalars)
-            for c0 in range(0, len(members), agg):
-                plan.append((rule, static, n_states, dt,
-                             tuple(members[c0:c0 + agg]), names))
-                svals.append(tuple(float(v) for _, v in scalars))
-        return tuple(plan), svals, None
+            names = tuple(n for n, _ in sc)
+            head = (rule, static, n_states, dt)
+            if zero_world is None:
+                chunks = [members[c0:c0 + agg]
+                          for c0 in range(0, len(members), agg)]
+            else:
+                chunks, chunk, size = [], [], 0
+                for pos in members:
+                    w = entries[pos][1]
+                    nbytes = w.numel() * w.element_size()
+                    if chunk and (len(chunk) >= agg or size + nbytes > cap):
+                        chunks.append(chunk)
+                        chunk, size = [], 0
+                    chunk.append(pos)
+                    size += nbytes
+                chunks.append(chunk)
+            for chunk in chunks:
+                tail = (tuple(chunk), names)
+                if zero_world is not None:
+                    from .kvstore import zero_padded_size
+
+                    total = sum(entries[pos][1].numel() for pos in chunk)
+                    tail += (total, zero_padded_size(total, zero_world))
+                plan.append(head + tail)
+                svals.append(tuple(float(v) for _, v in sc))
+        return tuple(plan), svals
+
+    def zero_fused_update(self, plan, svals, w_shards, g_shards, st_shards):
+        """ZeRO-1's update: each chunk of a ``zero_world`` plan's rule over
+        ONE flat shard, in place: ``w_shards[c]`` this rank's slice of the
+        chunk's weights, ``g_shards[c]`` its reduced gradients and
+        ``st_shards[c]`` its shard-sized states (ref:
+        ``zero_fused_update``).  The rule is the one :meth:`fused_update`
+        runs, and every op is elementwise, so the slice gets the bits the
+        unsharded update gives it.  Returns the weight shards."""
+        for (rule, static, _n, _dt, _idxs, names, _total, _padded), sv, w, \
+                g, sts in zip(plan, svals, w_shards, g_shards, st_shards):
+            _run_rule(rule, static, names, device_scalars(sv, w.device),
+                      [w], [g], [list(sts)])
+        return list(w_shards)
 
 
 def apply_whole_step_plan(plan, ws, gs, states, sval_raws):
@@ -420,9 +525,10 @@ def apply_whole_step_plan(plan, ws, gs, states, sval_raws):
     ``sval_raws[c]`` chunk ``c``'s scalars as a float32 tensor on the
     weights' device (a CUDA graph reads them from there at each replay).
     The same rule calls over the same chunks as :meth:`Optimizer.
-    fused_update`, so the result equals it bit for bit."""
-    for (rule, static, n_states, _dt, idxs, names), sv in zip(plan,
-                                                             sval_raws):
+    fused_update`, so the result equals it bit for bit.  A ZeRO plan's
+    chunks run whole here (every rank's slice at once)."""
+    for chunk, sv in zip(plan, sval_raws):
+        rule, static, n_states, _dt, idxs, names = chunk[:6]
         _run_rule(rule, static, names, sv, [ws[j] for j in idxs],
                   [gs[j] for j in idxs],
                   [list(states[j])[:n_states] for j in idxs])

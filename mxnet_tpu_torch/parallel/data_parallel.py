@@ -868,8 +868,7 @@ class DataParallelTrainer:
         if list(zip(saved_axes, saved_shape)) != cur:
             raise MXNetError(
                 f"checkpoint mesh {list(zip(saved_axes, saved_shape))} != "
-                f"current mesh {cur}; resharding on load isn't supported "
-                "(it comes with part 2b of the distributed slice)")
+                f"current mesh {cur}; resharding on load isn't supported")
         where = {}
         files = [np.load(f, allow_pickle=False)
                  for f in sorted(glob.glob(f"{prefix}-shards-p*.npz"))]

@@ -207,6 +207,16 @@ class Group:
         return t
 
 
+def world_group():
+    """The :class:`Group` of every rank, over the default process group
+    (so no group is made, and a rank may call this alone), its
+    reduce-scatter and all-gather on the backend's route as a mesh's are:
+    the gradient collectives of ``gluon.whole_step.WorldStep``."""
+    route = "native" if dist.backend() == "nccl" else "allreduce"
+    return Group(("world",), range(dist.num_workers()), dist.rank(), None,
+                 route)
+
+
 _last_mesh = None
 
 

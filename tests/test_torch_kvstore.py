@@ -252,11 +252,12 @@ def test_what_later_slices_bring_raises_naming_them():
                            row_ids=[0])
     with pytest.raises(MXNetError, match="slice 9"):
         kv.push("w", [np.ones(2, np.float32)])
+    # the traced forms (the gradient sum inside a captured step); ZeRO's
+    # eager forms are ported (tests/test_torch_zero.py)
     for call in (lambda: kv.traced_pushpull([], "dp"),
-                 lambda: kv.zero_reduce_scatter([], 2, [], {}),
-                 lambda: kv.zero_allgather([], [], [], {}),
-                 lambda: tkv.traced_bucket_allreduce([], "dp")):
-        with pytest.raises(MXNetError, match="slice 7, part 2"):
+                 lambda: tkv.traced_bucket_allreduce([], "dp"),
+                 lambda: tkv.traced_bucket_reduce_scatter([], "dp", 2)):
+        with pytest.raises(MXNetError, match="slice 7, part 2b, piece 4"):
             call()
     with pytest.raises(MXNetError, match="already initialized"):
         kv.init("w", _t(np.ones(2, np.float32), 0))

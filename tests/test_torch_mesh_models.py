@@ -130,6 +130,9 @@ def test_async_checkpoint_resumes_and_a_dp4_checkpoint_is_refused(two):
         assert meta["async"]["t"] == 3
         assert meta["async"]["resumed"] == meta["async"]["after"]
         assert "checkpoint mesh [('dp', 4)]" in meta["refuse"]["message"]
+        # the reference's words: no resharding on load is promised
+        assert meta["refuse"]["message"].endswith(
+            "; resharding on load isn't supported")
 
 
 def test_bert_tiny_zero_matches_jax(two):

@@ -257,6 +257,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.parallel.mesh\n"
             "import mxnet_tpu_torch.parallel.spmd\n"
             "import mxnet_tpu_torch.gluon.contrib.nn\n"
+            "import mxnet_tpu_torch.checkpoint.reshard\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -272,7 +273,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     for mod in ("parallel/mesh.py", "parallel/spmd/__init__.py",
                 "parallel/spmd/mesh.py", "gluon/contrib/__init__.py",
-                "gluon/contrib/nn.py"):
+                "gluon/contrib/nn.py", "checkpoint/reshard.py"):
         assert f"mxnet_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

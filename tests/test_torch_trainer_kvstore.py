@@ -538,31 +538,34 @@ def test_checkpoint_manager_saves_kvstore_states(tmp_path):
 
 
 def test_whole_step_over_contexts():
-    """The captured whole step over a kvstore raises naming slice 7, part
-    2; the eager whole step splits the batch over the contexts and equals
-    the hand-written loop bit for bit."""
+    """The whole step over a kvstore runs eagerly (decided at the first
+    step, logged once, counted in ``whole_step_eager``): with the whole
+    step on or off it splits the batch over the contexts and equals the
+    hand-written loop bit for bit.  A ``dist_sync`` trainer takes the whole
+    step too."""
     name, args = _OPTS["sgd_mom"]
     x, y = _mlp_data()
     ctxs = _ctxs(tmx, 2)
     loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
-    net = _build_mlp(tmx, ctxs, _mlp_weights())
-    tr = tmx.gluon.Trainer(net.collect_params(), name, dict(args),
-                           whole_step=True)
-    with pytest.raises(MXNetError, match="slice 7, part 2"):
-        tr.whole_step(net, loss_fn, x, y)
-    with pytest.raises(MXNetError, match="slice 7, part 2"):
-        tmx.gluon.Trainer(net.collect_params(), name, dict(args),
-                          kvstore="dist_sync", whole_step=True)
-    tr = tmx.gluon.Trainer(net.collect_params(), name, dict(args))
-    total = [float(tr.whole_step(net, loss_fn, x, y).asscalar())
-             for _ in range(3)]
     ref_net, _, ref_losses = _train_mlp(tmx, 2, name, args, "device")
-    np.testing.assert_allclose(np.asarray(total) / BATCH, ref_losses,
-                               rtol=1e-6)
-    for c in ctxs:
-        got, want = _params_np(net, tmx, c), _params_np(ref_net, tmx, c)
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k])
+    tmx.gluon.Trainer(_build_mlp(tmx, ctxs, _mlp_weights()).collect_params(),
+                      name, dict(args), kvstore="dist_sync", whole_step=True)
+    for whole in (True, False):
+        net = _build_mlp(tmx, ctxs, _mlp_weights())
+        tr = tmx.gluon.Trainer(net.collect_params(), name, dict(args),
+                               whole_step=whole)
+        ttrainer.reset_trainer_step_stats()
+        total = [float(tr.whole_step(net, loss_fn, x, y).asscalar())
+                 for _ in range(3)]
+        stats = ttrainer.trainer_step_stats()
+        assert stats["whole_step_eager"] == (3 if whole else 0)
+        assert stats["whole_step_fallbacks"] == 0
+        np.testing.assert_allclose(np.asarray(total) / BATCH, ref_losses,
+                                   rtol=1e-6)
+        for c in ctxs:
+            got, want = _params_np(net, tmx, c), _params_np(ref_net, tmx, c)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
 
 
 # -- on the card -----------------------------------------------------------------------

@@ -198,9 +198,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def launch(out_dir, mode, n, timeout=120):
-    """Run ``n`` ranks of this script in ``mode`` through the port's
-    launcher on a free port; returns ``(returncode, output tail)``."""
+def launch(out_dir, mode, n, timeout=120, script=None):
+    """Run ``n`` ranks of ``script`` (default: this one) in ``mode``
+    through the port's launcher on a free port; returns ``(returncode,
+    output tail)``."""
     import subprocess
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -212,7 +213,8 @@ def launch(out_dir, mode, n, timeout=120):
     for _ in range(3):  # another process may take the free port first
         cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
                str(n), "--launcher", "local", "-p", str(_free_port()),
-               sys.executable, os.path.abspath(__file__), str(out_dir), mode]
+               sys.executable, script or os.path.abspath(__file__),
+               str(out_dir), mode]
         proc = subprocess.run(cmd, cwd=repo, env=env, timeout=timeout,
                               capture_output=True, text=True)
         if "address already in use" not in proc.stderr.lower():
@@ -220,12 +222,12 @@ def launch(out_dir, mode, n, timeout=120):
     return proc.returncode, (proc.stdout + proc.stderr)[-4000:]
 
 
-def shared_run(mode, n, prepare, tmp_path_factory):
-    """The directory of one run of ``mode`` for the whole test session:
-    under pytest-xdist the first worker to take the lock prepares the JAX
-    side's files (``prepare(dir)``) and launches; the others wait for it
-    and read the same files.  Raises with the launch's output if it
-    failed."""
+def shared_run(mode, n, prepare, tmp_path_factory, script=None):
+    """The directory of one run of ``mode`` (of ``script``, default this
+    one) for the whole test session: under pytest-xdist the first worker to
+    take the lock prepares the JAX side's files (``prepare(dir)``) and
+    launches; the others wait for it and read the same files.  Raises with
+    the launch's output if it failed."""
     import fcntl
 
     worker = os.environ.get("PYTEST_XDIST_WORKER")
@@ -240,7 +242,7 @@ def shared_run(mode, n, prepare, tmp_path_factory):
             out.mkdir(exist_ok=True)
             try:
                 prepare(out)
-                rc, tail = launch(out, mode, n)
+                rc, tail = launch(out, mode, n, script=script)
             except Exception:  # noqa: BLE001 - written, then raised below
                 rc, tail = 1, traceback.format_exc()
             status.write_text(json.dumps({"rc": rc, "tail": tail}))
