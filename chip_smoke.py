@@ -243,9 +243,34 @@ Phases (any failure ends the run with a non-zero exit and no result):
     resumed steps within it of the uninterrupted sharded run.  The step
     times, the collectives' times and GB/s, the state bytes a rank and
     the save and restore seconds are printed.
+24. the Trainer on a mesh: 2 ranks that the launcher starts (each running
+    this script with ``--spmd-worker DIR``; both on gpu(0) under gloo with
+    one card, rank r on gpu(r) under NCCL with 2+) train BERT-base MLM+NSP
+    (fp32, dropout 0, Adam) from phase 20's weights on phase 20's global
+    batch, whose loss is taken a half of the batch at a time (phase 20's
+    objective however the rows are split), through
+    ``Trainer(..., whole_step=True, mesh_shape="mp=2")`` for
+    ``SPMD_STEPS`` steps (every Dense and attention projection computed on
+    its half of the weight, saved through ``CheckpointManager`` after
+    ``SPMD_SAVE_AT`` steps) and then from the same start through
+    ``mesh_shape="dp=2", zero_shard=True``; this process restores the
+    save on gpu(0) without a mesh and steps once.  Gates: the backend the
+    rule names; both ranks' losses and gathered weights bit-identical
+    after every step; the losses within ``MESH_LOSS_RTOL`` of phase 20's
+    one-process reference; under mp=2 a rank's parameters at rest and
+    Adam states at most ``SPMD_SHARE`` of the full ones, 52 products a
+    forward on a shard, no split weight gathered, and the parameter
+    all-gathers of a step exactly the bytes of the gathered parameters;
+    under dp=2 with ZeRO a rank's Adam states at most ``SPMD_SHARE`` of
+    the full ones; every step an spmd step and none a fallback; 12
+    launches of each flash kernel a rank a step and no plain call; the
+    restored step within ``MESH_LOSS_RTOL`` of the uninterrupted one.  The
+    step times, the collectives by kind (ms, GB/s), the bytes a rank at
+    rest, the peak memory a rank (phase 22 prints it beside its
+    ``{tp:2}`` figure) and the save and restore seconds are printed.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-21, 22: every
+24, 21, 22: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -418,6 +443,19 @@ DIST_TIMEOUT_S = 600
 # ZERO_SAVE_AT steps and resumed in one process)
 ZERO_STEPS, ZERO_SAVE_AT = 4, 2
 ZERO_TIMEOUT_S = 400
+# phase 24, the Trainer on a mesh of phase 20's ranks, from phase 20's
+# weights and batch (a loss a half of it): mp=2 (saved after SPMD_SAVE_AT
+# steps), then dp=2 with ZeRO; a rank's bytes at rest at most SPMD_SHARE of
+# the full ones (half, and what the split leaves over); the products a
+# forward computes on a shard (24 encoder Dense, 24 attention
+# projections, the 4 heads' Dense)
+SPMD_RUNS = (("mp2", "mp=2", False), ("dp2_zero", "dp=2", True))
+SPMD_STEPS, SPMD_SAVE_AT = 3, 2
+SPMD_SHARE = 0.51
+SPMD_SPLITS = 52
+SPMD_TIMEOUT_S = 400
+# the peak memory a rank of phase 24's runs, printed in phase 22
+SPMD_PEAK = {}
 MESH_RANKS, MESH_RESNET_STEPS = 2, 6
 MESH_REF_BATCH, MESH_REF_IMAGE = 16, 112
 MESH_STATS_RTOL = 1e-4
@@ -1290,11 +1328,13 @@ def serve_bert(mx, card, attn_ms, tmpdir):
 # -- phase 5: training -------------------------------------------------------
 
 
-def pretrain_block(mx, rows=False):
+def pretrain_block(mx, rows=False, groups=None):
     class BERTForPretrain(mx.gluon.HybridBlock):
         """MLM + NSP loss head over the backbone, one scalar loss out
         (after examples/bert/pretrain_bert.py); with ``rows`` one loss a
-        row, whose mean is the batch's however it is split over ranks."""
+        row, whose mean is the batch's however it is split over ranks;
+        with ``groups`` one loss a run of that many rows, each that run's
+        scalar loss."""
 
         def __init__(self, model, **kwargs):
             super().__init__(**kwargs)
@@ -1313,6 +1353,12 @@ def pretrain_block(mx, rows=False):
                 return (-F.sum(mlm_ll * mask_weight, axis=-1)
                         / mask_weight.shape[-1]
                         - F.pick(nsp_log, nsp_labels, axis=-1))
+            if groups:
+                n = inputs.shape[0] // groups
+                ll = (mlm_ll * mask_weight).reshape(n, -1).sum(-1)
+                w = mask_weight.reshape(n, -1).sum(-1)
+                nsp = F.pick(nsp_log, nsp_labels, axis=-1).reshape(n, -1)
+                return -ll / (w + 1) - nsp.mean(-1)
             mlm_loss = -F.sum(mlm_ll * mask_weight) / (F.sum(mask_weight) + 1)
             nsp_loss = -F.mean(F.pick(nsp_log, nsp_labels, axis=-1))
             return mlm_loss + nsp_loss
@@ -1344,9 +1390,9 @@ def synthetic_batch(rng, bs, seq_len, vocab, mask_frac=0.15):
             positions)
 
 
-def pretrain_net(mx, ctx, dropout, seed=0, rows=False):
+def pretrain_net(mx, ctx, dropout, seed=0, rows=False, groups=None):
     mx.random.seed(seed)
-    net = pretrain_block(mx, rows)(mx.models.bert_base(
+    net = pretrain_block(mx, rows, groups)(mx.models.bert_base(
         use_decoder=True, use_classifier=True, dropout=dropout))
     net.initialize(init=mx.init.Normal(0.02), ctx=ctx)
     return net
@@ -4262,6 +4308,8 @@ def train_bert_dist(mx, card):
             torch.cuda.empty_cache()
         zero_launches = train_bert_zero(mx, card, d, data, ref_losses,
                                         want_backend)
+        zero_launches.update(train_bert_spmd(mx, card, d, data, ref_losses,
+                                             want_backend))
     r0 = ranks[0]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                        ref_losses))
@@ -4560,6 +4608,253 @@ def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
             "zero_bert_resume": resume_launches}
 
 
+# -- phase 24: the Trainer on a mesh ------------------------------------------
+
+
+def spmd_worker(workdir):
+    """A rank of phase 24 (``chip_smoke.py --spmd-worker DIR`` under the
+    port's launcher): BERT-base from ``DIR/start.params`` on the global
+    batch of ``DIR/batch.npz`` (a loss a half), ``SPMD_STEPS`` whole
+    steps through ``Trainer(mesh_shape=...)`` for each of ``SPMD_RUNS``
+    (the mp=2 run saved into ``DIR/spmd-ckpt`` after ``SPMD_SAVE_AT``
+    steps); writes ``DIR/spmd-rank<r>.json``."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.gluon import trainer as trainer_mod
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+    from mxnet_tpu_torch.parallel.spmd import products
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    dist.init()
+    rank = dist.rank()
+    ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
+    torch.cuda.set_device(ctx.device_id)
+    npz = np.load(workdir / "batch.npz")
+    batch = tuple(npz[f"arr_{i}"] for i in range(len(npz.files)))
+    out = {"rank": rank, "backend": dist.backend(), "device": str(ctx),
+           "runs": {}}
+    for label, shape, zero in SPMD_RUNS:
+        net = pretrain_net(mx, ctx, dropout=0.0,
+                           groups=DIST_BATCH // DIST_RANKS)
+        net.load_parameters(str(workdir / "start.params"), ctx=ctx)
+        named = dict(net.collect_params().items())
+        params = list(net._collect_params_with_prefix().values())
+        tr = mx.gluon.Trainer(net.collect_params(), "adam", dict(DIST_ADAM),
+                              whole_step=True, mesh_shape=shape,
+                              zero_shard=zero)
+        mgr = CheckpointManager(workdir / "spmd-ckpt") \
+            if label == "mp2" else None
+        rec = {"losses": [], "digests": [], "step_ms": [], "comm": [],
+               "peak": 0,
+               "full_param_bytes": sum(4 * int(np.prod(p.shape))
+                                       for p in params),
+               "full_state_bytes": sum(8 * int(np.prod(p.shape))
+                                       for p in tr._params)}
+        kernels.reset_counts()
+        trainer_mod.reset_trainer_step_stats()
+        products.reset_split_counts()
+        for s in range(SPMD_STEPS):
+            mesh_mod.reset_comm_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = tr.whole_step(net, zero_loss, batch,
+                                 batch_size=DIST_RANKS)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
+            rec["comm"].append(mesh_mod.comm_stats())
+            rec["losses"].append(float(loss.asscalar()) / DIST_RANKS)
+            comp = tr._whole_step_compiler
+            rec["param_bytes"] = comp.param_bytes_per_device(net)
+            rec["state_bytes"] = comp.state_bytes_per_device()
+            rec["digests"].append(digest(p.data() for p in params))
+            if mgr is not None and s + 1 == SPMD_SAVE_AT:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(s + 1, params=net, trainer=tr)
+                rec["save_s"] = time.perf_counter() - t0
+        rec["launches"] = {name: c.launches
+                           for name, c in kernels.KERNEL_COUNTS.items()
+                           if name.startswith("flash_attention")}
+        rec["plain_calls_on_cuda"] = fa.counts.plain_calls_on_cuda
+        rec["stats"] = trainer_mod.trainer_step_stats()
+        rec["splits"] = products.split_counts()
+        rec["gathered"] = list(comp.gathered)
+        rec["gathered_bytes"] = sum(4 * int(np.prod(named[n].shape))
+                                    for n in comp.gathered)
+        out["runs"][label] = rec
+        del tr, net, params, named, mgr, comp
+        torch.cuda.empty_cache()
+    with open(workdir / f"spmd-rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def train_bert_spmd(mx, card, d, data, ref_losses, want_backend):
+    """Phase 24 (see the module docstring), in phase 20's directory ``d``
+    (``start.params``, ``batch.npz``) against its one-process losses
+    ``ref_losses``.  Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(DIST_RANKS), "--launcher", "local", "-p", str(free_port()),
+           sys.executable, str(ROOT / "chip_smoke.py"), "--spmd-worker",
+           str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
+                          capture_output=True, timeout=SPMD_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()
+    log("spmd: the workers' log (the route lines and the last lines):\n  "
+        + "\n  ".join([ln for ln in tail if "eagerly" in ln
+                       or "backend" in ln][:4] + tail[-8:]))
+    if proc.returncode:
+        raise SystemExit(f"spmd: the launch exited {proc.returncode}")
+    ranks = [json.loads((d / f"spmd-rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    # the mp=2 save restored in this process, without a mesh, on gpu(0)
+    ckpt = d / "spmd-ckpt"
+    manifest = json.loads((ckpt / f"ckpt-{SPMD_SAVE_AT:08d}" /
+                           "MANIFEST.json").read_text())
+    half = DIST_BATCH // DIST_RANKS
+    net = pretrain_net(mx, gpu, dropout=0.0, groups=half)
+    with mx.autograd.pause():
+        net(*[mx.nd.array(a[:half], ctx=gpu) for a in data])
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(DIST_ADAM),
+                               whole_step=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = CheckpointManager(ckpt).restore(params=net, trainer=trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    resumed = float(trainer.whole_step(
+        net, zero_loss, tuple(mx.nd.array(a, ctx=gpu) for a in data),
+        batch_size=DIST_RANKS).asscalar()) / DIST_RANKS
+    resume_launches = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()
+                       if k.startswith("flash_attention")}
+    del net, trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    runs = {label: [r["runs"][label] for r in ranks]
+            for label, _, _ in SPMD_RUNS}
+    mp0, dz0 = runs["mp2"][0], runs["dp2_zero"][0]
+    gaps = {label: max(abs(a - b) / abs(b) for a, b in zip(
+        rs[0]["losses"], ref_losses[:SPMD_STEPS])) for label, rs in
+        runs.items()}
+    resume_gap = abs(resumed - mp0["losses"][SPMD_SAVE_AT]) / abs(
+        mp0["losses"][SPMD_SAVE_AT])
+    per_rank = 12 * SPMD_STEPS
+    checks = {
+        "spmd_backend": all(r["backend"] == want_backend for r in ranks),
+        "spmd_manifest_one_process": manifest["num_processes"] == 1
+        and manifest.get("mesh_shape") == "mp=2"
+        and meta["step"] == SPMD_SAVE_AT
+        and manifest["files"] == ["params-shard0.params", "rng-shard0.json",
+                                  "rng-shard1.json",
+                                  "trainer-shard0.states"],
+        "spmd_resumed_vs_uninterrupted": resume_gap <= MESH_LOSS_RTOL,
+        "spmd_mp2_params_at_rest": all(
+            r["param_bytes"] <= SPMD_SHARE * r["full_param_bytes"]
+            for r in runs["mp2"]),
+        "spmd_mp2_states_at_rest": all(
+            r["state_bytes"] <= SPMD_SHARE * r["full_state_bytes"]
+            for r in runs["mp2"]),
+        "spmd_dp2_zero_states_at_rest": all(
+            r["state_bytes"] <= SPMD_SHARE * r["full_state_bytes"]
+            for r in runs["dp2_zero"]),
+        "spmd_mp2_products_on_shards": all(
+            r["splits"]["column"] + r["splits"]["row"]
+            == SPMD_SPLITS * SPMD_STEPS for r in runs["mp2"]),
+        "spmd_mp2_no_split_weight_gathered": all(
+            not any("dense" in n or n.endswith(("attn_in_weight",
+                                                "attn_out_weight"))
+                    for n in r["gathered"]) and r["gathered"]
+            for r in runs["mp2"]),
+        "spmd_mp2_param_traffic_is_the_gathers": all(
+            c["param"]["bytes"] == r["gathered_bytes"]
+            for r in runs["mp2"] for c in r["comm"]),
+    }
+    for label, rs in runs.items():
+        checks[f"spmd_{label}_ranks_bit_identical"] = all(
+            r["digests"] == rs[0]["digests"] and r["losses"]
+            == rs[0]["losses"] for r in rs)
+        checks[f"spmd_{label}_launches"] = all(
+            n == per_rank for r in rs for n in r["launches"].values())
+        checks[f"spmd_{label}_plain_calls_on_cuda"] = all(
+            r["plain_calls_on_cuda"] == 0 for r in rs)
+        checks[f"spmd_{label}_losses_vs_one_process"] = \
+            gaps[label] <= MESH_LOSS_RTOL
+        checks[f"spmd_{label}_spmd_steps"] = all(
+            r["stats"]["spmd_steps"] == SPMD_STEPS
+            and r["stats"]["whole_step_fallbacks"] == 0 for r in rs)
+    shape_of = {label: shape for label, shape, _ in SPMD_RUNS}
+    for label, rs in runs.items():
+        SPMD_PEAK[label] = [r["peak"] for r in rs]
+        r0 = rs[0]
+        rates = {k: comm_rate(r0, k) for k in ("act", "param", "grad",
+                                               "loss")}
+        log(f"spmd {label}: BERT-base MLM+NSP fp32 dropout 0 Adam, "
+            f"{DIST_RANKS} ranks ({', '.join(r['device'] for r in ranks)}; "
+            f"backend {ranks[0]['backend']}), {SPMD_STEPS} whole steps of "
+            f"the global batch {DIST_BATCH} x {DIST_SEQ} through "
+            f"Trainer(whole_step=True, mesh_shape={shape_of[label]!r}"
+            f"{', zero_shard=True' if label == 'dp2_zero' else ''}): launch "
+            f"{launch_s:.1f} s (both runs); losses {r0['losses']} vs phase "
+            f"20's one process {ref_losses[:SPMD_STEPS]}: max rel gap "
+            f"{gaps[label]:.3g} (rtol {MESH_LOSS_RTOL}); launches a rank "
+            f"{r0['launches']} ({per_rank} each); products on a shard "
+            f"{r0['splits']}; on {card}")
+        log(f"spmd {label}: a step: median "
+            f"{[statistics.median(r['step_ms'][1:]) for r in rs]} ms a rank; "
+            f"collectives a step (comm_stats, host clock; median ms, bytes, "
+            f"GB/s): " + "; ".join(
+                f"{k} {v[0]:.3f} ms {v[1]} B {v[2]:.3f} GB/s"
+                for k, v in rates.items())
+            + f"; a rank at rest: parameters {r0['param_bytes']} of "
+            f"{r0['full_param_bytes']} bytes, Adam states "
+            f"{r0['state_bytes']} of {r0['full_state_bytes']}; gathered for "
+            f"compute {len(r0['gathered'])} parameters, "
+            f"{r0['gathered_bytes']} bytes; peak memory a rank "
+            f"{[r['peak'] / 2**30 for r in rs]} GiB; on {card}")
+    log(f"spmd: checkpoint of the mp=2 run after step {SPMD_SAVE_AT}: save "
+        f"(full arrays gathered on both ranks, written once by rank 0) "
+        f"{[round(r['save_s'], 3) for r in runs['mp2']]} s a rank; restore "
+        f"into one process without a mesh on gpu(0) {restore_s:.3f} s; the "
+        f"resumed step's loss {resumed} vs uninterrupted "
+        f"{mp0['losses'][SPMD_SAVE_AT]}: rel gap {resume_gap:.3g} (rtol "
+        f"{MESH_LOSS_RTOL}); on {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"spmd checks failed: {failed}")
+    return {"spmd_bert_train": {
+                k: sum(r["launches"][k] for rs in runs.values() for r in rs)
+                for k in mp0["launches"]},
+            "spmd_bert_resume": resume_launches}
+
+
 # -- phases 21-22: DataParallelTrainer over a mesh ------------------------------
 
 
@@ -4679,9 +4974,11 @@ def mesh_worker_bert(mx, ctx, workdir, out):
                 2 * tr._params[i].numel() == int(np.prod(tr._full_shapes[i]))
                 for i in sharded),
             "remat_children": getattr(tr, "_remat_count", None),
-            "steps": []}
+            "steps": [], "peak": 0}
         for _ in range(MESH_BERT_STEPS):
+            torch.cuda.reset_peak_memory_stats()
             st = mesh_step_record(lambda: tr.step(batch, y), mesh_mod)
+            rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
             st["digest"] = digest(tr._full_values())
             rec["steps"].append(st)
         rec["plain_calls_on_cuda"] = sum(
@@ -4980,7 +5277,12 @@ def train_mesh_bert(mx, card):
             f"{per_step(steps, 'comm', 'param', 'ms'):.3f} ms) a step; "
             f"optimizer states {rs[0]['state_bytes'] / 2**20:.1f} of "
             f"{rs[0]['full_state_bytes'] / 2**20:.1f} MiB a rank; "
-            f"{rs[0]['sharded_params']} parameters sharded at rest; on {card}")
+            f"{rs[0]['sharded_params']} parameters sharded at rest; peak "
+            f"memory of a step a rank {[r['peak'] / 2**30 for r in rs]} GiB"
+            + (f" (phase 24's Trainer(mesh_shape='mp=2'), whose products "
+               f"compute on the shards: "
+               f"{[b / 2**30 for b in SPMD_PEAK.get('mp2', [])]} GiB)"
+               if label == "tp" else "") + f"; on {card}")
     log(f"mesh bert: one process over the global batch on gpu(0): losses "
         f"{ref}; {{dp:2}} with ZeRO and remat bit-identical to {{dp:2}}: "
         f"{checks['zero_remat_bit_identical_to_dp']}")
@@ -5006,6 +5308,8 @@ def main():
                     help="run one rank of phase 20 (the launcher does)")
     ap.add_argument("--zero-worker", metavar="DIR", default=None,
                     help="run one rank of phase 23 (the launcher does)")
+    ap.add_argument("--spmd-worker", metavar="DIR", default=None,
+                    help="run one rank of phase 24 (the launcher does)")
     ap.add_argument("--mesh-worker", metavar=("DIR", "PHASE"), nargs=2,
                     default=None,
                     help="run one rank of phase 21 (resnet) or 22 (bert); "
@@ -5015,6 +5319,8 @@ def main():
         return dist_worker(args.dist_worker)
     if args.zero_worker is not None:
         return zero_worker(args.zero_worker)
+    if args.spmd_worker is not None:
+        return spmd_worker(args.spmd_worker)
     if args.mesh_worker is not None:
         return mesh_worker(*args.mesh_worker)
     if not torch.cuda.is_available():

@@ -38,6 +38,17 @@ the updater's pickled states (``gluon.trainer.states_file_blob``).  A
 ZeRO-sharded Trainer's blob holds the shards of the ranks this process
 has; a restore gathers the other ranks' from their files.
 
+A Trainer on a mesh (``Trainer(mesh_shape=...)``) is checkpointed as the
+JAX package checkpoints its global arrays: the full parameters and states
+(every rank gathers them, collectives in the same order), written once,
+by rank 0, into the files of one process; the manifest records
+``num_processes`` 1 and the ``mesh_shape``.  Every rank writes its own
+``rng-shard<r>.json``: its dropout stream (its data coordinate), which a
+restore on a mesh gives back to the rank of the same data coordinate.  Any
+job restores it, on a mesh of another shape (every rank reads those files;
+the next step slices them), in one process without a mesh (stream 0), or
+in the JAX package.
+
 A checkpoint of another world size is resharded on restore (``reshard``):
 each rank reads the parameter and RNG files of :func:`reshard.source_rank`
 and ZeRO shards are gathered and sliced for this trainer;
@@ -49,6 +60,7 @@ Not in the port yet: input pipelines (``pipeline=``, slice 8), which raise
 from __future__ import annotations
 
 import concurrent.futures
+import glob
 import json
 import logging
 import os
@@ -133,6 +145,74 @@ def _param_dict(params):
     raise MXNetError(
         f"cannot checkpoint params of type {type(params).__name__}: "
         "expected a gluon Block or a name->NDArray dict")
+
+
+def _cpu_copies(tree):
+    """``tree`` with CPU copies of its tensors (and NDArrays' tensors)."""
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(tree, NDArray):
+        tree = tree.data
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu_copies(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copies(v) for v in tree)
+    return tree
+
+
+class _Ready:
+    """A snapshot already on the host (``Snapshot.take``'s interface)."""
+
+    def __init__(self, tree):
+        self._tree = tree
+
+    def fetch(self):
+        return self._tree
+
+
+def _mesh_shape_of(trainer):
+    """The mesh of a multi-process save of a Trainer on a mesh, whose
+    values are full arrays every rank holds alike, as a spec string; else
+    None (the world step's per-rank ZeRO shards included)."""
+    shape = getattr(trainer, "_mesh_shape", None)
+    if shape is None or not dist.is_multiprocess() or trainer._zero_states:
+        return None
+    from ..parallel.spmd.mesh import format_mesh_shape
+
+    return format_mesh_shape(shape)
+
+
+def _saved_rng(d, src, manifest, trainer):
+    """The generator state this rank restores from checkpoint directory
+    ``d``: saved rank ``src``'s, or in a mesh checkpoint (where every rank
+    saved its own) the one of this rank's dropout stream -- its data
+    coordinate on a mesh Trainer, whose streams are set first
+    (``SpmdStepCompiler.start_streams``), else stream 0.  None where no
+    file holds it (that stream starts afresh)."""
+    if not manifest.get("mesh_shape"):
+        paths = [os.path.join(d, f"rng-shard{src}.json")]
+        stream = None
+    else:
+        paths = sorted(glob.glob(os.path.join(d, "rng-shard*.json")),
+                       key=lambda p: int(re.findall(r"\d+", p)[-1]))
+        stream = 0
+        if trainer is not None and trainer._mesh_shape is not None \
+                and trainer._whole_step:
+            comp = trainer._compiler()
+            comp.start_streams()
+            stream = comp.mesh.data_index if comp.mesh.size > 1 else 0
+    for path in paths:
+        if os.path.isfile(path):
+            with open(path) as f:
+                state = json.load(f)
+            if stream is None or int(state.get("stream", 0)) == stream:
+                return state
+    if stream is not None:
+        _log.warning("%s: no saved generators of dropout stream %d; it "
+                     "starts afresh", d, stream)
+    return None
 
 
 class CheckpointManager:
@@ -229,14 +309,24 @@ class CheckpointManager:
         try:
             self.wait_until_finished()
             step = int(step)
+            mesh_shape = _mesh_shape_of(trainer)
             tree = {"params": _param_dict(params),
                     "trainer": (None if trainer is None
                                 else trainer._states_blob()),
                     "rng": _random.get_state()}
-            pending = self._snapshot.take(tree)
             meta = {"format_version": self.FORMAT_VERSION,
                     "step": step, "epoch": epoch, "extra": extra,
                     "num_processes": dist.num_workers()}
+            if mesh_shape is None:
+                pending = self._snapshot.take(tree)
+            else:
+                # full arrays, gathered on every rank: rank 0 writes them;
+                # every rank writes its own generators (its dropout
+                # stream)
+                pending = _Ready(_cpu_copies(tree) if dist.rank() == 0
+                                 else {"params": None, "trainer": None,
+                                       "rng": tree["rng"]})
+                meta.update(num_processes=1, mesh_shape=mesh_shape)
             if dist.is_multiprocess():
                 # the commit's barriers are collectives: run them here,
                 # in order with the training's, not on the writer thread
@@ -444,7 +534,8 @@ class CheckpointManager:
                 f"v{self.FORMAT_VERSION}); upgrade to restore it")
         saved_procs = int(manifest.get("num_processes", 1))
         procs = dist.num_workers()
-        resharding = saved_procs != procs
+        # a mesh checkpoint holds full arrays: every rank reads them
+        resharding = saved_procs != procs and not manifest.get("mesh_shape")
         if resharding and strict_topology:
             raise MXNetError(
                 f"{mpath}: world-size mismatch — checkpoint was saved "
@@ -457,7 +548,7 @@ class CheckpointManager:
                 "the original world size.")
         rank = dist.rank()
         src = _reshard.source_rank(rank, saved_procs) if resharding \
-            else rank
+            or manifest.get("mesh_shape") else rank
         if resharding:
             # the JAX package's fault point "checkpoint.reshard" comes
             # with engine.py and the resilience tier (slice 8)
@@ -469,10 +560,9 @@ class CheckpointManager:
         loaded = self._restore_params(d, src, params)
         self._restore_trainer(d, src, trainer)
         if restore_rng:
-            rpath = os.path.join(d, f"rng-shard{src}.json")
-            if os.path.isfile(rpath):
-                with open(rpath) as f:
-                    _random.set_state(json.load(f))
+            state = _saved_rng(d, src, manifest, trainer)
+            if state is not None:
+                _random.set_state(state)
         return {"step": int(manifest["step"]),
                 "epoch": manifest.get("epoch"),
                 "extra": manifest.get("extra"),

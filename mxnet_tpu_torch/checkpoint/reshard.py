@@ -12,6 +12,10 @@ One leg per kind of saved file:
   :func:`reshard_zero_snapshot` gathers each chunk's shards on the host,
   drops the old pad, pads to the new world's ``zero_padded_size`` and
   slices again.  It only moves bytes, so N -> M -> N gives the same bytes.
+- **Mesh shapes** (the ``"mesh_shape"`` of a ``Trainer(mesh_shape=...)``
+  states blob): the leaves are full arrays, so any mesh change is a remap
+  that the next step makes; :func:`check_mesh_change` validates it and
+  logs it, loudly where the model axes change.
 - **Input-pipeline cursors** (``pipeline-shard<r>.state``):
   :func:`merge_pipeline_states` comes with the input pipelines of slice 8
   and raises naming it.
@@ -118,9 +122,9 @@ def reshard_zero_snapshot(zero, new_world):
 def reshard_states_blob(blob, new_world):
     """One trainer states blob repartitioned for a ``new_world``-rank job:
     its ZeRO snapshot by :func:`reshard_zero_snapshot`.  Returns the blob, a
-    new one where it changed.  (The JAX package's ``check_mesh_change``, the
-    check of states saved on an spmd mesh, comes with the ``mesh_shape``
-    restore of slice 7, part 2b, piece 2.)"""
+    new one where it changed.  (States saved on a mesh hold full arrays:
+    ``Trainer.load_states_dict`` checks their ``"mesh_shape"`` with
+    :func:`check_mesh_change`.)"""
     if not isinstance(blob, dict):
         return blob
     if blob.get("zero"):
@@ -129,6 +133,52 @@ def reshard_states_blob(blob, new_world):
             blob = dict(blob)
             blob["zero"] = reshard_zero_snapshot(zero, new_world)
     return blob
+
+
+# -- multi-axis mesh shapes ----------------------------------------------------
+
+
+def check_mesh_change(saved_shape, new_shape, source="<checkpoint>"):
+    """Validate restoring states saved on mesh ``saved_shape`` into a
+    trainer on ``new_shape`` (ref: ``check_mesh_change``, reshard.py:
+    144-190); either side a spec string, a shape dict or None (no mesh).
+
+    The saved leaves are full arrays, so any change is representationally
+    fine: the first step at the new shape slices every array by the new
+    plan.  A change of the model-axis product (``mp`` * ``pp``) is a
+    deliberate change of model parallelism: allowed, and logged as a
+    warning; a change of the data axes alone is logged at INFO.  Returns
+    the parsed new shape (or None)."""
+    from ..parallel.spmd.mesh import (format_mesh_shape, model_axes,
+                                      parse_mesh_shape)
+
+    saved = parse_mesh_shape(saved_shape) if saved_shape else None
+    new = parse_mesh_shape(new_shape) if new_shape else None
+    if saved == new:
+        return new
+    saved_txt = format_mesh_shape(saved) if saved else "<single-axis>"
+    new_txt = format_mesh_shape(new) if new else "<single-axis>"
+    if new is None:
+        _log.warning(
+            "%s: snapshot was saved on spmd mesh %s but this trainer "
+            "has no mesh_shape — restoring onto the single-axis path "
+            "(full arrays; valid, the tensor-parallel layout is "
+            "dropped)", source, saved_txt)
+        return new
+    old_model = int(np.prod(list(model_axes(saved or {}).values()) or [1]))
+    new_model = int(np.prod(list(model_axes(new).values()) or [1]))
+    if old_model != new_model:
+        _log.warning(
+            "%s: restoring across a MODEL-parallelism change: saved "
+            "mesh %s (mp*pp=%d) -> new mesh %s (mp*pp=%d). Valid "
+            "(snapshots hold full arrays) but deliberate-only: the "
+            "collective pattern and per-device memory change.",
+            source, saved_txt, old_model, new_txt, new_model)
+    else:
+        _log.info(
+            "%s: elastic mesh reshape on restore: %s -> %s (data axes "
+            "only; model axes preserved)", source, saved_txt, new_txt)
+    return new
 
 
 def merge_pipeline_states(blobs, where="<checkpoint>"):

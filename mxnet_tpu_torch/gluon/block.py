@@ -239,13 +239,28 @@ class HybridBlock(Block):
         from .. import ndarray as F
 
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = self._param_values()
         except DeferredInitializationError:
             self.infer_shape(x, *args)
             for p in self.collect_params().values():
                 p._finish_deferred_init()
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = self._param_values()
         return self.hybrid_forward(F, x, *args, **params)
+
+    #: the parameter attributes this block feeds only to products that can
+    #: compute on a shard (``FullyConnected``, ``multihead_attention``'s
+    #: projections): inside the mesh step they are handed their shard
+    #: (``parallel.spmd.products``), every other parameter its full value
+    _split_params = ()
+
+    def _param_values(self):
+        from ..parallel.spmd import products
+
+        scope = products.current()
+        if scope is None:
+            return {k: p.data() for k, p in self._reg_params.items()}
+        return {k: scope.value(p, k in self._split_params)
+                for k, p in self._reg_params.items()}
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

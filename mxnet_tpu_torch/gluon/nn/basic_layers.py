@@ -51,6 +51,8 @@ class Dense(HybridBlock):
             "bias", shape=(units,), dtype=dtype, init=bias_initializer,
             allow_deferred_init=True) if use_bias else None
 
+    _split_params = ("weight", "bias")
+
     def infer_shape(self, x, *args):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
         self.weight.shape = (self._units, in_units)

@@ -74,6 +74,9 @@ class Parameter:
         # trainers whose kvstore keeps (and updates) its own copy of the
         # value: set_data writes that copy too
         self._kv_trainers = weakref.WeakSet()
+        # where a Trainer on a mesh keeps this rank's shard in _data: its
+        # parallel.spmd.lowering.Placement (reads gather the full value)
+        self._placement = None
 
     # -- shape with merge-of-unknowns (MXNet uses 0 for unknown dims) ------
 
@@ -177,6 +180,7 @@ class Parameter:
             values[c] = v
         self._ctx_data = values
         self._data = values[ctxs[0]]
+        self._placement = None
         self._publish()
 
     def _finish_deferred_init(self):
@@ -221,9 +225,19 @@ class Parameter:
         """The value on ``ctx`` (see the module docstring for None), a
         ``torch.nn.Parameter``; inside a forward that
         :class:`~mxnet_tpu_torch.parallel.DataParallelTrainer` runs, the
-        trainer's tensor for it."""
+        trainer's tensor for it.
+
+        A parameter that a ``Trainer(mesh_shape=...)`` keeps sharded (this
+        rank holds its slice) reads as its FULL value, as a global array
+        of the JAX package does: outside the step that is an all-gather
+        over the ranks that hold its slices, a collective, so every rank
+        reads it, in the same order (a read on one rank alone raises once
+        ``MXTPU_DIST_TIMEOUT`` passes); inside the step, the step's own
+        gathered value (``parallel.spmd.products``)."""
         if self._traced_value is not None:
             return self._traced_value
+        if self._placement is not None:
+            return self._placement.read(self)
         return self._replica(ctx)
 
     def list_data(self):
@@ -239,7 +253,8 @@ class Parameter:
     def grad(self, ctx=None):
         """The gradient buffer of the value on ``ctx``, its ``.grad``
         (zeros until a backward writes it)."""
-        data = self.data(ctx)
+        data = self._traced_value if self._traced_value is not None \
+            else self._replica(ctx)
         if self._grad_req == "null":
             raise MXNetError(f"Parameter {self.name} has no gradient "
                              "(grad_req='null')")
@@ -279,6 +294,13 @@ class Parameter:
                 raise MXNetError(
                     f"Parameter {self.name}: set_data before initialize()")
             self._finish_init(*self._deferred_init)
+        if self._placement is not None:
+            # a sharded value: a fresh full one, which the mesh trainer
+            # slices again at its next step
+            self._place(list(self._ctx_data), src.to(
+                device=self._data.device, dtype=self._data.dtype,
+                copy=True))
+            return
         with torch.no_grad():
             for v in self._values():
                 v.copy_(src.to(v.dtype))

@@ -57,9 +57,22 @@ updater's (``KVStore.save_optimizer_states``), as in the JAX package.
 ZeRO's shards travel in the blob's ``"zero"`` entry, in the JAX layout
 (world, chunks, per-rank shards), and load sharded or unsharded.
 
+A mesh (``mesh_shape='dp=2,mp=2'`` or ``MXTPU_MESH_SHAPE``, with an
+optional ``parallel.spmd.ShardingPlan`` as ``sharding_plan``) routes
+:meth:`Trainer.whole_step` through ``parallel.spmd.SpmdStepCompiler``: one
+rank a device (start the ranks with the port's launcher), each holding its
+shard of every parameter split over ``mp`` and of every optimizer state
+(plus ``dp`` under ``zero_shard``), the batch split over the data axes,
+``FullyConnected`` and attention projections computed on their shards.
+Reads of a parameter on a mesh (``p.data()``, ``save_parameters``,
+``CheckpointManager``) return the full value and are collectives: every
+rank reads, in the same order.  :meth:`Trainer.states_dict` gathers full
+states and records ``"mesh_shape"``; :meth:`Trainer.load_states_dict`
+checks a saved shape against this one (``checkpoint.reshard.
+check_mesh_change``) and the next step slices what it loaded.
+
 What later slices bring raises :class:`MXNetError` here instead of being
-ignored: ``mesh_shape``/``sharding_plan`` and states blobs of those (slice
-7, part 2b, piece 2), and ``dist_async`` (part 3).
+ignored: ``dist_async`` (part 3).
 """
 from __future__ import annotations
 
@@ -82,7 +95,8 @@ _log = logging.getLogger("mxnet_tpu_torch.trainer")
 _step_stats = {"steps": 0, "params_fused": 0, "buckets_built": 0,
                "dispatches": 0, "whole_step_steps": 0,
                "whole_step_compiles": 0, "whole_step_fallbacks": 0,
-               "whole_step_eager": 0, "zero_steps": 0, "zero_fallbacks": 0}
+               "whole_step_eager": 0, "zero_steps": 0, "zero_fallbacks": 0,
+               "spmd_steps": 0}
 
 
 def trainer_step_stats():
@@ -96,9 +110,10 @@ def trainer_step_stats():
     (input signatures the captured step saw first), whole_step_fallbacks
     (calls a :class:`~.whole_step.Bypass` sent to the eager step),
     whole_step_eager (whole steps over several contexts or ranks, which
-    run eagerly), zero_steps (steps whose update ran ZeRO-sharded) and
+    run eagerly), zero_steps (steps whose update ran ZeRO-sharded),
     zero_fallbacks (``zero_shard`` steps that ran unsharded for a
-    configuration ZeRO cannot shard)."""
+    configuration ZeRO cannot shard) and spmd_steps (whole steps that ran
+    on a ``mesh_shape`` mesh)."""
     s = dict(_step_stats)
     s["dispatches_per_step"] = (round(s["dispatches"] / s["steps"], 2)
                                 if s["steps"] else 0.0)
@@ -177,15 +192,25 @@ class Trainer:
         if zero_shard is None:
             zero_shard = getenv("ZERO_SHARD", False, bool)
         self._zero_shard = bool(zero_shard)
-        if mesh_shape is not None or sharding_plan is not None or \
-                getenv("MESH_SHAPE", None):
-            with_zero = " with ZeRO states over the mesh" \
-                if self._zero_shard else ""
-            raise _later("mesh_shape / sharding_plan (MXTPU_MESH_SHAPE)"
-                         f"{with_zero}", "2b, piece 2")
+        whole_step_default = whole_step is None
         if whole_step is None:
             whole_step = getenv("WHOLE_STEP", False, bool)
         self._whole_step = bool(whole_step)
+        # a mesh: the constructor's shape, else MXTPU_MESH_SHAPE; a shape
+        # implies the whole step unless the argument turned it off
+        from ..parallel.spmd import mesh as _spmd_mesh
+
+        self._mesh_shape = _spmd_mesh.mesh_shape_from_env() \
+            if mesh_shape is None else _spmd_mesh.parse_mesh_shape(mesh_shape)
+        self._sharding_plan = sharding_plan
+        if self._mesh_shape is not None and whole_step_default:
+            self._whole_step = True
+        if sharding_plan is not None and self._mesh_shape is None:
+            raise MXNetError(
+                "sharding_plan given but no mesh_shape — pass "
+                "mesh_shape='dp=...,mp=...' (or set MXTPU_MESH_SHAPE) "
+                "to route steps onto the multi-axis mesh the plan "
+                "shards over")
         self._whole_step_compiler = None
         self._params = [p for p in params if p.grad_req != "null"]
         optimizer_params = dict(optimizer_params or {})
@@ -281,6 +306,7 @@ class Trainer:
         """Sum the gradients over the contexts and processes (where there
         is a kvstore), then update every parameter, with gradients rescaled
         by ``1/batch_size``."""
+        self._check_unplaced("step")
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._dispatches = self._buckets = self._params_fused = 0
@@ -297,6 +323,7 @@ class Trainer:
     def allreduce_grads(self):
         """Sum the gradients over the contexts and processes, into every
         context's gradient buffer (the first half of :meth:`step`)."""
+        self._check_unplaced("allreduce_grads")
         self._init_kvstore()
         if self._update_on_kvstore:
             raise MXNetError("allreduce_grads() is illegal with "
@@ -334,6 +361,7 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update half of :meth:`step`, after :meth:`allreduce_grads`."""
+        self._check_unplaced("update")
         self._init_kvstore()
         if self._update_on_kvstore:
             raise MXNetError("update() is illegal with "
@@ -730,8 +758,10 @@ class Trainer:
                                           batch_size)
         from . import whole_step as _ws
 
-        if self._whole_step_compiler is None:
-            self._whole_step_compiler = _ws.WholeStepCompiler(self)
+        self._compiler()
+        if self._mesh_shape is not None:
+            return self._spmd_whole_step(block, loss_fn, inputs, y,
+                                         batch_size)
         if any(p._data is None for p in self._params):
             # deferred shapes: the eager step completes them; it is this
             # signature's warm-up
@@ -755,6 +785,26 @@ class Trainer:
             _step_stats["whole_step_fallbacks"] += 1
             return self._eager_whole_step(block, loss_fn, inputs, y,
                                           batch_size)
+        self._book_whole_step(wstats)
+        return loss
+
+    def _compiler(self):
+        """The whole step's compiler, made at its first use: an
+        ``SpmdStepCompiler`` where a mesh shape is set."""
+        if self._whole_step_compiler is None:
+            if self._mesh_shape is not None:
+                from ..parallel.spmd import SpmdStepCompiler
+
+                self._whole_step_compiler = SpmdStepCompiler.from_shape(
+                    self, self._mesh_shape, self._sharding_plan)
+            else:
+                from . import whole_step as _ws
+
+                self._whole_step_compiler = _ws.WholeStepCompiler(self)
+        return self._whole_step_compiler
+
+    def _book_whole_step(self, wstats):
+        """Count one whole step that a compiler ran (its ``stats``)."""
         _step_stats["steps"] += 1
         _step_stats["dispatches"] += wstats.get("dispatches", 1)
         _step_stats["params_fused"] += len(self._params)
@@ -763,7 +813,42 @@ class Trainer:
         _step_stats["whole_step_steps"] += 1
         _step_stats["whole_step_eager"] += int(wstats.get("eager", False))
         _step_stats["whole_step_compiles"] += wstats.get("compiles", 0)
+        _step_stats["spmd_steps"] += int(wstats.get("spmd", False))
+        _step_stats["whole_step_fallbacks"] += int("fallback" in wstats)
+
+    def _spmd_whole_step(self, block, loss_fn, inputs, y, batch_size):
+        """:meth:`whole_step` on the mesh (``parallel.spmd.lowering``); a
+        bypass runs :meth:`_eager_whole_step` on the full parameters and
+        states of every rank, which the next mesh step slices again."""
+        from . import whole_step as _ws
+
+        comp = self._whole_step_compiler
+        self._optimizer.rescale_grad = self._scale / batch_size
+        try:
+            loss, wstats = comp.step(block, loss_fn, inputs, y, batch_size)
+        except _ws.Bypass as b:
+            comp.warn_fallback(b.reason)
+            _step_stats["whole_step_fallbacks"] += 1
+            with comp.unplaced(block):
+                return self._eager_whole_step(block, loss_fn, inputs, y,
+                                              batch_size)
+        self._book_whole_step(wstats)
         return loss
+
+    def _check_unplaced(self, what):
+        """A parameter held sharded by the mesh step reads as a gathered
+        copy, which no backward reaches: the eager step cannot update it."""
+        if any(p._placement is not None for p in self._params):
+            raise MXNetError(
+                f"Trainer.{what}: the parameters are sharded over the mesh "
+                f"{self._mesh_shape}; a Trainer with mesh_shape steps "
+                "through whole_step(net, loss_fn, x, y)")
+
+    def _placed_compiler(self):
+        """The mesh step's compiler where it holds this trainer's states
+        sharded, else None."""
+        comp = self._whole_step_compiler
+        return comp if getattr(comp, "_placed_states", None) else None
 
     # -- state io (ref: gluon/trainer.py:764-885, 1037-1072) -----------------
 
@@ -793,11 +878,19 @@ class Trainer:
         if updater is not None:
             return {"version": self.STATES_FORMAT_VERSION,
                     "kvstore": dict(updater.states), **counters}
+        comp = self._placed_compiler()
+        full = [comp.full_state(i) for i in range(len(self._params))] \
+            if comp is not None else self._states
         states = {i: ({} if st is None else {str(p.context): st})
-                  for i, (p, st) in enumerate(zip(self._params,
-                                                  self._states))}
+                  for i, (p, st) in enumerate(zip(self._params, full))}
         blob = {"version": self.STATES_FORMAT_VERSION, "states": states,
                 **counters}
+        if self._mesh_shape is not None:
+            # the leaves are full arrays whatever the mesh: the shape is
+            # recorded so that a restore at another one is checked
+            from ..parallel.spmd.mesh import format_mesh_shape
+
+            blob["mesh_shape"] = format_mesh_shape(self._mesh_shape)
         if self._zero_states:
             # this process's ranks' shards (a rank of a multi-process job
             # holds its own; CheckpointManager gathers them on restore)
@@ -808,7 +901,9 @@ class Trainer:
         """Versioned optimizer-state snapshot with numpy leaves (ref:
         Trainer.states_dict).  The JAX package's leaves are its immutable
         device arrays; the port's states are written in place by every
-        later step, so the snapshot holds host copies."""
+        later step, so the snapshot holds host copies.  On a mesh the
+        leaves are the full states, gathered (a collective: every rank
+        calls it), and ``"mesh_shape"`` records the mesh."""
         from ..checkpoint.snapshot import host_leaves
 
         return states_file_blob(host_leaves(self._states_blob()))
@@ -839,9 +934,6 @@ class Trainer:
                 f"does not match this build's "
                 f"v{self.STATES_FORMAT_VERSION}; save and load with "
                 "matching mxnet_tpu versions.")
-        if blob.get("mesh_shape") is not None:
-            raise _later(f"{source}: loading states saved on a mesh "
-                         "('mesh_shape')", "2b, piece 2")
         updater = self._kv_updater()
         if "kvstore" in blob:
             if updater is None:
@@ -864,6 +956,11 @@ class Trainer:
                 "loading would silently leave the kvstore updater's "
                 "optimizer at step 0; recreate the Trainer with "
                 "update_on_kvstore=False to resume these states")
+        if blob.get("mesh_shape"):
+            from ..checkpoint.reshard import check_mesh_change
+
+            check_mesh_change(blob["mesh_shape"], self._mesh_shape,
+                              source=source)
         if blob.get("zero"):
             # ZeRO shards: adopted as live shards, or gathered into
             # per-parameter states (a sharded run resumes unsharded and
@@ -907,8 +1004,14 @@ class Trainer:
             leaves.append(v.detach().cpu() if isinstance(v, torch.Tensor)
                           else torch.from_numpy(np.array(v)))
         state = self._states[i]
-        if state is None:
-            state = self._optimizer.create_state_multi_precision(i, p.data())
+        comp = self._placed_compiler()
+        if state is None or (comp is not None and comp._placed(i)):
+            # new full states (a mesh step's shards are replaced, and its
+            # next step slices them); a sharded parameter gives a
+            # full-shaped template, since its read would be a collective
+            w = p.data() if p._placement is None else torch.empty(
+                p.shape, dtype=p._data.dtype, device=p._data.device)
+            state = self._optimizer.create_state_multi_precision(i, w)
         want = [tuple(t.shape) for t in _opt._state_list(state)]
         if want != [tuple(t.shape) for t in leaves]:
             raise MXNetError(

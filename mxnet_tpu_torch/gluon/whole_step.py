@@ -401,7 +401,7 @@ class WholeStepCompiler:
             if p.grad_req == "add":
                 raise Bypass(f"grad_req='add' on {p.name} (gradient "
                              "accumulation across calls)")
-            ctxs = (tuple(p.list_ctx()), p.data().device)
+            ctxs = (tuple(p.list_ctx()), p._data.device)
             if ctxs0 is None:
                 ctxs0 = ctxs
             elif ctxs != ctxs0:

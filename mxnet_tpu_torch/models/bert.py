@@ -13,6 +13,9 @@ from ..gluon.block import HybridBlock
 
 
 class BERTEncoderLayer(HybridBlock):
+    _split_params = ("attn_in_weight", "attn_in_bias", "attn_out_weight",
+                     "attn_out_bias")
+
     def __init__(self, units=768, hidden_size=3072, num_heads=12,
                  dropout=0.1, **kwargs):
         super().__init__(**kwargs)

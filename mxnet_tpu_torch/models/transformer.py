@@ -46,6 +46,10 @@ class TransformerLayer(HybridBlock):
     """Post-LN encoder layer, or decoder layer with cross-attention (ref:
     :27)."""
 
+    _split_params = ("self_in_weight", "self_in_bias", "self_out_weight",
+                     "self_out_bias", "cross_in_weight", "cross_in_bias",
+                     "cross_out_weight", "cross_out_bias")
+
     def __init__(self, units, hidden_size, num_heads, dropout=0.1,
                  is_decoder=False, **kwargs):
         super().__init__(**kwargs)

@@ -73,7 +73,18 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
     packs the q, k and v projections in that order; out_weight
     ``(model, model)``.  Self-attention (one tensor for all three) runs
     the packed projection as one product; the heads are strided views of
-    it, which the kernel reads in place."""
+    it, which the kernel reads in place.
+
+    Inside the mesh step both projections go through
+    ``parallel.spmd.products.linear``, so a projection split over ``mp``
+    is computed on its shard.  A packed in-projection split by output rows
+    cannot be cut into its q, k and v thirds on one rank: each distinct
+    input tensor takes the whole split product once and keeps the thirds
+    it feeds.  Cross-attention (key is value) so takes two products of
+    the packed width where the unsplit op computes a third of it for the
+    query and two thirds for the memory."""
+    from ..parallel.spmd.products import full_of, linear, split_of
+
     b, sq, m = query.shape
     h = num_heads
     hd = m // h
@@ -82,17 +93,24 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
         return x.reshape(x.shape[0], x.shape[1], h, hd).transpose(1, 2)
 
     if query is key and key is value:
-        qkv = torch.nn.functional.linear(query, in_weight, in_bias)
+        qkv = linear(query, in_weight, in_bias)
         qh, kh, vh = (heads(t) for t in qkv.chunk(3, dim=-1))
+    elif split_of(in_weight) is not None:
+        packed = {}
+        for x in (query, key, value):
+            if id(x) not in packed:
+                packed[id(x)] = linear(x, in_weight, in_bias)
+        qh, kh, vh = (heads(packed[id(x)][..., i * m:(i + 1) * m])
+                      for i, x in enumerate((query, key, value)))
     else:
         wq, wk, wv = in_weight.chunk(3, dim=0)
-        bq, bk, bv = in_bias.chunk(3, dim=0)
-        qh = heads(torch.nn.functional.linear(query, wq, bq))
-        kh = heads(torch.nn.functional.linear(key, wk, bk))
-        vh = heads(torch.nn.functional.linear(value, wv, bv))
+        bq, bk, bv = full_of(in_bias).chunk(3, dim=0)
+        qh = heads(linear(query, wq, bq))
+        kh = heads(linear(key, wk, bk))
+        vh = heads(linear(value, wv, bv))
     out = _k_sdpa(qh, kh, vh, mask, causal=causal)
     out = out.transpose(1, 2).reshape(b, sq, m)
-    return torch.nn.functional.linear(out, out_weight, out_bias)
+    return linear(out, out_weight, out_bias)
 
 
 register("multihead_attention", _k_multihead_attention)

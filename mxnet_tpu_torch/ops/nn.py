@@ -16,10 +16,14 @@ from .registry import register
 def _k_fully_connected(data, weight, bias=None, num_hidden=None,
                        no_bias=False, flatten=True):
     """``x @ weight.T + bias`` (ref: ops/nn.py:40); ``flatten`` folds
-    every axis after the first into one."""
+    every axis after the first into one.  Inside the mesh step a weight
+    split over ``mp`` is computed on its shard
+    (``parallel.spmd.products.linear``)."""
+    from ..parallel.spmd.products import linear
+
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
-    return tF.linear(x, weight, None if no_bias else bias)
+    return linear(x, weight, None if no_bias else bias)
 
 
 register("FullyConnected", _k_fully_connected, aliases=("fully_connected",))

@@ -80,7 +80,7 @@ from .. import _imperative
 from .. import autograd
 from .. import optimizer as _opt
 from .. import random as _random
-from ..base import MXNetError, getenv
+from ..base import MXNetError
 from ..gluon import whole_step as _ws
 from ..ndarray.ndarray import NDArray, to_torch_dtype
 from . import dist
@@ -120,29 +120,6 @@ def _host(x):
         return x.data
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.asarray(x))
-
-
-def _buckets(items, nbytes):
-    """``items`` in consecutive runs of at most the bucket cap
-    (``MXTPU_KVSTORE_BUCKET_MB``, default 32, the kvstore's) each."""
-    cap = max(int(getenv("KVSTORE_BUCKET_MB", 32.0, float) * (1 << 20)), 1)
-    run, size = [], 0
-    for it in items:
-        n = nbytes(it)
-        if run and size + n > cap:
-            yield run
-            run, size = [], 0
-        run.append(it)
-        size += n
-    if run:
-        yield run
-
-
-def _by_dtype(items, dtype_of):
-    out = {}
-    for it in items:
-        out.setdefault(dtype_of(it), []).append(it)
-    return out.values()
 
 
 class DataParallelTrainer:
@@ -230,19 +207,6 @@ class DataParallelTrainer:
                     break
         return tuple(dims) if any(d is not None for d in dims) else ()
 
-    def _broadcast_from_rank0(self, values):
-        """Every rank takes rank 0's values, in place: one broadcast a flat
-        same-dtype bucket over the whole mesh."""
-        world = self.mesh.group(self.mesh.axis_names)
-        for run in _by_dtype(values, lambda v: v.dtype):
-            for bucket in _buckets(run, lambda v: v.numel() * v.element_size()):
-                flat = torch.cat([v.reshape(-1) for v in bucket])
-                world.broadcast_(flat, 0)
-                off = 0
-                for v in bucket:
-                    v.copy_(flat[off:off + v.numel()].view(v.shape))
-                    off += v.numel()
-
     def build(self, x):
         """Finish the block's deferred shapes with one forward in predict
         mode on the first two samples of ``x``, take this rank's copies of
@@ -263,8 +227,6 @@ class DataParallelTrainer:
         self._named = self.block._ordered_params()
         with torch.no_grad():
             values = [p.data().detach().clone() for _, p in self._named]
-            if mesh.size > 1:
-                self._broadcast_from_rank0(values)
         specs, custom = [], []
         for (name, _), v in zip(self._named, values):
             spec = None
@@ -286,9 +248,7 @@ class DataParallelTrainer:
         self._specs = specs
         self._full_shapes = [tuple(v.shape) for v in values]
         with torch.no_grad():
-            self._params = [
-                v[mesh_mod.shard_slices(sp, v.shape, mesh)].clone()
-                if sp else v for v, sp in zip(values, specs)]
+            self._params = mesh_mod.place(mesh, values, specs)
         self._trainable = [p.grad_req != "null" for _, p in self._named]
         # a parameter param_spec_fn placed keeps its states under its own
         # spec; every other one takes the ZeRO rule (ref: _place_state)
@@ -525,30 +485,23 @@ class DataParallelTrainer:
                                      rank)
 
     def _gather(self, pieces, spec_of, kind):
-        """``pieces``: ``[(i, this rank's shard under spec_of(i))]`` of one
-        group's axes; returns ``{i: full tensor}``, one all-gather a flat
-        same-dtype bucket."""
+        """``pieces``: ``[(i, this rank's shard under spec_of(i))]``;
+        returns ``{i: full tensor}``, one all-gather a flat same-dtype
+        bucket over each spec's axes."""
         out = {}
         by_axes = {}
         for i, t in pieces:
+            out[i] = torch.empty(self._full_shapes[i], dtype=t.dtype,
+                                 device=t.device)
             by_axes.setdefault(mesh_mod.spec_mesh_axes(spec_of(i)),
                                []).append((i, t))
         for axes, items in by_axes.items():
             group = self.mesh.group(axes)
-            for run in _by_dtype(items, lambda it: it[1].dtype):
-                for bucket in _buckets(
-                        run, lambda it: it[1].numel() * it[1].element_size()):
-                    flat = torch.cat([t.reshape(-1) for _, t in bucket])
-                    parts = group.all_gather(flat, kind)
-                    for i, t in bucket:
-                        out[i] = torch.empty(self._full_shapes[i],
-                                             dtype=t.dtype, device=t.device)
-                    for member, part in zip(group.members, parts):
-                        off = 0
-                        for i, t in bucket:
-                            out[i][self._sliced(i, spec_of(i), member)] = \
-                                part[off:off + t.numel()].view(t.shape)
-                            off += t.numel()
+
+            def put(i, k, piece, group=group):
+                out[i][self._sliced(i, spec_of(i), group.members[k])] = piece
+
+            mesh_mod.gather_pieces(group, items, put, kind)
         return out
 
     def _full_values(self):
@@ -572,51 +525,18 @@ class DataParallelTrainer:
     def _reduce_grads(self, grads):
         """The data group's mean of each trainable gradient (``{i: g}``):
         the full gradient, or for a ZeRO-split state its ``dp`` slice
-        (reduce-scatter), one collective a flat same-dtype bucket."""
-        mesh = self.mesh
-        D = mesh.data_size
-        full = [i for i in grads if not self._zero(i)]
-        zero = [i for i in grads if self._zero(i)]
-        out = {}
+        (``parallel.mesh.reduce_over_data``)."""
+        D = self.mesh.data_size
+        zero = {}
+        if any(self._zero(i) for i in grads):
+            dp = self.mesh.group(("dp",))
+            zero = {i: (lambda k, i=i: self._sliced(
+                i, self._state_specs[i], dp.members[k]))
+                for i in grads if self._zero(i)}
+        out = mesh_mod.reduce_over_data(self.mesh, grads, zero)
         if D > 1:
-            group = mesh.data_group
-            for run in _by_dtype(full, lambda i: grads[i].dtype):
-                for bucket in _buckets(
-                        run, lambda i: grads[i].numel()
-                        * grads[i].element_size()):
-                    flat = torch.cat([grads[i].reshape(-1) for i in bucket])
-                    group.all_reduce_(flat, "grad")
-                    flat.div_(D)
-                    off = 0
-                    for i in bucket:
-                        n = grads[i].numel()
-                        out[i] = flat[off:off + n].view(grads[i].shape)
-                        off += n
-        else:
-            out.update({i: grads[i] for i in full})
-        if zero:
-            dp = mesh.group(("dp",))
-            dcn = mesh.group(("dcn",)) if "dcn" in mesh.axis_names else None
-            for run in _by_dtype(zero, lambda i: grads[i].dtype):
-                for bucket in _buckets(
-                        run, lambda i: grads[i].numel()
-                        * grads[i].element_size()):
-                    # member r's chunk: every parameter's dp slice r
-                    flat = torch.cat([
-                        grads[i][self._sliced(i, self._state_specs[i],
-                                              m)].reshape(-1)
-                        for m in dp.members for i in bucket])
-                    if dcn is not None:
-                        dcn.all_reduce_(flat, "grad")
-                    mine = dp.reduce_scatter(flat, "grad")
-                    mine.div_(D)
-                    off = 0
-                    for i in bucket:
-                        sl = self._sliced(i, self._state_specs[i])
-                        shape = grads[i][sl].shape
-                        n = int(np.prod(shape, dtype=np.int64))
-                        out[i] = mine[off:off + n].view(shape)
-                        off += n
+            for g in out.values():
+                g.div_(D)
         return out
 
     def _body(self, *inputs):

@@ -33,9 +33,11 @@ BatchNorm statistic of the port is summed over it (:func:`sum_stats`, an
 all-reduce whose backward is an all-reduce) before the mean and variance
 are taken.  An op's ``axis_name=`` names one mesh axis instead.
 
-``spmd_jit``, ``shard_map``, ``pcast`` and ``vma`` are JAX tracing helpers;
-they come with part 2b of the distributed slice (its lowering) and raise
-naming it.
+``spmd_jit``, ``shard_map``, ``pcast`` and ``vma`` are JAX tracing helpers
+and are not ported: the port writes its collectives itself
+(``parallel.spmd.products``, ``parallel.spmd.lowering``), and a captured
+step with collectives inside it comes with slice 7, part 2b, piece 4.  They
+raise saying so.
 """
 from __future__ import annotations
 
@@ -47,18 +49,18 @@ import time
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, getenv
 from . import dist
 
 _log = logging.getLogger("mxnet_tpu_torch.parallel.mesh")
 
-_PART2B = ("part 2b of the distributed slice (slice 7, part 2b; ROADMAP.md "
-           "queue 1)")
 
-
-def _later(what):
-    return MXNetError(f"parallel.mesh: {what} is not ported yet; it comes "
-                      f"with {_PART2B}")
+def _tracing_helper(what):
+    return MXNetError(
+        f"parallel.mesh: {what} is a JAX tracing helper and is not ported: "
+        "the port writes the collectives of a mesh step itself "
+        "(parallel.spmd.products); a captured step with collectives inside "
+        "it comes with slice 7, part 2b, piece 4 (ROADMAP.md queue 1)")
 
 
 def _one_rank_per_device(n):
@@ -70,7 +72,7 @@ def _one_rank_per_device(n):
 
 # -- traffic counters ---------------------------------------------------------
 
-_STAT_KINDS = ("grad", "param", "stats", "loss", "broadcast")
+_STAT_KINDS = ("grad", "param", "act", "stats", "loss", "broadcast")
 _stats_lock = threading.Lock()
 _stats = {}
 
@@ -89,8 +91,10 @@ def comm_stats():
     """``{kind: {"calls", "bytes", "ms"}}`` of this process's collectives
     since :func:`reset_comm_stats`: ``grad`` (gradient all-reduces and
     reduce-scatters), ``param`` (all-gathers of sharded parameters and
-    updated slices), ``stats`` (BatchNorm statistics, forward and
-    backward), ``loss`` and ``broadcast``.  ``ms`` is host wall time from
+    updated slices), ``act`` (the activations and input gradients of the
+    products split over ``mp``, ``parallel.spmd.products``), ``stats``
+    (BatchNorm statistics, forward and backward), ``loss`` and
+    ``broadcast``.  ``ms`` is host wall time from
     the call to the collective's completion (staging copies included)."""
     with _stats_lock:
         return {k: dict(v) for k, v in _stats.items()}
@@ -483,6 +487,121 @@ def shard_param_spec(shape, mesh, tp_axis="tp"):
     return tuple(dims)
 
 
+# -- placement and gradient collectives, in flat same-dtype buckets -----------
+#
+# Shared by the mesh trainers (``DataParallelTrainer`` and the mesh step of
+# ``gluon.Trainer``, ``parallel.spmd.lowering``): they differ in how they
+# compute, not in how they place values or sum gradients.
+
+
+def buckets(items, nbytes):
+    """``items`` in consecutive runs of at most the bucket cap
+    (``MXTPU_KVSTORE_BUCKET_MB``, default 32, the kvstore's) each."""
+    cap = max(int(getenv("KVSTORE_BUCKET_MB", 32.0, float) * (1 << 20)), 1)
+    run, size = [], 0
+    for it in items:
+        n = nbytes(it)
+        if run and size + n > cap:
+            yield run
+            run, size = [], 0
+        run.append(it)
+        size += n
+    if run:
+        yield run
+
+
+def by_dtype(items, dtype_of):
+    """``items`` grouped by dtype, each group in ``items``' order."""
+    out = {}
+    for it in items:
+        out.setdefault(dtype_of(it), []).append(it)
+    return out.values()
+
+
+def _flat_buckets(items, tensor_of):
+    """``items`` in flat same-dtype buckets: ``(bucket, flat)`` pairs, the
+    flat tensor the concatenation of ``tensor_of(item)`` over the bucket."""
+    for run in by_dtype(items, lambda it: tensor_of(it).dtype):
+        for bucket in buckets(run, lambda it: tensor_of(it).numel()
+                              * tensor_of(it).element_size()):
+            yield bucket, torch.cat([tensor_of(it).reshape(-1)
+                                     for it in bucket])
+
+
+def place(mesh, values, specs):
+    """Rank 0's ``values`` (full tensors, overwritten in place on every
+    other rank: one broadcast a bucket over the whole mesh), each then cut
+    to this rank's shard under its spec (a copy; the value itself where
+    the spec is ``()``).  Every rank must place the same parameters in the
+    same order.  The JAX package's ``global_put`` assumes every process
+    holds the same value; here rank 0's wins, so ranks whose generators
+    drew different initial weights start alike."""
+    if mesh.size > 1 and values:
+        world = mesh.group(mesh.axis_names)
+        for bucket, flat in _flat_buckets(values, lambda v: v):
+            world.broadcast_(flat, 0)
+            off = 0
+            for v in bucket:
+                v.copy_(flat[off:off + v.numel()].view(v.shape))
+                off += v.numel()
+    return [v[shard_slices(sp, tuple(v.shape), mesh)].clone() if sp else v
+            for v, sp in zip(values, specs)]
+
+
+def reduce_over_data(mesh, grads, zero_slice=None):
+    """Each gradient of ``grads`` (``{i: g}``) summed over ``mesh``'s data
+    axes, one collective a flat same-dtype bucket: the whole of it (an
+    all-reduce), or for an ``i`` of ``zero_slice`` this rank's ``dp`` slice
+    of the sum (a ZeRO state: an all-reduce over ``dcn`` where there is
+    one, then a reduce-scatter over ``dp``).  ``zero_slice[i](k)`` indexes
+    ``dp`` member ``k``'s slice of ``grads[i]``.  Returns ``{i: sum}``."""
+    zero_slice = zero_slice or {}
+    full = [i for i in grads if i not in zero_slice]
+    zero = [i for i in grads if i in zero_slice]
+    out = {i: grads[i] for i in full}
+    if mesh.data_size > 1:
+        group = mesh.data_group
+        for bucket, flat in _flat_buckets(full, lambda i: grads[i]):
+            group.all_reduce_(flat, "grad")
+            off = 0
+            for i in bucket:
+                n = grads[i].numel()
+                out[i] = flat[off:off + n].view(grads[i].shape)
+                off += n
+    if zero:
+        dp = mesh.group(("dp",))
+        dcn = mesh.group(("dcn",)) if "dcn" in mesh.axis_names else None
+        for run in by_dtype(zero, lambda i: grads[i].dtype):
+            for bucket in buckets(run, lambda i: grads[i].numel()
+                                  * grads[i].element_size()):
+                # member k's chunk: every gradient's dp slice k
+                flat = torch.cat([grads[i][zero_slice[i](k)].reshape(-1)
+                                  for k in range(dp.size) for i in bucket])
+                if dcn is not None:
+                    dcn.all_reduce_(flat, "grad")
+                mine = dp.reduce_scatter(flat, "grad")
+                off = 0
+                for i in bucket:
+                    shape = grads[i][zero_slice[i](dp.index)].shape
+                    n = int(np.prod(shape, dtype=np.int64))
+                    out[i] = mine[off:off + n].view(shape)
+                    off += n
+    return out
+
+
+def gather_pieces(group, pieces, put, kind="param"):
+    """Every member's piece of each of ``pieces`` (``[(i, this rank's
+    tensor)]``, the same shapes on every member), one all-gather a flat
+    same-dtype bucket over ``group``: ``put(i, k, piece)`` receives member
+    ``k``'s (its index in the group)."""
+    for bucket, flat in _flat_buckets(pieces, lambda it: it[1]):
+        for k, part in enumerate(group.all_gather(flat, kind)):
+            off = 0
+            for i, t in bucket:
+                put(i, k, part[off:off + t.numel()].view(t.shape))
+                off += t.numel()
+
+
 # -- synchronised BatchNorm statistics ----------------------------------------
 
 _scope = threading.local()
@@ -553,16 +672,16 @@ def sum_stats(tensors, axis_name=None):
 
 
 def spmd_jit(sharded_fn, mesh, in_specs, out_specs, **kwargs):
-    raise _later("spmd_jit (a traced step over a mesh)")
+    raise _tracing_helper("spmd_jit (a traced step over a mesh)")
 
 
 def shard_map():
-    raise _later("shard_map (per-shard tracing)")
+    raise _tracing_helper("shard_map (per-shard tracing)")
 
 
 def pcast(x, axis_name, to):
-    raise _later("pcast (a varying-manual-axes annotation)")
+    raise _tracing_helper("pcast (a varying-manual-axes annotation)")
 
 
 def vma(x):
-    raise _later("vma (the varying-manual-axes set)")
+    raise _tracing_helper("vma (the varying-manual-axes set)")

@@ -357,9 +357,10 @@ def test_port_trainer_states_resume_in_jax(opt, opt_args, tmp_path):
 def test_trainer_states_versions_and_later_slices(tmp_path):
     """The round-0 layout loads, an unrecognized or newer blob is
     rejected with the JAX wording, a malformed ZeRO entry is rejected,
-    a blob saved on a mesh (part 2b, piece 2) raises naming the
-    distributed slice, and a kvstore-side updater's blob raises on a
-    Trainer that updates locally, as in the JAX package."""
+    a blob whose ``"mesh_shape"`` is no mesh shape is rejected by
+    ``check_mesh_change`` (a valid one loads: tests/test_torch_spmd.py),
+    and a kvstore-side updater's blob raises on a Trainer that updates
+    locally, as in the JAX package."""
     net, tr = _port()
     _train(net, tr, 1)
     tr.load_states_dict({"states": {}, "num_update": 7,
@@ -371,7 +372,7 @@ def test_trainer_states_versions_and_later_slices(tmp_path):
         tr.load_states_dict({"version": 99, "states": {}})
     for key, match in (("zero", "malformed ZeRO-1"),
                        ("kvstore", "kvstore-side updater"),
-                       ("mesh_shape", "distributed slice")):
+                       ("mesh_shape", "unknown mesh axis 'x'")):
         blob = dict(tr.states_dict(), **{key: {"x": 1}})
         with pytest.raises(MXNetError, match=match):
             tr.load_states_dict(blob)

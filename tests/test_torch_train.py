@@ -422,13 +422,20 @@ def test_split_and_load():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"kvstore": "dist_async"}, "distributed"),
-    ({"kvstore": "dist_device_async", "update_on_kvstore": True},
-     "update_on_kvstore"),
-    ({"zero_shard": True, "mesh_shape": "dp=2,mp=2"}, "ZeRO"),
-    ({"sharding_plan": {"dp": 2}}, "sharding_plan"),
-    ({"mesh_shape": "dp=2,mp=2"}, "mesh_shape"),
-    ({"compression_params": {"type": "1bit"}}, "compression"),
+    pytest.param({"kvstore": "dist_async"}, "distributed",
+                 id="kwargs0-distributed"),
+    pytest.param({"kvstore": "dist_device_async", "update_on_kvstore": True},
+                 "update_on_kvstore", id="kwargs1-update_on_kvstore"),
+    # a mesh shape is parsed at construction (the mesh is made at the
+    # first whole step: tests/test_torch_spmd.py): a malformed one raises
+    pytest.param({"zero_shard": True, "mesh_shape": "mp=2,dp=2"},
+                 "canonical order", id="kwargs2-ZeRO"),
+    pytest.param({"sharding_plan": {"dp": 2}}, "sharding_plan given but no "
+                 "mesh_shape", id="kwargs3-sharding_plan"),
+    pytest.param({"mesh_shape": "dp=2,tp=2"}, "unknown mesh axis 'tp'",
+                 id="kwargs4-mesh_shape"),
+    pytest.param({"compression_params": {"type": "1bit"}}, "compression",
+                 id="kwargs5-compression"),
 ])
 def test_trainer_raises_for_what_later_slices_bring(kwargs, match):
     ps = _params([(2,)])
