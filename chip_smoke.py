@@ -269,8 +269,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
     rest, the peak memory a rank (phase 22 prints it beside its
     ``{tp:2}`` figure) and the save and restore seconds are printed.
 
+25. the ``pp`` and ``sp`` axes: 2 ranks that the launcher starts (each
+    running this script with ``--pp-worker DIR``; gloo on one card, NCCL
+    with 2+) train the pipeline LM (``parallel.pipeline_lm``) at GPT-2
+    small's widths (vocabulary 50257, context 1024, 12 layers of 768, 12
+    heads of 64, FFN 3072; pre-LN blocks, untied head; fp32, TF32 off) from
+    ``init_pipeline_lm``'s draws rescaled to GPT-2's published init
+    (``gpt2_scale``) on one batch of 8 x 1024 (targets the tokens rolled
+    by one) in 4 micro-batches: over ``{pp:2}`` the first step's
+    loss and gradients, then ``PP_STEPS`` Adam steps at lr 3e-4; over
+    ``{sp:2}`` (Ulysses in every block) ``PP_SP_STEPS`` steps; the ring
+    shift and the all-to-all at the path's shapes on CUDA tensors against
+    the same calls on CPU tensors; ring and Ulysses attention at b=1, h=12,
+    s=4096, d=64, causal.  This process runs ``reference_lm_loss`` on
+    gpu(0) from the same weights, and prints what fp32 rounding alone does
+    to it from the JAX package's own init scales (the whole batch against
+    its micro-batches).  Gates: the backend the rule names; the
+    collectives bit-identical to CPU tensors; ``{pp:2}``: losses finite and
+    the last below the first, the first within ``PP_LOSS_RTOL`` of the
+    reference, the gradients of ``embed.tok``, layer 0's ``wqkv`` and
+    ``head.w`` within ``PP_GRAD_TOL`` of their largest value, every
+    parameter finite and changed, 24 launches of each flash kernel a rank
+    a step; ``{sp:2}``: the first loss within ``PP_LOSS_RTOL``, both ranks
+    bit-identical after every step, 48 launches of each flash kernel a rank
+    a step; no plain call; the attention entries within ``PP_ATTN_TOL`` of
+    ``sdpa_reference``.  The step medians, the collectives' bytes and
+    times and the peak memory a rank are printed.  Phase 3 also holds the
+    flash kernels against their plain versions at this path's causal
+    micro-batch (b=2, h=12, s=1024, d=64) and times them there.
+
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 21, 22: every
+24, 21, 22, 25: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -463,6 +492,22 @@ MESH_BERT_BATCH, MESH_BERT_SEQ, MESH_BERT_STEPS = 16, 128, 4
 MESH_ADAMW = {"learning_rate": 1e-4, "wd": 0.01}
 MESH_LOSS_RTOL = TRAIN_LOSS_RTOL
 MESH_TIMEOUT_S = 400
+# phase 25, the pp and sp axes: the pipeline LM at GPT-2 small's published
+# widths (Radford et al. 2019, the 124M model: vocabulary 50257, context
+# 1024, 12 x 768, 12 heads, FFN 3072) with this LM's pre-LN blocks and
+# untied head, fp32; 2 ranks over {pp:2} (PP_STEPS steps) and {sp:2}
+# (PP_SP_STEPS); the first loss against one process within BERT's
+# card-vs-CPU limit and the gradients within 1e-3 of their largest value
+# (PERF.md section 2); ring and Ulysses attention at PP_ATTN, causal,
+# within 1e-4 of the oracle
+PP_VOCAB, PP_CTX, PP_D, PP_LAYERS, PP_HEADS, PP_FF = 50257, 1024, 768, 12, \
+    12, 3072
+PP_RANKS, PP_BATCH, PP_MICRO, PP_STEPS, PP_SP_STEPS = 2, 8, 4, 4, 2
+PP_LR = 3e-4
+PP_LOSS_RTOL, PP_GRAD_TOL, PP_ATTN_TOL = TRAIN_LOSS_RTOL, 1e-3, 1e-4
+PP_ATTN = (1, 12, 4096, 64)
+PP_COMM_ITERS = 5
+PP_TIMEOUT_S = 400
 # the cells against the fused layers, max |err| over max |fused|: fp32,
 # the same products summed in other orders through 35 steps of 2 layers
 CELL_RTOL = 1e-4
@@ -740,6 +785,9 @@ def fwd_shapes(mx):
                    np.random.RandomState(7).randint(33, s + 1,
                                                     size=TFM_BATCH),
                    "packed", 7))
+    shapes.append(("gpt2_pp", PP_BATCH // PP_MICRO, PP_HEADS, PP_CTX, PP_CTX,
+                   PP_D // PP_HEADS, ("float32",), ("causal",), None,
+                   "packed", 25))
     valid = np.asarray(decode_rows(mx)[1]).astype(np.int64)
     for rows in (TFM_DECODE_ROWS, TFM_BEAM * TFM_DECODE_ROWS):
         vl = np.repeat(valid, rows // TFM_DECODE_ROWS)  # beam's row order
@@ -855,7 +903,7 @@ def check_flash_attention(mx):
                 rec = {"max_abs_err": o_err, "ms": kern_ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms}
-                if label.startswith(("transformer", "decode")):
+                if label.startswith(("transformer", "decode", "gpt2")):
                     by_shape.setdefault(label, {})[mask] = dict(
                         rec, lse_err=lse_err)
                 if (label, dtype, mask) == ("bert", "float32",
@@ -891,7 +939,8 @@ def check_flash_attention_bwd(mx):
     ``{"dq"/"dkv": {mask: record}}`` at Transformer-big's bucket-64
     training shape (b=64, h=16, s=64, d=64, fp32; causal, the decoder's
     self-attention, and key-padded, the encoder's and the
-    cross-attention).
+    cross-attention) and under "gpt2_pp" at phase 25's micro-batch (b=2,
+    h=12, s=1024, d=64, fp32, causal).
 
     q, k and v are head views of one packed ``(b, s, 3*h*d)`` tensor and
     dO a head view of a ``(b, s, h*d)`` one, the layouts autograd hands
@@ -916,7 +965,9 @@ def check_flash_attention_bwd(mx):
               ("serve", 8, 12, 512, 64, both, rng),
               ("d128", 8, 6, 512, 128, both, rng),
               ("transformer_big_b64", TFM_BATCH, 16, TFM_BUCKETS[-1], 64,
-               ("float32",), np.random.RandomState(7)))
+               ("float32",), np.random.RandomState(7)),
+              ("gpt2_pp", PP_BATCH // PP_MICRO, PP_HEADS, PP_CTX,
+               PP_D // PP_HEADS, ("float32",), np.random.RandomState(25)))
     for label, b, h, s, d, dtypes, srng in shapes:
         packed = torch.from_numpy(srng.randn(b, s, 3 * h * d)
                                   .astype(np.float32) * 0.5).to(dev)
@@ -933,6 +984,8 @@ def check_flash_attention_bwd(mx):
             cases.insert(1, "key_padding_dead_row")
         elif label == "transformer_big_b64":
             cases = ["causal", "key_padding"]
+        elif label == "gpt2_pp":
+            cases = ["causal"]
         for dtype in dtypes:
             dt = getattr(torch, dtype)
             q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in
@@ -1001,7 +1054,7 @@ def check_flash_attention_bwd(mx):
                     raise SystemExit(f"flash attention backward kernels "
                                      f"disagree with their plain version: "
                                      f"{label} {dtype} {mask}")
-                if label == "transformer_big_b64":
+                if label in ("transformer_big_b64", "gpt2_pp"):
                     tfm = main.setdefault(label, {"dq": {}, "dkv": {}})
                     for name, ms, err, (bms, bby) in (
                             ("dq", dq_ms, errs[0], dq_bound),
@@ -4855,6 +4908,377 @@ def train_bert_spmd(mx, card, d, data, ref_losses, want_backend):
             "spmd_bert_resume": resume_launches}
 
 
+# -- phase 25: the pp and sp axes at GPT-2 small's widths -----------------------
+
+
+def pp_tree(flat, stages):
+    """The pipeline LM's tree from ``weights.npz``'s flat keys, its blocks
+    stacked for ``stages`` stages (the draws are the same numbers whatever
+    the stacking)."""
+    tree = {}
+    for key, v in flat.items():
+        g, k = key.split(".")
+        if g == "blocks":
+            v = v.reshape((stages, PP_LAYERS // stages) + v.shape[2:])
+        tree.setdefault(g, {})[k] = v
+    return tree
+
+
+def gpt2_scale(params, n_layers, d_model, d_ff):
+    """Rescale ``init_pipeline_lm``'s draws of the block weights, in place,
+    to GPT-2's published init: N(0, 0.02), the residual projections (``wo``,
+    ``w2``) 0.02 / sqrt(2 n_layers); the embeddings and head are drawn at
+    0.02 already.  The JAX package's own scales put ``wqkv`` at sqrt(2/3)
+    whatever the width: at 768 the attention logits' spread is ~500, the
+    first loss ~260, and fp32 rounding moves the gradients by O(1)."""
+    import torch
+
+    resid = 0.02 / (2 * n_layers) ** 0.5
+    scale = {"wqkv": 0.02 / (2 / 3) ** 0.5,
+             "wo": resid / (2 / d_model) ** 0.5,
+             "w1": 0.02 / (2 / d_model) ** 0.5,
+             "w2": resid / (2 / d_ff) ** 0.5}
+    with torch.no_grad():
+        for k, f in scale.items():
+            params["blocks"][k].mul_(f)
+    return params
+
+
+def pp_launches(kernels):
+    return {name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
+            if name.startswith("flash_attention")}
+
+
+def pp_worker(workdir):
+    """A rank of phase 25 (``chip_smoke.py --pp-worker DIR`` under the port's
+    launcher): the collectives on CUDA tensors against CPU tensors, the
+    pipeline LM at GPT-2 small's widths from ``DIR/weights.npz`` on
+    ``DIR/batch.npz`` over ``{pp:2}`` (the first step's gradients, then
+    ``PP_STEPS`` steps) and over ``{sp:2}`` (``PP_SP_STEPS`` steps), and
+    ring and Ulysses attention over ``{sp:2}``; writes
+    ``DIR/pp-rank<r>.json`` and ``DIR/pp-grads-rank<r>.npz``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.attention import sdpa_reference
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+    from mxnet_tpu_torch.parallel import pipeline_lm as plm
+    from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+    from mxnet_tpu_torch.parallel.ulysses import ulysses_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    dist.init()
+    rank = dist.rank()
+    ctx = mx.gpu(rank if torch.cuda.device_count() >= PP_RANKS else 0)
+    torch.cuda.set_device(ctx.device_id)
+    with np.load(workdir / "weights.npz") as z:
+        flat = {k: z[k] for k in z.files}
+    with np.load(workdir / "batch.npz") as z:
+        toks, tgts = z["tokens"], z["targets"]
+    out = {"rank": rank, "backend": dist.backend(), "device": str(ctx)}
+
+    # (c) the ring shift and the all-to-all at the main path's shapes
+    mesh = mesh_mod.make_mesh({"dp": 1, "tp": 1, "pp": PP_RANKS}, ctx)
+    group = mesh.group(("pp",))
+    gen = torch.Generator().manual_seed(25 + rank)
+    act = torch.randn(PP_BATCH // PP_MICRO, PP_CTX, PP_D, generator=gen)
+    qkv = torch.randn(3, PP_BATCH // PP_MICRO, PP_HEADS, PP_CTX // PP_RANKS,
+                      PP_D // PP_HEADS, generator=gen)
+    calls = ((act, lambda t: mesh_mod.ring_shift(t, group)),
+             (qkv, lambda t: mesh_mod.all_to_all(t, group, 2, 3)))
+    out["collectives_bit_identical"] = all(
+        torch.equal(fn(t.cuda()).cpu(), fn(t)) for t, fn in calls)
+    times = {}
+    for (t, fn), kind in zip(calls, ("p2p", "a2a")):
+        t = t.cuda()
+        mesh_mod.reset_comm_stats()
+        for _ in range(PP_COMM_ITERS):
+            fn(t)
+        torch.cuda.synchronize()
+        times[kind] = mesh_mod.comm_stats()[kind]
+    out["collective_times"] = times
+
+    # (a) {pp:2}: the first step's gradients, then PP_STEPS Adam steps
+    tr = plm.PipelineLMTrainer(pp_tree(flat, PP_RANKS), mesh, PP_HEADS,
+                               n_micro=PP_MICRO, lr=PP_LR)
+    start = {(g, k): v.detach().clone() for g, s in tr.params.items()
+             for k, v in s.items()}
+    loss0, grads = tr.loss_and_grads(toks, tgts)
+    mine = {}
+    if group.index == 0:
+        mine["embed.tok"] = grads["embed"]["tok"]
+        mine["blocks.wqkv0"] = grads["blocks"]["wqkv"][0]
+    if group.index == PP_RANKS - 1:
+        mine["head.w"] = grads["head"]["w"]
+    np.savez(workdir / f"pp-grads-rank{rank}.npz",
+             **{k: v.cpu().numpy() for k, v in mine.items()})
+    del grads, mine
+    rec = {"loss0": loss0, "losses": [], "step_ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    mesh_mod.reset_comm_stats()
+    for _ in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["losses"].append(tr.step(toks, tgts))
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    rec["launches"] = pp_launches(kernels)
+    rec["plain_calls_on_cuda"] = fa.counts.plain_calls_on_cuda
+    rec["comm"] = mesh_mod.comm_stats()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["finite"] = all(bool(torch.isfinite(v).all()) for s in
+                        tr.params.values() for v in s.values())
+    rec["unchanged"] = [f"{g}.{k}" for (g, k), v in start.items()
+                        if torch.equal(v, tr.params[g][k])]
+    rec["stage"] = group.index
+    out["pp2"] = rec
+    del tr, start
+    torch.cuda.empty_cache()
+
+    # (b) {sp:2}: Ulysses inside every block, PP_SP_STEPS Adam steps
+    mesh = mesh_mod.make_mesh({"dp": 1, "sp": PP_RANKS, "tp": 1, "pp": 1},
+                              ctx)
+    tr = plm.PipelineLMTrainer(pp_tree(flat, 1), mesh, PP_HEADS,
+                               n_micro=PP_MICRO, lr=PP_LR)
+    rec = {"losses": [], "step_ms": [], "digests": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    mesh_mod.reset_comm_stats()
+    for _ in range(PP_SP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["losses"].append(tr.step(toks, tgts))
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["digests"].append(digest(v for g in sorted(tr.params) for _, v in
+                                     sorted(tr.params[g].items())))
+    rec["launches"] = pp_launches(kernels)
+    rec["plain_calls_on_cuda"] = fa.counts.plain_calls_on_cuda
+    rec["comm"] = mesh_mod.comm_stats()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    out["sp2"] = rec
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d) ring and Ulysses attention over {sp:2} against the oracle
+    mesh = mesh_mod.make_mesh({"sp": PP_RANKS}, ctx)
+    rng = np.random.RandomState(26)
+    q, k, v = (torch.from_numpy(rng.rand(*PP_ATTN).astype(np.float32) * 0.5)
+               .to(ctx.torch_device()) for _ in range(3))
+    ref = sdpa_reference(q, k, v, causal=True)
+    attn = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        got = fn(q, k, v, mesh=mesh, causal=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PP_COMM_ITERS):
+            fn(q, k, v, mesh=mesh, causal=True)
+        torch.cuda.synchronize()
+        attn[name] = {"max_abs_err": (got - ref).abs().max().item(),
+                      "ms": (time.perf_counter() - t0) * 1e3 / PP_COMM_ITERS}
+    out["attention"] = attn
+    with open(workdir / f"pp-rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def pp_rounding_floor(mx, plm, params, toks, tgts):
+    """What fp32 rounding alone does to ``reference_lm_loss`` from
+    ``params`` on gpu(0): the loss and the largest gradient gaps (of
+    ``embed.tok`` and ``head.w``, of their largest value) between the whole
+    batch at once and the same rows in ``PP_MICRO`` micro-batches (the mean
+    of their losses)."""
+    import numpy as np
+    import torch
+
+    dev = mx.gpu(0).torch_device()
+    runs = []
+    for parts in (1, PP_MICRO):
+        tree = {g: {k: v.to(dev, copy=True).requires_grad_()
+                    for k, v in s.items()} for g, s in params.items()}
+        total = 0.0
+        for x, y in zip(np.array_split(toks, parts),
+                        np.array_split(tgts, parts)):
+            loss = plm.reference_lm_loss(tree, x, y, PP_HEADS) / parts
+            loss.backward()
+            total += float(loss.detach())
+        runs.append((total, {k: tree[g][k].grad for g, k in
+                             (("embed", "tok"), ("head", "w"))}))
+        del tree
+    (a, ga), (b, gb) = runs
+    out = {"loss": a, "loss_rel_gap": abs(a - b) / abs(a)}
+    out.update({k: ((ga[k] - gb[k]).abs().max() / ga[k].abs().max()).item()
+                for k in ga})
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_pipeline_lm(mx, card):
+    """Phase 25 (see the module docstring).  Returns the launches by
+    path."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import pipeline_lm as plm
+
+    gpu = mx.gpu(0)
+    want_backend = dist.choose_backend(PP_RANKS)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(25)
+    toks = rng.randint(0, PP_VOCAB, (PP_BATCH, PP_CTX))
+    tgts = np.roll(toks, -1, axis=1)
+    with tempfile.TemporaryDirectory(prefix="pp-smoke-", dir=ROOT) as d:
+        d = Path(d)
+        jax_init = plm.init_pipeline_lm(PP_VOCAB, PP_D, PP_LAYERS, PP_FF,
+                                        PP_HEADS, PP_CTX, PP_RANKS,
+                                        ctx=mx.cpu())
+        floor = pp_rounding_floor(mx, plm, jax_init, toks, tgts)
+        params = gpt2_scale(jax_init, PP_LAYERS, PP_D, PP_FF)
+        del jax_init
+        np.savez(d / "weights.npz", **{f"{g}.{k}": v.numpy() for g, s in
+                                       params.items() for k, v in s.items()})
+        np.savez(d / "batch.npz", tokens=toks, targets=tgts)
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+               str(PP_RANKS), "--launcher", "local", "-p", str(free_port()),
+               sys.executable, str(ROOT / "chip_smoke.py"), "--pp-worker",
+               str(d)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
+                              capture_output=True, timeout=PP_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr).strip().splitlines()
+        log("pp: the workers' log (last lines):\n  "
+            + "\n  ".join(tail[-8:]))
+        if proc.returncode:
+            raise SystemExit(f"pp: the launch exited {proc.returncode}")
+        ranks = [json.loads((d / f"pp-rank{r}.json").read_text())
+                 for r in range(PP_RANKS)]
+        got = {}
+        for r in range(PP_RANKS):
+            with np.load(d / f"pp-grads-rank{r}.npz") as z:
+                got.update({k: z[k] for k in z.files})
+        # the one-process reference on gpu(0) from the same weights
+        tree = {g: {k: v.to(gpu.torch_device(), copy=True)
+                    .requires_grad_() for k, v in s.items()}
+                for g, s in params.items()}
+        del params
+        kernels.reset_counts()
+        loss = plm.reference_lm_loss(tree, toks, tgts, PP_HEADS)
+        loss.backward()
+        ref_loss = float(loss.detach())
+        ref_launches = pp_launches(kernels)
+        want = {"embed.tok": tree["embed"]["tok"].grad,
+                "blocks.wqkv0": tree["blocks"]["wqkv"].grad[0, 0],
+                "head.w": tree["head"]["w"].grad}
+        grad_err = {k: ((torch.from_numpy(got[k]).to(w.device) - w).abs()
+                        .max() / w.abs().max()).item()
+                    for k, w in want.items()}
+        del tree, want, loss
+        torch.cuda.empty_cache()
+    pp, sp = [r["pp2"] for r in ranks], [r["sp2"] for r in ranks]
+    pp_gap = abs(pp[0]["loss0"] - ref_loss) / ref_loss
+    sp_gap = abs(sp[0]["losses"][0] - ref_loss) / ref_loss
+    checks = {
+        "pp_backend": all(r["backend"] == want_backend for r in ranks),
+        "pp_collectives_bit_identical_to_cpu": all(
+            r["collectives_bit_identical"] for r in ranks),
+        "pp2_losses_finite_and_falling": all(
+            np.isfinite(p["losses"]).all() and p["losses"][-1]
+            < p["losses"][0] for p in pp),
+        "pp2_first_loss_vs_one_process": pp_gap <= PP_LOSS_RTOL,
+        "pp2_gradients_vs_one_process": max(grad_err.values())
+        <= PP_GRAD_TOL,
+        "pp2_parameters_finite_and_changed": all(
+            p["finite"] and not p["unchanged"] for p in pp),
+        "pp2_launches": all(n == PP_LAYERS // PP_RANKS * PP_MICRO * PP_STEPS
+                            for p in pp for n in p["launches"].values())
+        and all(len(p["launches"]) == 3 for p in pp),
+        "sp2_first_loss_vs_one_process": sp_gap <= PP_LOSS_RTOL,
+        "sp2_ranks_bit_identical": all(
+            s["digests"] == sp[0]["digests"] and s["losses"]
+            == sp[0]["losses"] for s in sp),
+        "sp2_launches": all(n == PP_LAYERS * PP_MICRO * PP_SP_STEPS
+                            for s in sp for n in s["launches"].values())
+        and all(len(s["launches"]) == 3 for s in sp),
+        "plain_calls_on_cuda": all(p["plain_calls_on_cuda"] == 0
+                                   for p in pp + sp),
+        "attention_vs_oracle": all(
+            a["max_abs_err"] <= PP_ATTN_TOL for r in ranks
+            for a in r["attention"].values()),
+    }
+    devices = ", ".join(r["device"] for r in ranks)
+    log(f"pp: GPT-2 small's widths (vocab {PP_VOCAB}, context {PP_CTX}, "
+        f"{PP_LAYERS} x {PP_D}, {PP_HEADS} heads, FFN {PP_FF}; fp32, TF32 "
+        f"off), {PP_RANKS} ranks ({devices}; backend {ranks[0]['backend']},"
+        f" the rule says {want_backend}), batch {PP_BATCH} x {PP_CTX} in "
+        f"{PP_MICRO} micro-batches, Adam lr {PP_LR}: launch {launch_s:.1f} s"
+        f"; on {card}")
+    log(f"pp {{pp:2}}: first loss {pp[0]['loss0']} vs one process "
+        f"{ref_loss}: rel gap {pp_gap:.3g} (rtol {PP_LOSS_RTOL}); gradients "
+        f"against one process (of their largest value): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items())
+        + f" (limit {PP_GRAD_TOL}); losses {pp[0]['losses']}; launches a "
+        f"rank {[p['launches'] for p in pp]} "
+        f"({PP_LAYERS // PP_RANKS * PP_MICRO} each a step); step median "
+        f"{[statistics.median(p['step_ms'][1:]) for p in pp]} ms a rank; "
+        f"p2p over {PP_STEPS} steps {[p['comm']['p2p'] for p in pp]}; peak "
+        f"memory {[p['peak'] / 2**30 for p in pp]} GiB a rank; on {card}")
+    log(f"pp {{sp:2}}: losses {sp[0]['losses']} (first vs one process: rel "
+        f"gap {sp_gap:.3g}); ranks bit-identical after every step "
+        f"{checks['sp2_ranks_bit_identical']}; launches a rank "
+        f"{[s['launches'] for s in sp]} ({PP_LAYERS * PP_MICRO} each a step);"
+        f" step median {[statistics.median(s['step_ms'][1:]) for s in sp]} "
+        f"ms a rank; a2a {[s['comm']['a2a'] for s in sp]}, gradient "
+        f"all-reduce {[s['comm']['grad'] for s in sp]} over {PP_SP_STEPS} "
+        f"steps; peak memory {[s['peak'] / 2**30 for s in sp]} GiB a rank; "
+        f"on {card}")
+    mb, n = PP_BATCH // PP_MICRO, PP_COMM_ITERS
+    act_shape = (mb, PP_CTX, PP_D)
+    qkv_shape = (3, mb, PP_HEADS, PP_CTX // PP_RANKS, PP_D // PP_HEADS)
+    for r in ranks:
+        c = r["collective_times"]
+        log(f"pp: rank {r['rank']}: the ring shift of a {act_shape} "
+            f"activation {c['p2p']['bytes'] / n:.0f} B in "
+            f"{c['p2p']['ms'] / n:.3f} ms, the all-to-all of a {qkv_shape} "
+            f"q/k/v {c['a2a']['bytes'] / n:.0f} B in {c['a2a']['ms'] / n:.3f}"
+            f" ms (comm_stats, host clock, CUDA tensors; bit-identical to "
+            f"CPU tensors {r['collectives_bit_identical']}); ring and "
+            f"Ulysses attention {PP_ATTN} causal: {r['attention']} (limit "
+            f"{PP_ATTN_TOL} against sdpa_reference); on {card}")
+    log(f"pp: the JAX package's init at these widths (wqkv drawn at "
+        f"sqrt(2/3)), one process on gpu(0), the whole batch against its 4 "
+        f"micro-batches: first loss {floor['loss']}, rel gap "
+        f"{floor['loss_rel_gap']:.3g}; gradient gaps of their largest value:"
+        f" embed.tok {floor['tok']:.3g}, head.w {floor['w']:.3g} (fp32 "
+        f"rounding alone; phase 25 trains from GPT-2's published init "
+        f"scale, gpt2_scale); on {card}")
+    log(f"pp: phase 25 took {time.perf_counter() - t_phase:.1f} s; bubble "
+        f"n_micro/(n_micro+P-1) = {PP_MICRO}/{PP_MICRO + PP_RANKS - 1}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"pp checks failed: {failed}")
+    return {"pp_lm_train": {k: sum(p["launches"][k] for p in pp)
+                            for k in pp[0]["launches"]},
+            "sp_lm_train": {k: sum(s["launches"][k] for s in sp)
+                            for k in sp[0]["launches"]},
+            "pp_lm_reference": ref_launches}
+
+
 # -- phases 21-22: DataParallelTrainer over a mesh ------------------------------
 
 
@@ -5310,6 +5734,8 @@ def main():
                     help="run one rank of phase 23 (the launcher does)")
     ap.add_argument("--spmd-worker", metavar="DIR", default=None,
                     help="run one rank of phase 24 (the launcher does)")
+    ap.add_argument("--pp-worker", metavar="DIR", default=None,
+                    help="run one rank of phase 25 (the launcher does)")
     ap.add_argument("--mesh-worker", metavar=("DIR", "PHASE"), nargs=2,
                     default=None,
                     help="run one rank of phase 21 (resnet) or 22 (bert); "
@@ -5321,6 +5747,8 @@ def main():
         return zero_worker(args.zero_worker)
     if args.spmd_worker is not None:
         return spmd_worker(args.spmd_worker)
+    if args.pp_worker is not None:
+        return pp_worker(args.pp_worker)
     if args.mesh_worker is not None:
         return mesh_worker(*args.mesh_worker)
     if not torch.cuda.is_available():
@@ -5377,6 +5805,7 @@ def main():
     flash, tfm_fwd = check_flash_attention(mx)
     bwd = check_flash_attention_bwd(mx)
     tfm_bwd = bwd.pop("transformer_big_b64")
+    gpt2_fwd, gpt2_bwd = tfm_fwd.pop("gpt2_pp")["causal"], bwd.pop("gpt2_pp")
     train = train_bert(mx, card, bwd, profile=args.profile_train)
     rkern = check_resnet_kernels(torch.device("cuda", 0))
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
@@ -5406,6 +5835,7 @@ def main():
     dist_launches = train_bert_dist(mx, card)
     mesh_resnet = train_mesh_resnet(mx, card)["mesh_resnet_train"]
     dist_launches.update(train_mesh_bert(mx, card))
+    dist_launches.update(train_pipeline_lm(mx, card))
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -5428,6 +5858,7 @@ def main():
              replaces=f"{src}:30,104", launches=sum(fwd_by_path.values()),
              launches_by_path=fwd_by_path,
              transformer_big_b64=tfm_fwd.pop("transformer_big_b64"),
+             gpt2_causal_s1024=gpt2_fwd,
              transformer_decode=tfm_fwd, **flash),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5435,6 +5866,7 @@ def main():
              launches=sum(bwd_by_path["flash_attention_bwd_dq"].values()),
              launches_by_path=bwd_by_path["flash_attention_bwd_dq"],
              transformer_big_b64=tfm_bwd["dq"],
+             gpt2_causal_s1024=gpt2_bwd["dq"]["causal"],
              **bwd["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5442,6 +5874,7 @@ def main():
              launches=sum(bwd_by_path["flash_attention_bwd_dkv"].values()),
              launches_by_path=bwd_by_path["flash_attention_bwd_dkv"],
              transformer_big_b64=tfm_bwd["dkv"],
+             gpt2_causal_s1024=gpt2_bwd["dkv"]["causal"],
              **bwd["dkv"]),
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",

@@ -23,7 +23,12 @@ staged as the backend needs (``gloo``: through the host; ``nccl``: on the
 rank's card).  Its reduce-scatter and all-gather take a route decided when
 the mesh is made, from the backend (``nccl``: ``reduce_scatter_tensor`` and
 ``all_gather_into_tensor``; ``gloo``: an all-reduce and a slice, and
-``all_gather`` of a list), never after a failure.  :func:`comm_stats`
+``all_gather`` of a list), never after a failure.  Its point-to-point
+calls (:meth:`Group.send`, :meth:`Group.recv` and the ring shift
+:meth:`Group.shift`, JAX's ``ppermute``) and its tiled all-to-all
+(:meth:`Group.all_to_all`, ``all_to_all_single`` on both backends: gloo has
+it) serve the ``pp`` and ``sp`` axes; :func:`ring_shift` and
+:func:`all_to_all` are their differentiable forms.  :func:`comm_stats`
 counts each kind of traffic (calls, bytes, host milliseconds).
 
 Synchronised BatchNorm statistics: :func:`data_scope` (the
@@ -72,7 +77,8 @@ def _one_rank_per_device(n):
 
 # -- traffic counters ---------------------------------------------------------
 
-_STAT_KINDS = ("grad", "param", "act", "stats", "loss", "broadcast")
+_STAT_KINDS = ("grad", "param", "act", "stats", "loss", "broadcast", "p2p",
+               "a2a")
 _stats_lock = threading.Lock()
 _stats = {}
 
@@ -93,8 +99,10 @@ def comm_stats():
     reduce-scatters), ``param`` (all-gathers of sharded parameters and
     updated slices), ``act`` (the activations and input gradients of the
     products split over ``mp``, ``parallel.spmd.products``), ``stats``
-    (BatchNorm statistics, forward and backward), ``loss`` and
-    ``broadcast``.  ``ms`` is host wall time from
+    (BatchNorm statistics, forward and backward), ``loss``,
+    ``broadcast``, ``p2p`` (the sends, receives and ring shifts of the
+    ``pp`` and ``sp`` axes; bytes sent) and ``a2a`` (all-to-alls; bytes
+    sent, this rank's own chunk included).  ``ms`` is host wall time from
     the call to the collective's completion (staging copies included)."""
     with _stats_lock:
         return {k: dict(v) for k, v in _stats.items()}
@@ -209,6 +217,91 @@ class Group:
             t.copy_(buf)
         _count(kind, t.numel() * t.element_size(), t0)
         return t
+
+    # -- point to point and all-to-all (the pp and sp axes) --
+
+    def send(self, t, dst_index, kind="p2p"):
+        """Send ``t`` to member ``dst_index``, which posts the matching
+        :meth:`recv`; returns once it is sent."""
+        t0 = time.perf_counter()
+        buf = self._staged(t.detach().contiguous())
+        dist._bounded(lambda: torch.distributed.isend(
+            buf, self.members[dst_index], group=self._pg),
+            f"mesh send of {tuple(t.shape)} over {self.axes}")
+        _count(kind, t.numel() * t.element_size(), t0)
+
+    def recv(self, shape, dtype, device, src_index, kind="p2p"):
+        """A new tensor of ``shape`` and ``dtype`` on ``device``: the one
+        member ``src_index`` sends (:meth:`send`)."""
+        t0 = time.perf_counter()
+        buf = torch.empty(shape, dtype=dtype, device=dist._comm_device())
+        dist._bounded(lambda: torch.distributed.irecv(
+            buf, self.members[src_index], group=self._pg),
+            f"mesh receive of {tuple(shape)} over {self.axes}")
+        _count(kind, buf.numel() * buf.element_size(), t0)
+        return buf.to(device)
+
+    def shift(self, t, offset=1, kind="p2p"):
+        """The ring shift (ref: ``lax.ppermute(x, axis, [(j, (j + offset) %
+        P)])``): this member's ``t`` goes to member ``index + offset``, and
+        the result, a new tensor on ``t``'s device, is member ``index -
+        offset``'s (every member gives the same shape and dtype).  A group
+        of one returns ``t``."""
+        if self.size == 1 or offset % self.size == 0:
+            return t
+        t0 = time.perf_counter()
+        buf = self._staged(t.detach().contiguous())
+        out = torch.empty_like(buf)
+        n = self.size
+        ops = [torch.distributed.P2POp(
+                   torch.distributed.isend, buf,
+                   self.members[(self.index + offset) % n], self._pg),
+               torch.distributed.P2POp(
+                   torch.distributed.irecv, out,
+                   self.members[(self.index - offset) % n], self._pg)]
+        dist._bounded(lambda: _Works(torch.distributed.batch_isend_irecv(ops)),
+                      f"mesh ring shift of {tuple(t.shape)} over {self.axes}")
+        _count(kind, t.numel() * t.element_size(), t0)
+        return out.to(t.device)
+
+    def all_to_all(self, t, split_axis, concat_axis, kind="a2a"):
+        """Ref: ``lax.all_to_all(x, axis, split_axis, concat_axis,
+        tiled=True)``: ``t`` cut into ``size`` equal chunks along
+        ``split_axis``, chunk ``j`` sent to member ``j``; the result, a new
+        tensor on ``t``'s device, is the chunks received concatenated along
+        ``concat_axis`` in member order.  A group of one returns ``t``."""
+        if self.size == 1:
+            return t
+        n = t.shape[split_axis]
+        if n % self.size:
+            raise MXNetError(f"all_to_all: dim {split_axis} of "
+                             f"{tuple(t.shape)} does not split into "
+                             f"{self.size} chunks over {self.axes}")
+        t0 = time.perf_counter()
+        x = t.detach().movedim(split_axis, 0)
+        x = x.reshape((self.size, n // self.size) + tuple(x.shape[1:]))
+        buf = self._staged(x.contiguous())
+        out = torch.empty_like(buf)
+        dist._bounded(lambda: torch.distributed.all_to_all_single(
+            out, buf, group=self._pg, async_op=True),
+            f"mesh all-to-all of {tuple(t.shape)} over {self.axes}")
+        _count(kind, t.numel() * t.element_size(), t0)
+        return torch.cat([p.movedim(0, split_axis)
+                          for p in out.to(t.device)], dim=concat_axis)
+
+
+class _Works:
+    """Several async works waited on as one (``dist._bounded`` waits on
+    one)."""
+
+    def __init__(self, works):
+        self.works = list(works)
+
+    def wait(self, timeout=None):
+        for w in self.works:
+            if (w.wait() if timeout is None else w.wait(timeout)) is False:
+                return False
+        return True
 
 
 def world_group():
@@ -548,6 +641,20 @@ def place(mesh, values, specs):
             for v, sp in zip(values, specs)]
 
 
+def sum_in_place(group, tensors, kind="grad"):
+    """Sum each of ``tensors`` over ``group``, in place: one all-reduce a
+    flat same-dtype bucket.  Every member passes the same shapes in the
+    same order."""
+    if group.size == 1:
+        return
+    for bucket, flat in _flat_buckets(tensors, lambda t: t):
+        group.all_reduce_(flat, kind)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
 def reduce_over_data(mesh, grads, zero_slice=None):
     """Each gradient of ``grads`` (``{i: g}``) summed over ``mesh``'s data
     axes, one collective a flat same-dtype bucket: the whole of it (an
@@ -652,6 +759,44 @@ class SumOverGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.group.all_reduce_(g.detach().clone(), "stats"), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return group.shift(t, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.shift(g, -ctx.offset), None, None
+
+
+def ring_shift(t, group, offset=1):
+    """:meth:`Group.shift`, differentiable: the backward is the reverse
+    shift, so every member must take it (every member's result must reach
+    its loss)."""
+    return t if group.size == 1 else _RingShift.apply(t, group, offset)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return group.all_to_all(t, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.group.all_to_all(g, concat_axis, split_axis), None, None,
+                None)
+
+
+def all_to_all(t, group, split_axis, concat_axis):
+    """:meth:`Group.all_to_all`, differentiable: the backward is the
+    all-to-all with the two axes swapped, which every member must take."""
+    return t if group.size == 1 else _AllToAll.apply(t, group, split_axis,
+                                                      concat_axis)
 
 
 def sum_stats(tensors, axis_name=None):

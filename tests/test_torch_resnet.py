@@ -442,13 +442,13 @@ def test_data_parallel_trainer_raises_for_later_slices():
     with pytest.raises(MXNetError, match="matched no parameters"):
         tr.step(x, np.zeros(4, np.float32))
     # the JAX tracing helpers (not ported; the captured step with
-    # collectives is piece 4) and the pp axis (piece 3) of part 2b
+    # collectives is piece 4 of part 2b); the pp axis came with piece 3
     for call in (lambda: tmesh.spmd_jit(None, None, (), ()),
                  tmesh.shard_map, lambda: tmesh.pcast(None, "dp", "varying"),
-                 lambda: tmesh.vma(None), tspmd.PipelineTrainStep,
-                 tspmd.stage_partition, tspmd.pipeline_apply):
+                 lambda: tmesh.vma(None)):
         with pytest.raises(MXNetError, match="slice 7, part 2b"):
             call()
+    assert tspmd.stage_partition(4, 2) == ((0, 2), (2, 4))
     # checkpoints came with slice 6; before a step there is nothing to save
     # and nothing to load into, as in the JAX class
     tr = DataParallelTrainer(net, loss, "sgd")

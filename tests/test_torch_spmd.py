@@ -782,14 +782,14 @@ def test_mesh_errors_name_their_cause(monkeypatch):
 
 
 def test_later_pieces_name_themselves():
-    """The ``pp`` axis waits for piece 3; the JAX tracing helpers are not
-    ported, saying why."""
-    with pytest.raises(MXNetError, match="slice 7, part 2b, piece 3"):
-        tspmd.stage_partition(7, 3)
-    for call in (tspmd.PipelineTrainStep, tspmd.pipeline_apply,
-                 tspmd.default_microbatches):
-        with pytest.raises(MXNetError, match="piece 3"):
-            call()
+    """The ``pp`` axis came with piece 3 (``tests/test_torch_pipeline.py``
+    holds it to the JAX package); the JAX tracing helpers are not ported,
+    saying why, and name piece 4."""
+    assert tspmd.stage_partition(7, 3) == ((0, 3), (3, 5), (5, 7))
+    with pytest.raises(MXNetError, match="no 'pp' axis"):
+        tspmd.PipelineTrainStep(None, StandIn("dp=4,mp=2"))
+    with pytest.raises(MXNetError, match="piece 4"):
+        tmesh.spmd_jit(None, None, (), ())
     with pytest.raises(MXNetError, match="shard_map .* is a JAX tracing "
                        "helper and is not ported"):
         tmesh.shard_map()
