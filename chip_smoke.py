@@ -297,9 +297,36 @@ Phases (any failure ends the run with a non-zero exit and no result):
     times and the peak memory a rank are printed.  Phase 3 also holds the
     flash kernels against their plain versions at this path's causal
     micro-batch (b=2, h=12, s=1024, d=64) and times them there.
+26. the input tier, in a ``data-smoke-*`` directory of the
+    checkout that is removed after.  (a) LeNet on MNIST as
+    examples/image-classification/train_mnist.py trains it: MNIST-format
+    idx files of 60,000 training and 10,000 test rows (28x28 uint8, the
+    example's separable digits from seed 0), read through
+    ``gluon.data.vision.MNIST`` with ``ToTensor`` and a shuffled
+    ``DataLoader(batch_size=128, num_workers=4)``; ``lenet()`` hybridized,
+    Xavier, ``gluon.Trainer('sgd', lr 0.05, momentum 0.9)`` and
+    ``metric.Accuracy`` for one epoch; validation through
+    ``mx.io.MNISTIter`` over the test files.  Gates: validation accuracy
+    at least ``LENET_MIN_ACC``; the first 5 steps' losses within
+    ``LENET_LOSS_RTOL`` of the same steps run by the port on the CPU from
+    the same weights and batches.  (b) ResNet-50 v1 NHWC, bf16, fused,
+    through phase 15's captured ``DataParallelTrainer`` step at b=128,
+    224^2, fed by ``DataLoader(ArrayDataset(1,280 uint8 images), shuffle,
+    num_workers=4).as_pipeline()`` with ``RandomFlipLeftRight``,
+    ``ToTensor`` and ImageNet's ``Normalize``, a map to NHWC and
+    ``prefetch_to_device(gpu(0), depth=2)`` for one epoch (10 steps),
+    saved after step 5 by ``CheckpointManager.save(pipeline=...)`` with
+    the trainer's ``save_states``, and resumed into a fresh trainer and a
+    fresh pipeline for steps 6-10.  Gates: every batch the consumer's
+    stream reads bit-identical to the host batch the pipeline built; the
+    resumed steps' losses and batches bit-identical to the uninterrupted
+    run's; 20/16/16 launches of rows 8/7/10 a step on the TMA route, no
+    plain call.  Printed: the pipeline-fed step median beside phase 15's
+    device-resident one, the consumer's wait a step and ``h2d_ms`` a batch
+    from ``pipeline_stats()``, the host build time of one batch.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 21, 22, 25: every
+24, 21, 22, 25, 26: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -511,6 +538,18 @@ PP_TIMEOUT_S = 400
 # the cells against the fused layers, max |err| over max |fused|: fp32,
 # the same products summed in other orders through 35 steps of 2 layers
 CELL_RTOL = 1e-4
+# phase 26, the input tier.  MNIST's own sizes; train_mnist.py's batch,
+# optimizer and one epoch.  The digits are separable (a bright band of 6
+# rows a class), so one epoch should classify nearly every test row: 0.97
+# leaves room for the bands' overlap.  Card vs CPU from the same weights
+# and batches: fp32, TF32 off, two convolutions and two dense layers
+# summed in other orders, then SGD-momentum updates: BERT's 1e-4 relative
+MNIST_TRAIN, MNIST_TEST, LENET_BATCH = 60000, 10000, 128
+LENET_MIN_ACC, LENET_LOSS_RTOL, LENET_REF_STEPS = 0.97, 1e-4, 5
+# ResNet-50 fed by a pipeline: 10 batches of bench.py's b=128 at 224^2,
+# saved after DATA_SAVE_AT steps
+DATA_IMAGES, DATA_SAVE_AT, DATA_WORKERS = 1280, 5, 4
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
 def log(*args):
@@ -5719,6 +5758,326 @@ def train_mesh_bert(mx, card):
         for k in kinds}}
 
 
+# -- phase 26: the input tier --------------------------------------------------
+
+
+def write_mnist_files(root, n_train=MNIST_TRAIN, n_test=MNIST_TEST):
+    """MNIST-format idx files (train-*/t10k-*) of ``n_train`` and ``n_test``
+    28x28 uint8 rows: train_mnist.py's separable digits (a bright band of 6
+    rows at 2k for class k over noise of 0.1) drawn from seed 0, scaled to
+    uint8."""
+    import struct
+
+    import numpy as np
+
+    n = n_train + n_test
+    rng = np.random.RandomState(0)
+    x = rng.rand(n, 28, 28).astype(np.float32) * 0.1
+    y = rng.randint(0, 10, n)
+    for k in range(10):
+        x[y == k, 2 * k:2 * k + 6, :] += 0.9
+    img = np.clip(np.round(x * 255), 0, 255).astype(np.uint8)
+    for pre, sl in (("train", slice(0, n_train)), ("t10k", slice(n_train, n))):
+        m = img[sl].shape[0]
+        with open(os.path.join(root, f"{pre}-images-idx3-ubyte"), "wb") as f:
+            f.write(struct.pack(">IIII", 2051, m, 28, 28))
+            f.write(img[sl].tobytes())
+        with open(os.path.join(root, f"{pre}-labels-idx1-ubyte"), "wb") as f:
+            f.write(struct.pack(">II", 2049, m))
+            f.write(y[sl].astype(np.uint8).tobytes())
+
+
+def lenet_step(mx, net, trainer, loss_fn, x, y):
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return out, loss
+
+
+def train_lenet(mx, card, root):
+    """Phase 26 (a): LeNet on MNIST files as train_mnist.py trains it, one
+    epoch on the card; validation through ``io.MNISTIter``; the first
+    ``LENET_REF_STEPS`` steps again on the CPU from the same weights and
+    batches."""
+    import numpy as np
+    import torch
+
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    t0 = time.perf_counter()
+    write_mnist_files(root)
+    gen_s = time.perf_counter() - t0
+    vision = mx.gluon.data.vision
+    to_tensor = vision.transforms.ToTensor()
+    mx.random.seed(42)
+    np.random.seed(0)   # RandomSampler's stream
+    train = vision.MNIST(root, train=True,
+                         transform=lambda x, y: (to_tensor(x), y))
+    loader = mx.gluon.data.DataLoader(train, batch_size=LENET_BATCH,
+                                      shuffle=True, num_workers=DATA_WORKERS)
+
+    def build(ctx):
+        net = mx.gluon.model_zoo.vision.lenet()
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        net(mx.nd.array(np.zeros((1, 1, 28, 28), np.float32), ctx=ctx))
+        net.hybridize()
+        return net, mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": 0.05, "momentum": 0.9})
+
+    net, trainer = build(gpu)
+    start = {k: p.data().detach().cpu().numpy().copy()
+             for k, p in net._collect_params_with_prefix().items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    mx.pipeline.reset_pipeline_stats()
+    first, card_losses, n = [], [], 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for x, y in loader:
+        if len(first) < LENET_REF_STEPS:
+            first.append((x.asnumpy(), y.asnumpy()))
+        out, loss = lenet_step(mx, net, trainer, loss_fn,
+                               x.as_in_context(gpu), y.as_in_context(gpu))
+        metric.update([y], [out])
+        if len(card_losses) < LENET_REF_STEPS:
+            card_losses.append(float(loss.asnumpy().mean()))
+        n += x.shape[0]
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    train_acc = metric.get()[1]
+    stats = mx.pipeline.pipeline_stats()
+    metric.reset()
+    val = mx.io.MNISTIter(image=os.path.join(root, "t10k-images-idx3-ubyte"),
+                          label=os.path.join(root, "t10k-labels-idx1-ubyte"),
+                          batch_size=LENET_BATCH, shuffle=False)
+    t2 = time.perf_counter()
+    for batch in val:
+        metric.update([batch.label[0]], [net(batch.data[0])])
+    val_s = time.perf_counter() - t2
+    val_acc = metric.get()[1]
+
+    cnet, ctrainer = build(cpu)
+    mx.load_numpy_params(cnet, start)
+    cpu_losses = []
+    for xb, yb in first:
+        _, loss = lenet_step(mx, cnet, ctrainer, loss_fn,
+                             mx.nd.array(xb, ctx=cpu),
+                             mx.nd.array(yb, ctx=cpu))
+        cpu_losses.append(float(loss.asnumpy().mean()))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    log(f"input tier lenet: {MNIST_TRAIN} + {MNIST_TEST} MNIST rows written "
+        f"in {gen_s:.2f} s; one epoch of {n} samples ({len(loader)} steps of "
+        f"{LENET_BATCH}, DataLoader with {DATA_WORKERS} workers) in "
+        f"{epoch_s:.3f} s ({n / epoch_s:.0f} samples/s), train accuracy "
+        f"{train_acc:.4f}; the consumer waited {stats['wait_ms']:.1f} ms in "
+        f"all, batches built in {stats['host_build_ms']:.1f} worker-ms; "
+        f"validation through MNISTIter {val_acc:.4f} in {val_s:.3f} s on "
+        f"{card}")
+    log(f"input tier lenet: first {LENET_REF_STEPS} losses card "
+        f"{card_losses}, cpu {cpu_losses}, relative gaps "
+        f"{[f'{g:.2e}' for g in gaps]} (limit {LENET_LOSS_RTOL})")
+    checks = {"lenet_val_accuracy": val_acc >= LENET_MIN_ACC,
+              "lenet_card_vs_cpu": len(gaps) == LENET_REF_STEPS
+              and max(gaps) <= LENET_LOSS_RTOL,
+              "lenet_finite": bool(np.isfinite(card_losses).all())}
+    record = {"samples_per_s": n / epoch_s, "epoch_s": epoch_s,
+              "train_accuracy": train_acc, "val_accuracy": val_acc,
+              "loss_gaps": gaps, "wait_ms": stats["wait_ms"]}
+    return checks, record
+
+
+def image_loader(mx, images, labels):
+    """The ResNet-50 input pipeline of phase 26 (b): a shuffled DataLoader
+    over the uint8 images with RandomFlipLeftRight, ToTensor and ImageNet's
+    Normalize, as a pipeline, then NHWC as train_imagenet.py makes it for
+    ``--layout NHWC``.  The NHWC map runs one batch at a time, in order,
+    and keeps a copy of each host batch in ``built``."""
+    import torch
+
+    tv = mx.gluon.data.vision.transforms
+    aug = tv.Compose([tv.RandomFlipLeftRight(), tv.ToTensor(),
+                      tv.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    ds = mx.gluon.data.ArrayDataset(images, labels).transform_first(aug)
+    loader = mx.gluon.data.DataLoader(ds, batch_size=RESNET_BATCH,
+                                      shuffle=True, num_workers=DATA_WORKERS)
+    built = []
+
+    def nhwc(batch):
+        x, y = batch
+        x = mx.nd.NDArray(x.data.permute(0, 2, 3, 1).contiguous(), x.context)
+        built.append((x.data.clone(), torch.as_tensor(y.data).clone()))
+        return x, y
+
+    return loader, nhwc, built
+
+
+def pipeline_resnet(mx, card, root, captured_ms):
+    """Phase 26 (b): ResNet-50 fed by a DataLoader pipeline through phase
+    15's captured step; a checkpoint after ``DATA_SAVE_AT`` steps resumed
+    into a fresh trainer and pipeline."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    rng = np.random.RandomState(0)
+    images = mx.nd.array(rng.randint(0, 256, (DATA_IMAGES, RESNET_IMAGE,
+                                              RESNET_IMAGE, 3),
+                                     dtype=np.uint8), ctx=cpu)
+    labels = rng.randint(0, 1000, DATA_IMAGES).astype(np.float32)
+    steps = DATA_IMAGES // RESNET_BATCH
+
+    # the host build time of one batch, on this thread
+    loader, nhwc, _ = image_loader(mx, images, labels)
+    idxs = list(range(RESNET_BATCH))
+    t0 = time.perf_counter()
+    nhwc(loader._fetch_batch(idxs))
+    build_ms = (time.perf_counter() - t0) * 1e3
+
+    np.random.seed(0)
+    loader, nhwc, built = image_loader(mx, images, labels)
+    pipe = loader.as_pipeline().map(nhwc, inflight=1).prefetch_to_device(
+        gpu, depth=2)
+    net = resnet50(mx, gpu, fuse=True)
+    trainer = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True)
+    trainer.build(torch.zeros(2, RESNET_IMAGE, RESNET_IMAGE, 3,
+                              device=gpu.torch_device()))
+    mgr = mx.checkpoint.CheckpointManager(os.path.join(root, "ckpt"))
+    prefix = os.path.join(root, "resnet50")
+    mx.pipeline.reset_pipeline_stats()
+    kernels.reset_counts()
+    seen, losses, step_ms, wait_ms, gains = [], [], [], [], []
+    save_s = None
+    for i in range(steps):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x, y = next(pipe)
+        wait_ms.append((time.perf_counter() - t1) * 1e3)
+        seen.append((x.data.clone(), y.data.clone()))   # what the stream read
+        losses.append(trainer.step(x, y).asscalar())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        gains.append(counts_gain(before, counts_now()))
+        if i + 1 == DATA_SAVE_AT:
+            t2 = time.perf_counter()
+            mgr.save(DATA_SAVE_AT, pipeline=pipe, sync=True)
+            trainer.save_states(prefix)
+            save_s = time.perf_counter() - t2
+    stats = mx.pipeline.pipeline_stats()
+    launches = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()}
+    simple = {k: kernels.KERNEL_COUNTS[k].simple_launches
+              for k in ("matmul_bn_stats", "bn_act_matmul_stats")}
+    plain = sum(c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+    leftover = list(pipe)
+    torch.cuda.synchronize()
+    same_host = len(built) == steps and all(
+        torch.equal(a.cpu(), b) and torch.equal(c.cpu(), d)
+        for (a, c), (b, d) in zip(seen, built))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the resume: a fresh trainer over re-initialised weights, a fresh
+    # pipeline, the checkpoint's states
+    mx.random.seed(5)
+    net.initialize(mx.init.Xavier(), ctx=gpu, force_reinit=True)
+    fresh = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True)
+    fresh.build(torch.zeros(2, RESNET_IMAGE, RESNET_IMAGE, 3,
+                            device=gpu.torch_device()))
+    fresh.load_states(prefix)
+    np.random.seed(123)   # the restored stream must not draw again
+    loader2, nhwc2, built2 = image_loader(mx, images, labels)
+    pipe2 = loader2.as_pipeline().map(nhwc2, inflight=1).prefetch_to_device(
+        gpu, depth=2)
+    t3 = time.perf_counter()
+    mgr.restore(pipeline=pipe2)
+    restore_s = time.perf_counter() - t3
+    kernels.reset_counts()
+    resumed, rgains = [], []
+    for _ in range(steps - DATA_SAVE_AT):
+        before = counts_now()
+        x, y = next(pipe2)
+        resumed.append((x.data.clone(), y.data.clone(),
+                        fresh.step(x, y).asscalar()))
+        rgains.append(counts_gain(before, counts_now()))
+    rlaunches = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()}
+    plain += sum(c.plain_calls_on_cuda
+                 for c in kernels.KERNEL_COUNTS.values())
+    rest = list(pipe2)
+    torch.cuda.synchronize()
+    same_batches = all(torch.equal(a, b) and torch.equal(c, d)
+                       for (a, c, _), (b, d) in zip(resumed,
+                                                    seen[DATA_SAVE_AT:]))
+    same_losses = [v for _, _, v in resumed] == losses[DATA_SAVE_AT:]
+    expect = {"matmul_bn_stats": 20, "bn_stats": 16, "bn_act_matmul_stats": 16}
+    per_step_ok = all(all(g.get(k, {}).get("launches") == v
+                          for k, v in expect.items()) for g in gains + rgains)
+    median = statistics.median(step_ms[2:])
+    b = max(stats["batches"], 1)
+    log(f"input tier resnet: {steps} steps of b={RESNET_BATCH} {RESNET_IMAGE}^2"
+        f" bf16 fed by DataLoader({DATA_WORKERS} workers) -> NHWC -> "
+        f"prefetch_to_device(gpu(0), 2): step median {median:.3f} ms over "
+        f"steps 3-{steps} (steps {[round(v, 3) for v in step_ms]}); phase "
+        f"15's device-resident captured median {captured_ms:.3f} ms in this "
+        f"run, on {card}")
+    log(f"input tier resnet: the consumer waited {stats['wait_ms'] / b:.3f} "
+        f"ms a step (steps {[round(v, 3) for v in wait_ms]}, median of steps "
+        f"3-{steps} {statistics.median(wait_ms[2:]):.3f}); h2d_ms {stats['h2d_ms'] / b:.3f} a batch (pinned staging "
+        f"and the copies' enqueue); prefetch hits {stats['prefetch_hits']}, "
+        f"misses {stats['prefetch_misses']}; batches built in "
+        f"{stats['host_build_ms']:.1f} worker-ms; one batch built on one "
+        f"thread in {build_ms:.1f} ms; storage {mx.storage.Storage.get().stats()}")
+    log(f"input tier resnet: every batch the stream read equal to the host "
+        f"batch {same_host}; saved after step {DATA_SAVE_AT} in {save_s:.3f} s "
+        f"(pipeline state {dir_bytes(os.path.join(root, 'ckpt'))} bytes), "
+        f"restored in {restore_s:.3f} s; steps {DATA_SAVE_AT + 1}-{steps} "
+        f"resumed: losses {[v for _, _, v in resumed]} vs {losses[DATA_SAVE_AT:]}"
+        f" bit-identical {same_losses}, batches bit-identical {same_batches}; "
+        f"launches a step {gains[-1]}; simple-route launches {simple}; plain "
+        f"calls on cuda {plain}")
+    checks = {"resnet_batches_equal_host": same_host,
+              "resnet_epoch_consumed": not leftover and not rest
+              and len(resumed) == steps - DATA_SAVE_AT,
+              "resnet_resumed_losses_bit_identical": same_losses,
+              "resnet_resumed_batches_bit_identical": same_batches,
+              "resnet_launches": per_step_ok,
+              "resnet_tma_route": all(v == 0 for v in simple.values()),
+              "resnet_plain_calls_on_cuda": plain == 0,
+              "resnet_finite": bool(np.isfinite(losses).all())}
+    record = {"median_ms": median, "captured_ms": captured_ms,
+              "wait_ms_a_step": stats["wait_ms"] / b,
+              "wait_ms_median": statistics.median(wait_ms[2:]),
+              "build_worker_ms_a_batch": stats["host_build_ms"] / b,
+              "h2d_ms_a_batch": stats["h2d_ms"] / b, "build_ms": build_ms,
+              "launches": {k: launches[k] for k in expect},
+              "resumed_launches": {k: rlaunches[k] for k in expect}}
+    del fresh, net, seen, resumed, built
+    torch.cuda.empty_cache()
+    return checks, record
+
+
+def input_tier(mx, card, captured_ms):
+    """Phase 26 in a temporary directory of the checkout that is removed
+    after; returns the ResNet path's launches of rows 7, 8 and 10."""
+    t0 = time.perf_counter()
+    tmpdir = tempfile.mkdtemp(prefix="data-smoke-", dir=ROOT)
+    try:
+        checks, lenet = train_lenet(mx, card, tmpdir)
+        more, resnet = pipeline_resnet(mx, card, tmpdir, captured_ms)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    checks.update(more)
+    log(f"input tier: {json.dumps({'lenet': lenet, 'resnet': resnet})}; "
+        f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"input tier checks failed: {failed}")
+    return {"pipeline_resnet_train": resnet["launches"],
+            "pipeline_resnet_resumed": resnet["resumed_launches"]}
+
+
 def main():
     import torch
 
@@ -5815,7 +6174,7 @@ def main():
     torch.cuda.empty_cache()
     dtrain, dpredict, _, droutes, dbroutes = train_deepar(mx, card)
     gtrain, _, groutes = train_gru(mx, card)
-    captured_steps(mx, card)
+    captured = captured_steps(mx, card)
     checkpoints(mx, card)
     tfm_train, tfm_net, tfm_start = train_transformer(mx, card)
     s, v = (mx.nd.array(a, ctx=mx.gpu(0)) for a in decode_rows(mx))
@@ -5836,6 +6195,12 @@ def main():
     mesh_resnet = train_mesh_resnet(mx, card)["mesh_resnet_train"]
     dist_launches.update(train_mesh_bert(mx, card))
     dist_launches.update(train_pipeline_lm(mx, card))
+    data_launches = input_tier(mx, card, captured["resnet"][1])
+    resnet_paths = {k: {"resnet_train": rtrain[k],
+                        "mesh_resnet_train": mesh_resnet[k],
+                        **{path: n[k] for path, n in data_launches.items()}}
+                    for k in ("bn_stats", "matmul_bn_stats",
+                              "bn_act_matmul_stats")}
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -5879,18 +6244,14 @@ def main():
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",
              replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",
-             launches=rtrain["bn_stats"] + mesh_resnet["bn_stats"],
-             launches_by_path={"resnet_train": rtrain["bn_stats"],
-                               "mesh_resnet_train": mesh_resnet["bn_stats"]},
+             launches=sum(resnet_paths["bn_stats"].values()),
+             launches_by_path=resnet_paths["bn_stats"],
              **rkern["bn_stats"]),
         dict(name="matmul_bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:123",
-             launches=(rtrain["matmul_bn_stats"]
-                       + mesh_resnet["matmul_bn_stats"]),
-             launches_by_path={
-                 "resnet_train": rtrain["matmul_bn_stats"],
-                 "mesh_resnet_train": mesh_resnet["matmul_bn_stats"]},
+             launches=sum(resnet_paths["matmul_bn_stats"].values()),
+             launches_by_path=resnet_paths["matmul_bn_stats"],
              **rkern["matmul_bn_stats"]),
         dict(name="bn_act_matmul", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
@@ -5899,11 +6260,8 @@ def main():
         dict(name="bn_act_matmul_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:323",
-             launches=(rtrain["bn_act_matmul_stats"]
-                       + mesh_resnet["bn_act_matmul_stats"]),
-             launches_by_path={
-                 "resnet_train": rtrain["bn_act_matmul_stats"],
-                 "mesh_resnet_train": mesh_resnet["bn_act_matmul_stats"]},
+             launches=sum(resnet_paths["bn_act_matmul_stats"].values()),
+             launches_by_path=resnet_paths["bn_act_matmul_stats"],
              **rkern["bn_act_matmul_stats"]),
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",

@@ -20,4 +20,5 @@ from . import checkpoint, utils  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import data, io, rnn  # noqa: F401
+from . import engine, metric, pipeline, storage  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

@@ -54,8 +54,13 @@ each rank reads the parameter and RNG files of :func:`reshard.source_rank`
 and ZeRO shards are gathered and sliced for this trainer;
 ``strict_topology=True`` refuses it instead.
 
-Not in the port yet: input pipelines (``pipeline=``, slice 8), which raise
-:class:`MXNetError` naming it.
+An input pipeline (``pipeline=``, a ``pipeline.Pipeline``) is saved as
+the JAX package saves it: its state, captured at the call (in-flight
+batches drained to host arrays), pickled into ``pipeline-shard<r>.state``
+a rank.  It holds only host trees (numpy arrays, ``RandomState`` tuples,
+Python lists), so a directory with a pipeline moves between the packages
+both ways.  A restore sets the RNG before the pipeline; across world
+sizes it merges the saved ranks' states (``reshard.merge_pipeline_states``).
 """
 from __future__ import annotations
 
@@ -73,6 +78,7 @@ import time
 
 import torch
 
+from .. import engine
 from .. import random as _random
 from ..base import MXNetError
 from ..parallel import dist
@@ -84,12 +90,6 @@ from ..gluon.trainer import states_file_blob
 MANIFEST = "MANIFEST.json"
 
 _log = logging.getLogger("mxnet_tpu_torch.checkpoint")
-
-
-def _later(what, slice_no):
-    return MXNetError(f"CheckpointManager: {what} is not ported yet; it "
-                      f"comes with slice {slice_no} of the port "
-                      "(ROADMAP.md queue 1)")
 
 
 def _barrier(name):
@@ -283,6 +283,10 @@ class CheckpointManager:
 
         params : gluon Block or name->NDArray dict (optional)
         trainer : gluon.Trainer (optional) — optimizer states + counters
+        pipeline : pipeline.Pipeline (optional) — every stage's iterator
+            state (source position, shuffle ring and RNG, in-flight
+            batches), captured at the call, so the resumed job replays the
+            exact remaining batch sequence
         extra : JSON-serializable user metadata stored in the manifest
         sync : block until committed
 
@@ -293,8 +297,6 @@ class CheckpointManager:
         (the error surfacing point) — at most one checkpoint is in
         flight.
         """
-        if pipeline is not None:
-            raise _later("checkpointing an input pipeline (pipeline=)", 8)
         # A SIGTERM landing between the wait_until_finished below and
         # the _pending registration would re-enter save() from the
         # preemption handler and start a second commit racing this one;
@@ -317,6 +319,8 @@ class CheckpointManager:
             meta = {"format_version": self.FORMAT_VERSION,
                     "step": step, "epoch": epoch, "extra": extra,
                     "num_processes": dist.num_workers()}
+            # host trees by construction: in-flight batches drain to numpy
+            pipe_state = None if pipeline is None else pipeline.state_dict()
             if mesh_shape is None:
                 pending = self._snapshot.take(tree)
             else:
@@ -332,12 +336,13 @@ class CheckpointManager:
                 # in order with the training's, not on the writer thread
                 fut = concurrent.futures.Future()
                 try:
-                    fut.set_result(self._write_commit(pending, step, meta))
+                    fut.set_result(self._write_commit(pending, step, meta,
+                                                      pipe_state))
                 except Exception as e:  # noqa: BLE001 - raised below
                     fut.set_exception(e)
             else:
                 fut = self._writer.submit(self._write_commit, pending, step,
-                                          meta)
+                                          meta, pipe_state)
             self._pending = (step, fut)
             if sync or dist.is_multiprocess():
                 self.wait_until_finished()
@@ -360,7 +365,7 @@ class CheckpointManager:
             if self._pending is pending:
                 self._pending = None
 
-    def _write_commit(self, pending, step, meta):
+    def _write_commit(self, pending, step, meta, pipe_state=None):
         state = pending.fetch()
         rank = dist.rank()
         tmp = self._dir_for(step) + ".tmp"
@@ -385,10 +390,17 @@ class CheckpointManager:
                     host_leaves(state["trainer"], copy=False)), f,
                     protocol=5)
             atomic.fsync_file(p)
+        if pipe_state is not None:
+            p = os.path.join(tmp, f"pipeline-shard{rank}.state")
+            with open(p, "wb") as f:
+                pickle.dump(pipe_state, f)
+            atomic.fsync_file(p)
         atomic.write_json(os.path.join(tmp, f"rng-shard{rank}.json"),
                           state["rng"])
-        # the JAX package's fault point "checkpoint.commit" comes with
-        # engine.py and the resilience tier (slice 8)
+        # chaos site (a no-op until the resilience tier, slice 8 part 4,
+        # arms it): a fault here damages a shard after the writes and
+        # before the manifest
+        engine.fault_point("checkpoint.commit", dir=tmp, step=step)
         atomic.fsync_dir(tmp)
         _barrier("checkpoint-save")
         if rank == 0:
@@ -452,7 +464,10 @@ class CheckpointManager:
         update counters into the Trainer, and the random generators are
         set to their saved states, all by copying into the tensors and
         generators that exist, so a captured step keeps replaying on
-        them.  Returns the manifest metadata ``{"step", "epoch",
+        them.  Iterator state loads into a freshly built, identically
+        composed Pipeline, which then replays the exact remaining batch
+        sequence; the RNG is restored BEFORE the pipeline, so sources that
+        replay by drawing from it draw the saved epoch's order.  Returns the manifest metadata ``{"step", "epoch",
         "extra", "params"}`` — "params" is the loaded name->NDArray dict
         only when no target was given.
 
@@ -462,11 +477,9 @@ class CheckpointManager:
         loads does restore raise, listing every step's failure.  An
         explicit ``step=`` keeps strict semantics.
         """
-        if pipeline is not None:
-            raise _later("restoring an input pipeline (pipeline=)", 8)
         self.wait_until_finished()
         if step is not None:
-            return self._restore_step(int(step), params, trainer,
+            return self._restore_step(int(step), params, trainer, pipeline,
                                       restore_rng, strict_topology)
         steps = self.steps()
         if not steps:
@@ -477,8 +490,8 @@ class CheckpointManager:
         failures = []
         for s in reversed(steps):
             try:
-                meta = self._restore_step(s, params, trainer, restore_rng,
-                                          strict_topology)
+                meta = self._restore_step(s, params, trainer, pipeline,
+                                          restore_rng, strict_topology)
             except Exception as e:  # noqa: BLE001 — filtered below
                 if not _is_fallback_skippable(e):
                     if failures:
@@ -510,7 +523,7 @@ class CheckpointManager:
             + "; ".join(f"step {s}: {_first_line(e)[:150]}"
                         for s, e in failures))
 
-    def _restore_step(self, step, params, trainer, restore_rng,
+    def _restore_step(self, step, params, trainer, pipeline, restore_rng,
                       strict_topology=False):
         d = self._dir_for(int(step))
         mpath = os.path.join(d, MANIFEST)
@@ -544,14 +557,17 @@ class CheckpointManager:
                 "forbids elastic resharding. Drop strict_topology to "
                 "repartition the checkpoint onto this topology "
                 "(rank-replicated param/RNG shards remap, ZeRO-1 "
-                "optimizer shards gather and re-slice), or restore with "
-                "the original world size.")
+                "optimizer shards gather and re-slice, per-rank "
+                "pipeline cursors merge under the rank-symmetric "
+                "shard() contract), or restore with the original world "
+                "size.")
         rank = dist.rank()
         src = _reshard.source_rank(rank, saved_procs) if resharding \
             or manifest.get("mesh_shape") else rank
         if resharding:
-            # the JAX package's fault point "checkpoint.reshard" comes
-            # with engine.py and the resilience tier (slice 8)
+            # chaos site (armed by the resilience tier, slice 8 part 4)
+            engine.fault_point("checkpoint.reshard", kind="topology",
+                               saved_world=saved_procs, world=procs)
             _log.warning(
                 "elastic restore: repartitioning checkpoint step %s "
                 "saved at world %d onto world %d (rank %d reads saved "
@@ -563,6 +579,8 @@ class CheckpointManager:
             state = _saved_rng(d, src, manifest, trainer)
             if state is not None:
                 _random.set_state(state)
+        self._restore_pipeline(
+            d, src, pipeline, saved_world=saved_procs if resharding else None)
         return {"step": int(manifest["step"]),
                 "epoch": manifest.get("epoch"),
                 "extra": manifest.get("extra"),
@@ -618,6 +636,38 @@ class CheckpointManager:
                 with torch.no_grad():
                     dst.copy_(arr.data.to(dst.dtype))
         return None
+
+    def _restore_pipeline(self, d, rank, pipeline, saved_world=None):
+        if pipeline is None:
+            return
+        if saved_world is not None:
+            # a reshard: every saved rank's state, merged under the
+            # rank-symmetric shard() contract (an agreement check,
+            # reshard.merge_pipeline_states), loads into this rank's
+            # rebuilt pipeline
+            blobs = []
+            for r in range(saved_world):
+                pfile = os.path.join(d, f"pipeline-shard{r}.state")
+                if not os.path.isfile(pfile):
+                    raise MXNetError(
+                        f"{d}: cannot reshard the input pipeline — "
+                        f"saved rank {r}'s pipeline-shard{r}.state is "
+                        f"missing (saved world {saved_world}); was "
+                        "this step saved without pipeline= on every "
+                        "rank?")
+                with open(pfile, "rb") as f:
+                    blobs.append(pickle.load(f))
+            pipeline.load_state_dict(
+                _reshard.merge_pipeline_states(blobs, where=d))
+            return
+        pfile = os.path.join(d, f"pipeline-shard{rank}.state")
+        if not os.path.isfile(pfile):
+            raise MXNetError(
+                f"{d}: checkpoint has no input-pipeline state for "
+                f"process {rank} (was it saved without pipeline=?)")
+        with open(pfile, "rb") as f:
+            blob = pickle.load(f)
+        pipeline.load_state_dict(blob)
 
     def _restore_trainer(self, d, rank, trainer):
         tfile = os.path.join(d, f"trainer-shard{rank}.states")

@@ -16,9 +16,10 @@ One leg per kind of saved file:
   states blob): the leaves are full arrays, so any mesh change is a remap
   that the next step makes; :func:`check_mesh_change` validates it and
   logs it, loudly where the model axes change.
-- **Input-pipeline cursors** (``pipeline-shard<r>.state``):
-  :func:`merge_pipeline_states` comes with the input pipelines of slice 8
-  and raises naming it.
+- **Input-pipeline cursors** (``pipeline-shard<r>.state``): the
+  ``shard(num_replicas, rank)`` contract makes every rank's state equal,
+  so :func:`merge_pipeline_states` checks that they agree and returns the
+  common one.
 
 ``CheckpointManager.restore(strict_topology=True)`` turns all of this off
 and refuses a checkpoint of another world size.
@@ -46,8 +47,8 @@ def source_rank(rank, saved_world):
 
 def _book_reshard_ms(dt_s):
     """Report the time a reshard took.  The JAX package books it into its
-    resilience telemetry (``reshard_ms``); that tier comes with slice 8, so
-    the port logs it."""
+    resilience telemetry (``reshard_ms``); that tier comes with slice 8,
+    part 4, so the port logs it."""
     _log.info("checkpoint: resharding took %.3f ms", float(dt_s) * 1e3)
 
 
@@ -181,10 +182,65 @@ def check_mesh_change(saved_shape, new_shape, source="<checkpoint>"):
     return new
 
 
+# -- pipeline state ---------------------------------------------------------
+
+
+def _tree_equal(a, b):
+    """Structural equality over the host trees pipeline states are made
+    of (dicts/lists/tuples/numpy/scalars)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            _tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(
+            _tree_equal(x, y) for x, y in zip(a, b))
+    try:
+        return bool(a == b)
+    except Exception:  # exotic leaf: identity is the best we can do
+        return a is b
+
+
 def merge_pipeline_states(blobs, where="<checkpoint>"):
-    """The per-rank input-pipeline cursors merged for a resized job: the
-    pipelines come with slice 8 of the port."""
-    raise MXNetError(
-        f"{where}: merge_pipeline_states (resharding input-pipeline "
-        "cursors) is not ported yet; it comes with slice 8 of the port, "
-        "with the input pipelines (ROADMAP.md queue 1)")
+    """Merge the per-rank ``pipeline-shard<r>.state`` blobs of a saved
+    world into the ONE rank-symmetric state a resized job loads.
+
+    The ``shard(num_replicas, rank)`` contract makes every rank's
+    state identical by construction (same source cursor, same shuffle
+    ring + RNG, same rollover) — so the merge is agreement
+    VERIFICATION: stage by stage, every rank's saved state must be
+    equal; the common value is the merged cursor.  A disagreeing stage
+    means per-rank in-flight data that cannot be repartitioned across
+    a different world — that raises loudly, naming the stage."""
+    if not blobs:
+        raise MXNetError(f"{where}: no pipeline shard states to merge")
+    first = blobs[0]
+    stages0 = (first or {}).get("stages")
+    if stages0 is None:
+        raise MXNetError(
+            f"{where}: unrecognized pipeline state (no stages) — was "
+            "it saved by a newer build?")
+    for r, blob in enumerate(blobs[1:], start=1):
+        stages = (blob or {}).get("stages")
+        if stages is None or len(stages) != len(stages0) or any(
+                s["type"] != s0["type"]
+                for s, s0 in zip(stages, stages0)):
+            raise MXNetError(
+                f"{where}: pipeline compositions differ across saved "
+                f"ranks (rank 0 vs rank {r}) — the per-rank pipelines "
+                "of one job must be built identically to reshard")
+        for s, s0 in zip(stages, stages0):
+            if not _tree_equal(s["state"], s0["state"]):
+                raise MXNetError(
+                    f"{where}: pipeline stage {s['type']} state "
+                    f"differs between saved rank 0 and rank {r} — "
+                    "per-rank in-flight data cannot be repartitioned "
+                    "across world sizes. Checkpoint at a shard-group "
+                    "boundary, or rebuild the input pipeline from "
+                    "the epoch start (restore with pipeline=None and "
+                    "re-create it). strict_topology=True restores the "
+                    "plain world-size rejection.")
+    return first

@@ -1,5 +1,6 @@
 """model_zoo.vision (ref: ``mxnet_tpu/gluon/model_zoo/vision/__init__.py``):
-the ResNet builders; the other networks are still to port."""
+the ResNet builders and LeNet; the other networks come with slice 9."""
+from .others import LeNet, lenet  # noqa: F401
 from .resnet import (ResNetV1, ResNetV2, get_resnet,  # noqa: F401
                      resnet18_v1, resnet18_v2, resnet34_v1, resnet34_v2,
                      resnet50_v1, resnet50_v2, resnet101_v1, resnet101_v2,
@@ -7,6 +8,7 @@ from .resnet import (ResNetV1, ResNetV2, get_resnet,  # noqa: F401
 
 _models = {k: v for k, v in globals().items() if callable(v)
            and k.startswith("resnet")}
+_models["lenet"] = lenet
 
 
 def get_model(name, **kwargs):

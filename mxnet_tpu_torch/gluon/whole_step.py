@@ -121,8 +121,17 @@ def _release_generators(gens):
         graph.register_generator_state(gen)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the graph is empty
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
             pass
+
+
+#: Captures check for unsafe CUDA calls (allocations, event queries,
+#: synchronisations) in the capturing thread only: a host thread staging
+#: the next batch (the input pipeline's h2d lane: pinned copies on a copy
+#: stream, their events) keeps running during a capture, and its work on
+#: other streams is not part of the graph.  The default, "global", fails
+#: the capture for such a call on any thread.
+CAPTURE_MODE = "thread_local"
 
 
 class CapturedStep:
@@ -143,7 +152,8 @@ class CapturedStep:
             self.graph.register_generator_state(gen)
         launches = CapturedLaunches()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode=CAPTURE_MODE):
                 self.out = body(*self.static)
         except BaseException:
             _release_generators(gens)

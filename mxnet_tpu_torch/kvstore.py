@@ -49,8 +49,9 @@ Not ported yet, each raising :class:`MXNetError` naming its slice:
 (slice 7, part 3), ``row_sparse_pull`` and sparse values (slice 9, with
 ``ndarray/sparse``), and the traced forms (``traced_*``: the gradient
 sum inside a captured step, slice 7, part 2b, piece 4).  The JAX
-package's fault points (``engine.fault_point``) come with ``engine.py``
-in slice 8; there are none here.
+package's fault points here (``engine.fault_point`` at the pushes and
+pulls) come with the resilience tier (slice 8, part 4); ``engine.py``
+has the no-op hook, and the kvstore does not call it yet.
 """
 from __future__ import annotations
 

@@ -113,7 +113,7 @@ def _peer_death_msg(prefix):
         "mxnet_tpu_torch.checkpoint.CheckpointManager(ckpt_dir)"
         ".restore(params=net, trainer=trainer) picks the newest complete "
         "snapshot (an automatic supervisor comes with the resilience "
-        "tier, slice 8).")
+        "tier, slice 8, part 4).")
 
 
 def _raise_if_peer_death(e, what):

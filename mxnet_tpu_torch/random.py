@@ -9,13 +9,19 @@ each replay advances them as the eager step does and dropout draws the
 same masks; reseeding in place keeps those registrations valid.  A CPU and a CUDA generator seeded alike give
 different numbers, so tests make shared inputs with numpy.
 
-``get_state``/``set_state`` snapshot and restore the pool as JSON (the
-checkpoint's ``rng-shard0.json``).  ``set_state`` writes into the
+Host-side draws (``io.NDArrayIter``'s shuffle) come from :func:`np_rng`,
+the framework's numpy ``RandomState``, which ``seed(s)`` seeds with
+``s & 0x7FFFFFFF`` as the JAX package does, so a shuffled iterator gives
+the same order in both packages after the same ``mx.random.seed``.
+
+``get_state``/``set_state`` snapshot and restore the pool and the numpy
+stream as JSON (the checkpoint's ``rng-shard0.json``).  ``set_state`` writes into the
 generators in place (``Generator.set_state``), so the graphs that
 registered them draw, at their next replay, what an uninterrupted run
 would draw.  A JAX package's file (a threefry key, a counter and a numpy
 stream) cannot be continued by torch generators: ``set_state`` logs a
-warning and leaves the generators as they are.
+warning and leaves the generators as they are, and restores its numpy
+stream, whose format both packages share.
 """
 from __future__ import annotations
 
@@ -117,10 +123,36 @@ _log = logging.getLogger("mxnet_tpu_torch.random")
 #: the process-wide pool behind :func:`seed` and :func:`generator`
 default_pool = GeneratorPool()
 
+# the framework's seeded numpy generator (ref: mxnet_tpu/random.py:31)
+_np_rng = np.random.RandomState()
+_np_lock = threading.Lock()
+
+
+def np_rng():
+    """The framework's seeded numpy generator (host-side draws such as
+    ``io.NDArrayIter``'s shuffle)."""
+    return _np_rng
+
 
 def seed(seed_state=None, ctx="all"):
-    """Seed the generators of every device (ref: mx.random.seed)."""
+    """Seed the generators of every device and the numpy stream (ref:
+    mx.random.seed)."""
+    if seed_state is None:
+        seed_state = int(np.random.randint(0, 2**31 - 1))
     default_pool.seed(seed_state)
+    with _np_lock:
+        _np_rng.seed(int(seed_state) & 0x7FFFFFFF)
+
+
+def _np_state():
+    mt = _np_rng.get_state()
+    return [mt[0], np.asarray(mt[1]).tolist(), int(mt[2]), int(mt[3]),
+            float(mt[4])]
+
+
+def _set_np_state(mt):
+    _np_rng.set_state((mt[0], np.asarray(mt[1], dtype=np.uint32),
+                       int(mt[2]), int(mt[3]), float(mt[4])))
 
 
 def generator(device):
@@ -129,19 +161,29 @@ def generator(device):
 
 
 def get_state():
-    """JSON-serializable snapshot of the default pool: its seed and each
-    generator's state (ref: ``mx.random.get_state``)."""
-    return default_pool.get_state()
+    """JSON-serializable snapshot of the default pool (its seed and each
+    generator's state) and of the numpy stream under ``"numpy"``, in the
+    JAX package's layout (ref: ``mx.random.get_state``)."""
+    state = default_pool.get_state()
+    with _np_lock:
+        state["numpy"] = _np_state()
+    return state
 
 
 def set_state(state):
     """Restore :func:`get_state`'s snapshot in place.  A JAX package's
     snapshot (``jax_base_key``) cannot be continued by torch generators:
-    it logs a warning and changes nothing."""
+    it logs a warning and leaves them as they are; its numpy stream, in
+    the same layout as the port's, is restored."""
+    mt = state.get("numpy")
+    if mt is not None:
+        with _np_lock:
+            _set_np_state(mt)
     if "generators" not in state:
         _log.warning("random.set_state: %s is a JAX package RNG state, "
                      "which torch generators cannot continue; the "
-                     "generators are left as they are",
-                     sorted(state))
+                     "generators are left as they are%s",
+                     sorted(state), "" if mt is None
+                     else " (its numpy stream is restored)")
         return
     default_pool.set_state(state)

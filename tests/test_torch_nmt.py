@@ -205,5 +205,5 @@ def test_legacy_rnn_names_and_io_base():
     batches = list(Count())
     assert [b.data[0][0] for b in batches] == [1, 2]
     assert batches[0].pad == 0 and batches[0].bucket_key is None
-    with pytest.raises(tmx.MXNetError, match="slice 8"):
-        Count().as_pipeline()
+    # the pipeline tier came with slice 8, part 1
+    assert [b.data[0][0] for b in Count().as_pipeline()] == [1, 2]

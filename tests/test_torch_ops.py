@@ -258,6 +258,13 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.parallel.spmd\n"
             "import mxnet_tpu_torch.gluon.contrib.nn\n"
             "import mxnet_tpu_torch.checkpoint.reshard\n"
+            "import mxnet_tpu_torch.engine, mxnet_tpu_torch.storage\n"
+            "import mxnet_tpu_torch.pipeline, mxnet_tpu_torch.metric\n"
+            "import mxnet_tpu_torch.gluon.data.vision\n"
+            "import mxnet_tpu_torch.io.recordio\n"
+            "import mxnet_tpu_torch.ndarray.sparse\n"
+            "import mxnet_tpu_torch.utils.native_engine\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.vision.others\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -273,7 +280,15 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     for mod in ("parallel/mesh.py", "parallel/spmd/__init__.py",
                 "parallel/spmd/mesh.py", "gluon/contrib/__init__.py",
-                "gluon/contrib/nn.py", "checkpoint/reshard.py"):
+                "gluon/contrib/nn.py", "checkpoint/reshard.py",
+                "engine.py", "storage.py", "metric.py",
+                "pipeline/stages.py", "pipeline/stats.py",
+                "gluon/data/dataloader.py", "gluon/data/dataset.py",
+                "gluon/data/sampler.py", "gluon/data/vision/datasets.py",
+                "gluon/data/vision/transforms.py", "io/io.py",
+                "io/recordio.py", "utils/libloader.py",
+                "utils/native_engine.py", "ndarray/sparse.py",
+                "gluon/model_zoo/vision/others.py"):
         assert f"mxnet_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -589,7 +589,8 @@ def test_reshard_matches_jax_and_round_trips(new_world):
         [jreshard.source_rank(r, new_world) for r in range(10)]
     assert treshard.reshard_states_blob(blob, new_world)["zero"]["world"] \
         == new_world
-    with pytest.raises(MXNetError, match="slice 8"):
+    # the pipeline leg came with slice 8, part 1
+    with pytest.raises(MXNetError, match="unrecognized pipeline state"):
         treshard.merge_pipeline_states([{}])
 
 
