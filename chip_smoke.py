@@ -215,7 +215,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
 21b. the same over gpu(0) and gpu(1) with NCCL where 2 cards are visible;
     on one card it says so and does not run;
 22. BERT-base MLM+NSP (a loss a row, fp32, dropout 0, AdamW) through
-    ``DataParallelTrainer`` on 2 ranks for 4 steps at a global batch of
+    ``DataParallelTrainer`` on 2 ranks for 3 steps at a global batch of
     16 x 128: ``{dp:2}``; ``{dp:2}`` with ``shard_opt_states`` and
     ``remat``, whose losses and gathered masters must be bit-identical to
     the first's, with Adam states half of the unsharded and 24 forward
@@ -302,10 +302,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
     examples/image-classification/train_mnist.py trains it: MNIST-format
     idx files of 60,000 training and 10,000 test rows (28x28 uint8, the
     example's separable digits from seed 0), read through
-    ``gluon.data.vision.MNIST`` with ``ToTensor`` and a shuffled
-    ``DataLoader(batch_size=128, num_workers=4)``; ``lenet()`` hybridized,
+    ``gluon.data.vision.MNIST`` with ``ToTensor`` and a
+    ``DataLoader(batch_size=128, num_workers=4)`` over a shuffle of the
+    first ``LENET_ROWS`` (10,000) rows; ``lenet()`` hybridized,
     Xavier, ``gluon.Trainer('sgd', lr 0.05, momentum 0.9)`` and
-    ``metric.Accuracy`` for one epoch; validation through
+    ``metric.Accuracy`` for that sixth of an epoch; validation through
     ``mx.io.MNISTIter`` over the test files.  Gates: validation accuracy
     at least ``LENET_MIN_ACC``; the first 5 steps' losses within
     ``LENET_LOSS_RTOL`` of the same steps run by the port on the CPU from
@@ -324,9 +325,38 @@ Phases (any failure ends the run with a non-zero exit and no result):
     plain call.  Printed: the pipeline-fed step median beside phase 15's
     device-resident one, the consumer's wait a step and ``h2d_ms`` a batch
     from ``pipeline_stats()``, the host build time of one batch.
+27. the image and text tiers, in a ``data-smoke-*`` directory of the
+    checkout that is removed after.  (a) ResNet-50 from JPEG records as
+    examples/image-classification/train_imagenet.py trains it: an indexed
+    ``.rec`` of 768 JPEG records (128 distinct 500x375 RGB images from seed
+    0, smooth sinusoids plus 20 levels of noise, quality 95, each under 6
+    ids, labels in [0, 1000)) read by ``mx.io.ImageRecordIter`` with the
+    example's recipe (b=128, 224^2, shuffle, mirror, random-resized crops,
+    brightness/contrast/saturation 0.4, ImageNet mean and std, 8 threads),
+    each batch to NHWC and through phase 15's captured ``DataParallelTrainer``
+    step (SGD, bf16) for one pass of 6 steps.  Gates: the lane is
+    ``native`` exactly when ``utils.native.load()`` returns a library, and
+    ``use_native=True`` raises where it returns None; every batch the card
+    received bit-identical to the batch a second iterator on the same file
+    and seed yields on ``cpu()``; finite losses, every trainable parameter
+    finite and changed; 20/16/16 launches of rows 8/7/10 a step on the TMA
+    route, no plain call.  Printed: the lane and the loader's build error,
+    the host iterator alone in samples/s, the host decode time of one
+    batch, the fed step median beside phase 15's and the consumer's wait a
+    step.  (b) BERT-base from a corpus as examples/bert/pretrain_bert.py
+    trains it: a corpus file of ``data.bert.synthetic_corpus`` (400
+    documents of 8 sentences of up to 24 of 5,000 words), a WordPiece
+    vocabulary built to at most 8,000 entries, ``BertPretrainPipeline(seq_len
+    128, seed 0).batches(32, 20)`` through ``pipeline.IterableSource`` and
+    ``prefetch_to_device(gpu(0), 2)``, into phase 15's captured whole step
+    (MLM+NSP, AdamW 1e-4, dropout 0.1, the 30,522-row model).  Gates: every
+    batch the consumer's stream read equal to its host dict; finite
+    losses, the last below the first; one graph, no fallback; 12 launches
+    of each flash kernel a step, no plain call.  Printed: the fed step
+    median beside phase 15's.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 21, 22, 25, 26: every
+24, 21, 22, 25, 26, 27: every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -515,7 +545,7 @@ SPMD_PEAK = {}
 MESH_RANKS, MESH_RESNET_STEPS = 2, 6
 MESH_REF_BATCH, MESH_REF_IMAGE = 16, 112
 MESH_STATS_RTOL = 1e-4
-MESH_BERT_BATCH, MESH_BERT_SEQ, MESH_BERT_STEPS = 16, 128, 4
+MESH_BERT_BATCH, MESH_BERT_SEQ, MESH_BERT_STEPS = 16, 128, 3
 MESH_ADAMW = {"learning_rate": 1e-4, "wd": 0.01}
 MESH_LOSS_RTOL = TRAIN_LOSS_RTOL
 MESH_TIMEOUT_S = 400
@@ -545,11 +575,33 @@ CELL_RTOL = 1e-4
 # and batches: fp32, TF32 off, two convolutions and two dense layers
 # summed in other orders, then SGD-momentum updates: BERT's 1e-4 relative
 MNIST_TRAIN, MNIST_TEST, LENET_BATCH = 60000, 10000, 128
+# a sixth of the epoch: the loop is host-bound (~2,400 samples/s on the
+# card machine), and the rest of the epoch's time is what phase 27 needs
+# of the time limit (the digits are learnt within ~100 steps)
+LENET_ROWS = 10000
 LENET_MIN_ACC, LENET_LOSS_RTOL, LENET_REF_STEPS = 0.97, 1e-4, 5
 # ResNet-50 fed by a pipeline: 10 batches of bench.py's b=128 at 224^2,
 # saved after DATA_SAVE_AT steps
 DATA_IMAGES, DATA_SAVE_AT, DATA_WORKERS = 1280, 5, 4
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# phase 27 (a): ResNet-50 from an indexed .rec of JPEGs through
+# ImageRecordIter with train_imagenet.py's recipe (its --data-nthreads
+# default, 8); 6 steps at b=128; 128 distinct 500x375 images (a typical
+# ImageNet size) encoded once, each under 6 ids
+JPEG_RECORDS, JPEG_DISTINCT, JPEG_HW = 768, 128, (375, 500)
+IMAGENET_RECIPE = dict(
+    data_shape=(3, 224, 224), batch_size=128, shuffle=True, rand_mirror=True,
+    random_resized_crop=True, min_random_area=0.08, max_random_area=1.0,
+    min_aspect_ratio=0.75, max_aspect_ratio=1.333, brightness=0.4,
+    contrast=0.4, saturation=0.4, mean_r=123.68, mean_g=116.779,
+    mean_b=103.939, std_r=58.393, std_g=57.12, std_b=57.375,
+    preprocess_threads=8)
+# phase 27 (b): BERT-base from a text corpus as pretrain_bert.py feeds it
+# (--wordpiece-vocab 8000), 20 steps of 32 x 128, phase 5's count: over 10
+# fresh batches AdamW's first steps swing the loss by more than it falls
+# (11.1687 -> 11.1733 on an H100, PERF.md's findings)
+CORPUS = dict(n_docs=400, sents_per_doc=8, words_per_sent=24, n_words=5000)
+WORDPIECE_VOCAB, CORPUS_STEPS = 8000, 20
 
 
 def log(*args):
@@ -5797,8 +5849,9 @@ def lenet_step(mx, net, trainer, loss_fn, x, y):
 
 
 def train_lenet(mx, card, root):
-    """Phase 26 (a): LeNet on MNIST files as train_mnist.py trains it, one
-    epoch on the card; validation through ``io.MNISTIter``; the first
+    """Phase 26 (a): LeNet on MNIST files as train_mnist.py trains it, on a
+    shuffle of the first ``LENET_ROWS`` rows (a sixth of the epoch) on the
+    card; validation through ``io.MNISTIter``; the first
     ``LENET_REF_STEPS`` steps again on the CPU from the same weights and
     batches."""
     import numpy as np
@@ -5814,8 +5867,9 @@ def train_lenet(mx, card, root):
     np.random.seed(0)   # RandomSampler's stream
     train = vision.MNIST(root, train=True,
                          transform=lambda x, y: (to_tensor(x), y))
-    loader = mx.gluon.data.DataLoader(train, batch_size=LENET_BATCH,
-                                      shuffle=True, num_workers=DATA_WORKERS)
+    loader = mx.gluon.data.DataLoader(
+        train, batch_size=LENET_BATCH, num_workers=DATA_WORKERS,
+        sampler=mx.gluon.data.RandomSampler(LENET_ROWS))
 
     def build(ctx):
         net = mx.gluon.model_zoo.vision.lenet()
@@ -5868,7 +5922,7 @@ def train_lenet(mx, card, root):
         cpu_losses.append(float(loss.asnumpy().mean()))
     gaps = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
     log(f"input tier lenet: {MNIST_TRAIN} + {MNIST_TEST} MNIST rows written "
-        f"in {gen_s:.2f} s; one epoch of {n} samples ({len(loader)} steps of "
+        f"in {gen_s:.2f} s; {n} samples ({len(loader)} steps of "
         f"{LENET_BATCH}, DataLoader with {DATA_WORKERS} workers) in "
         f"{epoch_s:.3f} s ({n / epoch_s:.0f} samples/s), train accuracy "
         f"{train_acc:.4f}; the consumer waited {stats['wait_ms']:.1f} ms in "
@@ -6078,6 +6132,283 @@ def input_tier(mx, card, captured_ms):
             "pipeline_resnet_resumed": resnet["resumed_launches"]}
 
 
+# -- phase 27: the image and text tiers ------------------------------------------
+
+
+def write_jpeg_records(mx, path):
+    """Phase 27's indexed .rec: ``JPEG_DISTINCT`` smooth 500x375 RGB images
+    from seed 0 (sinusoids plus 20 levels of noise), each encoded once at
+    quality 95 and written under ``JPEG_RECORDS / JPEG_DISTINCT`` ids, with
+    labels in [0, 1000).  Returns the mean JPEG size in bytes."""
+    import numpy as np
+
+    rio = mx.recordio
+    rng = np.random.RandomState(0)
+    h, w = JPEG_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    payloads = []
+    for k in range(JPEG_DISTINCT):
+        img = np.stack([128 + 60 * np.sin(xx / (17 + k % 13) + c + k)
+                        + 50 * np.cos(yy / (23 + k % 7) - c)
+                        for c in range(3)], -1)
+        img = np.clip(img + rng.randint(0, 20, img.shape), 0, 255)
+        _, jpeg = rio.unpack(rio.pack_img(rio.IRHeader(0, 0.0, 0, 0),
+                                          img.astype(np.uint8), quality=95))
+        payloads.append(jpeg)
+    labels = rng.randint(0, 1000, JPEG_RECORDS)
+    rec = rio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(JPEG_RECORDS):
+        rec.write_idx(i, rio.pack(rio.IRHeader(0, float(labels[i]), i, 0),
+                                  payloads[i % JPEG_DISTINCT]))
+    rec.close()
+    return sum(len(p) for p in payloads) / len(payloads)
+
+
+def jpeg_resnet(mx, card, root, captured_ms):
+    """Phase 27 (a): ResNet-50 fed from JPEG records through
+    ``ImageRecordIter`` with train_imagenet.py's recipe, NHWC, through
+    phase 15's captured ``DataParallelTrainer`` step for one pass."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.storage import Storage
+    from mxnet_tpu_torch.utils import native
+
+    gpu = mx.gpu(0)
+    path = os.path.join(root, "train.rec")
+    t0 = time.perf_counter()
+    jpeg_bytes = write_jpeg_records(mx, path)
+    write_s = time.perf_counter() - t0
+    lib = native.load()
+    want_lane = "native" if lib is not None else "python"
+    refused = None
+    recipe = IMAGENET_RECIPE
+    if lib is None:
+        try:
+            mx.io.ImageRecordIter(path, use_native=True, **recipe)
+        except mx.MXNetError as e:
+            refused = str(e)
+    else:
+        # the native lane's augmentation streams are its threads': a batch
+        # is reproducible on one thread only (ROADMAP, reference caveat (l))
+        recipe = dict(recipe, preprocess_threads=1)
+
+    # the host iterator alone, one pass: the reference batches
+    with mx.cpu():
+        host = mx.io.ImageRecordIter(path, **recipe)
+    t1 = time.perf_counter()
+    ref = [(b.data[0].data.clone(), b.label[0].data.clone()) for b in host]
+    alone_s = time.perf_counter() - t1
+    # the host decode of one batch, on this thread
+    recs = [host._rec.read_idx(k) for k in host._keys[:RESNET_BATCH]]
+    t2 = time.perf_counter()
+    if host.lane == "python":
+        Storage.get().free(host._decode_batch(recs, 0))
+        decode_ms = (time.perf_counter() - t2) * 1e3
+    else:
+        decode_ms = None   # the native lane decodes on its own threads
+    del host
+
+    it = mx.io.ImageRecordIter(path, **recipe)
+    net = resnet50(mx, gpu, fuse=True)
+    trainer = resnet_trainer(mx, net, compute_dtype="bfloat16", capture=True)
+    trainer.build(torch.zeros(2, RESNET_IMAGE, RESNET_IMAGE, 3,
+                              device=gpu.torch_device()))
+    start = [p.detach().clone() for p in trainer._params]
+    kernels.reset_counts()
+    seen, losses, step_ms, wait_ms, gains = [], [], [], [], []
+    for _ in range(JPEG_RECORDS // RESNET_BATCH):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        batch = it.next()
+        wait_ms.append((time.perf_counter() - t3) * 1e3)
+        x, y = batch.data[0].data, batch.label[0].data
+        seen.append((x.clone(), y.clone()))   # what the card received
+        xh = mx.nd.NDArray(x.permute(0, 2, 3, 1).contiguous(), gpu)
+        losses.append(trainer.step(xh, batch.label[0]).asscalar())
+        step_ms.append((time.perf_counter() - t3) * 1e3)
+        gains.append(counts_gain(before, counts_now()))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()}
+    simple = {k: kernels.KERNEL_COUNTS[k].simple_launches
+              for k in ("matmul_bn_stats", "bn_act_matmul_stats")}
+    plain = sum(c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+    leftover = list(it)
+    same = len(seen) == len(ref) and all(
+        torch.equal(a.cpu(), c) and torch.equal(b.cpu(), d)
+        for (a, b), (c, d) in zip(seen, ref))
+    params = trainer._params
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    changed = [i for i, (p, p0) in enumerate(zip(params, start))
+               if torch.equal(p, p0)]
+    expect = {"matmul_bn_stats": 20, "bn_stats": 16, "bn_act_matmul_stats": 16}
+    per_step_ok = all(all(g.get(k, {}).get("launches") == v
+                          for k, v in expect.items()) for g in gains)
+    median = statistics.median(step_ms[2:])
+    n_img = len(ref) * RESNET_BATCH
+    log(f"image tier resnet: {JPEG_RECORDS} JPEG records of "
+        f"{JPEG_HW[1]}x{JPEG_HW[0]} ({jpeg_bytes / 1e3:.1f} KB a JPEG) "
+        f"written in {write_s:.2f} s; lane {it.lane} ({it.lane_reason}); "
+        f"utils.native.load_error(): {native.load_error()}; "
+        f"use_native=True refused: {refused}")
+    log(f"image tier resnet: the host iterator alone (cpu(), "
+        f"{recipe['preprocess_threads']} threads, "
+        f"prefetch 2) decoded {n_img} records in {alone_s:.3f} s "
+        f"({n_img / alone_s:.1f} samples/s); one batch of {RESNET_BATCH} "
+        f"decoded on this thread in "
+        f"{'n/a' if decode_ms is None else f'{decode_ms:.1f}'} ms")
+    log(f"image tier resnet: {len(step_ms)} steps of b={RESNET_BATCH} "
+        f"{RESNET_IMAGE}^2 bf16 fed by ImageRecordIter -> NHWC: step median "
+        f"{median:.3f} ms over steps 3-{len(step_ms)} (steps "
+        f"{[round(v, 3) for v in step_ms]}); phase 15's device-resident "
+        f"captured median {captured_ms:.3f} ms in this run, on {card}; the "
+        f"consumer waited {statistics.median(wait_ms[2:]):.3f} ms a step "
+        f"(median of steps 3-{len(wait_ms)}; steps "
+        f"{[round(v, 3) for v in wait_ms]})")
+    log(f"image tier resnet: every card batch bit-identical to the cpu() "
+        f"iterator's {same}; losses {losses}; parameters finite {finite}, "
+        f"unchanged {changed}; launches a step {gains[-1]}; simple-route "
+        f"launches {simple}; plain calls on cuda {plain}; storage "
+        f"{Storage.get().stats()}")
+    checks = {"jpeg_lane": it.lane == want_lane,
+              "jpeg_use_native_refused": lib is not None or refused is not None,
+              "jpeg_batches_equal_host": same,
+              "jpeg_pass_consumed": not leftover and len(seen) == 6,
+              "jpeg_finite": bool(np.isfinite(losses).all()) and finite,
+              "jpeg_params_changed": not changed,
+              "jpeg_launches": per_step_ok,
+              "jpeg_tma_route": all(v == 0 for v in simple.values()),
+              "jpeg_plain_calls_on_cuda": plain == 0}
+    record = {"lane": it.lane, "alone_samples_per_s": n_img / alone_s,
+              "decode_ms": decode_ms, "median_ms": median,
+              "captured_ms": captured_ms,
+              "wait_ms_median": statistics.median(wait_ms[2:]),
+              "launches": {k: launches[k] for k in expect}}
+    del trainer, net, seen, ref, it
+    torch.cuda.empty_cache()
+    return checks, record
+
+
+def corpus_bert(mx, card, root, captured_ms):
+    """Phase 27 (b): BERT-base MLM+NSP fed from a text corpus through
+    ``data.bert.BertPretrainPipeline`` and ``pipeline/`` into phase 15's
+    captured whole step."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.data import bert as dbert
+    from mxnet_tpu_torch.gluon import trainer as mtrainer
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    path = os.path.join(root, "corpus.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(dbert.synthetic_corpus(np.random.RandomState(0),
+                                                 **CORPUS)) + "\n")
+    with open(path) as f:
+        lines = f.readlines()
+    t0 = time.perf_counter()
+    tok = mx.data.WordPieceTokenizer.build([ln for ln in lines if ln.strip()],
+                                           vocab_size=WORDPIECE_VOCAB)
+    tok_s = time.perf_counter() - t0
+    built = []
+
+    def host_batches():
+        src = dbert.BertPretrainPipeline(lines, tok, seq_len=TRAIN_SEQ, seed=0)
+        for b in src.batches(TRAIN_BATCH, CORPUS_STEPS):
+            built.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    keys = ("input_ids", "token_types", "mlm_targets_k", "nsp_labels",
+            "mask_weight_k", "valid_length", "masked_positions")
+    pipe = mx.pipeline.Pipeline(mx.pipeline.IterableSource(
+        host_batches())).prefetch_to_device(gpu, 2)
+    net = pretrain_net(mx, gpu, dropout=0.1)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01},
+                               whole_step=True)
+    kernels.reset_counts()
+    mtrainer.reset_trainer_step_stats()
+    c0 = _imperative.graph_capture_count()
+    seen, losses, step_ms, gains = [], [], [], []
+    for _ in range(CORPUS_STEPS):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = next(pipe)
+        seen.append({k: v.data.clone() for k, v in b.items()})
+        batch = [b[k] for k in keys]
+        losses.append(trainer.whole_step(net, own_loss, batch,
+                                         batch_size=1).asscalar())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        gains.append(counts_gain(before, counts_now()))
+    torch.cuda.synchronize()
+    captures = _imperative.graph_capture_count() - c0
+    fallbacks = mtrainer.trainer_step_stats()["whole_step_fallbacks"]
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    launches = {k: kernels.KERNEL_COUNTS[k].launches for k in flash}
+    plain = sum(c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+    leftover = list(pipe)
+    same = len(built) == len(seen) == CORPUS_STEPS and all(
+        np.array_equal(s[k].cpu().numpy(), h[k])
+        and s[k].cpu().numpy().dtype == h[k].dtype
+        for s, h in zip(seen, built) for k in h)
+    per_step_ok = all(all(g.get(k, {}).get("launches") == 12 for k in flash)
+                      for g in gains)
+    median = statistics.median(step_ms[2:])
+    log(f"text tier bert: corpus of {sum(1 for ln in lines if ln.strip())} "
+        f"sentences; WordPiece vocabulary {len(tok)} entries (asked "
+        f"{WORDPIECE_VOCAB}) built in {tok_s:.2f} s, in a 30,522-row model; "
+        f"{CORPUS_STEPS} captured whole steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"fed by BertPretrainPipeline -> IterableSource -> "
+        f"prefetch_to_device(gpu(0), 2): step median {median:.3f} ms over "
+        f"steps 3-{CORPUS_STEPS} (steps {[round(v, 3) for v in step_ms]}); "
+        f"phase 15's device-resident captured median {captured_ms:.3f} ms in "
+        f"this run, on {card}")
+    log(f"text tier bert: losses {[round(v, 4) for v in losses]}; graphs "
+        f"captured {captures}, whole_step_fallbacks {fallbacks}; every batch "
+        f"the stream read equal to its host dict {same}; launches a step "
+        f"{gains[-1]}; plain calls on cuda {plain}")
+    checks = {"corpus_batches_equal_host": same,
+              "corpus_consumed": not leftover,
+              "corpus_finite": bool(np.isfinite(losses).all()),
+              "corpus_loss_falls": losses[-1] < losses[0],
+              "corpus_one_graph": captures == 1,
+              "corpus_no_fallback": fallbacks == 0,
+              "corpus_launches": per_step_ok,
+              "corpus_plain_calls_on_cuda": plain == 0}
+    record = {"vocab": len(tok), "median_ms": median,
+              "captured_ms": captured_ms, "losses": losses,
+              "launches": launches}
+    del trainer, net, seen
+    torch.cuda.empty_cache()
+    return checks, record
+
+
+def image_text_tier(mx, card, captured):
+    """Phase 27 in a temporary directory of the checkout that is removed
+    after; returns each path's launches of its kernels."""
+    t0 = time.perf_counter()
+    tmpdir = tempfile.mkdtemp(prefix="data-smoke-", dir=ROOT)
+    try:
+        checks, resnet = jpeg_resnet(mx, card, tmpdir, captured["resnet"][1])
+        more, bert = corpus_bert(mx, card, tmpdir, captured["bert"][1])
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    checks.update(more)
+    log(f"image and text tiers: {json.dumps({'resnet': resnet, 'bert': bert})}"
+        f"; phase 27 took {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"image and text tier checks failed: {failed}")
+    return {"jpeg_resnet_train": resnet["launches"],
+            "corpus_bert_train": bert["launches"]}
+
+
 def main():
     import torch
 
@@ -6134,6 +6465,14 @@ def main():
     t = time.perf_counter()
     kernels.build_all_kernels()
     log(f"build: {time.perf_counter() - t:.1f}s")
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The wall time since the last lap, under ``name`` (printed at the
+        end: where the script's time goes)."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
     for lib in kernels.KERNEL_LIBRARIES:
         log(f"build log of {lib.source.name}:\n{lib.build_log}")
     from mxnet_tpu_torch.ops.kernels import rnn as krnn
@@ -6162,20 +6501,31 @@ def main():
     # phase 4's buckets): graphs captured earlier broke the profiler's
     # device readings (PERF.md §6)
     flash, tfm_fwd = check_flash_attention(mx)
+    lap("3 flash forward")
     bwd = check_flash_attention_bwd(mx)
     tfm_bwd = bwd.pop("transformer_big_b64")
     gpt2_fwd, gpt2_bwd = tfm_fwd.pop("gpt2_pp")["causal"], bwd.pop("gpt2_pp")
+    lap("3 flash backward")
     train = train_bert(mx, card, bwd, profile=args.profile_train)
+    lap("5 BERT train")
     rkern = check_resnet_kernels(torch.device("cuda", 0))
+    lap("6 ResNet kernels")
     rnn = check_rnn_kernels(mx, torch.device("cuda", 0))
+    lap("10 RNN kernels")
     rtrain, rpredict = train_resnet(mx, card, profile=args.profile_resnet)
+    lap("7-9 ResNet")
     with tempfile.TemporaryDirectory(prefix="serve-smoke-", dir=ROOT) as d:
         serve = serve_bert(mx, card, flash["ms"], d)
     torch.cuda.empty_cache()
+    lap("4 serve")
     dtrain, dpredict, _, droutes, dbroutes = train_deepar(mx, card)
+    lap("11-13 DeepAR")
     gtrain, _, groutes = train_gru(mx, card)
+    lap("14 GRU")
     captured = captured_steps(mx, card)
+    lap("15 captured")
     checkpoints(mx, card)
+    lap("16 checkpoints")
     tfm_train, tfm_net, tfm_start = train_transformer(mx, card)
     s, v = (mx.nd.array(a, ctx=mx.gpu(0)) for a in decode_rows(mx))
     tfm_decode = decode_transformer(mx, card, tfm_net.model, s, v, "trained")
@@ -6189,13 +6539,25 @@ def main():
                                         varied=True)
     del eos, tfm_start
     torch.cuda.empty_cache()
+    lap("17-18 Transformer-big")
     cells, cell_routes = check_cells(mx, card)
+    lap("18b cells")
     kv_record = check_kvstore(mx, card)
+    lap("19 kvstore")
     dist_launches = train_bert_dist(mx, card)
+    lap("20-20b, 23-24 dist, ZeRO, mesh_shape")
     mesh_resnet = train_mesh_resnet(mx, card)["mesh_resnet_train"]
+    lap("21-21b mesh ResNet")
     dist_launches.update(train_mesh_bert(mx, card))
+    lap("22 mesh BERT")
     dist_launches.update(train_pipeline_lm(mx, card))
+    lap("25 pp and sp")
     data_launches = input_tier(mx, card, captured["resnet"][1])
+    lap("26 input tier")
+    tier_launches = image_text_tier(mx, card, captured)
+    lap("27 image and text tiers")
+    data_launches["jpeg_resnet_train"] = tier_launches["jpeg_resnet_train"]
+    dist_launches["corpus_bert_train"] = tier_launches["corpus_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
                         "mesh_resnet_train": mesh_resnet[k],
                         **{path: n[k] for path, n in data_launches.items()}}
@@ -6289,6 +6651,7 @@ def main():
              launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
     ]}
     log(f"kvstore: fused pushpull of BERT-base's gradients {kv_record}")
+    log(f"chip_smoke: wall time by phase (s) {laps}")
     log(f"chip_smoke: total wall time {time.perf_counter() - wall0:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -19,6 +19,7 @@ from . import models, parallel, serve  # noqa: F401
 from . import checkpoint, utils  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
-from . import data, io, rnn  # noqa: F401
+from . import data, image, io, rnn  # noqa: F401
+from .io import recordio  # noqa: F401
 from . import engine, metric, pipeline, storage  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

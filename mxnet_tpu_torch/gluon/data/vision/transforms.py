@@ -5,9 +5,9 @@ Transforms are blocks over HWC uint8/float images (MXNet's convention):
 as an NDArray on its own context (the datasets' samples are on
 ``cpu()``); the arithmetic runs in torch on its tensor.  Random
 transforms draw from numpy's global stream, as in the JAX package.
-``Resize`` and ``RandomResizedCrop`` import PIL when called.
-``RandomGray`` and ``CropResize`` need the image tier (``image/``), which
-comes with slice 8, part 2: they raise.
+``Resize``, ``RandomResizedCrop`` and ``CropResize`` import PIL when
+called; ``RandomGray`` and ``CropResize`` run through the image tier
+(``image/``), whose results are NDArrays on ``cpu()``.
 """
 from __future__ import annotations
 
@@ -34,12 +34,6 @@ def _like(t, x):
     if isinstance(x, NDArray):
         return NDArray(t, x.context)
     return t
-
-
-def _image_tier(name):
-    return MXNetError(
-        f"transforms.{name} needs the image tier (image/), which comes "
-        "with slice 8, part 2 of the port (ROADMAP.md queue 1)")
 
 
 class Compose(Block):
@@ -163,12 +157,22 @@ class RandomCrop(Block):
 
 
 class RandomGray(Block):
-    """Randomly convert to 3-channel gray (ref: transforms.RandomGray):
-    needs ``image.RandomGrayAug``, which comes with slice 8, part 2."""
+    """Randomly convert to 3-channel gray (ref: transforms.RandomGray)."""
 
     def __init__(self, p=0.5):
         super().__init__()
-        raise _image_tier("RandomGray")
+        self._p = p
+
+    def forward(self, x):
+        if np.random.rand() < self._p:
+            from ....image.image import RandomGrayAug
+
+            # keep the input dtype: the gray matmul promotes to float32,
+            # and a stochastic dtype change breaks dtype-sensitive
+            # consumers downstream
+            out = _t(RandomGrayAug(1.0)(x)).to(_t(x).dtype)
+            return _like(out.to(_t(x).device), x)
+        return x
 
 
 class RandomResizedCrop(Block):
@@ -324,9 +328,22 @@ class RandomLighting(Block):
 
 class CropResize(Block):
     """Crop (x, y, w, h) then optionally resize (ref:
-    transforms.CropResize): needs ``image.fixed_crop``, which comes with
-    slice 8, part 2."""
+    transforms.CropResize)."""
 
     def __init__(self, x, y, width, height, size=None, interpolation=1):
         super().__init__()
-        raise _image_tier("CropResize")
+        self._box = (x, y, width, height)
+        self._size = size
+        self._interp = interpolation
+
+    def forward(self, data):
+        from .... import image as _image
+
+        x, y, w, h = self._box
+        s = None
+        if self._size:
+            s = self._size if isinstance(self._size, (tuple, list)) \
+                else (self._size, self._size)
+        out = _image.fixed_crop(data, x, y, w, h, size=s,
+                                interp=self._interp)
+        return _like(out.data.to(_t(data).device), data)

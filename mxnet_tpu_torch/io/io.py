@@ -9,12 +9,14 @@ context is per thread, so a batch pulled on a worker thread
 (``PrefetchingIter``, a pipeline's lanes) lands on the context the
 iterator was built in.  The arrays the iterators read from stay in host
 memory.  ``DataIter.as_pipeline`` adapts any iterator into the pipeline
-tier.  ``ImageRecordIter`` and
-``ImageDetRecordIter`` decode JPEG records through the image tier and the
-native decode pipeline, which come with slice 8, part 2: they raise.
+tier.  ``ImageRecordIter`` decodes JPEG records on the host, through the
+native C++ pipeline or PIL, into pinned staging blocks, and copies each
+batch to its device on a copy stream.
 """
 from __future__ import annotations
 
+import logging
+import os
 import struct
 
 import numpy as np
@@ -472,20 +474,444 @@ class LibSVMIter(DataIter):
         return DataBatch(data=[data], label=[label], pad=pad)
 
 
-def _image_tier(name):
-    return MXNetError(
-        f"{name} decodes JPEG records through the image tier (image/) and "
-        "the native decode pipeline, which come with slice 8, part 2 of "
-        "the port (ROADMAP.md queue 1); read decoded arrays through "
-        "gluon.data (ArrayDataset, vision.MNIST/CIFAR10) or NDArrayIter")
-
-
 class ImageRecordIter(DataIter):
-    """Ref: mx.io.ImageRecordIter (src/io/iter_image_recordio_2.cc): comes
-    with slice 8, part 2 of the port."""
+    """ImageNet-style packed-record pipeline (ref: ``mxnet_tpu/io/io.py``;
+    iter_image_recordio_2.cc).  Batches are NCHW float32 NDArrays on the
+    context the iterator was built in (else ``gpu(0)``; a CUDA context
+    without a CUDA device raises here).
 
-    def __init__(self, *args, **kwargs):
-        raise _image_tier("ImageRecordIter")
+    Two decode lanes, decided once at construction (``lane``, with the
+    reason in ``lane_reason``, logged):
+
+    - ``"native"``: the C++ pipeline of ``lib/libmxtpu_io.so``
+      (``utils.native``), taken when the library loads, the records are
+      indexed and JPEG, and ``use_native`` is not False.  Its own
+      ``preprocess_threads`` workers decode whole batches.
+    - ``"python"``: PIL and numpy on the host pool, a batch a job, each
+      batch drawing its augmentation seed from the iterator's
+      ``RandomState(seed)`` when it is enqueued, so a batch is the same
+      whatever thread decodes it.  A record whose header or image is
+      corrupt gives zeros (the native lane's rule); any other exception
+      reaches the consumer.
+
+    ``use_native=True`` raises when the native lane is not taken.  Both
+    lanes decode into one staging block of ``storage.Storage`` (pinned for
+    a CUDA context) holding the batch and its labels; the block is copied
+    to the device on ``engine.copy_stream`` and goes back to the pool only
+    once the copy's event has completed; the consumer's stream waits for
+    that event before it reads the batch.  ``prefetch_buffer`` batches are
+    in flight, which bounds the staging memory."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1,
+                 path_imgidx=None, shuffle=False, rand_crop=False,
+                 rand_mirror=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, resize=-1,
+                 label_width=1, preprocess_threads=4, prefetch_buffer=2,
+                 round_batch=True, seed=0, use_native=None,
+                 random_resized_crop=False, min_random_area=1.0,
+                 max_random_area=1.0, min_aspect_ratio=1.0,
+                 max_aspect_ratio=1.0, brightness=0.0, contrast=0.0,
+                 saturation=0.0, random_h=0.0, inter_method=1,
+                 num_parts=1, part_index=0, **kwargs):
+        from .. import context
+        from . import recordio as rio
+
+        super().__init__(batch_size)
+        _check_partition(num_parts, part_index)
+        self._ctx = self._ctx or context.current_context()
+        self._device = self._ctx.torch_device()
+        self._num_parts, self._part_index = num_parts, part_index
+        # augmentation tier (ref: image_aug_default.cc —
+        # max_random_area/max_aspect_ratio sampled crops, HSL jitter,
+        # inter_method choices)
+        self.aug = dict(
+            random_resized_crop=bool(random_resized_crop),
+            min_random_area=float(min_random_area),
+            max_random_area=float(max_random_area),
+            min_aspect_ratio=float(min_aspect_ratio),
+            max_aspect_ratio=float(max_aspect_ratio),
+            brightness=float(brightness), contrast=float(contrast),
+            saturation=float(saturation), random_h=float(random_h),
+            inter_method=int(inter_method))
+        self.data_shape = tuple(data_shape)
+        idx_path = path_imgidx or os.path.splitext(path_imgrec)[0] + ".idx"
+        if os.path.exists(idx_path):
+            self._rec = rio.MXIndexedRecordIO(idx_path, path_imgrec, "r")
+            # dist-worker shard: every num_parts-th record (ref:
+            # iter_image_recordio_2.cc num_parts/part_index)
+            self._keys = list(self._rec.keys)[part_index::num_parts]
+        else:
+            self._rec = rio.MXRecordIO(path_imgrec, "r")
+            self._keys = None
+            self._stream_count = 0
+        self.shuffle = shuffle
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.resize = resize
+        self.mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        self.std = np.array([std_r, std_g, std_b], np.float32)
+        self._rng = np.random.RandomState(seed)
+        self._order = None
+        self._pos = 0
+        self._prefetch = []
+        self._prefetch_depth = max(1, prefetch_buffer)
+        self._native = None
+        self.lane, self.lane_reason = "python", self._python_reason(
+            use_native)
+        if self.lane_reason is None:
+            from ..utils import native as native_mod
+
+            offsets = [self._rec.idx[k] for k in self._keys]
+            self._native = native_mod.NativeImagePipeline(
+                path_imgrec, offsets, self.data_shape, batch_size,
+                num_threads=preprocess_threads, shuffle=shuffle,
+                rand_crop=rand_crop, rand_mirror=rand_mirror,
+                resize_short=resize, mean=self.mean, std=self.std,
+                seed=seed, **self.aug)
+            self._lane = engine.stream_manager().get(self._ctx, "io")
+            self.lane = "native"
+            self.lane_reason = "libmxtpu_io.so loaded; indexed JPEG records"
+        elif use_native is True:
+            raise MXNetError(f"ImageRecordIter: native pipeline requested "
+                             f"but unavailable: {self.lane_reason}")
+        logging.getLogger(__name__).info(
+            "ImageRecordIter(%s): the %s decode lane (%s)", path_imgrec,
+            self.lane, self.lane_reason)
+        self.reset()
+
+    def _python_reason(self, use_native):
+        """Why the Python lane must run, or None when the native one can."""
+        if use_native is False:
+            return "use_native=False"
+        if self._keys is None:
+            return "no .idx index beside the records"
+        from ..utils import native as native_mod
+
+        if native_mod.load() is None:
+            return f"native IO library unavailable: {native_mod.load_error()}"
+        if not self._records_are_jpeg():
+            return "the records are not JPEG"
+        return None
+
+    def _records_are_jpeg(self):
+        from . import recordio as rio
+
+        try:
+            rec = self._rec.read_idx(self._keys[0])
+            _, payload = rio.unpack(rec)
+            return payload[:2] == b"\xff\xd8"
+        except Exception:
+            return False
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def _drain_prefetch(self):
+        """Wait out in-flight batches (epoch reset / del); each job frees
+        its staging block itself."""
+        for fut in self._prefetch:
+            if fut is None:
+                continue
+            try:
+                fut.result()
+            except Exception:
+                pass
+        self._prefetch = []
+
+    def reset(self):
+        self._drain_prefetch()
+        if self._native is not None:
+            self._native.reset()
+        else:
+            self._pos = 0
+            if self._keys is not None:
+                self._order = list(self._keys)
+                if self.shuffle:
+                    self._rng.shuffle(self._order)
+            else:
+                self._rec.reset()
+                self._stream_count = 0
+        for _ in range(self._prefetch_depth):
+            self._enqueue()
+
+    def __del__(self):
+        try:
+            self._drain_prefetch()
+        except Exception:
+            pass
+
+    def _read_raw(self):
+        if self._keys is not None:
+            if self._pos >= len(self._order):
+                return None
+            rec = self._rec.read_idx(self._order[self._pos])
+        else:
+            # streaming (no .idx): modulo-skip to this worker's shard
+            while True:
+                rec = self._rec.read()
+                if rec is None:
+                    return None
+                mine = (self._stream_count % self._num_parts
+                        == self._part_index)
+                self._stream_count += 1
+                if mine:
+                    break
+        self._pos += 1
+        return rec
+
+    def _enqueue(self):
+        if self._native is not None:
+            # one lane: the C++ pipeline hands its batches out in order
+            self._prefetch.append(self._lane.push(self._native_batch))
+            return
+        recs = []
+        for _ in range(self.batch_size):
+            r = self._read_raw()
+            if r is None:
+                break
+            recs.append(r)
+        if len(recs) < self.batch_size:
+            self._prefetch.append(None)
+            return
+        self._prefetch.append(engine.push_host(
+            self._python_batch, recs, self._rng.randint(1 << 30)))
+
+    def _block(self, n):
+        """A staging block for ``n`` images and their labels, and float32
+        numpy views of both."""
+        from ..storage import Storage
+
+        c, h, w = self.data_shape
+        handle = Storage.get().alloc(n * (c * h * w + 1) * 4, ctx=self._ctx)
+        flat = handle.as_numpy(np.float32)
+        return handle, flat[:n * c * h * w].reshape(n, c, h, w), \
+            flat[n * c * h * w:]
+
+    def _python_batch(self, recs, seed):
+        return self._upload(self._decode_batch(recs, seed), len(recs))
+
+    def _native_batch(self):
+        from ..storage import Storage
+
+        handle, data, labels = self._block(self.batch_size)
+        try:
+            n = self._native.next_into(data.ctypes.data, labels.ctypes.data)
+        except BaseException:
+            Storage.get().free(handle)
+            raise
+        if n == 0:
+            Storage.get().free(handle)
+            return None
+        return self._upload(handle, self.batch_size)
+
+    def _decode_batch(self, recs, seed):
+        """Decode and augment ``recs`` into a staging block; returns the
+        handle (the batch, then its labels)."""
+        import io as _io
+
+        from PIL import Image
+
+        from ..storage import Storage
+        from . import recordio as rio
+
+        rng = np.random.RandomState(seed)
+        c = self.data_shape[0]
+        handle, data, labels = self._block(len(recs))
+        try:
+            for i, rec in enumerate(recs):
+                # two-stage parse mirroring native DecodeOne: a label
+                # that survives header parsing is kept even when the
+                # image bytes are corrupt; only header corruption zeroes
+                # the label too
+                try:
+                    header, payload = rio.unpack(rec)
+                    if (header.flag > 0
+                            and np.size(header.label) != header.flag):
+                        # truncated label vector: native DecodeOne's
+                        # skip>rec.size() check zeroes both — match it
+                        raise ValueError("truncated label vector")
+                    labels[i] = header.label if np.isscalar(header.label) \
+                        else header.label[0]
+                except Exception:
+                    labels[i] = 0.0
+                    data[i] = 0.0
+                    continue
+                try:
+                    img = Image.open(_io.BytesIO(payload))
+                    img = np.asarray(img.convert("RGB" if c == 3
+                                                 else "L"))
+                except Exception:
+                    data[i] = 0.0
+                    continue
+                img = self._augment(img, rng)
+                if img.ndim == 2:
+                    img = img[:, :, None]
+                chw = img.transpose(2, 0, 1).astype(np.float32)
+                chw -= self.mean[:c, None, None]
+                chw /= self.std[:c, None, None]
+                data[i] = chw
+        except BaseException:
+            Storage.get().free(handle)
+            raise
+        return handle
+
+    def _upload(self, handle, n):
+        """The staged batch on the iterator's device: copied on the
+        device's copy stream with an event recorded after it (the block
+        returns to the pool once the event has completed), or copied out
+        of the block on the CPU.  Returns a ``StagedBatch`` (data,
+        labels)."""
+        import torch
+
+        from ..storage import Storage
+
+        c, h, w = self.data_shape
+        flat = handle.tensor(torch.float32, (n * (c * h * w + 1),))
+        views = (flat[:n * c * h * w].view(n, c, h, w), flat[n * c * h * w:])
+        out = engine.StagedBatch()
+        out.device = self._device
+        store = Storage.get()
+        if self._device.type != "cuda":
+            out.extend(v.clone() for v in views)
+            store.free(handle)
+            return out
+        stream = engine.copy_stream(self._device)
+        try:
+            with torch.cuda.stream(stream):
+                for v in views:
+                    dst = torch.empty(v.shape, dtype=v.dtype,
+                                      device=self._device)
+                    dst.copy_(v, non_blocking=True)
+                    out.append(dst)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+        except BaseException:
+            stream.synchronize()
+            store.free(handle)
+            raise
+        out.event = ev
+        store.free(handle, after=ev)
+        return out
+
+    def _augment(self, img, rng):
+        from PIL import Image
+
+        c, h, w = self.data_shape
+        aug = self.aug
+        interp = Image.NEAREST if self._pick_inter(rng) == 0 \
+            else Image.BILINEAR
+        if aug["random_resized_crop"]:
+            ih, iw = img.shape[:2]
+            for _ in range(10):
+                area = rng.uniform(aug["min_random_area"],
+                                   aug["max_random_area"]) * ih * iw
+                ar = np.exp(rng.uniform(
+                    np.log(aug["min_aspect_ratio"]),
+                    np.log(aug["max_aspect_ratio"])))
+                tw = int(round(np.sqrt(area * ar)))
+                th = int(round(np.sqrt(area / ar)))
+                if 0 < tw <= iw and 0 < th <= ih:
+                    x0 = rng.randint(0, iw - tw + 1)
+                    y0 = rng.randint(0, ih - th + 1)
+                    img = img[y0:y0 + th, x0:x0 + tw]
+                    break
+            else:
+                s = min(ih, iw)
+                img = img[(ih - s) // 2:(ih - s) // 2 + s,
+                          (iw - s) // 2:(iw - s) // 2 + s]
+            img = np.asarray(Image.fromarray(img).resize((w, h), interp))
+        else:
+            if self.resize > 0:
+                pil = Image.fromarray(img)
+                short = min(pil.size)
+                scale = self.resize / short
+                pil = pil.resize((max(w, int(pil.size[0] * scale)),
+                                  max(h, int(pil.size[1] * scale))),
+                                 interp)
+                img = np.asarray(pil)
+            ih, iw = img.shape[:2]
+            if ih < h or iw < w:
+                pil = Image.fromarray(img).resize((max(w, iw), max(h, ih)),
+                                                  interp)
+                img = np.asarray(pil)
+                ih, iw = img.shape[:2]
+            if self.rand_crop:
+                y0 = rng.randint(0, ih - h + 1)
+                x0 = rng.randint(0, iw - w + 1)
+            else:
+                y0, x0 = (ih - h) // 2, (iw - w) // 2
+            img = img[y0:y0 + h, x0:x0 + w]
+        if self.rand_mirror and rng.rand() < 0.5:
+            img = img[:, ::-1]
+        return self._color_jitter(img, rng)
+
+    def _pick_inter(self, rng):
+        m = self.aug["inter_method"]
+        if m in (9, 10):  # reference: random interpolation choice
+            return int(rng.randint(0, 2))
+        return m
+
+    def _color_jitter(self, img, rng):
+        """brightness -> contrast -> saturation -> hue, matching the
+        native pipeline's fused matrix (see src/recordio.cc)."""
+        aug = self.aug
+        if img.ndim != 3 or img.shape[2] != 3 or not any(
+                aug[k] > 0 for k in ("brightness", "contrast",
+                                     "saturation", "random_h")):
+            return img
+        v = img.astype(np.float32)
+        gw = np.array([0.299, 0.587, 0.114], np.float32)
+        if aug["brightness"] > 0:
+            v = v * (1.0 + rng.uniform(-1, 1) * aug["brightness"])
+        if aug["contrast"] > 0:
+            ac = 1.0 + rng.uniform(-1, 1) * aug["contrast"]
+            gray = (v @ gw).mean()
+            v = ac * v + (1 - ac) * gray
+        if aug["saturation"] > 0:
+            asat = 1.0 + rng.uniform(-1, 1) * aug["saturation"]
+            gray = (v @ gw)[..., None]
+            v = asat * v + (1 - asat) * gray
+        if aug["random_h"] > 0:
+            theta = rng.uniform(-1, 1) * aug["random_h"] / 180.0 * np.pi
+            cs, sn = np.cos(theta), np.sin(theta)
+            H = np.array(
+                [[0.299 + 0.701 * cs + 0.168 * sn,
+                  0.587 - 0.587 * cs + 0.330 * sn,
+                  0.114 - 0.114 * cs - 0.497 * sn],
+                 [0.299 - 0.299 * cs - 0.328 * sn,
+                  0.587 + 0.413 * cs + 0.035 * sn,
+                  0.114 - 0.114 * cs + 0.292 * sn],
+                 [0.299 - 0.300 * cs + 1.25 * sn,
+                  0.587 - 0.588 * cs - 1.05 * sn,
+                  0.114 + 0.886 * cs - 0.203 * sn]], np.float32)
+            v = v @ H.T
+        return np.clip(v, 0, 255).astype(np.uint8)
+
+    def next(self):
+        if not self._prefetch:
+            raise StopIteration
+        fut = self._prefetch.pop(0)
+        if fut is None:
+            raise StopIteration
+        staged = fut.result()
+        if staged is None:  # the native lane's end of epoch
+            raise StopIteration
+        self._enqueue()
+        data, labels = staged.wait()
+        return DataBatch([NDArray(data, self._ctx)],
+                         [NDArray(labels, self._ctx)],
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def iter_next(self):
+        if self._native is not None:
+            return True  # native queue signals end via next()
+        return bool(self._prefetch) and self._prefetch[0] is not None
 
 
 class PrefetchingIter(DataIter):

@@ -9,9 +9,9 @@ the length.  IRHeader (image records) = [flag u32][label f32][id u64]
 [id2 u64] optionally followed by extra float labels when flag > 1.
 
 The files are byte-identical to the JAX package's.  The C++ twin of this
-reader (src/recordio.cc, lib/libmxtpu_io.so) serves the native decode
-pipeline of slice 8, part 2.  ``pack_img``/``unpack_img`` import PIL when
-called.
+reader and writer (src/recordio.cc, lib/libmxtpu_io.so) serves
+``NativeIndexedRecordIO`` and ``io.ImageRecordIter``'s native decode lane.
+``pack_img``/``unpack_img`` import PIL when called.
 """
 from __future__ import annotations
 
@@ -218,16 +218,60 @@ class MXIndexedRecordIO(MXRecordIO):
 
 class NativeIndexedRecordIO:
     """Write-side MXIndexedRecordIO backed by the native C++ writer
-    (``src/recordio.cc``, ``lib/libmxtpu_io.so``, which links libjpeg): it
-    comes with the native decode pipeline in slice 8, part 2 of the port.
-    ``MXIndexedRecordIO`` writes the same bytes."""
+    (``src/recordio.cc`` MXTPURecordIOWriter*, ``lib/libmxtpu_io.so``) —
+    the ``tools/im2rec.cc`` binary's role (ref: dmlc recordio.h writer).
+    The record/index output is byte-identical to the Python writer: same
+    magic-escape chunking, same ``idx\\tpos`` index lines.  Without the
+    library it raises."""
 
     def __init__(self, idx_path, uri, flag="w", key_type=int):
-        raise MXNetError(
-            "NativeIndexedRecordIO (the native C++ writer of "
-            "lib/libmxtpu_io.so) comes with slice 8, part 2 of the port "
-            "(ROADMAP.md queue 1); MXIndexedRecordIO writes the same "
-            "bytes")
+        from ..utils import native
+
+        if flag != "w":
+            raise MXNetError(
+                "NativeIndexedRecordIO is the packer (write) side; "
+                "read through MXIndexedRecordIO or the native pipeline")
+        lib = native.load()
+        if lib is None:
+            raise MXNetError(
+                "native IO library unavailable (build lib/libmxtpu_io.so"
+                f" or use MXIndexedRecordIO): {native.load_error()}")
+        self._lib = lib
+        self._h = lib.MXTPURecordIOWriterCreate(uri.encode())
+        if not self._h:
+            raise MXNetError(f"cannot open {uri} for writing")
+        self.idx_path = idx_path
+        self.key_type = key_type
+        self.fidx = open(idx_path, "w")
+        self.idx = {}
+        self.keys = []
+
+    def write_idx(self, idx, buf):
+        if self._h is None or self.fidx is None:
+            # a NULL handle would be dereferenced by the C writer
+            raise MXNetError("NativeIndexedRecordIO is closed")
+        key = self.key_type(idx)
+        pos = self._lib.MXTPURecordIOWrite(self._h, bytes(buf), len(buf))
+        if pos < 0:
+            raise MXNetError("native recordio write failed "
+                             f"(record {key}, {len(buf)} bytes)")
+        self.fidx.write(f"{key}\t{pos}\n")
+        self.idx[key] = pos
+        self.keys.append(key)
+
+    def close(self):
+        if self._h:
+            self._lib.MXTPURecordIOWriterFree(self._h)
+            self._h = None
+        if self.fidx is not None:
+            self.fidx.close()
+            self.fidx = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 IRHeader = collections.namedtuple("IRHeader", ["flag", "label", "id", "id2"])

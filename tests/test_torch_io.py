@@ -213,14 +213,21 @@ def test_prefetching_and_resize_iters_match_jax():
     assert len(got_r) == 7
 
 
-def test_image_record_iters_raise_naming_part_2():
-    with pytest.raises(MXNetError, match="slice 8, part 2"):
-        tmx.io.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8),
-                               batch_size=2)
-    with pytest.raises(MXNetError, match="slice 8, part 2"):
-        tmx.io.ImageDetRecordIter(path_imgrec="x.rec")
-    with pytest.raises(MXNetError, match="slice 8, part 2"):
-        tmx.io.recordio.NativeIndexedRecordIO("x.idx", "x.rec")
+def test_image_record_iters_raise_naming_part_2(tmp_path):
+    """Slice 8, part 2 ported the image iterators (their parity is in
+    test_torch_image.py and test_torch_image_record_iter.py); what they
+    refuse, they refuse with the JAX package's errors."""
+    missing = str(tmp_path / "x.rec")
+    with tmx.cpu():
+        with pytest.raises(FileNotFoundError):
+            tmx.io.ImageRecordIter(path_imgrec=missing, data_shape=(3, 8, 8),
+                                   batch_size=2)
+        with pytest.raises(MXNetError, match="unsupported kwargs"):
+            tmx.io.ImageDetRecordIter(path_imgrec=missing, batch_size=2,
+                                      data_shape=(3, 8, 8), rand_blur=1)
+    with pytest.raises(MXNetError, match="packer"):
+        tmx.io.recordio.NativeIndexedRecordIO(str(tmp_path / "x.idx"),
+                                              missing, "r")
 
 
 # -- recordio -------------------------------------------------------------------

@@ -265,6 +265,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.ndarray.sparse\n"
             "import mxnet_tpu_torch.utils.native_engine\n"
             "import mxnet_tpu_torch.gluon.model_zoo.vision.others\n"
+            "import mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection\n"
+            "import mxnet_tpu_torch.utils.native, mxnet_tpu_torch.data.bert\n"
+            "import mxnet_tpu_torch.tools.im2rec\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -288,7 +291,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "gluon/data/vision/transforms.py", "io/io.py",
                 "io/recordio.py", "utils/libloader.py",
                 "utils/native_engine.py", "ndarray/sparse.py",
-                "gluon/model_zoo/vision/others.py"):
+                "gluon/model_zoo/vision/others.py", "image/image.py",
+                "image/detection.py", "utils/native.py", "data/bert.py",
+                "tools/im2rec.py"):
         assert f"mxnet_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
