@@ -184,7 +184,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
     dispatches, timed;
 20. BERT-base under ``dist_sync``: 2 ranks that the port's launcher starts
     (``python -m mxnet_tpu_torch.tools.launch``, each running this script
-    with ``--dist-worker``), rank r on ``gpu(r)`` with 2 or more cards
+    with ``--bert-ranks-worker DIR``, which runs phases 20, 23 and 24 in
+    turn in one process group), rank r on ``gpu(r)`` with 2 or more cards
     (NCCL), both on ``gpu(0)`` with one (gloo), train BERT-base MLM+NSP
     (fp32, dropout 0, Adam) on their halves of a 16 x 128 batch for 6
     steps through ``Trainer(kvstore='dist_sync')``: the backend the rule
@@ -198,7 +199,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
     of one card, the replicas bit-identical; on one card it says so and
     does not run;
 21. ResNet-50 over a mesh: 2 ranks that the port's launcher starts (each
-    running this script with ``--mesh-worker DIR resnet``), both on gpu(0)
+    running this script with ``--mesh-worker DIR resnet,bert``: phases 21
+    and 22 in turn, one launch), both on gpu(0)
     (gloo), train fused ResNet-50 v1 NHWC (bf16 compute, fp32 masters, SGD
     lr 0.1 momentum 0.9) through ``DataParallelTrainer`` over
     ``make_mesh()`` = ``{dp:2}`` for 6 steps at phase 7's global batch
@@ -222,8 +224,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
     launches a rank a step; ``{tp:2}`` with ``shard_params``, each sharded
     parameter half its size at rest; the ZeRO and tp runs' losses within
     1e-4 of one process over the global batch on gpu(0);
-23. the Trainer's ZeRO over ``dist_sync`` ranks: 2 ranks that the launcher
-    starts (each running this script with ``--zero-worker DIR``; both on
+23. the Trainer's ZeRO over ``dist_sync`` ranks: phase 20's 2 ranks
+    (after phase 20, in the same launch; both on
     gpu(0) under gloo with one card, rank r on gpu(r) under NCCL with 2+)
     train BERT-base MLM+NSP (fp32, dropout 0, Adam) from phase 20's
     weights on phase 20's halves through ``Trainer(kvstore='dist_sync',
@@ -243,8 +245,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
     resumed steps within it of the uninterrupted sharded run.  The step
     times, the collectives' times and GB/s, the state bytes a rank and
     the save and restore seconds are printed.
-24. the Trainer on a mesh: 2 ranks that the launcher starts (each running
-    this script with ``--spmd-worker DIR``; both on gpu(0) under gloo with
+24. the Trainer on a mesh: phase 20's 2 ranks (after phase 23, in the
+    same launch; both on gpu(0) under gloo with
     one card, rank r on gpu(r) under NCCL with 2+) train BERT-base MLM+NSP
     (fp32, dropout 0, Adam) from phase 20's weights on phase 20's global
     batch, whose loss is taken a half of the batch at a time (phase 20's
@@ -269,9 +271,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
     rest, the peak memory a rank (phase 22 prints it beside its
     ``{tp:2}`` figure) and the save and restore seconds are printed.
 
-25. the ``pp`` and ``sp`` axes: 2 ranks that the launcher starts (each
-    running this script with ``--pp-worker DIR``; gloo on one card, NCCL
-    with 2+) train the pipeline LM (``parallel.pipeline_lm``) at GPT-2
+25. the ``pp`` and ``sp`` axes: phase 20's 2 ranks (after phase 24, in
+    the same launch; gloo on one card, NCCL with 2+) train the pipeline LM (``parallel.pipeline_lm``) at GPT-2
     small's widths (vocabulary 50257, context 1024, 12 layers of 768, 12
     heads of 64, FFN 3072; pre-LN blocks, untied head; fp32, TF32 off) from
     ``init_pipeline_lm``'s draws rescaled to GPT-2's published init
@@ -354,9 +355,41 @@ Phases (any failure ends the run with a non-zero exit and no result):
     losses, the last below the first; one graph, no fallback; 12 launches
     of each flash kernel a step, no plain call.  Printed: the fed step
     median beside phase 15's.
+28. resilience and telemetry around BERT-base training, in a
+    ``res-smoke-*`` directory of the checkout that is removed after:
+    phase 5's configuration (MLM+NSP, b=32, s=128, AdamW 1e-4, wd 0.01)
+    with dropout 0 through the captured whole step, fed by a
+    ``pipeline.Pipeline`` over ``RES_STEPS`` seeded synthetic batches
+    (``prefetch_to_device``), checkpointed by ``CheckpointManager(keep_n=2)``
+    every ``RES_SAVE_EVERY`` steps (``sync=True``), under
+    ``resilience.Supervisor(on_preemption="resume")``, twice: clean, and
+    under ``RES_PLAN`` (a kill at step 3, a truncated commit of the step-5
+    save, a transient fault at step 6, two delayed h2d copies).  Armed
+    throughout: ``telemetry.trace``, the flight recorder, a
+    ``HealthMonitor(tick_sec=0)`` (one window a run) and a
+    ``MetricsServer`` on a free loopback port.  Gates: the plan fired
+    exactly its faults; the ``resilience`` section reads 2 restarts,
+    retries ``{preemption: 1, transient: 1}``, 1 fallback restore and lost
+    time; the chaos run's parameters and batch log bit-identical to the
+    clean run's; 12 launches of each flash kernel on every executed step,
+    one capture an attempt, no fallback, no plain call; the trace parses
+    and holds ``whole_step`` scopes, ``checkpoint.save.*`` scopes and the
+    supervisor's instants; a flight dump with reason ``sigterm``;
+    ``/metrics`` (over ``urllib``) serves ``mxtpu_resilience_restarts`` and
+    the ``mxtpu_health_*`` gauges, ``/healthz`` answers; the chaos
+    window's goodput below 1, MFU finite and positive against the H100's
+    datasheet peak; device memory after the chaos run within one
+    checkpoint buffer set of the clean run's; the SIGTERM handler and the
+    no-op hooks back once everything is disarmed.  Then a short
+    ``ModelServer`` pass over BERT-base under the trace: one
+    ``serve.request`` span a request, its gauges on ``/metrics``.
+    Printed: the health window's step time (host scopes) beside the CUDA
+    events' step median of the same steps, and the disarmed step median
+    beside phase 15's.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 21, 22, 25, 26, 27: every
+24, 25, 21, 22, 26, 27, 28 (20, 23, 24 and 25 in one launch of 2 ranks,
+21 and 22 in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -602,6 +635,17 @@ IMAGENET_RECIPE = dict(
 # (11.1687 -> 11.1733 on an H100, PERF.md's findings)
 CORPUS = dict(n_docs=400, sents_per_doc=8, words_per_sent=24, n_words=5000)
 WORDPIECE_VOCAB, CORPUS_STEPS = 8000, 20
+# phase 28: RES_STEPS supervised steps, a save every RES_SAVE_EVERY (after
+# steps 1, 3, 5, 7), twice: clean and under RES_PLAN.  The kill lands at
+# step 3 before its save, so the SIGTERM hook's final save commits step 3;
+# the step-5 save commits truncated; the transient fault at step 6 makes
+# the restore fall back past it to step 3
+RES_STEPS, RES_SAVE_EVERY, RES_SERVE_REQUESTS = 8, 2, 8
+RES_PLAN = {"seed": 28, "faults": [
+    {"site": "train.step", "action": "kill", "match": {"step": 3}},
+    {"site": "checkpoint.commit", "action": "truncate", "match": {"step": 5}},
+    {"site": "train.step", "action": "raise", "match": {"step": 6}},
+    {"site": "engine.h2d", "action": "delay", "delay_s": 0.02, "times": 2}]}
 
 
 def log(*args):
@@ -4270,22 +4314,19 @@ def dist_halves(mx, data, ctx, parts):
             for r in range(parts)]
 
 
-def dist_worker(workdir):
-    """A rank of phase 20 (``chip_smoke.py --dist-worker DIR`` under the
-    port's launcher): BERT-base MLM+NSP from ``DIR/start.params`` trains
-    ``DIST_STEPS`` Adam steps on its half of ``DIR/batch.npz`` through
-    ``Trainer(kvstore='dist_sync')``, and writes ``DIR/rank<r>.json``."""
-    import hashlib
+def bert_ranks_worker(workdir):
+    """A rank of phases 20, 23, 24 and 25 (``chip_smoke.py
+    --bert-ranks-worker DIR`` under the port's launcher): one process
+    group, the four phases in turn (:func:`dist_worker`,
+    :func:`zero_worker`, :func:`spmd_worker`, :func:`pp_worker`), as the
+    tests share one launch."""
     import logging
 
-    import numpy as np
     import torch
 
     sys.path.insert(0, str(ROOT))
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops import kernels
-    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.parallel import dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4295,6 +4336,28 @@ def dist_worker(workdir):
     rank = dist.rank()
     ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
     torch.cuda.set_device(ctx.device_id)
+    for phase in (dist_worker, zero_worker, spmd_worker, pp_worker):
+        phase(mx, ctx, rank, workdir)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def dist_worker(mx, ctx, rank, workdir):
+    """Phase 20 on one rank: BERT-base MLM+NSP from ``DIR/start.params``
+    trains ``DIST_STEPS`` Adam steps on its half of ``DIR/batch.npz``
+    through ``Trainer(kvstore='dist_sync')``, and writes
+    ``DIR/rank<r>.json``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import dist
+
     npz = np.load(workdir / "batch.npz")
     data = [npz[f"arr_{i}"] for i in range(len(npz.files))]
     batch = dist_halves(mx, data, ctx, DIST_RANKS)[rank]
@@ -4352,11 +4415,9 @@ def dist_worker(workdir):
     out["unchanged"] = [
         k for k, p in params.items() if p.grad_req != "null"
         and torch.equal(p.data().detach().cpu(), start[k].data)]
+    dist.allreduce = allreduce
     with open(workdir / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.shutdown()
-    return 0
 
 
 def dist_reference(mx, net, data, ctxs):
@@ -4418,14 +4479,18 @@ def train_bert_dist(mx, card):
             net(*[mx.nd.array(a[:2], ctx=gpu) for a in data])
         net.save_parameters(str(d / "start.params"))
         torch.cuda.synchronize()
+        pp = pp_inputs(mx, d)
+        # one launch for phases 20, 23, 24 and 25 (bert_ranks_worker)
         cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
                str(DIST_RANKS), "--launcher", "local", "-p",
                str(free_port()), sys.executable, str(ROOT / "chip_smoke.py"),
-               "--dist-worker", str(d)]
+               "--bert-ranks-worker", str(d)]
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
-                              capture_output=True, timeout=DIST_TIMEOUT_S)
+        proc = subprocess.run(
+            cmd, cwd=str(ROOT), env=env, text=True, capture_output=True,
+            timeout=DIST_TIMEOUT_S + ZERO_TIMEOUT_S + SPMD_TIMEOUT_S
+            + PP_TIMEOUT_S)
         launch_s = time.perf_counter() - t0
         tail = (proc.stdout + proc.stderr).strip().splitlines()
         log("dist: the workers' log (last lines):\n  " + "\n  ".join(
@@ -4451,9 +4516,11 @@ def train_bert_dist(mx, card):
             del net2
             torch.cuda.empty_cache()
         zero_launches = train_bert_zero(mx, card, d, data, ref_losses,
-                                        want_backend)
+                                        want_backend, (launch_s, tail))
         zero_launches.update(train_bert_spmd(mx, card, d, data, ref_losses,
-                                             want_backend))
+                                             want_backend, (launch_s, tail)))
+        zero_launches.update(train_pipeline_lm(mx, card, d, (launch_s, tail),
+                                               pp))
     r0 = ranks[0]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                        ref_losses))
@@ -4477,7 +4544,8 @@ def train_bert_dist(mx, card):
         f"{r0['backend']}, the rule says {want_backend} with {n_gpu} "
         f"card(s)), {DIST_STEPS} steps of {DIST_BATCH // DIST_RANKS} x "
         f"{DIST_SEQ} a rank, kvstore='dist_sync' (update_on_kvstore "
-        f"True): launch {launch_s:.1f} s; losses {r0['losses']} vs one "
+        f"True): launch {launch_s:.1f} s (phases 20, 23-25); losses "
+        f"{r0['losses']} vs one "
         f"process {ref_losses}: max rel err {loss_err:.3g} (rtol "
         f"{DIST_LOSS_RTOL}); parameters bit-identical across ranks after "
         f"every step: {same_params}; launches a rank {r0['launches']} "
@@ -4522,22 +4590,16 @@ def zero_loss(out):
     return out
 
 
-def zero_worker(workdir):
-    """A rank of phase 23 (``chip_smoke.py --zero-worker DIR`` under the
-    port's launcher): BERT-base from ``DIR/start.params`` on its half of
-    ``DIR/batch.npz``, ``ZERO_STEPS`` whole steps through
+def zero_worker(mx, ctx, rank, workdir):
+    """Phase 23 on one rank: BERT-base from ``DIR/start.params`` on its
+    half of ``DIR/batch.npz``, ``ZERO_STEPS`` whole steps through
     ``Trainer(kvstore='dist_sync', update_on_kvstore=False,
     whole_step=True)``, unsharded and then with ``zero_shard=True`` (saved
     into ``DIR/ckpt`` after ``ZERO_SAVE_AT`` steps); writes
     ``DIR/zero-rank<r>.json``."""
-    import logging
-
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.checkpoint import CheckpointManager
     from mxnet_tpu_torch.gluon import trainer as trainer_mod
     from mxnet_tpu_torch.ops import kernels
@@ -4545,13 +4607,6 @@ def zero_worker(workdir):
     from mxnet_tpu_torch.parallel import dist
     from mxnet_tpu_torch.parallel import mesh as mesh_mod
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    workdir = Path(workdir)
-    dist.init()
-    rank = dist.rank()
-    ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
-    torch.cuda.set_device(ctx.device_id)
     npz = np.load(workdir / "batch.npz")
     data = [npz[f"arr_{i}"] for i in range(len(npz.files))]
     batch = tuple(dist_halves(mx, data, ctx, DIST_RANKS)[rank])
@@ -4601,9 +4656,6 @@ def zero_worker(workdir):
         torch.cuda.empty_cache()
     with open(workdir / f"zero-rank{rank}.json", "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.shutdown()
-    return 0
 
 
 def comm_rate(rec, kind):
@@ -4615,10 +4667,11 @@ def comm_rate(rec, kind):
     return ms, nbytes, (nbytes / (ms / 1e3) / 1e9 if ms else 0.0)
 
 
-def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
+def train_bert_zero(mx, card, d, data, ref_losses, want_backend, launch):
     """Phase 23 (see the module docstring), in phase 20's directory ``d``
-    (``start.params``, ``batch.npz``) against its one-process losses
-    ``ref_losses``.  Returns the launches by path."""
+    (``start.params``, ``batch.npz``, the ranks' records) against its
+    one-process losses ``ref_losses``; ``launch`` is the shared launch's
+    ``(seconds, output lines)``.  Returns the launches by path."""
     import numpy as np
     import torch
 
@@ -4626,21 +4679,10 @@ def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
     from mxnet_tpu_torch.ops import kernels
 
     gpu = mx.gpu(0)
-    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
-           str(DIST_RANKS), "--launcher", "local", "-p", str(free_port()),
-           sys.executable, str(ROOT / "chip_smoke.py"), "--zero-worker",
-           str(d)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
-                          capture_output=True, timeout=ZERO_TIMEOUT_S)
-    launch_s = time.perf_counter() - t0
-    tail = (proc.stdout + proc.stderr).strip().splitlines()
-    log("zero: the workers' log (the route lines and the last lines):\n  "
+    launch_s, tail = launch
+    log("zero: the workers' log (the route lines):\n  "
         + "\n  ".join([ln for ln in tail if "eagerly" in ln
-                       or "backend" in ln][:4] + tail[-8:]))
-    if proc.returncode:
-        raise SystemExit(f"zero: the launch exited {proc.returncode}")
+                       or "backend" in ln][:4]))
     ranks = [json.loads((d / f"zero-rank{r}.json").read_text())
              for r in range(DIST_RANKS)]
     # the sharded checkpoint resumed in this process, unsharded, on gpu(0)
@@ -4718,7 +4760,8 @@ def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
         f"{DIST_BATCH // DIST_RANKS} x {DIST_SEQ} a rank through "
         f"Trainer(kvstore='dist_sync', update_on_kvstore=False, "
         f"whole_step=True), unsharded then zero_shard=True ({z0['chunks']} "
-        f"flat chunks): launch {launch_s:.1f} s; losses unsharded "
+        f"flat chunks): launch {launch_s:.1f} s (phases 20, 23-25); "
+        f"losses unsharded "
         f"{u0['losses']}, sharded {z0['losses']}, phase 20's one process "
         f"{ref_losses[:ZERO_STEPS]}: max rel gaps {gaps} (rtol "
         f"{DIST_LOSS_RTOL}); sharded bit-identical to unsharded: "
@@ -4755,21 +4798,15 @@ def train_bert_zero(mx, card, d, data, ref_losses, want_backend):
 # -- phase 24: the Trainer on a mesh ------------------------------------------
 
 
-def spmd_worker(workdir):
-    """A rank of phase 24 (``chip_smoke.py --spmd-worker DIR`` under the
-    port's launcher): BERT-base from ``DIR/start.params`` on the global
+def spmd_worker(mx, ctx, rank, workdir):
+    """Phase 24 on one rank: BERT-base from ``DIR/start.params`` on the global
     batch of ``DIR/batch.npz`` (a loss a half), ``SPMD_STEPS`` whole
     steps through ``Trainer(mesh_shape=...)`` for each of ``SPMD_RUNS``
     (the mp=2 run saved into ``DIR/spmd-ckpt`` after ``SPMD_SAVE_AT``
     steps); writes ``DIR/spmd-rank<r>.json``."""
-    import logging
-
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.checkpoint import CheckpointManager
     from mxnet_tpu_torch.gluon import trainer as trainer_mod
     from mxnet_tpu_torch.ops import kernels
@@ -4778,13 +4815,6 @@ def spmd_worker(workdir):
     from mxnet_tpu_torch.parallel import mesh as mesh_mod
     from mxnet_tpu_torch.parallel.spmd import products
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    workdir = Path(workdir)
-    dist.init()
-    rank = dist.rank()
-    ctx = mx.gpu(rank if torch.cuda.device_count() >= DIST_RANKS else 0)
-    torch.cuda.set_device(ctx.device_id)
     npz = np.load(workdir / "batch.npz")
     batch = tuple(npz[f"arr_{i}"] for i in range(len(npz.files)))
     out = {"rank": rank, "backend": dist.backend(), "device": str(ctx),
@@ -4844,15 +4874,13 @@ def spmd_worker(workdir):
         torch.cuda.empty_cache()
     with open(workdir / f"spmd-rank{rank}.json", "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.shutdown()
-    return 0
 
 
-def train_bert_spmd(mx, card, d, data, ref_losses, want_backend):
+def train_bert_spmd(mx, card, d, data, ref_losses, want_backend, launch):
     """Phase 24 (see the module docstring), in phase 20's directory ``d``
-    (``start.params``, ``batch.npz``) against its one-process losses
-    ``ref_losses``.  Returns the launches by path."""
+    (``start.params``, ``batch.npz``, the ranks' records) against its
+    one-process losses ``ref_losses``; ``launch`` is the shared launch's
+    ``(seconds, output lines)``.  Returns the launches by path."""
     import numpy as np
     import torch
 
@@ -4860,21 +4888,10 @@ def train_bert_spmd(mx, card, d, data, ref_losses, want_backend):
     from mxnet_tpu_torch.ops import kernels
 
     gpu = mx.gpu(0)
-    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
-           str(DIST_RANKS), "--launcher", "local", "-p", str(free_port()),
-           sys.executable, str(ROOT / "chip_smoke.py"), "--spmd-worker",
-           str(d)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
-                          capture_output=True, timeout=SPMD_TIMEOUT_S)
-    launch_s = time.perf_counter() - t0
-    tail = (proc.stdout + proc.stderr).strip().splitlines()
-    log("spmd: the workers' log (the route lines and the last lines):\n  "
+    launch_s, tail = launch
+    log("spmd: the workers' log (the route lines):\n  "
         + "\n  ".join([ln for ln in tail if "eagerly" in ln
-                       or "backend" in ln][:4] + tail[-8:]))
-    if proc.returncode:
-        raise SystemExit(f"spmd: the launch exited {proc.returncode}")
+                       or "backend" in ln][:4]))
     ranks = [json.loads((d / f"spmd-rank{r}.json").read_text())
              for r in range(DIST_RANKS)]
     # the mp=2 save restored in this process, without a mesh, on gpu(0)
@@ -5003,7 +5020,7 @@ def train_bert_spmd(mx, card, d, data, ref_losses, want_backend):
 
 
 def pp_tree(flat, stages):
-    """The pipeline LM's tree from ``weights.npz``'s flat keys, its blocks
+    """The pipeline LM's tree from ``pp-weights.npz``'s flat keys, its blocks
     stacked for ``stages`` stages (the draws are the same numbers whatever
     the stacking)."""
     tree = {}
@@ -5040,19 +5057,17 @@ def pp_launches(kernels):
             if name.startswith("flash_attention")}
 
 
-def pp_worker(workdir):
-    """A rank of phase 25 (``chip_smoke.py --pp-worker DIR`` under the port's
-    launcher): the collectives on CUDA tensors against CPU tensors, the
-    pipeline LM at GPT-2 small's widths from ``DIR/weights.npz`` on
-    ``DIR/batch.npz`` over ``{pp:2}`` (the first step's gradients, then
+def pp_worker(mx, ctx, rank, workdir):
+    """Phase 25 on one rank (after phase 24, in the same launch): the
+    collectives on CUDA tensors against CPU tensors, the pipeline LM at
+    GPT-2 small's widths from ``DIR/pp-weights.npz`` on
+    ``DIR/pp-batch.npz`` over ``{pp:2}`` (the first step's gradients, then
     ``PP_STEPS`` steps) and over ``{sp:2}`` (``PP_SP_STEPS`` steps), and
     ring and Ulysses attention over ``{sp:2}``; writes
     ``DIR/pp-rank<r>.json`` and ``DIR/pp-grads-rank<r>.npz``."""
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.ops.attention import sdpa_reference
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
@@ -5062,16 +5077,9 @@ def pp_worker(workdir):
     from mxnet_tpu_torch.parallel.ring_attention import ring_attention
     from mxnet_tpu_torch.parallel.ulysses import ulysses_attention
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    workdir = Path(workdir)
-    dist.init()
-    rank = dist.rank()
-    ctx = mx.gpu(rank if torch.cuda.device_count() >= PP_RANKS else 0)
-    torch.cuda.set_device(ctx.device_id)
-    with np.load(workdir / "weights.npz") as z:
+    with np.load(workdir / "pp-weights.npz") as z:
         flat = {k: z[k] for k in z.files}
-    with np.load(workdir / "batch.npz") as z:
+    with np.load(workdir / "pp-batch.npz") as z:
         toks, tgts = z["tokens"], z["targets"]
     out = {"rank": rank, "backend": dist.backend(), "device": str(ctx)}
 
@@ -5180,9 +5188,6 @@ def pp_worker(workdir):
     out["attention"] = attn
     with open(workdir / f"pp-rank{rank}.json", "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.shutdown()
-    return 0
 
 
 def pp_rounding_floor(mx, plm, params, toks, tgts):
@@ -5216,8 +5221,36 @@ def pp_rounding_floor(mx, plm, params, toks, tgts):
     return out
 
 
-def train_pipeline_lm(mx, card):
-    """Phase 25 (see the module docstring).  Returns the launches by
+def pp_inputs(mx, d):
+    """Phase 25's inputs, written into phase 20's directory ``d`` before
+    the shared launch: GPT-2 small's weights (``pp-weights.npz``, the JAX
+    package's init rescaled by :func:`gpt2_scale`) and one batch
+    (``pp-batch.npz``); returns them with the JAX init's rounding floor
+    and this phase's seconds so far."""
+    import numpy as np
+
+    from mxnet_tpu_torch.parallel import pipeline_lm as plm
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(25)
+    toks = rng.randint(0, PP_VOCAB, (PP_BATCH, PP_CTX))
+    tgts = np.roll(toks, -1, axis=1)
+    jax_init = plm.init_pipeline_lm(PP_VOCAB, PP_D, PP_LAYERS, PP_FF,
+                                    PP_HEADS, PP_CTX, PP_RANKS, ctx=mx.cpu())
+    floor = pp_rounding_floor(mx, plm, jax_init, toks, tgts)
+    params = gpt2_scale(jax_init, PP_LAYERS, PP_D, PP_FF)
+    del jax_init
+    np.savez(d / "pp-weights.npz", **{f"{g}.{k}": v.numpy() for g, s in
+                                      params.items() for k, v in s.items()})
+    np.savez(d / "pp-batch.npz", tokens=toks, targets=tgts)
+    return {"toks": toks, "tgts": tgts, "params": params, "floor": floor,
+            "s": time.perf_counter() - t0}
+
+
+def train_pipeline_lm(mx, card, d, launch, inputs):
+    """Phase 25 (see the module docstring): its ranks ran in phase 20's
+    launch (``launch``: its seconds and output lines) from
+    :func:`pp_inputs`' ``inputs`` in ``d``.  Returns the launches by
     path."""
     import numpy as np
     import torch
@@ -5228,59 +5261,34 @@ def train_pipeline_lm(mx, card):
 
     gpu = mx.gpu(0)
     want_backend = dist.choose_backend(PP_RANKS)
-    t_phase = time.perf_counter()
-    rng = np.random.RandomState(25)
-    toks = rng.randint(0, PP_VOCAB, (PP_BATCH, PP_CTX))
-    tgts = np.roll(toks, -1, axis=1)
-    with tempfile.TemporaryDirectory(prefix="pp-smoke-", dir=ROOT) as d:
-        d = Path(d)
-        jax_init = plm.init_pipeline_lm(PP_VOCAB, PP_D, PP_LAYERS, PP_FF,
-                                        PP_HEADS, PP_CTX, PP_RANKS,
-                                        ctx=mx.cpu())
-        floor = pp_rounding_floor(mx, plm, jax_init, toks, tgts)
-        params = gpt2_scale(jax_init, PP_LAYERS, PP_D, PP_FF)
-        del jax_init
-        np.savez(d / "weights.npz", **{f"{g}.{k}": v.numpy() for g, s in
-                                       params.items() for k, v in s.items()})
-        np.savez(d / "batch.npz", tokens=toks, targets=tgts)
-        cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
-               str(PP_RANKS), "--launcher", "local", "-p", str(free_port()),
-               sys.executable, str(ROOT / "chip_smoke.py"), "--pp-worker",
-               str(d)]
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=str(ROOT), env=env, text=True,
-                              capture_output=True, timeout=PP_TIMEOUT_S)
-        launch_s = time.perf_counter() - t0
-        tail = (proc.stdout + proc.stderr).strip().splitlines()
-        log("pp: the workers' log (last lines):\n  "
-            + "\n  ".join(tail[-8:]))
-        if proc.returncode:
-            raise SystemExit(f"pp: the launch exited {proc.returncode}")
-        ranks = [json.loads((d / f"pp-rank{r}.json").read_text())
-                 for r in range(PP_RANKS)]
-        got = {}
-        for r in range(PP_RANKS):
-            with np.load(d / f"pp-grads-rank{r}.npz") as z:
-                got.update({k: z[k] for k in z.files})
-        # the one-process reference on gpu(0) from the same weights
-        tree = {g: {k: v.to(gpu.torch_device(), copy=True)
-                    .requires_grad_() for k, v in s.items()}
-                for g, s in params.items()}
-        del params
-        kernels.reset_counts()
-        loss = plm.reference_lm_loss(tree, toks, tgts, PP_HEADS)
-        loss.backward()
-        ref_loss = float(loss.detach())
-        ref_launches = pp_launches(kernels)
-        want = {"embed.tok": tree["embed"]["tok"].grad,
-                "blocks.wqkv0": tree["blocks"]["wqkv"].grad[0, 0],
-                "head.w": tree["head"]["w"].grad}
-        grad_err = {k: ((torch.from_numpy(got[k]).to(w.device) - w).abs()
-                        .max() / w.abs().max()).item()
-                    for k, w in want.items()}
-        del tree, want, loss
-        torch.cuda.empty_cache()
+    t_phase = time.perf_counter() - inputs["s"]
+    toks, tgts, floor = inputs["toks"], inputs["tgts"], inputs["floor"]
+    params = inputs.pop("params")
+    launch_s, _ = launch
+    ranks = [json.loads((d / f"pp-rank{r}.json").read_text())
+             for r in range(PP_RANKS)]
+    got = {}
+    for r in range(PP_RANKS):
+        with np.load(d / f"pp-grads-rank{r}.npz") as z:
+            got.update({k: z[k] for k in z.files})
+    # the one-process reference on gpu(0) from the same weights
+    tree = {g: {k: v.to(gpu.torch_device(), copy=True)
+                .requires_grad_() for k, v in s.items()}
+            for g, s in params.items()}
+    del params
+    kernels.reset_counts()
+    loss = plm.reference_lm_loss(tree, toks, tgts, PP_HEADS)
+    loss.backward()
+    ref_loss = float(loss.detach())
+    ref_launches = pp_launches(kernels)
+    want = {"embed.tok": tree["embed"]["tok"].grad,
+            "blocks.wqkv0": tree["blocks"]["wqkv"].grad[0, 0],
+            "head.w": tree["head"]["w"].grad}
+    grad_err = {k: ((torch.from_numpy(got[k]).to(w.device) - w).abs()
+                    .max() / w.abs().max()).item()
+                for k, w in want.items()}
+    del tree, want, loss
+    torch.cuda.empty_cache()
     pp, sp = [r["pp2"] for r in ranks], [r["sp2"] for r in ranks]
     pp_gap = abs(pp[0]["loss0"] - ref_loss) / ref_loss
     sp_gap = abs(sp[0]["losses"][0] - ref_loss) / ref_loss
@@ -5318,6 +5326,7 @@ def train_pipeline_lm(mx, card):
         f"off), {PP_RANKS} ranks ({devices}; backend {ranks[0]['backend']},"
         f" the rule says {want_backend}), batch {PP_BATCH} x {PP_CTX} in "
         f"{PP_MICRO} micro-batches, Adam lr {PP_LR}: launch {launch_s:.1f} s"
+        f" (phases 20, 23, 24 and 25)"
         f"; on {card}")
     log(f"pp {{pp:2}}: first loss {pp[0]['loss0']} vs one process "
         f"{ref_loss}: rel gap {pp_gap:.3g} (rtol {PP_LOSS_RTOL}); gradients "
@@ -5358,7 +5367,8 @@ def train_pipeline_lm(mx, card):
         f" embed.tok {floor['tok']:.3g}, head.w {floor['w']:.3g} (fp32 "
         f"rounding alone; phase 25 trains from GPT-2's published init "
         f"scale, gpt2_scale); on {card}")
-    log(f"pp: phase 25 took {time.perf_counter() - t_phase:.1f} s; bubble "
+    log(f"pp: phase 25 took {time.perf_counter() - t_phase:.1f} s besides "
+        f"its ranks' part of the shared launch; bubble "
         f"n_micro/(n_micro+P-1) = {PP_MICRO}/{PP_MICRO + PP_RANKS - 1}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -5466,6 +5476,10 @@ def mesh_worker_bert(mx, ctx, workdir, out):
     batch = tuple(torch.from_numpy(npz[f"arr_{i}"]).cuda()
                   for i in range(len(npz.files)))
     y = torch.zeros(MESH_BERT_BATCH, device="cuda")
+    # phase 21 ran first in this process: its b=2 forward that completes
+    # the deferred shapes sends 6 products the tile rule refuses to the
+    # plain version, as the JAX entry does (ops/kernels/conv_fused.py)
+    kernels.reset_counts()
     for label, shape, kw in (
             ("dp", {"dp": 2}, {}),
             ("dp_zero_remat", {"dp": 2},
@@ -5503,9 +5517,11 @@ def mesh_worker_bert(mx, ctx, workdir, out):
         torch.cuda.empty_cache()
 
 
-def mesh_worker(workdir, phase):
-    """A rank of phase 21 or 22 (``chip_smoke.py --mesh-worker DIR PHASE``
-    under the port's launcher): writes ``DIR/<phase>-rank<r>.json``."""
+def mesh_worker(workdir, phases):
+    """A rank of phases 21 and 22 (``chip_smoke.py --mesh-worker DIR
+    PHASES`` under the port's launcher; PHASES ``resnet``, ``bert`` or
+    ``resnet,bert``, run in turn on one mesh): writes
+    ``DIR/<phase>-rank<r>.json`` a phase."""
     import logging
 
     import torch
@@ -5522,15 +5538,17 @@ def mesh_worker(workdir, phase):
     mesh = mesh_mod.make_mesh()  # joins the group: {"dp": world size}
     ctx = mx.gpu(mesh.rank if torch.cuda.device_count() >= mesh.size else 0)
     torch.cuda.set_device(ctx.device_id)
-    out = {"rank": mesh.rank, "backend": dist.backend(),
-           "mesh": mesh.shape, "device": str(ctx),
-           "cards": torch.cuda.device_count()}
-    if phase == "resnet":
-        mesh_worker_resnet(mx, ctx, mesh, workdir, out)
-    else:
-        mesh_worker_bert(mx, ctx, workdir, out)
-    with open(workdir / f"{phase}-rank{mesh.rank}.json", "w") as f:
-        json.dump(out, f)
+    for phase in phases.split(","):
+        out = {"rank": mesh.rank, "backend": dist.backend(),
+               "mesh": mesh.shape, "device": str(ctx),
+               "cards": torch.cuda.device_count()}
+        if phase == "resnet":
+            mesh_worker_resnet(mx, ctx, mesh, workdir, out)
+        else:
+            mesh_worker_bert(mx, ctx, workdir, out)
+        with open(workdir / f"{phase}-rank{mesh.rank}.json", "w") as f:
+            json.dump(out, f)
+        torch.cuda.empty_cache()
     dist.barrier()
     dist.shutdown()
     return 0
@@ -5538,8 +5556,9 @@ def mesh_worker(workdir, phase):
 
 def mesh_launch(workdir, phase, one_card):
     """Start MESH_RANKS ranks of ``chip_smoke.py --mesh-worker`` through the
-    port's launcher (``one_card``: only gpu(0) visible to them); returns
-    their records in rank order."""
+    port's launcher (``one_card``: only gpu(0) visible to them) for
+    ``phase`` (``resnet``, ``bert`` or both, comma-separated: one launch);
+    returns their records in rank order, a list a phase for several."""
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
            str(MESH_RANKS), "--launcher", "local", "-p", str(free_port()),
            sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
@@ -5558,11 +5577,13 @@ def mesh_launch(workdir, phase, one_card):
                        or "eagerly" in ln][:6] + tail[-8:]))
     if proc.returncode:
         raise SystemExit(f"mesh {phase}: the launch exited {proc.returncode}")
-    ranks = [json.loads((workdir / f"{phase}-rank{r}.json").read_text())
-             for r in range(MESH_RANKS)]
-    for f in workdir.glob(f"{phase}-rank*.json"):
-        f.unlink()
-    return ranks
+    out = {}
+    for ph in phase.split(","):
+        out[ph] = [json.loads((workdir / f"{ph}-rank{r}.json").read_text())
+                   for r in range(MESH_RANKS)]
+        for f in workdir.glob(f"{ph}-rank*.json"):
+            f.unlink()
+    return out[phase] if len(out) == 1 else out
 
 
 def per_step(steps, key, kind, field):
@@ -5609,137 +5630,166 @@ def mesh_resnet_checks(ranks, want_backend, label):
     return checks, per[-1]
 
 
-def train_mesh_resnet(mx, card):
-    """Phase 21 (and 21b): fused ResNet-50 over make_mesh() = {dp:2}.
-    Returns the launches of both ranks' 6 steps by kernel."""
+def train_mesh(mx, card):
+    """Phases 21 (and 21b) and 22 in one launch of 2 ranks: the one-process
+    references of both first, then the ranks run phase 21's ResNet-50 and
+    phase 22's BERT-base in turn on one mesh.  Returns the launches by
+    path."""
+    with tempfile.TemporaryDirectory(prefix="mesh-smoke-", dir=ROOT) as d:
+        d = Path(d)
+        rref = mesh_resnet_reference(mx, d)
+        bref = mesh_bert_reference(mx, d)
+        ranks = mesh_launch(d, "resnet,bert", one_card=True)
+        launches = train_mesh_resnet(mx, card, d, ranks["resnet"], rref)
+    launches.update(train_mesh_bert(mx, card, ranks["bert"], bref))
+    return launches
+
+
+def mesh_resnet_reference(mx, d):
+    """Phase 21's one-process reference: 2 fp32 steps at b=16, 112^2 from
+    the weights it saves as ``d/ref-start.params``; returns the losses,
+    the starting weights and the weights after step 1."""
+    import numpy as np
+    import torch
+
+    gpu = mx.gpu(0)
+    x, y = synthetic_images(np.random.RandomState(1), MESH_REF_BATCH,
+                            MESH_REF_IMAGE)
+    net = resnet50(mx, gpu, fuse=True)
+    trainer = resnet_trainer(mx, net)
+    trainer.build(mx.nd.array(x, ctx=gpu))
+    net.save_parameters(str(d / "ref-start.params"))
+    start = {k: p.data().detach().cpu().numpy().copy()
+             for k, p in net._collect_params_with_prefix().items()}
+    losses = [float(trainer.step(x, y).asnumpy())]
+    trainer.sync_to_block()
+    one = {k: p.data().detach().cpu().numpy().copy()
+           for k, p in net._collect_params_with_prefix().items()}
+    losses.append(float(trainer.step(x, y).asnumpy()))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return losses, start, one
+
+
+def train_mesh_resnet(mx, card, d, ranks, reference):
+    """Phase 21 (and 21b): fused ResNet-50 over make_mesh() = {dp:2}, the
+    ranks' records ``ranks`` against ``reference``.  Returns the launches
+    of both ranks' 6 steps by kernel."""
     import statistics as st
 
     import numpy as np
     import torch
 
-    gpu = mx.gpu(0)
     n_gpu = torch.cuda.device_count()
+    losses, start, one = reference
     checks = {}
-    with tempfile.TemporaryDirectory(prefix="mesh-smoke-", dir=ROOT) as d:
-        d = Path(d)
-        x, y = synthetic_images(np.random.RandomState(1), MESH_REF_BATCH,
-                                MESH_REF_IMAGE)
-        net = resnet50(mx, gpu, fuse=True)
-        trainer = resnet_trainer(mx, net)
-        trainer.build(mx.nd.array(x, ctx=gpu))
-        net.save_parameters(str(d / "ref-start.params"))
-        start = {k: p.data().detach().cpu().numpy().copy()
-                 for k, p in net._collect_params_with_prefix().items()}
-        losses = [float(trainer.step(x, y).asnumpy())]
-        trainer.sync_to_block()
-        one = {k: p.data().detach().cpu().numpy().copy()
-               for k, p in net._collect_params_with_prefix().items()}
-        losses.append(float(trainer.step(x, y).asnumpy()))
-        del net, trainer
-        torch.cuda.empty_cache()
-        ranks = mesh_launch(d, "resnet", one_card=True)
-        mesh = dict(np.load(d / "ref-mesh.npz"))
-        c, per = mesh_resnet_checks(ranks, "gloo", "mesh_resnet")
-        checks.update(c)
-        # the cross-replica check against one process over the 16 images
-        ml = ranks[0]["resnet_ref"]["losses"]
-        gaps = {"loss1": abs(ml[0] - losses[0]) / abs(losses[0]),
-                "loss2": abs(ml[1] - losses[1]) / abs(losses[1])}
-        for w, k in (("fc", RESNET_FC_KEY), ("top", RESNET_TOP_KEY),
-                     ("deep", RESNET_DEEP_KEY)):
-            u1, u2 = one[k] - start[k], mesh[k] - start[k]
-            gaps[w] = float(np.linalg.norm(u2 - u1) / np.linalg.norm(u1))
-        gaps["stats"] = max(
-            float(np.abs(mesh[k] - one[k]).max() / np.abs(one[k]).max())
-            for k in one if "running" in k)
-        limits = {"loss1": RESNET_LOSS1_RTOL, "loss2": RESNET_LOSS2_RTOL,
-                  "fc": RESNET_FC_UPDATE_RTOL, "top": RESNET_TOP_UPDATE_RTOL,
-                  "deep": RESNET_UPDATE_RTOL, "stats": MESH_STATS_RTOL}
-        for k, v in gaps.items():
-            checks[f"mesh_resnet_cross_replica_{k}"] = v <= limits[k]
-        r0 = ranks[0]["resnet"]["steps"]
-        log(f"mesh resnet: ResNet-50 v1 NHWC fused, bf16 compute, SGD "
-            f"momentum, {MESH_RESNET_STEPS} steps at the global batch "
-            f"{RESNET_BATCH} x {RESNET_IMAGE}^2 over {ranks[0]['mesh']} "
-            f"({', '.join(r['device'] for r in ranks)}; backend "
-            f"{ranks[0]['backend']}, the rule's for 2 ranks on one card: "
-            f"gloo); losses {[round(s['loss'], 5) for s in r0]}; ranks "
-            f"bit-identical every step "
-            f"{checks['mesh_resnet_ranks_bit_identical_every_step']}; "
-            f"launches a rank a step {per}; eager by rule: "
-            f"{ranks[0]['resnet']['eager_reason']!r}; on {card}")
-        log(f"mesh resnet: a step: median "
-            f"{[st.median(s['ms'] for s in r['resnet']['steps'][1:]) for r in ranks]}"
-            f" ms a rank (one process at b={RESNET_BATCH}: phase 7); "
-            f"gradient all-reduce {per_step(r0, 'comm', 'grad', 'ms'):.3f} "
-            f"ms, {per_step(r0, 'comm', 'grad', 'bytes')} bytes in "
-            f"{per_step(r0, 'comm', 'grad', 'calls')} call(s) a step; "
-            f"BatchNorm statistics {per_step(r0, 'comm', 'stats', 'calls')} "
-            f"all-reduces a step ({per_step(r0, 'comm', 'stats', 'bytes')} "
-            f"bytes, {per_step(r0, 'comm', 'stats', 'ms'):.3f} ms); loss "
-            f"{per_step(r0, 'comm', 'loss', 'ms'):.3f} ms; on {card}")
-        log(f"mesh resnet: cross-replica check, b={MESH_REF_BATCH} "
-            f"{MESH_REF_IMAGE}^2 fp32, 2 steps, {{dp:2}} against one "
-            f"process over the same images and weights on gpu(0): losses "
-            f"{ml} vs {losses}; gaps "
-            + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
-            + f"; limits {limits}")
-        launches = {"mesh_resnet_train": {
-            k: sum(s["launches"].get(k, {}).get("launches", 0)
-                   for r in ranks for s in r["resnet"]["steps"])
-            for k in ("matmul_bn_stats", "bn_stats", "bn_act_matmul_stats")}}
-        if n_gpu < 2:
-            log(f"mesh resnet 21b: {{dp:2}} over gpu(0), gpu(1) with NCCL: "
-                f"needs 2 GPUs, {n_gpu} visible")
-        else:
-            ranks2 = mesh_launch(d, "resnet", one_card=False)
-            c2, per2 = mesh_resnet_checks(ranks2, "nccl", "mesh_resnet_nccl")
-            checks.update(c2)
-            l1 = [s["loss"] for s in r0]
-            l2 = [s["loss"] for s in ranks2[0]["resnet"]["steps"]]
-            gap = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
-            checks["mesh_resnet_nccl_losses"] = gap <= RESNET_ROUTE_RTOL[-1]
-            log(f"mesh resnet 21b: over {[r['device'] for r in ranks2]} "
-                f"with {ranks2[0]['backend']}: losses {l2}, max rel gap to "
-                f"phase 21 {gap:.3g}; gradient all-reduce "
-                f"{per_step(ranks2[0]['resnet']['steps'], 'comm', 'grad', 'ms'):.3f}"
-                f" ms a step; launches a rank a step {per2}; on {card}")
+    mesh = dict(np.load(d / "ref-mesh.npz"))
+    c, per = mesh_resnet_checks(ranks, "gloo", "mesh_resnet")
+    checks.update(c)
+    # the cross-replica check against one process over the 16 images
+    ml = ranks[0]["resnet_ref"]["losses"]
+    gaps = {"loss1": abs(ml[0] - losses[0]) / abs(losses[0]),
+            "loss2": abs(ml[1] - losses[1]) / abs(losses[1])}
+    for w, k in (("fc", RESNET_FC_KEY), ("top", RESNET_TOP_KEY),
+                 ("deep", RESNET_DEEP_KEY)):
+        u1, u2 = one[k] - start[k], mesh[k] - start[k]
+        gaps[w] = float(np.linalg.norm(u2 - u1) / np.linalg.norm(u1))
+    gaps["stats"] = max(
+        float(np.abs(mesh[k] - one[k]).max() / np.abs(one[k]).max())
+        for k in one if "running" in k)
+    limits = {"loss1": RESNET_LOSS1_RTOL, "loss2": RESNET_LOSS2_RTOL,
+              "fc": RESNET_FC_UPDATE_RTOL, "top": RESNET_TOP_UPDATE_RTOL,
+              "deep": RESNET_UPDATE_RTOL, "stats": MESH_STATS_RTOL}
+    for k, v in gaps.items():
+        checks[f"mesh_resnet_cross_replica_{k}"] = v <= limits[k]
+    r0 = ranks[0]["resnet"]["steps"]
+    log(f"mesh resnet: ResNet-50 v1 NHWC fused, bf16 compute, SGD "
+        f"momentum, {MESH_RESNET_STEPS} steps at the global batch "
+        f"{RESNET_BATCH} x {RESNET_IMAGE}^2 over {ranks[0]['mesh']} "
+        f"({', '.join(r['device'] for r in ranks)}; backend "
+        f"{ranks[0]['backend']}, the rule's for 2 ranks on one card: "
+        f"gloo); losses {[round(s['loss'], 5) for s in r0]}; ranks "
+        f"bit-identical every step "
+        f"{checks['mesh_resnet_ranks_bit_identical_every_step']}; "
+        f"launches a rank a step {per}; eager by rule: "
+        f"{ranks[0]['resnet']['eager_reason']!r}; on {card}")
+    log(f"mesh resnet: a step: median "
+        f"{[st.median(s['ms'] for s in r['resnet']['steps'][1:]) for r in ranks]}"
+        f" ms a rank (one process at b={RESNET_BATCH}: phase 7); "
+        f"gradient all-reduce {per_step(r0, 'comm', 'grad', 'ms'):.3f} "
+        f"ms, {per_step(r0, 'comm', 'grad', 'bytes')} bytes in "
+        f"{per_step(r0, 'comm', 'grad', 'calls')} call(s) a step; "
+        f"BatchNorm statistics {per_step(r0, 'comm', 'stats', 'calls')} "
+        f"all-reduces a step ({per_step(r0, 'comm', 'stats', 'bytes')} "
+        f"bytes, {per_step(r0, 'comm', 'stats', 'ms'):.3f} ms); loss "
+        f"{per_step(r0, 'comm', 'loss', 'ms'):.3f} ms; on {card}")
+    log(f"mesh resnet: cross-replica check, b={MESH_REF_BATCH} "
+        f"{MESH_REF_IMAGE}^2 fp32, 2 steps, {{dp:2}} against one "
+        f"process over the same images and weights on gpu(0): losses "
+        f"{ml} vs {losses}; gaps "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f"; limits {limits}")
+    launches = {"mesh_resnet_train": {
+        k: sum(s["launches"].get(k, {}).get("launches", 0)
+               for r in ranks for s in r["resnet"]["steps"])
+        for k in ("matmul_bn_stats", "bn_stats", "bn_act_matmul_stats")}}
+    if n_gpu < 2:
+        log(f"mesh resnet 21b: {{dp:2}} over gpu(0), gpu(1) with NCCL: "
+            f"needs 2 GPUs, {n_gpu} visible")
+    else:
+        ranks2 = mesh_launch(d, "resnet", one_card=False)
+        c2, per2 = mesh_resnet_checks(ranks2, "nccl", "mesh_resnet_nccl")
+        checks.update(c2)
+        l1 = [s["loss"] for s in r0]
+        l2 = [s["loss"] for s in ranks2[0]["resnet"]["steps"]]
+        gap = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+        checks["mesh_resnet_nccl_losses"] = gap <= RESNET_ROUTE_RTOL[-1]
+        log(f"mesh resnet 21b: over {[r['device'] for r in ranks2]} "
+            f"with {ranks2[0]['backend']}: losses {l2}, max rel gap to "
+            f"phase 21 {gap:.3g}; gradient all-reduce "
+            f"{per_step(ranks2[0]['resnet']['steps'], 'comm', 'grad', 'ms'):.3f}"
+            f" ms a step; launches a rank a step {per2}; on {card}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"mesh resnet checks failed: {failed}")
     return launches
 
 
-def train_mesh_bert(mx, card):
-    """Phase 22: BERT-base MLM+NSP (a loss a row) through the trainer on 2
-    ranks: {dp:2}; {dp:2} with ZeRO states and remat; {tp:2} with sharded
-    parameters.  Returns the launches by kernel of both ranks' runs."""
-    import statistics as st
-
+def mesh_bert_reference(mx, d):
+    """Phase 22's one-process reference: the losses of MESH_BERT_STEPS
+    eager steps over the global batch, from the weights and batch it
+    saves as ``d/bert-start.params`` and ``d/bert-batch.npz``."""
     import numpy as np
     import torch
 
     gpu = mx.gpu(0)
     data = synthetic_batch(np.random.RandomState(22), MESH_BERT_BATCH,
                            MESH_BERT_SEQ, 30522)
+    np.savez(d / "bert-batch.npz", *data)
+    net = pretrain_net(mx, gpu, dropout=0.0, rows=True)
+    batch = tuple(torch.from_numpy(a).cuda() for a in data)
+    with mx.autograd.pause():
+        net(*[b[:2] for b in batch])
+    net.save_parameters(str(d / "bert-start.params"))
+    tr = mx.parallel.DataParallelTrainer(net, lambda out, _: out,
+                                         "adamw", dict(MESH_ADAMW),
+                                         capture=False)
+    y = torch.zeros(MESH_BERT_BATCH, device="cuda")
+    ref = [float(tr.step(batch, y).asnumpy())
+           for _ in range(MESH_BERT_STEPS)]
+    del tr, net, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def train_mesh_bert(mx, card, ranks, ref):
+    """Phase 22: BERT-base MLM+NSP (a loss a row) through the trainer on 2
+    ranks: {dp:2}; {dp:2} with ZeRO states and remat; {tp:2} with sharded
+    parameters; the ranks' records ``ranks`` against the one-process
+    losses ``ref``.  Returns the launches by kernel of both ranks' runs."""
+    import statistics as st
+
     checks = {}
-    with tempfile.TemporaryDirectory(prefix="mesh-smoke-", dir=ROOT) as d:
-        d = Path(d)
-        np.savez(d / "bert-batch.npz", *data)
-        net = pretrain_net(mx, gpu, dropout=0.0, rows=True)
-        batch = tuple(torch.from_numpy(a).cuda() for a in data)
-        with mx.autograd.pause():
-            net(*[b[:2] for b in batch])
-        net.save_parameters(str(d / "bert-start.params"))
-        tr = mx.parallel.DataParallelTrainer(net, lambda out, _: out,
-                                             "adamw", dict(MESH_ADAMW),
-                                             capture=False)
-        y = torch.zeros(MESH_BERT_BATCH, device="cuda")
-        ref = [float(tr.step(batch, y).asnumpy())
-               for _ in range(MESH_BERT_STEPS)]
-        del tr, net, batch
-        torch.cuda.empty_cache()
-        ranks = mesh_launch(d, "bert", one_card=True)
     runs = {k: [r[k] for r in ranks] for k in ("dp", "dp_zero_remat", "tp")}
     want = {"dp": (12, 12, 12), "dp_zero_remat": (24, 12, 12),
             "tp": (12, 12, 12)}
@@ -6408,6 +6458,325 @@ def image_text_tier(mx, card, captured):
     return {"jpeg_resnet_train": resnet["launches"],
             "corpus_bert_train": bert["launches"]}
 
+# -- phase 28: resilience and telemetry around BERT-base training -------------
+
+
+def supervised_bert(mx, gpu, mgr, data, record):
+    """One supervised job of phase 28: returns the Supervisor's result
+    (the final parameters as host copies, the net and the trainer) and
+    fills ``record`` (batch log, per-step launches, losses, CUDA-event
+    step times, captures an attempt)."""
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+
+    sup = mx.resilience.Supervisor(mgr, on_preemption="resume",
+                                   max_restarts=4)
+
+    def train(ctx):
+        record["captures"].append(_imperative.graph_capture_count())
+        net = pretrain_net(mx, gpu, dropout=0.0)
+        with mx.autograd.pause():   # complete the deferred shapes
+            net(*[mx.nd.array(a[:2], ctx=gpu) for a in data[0]])
+        trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                                   {"learning_rate": 1e-4, "wd": 0.01},
+                                   whole_step=True)
+        pipe = mx.pipeline.Pipeline(data).prefetch_to_device(gpu, 2)
+        start = 0
+        if ctx.manager.latest() is not None:
+            meta = ctx.manager.restore(params=net, trainer=trainer,
+                                       pipeline=pipe)
+            start = meta["step"] + 1
+        cur = {"step": start - 1}
+        ctx.set_preemption_state(lambda: dict(
+            step=cur["step"], params=net, trainer=trainer, pipeline=pipe))
+        for step, batch in enumerate(pipe, start):
+            before = counts_now()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = trainer.whole_step(net, own_loss, list(batch),
+                                      batch_size=1)
+            e1.record()
+            record["losses"][step] = loss.asscalar()
+            record["events"].append((step, e0, e1))
+            record["gains"].append(counts_gain(before, counts_now()))
+            record["batches"][step] = batch[0].asnumpy().tobytes()
+            cur["step"] = step
+            save = dict(params=net, trainer=trainer, pipeline=pipe,
+                        sync=True) if step % RES_SAVE_EVERY == 1 else None
+            ctx.step_done(step, save=save)
+        params = [p.data().detach().cpu().clone()
+                  for p in net.collect_params().values()]
+        return params, net, trainer
+
+    out = sup.run(train)
+    record["captures"].append(_imperative.graph_capture_count())
+    return out
+
+
+def timed_whole_steps(mx, net, trainer, arrays, gpu, n=10):
+    """``n`` captured whole steps of ``net`` on one batch, each timed on
+    the host clock with its loss read back (ms)."""
+    import torch
+
+    batch = [mx.nd.array(a, ctx=gpu) for a in arrays]
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.whole_step(net, own_loss, batch, batch_size=1).asscalar()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def resilience_telemetry(mx, card, captured_ms):
+    """Phase 28 (see the module docstring).  ``captured_ms`` is phase 15's
+    captured BERT step median.  Returns the flash kernels' launches by
+    path."""
+    import gc
+    import math
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import engine, profiler, resilience, telemetry
+    from mxnet_tpu_torch.gluon import trainer as mtrainer
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.resilience import stats as rstats
+    from mxnet_tpu_torch.telemetry import flight, health, tracer
+
+    gpu = mx.gpu(0)
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    data = [synthetic_batch(np.random.RandomState(280 + i), TRAIN_BATCH,
+                            TRAIN_SEQ, 30522) for i in range(RES_STEPS)]
+    checks = {}
+    sigterm = signal.getsignal(signal.SIGTERM)
+    root = Path(tempfile.mkdtemp(prefix="res-smoke-", dir=ROOT))
+    try:
+        trace_path = root / "phase28.trace.json"
+        telemetry.start_trace(str(trace_path))
+        flight.enable(directory=root / "clean")
+        monitor = telemetry.HealthMonitor(tick_sec=0).arm()
+        server = telemetry.MetricsServer(port=0, host="127.0.0.1").start()
+        kernels.reset_counts()
+        mtrainer.reset_trainer_step_stats()
+        runs, windows, mem = {}, {}, {}
+        t_phase = time.perf_counter()
+        for label in ("clean", "chaos"):
+            rec = {"batches": {}, "losses": {}, "events": [], "gains": [],
+                   "captures": []}
+            mgr = mx.checkpoint.CheckpointManager(root / label, keep_n=2)
+            plan = None
+            if label == "chaos":
+                flight.enable(directory=root / label)
+                rstats.reset_resilience_stats()
+                plan = resilience.parse_plan(json.dumps(RES_PLAN))
+                resilience.install_plan(plan)
+            t0 = time.perf_counter()
+            try:
+                params, net, trainer = supervised_bert(mx, gpu, mgr, data,
+                                                       rec)
+            finally:
+                if plan is not None:
+                    resilience.clear_plan()
+            rec["s"] = time.perf_counter() - t0
+            rec["fired"] = plan.fired() if plan is not None else []
+            rec["resilience"] = dict(profiler.sections()["resilience"])
+            windows[label] = monitor.tick()
+            torch.cuda.synchronize()
+            rec["event_ms"] = [(s, a.elapsed_time(b))
+                               for s, a, b in rec["events"]]
+            rec["params"] = params
+            gc.collect()
+            mem[label] = torch.cuda.memory_allocated()
+            # one checkpoint buffer set: the manager's device copies of
+            # every parameter and state
+            rec["buffer_bytes"] = sum(
+                t.numel() * t.element_size()
+                for t in mgr._snapshot._device.values())
+            if label == "clean":
+                # the clean run's whole_step scopes, as the monitor read them
+                rec["scope_ms"] = list(health._step_ring)
+                del net, trainer
+            else:
+                rec["hooks_noop_after_clear"] = \
+                    engine.fault_point is engine._fault_noop
+                rec["armed_ms"] = timed_whole_steps(mx, net, trainer,
+                                                    data[0], gpu)
+            del mgr
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[label] = rec
+        train_counts = {k: kernels.KERNEL_COUNTS[k].launches for k in flash}
+        plain = sum(c.plain_calls_on_cuda
+                    for c in kernels.KERNEL_COUNTS.values())
+        train_s = time.perf_counter() - t_phase
+        scrape = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=30).read()
+        scrape = scrape.decode()
+        healthz = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/healthz", timeout=30).read())
+
+        # a short serving pass under the trace
+        kernels.reset_counts()
+        BertServing = serving_block(mx)
+        mx.random.seed(0)
+        bert = mx.models.bert_base(use_decoder=False, use_classifier=False)
+        bert.initialize(init=mx.init.Normal(0.02), ctx=gpu)
+        spec = mx.serve.BucketSpec(batch_sizes=(1, 4), example_shape=(None,),
+                                   lengths=(128,), dtype="int32")
+        rng = np.random.RandomState(28)
+        reqs = [rng.randint(1, 30522, size=int(n)).astype(np.int32)
+                for n in rng.randint(16, 129, size=RES_SERVE_REQUESTS)]
+        srv = mx.serve.ModelServer(BertServing(bert), spec, ctx=gpu).start()
+        futs = [srv.submit(r) for r in reqs]
+        answers = [f.result(120) for f in futs]
+        serve_scrape = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=30).read()
+        serve_scrape = serve_scrape.decode()
+        srv.shutdown()
+        serve_counts = {k: kernels.KERNEL_COUNTS[k].launches for k in flash}
+        plain += sum(c.plain_calls_on_cuda
+                     for c in kernels.KERNEL_COUNTS.values())
+        del srv, bert
+        torch.cuda.empty_cache()
+
+        telemetry.stop_trace()
+        flight.disable()
+        monitor.disarm()
+        server.stop()
+        # every hook disarmed: the same steps again
+        kernels.reset_counts()
+        disarmed_ms = timed_whole_steps(mx, net, trainer, data[0], gpu)
+        disarmed_counts = {k: kernels.KERNEL_COUNTS[k].launches
+                           for k in flash}
+        del net, trainer
+        torch.cuda.empty_cache()
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        dumps = sorted((root / "chaos").glob("flight-*.json"))
+        reasons = [json.loads(f.read_text())["reason"] for f in dumps]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    clean, chaos = runs["clean"], runs["chaos"]
+    want_fired = sorted([("engine.h2d", "delay")] * 2 + [
+        ("train.step", "kill"), ("checkpoint.commit", "truncate"),
+        ("train.step", "raise")])
+    got_fired = sorted((f["site"], f["action"]) for f in chaos["fired"])
+    res = chaos["resilience"]
+    attempts = {lbl: [b - a for a, b in zip(r["captures"], r["captures"][1:])]
+                for lbl, r in runs.items()}
+    per_step_ok = all(all(g.get(k, {}).get("launches") == 12 for k in flash)
+                      for r in runs.values() for g in r["gains"])
+    whole = [e for e in events if e.get("ph") == "X"
+             and e.get("name") == "whole_step" and e.get("cat") == "trainer"]
+    saves = [e for e in events if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("checkpoint.save.")]
+    retries = [e for e in events if e.get("ph") == "i"
+               and e.get("name") == "resilience.retry"]
+    req_b = [e for e in events if e.get("ph") == "b"
+             and e.get("name") == "serve.request"]
+    req_e = [e for e in events if e.get("ph") == "e"
+             and e.get("name") == "serve.request"]
+    w_clean, w_chaos = windows["clean"], windows["chaos"]
+    peak = monitor.peak_flops
+    want_peak = next((v for k, v in health._PEAK_FLOPS_TABLE
+                      if k in torch.cuda.get_device_name(0).lower()), None)
+    clean_ev = [ms for s, ms in clean["event_ms"]][2:]
+    for k in flash:
+        train_counts[k] += disarmed_counts[k]
+    mem_gap = mem["chaos"] - mem["clean"]
+    checks.update({
+        "res_fired_exactly_the_plan": got_fired == want_fired,
+        "res_restarts": res["restarts"] == 2,
+        "res_retries": res["retries"] == {"preemption": 1, "transient": 1},
+        "res_fallback_restores": res["fallback_restores"] == 1,
+        "res_time_lost": res["time_lost_ms"] > 0,
+        "res_params_bit_identical": len(clean["params"])
+        == len(chaos["params"]) and all(
+            torch.equal(a, b) for a, b in zip(clean["params"],
+                                              chaos["params"])),
+        "res_batch_log_bit_identical": clean["batches"] == chaos["batches"]
+        and len(clean["batches"]) == RES_STEPS,
+        "res_launches_every_step": per_step_ok,
+        "res_one_capture_an_attempt": attempts["clean"] == [1]
+        and attempts["chaos"] == [1] * (res["restarts"] + 1),
+        "res_no_fallback":
+            mtrainer.trainer_step_stats()["whole_step_fallbacks"] == 0,
+        "res_plain_calls_on_cuda": plain == 0,
+        "res_trace_scopes": bool(whole) and bool(saves)
+        and len(retries) == 2,
+        "res_flight_dump_sigterm": "sigterm" in reasons,
+        "res_metrics_resilience": "mxtpu_resilience_restarts 2" in scrape,
+        "res_metrics_health": "mxtpu_health_goodput" in scrape
+        and "mxtpu_health_steps" in scrape,
+        "res_healthz": healthz.get("status") in ("ok", "degraded"),
+        "res_goodput_below_one": w_chaos["goodput"] is not None
+        and w_chaos["goodput"] < 1,
+        "res_mfu": w_chaos["mfu"] is not None
+        and math.isfinite(w_chaos["mfu"]) and w_chaos["mfu"] > 0,
+        "res_h100_peak": want_peak is not None and peak == want_peak,
+        "res_memory_after_restarts": mem_gap <= chaos["buffer_bytes"],
+        "res_sigterm_handler_restored":
+            signal.getsignal(signal.SIGTERM) == sigterm,
+        "res_hooks_noop": chaos["hooks_noop_after_clear"]
+        and tracer.span_begin is tracer._noop
+        and health.scope_end is health._noop
+        and engine.fault_point is engine._fault_noop,
+        "res_serve_spans": len(req_b) == len(req_e) == RES_SERVE_REQUESTS,
+        "res_serve_answers": len(answers) == RES_SERVE_REQUESTS and all(
+            np.isfinite(a[0]).all() for a in answers),
+        "res_serve_metrics": f"mxtpu_serve_served{{server=" in serve_scrape
+        and any(ln.startswith("mxtpu_serve_served{")
+                and ln.endswith(f" {RES_SERVE_REQUESTS}")
+                for ln in serve_scrape.splitlines()),
+    })
+    log(f"resilience: BERT-base MLM+NSP fp32 dropout 0 AdamW, {RES_STEPS} "
+        f"captured whole steps of {TRAIN_BATCH} x {TRAIN_SEQ} from a "
+        f"pipeline, saved every {RES_SAVE_EVERY} (keep_n=2, sync), under "
+        f"Supervisor(on_preemption='resume'): clean {clean['s']:.1f} s, "
+        f"chaos {chaos['s']:.1f} s (phase {train_s:.1f} s with the disarmed "
+        f"steps); fired {chaos['fired']}; resilience section {res}; "
+        f"captures an attempt {attempts}; chaos parameters and batch log "
+        f"bit-identical to the clean run's: "
+        f"{checks['res_params_bit_identical']}, "
+        f"{checks['res_batch_log_bit_identical']}; losses clean "
+        f"{[round(clean['losses'][k], 4) for k in sorted(clean['losses'])]}"
+        f"; on {card}")
+    log(f"resilience: health windows (host scopes) clean {w_clean}; chaos "
+        f"{w_chaos}; peak {peak:.4g} FLOP/s (datasheet, "
+        f"{torch.cuda.get_device_name(0)})")
+    log(f"resilience: the clean run's step by the health monitor (mean of "
+        f"its whole_step scopes, host) {w_clean['step_ms_mean']:.3f} ms, p95 "
+        f"{w_clean['step_p95_ms']:.3f} ms (every step); median over steps "
+        f"3-{RES_STEPS}: scopes {statistics.median(clean['scope_ms'][2:]):.3f}"
+        f" ms, CUDA events around the same calls "
+        f"{statistics.median(clean_ev):.3f} ms (scopes "
+        f"{[round(ms, 3) for ms in clean['scope_ms']]}; events "
+        f"{[round(ms, 3) for s, ms in clean['event_ms']]}); step median "
+        f"with a loss read a step (host clock, steps 3-10 of 10): armed "
+        f"{statistics.median(chaos['armed_ms'][2:]):.3f} ms, disarmed "
+        f"{statistics.median(disarmed_ms[2:]):.3f} ms (phase 15's captured "
+        f"BERT {captured_ms:.3f} ms, dropout 0.1); on {card}")
+    log(f"resilience: device memory after the clean run {mem['clean']} "
+        f"bytes, after the chaos run {mem['chaos']} (gap {mem_gap}, one "
+        f"checkpoint buffer set {chaos['buffer_bytes']}); trace "
+        f"{len(events)} events, {len(whole)} whole_step scopes, "
+        f"{len(saves)} checkpoint.save.* scopes, {len(retries)} retry "
+        f"instants, {len(req_b)} serve.request spans; flight dumps "
+        f"{reasons}; /healthz {healthz}; launches train {train_counts}, "
+        f"serve {serve_counts}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"resilience and telemetry checks failed: {failed}")
+    return {"resilience_bert_train": train_counts,
+            "resilience_bert_serve": serve_counts}
+
+
 
 def main():
     import torch
@@ -6418,27 +6787,16 @@ def main():
                     help="also profile two BERT training steps")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile two ResNet-50 training steps")
-    ap.add_argument("--dist-worker", metavar="DIR", default=None,
-                    help="run one rank of phase 20 (the launcher does)")
-    ap.add_argument("--zero-worker", metavar="DIR", default=None,
-                    help="run one rank of phase 23 (the launcher does)")
-    ap.add_argument("--spmd-worker", metavar="DIR", default=None,
-                    help="run one rank of phase 24 (the launcher does)")
-    ap.add_argument("--pp-worker", metavar="DIR", default=None,
-                    help="run one rank of phase 25 (the launcher does)")
+    ap.add_argument("--bert-ranks-worker", metavar="DIR", default=None,
+                    help="run one rank of phases 20, 23, 24 and 25 (the "
+                    "launcher does)")
     ap.add_argument("--mesh-worker", metavar=("DIR", "PHASE"), nargs=2,
                     default=None,
-                    help="run one rank of phase 21 (resnet) or 22 (bert); "
-                    "the launcher does")
+                    help="run one rank of phases 21 (resnet) and 22 "
+                    "(bert), comma-separated; the launcher does")
     args = ap.parse_args()
-    if args.dist_worker is not None:
-        return dist_worker(args.dist_worker)
-    if args.zero_worker is not None:
-        return zero_worker(args.zero_worker)
-    if args.spmd_worker is not None:
-        return spmd_worker(args.spmd_worker)
-    if args.pp_worker is not None:
-        return pp_worker(args.pp_worker)
+    if args.bert_ranks_worker is not None:
+        return bert_ranks_worker(args.bert_ranks_worker)
     if args.mesh_worker is not None:
         return mesh_worker(*args.mesh_worker)
     if not torch.cuda.is_available():
@@ -6545,19 +6903,21 @@ def main():
     kv_record = check_kvstore(mx, card)
     lap("19 kvstore")
     dist_launches = train_bert_dist(mx, card)
-    lap("20-20b, 23-24 dist, ZeRO, mesh_shape")
-    mesh_resnet = train_mesh_resnet(mx, card)["mesh_resnet_train"]
-    lap("21-21b mesh ResNet")
-    dist_launches.update(train_mesh_bert(mx, card))
-    lap("22 mesh BERT")
-    dist_launches.update(train_pipeline_lm(mx, card))
-    lap("25 pp and sp")
+    lap("20-20b, 23-25 dist, ZeRO, mesh_shape, pp and sp (one launch)")
+    mesh_launches = train_mesh(mx, card)
+    mesh_resnet = mesh_launches.pop("mesh_resnet_train")
+    dist_launches.update(mesh_launches)
+    lap("21-22 mesh ResNet and BERT")
     data_launches = input_tier(mx, card, captured["resnet"][1])
     lap("26 input tier")
     tier_launches = image_text_tier(mx, card, captured)
     lap("27 image and text tiers")
     data_launches["jpeg_resnet_train"] = tier_launches["jpeg_resnet_train"]
     dist_launches["corpus_bert_train"] = tier_launches["corpus_bert_train"]
+    res_launches = resilience_telemetry(mx, card, captured["bert"][1])
+    lap("28 resilience and telemetry")
+    dist_launches["resilience_bert_train"] = \
+        res_launches["resilience_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
                         "mesh_resnet_train": mesh_resnet[k],
                         **{path: n[k] for path, n in data_launches.items()}}
@@ -6569,6 +6929,8 @@ def main():
     rnn_src = "mxnet_tpu/ops/pallas/rnn.py"
     rnn_cu = "mxnet_tpu_torch/csrc/rnn.cu"
     fwd_by_path = {"serve": serve["launches"],
+                   "resilience_serve": res_launches["resilience_bert_serve"][
+                       "flash_attention_fwd"],
                    "train": train["flash_attention_fwd"],
                    "transformer_train": tfm_train["flash_attention_fwd"],
                    "transformer_decode": tfm_decode,

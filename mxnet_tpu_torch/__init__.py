@@ -22,4 +22,7 @@ from . import kvstore as kv  # noqa: F401
 from . import data, image, io, rnn  # noqa: F401
 from .io import recordio  # noqa: F401
 from . import engine, metric, pipeline, storage  # noqa: F401
+# the observability and recovery tiers; importing telemetry arms what
+# MXTPU_TRACE / MXTPU_FLIGHT_RECORDER / MXTPU_METRICS_PORT ask for
+from . import log, profiler, resilience, telemetry  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401

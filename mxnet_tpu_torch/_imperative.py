@@ -7,7 +7,9 @@ tensor outputs are wrapped back, keeping the nesting of tuples and lists,
 on the first NDArray input's context.  The outermost call also sets the
 replica context (``context.replica_scope``): that NDArray's context, or
 the first tensor's device, so that every block inside reads the
-parameters' copies on it.
+parameters' copies on it.  While the profiler runs, each call is
+recorded as an op event (``profiler.record_op``; with
+``set_config(sync=True)`` after a device synchronisation).
 
 It also keeps the process's dispatch counters of the captured training
 step (ref: ``compiled_executable_count`` and ``device_dispatch_count``):
@@ -18,9 +20,11 @@ the CPU), and the CUDA graphs captured and replayed.
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
 
+from . import profiler
 from .context import Context, current_replica, replica_scope
 from .ndarray.ndarray import NDArray, _on
 
@@ -36,6 +40,28 @@ def _wrap(out, ctx):
 def invoke(fn, *args):
     """Call ``fn`` on the tensors inside NDArray ``args``; return NDArray
     outputs when any input was an NDArray, else ``fn``'s own outputs."""
+    if profiler._running:
+        return _profiled_invoke(fn, args)
+    return _invoke(fn, args)
+
+
+def _profiled_invoke(fn, args):
+    """:func:`invoke` bracketed for the profiler (ref:
+    ``mxnet_tpu/_imperative.py:188-200``)."""
+    t0 = time.perf_counter() * 1e6
+    out = _invoke(fn, args)
+    if profiler._config.get("sync") and torch.cuda.is_available() \
+            and torch.cuda.is_initialized() \
+            and not torch.cuda.is_current_stream_capturing():
+        torch.cuda.synchronize()
+    owner = getattr(fn, "__self__", None)   # a block's forward: its name
+    name = getattr(owner, "name", None) or \
+        getattr(fn, "__name__", "op").removeprefix("_k_")
+    profiler.record_op(name, t0, time.perf_counter() * 1e6)
+    return out
+
+
+def _invoke(fn, args):
     first = next((a for a in args if isinstance(a, NDArray)), None)
     if first is None:
         if current_replica() is not None:

@@ -78,7 +78,7 @@ import time
 
 import torch
 
-from .. import engine
+from .. import engine, profiler
 from .. import random as _random
 from ..base import MXNetError
 from ..parallel import dist
@@ -322,7 +322,9 @@ class CheckpointManager:
             # host trees by construction: in-flight batches drain to numpy
             pipe_state = None if pipeline is None else pipeline.state_dict()
             if mesh_shape is None:
-                pending = self._snapshot.take(tree)
+                with profiler.op_scope("checkpoint.save.capture",
+                                       cat="checkpoint"):
+                    pending = self._snapshot.take(tree)
             else:
                 # full arrays, gathered on every rank: rank 0 writes them;
                 # every rank writes its own generators (its dropout
@@ -366,7 +368,13 @@ class CheckpointManager:
                 self._pending = None
 
     def _write_commit(self, pending, step, meta, pipe_state=None):
-        state = pending.fetch()
+        with profiler.op_scope("checkpoint.save.readback", cat="checkpoint"):
+            engine.fault_point("engine.d2h")
+            state = pending.fetch()
+        with profiler.op_scope("checkpoint.save.commit", cat="checkpoint"):
+            return self._commit(state, step, meta, pipe_state)
+
+    def _commit(self, state, step, meta, pipe_state):
         rank = dist.rank()
         tmp = self._dir_for(step) + ".tmp"
         final = self._dir_for(step)
@@ -397,9 +405,8 @@ class CheckpointManager:
             atomic.fsync_file(p)
         atomic.write_json(os.path.join(tmp, f"rng-shard{rank}.json"),
                           state["rng"])
-        # chaos site (a no-op until the resilience tier, slice 8 part 4,
-        # arms it): a fault here damages a shard after the writes and
-        # before the manifest
+        # chaos site: a 'truncate' fault here damages a shard after the
+        # writes and before the manifest, so a corrupt checkpoint commits
         engine.fault_point("checkpoint.commit", dir=tmp, step=step)
         atomic.fsync_dir(tmp)
         _barrier("checkpoint-save")
@@ -516,6 +523,9 @@ class CheckpointManager:
                     "— training resumes from older state; investigate "
                     "the storage layer", s, len(failures),
                     [f[0] for f in failures])
+                from ..resilience import stats as _rstats
+
+                _rstats.add("fallback_restores")   # the resilience section
             return meta
         raise MXNetError(
             f"no retained checkpoint under {self.directory} is loadable "
@@ -565,7 +575,7 @@ class CheckpointManager:
         src = _reshard.source_rank(rank, saved_procs) if resharding \
             or manifest.get("mesh_shape") else rank
         if resharding:
-            # chaos site (armed by the resilience tier, slice 8 part 4)
+            # chaos site: a 'raise' fault makes the reshard itself fail
             engine.fault_point("checkpoint.reshard", kind="topology",
                                saved_world=saved_procs, world=procs)
             _log.warning(
@@ -573,14 +583,16 @@ class CheckpointManager:
                 "saved at world %d onto world %d (rank %d reads saved "
                 "shard %d; pass strict_topology=True to forbid this)",
                 step, saved_procs, procs, rank, src)
-        loaded = self._restore_params(d, src, params)
-        self._restore_trainer(d, src, trainer)
-        if restore_rng:
-            state = _saved_rng(d, src, manifest, trainer)
-            if state is not None:
-                _random.set_state(state)
-        self._restore_pipeline(
-            d, src, pipeline, saved_world=saved_procs if resharding else None)
+        with profiler.op_scope("checkpoint.restore", cat="checkpoint"):
+            loaded = self._restore_params(d, src, params)
+            self._restore_trainer(d, src, trainer)
+            if restore_rng:
+                state = _saved_rng(d, src, manifest, trainer)
+                if state is not None:
+                    _random.set_state(state)
+            self._restore_pipeline(
+                d, src, pipeline,
+                saved_world=saved_procs if resharding else None)
         return {"step": int(manifest["step"]),
                 "epoch": manifest.get("epoch"),
                 "extra": manifest.get("extra"),
@@ -681,6 +693,13 @@ class CheckpointManager:
             blob = pickle.load(f)
         self._merge_zero_shards(d, blob, own=f"trainer-shard{rank}.states")
         blob = self._reshard_zero_for(trainer, blob, tfile)
+        saved_mesh = blob.get("mesh_shape") if isinstance(blob, dict) \
+            else None
+        if saved_mesh or getattr(trainer, "_mesh_shape", None):
+            # the mesh leg of a reshard: full arrays, no data motion; a
+            # chaos site for plans (ref: mxnet_tpu/checkpoint/manager.py:716)
+            engine.fault_point("checkpoint.reshard", kind="mesh",
+                               saved_mesh=saved_mesh or "", world=0)
         trainer.load_states_dict(blob, source=tfile)
 
     @staticmethod
@@ -698,6 +717,8 @@ class CheckpointManager:
         if world <= 1 or int(zero["world"]) == world:
             return blob
         t0 = time.perf_counter()
+        engine.fault_point("checkpoint.reshard", kind="zero",
+                           saved_world=int(zero["world"]), world=world)
         _log.warning("elastic restore: re-slicing ZeRO-1 optimizer shards "
                      "from world %d onto world %d (%s)", int(zero["world"]),
                      world, tfile)
@@ -771,6 +792,16 @@ class CheckpointManager:
                     kwargs.setdefault("sync", True)
                     self.save(**kwargs)
             finally:
+                # post-mortem timeline next to the final checkpoint
+                # (no-op unless the flight-recorder ring is armed); a
+                # failure here must never skip the chaining below
+                try:
+                    from ..telemetry import flight as _flight
+
+                    _flight.dump_if_enabled("sigterm",
+                                            directory=self.directory)
+                except Exception:  # noqa: BLE001 — advisory only
+                    pass
                 prev = self._prev_handler
                 if callable(prev):
                     prev(sig, frame)

@@ -46,9 +46,12 @@ def source_rank(rank, saved_world):
 
 
 def _book_reshard_ms(dt_s):
-    """Report the time a reshard took.  The JAX package books it into its
-    resilience telemetry (``reshard_ms``); that tier comes with slice 8,
-    part 4, so the port logs it."""
+    """Book the time a reshard took into the resilience telemetry
+    (``reshard_ms`` in the profiler's ``resilience`` section; ref:
+    ``mxnet_tpu/checkpoint/reshard.py:57-65``) and log it."""
+    from ..resilience import stats as _rstats
+
+    _rstats.add("reshard_ms", float(dt_s) * 1e3)
     _log.info("checkpoint: resharding took %.3f ms", float(dt_s) * 1e3)
 
 

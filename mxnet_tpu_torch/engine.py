@@ -14,8 +14,8 @@ pinned host memory and copies them to a CUDA device on a copy stream.
 The JAX package's live-buffer list for ``waitall`` (``track``) has no
 counterpart: ``waitall`` synchronises the CUDA devices instead, so its
 ``_compact_live`` race is not copied.  Fault points
-(:func:`fault_point`) stay no-op hooks until the resilience tier arms
-them (slice 8, part 4).
+(:func:`fault_point`) are no-op hooks until ``resilience.faults`` arms a
+plan (``install_plan`` or ``MXTPU_FAULT_PLAN``).
 """
 from __future__ import annotations
 
@@ -402,11 +402,13 @@ def batched_put(arrays, device, wait=True):
 
 
 # ---------------------------------------------------------------------------
-# Fault points (the resilience tier's chaos-injection sites: transfers,
+# Fault points (``resilience.faults``' chaos-injection sites: transfers,
 # collectives, checkpoint commits, pipeline map batches).  The default
-# binding is a no-op; the resilience tier (slice 8, part 4) rebinds the
+# binding is a no-op; ``resilience.faults.install_plan`` rebinds the
 # global through set_fault_dispatcher, and callers look it up as
 # ``engine.fault_point(...)`` so they see the current binding.
+# ``MXTPU_FAULT_PLAN`` (JSON, inline or a file path) arms a plan at the
+# first fire without import-order coupling.
 
 
 def _fault_noop(site, /, **ctx):
@@ -425,3 +427,16 @@ def set_fault_dispatcher(fn):
 
 def fault_points_armed():
     return fault_point is not _fault_noop
+
+
+if getenv("FAULT_PLAN"):
+    def _fault_bootstrap(site, /, **ctx):
+        # first fire installs the env plan (lazy: resilience imports
+        # engine, so the import must not happen at engine-import time),
+        # which rebinds `fault_point`; dispatch through the new binding
+        from .resilience import faults
+
+        faults.install_from_env()
+        return fault_point(site, **ctx)
+
+    fault_point = _fault_bootstrap

@@ -22,6 +22,17 @@ are the JAX package's: a new signature counts as a "compile", a seen one
 as a "reuse", so ``ModelServer.stats()["graph"]["post_warmup_compiles"]``
 counts the signatures warm-up did not cover.
 
+Forward hooks are MXNet's (ref: ``gluon/block.py:52-68, 241-256`` of the
+JAX package), not ``torch.nn.Module``'s: ``register_forward_pre_hook(
+hook)`` and ``register_forward_hook(hook)`` return a :class:`HookHandle`
+(``detach()``, or use it as a context manager), ``hook(block, args)``
+and ``hook(block, args, out)`` run around each call of the block with the
+arguments it was called with, and what a hook returns is ignored.  A
+hybridized block fires its own hooks on every call, replayed or not; its
+children fire theirs only when its forward runs eagerly (warm-up and
+capture on the card, every call on the CPU), as a JAX child fires its
+hooks only while its parent is traced.
+
 ``save_parameters``/``load_parameters`` write and read the JAX package's
 ``.params`` container, keyed by structural name, so a file moves between
 the packages; loading copies into the existing values in place, so a
@@ -33,7 +44,7 @@ import threading
 
 import torch
 
-from .. import autograd
+from .. import autograd, profiler
 from .._imperative import invoke
 from ..base import MXNetError
 from ..context import Context, current_context
@@ -79,6 +90,26 @@ class _BlockScope:
         return f"{hint}{i}_"
 
 
+class HookHandle:
+    """Removable handle for a registered hook (ref: ``gluon.utils.
+    HookHandle``; ``mxnet_tpu/gluon/block.py:52``)."""
+
+    def __init__(self, hooks_list, hook):
+        self._hooks_list = hooks_list
+        self._hook = hook
+
+    def detach(self):
+        if self._hook is not None and self._hook in self._hooks_list:
+            self._hooks_list.remove(self._hook)
+        self._hook = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.detach()
+
+
 class Block(torch.nn.Module):
     """Base container for layers and parameters (ref: gluon.Block)."""
 
@@ -89,6 +120,31 @@ class Block(torch.nn.Module):
                             type(self).__name__.lower()))
         self._params = ParameterDict(self._prefix, shared=params)
         self._reg_params = {}
+        # MXNet's hook lists; torch's own _forward_hooks stay unused
+        self._mx_forward_hooks = []
+        self._mx_forward_pre_hooks = []
+
+    # -- hooks (ref: gluon/block.py:241-256) ----------------------------------
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each call; returns a
+        :class:`HookHandle`.  What the hook returns is ignored."""
+        self._mx_forward_hooks.append(hook)
+        return HookHandle(self._mx_forward_hooks, hook)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each call; returns a
+        :class:`HookHandle`.  What the hook returns is ignored."""
+        self._mx_forward_pre_hooks.append(hook)
+        return HookHandle(self._mx_forward_pre_hooks, hook)
+
+    def __call__(self, *args, **kwargs):
+        for hook in self._mx_forward_pre_hooks:
+            hook(self, args)
+        out = super().__call__(*args, **kwargs)
+        for hook in self._mx_forward_hooks:
+            hook(self, args, out)
+        return out
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -282,6 +338,27 @@ def commit_aux(value, new_value):
         value.copy_(new_value)
 
 
+# Compiled-graph cache counters (ref: gluon/block.py:291): a CachedOp
+# call with an unseen input signature counts as a "compile", a seen one
+# as a "reuse", per CachedOp (``ModelServer.stats()``) and globally (the
+# profiler's ``cachedGraph`` section).
+_graph_stats_lock = threading.Lock()
+_graph_stats = {"compiles": 0, "reuses": 0}
+
+
+def cached_graph_stats():
+    """Global compiled-graph cache counters across every CachedOp:
+    ``{"compiles": new-signature calls, "reuses": cache-hit calls}``."""
+    with _graph_stats_lock:
+        return dict(_graph_stats)
+
+
+def reset_cached_graph_stats():
+    with _graph_stats_lock:
+        for k in _graph_stats:
+            _graph_stats[k] = 0
+
+
 def _clone_outputs(out):
     if isinstance(out, torch.Tensor):
         return out.clone()
@@ -328,11 +405,11 @@ class CachedOp:
                      if isinstance(i, torch.Tensor) else repr(i)
                      for i in inputs))
         with self._lock:
-            if sig in self._seen_sigs:
-                self.stats["reuses"] += 1
-            else:
-                self._seen_sigs.add(sig)
-                self.stats["compiles"] += 1
+            kind = "reuses" if sig in self._seen_sigs else "compiles"
+            self._seen_sigs.add(sig)
+            self.stats[kind] += 1
+        with _graph_stats_lock:
+            _graph_stats[kind] += 1
         tensors = [i for i in inputs if isinstance(i, torch.Tensor)]
         if (training or autograd.is_recording() or not tensors
                 or not all(t.is_cuda for t in tensors)
@@ -365,7 +442,13 @@ class CachedOp:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             params = list(self.block.collect_params().values())
-            got = self._graphs[sig] = (CapturedStep(
-                forward, [inputs[j].clone() for j in pos], device,
-                pool=self._pool), params, [p._replica() for p in params])
+            # the capture is this signature's "compile" (ref:
+            # gluon/block.py:445 of the JAX package)
+            with profiler.op_scope(f"cached_op.compile.{self.block.name}",
+                                   cat="cached_op"):
+                step = CapturedStep(forward,
+                                    [inputs[j].clone() for j in pos],
+                                    device, pool=self._pool)
+            got = self._graphs[sig] = (step, params,
+                                       [p._replica() for p in params])
         return _clone_outputs(got[0].replay([inputs[j] for j in pos]))

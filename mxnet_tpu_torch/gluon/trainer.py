@@ -85,6 +85,8 @@ import torch
 from .. import autograd
 from .. import kvstore as _kvstore
 from .. import optimizer as _opt
+from .. import profiler as _profiler
+from ..telemetry import health as _health
 from ..base import MXNetError, getenv
 from ..ndarray.ndarray import NDArray, as_tensor
 from .parameter import ParameterDict, _ctx_list
@@ -310,10 +312,11 @@ class Trainer:
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._dispatches = self._buckets = self._params_fused = 0
-        ran_zero = self._zero_shard and self._try_zero_step()
-        if not ran_zero:
-            self._allreduce_grads()
-            self._update(ignore_stale_grad)
+        with _profiler.op_scope("trainer.step", cat="trainer"):
+            ran_zero = self._zero_shard and self._try_zero_step()
+            if not ran_zero:
+                self._allreduce_grads()
+                self._update(ignore_stale_grad)
         _step_stats["steps"] += 1
         _step_stats["dispatches"] += self._dispatches
         _step_stats["buckets_built"] += self._buckets
@@ -347,15 +350,17 @@ class Trainer:
             # every parameter in one multi-key pushpull: the kvstore packs
             # same-dtype gradients into flat buckets, one reduce a bucket
             grads_per_key = [_on_ctx(p, p.list_grad()) for p in self._params]
-            kvs = kv.pushpull(list(range(len(self._params))), grads_per_key,
-                              out=grads_per_key)
+            with _profiler.op_scope("allreduce", cat="trainer"):
+                kvs = kv.pushpull(list(range(len(self._params))),
+                                  grads_per_key, out=grads_per_key)
             if kvs:
                 self._dispatches += kvs["dispatches"]
                 self._buckets += kvs["buckets"]
             return
         for i, p in enumerate(self._params):
             grads = _on_ctx(p, p.list_grad())
-            kv.pushpull(i, grads, out=grads)
+            with _profiler.op_scope("allreduce", cat="trainer"):
+                kv.pushpull(i, grads, out=grads)
             # an add and a copy back per extra context
             self._dispatches += 2 * (len(grads) - 1)
 
@@ -395,7 +400,9 @@ class Trainer:
         if not entries:
             return
         if self._fusion_enabled():
-            stats = self._optimizer.fused_update(*map(list, zip(*entries)))
+            with _profiler.op_scope("fused_update", cat="trainer"):
+                stats = self._optimizer.fused_update(
+                    *map(list, zip(*entries)))
             self._dispatches += stats["fused_calls"] + stats["seq_updates"]
             self._params_fused += stats["params_fused"]
         else:
@@ -414,8 +421,9 @@ class Trainer:
                 per_ctx.setdefault(c, []).append((v, values[0]))
         with torch.no_grad():
             for pairs in per_ctx.values():
-                torch._foreach_copy_([d for d, _ in pairs],
-                                     [s for _, s in pairs])
+                with _profiler.op_scope("broadcast", cat="trainer"):
+                    torch._foreach_copy_([d for d, _ in pairs],
+                                         [s for _, s in pairs])
                 self._dispatches += 1
 
     # -- ZeRO-1, the eager tier (ref: gluon/trainer.py:201-470) -------------
@@ -490,27 +498,30 @@ class Trainer:
         kv = self._kvstore
         stats = {"buckets": 0, "dispatches": 0}
         g_shards, w_shards = [], []
-        for chunk in plan:
-            idxs, padded = chunk[4], chunk[7]
-            vlists = [_on_ctx(self._params[j], self._params[j].list_grad())
-                      for j in idxs]
-            g_shards.append(kv.zero_reduce_scatter(vlists, padded, ctxs,
-                                                   stats))
-            shard_n = padded // n
-            per_rank = []
-            for r, ctx in enumerate(ctxs):
-                flat = _kvstore.flatten_pad(
-                    [self._params[j].data(ctx) for j in idxs], padded)
-                per_rank.append(flat[r * shard_n:(r + 1) * shard_n])
-                stats["dispatches"] += 2
-            w_shards.append(per_rank)
-        for c, chunk in enumerate(plan):
-            for r in range(n):
-                self._optimizer.zero_fused_update(
-                    (chunk,), (svals[c],), [w_shards[c][r]],
-                    [g_shards[c][r]], [self._zero_states[c][r]])
-                stats["dispatches"] += 1
-        with torch.no_grad():
+        with _profiler.op_scope("reduce_scatter", cat="trainer"):
+            for chunk in plan:
+                idxs, padded = chunk[4], chunk[7]
+                vlists = [_on_ctx(self._params[j],
+                                  self._params[j].list_grad())
+                          for j in idxs]
+                g_shards.append(kv.zero_reduce_scatter(vlists, padded,
+                                                       ctxs, stats))
+                shard_n = padded // n
+                per_rank = []
+                for r, ctx in enumerate(ctxs):
+                    flat = _kvstore.flatten_pad(
+                        [self._params[j].data(ctx) for j in idxs], padded)
+                    per_rank.append(flat[r * shard_n:(r + 1) * shard_n])
+                    stats["dispatches"] += 2
+                w_shards.append(per_rank)
+        with _profiler.op_scope("fused_update", cat="trainer"):
+            for c, chunk in enumerate(plan):
+                for r in range(n):
+                    self._optimizer.zero_fused_update(
+                        (chunk,), (svals[c],), [w_shards[c][r]],
+                        [g_shards[c][r]], [self._zero_states[c][r]])
+                    stats["dispatches"] += 1
+        with torch.no_grad(), _profiler.op_scope("allgather", cat="trainer"):
             for c, chunk in enumerate(plan):
                 idxs = chunk[4]
                 shapes = [tuple(self._params[j].shape) for j in idxs]
@@ -778,14 +789,18 @@ class Trainer:
                                           batch_size)
         self._optimizer.rescale_grad = self._scale / batch_size
         try:
-            loss, wstats = self._whole_step_compiler.step(
-                block, loss_fn, inputs, y, batch_size)
+            with _profiler.op_scope("whole_step", cat="trainer"):
+                loss, wstats = self._whole_step_compiler.step(
+                    block, loss_fn, inputs, y, batch_size)
         except _ws.Bypass as b:
             self._whole_step_compiler.warn_fallback(b.reason)
             _step_stats["whole_step_fallbacks"] += 1
             return self._eager_whole_step(block, loss_fn, inputs, y,
                                           batch_size)
         self._book_whole_step(wstats)
+        # health-monitor FLOP geometry (the analytic MFU count);
+        # disarmed this is the module no-op
+        _health.note_whole_step(self, batch_size)
         return loss
 
     def _compiler(self):
@@ -825,7 +840,9 @@ class Trainer:
         comp = self._whole_step_compiler
         self._optimizer.rescale_grad = self._scale / batch_size
         try:
-            loss, wstats = comp.step(block, loss_fn, inputs, y, batch_size)
+            with _profiler.op_scope("whole_step", cat="trainer"):
+                loss, wstats = comp.step(block, loss_fn, inputs, y,
+                                         batch_size)
         except _ws.Bypass as b:
             comp.warn_fallback(b.reason)
             _step_stats["whole_step_fallbacks"] += 1
@@ -833,6 +850,7 @@ class Trainer:
                 return self._eager_whole_step(block, loss_fn, inputs, y,
                                               batch_size)
         self._book_whole_step(wstats)
+        _health.note_whole_step(self, batch_size)
         return loss
 
     def _check_unplaced(self, what):

@@ -56,6 +56,7 @@ Capturing a step with collectives inside it is piece 4 of slice 7, part
 from __future__ import annotations
 
 import collections
+import gc
 import logging
 import warnings
 
@@ -64,10 +65,12 @@ import torch
 from .. import _imperative
 from .. import autograd
 from .. import optimizer as _opt
+from .. import profiler as _profiler
 from .. import random as _random
 from ..kvstore import flatten_pad, unflatten_flat
 from ..ndarray.ndarray import NDArray, as_tensor
 from ..ops.kernels.build import CapturedLaunches
+from ..telemetry import health as _health
 
 _log = logging.getLogger("mxnet_tpu_torch.whole_step")
 
@@ -142,7 +145,15 @@ class CapturedStep:
     graph, adds the launches recorded at capture to the kernels' counters
     and returns the body's output, the graph's own buffer.  ``pool`` (a
     ``torch.cuda.graph_pool_handle()``) lets several graphs share one
-    memory pool.  A capture that fails raises."""
+    memory pool.  A capture that fails raises.
+
+    Python's cyclic garbage collector is off while the body is captured.
+    Blocks and trainers hold their graphs in reference cycles (a block and
+    its ``CachedOp``, a trainer and its compiler), so an earlier phase's
+    dead graphs wait for a collection; torch no longer collects before a
+    capture, and a collection inside one would destroy those graphs in
+    the capturing thread, which invalidates the capture
+    (``cudaErrorStreamCaptureInvalidated``)."""
 
     def __init__(self, body, static, device, pool=None):
         self.static = list(static)
@@ -151,6 +162,8 @@ class CapturedStep:
         for gen in gens:
             self.graph.register_generator_state(gen)
         launches = CapturedLaunches()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode=CAPTURE_MODE):
@@ -159,6 +172,8 @@ class CapturedStep:
             _release_generators(gens)
             raise
         finally:
+            if collecting:
+                gc.enable()
             self.launches = launches.finish()
         _imperative.count("graphs_captured")
 
@@ -362,8 +377,17 @@ class WholeStepCompiler:
             got = None   # a weight or state was replaced: capture again
         if got is None:
             static = [None if v is None else v.clone() for v in values]
-            got = (CapturedStep(closure.body, static, device), bound)
+            # the capture is this signature's "compile" (ref:
+            # gluon/block.py:571 of the JAX package)
+            with _profiler.op_scope(
+                    f"cached_op.compile.{closure.block.name}",
+                    cat="cached_op"):
+                step = CapturedStep(closure.body, static, device)
+            got = (step, bound)
             closure.graphs[x_sig] = got
+            # an armed health monitor notes the capture (ref:
+            # whole_step.py:221); disarmed this is the module no-op
+            _health.note_whole_step_compiled(step.graph, static)
         return got[0].replay(values)
 
     def _mark_warm(self, key):

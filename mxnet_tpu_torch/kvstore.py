@@ -48,10 +48,9 @@ Not ported yet, each raising :class:`MXNetError` naming its slice:
 ``dist_async``/``dist_device_async`` and the parameter-server client
 (slice 7, part 3), ``row_sparse_pull`` and sparse values (slice 9, with
 ``ndarray/sparse``), and the traced forms (``traced_*``: the gradient
-sum inside a captured step, slice 7, part 2b, piece 4).  The JAX
-package's fault points here (``engine.fault_point`` at the pushes and
-pulls) come with the resilience tier (slice 8, part 4); ``engine.py``
-has the no-op hook, and the kvstore does not call it yet.
+sum inside a captured step, slice 7, part 2b, piece 4).  ``pushpull``
+calls the ``kvstore.pushpull`` fault point (``engine.fault_point``, a
+no-op until ``resilience.faults`` arms a plan), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -192,6 +191,9 @@ class KVStore:
         copy.  Gradient compression and ``set_optimizer`` take the
         per-key path.  The multi-key form returns ``{"buckets",
         "dispatches"}``, counted as the JAX package counts them."""
+        from . import engine as _engine
+
+        _engine.fault_point("kvstore.pushpull")
         if isinstance(key, (list, tuple)) and len(key) > 1 \
                 and self._fusion_eligible():
             keys, values = _normalize(key, value)

@@ -43,6 +43,7 @@ import os
 
 import torch
 
+from .. import engine as _engine
 from ..base import MXNetError, getenv
 
 _log = logging.getLogger("mxnet_tpu_torch.parallel.dist")
@@ -109,11 +110,13 @@ def _peer_death_msg(prefix):
     return (
         f"{prefix} (rank {rank()} of {num_workers()} workers): a peer "
         "process is likely dead or partitioned. Check the other workers' "
-        "logs. Restart the job, and "
-        "mxnet_tpu_torch.checkpoint.CheckpointManager(ckpt_dir)"
+        "logs. A job running under mxnet_tpu_torch.resilience.Supervisor "
+        "classifies this failure as peer_death, writes a resume marker "
+        "and exits cleanly (ResumeRequired), so a restart continues from "
+        "the last committed checkpoint. Manual recovery: restart the job "
+        "and mxnet_tpu_torch.checkpoint.CheckpointManager(ckpt_dir)"
         ".restore(params=net, trainer=trainer) picks the newest complete "
-        "snapshot (an automatic supervisor comes with the resilience "
-        "tier, slice 8, part 4).")
+        "snapshot.")
 
 
 def _raise_if_peer_death(e, what):
@@ -216,6 +219,9 @@ def allreduce(value):
     process: ``value`` itself."""
     from ..ndarray.ndarray import NDArray
 
+    # before the single-process early-out, so chaos rehearsals can inject
+    # collective faults without a multi-process launch
+    _engine.fault_point("dist.allreduce")
     if not is_multiprocess():
         return value
     t = value.data if isinstance(value, NDArray) else value
@@ -260,6 +266,7 @@ def allgather_bytes(data):
 def barrier(name="kvstore"):
     """Wait for every process (ref: Postoffice barrier): a one-element
     all-reduce, bounded by the collective timeout."""
+    _engine.fault_point("dist.barrier", name=name)
     if not is_multiprocess():
         return
     buf = torch.zeros(1, device=_comm_device())

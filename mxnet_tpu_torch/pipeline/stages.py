@@ -25,8 +25,10 @@ Every stage carries explicit iterator state (``state_dict()`` /
 rollover remainder and, for the async stages, the in-flight items
 themselves, drained to host arrays.  Restoring that state into a freshly
 built identical pipeline replays the remaining batch sequence
-bit-identically.  The JAX package's tracer spans and profiler scopes
-come with the telemetry part of slice 8 (part 5).
+bit-identically.  The shuffle's ring fill is a tracer span
+(``pipeline.shuffle.fill``) and each map call a profiler scope
+(``pipeline.map``), both in the ``dataPipeline`` category, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -37,11 +39,12 @@ import time
 import numpy as np
 import torch
 
-from .. import engine
+from .. import engine, profiler
 from ..base import MXNetError, getenv
 from ..context import Context, cpu, current_context
 from ..ndarray import ndarray as _nd
 from ..ndarray.ndarray import NDArray
+from ..telemetry import tracer as _tracer
 from . import stats as _stats
 
 # sentinel a prefetch pull-job returns instead of raising StopIteration
@@ -273,11 +276,16 @@ class ShuffleStage(Stage):
         self._exhausted = False
 
     def __next__(self):
-        while not self._exhausted and len(self._ring) < self._size:
-            try:
-                self._ring.append(next(self._up))
-            except StopIteration:
-                self._exhausted = True
+        _tracer.span_begin("pipeline.shuffle.fill", "dataPipeline")
+        try:
+            while not self._exhausted and len(self._ring) < self._size:
+                try:
+                    self._ring.append(next(self._up))
+                except StopIteration:
+                    self._exhausted = True
+        finally:
+            _tracer.span_end("pipeline.shuffle.fill", "dataPipeline",
+                             ring=len(self._ring))
         if not self._ring:
             raise StopIteration
         j = int(self._rng.randint(len(self._ring)))
@@ -325,8 +333,9 @@ class MapStage(Stage):
 
     def _run(self, item):
         t0 = time.perf_counter()
-        engine.fault_point("pipeline.map")
-        out = self._fn(item)
+        with profiler.op_scope("pipeline.map", cat="dataPipeline"):
+            engine.fault_point("pipeline.map")
+            out = self._fn(item)
         _stats.add("host_build_ms", (time.perf_counter() - t0) * 1e3)
         return out
 

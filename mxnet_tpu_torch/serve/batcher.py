@@ -33,9 +33,11 @@ class DeadlineExceededError(MXNetError):
 
 
 class _Request:
-    __slots__ = ("example", "length", "future", "deadline", "enqueued_at")
+    __slots__ = ("example", "length", "future", "deadline", "enqueued_at",
+                 "trace_id")
 
     def __init__(self, example, length, future, deadline_ms=None):
+        self.trace_id = None          # the tracer's request span, if armed
         self.example = example
         self.length = length          # variable-axis size (None if fixed)
         self.future = future

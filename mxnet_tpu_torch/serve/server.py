@@ -25,10 +25,15 @@ each batch's rows are read back to the host before the next batch runs.
 - **graceful drain**: ``shutdown(drain=True)`` stops admissions,
   finishes every queued request, and leaves no in-flight work.
 
-The JAX package's tracer spans, profiler scopes, int8 batch hook,
-metrics-endpoint export and ``reload_weights()`` are not ported yet;
-``block.load_parameters`` on the served block copies new weights in
-place, and the next replay reads them.
+- **observability**: each request is a tracer request span
+  (``serve.request``: submit, ``serve.dequeue``, its outcome), the
+  warm-up, padding, batch and split are profiler scopes (``serve.*``),
+  and ``start()`` exports ``stats()`` on ``/metrics``
+  (``telemetry.register_server``), as in the JAX package.
+
+The JAX package's int8 batch hook and ``reload_weights()`` come with
+slice 5 of the port; ``block.load_parameters`` on the served block copies
+new weights in place, and the next replay reads them.
 The batcher thread launches the kernels on its own current CUDA stream.
 """
 from __future__ import annotations
@@ -40,7 +45,9 @@ from concurrent.futures import TimeoutError as _FutureTimeout
 
 import numpy as np
 
+from .. import profiler
 from ..base import MXNetError, getenv
+from ..telemetry import tracer as _tracer
 from ..ndarray.ndarray import NDArray, array as _nd_array
 from .batcher import (Batcher, DeadlineExceededError, _Request,
                       ServerClosedError, ServerOverloadedError)
@@ -91,6 +98,7 @@ class ModelServer:
         self._abort = False
         self._worker = None
         self._warmup_compiles = 0
+        self._metrics_collector = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -111,6 +119,12 @@ class ModelServer:
         self._warmup_compiles = self._graph_stats().get("compiles", 0)
         self._started = True
         self._closing = False
+        if self._metrics_collector is None:
+            # export stats() on the /metrics endpoint (weakly held: a
+            # dropped server leaves the scrape by itself)
+            from ..telemetry import metrics as _metrics
+
+            self._metrics_collector = _metrics.register_server(self)
         self._worker = threading.Thread(target=self._worker_loop,
                                         name="mxtt-serve-batcher",
                                         daemon=True)
@@ -120,15 +134,17 @@ class ModelServer:
     def _warmup(self):
         """Run a dummy batch per bucket, smallest shape first; on the card
         a second one, which captures the bucket's graph."""
-        for shape in self._spec.bucket_shapes():
-            x = _nd_array(np.full(shape, self._spec.pad_value,
-                                  dtype=self._spec.dtype), ctx=self._ctx)
-            for _ in range(2 if x.data.is_cuda else 1):
-                out = self._net(x)
-                for o in (out if isinstance(out, (list, tuple)) else [out]):
-                    if isinstance(o, NDArray):
-                        o.wait_to_read()
-            self._stats.incr("warmup_batches")
+        with profiler.op_scope("serve.warmup", cat="serve"):
+            for shape in self._spec.bucket_shapes():
+                x = _nd_array(np.full(shape, self._spec.pad_value,
+                                      dtype=self._spec.dtype), ctx=self._ctx)
+                for _ in range(2 if x.data.is_cuda else 1):
+                    out = self._net(x)
+                    for o in (out if isinstance(out, (list, tuple))
+                              else [out]):
+                        if isinstance(o, NDArray):
+                            o.wait_to_read()
+                self._stats.incr("warmup_batches")
 
     def __enter__(self):
         if not self._started:
@@ -175,6 +191,8 @@ class ModelServer:
                     req.future.set_exception(
                         ServerClosedError("server shut down"))
                 self._stats.incr("cancelled")
+                _tracer.request_end("serve.request", req.trace_id,
+                                    cat="serve", outcome="cancelled")
 
     # -- request path -------------------------------------------------------
 
@@ -191,6 +209,10 @@ class ModelServer:
         length = self._spec.validate(example)
         self._stats.record_request_shape(length)
         req = _Request(example, length, Future(), deadline_ms=deadline_ms)
+        req.trace_id = _tracer.request_begin(
+            "serve.request", cat="serve", length=length if length
+            is not None else -1, shape=str(example.shape),
+            deadline_ms=deadline_ms if deadline_ms is not None else -1)
         # count before put(): once queued, the batcher may serve the
         # request immediately, and "submitted" must never trail "served"
         self._stats.incr("submitted")
@@ -200,6 +222,8 @@ class ModelServer:
             self._stats.incr("submitted", -1)
             if isinstance(e, ServerOverloadedError):
                 self._stats.incr("rejected_overload")
+            _tracer.request_end("serve.request", req.trace_id,
+                                cat="serve", outcome="rejected")
             raise
         return req.future
 
@@ -225,6 +249,8 @@ class ModelServer:
                 on_pop=self._take_in_flight)
             for req in expired:
                 self._stats.incr("expired_deadline")
+                _tracer.request_end("serve.request", req.trace_id,
+                                    cat="serve", outcome="expired")
                 if req.future.set_running_or_notify_cancel():
                     req.future.set_exception(DeadlineExceededError(
                         "deadline passed while queued"))
@@ -236,6 +262,9 @@ class ModelServer:
                     if req.future.cancelled():
                         self._finish(req)
                         self._stats.incr("cancelled")
+                        _tracer.request_end("serve.request", req.trace_id,
+                                            cat="serve",
+                                            outcome="cancelled")
                     else:
                         live.append(req)
                 group = live
@@ -253,40 +282,57 @@ class ModelServer:
     def _run_batch(self, group):
         spec = self._spec
         pending = list(group)   # not yet resolved, for the failure path
+        t_exec = time.monotonic()   # queue-vs-compute attribution split
         try:
+            for req in group:
+                _tracer.request_instant("serve.dequeue", req.trace_id,
+                                        cat="serve")
             max_len = max((r.length for r in group), default=None) \
                 if spec.var_axis is not None else None
             batch, length = spec.pick(len(group), max_len)
             key = spec.key(batch, length)
-            padded = spec.pad_batch([r.example for r in group], batch,
-                                    length)
-            out = self._net(_nd_array(padded, ctx=self._ctx))
-            outs = list(out) if isinstance(out, (list, tuple)) else [out]
-            # one synchronous readback per output: latency includes it
-            host = [o.asnumpy() if isinstance(o, NDArray) else
-                    np.asarray(o) for o in outs]
+            with profiler.op_scope("serve.pad", cat="serve"):
+                padded = spec.pad_batch([r.example for r in group], batch,
+                                        length)
+            with profiler.op_scope(f"serve.batch.{key}", cat="serve"):
+                out = self._net(_nd_array(padded, ctx=self._ctx))
+                outs = list(out) if isinstance(out, (list, tuple)) \
+                    else [out]
+                # one synchronous readback per output: latency includes it
+                host = [o.asnumpy() if isinstance(o, NDArray) else
+                        np.asarray(o) for o in outs]
             self._stats.record_batch(
                 key, n_real=len(group), n_rows=batch,
                 real_elems=sum(int(np.prod(r.example.shape))
                                for r in group),
                 padded_elems=batch * int(np.prod(padded.shape[1:])))
             now = time.monotonic()
-            for i, req in enumerate(group):
-                res = [self._unpad_row(o[i], length, req.length)
-                       for o in host]
-                pending.remove(req)
-                self._finish(req)
-                self._stats.incr("served")
-                self._stats.record_latency((now - req.enqueued_at) * 1e3)
-                if req.future.set_running_or_notify_cancel():
-                    req.future.set_result(res[0] if len(res) == 1
-                                          else tuple(res))
+            with profiler.op_scope("serve.split", cat="serve"):
+                for i, req in enumerate(group):
+                    res = [self._unpad_row(o[i], length, req.length)
+                           for o in host]
+                    pending.remove(req)
+                    self._finish(req)
+                    self._stats.incr("served")
+                    self._stats.record_latency(
+                        (now - req.enqueued_at) * 1e3)
+                    _tracer.request_end(
+                        "serve.request", req.trace_id, cat="serve",
+                        outcome="served", bucket=key,
+                        queue_ms=round((t_exec - req.enqueued_at) * 1e3,
+                                       3),
+                        compute_ms=round((now - t_exec) * 1e3, 3))
+                    if req.future.set_running_or_notify_cancel():
+                        req.future.set_result(res[0] if len(res) == 1
+                                              else tuple(res))
         except Exception as e:  # noqa: BLE001 — every failure goes to
             # the affected callers; the batcher thread must survive (a
             # dead worker strands all queued futures forever)
             for req in pending:
                 self._finish(req)
                 self._stats.incr("failed")
+                _tracer.request_end("serve.request", req.trace_id,
+                                    cat="serve", outcome="failed")
                 if req.future.set_running_or_notify_cancel():
                     req.future.set_exception(e)
 

@@ -268,6 +268,13 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection\n"
             "import mxnet_tpu_torch.utils.native, mxnet_tpu_torch.data.bert\n"
             "import mxnet_tpu_torch.tools.im2rec\n"
+            "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.log\n"
+            "import mxnet_tpu_torch.telemetry.metrics\n"
+            "import mxnet_tpu_torch.telemetry.httpd\n"
+            "import mxnet_tpu_torch.telemetry.health\n"
+            "import mxnet_tpu_torch.telemetry.flight\n"
+            "import mxnet_tpu_torch.resilience.supervisor\n"
+            "import mxnet_tpu_torch.resilience.faults\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"

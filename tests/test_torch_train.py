@@ -1,9 +1,10 @@
 """The training path of the PyTorch port against the JAX package, on the
 CPU: autograd's ``grad_req`` semantics, the losses, the optimizers'
 update rules, the fused step against the sequential one, the learning-rate
-schedules, ``clip_global_norm``, the Trainer's surface, and a short
-MLM+NSP run of a narrow BERT.  Inputs are made with numpy from a seed and
-weights are carried across with ``load_numpy_params``.
+schedules, ``clip_global_norm``, the Trainer's surface, the blocks'
+forward hooks, and a short MLM+NSP run of a narrow BERT.  Inputs are made
+with numpy from a seed and weights are carried across with
+``load_numpy_params``.
 
 Tolerances (float32 on both sides).  Gradients, losses and one optimizer
 update: 1e-6 absolute plus 1e-5 relative (the same arithmetic summed in
@@ -53,6 +54,93 @@ def _dense_pair(seed=0, units=3, in_units=4, req="write"):
     tnet.weight.set_data(w)
     tnet.bias.set_data(b)
     return jnet, tnet
+
+
+def _hook_run(pkg, net, x):
+    """Calls of a pre-hook and a forward hook (both return something, which
+    must be ignored) around three calls of ``net``: both hooks on, the
+    forward hook detached, then the pre-hook detached by its handle's
+    ``with`` block."""
+    calls = []
+
+    def pre(block, args):
+        calls.append(("pre", block is net, len(args), tuple(args[0].shape)))
+        return 1
+
+    def post(block, args, out):
+        calls.append(("post", block is net, len(args), tuple(out.shape)))
+        return "replaced?"
+
+    pre_h = net.register_forward_pre_hook(pre)
+    post_h = net.register_forward_hook(post)
+    outs = [net(x).asnumpy()]
+    post_h.detach()
+    post_h.detach()   # twice is harmless
+    with pre_h:
+        outs.append(net(x).asnumpy())
+    outs.append(net(x).asnumpy())
+    return calls, outs
+
+
+def test_forward_hooks_match_jax():
+    """MXNet's hooks, not torch.nn.Module's: handles with detach() that
+    are context managers, return values ignored (ROADMAP queue 3)."""
+    import mxnet_tpu as jmx
+
+    jnet, tnet = _dense_pair(seed=3)
+    x = np.ones((2, 4), np.float32)
+    tcalls, touts = _hook_run(tmx, tnet, _t(x))
+    jcalls, jouts = _hook_run(jmx, jnet, jmx.nd.array(x))
+    assert tcalls == jcalls == [("pre", True, 1, (2, 4)),
+                                ("post", True, 1, (2, 3)),
+                                ("pre", True, 1, (2, 4))]
+    for a, b in zip(touts, jouts):
+        _close(a, b)
+
+
+def test_hybridized_parent_fires_its_hooks_on_every_call_as_jax():
+    import mxnet_tpu as jmx
+
+    def run(pkg, ctx):
+        net = pkg.gluon.nn.HybridSequential()
+        net.add(pkg.gluon.nn.Dense(3, in_units=4))
+        net.initialize(ctx=ctx)
+        net.hybridize()
+        seen = []
+        net.register_forward_pre_hook(lambda b, a: seen.append("pre"))
+        net.register_forward_hook(lambda b, a, o: seen.append("post"))
+        for _ in range(3):
+            net(pkg.nd.array(np.ones((2, 4), np.float32), ctx=ctx))
+        return seen
+
+    assert run(tmx, CPU) == run(jmx, jmx.cpu()) == ["pre", "post"] * 3
+
+
+@pytest.mark.gpu
+def test_hooks_around_a_replayed_serve_graph_on_card():
+    """On the card a hybridized block's own hooks fire on every call,
+    replays included; its children's fire only when its forward runs
+    eagerly (the warm-up and the capture), as a JAX child fires only while
+    its parent is traced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a serve graph has no CPU mode); "
+                    "run on the GPU machine with -m gpu")
+    from mxnet_tpu_torch import _imperative
+
+    net = tmx.gluon.nn.HybridSequential()
+    net.add(tmx.gluon.nn.Dense(3, in_units=4))
+    net.initialize(ctx=tmx.gpu(0))
+    net.hybridize()
+    outer, inner = [], []
+    net.register_forward_hook(lambda b, a, o: outer.append(o.shape))
+    net[0].register_forward_hook(lambda b, a, o: inner.append(1))
+    x = tmx.nd.array(np.ones((2, 4), np.float32), ctx=tmx.gpu(0))
+    r0 = _imperative.graph_replay_count()
+    with tmx.autograd.predict_mode():
+        for _ in range(4):
+            net(x)
+    assert _imperative.graph_replay_count() - r0 == 3
+    assert len(outer) == 4 and len(inner) == 2
 
 
 def _sq_loss(pkg):

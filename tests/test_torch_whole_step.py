@@ -813,3 +813,47 @@ def test_disable_pallas_knob_raises_on_cuda_tensors(cuda_device,
     q = torch.zeros(1, 2, 128, 64, device=cuda_device)
     with pytest.raises(tmx.MXNetError, match="DISABLE_PALLAS"):
         tattn._k_sdpa(q, q, q)
+
+
+def collection_inside_a_capture(dev):
+    """Capture a body that lets the last reference to a reference cycle
+    holding an earlier graph go, then makes the collector run: the shape
+    of a block and its CachedOp, or a trainer and its compiler, left dead
+    by an earlier phase.  Returns the new graph's replayed output."""
+    import gc
+
+    from mxnet_tpu_torch.gluon.whole_step import CapturedStep
+
+    x = torch.ones(1024, device=dev)
+    keep = []
+    for _ in range(3):
+        old = CapturedStep(lambda t: (t * 3).sum(), [x.clone()], dev)
+        cycle = {"graph": old}
+        cycle["self"] = cycle
+        keep.append(cycle)
+    del old, cycle
+    thresholds = gc.get_threshold()
+
+    def body(t):
+        keep.clear()                      # the cycles die inside the capture
+        gc.set_threshold(1, 1, 1)
+        junk = [[i] for i in range(2000)]   # automatic collections
+        return (t * 2).sum() + len(junk) * 0
+    try:
+        step = CapturedStep(body, [x], dev)
+        out = step.replay([x]).item()
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.collect()
+    return out
+
+
+@pytest.mark.gpu
+def test_a_collection_cannot_destroy_a_dead_graph_inside_a_capture(
+        cuda_device):
+    """Found on the card (ROADMAP queue 3): torch no longer collects
+    before a capture, so an earlier phase's dead graphs, held in reference
+    cycles, were destroyed by a collection inside the next capture, which
+    failed with cudaErrorStreamCaptureInvalidated.  Captures now run with
+    the cyclic collector off."""
+    assert collection_inside_a_capture(cuda_device) == 2048.0

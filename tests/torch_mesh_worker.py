@@ -20,7 +20,8 @@ statistics' reduction disabled (the control); ``SyncBatchNorm``'s
 ``axis_name``.  ``two`` (2 ranks): ``accum_steps=2`` with BatchNorm;
 ``remat`` with dropout against no ``remat``; the dropout streams;
 ``step_many``; an async checkpoint; BERT-tiny with ZeRO; a ``{dp:2}``
-trainer refusing a ``{dp:4}`` checkpoint.
+trainer refusing a ``{dp:4}`` checkpoint; the supervisor's peer-death
+exit.
 """
 import json
 import os
@@ -611,9 +612,46 @@ def case_card_zero(mx, out):
             out.put("card_zero", f"{case}/p{i}", v.detach().cpu().numpy())
 
 
+def case_peer_death(mx, out):
+    """The supervisor's non-elastic peer-death path across the ranks: a
+    ``peer_death`` fault at the third ``dist.allreduce`` on every rank;
+    each rank writes its resume marker and gets ``ResumeRequired``
+    (``tests/test_torch_resilience.py``)."""
+    from mxnet_tpu_torch import engine, resilience
+    from mxnet_tpu_torch.parallel import dist
+
+    marker = os.path.join(OUT_DIR, f"resume-rank{dist.rank()}.json")
+    plan = resilience.FaultPlan([{"site": "dist.allreduce",
+                                  "action": "peer_death", "on_hit": 3,
+                                  "dead_ranks": [1]}])
+    steps = []
+
+    def train(ctx):
+        for s in range(5):
+            v = dist.allreduce(mx.nd.array(
+                np.ones(2, np.float32) * (dist.rank() + 1), ctx=mx.cpu()))
+            steps.append(float(v.asnumpy()[0]))
+            ctx.step_done(s)
+        return "returned"
+
+    with resilience.armed(plan):
+        try:
+            got = resilience.Supervisor(on_preemption="resume",
+                                        resume_marker=marker).run(train)
+        except resilience.ResumeRequired as e:
+            got = str(e)
+    out.note("peer_death", "result", got)
+    out.note("peer_death", "steps", steps)
+    with open(marker) as f:
+        out.note("peer_death", "marker", json.load(f))
+    out.note("peer_death", "fired", plan.fired())
+    out.note("peer_death", "hooks_noop",
+             engine.fault_point is engine._fault_noop)
+
+
 CASES = {"four": (mesh_rules, case_mlp, case_tp, case_resnet, case_syncbn),
          "two": (case_accum, case_remat, case_step_many, case_async,
-                 case_bert),
+                 case_bert, case_peer_death),
          "card_bn": (case_card_bn,), "card_zero": (case_card_zero,)}
 
 
