@@ -386,10 +386,48 @@ Phases (any failure ends the run with a non-zero exit and no result):
     Printed: the health window's step time (host scopes) beside the CUDA
     events' step median of the same steps, and the disarmed step median
     beside phase 15's.
+29. int8 BERT-base serving: ``bert_base(vocab_size=30522)`` (MLM and NSP
+    heads, Normal(0.02) from a seed) through ``contrib.quantization.
+    quantize_net(calib_mode="naive")`` on ``INT8_CALIB_BATCHES``
+    synthetic batches (the 24 FFN Dense layers, the pooler and the heads
+    int8; the attention projections stay float32, so the flash forward
+    runs), hybridized behind ``ModelServer`` over phase 4's bucket grid
+    with ``INT8_SERVE_REQUESTS`` requests.  Gates: 28 int8 layers; all
+    served; no signature after warm-up, one capture a bucket, one replay a
+    batch; 12 flash launches a forward, no plain call; every batch booked
+    in the ``quantize`` section; against the CPU's int8 path on the same
+    weights and ranges, each of six quantized layers on one input a
+    quantum apart at most on ``INT8_LAYER_FLIPS`` of its outputs at most,
+    and the logits within ``INT8_NOISE_FACTOR`` times int8's own error
+    against float32 of the CPU's; the int8 products exact (a float64
+    product); then
+    ``reload_weights()`` of a float32 ``CheckpointManager`` save of other
+    weights, re-quantized against the stored scales with no new capture,
+    and the next responses bit-identical to the eager int8 forward.
+    Printed: each int8 product (``torch._int_mm`` through the padding
+    rule) beside the float32 ``torch.matmul`` of its shape.
+30. decode at bench.py serve_decode's device configuration: whole-batch,
+    continuous, paged (``page_tokens=16``, half the contiguous arena's
+    cache) with ``spec_k=4`` and ``TinyDraft``, and int8 (``proj_block``
+    quantized) arms of ``DecodeServer``.  Gates: all served; no signature
+    or capture after warm-up; one replay a token step, a draft proposal
+    and an admission group; continuous == whole-batch and speculative ==
+    greedy, token for token; every arm's tokens equal to the CPU run's of
+    the same weights, but for divergences at a decision whose top two
+    logits lie within ``DEC_TIE_GAP`` (one level of the calibrated output
+    range in the int8 arm; named); int8 steps booked.
+    Printed: tokens/s, replays, the paged arm's peak live slots.
+31. the tuner: ``tune.derive_bucket_spec`` from phase 29's request
+    histogram, then a ``tune.Tuner`` (seed 0, at most ``TUNE_MAX_TRIALS``
+    trials) over ``decode_page_tokens`` and ``decode_spec_k`` applied
+    through the environment, each trial ``TUNE_PASSES`` passes of phase
+    30's traffic through a fresh paged ``DecodeServer``, scored by tokens/s
+    of wall time.  Printed:
+    every trial's JSONL line and the recommendation.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 25, 21, 22, 26, 27, 28 (20, 23, 24 and 25 in one launch of 2 ranks,
-21 and 22 in another): every
+24, 25, 21, 22, 26, 27, 28, 29, 30, 31 (20, 23, 24 and 25 in one launch of
+2 ranks, 21 and 22 in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -646,6 +684,43 @@ RES_PLAN = {"seed": 28, "faults": [
     {"site": "checkpoint.commit", "action": "truncate", "match": {"step": 5}},
     {"site": "train.step", "action": "raise", "match": {"step": 6}},
     {"site": "engine.h2d", "action": "delay", "delay_s": 0.02, "times": 2}]}
+# phase 29, int8 BERT-base serving: quantize_net calibrated ("naive") on
+# INT8_CALIB_BATCHES synthetic batches of INT8_CALIB_SHAPE, then served
+# through phase 4's bucket grid.  The card against the CPU's int8 path on
+# the same weights and ranges, two ways.  Layer by layer, on one input: an
+# output quantum apart at most, at INT8_LAYER_FLIPS of the elements at
+# most (the same int8 input and an exact product give the same levels; a
+# last-bit difference of the float32 scale arithmetic can move a value
+# sitting on a rounding boundary).  End to end, the logits: a float32
+# rounding (attention, LayerNorm) that moves one activation across a
+# rounding boundary moves it a quantum, which moves many of the next
+# layer's outputs across theirs, so after 12 layers the card's and the
+# CPU's int8 runs carry independent quantization errors of the size of
+# int8's own error against float32 (PR 22, call 1: 0.024-0.126 of the
+# logits' norm apart); the card's int8 logits may lie up to
+# INT8_NOISE_FACTOR times that error from the CPU's (two independent errors
+# add at most so), and a wrong scale, range or weight lies far beyond
+INT8_CALIB_BATCHES, INT8_CALIB_SHAPE = 4, (8, 128)
+INT8_SERVE_REQUESTS, INT8_CPU_REQUESTS = 24, 2
+INT8_LAYER_ROWS, INT8_LAYER_FLIPS = 64, 1e-4
+INT8_NOISE_FACTOR = 2.0
+# phase 30, decode at bench.py serve_decode's device configuration
+# (bench.py:733-790): TinyDecoder(256, 64), 150 requests over 16 slots,
+# max_len 96, prompts of 2-16 tokens, budgets 48-72 with p = 0.25 else 4-12
+DEC_VOCAB, DEC_EMBED, DEC_REQUESTS, DEC_SLOTS, DEC_MAX_LEN = 256, 64, 150, \
+    16, 96
+DEC_BATCHES, DEC_LENGTHS = (1, 2, 4, 8), (4, 8, 16)
+DEC_PAGE_TOKENS, DEC_SPEC_K = 16, 4
+# a greedy decision whose top two logits lie closer than this may go either
+# way on float rounding alone: a card-vs-CPU divergence there is named, not
+# failed (every other token must be equal).  The int8 arm's logits are
+# levels of the projection's calibrated output range, so there a tie is a
+# gap of one level or none (a rounding on a boundary moves a logit a level)
+DEC_TIE_GAP = 1e-5
+# phase 31: the tuner's trials at most, and the passes of phase 30's traffic
+# a trial serves (one pass is ~0.15 s on the card, PR 22, call 4: too short
+# a window for the tuner to tell two configurations apart)
+TUNE_MAX_TRIALS, TUNE_PASSES = 6, 4
 
 
 def log(*args):
@@ -2420,7 +2495,7 @@ def resnet_references(mx):
     return checks
 
 
-# -- phase 10: the RNN kernels -------------------------------------------------
+# -- phase 10: the RNN kernels ------------------------------------------------
 
 
 def rnn_kernel_shapes():
@@ -2993,7 +3068,7 @@ def deepar_card_vs_cpu(mx, splitter, ds):
             "card_vs_cpu_predict_paths": path_err <= DEEPAR_PATH_RTOL}
 
 
-# -- phase 14: the GRU ----------------------------------------------------------
+# -- phase 14: the GRU --------------------------------------------------------
 
 
 def gru_net_and_data(mx):
@@ -3074,7 +3149,7 @@ def train_gru(mx, card):
     return {k: c[0] for k, c in counts.items()}, median_ms, routes
 
 
-# -- phase 15: captured steps ----------------------------------------------------
+# -- phase 15: captured steps -------------------------------------------------
 
 
 def own_loss(out):
@@ -3284,7 +3359,7 @@ def captured_steps(mx, card):
     return medians
 
 
-# -- phase 16: checkpoints -----------------------------------------------------
+# -- phase 16: checkpoints ----------------------------------------------------
 
 
 def dir_bytes(path):
@@ -4129,7 +4204,7 @@ def check_cells(mx, card):
     return launches, routes
 
 
-# -- phase 19: the kvstore on the card ----------------------------------------------
+# -- phase 19: the kvstore on the card ----------------------------------------
 
 
 def kv_api(mx, kv_type, ctxs, data):
@@ -4294,7 +4369,7 @@ def check_kvstore(mx, card):
     return record
 
 
-# -- phases 20 and 20b: BERT-base under dist_sync, and over several cards ----------
+# -- phases 20 and 20b: BERT-base under dist_sync, and over several cards -----
 
 
 def free_port():
@@ -5016,7 +5091,7 @@ def train_bert_spmd(mx, card, d, data, ref_losses, want_backend, launch):
             "spmd_bert_resume": resume_launches}
 
 
-# -- phase 25: the pp and sp axes at GPT-2 small's widths -----------------------
+# -- phase 25: the pp and sp axes at GPT-2 small's widths ---------------------
 
 
 def pp_tree(flat, stages):
@@ -5380,7 +5455,7 @@ def train_pipeline_lm(mx, card, d, launch, inputs):
             "pp_lm_reference": ref_launches}
 
 
-# -- phases 21-22: DataParallelTrainer over a mesh ------------------------------
+# -- phases 21-22: DataParallelTrainer over a mesh ----------------------------
 
 
 def digest(tensors):
@@ -5860,7 +5935,7 @@ def train_mesh_bert(mx, card, ranks, ref):
         for k in kinds}}
 
 
-# -- phase 26: the input tier --------------------------------------------------
+# -- phase 26: the input tier -------------------------------------------------
 
 
 def write_mnist_files(root, n_train=MNIST_TRAIN, n_test=MNIST_TEST):
@@ -6182,7 +6257,7 @@ def input_tier(mx, card, captured_ms):
             "pipeline_resnet_resumed": resnet["resumed_launches"]}
 
 
-# -- phase 27: the image and text tiers ------------------------------------------
+# -- phase 27: the image and text tiers ---------------------------------------
 
 
 def write_jpeg_records(mx, path):
@@ -6778,6 +6853,662 @@ def resilience_telemetry(mx, card, captured_ms):
 
 
 
+# -- phase 29: int8 BERT-base serving -----------------------------------------
+
+
+def int8_bert_block(mx):
+    import torch
+
+    class BertLogits(mx.gluon.HybridBlock):
+        """Token ids (B, S) -> (MLM logits, NSP logits); id 0 pads."""
+
+        def __init__(self, bert, **kwargs):
+            super().__init__(**kwargs)
+            self.bert = bert
+
+        def hybrid_forward(self, F, ids):
+            valid = (ids != 0).sum(dim=1).to(torch.float32)
+            return self.bert(ids, torch.zeros_like(ids), valid)
+
+    return BertLogits
+
+
+def host_params(net):
+    return {k: p.data().detach().cpu().numpy().copy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def int_mm_times():
+    """The int8 products of int8 BERT-base at b=8, s=512 and of a decode
+    step (``torch._int_mm`` through ``int8_matmul``'s padding rule, a
+    library call: the JAX package computes them outside Pallas too), each
+    exact against a float64 product and timed beside the float32
+    ``torch.matmul`` of the same shape, by CUDA events."""
+    import torch
+
+    from mxnet_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    for name, (m, k, n) in (("ffn1", (4096, 768, 3072)),
+                            ("ffn2", (4096, 3072, 768)),
+                            ("mlm_decoder", (4096, 768, 30522)),
+                            ("pooler_b8", (8, 768, 768)),
+                            ("decode_proj_16_slots", (16, DEC_EMBED,
+                                                      DEC_VOCAB))):
+        x8 = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        xf, wf = x8.float(), w8.float()
+        exact = torch.equal(q.int8_matmul(x8, w8).double(),
+                            x8.double() @ w8.double().t())
+        out[name] = {"mkn": [m, k, n], "padded_to": list(q.int_mm_shape(
+            m, k, n)), "exact": exact,
+            "int8_ms": cuda_ms(lambda: q.int8_matmul(x8, w8), iters=20),
+            "fp32_ms": cuda_ms(lambda: torch.matmul(xf, wf.t()), iters=20)}
+        del x8, w8, xf, wf
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_bert_serving(mx, card, tmpdir):
+    """Phase 29 (see the module docstring).  Returns the flash forward's
+    launches over the served and warm-up batches and the server's traffic
+    histograms (phase 31 derives a bucket grid from them)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops import quantization as q
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    BertLogits = int8_bert_block(mx)
+    mx.random.seed(0)
+    bert = mx.models.bert_base(vocab_size=30522)
+    bert.initialize(init=mx.init.Normal(0.02), ctx=gpu)
+    net = BertLogits(bert)
+    net(mx.nd.array(np.ones((1, 8), np.int32), ctx=gpu))   # shapes
+    fp32_host = host_params(net)   # for the CPU's float32 reference
+    rng = np.random.RandomState(29)
+    # ids from 1: every calibration row is full length
+    calib = [rng.randint(1, 30522, size=INT8_CALIB_SHAPE).astype(np.int32)
+             for _ in range(INT8_CALIB_BATCHES)]
+    qz.reset_quantize_stats()
+    t0 = time.perf_counter()
+    with gpu:
+        # the served block is the one quantize_net marks int8, so the
+        # server books its batches and reloads by re-quantizing
+        qz.quantize_net(net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    wrapped = [p[:-1] for p, _ in qz._iter_quantized(net)]
+    qstats = qz.quantize_stats()
+    spec = mx.serve.BucketSpec(batch_sizes=(1, 4, 8), example_shape=(None,),
+                               lengths=(128, 256, 512), dtype="int32")
+    batches = []   # (the requests' examples, the padded batch) per batch
+    pad = spec.pad_batch
+
+    def recording_pad(examples, batch, length):
+        padded = pad(examples, batch, length)
+        batches.append((list(examples), padded))
+        return padded
+
+    spec.pad_batch = recording_pad
+    reqs = [rng.randint(1, 30522, size=int(n)).astype(np.int32)
+            for n in rng.randint(16, 513, size=INT8_SERVE_REQUESTS)]
+    # a float32 training checkpoint of other weights, for the reload
+    mx.random.seed(1)
+    other = mx.models.bert_base(vocab_size=30522)
+    other.initialize(init=mx.init.Normal(0.02), ctx=gpu)
+    other = BertLogits(other)
+    x8 = mx.nd.array(pad([r[:512] for r in reqs[:8]], 8, 512), ctx=gpu)
+    # the float32 model with both heads at the largest bucket, eager and
+    # replayed (a hybridized call: warm-up, capture, then replays)
+    fp32_ms = cuda_ms(lambda: other(x8), iters=3)
+    other.hybridize()
+    fp32_replay_ms = cuda_ms(lambda: other(x8), iters=5)
+    other.hybridize(False)
+    mgr = mx.checkpoint.CheckpointManager(os.path.join(tmpdir, "ckpt"))
+    t0 = time.perf_counter()
+    mgr.save(1, params=other, sync=True)
+    save_s = time.perf_counter() - t0
+    del other
+    torch.cuda.empty_cache()
+    server = mx.serve.ModelServer(net, spec, ctx=gpu, checkpoint=mgr)
+    results = [None] * INT8_SERVE_REQUESTS
+
+    kernels.reset_counts()
+    q.reset_int_mm_counts()
+    c0 = _imperative.graph_capture_count()
+    r0 = _imperative.graph_replay_count()
+    t0 = time.perf_counter()
+    server.start()
+    t_warm = time.perf_counter() - t0
+    captured = _imperative.graph_capture_count() - c0
+
+    def client(idx):
+        futs = [(i, server.submit(reqs[i])) for i in idx]
+        for i, f in futs:
+            results[i] = f.result(timeout=300)
+
+    threads = [threading.Thread(target=client, args=(
+        range(c, INT8_SERVE_REQUESTS, SERVE_THREADS),))
+        for c in range(SERVE_THREADS)]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t1
+    launches = fa.counts.launches
+    plain_on_cuda = sum(c.plain_calls_on_cuda
+                        for c in kernels.KERNEL_COUNTS.values())
+    replays = _imperative.graph_replay_count() - r0
+    mm_counts = dict(q.int_mm_counts)
+    if any(t.is_alive() for t in threads):
+        server.shutdown(drain=False, timeout=120)
+        raise SystemExit("int8 serve: client threads did not finish")
+    st = server.stats()
+    n_buckets = st["warmup_batches"]
+    n_forwards = st["batches"] + 2 * n_buckets
+    int8_batches = qz.quantize_stats()["int8_serve_batches"]
+    checks = {
+        "int8_layers": len(wrapped) == 28
+        and not any("attn" in w for w in wrapped)
+        and qstats["layers_quantized"] == 28
+        and qstats["calib_batches"] == INT8_CALIB_BATCHES,
+        "int8_served": st["served"] == INT8_SERVE_REQUESTS
+        and st["failed"] == 0,
+        "int8_post_warmup_compiles": st["graph"]["post_warmup_compiles"]
+        == 0,
+        "int8_graphs_captured": captured == n_buckets == 9,
+        "int8_replay_a_batch": replays == st["batches"] + n_buckets,
+        "int8_flash_launches": launches == 12 * n_forwards > 0,
+        "int8_plain_calls_on_cuda": plain_on_cuda == 0,
+        "int8_batches_booked": int8_batches == st["batches"],
+        "int8_shapes": all(
+            mlm.shape == (len(r), 30522) and nsp.shape == (2,)
+            and np.isfinite(mlm).all() and np.isfinite(nsp).all()
+            for r, (mlm, nsp) in zip(reqs, results)),
+    }
+    log(f"int8 serve: BERT-base (30522 words) quantize_net naive over "
+        f"{INT8_CALIB_BATCHES} x {INT8_CALIB_SHAPE} in {quant_s:.2f} s: "
+        f"{len(wrapped)} int8 layers (24 FFN Dense, pooler, MLM transform "
+        f"and decoder, NSP; attention projections float32); warm-up "
+        f"{n_buckets} buckets in {t_warm:.2f} s; "
+        f"{st['served']}/{INT8_SERVE_REQUESTS} served in {st['batches']} "
+        f"batches, {wall:.3f} s wall, {INT8_SERVE_REQUESTS / wall:.2f} req/s"
+        f"; latency p50 {st['latency']['p50_ms']} ms p99 "
+        f"{st['latency']['p99_ms']} ms; bucket hits {st['bucket_hits']}; "
+        f"graph {st['graph']}; CUDA graphs captured {captured}, replays "
+        f"{replays}; flash launches {launches} (12 x {n_forwards} forwards)"
+        f"; int8 products called eagerly or at capture {mm_counts}; "
+        f"quantize section {qz.quantize_stats()}; on {card}")
+
+    # the CPU on the same weights: float32, then int8 with the card's
+    # quantized weights and ranges
+    t0 = time.perf_counter()
+    cbert = mx.models.bert_base(vocab_size=30522)
+    cbert.initialize(ctx=cpu)
+    cnet = BertLogits(cbert)
+    with cpu:
+        cnet(mx.nd.array(np.ones((1, 8), np.int32)))   # deferred shapes
+    mx.load_numpy_params(cnet, fp32_host)
+    del fp32_host
+    order = sorted(range(INT8_SERVE_REQUESTS), key=lambda i: len(reqs[i]))
+    picks = order[:INT8_CPU_REQUESTS]
+
+    def cpu_logits():
+        return {i: [o.asnumpy()[0] for o in cnet(
+            mx.nd.array(reqs[i][None], ctx=cpu))] for i in picks}
+
+    fp32_out = cpu_logits()
+    with cpu:
+        qz.quantize_net(cnet)   # ranges come with the card's arrays
+    mx.load_numpy_params(cnet, host_params(net))
+    int8_out = cpu_logits()
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    ends = []   # (card vs CPU int8, CPU int8 vs float32, card vs float32)
+    agree = []
+    for i in picks:
+        for k in (0, 1):   # MLM, NSP
+            ends.append((rel(results[i][k], int8_out[i][k]),
+                         rel(int8_out[i][k], fp32_out[i][k]),
+                         rel(results[i][k], fp32_out[i][k])))
+        agree.append(float((results[i][0].argmax(-1)
+                            == int8_out[i][0].argmax(-1)).mean()))
+    # layer by layer: the same input through the card's and the CPU's
+    # quantized layer
+    layers = dict(qz._iter_quantized(net))
+    clayers = dict(qz._iter_quantized(cnet))
+    flips = {}
+    last = max(int(p.split(".")[3]) for p in layers
+               if p.startswith("bert.encoder.layers."))
+    for path in ("bert.encoder.layers.0.ffn1.",
+                 f"bert.encoder.layers.{last}.ffn2.", "bert.pooler.",
+                 "bert.mlm_transform.", "bert.mlm_decoder.",
+                 "bert.nsp_classifier."):
+        lg, lc = layers[path], clayers[path]
+        k_in = lg.qweight.shape[1]
+        x = (rng.randn(INT8_LAYER_ROWS, k_in)
+             * float(lg.in_max.data()) / 3).astype(np.float32)
+        yg = lg(torch.from_numpy(x).to(lg.qweight.data().device)) \
+            .cpu().numpy()
+        yc = lc(torch.from_numpy(x)).detach().numpy()
+        if lg._activation is None:    # requantized: output levels
+            quantum = max(abs(float(lg.out_min.data())),
+                          abs(float(lg.out_max.data()))) / 127.0
+            diff = np.abs(yg - yc) / quantum
+            flips[path[5:-1]] = (float((diff > 0.5).mean()),
+                                 float(diff.max()))
+        else:                           # dequantized, then the activation
+            flips[path[5:-1]] = (0.0, float(np.abs(yg - yc).max()))
+    cpu_s = time.perf_counter() - t0
+    del cnet, cbert
+    checks["int8_card_vs_cpu_logits"] = all(
+        c <= INT8_NOISE_FACTOR * e for c, e, _ in ends)
+    checks["int8_card_vs_cpu_layers"] = all(
+        f <= INT8_LAYER_FLIPS and d <= 1.01 for f, d in flips.values())
+    log(f"int8 serve: card vs the CPU over the {INT8_CPU_REQUESTS} shortest "
+        f"requests (lengths {[len(reqs[i]) for i in picks]}), MLM then NSP "
+        f"each, |a - b| / |b| of (card int8, CPU int8), (CPU int8, CPU "
+        f"float32), (card int8, CPU float32): {ends} (card vs CPU within "
+        f"{INT8_NOISE_FACTOR} x int8's error); MLM argmax agreement card vs "
+        f"CPU int8 {agree}; layer by layer on {INT8_LAYER_ROWS} rows, "
+        f"(share of elements a level apart, largest difference in output "
+        f"quanta; for the tanh pooler the largest absolute difference): "
+        f"{flips} (limits {INT8_LAYER_FLIPS}, 1 quantum); {cpu_s:.1f} s")
+
+    # the int8 products beside float32 ones, and the replayed forwards
+    mm = int_mm_times()
+    checks["int8_products_exact"] = all(v["exact"] for v in mm.values())
+    log(f"int8 serve: torch._int_mm through int8_matmul vs float32 "
+        f"torch.matmul (TF32 off), ms by CUDA events on {card}: "
+        + "; ".join(f"{k} {v['mkn']} (padded to {v['padded_to']}): int8 "
+                    f"{v['int8_ms']:.4f}, fp32 {v['fp32_ms']:.4f}, exact "
+                    f"{v['exact']}" for k, v in mm.items()))
+    times = {}
+    for b, n in ((1, 128), (8, 512)):
+        x = mx.nd.array(pad([r[:n] for r in reqs[:b]], b, n), ctx=gpu)
+        times[spec.key(b, n)] = cuda_ms(lambda: net(x), iters=5)
+    eager_int8 = BertLogits(bert)   # not hybridized
+    eager_ms = cuda_ms(lambda: eager_int8(x8), iters=3)
+    del eager_int8
+    log(f"int8 serve: replayed forward (input in, replay, outputs copied) "
+        f"ms by bucket {times}; b8xl512 eager int8 {eager_ms:.3f} ms, the "
+        f"float32 model eager {fp32_ms:.3f} ms, replayed "
+        f"{fp32_replay_ms:.3f} ms (both heads, MLM logits at every "
+        f"position) on {card}")
+
+    # a float32 checkpoint of other weights reloaded under the server:
+    # re-quantized against the stored scales, no new capture
+    c1 = _imperative.graph_capture_count()
+    t0 = time.perf_counter()
+    info = server.reload_weights()
+    reload_s = time.perf_counter() - t0
+    first = len(batches)
+    later = reqs[:4]
+    fresh = [server.predict(r, timeout=300) for r in later]
+    server.shutdown(drain=True, timeout=120)
+    st2 = server.stats()
+    eager_net = BertLogits(bert)   # not hybridized: the eager forward
+    same = len(batches) - first == len(later)
+    for examples, padded in batches[first:]:
+        mlm, nsp = (o.data.cpu().numpy() for o in eager_net(
+            mx.nd.array(padded, ctx=gpu)))
+        for row, ex in enumerate(examples):
+            got = fresh[[id(r) for r in later].index(id(ex))]
+            same &= (np.array_equal(got[0], mlm[row, :len(ex)])
+                     and np.array_equal(got[1], nsp[row]))
+    changed = all(not np.array_equal(f[0], r[0])
+                  for f, r in zip(fresh, results[:4]))
+    checks["int8_reload_no_new_capture"] = (
+        info["step"] == 1 and st2["reloads"] == 1 and same and changed
+        and _imperative.graph_capture_count() == c1
+        and st2["graph"]["post_warmup_compiles"] == 0)
+    log(f"int8 serve: reload_weights() of a float32 checkpoint of other "
+        f"weights (saved in {save_s:.2f} s) re-quantized in {reload_s:.2f} "
+        f"s under the running server; the next {len(later)} responses "
+        f"bit-identical to the eager int8 forward of their padded batches: "
+        f"{same}; differ from before: {changed}; new captures "
+        f"{_imperative.graph_capture_count() - c1}; phase 29 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del server, net, eager_net, bert
+    torch.cuda.empty_cache()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"int8 serve checks failed: {failed}")
+    return {"launches": launches,
+            "traffic": {"request_lengths": st["request_lengths"],
+                        "group_sizes": st["group_sizes"]},
+            "lengths": spec.lengths}
+
+
+# -- phase 30: decode ---------------------------------------------------------
+
+
+def decode_traffic():
+    """bench.py serve_decode's prompts and heavy-tailed budgets (seed 0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, DEC_VOCAB, size=int(rng.randint(2, 17)))
+               .astype(np.int32) for _ in range(DEC_REQUESTS)]
+    budgets = [int(rng.randint(48, 73)) if rng.rand() < 0.25
+               else int(rng.randint(4, 13)) for _ in range(DEC_REQUESTS)]
+    return prompts, budgets
+
+
+def decode_model(mx, ctx, proj_block=False):
+    mx.random.seed(0)
+    model = mx.serve.TinyDecoder(vocab=DEC_VOCAB, embed=DEC_EMBED,
+                                 proj_block=proj_block)
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    return model
+
+
+def decode_run(mx, model, ctx, prompts, budgets, passes=1, **kw):
+    """The requests through a DecodeServer of ``model`` on ``ctx``,
+    ``passes`` times over: submitted a few at a time, as bench.py does.
+    Returns the last pass's sequences and the run's record (tokens/s of
+    wall time, replays and captures after the warm-up, the sampled peak of
+    live slots)."""
+    from mxnet_tpu_torch import _imperative
+
+    spec = mx.serve.BucketSpec(batch_sizes=DEC_BATCHES,
+                               example_shape=(None,), lengths=DEC_LENGTHS,
+                               dtype="int32")
+    srv = mx.serve.DecodeServer(model, spec, max_slots=DEC_SLOTS,
+                                max_len=DEC_MAX_LEN,
+                                max_queue=len(prompts) + 8, ctx=ctx, **kw)
+    t0 = time.perf_counter()
+    srv.start()
+    warm_s = time.perf_counter() - t0
+    c0 = _imperative.graph_capture_count()
+    r0 = _imperative.graph_replay_count()
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], srv.live_slots())
+            time.sleep(0.001)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t1 = time.perf_counter()
+    for _ in range(passes):
+        handles = []
+        for i, (p, m) in enumerate(zip(prompts, budgets)):
+            handles.append(srv.submit(p, max_new_tokens=m))
+            if i % 4 == 0:
+                time.sleep(0.0005)
+        seqs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t1
+    stop.set()
+    sampler.join(timeout=5)
+    srv.drain()
+    s = srv.stats()
+    rec = {"tokens_per_s": s["tokens"] / wall, "wall_s": wall,
+           "warmup_s": warm_s, "tokens": s["tokens"],
+           "served": s["served"] // passes,
+           "decode_steps": s["decode_steps"],
+           "spec_draft_steps": s["spec_draft_steps"],
+           "batches": s["batches"],
+           "replays": _imperative.graph_replay_count() - r0,
+           "captures": _imperative.graph_capture_count() - c0,
+           "post_warmup_compiles": s["graph"]["post_warmup_compiles"],
+           "signatures": s["graph"]["compiles"],
+           "peak_live_slots": peak[0],
+           "slot_occupancy": s["slots"]["occupancy"],
+           "token_p50_ms": s["token_latency"]["p50_ms"],
+           "ttft_p50_ms": s["ttft"]["p50_ms"],
+           "accept_rate": (s.get("spec") or {}).get("accept_rate"),
+           "pages": s.get("pages")}
+    return seqs, rec
+
+
+def decision_gap(model, prompt, seq, j):
+    """The gap between the top two logits of ``model`` (on the CPU) at
+    the decision that emitted ``seq[j]``."""
+    import torch
+
+    with torch.no_grad():
+        toks = torch.as_tensor(list(prompt) + list(seq[:j]),
+                               dtype=torch.int32)
+        h = model._embed(toks).mean(dim=0, keepdim=True)
+        top = torch.topk(model._logits(h)[0].double(), 2).values
+    return float(top[0] - top[1])
+
+
+def token_diffs(model, prompts, got, want):
+    """Card-vs-CPU divergences: ``(request, token, gap)`` at each
+    sequence's first differing token, ``gap`` that decision's top-two
+    logit gap on the CPU model."""
+    import numpy as np
+
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if np.array_equal(a, b):
+            continue
+        if len(a) != len(b):
+            out.append((i, min(len(a), len(b)), float("inf")))
+            continue
+        j = int(np.flatnonzero(a != b)[0])
+        out.append((i, j, decision_gap(model, p, b, j)))
+    return out
+
+
+def decode_arms(mx, card):
+    """Phase 30 (see the module docstring).  Returns the float32 model and
+    the traffic (phase 31 tunes over them)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.contrib import quantization as qz
+
+    t_phase = time.perf_counter()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    prompts, budgets = decode_traffic()
+    model = decode_model(mx, gpu)
+    qmodel = decode_model(mx, gpu, proj_block=True)
+    calib = np.random.RandomState(30).randint(
+        0, DEC_VOCAB, size=(32, 16)).astype(np.int32)
+
+    def calib_forward(m, x):
+        b, n = x.shape
+        m.prefill(x.data, torch.full((b,), n, dtype=torch.int32,
+                                     device=x.data.device))
+
+    with gpu:
+        qz.quantize_net(qmodel, calib_data=[calib[:16], calib[16:]],
+                        calib_forward=calib_forward)
+    runs = {}
+    seqs = {}
+    seqs["whole_batch"], runs["whole_batch"] = decode_run(
+        mx, model, gpu, prompts, budgets, admission="batch")
+    seqs["continuous"], runs["continuous"] = decode_run(
+        mx, model, gpu, prompts, budgets)
+    # the paged arena at half the contiguous arena's cache memory, with
+    # speculation (bench.py's paged arm)
+    num_pages = DEC_SLOTS * DEC_MAX_LEN // 2 // DEC_PAGE_TOKENS
+    seqs["paged_spec"], runs["paged_spec"] = decode_run(
+        mx, model, gpu, prompts, budgets, page_tokens=DEC_PAGE_TOKENS,
+        num_pages=num_pages, draft=mx.serve.TinyDraft(model),
+        spec_k=DEC_SPEC_K)
+    qz.reset_quantize_stats()
+    seqs["int8"], runs["int8"] = decode_run(mx, qmodel, gpu, prompts,
+                                            budgets)
+    int8_booked = qz.quantize_stats()["int8_serve_batches"]
+
+    # the same weights on the CPU
+    t0 = time.perf_counter()
+    cmodel = decode_model(mx, cpu)
+    mx.load_numpy_params(cmodel, host_params(model))
+    cq = decode_model(mx, cpu, proj_block=True)
+    with cpu:
+        qz.quantize_net(cq)    # ranges come with the card's arrays
+    mx.load_numpy_params(cq, host_params(qmodel))
+    cpu_seqs, cpu_run = decode_run(mx, cmodel, cpu, prompts, budgets)
+    cpu_int8, cpu_int8_run = decode_run(mx, cq, cpu, prompts, budgets)
+    cpu_s = time.perf_counter() - t0
+    diffs = {arm: token_diffs(cq if arm == "int8" else cmodel, prompts,
+                              seqs[arm],
+                              cpu_int8 if arm == "int8" else cpu_seqs)
+             for arm in seqs}
+    level = max(abs(float(cq.proj.out_min.data())),
+                abs(float(cq.proj.out_max.data()))) / 127.0
+    ties = {arm: [d for d in v if d[2] < (1.001 * level if arm == "int8"
+                                          else DEC_TIE_GAP)]
+            for arm, v in diffs.items()}
+
+    checks = {}
+    for arm, r in runs.items():
+        checks[f"decode_{arm}_served"] = r["served"] == DEC_REQUESTS
+        checks[f"decode_{arm}_post_warmup_compiles"] = \
+            r["post_warmup_compiles"] == 0 and r["captures"] == 0
+        checks[f"decode_{arm}_one_replay_a_step"] = r["replays"] == (
+            r["decode_steps"] + r["spec_draft_steps"] + r["batches"])
+        checks[f"decode_{arm}_vs_cpu"] = len(diffs[arm]) == len(ties[arm])
+    checks["decode_continuous_equals_whole_batch"] = all(
+        np.array_equal(a, b) for a, b in zip(seqs["continuous"],
+                                             seqs["whole_batch"]))
+    checks["decode_speculative_equals_greedy"] = all(
+        np.array_equal(a, b) for a, b in zip(seqs["paged_spec"],
+                                             seqs["continuous"]))
+    checks["decode_int8_booked"] = int8_booked == (
+        runs["int8"]["decode_steps"] + runs["int8"]["batches"])
+    checks["decode_budgets"] = all(
+        len(s) == m for s, m in zip(seqs["continuous"], budgets))
+    contig_seqs = DEC_SLOTS * DEC_MAX_LEN // 2 // DEC_MAX_LEN
+    for arm, r in runs.items():
+        log(f"decode {arm}: {r['tokens']} tokens in {r['wall_s']:.3f} s = "
+            f"{r['tokens_per_s']:.1f} tokens/s (wall); warm-up "
+            f"{r['warmup_s']:.2f} s ({r['signatures']} signatures); "
+            f"{r['decode_steps']} steps, {r['spec_draft_steps']} draft "
+            f"steps, {r['batches']} admission groups, {r['replays']} "
+            f"replays, {r['captures']} captures after warm-up; occupancy "
+            f"{r['slot_occupancy']}, peak live slots {r['peak_live_slots']}"
+            f"; token p50 {r['token_p50_ms']} ms, TTFT p50 "
+            f"{r['ttft_p50_ms']} ms; accept rate {r['accept_rate']}; "
+            f"pages {r['pages']}; on {card}")
+    log(f"decode: bench.py serve_decode's configuration (TinyDecoder("
+        f"{DEC_VOCAB}, {DEC_EMBED}), {DEC_REQUESTS} requests, {DEC_SLOTS} "
+        f"slots, max_len {DEC_MAX_LEN}); the paged arm holds {num_pages} "
+        f"pages of {DEC_PAGE_TOKENS} tokens (half the contiguous arena's "
+        f"cache, where a contiguous arena fits {contig_seqs} sequences) and "
+        f"peaked at {runs['paged_spec']['peak_live_slots']} live slots; "
+        f"continuous == whole-batch: "
+        f"{checks['decode_continuous_equals_whole_batch']}; speculative == "
+        f"greedy: {checks['decode_speculative_equals_greedy']}; card vs the "
+        f"CPU run (float32 {cpu_run['tokens']} tokens, int8 "
+        f"{cpu_int8_run['tokens']}; {cpu_s:.1f} s): divergences {diffs}, "
+        f"of which ties (top-two gap < {DEC_TIE_GAP}, int8: one level, "
+        f"{level:.6g}) {ties}; int8 steps "
+        f"and groups booked {int8_booked}; phase 30 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del qmodel, cq, cmodel
+    torch.cuda.empty_cache()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"decode checks failed: {failed}")
+    return model, prompts, budgets, runs
+
+
+# -- phase 31: the tuner ------------------------------------------------------
+
+
+def tuner_run(mx, card, traffic, served_lengths, model, prompts, budgets):
+    """Phase 31 (see the module docstring)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import tune
+    from mxnet_tpu_torch.base import getenv, setenv
+
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(0)
+    derived = tune.derive_bucket_spec(traffic, (None,), max_buckets=3,
+                                      align=8, max_batch=8)
+    hist = traffic["request_lengths"]
+    over_served = tune.padding_overhead(served_lengths, hist)
+    over_derived = tune.padding_overhead(derived.lengths, hist)
+    log(f"tune: phase 29's traffic ({sum(hist.values())} requests, group "
+        f"sizes {traffic['group_sizes']}) -> derive_bucket_spec "
+        f"{tune.format_grid(derived.batch_sizes, derived.lengths)}; padding "
+        f"overhead {over_derived:.4f} against the served grid's "
+        f"{over_served:.4f} ({served_lengths})")
+
+    shipped = tune.default_registry()
+    reg = tune.KnobRegistry()
+    # the draft needs the paged arena: the page sizes of the knob's domain
+    # that page a slot (0, contiguous, leaves speculation off)
+    for name, domain, default in (
+            ("decode_page_tokens", (8, 16, 32), DEC_PAGE_TOKENS),
+            ("decode_spec_k", (1, 2, 4), DEC_SPEC_K)):
+        k = shipped.get(name)
+        reg.register(tune.Knob(name, env=k.env, kind=k.kind, domain=domain,
+                               default=default, restart=k.restart,
+                               doc=k.doc))
+    saved = {k.env: getenv(k.env) for k in reg}
+
+    def measure(config):
+        # the server reads the knobs from the environment, as a fresh
+        # deployment would
+        spec_k = getenv("DECODE_SPEC_K", 1, int)
+        _, r = decode_run(mx, model, gpu, prompts, budgets,
+                          passes=TUNE_PASSES,
+                          draft=mx.serve.TinyDraft(model)
+                          if spec_k > 1 else None)
+        if r["served"] != DEC_REQUESTS or r["captures"]:
+            raise SystemExit(f"tune: a trial served {r['served']} of "
+                             f"{DEC_REQUESTS}, captured {r['captures']}")
+        return {"tokens_per_s": r["tokens_per_s"],
+                "decode_steps": r["decode_steps"],
+                "replays": r["replays"]}
+
+    d = tempfile.mkdtemp(prefix="tune-smoke-", dir=ROOT)
+    try:
+        reg.apply({"decode_page_tokens": DEC_PAGE_TOKENS,
+                   "decode_spec_k": DEC_SPEC_K})
+        runner = tune.TrialRunner(reg, measure, seed=0,
+                                  history=os.path.join(d, "trials.jsonl"))
+        rec = tune.Tuner(reg, runner=runner, seed=0, top_k=2,
+                         reference_configs={}).recommend()
+        with open(os.path.join(d, "trials.jsonl")) as f:
+            lines = f.read().splitlines()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        for env, v in saved.items():
+            setenv(env, v)
+    for line in lines:
+        log(f"tune trial: {line}")
+    log(rec.summary())
+    log(f"tune: {len(rec.trials)} trials scored by tokens/s of wall time "
+        f"over {TUNE_PASSES} passes of {DEC_REQUESTS} requests each "
+        f"(recompiles are the new "
+        f"signatures each trial's server warmed); recommended "
+        f"{rec.config}, best/baseline {rec.ratio:.4f}; tune section "
+        f"{tune.tune_stats()}; phase 31 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    checks = {"tune_trials": 1 < len(rec.trials) <= TUNE_MAX_TRIALS
+              and len(lines) == len(rec.trials),
+              "tune_scores": all(np.isfinite(t["score"]) and t["score"] > 0
+                                 for t in rec.trials),
+              "tune_recompiles_debited": all(t["recompiles"] > 0
+                                             for t in rec.trials),
+              "tune_bucket_grid": derived.lengths[-1] >= max(hist)}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"tuner checks failed: {failed}")
+    return rec
+
 def main():
     import torch
 
@@ -6916,6 +7647,15 @@ def main():
     dist_launches["corpus_bert_train"] = tier_launches["corpus_bert_train"]
     res_launches = resilience_telemetry(mx, card, captured["bert"][1])
     lap("28 resilience and telemetry")
+    with tempfile.TemporaryDirectory(prefix="int8-smoke-", dir=ROOT) as d:
+        int8 = int8_bert_serving(mx, card, d)
+    lap("29 int8 BERT-base serving")
+    dmodel, dprompts, dbudgets, _ = decode_arms(mx, card)
+    lap("30 decode")
+    tuner_run(mx, card, int8["traffic"], int8["lengths"], dmodel, dprompts,
+              dbudgets)
+    del dmodel
+    lap("31 tuner")
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
@@ -6931,6 +7671,7 @@ def main():
     fwd_by_path = {"serve": serve["launches"],
                    "resilience_serve": res_launches["resilience_bert_serve"][
                        "flash_attention_fwd"],
+                   "int8_serve": int8["launches"],
                    "train": train["flash_attention_fwd"],
                    "transformer_train": tfm_train["flash_attention_fwd"],
                    "transformer_decode": tfm_decode,

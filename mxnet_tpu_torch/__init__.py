@@ -26,3 +26,18 @@ from . import engine, metric, pipeline, storage  # noqa: F401
 # MXTPU_TRACE / MXTPU_FLIGHT_RECORDER / MXTPU_METRICS_PORT ask for
 from . import log, profiler, resilience, telemetry  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401
+
+# tiers imported on first use, as the JAX package imports them: the int8
+# tier (``mx.contrib.quantization``) and the autotuner (``mx.tune``)
+_LAZY = {"contrib": ".contrib", "tune": ".tune"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(_LAZY[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "
+                         f"{name!r}")

@@ -25,3 +25,17 @@ def getenv(name: str, default=None, dtype=str):
                 return v not in ("0", "false", "False", "")
             return dtype(v)
     return default
+
+
+def setenv(name: str, value):
+    """Write config knob ``name`` under its ``MXTPU_`` spelling (the one
+    :func:`getenv` reads first); ``None`` clears both spellings (ref:
+    ``mxnet_tpu/base.py:44``)."""
+    if value is None:
+        for prefix in ("MXTPU_", "MXNET_"):
+            os.environ.pop(prefix + name, None)
+        return None
+    if value is True or value is False:
+        value = int(value)
+    os.environ["MXTPU_" + name] = str(value)
+    return value

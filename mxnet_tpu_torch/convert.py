@@ -15,7 +15,19 @@ def load_numpy_params(block, arrays):
     parameter's shape (dims still unknown under deferred init take the
     array's); any difference raises :class:`MXNetError` before anything
     is copied.  Deferred parameters are initialized on the device their
-    ``initialize()`` call named."""
+    ``initialize()`` call named.
+
+    A net quantized by ``contrib.quantization.quantize_net`` takes the
+    arrays of a quantized net of the same architecture (``qweight`` int8,
+    ``wscale``, ``bias`` and the calibrated ranges ``in_min``, ``in_max``,
+    ``out_min``, ``out_max``): a layer quantized without calibration
+    takes its range parameters from the arrays
+    (``quantization.adopt_ranges``), so both packages run the same int8
+    model."""
+    if getattr(block, "_int8_quantized", False):
+        from .contrib.quantization import adopt_ranges
+
+        adopt_ranges(block, arrays)
     params = block._collect_params_with_prefix()
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))

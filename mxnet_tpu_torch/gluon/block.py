@@ -452,3 +452,122 @@ class CachedOp:
             got = self._graphs[sig] = (step, params,
                                        [p._replica() for p in params])
         return _clone_outputs(got[0].replay([inputs[j] for j in pos]))
+
+
+def _step_tensor(v):
+    """A step input as a tensor: numpy arrays and numbers become CPU
+    tensors (sharing a numpy array's memory)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    import numpy as np
+
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+class CachedStepOp:
+    """A block's forward as a fixed-shape, state-carrying step: the decode
+    tier's per-token path (ref: CachedStepOp, ``gluon/block.py:467`` of
+    the JAX package).
+
+    ``op(*inputs)`` runs ``block.forward(*inputs, **static_kwargs)`` on
+    tensors (numpy inputs become tensors) and returns the forward's flat
+    tuple of output tensors.  The inputs at ``inplace_inputs`` are the
+    carried state (the decode arena's cache buffers): the caller passes
+    the same tensors at every call and the forward writes their new values
+    into them in place.  The JAX package instead donates those buffers and
+    receives new ones; here a captured graph reads and writes the arena's
+    own memory, so nothing is handed back.
+
+    On CUDA inputs, per input signature: the first call runs the forward
+    eagerly on a side stream (the warm-up), the second captures it in a
+    CUDA graph (``whole_step.CapturedStep``: the cyclic collector off,
+    ``CAPTURE_MODE`` thread-local) and replays it, later calls copy their
+    other inputs into the graph's static buffers and replay.  The in-place
+    inputs are the graph's static buffers themselves, and a call that
+    passes other tensors there, or a parameter whose value was replaced
+    rather than written in place, captures again.  Parameters are read
+    where they live, so a reload that copies new values in
+    (``Parameter.set_data``) needs no new capture.  The outputs of a
+    replay are the graph's own buffers, valid until its next replay.  On
+    the CPU the forward runs eagerly at every call.
+
+    ``static_kwargs`` are fixed keyword arguments of the forward (the
+    speculative verify step's ``k``): a different value is another op.
+    Every call books one dispatch (``_imperative.device_dispatch_count``),
+    and a new signature counts as a "compile", a seen one as a "reuse",
+    here and in :func:`cached_graph_stats`."""
+
+    def __init__(self, block, inplace_inputs=(), static_kwargs=None):
+        self.block = block
+        self._inplace = frozenset(int(i) for i in inplace_inputs)
+        self._static = dict(static_kwargs or {})
+        for v in self._static.values():
+            hash(v)   # a signature of its own: fail at construction
+        self._params = None
+        self._seen_sigs = set()
+        self._warm = set()
+        # signature -> (CapturedStep, parameter values, in-place tensors)
+        self._graphs = {}
+        self._pool = None
+        self._lock = threading.Lock()
+        self.stats = {"compiles": 0, "reuses": 0}
+
+    def _body(self, *tensors):
+        with torch.no_grad():
+            out = self.block(*tensors, **self._static)
+        outs = tuple(out) if isinstance(out, (list, tuple)) else (out,)
+        if not all(isinstance(o, torch.Tensor) for o in outs):
+            raise MXNetError("a CachedStepOp forward must return a flat "
+                             "tuple of tensors")
+        return outs
+
+    def __call__(self, *inputs):
+        from .. import _imperative
+
+        tensors = [_step_tensor(v) for v in inputs]
+        device = next((t.device for j, t in enumerate(tensors)
+                       if j in self._inplace), None) or next(
+            (t.device for t in tensors if t.is_cuda), torch.device("cpu"))
+        sig = (str(device), tuple((tuple(t.shape), str(t.dtype))
+                                  for t in tensors))
+        with self._lock:
+            kind = "reuses" if sig in self._seen_sigs else "compiles"
+            self._seen_sigs.add(sig)
+            self.stats[kind] += 1
+        with _graph_stats_lock:
+            _graph_stats[kind] += 1
+        _imperative.count("step_dispatches")
+        if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return self._body(*[t.to(device) for t in tensors])
+        with self._lock:
+            return self._graph_step(sig, tensors, device)
+
+    def _graph_step(self, sig, tensors, device):
+        from .whole_step import CapturedStep, side_stream_run
+
+        if sig not in self._warm:
+            on_dev = [t.to(device) for t in tensors]
+            out = side_stream_run(lambda: self._body(*on_dev), device)
+            self._warm.add(sig)
+            return out
+        if self._params is None:
+            self._params = list(self.block.collect_params().values())
+        got = self._graphs.get(sig)
+        if got is not None and (
+                any(p._replica() is not v
+                    for p, v in zip(self._params, got[1]))
+                or any(tensors[j] is not t for j, t in got[2].items())):
+            got = None   # a parameter or the carried state was replaced
+        if got is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            static = [t if j in self._inplace else t.to(device).clone()
+                      for j, t in enumerate(tensors)]
+            with profiler.op_scope(f"cached_op.compile.{self.block.name}",
+                                   cat="cached_op"):
+                step = CapturedStep(self._body, static, device,
+                                    pool=self._pool)
+            got = self._graphs[sig] = (
+                step, [p._replica() for p in self._params],
+                {j: tensors[j] for j in self._inplace})
+        return got[0].replay(tensors)

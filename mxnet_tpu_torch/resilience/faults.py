@@ -43,9 +43,10 @@ Fault-point catalog (site -> where it fires -> ctx keys):
 The port calls the sites of the tiers it has: ``train.step``,
 ``kvstore.pushpull``, ``dist.allreduce``, ``dist.barrier``,
 ``engine.h2d``, ``engine.d2h``, ``checkpoint.commit``,
-``checkpoint.reshard`` and ``pipeline.map``.  ``dist.rendezvous`` comes
-with the elastic resize (slice 7, part 3) and the ``serve.*`` sites with
-slice 5.
+``checkpoint.reshard``, ``pipeline.map`` and ``serve.decode``.
+``dist.rendezvous`` comes with the elastic resize (slice 7, part 3) and
+the router's and the control plane's ``serve.*`` sites with slice 5,
+part 2.
 
 Actions:
 

@@ -24,6 +24,13 @@ each batch's rows are read back to the host before the next batch runs.
   never reaches the device.
 - **graceful drain**: ``shutdown(drain=True)`` stops admissions,
   finishes every queued request, and leaves no in-flight work.
+- **hot reload**: ``reload_weights()`` copies parameters from
+  ``CheckpointManager.latest()`` into the served block in place, between
+  batches (the exec lock); queued and in-flight requests are never
+  dropped, and the captured buckets replay on the new values with no new
+  capture.  A net quantized by ``contrib.quantization.quantize_net``
+  takes int8-native checkpoints and float32 ones, re-quantized against
+  its stored scales.
 
 - **observability**: each request is a tracer request span
   (``serve.request``: submit, ``serve.dequeue``, its outcome), the
@@ -31,9 +38,6 @@ each batch's rows are read back to the host before the next batch runs.
   and ``start()`` exports ``stats()`` on ``/metrics``
   (``telemetry.register_server``), as in the JAX package.
 
-The JAX package's int8 batch hook and ``reload_weights()`` come with
-slice 5 of the port; ``block.load_parameters`` on the served block copies
-new weights in place, and the next replay reads them.
 The batcher thread launches the kernels on its own current CUDA stream.
 """
 from __future__ import annotations
@@ -60,6 +64,16 @@ from .stats import ServerStats
 PREDICT_GRACE_S = 5.0
 
 
+def _int8_batch_hook(block):
+    """The ``quantize``-section booking hook of a served net, or None for
+    a float32 net (ref: ``mxnet_tpu/serve/server.py:55``)."""
+    if not getattr(block, "_int8_quantized", False):
+        return None
+    from ..contrib.quantization import note_int8_serve_batch
+
+    return note_int8_serve_batch
+
+
 class ModelServer:
     """Serve a gluon block behind an async dynamically-batched queue.
 
@@ -78,10 +92,12 @@ class ModelServer:
     ctx : Context, optional
         Device for the padded input batches (default: the current
         context, ``gpu(0)``).
+    checkpoint : CheckpointManager or str, optional
+        Source for ``reload_weights()``; a str is a checkpoint directory.
     """
 
     def __init__(self, block, spec, max_queue=256, linger_ms=None,
-                 ctx=None):
+                 ctx=None, checkpoint=None):
         if not isinstance(spec, BucketSpec):
             raise MXNetError("spec must be a serve.BucketSpec")
         if linger_ms is None:
@@ -89,8 +105,13 @@ class ModelServer:
         self._net = block
         self._spec = spec
         self._ctx = ctx
+        # a quantize_net output books its batches into the `quantize`
+        # section and reloads float32 checkpoints by re-quantizing
+        self._int8 = bool(getattr(block, "_int8_quantized", False))
+        self._note_int8 = _int8_batch_hook(block)
         self._batcher = Batcher(max_queue=max_queue, linger_ms=linger_ms)
         self._stats = ServerStats()
+        self._exec_lock = threading.Lock()   # batch exec XOR reload
         self._if_lock = threading.Lock()
         self._in_flight = 0
         self._started = False
@@ -99,6 +120,11 @@ class ModelServer:
         self._worker = None
         self._warmup_compiles = 0
         self._metrics_collector = None
+        if isinstance(checkpoint, str):
+            from ..checkpoint import CheckpointManager
+
+            checkpoint = CheckpointManager(checkpoint)
+        self._ckpt = checkpoint
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -269,7 +295,8 @@ class ModelServer:
                         live.append(req)
                 group = live
             if group:
-                self._run_batch(group)
+                with self._exec_lock:
+                    self._run_batch(group)
             elif group is None and self._batcher.drained():
                 return
 
@@ -306,6 +333,8 @@ class ModelServer:
                 real_elems=sum(int(np.prod(r.example.shape))
                                for r in group),
                 padded_elems=batch * int(np.prod(padded.shape[1:])))
+            if self._int8:
+                self._note_int8()
             now = time.monotonic()
             with profiler.op_scope("serve.split", cat="serve"):
                 for i, req in enumerate(group):
@@ -349,6 +378,37 @@ class ModelServer:
     def _finish(self, req):
         with self._if_lock:
             self._in_flight -= 1
+
+    # -- hot reload ---------------------------------------------------------
+
+    def reload_weights(self, step=None):
+        """Copy parameters from the checkpoint manager (default:
+        ``latest()``) into the served block between batches, without
+        dropping queued or in-flight requests.
+
+        The exec lock serializes it with batch execution: the current
+        batch finishes on the old weights, the next starts on the new.
+        Every value is written in place, so the captured buckets replay on
+        it with no new capture.  A quantized net (``quantize_net``) takes
+        int8-native checkpoints (saved from the quantized net) as they
+        are, and float32 training checkpoints re-quantized against its
+        stored scales (``contrib.quantization.load_serving_params``)."""
+        if self._ckpt is None:
+            raise MXNetError(
+                "no checkpoint manager: construct ModelServer("
+                "checkpoint=...) to enable reload_weights()")
+        with self._exec_lock:
+            with profiler.op_scope("serve.reload", cat="serve"):
+                if self._int8:
+                    meta = self._ckpt.restore(step=step, restore_rng=False)
+                    from ..contrib.quantization import load_serving_params
+
+                    load_serving_params(self._net, meta.get("params") or {})
+                else:
+                    meta = self._ckpt.restore(step=step, params=self._net,
+                                              restore_rng=False)
+        self._stats.incr("reloads")
+        return {"step": meta["step"], "epoch": meta.get("epoch")}
 
     # -- observability ------------------------------------------------------
 

@@ -87,19 +87,20 @@ class LatencyWindow:
         }
 
 
-#: the ModelServer counter set
+#: the ModelServer counter set (DecodeServer passes its own: the same
+#: machinery, token-granular names)
 DEFAULT_COUNTERS = ("submitted", "served", "rejected_overload",
                     "expired_deadline", "failed", "cancelled", "batches",
-                    "warmup_batches")
+                    "warmup_batches", "reloads")
 
 
 class ServerStats:
-    """All ModelServer counters behind one lock."""
+    """All ModelServer/DecodeServer counters behind one lock."""
 
-    def __init__(self, latency_capacity=4096):
+    def __init__(self, latency_capacity=4096, counters=None):
         self._lock = threading.Lock()
         self.latency = LatencyWindow(latency_capacity)
-        self._c = {k: 0 for k in DEFAULT_COUNTERS}
+        self._c = {k: 0 for k in (counters or DEFAULT_COUNTERS)}
         # batch-fill ratio = real requests / padded batch rows, the
         # throughput-per-compile-surface figure of merit
         self._fill_real = 0
@@ -112,7 +113,9 @@ class ServerStats:
         self._bucket_fill = {}   # key -> [real requests, padded rows]
         self._bucket_pad = {}    # key -> [real elems, padded elems]
         # raw traffic shape: variable-axis length of every submitted
-        # request and real size of every executed group
+        # request and real size of every executed group: the
+        # distributions tune.geometry derives bucket grids and decode
+        # arena geometry from
         self._len_hist = {}      # length -> submissions
         self._group_hist = {}    # group size -> batches
 

@@ -384,24 +384,100 @@ def register_server(server, registry=None):
     return _collect
 
 
-# -- Router and DecodeServer export (slice 5) ---------------------------------
+# -- Router and DecodeServer export ------------------------------------------
 
 
 def register_router(router, registry=None):
     """Export a ``serve.Router``'s ``stats()`` under
     ``mxtpu_router_*{router="<id>"}`` (ref: ``mxnet_tpu/telemetry/
-    metrics.py:392``): the router comes with slice 5 of the port."""
+    metrics.py:392``): the router comes with slice 5, part 2 of the
+    port."""
     raise MXNetError(
         "telemetry.register_router: serve.Router is not ported yet; it "
-        "comes with slice 5 of the port (serving beyond slice 1)")
+        "comes with slice 5, part 2 of the port (the router and the "
+        "control plane)")
 
 
 def register_decode_server(server, registry=None):
     """Export a ``DecodeServer``'s ``stats()`` under
     ``mxtpu_decode_*{server="<id>"}`` (ref: ``mxnet_tpu/telemetry/
-    metrics.py:461``): the decode server comes with slice 5 of the
-    port."""
-    raise MXNetError(
-        "telemetry.register_decode_server: serve.DecodeServer is not "
-        "ported yet; it comes with slice 5 of the port (serving beyond "
-        "slice 1)")
+    metrics.py:461``): weakly held, gauges throughout
+    (``stats(reset=True)`` rewinds the window), as
+    :func:`register_server`."""
+    # the decode tier defines its counter set once; imported here (lazily:
+    # decode.py imports this module) so the export cannot drift from it
+    from ..serve.decode import DECODE_COUNTERS
+
+    reg = registry or _default
+    ref = weakref.ref(server)
+    sid = str(next(_server_ids))
+
+    def _collect():
+        s = ref()
+        if s is None:
+            reg.unregister_collector(_collect)
+            return []
+        snap = s.stats()
+        lab = {"server": sid}
+        fams = []
+        for k in DECODE_COUNTERS:
+            fams.append((f"mxtpu_decode_{k}", "gauge",
+                         f"decode serve {k} (current accounting window)",
+                         [(lab, float(snap.get(k, 0)))]))
+        fams.append(("mxtpu_decode_queue_depth", "gauge",
+                     "queued admissions",
+                     [(lab, float(snap.get("queue_depth", 0)))]))
+        slots = snap.get("slots") or {}
+        fams.append(("mxtpu_decode_slots_live", "gauge",
+                     "occupied decode slots",
+                     [(lab, float(slots.get("live", 0)))]))
+        if slots.get("occupancy") is not None:
+            fams.append(("mxtpu_decode_slot_occupancy", "gauge",
+                         "token-step-weighted mean live/max_slots",
+                         [(lab, float(slots["occupancy"]))]))
+        for name, key in (("mxtpu_decode_ttft_ms", "ttft"),
+                          ("mxtpu_decode_token_ms", "token_latency"),
+                          ("mxtpu_decode_latency_ms", "latency")):
+            hist = (snap.get(key) or {}).get("histogram")
+            if hist:
+                fams.append((name, "histogram", f"decode serve {key}",
+                             [(lab, {"buckets": [(b, c) for b, c in
+                                                 hist["buckets"]],
+                                     "sum": hist["sum_ms"],
+                                     "count": hist["count"]})]))
+        graph = snap.get("graph") or {}
+        for k, v in sorted(graph.items()):
+            fams.append((f"mxtpu_decode_graph_{k}", "gauge",
+                         f"decode serve compiled-graph {k}",
+                         [(lab, float(v))]))
+        pages = snap.get("pages")
+        if pages:
+            for name, key, help_ in (
+                    ("mxtpu_decode_page_in_flight", "in_flight",
+                     "physical cache pages currently referenced"),
+                    ("mxtpu_decode_page_free", "free",
+                     "physical cache pages on the free list"),
+                    ("mxtpu_decode_page_committed", "committed",
+                     "worst-case pages committed to admitted requests"),
+                    ("mxtpu_decode_page_deferred", "deferred",
+                     "admissions deferred on the page budget"),
+                    ("mxtpu_decode_page_hbm_bytes", "hbm_bytes",
+                     "paged KV-cache pool bytes (incl. trash page)")):
+                fams.append((name, "gauge", help_,
+                             [(lab, float(pages.get(key, 0)))]))
+        spec = snap.get("spec")
+        if spec:
+            fams.append(("mxtpu_decode_spec_proposed", "gauge",
+                         "draft tokens proposed (window)",
+                         [(lab, float(spec.get("proposed", 0)))]))
+            fams.append(("mxtpu_decode_spec_accepted", "gauge",
+                         "draft tokens accepted (window)",
+                         [(lab, float(spec.get("accepted", 0)))]))
+            if spec.get("accept_rate") is not None:
+                fams.append(("mxtpu_decode_spec_accept_rate", "gauge",
+                             "accepted/proposed draft tokens (window)",
+                             [(lab, float(spec["accept_rate"]))]))
+        return fams
+
+    reg.register_collector(_collect)
+    return _collect

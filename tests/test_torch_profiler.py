@@ -61,9 +61,13 @@ def test_section_registry_and_keys_match_the_jax_profiler():
     assert set(got["trainerStep"]) - set(want["trainerStep"]) == \
         {"whole_step_eager"}
     assert set(want["trainerStep"]) <= set(got["trainerStep"])
+    # the decode, int8 and tuner tiers, where both packages have them
+    # loaded, hold the same counters
+    for name in ("decodeServe", "quantize", "tune"):
+        if name in got and name in want:
+            assert set(got[name]) == set(want[name]), name
     # tiers the port does not have yet stay out of the dump
-    assert not {"decodeServe", "router", "ctrl", "quantize", "tune"} & \
-        set(got)
+    assert not {"router", "ctrl"} & set(got)
 
 
 def _jhealth():

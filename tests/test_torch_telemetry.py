@@ -234,10 +234,38 @@ def test_register_server_exports_the_jax_gauges():
     got = _server_text(tmetrics, server)
     assert got == _server_text(_jtel().metrics, server)
     assert 'mxtpu_serve_served{server="N"} 4' in got
-    with pytest.raises(MXNetError, match="slice 5"):
+    with pytest.raises(MXNetError, match="slice 5, part 2"):
         tmetrics.register_router(object())
-    with pytest.raises(MXNetError, match="slice 5"):
-        tmetrics.register_decode_server(object())
+    # the decode server's export (slice 5, part 1) is the JAX package's
+    decode = _FakeDecodeServer()
+    got = _decode_text(tmetrics, decode)
+    assert got == _decode_text(_jtel().metrics, decode)
+    assert 'mxtpu_decode_tokens{server="N"} 9' in got
+    assert 'mxtpu_decode_spec_accept_rate{server="N"} 0.5' in got
+
+
+class _FakeDecodeServer:
+    def stats(self):
+        hist = {"buckets": [(1.0, 1), (float("inf"), 2)], "sum_ms": 3.0,
+                "count": 2}
+        return {"submitted": 3, "served": 2, "tokens": 9,
+                "decode_steps": 5, "queue_depth": 1,
+                "slots": {"live": 1, "occupancy": 0.25},
+                "ttft": {"histogram": hist},
+                "graph": {"compiles": 4, "reuses": 7,
+                          "post_warmup_compiles": 0},
+                "pages": {"in_flight": 3, "free": 5, "committed": 4,
+                          "deferred": 0, "hbm_bytes": 4096},
+                "spec": {"proposed": 4, "accepted": 2,
+                         "accept_rate": 0.5}}
+
+
+def _decode_text(metrics, server):
+    import re
+
+    reg = metrics.Registry()
+    metrics.register_decode_server(server, registry=reg)
+    return re.sub(r'server="\d+"', 'server="N"', reg.render())
 
 
 def test_metrics_endpoint_serves_metrics_and_healthz_over_loopback():
