@@ -424,10 +424,51 @@ Phases (any failure ends the run with a non-zero exit and no result):
     30's traffic through a fresh paged ``DecodeServer``, scored by tokens/s
     of wall time.  Printed:
     every trial's JSONL line and the recommendation.
+32. the router: (a) phase 4's replica (each built from seed 0: bit-identical
+    weights) three times behind ``serve.Router(evict_after=2)`` with a
+    health probe every ``ROUTER_HEALTH_SEC``; 48 requests from 4 client
+    threads, the last 40 under ``ROUTER_PLAN`` (replica 1 fails every
+    dispatch and probe, one probe of replica 2 stalls); a warm spare
+    captures its 9 buckets while its peers serve; then 12 requests with a
+    budget under ``hedge_ms``, a tenant over its quota of 2, and
+    ``rolling_reload()`` under 24 requests to a ``CheckpointManager`` save
+    of the same weights with the pooler's bias raised by 0.5.  Gates: every
+    request served (or failed classified, naming its attempts),
+    ``requests_lost == 0``; replica 1 evicted and a spare admitted (3
+    healthy); one capture a bucket a server and none after warm-up; flash
+    launches exactly 12 a forward (the build's, the warm-ups', the
+    batches', the probes'); every replica's parameters bit-identical to
+    replica 0's; every hedged request run twice and a loser cancelled; the
+    tenant refused with ``TenantQuotaExceededError``; every reload-period
+    response within ``CPU_ATOL`` of exactly one of two eager card forwards
+    (old and new weights), no capture in the reload; 6 responses against
+    the CPU; ``mxtpu_router_*`` and ``mxtpu_ctrl_*`` on ``/metrics``.  (b)
+    phase 30's decode configuration, 2 ``DecodeServer`` replicas behind a
+    Router, 48 of its requests through ``submit_stream``: each stream
+    token for token equal to one server's.  Printed: each replica's
+    warm-up, the recovery time (eviction to the spare's admission), each
+    pool's requests/s.
+33. the control plane: a ``ControlPlane`` of worker processes
+    (``chip_smoke.py --serve-replica-worker REGISTRY ID``: phase 32's
+    replica over ``CTRL_GRID``, registered after its warm-up) on the one
+    card, driven by an ``Autoscaler`` (1 to 2 workers): one worker (spawned
+    while phase 32 runs: a spawn is ~10 s of start-up), then
+    ``CTRL_LOAD_THREADS`` closed-loop clients until the pool grows to 2 by
+    a warm admission, a SIGKILL of the worker carrying the most dispatches,
+    its eviction and a freshly spawned warm worker, then no load until the
+    pool drains back to 1.  Gates: 4 requests through a ``RemoteReplica``
+    bit-identical to an in-process replica of the same weights and grid;
+    every request served, ``requests_lost == 0``, network re-dispatches;
+    the corpse evicted; 3 spawns, 1 scale-up, a scale-down and a
+    retirement, also in the ``mxtpu_ctrl_*`` gauges; no capture in traffic
+    on any worker; each worker that stopped cleanly (all but the killed
+    one) counted 12 flash launches a forward.  Printed: the time to the
+    first warm worker, the scale-up, kill-to-rejoin and recovery times,
+    the workers' warm-ups and launches, requests/s.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 25, 21, 22, 26, 27, 28, 29, 30, 31 (20, 23, 24 and 25 in one launch of
-2 ranks, 21 and 22 in another): every
+24, 25, 21, 22, 26, 27, 28, 29, 30, 31, 32, 33 (20, 23, 24 and 25 in one
+launch of 2 ranks, 21 and 22 in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
 captured before them broke the profiler's device readings (PERF.md §6).
@@ -721,6 +762,38 @@ DEC_TIE_GAP = 1e-5
 # a trial serves (one pass is ~0.15 s on the card, PR 22, call 4: too short
 # a window for the tuner to tell two configurations apart)
 TUNE_MAX_TRIALS, TUNE_PASSES = 6, 4
+# phase 32 (a): phase 4's replica (BERT-base, buckets (1,4,8)x(128,256,512))
+# three times behind a Router; 48 requests of lengths U[16,512] (seed 1)
+# from 4 client threads, the first 8 healthy, the rest under ROUTER_PLAN
+# (replica 1 fails every dispatch and every probe; replica 2's first probe
+# stalls); evict_after=2 with a probe every ROUTER_HEALTH_SEC; then 12
+# hedged requests (a budget under hedge_ms), a tenant over its quota of 2
+# and a rolling reload under 24 requests, one every ROUTER_RELOAD_GAP_S, to
+# a checkpoint of the same weights with the pooler's bias raised by
+# ROUTER_RELOAD_BIAS
+SERVE_GRID = ((1, 4, 8), (128, 256, 512))
+ROUTER_REPLICAS, ROUTER_REQUESTS, ROUTER_THREADS = 3, 48, 4
+ROUTER_HEALTHY_FIRST, ROUTER_HEALTH_SEC, ROUTER_HEDGE_MS = 8, 0.5, 60_000
+ROUTER_HEDGE_REQUESTS, ROUTER_RELOAD_REQUESTS = 12, 24
+ROUTER_RELOAD_BIAS, ROUTER_RELOAD_GAP_S = 0.5, 0.05
+ROUTER_PLAN = {"seed": 32, "faults": [
+    {"site": "serve.replica.submit", "action": "raise",
+     "match": {"replica": 1}, "times": None},
+    {"site": "serve.replica.health", "action": "raise",
+     "match": {"replica": 1}, "times": None},
+    {"site": "serve.replica.health", "action": "stall",
+     "match": {"replica": 2}, "delay_s": 0.05, "times": 1}]}
+# phase 32 (b): phase 30's decode configuration, 2 replicas, its first 48
+# requests as streams
+ROUTER_DECODE_REQUESTS = 48
+# phase 33: BERT-base worker processes over a shorter grid (a shorter
+# warm-up), an autoscaler between 1 and 2 of them; CTRL_LOAD_THREADS
+# closed-loop clients against a capacity hint of CTRL_CAPACITY requests a
+# worker raise the load past the scale-up occupancy (0.75)
+CTRL_GRID = ((1, 4), (128, 256))
+CTRL_CAPACITY, CTRL_LOAD_THREADS = 4, 12
+CTRL_HEALTH_SEC, CTRL_TICK_SEC, CTRL_COOLDOWN_SEC = 0.25, 0.2, 1.0
+CTRL_LEASE_SEC = 2.0
 
 
 def log(*args):
@@ -7509,6 +7582,706 @@ def tuner_run(mx, card, traffic, served_lengths, model, prompts, budgets):
         raise SystemExit(f"tuner checks failed: {failed}")
     return rec
 
+# -- phases 32-33: the router and the control plane ---------------------------
+
+
+def bert_server(mx, BertServing, ctx, grid, checkpoint=None):
+    """Phase 4's replica: BERT-base from seed 0 (Normal(0.02)) behind a
+    ``ModelServer`` over the ``(batch sizes, lengths)`` grid.  Every
+    replica built so holds the same weights: the FFN and pooler weights
+    take their shapes at the first forward, which runs here, under the
+    seed (one eager forward a replica, counted by :func:`bert_forwards`),
+    not at a warm-up that other replicas' draws may precede."""
+    import numpy as np
+
+    mx.random.seed(0)
+    bert = mx.models.bert_base(use_decoder=False, use_classifier=False)
+    bert.initialize(init=mx.init.Normal(0.02), ctx=ctx)
+    net = BertServing(bert)
+    net(mx.nd.array(np.ones((1, 16), np.int32), ctx=ctx))
+    spec = mx.serve.BucketSpec(batch_sizes=grid[0], example_shape=(None,),
+                               lengths=grid[1], dtype="int32")
+    return mx.serve.ModelServer(net, spec, ctx=ctx, checkpoint=checkpoint)
+
+
+def bert_requests(seed, n, max_len):
+    """``n`` token-id requests of lengths U[16, max_len] (numpy seed)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, 30522, size=int(k)).astype(np.int32)
+            for k in rng.randint(16, max_len + 1, size=n)]
+
+
+def bert_forwards(stats):
+    """Forwards run by the :func:`bert_server` replicas of these
+    ``stats()``: the one at build, each batch, and each bucket's eager
+    warm-up forward and its capture's first replay."""
+    return sum(1 + s["batches"] + 2 * s["warmup_batches"] for s in stats)
+
+
+def max_gap(got, want):
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(g) - np.asarray(w)).max())
+               for g, w in zip(got, want))
+
+
+def settle(futs):
+    """``(results, failures, unclassified)`` of ``futs``: a failure is
+    ``(class, message)``, and it must be classified and name the dispatch
+    attempts or replicas, else it is also in ``unclassified``."""
+    from mxnet_tpu_torch.resilience.supervisor import classify
+
+    results, failures = [], []
+    for f in futs:
+        try:
+            results.append(f.result(timeout=300))
+        except Exception as e:  # noqa: BLE001 - judged below
+            results.append(None)
+            failures.append((classify(e), str(e)))
+    bad = [f for f in failures if f[0] == "fatal" or "replica" not in f[1]]
+    return results, failures, bad
+
+
+def scrape_metrics(port):
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=30).read().decode()
+
+
+def gauge(text, name):
+    """The first sample of ``name`` in a /metrics text (None if absent)."""
+    for line in text.splitlines():
+        if line.startswith((name + "{", name + " ")):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def client_threads(router, reqs, idx, futs, results, threads,
+                   deadline_ms=120_000):
+    """Submit ``reqs[i]`` for ``i`` in ``idx`` from ``threads`` client
+    threads, each waiting for its own; True when every thread ended."""
+    def client(part):
+        for i in part:
+            futs[i] = router.submit(reqs[i], deadline_ms=deadline_ms)
+        for i in part:
+            try:
+                results[i] = futs[i].result(timeout=300)
+            except Exception:  # noqa: BLE001 - settle() judges it
+                pass
+    ts = [threading.Thread(target=client, args=(idx[c::threads],))
+          for c in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    return not any(t.is_alive() for t in ts)
+
+
+def router_bert(mx, card, tmpdir):
+    """Phase 32 (a): a ``Router`` over 3 BERT-base replicas (see the
+    module docstring).  Returns the flash forward's launches and the
+    record printed."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative, resilience, telemetry
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serve import router as rt
+
+    gpu = mx.gpu(0)
+    BertServing = serving_block(mx)
+    mgr = mx.checkpoint.CheckpointManager(os.path.join(tmpdir, "router"))
+    servers, warm_s, inners, hedging = [], [], [], [False]
+
+    def factory(rid):
+        srv = bert_server(mx, BertServing, gpu, SERVE_GRID, checkpoint=mgr)
+        start, submit = srv.start, srv.submit
+
+        def timed_start(*a, **kw):
+            t0 = time.perf_counter()
+            out = start(*a, **kw)
+            warm_s.append(round(time.perf_counter() - t0, 3))
+            return out
+
+        def submit_seen(example, **kw):
+            fut = submit(example, **kw)
+            # the hedged requests' dispatches (not the health probes')
+            if hedging[0] and (kw.get("deadline_ms") or 0) > 5_000:
+                inners.append(fut)
+            return fut
+
+        srv.start, srv.submit = timed_start, submit_seen
+        servers.append(srv)
+        return srv
+
+    reqs = bert_requests(1, ROUTER_REQUESTS, 512)
+    results, futs = [None] * ROUTER_REQUESTS, [None] * ROUTER_REQUESTS
+    checks = {}
+    kernels.reset_counts()
+    rt.reset_router_stats()
+    c0 = _imperative.graph_capture_count()
+    router = mx.serve.Router(
+        factory, ROUTER_REPLICAS, evict_after=2, health_sec=ROUTER_HEALTH_SEC,
+        hedge_ms=ROUTER_HEDGE_MS, tenant_quota=2,
+        retry=resilience.RetryPolicy(max_retries=3, base_delay=0.01,
+                                     max_delay=0.05, seed=7))
+    router.start()
+    metrics = telemetry.MetricsServer(port=0, host="127.0.0.1").start()
+    try:
+        t0 = time.perf_counter()
+        checks["clients_ended"] = client_threads(
+            router, reqs, list(range(ROUTER_HEALTHY_FIRST)), futs, results,
+            ROUTER_THREADS)
+        plan = resilience.parse_plan(json.dumps(ROUTER_PLAN))
+        resilience.install_plan(plan)
+        try:
+            t1 = time.perf_counter()
+            checks["clients_ended"] &= client_threads(
+                router, reqs, list(range(ROUTER_HEALTHY_FIRST,
+                                         ROUTER_REQUESTS)),
+                futs, results, ROUTER_THREADS)
+            t2 = time.perf_counter()
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                s = router.stats()
+                if s["healthy"] == ROUTER_REPLICAS and s["replacements"]:
+                    break
+                time.sleep(0.01)
+        finally:
+            resilience.clear_plan()
+        fired = plan.fired()
+        _, failures, bad = settle(futs)
+        s = router.stats()
+        live = {r.id for r in router.replicas}
+        rec = {"warmup_s": warm_s[:ROUTER_REPLICAS],
+               "spare_warmup_s": warm_s[ROUTER_REPLICAS:],
+               "req_per_s": round(ROUTER_REQUESTS / (t2 - t0), 3),
+               "faulted_req_per_s": round(
+                   (ROUTER_REQUESTS - ROUTER_HEALTHY_FIRST) / (t2 - t1), 3),
+               "recovery_ms": s["last_recovery_ms"],
+               "evictions": s["evictions"],
+               "replacements": s["replacements"], "retries": s["retries"],
+               "probes": s["probes"], "probe_failures": s["probe_failures"],
+               "fired": len(fired),
+               "latency_ms": {k: s["latency"][k]
+                              for k in ("p50_ms", "p99_ms")}}
+        log(f"router (a): 3 BERT-base replicas behind a Router on {card}: "
+            f"{json.dumps(rec)}; plan fired at "
+            f"{sorted({(f['site'], f['ctx'].get('replica')) for f in fired})}"
+            f"; failures {failures}")
+        checks.update({
+            "served": s["served"] == ROUTER_REQUESTS and not failures,
+            "failures_classified": not bad,
+            "plan_fired": any(f["site"] == "serve.replica.submit"
+                              for f in fired)
+            and any(f["action"] == "stall" for f in fired),
+            "evicted_replica_1": s["evictions"] == 1 and 1 not in live,
+            "spare_admitted": s["replacements"] == 1
+            and s["healthy"] == s["pool_size"] == ROUTER_REPLICAS
+            and len(servers) == ROUTER_REPLICAS + 1,
+            # one capture a bucket a server (the spare's while its peers
+            # served): none on a survivor in traffic
+            "captures": _imperative.graph_capture_count() - c0
+            == 9 * len(servers)
+            and all(len(srv._net._cached_op._graphs) == 9
+                    for srv in servers),
+        })
+
+        # hedging: every request with less budget than hedge_ms runs on
+        # two replicas; the first answer wins and the other is cancelled
+        before = router.stats()
+        hedging[0] = True
+        hreqs = bert_requests(32, ROUTER_HEDGE_REQUESTS, 512)
+        hfuts = [router.submit(r, deadline_ms=ROUTER_HEDGE_MS / 2)
+                 for r in hreqs]
+        _, hfail, _ = settle(hfuts)
+        hedging[0] = False
+        deadline = time.monotonic() + 60
+        while (time.monotonic() < deadline
+               and not all(f.done() for f in inners)):
+            time.sleep(0.005)
+        after = router.stats()
+        rec["hedges"] = after["hedges"] - before["hedges"]
+        rec["hedge_wins"] = after["hedge_wins"] - before["hedge_wins"]
+        rec["hedge_losers_cancelled"] = sum(f.cancelled() for f in inners)
+        checks["hedged"] = (not hfail
+                            and rec["hedges"] == ROUTER_HEDGE_REQUESTS
+                            and len(inners) == 2 * ROUTER_HEDGE_REQUESTS
+                            and rec["hedge_losers_cancelled"] >= 1)
+
+        # a tenant over its quota of 2 outstanding requests
+        qfuts = [router.submit(reqs[i], tenant="t") for i in range(2)]
+        try:
+            router.submit(reqs[2], tenant="t")
+            refused = False
+        except mx.serve.TenantQuotaExceededError:
+            refused = True
+        _, qfail, _ = settle(qfuts)
+        checks["quota"] = (refused and not qfail
+                           and router.stats()["rejected_quota"] == 1)
+
+        # every replica holds replica 0's parameters, bit for bit
+        params = [srv._net._collect_params_with_prefix() for srv in servers]
+        old = {k: p.data().detach().clone() for k, p in params[0].items()}
+        checks["replicas_identical"] = all(
+            all(torch.equal(p.data().detach(), old[k]) for k, p in ps.items())
+            for ps in params)
+
+        # a rolling reload under load, to the same weights with the
+        # pooler's bias raised: old and new answers lie far apart
+        new = {k: v.clone() for k, v in old.items()}
+        new["bert.pooler.bias"] += ROUTER_RELOAD_BIAS
+        mgr.save(1, params=new, sync=True)
+        del new
+        rreqs = bert_requests(33, ROUTER_RELOAD_REQUESTS, 512)
+        rfuts = [None] * ROUTER_RELOAD_REQUESTS
+        c1 = _imperative.graph_capture_count()
+
+        def submitter():   # spread over the reload's ~1.5 s
+            for i, r in enumerate(rreqs):
+                rfuts[i] = router.submit(r, deadline_ms=120_000)
+                time.sleep(ROUTER_RELOAD_GAP_S)
+
+        th = threading.Thread(target=submitter)
+        t3 = time.perf_counter()
+        th.start()
+        time.sleep(0.02)
+        metas = router.rolling_reload(timeout=120)
+        th.join(timeout=120)
+        rec["reload_s"] = round(time.perf_counter() - t3, 3)
+        extra = bert_requests(34, 3, 512)
+        rreqs += extra
+        rfuts += [router.submit(r, deadline_ms=120_000) for r in extra]
+        reloaded, rfail, _ = settle(rfuts)
+        router.drain(timeout=120)
+        launches = fa.counts.launches
+        plain = fa.counts.plain_calls_on_cuda
+        stats = [srv.stats() for srv in servers]
+        s = router.stats()
+        page = scrape_metrics(metrics.port)
+    finally:
+        metrics.stop()
+        router.shutdown(drain=False)
+    forwards = bert_forwards(stats)
+    rec.update(launches=launches, forwards=forwards,
+               plain_calls_on_cuda=plain,
+               post_warmup_compiles=[st["graph"]["post_warmup_compiles"]
+                                     for st in stats])
+    checks.update({
+        "requests_lost": s["requests_lost"] == 0,
+        "post_warmup_compiles": all(
+            st["graph"]["post_warmup_compiles"] == 0 for st in stats),
+        "launches": launches == 12 * forwards and plain == 0,
+        "reload_steps": [m["step"] for m in metas] == [1] * ROUTER_REPLICAS
+        and s["reloads"] == ROUTER_REPLICAS,
+        "reload_no_capture": _imperative.graph_capture_count() == c1,
+        "reload_served": not rfail,
+        "metrics": gauge(page, "mxtpu_router_served") == s["served"]
+        and gauge(page, "mxtpu_router_requests_lost") == 0
+        and gauge(page, "mxtpu_ctrl_replicas") is not None,
+    })
+
+    # each reload-period response against two eager card forwards of its
+    # example, under the old and under the new weights: exactly one within
+    # phase 4's limit
+    eager = BertServing(servers[0]._net.bert)   # not hybridized
+    bias = servers[0]._net.bert.pooler.bias.data().data
+
+    def card_forward(ex):
+        return [o.data.cpu().numpy()[0]
+                for o in eager(mx.nd.array(ex[None], ctx=gpu))]
+
+    with torch.no_grad():
+        new_ans = [card_forward(r) for r in rreqs]
+        bias.copy_(old["bert.pooler.bias"])
+        old_ans = [card_forward(r) for r in rreqs]
+    is_old = [max_gap(g, w) <= CPU_ATOL for g, w in zip(reloaded, old_ans)]
+    is_new = [max_gap(g, w) <= CPU_ATOL for g, w in zip(reloaded, new_ans)]
+    rec["reload_old_new"] = (sum(is_old), sum(is_new))
+    rec["reload_old_vs_new_gap"] = round(min(
+        max_gap(a, b) for a, b in zip(old_ans, new_ans)), 4)
+    checks["reload_old_xor_new"] = (all(a != b for a, b in zip(is_old,
+                                                               is_new))
+                                    and is_new[-3:] == [True] * 3)
+
+    # 3 responses of the traffic and 3 of the reload against the CPU
+    cpu_bert = mx.models.bert_base(use_decoder=False, use_classifier=False)
+    cpu_bert.initialize(ctx=mx.cpu())
+    mx.load_numpy_params(cpu_bert, {k.split(".", 1)[1]: v.cpu().numpy()
+                                    for k, v in old.items()})
+    cpu_net = BertServing(cpu_bert)
+
+    def cpu_forward(ex):
+        return [o.asnumpy()[0]
+                for o in cpu_net(mx.nd.array(ex[None], ctx=mx.cpu()))]
+
+    short = [int(i) for i in np.argsort([len(r) for r in reqs])[:3]]
+    cpu_err = [max_gap(results[i], cpu_forward(reqs[i])) for i in short]
+    new_idx = [i for i, n in enumerate(is_new) if n][-3:]
+    cpu_bert.pooler.bias.data().data.add_(ROUTER_RELOAD_BIAS)
+    cpu_err += [max_gap(reloaded[i], cpu_forward(rreqs[i])) for i in new_idx]
+    rec["cpu_max_abs_err"] = round(max(cpu_err), 6)
+    checks["cpu_parity"] = max(cpu_err) <= CPU_ATOL and len(cpu_err) == 6
+    log(f"router (a): hedging, quota, rolling reload and answers: "
+        f"{json.dumps(rec)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"router checks failed: {failed}")
+    return {"launches": launches, "record": rec}
+
+
+def router_decode(mx, card):
+    """Phase 32 (b): a ``Router`` over 2 ``DecodeServer`` replicas at
+    phase 30's configuration; every stream equal to a single server's."""
+    import numpy as np
+
+    gpu = mx.gpu(0)
+    prompts, budgets = decode_traffic()
+    prompts, budgets = prompts[:ROUTER_DECODE_REQUESTS], \
+        budgets[:ROUTER_DECODE_REQUESTS]
+    want, _ = decode_run(mx, decode_model(mx, gpu), gpu, prompts, budgets)
+    spec = mx.serve.BucketSpec(batch_sizes=DEC_BATCHES, example_shape=(None,),
+                               lengths=DEC_LENGTHS, dtype="int32")
+    servers = []
+
+    def factory(rid):
+        srv = mx.serve.DecodeServer(decode_model(mx, gpu), spec,
+                                    max_slots=DEC_SLOTS, max_len=DEC_MAX_LEN,
+                                    max_queue=len(prompts) + 8, ctx=gpu)
+        servers.append(srv)
+        return srv
+
+    router = mx.serve.Router(factory, 2, health_sec=ROUTER_HEALTH_SEC)
+    t0 = time.perf_counter()
+    router.start()
+    try:
+        t1 = time.perf_counter()
+        handles = [router.submit_stream(p, max_new_tokens=m)
+                   for p, m in zip(prompts, budgets)]
+        got = [np.asarray(list(h), np.int32) for h in handles]
+        wall = time.perf_counter() - t1
+        router.drain(timeout=120)
+        s = router.stats()
+    finally:
+        router.shutdown(drain=False)
+    tokens = sum(len(g) for g in got)
+    same = sum(np.array_equal(g, np.asarray(w)) for g, w in zip(got, want))
+    log(f"router (b): 2 DecodeServer replicas (TinyDecoder({DEC_VOCAB}, "
+        f"{DEC_EMBED}), {DEC_SLOTS} slots, max_len {DEC_MAX_LEN}) warmed in "
+        f"{t1 - t0:.2f} s; {len(prompts)} streams, {tokens} tokens in "
+        f"{wall:.3f} s ({len(prompts) / wall:.2f} req/s, "
+        f"{tokens / wall:.1f} tokens/s) on {card}; {same}/{len(prompts)} "
+        f"token for token equal to one server's; dispatched "
+        f"{[srv.stats()['served'] for srv in servers]} a replica, probes "
+        f"{s['probes']}")
+    checks = {"served": s["served"] == len(prompts)
+              and s["requests_lost"] == 0,
+              "streams_equal": same == len(prompts),
+              "both_served": all(srv.stats()["served"] > 0
+                                 for srv in servers),
+              "post_warmup_compiles": all(
+                  srv.stats()["graph"]["post_warmup_compiles"] == 0
+                  for srv in servers)}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"decode router checks failed: {failed}")
+    return {"req_per_s": round(len(prompts) / wall, 3),
+            "tokens_per_s": round(tokens / wall, 1)}
+
+
+def serve_replica_worker(registry, rid):
+    """A replica process of phase 33 (``chip_smoke.py --serve-replica-worker
+    REGISTRY ID``, spawned by the control plane): phase 32's BERT-base
+    replica over ``CTRL_GRID``, warmed up, then registered; on SIGTERM it
+    prints its flash launches and its server's counts as one JSON line."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serve.control_plane import serve_replica
+
+    if not torch.cuda.is_available():
+        print("serve replica worker: no CUDA device is visible",
+              file=sys.stderr, flush=True)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    srv = bert_server(mx, serving_block(mx), mx.gpu(0), CTRL_GRID)
+    srv.start()
+    warm_s = time.perf_counter() - t0
+    captures = _imperative.graph_capture_count()
+    endpoint = serve_replica(srv, registry_dir=registry, replica_id=rid)
+    print(json.dumps({"event": "registered", "replica": rid,
+                      "pid": os.getpid(), "warmup_s": round(warm_s, 3),
+                      "captures": captures}), flush=True)
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    done.wait()
+    endpoint.stop()
+    srv.shutdown(drain=False, timeout=10.0)
+    st = srv.stats()
+    print(json.dumps({"event": "stopped", "replica": rid,
+                      "flash_launches": fa.counts.launches,
+                      "plain_calls_on_cuda": fa.counts.plain_calls_on_cuda,
+                      "captures": _imperative.graph_capture_count(),
+                      "batches": st["batches"],
+                      "warmup_batches": st["warmup_batches"],
+                      "served": st["served"],
+                      "post_warmup_compiles":
+                          st["graph"]["post_warmup_compiles"]}), flush=True)
+    return 0
+
+
+def worker_events(registry):
+    """``{replica: {event: record}}`` from the workers' logs."""
+    out = {}
+    for log_path in sorted(Path(registry).glob("replica-*.log")):
+        for line in log_path.read_text(errors="replace").splitlines():
+            if line.startswith('{"event"'):
+                ev = json.loads(line)
+                out.setdefault(str(ev["replica"]), {})[ev["event"]] = ev
+    return out
+
+
+def control_plane_first_worker(mx, tmpdir):
+    """Phase 33's ``ControlPlane``, built on a thread of its own: the
+    router's factory spawns the first worker as it is built, and a spawn
+    (~10 s: the worker's interpreter, torch and CUDA start-up, then its
+    warm-up) overlaps phase 32.  Returns a record that receives the plane,
+    or the error, and the seconds to the first warm worker."""
+    from mxnet_tpu_torch import base, resilience
+    from mxnet_tpu_torch.serve import control_plane as cp
+
+    registry = os.path.join(tmpdir, "registry")
+    env = dict(os.environ, MXTPU_CTRL_LEASE_SEC=str(CTRL_LEASE_SEC))
+    knobs = {"CTRL_COOLDOWN_SEC": CTRL_COOLDOWN_SEC,
+             "CTRL_LEASE_SEC": CTRL_LEASE_SEC}
+    first = {"registry": registry, "plane": None,
+             "saved": {k: base.getenv(k) for k in knobs}}
+    for k, v in knobs.items():
+        base.setenv(k, v)
+    cp.reset_ctrl_stats()
+
+    def argv(rid):
+        return [sys.executable, str(ROOT / "chip_smoke.py"),
+                "--serve-replica-worker", registry, str(rid)]
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            first["plane"] = cp.ControlPlane(
+                argv, registry, 1, capacity_hint=CTRL_CAPACITY,
+                spawn_env=env, spawn_timeout=300,
+                health_sec=CTRL_HEALTH_SEC, evict_after=2,
+                retry=resilience.RetryPolicy(max_retries=4, base_delay=0.01,
+                                             max_delay=0.1, seed=7))
+        except BaseException as e:  # noqa: BLE001 - raised by phase 33
+            first["error"] = e
+        first["first_worker_s"] = round(time.perf_counter() - t0, 3)
+
+    first["thread"] = threading.Thread(target=build, daemon=True)
+    first["thread"].start()
+    return first
+
+
+def control_plane_stop(first):
+    """Stop phase 33's plane and its workers, and restore its knobs; safe
+    to call again, and after a failure anywhere."""
+    from mxnet_tpu_torch import base
+
+    first["thread"].join(timeout=600)
+    if first["plane"] is not None:
+        first["plane"].shutdown(drain=False, timeout=10)
+    for k, v in first["saved"].items():
+        base.setenv(k, v)
+
+
+def control_plane_bert(mx, card, first):
+    """Phase 33: a ``ControlPlane`` of BERT-base worker processes driven by
+    an ``Autoscaler`` (see the module docstring), from the plane that
+    :func:`control_plane_first_worker` started.  Returns the flash
+    forward's launches in the workers that stopped cleanly."""
+    import numpy as np
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import control_plane as cp
+
+    gpu = mx.gpu(0)
+    registry = first["registry"]
+    checks, rec = {}, {}
+    plane = scaler = None
+    metrics = telemetry.MetricsServer(port=0, host="127.0.0.1").start()
+    stop, futs, lock = threading.Event(), [], threading.Lock()
+    gens = []
+
+    def generator(seed):
+        rng = np.random.RandomState(seed)
+        while not stop.is_set():
+            ex = rng.randint(1, 30522, size=int(rng.randint(16, 257))) \
+                .astype(np.int32)
+            fut = plane.submit(ex, deadline_ms=120_000)
+            with lock:
+                futs.append(fut)
+            try:
+                fut.result(timeout=300)
+            except Exception:  # noqa: BLE001 - settle() judges it
+                pass
+
+    def load(n):
+        for _ in range(n):
+            t = threading.Thread(target=generator, args=(100 + len(gens),),
+                                 daemon=True)
+            t.start()
+            gens.append(t)
+
+    def wait_for(pred, timeout):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return True
+            time.sleep(0.05)
+        return pred()
+
+    t_phase = time.perf_counter()
+    try:
+        first["thread"].join(timeout=600)
+        if "error" in first:
+            raise first["error"]
+        plane = first["plane"]
+        plane.start()
+        rec["first_worker_s"] = first["first_worker_s"]
+        scaler = cp.Autoscaler(plane, min_replicas=1, max_replicas=2,
+                               up_ticks=2, down_ticks=3,
+                               tick_sec=CTRL_TICK_SEC)
+
+        # 4 single requests through a RemoteReplica against an in-process
+        # replica of the same weights and grid, bit for bit
+        local = bert_server(mx, serving_block(mx), gpu, CTRL_GRID).start()
+        remote = plane.router.replicas[0].server
+        same = []
+        for ex in bert_requests(35, 4, 256):
+            got = remote.submit(ex).result(timeout=300)
+            want = local.predict(ex, timeout=300)
+            same.append(all(np.array_equal(g, w) for g, w in zip(got, want)))
+        local.shutdown()
+        del local
+        checks["remote_bit_identical"] = all(same) and len(same) == 4
+
+        # offered load raised until the autoscaler grows the pool to 2
+        scaler.start()
+        load(1)
+        time.sleep(4 * CTRL_TICK_SEC)
+        low_replicas = plane.replica_count()
+        t1 = time.perf_counter()
+        load(CTRL_LOAD_THREADS - 1)
+        checks["scaled_up"] = low_replicas == 1 and wait_for(
+            lambda: plane.healthy_count() == 2, 300)
+        rec["scale_up_s"] = round(time.perf_counter() - t1, 3)
+
+        # SIGKILL the worker carrying the most dispatches, mid-burst
+        victim = None
+        deadline = time.monotonic() + 30
+        while victim is None and time.monotonic() < deadline:
+            carrying = [r.server for r in plane.router.replicas
+                        if r.server._pending]
+            if carrying:
+                victim = max(carrying, key=lambda rr: len(rr._pending))
+            time.sleep(0.001)
+        checks["victim_carrying"] = victim is not None
+        victim = victim or plane.router.replicas[-1].server
+        rec["killed"] = {"replica": victim.rid, "pid": victim.process.pid,
+                         "in_flight": len(victim._pending)}
+        t_kill = time.perf_counter()
+        victim.process.kill()
+        # polled without stats(), whose replica gauges are round trips
+        checks["healed"] = wait_for(
+            lambda: plane.router.last_recovery_ms is not None
+            and plane.healthy_count() == 2, 300)
+        rec["kill_to_rejoin_s"] = round(time.perf_counter() - t_kill, 3)
+        s = plane.stats()
+        rec["recovery_ms"] = s["last_recovery_ms"]
+        rec["evictions"] = s["evictions"]
+
+        # load drops until the pool drains back to one worker
+        stop.set()
+        for t in gens:
+            t.join(timeout=300)
+        t2 = time.perf_counter()
+        checks["drained"] = wait_for(lambda: plane.healthy_count() == 1,
+                                     120)
+        rec["drain_s"] = round(time.perf_counter() - t2, 3)
+        scaler.stop()
+        served_s = time.perf_counter() - t1
+        _, failures, bad = settle(futs)
+        s = plane.stats()
+        live = [r.server.stats() for r in plane.router.replicas]
+        ctrl = cp.ctrl_stats()
+        page = scrape_metrics(metrics.port)
+        rec.update(requests=len(futs), served=s["served"],
+                   req_per_s=round(s["served"] / served_s, 3),
+                   retries=s["retries"], failures=failures,
+                   latency_ms={k: s["latency"][k]
+                               for k in ("p50_ms", "p99_ms")},
+                   ctrl={k: ctrl[k] for k in (
+                       "spawns", "spawn_failures", "scale_ups",
+                       "scale_downs", "retired")})
+    finally:
+        stop.set()
+        if scaler is not None:
+            scaler.stop()
+        metrics.stop()
+        if plane is not None:
+            plane.shutdown(drain=True, timeout=60)
+    events = worker_events(registry)
+    stopped = [ev["stopped"] for ev in events.values() if "stopped" in ev]
+    registered = [ev["registered"] for ev in events.values()]
+    launches = sum(ev["flash_launches"] for ev in stopped)
+    rec.update(worker_warmup_s=[ev["warmup_s"] for ev in registered],
+               worker_launches={ev["replica"]: ev["flash_launches"]
+                                for ev in stopped},
+               phase_s=round(time.perf_counter() - t_phase, 3))
+    log(f"control plane: BERT-base workers over {CTRL_GRID} on {card}: "
+        f"{json.dumps(rec)}")
+    checks.update({
+        "served": s["served"] == len(futs) and not failures,
+        "failures_classified": not bad,
+        "requests_lost": s["requests_lost"] == 0,
+        "network_redispatch": s["retries"] >= 1,
+        "corpse_evicted": s["evictions"] >= 1 and s["replacements"] >= 1
+        and victim.rid not in {r.id for r in plane.router.replicas},
+        "spawns": ctrl["spawns"] == 3 and ctrl["spawn_failures"] == 0,
+        "scaled": ctrl["scale_ups"] == 1 and ctrl["scale_downs"] >= 1
+        and ctrl["retired"] >= 1,
+        "ctrl_gauges": gauge(page, "mxtpu_ctrl_spawns") == ctrl["spawns"]
+        and gauge(page, "mxtpu_ctrl_scale_ups") == ctrl["scale_ups"]
+        and gauge(page, "mxtpu_ctrl_retired") == ctrl["retired"],
+        "no_traffic_capture": all(st["graph"]["post_warmup_compiles"] == 0
+                                  for st in live)
+        and all(ev["captures"] == events[str(ev["replica"])]["registered"][
+            "captures"] and ev["post_warmup_compiles"] == 0
+            for ev in stopped),
+        # every worker but the killed one stopped cleanly and counted its
+        # launches: 12 a forward
+        "worker_launches": len(stopped) == len(registered) - 1 >= 2
+        and all(ev["flash_launches"] == 12 * bert_forwards([ev])
+                and ev["plain_calls_on_cuda"] == 0 for ev in stopped),
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"control plane checks failed: {failed}")
+    return {"launches": launches, "record": rec}
+
+
 def main():
     import torch
 
@@ -7525,7 +8298,13 @@ def main():
                     default=None,
                     help="run one rank of phases 21 (resnet) and 22 "
                     "(bert), comma-separated; the launcher does")
+    ap.add_argument("--serve-replica-worker", metavar=("REGISTRY", "ID"),
+                    nargs=2, default=None,
+                    help="run one replica worker of phase 33 (the control "
+                    "plane spawns it)")
     args = ap.parse_args()
+    if args.serve_replica_worker is not None:
+        return serve_replica_worker(*args.serve_replica_worker)
     if args.bert_ranks_worker is not None:
         return bert_ranks_worker(args.bert_ranks_worker)
     if args.mesh_worker is not None:
@@ -7656,6 +8435,18 @@ def main():
               dbudgets)
     del dmodel
     lap("31 tuner")
+    with tempfile.TemporaryDirectory(prefix="router-smoke-", dir=ROOT) as d:
+        first = control_plane_first_worker(mx, d)   # spawns beside 32
+        try:
+            routed = router_bert(mx, card, d)
+            router_decode(mx, card)
+            torch.cuda.empty_cache()
+            lap("32 router (phase 33's first spawn beside it)")
+            ctrl = control_plane_bert(mx, card, first)
+        finally:
+            control_plane_stop(first)
+    torch.cuda.empty_cache()
+    lap("33 control plane")
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
@@ -7672,6 +8463,8 @@ def main():
                    "resilience_serve": res_launches["resilience_bert_serve"][
                        "flash_attention_fwd"],
                    "int8_serve": int8["launches"],
+                   "router_serve": routed["launches"],
+                   "ctrl_workers": ctrl["launches"],
                    "train": train["flash_attention_fwd"],
                    "transformer_train": tfm_train["flash_attention_fwd"],
                    "transformer_decode": tfm_decode,

@@ -56,8 +56,10 @@ Capturing a step with collectives inside it is piece 4 of slice 7, part
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import logging
+import threading
 import warnings
 
 import torch
@@ -136,6 +138,31 @@ def _release_generators(gens):
 #: the capture for such a call on any thread.
 CAPTURE_MODE = "thread_local"
 
+_collector_lock = threading.Lock()
+_collector_holders = 0      # captures open in the process
+_collector_was_on = False   # the collector's state when the first began
+
+
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic collector off for the body, process-wide and
+    counted: the first of overlapping holders (captures on several
+    threads) turns it off, and the last to leave turns it back on, and
+    only if it was on when the first began."""
+    global _collector_holders, _collector_was_on
+    with _collector_lock:
+        if _collector_holders == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _collector_holders += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector_holders -= 1
+            if _collector_holders == 0 and _collector_was_on:
+                gc.enable()
+
 
 class CapturedStep:
     """One step body captured in a CUDA graph, with its static inputs.
@@ -153,7 +180,9 @@ class CapturedStep:
     dead graphs wait for a collection; torch no longer collects before a
     capture, and a collection inside one would destroy those graphs in
     the capturing thread, which invalidates the capture
-    (``cudaErrorStreamCaptureInvalidated``)."""
+    (``cudaErrorStreamCaptureInvalidated``).  Captures on several threads
+    take turns (``random.capture_lock``); other threads' launches and
+    replays go on meanwhile."""
 
     def __init__(self, body, static, device, pool=None):
         self.static = list(static)
@@ -161,20 +190,17 @@ class CapturedStep:
         gens = _random.default_pool.generators(device)
         for gen in gens:
             self.graph.register_generator_state(gen)
-        launches = CapturedLaunches()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode=CAPTURE_MODE):
-                self.out = body(*self.static)
-        except BaseException:
-            _release_generators(gens)
-            raise
-        finally:
-            if collecting:
-                gc.enable()
-            self.launches = launches.finish()
+        with _random.capture_lock, collector_off():
+            launches = CapturedLaunches()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      capture_error_mode=CAPTURE_MODE):
+                    self.out = body(*self.static)
+            except BaseException:
+                _release_generators(gens)
+                raise
+            finally:
+                self.launches = launches.finish()
         _imperative.count("graphs_captured")
 
     def replay(self, values):

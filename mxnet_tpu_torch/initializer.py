@@ -39,7 +39,7 @@ class Initializer:
         self._kwargs = kwargs
 
     def __call__(self, name, arr):
-        with torch.no_grad():
+        with torch.no_grad(), _random.capture_lock:
             self.init_array(name, arr)
 
     def init_array(self, name, arr):

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 from ...base import MXNetError
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -111,8 +113,19 @@ class KernelLibrary:
                              f"(cudaError {err})")
 
 
-#: every KernelCounts of the process, in the order they were made
-_ALL_COUNTS = []
+#: the launches booked to the capture open in the process, or None.  Torch
+#: runs one capture at a time in a process (``gluon/whole_step.py``
+#: serializes them).
+_open_book = None
+_book_lock = threading.Lock()
+
+
+def launch_is_captured():
+    """Whether a launch enqueued now, on this thread's current CUDA stream,
+    is recorded by the open capture: the capturing thread's launches, and
+    those of the autograd engine's device thread running the captured
+    backward on the capture stream, but no other thread's."""
+    return torch.cuda.is_current_stream_capturing()
 
 
 class KernelCounts:
@@ -125,16 +138,25 @@ class KernelCounts:
     a wrapper's launches on one of its routes.
 
     A CUDA graph's replay launches its kernels without running the
-    wrappers: :class:`CapturedLaunches` takes what the counters gained
-    while a graph was captured and adds it again at each replay."""
+    wrappers.  While a graph is captured (:class:`CapturedLaunches`), what
+    the wrappers add on the capture stream is booked to that capture
+    instead of the counters, and each replay of the graph adds it.  Other
+    threads' launches and replays during the capture reach the counters as
+    usual."""
 
     def __init__(self, *extra):
         self._lock = threading.Lock()
         self._names = ("launches", "plain_calls_on_cuda", *extra)
         self.reset()
-        _ALL_COUNTS.append(self)
 
     def add(self, *names):
+        book = _open_book
+        if book is not None and launch_is_captured():
+            with _book_lock:
+                mine = book.setdefault(self, {})
+                for name in names:
+                    mine[name] = mine.get(name, 0) + 1
+            return
         with self._lock:
             for name in names:
                 setattr(self, name, getattr(self, name) + 1)
@@ -149,33 +171,33 @@ class KernelCounts:
         with self._lock:
             return {name: getattr(self, name) for name in self._names}
 
-    def shift(self, delta, sign=1):
-        """Add ``sign`` times ``delta`` (``{counter: n}``) to the counters."""
+    def shift(self, delta):
+        """Add ``delta`` (``{counter: n}``) to the counters."""
         with self._lock:
             for name, n in delta.items():
-                setattr(self, name, getattr(self, name) + sign * n)
+                setattr(self, name, getattr(self, name) + n)
 
 
 class CapturedLaunches:
-    """What every :class:`KernelCounts` gained while a CUDA graph was
-    captured.  The capture records launches without running them, so
-    :meth:`finish` takes the gain back out of the counters, and
-    :meth:`replay` adds it once per replay of the graph."""
+    """The launches a CUDA graph's capture records.  The capture records
+    launches without running them, so from construction to :meth:`finish`
+    the wrappers' launches on the capture stream are booked here, not in
+    the counters; :meth:`replay` adds them once per replay of the graph.
+    Launches and replays on other streams in the meantime go to the
+    counters."""
 
     def __init__(self):
-        self._before = [(c, c.snapshot()) for c in _ALL_COUNTS]
+        global _open_book
+        self._outer = _open_book
+        self._book = _open_book = {}
         self.delta = []
 
     def finish(self):
-        """Compute the gain since construction and take it back out."""
-        for counts, before in self._before:
-            now = counts.snapshot()
-            gain = {k: now[k] - before.get(k, 0) for k in now
-                    if now[k] != before.get(k, 0)}
-            if gain:
-                counts.shift(gain, -1)
-                self.delta.append((counts, gain))
-        self._before = None
+        """Close the book; ``delta`` is ``[(counts, {counter: n})]``."""
+        global _open_book
+        _open_book = self._outer
+        self.delta = list(self._book.items())
+        self._book = None
         return self
 
     def replay(self):

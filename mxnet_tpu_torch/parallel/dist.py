@@ -31,15 +31,20 @@ and each collective's work is waited on with it.  A timeout or a
 transport error that a dead peer causes raises :class:`MXNetError` with
 the peer-death message.
 
-Elastic resizing (``reinit``, ``shrink``, ``LeaseDir``) comes with slice
-7, part 3, and raises naming it.  :func:`world_mesh` is the
+Elastic resizing (``reinit``, ``shrink``) comes with slice 7, part 3,
+and raises naming it.  Its lease directory, :class:`LeaseDir`, is here:
+the serving control plane's replica registry rides it
+(``serve/control_plane/rpc.py``).  :func:`world_mesh` is the
 ``{"dp": world size}`` mesh over the ranks (``parallel.mesh``).
 """
 from __future__ import annotations
 
 import datetime
+import json
 import logging
 import os
+import re
+import time
 
 import torch
 
@@ -297,7 +302,97 @@ def _shrink_multiprocess(*args, **kwargs):
 
 
 class LeaseDir:
-    """The elastic rendezvous's lease directory (ref: dist.py LeaseDir)."""
+    """A shared-storage lease directory (ref: ``mxnet_tpu/parallel/
+    dist.py:LeaseDir``): the rendezvous freshness primitive, which the
+    serving control plane's replica registry uses.
 
-    def __init__(self, *args, **kwargs):
-        raise _later("LeaseDir (the elastic rendezvous)", 3)
+    Each participant repeatedly :meth:`publish`\\ es its own JSON marker
+    (``<prefix>-<key>.json``, committed by ``checkpoint.atomic``'s temp
+    file and rename); a marker counts in :meth:`fresh` while it is younger
+    than ``lease_sec``, measured against the reader's own just-refreshed
+    mtime.  The shared storage stamps both sides, so clock skew cancels
+    and a dead participant's markers age out."""
+
+    def __init__(self, root, prefix="rank", lease_sec=10.0):
+        self.root = os.fspath(root)
+        self.prefix = str(prefix)
+        self.lease_sec = float(lease_sec)
+        self._rx = re.compile(rf"^{re.escape(self.prefix)}-(.+)\.json$")
+        self._own_path = None
+        os.makedirs(self.root, exist_ok=True)
+
+    def path_for(self, key):
+        return os.path.join(self.root, f"{self.prefix}-{key}.json")
+
+    def publish(self, key, payload):
+        """(Re)write this participant's marker; returns its mtime (the
+        freshness reference a same-poll :meth:`fresh` should use)."""
+        from ..checkpoint import atomic as _atomic
+
+        p = self.path_for(key)
+        _atomic.write_json(p, payload)
+        self._own_path = p
+        try:
+            return os.path.getmtime(p)
+        except OSError:   # lost a race with cleanup
+            return time.time()
+
+    def ref_mtime(self):
+        """The freshness reference: the own marker's mtime once published;
+        a pure reader touches a throwaway probe file instead, for the
+        shared storage's clock rather than its own."""
+        if self._own_path is not None:
+            try:
+                return os.path.getmtime(self._own_path)
+            except OSError:
+                pass
+        probe = os.path.join(self.root, f".lease-probe-{os.getpid()}")
+        try:
+            with open(probe, "w"):
+                pass
+            ref = os.path.getmtime(probe)
+            os.unlink(probe)
+            return ref
+        except OSError:
+            return time.time()
+
+    def fresh(self, ref=None):
+        """``{key: payload}`` of every marker younger than the lease
+        window; stale and unparseable (mid-write) markers are skipped."""
+        if ref is None:
+            ref = self.ref_mtime()
+        out = {}
+        try:
+            names = sorted(os.listdir(self.root))
+        except OSError:
+            return out
+        for name in names:
+            m = self._rx.match(name)
+            if not m:
+                continue
+            p = os.path.join(self.root, name)
+            try:
+                if ref - os.path.getmtime(p) > self.lease_sec:
+                    continue
+                with open(p) as f:
+                    out[m.group(1)] = json.load(f)
+            except (OSError, ValueError):
+                continue
+        return out
+
+    def retire(self, key):
+        """Drop a marker (an own graceful exit, or a dead peer's)."""
+        try:
+            os.unlink(self.path_for(key))
+        except OSError:
+            pass
+
+    def clear(self):
+        """Drop every marker and, if it is then empty, the directory."""
+        try:
+            for name in os.listdir(self.root):
+                if self._rx.match(name):
+                    os.unlink(os.path.join(self.root, name))
+            os.rmdir(self.root)
+        except OSError:
+            pass

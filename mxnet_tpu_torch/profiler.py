@@ -395,8 +395,7 @@ def _telemetry_counters(reset=False):
 # dumps()/the aggregate table is one (provider, table renderer) entry
 # here; both output paths iterate it, so each forwards ``reset`` the
 # same way.  A provider looks its tier up in sys.modules and returns
-# None while that tier is not loaded (the port has no router or control
-# plane yet: slice 5, part 2).
+# None while that tier is not loaded.
 
 
 _sections = []   # [(name, provider, table_fn)] in registration order

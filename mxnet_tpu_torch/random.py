@@ -120,6 +120,18 @@ class GeneratorPool:
 
 _log = logging.getLogger("mxnet_tpu_torch.random")
 
+#: Torch runs one CUDA graph capture at a time in a process; a capture
+#: registers every generator of its device, and torch fails a draw made
+#: outside the capture on a generator one holds ("Offset increment outside
+#: graph capture encountered unexpectedly"); and a device-wide
+#: synchronisation on another thread during a capture fails and
+#: invalidates it.  So captures (``gluon/whole_step.py:CapturedStep``),
+#: parameter initializations (``initializer.py``) and servers' warm-ups
+#: (``serve/server.py``, ``serve/decode.py``: they synchronise the device)
+#: take turns under this lock: a router's warm spare and a scale-up warm up
+#: one after the other.
+capture_lock = threading.RLock()
+
 #: the process-wide pool behind :func:`seed` and :func:`generator`
 default_pool = GeneratorPool()
 

@@ -40,13 +40,8 @@ Fault-point catalog (site -> where it fires -> ctx keys):
                           worker process is forked
 ========================  =====================================  ==========
 
-The port calls the sites of the tiers it has: ``train.step``,
-``kvstore.pushpull``, ``dist.allreduce``, ``dist.barrier``,
-``engine.h2d``, ``engine.d2h``, ``checkpoint.commit``,
-``checkpoint.reshard``, ``pipeline.map`` and ``serve.decode``.
-``dist.rendezvous`` comes with the elastic resize (slice 7, part 3) and
-the router's and the control plane's ``serve.*`` sites with slice 5,
-part 2.
+The port calls every site but ``dist.rendezvous``, which comes with the
+elastic resize (slice 7, part 3).
 
 Actions:
 

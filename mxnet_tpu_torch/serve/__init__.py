@@ -14,7 +14,12 @@ continuous-batching decode::
     with serve.DecodeServer(model, dspec, max_slots=16, max_len=96) as dec:
         tokens = dec.generate(prompt, max_new_tokens=32)
 
-The router and the control plane come with slice 5, part 2 of the port.
+    factory = lambda rid: serve.ModelServer(make_net(), spec)
+    with serve.Router(factory, 3, evict_after=2) as router:
+        result = router.submit(token_ids, deadline_ms=500).result()
+
+``serve.ControlPlane`` fronts replicas in worker processes with the same
+router (``serve/control_plane/``).
 """
 from .batcher import (Batcher, DeadlineExceededError,  # noqa: F401
                       ServerClosedError, ServerOverloadedError)
@@ -23,5 +28,12 @@ from .decode import (DecodeHandle, DecodeServer,  # noqa: F401
                      TinyDecoder, TinyDraft)
 from .paging import (PageAllocator, PrefixIndex,  # noqa: F401
                      chunk_keys, pages_spanned)
+from .router import (NoHealthyReplicaError, PooledStreamHandle,  # noqa: F401
+                     Replica, ReplicaPool, Router,
+                     TenantQuotaExceededError)
 from .server import ModelServer  # noqa: F401
 from .stats import LatencyWindow, ServerStats  # noqa: F401
+from .control_plane import (Autoscaler, ControlPlane,  # noqa: F401,E402
+                            RPCConnectionError, RemoteReplica,
+                            ReplicaEndpoint, ReplicaProcess,
+                            ReplicaSpawnError, serve_replica)

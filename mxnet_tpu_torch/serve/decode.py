@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from .. import engine, profiler
+from .. import random as _random
 from ..base import MXNetError, getenv
 from ..context import current_context
 from ..gluon.block import Block, CachedStepOp
@@ -598,8 +599,8 @@ class DecodeServer:
         if self._cache is None:
             if self._device.type == "cuda":
                 self._stream = torch.cuda.Stream(self._device)
-            with self._on_stream():
-                self._warmup()
+            with _random.capture_lock, self._on_stream():
+                self._warmup()   # one warm-up at a time
         self._warmup_compiles = self._graph_stats_raw()["compiles"]
         self._started = True
         self._closing = False

@@ -50,6 +50,7 @@ from concurrent.futures import TimeoutError as _FutureTimeout
 import numpy as np
 
 from .. import profiler
+from .. import random as _random
 from ..base import MXNetError, getenv
 from ..telemetry import tracer as _tracer
 from ..ndarray.ndarray import NDArray, array as _nd_array
@@ -141,7 +142,8 @@ class ModelServer:
                 not getattr(self._net, "_active", False):
             self._net.hybridize()
         if warmup:
-            self._warmup()
+            with _random.capture_lock:   # one warm-up at a time
+                self._warmup()
         self._warmup_compiles = self._graph_stats().get("compiles", 0)
         self._started = True
         self._closing = False
@@ -411,6 +413,19 @@ class ModelServer:
         return {"step": meta["step"], "epoch": meta.get("epoch")}
 
     # -- observability ------------------------------------------------------
+
+    def pending(self):
+        """Live load gauge for the router's least-loaded dispatch: queued
+        plus in-flight requests (ref: ``mxnet_tpu/serve/server.py:440``)."""
+        with self._if_lock:
+            in_flight = self._in_flight
+        return len(self._batcher) + in_flight
+
+    def probe_example(self):
+        """A minimal valid request (the smallest bucket's shape, pad
+        values): the router's health-probe payload."""
+        shape = self._spec.bucket_shapes()[0][1:]
+        return np.full(shape, self._spec.pad_value, dtype=self._spec.dtype)
 
     def _graph_stats(self):
         op = getattr(self._net, "_cached_op", None)

@@ -390,12 +390,67 @@ def register_server(server, registry=None):
 def register_router(router, registry=None):
     """Export a ``serve.Router``'s ``stats()`` under
     ``mxtpu_router_*{router="<id>"}`` (ref: ``mxnet_tpu/telemetry/
-    metrics.py:392``): the router comes with slice 5, part 2 of the
-    port."""
-    raise MXNetError(
-        "telemetry.register_router: serve.Router is not ported yet; it "
-        "comes with slice 5, part 2 of the port (the router and the "
-        "control plane)")
+    metrics.py:392``): weakly held, gauges throughout
+    (``stats(reset=True)`` rewinds the window), as
+    :func:`register_server`.  Per-replica health and attribution are
+    ``{replica=}``-labelled samples, so a dashboard can watch one sick
+    replica get evicted and its warm replacement join."""
+    from ..serve.router import ROUTER_COUNTERS
+
+    reg = registry or _default
+    ref = weakref.ref(router)
+    sid = str(next(_server_ids))
+
+    def _collect():
+        r = ref()
+        if r is None:
+            reg.unregister_collector(_collect)
+            return []
+        snap = r.stats()
+        lab = {"router": sid}
+        fams = []
+        for k in ROUTER_COUNTERS:
+            fams.append((f"mxtpu_router_{k}", "gauge",
+                         f"router {k} (current accounting window)",
+                         [(lab, float(snap.get(k, 0)))]))
+        for k in ("requests_lost", "pool_size", "healthy",
+                  "queue_depth", "in_flight"):
+            fams.append((f"mxtpu_router_{k}", "gauge", f"router {k}",
+                         [(lab, float(snap.get(k) or 0))]))
+        if snap.get("last_recovery_ms") is not None:
+            fams.append(("mxtpu_router_last_recovery_ms", "gauge",
+                         "eviction -> warm replacement admitted, ms",
+                         [(lab, float(snap["last_recovery_ms"]))]))
+        reps = snap.get("replicas") or {}
+        if reps:
+            fams.append(("mxtpu_router_replica_healthy", "gauge",
+                         "1 = replica in rotation",
+                         [(dict(lab, replica=str(i)),
+                           1.0 if info["state"] == "healthy" else 0.0)
+                          for i, info in sorted(reps.items())]))
+            fams.append(("mxtpu_router_replica_pending", "gauge",
+                         "queued + in-flight requests per replica",
+                         [(dict(lab, replica=str(i)),
+                           float(info["pending"]))
+                          for i, info in sorted(reps.items())]))
+            fams.append(("mxtpu_router_replica_ewma_ms", "gauge",
+                         "EWMA service time per replica, ms",
+                         [(dict(lab, replica=str(i)),
+                           float(info["ewma_ms"]))
+                          for i, info in sorted(reps.items())]))
+        hist = (snap.get("latency") or {}).get("histogram")
+        if hist:
+            fams.append(("mxtpu_router_latency_ms", "histogram",
+                         "request latency through the pool (submit to "
+                         "resolve, re-dispatches included)",
+                         [(lab, {"buckets": [(b, c) for b, c in
+                                             hist["buckets"]],
+                                 "sum": hist["sum_ms"],
+                                 "count": hist["count"]})]))
+        return fams
+
+    reg.register_collector(_collect)
+    return _collect
 
 
 def register_decode_server(server, registry=None):

@@ -268,7 +268,9 @@ def test_what_later_slices_bring_raises_naming_them():
     with pytest.raises(MXNetError, match="no optimizer"):
         kv.save_optimizer_states("unused")
     from mxnet_tpu_torch.parallel import dist
-    for call in (dist.reinit, dist.shrink, dist.LeaseDir):
+    # elastic resizing comes with slice 7, part 3 (its LeaseDir is ported:
+    # the control plane's registry, tests/test_torch_control_plane.py)
+    for call in (dist.reinit, dist.shrink, dist._shrink_multiprocess):
         with pytest.raises(MXNetError, match="slice 7, part 3"):
             call()
 

@@ -66,8 +66,12 @@ def test_section_registry_and_keys_match_the_jax_profiler():
     for name in ("decodeServe", "quantize", "tune"):
         if name in got and name in want:
             assert set(got[name]) == set(want[name]), name
-    # tiers the port does not have yet stay out of the dump
-    assert not {"router", "ctrl"} & set(got)
+    # the router and the control plane (slice 5, part 2), loaded in both
+    import mxnet_tpu.serve.control_plane  # noqa: F401
+    import mxnet_tpu_torch.serve.control_plane  # noqa: F401
+    got, want = tprof.sections(), jprof.sections()
+    for name in ("router", "ctrl"):
+        assert set(got[name]) == set(want[name]), name
 
 
 def _jhealth():

@@ -234,14 +234,42 @@ def test_register_server_exports_the_jax_gauges():
     got = _server_text(tmetrics, server)
     assert got == _server_text(_jtel().metrics, server)
     assert 'mxtpu_serve_served{server="N"} 4' in got
-    with pytest.raises(MXNetError, match="slice 5, part 2"):
-        tmetrics.register_router(object())
+    # the router's export (slice 5, part 2) is the JAX package's
+    router = _FakeRouter()
+    got = _router_text(tmetrics, router)
+    assert got == _router_text(_jtel().metrics, router)
+    assert 'mxtpu_router_served{router="N"} 7' in got
+    assert 'mxtpu_router_replica_healthy{replica="3",router="N"} 1' in got
     # the decode server's export (slice 5, part 1) is the JAX package's
     decode = _FakeDecodeServer()
     got = _decode_text(tmetrics, decode)
     assert got == _decode_text(_jtel().metrics, decode)
     assert 'mxtpu_decode_tokens{server="N"} 9' in got
     assert 'mxtpu_decode_spec_accept_rate{server="N"} 0.5' in got
+
+
+class _FakeRouter:
+    def stats(self):
+        hist = {"buckets": [(1.0, 2), (float("inf"), 7)], "sum_ms": 40.0,
+                "count": 7}
+        return {"submitted": 9, "served": 7, "failed": 1,
+                "rejected_quota": 1, "dispatched": 11, "retries": 2,
+                "evictions": 1, "replacements": 1, "requests_lost": 0,
+                "pool_size": 2, "healthy": 2, "queue_depth": 1,
+                "in_flight": 1, "last_recovery_ms": 812.5,
+                "latency": {"histogram": hist},
+                "replicas": {0: {"state": "healthy", "pending": 1,
+                                 "ewma_ms": 3.25},
+                             3: {"state": "healthy", "pending": 0,
+                                 "ewma_ms": 4.0}}}
+
+
+def _router_text(metrics, router):
+    import re
+
+    reg = metrics.Registry()
+    metrics.register_router(router, registry=reg)
+    return re.sub(r'router="\d+"', 'router="N"', reg.render())
 
 
 class _FakeDecodeServer:

@@ -373,11 +373,14 @@ def test_whole_step_plan_refuses_before_any_tick():
 # -- launch counts under replay and the generators ------------------------------
 
 
-def test_captured_launches_count_once_per_replay():
-    """What the counters gained during a capture is taken back out, and
-    added again at each replay."""
+def test_captured_launches_count_once_per_replay(monkeypatch):
+    """The launches made on the capture stream during a capture stay out
+    of the counters, and are added at each replay."""
     counts = kbuild.KernelCounts("reg_launches")
     counts.add("launches")
+    # on the card, the launches of the capture stream (no stream captures
+    # on the CPU)
+    monkeypatch.setattr(kbuild, "launch_is_captured", lambda: True)
     rec = kbuild.CapturedLaunches()
     counts.add("launches", "reg_launches")
     counts.add("plain_calls_on_cuda")
