@@ -465,9 +465,34 @@ Phases (any failure ends the run with a non-zero exit and no result):
     one) counted 12 flash launches a forward.  Printed: the time to the
     first warm worker, the scale-up, kill-to-rejoin and recovery times,
     the workers' warm-ups and launches, requests/s.
+34. the symbolic API, ResNet-50 v1 (NCHW, 224^2, 1000 classes, random
+    weights from a seed): the model zoo's gluon net exported
+    (``HybridBlock.export``), reloaded by ``mx.model.load_checkpoint``,
+    given a ``SoftmaxOutput`` and bound in ``mx.mod.Module`` on gpu(0) at
+    b=32.  Gates: the Module's predict forward within 1e-5 of the gluon
+    net's softmax; its first step's parameter gradients within 1e-4
+    (norm) of autograd through the net; 4 SGD steps (momentum 0.9)
+    through ``fit``; ``predict`` finite.  Printed: the Module step's
+    median and its host issue share.
+35. the LSTM language model of MXNet 1.x's cudnn_lstm_bucketing.py
+    (vocabulary 10,000, embedding 200, 2 x 200 LSTM, batch 32, buckets
+    10-60, Zipf tokens from a seed) built from ``mx.sym`` and trained one
+    epoch (3 batches a bucket) through ``mx.mod.BucketingModule`` with
+    ``Perplexity``, ``Speedometer`` and ``do_checkpoint``.  Gates: every
+    bucket run; perplexity finite and falling; the LSTM kernels (rows
+    11-12) launched 2 x (1 forward + 1 backward) a step, no plain call;
+    the checkpoint reloaded by ``Module.load`` and scored to the trained
+    module's value; one bucket's forward and gradients on the card
+    against the CPU.  Printed: the step median by bucket.
+36. the int8 tier on the symbolic path: ``quantize_model`` of phase 34's
+    ResNet-50 (naive calibration, 2 batches of 32), bound by
+    ``Symbol.bind`` on gpu(0).  Gates: top-1 agreement with float32 at
+    least 0.75 over the b=32 batch; 53 quantized convolutions and 1 FC;
+    54 ``int_mm`` calls a forward; a 3-D int8 convolution on the card
+    equal to its CPU result.  Printed: both executors' forward medians.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
-24, 25, 21, 22, 26, 27, 28, 29, 30, 31, 32, 33 (20, 23, 24 and 25 in one
+24, 25, 21, 22, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36 (20, 23, 24 and 25 in one
 launch of 2 ranks, 21 and 22 in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
@@ -794,6 +819,26 @@ CTRL_GRID = ((1, 4), (128, 256))
 CTRL_CAPACITY, CTRL_LOAD_THREADS = 4, 12
 CTRL_HEALTH_SEC, CTRL_TICK_SEC, CTRL_COOLDOWN_SEC = 0.25, 0.2, 1.0
 CTRL_LEASE_SEC = 2.0
+# phases 34 and 36: ResNet-50 v1 (NCHW, 224^2, 1000 classes) exported and
+# bound through mx.mod.Module at b=32; the Module's forward against the
+# gluon net's (same ops, same card: only cuDNN's sums in other orders) and
+# its first gradients against autograd through the net (norm); fit steps,
+# timed steps; int8 top-1 agreement at the JAX test's limit
+SYM_BATCH, SYM_FIT_STEPS, SYM_TIMED_STEPS, SYM_IMAGE = 32, 4, 3, 224
+SYM_FWD_ATOL, SYM_GRAD_RTOL = 1e-5, 1e-4
+SYM_INT8_AGREE, SYM_INT8_ITERS = 0.75, 5
+# phase 35: the LSTM LM of MXNet 1.x's example/rnn/bucketing/
+# cudnn_lstm_bucketing.py at its default widths (PTB's vocabulary),
+# LM_BATCHES batches a bucket, the example's SGD lr 0.01 (at 0.1 the
+# perplexity diverged within 5 steps on the H100); card vs CPU at the RNN
+# tests'
+# tolerances (tests/test_torch_rnn.py:26-27); the reloaded checkpoint's
+# perplexity within LM_SCORE_RTOL of the trained module's (the same graph
+# bound anew: cuBLAS may pick other algorithms for other pointers)
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 200, 200, 2
+LM_BATCH, LM_BUCKETS, LM_BATCHES, LM_LR = 32, (10, 20, 30, 40, 50, 60), 3, 0.01
+LM_SCORE_RTOL = 1e-5
+LM_FWD_ATOL, LM_GRAD_TOL = 1e-5, dict(atol=1e-4, rtol=1e-4)
 
 
 def log(*args):
@@ -8282,6 +8327,367 @@ def control_plane_bert(mx, card, first):
     return {"launches": launches, "record": rec}
 
 
+# -- phases 34-36: the symbolic API ----------------------------------------------
+
+
+def sym_rel(got, ref):
+    """``|got - ref| / |ref|`` of two tensors (norms)."""
+    return float((got.float() - ref.float()).norm()
+                 / max(float(ref.float().norm()), 1e-12))
+
+
+def module_resnet(mx, card, tmpdir):
+    """Phase 34: ResNet-50 v1 through the symbolic API.  The model zoo's
+    gluon net (random weights from a seed) is exported, reloaded with
+    ``mx.model.load_checkpoint``, given a ``SoftmaxOutput`` and bound in
+    ``mx.mod.Module`` on gpu(0) at b=32.  Gates: the Module's predict
+    forward within ``SYM_FWD_ATOL`` of the gluon net's softmax, its first
+    step's parameter gradients within ``SYM_GRAD_RTOL`` (norm) of autograd
+    through the gluon net with the summed cross-entropy, ``fit`` steps
+    with finite outputs, ``predict`` finite.  Returns what phase 36 needs:
+    the exported symbol, the parameters after ``fit``, the calibration
+    images and the evaluation batch."""
+    import numpy as np
+    import torch
+
+    dev = mx.gpu(0)
+    B = SYM_BATCH
+    rng = np.random.RandomState(34)
+    mx.random.seed(34)
+    xs = rng.uniform(-1, 1, (B * SYM_FIT_STEPS, 3, SYM_IMAGE, SYM_IMAGE)) \
+        .astype(np.float32)
+    ys = rng.randint(0, 1000, B * SYM_FIT_STEPS).astype(np.float32)
+    net = mx.gluon.model_zoo.vision.resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    x0 = mx.nd.array(xs[:B], ctx=dev)
+    y0 = mx.nd.array(ys[:B], ctx=dev)
+    logits = net(x0).data                 # predict mode; completes init
+    prefix = os.path.join(tmpdir, "resnet50_v1")
+    t = time.perf_counter()
+    net.export(prefix)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sym, ap, xp = mx.model.load_checkpoint(prefix, 0)
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(sym, name="softmax"),
+                        context=dev)
+    mod.bind(data_shapes=[("data", (B, 3, SYM_IMAGE, SYM_IMAGE))],
+             label_shapes=[("softmax_label", (B,))])
+    mod.init_params(arg_params=ap, aux_params=xp)
+    bind_s = time.perf_counter() - t
+    batch = mx.io.DataBatch([x0], [y0])
+    mod.forward(batch, is_train=False)
+    fwd_gap = float((mod.get_outputs()[0].data
+                     - torch.softmax(logits, dim=1)).abs().max())
+    # the first step's gradients: the Module's executor against autograd
+    # through the gluon net (SoftmaxOutput's gradient is the summed
+    # cross-entropy's); both BatchNorms in training mode
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(x0), y0)
+    loss.backward()
+    params = net.collect_params()
+    grad_gaps = {n: sym_rel(mod._exec.grad_dict[n].data, params[n].grad())
+                 for n in ap}
+    worst = max(grad_gaps, key=grad_gaps.get)
+    with mx.gpu(0):
+        it = mx.io.NDArrayIter(xs, ys, batch_size=B)
+    stamps = [time.perf_counter()]
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.9},
+            eval_metric="acc",
+            batch_end_callback=lambda p: stamps.append(time.perf_counter()))
+    fit_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    issue, wall = [], []
+    for _ in range(SYM_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(wall)
+    # the host's share of the step: its issue time over the wall time,
+    # valid where the step makes no host synchronisation (counted here)
+    host_share = statistics.median(issue) / step_ms
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mod.forward_backward(batch)
+            mod.update()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0][:80] for w in caught})
+    with dev:
+        pred = mod.predict(mx.io.NDArrayIter(xs[:B], ys[:B], batch_size=B))
+    pred = pred.data
+    ap_fit, xp_fit = mod.get_params()
+    log(f"module resnet (phase 34): resnet50_v1 exported in {export_s:.2f} "
+        f"s ({len(ap)} args, {len(xp)} aux), loaded and bound at b={B} in "
+        f"{bind_s:.2f} s; Module predict forward vs the gluon net's softmax "
+        f"max |d| {fwd_gap:.3e} (gate {SYM_FWD_ATOL}); first-step gradients "
+        f"vs autograd through the net: worst {worst} {grad_gaps[worst]:.3e}"
+        f" (gate {SYM_GRAD_RTOL}); fit {SYM_FIT_STEPS} SGD steps (momentum "
+        f"0.9), step wall ms {[round(v, 3) for v in fit_ms]}; timed steps "
+        f"median {step_ms:.3f} ms, host issue {statistics.median(issue):.3f}"
+        f" ms = host share {host_share:.3f} ({len(caught)} synchronising "
+        f"calls a step: {syncs}); predict {tuple(pred.shape)} on "
+        f"{card}")
+    checks = {"forward": fwd_gap <= SYM_FWD_ATOL,
+              "gradients": grad_gaps[worst] <= SYM_GRAD_RTOL,
+              "fit_steps": len(fit_ms) == SYM_FIT_STEPS,
+              "predict": tuple(pred.shape) == (B, 1000)
+              and bool(torch.isfinite(pred).all())}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"module resnet checks failed: {failed}")
+    return {"sym": sym, "args": ap_fit, "aux": xp_fit, "calib": xs[:2 * B],
+            "x": x0, "step_ms": step_ms, "host_share": host_share}
+
+
+def int8_resnet(mx, card, res):
+    """Phase 36: ``contrib.quantization.quantize_model`` of phase 34's
+    ResNet-50 (its parameters after ``fit``), naive calibration on 2
+    batches of 32, the int8 graph bound with ``Symbol.bind`` on gpu(0)
+    (ROADMAP caveat (n)) beside the float32 graph.  Gates: top-1 agreement
+    with float32 over the b=32 batch at least ``SYM_INT8_AGREE``, 53
+    quantized convolutions and 1 FC in the graph, 54 ``int_mm`` calls a
+    forward, a 3-D int8 convolution on the card equal to its CPU result.
+    Prints both executors' forward medians."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.ops import quantization as tq
+
+    dev = mx.gpu(0)
+    B = SYM_BATCH
+    t = time.perf_counter()
+    with dev:
+        calib = mx.io.NDArrayIter(res["calib"], None, batch_size=B)
+        qsym, qa, qx = qz.quantize_model(
+            res["sym"], res["args"], res["aux"], calib_mode="naive",
+            calib_data=calib, num_calib_examples=2 * B, ctx=dev)
+    quant_s = time.perf_counter() - t
+    nodes = [n["op"] for n in json.loads(qsym.tojson())["nodes"]]
+    n_conv = nodes.count("_contrib_quantized_conv")
+    n_fc = nodes.count("_contrib_quantized_fully_connected")
+    fex = res["sym"].bind(dev, dict(res["args"], data=res["x"]),
+                          grad_req="null", aux_states=res["aux"])
+    qex = qsym.bind(dev, dict(qa, data=res["x"]), grad_req="null",
+                    aux_states=qx)
+    fout = fex.forward()[0].data
+    tq.reset_int_mm_counts()
+    qout = qex.forward()[0].data
+    int_mm = dict(tq.int_mm_counts)
+    agree = float((qout.argmax(1) == fout.argmax(1)).float().mean())
+    fp32_ms = cuda_ms(lambda: fex.forward(), SYM_INT8_ITERS)
+    int8_ms = cuda_ms(lambda: qex.forward(), SYM_INT8_ITERS)
+    rng = np.random.RandomState(36)
+    x3 = torch.from_numpy(rng.randint(-127, 128, (2, 16, 8, 16, 16))
+                          .astype(np.int8))
+    w3 = torch.from_numpy(rng.randint(-127, 128, (32, 16, 3, 3, 3))
+                          .astype(np.int8))
+    conv3 = ((3, 3, 3), (1, 1, 1), (), (1, 1, 1), 1)
+    card3 = tq._conv_i32(x3.cuda(), w3.cuda(), *conv3)
+    cpu3 = tq._conv_i32(x3, w3, *conv3)
+    same3 = bool(torch.equal(card3.cpu(), cpu3))
+    conv3_ms = cuda_ms(lambda: tq._conv_i32(x3.cuda(), w3.cuda(), *conv3),
+                       5)
+    log(f"int8 resnet (phase 36): quantize_model (naive, 2 batches of {B}) "
+        f"in {quant_s:.2f} s: {n_conv} quantized conv + {n_fc} FC; top-1 "
+        f"agreement with float32 over b={B}: {agree:.4f} (gate "
+        f"{SYM_INT8_AGREE}); executor forward median fp32 {fp32_ms:.3f} ms,"
+        f" int8 {int8_ms:.3f} ms; int_mm a forward {int_mm}; 3-D int8 "
+        f"convolution (2,16,8,16,16) x (32,16,3,3,3) pad 1: card == CPU "
+        f"{same3}, {conv3_ms:.3f} ms on {card}")
+    checks = {"agreement": agree >= SYM_INT8_AGREE,
+              "quantized_nodes": (n_conv, n_fc) == (53, 1),
+              "int_mm_calls": int_mm["calls"] == 54,
+              "finite": bool(torch.isfinite(qout).all()),
+              "conv3d": same3}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"int8 resnet checks failed: {failed}")
+    return {"fp32_ms": fp32_ms, "int8_ms": int8_ms}
+
+
+def lm_sym_gen(mx):
+    """The LSTM language model of MXNet 1.x's
+    example/rnn/bucketing/cudnn_lstm_bucketing.py, one graph per bucket:
+    Embedding -> swapaxes -> RNN(lstm) -> swapaxes -> FullyConnected ->
+    SoftmaxOutput, the begin states variables."""
+    def sym_gen(seq_len):
+        S = mx.sym
+        data, label = S.var("data"), S.var("softmax_label")
+        emb = S.Embedding(data, input_dim=LM_VOCAB, output_dim=LM_EMBED,
+                          name="embed")
+        rnn = S.RNN(S.swapaxes(emb, dim1=0, dim2=1), state_size=LM_HIDDEN,
+                    num_layers=LM_LAYERS, mode="lstm", name="lstm")
+        pred = S.FullyConnected(S.swapaxes(rnn, dim1=0, dim2=1),
+                                num_hidden=LM_VOCAB, flatten=False,
+                                name="pred")
+        out = S.SoftmaxOutput(S.reshape(pred, shape=(-1, LM_VOCAB)),
+                              S.reshape(label, shape=(-1,)), name="softmax",
+                              use_ignore=True, ignore_label=0)
+        return out, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def lm_sentences(rng, buckets):
+    """``LM_BATCHES`` batches of sentences a bucket, lengths uniform over
+    the bucket, tokens Zipf(1.2) over the vocabulary (0 is padding)."""
+    import numpy as np
+
+    out, lo = [], 0
+    for b in buckets:
+        for n in rng.randint(lo + 1, b + 1, LM_BATCH * LM_BATCHES):
+            out.append(list(np.clip(rng.zipf(1.2, n), 1, LM_VOCAB - 1)))
+        lo = b
+    return out
+
+
+def bucketing_lm(mx, card, tmpdir):
+    """Phase 35: the LSTM LM through ``mx.mod.BucketingModule`` on gpu(0):
+    one epoch of ``mx.rnn.BucketSentenceIter`` batches over all six
+    buckets with ``metric.Perplexity``, ``callback.Speedometer`` and
+    ``callback.do_checkpoint``; then ``Module.load`` of the checkpoint,
+    scored against the trained module.  Gates: every bucket run; the
+    per-batch perplexity finite and falling; rows 11-12 launched 2 layers
+    x (1 forward + 1 backward) a step with 0 plain calls; the reloaded
+    checkpoint's score equal to the trained module's; one bucket's
+    forward and gradients on the card against the CPU within the RNN
+    tests' tolerances."""
+    import random as pyrandom
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    dev = mx.gpu(0)
+    rng = np.random.RandomState(35)
+    pyrandom.seed(35)
+    sents = lm_sentences(rng, LM_BUCKETS)
+    with dev:
+        it = mx.rnn.BucketSentenceIter(sents, LM_BATCH,
+                                       buckets=list(LM_BUCKETS),
+                                       invalid_label=0)
+    mod = mx.mod.BucketingModule(
+        lm_sym_gen(mx), default_bucket_key=it.default_bucket_key,
+        context=dev, fixed_param_names=["lstm_state", "lstm_state_cell"])
+    state = (LM_LAYERS, LM_BATCH, LM_HIDDEN)
+    zeros = {n: mx.nd.zeros(state, ctx=dev)
+             for n in ("lstm_state", "lstm_state_cell")}
+    metric = mx.metric.Perplexity(0)
+    seen, ppl, stamps = [], [], [time.perf_counter()]
+    last = [0.0, 0]
+
+    def record(p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        seen.append(mod._curr_bucket_key)
+        s, n = metric.sum_metric, metric.num_inst
+        ppl.append(float(np.exp((s - last[0]) / max(n - last[1], 1))))
+        last[:] = [s, n]
+
+    prefix = os.path.join(tmpdir, "lstm_lm")
+    kernels.reset_counts()
+    with dev:       # the iterator makes its batches on the current context
+        mod.fit(it, eval_metric=metric, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": LM_LR, "wd": 1e-5},
+                initializer=mx.init.Uniform(0.1), arg_params=zeros,
+                allow_missing=True,
+                batch_end_callback=[mx.callback.Speedometer(
+                    LM_BATCH, len(LM_BUCKETS), auto_reset=False), record],
+                epoch_end_callback=mx.callback.do_checkpoint(prefix))
+    steps = len(seen)
+    counts = {k: (kernels.KERNEL_COUNTS[k].launches,
+                  kernels.KERNEL_COUNTS[k].plain_calls_on_cuda)
+              for k in ("lstm_fwd", "lstm_bwd")}
+    routes = {k: launches_by_route(kernels.KERNEL_COUNTS[k])
+              for k in ("lstm_fwd", "lstm_bwd")}
+    by_bucket = {}
+    for key, a, b in zip(seen, stamps, stamps[1:]):
+        by_bucket.setdefault(key, []).append((b - a) * 1e3)
+    # each bucket's first step binds its executor: the median of the rest
+    step_ms = {k: statistics.median(v[1:] or v)
+               for k, v in sorted(by_bucket.items())}
+    # the checkpoint: Module.load (the graph is the same for every bucket
+    # length) bound at the largest bucket, scored against the trained
+    # module on that bucket's batches
+    big = [s for s in sents if len(s) > LM_BUCKETS[-2]]
+    with dev:
+        it_big = mx.rnn.BucketSentenceIter(big, LM_BATCH,
+                                           buckets=[LM_BUCKETS[-1]],
+                                           invalid_label=0)
+        want = mod.score(it_big, mx.metric.Perplexity(0))[0][1]
+        loaded = mx.mod.Module.load(prefix, 1, context=dev)
+        loaded.bind(data_shapes=it_big.provide_data,
+                    label_shapes=it_big.provide_label, for_training=False)
+        got = loaded.score(it_big, mx.metric.Perplexity(0))[0][1]
+    # one bucket (the smallest) on the card against the CPU, from the
+    # trained parameters: forward and every gradient
+    args, _ = mod.get_params()
+    small = [s for s in sents if len(s) <= LM_BUCKETS[0]][:LM_BATCH]
+    data = np.zeros((LM_BATCH, LM_BUCKETS[0]), np.float32)
+    for i, s in enumerate(small):
+        data[i, :len(s)] = s
+    label = np.zeros_like(data)
+    label[:, :-1] = data[:, 1:]
+    sym = lm_sym_gen(mx)(LM_BUCKETS[0])[0]
+    res = []
+    for ctx in (dev, mx.cpu()):
+        feed = {k: mx.nd.array(v.asnumpy(), ctx=ctx)
+                for k, v in args.items()}
+        feed.update(data=mx.nd.array(data, ctx=ctx),
+                    softmax_label=mx.nd.array(label, ctx=ctx))
+        ex = sym.bind(ctx, feed, args_grad={
+            k: mx.nd.zeros(v.shape, ctx=ctx) for k, v in feed.items()},
+            grad_req={k: ("null" if k in ("data", "softmax_label")
+                          else "write") for k in feed})
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward()
+        res.append((out, {k: ex.grad_dict[k].asnumpy() for k in args}))
+    fwd_gap = float(np.abs(res[0][0] - res[1][0]).max())
+    grad_ok = all(np.allclose(res[0][1][k], res[1][1][k], **LM_GRAD_TOL)
+                  for k in res[1][1])
+    grad_gap = max(float(np.abs(res[0][1][k] - res[1][1][k]).max())
+                   for k in res[1][1])
+    half = max(1, steps // 4)
+    log(f"bucketing lm (phase 35): LSTM LM vocab {LM_VOCAB}, embed "
+        f"{LM_EMBED}, {LM_LAYERS}x{LM_HIDDEN}, batch {LM_BATCH}, buckets "
+        f"{LM_BUCKETS}, SGD lr {LM_LR}, {steps} steps over buckets "
+        f"{sorted(set(seen))}; perplexity by batch "
+        f"{[round(v, 1) for v in ppl]}; epoch {metric.get()[1]:.2f}; step "
+        f"median ms by bucket {({k: round(v, 3) for k, v in step_ms.items()})}"
+        f"; (launches, plain calls on cuda) {counts} (2 x {steps} = "
+        f"{2 * steps} each), by route {routes}; checkpoint reloaded by "
+        f"Module.load and scored {got:.6f} vs the trained module "
+        f"{want:.6f}; bucket {LM_BUCKETS[0]} card vs CPU: output max |d| "
+        f"{fwd_gap:.3e}, gradients max |d| {grad_gap:.3e} (tolerances "
+        f"{LM_FWD_ATOL}, {LM_GRAD_TOL}) on {card}")
+    checks = {"every_bucket": sorted(set(seen)) == sorted(LM_BUCKETS),
+              "finite": all(np.isfinite(ppl)),
+              "falling": np.mean(ppl[-half:]) < np.mean(ppl[:half]),
+              "launches": all(c[0] == LM_LAYERS * steps
+                              for c in counts.values()),
+              "plain_calls_on_cuda": all(c[1] == 0 for c in counts.values()),
+              "reloaded_score": abs(got - want) <= LM_SCORE_RTOL * abs(want),
+              "card_vs_cpu_forward": fwd_gap <= LM_FWD_ATOL,
+              "card_vs_cpu_gradients": grad_ok}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"bucketing lm checks failed: {failed}")
+    return {k: c[0] for k, c in counts.items()}, step_ms, routes
+
+
 def main():
     import torch
 
@@ -8447,6 +8853,15 @@ def main():
             control_plane_stop(first)
     torch.cuda.empty_cache()
     lap("33 control plane")
+    with tempfile.TemporaryDirectory(prefix="symbolic-smoke-", dir=ROOT) as d:
+        sym_res = module_resnet(mx, card, d)
+        lap("34 Module ResNet-50")
+        lm_launches, _, lm_routes = bucketing_lm(mx, card, d)
+        lap("35 BucketingModule LSTM LM")
+    int8_resnet(mx, card, sym_res)
+    del sym_res
+    torch.cuda.empty_cache()
+    lap("36 int8 ResNet-50")
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
@@ -8524,14 +8939,23 @@ def main():
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",
              launches=(dtrain["lstm_fwd"] + sum(dpredict.values())
-                       + cells["lstm_fwd"]),
+                       + cells["lstm_fwd"] + lm_launches["lstm_fwd"]),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
-                               **dpredict, "cells": cells["lstm_fwd"]},
-             launches_by_route=dict(droutes, cells=cell_routes["lstm_fwd"]),
+                               **dpredict, "cells": cells["lstm_fwd"],
+                               "lm_bucketing_train": lm_launches["lstm_fwd"]},
+             launches_by_route=dict(
+                 droutes, cells=cell_routes["lstm_fwd"],
+                 lm_bucketing_train=lm_routes["lstm_fwd"]),
              **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
-             replaces=f"{rnn_src}:132", launches=dtrain["lstm_bwd"],
-             launches_by_route=dbroutes, **rnn["lstm_bwd"]),
+             replaces=f"{rnn_src}:132",
+             launches=dtrain["lstm_bwd"] + lm_launches["lstm_bwd"],
+             launches_by_path={"deepar_train": dtrain["lstm_bwd"],
+                               "lm_bucketing_train": lm_launches["lstm_bwd"]},
+             launches_by_route={
+                 "deepar_train": dbroutes,
+                 "lm_bucketing_train": lm_routes["lstm_bwd"]},
+             **rnn["lstm_bwd"]),
         dict(name="gru_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:300",
              launches=gtrain["gru_fwd"] + cells["gru_fwd"],

@@ -26,6 +26,16 @@ from . import engine, metric, pipeline, storage  # noqa: F401
 # MXTPU_TRACE / MXTPU_FLIGHT_RECORDER / MXTPU_METRICS_PORT ask for
 from . import log, profiler, resilience, telemetry  # noqa: F401
 from .convert import load_numpy_params  # noqa: F401
+# the symbolic API (ref: mxnet_tpu/__init__.py:24-85)
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import attribute, callback, executor, model, name  # noqa: F401
+from . import operator  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from . import monitor  # noqa: F401
+from . import monitor as mon  # noqa: F401
+from .symbol import AttrScope  # noqa: F401
 
 # tiers imported on first use, as the JAX package imports them: the int8
 # tier (``mx.contrib.quantization``) and the autotuner (``mx.tune``)

@@ -19,8 +19,9 @@ one host transfer per tensor (``_Stats``); the entropy histogram bins
 ``|x|`` by ``trunc(|x| * (bins / amax))`` in float32, the JAX package's
 order of operations, counted with ``torch.bincount``.
 
-``quantize_model`` rewrites a symbolic graph; the port has no ``symbol/``
-yet, so it raises.
+``quantize_model`` rewrites a symbolic graph (``symbol/``): every
+FullyConnected and Convolution node becomes quantize -> int8 op ->
+[requantize] -> dequantize on weights quantized offline.
 """
 from __future__ import annotations
 
@@ -32,9 +33,12 @@ import torch
 
 from .. import ndarray as nd
 from .. import profiler
+from .. import symbol as sym
 from ..base import MXNetError
+from ..context import current_context
 from ..gluon import block as _gluon_block
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Group, Symbol, _make_op_symbol, _topo_order
 
 _NUM_BINS = 8001
 
@@ -293,14 +297,169 @@ def _host(a):
     return np.asarray(a)
 
 
-def quantize_model(symbol, arg_params, aux_params=None, *args, **kwargs):
-    """Ref: ``quantize_model`` (mxnet_tpu/contrib/quantization.py:396),
-    which rewrites a ``symbol/`` graph: the port has no symbolic API yet.
-    ``quantize_net`` quantizes a gluon net."""
-    raise MXNetError(
-        "contrib.quantization.quantize_model rewrites a symbol/ graph, "
-        "which comes with slice 9 of the port (ROADMAP.md queue 1); "
-        "quantize a gluon net with quantize_net")
+# -- the symbolic path --------------------------------------------------------
+
+_QUANTIZABLE = ("FullyConnected", "Convolution")
+
+
+def _collect_layer_stats(symbol, arg_params, aux_params, targets, calib_data,
+                         calib_mode, data_name, num_calib_examples, ctx):
+    """Forward the calibration batches through the float32 graph, keeping
+    the statistics of each target node's data input and output (ref:
+    ``_collect_layer_stats``, mxnet_tpu/contrib/quantization.py:341): one
+    executor over a ``Group`` of those outputs."""
+    handles, keys = [], []
+    for node in targets:
+        src, oi = node.inputs[0]
+        handles.append(Symbol(src, oi))
+        keys.append((node.name, "data"))
+        handles.append(Symbol(node, 0))
+        keys.append((node.name, "out"))
+    group = Group(handles)
+    stats = {k: _Stats(calib_mode) for k in keys}
+    # the batches are taken once: calib_data may be a generator, and the
+    # first batch binds the executor
+    batches = list(_iter_calib_batches(calib_data, num_calib_examples))
+    if not batches:
+        raise MXNetError("calibration data yielded no batches")
+    args = dict(arg_params)
+    args[data_name] = nd.array(batches[0], ctx=ctx)
+    ex = group.bind(ctx, args, grad_req="null",
+                    aux_states=dict(aux_params) if aux_params else None)
+    t0 = time.monotonic()
+    with profiler.op_scope("quantize.calibrate", cat="quantize"):
+        for arr in batches:
+            outs = ex.forward(is_train=False,
+                              **{data_name: nd.array(arr, ctx=ctx)})
+            for k, o in zip(keys, outs):
+                stats[k].update_nd(o)
+            _sec_bump(calib_batches=1)
+        ranges = {k: s.range() for k, s in stats.items()}
+    _sec_bump(calib_ms=(time.monotonic() - t0) * 1e3)
+    return ranges
+
+
+def _np_quantize(a):
+    """Symmetric per-tensor int8 of a weight: ``(q, -r, r)`` as NDArrays on
+    the current context, ``r`` the largest magnitude (ref:
+    ``_np_quantize``, mxnet_tpu/contrib/quantization.py:499)."""
+    r = float(np.max(np.abs(a))) or 1e-8
+    q = np.clip(np.round(a * (127.0 / r)), -127, 127).astype(np.int8)
+    return nd.array(q), nd.array(np.float32(-r).reshape(())), \
+        nd.array(np.float32(r).reshape(()))
+
+
+def _offline_quantize(name, arr, qarg_params):
+    """Quantize a parameter offline into ``<name>_quantize``, ``_min`` and
+    ``_max`` of ``qarg_params``; returns their variables."""
+    q, qmin, qmax = _np_quantize(_host(arr))
+    qarg_params[name + "_quantize"] = q
+    qarg_params[name + "_min"] = qmin
+    qarg_params[name + "_max"] = qmax
+    return (sym.var(name + "_quantize"), sym.var(name + "_min"),
+            sym.var(name + "_max"))
+
+
+def quantize_model(symbol, arg_params, aux_params=None, data_names=("data",),
+                   excluded_sym_names=(), calib_mode="none", calib_data=None,
+                   num_calib_examples=None, quantized_dtype="int8",
+                   ctx=None, logger=None):
+    """Quantize a symbolic model to int8 (ref: ``quantize_model``,
+    mxnet_tpu/contrib/quantization.py:396): ``(qsym, qarg_params,
+    aux_params)``.
+
+    Every FullyConnected and Convolution node whose weight is a variable
+    (and whose name is not in ``excluded_sym_names``) becomes
+    ``_contrib_quantize_v2`` -> ``_contrib_quantized_fully_connected`` or
+    ``_contrib_quantized_conv`` on weights quantized offline (per tensor)
+    -> [``_contrib_requantize`` to the calibrated output range] ->
+    ``_contrib_dequantize``; everything else stays float32.  With
+    ``calib_mode`` ``naive`` (min/max) or ``entropy`` (KL thresholds) the
+    data and output ranges come from forwarding ``calib_data`` through the
+    float32 graph on ``ctx``; with ``none`` they are computed per batch.
+    Bind the result with ``Symbol.bind`` and every array given (its
+    ``*_quantize``/``_min``/``_max`` inputs have no shape rule: ROADMAP
+    caveat (n))."""
+    if quantized_dtype not in ("int8", "auto"):
+        raise MXNetError(f"unsupported quantized_dtype {quantized_dtype!r}"
+                         " (the port quantizes to signed int8)")
+    ctx = ctx or current_context()
+    aux_params = aux_params or {}
+    nodes = _topo_order([symbol._node])
+    targets = [n for n in nodes if n.op in _QUANTIZABLE
+               and n.name not in set(excluded_sym_names)
+               and n.inputs[1][0].op is None]   # the weight is a variable
+
+    calib_tbl = {}
+    if calib_mode != "none":
+        if calib_data is None:
+            raise MXNetError(f"calib_mode={calib_mode!r} needs calib_data")
+        calib_tbl = _collect_layer_stats(
+            symbol, arg_params, aux_params, targets, calib_data, calib_mode,
+            data_names[0], num_calib_examples, ctx)
+        if logger:
+            for k, v in calib_tbl.items():
+                logger.info("calib %s: [%g, %g]", k, *v)
+
+    qarg_params = {}
+    target_ids = {id(n) for n in targets}
+    rewritten = {}
+
+    def handle(src, oi):
+        return Symbol(rewritten[id(src)], oi)
+
+    for n in nodes:
+        if n.op is None:
+            rewritten[id(n)] = sym.var(n.name)._node
+            continue
+        ins = [handle(s, oi) for s, oi in n.inputs]
+        if id(n) not in target_ids:
+            rewritten[id(n)] = _make_op_symbol(n.op, ins, dict(n.attrs),
+                                               name=n.name)._node
+            continue
+        dr = calib_tbl.get((n.name, "data"))
+        qattrs = {"out_type": "int8"}
+        if dr is not None:
+            qattrs.update(min_calib_range=dr[0], max_calib_range=dr[1])
+        qd = _make_op_symbol("_contrib_quantize_v2", [ins[0]], qattrs,
+                             name=n.name + "_quantize")
+        wname = n.inputs[1][0].name
+        qw, wmin, wmax = _offline_quantize(wname, arg_params[wname],
+                                           qarg_params)
+        no_bias = len(n.inputs) < 3 or bool(n.attrs.get("no_bias", False))
+        if not no_bias:
+            bname = n.inputs[2][0].name
+            qb, bmin, bmax = _offline_quantize(bname, arg_params[bname],
+                                               qarg_params)
+            q_ins = [qd[0], qw, qb, qd[1], qd[2], wmin, wmax, bmin, bmax]
+        else:
+            q_ins = [qd[0], qw, qd[1], qd[2], wmin, wmax]
+        qop = ("_contrib_quantized_fully_connected"
+               if n.op == "FullyConnected" else "_contrib_quantized_conv")
+        attrs = dict(n.attrs)
+        for k in ("cudnn_tune", "cudnn_off", "workspace"):
+            attrs.pop(k, None)
+        attrs["no_bias"] = no_bias
+        qnode = _make_op_symbol(qop, q_ins, attrs, name=n.name + "_int8")
+        out, omin, omax = qnode[0], qnode[1], qnode[2]
+        orr = calib_tbl.get((n.name, "out"))
+        if orr is not None:
+            rq = _make_op_symbol(
+                "_contrib_requantize", [out, omin, omax],
+                {"min_calib_range": orr[0], "max_calib_range": orr[1]},
+                name=n.name + "_requantize")
+            out, omin, omax = rq[0], rq[1], rq[2]
+        deq = _make_op_symbol("_contrib_dequantize", [out, omin, omax], {},
+                              name=n.name + "_dequantize")
+        rewritten[id(n)] = deq._node
+
+    qsym = Symbol(rewritten[id(symbol._node)], symbol._index)
+    # the float32 parameters the rewritten graph still reads (replaced
+    # weights drop out of its arguments)
+    for name in qsym.list_arguments():
+        if name not in qarg_params and name in arg_params:
+            qarg_params[name] = arg_params[name]
+    return qsym, qarg_params, dict(aux_params)
 
 
 # -- the gluon path -----------------------------------------------------------

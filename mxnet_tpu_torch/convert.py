@@ -1,6 +1,8 @@
 """Carry weights across: load numpy arrays into a port block by structural
 parameter name (``Block._collect_params_with_prefix``), the naming both
-packages share, e.g. ``encoder.layers.0.attn_in_weight``."""
+packages share, e.g. ``encoder.layers.0.attn_in_weight``; and a symbolic
+model's ``arg_params``/``aux_params`` to and from numpy, so one graph runs
+in both packages."""
 from __future__ import annotations
 
 import numpy as np
@@ -42,3 +44,28 @@ def load_numpy_params(block, arrays):
                              f"an array of shape {shape}")
     for name, p in params.items():
         p.set_data(np.asarray(arrays[name]))
+
+
+def _host(v):
+    return np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+
+
+def symbol_params_from_numpy(arg_params, aux_params=None, ctx=None):
+    """A symbolic model's ``(arg_params, aux_params)`` ({name: array},
+    where an array is numpy or has ``asnumpy()``, as the JAX package's
+    NDArrays do) as the port's: ``{name: NDArray}`` on ``ctx`` (default
+    :func:`current_context`), dtypes kept."""
+    from .ndarray.ndarray import array
+
+    def conv(d):
+        return {k: array(_host(v), ctx=ctx, dtype=_host(v).dtype)
+                for k, v in (d or {}).items()}
+
+    return conv(arg_params), conv(aux_params)
+
+
+def symbol_params_to_numpy(arg_params, aux_params=None):
+    """The reverse of :func:`symbol_params_from_numpy`: ``{name:
+    np.ndarray}`` pairs, which the JAX package's ``nd.array`` takes."""
+    return ({k: _host(v) for k, v in (arg_params or {}).items()},
+            {k: _host(v) for k, v in (aux_params or {}).items()})

@@ -48,6 +48,7 @@ from .. import autograd, profiler
 from .._imperative import invoke
 from ..base import MXNetError
 from ..context import Context, current_context
+from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict)
 
@@ -281,7 +282,20 @@ class HybridBlock(Block):
             "infer_shape; initialize with explicit in_units/in_channels")
 
     def forward(self, x, *args):
+        if isinstance(x, Symbol):
+            return self._symbolic_forward(x, *args)
         return invoke(self._call_tensors, x, *args)
+
+    def _symbolic_forward(self, x, *args):
+        """The forward on Symbol inputs: ``hybrid_forward`` with ``F`` the
+        symbol namespace and every parameter a variable of its name (ref:
+        ``mxnet_tpu/gluon/block.py:619-630``); the export path."""
+        from .. import symbol as sym_ns
+
+        params = {k: (p._traced_value if isinstance(p._traced_value, Symbol)
+                      else sym_ns.var(p.name))
+                  for k, p in self._reg_params.items()}
+        return self.hybrid_forward(sym_ns, x, *args, **params)
 
     def _call_tensors(self, x, *args):
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -322,12 +336,12 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0):
-        """Ref: HybridBlock.export (model-symbol.json + .params): it needs
-        the symbolic API, which the port does not have yet."""
-        raise MXNetError("HybridBlock.export needs the symbolic API "
-                         "(symbol/), which comes with slice 9 of the port "
-                         "(ROADMAP.md queue 1); save_parameters writes "
-                         "the .params half")
+        """Write ``path-symbol.json`` and ``path-NNNN.params`` (ref:
+        HybridBlock.export): the forward traced on one Symbol input named
+        ``data``."""
+        from ..symbol import export as _export
+
+        return _export.export_block(self, path, epoch)
 
 
 def commit_aux(value, new_value):

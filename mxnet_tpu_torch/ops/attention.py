@@ -60,7 +60,8 @@ def _k_sdpa(q, k, v, mask=None, scale=None, causal=False, dropout_p=0.0):
     return flash_attention(q, k, v, mask=mask, scale=scale, causal=causal)
 
 
-register("scaled_dot_product_attention", _k_sdpa, aliases=("_contrib_sdpa",))
+register("scaled_dot_product_attention", _k_sdpa, aliases=("_contrib_sdpa",),
+         arg_names=("q", "k", "v", "mask"))
 
 
 def _k_multihead_attention(query, key, value, in_weight, in_bias,
@@ -113,4 +114,6 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
     return linear(out, out_weight, out_bias)
 
 
-register("multihead_attention", _k_multihead_attention)
+register("multihead_attention", _k_multihead_attention,
+         arg_names=("query", "key", "value", "in_weight", "in_bias",
+                    "out_weight", "out_bias", "mask"))

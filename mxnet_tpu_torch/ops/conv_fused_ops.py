@@ -106,7 +106,10 @@ def _k_conv1x1_bn_act(data, weight, gamma, beta, moving_mean, moving_var,
 
 
 register("_contrib_conv1x1_bn_act", _k_conv1x1_bn_act,
-         aliases=("conv1x1_bn_act",))
+         aliases=("conv1x1_bn_act",),
+         arg_names=("data", "weight", "gamma", "beta", "moving_mean",
+                    "moving_var", "in_scale", "in_shift"),
+         train_aware=True, num_outputs=5, mutate_aux=((4, 3), (5, 4)))
 
 
 def _k_bn_fold(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
@@ -127,4 +130,6 @@ def _k_bn_fold(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                        train=bool(_train))
 
 
-register("_contrib_bn_fold", _k_bn_fold, aliases=("bn_fold",))
+register("_contrib_bn_fold", _k_bn_fold, aliases=("bn_fold",),
+         arg_names=("data", "gamma", "beta", "moving_mean", "moving_var"),
+         train_aware=True, num_outputs=4, mutate_aux=((3, 2), (4, 3)))

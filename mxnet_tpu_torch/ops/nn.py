@@ -1,5 +1,7 @@
 """Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that BERT
-serving and training, the ported losses and ResNet run."""
+serving and training, the ported losses and ResNet run, and the loss heads
+of symbolic graphs (``SoftmaxOutput``, the regression outputs and
+``SVMOutput``)."""
 from __future__ import annotations
 
 import math
@@ -26,7 +28,8 @@ def _k_fully_connected(data, weight, bias=None, num_hidden=None,
     return linear(x, weight, None if no_bias else bias)
 
 
-register("FullyConnected", _k_fully_connected, aliases=("fully_connected",))
+register("FullyConnected", _k_fully_connected, aliases=("fully_connected",),
+         arg_names=("data", "weight", "bias"))
 
 
 def _amp_in(data, weight):
@@ -77,7 +80,8 @@ def _k_convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     return out.movedim(1, -1) if channel_last else out
 
 
-register("Convolution", _k_convolution, aliases=("convolution",))
+register("Convolution", _k_convolution, aliases=("convolution",),
+         arg_names=("data", "weight", "bias"))
 
 
 def _pool_out_pad(in_size, k, s, p, convention):
@@ -242,6 +246,9 @@ class _BnTrainFused(torch.autograd.Function):
         return dx, dgamma, dbeta, None, None, None
 
 
+_BN_ARGS = ("data", "gamma", "beta", "moving_mean", "moving_var")
+
+
 def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                   momentum=0.9, fix_gamma=True, use_global_stats=False,
                   output_mean_var=False, axis=1, cudnn_off=False,
@@ -313,7 +320,9 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, new_mm, new_mv
 
 
-register("BatchNorm", _k_batch_norm, aliases=("batch_norm",))
+register("BatchNorm", _k_batch_norm, aliases=("batch_norm",),
+         arg_names=_BN_ARGS, train_aware=True, num_outputs=3,
+         mutate_aux=((3, 1), (4, 2)))
 
 
 def _k_sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
@@ -333,7 +342,8 @@ def _k_sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 
 register("_contrib_SyncBatchNorm", _k_sync_batch_norm,
-         aliases=("SyncBatchNorm",))
+         aliases=("SyncBatchNorm",), arg_names=_BN_ARGS, train_aware=True,
+         num_outputs=3, mutate_aux=((3, 1), (4, 2)))
 
 
 def _k_layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -348,7 +358,8 @@ def _k_layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
         + beta.reshape(shape)
 
 
-register("LayerNorm", _k_layer_norm, aliases=("layer_norm",))
+register("LayerNorm", _k_layer_norm, aliases=("layer_norm",),
+         arg_names=("data", "gamma", "beta"))
 
 
 def _k_activation(data, act_type):
@@ -379,7 +390,8 @@ def _k_leaky_relu(data, act_type="leaky", slope=0.25):
     raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not ported")
 
 
-register("LeakyReLU", _k_leaky_relu)
+register("LeakyReLU", _k_leaky_relu, arg_names=("data", "gamma"),
+         train_aware=True)
 
 
 def _k_dropout(data, p=0.5, mode="training", axes=()):
@@ -397,7 +409,8 @@ def _k_dropout(data, p=0.5, mode="training", axes=()):
     return data * mask / keep
 
 
-register("Dropout", _k_dropout, aliases=("dropout",))
+register("Dropout", _k_dropout, aliases=("dropout",), needs_rng=True,
+         train_aware=True)
 
 
 def _k_softmax(data, axis=-1, temperature=None):
@@ -416,3 +429,169 @@ def _k_log_softmax(data, axis=-1, temperature=None):
 
 
 register("log_softmax", _k_log_softmax)
+
+
+# -- the loss heads (ref: ops/nn.py:553-780) -----------------------------------
+# Each forward is the head's output (the softmax, the sigmoid or the data
+# itself); each backward is MXNet's loss gradient, a torch.autograd.Function
+# as the JAX ops are custom VJPs.  All but SVMOutput ignore the incoming
+# gradient: the executor feeds ones.
+
+
+def _class_one_hot(lab_ids, classes, axis, like):
+    """One-hot of integer ``lab_ids`` along ``axis`` of ``like``; an id
+    outside ``[0, classes)`` (an ignored label) gives a row of zeros, as
+    ``jax.nn.one_hot`` does."""
+    shape = [1] * like.dim()
+    shape[axis] = classes
+    ids = torch.arange(classes, device=like.device).reshape(shape)
+    return (lab_ids.unsqueeze(axis) == ids).to(like.dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, opts):
+        p = torch.softmax(data, dim=opts[5])
+        ctx.save_for_backward(p, label)
+        ctx.opts = opts
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        """``p - onehot(label)`` under ``grad_scale``, ``ignore_label``,
+        ``normalization`` and label smoothing (ref: ``_smo_bwd``,
+        ops/nn.py:564)."""
+        grad_scale, ignore_label, use_ignore, normalization, smooth_alpha, \
+            axis = ctx.opts
+        p, label = ctx.saved_tensors
+        classes = p.shape[axis]
+        lab_ids = None
+        if label.dim() == p.dim() - 1:
+            lab_ids = label.to(torch.int64)
+            oh = _class_one_hot(lab_ids, classes, axis, p)
+        else:
+            oh = label.to(p.dtype)
+        if smooth_alpha > 0:
+            oh = oh * (1.0 - smooth_alpha) + (1.0 - oh) * (
+                smooth_alpha / max(classes - 1, 1))
+        grad = p - oh
+        valid = None
+        if use_ignore and lab_ids is not None:
+            valid = (lab_ids != int(ignore_label)).to(p.dtype)
+            grad = grad * valid.unsqueeze(axis)
+        if normalization == "batch":
+            grad = grad / p.shape[0]
+        elif normalization == "valid":
+            n = valid.sum() if valid is not None else torch.tensor(
+                float(lab_ids.numel() if lab_ids is not None
+                      else p.shape[0]), device=p.device)
+            grad = grad / torch.clamp(n, min=1.0)
+        return (grad * grad_scale,
+                torch.zeros_like(label) if ctx.needs_input_grad[1] else None,
+                None)
+
+
+def _k_softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                      multi_output=False, use_ignore=False,
+                      preserve_shape=False, normalization="null",
+                      out_grad=False, smooth_alpha=0.0):
+    """The softmax over the class axis (1, or the last with
+    ``preserve_shape``), with the cross-entropy gradient (ref: ops/nn.py:
+    601); ``normalization='null'`` leaves the 1/batch to the optimizer's
+    ``rescale_grad`` (``Module`` sets it)."""
+    if normalization not in ("null", "batch", "valid"):
+        raise ValueError(f"SoftmaxOutput normalization must be one of "
+                         f"null/batch/valid, got {normalization!r}")
+    axis = -1 if preserve_shape else (1 if data.dim() > 1 else -1)
+    axis = axis % data.dim()
+    opts = (float(grad_scale), float(ignore_label), bool(use_ignore),
+            str(normalization), float(smooth_alpha), axis)
+    return _SoftmaxOutput.apply(data, label, opts)
+
+
+register("SoftmaxOutput", _k_softmax_output, arg_names=("data", "label"),
+         aliases=("softmax_output", "Softmax"))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``kind``: ``linear`` (identity, ``data - label``), ``logistic``
+    (sigmoid, ``p - label``) or ``mae`` (identity, ``sign(data -
+    label)``), each gradient times ``grad_scale`` (ref: ops/nn.py:
+    622-693; regression_output-inl.h)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        return (grad * ctx.grad_scale,
+                torch.zeros_like(label) if ctx.needs_input_grad[1] else None,
+                None, None)
+
+
+def _regression_op(kind):
+    def _k(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, kind, float(grad_scale))
+
+    _k.__name__ = f"_k_{kind}_regression_output"
+    return _k
+
+
+register("LinearRegressionOutput", _regression_op("linear"),
+         arg_names=("data", "label"))
+register("LogisticRegressionOutput", _regression_op("logistic"),
+         arg_names=("data", "label"))
+register("MAERegressionOutput", _regression_op("mae"),
+         arg_names=("data", "label"))
+
+
+class _SVMOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, linear):
+        ctx.save_for_backward(data, label)
+        ctx.opts = (margin, reg, linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        """The hinge (``use_linear``) or squared-hinge gradient of the
+        scores, times the incoming gradient (ref: ``_svm_bwd``, ops/nn.py:
+        760)."""
+        margin, reg, linear = ctx.opts
+        data, label = ctx.saved_tensors
+        k = data.shape[1]
+        lab = label.to(torch.int64).reshape(-1)
+        onehot = _class_one_hot(lab, k, 1, data)
+        score_y = torch.gather(data, 1, lab.unsqueeze(1))
+        gap = margin - (score_y - data)
+        viol = (gap > 0) & (onehot == 0)
+        zero = torch.zeros((), dtype=data.dtype, device=data.device)
+        if linear:
+            gj = torch.where(viol, torch.full_like(data, reg), zero)
+        else:
+            gj = torch.where(viol, 2.0 * reg * gap, zero)
+        gy = -gj.sum(dim=1, keepdim=True)
+        grad = gj + onehot * gy
+        return (grad * g,
+                torch.zeros_like(label) if ctx.needs_input_grad[1] else None,
+                None, None, None)
+
+
+def _k_svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                  use_linear=False):
+    """Identity forward, hinge gradient of the scores (ref: ops/nn.py:745,
+    src/operator/svm_output.cc)."""
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))
+
+
+register("SVMOutput", _k_svm_output, arg_names=("data", "label"),
+         aliases=("svm_output",))

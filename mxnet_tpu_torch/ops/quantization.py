@@ -36,6 +36,13 @@ from .registry import register
 
 _INT32_MAX = float(2**31 - 1)
 
+# the registry metadata of the int8 ops: inference only, three outputs
+# (the values and their range)
+_Q3 = dict(nondiff=True, num_outputs=3)
+_Q_ARGS = ("data", "weight", "bias", "min_data", "max_data", "min_weight",
+           "max_weight", "min_bias", "max_bias")
+_PC_ARGS = ("data", "weight", "wrange", "bias", "min_data", "max_data")
+
 
 # -- the s8 x s8 -> s32 product -----------------------------------------------
 
@@ -123,7 +130,8 @@ def _k_quantize(data, min_range, max_range, out_type="int8"):
     return _q8(data, r), -r, r
 
 
-register("_contrib_quantize", _k_quantize, aliases=("quantize",))
+register("_contrib_quantize", _k_quantize, aliases=("quantize",),
+         arg_names=("data", "min_range", "max_range"), **_Q3)
 
 
 def _k_quantize_v2(data, out_type="int8", min_calib_range=None,
@@ -137,7 +145,8 @@ def _k_quantize_v2(data, out_type="int8", min_calib_range=None,
     return _k_quantize(data, mn, mx, out_type=out_type)
 
 
-register("_contrib_quantize_v2", _k_quantize_v2, aliases=("quantize_v2",))
+register("_contrib_quantize_v2", _k_quantize_v2, aliases=("quantize_v2",),
+         **_Q3)
 
 
 # -- dequantize (ref: dequantize-inl.h) ---------------------------------------
@@ -155,7 +164,8 @@ def _k_dequantize(data, min_range, max_range, out_type="float32"):
     return data.to(torch.float32) * _abs_range(mn, mx) / 127.0
 
 
-register("_contrib_dequantize", _k_dequantize, aliases=("dequantize",))
+register("_contrib_dequantize", _k_dequantize, aliases=("dequantize",),
+         arg_names=("data", "min_range", "max_range"), nondiff=True)
 
 
 # -- requantize: int32 accumulator -> calibrated int8 (requantize-inl.h) -----
@@ -172,7 +182,8 @@ def _k_requantize(data, min_range, max_range, min_calib_range=None,
     return _q8(real, r), -r, r
 
 
-register("_contrib_requantize", _k_requantize, aliases=("requantize",))
+register("_contrib_requantize", _k_requantize, aliases=("requantize",),
+         arg_names=("data", "min_range", "max_range"), **_Q3)
 
 
 def _k_requantize_v2(data, min_range, max_range, min_calib, max_calib,
@@ -190,7 +201,9 @@ def _k_requantize_v2(data, min_range, max_range, min_calib, max_calib,
 
 
 register("_contrib_requantize_v2", _k_requantize_v2,
-         aliases=("requantize_v2",))
+         aliases=("requantize_v2",),
+         arg_names=("data", "min_range", "max_range", "min_calib",
+                    "max_calib"), **_Q3)
 
 
 # -- quantized FullyConnected / Convolution (per tensor) ----------------------
@@ -250,41 +263,75 @@ def _k_quantized_fully_connected(data, weight, *rest, num_hidden=None,
 
 
 register("_contrib_quantized_fully_connected", _k_quantized_fully_connected,
-         aliases=("quantized_fully_connected",))
+         aliases=("quantized_fully_connected",), arg_names=_Q_ARGS, **_Q3)
+
+
+def _out_size(size, k, s, d, p):
+    return (size + 2 * p - d * (k - 1) - 1) // s + 1
+
+
+def _im2col_3d(data, kernel, stride, dilate, pad):
+    """The columns of a 3-D convolution: ``(n, c * kd*kh*kw, L)`` int8, in
+    the order of an ``(O, C, kd, kh, kw)`` weight reshaped to ``(O, -1)``,
+    and the output's ``(od, oh, ow)``: one strided slice of the padded
+    input per kernel offset (torch's unfold is 2-D only)."""
+    n, c = data.shape[:2]
+    xp = tF.pad(data, [v for p in reversed(pad) for v in (p, p)])
+    outs = [_out_size(data.shape[2 + i], kernel[i], stride[i], dilate[i],
+                      pad[i]) for i in range(3)]
+    taps = []
+    for a in range(kernel[0]):
+        for b in range(kernel[1]):
+            for e in range(kernel[2]):
+                starts = (a * dilate[0], b * dilate[1], e * dilate[2])
+                taps.append(xp[:, :,
+                               starts[0]:starts[0] + stride[0]
+                               * (outs[0] - 1) + 1:stride[0],
+                               starts[1]:starts[1] + stride[1]
+                               * (outs[1] - 1) + 1:stride[1],
+                               starts[2]:starts[2] + stride[2]
+                               * (outs[2] - 1) + 1:stride[2]])
+    cols = torch.stack(taps, dim=2)              # (n, c, K, od, oh, ow)
+    return cols.reshape(n, c * len(taps), -1), tuple(outs)
 
 
 def _conv_i32(data, weight, kernel, stride, dilate, pad, num_group):
-    """The int8 convolution (NC* data, OI* weight) as unfold (im2col) and
+    """The int8 convolution (NC* data, OI* weight) as im2col and
     :func:`int8_matmul`, group by group; 1-D convolutions run as 2-D ones
-    of height 1."""
+    of height 1, 2-D ones unfold, 3-D ones take :func:`_im2col_3d`."""
     nd = len(kernel)
-    if nd not in (1, 2):
+    if nd not in (1, 2, 3):
         raise MXNetError(f"quantized convolution: {nd}-D kernels are not "
-                         "ported (1-D and 2-D are)")
+                         "ported (1-D, 2-D and 3-D are)")
     stride = tuple(stride) or (1,) * nd
     dilate = tuple(dilate) or (1,) * nd
     pad = tuple(pad) or (0,) * nd
-    if nd == 1:
-        data, weight = data.unsqueeze(2), weight.unsqueeze(2)
-        kernel, stride = (1,) + tuple(kernel), (1,) + stride
-        dilate, pad = (1,) + dilate, (0,) + pad
-    n, c, h, w = data.shape
+    n, c = data.shape[:2]
     o = weight.shape[0]
-    oh = (h + 2 * pad[0] - dilate[0] * (kernel[0] - 1) - 1) // stride[0] + 1
-    ow = (w + 2 * pad[1] - dilate[1] * (kernel[1] - 1) - 1) // stride[1] + 1
-    # im2col moves the values only: int8 in float32 is exact
-    cols = tF.unfold(data.to(torch.float32), tuple(kernel), dilate, pad,
-                     stride).to(torch.int8)           # (n, c*kh*kw, L)
+    if nd == 3:
+        cols, spatial = _im2col_3d(data, tuple(kernel), stride, dilate, pad)
+    else:
+        if nd == 1:
+            data, weight = data.unsqueeze(2), weight.unsqueeze(2)
+            kernel, stride = (1,) + tuple(kernel), (1,) + stride
+            dilate, pad = (1,) + dilate, (0,) + pad
+        h, w = data.shape[2:]
+        spatial = (_out_size(h, kernel[0], stride[0], dilate[0], pad[0]),
+                   _out_size(w, kernel[1], stride[1], dilate[1], pad[1]))
+        # im2col moves the values only: int8 in float32 is exact
+        cols = tF.unfold(data.to(torch.float32), tuple(kernel), dilate, pad,
+                         stride).to(torch.int8)       # (n, c*kh*kw, L)
     cg, og = c // num_group, o // num_group
-    per = cg * kernel[0] * kernel[1]
+    per = cols.shape[1] // num_group
+    L = cols.shape[2]
     outs = []
     for g in range(num_group):
         xg = cols[:, g * per:(g + 1) * per].transpose(1, 2) \
             .reshape(-1, per)                         # (n*L, per)
         wg = weight[g * og:(g + 1) * og].reshape(og, per)
-        outs.append(int8_matmul(xg, wg).reshape(n, oh * ow, og))
+        outs.append(int8_matmul(xg, wg).reshape(n, L, og))
     out = torch.cat(outs, dim=2) if num_group > 1 else outs[0]
-    out = out.transpose(1, 2).reshape(n, o, oh, ow)
+    out = out.transpose(1, 2).reshape((n, o) + spatial)
     return out.squeeze(2) if nd == 1 else out
 
 
@@ -305,7 +352,7 @@ def _k_quantized_conv(data, weight, *rest, kernel, stride=(), dilate=(),
 
 
 register("_contrib_quantized_conv", _k_quantized_conv,
-         aliases=("quantized_conv",))
+         aliases=("quantized_conv",), arg_names=_Q_ARGS, **_Q3)
 
 
 # -- per-channel FC / conv: the quantize_net path -----------------------------
@@ -344,7 +391,7 @@ def _k_quantized_dense_pc(data, weight, wrange, *rest, num_hidden=None,
 
 
 register("_contrib_quantized_dense_pc", _k_quantized_dense_pc,
-         aliases=("quantized_dense_pc",))
+         aliases=("quantized_dense_pc",), arg_names=_PC_ARGS, **_Q3)
 
 
 def _k_quantized_conv_pc(data, weight, wrange, *rest, kernel, stride=(),
@@ -366,7 +413,7 @@ def _k_quantized_conv_pc(data, weight, wrange, *rest, kernel, stride=(),
 
 
 register("_contrib_quantized_conv_pc", _k_quantized_conv_pc,
-         aliases=("quantized_conv_pc",))
+         aliases=("quantized_conv_pc",), arg_names=_PC_ARGS, **_Q3)
 
 
 # -- quantized pooling / flatten ----------------------------------------------
@@ -411,7 +458,8 @@ def _k_quantized_pooling(data, min_data, max_data, kernel=(),
 
 
 register("_contrib_quantized_pooling", _k_quantized_pooling,
-         aliases=("quantized_pooling",))
+         aliases=("quantized_pooling",),
+         arg_names=("data", "min_data", "max_data"), **_Q3)
 
 
 def _k_quantized_flatten(data, min_data, max_data):
@@ -421,4 +469,5 @@ def _k_quantized_flatten(data, min_data, max_data):
 
 
 register("_contrib_quantized_flatten", _k_quantized_flatten,
-         aliases=("quantized_flatten",))
+         aliases=("quantized_flatten",),
+         arg_names=("data", "min_data", "max_data"), **_Q3)

@@ -222,4 +222,6 @@ def _k_rnn(data, parameters, state, state_cell=None, *, state_size,
     return x, h_n
 
 
-register("RNN", _k_rnn, aliases=("rnn",))
+register("RNN", _k_rnn, aliases=("rnn",),
+         arg_names=("data", "parameters", "state", "state_cell"),
+         train_aware=True, needs_rng=True, num_outputs=-1)

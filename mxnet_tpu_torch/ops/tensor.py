@@ -1,11 +1,12 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that BERT
 serving and training, the ported losses, ResNet, DeepAR, the Transformer
 and the recurrent cells run (reshape, flatten, slice_axis, take, pick,
-Embedding, arange, broadcast_lesser, broadcast_mul, expand_dims, squeeze,
-stack, concat, split, swapaxes, pad, flip, where, SequenceMask,
-SequenceReverse, the sum and mean reductions, the elementwise square,
-abs, relu, sigmoid, tanh, log and gammaln, and the uniform draw behind
-``F.random.uniform``)."""
+Embedding, arange, broadcast_lesser, expand_dims, squeeze, stack,
+concat, split, swapaxes, pad, flip, where, SequenceMask, SequenceReverse,
+the sum and mean reductions, the elementwise square, abs, relu, sigmoid,
+tanh, log and gammaln, and the uniform draw behind ``F.random.uniform``),
+and the names a symbolic graph emits: ``broadcast_add``/``sub``/``mul``/
+``div``/``power``, ``negative``, ``stop_gradient`` and ``make_loss``."""
 from __future__ import annotations
 
 import torch
@@ -65,7 +66,7 @@ def _k_take(a, indices, axis=0, mode="clip"):
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
 
 
-register("take", _k_take)
+register("take", _k_take, arg_names=("a", "indices"))
 
 
 def _k_embedding(data, weight, input_dim=None, output_dim=None,
@@ -79,7 +80,8 @@ def _k_embedding(data, weight, input_dim=None, output_dim=None,
     return weight[idx]
 
 
-register("Embedding", _k_embedding, aliases=("embedding",))
+register("Embedding", _k_embedding, aliases=("embedding",),
+         arg_names=("data", "weight"))
 
 
 def _device(ctx):
@@ -99,7 +101,7 @@ def _k_arange(start, stop=None, step=1.0, dtype=None, ctx=None):
                         device=_device(ctx))
 
 
-register("arange", _k_arange)
+register("arange", _k_arange, arg_names=(), nondiff=True)
 
 
 def _k_broadcast_lesser(lhs, rhs):
@@ -107,14 +109,60 @@ def _k_broadcast_lesser(lhs, rhs):
     return (lhs < rhs).to(lhs.dtype)
 
 
-register("broadcast_lesser", _k_broadcast_lesser)
+register("broadcast_lesser", _k_broadcast_lesser, arg_names=("lhs", "rhs"),
+         nondiff=True)
+
+
+# elementwise binary ops, broadcast (ref: ops/tensor.py:25-44); the
+# operators of ``mx.sym.Symbol`` emit these names
+def _k_broadcast_add(lhs, rhs):
+    return lhs + rhs
+
+
+def _k_broadcast_sub(lhs, rhs):
+    return lhs - rhs
 
 
 def _k_broadcast_mul(lhs, rhs):
     return lhs * rhs
 
 
-register("broadcast_mul", _k_broadcast_mul)
+def _k_broadcast_div(lhs, rhs):
+    return lhs / rhs
+
+
+def _k_broadcast_power(lhs, rhs):
+    return lhs ** rhs
+
+
+register("broadcast_add", _k_broadcast_add, arg_names=("lhs", "rhs"),
+         aliases=("broadcast_plus", "elemwise_add", "_add"))
+register("broadcast_sub", _k_broadcast_sub, arg_names=("lhs", "rhs"),
+         aliases=("broadcast_minus", "elemwise_sub", "_sub"))
+register("broadcast_mul", _k_broadcast_mul, arg_names=("lhs", "rhs"),
+         aliases=("elemwise_mul", "_mul"))
+register("broadcast_div", _k_broadcast_div, arg_names=("lhs", "rhs"),
+         aliases=("elemwise_div", "_div"))
+register("broadcast_power", _k_broadcast_power, arg_names=("lhs", "rhs"))
+register("negative", torch.neg)
+
+
+def _k_stop_gradient(data):
+    """The values, with no gradient flowing back (ref: ops/tensor.py:670)."""
+    return data.detach()
+
+
+register("stop_gradient", _k_stop_gradient, aliases=("BlockGrad",))
+
+
+def _k_make_loss(data):
+    """Marks a graph's head as a loss: the identity (ref: ops/tensor.py:
+    676); its gradient is the head gradient the executor feeds, ones by
+    default."""
+    return data
+
+
+register("make_loss", _k_make_loss, aliases=("MakeLoss",))
 
 register("square", torch.square)
 register("abs", torch.abs)
@@ -153,7 +201,7 @@ def _k_stack(*args, axis=0):
     return torch.stack(args, dim=axis)
 
 
-register("stack", _k_stack)
+register("stack", _k_stack, variadic=True)
 
 
 def _k_concat(*args, dim=1):
@@ -161,7 +209,7 @@ def _k_concat(*args, dim=1):
     return torch.cat(args, dim=dim)
 
 
-register("concat", _k_concat, aliases=("Concat",))
+register("concat", _k_concat, aliases=("Concat",), variadic=True)
 
 
 def _k_split(data, num_outputs, axis=1, squeeze_axis=False):
@@ -177,7 +225,8 @@ def _k_split(data, num_outputs, axis=1, squeeze_axis=False):
     return tuple(parts)
 
 
-register("split", _k_split, aliases=("SliceChannel", "split_v2"))
+register("split", _k_split, aliases=("SliceChannel", "split_v2"),
+         num_outputs=-1)
 
 
 def _k_flip(data, axis):
@@ -195,7 +244,7 @@ def _k_where(condition, x, y):
     return torch.where(condition != 0, x, y)
 
 
-register("where", _k_where)
+register("where", _k_where, arg_names=("condition", "x", "y"))
 
 
 def _time_lengths(data, sequence_length):
@@ -221,7 +270,8 @@ def _k_sequence_mask(data, sequence_length=None, use_sequence_length=False,
     return out.transpose(0, 1) if axis == 1 else out
 
 
-register("SequenceMask", _k_sequence_mask, aliases=("sequence_mask",))
+register("SequenceMask", _k_sequence_mask, aliases=("sequence_mask",),
+         arg_names=("data", "sequence_length"))
 
 
 def _k_sequence_reverse(data, sequence_length=None, use_sequence_length=False,
@@ -241,7 +291,7 @@ def _k_sequence_reverse(data, sequence_length=None, use_sequence_length=False,
 
 
 register("SequenceReverse", _k_sequence_reverse,
-         aliases=("sequence_reverse",))
+         aliases=("sequence_reverse",), arg_names=("data", "sequence_length"))
 
 
 def _k_random_uniform(low=0.0, high=1.0, shape=(1,), dtype=None, ctx=None):
@@ -255,7 +305,8 @@ def _k_random_uniform(low=0.0, high=1.0, shape=(1,), dtype=None, ctx=None):
                         generator=_random.generator(device))
 
 
-register("_random_uniform", _k_random_uniform)
+register("_random_uniform", _k_random_uniform, arg_names=(),
+         needs_rng=True, nondiff=True)
 
 
 def _k_swapaxes(data, dim1=0, dim2=1):
@@ -336,4 +387,4 @@ def _k_pick(data, index, axis=-1, keepdims=False, mode="clip"):
     return out if keepdims else out.squeeze(axis)
 
 
-register("pick", _k_pick)
+register("pick", _k_pick, arg_names=("data", "index"))

@@ -627,6 +627,22 @@ class Updater:
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
+    def update_many(self, indices, grads, weights):
+        """:meth:`__call__` on each ``(index, grad, weight)``, as one
+        :meth:`Optimizer.fused_update` (the same result bit for bit, a
+        rule call a group instead of one a parameter)."""
+        states = []
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state_multi_precision(
+                    i, w)
+            else:
+                self.states[i] = _states_to(self.states[i],
+                                            _tensor(w).device)
+            states.append(self.states[i])
+        return self.optimizer.fused_update(list(indices), list(weights),
+                                           list(grads), states)
+
     def get_states(self, dump_optimizer=False):
         return pickle.dumps({k: _states_to_np(v)
                              for k, v in self.states.items()})

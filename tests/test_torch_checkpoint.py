@@ -299,13 +299,6 @@ def test_load_parameters_raises_for_missing_extra_and_int8_files(tmp_path):
     np.testing.assert_array_equal(net.bias.data().detach().numpy(), b * 3)
 
 
-def test_export_raises_naming_its_slice():
-    net = tmx.gluon.nn.Dense(4, in_units=3)
-    net.initialize(ctx=CPU)
-    with pytest.raises(MXNetError, match="slice 9"):
-        net.export("model")
-
-
 # -- Trainer states across the packages ------------------------------------------
 
 

@@ -6,7 +6,12 @@ outputs agree within 1e-6 absolute.  The calibration statistics, the KL
 threshold search and ``quantize_net`` (calibrated ranges within 1e-6
 relative of the JAX package's) follow, then a quantized ``bert_tiny`` fed
 the JAX package's int8 model (its ``qweight``, ``wscale`` and ranges
-carried across by ``load_numpy_params``).
+carried across by ``load_numpy_params``).  ``quantize_model`` rewrites the
+same symbol in both packages (an FC graph, a no-bias convolution, a
+calibrated FC and an exported LeNet): the rewritten JSON node for node
+(calibrated ranges within 1e-6 relative), the offline-quantized weights
+equal, every int8/int32 value of the bound graph equal and its output
+within 1e-6 absolute.
 """
 import numpy as np
 import pytest
@@ -141,7 +146,10 @@ _CONVS = [dict(kernel=(3, 3)),
           dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1)),
           dict(kernel=(1, 1), num_group=2),
           dict(kernel=(3, 3), dilate=(2, 2), pad=(2, 2), no_bias=True),
-          dict(kernel=(3,), pad=(1,))]
+          dict(kernel=(3,), pad=(1,)),
+          dict(kernel=(3, 3, 3), pad=(1, 1, 1)),
+          dict(kernel=(3, 2, 3), stride=(2, 1, 2), dilate=(1, 2, 1),
+               num_group=2, no_bias=True)]
 
 
 @pytest.mark.parametrize("conv", _CONVS)
@@ -475,9 +483,186 @@ def test_quantize_net_bert_tiny_matches_jax():
         assert rel < BERT_REL_TOL, rel
 
 
-def test_quantize_model_raises_naming_the_symbolic_slice():
-    with pytest.raises(MXNetError, match="slice 9"):
-        tqz.quantize_model(None, {})
+# -- quantize_model: the symbolic graph rewrite --------------------------------
+
+
+def _jsym():
+    import mxnet_tpu as jmx
+    from mxnet_tpu.contrib import quantization as jqz
+
+    return jmx, jqz
+
+
+def _int8_internals(qsym):
+    """The graph's int8 values: every quantize, int8 product and requantize
+    node's outputs (the values and their ranges)."""
+    return [s for s in qsym.get_internals()
+            if s.name.endswith(("_quantize", "_int8", "_requantize"))
+            and s.list_arguments()]
+
+
+def _bind_outputs(mx, sym, args, aux, x):
+    feed = {k: v for k, v in dict(args, data=mx.nd.array(x)).items()
+            if k in sym.list_arguments()}
+    aux = {k: v for k, v in aux.items()
+           if k in sym.list_auxiliary_states()}
+    return [o.asnumpy() for o in sym.bind(
+        mx.cpu(), feed, grad_req="null", aux_states=aux).forward()]
+
+
+def _json_close(a, b):
+    """Two symbol JSONs node for node; float attributes (calibrated ranges,
+    from float32 statistics of each package's float32 graph) within 1e-6
+    relative."""
+    import json
+
+    na, nb = json.loads(a)["nodes"], json.loads(b)["nodes"]
+    assert [(n["op"], n["name"], n["inputs"]) for n in na] == \
+        [(n["op"], n["name"], n["inputs"]) for n in nb]
+    for x, y in zip(na, nb):
+        assert x["attrs"].keys() == y["attrs"].keys()
+        for k, v in x["attrs"].items():
+            if k.endswith("calib_range"):
+                np.testing.assert_allclose(float(v), float(y["attrs"][k]),
+                                           rtol=1e-6)
+            else:
+                assert v == y["attrs"][k], (x["name"], k)
+
+
+def _quantize_both(sym, args, aux, x, **kw):
+    """``quantize_model`` of one graph in both packages (the port's JSON
+    and arrays carried into the JAX package); the int8 internals and the
+    output of each, bound on the CPU.  Integer values must be equal;
+    float values (ranges, dequantized outputs) agree within FLOAT_ATOL
+    relative to their scale."""
+    jmx, jqz = _jsym()
+    cpu = tmx.cpu()
+    with cpu:
+        targs = {k: tmx.nd.array(v) for k, v in args.items()}
+        taux = {k: tmx.nd.array(v) for k, v in aux.items()}
+        q, qa, qx = tqz.quantize_model(sym, targs, taux, **kw)
+        tint = _bind_outputs(tmx, tmx.sym.Group(_int8_internals(q)), qa, qx,
+                             x)
+        tout = _bind_outputs(tmx, q, qa, qx, x)[0]
+    jq, jqa, jqx = jqz.quantize_model(
+        jmx.sym.fromjson(sym.tojson()),
+        {k: jmx.nd.array(v) for k, v in args.items()},
+        {k: jmx.nd.array(v) for k, v in aux.items()}, **kw)
+    _json_close(q.tojson(), jq.tojson())
+    assert sorted(qa) == sorted(jqa)
+    for k in qa:
+        np.testing.assert_array_equal(qa[k].asnumpy(), jqa[k].asnumpy())
+    jint = _bind_outputs(jmx, jmx.sym.fromjson(
+        tmx.sym.Group(_int8_internals(q)).tojson()), jqa, jqx, x)
+    jout = _bind_outputs(jmx, jq, jqa, jqx, x)[0]
+    assert len(tint) == len(jint) and tint
+    for t, j in zip(tint, jint):
+        assert t.dtype == j.dtype
+        if np.issubdtype(t.dtype, np.integer):
+            np.testing.assert_array_equal(t, j)
+        else:
+            np.testing.assert_allclose(t, j, rtol=FLOAT_ATOL, atol=0)
+    np.testing.assert_allclose(tout, jout, atol=FLOAT_ATOL, rtol=0)
+    return q, tout
+
+
+def test_quantize_model_fc_graph_matches_jax():
+    data = tmx.sym.var("data")
+    fc = tmx.sym.FullyConnected(data, num_hidden=8, name="fcq")
+    out = tmx.sym.FullyConnected(tmx.sym.Activation(fc, act_type="relu"),
+                                 num_hidden=4, name="fcq2")
+    args = {"fcq_weight": _rand(8, 12, seed=50, scale=0.5),
+            "fcq_bias": _rand(8, seed=51, scale=0.1),
+            "fcq2_weight": _rand(4, 8, seed=52, scale=0.5),
+            "fcq2_bias": _rand(4, seed=53, scale=0.1)}
+    x = _rand(6, 12, seed=54)
+    q, got = _quantize_both(out, args, {}, x, calib_mode="none")
+    with tmx.cpu():
+        ref = out.eval(tmx.cpu(), data=tmx.nd.array(x), **{
+            k: tmx.nd.array(v) for k, v in args.items()})[0].asnumpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 0.06
+    assert "_contrib_quantized_fully_connected" in q.tojson()
+
+
+def test_quantize_model_no_bias_conv_graph_matches_jax():
+    data = tmx.sym.var("data")
+    out = tmx.sym.Convolution(data, kernel=(3, 3), num_filter=8,
+                              no_bias=True, name="convq")
+    args = {"convq_weight": _rand(8, 3, 3, 3, seed=55, scale=0.2)}
+    x = _rand(4, 3, 10, 10, seed=56)
+    q, _ = _quantize_both(out, args, {}, x, calib_mode="none")
+    import json
+    node = [n for n in json.loads(q.tojson())["nodes"]
+            if n["op"] == "_contrib_quantized_conv"][0]
+    assert len(node["inputs"]) == 6 and node["attrs"]["no_bias"] == "True"
+
+
+def test_quantize_model_calibrated_fc_matches_jax():
+    data = tmx.sym.var("data")
+    out = tmx.sym.FullyConnected(data, num_hidden=8, name="fcq")
+    args = {"fcq_weight": _rand(8, 12, seed=57, scale=0.5),
+            "fcq_bias": _rand(8, seed=58, scale=0.1)}
+    calib = _rand(64, 12, seed=59)
+    for mode in ("naive", "entropy"):
+        q, _ = _quantize_both(out, args, {}, calib[:16], calib_mode=mode,
+                              calib_data=calib)
+        assert "_requantize" in q.tojson()
+
+
+def test_quantize_model_exported_lenet_matches_jax(tmp_path):
+    """An exported LeNet (the port's, from a seed) quantized with naive
+    calibration in both packages: every int8 and int32 value of the
+    graph equal, the output within FLOAT_ATOL; top-1 agreement with the
+    float32 net at the JAX test's limit (0.75)."""
+    cpu = tmx.cpu()
+    x = np.random.RandomState(60).rand(4, 1, 28, 28).astype(np.float32)
+    with cpu:
+        tmx.random.seed(61)
+        net = tmx.gluon.model_zoo.vision.lenet(prefix="lenet_")
+        net.initialize(tmx.init.Xavier(), ctx=cpu)
+        ref = net(tmx.nd.array(x)).asnumpy()
+        with tmx.name.NameManager():
+            net.export(str(tmp_path / "lenet"))
+        sym, ap, xp = tmx.model.load_checkpoint(str(tmp_path / "lenet"), 0)
+    args = {k: v.asnumpy() for k, v in ap.items()}
+    q, got = _quantize_both(sym, args, {}, x, calib_mode="naive",
+                            calib_data=x)
+    assert q.tojson().count('"_contrib_quantized_conv"') == 2
+    assert (got.argmax(1) == ref.argmax(1)).mean() >= 0.75
+
+
+def test_quantize_model_rejects_and_excludes():
+    data = tmx.sym.var("data")
+    out = tmx.sym.FullyConnected(tmx.sym.FullyConnected(
+        data, num_hidden=4, name="a"), num_hidden=2, name="b")
+    args = {"a_weight": tmx.nd.array(_rand(4, 3, seed=62), ctx=tmx.cpu()),
+            "a_bias": tmx.nd.array(_rand(4, seed=63), ctx=tmx.cpu()),
+            "b_weight": tmx.nd.array(_rand(2, 4, seed=64), ctx=tmx.cpu()),
+            "b_bias": tmx.nd.array(_rand(2, seed=65), ctx=tmx.cpu())}
+    with tmx.cpu():
+        q, qa, _ = tqz.quantize_model(out, args, excluded_sym_names=["b"])
+        with pytest.raises(MXNetError, match="needs calib_data"):
+            tqz.quantize_model(out, args, calib_mode="naive")
+        with pytest.raises(MXNetError, match="quantized_dtype"):
+            tqz.quantize_model(out, args, quantized_dtype="uint8")
+    assert "b_weight" in qa and "a_weight_quantize" in qa
+    assert q.tojson().count("_contrib_quantized_fully_connected") == 1
+
+
+@pytest.mark.parametrize("no_bias", [False, True])
+def test_quantized_conv_pc_3d_matches_jax(no_bias):
+    x = _i8(2, 3, 6, 7, 5, seed=66)
+    w = _i8(4, 3, 3, 3, 2, seed=67)
+    wr = np.abs(_rand(4, seed=68)) + 0.1
+    b = _rand(4, seed=69)
+    rest = ((np.float32(-1.0), np.float32(1.0)) if no_bias
+            else (b, np.float32(-1.0), np.float32(1.0)))
+    kw = dict(kernel=(3, 3, 2), pad=(1, 0, 1), stride=(1, 2, 1),
+              num_filter=4, no_bias=no_bias)
+    t = tq._k_quantized_conv_pc(_t(x), _t(w), _t(wr), *map(_t, rest), **kw)
+    j = _jop("_contrib_quantized_conv_pc")(_j(x), _j(w), _j(wr),
+                                           *map(_j, rest), **kw)
+    _same(t, j)
 
 
 # -- the port's own contracts -------------------------------------------------
@@ -684,6 +869,15 @@ def test_int8_matmul_pads_to_what_cublas_takes(cuda_device, m, k, n):
     assert torch.equal(got.to(torch.int64), want)
     padded = tq.int_mm_shape(m, k, n) != (m, k, n)
     assert tq.int_mm_counts == {"calls": 1, "padded": int(padded)}
+
+
+@pytest.mark.gpu
+def test_int8_conv_3d_on_card_equals_cpu(cuda_device):
+    x, w = _i8(2, 8, 7, 9, 9, seed=70), _i8(6, 4, 3, 3, 3, seed=71)
+    args = ((3, 3, 3), (2, 1, 2), (1, 2, 1), (1, 1, 1), 2)
+    cpu = tq._conv_i32(_t(x), _t(w), *args)
+    card = tq._conv_i32(_t(x).to(cuda_device), _t(w).to(cuda_device), *args)
+    assert torch.equal(card.cpu(), cpu)
 
 
 @pytest.mark.gpu
