@@ -39,7 +39,8 @@ from .symbol import AttrScope  # noqa: F401
 
 # tiers imported on first use, as the JAX package imports them: the int8
 # tier (``mx.contrib.quantization``) and the autotuner (``mx.tune``)
-_LAZY = {"contrib": ".contrib", "tune": ".tune"}
+_LAZY = {"contrib": ".contrib", "tune": ".tune",
+         "kvstore_server": ".kvstore_server"}
 
 
 def __getattr__(name):

@@ -1,8 +1,8 @@
 """Contrib neural-network blocks (ref: ``mxnet_tpu/gluon/contrib/nn.py``;
 python/mxnet/gluon/contrib/nn/basic_layers.py): ``Concurrent``,
-``HybridConcurrent``, ``Identity`` and ``SyncBatchNorm``.  ``MoEFFN``
-comes with part 3 of the distributed slice and ``SparseEmbedding`` with
-slice 9 (sparse arrays); both raise naming them.
+``HybridConcurrent``, ``Identity``, ``SyncBatchNorm`` and ``MoEFFN``.
+``SparseEmbedding`` comes with slice 9 (sparse arrays) and raises naming
+it.
 """
 from __future__ import annotations
 
@@ -86,10 +86,42 @@ class SyncBatchNorm(_nn.BatchNorm):
 
 
 class MoEFFN(HybridBlock):
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("gluon.contrib.nn.MoEFFN is not ported yet; it comes "
-                         "with part 3 of the distributed slice (slice 7, part "
-                         "3: moe; ROADMAP.md queue 1)")
+    """Mixture-of-Experts feed-forward (ref: contrib.nn.MoEFFN; Switch
+    top-1 or GShard top-2 routing by ``top_k``, static capacity, GShard's
+    einsum dispatch: ``parallel.moe``).
+
+    Input (..., d_model) -> (output shaped like it, aux_loss (1,)).  Add
+    ``aux_weight * aux_loss`` to the objective for load balancing.  Under
+    ``DataParallelTrainer(param_spec_fn=parallel.moe.
+    gluon_moe_param_spec_fn(mesh))`` on a mesh with an ``ep`` axis a rank
+    holds and computes E/ep experts (``parallel.moe``)."""
+
+    def __init__(self, num_experts, d_model, d_hidden,
+                 capacity_factor=1.25, top_k=1, weight_initializer=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if num_experts < 2:
+            raise ValueError("MoEFFN needs >= 2 experts")
+        self._cf = float(capacity_factor)
+        self._top_k = int(top_k)
+        self.router_weight = self.params.get(
+            "router_weight", shape=(d_model, num_experts),
+            init=weight_initializer)
+        self.w1 = self.params.get(
+            "w1", shape=(num_experts, d_model, d_hidden),
+            init=weight_initializer)
+        self.b1 = self.params.get("b1", shape=(num_experts, d_hidden),
+                                  init="zeros")
+        self.w2 = self.params.get(
+            "w2", shape=(num_experts, d_hidden, d_model),
+            init=weight_initializer)
+        self.b2 = self.params.get("b2", shape=(num_experts, d_model),
+                                  init="zeros")
+
+    def hybrid_forward(self, F, x, router_weight, w1, b1, w2, b2):
+        return F._contrib_MoEFFN(x, router_weight, w1, b1, w2, b2,
+                                 capacity_factor=self._cf,
+                                 top_k=self._top_k)
 
 
 class SparseEmbedding(HybridBlock):

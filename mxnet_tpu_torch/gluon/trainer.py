@@ -71,8 +71,12 @@ states and records ``"mesh_shape"``; :meth:`Trainer.load_states_dict`
 checks a saved shape against this one (``checkpoint.reshard.
 check_mesh_change``) and the next step slices what it loaded.
 
-What later slices bring raises :class:`MXNetError` here instead of being
-ignored: ``dist_async`` (part 3).
+``kvstore='dist_async'`` across processes pushes every gradient to the
+parameter servers, which update on each push (``update_on_kvstore``, its
+default there, as for every ``dist_*``), and pulls their current values;
+the JAX package's rules hold, caveat (q) included (``kvstore.py``).  The
+servers hold the optimizer states, so :meth:`Trainer.states_dict` raises
+there, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -127,12 +131,6 @@ def reset_trainer_step_stats():
         _step_stats[k] = 0
 
 
-def _later(what, part):
-    return MXNetError(f"Trainer: {what} is not ported yet; it comes with "
-                      f"part {part} of the distributed slice (slice 7, part "
-                      f"{part}; ROADMAP.md queue 1)")
-
-
 def _is_dist(kvstore):
     if isinstance(kvstore, _kvstore.KVStore):
         return kvstore._is_dist()
@@ -182,10 +180,6 @@ class Trainer:
             if kvstore not in _kvstore._VALID:
                 raise MXNetError(f"unknown kvstore type {kvstore!r}; "
                                  f"valid: {_kvstore._VALID}")
-            if kvstore in _kvstore._ASYNC:
-                raise _later(f"kvstore={kvstore!r} (asynchronous updates "
-                             "on a parameter server, update_on_kvstore="
-                             f"{update_on_kvstore})", 3)
         if compression_params:
             ctype = dict(compression_params).get("type", "2bit")
             if ctype not in ("2bit", "none"):
@@ -889,6 +883,12 @@ class Trainer:
         resumed Adam would otherwise restart its bias corrections);
         :func:`states_file_blob` pickles them as the files hold them."""
         self._init_kvstore()
+        kv = self._kvstore
+        if self._update_on_kvstore and kv is not None and kv._updater is None:
+            raise MXNetError(
+                "cannot snapshot optimizer states: this kvstore updates "
+                "server-side with no local updater (async PS); checkpoint "
+                "from rank 0 via kvstore.save_optimizer_states instead")
         counters = {"num_update": self._optimizer.num_update,
                     "index_update_count":
                         dict(self._optimizer._index_update_count)}

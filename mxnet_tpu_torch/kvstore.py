@@ -9,6 +9,15 @@ python/mxnet/kvstore.py).
 - ``'dist_sync'``/``'dist'``/``'dist_device_sync'``: also sums over the
   processes with ``parallel.dist.allreduce`` (``torch.distributed``; in
   one process the identity, as in the JAX package).
+- ``'dist_async'`` across processes: the parameter-server transport
+  (``parallel/ps.py``).  ``init`` is set-if-absent on the server (every
+  worker sends, the first wins), a push goes to the server with no
+  barrier and no cross-worker sum (the server runs the optimizer on it at
+  once, or adds it), a pull returns the server's current value, and only
+  rank 0 sends the optimizer.  As in the JAX package, ``_is_async`` holds
+  only for ``'dist_async'`` across processes: ``'dist_device_async'`` runs
+  as a synchronous ``dist`` store, and ``'dist_async'`` in one process as
+  the local one (ROADMAP, reference caveat (q)).
 
 Values and outs are NDArrays (or tensors, whose context is their
 device); each keeps its context, so ``cpu(0)`` and ``cpu(1)`` are two
@@ -45,8 +54,7 @@ as the JAX package's does (across processes ZeRO runs in
 (the JAX package's ``engine.flatten_pad``/``unflatten_array``).
 
 Not ported yet, each raising :class:`MXNetError` naming its slice:
-``dist_async``/``dist_device_async`` and the parameter-server client
-(slice 7, part 3), ``row_sparse_pull`` and sparse values (slice 9, with
+``row_sparse_pull`` and sparse values (slice 9, with
 ``ndarray/sparse``), and the traced forms (``traced_*``: the gradient
 sum inside a captured step, slice 7, part 2b, piece 4).  ``pushpull``
 calls the ``kvstore.pushpull`` fault point (``engine.fault_point``, a
@@ -69,7 +77,6 @@ def _later(what, where):
 
 _PART2 = ("slice 7, part 2b, piece 4 (the captured step with collectives "
           "inside it)")
-_PART3 = "part 3 of the distributed slice (slice 7, part 3)"
 _SPARSE = "slice 9 (ndarray/sparse)"
 
 
@@ -113,6 +120,7 @@ class KVStore:
         self._updater = None
         self._optimizer = None
         self._compression = None  # GradientCompression when enabled
+        self._ps = None           # PSClient of the dist_async transport
 
     @property
     def type(self):
@@ -140,6 +148,10 @@ class KVStore:
                 raise MXNetError(f"key {k} already initialized")
             v = _nd(vlist[0])
             self._store[k] = NDArray(v.data.detach().clone(), v._ctx)
+            if self._is_async():
+                # set-if-absent on the server: every worker sends, the
+                # first one wins (ref: KVStoreDist::InitImpl)
+                self._ps_client().init(str(k), self._store[k].asnumpy())
 
     # -- push / pull --------------------------------------------------------
 
@@ -158,6 +170,11 @@ class KVStore:
                          for slot, v in enumerate(vlist)]
             store = self._store[k]
             reduced = _reduce_sum(vlist, store.context)
+            if self._is_async():
+                # no barrier, no cross-worker sum: the server merges (or
+                # optimizer-updates) this worker's push at once
+                self._ps_client().push(str(k), reduced.asnumpy())
+                continue
             if self._is_dist():
                 reduced = self._dist_allreduce(k, reduced)
             if self._updater is not None:
@@ -175,6 +192,11 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError(f"key {k} has not been initialized")
             src = self._store[k]
+            if self._is_async():
+                # the server's current value: it may not hold the other
+                # workers' pushes in flight yet (async semantics)
+                _write(src, torch.from_numpy(
+                    self._ps_client().pull(str(k))).to(src.data.device))
             for o in olist:
                 o = _nd(o)
                 _write(o, _to(src.data, src.context, o.context))
@@ -213,9 +235,11 @@ class KVStore:
 
     def _fusion_eligible(self):
         # compression quantizes per (key, slot) with error feedback;
-        # update_on_kvstore applies the optimizer inside push: neither
-        # composes with packing
-        return self._updater is None and self._compression is None
+        # update_on_kvstore applies the optimizer inside push; dist_async
+        # pushes a key at a time to the servers: none composes with
+        # packing
+        return (self._updater is None and self._compression is None
+                and not self._is_async())
 
     def _split_fusable(self, keys, values, outs):
         fused, rest = [], []
@@ -384,8 +408,17 @@ class KVStore:
 
     def set_optimizer(self, optimizer):
         """Run ``optimizer`` on the summed pushed gradients (ref:
-        kvstore_dist_server.h set_optimizer)."""
+        kvstore_dist_server.h set_optimizer).  Under ``dist_async`` it is
+        pickled to the servers, which update on every push; only rank 0
+        sends it (a late worker sending again would wipe the server's
+        states, ref: python/mxnet/kvstore.py)."""
         self._optimizer = optimizer
+        if self._is_async():
+            from .parallel import dist
+
+            if dist.rank() == 0:
+                self._ps_client().set_optimizer(optimizer)
+            return
         self._updater = _opt.get_updater(optimizer)
 
     def set_gradient_compression(self, compression_params):
@@ -405,6 +438,40 @@ class KVStore:
 
     def _is_dist(self):
         return self._type.startswith("dist")
+
+    def _is_async(self):
+        """``dist_async`` rides the parameter-server transport (ref:
+        kvstore_dist_server.h sync_mode_=false): only across processes
+        and only by that name, as in the JAX package."""
+        from .parallel import dist
+
+        return self._type == "dist_async" and dist.is_multiprocess()
+
+    def _ps_client(self):
+        """The :class:`parallel.ps.PSClient` of this store, made at first
+        use: rank 0 starts an in-process server where the launcher made
+        none (no ``-s``), and the client retries while servers start."""
+        if self._ps is None:
+            import os
+            import time
+
+            from .parallel import dist, ps
+
+            if dist.rank() == 0 and "DMLC_PS_SERVER_PORT" not in os.environ:
+                ps.ensure_local_server()
+            endpoints = ps.server_endpoints()
+            last = None
+            for _ in range(60):  # servers may still be starting
+                try:
+                    self._ps = ps.PSClient(endpoints)
+                    break
+                except OSError as e:
+                    last = e
+                    time.sleep(0.25)
+            else:
+                raise MXNetError(
+                    f"cannot reach parameter servers {endpoints}: {last}")
+        return self._ps
 
     def _dist_allreduce(self, key, value):
         from .parallel import dist
@@ -518,7 +585,6 @@ def _reduce_sum(vlist, target_ctx):
 
 _VALID = ("local", "device", "nccl", "dist", "dist_sync", "dist_async",
           "dist_device_sync", "dist_device_async", "horovod", "teststore")
-_ASYNC = ("dist_async", "dist_device_async")
 
 
 def create(name="local"):
@@ -528,9 +594,6 @@ def create(name="local"):
         return name
     if name not in _VALID:
         raise MXNetError(f"unknown kvstore type {name!r}; valid: {_VALID}")
-    if name in _ASYNC:
-        raise _later(f"kvstore {name!r} (asynchronous updates on a "
-                     "parameter server)", _PART3)
     if name.startswith("dist"):
         from .parallel import dist
 

@@ -1,4 +1,4 @@
 """Operators: importing this package registers every op."""
-from . import (attention, conv_fused_ops, nn, quantization,  # noqa: F401
-               rnn, tensor)
+from . import (attention, contrib_ops, conv_fused_ops, nn,  # noqa: F401
+               quantization, rnn, tensor)
 from .registry import get, list_ops, register  # noqa: F401

@@ -198,6 +198,15 @@ def _state_list(state):
 # ---------------------------------------------------------------------------
 
 
+class _Mults:
+    """A parameter's learning-rate and weight-decay multipliers, as a
+    pickled optimizer's ``param_dict`` holds them."""
+
+    def __init__(self, lr_mult, wd_mult):
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+
+
 class Optimizer:
     """Base optimizer (ref: mx.optimizer.Optimizer).
 
@@ -240,6 +249,17 @@ class Optimizer:
         self._index_update_count = {}
         self._lr_mult = {}
         self._wd_mult = {}
+
+    def __getstate__(self):
+        """What ``pickle`` keeps (a ``dist_async`` store sends its
+        optimizer to the parameter servers): every attribute, with
+        ``param_dict``'s Parameters cut down to their ``lr_mult`` and
+        ``wd_mult``, so no tensor of the worker's devices crosses and the
+        servers, which stay off the card, apply the same multipliers."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {k: _Mults(p.lr_mult, p.wd_mult)
+                               for k, p in self.param_dict.items()}
+        return state
 
     # -- config -------------------------------------------------------------
 

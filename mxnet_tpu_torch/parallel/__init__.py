@@ -10,9 +10,11 @@ over ``mp`` (piece 2).  The ``pp`` axis is ``spmd``'s schedule
 (``stage_partition``, ``pipeline_apply``, ``PipelineTrainStep``; the old
 path ``pipeline``) and ``pipeline_lm``'s ``PipelineLMTrainer`` over dp x
 sp x tp x pp; the ``sp`` axis's standalone entries are ``ring_attention``
-and ``ulysses`` (piece 3).  The captured step with collectives (piece 4)
-comes last; ``moe``, ``ps`` and elastic resizing with part 3 (ROADMAP
-queue 1)."""
-from . import data_parallel, dist, mesh, spmd  # noqa: F401
+and ``ulysses`` (piece 3).  Part 3 brought ``moe`` (the
+Mixture-of-Experts FFN and the ``ep`` axis), ``ps`` (the parameter
+servers of ``dist_async``) and the elastic resize (``dist.shrink``,
+``dist.reinit``, ``spmd.mesh.pick_mesh_shape``).  The captured step with
+collectives (piece 4) comes last (ROADMAP queue 1)."""
+from . import data_parallel, dist, mesh, moe, ps, spmd  # noqa: F401
 from . import pipeline, pipeline_lm, ring_attention, ulysses  # noqa: F401
 from .data_parallel import DataParallelTrainer  # noqa: F401

@@ -23,7 +23,12 @@ class's collectives, this class writes them, each route decided at
   + dp_idx``); with ``accum_steps`` a rank's micro-batch ``i`` is its slice
   of global micro-batch ``i``;
 - a parameter sharded at rest is all-gathered over its axes for the
-  forward (the tp ranks of one data group compute the same rows);
+  forward (the tp ranks of one data group compute the same rows), except
+  one split over ``ep`` only (``EXPERT_AXES``): the MoE experts, which the
+  forward runs as this rank's shard (``parallel.moe``, whose ``ep`` group
+  comes from the :func:`parallel.mesh.data_scope` set around the forward
+  on a mesh of more than one rank); its gradient and optimizer states are
+  the shard's;
 - BatchNorm statistics are summed over the data axes inside the forward
   (``parallel.mesh.data_scope``), as the sharded batch's are in the JAX
   step;
@@ -87,6 +92,10 @@ from . import dist
 from . import mesh as mesh_mod
 
 _log = logging.getLogger("mxnet_tpu_torch.parallel.data_parallel")
+
+#: mesh axes over which a parameter is computed on as its shard: the
+#: expert-stacked MoE weights over ``ep`` (``parallel.moe``)
+EXPERT_AXES = ("ep",)
 
 
 def _f32_correction(beta, t):
@@ -246,6 +255,10 @@ class DataParallelTrainer:
                 "names it filters on (e.g. gluon_moe_param_spec_fn expects "
                 "the default 'moeffn' prefix)")
         self._specs = specs
+        # parameters split over expert axes only are computed on as their
+        # shards (parallel.moe), never gathered
+        self._local = [bool(sp) and set(mesh_mod.spec_mesh_axes(sp))
+                       <= set(EXPERT_AXES) for sp in specs]
         self._full_shapes = [tuple(v.shape) for v in values]
         with torch.no_grad():
             self._params = mesh_mod.place(mesh, values, specs)
@@ -504,12 +517,14 @@ class DataParallelTrainer:
             mesh_mod.gather_pieces(group, items, put, kind)
         return out
 
-    def _full_values(self):
+    def _full_values(self, compute=False):
         """The full parameters: a replicated master itself, a sharded one
-        all-gathered over its axes."""
+        all-gathered over its axes.  ``compute``: the values the step's
+        forward reads, where a master split over expert axes stays this
+        rank's shard."""
         values = list(self._params)
         sharded = [(i, m.detach()) for i, m in enumerate(self._params)
-                   if self._specs[i]]
+                   if self._specs[i] and not (compute and self._local[i])]
         if sharded:
             with torch.no_grad():
                 for i, full in self._gather(sharded, lambda i: self._specs[i],
@@ -546,8 +561,8 @@ class DataParallelTrainer:
         mean loss over the data group."""
         xs, y, sv = inputs[:-2], inputs[-2], inputs[-1]
         mesh = self.mesh
-        values = self._full_values()
-        scope = mesh_mod.data_scope(mesh) if mesh.data_size > 1 \
+        values = self._full_values(compute=True)
+        scope = mesh_mod.data_scope(mesh) if mesh.size > 1 \
             else contextlib.nullcontext()
         with scope:
             loss, grads = self._grads(xs, y, values)
@@ -561,7 +576,12 @@ class DataParallelTrainer:
             for i in idx:
                 spec, sspec = self._specs[i], self._state_specs[i]
                 raw, master = values[i].detach(), self._params[i]
-                if not sspec:
+                if self._local[i]:  # the shard itself, its own states
+                    new_raw, new_state = self._apply_opt(
+                        raw, grads[i], self._states[i], sv,
+                        mesh.group(mesh_mod.spec_mesh_axes(spec)))
+                    master.copy_(new_raw)
+                elif not sspec:
                     new_raw, new_state = self._apply_opt(
                         raw, grads[i], self._states[i], sv)
                     master.copy_(new_raw[self._sliced(i, spec)] if spec
@@ -588,7 +608,8 @@ class DataParallelTrainer:
                 self._params[i].copy_(full[self._sliced(i, spec)] if spec
                                       else full)
             for i, tr in enumerate(self._trainable):
-                if not tr and self._specs[i]:  # moving statistics, sharded
+                if not tr and self._specs[i] and not self._local[i]:
+                    # moving statistics, sharded
                     self._params[i].copy_(
                         values[i][self._sliced(i, self._specs[i])])
         return loss

@@ -31,11 +31,23 @@ and each collective's work is waited on with it.  A timeout or a
 transport error that a dead peer causes raises :class:`MXNetError` with
 the peer-death message.
 
-Elastic resizing (``reinit``, ``shrink``) comes with slice 7, part 3,
-and raises naming it.  Its lease directory, :class:`LeaseDir`, is here:
-the serving control plane's replica registry rides it
-(``serve/control_plane/rpc.py``).  :func:`world_mesh` is the
-``{"dp": world size}`` mesh over the ranks (``parallel.mesh``).
+The group's rendezvous store is a ``TCPStore`` that rank 0 hosts on the
+coordinator's port, made once a process; each group formed on it reads
+and writes under a prefix of its round (``mxtpu-round-<k>``).
+:func:`reinit` tears the group down and forms the next round's on the
+same store, at the same or (elastic) a smaller size, so re-forming never
+binds the port again while the old store lives.
+
+Elastic resizing (ref: ``mxnet_tpu/parallel/dist.py:348-432, 546-616``):
+:func:`shrink` agrees the survivors of a peer death and re-forms the group
+at their count, in one process as the virtual rehearsal and across
+processes through a lease-directory rendezvous (:class:`LeaseDir`, which
+the serving control plane's replica registry also rides) in the
+checkpoint directory.  Rank 0 hosts the store, so when rank 0 is among
+the dead the rendezvous raises, and the supervisor falls back to the
+resume marker, as the JAX package's does when its coordinator died.
+:func:`world_mesh` is the ``{"dp": world size}`` mesh over the ranks
+(``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -55,12 +67,9 @@ _log = logging.getLogger("mxnet_tpu_torch.parallel.dist")
 
 _initialized = False
 _backend = None
-
-
-def _later(what, part):
-    return MXNetError(f"parallel.dist: {what} is not ported yet; it comes "
-                      f"with part {part} of the distributed slice (slice 7, "
-                      f"part {part}; ROADMAP.md queue 1)")
+_store = None        # the TCPStore of this process's rendezvous
+_round = 0           # the group's round on it (reinit adds one)
+_last_dead = []      # ranks the last multi-process rendezvous left out
 
 
 def _collective_timeout():
@@ -116,9 +125,11 @@ def _peer_death_msg(prefix):
         f"{prefix} (rank {rank()} of {num_workers()} workers): a peer "
         "process is likely dead or partitioned. Check the other workers' "
         "logs. A job running under mxnet_tpu_torch.resilience.Supervisor "
-        "classifies this failure as peer_death, writes a resume marker "
-        "and exits cleanly (ResumeRequired), so a restart continues from "
-        "the last committed checkpoint. Manual recovery: restart the job "
+        "recovers automatically: it classifies this failure as "
+        "peer_death, shrinks the world to the survivors or re-inits the "
+        "process group where possible, and otherwise exits cleanly with a "
+        "resume marker (ResumeRequired), so a restart continues from the "
+        "last committed checkpoint. Manual recovery: restart the job "
         "and mxnet_tpu_torch.checkpoint.CheckpointManager(ckpt_dir)"
         ".restore(params=net, trainer=trainer) picks the newest complete "
         "snapshot.")
@@ -144,8 +155,10 @@ def choose_backend(world_size):
 def init(coordinator_address=None, num_processes=None, process_id=None):
     """Join the process group (ref: Postoffice::Start; the
     DMLC_PS_ROOT_URI env protocol of ``tools/launch.py``).  A no-op
-    without a coordinator, and after the first call."""
-    global _initialized, _backend
+    without a coordinator, and after the first call.  An explicit
+    ``num_processes`` and ``process_id`` win over the launcher's env
+    (:func:`reinit` passes them after an elastic shrink)."""
+    global _initialized, _backend, _store
     if _initialized:
         return
     # getenv gives the MXTPU_/MXNET_ spellings; the raw DMLC_* reads are
@@ -170,12 +183,17 @@ def init(coordinator_address=None, num_processes=None, process_id=None):
                   else 0)
         if backend == "nccl":
             torch.cuda.set_device(int(process_id))
-        kwargs = {}
-        if _timedelta() is not None:
-            kwargs["timeout"] = _timedelta()
+        timeout = _timedelta() or datetime.timedelta(minutes=30)
+        if _store is None:
+            host, _, port = coordinator_address.rpartition(":")
+            _store = torch.distributed.TCPStore(
+                host, int(port), int(num_processes),
+                is_master=int(process_id) == 0, timeout=timeout)
         torch.distributed.init_process_group(
-            backend, init_method=f"tcp://{coordinator_address}",
-            world_size=int(num_processes), rank=int(process_id), **kwargs)
+            backend, store=torch.distributed.PrefixStore(
+                f"mxtpu-round-{_round}", _store),
+            world_size=int(num_processes), rank=int(process_id),
+            timeout=timeout)
         _backend = backend
     _initialized = True
 
@@ -187,11 +205,12 @@ def backend():
 
 
 def shutdown():
-    """Leave the process group (a no-op in one process)."""
-    global _initialized, _backend
+    """Leave the process group and drop its store (a no-op in one
+    process); a later :func:`init` rendezvouses anew."""
+    global _initialized, _backend, _store, _round
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
-    _initialized, _backend = False, None
+    _initialized, _backend, _store, _round = False, None, None, 0
 
 
 def is_multiprocess():
@@ -288,17 +307,157 @@ def world_mesh():
 
 
 def reinit(num_processes=None, process_id=None):
-    raise _later("reinit (re-forming the process group after a peer "
-                 "died)", 3)
+    """Tear the process group down and form it again: the supervisor's
+    peer-death recovery (ref: ``reinit``, dist.py:348).  It succeeds only
+    when every surviving peer calls it too; a caller treats a raise as
+    "not possible in this process".
+
+    With ``num_processes`` and ``process_id`` the group re-forms at that
+    size and rank, the elastic shrink's leg (the launcher's env still
+    names the old world).  The next round's group forms on this process's
+    store under the round's prefix, so nothing binds the port again."""
+    global _initialized, _backend, _round
+    if torch.distributed.is_initialized():
+        try:
+            torch.distributed.destroy_process_group()
+        except Exception:  # noqa: BLE001 - a group a dead peer broke
+            pass
+    _initialized, _backend = False, None
+    _round += 1
+    if num_processes is not None:
+        init(num_processes=int(num_processes), process_id=int(process_id))
+    else:
+        init()
+
+
+def _rendezvous_timeout(timeout):
+    """``MXTPU_RENDEZVOUS_TIMEOUT`` (seconds, default 60) bounds the
+    elastic survivor rendezvous; an explicit argument wins."""
+    if timeout is not None:
+        return float(timeout)
+    return getenv("RENDEZVOUS_TIMEOUT", 60.0, float)
+
+
+def last_dead_ranks():
+    """The ranks (of the old numbering) that the last multi-process
+    rendezvous found gone: a real peer death names none in its error, so
+    the supervisor records these."""
+    return list(_last_dead)
 
 
 def shrink(dead_ranks=None, *, world=None, timeout=None,
-           rendezvous_dir=None, round_index=0):
-    raise _later("shrink (elastic resizing of the world)", 3)
+           rendezvous_dir=None, round_index=0, retry=None):
+    """The survivors of a peer death agree on the new world and the group
+    re-forms at its size (ref: ``shrink``, dist.py:372).  Returns
+    ``(new_world, new_rank)``.  Both forms call the ``dist.rendezvous``
+    fault point first, so a fault plan can fail the resize itself (the
+    supervisor retries it):
+
+    - one process (a rehearsal): the world is virtual, so the caller gives
+      ``world`` and the failure's ``dead_ranks``; the survivors are the
+      others and this process is rank 0 of the smaller world;
+    - several processes: a rendezvous in ``rendezvous_dir`` (the
+      checkpoint directory, which a multi-process checkpoint shares
+      already; :func:`_shrink_multiprocess`), then :func:`reinit` at the
+      survivors' count."""
+    dead = sorted({int(r) for r in (dead_ranks or ())})
+    _engine.fault_point("dist.rendezvous",
+                        world=int(world) if world is not None else -1,
+                        dead=len(dead), round_index=int(round_index))
+    if not is_multiprocess():
+        if world is None or not dead:
+            raise MXNetError(
+                "elastic shrink in a single process is a VIRTUAL-world "
+                "rehearsal: it needs the current world size and the "
+                "failure's dead rank list (a real multi-process job "
+                "discovers survivors through the rendezvous instead)")
+        survivors = [r for r in range(int(world)) if r not in set(dead)]
+        if not survivors:
+            raise MXNetError(
+                f"elastic shrink left no survivors (world {world}, "
+                f"dead {dead})")
+        return len(survivors), 0
+    return _shrink_multiprocess(dead, timeout, rendezvous_dir, round_index,
+                                retry)
 
 
-def _shrink_multiprocess(*args, **kwargs):
-    raise _later("elastic resizing across processes", 3)
+def _shrink_multiprocess(dead, timeout, rendezvous_dir, round_index,
+                         retry):
+    """The survivors' rendezvous (ref: dist.py:546): each writes its lease
+    ``elastic-rendezvous/round-<k>/rank-<r>.json`` and polls (the
+    :class:`~..resilience.retry.RetryPolicy` backoff) until the set of
+    fresh leases has held still for a settle window or
+    ``MXTPU_RENDEZVOUS_TIMEOUT`` expires.  The new world is the survivors'
+    count and their new ranks their sorted order; :func:`reinit` re-forms
+    the group at it and the new rank 0 removes the round's leases."""
+    global _last_dead
+    if not rendezvous_dir:
+        raise MXNetError(
+            "elastic shrink needs a shared rendezvous directory "
+            "(normally the CheckpointManager directory) for survivors "
+            "to discover each other; construct the Supervisor with "
+            "manager= or pass rendezvous_dir=")
+    if retry is None:
+        from ..resilience.retry import RetryPolicy
+
+        retry = RetryPolicy(max_retries=10 ** 6, base_delay=0.05,
+                            max_delay=1.0, jitter=0.25, seed=rank())
+    my = rank()
+    old_world = num_workers()
+    d = os.path.join(os.fspath(rendezvous_dir), "elastic-rendezvous",
+                     f"round-{int(round_index):04d}")
+    budget = _rendezvous_timeout(timeout)
+    # the survivor set must hold still for a settle window (a quarter of
+    # the budget, capped) so a straggler writing its lease late does not
+    # split the agreed world
+    settle = min(2.0, max(0.25, budget / 4))
+    # leases: each survivor rewrites its own file every poll and only
+    # files fresher than the lease window count, so an earlier
+    # incarnation's round-<k> files (the round index restarts at 0 after
+    # a relaunch) age out instead of joining as phantom survivors
+    leases = LeaseDir(d, prefix="rank", lease_sec=max(10.0, 4 * settle))
+    deadline = time.monotonic() + budget
+    seen, stable_since, attempt = set(), None, 0
+    while True:
+        ref = leases.publish(my, {"old_rank": my, "old_world": old_world})
+        now = time.monotonic()
+        present = set()
+        for key in leases.fresh(ref=ref):
+            try:
+                present.add(int(key))
+            except ValueError:   # not a rank lease
+                continue
+        present -= set(dead)
+        if present != seen:
+            seen, stable_since = present, now
+        if seen and stable_since is not None and now - stable_since >= settle:
+            break
+        if now >= deadline:
+            raise MXNetError(_peer_death_msg(
+                f"elastic rendezvous did not settle within "
+                f"MXTPU_RENDEZVOUS_TIMEOUT={budget:g}s "
+                f"(survivors seen: {sorted(seen)})"))
+        attempt += 1
+        time.sleep(min(retry.delay_for(attempt), max(deadline - now, 0.0)))
+    survivors = sorted(seen)
+    if my not in survivors:
+        raise MXNetError(
+            f"rank {my} was declared dead by the failure being recovered "
+            f"(dead ranks {dead}) — exiting instead of rejoining a world "
+            "that excludes it")
+    if 0 not in survivors:
+        raise MXNetError(_peer_death_msg(
+            "elastic rendezvous: rank 0, which hosts the group's store, is "
+            f"dead (survivors {survivors})"))
+    _last_dead = sorted(set(range(old_world)) - set(survivors))
+    new_world, new_rank = len(survivors), survivors.index(my)
+    reinit(num_processes=new_world, process_id=new_rank)
+    if new_rank == 0:
+        # the group has re-formed (reinit is collective): drop this
+        # round's leases so a relaunch reusing the round index starts
+        # from an empty rendezvous
+        leases.clear()
+    return new_world, new_rank
 
 
 class LeaseDir:

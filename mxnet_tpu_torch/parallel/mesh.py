@@ -78,7 +78,7 @@ def _one_rank_per_device(n):
 # -- traffic counters ---------------------------------------------------------
 
 _STAT_KINDS = ("grad", "param", "act", "stats", "loss", "broadcast", "p2p",
-               "a2a")
+               "a2a", "ep")
 _stats_lock = threading.Lock()
 _stats = {}
 
@@ -101,8 +101,9 @@ def comm_stats():
     products split over ``mp``, ``parallel.spmd.products``), ``stats``
     (BatchNorm statistics, forward and backward), ``loss``,
     ``broadcast``, ``p2p`` (the sends, receives and ring shifts of the
-    ``pp`` and ``sp`` axes; bytes sent) and ``a2a`` (all-to-alls; bytes
-    sent, this rank's own chunk included).  ``ms`` is host wall time from
+    ``pp`` and ``sp`` axes; bytes sent), ``a2a`` (all-to-alls; bytes
+    sent, this rank's own chunk included) and ``ep`` (the all-gathers of
+    the experts' inputs and outputs over ``ep``, ``parallel.moe``).  ``ms`` is host wall time from
     the call to the collective's completion (staging copies included)."""
     with _stats_lock:
         return {k: dict(v) for k, v in _stats.items()}
@@ -724,6 +725,14 @@ def data_scope(mesh):
         yield
     finally:
         _scope.mesh = prev
+
+
+def scope_mesh():
+    """The mesh of the innermost :func:`data_scope`, or None: the
+    ``DataParallelTrainer``'s step sets it on a mesh of more than one
+    rank, and the expert-parallel MoE (``parallel.moe``) takes its ``ep``
+    group from it."""
+    return getattr(_scope, "mesh", None)
 
 
 def stats_group(axis_name=None):

@@ -11,8 +11,8 @@ the ranks.  The axis alphabet is fixed so a typo is a loud error:
 - ``mp``: model/tensor parallel;
 - ``pp``: pipeline stages.
 
-``pick_mesh_shape`` (the elastic-resize rule) comes with part 3 of the
-distributed slice and raises naming it.
+``pick_mesh_shape`` is the elastic resize's rule: the shape a job runs
+at once its world has shrunk.
 """
 from __future__ import annotations
 
@@ -99,11 +99,56 @@ def make_spmd_mesh(shape, devices=None):
 
 
 def model_axes(shape):
-    """The non-data axes of a shape dict (ref: mesh.py:134)."""
+    """The non-data axes of a shape dict (ref: mesh.py:134): the ones an
+    elastic resize keeps, since live layouts are split over them."""
     return {a: n for a, n in shape.items() if a in ("mp", "pp")}
 
 
+def _product(sizes):
+    out = 1
+    for n in sizes:
+        out *= int(n)
+    return out
+
+
 def pick_mesh_shape(shape, new_world):
-    raise MXNetError("pick_mesh_shape (the elastic-resize shape rule) is not "
-                     "ported yet; it comes with part 3 of the distributed "
-                     "slice (slice 7, part 3; ROADMAP.md queue 1)")
+    """The mesh shape a resized job runs at (ref: mesh.py:140): every
+    model axis (``mp``, ``pp``) kept, the data axes shrunk to fit
+    ``new_world`` devices.
+
+    ``new_world`` must stay a multiple of the model axes' product: a rank
+    lost out of an ``mp`` or ``pp`` group leaves layouts that only a
+    restore at a smaller model parallelism can repartition, a decision for
+    an operator, not for a supervisor.  A ``dcn`` axis is kept where it
+    still divides the data budget and folded into ``dp`` otherwise (one
+    slice left)."""
+    shape = parse_mesh_shape(shape)
+    new_world = int(new_world)
+    if new_world < 1:
+        raise MXNetError(f"cannot shape a mesh over {new_world} devices")
+    model = _product(model_axes(shape).values())
+    if new_world % model:
+        raise MXNetError(
+            f"surviving world {new_world} is not a multiple of the "
+            f"model-axis product {model} "
+            f"({format_mesh_shape(model_axes(shape))}) — an elastic resize "
+            "only reshapes the data axes; shrink mp/pp explicitly (new "
+            "MXTPU_MESH_SHAPE + restore from checkpoint) to change model "
+            "parallelism")
+    data = new_world // model
+    out = {}
+    for a, n in shape.items():
+        if a in ("mp", "pp"):
+            out[a] = n
+        elif a == "dcn":
+            if data % n == 0 and data // n >= 1 and n <= data:
+                out[a] = n
+                data //= n
+            # else: the dcn axis folds into dp (one slice left)
+    ordered = {}
+    for a in AXIS_ORDER:
+        if a == "dp":
+            ordered["dp"] = data
+        elif a in out:
+            ordered[a] = out[a]
+    return {a: n for a, n in ordered.items() if a in shape or a == "dp"}

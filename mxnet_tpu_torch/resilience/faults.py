@@ -40,9 +40,6 @@ Fault-point catalog (site -> where it fires -> ctx keys):
                           worker process is forked
 ========================  =====================================  ==========
 
-The port calls every site but ``dist.rendezvous``, which comes with the
-elastic resize (slice 7, part 3).
-
 Actions:
 
 - ``kill``      — ``os.kill(os.getpid(), SIGTERM)``: a preemption
@@ -51,10 +48,10 @@ Actions:
 - ``raise``     — raise :class:`TransientFault` (classified by the
   supervisor as retriable: backoff + re-run from the last checkpoint).
 - ``peer_death`` — raise :class:`PeerDeathFault` carrying the spec's
-  ``dead_ranks``: the rank-loss rehearsal (classified ``peer_death``;
-  the port's supervisor restarts in one process and, across processes,
-  writes the resume marker and raises ``ResumeRequired``: the elastic
-  resize by the dead ranks comes with slice 7, part 3).
+  ``dead_ranks``: the rank-loss rehearsal for the elastic supervisor
+  (classified ``peer_death``; with the elastic resize on, the supervisor
+  shrinks the world by the dead ranks and resumes from the latest
+  checkpoint through the resharding restore).
 - ``delay`` / ``stall`` — sleep ``delay_s`` at the site (exercises the
   pipeline map timeout and the progress watchdog).
 - ``truncate``  — truncate a shard file inside the in-flight checkpoint

@@ -44,11 +44,17 @@ The supervisor classifies every failure that escapes ``train_fn``:
   ``"exit"`` (default, the real-preemption behavior) writes a resume
   marker and re-raises as :class:`ResumeRequired`.
 - **peer_death** (the ``parallel.dist`` bounded-failure-detector
-  message) — the JAX package's non-elastic path (its
-  ``MXTPU_ELASTIC=0``): in one process a restart; across processes a
-  clean exit with the resume marker and :class:`ResumeRequired`, since
-  ``dist.reinit`` and the elastic resize (``dist.shrink``,
-  ``pick_mesh_shape``) come with slice 7, part 3 of the port.
+  message) — with ``elastic`` (``MXTPU_ELASTIC``, on by default) a RESIZE:
+  the survivors agree on the new world (``dist.shrink``: the virtual
+  rehearsal in one process, the checkpoint directory's rendezvous across
+  processes), the group re-forms at it, ``MXTPU_MESH_SHAPE`` is rewritten
+  by ``parallel.spmd.mesh.pick_mesh_shape``, and ``train_fn`` runs again
+  at ``ctx.world``, restoring the latest checkpoint.  A resize that fails
+  transiently is retried under the :class:`RetryPolicy`; one that cannot
+  happen (retries spent, rank 0 dead) falls back to the non-elastic path:
+  ``dist.reinit()`` at the same world, else a clean exit with the resume
+  marker and :class:`ResumeRequired`.  A world below ``min_world`` exits
+  with the marker, whose ``topology`` sizes the relaunch.
 - **corrupt_checkpoint** — restart; ``CheckpointManager.restore()``
   itself falls back to the previous retained step (loudly).
 - **watchdog** — no ``ctx.step_done`` within ``watchdog_sec``: the
@@ -300,10 +306,11 @@ class RunContext:
 
     attempt : 0 on the first invocation, +1 per recovery
     manager : the supervisor's CheckpointManager (or None)
-    world   : the job's world size (the port resizes no world yet:
-              the elastic resize comes with slice 7, part 3)
-    dead_ranks : ranks lost so far (always empty until then)
-    resizes : elastic resize events so far (0 until then)
+    world   : the CURRENT world size — after an elastic resize the
+              surviving size; an elastic ``train_fn`` sizes its mesh or
+              replicas from it on every invocation
+    dead_ranks : ranks lost so far (as numbered at failure time)
+    resizes : elastic resize events so far
     """
 
     def __init__(self, supervisor):
@@ -327,19 +334,24 @@ class RunContext:
         return self._sup._resizes
 
     def mesh_shape(self, world=None):
-        """The spmd mesh shape THIS invocation should train at, or
-        None when no multi-axis mesh is configured: the configured
-        ``MXTPU_MESH_SHAPE``.  Asked for another ``world`` than the
-        job's, it applies ``parallel.spmd.mesh.pick_mesh_shape``, which
-        comes with slice 7, part 3 (and raises until then)."""
+        """The spmd mesh shape THIS invocation should train at, or None
+        when no multi-axis mesh is configured (ref: supervisor.py:262).
+
+        Starts from ``MXTPU_MESH_SHAPE`` (which the supervisor rewrites
+        after every elastic resize) and re-applies
+        ``parallel.spmd.mesh.pick_mesh_shape`` to the current ``world``
+        (or the one given): model axes kept, data axes shrunk to the
+        survivors.  An elastic mesh ``train_fn`` builds its Trainer with
+        ``mesh_shape=ctx.mesh_shape()`` on every invocation."""
         from ..parallel.spmd.mesh import (mesh_shape_from_env,
                                           pick_mesh_shape)
 
         shape = mesh_shape_from_env()
         if shape is None:
             return None
-        if world is not None and int(world) != self.world:
-            shape = pick_mesh_shape(shape, int(world))
+        world = self.world if world is None else int(world)
+        if world:
+            shape = pick_mesh_shape(shape, world)
         return shape
 
     def step_done(self, step, save=None):
@@ -393,15 +405,18 @@ class Supervisor:
                     raise :class:`ResumeRequired`, the real-preemption
                     behavior) or ``'resume'`` (restart in-process, the
                     chaos-rehearsal behavior)
-    elastic       : the elastic resize on peer death comes with slice
-                    7, part 3: ``True`` raises; ``None``/``False`` take
-                    the non-elastic path (the JAX package's
-                    ``MXTPU_ELASTIC=0``), whatever ``MXTPU_ELASTIC`` says
+    elastic       : treat classified peer death as a RESIZE event —
+                    shrink the world to the survivors and resume from
+                    the latest checkpoint (``MXTPU_ELASTIC``, default
+                    on; the non-elastic path where the resize cannot
+                    happen)
     world         : the job's world size; defaults to
-                    ``dist.num_workers()``
-    min_world, rendezvous_timeout : the elastic resize's bounds
-                    (``MXTPU_MIN_WORLD``, ``MXTPU_RENDEZVOUS_TIMEOUT``),
-                    kept for the JAX signature
+                    ``dist.num_workers()``.  Rehearsals pass the VIRTUAL
+                    world here (replica contexts standing in for ranks)
+    min_world     : never resize below this many ranks — exit with the
+                    resume marker instead (``MXTPU_MIN_WORLD``, default 1)
+    rendezvous_timeout : the survivors' rendezvous bound, seconds
+                    (``MXTPU_RENDEZVOUS_TIMEOUT``, default 60)
     """
 
     def __init__(self, manager=None, *, max_restarts=None,
@@ -422,14 +437,8 @@ class Supervisor:
         self.resume_marker = resume_marker or (
             os.path.join(manager.directory, RESUME_MARKER)
             if manager is not None else RESUME_MARKER)
-        if elastic:
-            raise MXNetError(
-                "Supervisor(elastic=True): the elastic resize on peer "
-                "death (dist.shrink, reinit, pick_mesh_shape) is not "
-                "ported yet; it comes with slice 7, part 3 of the port. "
-                "Without it a peer death writes the resume marker and "
-                "raises ResumeRequired")
-        self.elastic = False
+        self.elastic = bool(getenv("ELASTIC", True, bool)
+                            if elastic is None else elastic)
         self.min_world = int(getenv("MIN_WORLD", 1, int)
                              if min_world is None else min_world)
         self.rendezvous_timeout = float(
@@ -561,7 +570,17 @@ class Supervisor:
                     "preempted; restarting in-process (restart %d/%d)",
                     restarts, self.max_restarts)
             elif kind == "peer_death":
-                if restarts >= self.max_restarts or not self._try_reinit():
+                resized = False
+                if self.elastic and restarts < self.max_restarts:
+                    resized = self._try_resize(exc)
+                if resized:
+                    restarts += 1
+                    logger.warning(
+                        "peer death; world resized to %d survivor(s), "
+                        "restarting (restart %d/%d): %s",
+                        self._world, restarts, self.max_restarts, exc)
+                elif restarts >= self.max_restarts \
+                        or not self._try_reinit():
                     self._write_resume_marker("peer_death", exc)
                     raise ResumeRequired(
                         f"peer death and the process group could not be "
@@ -569,11 +588,12 @@ class Supervisor:
                         f"written to {self.resume_marker} — restart the "
                         f"whole job to resume from the last checkpoint "
                         f"(original failure: {exc})") from exc
-                restarts += 1
-                logger.warning(
-                    "peer death; process group re-initialized, "
-                    "restarting (restart %d/%d): %s",
-                    restarts, self.max_restarts, exc)
+                else:
+                    restarts += 1
+                    logger.warning(
+                        "peer death; process group re-initialized, "
+                        "restarting (restart %d/%d): %s",
+                        restarts, self.max_restarts, exc)
             else:  # watchdog / corrupt_checkpoint / overloaded / deadline
                 if restarts >= self.max_restarts:
                     raise exc
@@ -690,13 +710,115 @@ class Supervisor:
             logger.warning("could not write resume marker %s: %s",
                            self.resume_marker, e)
 
+    # -- elastic resize ------------------------------------------------------
+
+    def _try_resize(self, exc):
+        """Shrink the world to the survivors of ``exc`` and have the next
+        ``train_fn`` invocation run at the new size (ref: supervisor.py:
+        646).  True when the resize happened; False falls back to the
+        non-elastic path (no dead-rank information in one process, a
+        rendezvous that failed, rank 0 dead).  The whole shrink,
+        rendezvous and re-init, is retried under the :class:`RetryPolicy`,
+        so a transient failure inside it is recovered.  A surviving world
+        below ``min_world`` raises :class:`ResumeRequired` after writing
+        the resume marker (whose ``topology`` sizes the relaunch).  The
+        dead ranks are those ``exc`` names, else those the rendezvous
+        found gone (``dist.last_dead_ranks``: a real peer death's error
+        names none)."""
+        from ..parallel import dist
+
+        dead = sorted({int(r) for r in
+                       getattr(exc, "dead_ranks", ()) or ()})
+
+        def _attempt():
+            return dist.shrink(
+                dead_ranks=dead, world=self._world,
+                timeout=self.rendezvous_timeout,
+                rendezvous_dir=(self.manager.directory
+                                if self.manager is not None else None),
+                round_index=self._resizes)
+
+        def _on_retry(attempt, e):
+            _stats.add_retry("transient")
+            logger.warning(
+                "transient failure inside the elastic resize (retry "
+                "%d/%d): %s", attempt, self.retry.max_retries, e)
+
+        multi = dist.is_multiprocess()
+        try:
+            new_world, new_rank = self.retry.call(
+                _attempt, retriable=(TransientFault,), on_retry=_on_retry)
+        except Exception as e:  # noqa: BLE001 — any failure = fallback
+            logger.warning("elastic resize unavailable (%s); falling "
+                           "back to reinit-or-exit", e)
+            return False
+        if not dead and multi:
+            dead = dist.last_dead_ranks()
+        lost = max((self._world or 0) - new_world, 0) or len(dead)
+        self._dead_ranks.extend(dead)
+        if new_world < max(1, self.min_world):
+            self._world = new_world
+            self._write_resume_marker("peer_death", exc,
+                                      dead_applied=True)
+            raise ResumeRequired(
+                f"elastic resize would leave {new_world} rank(s), "
+                f"below MXTPU_MIN_WORLD={self.min_world}; resume "
+                f"marker (with the surviving topology) written to "
+                f"{self.resume_marker} — relaunch at an acceptable "
+                "world size to resume from the last checkpoint") \
+                from exc
+        self._world = new_world
+        self._resizes += 1
+        _stats.add("resizes")
+        _stats.add("ranks_lost", lost)
+        mesh_txt = self._resize_mesh_shape(new_world)
+        _tracer.instant("resilience.resize", cat="resilience",
+                        world=new_world, new_rank=new_rank,
+                        ranks_lost=lost, resizes=self._resizes,
+                        mesh_shape=mesh_txt)
+        return True
+
+    def _resize_mesh_shape(self, new_world):
+        """Pick the mesh shape the smaller job trains at and publish it
+        through ``MXTPU_MESH_SHAPE`` (ref: supervisor.py:710), so the next
+        invocation's Trainer (configured by the env or by
+        ``ctx.mesh_shape()``) builds it: model axes kept, data axes shrunk
+        (``parallel.spmd.mesh.pick_mesh_shape``).  A survivor count that
+        breaks the model axes' product raises :class:`ResumeRequired`.
+        Returns the new spec text, or None without a configured mesh."""
+        from ..base import setenv
+        from ..parallel.spmd.mesh import (format_mesh_shape,
+                                          mesh_shape_from_env,
+                                          pick_mesh_shape)
+
+        shape = mesh_shape_from_env()
+        if shape is None:
+            return None
+        try:
+            new_shape = pick_mesh_shape(shape, new_world)
+        except MXNetError as e:
+            self._write_resume_marker("peer_death", e, dead_applied=True)
+            raise ResumeRequired(
+                f"elastic resize to {new_world} rank(s) cannot keep the "
+                f"model axes of mesh {format_mesh_shape(shape)}: {e}. "
+                f"Resume marker written to {self.resume_marker} — "
+                "relaunch with an explicit smaller MXTPU_MESH_SHAPE to "
+                "reshard from the last checkpoint") from e
+        txt = format_mesh_shape(new_shape)
+        if new_shape != shape:
+            setenv("MESH_SHAPE", txt)
+            logger.info("elastic resize: mesh shape %s -> %s (model axes "
+                        "preserved)", format_mesh_shape(shape), txt)
+        return txt
+
     # -- peer-death re-init --------------------------------------------------
 
     def _try_reinit(self):
         """Best-effort process-group re-init.  True in a single process
         (nothing to re-init — the rehearsal path); multi-process, tries
-        ``dist.reinit()``, which raises in the port until slice 7, part
-        3 — so False routes to the clean-exit path."""
+        ``dist.reinit()``, which only helps when every surviving peer (and
+        any replacement) does the same — otherwise False routes to the
+        clean-exit path."""
         from ..parallel import dist
 
         try:

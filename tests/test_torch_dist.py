@@ -90,10 +90,16 @@ def test_repository_launcher_starts_the_port_workers(tmp_path):
 
 
 def test_port_launcher_refuses_what_later_parts_bring():
+    """The ssh, mpi and k8s launchers and -s came with slice 7, part 3
+    (tests/test_torch_launch.py); what the launcher still refuses is what
+    the JAX tool refuses: servers beside another launcher, and ssh
+    without a host file."""
     from mxnet_tpu_torch.tools import launch
 
     for argv in (["-n", "2", "--launcher", "ssh", "true"],
-                 ["-n", "2", "-s", "1", "true"]):
+                 ["-n", "2", "-s", "1", "--launcher", "mpi", "true"],
+                 ["-n", "2", "-s", "1", "--launcher", "ssh", "-H", "h",
+                  "true"]):
         with pytest.raises(SystemExit):
             launch.main(argv)
     env = launch.worker_env(4, 3, 1234, base={})

@@ -240,9 +240,24 @@ def test_optimizer_state_files_load_in_both_packages(tmp_path, opt, args):
 
 
 def test_what_later_slices_bring_raises_naming_them():
+    # the async types came with slice 7, part 3: in one process both run
+    # as the synchronous store, as in the JAX package (caveat (q))
+    import mxnet_tpu as jmx
+
     for name in ("dist_async", "dist_device_async"):
-        with pytest.raises(MXNetError, match="slice 7, part 3"):
-            tkv.create(name)
+        kv, jkv = tkv.create(name), jmx.kv.create(name)
+        assert kv.type == jkv.type == name
+        assert kv._is_async() is jkv._is_async() is False
+        kv.init(3, _t(np.full(2, 5.0, np.float32), 0))
+        jkv.init(3, jmx.nd.array(np.full(2, 5.0, np.float32)))
+        g = np.array([1.0, -2.0], np.float32)
+        kv.push(3, [_t(g, 0), _t(g, 1)])
+        jkv.push(3, [jmx.nd.array(g), jmx.nd.array(g)])
+        out, jout = _t(np.zeros(2, np.float32), 0), \
+            jmx.nd.array(np.zeros(2, np.float32))
+        kv.pull(3, out=out)
+        jkv.pull(3, out=jout)
+        np.testing.assert_array_equal(out.asnumpy(), jout.asnumpy())
     with pytest.raises(MXNetError, match="unknown kvstore"):
         tkv.create("bogus")
     kv = tkv.create("device")
@@ -268,11 +283,15 @@ def test_what_later_slices_bring_raises_naming_them():
     with pytest.raises(MXNetError, match="no optimizer"):
         kv.save_optimizer_states("unused")
     from mxnet_tpu_torch.parallel import dist
-    # elastic resizing comes with slice 7, part 3 (its LeaseDir is ported:
-    # the control plane's registry, tests/test_torch_control_plane.py)
-    for call in (dist.reinit, dist.shrink, dist._shrink_multiprocess):
-        with pytest.raises(MXNetError, match="slice 7, part 3"):
-            call()
+    # elastic resizing came with slice 7, part 3: in one process reinit
+    # has no group to re-form, and shrink is the virtual rehearsal, which
+    # needs the dead ranks (tests/test_torch_elastic.py)
+    dist.reinit()
+    assert not dist.is_multiprocess()
+    with pytest.raises(MXNetError, match="dead rank"):
+        dist.shrink()
+    with pytest.raises(MXNetError, match="rendezvous directory"):
+        dist._shrink_multiprocess([1], 1.0, None, 0, None)
 
 
 def test_dist_sync_in_one_process_is_the_device_store():

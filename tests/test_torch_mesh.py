@@ -390,6 +390,13 @@ def test_sync_batchnorm_block_matches_jax():
     cat.initialize(ctx=tmx.cpu())
     y = cat(tmx.nd.array(np.ones((2, 3), np.float32), ctx=tmx.cpu()))
     assert y.shape == (2, 5)
-    for cls in (nn.MoEFFN, nn.SparseEmbedding):
-        with pytest.raises(tmx.base.MXNetError, match="not ported"):
-            cls(4, 8)
+    # MoEFFN came with slice 7, part 3 (tests/test_torch_moe.py): its
+    # parameters are the JAX block's; SparseEmbedding waits for slice 9
+    import mxnet_tpu as jmx
+
+    moe, jmoe = nn.MoEFFN(4, 8, 16), jmx.gluon.contrib.nn.MoEFFN(4, 8, 16)
+    assert {k: p.shape for k, p in
+            moe._collect_params_with_prefix().items()} == {
+        k: p.shape for k, p in jmoe._collect_params_with_prefix().items()}
+    with pytest.raises(tmx.base.MXNetError, match="not ported"):
+        nn.SparseEmbedding(4, 8)

@@ -275,6 +275,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.telemetry.flight\n"
             "import mxnet_tpu_torch.resilience.supervisor\n"
             "import mxnet_tpu_torch.resilience.faults\n"
+            "import mxnet_tpu_torch.parallel.moe, mxnet_tpu_torch.parallel.ps\n"
+            "import mxnet_tpu_torch.kvstore_server\n"
+            "import mxnet_tpu_torch.ops.contrib_ops\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -300,7 +303,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "utils/native_engine.py", "ndarray/sparse.py",
                 "gluon/model_zoo/vision/others.py", "image/image.py",
                 "image/detection.py", "utils/native.py", "data/bert.py",
-                "tools/im2rec.py"):
+                "tools/im2rec.py", "parallel/moe.py", "parallel/ps.py",
+                "kvstore_server.py", "ops/contrib_ops.py",
+                "tools/launch.py"):
         assert f"mxnet_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

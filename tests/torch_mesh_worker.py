@@ -613,10 +613,11 @@ def case_card_zero(mx, out):
 
 
 def case_peer_death(mx, out):
-    """The supervisor's non-elastic peer-death path across the ranks: a
-    ``peer_death`` fault at the third ``dist.allreduce`` on every rank;
-    each rank writes its resume marker and gets ``ResumeRequired``
-    (``tests/test_torch_resilience.py``)."""
+    """The supervisor's non-elastic peer-death path across the ranks
+    (``elastic=False`` with no restart left, as the JAX package's test of
+    it runs): a ``peer_death`` fault at the third ``dist.allreduce`` on
+    every rank; each rank writes its resume marker and gets
+    ``ResumeRequired`` (``tests/test_torch_resilience.py``)."""
     from mxnet_tpu_torch import engine, resilience
     from mxnet_tpu_torch.parallel import dist
 
@@ -637,7 +638,8 @@ def case_peer_death(mx, out):
     with resilience.armed(plan):
         try:
             got = resilience.Supervisor(on_preemption="resume",
-                                        resume_marker=marker).run(train)
+                                        resume_marker=marker, elastic=False,
+                                        max_restarts=0).run(train)
         except resilience.ResumeRequired as e:
             got = str(e)
     out.note("peer_death", "result", got)
