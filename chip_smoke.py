@@ -536,9 +536,29 @@ Phases (any failure ends the run with a non-zero exit and no result):
     bit-identical, and the seconds from the failure to the first resumed
     step by part (detection, rendezvous, re-init, restore).
 
+41. the imperative NDArray (gpu(0), fp32, TF32 off): (a) a BERT-base
+    encoder layer (768 units, 12 heads, FFN 3072, b=8 x s=512) written in
+    ``mx.nd`` calls on NDArrays (``nd.multihead_attention``, ``+``,
+    ``nd.LayerNorm``, ``nd.FullyConnected``, ``nd.LeakyReLU(act_type=
+    'gelu')``), its weights a ``BERTEncoderLayer``'s with
+    ``attach_grad()``, forward and backward under ``record()``: the output
+    and every weight gradient within ``IMP_TOL`` of their largest value
+    against the block's eager run, one launch each of the flash forward,
+    dQ and dK/dV kernels and no plain call, every result an NDArray on
+    gpu(0); (b) an MLP (4096 x 768 from numpy, 3072 hidden, 10 classes of
+    a fixed random teacher; weights from ``nd.random.normal(scale=0.02)``)
+    trained ``IMP_STEPS`` steps by ``w[:] = w - lr * w.grad``: the losses
+    finite and the last below the first, the first ``IMP_CPU_STEPS``
+    within ``IMP_CPU_RTOL`` relative of the same loop on cpu() from the
+    same weights, each weight's tensor, address and variable status kept
+    through every update, the accuracy a Python float; the step median is
+    printed; (c) the 10 samplers of ``mx.random`` on gpu(0): reseeding
+    gives the same bits, the JAX package's shapes, dtypes and contexts,
+    and the moments of ``IMP_DRAWS`` draws within 6 standard errors.
+
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
 24, 25, 21, 22, 38, 39, 40, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36,
-37 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2 ranks and a
+37, 41 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2 ranks and a
 parameter server; 21b, 2+ cards only, in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
@@ -899,6 +919,19 @@ MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_CF = 12, 8, 512, 5, 1.25
 MOE_LR, MOE_AUX = 3e-4, 0.01
 MOE_CHECK_BATCH, MOE_CHECK_SEQ, MOE_TOL, MOE_TIE_GAP = 2, 128, 1e-4, 1e-6
 MOE_EP_LAYERS, MOE_EP_STEPS, MOE_EP_RTOL = 4, 3, 1e-5
+# phase 41: the imperative NDArray.  (a) one BERT-base encoder layer
+# (768 units, 12 heads, FFN 3072) at b=8 x s=512 written in mx.nd calls,
+# its output and weight gradients within IMP_TOL of their largest value
+# against the BERTEncoderLayer block's eager run (the same registered
+# functions in the same order); (b) an MLP (4096 x 768 inputs, 3072 hidden,
+# 10 classes from a fixed random teacher) trained IMP_STEPS steps by
+# ``w[:] = w - lr * w.grad``, its first IMP_CPU_STEPS losses within
+# IMP_CPU_RTOL relative of the same loop on cpu() (products summed in
+# other orders); (c) the samplers over IMP_DRAWS draws each
+IMP_B, IMP_S, IMP_UNITS, IMP_HEADS, IMP_FFN, IMP_TOL = 8, 512, 768, 12, \
+    3072, 1e-5
+IMP_ROWS, IMP_CLASSES, IMP_STEPS, IMP_LR = 4096, 10, 20, 0.1
+IMP_CPU_STEPS, IMP_CPU_RTOL, IMP_DRAWS = 3, 1e-4, 1 << 20
 # phases 39-40: BERT-base on phase 20's batch, 3 dist_async steps a rank,
 # then 6 dist_sync steps under the elastic supervisor (save after step 2,
 # rank 1 leaves at step 4 with code 0: the launcher ends the job when a
@@ -9616,6 +9649,250 @@ def async_elastic(mx, card, d, data, text, returncode):
             "elastic_bert_train": e0["launches"]}
 
 
+def nd_encoder_layer(mx, x, w, num_heads):
+    """A BERT encoder layer written in ``mx.nd`` calls on NDArrays: the
+    fused attention, residual ``+``, LayerNorm, the FFN's products and
+    GELU (``w``: the layer's parameters by name)."""
+    nd = mx.nd
+    att = nd.multihead_attention(x, x, x, w["attn_in_weight"],
+                                 w["attn_in_bias"], w["attn_out_weight"],
+                                 w["attn_out_bias"], num_heads=num_heads)
+    h = nd.LayerNorm(x + att, w["attn_ln.gamma"], w["attn_ln.beta"],
+                     axis=-1, eps=1e-5)
+    f = nd.FullyConnected(h, w["ffn1.weight"], w["ffn1.bias"],
+                          num_hidden=w["ffn1.weight"].shape[0], flatten=False)
+    f = nd.FullyConnected(nd.LeakyReLU(f, act_type="gelu"), w["ffn2.weight"],
+                          w["ffn2.bias"], num_hidden=w["ffn2.weight"].shape[0],
+                          flatten=False)
+    return nd.LayerNorm(h + f, w["ffn_ln.gamma"], w["ffn_ln.beta"], axis=-1,
+                        eps=1e-5)
+
+
+def nd_mlp(mx, ctx, x, y, w1, w2, steps, lr):
+    """The MLP trained in NDArray arithmetic: ``steps`` steps of
+    ``w[:] = w - lr * w.grad`` from the weights ``w1``, ``w2`` (NDArrays,
+    or numpy values for ``ctx``).  Returns the losses, the step times (ms),
+    the final accuracy, and whether each weight kept its tensor, its
+    address and its variable status after every update."""
+    import torch
+
+    from mxnet_tpu_torch import autograd as ag
+
+    nd = mx.nd
+    W = [w if isinstance(w, nd.NDArray) else nd.array(w, ctx=ctx)
+         for w in (w1, w2)]
+    for w in W:
+        w.attach_grad()
+    kept = [(w.data, w.data.data_ptr()) for w in W]
+    X, Y = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+    losses, ms, same = [], [], True
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            out = nd.dot(nd.relu(nd.dot(X, W[0])), W[1])
+            loss = -nd.pick(nd.log_softmax(out), Y).mean()
+        loss.backward()
+        for w in W:
+            w[:] = w - lr * w.grad
+        losses.append(loss.asscalar())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        live = {id(t) for t in ag._live_variables()}
+        same = same and all(
+            w.data is t and w.data.data_ptr() == p and id(t) in live
+            and t.requires_grad and t.is_leaf for w, (t, p) in zip(W, kept))
+    acc = (nd.argmax(out, axis=1) == Y).mean().asscalar()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return losses, ms, acc, same
+
+
+#: phase 41 (c): each sampler's call, its distribution's mean and variance
+#: and the JAX package's dtype (tests/test_torch_random.py holds the port's
+#: shapes and dtypes to the JAX package's on the CPU)
+SAMPLER_CASES = [
+    ("uniform", (-1.0, 3.0), {}, 1.0, 16 / 12, "float32"),
+    ("normal", (0.5, 2.0), {}, 0.5, 4.0, "float32"),
+    ("randn", (), {"loc": -1.0, "scale": 0.5}, -1.0, 0.25, "float32"),
+    ("randint", (-3, 7), {}, 1.5, 99 / 12, "int32"),
+    ("poisson", (3.5,), {}, 3.5, 3.5, "float32"),
+    ("exponential", (2.0,), {}, 2.0, 4.0, "float32"),
+    ("gamma", (2.5, 1.5), {}, 3.75, 5.625, "float32"),
+    ("bernoulli", (0.3,), {}, 0.3, 0.21, "float32"),
+]
+
+
+def sampler_checks(mx, ctx, n):
+    """Phase 41 (c): every ``mx.random`` sampler on ``ctx``: reseeding
+    gives the same bits, the shape, dtype and context, and the mean and
+    variance of ``n`` draws within 6 standard errors.  Returns
+    ``{sampler: (mean, var, ok)}``."""
+    import math
+
+    import numpy as np
+
+    def draw(name, args, kw, shape):
+        fn = getattr(mx.random, name)
+        if name == "randn":
+            return fn(*shape, ctx=ctx, **kw)
+        return fn(*args, shape=shape, ctx=ctx, **kw)
+
+    out = {}
+    for name, args, kw, mean, var, dtype in SAMPLER_CASES:
+        small = draw(name, args, kw, (2, 3))
+        mx.random.seed(41)
+        a = draw(name, args, kw, (n,))
+        mx.random.seed(41)
+        b = draw(name, args, kw, (n,))
+        v = a.asnumpy().astype(np.float64)
+        m4 = ((v - v.mean()) ** 4).mean()
+        ok = (bool((a.data == b.data).all()) and small.shape == (2, 3)
+              and small.dtype == np.dtype(dtype) and small.context == ctx
+              and abs(v.mean() - mean) < 6 * math.sqrt(var / n)
+              and abs(v.var() - var) < 6 * math.sqrt((m4 - var ** 2) / n))
+        out[name] = (round(float(v.mean()), 5), round(float(v.var()), 5),
+                      bool(ok))
+    p = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    probs = mx.nd.array(np.tile(p, (n // 64, 1)), ctx=ctx)
+    mx.random.seed(41)
+    s, lp = mx.random.multinomial(probs, shape=(64,), get_prob=True)
+    mx.random.seed(41)
+    s2 = mx.random.multinomial(probs, shape=(64,))
+    freq = np.bincount(s.asnumpy().reshape(-1), minlength=4) / s.size
+    want = np.log(p / p.sum())[s.asnumpy()]
+    se = np.sqrt(p * (1 - p) / s.size)
+    out["multinomial"] = (
+        [round(float(f), 5) for f in freq], None, bool(
+            (s.data == s2.data).all() and s.dtype == np.int32
+            and s.shape == (n // 64, 64) and s.context == ctx
+            and np.all(np.abs(freq - p) < 6 * se)
+            and np.allclose(lp.asnumpy(), want, atol=1e-6)))
+    rows = mx.nd.array(np.arange(n, dtype=np.float32), ctx=ctx)
+    mx.random.seed(41)
+    sh = mx.random.shuffle(rows)
+    mx.random.seed(41)
+    sh2 = mx.random.shuffle(rows)
+    got = sh.asnumpy()
+    out["shuffle"] = (None, None, bool(
+        (sh.data == sh2.data).all() and sh.context == ctx
+        and sh.dtype == np.float32
+        and np.array_equal(np.sort(got), np.arange(n))
+        and not np.array_equal(got, np.arange(n))))
+    return out
+
+
+def imperative_ndarray(mx, card):
+    """Phase 41: the imperative NDArray on gpu(0), fp32 with TF32 off:
+    (a) a BERT-base encoder layer in ``mx.nd`` calls against the block,
+    with the flash kernels' launches; (b) the MLP trained in NDArray
+    arithmetic, against the same loop on the CPU; (c) the samplers.
+    Returns the flash launches of (a)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.models.bert import BERTEncoderLayer
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    gpu = mx.gpu(0)
+    nd = mx.nd
+    mx.random.seed(41)
+    layer = BERTEncoderLayer(IMP_UNITS, IMP_FFN, IMP_HEADS, dropout=0.0)
+    layer.initialize(init=mx.init.Normal(0.02), ctx=gpu)
+    params = layer._collect_params_with_prefix()
+    rng = np.random.RandomState(41)
+    xs = rng.randn(IMP_B, IMP_S, IMP_UNITS).astype(np.float32)
+    cs = rng.uniform(0.5, 1.5, xs.shape).astype(np.float32)
+    x, c = nd.array(xs, ctx=gpu), nd.array(cs, ctx=gpu)
+    # the block's eager forward and backward: the reference
+    with mx.autograd.record():
+        ref = layer(x)
+        (ref * c).sum().backward()
+    ref_grads = {k: p.grad().detach().clone() for k, p in params.items()}
+    w = {k: nd.array(p.data(), ctx=gpu) for k, p in params.items()}
+    for v in w.values():
+        v.attach_grad()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    plain0 = fa.counts.plain_calls_on_cuda
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        out = nd_encoder_layer(mx, x, w, IMP_HEADS)
+        loss = (out * c).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    layer_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: cnt.launches
+                for name, cnt in kernels.KERNEL_COUNTS.items()
+                if name.startswith("flash_attention")}
+    plain = fa.counts.plain_calls_on_cuda - plain0
+
+    def gap(got, want):
+        got, want = got.detach(), want.detach()
+        return float((got - want).abs().max() / want.abs().max())
+    gaps = {"out": gap(out.data, ref.data)}
+    gaps.update({k: gap(v.grad.data, ref_grads[k]) for k, v in w.items()})
+    results = [out, loss] + [v.grad for v in w.values()]
+    checks = {
+        "layer_within_tol": max(gaps.values()) <= IMP_TOL,
+        "layer_launches": launches == {"flash_attention_fwd": 1,
+                                       "flash_attention_bwd_dq": 1,
+                                       "flash_attention_bwd_dkv": 1},
+        "layer_no_plain_call": plain == 0,
+        "layer_ndarrays_on_gpu0": all(isinstance(r, nd.NDArray)
+                                      and r.context == gpu for r in results),
+    }
+    log(f"imperative 41a: BERT-base encoder layer in mx.nd calls (units "
+        f"{IMP_UNITS}, {IMP_HEADS} heads, FFN {IMP_FFN}, b={IMP_B} x "
+        f"s={IMP_S}, fp32, TF32 off), forward and backward in "
+        f"{layer_ms:.3f} ms host (first call); gap to the block's eager "
+        f"run, of each largest value: out {gaps['out']:.3e}, gradients max "
+        f"{max(v for k, v in gaps.items() if k != 'out'):.3e} (limit "
+        f"{IMP_TOL}); flash launches {launches}, plain calls {plain}")
+    del layer, params, ref, ref_grads, w, out, loss, results
+    torch.cuda.empty_cache()
+
+    # (b) the MLP from its teacher's labels
+    rng = np.random.RandomState(42)
+    X = rng.randn(IMP_ROWS, IMP_UNITS).astype(np.float32)
+    y = np.argmax(X @ rng.randn(IMP_UNITS, IMP_CLASSES), axis=1).astype(
+        np.float32)
+    mx.random.seed(42)
+    W1 = nd.random.normal(scale=0.02, shape=(IMP_UNITS, IMP_FFN), ctx=gpu)
+    W2 = nd.random.normal(scale=0.02, shape=(IMP_FFN, IMP_CLASSES), ctx=gpu)
+    w0 = (W1.asnumpy(), W2.asnumpy())
+    losses, ms, acc, kept = nd_mlp(mx, gpu, X, y, W1, W2, IMP_STEPS, IMP_LR)
+    cpu_losses, _, _, _ = nd_mlp(mx, mx.cpu(), X, y, *w0, IMP_CPU_STEPS,
+                                 IMP_LR)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    med = statistics.median(ms[1:])
+    checks.update({
+        "mlp_losses_finite": all(np.isfinite(losses)),
+        "mlp_loss_falls": losses[-1] < losses[0],
+        "mlp_matches_cpu": max(rel) <= IMP_CPU_RTOL,
+        "mlp_weights_kept": kept,
+        "mlp_accuracy_float": type(acc) is float,
+    })
+    log(f"imperative 41b: MLP {IMP_UNITS}-{IMP_FFN}-{IMP_CLASSES} on "
+        f"{IMP_ROWS} rows (weights from nd.random.normal(scale=0.02) on "
+        f"gpu(0)), {IMP_STEPS} steps of w[:] = w - {IMP_LR} * w.grad: losses "
+        f"{[round(v, 6) for v in losses]}; accuracy {acc}; step median "
+        f"{med:.3f} ms (host, synchronised by asscalar); the first "
+        f"{IMP_CPU_STEPS} against cpu(): relative gaps "
+        f"{[f'{v:.2e}' for v in rel]} (limit {IMP_CPU_RTOL}); each weight "
+        f"kept its tensor, address and variable status: {kept}; on {card}")
+
+    # (c) the samplers
+    samplers = sampler_checks(mx, gpu, IMP_DRAWS)
+    checks["samplers"] = all(ok for _, _, ok in samplers.values())
+    log(f"imperative 41c: the 10 samplers on gpu(0), {IMP_DRAWS} draws each "
+        f"(mean, variance, ok): {samplers}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"imperative 41 checks failed: {failed} (gaps "
+                         f"{gaps}, launches {launches}, samplers {samplers})")
+    return {"imperative_nd": launches}
+
+
 def main():
     import torch
 
@@ -9802,6 +10079,9 @@ def main():
     dist_launches.update(train_moe_lm(mx, card))
     torch.cuda.empty_cache()
     lap("37 MoE LM")
+    dist_launches.update(imperative_ndarray(mx, card))
+    torch.cuda.empty_cache()
+    lap("41 imperative NDArray")
 
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]

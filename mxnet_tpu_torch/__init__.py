@@ -11,6 +11,7 @@ from .context import (Context, cpu, current_context, gpu,  # noqa: F401
                       num_gpus, xla)
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from .ndarray import waitall  # noqa: F401
 from . import autograd, lr_scheduler, ops, optimizer, random  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401

@@ -37,19 +37,20 @@ def _wrap(out, ctx):
     return out
 
 
-def invoke(fn, *args):
-    """Call ``fn`` on the tensors inside NDArray ``args``; return NDArray
-    outputs when any input was an NDArray, else ``fn``'s own outputs."""
+def invoke(fn, *args, **attrs):
+    """Call ``fn`` on the tensors inside NDArray ``args`` (and keyword
+    ``attrs``); return NDArray outputs when any input was an NDArray, else
+    ``fn``'s own outputs."""
     if profiler._running:
-        return _profiled_invoke(fn, args)
-    return _invoke(fn, args)
+        return _profiled_invoke(fn, args, attrs)
+    return _invoke(fn, args, attrs)
 
 
-def _profiled_invoke(fn, args):
+def _profiled_invoke(fn, args, attrs):
     """:func:`invoke` bracketed for the profiler (ref:
     ``mxnet_tpu/_imperative.py:188-200``)."""
     t0 = time.perf_counter() * 1e6
-    out = _invoke(fn, args)
+    out = _invoke(fn, args, attrs)
     if profiler._config.get("sync") and torch.cuda.is_available() \
             and torch.cuda.is_initialized() \
             and not torch.cuda.is_current_stream_capturing():
@@ -61,19 +62,20 @@ def _profiled_invoke(fn, args):
     return out
 
 
-def _invoke(fn, args):
+def _invoke(fn, args, attrs):
     first = next((a for a in args if isinstance(a, NDArray)), None)
     if first is None:
         if current_replica() is not None:
-            return fn(*args)
+            return fn(*args, **attrs)
         t = next((a for a in args if isinstance(a, torch.Tensor)), None)
         if t is None:
-            return fn(*args)
+            return fn(*args, **attrs)
         with replica_scope(Context.from_device(t.device)):
-            return fn(*args)
+            return fn(*args, **attrs)
     ctx = first.context
     with replica_scope(ctx):
-        out = fn(*(a.data if isinstance(a, NDArray) else a for a in args))
+        out = fn(*(a.data if isinstance(a, NDArray) else a for a in args),
+                 **attrs)
     return _wrap(out, ctx)
 
 

@@ -26,11 +26,20 @@ class HybridSequential(HybridBlock):
             x = b(x)
         return x
 
-    def __iter__(self):
-        return iter(self._layers)
+    def __len__(self):
+        return len(self._layers)
 
     def __getitem__(self, i):
+        """A layer, or for a slice a new ``HybridSequential`` of the same
+        layer objects (ref: ``mxnet_tpu/gluon/nn/basic_layers.py:59-67``)."""
+        if isinstance(i, slice):
+            net = type(self)()
+            net.add(*self._layers[i])
+            return net
         return self._layers[i]
+
+    def __iter__(self):
+        return iter(self._layers)
 
 
 class Dense(HybridBlock):

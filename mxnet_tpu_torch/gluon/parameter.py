@@ -26,6 +26,12 @@ an autograd variable (``autograd.mark_variables``); its gradient is the
 value's ``.grad``, allocated as zeros at first use, so a serving process
 that never trains holds no gradient memory.
 
+``data()`` and ``grad()`` return tensors, where the JAX package returns
+NDArrays (a deliberate difference): the trainers, the kvstore, the
+checkpoints and the captured steps read and write them as tensors.
+``nd.array(p.data())`` gives an NDArray copy, and NDArray arithmetic takes
+the tensors as operands.
+
 A :class:`Constant` (``ParameterDict.get_constant``) is a Parameter with
 ``grad_req='null'`` whose value is fixed at construction: trainers skip
 it, checkpoints save and load it like any other parameter.

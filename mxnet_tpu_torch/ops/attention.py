@@ -117,3 +117,37 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
 register("multihead_attention", _k_multihead_attention,
          arg_names=("query", "key", "value", "in_weight", "in_bias",
                     "out_weight", "out_bias", "mask"))
+
+
+# the interleaved self-attention products of the reference's contrib
+# (ref: ops/attention.py:106-140): plain batched products, as there
+
+def _k_interleaved_matmul_selfatt_qk(queries_keys_values, heads):
+    """(seq, batch, 3*model), q/k/v interleaved per head -> the scaled
+    logits, (batch*heads, seq, seq)."""
+    s, b, m3 = queries_keys_values.shape
+    hd = m3 // 3 // heads
+    x = queries_keys_values.reshape(s, b, heads, 3, hd)
+    q = x[:, :, :, 0].permute(1, 2, 0, 3) / math.sqrt(hd)
+    k = x[:, :, :, 1].permute(1, 2, 0, 3)
+    return torch.matmul(q, k.transpose(-1, -2)).reshape(b * heads, s, s)
+
+
+def _k_interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                         heads):
+    """The attention weights (batch*heads, seq, seq) applied to the
+    interleaved values -> (seq, batch, model)."""
+    s, b, m3 = queries_keys_values.shape
+    m = m3 // 3
+    v = queries_keys_values.reshape(s, b, heads, 3, m // heads)[:, :, :, 2]
+    out = torch.matmul(attention.reshape(b, heads, s, s),
+                       v.permute(1, 2, 0, 3))
+    return out.permute(2, 0, 1, 3).reshape(s, b, m)
+
+
+register("_contrib_interleaved_matmul_selfatt_qk",
+         _k_interleaved_matmul_selfatt_qk,
+         arg_names=("queries_keys_values",))
+register("_contrib_interleaved_matmul_selfatt_valatt",
+         _k_interleaved_matmul_selfatt_valatt,
+         arg_names=("queries_keys_values", "attention"))

@@ -14,6 +14,15 @@ the framework's numpy ``RandomState``, which ``seed(s)`` seeds with
 ``s & 0x7FFFFFFF`` as the JAX package does, so a shuffled iterator gives
 the same order in both packages after the same ``mx.random.seed``.
 
+The samplers (``uniform``, ``normal``, ``randn``, ``randint``,
+``poisson``, ``exponential``, ``gamma``, ``bernoulli``, ``multinomial``,
+``shuffle``; ref: ``mxnet_tpu/random.py:133-196``) return NDArrays on
+``ctx`` (default :func:`current_context`) with the JAX package's shapes,
+dtypes and defaults; their values come from the device's generator, so
+they differ from the JAX package's threefry draws.  Given a
+``torch.device`` as ``ctx`` (``F.random.uniform`` in ``hybrid_forward``)
+a sampler returns the tensor itself.
+
 ``get_state``/``set_state`` snapshot and restore the pool and the numpy
 stream as JSON (the checkpoint's ``rng-shard0.json``).  ``set_state`` writes into the
 generators in place (``Generator.set_state``), so the graphs that
@@ -199,3 +208,107 @@ def set_state(state):
                      else " (its numpy stream is restored)")
         return
     default_pool.set_state(state)
+
+
+# -- the samplers (ref: mxnet_tpu/random.py:133-196) -------------------------
+
+
+def _draw(op, ctx, **attrs):
+    from .context import Context, current_context
+    from .ndarray.ndarray import NDArray
+    from .ops import registry
+
+    fn = registry.get(op)
+    if isinstance(ctx, torch.device):
+        return fn(ctx=ctx, **attrs)
+    ctx = Context(ctx) if ctx is not None else current_context()
+    return NDArray(fn(ctx=ctx, **attrs), ctx)
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape or ())
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), dtype=None, ctx=None, **kw):
+    """Draws from U[low, high), float32 unless ``dtype``."""
+    return _draw("_random_uniform", ctx, low=float(low), high=float(high),
+                 shape=_shape(shape), dtype=dtype)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), dtype=None, ctx=None, **kw):
+    return _draw("_random_normal", ctx, loc=float(loc), scale=float(scale),
+                 shape=_shape(shape), dtype=dtype)
+
+
+def randn(*shape, loc=0.0, scale=1.0, dtype=None, ctx=None):
+    return normal(loc, scale, shape or (1,), dtype=dtype, ctx=ctx)
+
+
+def randint(low, high=None, shape=(1,), dtype="int32", ctx=None, **kw):
+    """Integers in [low, high), or [0, low) with one bound."""
+    if high is None:
+        low, high = 0, low
+    return _draw("_random_randint", ctx, low=int(low), high=int(high),
+                 shape=_shape(shape), dtype=dtype)
+
+
+def poisson(lam=1.0, shape=(1,), dtype=None, ctx=None, **kw):
+    return _draw("_random_poisson", ctx, lam=float(lam), shape=_shape(shape),
+                 dtype=dtype or "float32")
+
+
+def exponential(scale=1.0, shape=(1,), dtype=None, ctx=None, **kw):
+    """Draws of mean ``scale``."""
+    return _draw("_random_exponential", ctx, scale=float(scale),
+                 shape=_shape(shape), dtype=dtype)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=(1,), dtype=None, ctx=None, **kw):
+    """Shape ``alpha``, scale ``beta``."""
+    return _draw("_random_gamma", ctx, alpha=float(alpha), beta=float(beta),
+                 shape=_shape(shape), dtype=dtype)
+
+
+def bernoulli(p=0.5, shape=(1,), dtype=None, ctx=None):
+    return _draw("_random_bernoulli", ctx, p=float(p), shape=_shape(shape),
+                 dtype=dtype or "float32")
+
+
+def multinomial(data, shape=(), get_prob=False, dtype="int32", **kw):
+    """Categorical draws from the (unnormalised) probabilities in the last
+    axis of ``data``: ``data.shape[:-1]``, with a last axis of
+    ``prod(shape)`` draws when ``shape`` is given; with ``get_prob``
+    also each draw's log-probability."""
+    from .ndarray.ndarray import NDArray, to_torch_dtype
+
+    t = data.data if isinstance(data, NDArray) else data
+    shape = _shape(shape)
+    n = int(np.prod(shape)) if shape else 1
+    logits = torch.log(torch.clamp_min(t.detach(), 1e-30))
+    rows = torch.softmax(logits, dim=-1).reshape(-1, t.shape[-1])
+    draws = torch.multinomial(rows, n, replacement=True,
+                              generator=generator(t.device))
+    # the JAX package's layout: n draws on a last axis when shape is given
+    draws = draws.reshape(tuple(t.shape[:-1]) + ((n,) if shape else ()))
+    out = draws.to(to_torch_dtype(dtype))
+    lp = None
+    if get_prob:
+        flat = draws.reshape(tuple(t.shape[:-1]) + (-1,))
+        lp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                          flat).reshape(draws.shape)
+    if isinstance(data, NDArray):
+        out = NDArray(out, data._ctx)
+        lp = None if lp is None else NDArray(lp, data._ctx)
+    return (out, lp) if get_prob else out
+
+
+def shuffle(data, **kw):
+    """``data``'s rows (first axis) in a random order."""
+    from .ndarray.ndarray import NDArray
+
+    t = data.data if isinstance(data, NDArray) else data
+    perm = torch.randperm(t.shape[0], generator=generator(t.device),
+                          device=t.device)
+    if isinstance(data, NDArray):
+        return data.take(NDArray(perm, data._ctx))
+    return t.index_select(0, perm)

@@ -118,10 +118,13 @@ def test_tensor_ops():
     _close(tmx.nd.broadcast_lesser(torch.from_numpy(lhs),
                                    torch.from_numpy(rhs)),
            _jop("broadcast_lesser")(jnp.asarray(lhs), jnp.asarray(rhs)))
-    assert torch.equal(tmx.nd.arange(0, 5, dtype="int32", ctx=tmx.cpu()),
+    # nd.arange gives an NDArray on a Context, the tensor on a torch.device
+    assert torch.equal(tmx.nd.arange(0, 5, dtype="int32", ctx=tmx.cpu()).data,
                        torch.arange(5, dtype=torch.int32))
-    with pytest.raises(MXNetError, match="not ported"):
-        tmx.nd.reshape(tx, (-3, 5))
+    assert torch.equal(tmx.nd.arange(0, 5, dtype="int32",
+                                     ctx=torch.device("cpu")),
+                       torch.arange(5, dtype=torch.int32))
+    _close(tmx.nd.reshape(tx, (-3, 5)), _jop("reshape")(jx, shape=(-3, 5)))
 
 
 @pytest.mark.parametrize("mode", ["clip", "wrap"])

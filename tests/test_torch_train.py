@@ -686,3 +686,60 @@ def test_short_bert_pretraining_run_matches_jax(opt, args):
     for name, jp in jnet._collect_params_with_prefix().items():
         _close(tparams[name].data().detach().numpy(), jp.data().asnumpy(),
                atol=1e-5, rtol=0, msg=name)
+
+
+# -- HybridSequential and the F namespace ----------------------------------------
+
+
+def test_hybrid_sequential_len_index_and_slice_as_jax():
+    """Queue 3, item 13: ``len``, an index and a slice (a new
+    ``HybridSequential`` of the same layers, callable) against the JAX
+    package, from the same weights."""
+    import mxnet_tpu as jmx
+
+    nets = []
+    for mx, ctx in ((jmx, jmx.cpu()), (tmx, CPU)):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(8, in_units=18), mx.gluon.nn.Dropout(0.5),
+                mx.gluon.nn.Dense(5, in_units=8),
+                mx.gluon.nn.LayerNorm(in_channels=5))
+        net.initialize(ctx=ctx)
+        nets.append(net)
+    jnet, tnet = nets
+    for jl, tl in zip(jnet, tnet):
+        for jp, tp in zip(jl.collect_params().values(),
+                          tl.collect_params().values()):
+            tp.set_data(jp.data().asnumpy())
+    assert len(tnet) == len(jnet) == 4
+    assert tnet[2] is list(tnet)[2]
+    tail = tnet[1:]
+    assert type(tail) is type(tnet) and type(jnet[1:]) is type(jnet)
+    assert len(tail) == 3 and all(a is b for a, b in zip(tail, list(tnet)[1:]))
+    x = np.random.RandomState(0).randn(4, 8).astype(np.float32)
+    _close(tail(_t(x)).asnumpy(), jnet[1:](jmx.nd.array(x)).asnumpy())
+    x = np.random.RandomState(1).randn(4, 18).astype(np.float32)
+    _close(tnet(_t(x)).asnumpy(), jnet(jmx.nd.array(x)).asnumpy())
+
+
+def test_f_path_calls_with_tensors_return_tensors():
+    """``mx.nd`` is the ``F`` of ``hybrid_forward``: a call with no NDArray
+    argument is the registered function on tensors, tensors out."""
+    F = tmx.nd
+    t = torch.randn(4, 6)
+    w, b = torch.randn(3, 6), torch.zeros(3)
+    for out in (F.FullyConnected(t, w, b, num_hidden=3),
+                F.LeakyReLU(t, act_type="gelu"), F.softmax(t, axis=-1),
+                F.arange(0, 4, dtype="int32", ctx=t.device),
+                F.random.uniform(shape=(2,), ctx=t.device),
+                F.zeros_like(t), F.one_hot(torch.tensor([0, 2]), 3),
+                F.exp(t), F.dot(t, t.T), F.reshape(t, (-1,)),
+                F.topk(t, k=2), F.clip(t, -1.0, 1.0), F.maximum(t, 0.5)):
+        assert type(out) is torch.Tensor
+    assert torch.equal(F.transpose(t), t.T)
+    bn = F.BatchNorm(t.reshape(4, 6, 1, 1), torch.ones(6), torch.zeros(6),
+                     torch.zeros(6), torch.ones(6), _train=True)
+    assert len(bn) == 3 and all(type(o) is torch.Tensor for o in bn)
+    nd_out = F.FullyConnected(_t(t.numpy()), _t(w.numpy()), _t(b.numpy()),
+                              num_hidden=3)
+    assert isinstance(nd_out, tmx.nd.NDArray)
+    _close(nd_out.asnumpy(), F.FullyConnected(t, w, b, num_hidden=3).numpy())
