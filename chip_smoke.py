@@ -555,10 +555,45 @@ Phases (any failure ends the run with a non-zero exit and no result):
     printed; (c) the 10 samplers of ``mx.random`` on gpu(0): reseeding
     gives the same bits, the JAX package's shapes, dtypes and contexts,
     and the moments of ``IMP_DRAWS`` draws within 6 standard errors.
+42. the Gluon basics (gpu(0), fp32, TF32 off, cuDNN deterministic): (a)
+    examples/ocr/train_crnn_ctc.py's CRNN (two 3x3 convolutions with
+    (2, 1) max pooling, a bidirectional ``gluon.rnn.LSTM(64)``, a Dense
+    head, ``gluon.loss.CTCLoss(layout="TNC")``) trained as the example
+    does at its defaults: ``Xavier``, hybridized, Adam at lr 1e-2, batch
+    32 of ``render_batch(RandomState(0), 32, 4)`` strips (T = 20
+    columns, 11 classes), ``CRNN_STEPS`` steps, then greedy decoding of
+    the held-out batch of 64 from ``RandomState(99)``.  Gates: every
+    loss finite, the mean of the last 20 below a tenth of the first,
+    exact-sequence accuracy at least ``CRNN_ACC``, 2 ``lstm_fwd`` and 2
+    ``lstm_bwd`` launches a step, all on the register route, none on the
+    split route, no plain call on CUDA.  Printed: the step median, the
+    accuracy and the loss at steps 1, 100 and the last; the LSTM kernels
+    at the CRNN's shape (T=20, N=32, H=64) against their plain versions,
+    timed beside them, cuDNN's layer and the bound.  (b) The same weights
+    on the card and on the CPU, one batch of 32, 2 Adam steps: logits
+    within ``CRNN_LOGIT_TOL`` of their largest value, the first loss
+    within ``CRNN_LOSS_RTOL`` relative, the gradients of both directions'
+    ``h2h_weight`` and ``conv.0.weight`` within ``CRNN_GRAD_TOL`` of each
+    one's largest value, both losses within ``CRNN_STEP_RTOL`` relative.
+    (c) (a)'s first ``CRNN_CAPTURE_STEPS`` batches from its starting
+    weights through ``Trainer(whole_step=True).whole_step``: phase 15's
+    gates against (a)'s eager steps (one graph, a replay a step, no
+    fallback, the eager launches, the first 4 losses and the parameters
+    after them bit-identical).  (d) The ``CTCLoss`` op alone, (T, N, C)
+    = (20, 32, 11), L = 4, both blank conventions, both lengths given,
+    one zero-length and one infeasible row, card against CPU: the loss
+    within ``CTC_RTOL`` relative, the gradient within ``CTC_RTOL`` of its
+    largest value, no NaN.  (e) A net of the new layers and ops
+    (``Conv1D``/``Conv3D``, the three transposed convolutions,
+    ``InstanceNorm``, ``GroupNorm``, ``PReLU``, ``ELU``, ``SELU``,
+    ``GELU``, ``Swish``, ``ReflectionPad2D``, ``UpSampling``, ``LRN``,
+    ``L2Normalization``, ``PixelShuffle2D``) on the card against the CPU
+    from the same weights: the output and every gradient within
+    ``BASICS_TOL`` of its largest value.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
 24, 25, 21, 22, 38, 39, 40, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36,
-37, 41 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2 ranks and a
+37, 41, 42 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2 ranks and a
 parameter server; 21b, 2+ cards only, in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
@@ -932,6 +967,18 @@ IMP_B, IMP_S, IMP_UNITS, IMP_HEADS, IMP_FFN, IMP_TOL = 8, 512, 768, 12, \
     3072, 1e-5
 IMP_ROWS, IMP_CLASSES, IMP_STEPS, IMP_LR = 4096, 10, 20, 0.1
 IMP_CPU_STEPS, IMP_CPU_RTOL, IMP_DRAWS = 3, 1e-4, 1 << 20
+# phase 42: examples/ocr/train_crnn_ctc.py at its defaults (batch 32,
+# --seq-len 4: strips of 8 x 20, T = 20 columns; hidden 64; 11 classes, the
+# blank last; Adam at lr 1e-2; 600 steps); the held-out batch of 64 from
+# RandomState(99); the card-vs-CPU limits of (b), the captured steps of
+# (c), the CTC op's shape and limit in (d) and the layers' limit in (e)
+CRNN_BATCH, CRNN_SEQ, CRNN_HIDDEN, CRNN_CLASSES = 32, 4, 64, 11
+CRNN_STEPS, CRNN_LR, CRNN_EVAL, CRNN_ACC = 600, 1e-2, 64, 0.9
+CRNN_LOGIT_TOL, CRNN_LOSS_RTOL, CRNN_GRAD_TOL, CRNN_STEP_RTOL = \
+    1e-4, 1e-5, 1e-4, 1e-4
+CRNN_CAPTURE_STEPS = 8
+CTC_T, CTC_N, CTC_C, CTC_L, CTC_RTOL = 20, 32, 11, 4, 1e-5
+BASICS_B, BASICS_C, BASICS_HW, BASICS_TOL = 8, 8, 16, 1e-4
 # phases 39-40: BERT-base on phase 20's batch, 3 dist_async steps a rank,
 # then 6 dist_sync steps under the elastic supervisor (save after step 2,
 # rank 1 leaves at step 4 with code 0: the launcher ends the job when a
@@ -9893,6 +9940,504 @@ def imperative_ndarray(mx, card):
     return {"imperative_nd": launches}
 
 
+# -- phase 42: the Gluon basics ---------------------------------------------
+
+# 5x3 dot-matrix glyphs of the digits, examples/ocr/train_crnn_ctc.py's
+GLYPHS = {
+    0: ["111", "101", "101", "101", "111"],
+    1: ["010", "110", "010", "010", "111"],
+    2: ["111", "001", "111", "100", "111"],
+    3: ["111", "001", "111", "001", "111"],
+    4: ["101", "101", "111", "001", "001"],
+    5: ["111", "100", "111", "001", "111"],
+    6: ["111", "100", "111", "101", "111"],
+    7: ["111", "001", "010", "010", "010"],
+    8: ["111", "101", "111", "101", "111"],
+    9: ["111", "101", "111", "001", "111"],
+}
+
+
+def render_batch(rng, bs, seq_len, jitter=0.15):
+    """The example's digit strips: ``(bs, 1, 8, 4*seq_len+4)`` images and
+    ``(bs, seq_len)`` labels 1..10 (0 is kept for the blank), drawn from
+    the numpy ``rng`` in the example's order (copied from
+    examples/ocr/train_crnn_ctc.py)."""
+    import numpy as np
+
+    W = 4 * seq_len + 4
+    imgs = np.zeros((bs, 1, 8, W), np.float32)
+    labels = np.zeros((bs, seq_len), np.float32)
+    for i in range(bs):
+        digits = rng.randint(0, 10, seq_len)
+        labels[i] = digits + 1
+        x = 2 + rng.randint(0, 2)
+        for d in digits:
+            y = 1 + rng.randint(0, 2)
+            for r, row in enumerate(GLYPHS[int(d)]):
+                for c, bit in enumerate(row):
+                    if bit == "1":
+                        imgs[i, 0, y + r, x + c] = 1.0
+            x += 4
+    imgs += rng.randn(*imgs.shape).astype(np.float32) * jitter
+    return imgs, labels
+
+
+def greedy_decode(logits, blank):
+    """``(T, N, C)`` logits -> each row's labels: the argmax a step, repeats
+    collapsed, the blank dropped (the example's)."""
+    ids = logits.argmax(-1)
+    out = []
+    for n in range(ids.shape[1]):
+        prev, s = -1, []
+        for t in ids[:, n]:
+            if t != prev and t != blank:
+                s.append(int(t))
+            prev = t
+        out.append(s)
+    return out
+
+
+def crnn_net(mx):
+    """The example's ``CRNN`` over the port's gluon: conv feature
+    extractor, the columns as time steps, a bidirectional LSTM, a Dense
+    head a step; ``(N, 1, 8, W)`` -> ``(T=W, N, classes)``."""
+    gluon = mx.gluon
+
+    class CRNN(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.conv = gluon.nn.HybridSequential()
+            self.conv.add(
+                gluon.nn.Conv2D(16, 3, padding=1, activation="relu"),
+                gluon.nn.MaxPool2D(pool_size=(2, 1)),
+                gluon.nn.Conv2D(32, 3, padding=1, activation="relu"),
+                gluon.nn.MaxPool2D(pool_size=(2, 1)))
+            self.rnn = gluon.rnn.LSTM(CRNN_HIDDEN, num_layers=1,
+                                      bidirectional=True)
+            self.head = gluon.nn.Dense(CRNN_CLASSES, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            f = self.conv(x)                       # (N, C, H', W)
+            f = F.transpose(f, axes=(3, 0, 1, 2))  # (W, N, C, H')
+            f = F.reshape(f, shape=(0, 0, -1))     # (T=W, N, C*H')
+            return self.head(self.rnn(f))
+
+    return CRNN()
+
+
+def crnn_from(mx, ctx, weights=None, seed=0):
+    """A hybridized CRNN on ``ctx``: ``Xavier`` after ``mx.random.seed``,
+    its deferred shapes completed by one forward, then ``weights``
+    ({structural name: numpy}) copied in where given."""
+    import numpy as np
+
+    mx.random.seed(seed)
+    net = crnn_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    net(mx.nd.array(np.zeros((1, 1, 8, 4 * CRNN_SEQ + 4), np.float32),
+                    ctx=ctx))
+    if weights is not None:
+        mx.convert.load_numpy_params(net, weights)
+    return net
+
+
+def host_weights(net):
+    """A copy of a net's parameters as numpy, by structural name (on the
+    CPU ``.numpy()`` alone would share the parameters' memory)."""
+    return {k: p.data().detach().to("cpu", copy=True).numpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def crnn_kernel_times(kr, dev):
+    """Rows 11 and 12 at the CRNN's shape (T=20, N=32, H=64, input 64,
+    fp32): each kernel against its plain version, timed beside it, the
+    bound and cuDNN's layer (``rnn_layer_times``)."""
+    import torch
+
+    T, N, H, I = 4 * CRNN_SEQ + 4, CRNN_BATCH, CRNN_HIDDEN, 64
+    gen = torch.Generator(device=dev).manual_seed(42)
+    t = rnn_inputs("lstm", T, N, H, I, "float32", dev, gen)
+    f_args = (t["xp"], t["wh"], t["h0"], t["c0"])
+    ref = kr.lstm_fwd_plain(*f_args)
+    b_args = (t["wh"], t["h0"], t["c0"], ref[0], ref[3], ref[4], t["dys"],
+              t["dhn"], t["dcn"])
+    got, bgot = kr.lstm_fwd(*f_args), kr.lstm_bwd(*b_args)
+    bref = kr.lstm_bwd_plain(*b_args)
+    torch.cuda.synchronize()
+    layer = rnn_layer_times("lstm", t, T, N, H, I)
+    out = {}
+    for d, fn, plain, g, r in (
+            ("fwd", lambda: kr.lstm_fwd(*f_args),
+             lambda: kr.lstm_fwd_plain(*f_args), got, ref),
+            ("bwd", lambda: kr.lstm_bwd(*b_args),
+             lambda: kr.lstm_bwd_plain(*b_args), bgot, bref)):
+        bound = rnn_bound("lstm", d, T, N, H, "float32")
+        out[f"lstm_{d}"] = {
+            "shape": f"T={T} N={N} H={H} I={I} fp32",
+            "kernel_route": kr.plan(4, d == "bwd", N, H, dev)[0],
+            "max_abs_err": max(rel_err(a, b) for a, b in zip(g, r)),
+            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 2, warmup=1),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": layer[f"cudnn_{d}"],
+            "port_layer_ms": layer[f"port_{d}"]}
+    return out
+
+
+def crnn_train(mx, card):
+    """Phase 42a: the example's training run and held-out decode.  Returns
+    the run's record, its starting weights and its first batches (for
+    (c))."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    gpu = mx.gpu(0)
+    net = crnn_from(mx, gpu)
+    start = host_weights(net)
+    loss_fn = mx.gluon.loss.CTCLoss(layout="TNC")
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": CRNN_LR})
+    rng = np.random.RandomState(0)
+    params = list(net.collect_params().values())
+    losses, sums, step_ms, batches = [], [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t_run = time.perf_counter()
+    for step in range(CRNN_STEPS):
+        imgs, labels = render_batch(rng, CRNN_BATCH, CRNN_SEQ)
+        t0 = time.perf_counter()
+        x = mx.nd.array(imgs, ctx=gpu)
+        y = mx.nd.array(labels, ctx=gpu) - 1
+        if step < CRNN_CAPTURE_STEPS:
+            batches.append((x, y))
+        with mx.autograd.record():
+            logits = net(x)
+            loss = loss_fn(logits, y)
+        loss.backward()
+        trainer.step(CRNN_BATCH)
+        sums.append(loss.sum().asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(sums[-1] / CRNN_BATCH)
+        if step == 3:
+            after4 = [p.data().detach().clone() for p in params]
+    run_s = time.perf_counter() - t_run
+    train_counts = counts_now()
+    fwd_routes = launches_by_route(kr.lstm_fwd_counts)
+    bwd_routes = launches_by_route(kr.lstm_bwd_counts)
+    plain = sum(c.plain_calls_on_cuda for c in kernels.KERNEL_COUNTS.values())
+    others = {k: c.launches for k, c in kernels.KERNEL_COUNTS.items()
+              if k not in ("lstm_fwd", "lstm_bwd") and c.launches}
+    median_ms = statistics.median(step_ms[2:])
+    eager_record("crnn", sums, after4, train_counts, CRNN_STEPS, median_ms)
+    kernels.reset_counts()
+    imgs, labels = render_batch(np.random.RandomState(99), CRNN_EVAL,
+                                CRNN_SEQ)
+    logits = net(mx.nd.array(imgs, ctx=gpu)).asnumpy()
+    eval_launches = kr.lstm_fwd_counts.reg_launches
+    decoded = greedy_decode(logits, blank=logits.shape[-1] - 1)
+    truth = [[int(v) - 1 for v in row] for row in labels]
+    acc = float(np.mean([d == t for d, t in zip(decoded, truth)]))
+    n = CRNN_STEPS
+    tail = float(np.mean(losses[-20:]))
+    log(f"crnn 42a: examples/ocr/train_crnn_ctc.py's CRNN, batch "
+        f"{CRNN_BATCH} of 8 x {4 * CRNN_SEQ + 4} strips, T={4 * CRNN_SEQ + 4}"
+        f", hidden {CRNN_HIDDEN}, {CRNN_CLASSES} classes, Xavier, Adam "
+        f"{CRNN_LR}, hybridized, fp32, {n} steps in {run_s:.1f} s; step "
+        f"median {median_ms:.3f} ms over steps 3-{n} (host, synchronised by "
+        f"the loss's read) on {card}; CTC loss (mean a sequence) step 1 "
+        f"{losses[0]:.4f}, step 100 {losses[min(99, n - 1)]:.4f}, step {n} "
+        f"{losses[-1]:.4f}, mean of the last 20 {tail:.5f}; held-out "
+        f"exact-sequence accuracy {acc:.3f} on {CRNN_EVAL} (gate "
+        f"{CRNN_ACC}); launches by route lstm_fwd {fwd_routes}, lstm_bwd "
+        f"{bwd_routes} (2 x {n} = {2 * n} each on the register route), "
+        f"other kernels {others}, plain calls on cuda {plain}; the held-out "
+        f"forward {eval_launches} lstm_fwd on the register route")
+    checks = {"crnn_losses_finite": bool(np.isfinite(losses).all()),
+              "crnn_loss_falls_tenfold": tail < losses[0] / 10,
+              "crnn_accuracy": acc >= CRNN_ACC,
+              "crnn_lstm_fwd_register_route": fwd_routes == {
+                  "split": 0, "reg": 2 * n, "mma": 0},
+              "crnn_lstm_bwd_register_route": bwd_routes == {
+                  "split": 0, "reg": 2 * n},
+              "crnn_no_other_kernel": not others,
+              "crnn_no_plain_call": plain == 0,
+              "crnn_eval_launches": eval_launches == 2}
+    record = {"train": 2 * n, "eval": eval_launches, "steps": n,
+              "step_ms": median_ms, "accuracy": acc,
+              "losses": (losses[0], losses[min(99, n - 1)], losses[-1])}
+    return checks, record, start, batches, loss_fn
+
+
+def crnn_card_vs_cpu(mx, start):
+    """Phase 42b: the same weights on gpu(0) and cpu(), 2 Adam steps on
+    one batch of 32."""
+    import numpy as np
+
+    x_np, y_np = render_batch(np.random.RandomState(7), CRNN_BATCH,
+                              CRNN_SEQ)
+    runs = {}
+    for side, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            net = crnn_from(mx, ctx, start)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": CRNN_LR})
+            loss_fn = mx.gluon.loss.CTCLoss(layout="TNC")
+            x = mx.nd.array(x_np, ctx=ctx)
+            y = mx.nd.array(y_np, ctx=ctx) - 1
+            params = net._collect_params_with_prefix()
+            out = {"losses": []}
+            for step in range(2):
+                with mx.autograd.record():
+                    logits = net(x)
+                    loss = loss_fn(logits, y)
+                loss.backward()
+                if step == 0:
+                    out["logits"] = logits.asnumpy()
+                    out["grads"] = {
+                        k: params[k].grad().detach().to(
+                            "cpu", copy=True).numpy()
+                        for k in ("rnn.l0_h2h_weight", "rnn.r0_h2h_weight",
+                                  "conv.0.weight")}
+                trainer.step(CRNN_BATCH)
+                out["losses"].append(loss.asnumpy())
+            runs[side] = out
+    g, c = runs["card"], runs["cpu"]
+
+    def of_max(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    gaps = {"logits": of_max(g["logits"], c["logits"]),
+            "loss_1": float(np.max(np.abs(g["losses"][0] - c["losses"][0])
+                                   / np.abs(c["losses"][0]))),
+            "loss_2": float(np.max(np.abs(g["losses"][1] - c["losses"][1])
+                                   / np.abs(c["losses"][1])))}
+    gaps.update({k: of_max(g["grads"][k], c["grads"][k]) for k in g["grads"]})
+    checks = {"crnn_cpu_logits": gaps["logits"] <= CRNN_LOGIT_TOL,
+              "crnn_cpu_first_loss": gaps["loss_1"] <= CRNN_LOSS_RTOL,
+              "crnn_cpu_grads": all(gaps[k] <= CRNN_GRAD_TOL
+                                    for k in g["grads"]),
+              "crnn_cpu_losses": max(gaps["loss_1"], gaps["loss_2"])
+              <= CRNN_STEP_RTOL}
+    log(f"crnn 42b: card vs CPU from the same weights, batch {CRNN_BATCH}, "
+        f"2 Adam steps: gaps {({k: f'{v:.3e}' for k, v in gaps.items()})} "
+        f"(limits: logits {CRNN_LOGIT_TOL} of the largest, first loss "
+        f"{CRNN_LOSS_RTOL} relative, gradients {CRNN_GRAD_TOL} of each "
+        f"largest, both losses {CRNN_STEP_RTOL} relative)")
+    return checks
+
+
+def crnn_captured(mx, card, start, batches, loss_fn):
+    """Phase 42c: (a)'s first batches from its starting weights through
+    ``Trainer(whole_step=True).whole_step``, held to (a)'s eager steps."""
+    net = crnn_from(mx, mx.gpu(0), start)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": CRNN_LR}, whole_step=True)
+    params = list(net.collect_params().values())
+    checks, median_ms = captured_phase(
+        "crnn", card,
+        lambda i: trainer.whole_step(net, loss_fn, batches[i][0],
+                                     batches[i][1], batch_size=CRNN_BATCH),
+        lambda: [p.data() for p in params], CRNN_CAPTURE_STEPS, trainer)
+    EAGER_RUNS.pop("crnn")
+    return {f"crnn_captured_{k}": ok for k, ok in checks.items()}, median_ms
+
+
+def ctc_case(rng, blank_label):
+    """(d)'s inputs: activations (T, N, C), labels (N, L) padded by the
+    convention, data and label lengths; row 1 has no label, row 2 four
+    repeats in 5 steps (infeasible)."""
+    import numpy as np
+
+    data = rng.randn(CTC_T, CTC_N, CTC_C).astype(np.float32) * 2
+    lens = rng.randint(1, CTC_L + 1, CTC_N)
+    lens[1] = 0
+    lab = rng.randint(0, CTC_C - 1, (CTC_N, CTC_L))
+    lab[2] = 3
+    lens[2] = CTC_L
+    shift, pad = (1, 0) if blank_label == "first" else (0, -1)
+    label = np.where(np.arange(CTC_L)[None] < lens[:, None], lab + shift,
+                     pad).astype(np.float32)
+    dl = rng.randint(2 * CTC_L + 1, CTC_T + 1, CTC_N).astype(np.float32)
+    dl[2] = 5
+    return data, label, dl, lens.astype(np.float32)
+
+
+def ctc_card_vs_cpu(mx):
+    """Phase 42d: the CTC op on the card against the CPU."""
+    import numpy as np
+
+    rng = np.random.RandomState(42)
+    gaps, checks = {}, {}
+    for blank_label in ("first", "last"):
+        data, label, dl, ll = ctc_case(rng, blank_label)
+        runs = {}
+        for side, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            d = mx.nd.array(data, ctx=ctx)
+            d.attach_grad()
+            with mx.autograd.record():
+                loss = mx.nd.CTCLoss(d, mx.nd.array(label, ctx=ctx),
+                                     mx.nd.array(dl, ctx=ctx),
+                                     mx.nd.array(ll, ctx=ctx),
+                                     use_data_lengths=True,
+                                     use_label_lengths=True,
+                                     blank_label=blank_label)
+            loss.backward()
+            runs[side] = (loss.asnumpy(), d.grad.asnumpy())
+        (gl, gg), (cl, cg) = runs["card"], runs["cpu"]
+        loss_gap = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+        grad_gap = float(np.abs(gg - cg).max() / np.abs(cg).max())
+        gaps[blank_label] = (loss_gap, grad_gap, float(cl[1]), float(cl[2]))
+        checks[f"ctc_{blank_label}"] = (
+            loss_gap <= CTC_RTOL and grad_gap <= CTC_RTOL
+            and bool(np.isfinite(gg).all()) and 9e29 < cl[2] < 1.1e30
+            and cl[1] < 1e3)
+    log(f"crnn 42d: CTCLoss (T, N, C) = ({CTC_T}, {CTC_N}, {CTC_C}), L = "
+        f"{CTC_L}, both lengths, card vs CPU (loss gap relative, gradient "
+        f"gap of its largest value, the zero-length row's loss, the "
+        f"infeasible row's loss) by blank convention: {gaps} (limit "
+        f"{CTC_RTOL})")
+    return checks
+
+
+def basics_net(mx):
+    """Phase 42e's net: the new layers and ops on a (N, C, H, W) input in
+    three branches (2-D, 1-D over the flattened image, 3-D over one
+    depth slice), their outputs flattened and joined."""
+    gluon = mx.gluon
+    nn = gluon.nn
+    C = BASICS_C
+
+    class BasicsNet(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.two = nn.HybridSequential()
+            self.two.add(nn.ReflectionPad2D(1),
+                         # no bias: InstanceNorm takes out a per-channel
+                         # constant, so its gradient would be rounding alone
+                         nn.Conv2DTranspose(C, 3, strides=2, padding=2,
+                                            output_padding=1, groups=2,
+                                            use_bias=False, in_channels=C),
+                         nn.InstanceNorm(in_channels=C),
+                         nn.PReLU(mx.init.Constant(0.2), in_channels=C),
+                         nn.GroupNorm(num_groups=2),
+                         nn.ELU(0.5),
+                         gluon.contrib.nn.PixelShuffle2D(2))
+            self.one = nn.HybridSequential()
+            self.one.add(nn.Conv1D(C, 3, padding=1, in_channels=C),
+                         nn.SELU(),
+                         nn.Conv1DTranspose(C // 2, 4, strides=2, padding=1,
+                                            in_channels=C),
+                         nn.GELU())
+            self.three = nn.HybridSequential()
+            self.three.add(nn.Conv3D(C, (1, 3, 3), padding=(0, 1, 1),
+                                     in_channels=C),
+                           nn.Conv3DTranspose(C // 2, (1, 2, 2),
+                                              strides=(1, 2, 2),
+                                              in_channels=C),
+                           nn.Swish(1.5))
+
+        def hybrid_forward(self, F, x):
+            a = self.two(x)
+            a = F.UpSampling(a, scale=2, sample_type="bilinear")
+            a = F.LRN(a, nsize=3)
+            a = F.L2Normalization(a, mode="channel")
+            b = self.one(F.reshape(x, shape=(0, 0, -1)))
+            c = self.three(F.expand_dims(x, axis=2))
+            return F.concat(F.flatten(a), F.flatten(b), F.flatten(c),
+                            dim=1)
+
+    return BasicsNet()
+
+
+def basics_card_vs_cpu(mx):
+    """Phase 42e: the net of new layers, forward and backward, on the card
+    against the CPU from the same weights."""
+    import numpy as np
+
+    rng = np.random.RandomState(43)
+    x_np = rng.randn(BASICS_B, BASICS_C, BASICS_HW, BASICS_HW).astype(
+        np.float32)
+    runs, weights = {}, None
+    for side, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        with ctx:
+            mx.random.seed(43)
+            net = basics_net(mx)
+            net.initialize(ctx=ctx)
+            net.hybridize()
+            x = mx.nd.array(x_np, ctx=ctx)
+            net(x)
+            if weights is None:
+                weights = host_weights(net)
+            else:
+                mx.convert.load_numpy_params(net, weights)
+            x.attach_grad()
+            with mx.autograd.record():
+                out = net(x)
+                c = mx.nd.array(np.random.RandomState(44).uniform(
+                    0.5, 1.5, out.shape).astype(np.float32), ctx=ctx)
+                (out * c).sum().backward()
+            grads = {k: p.grad().detach().to("cpu", copy=True).numpy()
+                     for k, p in
+                     net._collect_params_with_prefix().items()
+                     if p.grad_req != "null"}
+            runs[side] = (out.asnumpy(), x.grad.asnumpy(), grads)
+    (go, gx, gg), (co, cx, cg) = runs["card"], runs["cpu"]
+
+    def of_max(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    gaps = {"out": of_max(go, co), "input_grad": of_max(gx, cx)}
+    gaps.update({k: of_max(gg[k], cg[k]) for k in cg})
+    worst = max(gaps, key=gaps.get)
+    log(f"crnn 42e: a net of the new layers (b={BASICS_B}, {BASICS_C} "
+        f"channels, {BASICS_HW}^2; output {go.shape}) on the card vs the "
+        f"CPU, {len(cg)} parameter gradients: out {gaps['out']:.3e}, input "
+        f"gradient {gaps['input_grad']:.3e}, the largest gap {worst} "
+        f"{gaps[worst]:.3e} (limit {BASICS_TOL} of each largest value)")
+    return {"basics_within_tol": gaps[worst] <= BASICS_TOL,
+            "basics_finite": bool(np.isfinite(go).all())}
+
+
+def gluon_basics(mx, card):
+    """Phase 42: the Gluon basics on gpu(0), fp32 with TF32 off and cuDNN
+    deterministic (the captured step must match the eager one bit for
+    bit).  Returns the CRNN's launches and rows 11-12 at its shape."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        times = crnn_kernel_times(kr, torch.device("cuda", 0))
+        log(f"crnn 42a: rows 11-12 at the CRNN's shape on {card}: "
+            + "; ".join(f"{k} {v['kernel_route']} route {v['ms']:.4f} ms "
+                        f"(plain {v['plain_ms']:.3f}, bound "
+                        f"{v['bound_ms']:.4f} {v['bound_by']}, cuDNN's layer "
+                        f"{v['library_ms']:.4f}, the port's layer "
+                        f"{v['port_layer_ms']:.4f}), max err "
+                        f"{v['max_abs_err']:.3g}" for k, v in times.items()))
+        checks, record, start, batches, loss_fn = crnn_train(mx, card)
+        checks["crnn_kernels_match_plain"] = all(
+            v["max_abs_err"] <= RNN_TOL["float32"] for v in times.values())
+        checks.update(crnn_card_vs_cpu(mx, start))
+        cap_checks, cap_ms = crnn_captured(mx, card, start, batches, loss_fn)
+        checks.update(cap_checks)
+        checks.update(ctc_card_vs_cpu(mx))
+        checks.update(basics_card_vs_cpu(mx))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    record["captured_step_ms"] = cap_ms
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"gluon basics 42 checks failed: {failed} "
+                         f"(record {record})")
+    return record, times
+
+
 def main():
     import torch
 
@@ -10082,6 +10627,9 @@ def main():
     dist_launches.update(imperative_ndarray(mx, card))
     torch.cuda.empty_cache()
     lap("41 imperative NDArray")
+    crnn, crnn_times = gluon_basics(mx, card)
+    torch.cuda.empty_cache()
+    lap("42 Gluon basics (CRNN + CTC)")
 
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
@@ -10160,22 +10708,31 @@ def main():
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",
              launches=(dtrain["lstm_fwd"] + sum(dpredict.values())
-                       + cells["lstm_fwd"] + lm_launches["lstm_fwd"]),
+                       + cells["lstm_fwd"] + lm_launches["lstm_fwd"]
+                       + crnn["train"] + crnn["eval"]),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
                                **dpredict, "cells": cells["lstm_fwd"],
-                               "lm_bucketing_train": lm_launches["lstm_fwd"]},
+                               "lm_bucketing_train": lm_launches["lstm_fwd"],
+                               "crnn_train": crnn["train"],
+                               "crnn_eval": crnn["eval"]},
              launches_by_route=dict(
                  droutes, cells=cell_routes["lstm_fwd"],
-                 lm_bucketing_train=lm_routes["lstm_fwd"]),
+                 lm_bucketing_train=lm_routes["lstm_fwd"],
+                 crnn={"reg": crnn["train"] + crnn["eval"]}),
+             crnn_t20_n32_h64=crnn_times["lstm_fwd"],
              **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132",
-             launches=dtrain["lstm_bwd"] + lm_launches["lstm_bwd"],
+             launches=(dtrain["lstm_bwd"] + lm_launches["lstm_bwd"]
+                       + crnn["train"]),
              launches_by_path={"deepar_train": dtrain["lstm_bwd"],
-                               "lm_bucketing_train": lm_launches["lstm_bwd"]},
+                               "lm_bucketing_train": lm_launches["lstm_bwd"],
+                               "crnn_train": crnn["train"]},
              launches_by_route={
                  "deepar_train": dbroutes,
-                 "lm_bucketing_train": lm_routes["lstm_bwd"]},
+                 "lm_bucketing_train": lm_routes["lstm_bwd"],
+                 "crnn_train": {"reg": crnn["train"]}},
+             crnn_t20_n32_h64=crnn_times["lstm_bwd"],
              **rnn["lstm_bwd"]),
         dict(name="gru_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:300",

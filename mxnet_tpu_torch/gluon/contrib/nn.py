@@ -1,6 +1,7 @@
 """Contrib neural-network blocks (ref: ``mxnet_tpu/gluon/contrib/nn.py``;
 python/mxnet/gluon/contrib/nn/basic_layers.py): ``Concurrent``,
-``HybridConcurrent``, ``Identity``, ``SyncBatchNorm`` and ``MoEFFN``.
+``HybridConcurrent``, ``Identity``, ``SyncBatchNorm``, ``MoEFFN`` and
+``PixelShuffle1D/2D/3D``.
 ``SparseEmbedding`` comes with slice 9 (sparse arrays) and raises naming
 it.
 """
@@ -129,3 +130,69 @@ class SparseEmbedding(HybridBlock):
         raise MXNetError("gluon.contrib.nn.SparseEmbedding is not ported yet; "
                          "it comes with slice 9 (sparse arrays; ROADMAP.md "
                          "queue 1)")
+
+
+class PixelShuffle1D(HybridBlock):
+    """Upsample by moving channels into length (ref: contrib.nn.
+    PixelShuffle1D): ``(N, C*f, W) -> (N, C, W*f)``."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        self._factor = int(factor)
+
+    def hybrid_forward(self, F, x):
+        f = self._factor
+        x = F.reshape(x, shape=(0, -4, -1, f, 0))      # (N, C, f, W)
+        x = F.transpose(x, axes=(0, 1, 3, 2))          # (N, C, W, f)
+        return F.reshape(x, shape=(0, 0, -3))          # (N, C, W*f)
+
+    def __repr__(self):
+        return f"PixelShuffle1D({self._factor})"
+
+
+class PixelShuffle2D(HybridBlock):
+    """``(N, C*f1*f2, H, W) -> (N, C, H*f1, W*f2)`` (ref: contrib.nn.
+    PixelShuffle2D); ``factor`` one int or a pair."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        try:
+            f1, f2 = factor
+        except TypeError:
+            f1 = f2 = factor
+        self._factors = (int(f1), int(f2))
+
+    def hybrid_forward(self, F, x):
+        f1, f2 = self._factors
+        # (N, C, f1, f2, H, W) -> (N, C, H, f1, W, f2) -> merge
+        x = F.reshape(x, shape=(0, -4, -1, f1 * f2, 0, 0))
+        x = F.reshape(x, shape=(0, 0, -4, f1, f2, 0, 0))
+        x = F.transpose(x, axes=(0, 1, 4, 2, 5, 3))
+        return F.reshape(x, shape=(0, 0, -3, -3))
+
+    def __repr__(self):
+        return f"PixelShuffle2D({self._factors})"
+
+
+class PixelShuffle3D(HybridBlock):
+    """``(N, C*f1*f2*f3, D, H, W) -> (N, C, D*f1, H*f2, W*f3)`` (ref:
+    contrib.nn.PixelShuffle3D); ``factor`` one int or a triple."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        try:
+            f1, f2, f3 = factor
+        except TypeError:
+            f1 = f2 = f3 = factor
+        self._factors = (int(f1), int(f2), int(f3))
+
+    def hybrid_forward(self, F, x):
+        f1, f2, f3 = self._factors
+        x = F.reshape(x, shape=(0, -4, -1, f1 * f2 * f3, 0, 0, 0))
+        x = F.reshape(x, shape=(0, 0, -4, f1, f2 * f3, 0, 0, 0))
+        x = F.reshape(x, shape=(0, 0, 0, -4, f2, f3, 0, 0, 0))
+        x = F.transpose(x, axes=(0, 1, 5, 2, 6, 3, 7, 4))
+        return F.reshape(x, shape=(0, 0, -3, -3, -3))
+
+    def __repr__(self):
+        return f"PixelShuffle3D({self._factors})"

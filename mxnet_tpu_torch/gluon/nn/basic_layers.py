@@ -1,11 +1,45 @@
-"""Basic Gluon layers (ref: python/mxnet/gluon/nn/basic_layers.py): the
-ones BERT and ResNet use."""
+"""Basic Gluon layers (ref: python/mxnet/gluon/nn/basic_layers.py;
+``mxnet_tpu/gluon/nn/basic_layers.py``)."""
 from __future__ import annotations
 
 import math
 
 from ... import autograd
-from ..block import HybridBlock, commit_aux
+from ..block import Block, HybridBlock, commit_aux
+
+
+class Sequential(Block):
+    """Blocks run in order, not hybridizable (ref: nn.Sequential,
+    ``basic_layers.py:11``); children are named "0", "1", ..."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._layers = []
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b, str(len(self._layers)))
+            self._layers.append(b)
+
+    def forward(self, x, *args):
+        for b in self._layers:
+            x = b(x)
+        return x
+
+    def __len__(self):
+        return len(self._layers)
+
+    def __getitem__(self, i):
+        """A layer, or for a slice a new ``Sequential`` of the same layer
+        objects."""
+        if isinstance(i, slice):
+            net = type(self)()
+            net.add(*self._layers[i])
+            return net
+        return self._layers[i]
+
+    def __iter__(self):
+        return iter(self._layers)
 
 
 class HybridSequential(HybridBlock):
@@ -188,3 +222,143 @@ class BatchNorm(HybridBlock):
             commit_aux(running_mean, new_mm)
             commit_aux(running_var, new_mv)
         return out
+
+
+class LeakyReLU(HybridBlock):
+    """``alpha*x`` below 0 (ref: nn.LeakyReLU)."""
+
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """``alpha*x`` below 0 with a learned ``alpha`` per channel (ref:
+    nn.PReLU); ``alpha`` starts at ``alpha_initializer``, "zeros" by
+    default, as the JAX package's."""
+
+    def __init__(self, alpha_initializer="zeros", in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = self.params.get("alpha", shape=(in_channels,),
+                                     init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``alpha*(e^x - 1)`` below 0 (ref: nn.ELU)."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """The scaled ELU (ref: nn.SELU)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, the tanh approximation (``LeakyReLU``'s ``gelu``; the
+    ``Activation("gelu")`` layer is the exact one)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta*x)`` (ref: nn.Swish)."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization (ref: nn.InstanceNorm): the ``InstanceNorm``
+    op with the layer's ``epsilon`` (1e-5 by default; the op's own default
+    is 1e-3)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = epsilon
+        self._axis = axis
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class Lambda(Block):
+    """A function of the inputs as a block (ref: nn.Lambda)."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        self._fn = function
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` as a hybrid block, or with a string the op
+    of that name (ref: nn.HybridLambda)."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(function, str):
+            name = function
+            self._fn = lambda F, *a: getattr(F, name)(*a)
+        else:
+            self._fn = function
+
+    def hybrid_forward(self, F, x, *args):
+        return self._fn(F, x, *args)
+
+
+class GroupNorm(HybridBlock):
+    """Group normalization (ref: gluon.nn.GroupNorm over
+    src/operator/nn/group_norm.cc): ``gamma`` and ``beta`` are per group,
+    shape ``(num_groups,)``; with ``center``/``scale`` False the parameter
+    stays at its initial value (``grad_req='null'``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True,
+                 scale=True, beta_initializer="zeros",
+                 gamma_initializer="ones", **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = num_groups
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(num_groups,),
+                                     init=gamma_initializer,
+                                     grad_req="write" if scale else "null")
+        self.beta = self.params.get("beta", shape=(num_groups,),
+                                    init=beta_initializer,
+                                    grad_req="write" if center else "null")
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._eps)

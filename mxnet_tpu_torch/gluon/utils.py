@@ -1,8 +1,9 @@
 """gluon.utils (ref: python/mxnet/gluon/utils.py; ``mxnet_tpu/gluon/
-utils.py:12-56``): ``split_data``, ``split_and_load`` and
-``clip_global_norm``."""
+utils.py``): ``split_data``, ``split_and_load``, ``clip_global_norm``,
+``check_sha1`` and ``download``."""
 from __future__ import annotations
 
+import hashlib
 import math
 
 import torch
@@ -59,3 +60,24 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
             for t in ts:
                 t.mul_(scale)
     return total_norm
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the SHA-1 of the file's bytes is ``sha1_hash`` (hex)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1048576)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Raises: the package reads no network (place the file locally and
+    pass its path), as the JAX package's ``download``."""
+    raise MXNetError(
+        "download() is unavailable: this environment has no network egress. "
+        "Place files locally and pass a path instead.")

@@ -1,10 +1,16 @@
-"""Weight initializers (ref: python/mxnet/initializer.py): the ones BERT's
-and ResNet's blocks use.  Random draws come from the explicit generator of
-the device being filled (``random.generator``)."""
+"""Weight initializers (ref: python/mxnet/initializer.py;
+``mxnet_tpu/initializer.py``).  ``Uniform``, ``Normal`` and ``Xavier``
+draw from the explicit generator of the device being filled
+(``random.generator``); ``TruncNorm``, ``Orthogonal`` and ``MSRAPrelu``
+draw from the framework's numpy stream (``random.np_rng()``), as the JAX
+package's initializers do, so after one ``mx.random.seed`` they fill the
+same bits in both packages."""
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as np
 import torch
 
 from . import random as _random
@@ -92,6 +98,68 @@ class Normal(Initializer):
         arr.normal_(0.0, self.sigma, generator=_random.generator(arr.device))
 
 
+def _fill(arr, values):
+    """Write the numpy ``values`` into ``arr`` in its dtype and place."""
+    arr.copy_(torch.from_numpy(np.asarray(values)).to(arr.dtype))
+
+
+@register
+class Constant(Initializer):
+    """Every weight ``value`` (a number, or an array that broadcasts)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, arr):
+        arr[...] = torch.as_tensor(self.value, dtype=arr.dtype,
+                                   device=arr.device)
+
+
+@register
+class TruncNorm(Initializer):
+    """N(mean, stdev) truncated to two deviations: the draws outside
+    redrawn, not clipped (ref: initializer.py TruncNorm; BERT's init)."""
+
+    def __init__(self, mean=0.0, stdev=0.01):
+        super().__init__(mean=mean, stdev=stdev)
+        self.mean = mean
+        self.stdev = stdev
+
+    def _init_weight(self, name, arr):
+        rng = _random.np_rng()
+        vals = rng.normal(0, 1, tuple(arr.shape))
+        bad = (vals < -2.0) | (vals > 2.0)
+        while bad.any():
+            vals[bad] = rng.normal(0, 1, int(bad.sum()))
+            bad = (vals < -2.0) | (vals > 2.0)
+        _fill(arr, self.mean + self.stdev * vals)
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal basis from the SVD of a uniform
+    (``rand_type='uniform'``) or normal draw, the weight seen as
+    ``(shape[0], rest)``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:]) if arr.dim() > 1 else 1
+        rng = _random.np_rng()
+        if self.rand_type == "uniform":
+            tmp = rng.uniform(-1, 1, (nout, nin))
+        else:
+            tmp = rng.normal(0, 1, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        _fill(arr, self.scale * q.reshape(tuple(arr.shape)))
+
+
 @register
 class Xavier(Initializer):
     """Ref: mx.init.Xavier: U(-a, a) (``rnd_type='uniform'``) or N(0, a)
@@ -118,12 +186,86 @@ class Xavier(Initializer):
             fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
         factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
                   "out": fan_out}[self.factor_type]
-        scale = math.sqrt(self.magnitude / factor)
+        self._draw(arr, math.sqrt(self.magnitude / factor))
+
+    def _draw(self, arr, scale):
         gen = _random.generator(arr.device)
         if self.rnd_type == "uniform":
             arr.uniform_(-scale, scale, generator=gen)
         else:
             arr.normal_(0.0, scale, generator=gen)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He's initialization for PReLU nets: Xavier's gaussian with
+    ``magnitude = 2 / (1 + slope^2)``, drawn from the numpy stream."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+    def _draw(self, arr, scale):
+        _fill(arr, _random.np_rng().normal(0, scale, tuple(arr.shape)))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling filter, for a ``Deconvolution`` weight of
+    shape ``(C, 1, k, k)`` (ref: initializer.py Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        shape = tuple(arr.shape)
+        weight = np.zeros(math.prod(shape), dtype="float32")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(math.prod(shape)):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        _fill(arr, weight.reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros with the forget gate's quarter at ``forget_bias`` (gate order
+    i, f, g, o).  It fills the weights that reach ``_init_weight``: a name
+    ending in ``bias`` takes the base class's zeros, as in the JAX
+    package."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        arr.zero_()
+        n = arr.shape[0] // 4
+        arr[n:2 * n] = self.forget_bias
+
+
+@register
+class Mixed(Initializer):
+    """Each parameter initialized by the first initializer whose regular
+    expression matches its full name (``re.match``); a name that none
+    matches raises, so put ``'.*'`` last as the catch-all."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__(patterns=patterns)
+        if len(patterns) != len(initializers):
+            raise ValueError(
+                "patterns and initializers must pair up, got "
+                f"{len(patterns)} vs {len(initializers)}")
+        self._map = [(re.compile(p), init)
+                     for p, init in zip(patterns, initializers)]
+
+    def init_array(self, name, arr):
+        for pat, init in self._map:
+            if pat.match(name):
+                init.init_array(name, arr)
+                return
+        raise ValueError(
+            f"parameter {name!r} matched none of the Mixed patterns; "
+            "add a '.*' catch-all as the last pattern")
 
 
 _registry["zeros"] = Zero
@@ -140,3 +282,7 @@ def create(name, **kwargs):
                          f"{sorted(_registry)}")
     return _registry[key](**kwargs)
 
+
+# aliases matching mx.init
+zero = Zero
+one = One

@@ -1,6 +1,7 @@
-"""Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that BERT
-serving and training, the ported losses and ResNet run, and the loss heads
-of symbolic graphs (``SoftmaxOutput``, the regression outputs and
+"""Neural-network ops (ref: ``mxnet_tpu/ops/nn.py``): the products,
+convolutions and transposed convolutions, pooling, the normalizations,
+activations, softmax family, dropout, resizing and the loss heads of
+symbolic graphs (``SoftmaxOutput``, the regression outputs and
 ``SVMOutput``)."""
 from __future__ import annotations
 
@@ -84,6 +85,57 @@ register("Convolution", _k_convolution, aliases=("convolution",),
          arg_names=("data", "weight", "bias"))
 
 
+_DECONV_FNS = {1: tF.conv_transpose1d, 2: tF.conv_transpose2d,
+               3: tF.conv_transpose3d}
+
+
+def _k_deconvolution(data, weight, bias=None, kernel=(), stride=(),
+                     dilate=(), pad=(), adj=(), num_filter=0, num_group=1,
+                     no_bias=True, target_shape=(), layout=None,
+                     cudnn_tune=None, cudnn_off=False, workspace=1024):
+    """Transposed convolution (ref: ops/nn.py:105), channel-first only.
+    The weight is MXNet's ``(in, out/groups, *k)``, which is also
+    ``conv_transpose*d``'s; a group takes its slice of the data's channels
+    and of the weight's first axis, as the JAX op splits them.  Each output
+    dim is ``(in - 1)*stride - 2*pad + dilate*(k - 1) + adj + 1``: the
+    transposed convolution without padding, cut from ``pad`` on, with the
+    ``adj`` positions past its end zeros where it has none (so any ``adj``
+    is taken, as ``lax.conv_general_dilated`` takes it, where
+    ``output_padding`` must stay below the stride or the dilation).
+    ``target_shape``, which the JAX op accepts and ignores, raises for any
+    value but the default."""
+    nd = len(kernel)
+    if layout and layout.endswith("C"):
+        raise MXNetError(
+            "Deconvolution supports channel-first layouts only; "
+            f"got layout={layout!r} (channel-last deconv weights/"
+            "grouping are not implemented)")
+    if tuple(target_shape or ()):
+        raise MXNetError(f"Deconvolution: target_shape={target_shape!r} is "
+                         "not implemented (only the default ())")
+    stride = tuple(stride) or (1,) * nd
+    dilate = tuple(dilate) or (1,) * nd
+    pad = tuple(pad) or (0,) * nd
+    adj = tuple(adj) or (0,) * nd
+    full = _DECONV_FNS[nd](data, weight, None, stride, 0, 0, num_group,
+                           dilate)
+    out = full
+    for i, (p, a) in enumerate(zip(pad, adj)):
+        ax, n = 2 + i, full.shape[2 + i]
+        want = n - 2 * p + a
+        out = out.narrow(ax, p, min(want, n - p))
+        if want > n - p:
+            extra = [0, 0] * (nd - 1 - i) + [0, want - (n - p)]
+            out = tF.pad(out, extra)
+    if not no_bias and bias is not None:
+        out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)
+    return out
+
+
+register("Deconvolution", _k_deconvolution, aliases=("deconvolution",),
+         arg_names=("data", "weight", "bias"))
+
+
 def _pool_out_pad(in_size, k, s, p, convention):
     """(low, high) padding of one spatial dim (ref: ops/nn.py:155): the
     ``full`` convention pads the high side up to the ceil-mode output."""
@@ -106,20 +158,25 @@ def _k_pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
     or windowed, conventions ``valid`` and ``full``, ``count_include_pad``
     (whose divisor, as the reference's, is the window size even over the
     ``full`` convention's extra padding), channel-first or channel-last
-    (``layout`` ending in C)."""
-    if pool_type not in ("max", "avg", "sum"):
-        raise MXNetError(f"Pooling: pool_type {pool_type!r} is not ported")
+    (``layout`` ending in C); and ``lp``, ``(sum |x|^p_value)^(1/p_value)``
+    over the window, the padding adding zeros."""
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"Pooling: unknown pool_type {pool_type!r}")
     nd = data.dim() - 2
     channel_last = bool(layout) and layout.endswith("C")
     x = data.movedim(-1, 1) if channel_last else data
+    if pool_type == "lp":
+        x = torch.abs(x) ** p_value
     if global_pool:
         axes = tuple(range(2, 2 + nd))
         if pool_type == "max":
             out = x.amax(dim=axes, keepdim=True)
-        elif pool_type == "sum":
+        elif pool_type in ("sum", "lp"):
             out = x.sum(dim=axes, keepdim=True)
         else:
             out = x.mean(dim=axes, keepdim=True)
+        if pool_type == "lp":
+            out = out ** (1.0 / p_value)
         return out.movedim(1, -1) if channel_last else out
     kernel = tuple(kernel)
     stride = tuple(stride) or (1,) * nd
@@ -140,8 +197,10 @@ def _k_pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
         window = math.prod(kernel)
         avg = _AVG_POOL[nd](x, kernel, stride, torch_pad,
                             count_include_pad=True)
-        if pool_type == "sum":
+        if pool_type in ("sum", "lp"):
             out = avg * window
+            if pool_type == "lp":
+                out = out ** (1.0 / p_value)
         elif count_include_pad:
             out = avg
         else:
@@ -362,6 +421,77 @@ register("LayerNorm", _k_layer_norm, aliases=("layer_norm",),
          arg_names=("data", "gamma", "beta"))
 
 
+def _normalize(x, red, eps):
+    """``(x - mean) / sqrt(var + eps)`` over ``red``, with the biased
+    variance (``jnp.var``'s; torch's default divides by n-1)."""
+    var, mean = torch.var_mean(x, dim=red, keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def _k_instance_norm(data, gamma, beta, eps=1e-3):
+    """Each sample's channel normalized over its spatial axes, then a
+    per-channel scale and shift (ref: ops/nn.py:433).  The op's default
+    ``eps`` is 1e-3; ``nn.InstanceNorm`` passes its own, 1e-5."""
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return _normalize(data, tuple(range(2, data.dim())), eps) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+
+
+register("InstanceNorm", _k_instance_norm, aliases=("instance_norm",),
+         arg_names=("data", "gamma", "beta"))
+
+
+def _k_group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """The channels in ``num_groups`` groups, each normalized over its
+    channels and the spatial axes; ``gamma``/``beta`` are per group, shape
+    ``(num_groups,)`` (ref: ops/nn.py:445, the reference's group_norm.cc),
+    not per channel as ``torch.nn.GroupNorm``'s."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    x = _normalize(x, tuple(range(2, x.dim())), eps)
+    gshape = (1, num_groups) + (1,) * (x.dim() - 2)
+    x = x * gamma.reshape(gshape) + beta.reshape(gshape)
+    return x.reshape(data.shape)
+
+
+register("GroupNorm", _k_group_norm, arg_names=("data", "gamma", "beta"))
+
+
+def _k_l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over every axis but the first
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``) (ref: ops/nn.py:461)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, data.dim()))
+    else:
+        raise MXNetError(f"L2Normalization: unknown mode {mode!r}")
+    return data / torch.sqrt(torch.square(data).sum(dim=red, keepdim=True)
+                             + eps)
+
+
+register("L2Normalization", _k_l2_normalization)
+
+
+def _k_lrn(data, nsize, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across the channels of NCHW data:
+    ``data / (knorm + alpha/nsize * sum of the squares of nsize
+    neighbouring channels)^beta`` (ref: ops/nn.py:476)."""
+    half = nsize // 2
+    padded = tF.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    acc = padded[:, 0:c]
+    for i in range(1, nsize):
+        acc = acc + padded[:, i:i + c]
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
+register("LRN", _k_lrn)
+
+
 def _k_activation(data, act_type):
     """Ref: ops/nn.py:489.  ``gelu`` here is the exact erf form."""
     if act_type == "relu":
@@ -380,14 +510,35 @@ def _k_activation(data, act_type):
 register("Activation", _k_activation, aliases=("activation",))
 
 
-def _k_leaky_relu(data, act_type="leaky", slope=0.25):
-    """Ref: ops/nn.py:507.  ``gelu`` here is the tanh approximation,
-    unlike ``Activation(gelu)`` (ops/nn.py:500 vs :520)."""
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def _k_leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                  lower_bound=0.125, upper_bound=0.334):
+    """Ref: ops/nn.py:507.  ``leaky``: ``slope*x`` below 0; ``elu``:
+    ``slope*(e^x - 1)``; ``selu``: scaled ELU with SELU's constants;
+    ``prelu``: ``gamma*x``, ``gamma`` per channel (axis 1) when it is 1-D
+    and the data has more than 2 dims; ``gelu``: the tanh approximation,
+    unlike ``Activation(gelu)`` (ops/nn.py:500 vs :520); ``rrelu``: the
+    mid slope ``(lower_bound + upper_bound)/2``, with no random draw, in
+    training too, as the reference's port does."""
     if act_type == "leaky":
         return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(data > 0, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 and data.dim() > 2 else gamma
+        return torch.where(data > 0, data, g * data)
     if act_type == "gelu":
         return tF.gelu(data, approximate="tanh")
-    raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not ported")
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2
+        return torch.where(data > 0, data, mid * data)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
 
 
 register("LeakyReLU", _k_leaky_relu, arg_names=("data", "gamma"),
@@ -413,6 +564,47 @@ register("Dropout", _k_dropout, aliases=("dropout",), needs_rng=True,
          train_aware=True)
 
 
+def _resize_bilinear(data, th, tw):
+    """NCHW ``data`` resized to ``(th, tw)`` as ``jax.image.resize(...,
+    "bilinear")`` does: half-pixel centres, the triangle kernel widened by
+    the factor where a side shrinks (antialiasing), the weights that fall
+    outside the image dropped and the rest renormalised, which
+    ``interpolate``'s antialiased bilinear mode also does."""
+    return tF.interpolate(data, size=(int(th), int(tw)), mode="bilinear",
+                          align_corners=False, antialias=True)
+
+
+def _k_upsampling(data, scale, sample_type="nearest", num_args=1,
+                  workspace=512):
+    """NCHW ``data`` grown by the integer ``scale`` on both spatial axes:
+    each pixel repeated (``nearest``) or ``bilinear`` (ref: ops/nn.py:722)."""
+    n, c, h, w = data.shape
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3)
+    if sample_type != "bilinear":
+        raise MXNetError(f"UpSampling: unknown sample_type {sample_type!r}")
+    return _resize_bilinear(data, h * scale, w * scale)
+
+
+register("UpSampling", _k_upsampling, variadic=True)
+
+
+def _k_bilinear_resize(data, height=0, width=0, scale_height=None,
+                       scale_width=None, mode="size"):
+    """NCHW ``data`` resized to ``height`` x ``width``, or by the scales
+    where a size is 0 (ref: ops/nn.py:732; ``mode`` is taken and, as
+    there, changes nothing)."""
+    n, c, h, w = data.shape
+    th = height or int(h * scale_height)
+    tw = width or int(w * scale_width)
+    return _resize_bilinear(data, th, tw)
+
+
+register("_contrib_BilinearResize2D", _k_bilinear_resize,
+         aliases=("bilinear_resize_2d",))
+
+
 def _k_softmax(data, axis=-1, temperature=None):
     """Ref: ops/nn.py:541."""
     x = data / temperature if temperature else data
@@ -429,6 +621,14 @@ def _k_log_softmax(data, axis=-1, temperature=None):
 
 
 register("log_softmax", _k_log_softmax)
+
+
+def _k_softmin(data, axis=-1):
+    """``softmax(-data)`` (ref: ops/nn.py:548)."""
+    return torch.softmax(-data, dim=axis)
+
+
+register("softmin", _k_softmin)
 
 
 # -- the loss heads (ref: ops/nn.py:553-780) -----------------------------------

@@ -380,14 +380,39 @@ def _k_swapaxes(data, dim1=0, dim2=1):
 register("swapaxes", _k_swapaxes, aliases=("SwapAxis",))
 
 
+def _pad_index(n, before, after, mode, device):
+    """The source index of each position of one axis padded ``before`` and
+    ``after``: ``edge`` repeats the end values, ``reflect`` mirrors about
+    them without repeating them, folding again where the pad is longer
+    than the axis (``numpy.pad``'s rules)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
 def _k_pad(data, mode="constant", pad_width=(), constant_value=0.0):
     """MXNet's flat ``pad_width`` (before, after) per axis, first axis
-    first (ref: ops/tensor.py:431); of the modes, ``constant``."""
-    if mode != "constant":
-        raise MXNetError(f"pad: mode {mode!r} is not ported")
+    first (ref: ops/tensor.py:431), in the modes ``constant``, ``edge``
+    and ``reflect``.  Every axis the widths name is padded, as
+    ``jnp.pad`` pads it (``torch.nn.functional.pad``'s edge and reflect
+    modes pad only the trailing axes): each padded axis is one gather."""
+    if mode not in ("constant", "edge", "reflect"):
+        raise MXNetError(f"pad: unknown mode {mode!r}")
     if len(pad_width) != 2 * data.dim():
         raise MXNetError(f"pad: pad_width needs 2 values per axis of a "
                          f"{data.dim()}-d input, got {tuple(pad_width)}")
+    if mode != "constant":
+        out = data
+        for ax in range(data.dim()):
+            before, after = int(pad_width[2 * ax]), int(pad_width[2 * ax + 1])
+            if before or after:
+                idx = _pad_index(data.shape[ax], before, after, mode,
+                                 data.device)
+                out = out.index_select(ax, idx)
+        return out
     flat = []
     for ax in reversed(range(data.dim())):  # torch lists the last axis first
         flat += [int(pad_width[2 * ax]), int(pad_width[2 * ax + 1])]
