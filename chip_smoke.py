@@ -187,7 +187,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
     with ``--bert-ranks-worker DIR``, which runs phases 20, 23 and 24 in
     turn in one process group), rank r on ``gpu(r)`` with 2 or more cards
     (NCCL), both on ``gpu(0)`` with one (gloo), train BERT-base MLM+NSP
-    (fp32, dropout 0, Adam) on their halves of a 16 x 128 batch for 6
+    (fp32, dropout 0, Adam) on their halves of a 16 x 128 batch for 4
     steps through ``Trainer(kvstore='dist_sync')``: the backend the rule
     names, both ranks' parameters bit-identical after every step, every
     trainable parameter finite and changed, 12 launches of each flash
@@ -203,7 +203,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
     and 22 in turn, one launch), both on gpu(0)
     (gloo), train fused ResNet-50 v1 NHWC (bf16 compute, fp32 masters, SGD
     lr 0.1 momentum 0.9) through ``DataParallelTrainer`` over
-    ``make_mesh()`` = ``{dp:2}`` for 6 steps at phase 7's global batch
+    ``make_mesh()`` = ``{dp:2}`` for 4 steps at phase 7's global batch
     (128 x 224^2, 64 a rank): the backend the rule names, both ranks'
     masters and moving statistics bit-identical after every step, every
     trainable parameter finite and changed, every moving statistic moved,
@@ -517,7 +517,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
     server, ``tools.launch -n 2 -s 1``: ``python -m
     mxnet_tpu_torch.kvstore_server``): the 2 ranks train BERT-base
     MLM+NSP (fp32, dropout 0, Adam) through ``Trainer(kvstore=
-    'dist_async')``, 3 steps a rank on its half of phase 20's batch.
+    'dist_async')``, 2 steps a rank on its half of phase 20's batch.
     Gates: the server never initialized CUDA (its log line and its memory
     map); after a final barrier both ranks pull bit-identical values;
     every parameter finite and changed; no synchronous all-reduce; the
@@ -590,10 +590,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
     ``L2Normalization``, ``PixelShuffle2D``) on the card against the CPU
     from the same weights: the output and every gradient within
     ``BASICS_TOL`` of its largest value.
+43. mixed precision: (a) BERT-base MLM+NSP (phase 5's batch, b=32,
+    s=128, dropout 0.1) under ``amp.init("float16")`` and
+    ``amp.convert_model``, ``AMP_STEPS`` LAMB steps with
+    ``multi_precision`` (float32 masters) through ``amp.scale_loss``.
+    Gates: finite losses, the last below the first, the parameters'
+    dtypes as ``convert_model`` splits them, a float32 master for every
+    float16 parameter, 12 float16 launches each of rows 1, 3 and 4 a step,
+    no plain call.  Printed: the loss scale after each step, the skipped
+    steps, the step median and the peak memory beside phase 5's.  (b) One
+    step at a loss scale of 2**40: every weight, master and LAMB state
+    bit-identical after it, no update counted, the scale halved.  (c)
+    BERT-base widths with 2 layers, b=4, s=48, dropout 0, 3 steps (the
+    loss scale from 2**12, so that each updates) on the card and
+    on the CPU from the same converted weights: the same scales, the
+    losses within ``AMP_CPU_LOSS_RTOL`` relative, the masters within
+    ``AMP_CPU_MASTER_LRS`` learning rates (99.9th percentile
+    ``AMP_CPU_MASTER_Q999``).  (d) bfloat16 AMP: 5 eager AdamW steps
+    through ``amp.scale_loss`` and 5 through ``Trainer(whole_step=True)``
+    from the same seed: the scaler idle at 1 and disarmed, one graph, 4
+    replays, no fallback, losses and parameters bit-identical, 12
+    bfloat16 launches each of rows 1, 3 and 4 every step.  (e) Rows 1, 3
+    and 4 in float16 against their plain versions at b=8, s=512 and b=32,
+    s=128 (h=12, d=64, key-padded): o within ``FP16_O_TOL``, lse
+    ``FP16_LSE_TOL``, the gradients ``FP16_GRAD_TOL``; timed beside the
+    plain versions and SDPA in float16, the bound at float16's tensor-core
+    rate.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
 24, 25, 21, 22, 38, 39, 40, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36,
-37, 41, 42 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2 ranks and a
+37, 41, 42, 43 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2
+ranks and a
 parameter server; 21b, 2+ cards only, in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
 before the first CUDA graph (phase 8's predict forwards), as graphs
@@ -629,8 +656,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): CUDA-core fp32 and tensor-core
-# bf16 FLOP/s, and HBM3 bytes/s
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# bf16 and fp16 FLOP/s, and HBM3 bytes/s
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES = 3.35e12
 # fp32 products on the tensor cores as 3xTF32 (three TF32 products, 495
 # TFLOP/s dense, per fp32 product): the fp32 attention bounds' rate, which
@@ -745,10 +772,10 @@ KV_OPTIMIZERS = (("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
 # ulp of its denominator; everything else in phase 19 is bit-identical
 KV_ADAM_RTOL = 1e-6
 # phase 20, BERT-base under dist_sync: 2 ranks, each on half of a batch of
-# 16 x 128, 6 Adam steps; the losses against one process over the same
+# 16 x 128, 4 Adam steps; the losses against one process over the same
 # halves within BERT's card-vs-CPU limit (fp32, gradients summed in other
 # orders); the launch's own time limit
-DIST_RANKS, DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 16, 128, 6
+DIST_RANKS, DIST_BATCH, DIST_SEQ, DIST_STEPS = 2, 16, 128, 4
 DIST_ADAM = {"learning_rate": 1e-4}
 DIST_LOSS_RTOL = TRAIN_LOSS_RTOL
 DIST_TIMEOUT_S = 600
@@ -780,7 +807,7 @@ SPMD_SPLITS = 52
 SPMD_TIMEOUT_S = 400
 # the peak memory a rank of phase 24's runs, printed in phase 22
 SPMD_PEAK = {}
-MESH_RANKS, MESH_RESNET_STEPS = 2, 6
+MESH_RANKS, MESH_RESNET_STEPS = 2, 4
 MESH_REF_BATCH, MESH_REF_IMAGE = 16, 112
 MESH_STATS_RTOL = 1e-4
 MESH_BERT_BATCH, MESH_BERT_SEQ, MESH_BERT_STEPS = 16, 128, 3
@@ -979,11 +1006,38 @@ CRNN_LOGIT_TOL, CRNN_LOSS_RTOL, CRNN_GRAD_TOL, CRNN_STEP_RTOL = \
 CRNN_CAPTURE_STEPS = 8
 CTC_T, CTC_N, CTC_C, CTC_L, CTC_RTOL = 20, 32, 11, 4, 1e-5
 BASICS_B, BASICS_C, BASICS_HW, BASICS_TOL = 8, 8, 16, 1e-4
-# phases 39-40: BERT-base on phase 20's batch, 3 dist_async steps a rank,
+# phase 43: mixed precision.  (a) BERT-base MLM+NSP at phase 5's batch
+# (b=32, s=128, dropout 0.1, its synthetic batch) under
+# amp.init("float16") and amp.convert_model, AMP_STEPS LAMB steps with
+# float32 masters (multi_precision) through amp.scale_loss: GluonNLP's
+# scripts/bert/run_pretraining.py --dtype float16 recipe; (b) one step at
+# a loss scale of AMP_OVERFLOW; (c) card vs CPU at BERT-base widths with
+# AMP_CPU_LAYERS layers, b=AMP_CPU_BATCH, s=AMP_CPU_SEQ (valid lengths in
+# [32, 48]: padded rows; the card host's CPU computes float16 slowly: 3
+# steps took 104 s there at s=128, 58 s at s=64), dropout
+# 0, the loss scale starting at AMP_CPU_SCALE: the losses within
+# AMP_CPU_LOSS_RTOL relative, the float32 masters within
+# AMP_CPU_MASTER_LRS learning rates and their 99.9th percentile gap within
+# AMP_CPU_MASTER_Q999 (float16 products round at other places on the two
+# devices, and LAMB moves each element by about lr whatever the size of
+# its gradient, so an element whose gradient is rounding noise can step
+# the other way: PERF.md has the measured gaps); (d) bfloat16 AMP, 5 eager
+# and 5 captured AdamW steps; (e) rows 1, 3, 4 in float16 against their
+# plain versions: o within FP16_O_TOL (two fp16 ulps of values near 4),
+# lse FP16_LSE_TOL, the gradients FP16_GRAD_TOL (outputs rounded to fp16)
+AMP_STEPS, AMP_LR, AMP_OVERFLOW = 20, 1e-3, 2.0 ** 40
+AMP_CPU_LAYERS, AMP_CPU_BATCH, AMP_CPU_SEQ, AMP_CPU_STEPS = 2, 4, 48, 3
+AMP_CPU_SCALE = 2.0 ** 12
+AMP_CPU_LOSS_RTOL, AMP_CPU_MASTER_LRS, AMP_CPU_MASTER_Q999 = 5e-4, 2, 1e-5
+AMP_BF16_STEPS = 5
+FP16_O_TOL, FP16_LSE_TOL, FP16_GRAD_TOL = 5e-3, 1e-3, (4e-3, 4e-3)
+# phase 5's peak device memory, printed beside phase 43's
+PHASE5_PEAK_GIB = {}
+# phases 39-40: BERT-base on phase 20's batch, 2 dist_async steps a rank,
 # then 6 dist_sync steps under the elastic supervisor (save after step 2,
 # rank 1 leaves at step 4 with code 0: the launcher ends the job when a
 # worker exits non-zero)
-ASYNC_STEPS = 3
+ASYNC_STEPS = 2
 ELASTIC_STEPS, ELASTIC_SAVE_AT, ELASTIC_DIE_AT, ELASTIC_LEAVE_CODE = 6, 2, 4, 0
 ELASTIC_RDV_S, ELASTIC_DIST_TIMEOUT_S, ELASTIC_TIMEOUT_S = 8.0, 120, 400
 
@@ -1080,7 +1134,7 @@ def least_ms(nbytes, flops, dtype, rate=None):
 def attention_rates(dtype):
     """The attention kernels' bound rates: fp32 at 3xTF32 on the tensor
     cores, and on the CUDA cores (the bound rows 1-6 had until the
-    tensor-core kernels); bf16 at the bf16 tensor-core rate."""
+    tensor-core kernels); bf16 and fp16 at their tensor-core rate."""
     if dtype == "float32":
         return TF32X3_FLOPS, PEAK_FLOPS["float32"]
     return PEAK_FLOPS[dtype], PEAK_FLOPS[dtype]
@@ -1090,7 +1144,7 @@ def attention_bound(b, h, sq, sk, d, dtype, valid, causal, cores=False):
     """Least time (ms) of the forward: q, k, v and the mask read once, o
     and lse written once, and the QK and PV products over the valid
     pairs, at the 3xTF32 rate (``cores``: the CUDA cores') in fp32."""
-    item = 2 if dtype == "bfloat16" else 4
+    item = 2 if dtype in ("bfloat16", "float16") else 4
     nbytes = (b * h * (sq + 2 * sk) * d * item + b * h * sq * d * item
               + b * h * sq * 4 + (b * sk * 4 if valid is not None else 0))
     pairs = valid_pairs(b, h, sq, sk, valid, causal)
@@ -1410,7 +1464,7 @@ def bwd_bound(b, h, sq, sk, d, dtype, valid, causal, n_ops, n_out,
     and delta (fp32) and the mask read once, ``n_out`` (b,h,s,d) outputs
     written once; ``n_ops * d`` operations per valid pair, at the rates of
     :func:`attention_bound`."""
-    item = 2 if dtype == "bfloat16" else 4
+    item = 2 if dtype in ("bfloat16", "float16") else 4
     nbytes = (b * h * (2 * sq + 2 * sk) * d * item + 2 * b * h * sq * 4
               + (b * sk * 4 if valid is not None else 0)
               + n_out * b * h * sq * d * item)
@@ -1995,6 +2049,7 @@ def train_bert(mx, card, attn_ms, profile=False):
     plain_on_cuda = fa.counts.plain_calls_on_cuda
 
     median_ms = statistics.median(step_ms[2:])
+    PHASE5_PEAK_GIB["bert"] = torch.cuda.max_memory_allocated() / 2 ** 30
     eager_record("bert", losses, after4, counts_now(), TRAIN_STEPS,
                  median_ms)
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
@@ -2194,7 +2249,7 @@ def gemm_bound(m, k, n, dtype, prologue, stats, rate=None):
     shift read, the fp32 sums written); 2*M*K*N operations at ``rate``
     (default the dtype's peak: for fp32 the CUDA cores'; TF32X3_FLOPS for
     the fp32 products of the TF32 route)."""
-    item = 2 if dtype == "bfloat16" else 4
+    item = 2 if dtype in ("bfloat16", "float16") else 4
     nbytes = ((m * k + k * n + m * n) * item + (2 * k * 4 if prologue else 0)
               + (2 * n * 4 if stats else 0))
     return least_ms(nbytes, 2.0 * m * k * n, dtype, rate)
@@ -2804,7 +2859,7 @@ def rnn_bound(cell, direction, T, N, H, dtype, rate=None):
     tensor-core route's is TF32X3_FLOPS), twice that for the backward
     (dh_prev and dWh) at the fp32 rate."""
     G = 4 if cell == "lstm" else 3
-    item = 2 if dtype == "bfloat16" else 4
+    item = 2 if dtype in ("bfloat16", "float16") else 4
     tn = T * N
     if direction == "fwd":
         nbytes = (tn * G * H * item + G * H * H * item + (G - 2) * N * H * item
@@ -5807,7 +5862,7 @@ def mesh_step_record(step, mesh_mod):
 
 
 def mesh_worker_resnet(mx, ctx, mesh, workdir, out):
-    """Phase 21 on one rank: 6 bf16 steps of fused ResNet-50 at the global
+    """Phase 21 on one rank: 4 bf16 steps of fused ResNet-50 at the global
     batch, then 2 fp32 steps at b=16 112^2 from DIR/ref-start.params."""
     import numpy as np
     import torch
@@ -6077,7 +6132,7 @@ def mesh_resnet_reference(mx, d):
 def train_mesh_resnet(mx, card, d, ranks, reference, want_backend):
     """Phase 21 (and 21b): fused ResNet-50 over make_mesh() = {dp:2}, the
     ranks' records ``ranks`` against ``reference``.  Returns the launches
-    of both ranks' 6 steps by kernel."""
+    of both ranks' 4 steps by kernel."""
     import statistics as st
 
     import numpy as np
@@ -10438,6 +10493,425 @@ def gluon_basics(mx, card):
     return record, times
 
 
+# -- phase 43: mixed precision ----------------------------------------------
+
+
+def amp_masters(trainer):
+    """Each parameter's float32 master (its state's first tensor where the
+    optimizer keeps one), else its value, as one float32 CPU array."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i, p in enumerate(trainer._params):
+        st = trainer._states[i]
+        w = st[0] if isinstance(st, tuple) and p.data().dtype == \
+            torch.float16 else p.data()
+        out.append(w.detach().float().cpu().numpy().ravel())
+    return np.concatenate(out)
+
+
+def amp_state_tensors(trainer):
+    """Every parameter value, master and optimizer state, cloned."""
+    from mxnet_tpu_torch.optimizer import _state_list
+
+    vals = [p.data().detach().clone() for p in trainer._params]
+    for st in trainer._states:
+        vals += [t.detach().clone() for t in _state_list(st)]
+    return vals
+
+
+def amp_train_step(mx, net, trainer, batch):
+    """One AMP step as MXNet 1.x scripts write it: the scaled loss's
+    backward under ``record``, then ``step``."""
+    with mx.autograd.record():
+        loss = net(*batch)
+        with mx.amp.scale_loss(loss, trainer) as scaled:
+            mx.autograd.backward(scaled)
+    trainer.step(1)
+    return loss
+
+
+def amp_lamb(mx, net):
+    return mx.gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": AMP_LR, "wd": 0.01,
+                             "multi_precision": True},
+                            update_on_kvstore=False)
+
+
+def amp_bert_train(mx, card):
+    """Phase 43 (a) and (b): BERT-base under float16 AMP with LAMB's
+    float32 masters at phase 5's batch; then one step at a loss scale of
+    2**40.  Returns (launches of (a) by kernel, the checks)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    gpu = mx.gpu(0)
+    net = pretrain_net(mx, gpu, dropout=0.1)
+    mx.amp.convert_model(net)
+    data = synthetic_batch(np.random.RandomState(3), TRAIN_BATCH, TRAIN_SEQ,
+                           30522)
+    batch = [mx.nd.array(a, ctx=gpu) for a in data]
+    trainer = amp_lamb(mx, net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    kernels.reset_counts()
+    losses, scales, skipped, step_ms = [], [], [], []
+    for step in range(AMP_STEPS):
+        before = getattr(trainer, "_amp_loss_scaler", None)
+        before = before.loss_scale if before is not None else 2.0 ** 16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = amp_train_step(mx, net, trainer, batch)
+        losses.append(loss.asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        scales.append(trainer._amp_loss_scaler.loss_scale)
+        if scales[-1] < before:
+            skipped.append(step + 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {name: {"launches": c.launches,
+                     "float16_launches": c.float16_launches}
+              for name, c in kernels.KERNEL_COUNTS.items()
+              if name.startswith("flash_attention")}
+    plain = fa.counts.plain_calls_on_cuda
+    params = net.collect_params()
+    split = {name: str(p.data().dtype) for name, p in params.items()}
+    wrong = [n for n, dt in split.items()   # convert_model's split
+             if dt != ("torch.float32" if n.rsplit("_", 1)[-1]
+                       in mx.amp._FP32_STEMS else "torch.float16")]
+    masters = [i for i, p in enumerate(trainer._params)
+               if p.data().dtype == torch.float16
+               and not (isinstance(trainer._states[i], tuple)
+                        and trainer._states[i][0].dtype == torch.float32)]
+    median_ms = statistics.median(step_ms[2:])
+    n = AMP_STEPS
+    n16 = sum(1 for d in split.values() if d == "torch.float16")
+    log(f"amp 43a: BERT-base MLM+NSP b={TRAIN_BATCH} s={TRAIN_SEQ} dropout "
+        f"0.1 under amp.init('float16') + convert_model ({n16} parameters "
+        f"float16, {len(split) - n16} float32), LAMB lr {AMP_LR} wd 0.01 "
+        f"multi_precision, amp.scale_loss, {n} steps; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step median "
+        f"{median_ms:.3f} ms over steps 3-{n} (first {step_ms[0]:.1f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3):.0f} tokens/s; peak "
+        f"memory {peak:.2f} GiB, {peak - base:.2f} above what was allocated "
+        f"before the phase (phase 5, fp32 AdamW: "
+        f"{PHASE5_PEAK_GIB.get('bert', float('nan')):.2f} GiB) on {card}")
+    log(f"amp 43a: loss scale after each step {scales}; skipped steps "
+        f"{skipped}; losses {[round(x, 4) for x in losses]}")
+    log(f"amp 43a: launches {counts} (12 x {n} = {12 * n} float16 each); "
+        f"plain calls on cuda {plain}")
+    done = [x for i, x in enumerate(losses) if i + 1 not in skipped]
+    checks = {
+        "amp_finite_losses": bool(np.isfinite(losses).all()),
+        "amp_loss_falls": losses[-1] < losses[0],
+        "amp_float16_launches": all(
+            c["float16_launches"] == c["launches"] == 12 * n
+            for c in counts.values()),
+        "amp_plain_calls_on_cuda": plain == 0,
+        "amp_dtype_split": not wrong,
+        "amp_float32_masters": not masters,
+        "amp_steps_taken": len(done) >= n // 2,
+    }
+    if wrong or masters:
+        log(f"amp 43a: parameters off the split {wrong}; float16 "
+            f"parameters without a float32 master {masters}")
+    # (b) a loss scale of 2**40 overflows float16's gradients: the update
+    # is skipped, nothing moves, the scale halves
+    trainer._amp_loss_scaler = mx.amp.LossScaler(init_scale=AMP_OVERFLOW)
+    before = amp_state_tensors(trainer)
+    count0 = trainer.optimizer.num_update
+    loss = amp_train_step(mx, net, trainer, batch)
+    torch.cuda.synchronize()
+    after = amp_state_tensors(trainer)
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    scale = trainer._amp_loss_scaler.loss_scale
+    log(f"amp 43b: one step at loss scale 2**40 (loss {loss.asscalar():.4f})"
+        f": {len(before)} weights, masters and LAMB states bit-identical "
+        f"after it {same}; scale {scale} (2**{np.log2(scale):.0f}); "
+        f"updates counted {trainer.optimizer.num_update - count0}")
+    checks.update({
+        "overflow_skipped": same
+        and trainer.optimizer.num_update == count0,
+        "overflow_scale_halved": scale == AMP_OVERFLOW / 2,
+    })
+    del net, trainer, batch, before, after
+    torch.cuda.empty_cache()
+    return counts, checks
+
+
+def amp_small_bert(mx, ctx):
+    mx.random.seed(43)
+    net = pretrain_block(mx)(mx.models.BERTModel(
+        30522, 768, 3072, AMP_CPU_LAYERS, 12, use_decoder=True,
+        use_classifier=True, dropout=0.0))
+    net.initialize(init=mx.init.Normal(0.02), ctx=ctx)
+    return net
+
+
+def amp_card_vs_cpu(mx):
+    """Phase 43 (c): BERT-base widths with 2 layers under float16 AMP and
+    LAMB with masters, b=4, dropout 0, from the same converted weights on
+    the card and on the CPU: the losses, the scales and the masters."""
+    import numpy as np
+    import torch
+
+    data = synthetic_batch(np.random.RandomState(44), AMP_CPU_BATCH,
+                           AMP_CPU_SEQ, 30522)
+    cpu = mx.cpu()
+    net_c = amp_small_bert(mx, cpu)
+    with mx.autograd.pause():
+        net_c(*[mx.nd.array(a, ctx=cpu) for a in data])
+    mx.amp.convert_model(net_c)
+    arrays = {k: p.data().detach().cpu().numpy().copy()
+              for k, p in net_c._collect_params_with_prefix().items()}
+    net_g = amp_small_bert(mx, mx.gpu(0))
+    mx.amp.convert_model(net_g)
+    mx.load_numpy_params(net_g, arrays)
+    runs, secs = {}, {}
+    for key, net, ctx in (("cpu", net_c, cpu), ("card", net_g, mx.gpu(0))):
+        batch = [mx.nd.array(a, ctx=ctx) for a in data]
+        trainer = amp_lamb(mx, net)
+        # every step updates (at 2**16 the first two overflow), so the
+        # masters move three times
+        trainer._amp_loss_scaler = mx.amp.LossScaler(init_scale=AMP_CPU_SCALE)
+        t0 = time.perf_counter()
+        losses, scales = [], []
+        for _ in range(AMP_CPU_STEPS):
+            losses.append(amp_train_step(mx, net, trainer, batch).asscalar())
+            scales.append(trainer._amp_loss_scaler.loss_scale)
+        secs[key] = round(time.perf_counter() - t0, 1)
+        runs[key] = (losses, scales, amp_masters(trainer))
+    (lc, sc, mc), (lg, sg, mg) = runs["cpu"], runs["card"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    gap = np.abs(mg - mc)
+    q999 = float(np.quantile(gap, 0.999))
+    log(f"amp 43c: BERT-base widths x {AMP_CPU_LAYERS} layers, b="
+        f"{AMP_CPU_BATCH} s={AMP_CPU_SEQ}, dropout 0, float16 AMP + LAMB "
+        f"masters, {AMP_CPU_STEPS} steps card vs CPU from the same "
+        f"converted weights: losses card {lg} cpu {lc}, max rel gap "
+        f"{loss_gap:.3g} (rtol {AMP_CPU_LOSS_RTOL}); scales card {sg} cpu "
+        f"{sc}; float32 masters ({gap.size} values): max gap "
+        f"{gap.max():.3g} (limit {AMP_CPU_MASTER_LRS} x lr = "
+        f"{AMP_CPU_MASTER_LRS * AMP_LR:.3g}), 99.9th percentile {q999:.3g}"
+        f" (limit {AMP_CPU_MASTER_Q999}), {int((gap > 1e-5).sum())} above "
+        f"1e-5; seconds {secs} (the CPU's on {torch.get_num_threads()} "
+        f"threads)")
+    return {
+        "cpu_losses": loss_gap <= AMP_CPU_LOSS_RTOL,
+        "cpu_scales": sg == sc,
+        "cpu_masters": gap.max() <= AMP_CPU_MASTER_LRS * AMP_LR
+        and q999 <= AMP_CPU_MASTER_Q999,
+    }
+
+
+def amp_bf16_captured(mx, card):
+    """Phase 43 (d): BERT-base under bfloat16 AMP (AdamW: LAMB has no
+    whole-step form), 5 eager steps through ``amp.scale_loss`` and 5
+    through ``Trainer(whole_step=True).whole_step`` from the same seed:
+    the scaler idles at 1, disarmed, so the whole step captures; losses
+    and parameters bit-identical, the eager launches every replayed
+    step, rows 1, 3, 4 in bfloat16.  Returns (launches, checks)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _imperative
+    from mxnet_tpu_torch.gluon import trainer as mtrainer
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    data = synthetic_batch(np.random.RandomState(3), TRAIN_BATCH, TRAIN_SEQ,
+                           30522)
+    arms, launches = {}, {}
+    mx.amp.init("bfloat16")
+    for whole in (False, True):
+        net = pretrain_net(mx, gpu, dropout=0.1)
+        mx.amp.convert_model(net)
+        batch = [mx.nd.array(a, ctx=gpu) for a in data]
+        trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                                   {"learning_rate": 1e-4, "wd": 0.01},
+                                   whole_step=whole)
+        kernels.reset_counts()
+        mtrainer.reset_trainer_step_stats()
+        c0 = _imperative.graph_capture_count()
+        r0 = _imperative.graph_replay_count()
+        losses, gains = [], []
+        if whole:   # a loop's first scale_loss makes the (idle) scaler
+            with mx.amp.scale_loss(mx.nd.zeros((1,), ctx=gpu), trainer):
+                pass
+        for _ in range(AMP_BF16_STEPS):
+            before = counts_now()
+            loss = trainer.whole_step(net, own_loss, batch, batch_size=1) \
+                if whole else amp_train_step(mx, net, trainer, batch)
+            losses.append(loss.asscalar())
+            gains.append(counts_gain(before, counts_now()))
+        torch.cuda.synchronize()
+        scaler = trainer._amp_loss_scaler
+        arms[whole] = dict(
+            losses=losses, gains=gains,
+            params=[p.data().detach().clone()
+                    for p in net.collect_params().values()],
+            captures=_imperative.graph_capture_count() - c0,
+            replays=_imperative.graph_replay_count() - r0,
+            fallbacks=mtrainer.trainer_step_stats()["whole_step_fallbacks"],
+            scaler=(scaler.loss_scale, scaler.enabled))
+        launches["amp_bf16_captured_train" if whole
+                 else "amp_bf16_train"] = {
+            name: c.launches for name, c in kernels.KERNEL_COUNTS.items()
+            if name.startswith("flash_attention")}
+        del net, trainer, batch
+        torch.cuda.empty_cache()
+    mx.amp.init("float16")
+    eager, cap = arms[False], arms[True]
+    want = {k: {"launches": 12, "bfloat16_launches": 12}
+            for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")}
+    flash = [{k: g.get(k) for k in want} for g in cap["gains"]]
+    same = eager["losses"] == cap["losses"] and all(
+        torch.equal(a, b) for a, b in zip(eager["params"], cap["params"]))
+    log(f"amp 43d: BERT-base under amp.init('bfloat16'), AdamW, "
+        f"{AMP_BF16_STEPS} eager steps (amp.scale_loss) and "
+        f"{AMP_BF16_STEPS} whole steps: scalers {eager['scaler']} / "
+        f"{cap['scaler']} (scale, armed); graphs captured "
+        f"{cap['captures']}, replays {cap['replays']}, whole_step_fallbacks"
+        f" {cap['fallbacks']}; losses and parameters bit-identical {same} "
+        f"({cap['losses']}); flash launches a step {flash[-1]} on {card}")
+    checks = {
+        "bf16_scaler_idle": eager["scaler"] == cap["scaler"]
+        == (1.0, False),
+        "bf16_captured": cap["captures"] == 1
+        and cap["replays"] == AMP_BF16_STEPS - 1 and cap["fallbacks"] == 0,
+        "bf16_bit_identical": same,
+        "bf16_launches": all(f == want for f in flash)
+        and all(g == eager["gains"][0] for g in cap["gains"] + eager["gains"]),
+    }
+    return launches, checks
+
+
+def fp16_kernels(mx):
+    """Phase 43 (e): rows 1, 3 and 4 in float16 against their plain
+    versions at phase 3's serve shape (b=8, h=12, s=512, d=64) and the
+    training shape (b=32, h=12, s=128), key-padded, timed beside their
+    plain versions and SDPA in float16, with the bound at float16's
+    tensor-core rate.  Returns ``{kernel: {shape: record}}``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = mx.gpu(0).torch_device()
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd_dq": {},
+           "flash_attention_bwd_dkv": {}}
+    for label, b, h, s, d in (("serve_b8_s512", 8, 12, 512, 64),
+                              ("train_b32_s128", TRAIN_BATCH, 12, TRAIN_SEQ,
+                               64)):
+        rng = np.random.RandomState(43)
+        packed = torch.from_numpy(rng.randn(b, s, 3 * h * d)
+                                  .astype(np.float32) * 0.5).to(dev)
+        dout = torch.from_numpy(rng.randn(b, s, h * d)
+                                .astype(np.float32)).to(dev)
+        valid = rng.randint(32, s + 1, size=b)
+        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in
+                   packed.half().chunk(3, dim=-1))
+        do = dout.half().reshape(b, s, h, d).transpose(1, 2)
+        keep = torch.from_numpy(np.arange(s)[None, :] < valid[:, None])
+        km = torch.where(keep, 0.0, -1e9).to(dev, torch.float32)
+        o, lse = fa.flash_attention_fwd(q, k, v, km)
+        po, plse = fa.flash_attention_plain(q, k, v, km)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, km)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, km)
+        torch.cuda.synchronize()
+        o_err = (o.float() - po.float()).abs().max().item()
+        lse_err = (lse - plse).abs().max().item()
+        errs = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip(grads, ref)]
+        atol, rtol = FP16_GRAD_TOL
+        ok = (o.dtype == torch.float16 and o_err <= FP16_O_TOL
+              and lse_err <= FP16_LSE_TOL
+              and all(g.dtype == torch.float16 and bool(
+                  torch.isfinite(g).all()) and torch.allclose(
+                      g.float(), r.float(), atol=atol, rtol=rtol)
+                      for g, r in zip(grads, ref)))
+        delta = (do.float() * o.float()).sum(-1).reshape(b * h, s)
+        args = (q, k, v, do, lse, delta, km)
+        mask4 = km.half().view(b, 1, 1, s)
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, km),
+                         iters=PHASE3_ITERS)
+        fwd_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, km),
+                            iters=PHASE3_PLAIN_ITERS)
+        fwd_lib = cuda_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask4), iters=PHASE3_ITERS)
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args),
+                        iters=PHASE3_ITERS)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args),
+                         iters=PHASE3_ITERS)
+        bwd_plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, km), iters=PHASE3_PLAIN_ITERS)
+        bwd_lib = sdpa_backward_ms(tF, q, k, v, do, km, False)
+        fb = attention_bound(b, h, s, s, d, "float16", valid, False)
+        qb = bwd_bound(b, h, s, s, d, "float16", valid, False, 6, 1)
+        kb = bwd_bound(b, h, s, s, d, "float16", valid, False, 8, 2)
+        log(f"  fp16 {label}: errors o {o_err:.3g} (atol {FP16_O_TOL}) lse "
+            f"{lse_err:.3g} (atol {FP16_LSE_TOL}) dq/dk/dv {errs[0]:.3g}/"
+            f"{errs[1]:.3g}/{errs[2]:.3g} (atol, rtol {FP16_GRAD_TOL}); "
+            f"forward {fwd_ms:.4f} ms (bound {fb[0]:.4f} {fb[1]}, plain "
+            f"{fwd_plain:.4f}, SDPA fp16 {fwd_lib:.4f}); dQ {dq_ms:.4f} "
+            f"(bound {qb[0]:.4f} {qb[1]}), dK/dV {dkv_ms:.4f} (bound "
+            f"{kb[0]:.4f} {kb[1]}), plain backward {bwd_plain:.4f}, SDPA's "
+            f"fp16 backward {bwd_lib:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"float16 flash attention kernels disagree "
+                             f"with their plain versions: {label}")
+        for name, ms, err, plain_ms, lib_ms, (bms, bby) in (
+                ("flash_attention_fwd", fwd_ms, o_err, fwd_plain, fwd_lib,
+                 fb),
+                ("flash_attention_bwd_dq", dq_ms, errs[0], bwd_plain,
+                 bwd_lib, qb),
+                ("flash_attention_bwd_dkv", dkv_ms, max(errs[1:]),
+                 bwd_plain, bwd_lib, kb)):
+            out[name][label] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bms,
+                                "bound_by": bby, "library_ms": lib_ms}
+    return out
+
+
+def mixed_precision(mx, card):
+    """Phase 43: mixed precision (a)-(e).  Returns (the flash kernels'
+    launches by path, the float16 kernel records of (e))."""
+    import torch
+
+    t = {}
+    t0 = time.perf_counter()
+    kernels16 = fp16_kernels(mx)
+    t["e"] = round(time.perf_counter() - t0, 1)
+    mx.amp.init("float16")
+    try:
+        t0 = time.perf_counter()
+        counts, checks = amp_bert_train(mx, card)
+        t["ab"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        checks.update(amp_card_vs_cpu(mx))
+        t["c"] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bf16, more = amp_bf16_captured(mx, card)
+        checks.update(more)
+        t["d"] = round(time.perf_counter() - t0, 1)
+    finally:
+        mx.amp.init("bfloat16")
+    log(f"amp 43: seconds by part {t}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"mixed precision checks failed: {failed}")
+    launches = {"amp_fp16_train": {k: c["launches"]
+                                   for k, c in counts.items()}, **bf16}
+    return launches, kernels16
+
+
 def main():
     import torch
 
@@ -10630,6 +11104,10 @@ def main():
     crnn, crnn_times = gluon_basics(mx, card)
     torch.cuda.empty_cache()
     lap("42 Gluon basics (CRNN + CTC)")
+    amp_launches, fp16 = mixed_precision(mx, card)
+    dist_launches.update(amp_launches)
+    torch.cuda.empty_cache()
+    lap("43 mixed precision")
 
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
@@ -10666,7 +11144,8 @@ def main():
              launches_by_path=fwd_by_path,
              transformer_big_b64=tfm_fwd.pop("transformer_big_b64"),
              gpt2_causal_s1024=gpt2_fwd,
-             transformer_decode=tfm_fwd, **flash),
+             transformer_decode=tfm_fwd,
+             float16=fp16["flash_attention_fwd"], **flash),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:427,252",
@@ -10674,7 +11153,7 @@ def main():
              launches_by_path=bwd_by_path["flash_attention_bwd_dq"],
              transformer_big_b64=tfm_bwd["dq"],
              gpt2_causal_s1024=gpt2_bwd["dq"]["causal"],
-             **bwd["dq"]),
+             float16=fp16["flash_attention_bwd_dq"], **bwd["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces=f"{src}:471,299",
@@ -10682,7 +11161,7 @@ def main():
              launches_by_path=bwd_by_path["flash_attention_bwd_dkv"],
              transformer_big_b64=tfm_bwd["dkv"],
              gpt2_causal_s1024=gpt2_bwd["dkv"]["causal"],
-             **bwd["dkv"]),
+             float16=fp16["flash_attention_bwd_dkv"], **bwd["dkv"]),
         dict(name="bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/batch_norm.cu",
              replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",

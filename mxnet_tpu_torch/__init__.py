@@ -39,9 +39,10 @@ from . import monitor as mon  # noqa: F401
 from .symbol import AttrScope  # noqa: F401
 
 # tiers imported on first use, as the JAX package imports them: the int8
-# tier (``mx.contrib.quantization``) and the autotuner (``mx.tune``)
+# tier (``mx.contrib.quantization``), the autotuner (``mx.tune``) and
+# mixed precision (``mx.amp``)
 _LAZY = {"contrib": ".contrib", "tune": ".tune",
-         "kvstore_server": ".kvstore_server"}
+         "kvstore_server": ".kvstore_server", "amp": ".amp"}
 
 
 def __getattr__(name):

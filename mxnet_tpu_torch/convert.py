@@ -17,7 +17,11 @@ def load_numpy_params(block, arrays):
     parameter's shape (dims still unknown under deferred init take the
     array's); any difference raises :class:`MXNetError` before anything
     is copied.  Deferred parameters are initialized on the device their
-    ``initialize()`` call named.
+    ``initialize()`` call named.  Each array is copied into its parameter
+    in the parameter's dtype (``Parameter.set_data``), so a net that was
+    cast first (``Block.cast``, ``amp.convert_model``) keeps its split: an
+    AMP-converted JAX net's float16 weights and float32 norm parameters
+    land bit for bit in an AMP-converted port net.
 
     A net quantized by ``contrib.quantization.quantize_net`` takes the
     arrays of a quantized net of the same architecture (``qweight`` int8,

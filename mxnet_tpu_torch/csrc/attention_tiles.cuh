@@ -11,8 +11,9 @@
 //   and a product sums lo*hi + hi*lo + hi*hi (3xTF32: about 21 bits of
 //   each operand, where 1xTF32 keeps 11).  The split is two integer ops
 //   and a subtraction (cvt.rna.tf32 runs on the slow conversion pipe).
-//   A bf16 value is exact in TF32, so its lo is zero and its terms are
-//   left out at compile time (`Split`).
+//   A bf16 or fp16 value is exact in TF32 (8 or 11 significant bits,
+//   an exponent inside TF32's range), so its lo is zero and its terms
+//   are left out at compile time (`Split`).
 // * Scores stay in registers.  The accumulator of S = Q K^T (row g and
 //   g + 8, keys 2t and 2t + 1 of each 8-key column block, for lane
 //   4g + t) becomes the A operand of P V (or dS K) as it is, by reading
@@ -40,6 +41,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -70,6 +72,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -79,17 +82,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // x rounded to T's precision, as fp32
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// whether T's values need a lo term in TF32 (fp32 does, bf16 does not)
+// whether T's values need a lo term in TF32 (fp32 does, bf16 and fp16 do
+// not)
 template <typename T> struct Split { static constexpr bool value = true; };
 template <> struct Split<__nv_bfloat16> {
   static constexpr bool value = false;
 };
+template <> struct Split<__half> { static constexpr bool value = false; };
 
 // A strided (b, h, s, d) head tensor with a contiguous last dim.
 template <typename T>
@@ -257,6 +265,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // Multiplies a tile of kRows rows in place by `scale`, rounded to T (the

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), fp32 and bf16: a dQ kernel
-// and a dK/dV kernel.
+// Flash-attention backward for Hopper (sm_90a), fp32, bf16 and fp16: a dQ
+// kernel and a dK/dV kernel.
 //
 // Replaces the four backward Pallas kernels of mxnet_tpu/ops/pallas/
 // flash_attention.py: _flash_dq_kernel and _flash_dkv_kernel (K/V or Q/dO
@@ -19,8 +19,8 @@
 //          excludes them
 //   dp   = dO . v^T,  ds = p * (dp - delta)
 //   dq   = scale * ds . k,  dk = scale * ds^T . q,  dv = p^T . dO
-// every operand converted to fp32 and p never rounded to bf16, as the TPU
-// kernels do; outputs in the input dtype.  A row whose keys are all
+// every operand converted to fp32 and p never rounded to bf16 or fp16, as
+// the TPU kernels do; outputs in the input dtype.  A row whose keys are all
 // masked by kmask (-1e9) has lse = -1e9 in fp32, so p = 1 for each of its
 // keys and its gradients are non-zero, as the TPU kernels give them.
 //
@@ -33,10 +33,10 @@
 // view), 32 keys a tile at d <= 192 and 16 at 256 (3 blocks an SM at
 // d = 64, 70 KB of shared memory and 126 registers in fp32); key tiles of
 // padding are skipped.  Per tile: S = Q K^T and dP = dO V^T on
-// mma.sync.m16n8k8 TF32 (3xTF32 in fp32, one product in bf16),
+// mma.sync.m16n8k8 TF32 (3xTF32 in fp32, one product in bf16 and fp16),
 // dS = P (dP - delta) in fp32 registers, never rounded, then dQ += dS K
-// with dS taken from the accumulators as the A operand (3xTF32; bf16 K
-// needs hi and lo of dS only).  dQ is written once, scaled.  Under
+// with dS taken from the accumulators as the A operand (3xTF32; bf16 or
+// fp16 K needs hi and lo of dS only).  dQ is written once, scaled.  Under
 // `causal` it stops at the last key tile its rows see.
 //
 // dK/dV on the tensor cores (flash_bwd_dkv_mma_kernel), the key-stationary
@@ -78,6 +78,7 @@
 // stream; each function returns cudaGetLastError() after it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -526,7 +527,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides holds (sb, sh, ss) in
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides holds (sb, sh, ss) in
 // elements for q, k, v and dout, in that order; each head dim must be
 // contiguous.  lse and delta are contiguous (b*h, sq) fp32, kmask a
 // (b, sk) fp32 row or null.  dq is a contiguous (b,h,sq,d) tensor of q's
@@ -546,6 +547,7 @@ extern "C" int mxtt_flash_attention_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_dq_mma<float>(d, a, tiles, st);
   if (dtype == 1) return (int)dispatch_dq_mma<__nv_bfloat16>(d, a, tiles, st);
+  if (dtype == 2) return (int)dispatch_dq_mma<__half>(d, a, tiles, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -560,6 +562,7 @@ extern "C" int mxtt_flash_attention_bwd_dkv(
   if (dtype == 0) return (int)dispatch_dkv_mma<float>(d, a, blocks, st);
   if (dtype == 1)
     return (int)dispatch_dkv_mma<__nv_bfloat16>(d, a, blocks, st);
+  if (dtype == 2) return (int)dispatch_dkv_mma<__half>(d, a, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

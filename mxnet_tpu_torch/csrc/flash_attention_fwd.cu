@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 and bf16.
+// Flash-attention forward for Hopper (sm_90a), fp32, bf16 and fp16.
 //
 // Replaces the two forward Pallas kernels of mxnet_tpu/ops/pallas/
 // flash_attention.py: _flash_fwd_kernel (K/V resident in VMEM, called
@@ -28,8 +28,8 @@
 // keys a tile (4 blocks an SM at d = 64, 52 KB of shared memory and 99
 // registers in fp32), 16 at d = 64 where sk <= 128; key tiles of padding
 // are skipped.  Per tile:
-//   1. S = Q K^T on mma.sync.m16n8k8 TF32, 3xTF32 in fp32 (bf16: one
-//      product, its values are exact in TF32);
+//   1. S = Q K^T on mma.sync.m16n8k8 TF32, 3xTF32 in fp32 (bf16 and
+//      fp16: one product, their values are exact in TF32);
 //   2. mask, online softmax in registers (quad shuffles for the row max
 //      and sum), P rounded to v's dtype;
 //   3. O = alpha*O + P V, P taken from the S accumulators as the A
@@ -46,6 +46,7 @@
 // stream; the function returns cudaGetLastError() after it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -280,7 +281,7 @@ cudaError_t dispatch_mma(int d, const Args& a, int* tiles,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements; the head
 // dim must be contiguous.  kmask is a (b, sk) fp32 row or null.  o is a
 // contiguous (b,h,sq,d) tensor of q's dtype, lse a contiguous (b*h, sq)
 // fp32 tensor.  Every row of q, k and v starts on a 16-byte boundary.
@@ -298,6 +299,7 @@ extern "C" int mxtt_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_mma<float>(d, a, tiles, st);
   if (dtype == 1) return (int)dispatch_mma<__nv_bfloat16>(d, a, tiles, st);
+  if (dtype == 2) return (int)dispatch_mma<__half>(d, a, tiles, st);
   return (int)cudaErrorInvalidValue;
 }
 

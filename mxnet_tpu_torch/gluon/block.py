@@ -41,6 +41,7 @@ captured graph sees the loaded weights at its next replay.
 from __future__ import annotations
 
 import threading
+import weakref
 
 import torch
 
@@ -205,6 +206,14 @@ class Block(torch.nn.Module):
         self.collect_params().initialize(init=init, ctx=ctx,
                                          force_reinit=force_reinit)
 
+    def cast(self, dtype):
+        """Cast this block's parameters and its children's to ``dtype``
+        (ref: ``Block.cast``; ``Parameter.cast``)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._params.values():
+            p.cast(dtype)
+
     # -- save / load (ref: gluon/block.py:199-237) ---------------------------
 
     def save_parameters(self, filename, deduplicate=False):
@@ -273,6 +282,25 @@ class HybridBlock(Block):
         are accepted and unused (a graph's buffers are static)."""
         self._active = active
         self._cached_op = None
+
+    def _clear_cache(self):
+        """Drop what this block and its hybrid children captured on their
+        parameters' tensors (ref: ``HybridBlock._clear_cache``): the
+        :class:`CachedOp` with its serve graphs, and the graphs of every
+        :class:`CachedStepOp` made over them.  The next call warms up and
+        captures again."""
+        self._cached_op = None
+        for op in list(getattr(self, "_step_ops", ())):
+            op._release()
+        for child in self._children.values():
+            if isinstance(child, HybridBlock):
+                child._clear_cache()
+
+    def cast(self, dtype):
+        """:meth:`Block.cast`, after :meth:`_clear_cache`: the captured
+        graphs hold the old tensors."""
+        self._clear_cache()
+        super().cast(dtype)
 
     def infer_shape(self, *args):
         """Complete deferred parameter shapes from example inputs; the
@@ -525,6 +553,18 @@ class CachedStepOp:
         self._pool = None
         self._lock = threading.Lock()
         self.stats = {"compiles": 0, "reuses": 0}
+        if isinstance(block, HybridBlock):   # HybridBlock.cast drops ours
+            if getattr(block, "_step_ops", None) is None:
+                block._step_ops = weakref.WeakSet()
+            block._step_ops.add(self)
+
+    def _release(self):
+        """Drop the captured graphs (the block's parameters were replaced):
+        each signature warms up and captures again at its next calls."""
+        with self._lock:
+            self._params = None
+            self._warm = set()
+            self._graphs = {}
 
     def _body(self, *tensors):
         with torch.no_grad():

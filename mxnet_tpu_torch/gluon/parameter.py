@@ -292,8 +292,7 @@ class Parameter:
         1.x resets that kvstore."""
         if isinstance(data, NDArray):
             data = data.data
-        src = data if isinstance(data, torch.Tensor) \
-            else torch.from_numpy(np.array(data))
+        src = data if isinstance(data, torch.Tensor) else _host_tensor(data)
         self.shape = src.shape
         if self._data is None:
             if self._deferred_init is None:
@@ -330,9 +329,46 @@ class Parameter:
             autograd.mark_variables([v], [None], "null")
         self._place(ctx, self._data.detach())
 
+    def cast(self, dtype):
+        """Cast the value to ``dtype`` on every context (ref:
+        ``Parameter.cast``): each context gets a new tensor of the new
+        dtype in place of the old one (blocks see it at once), with a
+        gradient buffer of the new dtype where the old value had one, and
+        ``dtype`` is set, so a deferred value is made in it and
+        :meth:`set_data` keeps it.  Graphs captured on the old tensors no
+        longer see the value: ``HybridBlock.cast`` drops its own; a
+        Trainer's states are made for the dtype it first saw."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        tdt = to_torch_dtype(dtype)
+        values = {}
+        for c, v in self._ctx_data.items():
+            had_grad = v.grad is not None
+            autograd.mark_variables([v], [None], "null")
+            nv = torch.nn.Parameter(v.detach().to(tdt, copy=True),
+                                    requires_grad=False)
+            autograd.mark_variables(
+                [nv], [torch.zeros_like(nv) if had_grad else None],
+                self._grad_req)
+            values[c] = nv
+        self._ctx_data = values
+        self._data = values[next(iter(values))]
+        self._publish()
+
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self._shape}, "
                 f"dtype={self.dtype})")
+
+
+def _host_tensor(a):
+    """A CPU tensor copy of the numpy array ``a``; a bfloat16 array (an
+    ``ml_dtypes`` one, as the JAX package's ``asnumpy`` gives) by its
+    bits, since torch reads no such numpy dtype."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _ctx_list(ctx):

@@ -304,6 +304,13 @@ class Trainer:
         by ``1/batch_size``."""
         self._check_unplaced("step")
         self._init_kvstore()
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.enabled and self._update_on_kvstore:
+            # the kvstore's optimizer never sees rescale_grad's changes or
+            # the overflow skip: 2**16-scaled gradients would diverge there
+            raise MXNetError(
+                "dynamic loss scaling (amp.scale_loss) is not supported "
+                "with update_on_kvstore; use update_on_kvstore=False")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._dispatches = self._buckets = self._params_fused = 0
         with _profiler.op_scope("trainer.step", cat="trainer"):
@@ -373,13 +380,26 @@ class Trainer:
         others.  With ``ignore_stale_grad`` a parameter whose gradient no
         backward has written since its last update is skipped, as MXNet
         does; without it, it is updated with the gradient it holds, as the
-        reference does."""
+        reference does.
+
+        Under an armed AMP loss scaler (``amp.scale_loss``) the gradients
+        are checked first (one flag read back): on an overflow no
+        parameter or state is touched, the scale halves and the step is
+        skipped; either way the next step's ``rescale_grad`` follows the
+        scaler's new scale (ref: trainer.py:674-684)."""
         if self._update_on_kvstore and self._kvstore is not None:
             return  # updated by the kvstore during push
         # live ZeRO shards and an unsharded update (a fallback, or a
         # direct step): gather the shards back into per-parameter states
         # first, so the same trajectory goes on instead of zeroed states
         self._unshard_zero_states()
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.enabled:
+            grads = [p.grad(p.list_ctx()[0]) for p in self._params]
+            skip = scaler.update(scaler.has_overflow(grads))
+            self._scale = self._amp_original_scale / scaler.loss_scale
+            if skip:
+                return
         entries = []
         for i, p in enumerate(self._params):
             w = p.data()
@@ -1016,11 +1036,17 @@ class Trainer:
         if saved is None:
             return None, []
         leaves = []
-        for v in (saved if isinstance(saved, (tuple, list)) else (saved,)):
-            if isinstance(v, NDArray):
-                v = v.data
-            leaves.append(v.detach().cpu() if isinstance(v, torch.Tensor)
-                          else torch.from_numpy(np.array(v)))
+
+        def collect(v):   # nested: a float32 master and its states
+            if isinstance(v, (tuple, list)):
+                for u in v:
+                    collect(u)
+            elif v is not None:
+                if isinstance(v, NDArray):
+                    v = v.data
+                leaves.append(v.detach().cpu() if isinstance(v, torch.Tensor)
+                              else torch.from_numpy(np.array(v)))
+        collect(saved)
         state = self._states[i]
         comp = self._placed_compiler()
         if state is None or (comp is not None and comp._placed(i)):

@@ -28,21 +28,27 @@ def sdpa_reference(q, k, v, mask=None, *, scale=None, causal=False):
 
     q, k, v: ``(batch, heads, seq, head_dim)``.  mask: additive
     ``(b,1,sq,sk)``-broadcastable, or bool (False masks).  ``causal`` is
-    end-aligned: ``tril(ones(sq, sk), sk - sq)``."""
+    end-aligned: ``tril(ones(sq, sk), sk - sq)``.  Dtypes as the
+    reference's: -1e9 in the logits' dtype (-inf in float16), and a
+    float32 additive mask over float16 logits makes the rest float32."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * s
+    neg = torch.full((), NEG_INF, device=q.device).to(logits.dtype)
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
-        logits = logits.masked_fill(~keep, NEG_INF)
+        logits = logits.masked_fill(~keep, neg)
     if mask is not None:
         if mask.dtype == torch.bool:
-            logits = logits.masked_fill(~mask, NEG_INF)
+            logits = logits.masked_fill(~mask, neg)
         else:
             logits = logits + mask
     probs = torch.softmax(logits, dim=-1)
+    if probs.dtype != v.dtype:
+        dt = torch.promote_types(probs.dtype, v.dtype)
+        probs, v = probs.to(dt), v.to(dt)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -76,6 +82,13 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
     the packed projection as one product; the heads are strided views of
     it, which the kernel reads in place.
 
+    Under AMP, float16 or bfloat16 projection weights pull the inputs
+    down to their dtype, as ``FullyConnected`` does (``nn._amp_in``), so
+    the attention runs in that dtype, as ``amp.TARGET_DTYPE_OPS`` names
+    this op.  The reference's op promotes instead (its ``x @ w.T`` of a
+    float32 LayerNorm output and float16 weights is float32), so its
+    attention under float16 AMP runs in float32 (ROADMAP.md, caveat (t)).
+
     Inside the mesh step both projections go through
     ``parallel.spmd.products.linear``, so a projection split over ``mp``
     is computed on its shard.  A packed in-projection split by output rows
@@ -86,6 +99,11 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
     query and two thirds for the memory."""
     from ..parallel.spmd.products import full_of, linear, split_of
 
+    from .nn import _amp_in
+
+    cast = {}
+    query, key, value = (cast.setdefault(id(x), _amp_in(x, in_weight))
+                         for x in (query, key, value))
     b, sq, m = query.shape
     h = num_heads
     hd = m // h
@@ -110,7 +128,7 @@ def _k_multihead_attention(query, key, value, in_weight, in_bias,
         kh = heads(linear(key, wk, bk))
         vh = heads(linear(value, wv, bv))
     out = _k_sdpa(qh, kh, vh, mask, causal=causal)
-    out = out.transpose(1, 2).reshape(b, sq, m)
+    out = _amp_in(out.transpose(1, 2).reshape(b, sq, m), out_weight)
     return linear(out, out_weight, out_bias)
 
 

@@ -1,10 +1,12 @@
 """Contrib operators (ref: ``mxnet_tpu/ops/contrib_ops.py``).
 
-Here: the CTC loss (ref: contrib_ops.py:25-107) and ``_contrib_MoEFFN``
+Here: the CTC loss (ref: contrib_ops.py:25-107), ``_contrib_MoEFFN``
 (ref: contrib_ops.py:816-830), the MoE feed-forward as a registered op,
-so gluon blocks (``gluon.contrib.nn.MoEFFN``) and graphs can name it.  The
-rest of the JAX module (the detection and box ops and the other contrib
-layers) comes with slice 9.
+so gluon blocks (``gluon.contrib.nn.MoEFFN``) and graphs can name it, and
+the AMP helpers ``amp_cast``, ``amp_multicast``, ``all_finite`` and
+``multi_all_finite`` (ref: contrib_ops.py:394-426).  The rest of the JAX
+module (the detection and box ops and the other contrib layers) comes
+with slice 9.
 """
 from __future__ import annotations
 
@@ -138,3 +140,49 @@ def _k_moe_ffn(data, router_w, w1, b1, w2, b2, *, capacity_factor=1.25,
 register("_contrib_MoEFFN", _k_moe_ffn,
          arg_names=("data", "router_w", "w1", "b1", "w2", "b2"),
          num_outputs=2)
+
+
+# -- AMP helpers (ref: contrib_ops.py:394-426; amp_cast.cc, all_finite.cc) ----
+
+
+def _k_amp_cast(data, dtype="float16"):
+    """``data`` in ``dtype``."""
+    from ..ndarray.ndarray import to_torch_dtype
+
+    return data.to(to_torch_dtype(dtype))
+
+
+def _k_amp_multicast(*arrays, num_outputs=0, cast_narrow=False):
+    """Every input in one dtype: the widest, or with ``cast_narrow`` the
+    narrowest (by item size; the first of equal ones)."""
+    arrays = [a for a in arrays if a is not None]
+    widths = [a.element_size() for a in arrays]
+    pick = min(range(len(arrays)), key=lambda i: widths[i]) if cast_narrow \
+        else max(range(len(arrays)), key=lambda i: widths[i])
+    target = arrays[pick].dtype
+    return tuple(a.to(target) for a in arrays)
+
+
+def _k_all_finite(data, init_output=True):
+    """``(1,)`` float32: 1 where every element is finite, else 0."""
+    return torch.isfinite(data).all().to(torch.float32).reshape(1)
+
+
+def _k_multi_all_finite(*arrays, num_arrays=0, init_output=True):
+    """:func:`_k_all_finite` over every input at once."""
+    ok = None
+    for a in arrays:
+        if a is not None:
+            f = torch.isfinite(a).all()
+            ok = f if ok is None else ok & f.to(ok.device)
+    if ok is None:
+        ok = torch.tensor(True)
+    return ok.to(torch.float32).reshape(1)
+
+
+register("amp_cast", _k_amp_cast, arg_names=("data",))
+register("amp_multicast", _k_amp_multicast, arg_names=(), variadic=True,
+         num_outputs=-1)
+register("all_finite", _k_all_finite, arg_names=("data",), nondiff=True)
+register("multi_all_finite", _k_multi_all_finite, arg_names=(),
+         variadic=True, nondiff=True)

@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import KernelCounts, KernelLibrary
+from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: channels a 16-byte load reads, by dtype code
@@ -164,7 +164,7 @@ def bn_stats_fwd(x2d):
     code = _DTYPE_CODES.get(x2d.dtype)
     if code is None:
         raise MXNetError(f"bn_stats kernel takes float32 or bfloat16, not "
-                         f"{x2d.dtype}")
+                         f"{x2d.dtype}{FLOAT16_LATER}")
     if x2d.shape[1] < 1:
         raise MXNetError("bn_stats kernel takes C >= 1 channels")
     (idx, M, C, _, vec), (P, n, tickets, dev) = _plan_of(x2d, code)

@@ -50,7 +50,7 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import KernelCounts, KernelLibrary
+from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"matmul_bn_stats": 0, "bn_act_matmul": 1, "bn_act_matmul_stats": 2}
@@ -192,7 +192,8 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise MXNetError(f"{what} kernel takes float32 or bfloat16 x and w of "
-                         f"one dtype, got {x.dtype} and {w.dtype}")
+                         f"one dtype, got {x.dtype} and {w.dtype}"
+                         f"{FLOAT16_LATER}")
     if w.device != x.device:
         raise MXNetError(f"{what}: w is on {w.device}, x on {x.device}")
     M, K = x.shape

@@ -60,14 +60,18 @@ from .build import KernelCounts, KernelLibrary
 NEG_INF = -1e9
 #: head dims the kernel is instantiated for (multiples of 64, up to 256)
 HEAD_DIMS = (64, 128, 192, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+#: the counters a launch adds beside ``launches``, by dtype: its
+#: half-precision launches
+_DTYPE_COUNTERS = {torch.float32: (), torch.bfloat16: ("bfloat16_launches",),
+                   torch.float16: ("float16_launches",)}
 #: the forward kernel's counters; ``plain_calls_on_cuda`` counts the
 #: entry's oracle routes
-counts = KernelCounts()
+counts = KernelCounts("bfloat16_launches", "float16_launches")
 #: the backward kernels' counters, one per kernel
-dq_counts = KernelCounts()
-dkv_counts = KernelCounts()
+dq_counts = KernelCounts("bfloat16_launches", "float16_launches")
+dkv_counts = KernelCounts("bfloat16_launches", "float16_launches")
 library = KernelLibrary("flash_attention_fwd.cu")
 bwd_library = KernelLibrary("flash_attention_bwd.cu")
 
@@ -150,8 +154,8 @@ def _check(q, k, v, kmask):
             raise MXNetError(f"flash attention: {name} is {t.dtype}, "
                              f"q is {q.dtype}")
     if q.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"flash attention kernel takes float32 or bfloat16, "
-                         f"not {q.dtype}")
+        raise MXNetError(f"flash attention kernel takes float32, bfloat16 "
+                         f"or float16, not {q.dtype}")
     if d not in HEAD_DIMS:
         raise MXNetError(f"flash attention kernel takes head dims {HEAD_DIMS}, "
                          f"not {d}")
@@ -174,7 +178,7 @@ def flash_attention_fwd(q, k, v, kmask=None, *, causal=False, scale=None):
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream (a view whose rows are not 16-byte aligned is
     copied first), or raise :class:`MXNetError` for what it does not take
-    (dtype other than float32/bfloat16, head dim not in ``HEAD_DIMS``,
+    (dtype other than float32/bfloat16/float16, head dim not in ``HEAD_DIMS``,
     non-contiguous head dim, mismatched shapes or devices) and for a failed
     launch."""
     if not q.is_cuda:
@@ -204,7 +208,7 @@ def _launch_fwd(q, k, v, kmask, causal, scale, tiles=None):
                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
                  _tile_counter(tiles), stream)
     library.raise_on_error(err, "flash attention")
-    counts.add("launches")
+    counts.add("launches", *_DTYPE_COUNTERS[q.dtype])
     return o, lse
 
 
@@ -217,8 +221,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kmask=None, *,
     ``delta = rowsum(dO*O)``; ``s = scale*(q k^T) + kmask``, masked as the
     forward masks it; ``p = exp(s - lse)``; ``ds = p*(dO v^T - delta)``;
     ``dq = scale*ds k``, ``dk = scale*ds^T q``, ``dv = p^T dO``.  Every
-    product is fp32 (p is not rounded to bf16); the outputs take the
-    inputs' dtypes.  ``lse`` is the forward's ``(b*h, sq)`` fp32 tensor."""
+    product is fp32 (p is not rounded to bfloat16 or float16); the outputs
+    take the inputs' dtypes.  ``lse`` is the forward's ``(b*h, sq)`` fp32 tensor."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
@@ -271,7 +275,7 @@ def _bwd_launch(fn, counter, what, q, k, v, do, lse, delta, kmask, outs,
                  int(bool(causal)), _DTYPE_CODES[q.dtype],
                  _tile_counter(counter_tensor), stream)
     bwd_library.raise_on_error(err, what)
-    counter.add("launches")
+    counter.add("launches", *_DTYPE_COUNTERS[q.dtype])
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, kmask=None, *,

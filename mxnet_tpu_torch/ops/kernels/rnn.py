@@ -46,7 +46,7 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import KernelCounts, KernelLibrary
+from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_PLAN = 9  # cudaErrorInvalidConfiguration, from mxtt_rnn_plan
@@ -280,7 +280,7 @@ def _bind(lib, name, nargs_ptr, nargs_int):
 def _check_dtype(name, t):
     if t.is_cuda and t.dtype not in _DTYPE_CODES:
         raise MXNetError(f"{name} kernel takes float32 or bfloat16, not "
-                         f"{t.dtype}")
+                         f"{t.dtype}{FLOAT16_LATER}")
 
 
 def _check_inputs(name, like, want):

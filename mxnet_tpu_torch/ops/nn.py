@@ -21,11 +21,20 @@ def _k_fully_connected(data, weight, bias=None, num_hidden=None,
     """``x @ weight.T + bias`` (ref: ops/nn.py:40); ``flatten`` folds
     every axis after the first into one.  Inside the mesh step a weight
     split over ``mp`` is computed on its shard
-    (``parallel.spmd.products.linear``)."""
+    (``parallel.spmd.products.linear``).  Dtypes follow the reference: a
+    bfloat16 or float16 weight casts the data to its dtype (``_amp_in``),
+    a float16 input to float32 weights computes in float32, and the bias
+    takes the product's dtype."""
     from ..parallel.spmd.products import linear
 
+    data = _amp_in(data, weight)
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
+    if x.dtype != weight.dtype:   # a float16 input to float32 weights
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
+    if bias is not None and bias.dtype != weight.dtype:
+        bias = bias.to(weight.dtype)   # ref: bias.astype(out.dtype)
     return linear(x, weight, None if no_bias else bias)
 
 
@@ -406,15 +415,33 @@ register("_contrib_SyncBatchNorm", _k_sync_batch_norm,
 
 
 def _k_layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
-    """Layer normalization with the biased variance (ref: ops/nn.py:420)."""
-    if axis in (-1, data.dim() - 1):
-        return tF.layer_norm(data, data.shape[-1:], gamma, beta, eps)
-    mean = data.mean(dim=axis, keepdim=True)
-    var = data.var(dim=axis, keepdim=True, unbiased=False)
+    """Layer normalization with the biased variance (ref: ops/nn.py:420).
+
+    The reference's dtype rule: the data is normalized in its own dtype,
+    then scaled and shifted, so gamma's and beta's dtype promote the
+    result.  Under AMP (float16 or bfloat16 data, the float32 norm
+    parameters ``amp.convert_model`` leaves) the output is float32, and
+    the normalized values are rounded to the data's dtype first, as the
+    reference rounds them (its mean and variance are reduced in float32,
+    as ``jnp.mean``/``jnp.var`` reduce half-precision data)."""
+    axis = axis % data.dim()
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
-    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
-        + beta.reshape(shape)
+    if gamma.dtype == data.dtype and beta.dtype == data.dtype:
+        if axis == data.dim() - 1:
+            return tF.layer_norm(data, data.shape[-1:], gamma, beta, eps)
+        mean = data.mean(dim=axis, keepdim=True)
+        var = data.var(dim=axis, keepdim=True, unbiased=False)
+        return (data - mean) * torch.rsqrt(var + eps) \
+            * gamma.reshape(shape) + beta.reshape(shape)
+    xf = data.float()
+    var, mean = torch.var_mean(xf, dim=axis, keepdim=True, correction=0)
+    mean, var = mean.to(data.dtype), var.to(data.dtype)
+    # eps rounded to the data's dtype first, as the reference's weak-typed
+    # scalar is (a host value: a CUDA graph may capture this)
+    eps = float(torch.tensor(eps, dtype=data.dtype))
+    xhat = (data - mean) * torch.rsqrt(var + eps)
+    return xhat * gamma.reshape(shape) + beta.reshape(shape)
 
 
 register("LayerNorm", _k_layer_norm, aliases=("layer_norm",),
@@ -605,18 +632,58 @@ register("_contrib_BilinearResize2D", _k_bilinear_resize,
          aliases=("bilinear_resize_2d",))
 
 
+def _half_sum(x, dim):
+    """``jnp.sum`` of float16 data: reduced in float32, the result rounded
+    to float16."""
+    return x.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+class _HalfSoftmax(torch.autograd.Function):
+    """``jax.nn.softmax`` on float16 data: each step rounded to float16 as
+    the reference rounds it (``exp(x - max)``, then over its sum), where
+    torch's kernel rounds once (two ulps apart: ROADMAP queue 3, item 17);
+    the backward is the reference's ``y * (g - sum(g * y))``.  bfloat16
+    keeps torch's kernel, on which the bfloat16 paths' gates were set."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        u = torch.exp(x - x.amax(dim, keepdim=True))
+        y = u / _half_sum(u, dim)
+        ctx.save_for_backward(y)
+        ctx.dim = dim
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * (g - _half_sum(g * y, ctx.dim)), None
+
+
+def _softmax(x, dim):
+    """Softmax over ``dim``; float16 data in the reference's roundings
+    (:class:`_HalfSoftmax`)."""
+    if x.dtype == torch.float16:
+        return _HalfSoftmax.apply(x, dim % x.dim())
+    return torch.softmax(x, dim=dim)
+
+
 def _k_softmax(data, axis=-1, temperature=None):
     """Ref: ops/nn.py:541."""
     x = data / temperature if temperature else data
-    return torch.softmax(x, dim=axis)
+    return _softmax(x, axis)
 
 
 register("softmax", _k_softmax, aliases=("SoftmaxActivation",))
 
 
 def _k_log_softmax(data, axis=-1, temperature=None):
-    """Ref: ops/nn.py:548."""
+    """Ref: ops/nn.py:548; float16 data as ``jax.nn.log_softmax``
+    computes it, each step rounded to float16: ``x - max - log(sum(exp(x
+    - max)))``, the max without a gradient."""
     x = data / temperature if temperature else data
+    if x.dtype == torch.float16:
+        shifted = x - x.amax(axis, keepdim=True).detach()
+        return shifted - torch.log(_half_sum(torch.exp(shifted), axis))
     return torch.log_softmax(x, dim=axis)
 
 
@@ -625,7 +692,7 @@ register("log_softmax", _k_log_softmax)
 
 def _k_softmin(data, axis=-1):
     """``softmax(-data)`` (ref: ops/nn.py:548)."""
-    return torch.softmax(-data, dim=axis)
+    return _softmax(-data, axis)
 
 
 register("softmin", _k_softmin)
@@ -651,7 +718,7 @@ def _class_one_hot(lab_ids, classes, axis, like):
 class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, opts):
-        p = torch.softmax(data, dim=opts[5])
+        p = _softmax(data, opts[5])
         ctx.save_for_backward(p, label)
         ctx.opts = opts
         return p

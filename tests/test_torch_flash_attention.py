@@ -12,6 +12,10 @@ they differ by the online-softmax rescaling order), lse within 1e-4
 absolute plus 1e-6 relative (dead rows sit at -1e9).  bfloat16 o within
 2e-2: the JAX kernel rounds q*scale with scale rounded to bf16 first, the
 port with scale in fp32, and each rounds the probabilities to bf16.
+float16 o within 4e-3 at d=64, where the scale 1/8 is exact in both
+(one fp16 ulp of values up to 4 is 3.9e-3: the probabilities, rounded to
+fp16 after sums in other orders, may part by an ulp).  On the card the
+kernel against the plain version: fp32 1e-4, bf16 2e-2, fp16 5e-3.
 """
 import numpy as np
 import pytest
@@ -107,6 +111,28 @@ def test_plain_matches_jax_forward_kernel_bf16(interpret_pallas):
     assert to.dtype == torch.bfloat16
     np.testing.assert_allclose(to.float().numpy(),
                                np.asarray(jo, np.float32), atol=2e-2, rtol=0)
+
+
+def test_plain_matches_jax_forward_kernel_fp16(interpret_pallas):
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops.pallas import flash_attention as jfa
+
+    b, h, s, d = 2, 2, 128, 64
+    q, k, v = _qkv(b, h, s, s, d, seed=3)
+    row, _, _ = _key_mask("dead_row", b, s)
+    jo, jlse = jfa._flash_forward(
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)),
+        causal=False, scale=1.0 / np.sqrt(d), kmask=jnp.asarray(row))
+    to, tlse = tfa.flash_attention_fwd(
+        *(torch.from_numpy(x).to(torch.float16) for x in (q, k, v)),
+        torch.from_numpy(row), causal=False, scale=1.0 / np.sqrt(d))
+    assert to.dtype == torch.float16 and tlse.dtype == torch.float32
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo, np.float32), atol=4e-3, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(),
+                               np.asarray(jlse).reshape(b * h, s),
+                               atol=1e-4, rtol=1e-6)
 
 
 def test_dead_row_is_mean_of_v_not_nan():
@@ -273,14 +299,19 @@ CARD_CASES = ([(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
                  (128, 128, "causal_key_padding")])
 
 
+#: the card tests' tolerance on o by dtype: fp32 sums in other orders; one
+#: bf16 ulp of values near 1, two fp16 ulps of values near 4 (probabilities
+#: rounded at different sum orders)
+CARD_O_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("sq,sk,mask", CARD_CASES)
 def test_kernel_matches_plain_on_card(sq, sk, mask, d, dtype, cuda_device):
-    """fp32 o within 1e-4, bf16 within 2e-2 (one bf16 ulp of values near
-    1, from probabilities rounded at different sum orders); lse within
-    1e-3 absolute plus 1e-6 relative."""
+    """o within ``CARD_O_TOL``; lse within 1e-3 absolute plus 1e-6
+    relative."""
     b, h = 2, 3
     q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
                for x in _qkv(b, h, sq, sk, d))
@@ -291,8 +322,8 @@ def test_kernel_matches_plain_on_card(sq, sk, mask, d, dtype, cuda_device):
     torch.cuda.synchronize()
     assert tfa.counts.launches == before + 1
     po, plse = tfa.flash_attention_plain(q, k, v, km, causal=causal)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(o.float(), po.float(), atol=CARD_O_TOL[dtype],
+                               rtol=0)
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-6)
 
 
@@ -375,8 +406,8 @@ def test_kernel_reads_packed_head_views_on_card(dtype, cuda_device):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 2, 64, 64, device=cuda_device)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tfa.flash_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tfa.flash_attention_fwd(q.double(), q.double(), q.double())
     q96 = torch.zeros(1, 2, 64, 96, device=cuda_device)
     with pytest.raises(MXNetError, match="head dims"):
         tfa.flash_attention_fwd(q96, q96, q96)

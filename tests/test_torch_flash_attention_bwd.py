@@ -15,7 +15,10 @@ Tolerances.  fp32 against the JAX kernels: 2e-4 absolute plus 1e-5
 relative (both sum in fp32 over up to 256 keys, in other orders; a dead
 row's gradients sum dO over every query and reach ~30).  bf16: 5e-2
 absolute plus 2e-2 relative (the outputs are rounded to bf16, one ulp of
-values near 4).  Against autograd: 1e-4 absolute plus 1e-4 relative.  The
+values near 4).  fp16 (d=64, where the scale is exact in both): 4e-3
+absolute plus 4e-3 relative (outputs rounded to fp16, two ulps of values
+near 4).  On the card, each kernel against the plain backward: fp32
+1e-4 plus 1e-4, bf16 3e-2 plus 2e-2, fp16 4e-3 plus 4e-3.  Against autograd: 1e-4 absolute plus 1e-4 relative.  The
 dead row is left out of the comparisons with autograd: there the fp32 lse
 rounds to -1e9, so the flash formula's p is 1 where softmax's is 1/sk,
 and the port, like the JAX kernels, gives the flash formula's gradient.
@@ -73,7 +76,8 @@ def _jax_backward(q, k, v, do, mask4, causal, stream, dtype="float32"):
 
     from mxnet_tpu.ops.pallas import flash_attention as jfa
 
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jdt = {"bfloat16": jnp.bfloat16, "float16": jnp.float16}.get(
+        dtype, jnp.float32)
     jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
     jrow = None if mask4 is None else \
         jfa._as_key_padding_mask(jnp.asarray(mask4), jq, jk)
@@ -125,6 +129,24 @@ def test_plain_backward_matches_jax_backward_kernel_bf16(interpret_pallas):
         assert t.dtype == torch.bfloat16
         np.testing.assert_allclose(t.float().numpy(), j, atol=5e-2,
                                    rtol=2e-2, err_msg=name)
+
+
+def test_plain_backward_matches_jax_backward_kernel_fp16(interpret_pallas):
+    b, h, s, d = 2, 2, 128, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=3)
+    _, mask4, _ = _key_mask("dead_row", b, s)
+    jo, jlse, jgrads = _jax_backward(q, k, v, do, mask4, False, False,
+                                     "float16")
+    hf = lambda x: torch.from_numpy(x).to(torch.float16)  # noqa: E731
+    tq, tk, tv, tdo = (hf(x) for x in (q, k, v, do))
+    trow = tfa.as_key_padding_mask(torch.from_numpy(mask4), tq, tk)
+    tgrads = tfa.flash_attention_bwd(
+        tq, tk, tv, hf(jo), torch.from_numpy(jlse.reshape(b * h, s)), tdo,
+        trow, causal=False, scale=1.0 / np.sqrt(d))
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert t.dtype == torch.float16
+        np.testing.assert_allclose(t.float().numpy(), j, atol=4e-3,
+                                   rtol=4e-3, err_msg=name)
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
@@ -336,17 +358,21 @@ CARD_CASES = ([(sq, sk, m) for sq, sk in ((128, 128), (100, 77), (1, 300))
               + [(512, 512, f"valid_{n}") for n in TILE_EDGES]
               + [(512, 512, "causal_key_padding"),
                  (128, 128, "causal_key_padding")])
+#: the card tests' (atol, rtol) by dtype: fp32 sums in other orders; the
+#: outputs rounded to bf16 or fp16
+CARD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 2e-2),
+            "float16": (4e-3, 4e-3)}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("sq,sk,mask", CARD_CASES)
 def test_backward_kernels_match_plain_on_card(sq, sk, mask, d, dtype,
                                               cuda_device):
-    """Each kernel against the plain backward: fp32 within 1e-4 absolute
-    plus 1e-4 relative (sums over up to 300 keys in other orders), bf16
-    within 3e-2 plus 2e-2 (outputs rounded to bf16)."""
+    """Each kernel against the plain backward within ``CARD_TOL``: fp32
+    sums over up to 300 keys in other orders; bf16 and fp16 outputs
+    rounded to their dtype."""
     b, h = 2, 3
     rng = np.random.RandomState(11)
     dt = getattr(torch, dtype)
@@ -364,7 +390,7 @@ def test_backward_kernels_match_plain_on_card(sq, sk, mask, d, dtype,
         (before[0] + 1, before[1] + 1)
     ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
                                         causal=causal)
-    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    atol, rtol = CARD_TOL[dtype]
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == dt and torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
@@ -414,7 +440,7 @@ def test_dq_on_unaligned_views_matches_plain_on_card(mask, d, dtype,
     q, k, v, do, lse, _, km = args
     ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
                                         causal=causal)
-    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    atol, rtol = CARD_TOL[dtype]
     for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                    rtol=rtol, msg=name)
@@ -443,7 +469,7 @@ def test_dq_kernel_skips_tiles_and_repeats_bit_for_bit_on_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("mask", ["valid_1", "valid_65", "valid_128",
                                   "dead_row", "causal_key_padding", "none"])
@@ -471,7 +497,7 @@ def test_dkv_kernel_skips_blocks_and_repeats_bit_for_bit_on_card(
     q, k, v, do, lse, _, km = args
     _, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, km,
                                               causal=causal)
-    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 2e-2)
+    atol, rtol = CARD_TOL[dtype]
     for g, r in ((dk1, dk), (dv1, dv)):
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                    rtol=rtol)

@@ -30,7 +30,6 @@ import json
 import os
 import pickle
 import shutil
-import types
 
 import numpy as np
 import pytest
@@ -270,7 +269,8 @@ def test_zero_bypass_matrix_falls_back_loudly(case, caplog):
             zero_world=N)[2].replace("LAMB", "_SeqSGD")
     opt, tkw = _bypass_setup(tmx, case)
     net, tr = build(True, opt, layers=1, **tkw)
-    _bypass_mutate(net, tr, case, types.SimpleNamespace(enabled=True))
+    _bypass_mutate(net, tr, case, tmx.amp.LossScaler(init_scale=2.0)
+                   if case == "amp" else None)
     before = zw.weights(net)
     ttrainer.reset_trainer_step_stats()
     with caplog.at_level(logging.WARNING, "mxnet_tpu_torch.trainer"):
