@@ -616,10 +616,45 @@ Phases (any failure ends the run with a non-zero exit and no result):
     ``FP16_LSE_TOL``, the gradients ``FP16_GRAD_TOL``; timed beside the
     plain versions and SDPA in float16, the bound at float16's tensor-core
     rate.
+44. float16 for rows 7-14: (d) first, rows 7-10 in float16 against their
+    plain versions at every shape ResNet-50 gives them (training at
+    b=128, predict at b=64; row 7's sums within ``F16_BN_STATS_RTOL``,
+    rows 8-10's y within ``F16_FUSED_TOL`` and their sums within
+    ``F16_STATS_TOL``), each launch a float16 one on the TMA route, and
+    rows 11-14 (float16 x_proj, Wh, states and ys) at the language
+    model's shape and at a shape for each route (register, tensor-core,
+    cluster, split; DeepAR's predict shapes among them), every route that
+    has a plan held to the plain version (float16 outputs within
+    ``F16_RNN_OUT_TOL``, fp32 ones and gradients ``F16_RNN_F32_TOL``);
+    timed at the main shapes beside the plain versions,
+    ``torch.var_mean``, ``torch.matmul`` or cuDNN's layer in float16 and
+    the bound at float16's rate.  (a) Phase 7's ResNet-50 (seed, batch)
+    under ``amp.init("float16")`` and ``convert_model``, the batch in
+    float16, ``gluon.Trainer`` SGD (lr ``F16_RESNET_LR``, momentum 0.9,
+    wd 1e-4, ``multi_precision``) through ``amp.scale_loss``,
+    ``F16_RESNET_STEPS`` steps with ``MXTPU_BN_STATS=pallas`` (the stem's
+    statistics through row 7 too).  Gates: 20, 17 and 16 float16
+    launches of rows 8, 7 and 10 a step, none on the simple or scalar
+    route, no plain call; finite losses, the mean of the last 5 below the
+    first; every trainable master changed and finite, every moving
+    statistic moved.  Printed: the overflow-skipped steps, the step
+    median and the peak memory.  (b) Its predict forward at b=64 in
+    float16: 16 float16 row-9 launches a forward on the TMA route, the
+    logits within ``F16_PREDICT_TOL`` of the largest logit of a float32
+    forward of the same weights.  (c) ``example/gluon/word_language_model``
+    (``Embedding`` -> 2-layer ``gluon.rnn.LSTM``/``GRU`` -> ``Dense``, 650
+    units, vocabulary 10,000, bptt 35, batch 32) under float16 AMP,
+    ``F16_LM_STEPS`` SGD steps each with float32 masters and no clip, on
+    a seeded Markov chain's tokens: float16 launches of rows 11-14 (2 of
+    each a step), their routes recorded, finite losses, the last below
+    the first.  (e) Card vs CPU, 2 float16 AMP steps from the same
+    converted weights: a narrow fused ResNet (b=8, 64^2) and the two
+    language models at 2 x 64 units: the losses and masters within
+    ``F16_CPU_TOL``.
 
 The phases run in the order 1-3, 5, 6, 10, 7-9, 4, 11-18b, 19-20b, 23,
 24, 25, 21, 22, 38, 39, 40, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36,
-37, 41, 42, 43 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2
+37, 41, 42, 43, 44 (20, 23, 24, 25, 21, 22, 38, 39 and 40 in one launch of 2
 ranks and a
 parameter server; 21b, 2+ cards only, in another): every
 torch.profiler session (phases 6 and 10, and the profiles below) comes
@@ -1033,6 +1068,40 @@ AMP_BF16_STEPS = 5
 FP16_O_TOL, FP16_LSE_TOL, FP16_GRAD_TOL = 5e-3, 1e-3, (4e-3, 4e-3)
 # phase 5's peak device memory, printed beside phase 43's
 PHASE5_PEAK_GIB = {}
+# phase 44: float16 for rows 7-14.  (a) ResNet-50 under float16 AMP:
+# F16_RESNET_STEPS gluon.Trainer SGD steps at lr F16_RESNET_LR (at
+# train_imagenet.py's lr 0.1 the loss on one repeated batch swings in every
+# dtype, fp32 included: 7.57 -> 9.61 -> 5.97 -> 8.83 over 20 steps, and the
+# trained net's predict-mode logits reach 1.5e8, past float16's range;
+# PERF.md §6); (b) its
+# predict logits within F16_PREDICT_TOL of the largest float32 logit of the
+# same weights; (c) the word-language model at the README's medium widths
+# (example/gluon/word_language_model: emsize = nhid = 650, untied, bptt 35,
+# batch 32, PTB's vocabulary of 10,000), F16_LM_STEPS SGD steps a cell at
+# lr F16_LM_LR with no clip; (d) rows 7-14 in float16 against their plain
+# versions: row 7's sums within F16_BN_STATS_RTOL relative (fp32 sums of
+# the same values), rows 8-10's y within F16_FUSED_TOL (atol, rtol: two
+# fp16 ulps of O(1) values) and their sums within F16_STATS_TOL of the
+# largest (K up to 2,048, then one fp16 rounding of y), rows 11-14's
+# float16 outputs within F16_RNN_OUT_TOL (two fp16 ulps of values below 1)
+# and their fp32 outputs and gradients within F16_RNN_F32_TOL, each of
+# max(1, the largest reference value); (e) card vs CPU, 2 steps from a loss
+# scale of F16_CPU_SCALE: (loss rtol, masters max, masters 99.9th
+# percentile) by case in F16_CPU_TOL.  Measured (PERF.md §6): the
+# predict logits 7.7e-4 of the largest apart, top-1 equal; the narrow
+# ResNet's second loss 3.1e-3 apart (1.5e-2 at b=2: its last stage
+# normalizes 8 values a channel there, 32 at b=8), its masters 6.4e-4
+# (99.9th percentile 2.2e-4); the language models' losses equal, masters
+# 7.6e-6 (3.6e-7)
+F16_RESNET_STEPS, F16_RESNET_LR = 20, 0.01
+F16_PREDICT_TOL = 4e-3
+F16_LM_VOCAB, F16_LM_UNITS, F16_LM_LAYERS = 10000, 650, 2
+F16_LM_BPTT, F16_LM_BATCH, F16_LM_STEPS, F16_LM_LR = 35, 32, 10, 1.0
+F16_BN_STATS_RTOL, F16_FUSED_TOL, F16_STATS_TOL = 1e-5, (4e-3, 4e-3), 2e-3
+F16_RNN_OUT_TOL, F16_RNN_F32_TOL = 1e-3, 1e-4
+F16_CPU_SCALE = 2.0 ** 6
+F16_CPU_TOL = {"resnet": (1e-2, 3e-3, 1.5e-3), "lstm": (1e-4, 1e-4, 1e-5),
+               "gru": (1e-4, 1e-4, 1e-5)}
 # phases 39-40: BERT-base on phase 20's batch, 2 dist_async steps a rank,
 # then 6 dist_sync steps under the elastic supervisor (save after step 2,
 # rank 1 leaves at step 4 with code 0: the launcher ends the job when a
@@ -2857,7 +2926,7 @@ def rnn_bound(cell, direction, T, N, H, dtype, rate=None):
     every gradient in fp32); ``2*T*N*G*H*H`` operations for the forward's
     recurrent product at ``rate`` (default: the dtype's peak; the
     tensor-core route's is TF32X3_FLOPS), twice that for the backward
-    (dh_prev and dWh) at the fp32 rate."""
+    (dh_prev and dWh) at ``rate`` (default: the fp32 rate)."""
     G = 4 if cell == "lstm" else 3
     item = 2 if dtype in ("bfloat16", "float16") else 4
     tn = T * N
@@ -2870,7 +2939,7 @@ def rnn_bound(cell, direction, T, N, H, dtype, rate=None):
               + G * H * H * 4 + 2 * (G - 2) * N * H * 4
               + tn * G * H * 4 + G * H * H * 4 + (G - 2) * N * H * 4
               + (G * H * 4 if cell == "gru" else 0))
-    return least_ms(nbytes, 4.0 * tn * G * H * H, "float32")
+    return least_ms(nbytes, 4.0 * tn * G * H * H, "float32", rate)
 
 
 def rnn_inputs(cell, T, N, H, I, dtype, dev, gen):
@@ -10496,10 +10565,9 @@ def gluon_basics(mx, card):
 # -- phase 43: mixed precision ----------------------------------------------
 
 
-def amp_masters(trainer):
+def master_list(trainer):
     """Each parameter's float32 master (its state's first tensor where the
-    optimizer keeps one), else its value, as one float32 CPU array."""
-    import numpy as np
+    optimizer keeps one), else its value, as float32 clones."""
     import torch
 
     out = []
@@ -10507,8 +10575,16 @@ def amp_masters(trainer):
         st = trainer._states[i]
         w = st[0] if isinstance(st, tuple) and p.data().dtype == \
             torch.float16 else p.data()
-        out.append(w.detach().float().cpu().numpy().ravel())
-    return np.concatenate(out)
+        out.append(w.detach().float().clone())
+    return out
+
+
+def amp_masters(trainer):
+    """:func:`master_list` as one float32 CPU array."""
+    import numpy as np
+
+    return np.concatenate([m.cpu().numpy().ravel()
+                           for m in master_list(trainer)])
 
 
 def amp_state_tensors(trainer):
@@ -10912,6 +10988,682 @@ def mixed_precision(mx, card):
     return launches, kernels16
 
 
+# -- phase 44: float16 for rows 7-14 ------------------------------------------
+
+
+def f16_close(got, ref, out_tol, f32_tol):
+    """The largest error of ``got`` against ``ref`` over max(1, max |ref|),
+    and whether each output is within its limit: ``out_tol`` for float16
+    outputs, ``f32_tol`` for fp32 ones (the saved gates and states, the
+    gradients)."""
+    import torch
+
+    worst, ok = 0.0, True
+    for g, r in zip(got, ref):
+        err = rel_err(g, r)
+        worst = max(worst, err)
+        ok = ok and g.dtype == r.dtype and g.shape == r.shape and bool(
+            torch.isfinite(g).all()) and err <= (
+                out_tol if r.dtype == torch.float16 else f32_tol)
+    return worst, ok
+
+
+def f16_resnet_kernels(dev):
+    """(d), rows 7-10 in float16 against their plain versions at every
+    shape ResNet-50 gives them under (a) and (b) (training at b=128,
+    224^2; predict at b=64), each launch counted in ``float16_launches``
+    and on the TMA route; timed at stage 1 beside the plain version,
+    ``torch.var_mean`` or ``torch.matmul`` in float16 and the bound at
+    float16's rate.  Returns ``{kernel: {shape: record}}``."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import batch_norm as kbn
+    from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    mm, act_stats, act, stats, _ = resnet_kernel_shapes()
+    out = {k: {} for k in ("bn_stats", "matmul_bn_stats", "bn_act_matmul",
+                           "bn_act_matmul_stats")}
+    h = torch.float16
+
+    def rand(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.rand(*shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def keep(name, label, err, kern, plain, lib, bound):
+        out[name][label] = {"max_abs_err": err, "ms": kern,
+                            "plain_ms": plain, "bound_ms": bound[0],
+                            "bound_by": bound[1], "library_ms": lib}
+
+    for i, (m, c) in enumerate(stats):
+        x = rand(m, c, dtype=h, shift=-0.3)
+        got, ref = kbn.bn_stats_fwd(x), kbn.bn_stats_plain(x)
+        rerr = max(((g - r).abs() / r.abs().clamp_min(1e-30)).max().item()
+                   for g, r in zip(got, ref))
+        ok = rerr <= F16_BN_STATS_RTOL and check_stats(got, x)[1]
+        label = f"M={m} C={c}"
+        line = f"  bn_stats {label} float16 rel err {rerr:.3g}"
+        if i == 0:  # stage 1: timed
+            kern = cuda_ms(lambda: kbn.bn_stats_fwd(x), 10)
+            plain = cuda_ms(lambda: kbn.bn_stats_plain(x), 3)
+            lib = cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0), 10)
+            bound = least_ms(m * c * 2 + 2 * c * 4, 3.0 * m * c, "float16")
+            keep("bn_stats", label, rerr, kern, plain, lib, bound)
+            line += (f" kernel {kern:.4f} ms plain {plain:.4f} var_mean "
+                     f"{lib:.4f} bound {bound[0]:.4f} ({bound[1]})")
+        log(f"{line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"float16 bn_stats disagrees with its plain "
+                             f"version: {label}")
+        del x, got, ref
+    cases = [("matmul_bn_stats", s, False,
+              s == (RESNET_BATCH * 56 * 56, 256, 64)) for s in mm]
+    cases += [("bn_act_matmul_stats", s, True, s == act_stats[0])
+              for s in act_stats]
+    cases += [("bn_act_matmul", s, True, s == act[0]) for s in act]
+    atol, rtol = F16_FUSED_TOL
+    for name, (m, k, n), relu, timed in cases:
+        x = rand(m, k, dtype=h, shift=-0.5)
+        w = rand(n, k, dtype=h, scale=2.0 / k ** 0.5,
+                 shift=-1.0 / k ** 0.5).t()
+        prologue = name != "matmul_bn_stats"
+        args = ((x, rand(1, k, shift=0.5), rand(1, k, shift=-0.5), w, relu)
+                if prologue else (x, w))
+        fwd = getattr(kcf, f"{name}_fwd")
+        plain = getattr(kcf, f"{name}_plain")
+        counts = getattr(kcf, f"{name}_counts")
+        before = (counts.launches, counts.float16_launches,
+                  counts.simple_launches)
+        got, ref = fwd(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        ok = (got[0].dtype == h and bool(torch.isfinite(got[0]).all())
+              and torch.allclose(got[0].float(), ref[0].float(), atol=atol,
+                                 rtol=rtol)
+              and (counts.launches, counts.float16_launches,
+                   counts.simple_launches) == (before[0] + 1, before[1] + 1,
+                                               before[2]))
+        serr = ""
+        if len(got) == 3:  # the sums of the stored y, and the plain one's
+            worst, sok = check_stats(got[1:], got[0])
+            sgap = max((g - r).abs().max().item() / r.abs().max().item()
+                       for g, r in zip(got[1:], ref[1:]))
+            ok = ok and sok and sgap <= F16_STATS_TOL
+            serr = f" sums rel {worst:.3g}, vs plain {sgap:.3g} of max"
+        label = f"M={m} K={k} N={n}"
+        line = f"  {name} {label} float16 relu={relu} err {err:.3g}{serr}"
+        if timed:
+            kern = cuda_ms(lambda: fwd(*args), 10)
+            pms = cuda_ms(lambda: plain(*args), 3)
+            lib = cuda_ms(lambda: torch.matmul(x, w), 10)
+            bound = gemm_bound(m, k, n, "float16", prologue,
+                               name.endswith("stats"))
+            keep(name, label, err, kern, pms, lib, bound)
+            line += (f" kernel {kern:.4f} ms plain {pms:.4f} matmul fp16 "
+                     f"{lib:.4f} bound {bound[0]:.4f} ({bound[1]})")
+        log(f"{line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"float16 {name} disagrees with its plain "
+                             f"version: {label}")
+        del x, w, args, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def f16_rnn_shapes():
+    """(label, cell, T, N, H, I, timed) of (d)'s recurrences: the language
+    model of (c) (timed), then a shape for each route: DeepAR training
+    (register), DeepAR predict's (tensor-core; N=3200 past the JAX
+    package's size rule), the GRU phase's (cluster)."""
+    lm = ("lm", F16_LM_BPTT, F16_LM_BATCH, F16_LM_UNITS, F16_LM_UNITS, True)
+    return [(lm[0], cell) + lm[1:] for cell in ("lstm", "gru")] + [
+        ("deepar_train", "lstm", 96, 32, 40, 40, False),
+        ("deepar_predict", "lstm", 73, 1600, 40, 40, False),
+        ("deepar_predict", "lstm", 96, 3200, 40, 40, False),
+        ("gru_phase", "gru", 35, 32, 200, 200, False)]
+
+
+def cudnn_half_ms(cell, t, H, I):
+    """cuDNN's layer (torch.nn.LSTM/GRU in half, the same weights) forward
+    and backward, ms (the yardstick of rows 11-14 in float16)."""
+    import torch
+
+    mod, state = cudnn_layer(cell, t, H, I, t["x"].shape[1])
+    mod = mod.half()
+    x = t["x"].half().requires_grad_(True)
+    state = tuple(s.half() for s in state) if cell == "lstm" \
+        else state.half()
+    params = (x, mod.weight_ih_l0, mod.weight_hh_l0)
+    y = mod(x, state)[0]
+    dy = t["dys"].half()
+    return (cuda_ms(lambda: mod(x, state), 10),
+            cuda_ms(lambda: torch.autograd.grad(y, params, dy,
+                                                retain_graph=True), 10))
+
+
+def f16_rnn_kernels(dev):
+    """(d), rows 11-14 in float16 (x_proj, Wh, the states and ys/hn/cn in
+    float16; gates, cell states and gradients fp32) against their plain
+    versions at :func:`f16_rnn_shapes`, each direction on every route
+    that has a plan for the shape, each launch counted in
+    ``float16_launches``; at the language model's shape timed beside the
+    plain versions, cuDNN's layer in half and the bound at float16's rate.
+    Returns ``{kernel: {shape: record}}`` and the routes checked."""
+    import torch
+
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    out = {k: {} for k in ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")}
+    checked = {k: set() for k in out}
+    for label, cell, T, N, H, I, timed in f16_rnn_shapes():
+        t = rnn_inputs(cell, T, N, H, I, "float16", dev, gen)
+        G = 4 if cell == "lstm" else 3
+        if cell == "lstm":
+            f_args = (t["xp"], t["wh"], t["h0"], t["c0"])
+            fwd, fplain, pin_f = kr.lstm_fwd, kr.lstm_fwd_plain, kr._lstm_fwd
+            bwd, bplain, pin_b = kr.lstm_bwd, kr.lstm_bwd_plain, kr._lstm_bwd
+            ref = fplain(*f_args)
+            b_args = (t["wh"], t["h0"], t["c0"], ref[0], ref[3], ref[4],
+                      t["dys"], t["dhn"].half(), t["dcn"].half())
+        else:
+            f_args = (t["xp"], t["wh"], t["bh"], t["h0"])
+            fwd, fplain, pin_f = kr.gru_fwd, kr.gru_fwd_plain, kr._gru_fwd
+            bwd, bplain, pin_b = kr.gru_bwd, kr.gru_bwd_plain, kr._gru_bwd
+            ref = fplain(*f_args)
+            b_args = (t["wh"], t["h0"], ref[0], ref[2], ref[3], t["dys"],
+                      t["dhn"].half())
+        bref = bplain(*b_args)
+        errs, ok = {}, True
+        for d, pin, args, want in (("fwd", pin_f, f_args, ref),
+                                   ("bwd", pin_b, b_args, bref)):
+            counts = getattr(kr, f"{cell}_{d}_counts")
+            planned = kr.plan(G, d == "bwd", N, H, dev)[0]
+            for r in kr.ROUTES:
+                try:
+                    kr.plan(G, d == "bwd", N, H, dev, r)
+                except MXNetError:
+                    continue
+                before = counts.float16_launches
+                got = pin(*args, route=r)
+                torch.cuda.synchronize()
+                err, rok = f16_close(got, want, F16_RNN_OUT_TOL,
+                                     F16_RNN_F32_TOL)
+                rok = rok and counts.float16_launches == before + 1
+                errs[f"{d}_{r}"] = err
+                ok = ok and rok
+                checked[f"{cell}_{d}"].add(r)
+                del got
+            errs[f"{d}_planned"] = planned
+        log(f"  {cell} {label} T={T} N={N} H={H} float16: err by route "
+            + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in errs.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"float16 {cell} kernels disagree with their "
+                             f"plain versions: {label} T={T} N={N} H={H}")
+        if timed:
+            lib_f, lib_b = cudnn_half_ms(cell, t, H, I)
+            for d, call, pcall, lib in (
+                    ("fwd", lambda: fwd(*f_args), lambda: fplain(*f_args),
+                     lib_f),
+                    ("bwd", lambda: bwd(*b_args), lambda: bplain(*b_args),
+                     lib_b)):
+                kern = cuda_ms(call, 10)
+                pms = cuda_ms(pcall, 2, warmup=1)
+                bound = rnn_bound(cell, d, T, N, H, "float16",
+                                  PEAK_FLOPS["float16"])
+                out[f"{cell}_{d}"][f"T={T} N={N} H={H}"] = {
+                    "max_abs_err": max(v for k, v in errs.items()
+                                       if k.startswith(d)
+                                       and isinstance(v, float)),
+                    "ms": kern, "plain_ms": pms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": lib,
+                    "kernel_route": errs[f"{d}_planned"]}
+                log(f"  {cell}_{d} {label} T={T} N={N} H={H} float16: "
+                    f"kernel {kern:.4f} ms on the {errs[f'{d}_planned']} "
+                    f"route, plain {pms:.3f}, cuDNN's layer in half "
+                    f"{lib:.4f}, bound {bound[0]:.4f} ({bound[1]})")
+        del t, f_args, b_args, ref, bref
+        torch.cuda.empty_cache()
+    want = {"lstm_fwd": {"reg", "mma", "split"}, "lstm_bwd": {"reg", "split"},
+            "gru_fwd": {"cluster", "split"}, "gru_bwd": {"cluster", "split"}}
+    missing = {k: sorted(want[k] - v) for k, v in checked.items()
+               if want[k] - v}
+    if missing:
+        raise SystemExit(f"float16 routes never checked: {missing}")
+    return out, {k: sorted(v) for k, v in checked.items()}
+
+
+def amp_sgd(mx, net, lr, momentum=0.0, wd=0.0):
+    """SGD with float32 masters (``multi_precision``), as MXNet 1.x's
+    float16 recipes train."""
+    return mx.gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr, "momentum": momentum,
+                             "wd": wd, "multi_precision": True},
+                            update_on_kvstore=False)
+
+
+def amp_step(mx, net, trainer, loss_fn, x, y, batch):
+    """One float16 AMP step: the scaled loss's backward under ``record``,
+    then ``step``; returns the mean loss."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+        with mx.amp.scale_loss(loss, trainer) as scaled:
+            mx.autograd.backward(scaled)
+    trainer.step(batch)
+    return loss.data.float().mean().item()
+
+
+def f16_resnet_train(mx, card):
+    """(a) ResNet-50 v1 NHWC, fused, from phase 7's seed and batch, under
+    ``amp.init("float16")`` and ``convert_model``, trained by
+    ``gluon.Trainer`` (SGD lr ``F16_RESNET_LR``, momentum 0.9, wd 1e-4,
+    float32 masters)
+    through ``amp.scale_loss`` for ``F16_RESNET_STEPS`` steps, the batch in
+    float16, ``MXTPU_BN_STATS=pallas`` (the JAX package's opt-in: the
+    stem's BatchNorm statistics through row 7 too); (b) its predict
+    forward at b=64 in float16 against a float32 forward of the same
+    weights.  Returns (launches by path, checks, the net's records)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+
+    gpu = mx.gpu(0)
+    x, y = synthetic_images(np.random.RandomState(0), RESNET_BATCH,
+                            RESNET_IMAGE)
+    net = resnet50(mx, gpu, fuse=True)
+    with mx.autograd.pause():  # deferred shapes, in float32
+        net(mx.nd.array(x[:2], ctx=gpu))
+    mx.amp.convert_model(net)
+    xg = mx.nd.array(x.astype(np.float16), ctx=gpu, dtype="float16")
+    yg = mx.nd.array(y, ctx=gpu)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = amp_sgd(mx, net, F16_RESNET_LR, 0.9, 1e-4)
+    params = list(net.collect_params().values())
+    start = {id(p): p.data().detach().float().clone() for p in params}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    old = os.environ.get("MXTPU_BN_STATS")
+    os.environ["MXTPU_BN_STATS"] = "pallas"
+    try:
+        kernels.reset_counts()
+        losses, skipped, step_ms = [], [], []
+        for step in range(F16_RESNET_STEPS):
+            scale0 = getattr(trainer, "_amp_loss_scaler", None)
+            scale0 = 2.0 ** 16 if scale0 is None else scale0.loss_scale
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(amp_step(mx, net, trainer, loss_fn, xg, yg,
+                                   RESNET_BATCH))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if trainer._amp_loss_scaler.loss_scale < scale0:
+                skipped.append(step + 1)
+        counts = {k: c.snapshot() for k, c in kernels.KERNEL_COUNTS.items()}
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_BN_STATS", None)
+        else:
+            os.environ["MXTPU_BN_STATS"] = old
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = F16_RESNET_STEPS
+    median = statistics.median(step_ms[2:])
+    masters = master_list(trainer)
+    unchanged, bad, still = [], [], []
+    by_id = {id(p): m for p, m in zip(trainer._params, masters)}
+    for name, p in net.collect_params().items():
+        now = by_id.get(id(p), p.data().detach().float())
+        if not bool(torch.isfinite(now).all()):
+            bad.append(name)
+        if p.grad_req != "null" and torch.equal(now, start[id(p)]):
+            unchanged.append(name)
+        if "running" in name and torch.equal(now, start[id(p)]):
+            still.append(name)
+    log(f"f16 44a: ResNet-50 v1 NHWC fused, b={RESNET_BATCH} "
+        f"{RESNET_IMAGE}^2, amp.init('float16') + convert_model, "
+        f"gluon.Trainer SGD lr {F16_RESNET_LR} momentum 0.9 wd 1e-4 "
+        f"multi_precision, amp.scale_loss, {n} steps; loss {losses[0]:.4f}"
+        f" -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{statistics.mean(losses[-5:]):.4f}); overflow-skipped steps "
+        f"{skipped} (final scale {trainer._amp_loss_scaler.loss_scale}); "
+        f"step median {median:.3f} ms over steps 3-{n} (first "
+        f"{step_ms[0]:.1f} ms), {RESNET_BATCH / (median / 1e3):.1f} "
+        f"images/s; peak memory {peak:.2f} GiB, {peak - base:.2f} above "
+        f"what the phase found allocated, on {card}")
+    log(f"f16 44a: losses {[round(v, 4) for v in losses]}")
+    rows = ("bn_stats", "matmul_bn_stats", "bn_act_matmul_stats")
+    log(f"f16 44a: launches {{kernel: counters}} "
+        f"{ {k: counts[k] for k in rows} }; plain calls on cuda "
+        f"{ {k: c['plain_calls_on_cuda'] for k, c in counts.items()} }")
+    expect = {"matmul_bn_stats": 20 * n, "bn_stats": 17 * n,
+              "bn_act_matmul_stats": 16 * n}
+    checks = {
+        "f16_resnet_launches": all(
+            counts[k]["launches"] == v == counts[k]["float16_launches"]
+            for k, v in expect.items()),
+        "f16_resnet_tma_route": all(counts[k]["simple_launches"] == 0
+                                    for k in rows[1:]),
+        "f16_resnet_bn_stats_vector": counts["bn_stats"]["scalar_launches"]
+        == 0,
+        "f16_resnet_plain_calls_on_cuda": all(
+            c["plain_calls_on_cuda"] == 0 for c in counts.values()),
+        "f16_resnet_finite_losses": bool(np.isfinite(losses).all()),
+        "f16_resnet_loss_falls": statistics.mean(losses[-5:]) < losses[0],
+        "f16_resnet_masters_change": not unchanged,
+        "f16_resnet_masters_finite": not bad,
+        "f16_resnet_running_stats_move": not still,
+        "f16_resnet_steps_taken": len(skipped) <= n // 2,
+    }
+    if unchanged or bad or still:
+        log(f"f16 44a: unchanged {unchanged[:5]}, non-finite {bad[:5]}, "
+            f"moving statistics that did not move {still[:5]}")
+    launches = {"amp_fp16_resnet_train": {k: counts[k]["launches"]
+                                          for k in rows}}
+    del trainer, masters, start
+    torch.cuda.empty_cache()
+
+    # (b) predict mode at b=64: the float16 net, then a float32 copy of the
+    # same weights (the float16 values widened, the float32 ones as they
+    # are)
+    xp = mx.nd.array(x[:PREDICT_BATCH].astype(np.float16), ctx=gpu,
+                     dtype="float16")
+    reps = 3
+    with mx.autograd.pause():
+        net(xp)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out16 = net(xp)
+        torch.cuda.synchronize()
+        f16_ms = (time.perf_counter() - t0) * 1e3 / reps
+    bam = kernels.KERNEL_COUNTS["bn_act_matmul"].snapshot()
+    arrays = {k: p.data().detach().float().cpu().numpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    del net
+    torch.cuda.empty_cache()
+    net32 = resnet50(mx, gpu, fuse=True)
+    mx.load_numpy_params(net32, arrays)
+    with mx.autograd.pause():
+        out32 = net32(mx.nd.array(x[:PREDICT_BATCH], ctx=gpu))
+    l16, l32 = out16.data.float(), out32.data.float()
+    gap = (l16 - l32).abs().max().item() / l32.abs().max().item()
+    top1 = (l16.argmax(1) == l32.argmax(1)).float().mean().item()
+    log(f"f16 44b: predict b={PREDICT_BATCH} float16 forward (eager) "
+        f"{f16_ms:.3f} ms, {PREDICT_BATCH / (f16_ms / 1e3):.1f} images/s; "
+        f"bn_act_matmul counters over {reps} forwards {bam}; logits vs a "
+        f"float32 forward of the same weights: max gap {gap:.3g} of the "
+        f"largest (limit {F16_PREDICT_TOL}), top-1 agreement {top1:.3f}")
+    checks.update({
+        "f16_predict_launches": bam["launches"] == bam["float16_launches"]
+        == 16 * reps and bam["simple_launches"] == bam["tf32_launches"] == 0
+        and bam["plain_calls_on_cuda"] == 0,
+        "f16_predict_output": l16.shape == (PREDICT_BATCH, 1000)
+        and out16.data.dtype == torch.float16
+        and tuple(out16.shape) == (PREDICT_BATCH, 1000)
+        and bool(torch.isfinite(l16).all()),
+        "f16_predict_vs_float32": gap <= F16_PREDICT_TOL,
+    })
+    launches["amp_fp16_resnet_predict"] = {"bn_act_matmul": bam["launches"]}
+    del net32, out16, out32, xg, yg, xp
+    torch.cuda.empty_cache()
+    return launches, checks, {"step_ms": median, "peak_gib": peak,
+                              "skipped": skipped}
+
+
+class LanguageModel:
+    """``example/gluon/word_language_model``'s RNNModel, untied: an
+    ``Embedding``, a ``gluon.rnn.LSTM`` or ``GRU`` of ``layers`` layers,
+    a ``Dense`` over the vocabulary (dropout 0: the comparisons need the
+    same function on both devices)."""
+
+    @staticmethod
+    def build(mx, cell, vocab, units, layers):
+        class RNNModel(mx.gluon.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                layer = mx.gluon.rnn.LSTM if cell == "lstm" \
+                    else mx.gluon.rnn.GRU
+                self.encoder = mx.gluon.nn.Embedding(vocab, units)
+                self.rnn = layer(units, layers, input_size=units)
+                self.decoder = mx.gluon.nn.Dense(vocab, in_units=units)
+
+            def hybrid_forward(self, F, x):
+                out = self.rnn(self.encoder(x))
+                return self.decoder(F.reshape(out, shape=(-1, units)))
+        return RNNModel()
+
+
+def lm_loss(mx, tokens):
+    """The example's loss: each token's cross entropy over the window's
+    ``tokens`` (``l / X.size``), stepped with ``trainer.step(1)``."""
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    return lambda out, y: ce(out, y) / tokens
+
+
+def markov_batches(rng, vocab, bptt, batch, steps):
+    """``steps`` (x, y) windows of a first-order Markov chain over
+    ``vocab`` tokens, batchified as the example does (``batch`` streams,
+    ``bptt`` steps a window): each token has 4 successors drawn from
+    Zipf's law over the vocabulary (p ~ 1/rank), so the unigram and bigram
+    statistics can be learned."""
+    import numpy as np
+
+    cdf = np.cumsum(1.0 / np.arange(1, vocab + 1))
+    ranks = np.searchsorted(cdf / cdf[-1], rng.rand(vocab, 4))
+    succ = rng.permutation(vocab)[np.minimum(ranks, vocab - 1)]
+    n = bptt * steps + 1
+    toks = np.empty((n, batch), np.int64)
+    toks[0] = rng.randint(0, vocab, batch)
+    for i in range(1, n):
+        toks[i] = succ[toks[i - 1], rng.randint(0, 4, batch)]
+    return [(toks[s * bptt:(s + 1) * bptt].astype(np.float32),
+             toks[s * bptt + 1:(s + 1) * bptt + 1].reshape(-1)
+             .astype(np.float32)) for s in range(steps)]
+
+
+def f16_lm_train(mx, card):
+    """(c) the word-language model at the README's medium widths under
+    float16 AMP, an LSTM and a GRU, ``F16_LM_STEPS`` SGD steps each with
+    float32 masters on fresh Markov-chain windows.  The example clips the
+    global gradient norm (``--clip 0.25``); neither package's AMP unscales
+    the gradients before ``step`` (mxnet_tpu/amp.py:59-150: the unscale is
+    the optimizer's ``rescale_grad``), so a clip there would clip the
+    scaled gradients: these steps do not clip, and take lr
+    ``F16_LM_LR``.  Returns (launches by path, routes, checks)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import rnn as kr
+
+    gpu = mx.gpu(0)
+    launches, routes, checks = {}, {}, {}
+    for cell in ("lstm", "gru"):
+        mx.random.seed(44)
+        net = LanguageModel.build(mx, cell, F16_LM_VOCAB, F16_LM_UNITS,
+                                  F16_LM_LAYERS)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        batches = markov_batches(np.random.RandomState(44), F16_LM_VOCAB,
+                                 F16_LM_BPTT, F16_LM_BATCH, F16_LM_STEPS)
+        with mx.autograd.pause():
+            net(mx.nd.array(batches[0][0], ctx=gpu))
+        mx.amp.convert_model(net)
+        trainer = amp_sgd(mx, net, F16_LM_LR)
+        loss_fn = lm_loss(mx, F16_LM_BPTT * F16_LM_BATCH)
+        kernels.reset_counts()
+        losses, step_ms = [], []
+        for xb, yb in batches:
+            xg, yg = mx.nd.array(xb, ctx=gpu), mx.nd.array(yb, ctx=gpu)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(amp_step(mx, net, trainer, loss_fn, xg, yg, 1)
+                          * F16_LM_BPTT * F16_LM_BATCH)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        c = {k: kernels.KERNEL_COUNTS[f"{cell}_{k}"].snapshot()
+             for k in ("fwd", "bwd")}
+        n = F16_LM_STEPS
+        per = F16_LM_LAYERS * n
+        routes[cell] = {d: {r: c[d][f"{r}_launches"] for r in kr.ROUTES
+                            if c[d].get(f"{r}_launches")} for d in c}
+        median = statistics.median(step_ms[2:])
+        tokens = F16_LM_BPTT * F16_LM_BATCH
+        log(f"f16 44c: {cell.upper()} LM (Embedding {F16_LM_VOCAB} x "
+            f"{F16_LM_UNITS}, {F16_LM_LAYERS} x {F16_LM_UNITS}, Dense over "
+            f"the vocabulary, untied), bptt {F16_LM_BPTT}, batch "
+            f"{F16_LM_BATCH}, float16 AMP, SGD lr {F16_LM_LR} multi_precision,"
+            f" no clip, {n} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"losses {[round(v, 4) for v in losses]}; step median "
+            f"{median:.3f} ms, {tokens / (median / 1e3):.0f} tokens/s; "
+            f"launches {c}; loss scale {trainer._amp_loss_scaler.loss_scale}"
+            f" on {card}")
+        checks.update({
+            f"f16_{cell}_lm_launches": all(
+                c[d]["launches"] == c[d]["float16_launches"] == per
+                and c[d]["plain_calls_on_cuda"] == 0 for d in c),
+            f"f16_{cell}_lm_finite": bool(np.isfinite(losses).all()),
+            f"f16_{cell}_lm_loss_falls": losses[-1] < losses[0],
+        })
+        launches[f"amp_fp16_{cell}_lm_train"] = {
+            f"{cell}_{d}": c[d]["launches"] for d in c}
+        del net, trainer
+        torch.cuda.empty_cache()
+    return launches, routes, checks
+
+
+def f16_card_vs_cpu(mx):
+    """(e) 2 float16 AMP steps on the card and on the CPU from the same
+    converted weights: a narrow fused NHWC ResNet (one bottleneck a stage,
+    widths 64-256, b=8 at 64^2: every 1x1 convolution on the kernels'
+    gates) with SGD lr 1e-3, and the LSTM and GRU language models at 2 x
+    64 units, vocabulary 200, bptt 8, batch 4, SGD lr ``F16_LM_LR``: the
+    losses and the float32 masters.  Returns the checks."""
+    import numpy as np
+    import torch
+
+    checks = {}
+    rng = np.random.RandomState(46)
+    x = rng.rand(8, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 8).astype(np.float32)
+    lm = markov_batches(np.random.RandomState(47), 200, 8, 4, 2)
+    nz = mx.gluon.model_zoo.vision.resnet
+
+    def resnet():
+        os.environ["MXTPU_CONV_EPILOGUE"] = "pallas"
+        return nz.ResNetV1(nz.BottleneckV1, [1, 1, 1, 1],
+                           [64, 256, 256, 256, 256], classes=10,
+                           layout="NHWC")
+
+    cases = (("resnet", resnet, (1e-3, 0.9, 1e-4), [(x, y)] * 2, 8),
+             ("lstm", lambda: LanguageModel.build(mx, "lstm", 200, 64, 2),
+              (F16_LM_LR,), lm, 1),
+             ("gru", lambda: LanguageModel.build(mx, "gru", 200, 64, 2),
+              (F16_LM_LR,), lm, 1))
+    old = os.environ.get("MXTPU_RNN_IMPL")
+    # the CPU's recurrences through the kernels' plain versions, the
+    # functions the card's kernels compute
+    os.environ["MXTPU_RNN_IMPL"] = "pallas"
+    for name, build, opt, batches, bsz in cases:
+        mx.random.seed(46)
+        net_c = build()
+        net_c.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        with mx.autograd.pause():
+            net_c(mx.nd.array(batches[0][0], ctx=mx.cpu()))
+        mx.amp.convert_model(net_c)
+        arrays = {k: p.data().detach().cpu().numpy().copy()
+                  for k, p in net_c._collect_params_with_prefix().items()}
+        net_g = build()
+        net_g.initialize(ctx=mx.gpu(0))
+        mx.amp.convert_model(net_g)
+        mx.load_numpy_params(net_g, arrays)
+        runs, secs = {}, {}
+        for key, net, ctx in (("cpu", net_c, mx.cpu()),
+                              ("card", net_g, mx.gpu(0))):
+            trainer = amp_sgd(mx, net, *opt)
+            trainer._amp_loss_scaler = mx.amp.LossScaler(
+                init_scale=F16_CPU_SCALE)
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss() \
+                if name == "resnet" else lm_loss(mx, 8 * 4)
+            t0 = time.perf_counter()
+            losses = []
+            for xb, yb in batches:
+                xa = mx.nd.array(xb.astype(np.float16) if name == "resnet"
+                                 else xb, ctx=ctx,
+                                 dtype="float16" if name == "resnet"
+                                 else "float32")
+                losses.append(amp_step(mx, net, trainer, loss_fn, xa,
+                                       mx.nd.array(yb, ctx=ctx), bsz)
+                              * (1 if name == "resnet" else 8 * 4))
+            secs[key] = round(time.perf_counter() - t0, 1)
+            runs[key] = (losses, amp_masters(trainer),
+                         trainer._amp_loss_scaler.loss_scale)
+        (lc, mc, sc), (lg, mg, sg) = runs["cpu"], runs["card"]
+        lgap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        gap = np.abs(mg - mc)
+        q999 = float(np.quantile(gap, 0.999))
+        ltol, mtol, qtol = F16_CPU_TOL[name]
+        log(f"f16 44e: {name} card vs CPU, float16 AMP, 2 SGD steps from the"
+            f" same converted weights: losses card {lg} cpu {lc}, max rel "
+            f"gap {lgap:.3g} (limit {ltol}); masters ({gap.size}) max "
+            f"gap {gap.max():.3g} (limit {mtol}), 99.9th percentile "
+            f"{q999:.3g} (limit {qtol}); scales card {sg} cpu {sc}; seconds "
+            f"{secs}")
+        checks[f"f16_cpu_{name}"] = (lgap <= ltol and gap.max() <= mtol
+                                     and q999 <= qtol and sg == sc)
+        del net_c, net_g
+    if old is None:
+        os.environ.pop("MXTPU_RNN_IMPL", None)
+    else:
+        os.environ["MXTPU_RNN_IMPL"] = old
+    torch.cuda.empty_cache()
+    return checks
+
+
+def float16_rows(mx, card):
+    """Phase 44: float16 for rows 7-14, (a)-(e).  Returns (the AMP paths'
+    launches by path and kernel, the float16 kernel records of (d), the
+    RNN routes the language models took)."""
+    import torch
+
+    t = {}
+    dev = mx.gpu(0).torch_device()
+    t0 = time.perf_counter()
+    rec = f16_resnet_kernels(dev)
+    rnn_rec, rnn_checked = f16_rnn_kernels(dev)
+    rec.update(rnn_rec)
+    t["d"] = round(time.perf_counter() - t0, 1)
+    mx.amp.init("float16")
+    try:
+        t0 = time.perf_counter()
+        launches, checks, _ = f16_resnet_train(mx, card)
+        t["ab"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        lm_launches, lm_routes, more = f16_lm_train(mx, card)
+        launches.update(lm_launches)
+        checks.update(more)
+        t["c"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        checks.update(f16_card_vs_cpu(mx))
+        t["e"] = round(time.perf_counter() - t0, 1)
+    finally:
+        mx.amp.init("bfloat16")
+        os.environ["MXTPU_CONV_EPILOGUE"] = ""
+    torch.cuda.empty_cache()
+    log(f"f16 44: routes checked in float16 {rnn_checked}; the language "
+        f"models' launches by route {lm_routes}; seconds by part {t}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"float16 rows 7-14 checks failed: {failed}")
+    return launches, rec, lm_routes
+
+
 def main():
     import torch
 
@@ -10980,8 +11732,9 @@ def main():
                           "gru_fwd_cluster_kernel"))
     log(f"spill bytes (stores, loads) of the register, tensor-core and "
         f"cluster routes' kernels: {sorted(set(spills.values()))} over "
-        f"{len(spills)} instantiations (24 + 16 + 2 + 12 + 6)")
-    if len(spills) != 60 or any(v != (0, 0) for v in spills.values()):
+        f"{len(spills)} instantiations (36 + 24 + 3 + 12 + 9: fp32, bf16 "
+        f"and fp16 of each templated kernel)")
+    if len(spills) != 84 or any(v != (0, 0) for v in spills.values()):
         raise SystemExit(f"a redesigned route's kernel spills: {spills}")
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import conv_fused as kcf
@@ -11087,7 +11840,7 @@ def main():
                                          dir=ROOT) as d:
             sym_res = module_resnet(mx, card, d)
             lap("34 Module ResNet-50")
-            lm_launches, _, lm_routes = bucketing_lm(mx, card, d)
+            lm_launches, _, lm_routes_b = bucketing_lm(mx, card, d)
             lap("35 BucketingModule LSTM LM")
         int8_resnet(mx, card, sym_res)
     finally:
@@ -11108,14 +11861,26 @@ def main():
     dist_launches.update(amp_launches)
     torch.cuda.empty_cache()
     lap("43 mixed precision")
+    f16_launches, f16, f16_routes = float16_rows(mx, card)
+    torch.cuda.empty_cache()
+    lap("44 float16 rows 7-14")
 
     dist_launches["resilience_bert_train"] = \
         res_launches["resilience_bert_train"]
     resnet_paths = {k: {"resnet_train": rtrain[k],
                         "mesh_resnet_train": mesh_resnet[k],
-                        **{path: n[k] for path, n in data_launches.items()}}
+                        **{path: n[k] for path, n in data_launches.items()},
+                        "amp_fp16_resnet_train":
+                        f16_launches["amp_fp16_resnet_train"][k]}
                     for k in ("bn_stats", "matmul_bn_stats",
                               "bn_act_matmul_stats")}
+    predict_paths = {"predict": rpredict, "amp_fp16_resnet_predict":
+                     f16_launches["amp_fp16_resnet_predict"]["bn_act_matmul"]}
+    # the float16 language models' launches and routes, by kernel
+    lm = {k: f16_launches[f"amp_fp16_{k.split('_')[0]}_lm_train"][k]
+          for k in ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")}
+    lm_routes = {k: f16_routes[k.split("_")[0]][k.split("_")[1]]
+                 for k in lm}
 
     src = "mxnet_tpu/ops/pallas/flash_attention.py"
     cf_src = "mxnet_tpu/ops/pallas/conv_fused.py"
@@ -11167,65 +11932,81 @@ def main():
              replaces="mxnet_tpu/ops/pallas/batch_norm.py:33",
              launches=sum(resnet_paths["bn_stats"].values()),
              launches_by_path=resnet_paths["bn_stats"],
-             **rkern["bn_stats"]),
+             float16=f16["bn_stats"], **rkern["bn_stats"]),
         dict(name="matmul_bn_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:123",
              launches=sum(resnet_paths["matmul_bn_stats"].values()),
              launches_by_path=resnet_paths["matmul_bn_stats"],
-             **rkern["matmul_bn_stats"]),
+             float16=f16["matmul_bn_stats"], **rkern["matmul_bn_stats"]),
         dict(name="bn_act_matmul", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
-             replaces=f"{cf_src}:227", launches=rpredict,
+             replaces=f"{cf_src}:227",
+             launches=sum(predict_paths.values()),
+             launches_by_path=predict_paths, float16=f16["bn_act_matmul"],
              **rkern["bn_act_matmul"]),
         dict(name="bn_act_matmul_stats", route="cuda",
              source="mxnet_tpu_torch/csrc/conv_fused.cu",
              replaces=f"{cf_src}:323",
              launches=sum(resnet_paths["bn_act_matmul_stats"].values()),
              launches_by_path=resnet_paths["bn_act_matmul_stats"],
+             float16=f16["bn_act_matmul_stats"],
              **rkern["bn_act_matmul_stats"]),
         dict(name="lstm_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:41",
              launches=(dtrain["lstm_fwd"] + sum(dpredict.values())
                        + cells["lstm_fwd"] + lm_launches["lstm_fwd"]
-                       + crnn["train"] + crnn["eval"]),
+                       + crnn["train"] + crnn["eval"] + lm["lstm_fwd"]),
              launches_by_path={"deepar_train": dtrain["lstm_fwd"],
                                **dpredict, "cells": cells["lstm_fwd"],
                                "lm_bucketing_train": lm_launches["lstm_fwd"],
                                "crnn_train": crnn["train"],
-                               "crnn_eval": crnn["eval"]},
+                               "crnn_eval": crnn["eval"],
+                               "amp_fp16_lstm_lm_train": lm["lstm_fwd"]},
              launches_by_route=dict(
                  droutes, cells=cell_routes["lstm_fwd"],
-                 lm_bucketing_train=lm_routes["lstm_fwd"],
-                 crnn={"reg": crnn["train"] + crnn["eval"]}),
+                 lm_bucketing_train=lm_routes_b["lstm_fwd"],
+                 crnn={"reg": crnn["train"] + crnn["eval"]},
+                 amp_fp16_lstm_lm_train=lm_routes["lstm_fwd"]),
              crnn_t20_n32_h64=crnn_times["lstm_fwd"],
-             **rnn["lstm_fwd"]),
+             float16=f16["lstm_fwd"], **rnn["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:132",
              launches=(dtrain["lstm_bwd"] + lm_launches["lstm_bwd"]
-                       + crnn["train"]),
+                       + crnn["train"] + lm["lstm_bwd"]),
              launches_by_path={"deepar_train": dtrain["lstm_bwd"],
                                "lm_bucketing_train": lm_launches["lstm_bwd"],
-                               "crnn_train": crnn["train"]},
+                               "crnn_train": crnn["train"],
+                               "amp_fp16_lstm_lm_train": lm["lstm_bwd"]},
              launches_by_route={
                  "deepar_train": dbroutes,
-                 "lm_bucketing_train": lm_routes["lstm_bwd"],
-                 "crnn_train": {"reg": crnn["train"]}},
+                 "lm_bucketing_train": lm_routes_b["lstm_bwd"],
+                 "crnn_train": {"reg": crnn["train"]},
+                 "amp_fp16_lstm_lm_train": lm_routes["lstm_bwd"]},
              crnn_t20_n32_h64=crnn_times["lstm_bwd"],
-             **rnn["lstm_bwd"]),
+             float16=f16["lstm_bwd"], **rnn["lstm_bwd"]),
         dict(name="gru_fwd", route="cuda", source=rnn_cu,
              replaces=f"{rnn_src}:300",
-             launches=gtrain["gru_fwd"] + cells["gru_fwd"],
+             launches=gtrain["gru_fwd"] + cells["gru_fwd"] + lm["gru_fwd"],
              launches_by_path={"gru_train": gtrain["gru_fwd"],
-                               "cells": cells["gru_fwd"]},
+                               "cells": cells["gru_fwd"],
+                               "amp_fp16_gru_lm_train": lm["gru_fwd"]},
              launches_by_route={
                  r: groutes["gru_fwd"].get(r, 0)
                  + cell_routes["gru_fwd"].get(r, 0)
-                 for r in {**groutes["gru_fwd"], **cell_routes["gru_fwd"]}},
-             **rnn["gru_fwd"]),
+                 + lm_routes["gru_fwd"].get(r, 0)
+                 for r in {**groutes["gru_fwd"], **cell_routes["gru_fwd"],
+                           **lm_routes["gru_fwd"]}},
+             float16=f16["gru_fwd"], **rnn["gru_fwd"]),
         dict(name="gru_bwd", route="cuda", source=rnn_cu,
-             replaces=f"{rnn_src}:366", launches=gtrain["gru_bwd"],
-             launches_by_route=groutes["gru_bwd"], **rnn["gru_bwd"]),
+             replaces=f"{rnn_src}:366",
+             launches=gtrain["gru_bwd"] + lm["gru_bwd"],
+             launches_by_path={"gru_train": gtrain["gru_bwd"],
+                               "amp_fp16_gru_lm_train": lm["gru_bwd"]},
+             launches_by_route={
+                 "gru_train": groutes["gru_bwd"],
+                 "amp_fp16_gru_lm_train": lm_routes["gru_bwd"]},
+             float16=f16["gru_bwd"], **rnn["gru_bwd"]),
     ]}
     log(f"kvstore: fused pushpull of BERT-base's gradients {kv_record}")
     log(f"chip_smoke: wall time by phase (s) {laps}")

@@ -1,4 +1,4 @@
-// BatchNorm statistics for Hopper (sm_90a), fp32 and bf16.
+// BatchNorm statistics for Hopper (sm_90a), fp32, bf16 and fp16.
 //
 // Replaces _stats_kernel of mxnet_tpu/ops/pallas/batch_norm.py (launched by
 // _stats_pallas): per-channel sum and sum of squares, in fp32, of an (M, C)
@@ -14,9 +14,10 @@
 //
 //   - 16-byte loads along C.  A block owns a strip of 64 channels of a
 //     contiguous run of rows; its 512 threads are (row groups) x (64/VEC
-//     threads along the strip), VEC = 8 bf16 or 4 fp32 channels a thread,
-//     so a warp reads whole 128-byte lines (4 rows x 128 B in bf16, 2 x
-//     256 B in fp32).  A thread keeps 8 to 16 independent rows in flight
+//     threads along the strip), VEC = 8 bf16 or fp16, or 4 fp32 channels a
+//     thread, so a warp reads whole 128-byte lines (4 rows x 128 B in bf16
+//     and fp16, 2 x 256 B in fp32).  fp16 is widened by __half22float2, so
+//     its sums are exact fp32 sums of the stored values, as bf16's.  A thread keeps 8 to 16 independent rows in flight
 //     (two sets of 8: the next set loads while the last one is added, 64-128
 //     KB a block) and its VEC sums and sums of squares in registers.
 //   - Where C is not a multiple of VEC or x is not 16-byte aligned, the
@@ -47,7 +48,10 @@
 // on the device it names; the function returns cudaGetLastError() after it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,13 +99,34 @@ struct Row<__nv_bfloat16, 8> {
   }
 };
 
+template <>
+struct Row<__half, 8> {
+  using Raw = uint4;
+  __device__ __forceinline__ static Raw load(const __half* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // channel 2k is the low half of word k, as for bf16
+  __device__ __forceinline__ static void widen(const Raw& r, float* f) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 v =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[k]));
+      f[2 * k] = v.x;
+      f[2 * k + 1] = v.y;
+    }
+  }
+};
+
 template <typename T>
 struct Row<T, 1> {
   using Raw = T;
   __device__ __forceinline__ static Raw load(const T* p) { return __ldg(p); }
   __device__ __forceinline__ static void widen(const Raw& r, float* f) {
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       f[0] = __bfloat162float(r);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      f[0] = __half2float(r);
     } else {
       f[0] = r;
     }
@@ -299,14 +324,15 @@ struct DeviceScope {
 };
 
 bool valid(long long M, int C, int dtype) {
-  return M >= 0 && C >= 1 && (dtype == 0 || dtype == 1) &&
+  return M >= 0 && C >= 1 && (dtype >= 0 && dtype <= 2) &&
          (C + kStrip - 1) / kStrip <= 65535;
 }
 
 }  // namespace
 
 // Resident blocks an SM of the kernel for (dtype, vec) on `device`, from
-// the occupancy calculator.  dtype: 0 = float32, 1 = bfloat16; vec: 1 for
+// the occupancy calculator.  dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16; vec: 1 for
 // 16-byte loads, 0 for the scalar route.  Returns a cudaError_t.
 extern "C" int mxtt_bn_stats_occupancy(int dtype, int vec, int device,
                                        int* blocks) {
@@ -318,11 +344,14 @@ extern "C" int mxtt_bn_stats_occupancy(int dtype, int vec, int device,
   if (dtype == 1)
     return (int)(vec ? occupancy<__nv_bfloat16, 8>(blocks)
                      : occupancy<__nv_bfloat16, 1>(blocks));
+  if (dtype == 2)
+    return (int)(vec ? occupancy<__half, 8>(blocks)
+                     : occupancy<__half, 1>(blocks));
   return (int)cudaErrorInvalidValue;
 }
 
-// x: a contiguous (M, C) tensor, 16-byte aligned with C a multiple of 8
-// (bf16) or 4 (fp32) where vec = 1.  out: 16-byte aligned, S*2*P*64 + 2*C
+// x: a contiguous (M, C) tensor of dtype (as above), 16-byte aligned with
+// C a multiple of 8 (bf16, fp16) or 4 (fp32) where vec = 1.  out: 16-byte aligned, S*2*P*64 + 2*C
 // fp32, S = ceil(C / 64) (the partials, then sum and sumsq).  tickets: S
 // zeroed counters, left zeroed.
 // 1 <= P < 2^31.  Returns a cudaError_t.
@@ -337,8 +366,11 @@ extern "C" int mxtt_bn_stats(const void* x, float* out, unsigned* tickets,
   if (dtype == 0)
     return (int)(vec ? launch<float, 4>(x, out, tickets, M, C, P, st)
                      : launch<float, 1>(x, out, tickets, M, C, P, st));
-  return (int)(vec ? launch<__nv_bfloat16, 8>(x, out, tickets, M, C, P, st)
-                   : launch<__nv_bfloat16, 1>(x, out, tickets, M, C, P, st));
+  if (dtype == 1)
+    return (int)(vec ? launch<__nv_bfloat16, 8>(x, out, tickets, M, C, P, st)
+                     : launch<__nv_bfloat16, 1>(x, out, tickets, M, C, P, st));
+  return (int)(vec ? launch<__half, 8>(x, out, tickets, M, C, P, st)
+                   : launch<__half, 1>(x, out, tickets, M, C, P, st));
 }
 
 extern "C" const char* mxtt_cuda_error_string(int err) {

@@ -1,4 +1,4 @@
-// Fused 1x1-convolution kernels for Hopper (sm_90a), fp32 and bf16.
+// Fused 1x1-convolution kernels for Hopper (sm_90a), fp32, bf16 and fp16.
 //
 // Replaces the three Pallas kernels of mxnet_tpu/ops/pallas/conv_fused.py:
 //   _mm_stats_kernel          y = x @ w, plus per-column sum and sum of
@@ -21,7 +21,9 @@
 //     before the product (conv_fused.py:235-239);
 //   - products accumulate in fp32 and y is stored in x's dtype;
 //   - the statistics are of the stored, rounded y (conv_fused.py:135-141),
-//     summed in fp32.
+//     summed in fp32.  In fp16 a y beyond 65504 is stored as inf (a
+//     round-to-nearest conversion, as the reference's astype) and its
+//     statistics are inf: nothing saturates.
 //
 // Bound on an H100 SXM: at ResNet-50's first stage in bf16 (M = 401,408,
 // K = 64, N = 256) kind 2 moves 51 MB in and 205 MB out against 13.2 GFLOP,
@@ -36,8 +38,10 @@
 // Three routes; the caller picks one (ops/kernels/conv_fused.py) and the
 // entry refuses a route its operands do not allow.
 //
-// The TMA route, bf16 with K and N multiples of 8 and x, wt, y 16-byte
-// aligned (what a TMA tensor map can address), is built for the bound:
+// The TMA route, bf16 or fp16 with K and N multiples of 8 and x, wt, y
+// 16-byte aligned (what a TMA tensor map can address), is built for the
+// bound (fp16 runs the same code as bf16: the f16 form of wgmma, fp16
+// tensor maps, and the conversions of __half where bf16 shifts bits):
 //   - persistent blocks: the grid is (panels of BN columns) x P blocks,
 //     P from the SM count; block b owns panel b % panels and walks the
 //     128-row tiles b / panels, + P, + 2P, ...  BN is 128, or 64 for
@@ -52,18 +56,18 @@
 //     each x chunk.  Ragged edges come from TMA's zero fill and clipped
 //     stores;
 //   - two consumer warpgroups of 128 threads each own 64 rows of a tile
-//     and multiply on the tensor cores with wgmma (bf16 in, fp32
+//     and multiply on the tensor cores with wgmma (bf16 or fp16 in, fp32
 //     accumulators in registers).  Kind 0 reads A from shared memory by
 //     descriptor.  Kinds 1 and 2 load A into registers with ldmatrix,
 //     apply the prologue there (scale and shift staged in shared memory
-//     once per block), round to bf16 and issue wgmma with A from
+//     once per block), round to x's dtype and issue wgmma with A from
 //     registers, two chunks per wait where K allows.  Each warpgroup
 //     waits for its products before its next instruction: nvcc does not
 //     keep the A registers of a wgmma in flight from being reused
 //     (results went wrong when the next chunk's A was loaded under the
 //     products), and keeping kind 0's products in flight made the
 //     compiler insert the same wait;
-//   - the epilogue rounds the accumulators to bf16 into a swizzled staging
+//   - the epilogue rounds the accumulators to x's dtype into a swizzled staging
 //     tile (no fp32 round trip through shared memory) that TMA stores,
 //     asynchronously, while the next tile's loads and products run.  Under
 //     STATS each thread then sums one column pair over its rows of the
@@ -90,7 +94,8 @@
 // STATS>.  A block of 256 threads owns a 64 x 64 output tile and walks K
 // in steps of 32: each step loads a 64 x 32 tile of x (through the
 // prologue) and of wt into shared memory, 8 elements a thread with
-// neighbouring threads on neighbouring k.  bf16 multiplies on the tensor cores with WMMA 16x16x16
+// neighbouring threads on neighbouring k.  bf16 and fp16 multiply on the
+// tensor cores with WMMA 16x16x16
 // fragments (mma.sync underneath), each of the 8 warps owning two output
 // fragments; fp32 multiplies on the CUDA cores, each thread a 4 x 4
 // register tile.  The fp32 tile then goes through shared memory to the
@@ -108,6 +113,7 @@
 // (cudaGetDriverEntryPoint), so the library needs no -lcuda.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
@@ -134,6 +140,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -142,6 +149,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 template <typename T, bool PROLOGUE, bool RELU, bool STATS>
@@ -152,7 +162,8 @@ __global__ void __launch_bounds__(NT)
                     int K, int N) {
   // row stride of the shared x and wt tiles: fp32 pads by one so the
   // strided column reads of the register tiles hit distinct banks; bf16
-  // pads by 8 elements (16 bytes), the multiple WMMA's loads require
+  // and fp16 pad by 8 elements (16 bytes), the multiple WMMA's loads
+  // require
   constexpr int LD = std::is_same<T, float>::value ? BK + 1 : BK + 8;
   __shared__ __align__(32) T As[BM * LD];
   __shared__ __align__(32) T Bs[BN * LD];
@@ -167,7 +178,7 @@ __global__ void __launch_bounds__(NT)
   // fp32: a 4 x 4 register tile at rows ty + 16 i, columns tx + 16 j
   const int tx = tid % 16, ty = tid / 16;
   float acc[4][4];
-  // bf16: warp w owns fragment row w / 2 and fragment columns
+  // bf16, fp16: warp w owns fragment row w / 2 and fragment columns
   // 2 (w % 2) and 2 (w % 2) + 1 of the 4 x 4 fragments of the tile
   const int warp = tid / 32;
   const int fr = warp / 2, fc = (warp % 2) * 2;
@@ -223,15 +234,13 @@ __global__ void __launch_bounds__(NT)
     } else {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
             afrag;
         wmma::load_matrix_sync(afrag, As + (fr * 16) * LD + kk, LD);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           // wt's tile is stored n-major with k contiguous: w column-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major>
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>
               bfrag;
           wmma::load_matrix_sync(bfrag, Bs + ((fc + j) * 16) * LD + kk, LD);
           wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
@@ -340,7 +349,7 @@ namespace tma {
 using namespace mxtt::sm90;
 
 constexpr int TM = 128;  // rows per tile: two consumer warpgroups of 64
-constexpr int TK = 64;   // k per chunk: one 128-byte swizzled row of bf16
+constexpr int TK = 64;   // k per chunk: one 128-byte swizzled row of 16-bit
 constexpr int CONSUMERS = 256;           // two warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
 constexpr int PRODUCER_REGS = 40;         // registers a thread, by role:
@@ -388,47 +397,70 @@ bool make_plan(long long M, int K, int N, int sms, Plan* p) {
   return (long long)p->panels * p->per_panel <= INT_MAX;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// (lo, hi) rounded to T (bf16 or fp16) and packed in one register, lo in
+// the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// the prologue on two bf16 values (k, k + 1) packed in one register
-template <bool RELU>
+// the two T values packed in v, widened to fp32 (a bf16 is the high 16
+// bits of the fp32 of the same value; an fp16 is converted)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  } else {
+    return make_float2(__uint_as_float(v << 16),
+                       __uint_as_float(v & 0xffff0000u));
+  }
+}
+
+// the prologue on two T values (k, k + 1) packed in one register
+template <typename T, bool RELU>
 __device__ __forceinline__ uint32_t bn_act2(uint32_t v, float sc0, float sc1,
                                             float sh0, float sh1) {
-  float lo = __fadd_rn(__fmul_rn(__uint_as_float(v << 16), sc0), sh0);
-  float hi = __fadd_rn(__fmul_rn(__uint_as_float(v & 0xffff0000u), sc1), sh1);
+  const float2 f = unpack2<T>(v);
+  float lo = __fadd_rn(__fmul_rn(f.x, sc0), sh0);
+  float hi = __fadd_rn(__fmul_rn(f.y, sc1), sh1);
   if (RELU) {
     lo = fmaxf(lo, 0.f);
     hi = fmaxf(hi, 0.f);
   }
-  return pack_bf16(lo, hi);
+  return pack2<T>(lo, hi);
 }
 
-template <int BN>
+template <typename T, int BN>
 __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
                                        int scale_d) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
   if constexpr (BN == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
+    wgmma_ss_n64<F16>(d, da, db, scale_d);
   else
-    wgmma_ss_n128(d, da, db, scale_d);
+    wgmma_ss_n128<F16>(d, da, db, scale_d);
 }
 
-template <int BN>
+template <typename T, int BN>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
                                        uint64_t db, int scale_d) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
   if constexpr (BN == 64)
-    wgmma_rs_n64(d, a, db, scale_d);
+    wgmma_rs_n64<F16>(d, a, db, scale_d);
   else
-    wgmma_rs_n128(d, a, db, scale_d);
+    wgmma_rs_n128<F16>(d, a, db, scale_d);
 }
 
 // A (64 x 64 of k) of chunk `c` from the x slot `xs` into registers, in
 // wgmma's fragment layout (a[s] the 16 x 16 tile of k 16 s ..), through the
-// prologue and rounded to bf16.  coef[k / 2] holds (scale[k], scale[k + 1],
+// prologue and rounded to T.  coef[k / 2] holds (scale[k], scale[k + 1],
 // shift[k], shift[k + 1]) for even k, zeros past K.
-template <bool RELU>
+template <typename T, bool RELU>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4][4],
                                        const unsigned char* xs, int c,
                                        const float4* coef, int wl, int lane) {
@@ -441,14 +473,14 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4],
   for (int s = 0; s < 4; ++s) {
     const int k2 = (c * TK + 16 * s) / 2 + lane % 4;
     const float4 lo = coef[k2], hi = coef[k2 + 4];  // k and k + 8
-    a[s][0] = bn_act2<RELU>(a[s][0], lo.x, lo.y, lo.z, lo.w);
-    a[s][1] = bn_act2<RELU>(a[s][1], lo.x, lo.y, lo.z, lo.w);
-    a[s][2] = bn_act2<RELU>(a[s][2], hi.x, hi.y, hi.z, hi.w);
-    a[s][3] = bn_act2<RELU>(a[s][3], hi.x, hi.y, hi.z, hi.w);
+    a[s][0] = bn_act2<T, RELU>(a[s][0], lo.x, lo.y, lo.z, lo.w);
+    a[s][1] = bn_act2<T, RELU>(a[s][1], lo.x, lo.y, lo.z, lo.w);
+    a[s][2] = bn_act2<T, RELU>(a[s][2], hi.x, hi.y, hi.z, hi.w);
+    a[s][3] = bn_act2<T, RELU>(a[s][3], hi.x, hi.y, hi.z, hi.w);
   }
 }
 
-template <int BN, bool PROLOGUE, bool RELU, bool STATS>
+template <typename T, int BN, bool PROLOGUE, bool RELU, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
     tma_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w,
@@ -458,7 +490,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                   int M, int K, int N, int per_panel, int panels, int stages,
                   int resident) {
   constexpr int W_CHUNK = BN * TK * 2;     // one chunk of the weight panel
-  constexpr int STAGING = 64 * BN * 2;     // a warpgroup's bf16 y tile
+  constexpr int STAGING = 64 * BN * 2;     // a warpgroup's 16-bit y tile
   constexpr int PAIRS = BN / 2;            // column pairs of a panel
   constexpr int GROUPS = 128 / PAIRS;      // row groups of the sums
 
@@ -574,10 +606,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     if constexpr (PROLOGUE) {
       uint32_t a[2][4][4];
       mbar_wait(&full[stage], phase);
-      load_a<RELU>(a[0], slot[0] + wg * (64 * TK * 2), c, coef, wl, lane);
+      load_a<T, RELU>(a[0], slot[0] + wg * (64 * TK * 2), c, coef, wl, lane);
       if (per_wait == 2) {
         mbar_wait(&full[stage1], phase1);
-        load_a<RELU>(a[1], slot[1] + wg * (64 * TK * 2), c + 1, coef, wl,
+        load_a<T, RELU>(a[1], slot[1] + wg * (64 * TK * 2), c + 1, coef, wl,
                      lane);
       }
       wgmma_fence();
@@ -586,7 +618,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (g < per_wait) {
 #pragma unroll
           for (int s = 0; s < 4; ++s)
-            mma_rs<BN>(acc, a[g][s], db[g] + 2 * s, c + g > 0 || s > 0);
+            mma_rs<T, BN>(acc, a[g][s], db[g] + 2 * s, c + g > 0 || s > 0);
         }
     } else {  // one chunk an iteration
       mbar_wait(&full[stage], phase);
@@ -594,7 +626,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint64_t da = sw128_desc(slot[0] + wg * (64 * TK * 2));
 #pragma unroll
       for (int s = 0; s < 4; ++s)
-        mma_ss<BN>(acc, da + 2 * s, db[0] + 2 * s, c > 0 || s > 0);
+        mma_ss<T, BN>(acc, da + 2 * s, db[0] + 2 * s, c > 0 || s > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -614,7 +646,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (c < chunks) continue;
     c = 0;
 
-    // the tile's y: rounded to bf16 into the swizzled staging tile, which
+    // the tile's y: rounded to T into the swizzled staging tile, which
     // TMA stores in boxes of 64 rows x 64 columns
     const int m0 = t * TM;
     t += per_panel;
@@ -626,9 +658,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         unsigned char* p = row + (j / 8) * 8192 + (((j % 8) ^ (lane / 4)) << 4);
-        *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(p) = pack2<T>(acc[4 * j], acc[4 * j + 1]);
         *reinterpret_cast<uint32_t*>(p + 8 * 128) =
-            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+            pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
     fence_async_shared();
@@ -650,8 +682,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = group; r < rows; r += GROUPS) {
         const uint32_t v = *reinterpret_cast<const uint32_t*>(
             cb + r * 128 + ((chunk ^ (r % 8)) << 4));
-        const float lo = __uint_as_float(v << 16);
-        const float hi = __uint_as_float(v & 0xffff0000u);
+        const float2 f = unpack2<T>(v);
+        const float lo = f.x, hi = f.y;
         ts0 += lo;
         tq0 = fmaf(lo, lo, tq0);
         ts1 += hi;
@@ -715,22 +747,20 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a row-major (rows, cols) bf16 (or, with `fp32`, float32) matrix read or
+// a row-major (rows, cols) matrix of `type` (bf16, fp16 or float32) read or
 // written in boxes of (box_rows, box_cols), box_cols elements = 128 bytes,
 // with the 128-byte swizzle
 bool encode(CUtensorMap* map, const void* ptr, long long rows, int cols,
             int box_rows, int box_cols, CUtensorMapL2promotion l2,
-            bool fp32 = false) {
+            CUtensorMapDataType type) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
+  const int bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * (fp32 ? 4 : 2)};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map,
-            fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            2, const_cast<void*>(ptr), dims, strides, box, step,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, l2,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -765,21 +795,31 @@ bool allowed(const void* x, const void* wt, const void* y, int dtype,
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
-  return dtype == 1 && K % 8 == 0 && N % 8 == 0 && aligned(x) &&
+  return (dtype == 1 || dtype == 2) && K % 8 == 0 && N % 8 == 0 &&
+         aligned(x) &&
          aligned(wt) && aligned(y);
 }
 
-template <int BN, bool PROLOGUE, bool RELU, bool STATS>
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <typename T, int BN, bool PROLOGUE, bool RELU, bool STATS>
 cudaError_t launch(const Plan& pl, const void* x, const float* scale,
                    const float* shift, const void* wt, void* y, float* part,
                    float* sum, float* sumsq, long long M, int K, int N,
                    cudaStream_t stream) {
   CUtensorMap tx, tw, ty;
-  if (!encode(&tx, x, M, K, TM, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
-      !encode(&tw, wt, N, K, BN, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
-      !encode(&ty, y, M, N, 64, 64, CU_TENSOR_MAP_L2_PROMOTION_NONE))
+  constexpr CUtensorMapDataType type = map_type<T>();
+  if (!encode(&tx, x, M, K, TM, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              type) ||
+      !encode(&tw, wt, N, K, BN, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              type) ||
+      !encode(&ty, y, M, N, 64, 64, CU_TENSOR_MAP_L2_PROMOTION_NONE, type))
     return cudaErrorInvalidValue;
-  auto kernel = tma_mm_kernel<BN, PROLOGUE, RELU, STATS>;
+  auto kernel = tma_mm_kernel<T, BN, PROLOGUE, RELU, STATS>;
   // every plan fits SMEM_LIMIT: allow that much once per device
   static std::atomic<unsigned long long> allowed_on{0};
   const int dev = current_device();
@@ -799,7 +839,7 @@ cudaError_t launch(const Plan& pl, const void* x, const float* scale,
   return mxtt::launch_stats_reduce(part, sum, sumsq, pl.per_panel, N, stream);
 }
 
-template <int BN>
+template <typename T, int BN>
 cudaError_t dispatch_bn(const Plan& pl, int kind, int relu, const void* x,
                         const float* scale, const float* shift,
                         const void* wt, void* y, float* part, float* sum,
@@ -807,25 +847,26 @@ cudaError_t dispatch_bn(const Plan& pl, int kind, int relu, const void* x,
                         cudaStream_t s) {
   switch (kind * 2 + (relu ? 1 : 0)) {
     case 0:
-      return launch<BN, false, false, true>(pl, x, scale, shift, wt, y, part,
+      return launch<T, BN, false, false, true>(pl, x, scale, shift, wt, y, part,
                                             sum, sumsq, M, K, N, s);
     case 2:
-      return launch<BN, true, false, false>(pl, x, scale, shift, wt, y, part,
+      return launch<T, BN, true, false, false>(pl, x, scale, shift, wt, y, part,
                                             sum, sumsq, M, K, N, s);
     case 3:
-      return launch<BN, true, true, false>(pl, x, scale, shift, wt, y, part,
+      return launch<T, BN, true, true, false>(pl, x, scale, shift, wt, y, part,
                                            sum, sumsq, M, K, N, s);
     case 4:
-      return launch<BN, true, false, true>(pl, x, scale, shift, wt, y, part,
+      return launch<T, BN, true, false, true>(pl, x, scale, shift, wt, y, part,
                                            sum, sumsq, M, K, N, s);
     case 5:
-      return launch<BN, true, true, true>(pl, x, scale, shift, wt, y, part,
+      return launch<T, BN, true, true, true>(pl, x, scale, shift, wt, y, part,
                                           sum, sumsq, M, K, N, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
 cudaError_t dispatch(int kind, int relu, const void* x, const float* scale,
                      const float* shift, const void* wt, void* y, float* part,
                      float* sum, float* sumsq, long long M, int K, int N,
@@ -833,10 +874,10 @@ cudaError_t dispatch(int kind, int relu, const void* x, const float* scale,
   Plan pl;
   if (!make_plan(M, K, N, sm_count(), &pl)) return cudaErrorInvalidValue;
   if (pl.bn == 64)
-    return dispatch_bn<64>(pl, kind, relu, x, scale, shift, wt, y, part, sum,
-                           sumsq, M, K, N, s);
-  return dispatch_bn<128>(pl, kind, relu, x, scale, shift, wt, y, part, sum,
-                          sumsq, M, K, N, s);
+    return dispatch_bn<T, 64>(pl, kind, relu, x, scale, shift, wt, y, part,
+                              sum, sumsq, M, K, N, s);
+  return dispatch_bn<T, 128>(pl, kind, relu, x, scale, shift, wt, y, part,
+                             sum, sumsq, M, K, N, s);
 }
 
 }  // namespace tma
@@ -1053,9 +1094,9 @@ cudaError_t launch(const void* x, const float* scale, const float* shift,
   if (!has_plan(M, K, N) || M > INT_MAX) return cudaErrorInvalidValue;
   CUtensorMap tx, tw;
   if (!tma::encode(&tx, x, M, K, TM, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   true) ||
-      !tma::encode(&tw, wt, N, K, TN, TK,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, true))
+                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !tma::encode(&tw, wt, N, K, TN, TK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
     return cudaErrorInvalidValue;
   auto kernel = tf32_mm_kernel<RELU>;
   static std::atomic<unsigned long long> allowed_on{0};
@@ -1098,12 +1139,13 @@ extern "C" long long mxtt_conv_fused_partials(int route, long long M, int K,
   return -1;
 }
 
-// route: ROUTE_SIMPLE, ROUTE_TMA (bf16, K and N multiples of 8, x, wt
-// and y 16-byte aligned; refused otherwise) or ROUTE_TF32 (kind 1 in
+// route: ROUTE_SIMPLE, ROUTE_TMA (bf16 or fp16, K and N multiples of 8,
+// x, wt and y 16-byte aligned; refused otherwise) or ROUTE_TF32 (kind 1 in
 // fp32 with K and N multiples of 8 and x, wt, y 16-byte aligned; refused
 // otherwise).  kind: 0 = matmul_bn_stats
 // (relu must be 0), 1 = bn_act_matmul, 2 = bn_act_matmul_stats.  dtype:
-// 0 = float32, 1 = bfloat16.  x (M, K), wt (N, K) and y (M, N) contiguous
+// 0 = float32, 1 = bfloat16, 2 = float16.  x (M, K), wt (N, K) and y
+// (M, N) contiguous
 // in that dtype; scale and shift (K,) fp32 (read by kinds 1 and 2); part a
 // (2, P, N) fp32 scratch tensor, P from mxtt_conv_fused_partials, and sum,
 // sumsq (N,) fp32 outputs (kinds 0 and 2).  Simple route: M/64 rounded
@@ -1125,8 +1167,12 @@ extern "C" int mxtt_conv_fused(int route, int kind, int relu, const void* x,
   if (route == ROUTE_TMA) {
     if (!tma::allowed(x, wt, y, dtype, M, K, N))
       return (int)cudaErrorInvalidValue;
-    return (int)tma::dispatch(kind, relu, x, scale, shift, wt, y, part, sum,
-                              sumsq, M, K, N, st);
+    if (dtype == 2)
+      return (int)tma::dispatch<__half>(kind, relu, x, scale, shift, wt, y,
+                                        part, sum, sumsq, M, K, N, st);
+    return (int)tma::dispatch<__nv_bfloat16>(kind, relu, x, scale, shift, wt,
+                                             y, part, sum, sumsq, M, K, N,
+                                             st);
   }
   if (route != ROUTE_SIMPLE || M < 1 || K < 1 || N < 1 ||
       (N + BN - 1) / BN > 65535 || (M + BM - 1) / BM > 2147483647LL)
@@ -1137,6 +1183,9 @@ extern "C" int mxtt_conv_fused(int route, int kind, int relu, const void* x,
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16>(kind, relu, x, scale, shift, wt, y,
                                         part, sum, sumsq, M, K, N, st);
+  if (dtype == 2)
+    return (int)dispatch<__half>(kind, relu, x, scale, shift, wt, y, part,
+                                 sum, sumsq, M, K, N, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,8 @@
-// LSTM and GRU recurrences for Hopper (sm_90a): forward and backward, fp32
-// and bf16 activations, fp32 math and state.
+// LSTM and GRU recurrences for Hopper (sm_90a): forward and backward, fp32,
+// bf16 and fp16 activations, fp32 math and state.  In bf16 and fp16 x_proj
+// is read and ys, hn and cn are written in that dtype; Wh, the gates, the
+// cell states and every gradient stay fp32 (the wrappers widen a 16-bit
+// Wh, exactly, and round its gradient back).
 //
 // Replaces the four recurrence kernels of mxnet_tpu/ops/pallas/rnn.py:
 // _lstm_fwd_kernel, _lstm_bwd_kernel, _gru_fwd_kernel and _gru_bwd_kernel.
@@ -78,6 +81,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -134,6 +138,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -143,6 +148,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -822,6 +831,12 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // The shared memory of a tensor-core-route block, in bytes: the ring's
@@ -2080,7 +2095,8 @@ extern "C" int mxtt_rnn_plan(int G, int backward, int N, int H, int want,
   return (int)plan_recurrence(G, backward != 0, N, H, want, route, NB, JB);
 }
 
-// dtype: 0 = float32, 1 = bfloat16, of x_proj and of ys/hn/cn.  Every
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16, of x_proj and of
+// ys/hn/cn.  Every
 // tensor is contiguous, in the layouts of the kernels above.  route, NB
 // and JB from mxtt_rnn_plan.  The split route takes hbuf, a (2, N, H) fp32
 // scratch, and bar, one zeroed uint32; the register and tensor-core routes
@@ -2093,7 +2109,7 @@ extern "C" int mxtt_lstm_fwd(const void* xp, const float* wh,
                              int H, int route, int NB, int JB, int dtype,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 1)
+  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (route == ROUTE_MMA) {
     if (NB != kMmaRows || JB != H || H > kMmaMaxH || H % 2 != 0 ||
@@ -2102,23 +2118,32 @@ extern "C" int mxtt_lstm_fwd(const void* xp, const float* wh,
     if (dtype == 0)
       return (int)lstm_fwd_mma<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
                                       Tn, N, H, st);
-    return (int)lstm_fwd_mma<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
-                                            cs, Tn, N, H, st);
+    if (dtype == 1)
+      return (int)lstm_fwd_mma<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn,
+                                              gates, cs, Tn, N, H, st);
+    return (int)lstm_fwd_mma<__half>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
+                                     Tn, N, H, st);
   }
   if (route == ROUTE_REG) {
     if (NB != 1 || JB != H || H > kRegMaxH) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       return (int)lstm_fwd_reg<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
                                       Tn, N, H, st);
-    return (int)lstm_fwd_reg<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
-                                            cs, Tn, N, H, st);
+    if (dtype == 1)
+      return (int)lstm_fwd_reg<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn,
+                                              gates, cs, Tn, N, H, st);
+    return (int)lstm_fwd_reg<__half>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
+                                     Tn, N, H, st);
   }
   if (route != ROUTE_SPLIT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)lstm_fwd<float>(xp, wh, h0, c0, ys, hn, cn, gates, cs, hbuf,
                                 bar, Tn, N, H, NB, JB, st);
-  return (int)lstm_fwd<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates, cs,
-                                      hbuf, bar, Tn, N, H, NB, JB, st);
+  if (dtype == 1)
+    return (int)lstm_fwd<__nv_bfloat16>(xp, wh, h0, c0, ys, hn, cn, gates,
+                                        cs, hbuf, bar, Tn, N, H, NB, JB, st);
+  return (int)lstm_fwd<__half>(xp, wh, h0, c0, ys, hn, cn, gates, cs, hbuf,
+                               bar, Tn, N, H, NB, JB, st);
 }
 
 // All fp32 but ys (dtype as above), read as h_prev by the dW product.
@@ -2136,7 +2161,7 @@ extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535 || dtype < 0 ||
-      dtype > 1 || (route != ROUTE_SPLIT && route != ROUTE_REG) ||
+      dtype > 2 || (route != ROUTE_SPLIT && route != ROUTE_REG) ||
       (route == ROUTE_REG && (NB != 1 || JB != H || H > kRegMaxH)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
@@ -2152,8 +2177,11 @@ extern "C" int mxtt_lstm_bwd(const float* dys, const float* gates,
   if (dtype == 0)
     return (int)launch_dw<float>(dxp, h0, ys, part, dwh, nullptr, M, N, 4, H,
                                  P, st);
-  return (int)launch_dw<__nv_bfloat16>(dxp, h0, ys, part, dwh, nullptr, M, N,
-                                       4, H, P, st);
+  if (dtype == 1)
+    return (int)launch_dw<__nv_bfloat16>(dxp, h0, ys, part, dwh, nullptr, M,
+                                         N, 4, H, P, st);
+  return (int)launch_dw<__half>(dxp, h0, ys, part, dwh, nullptr, M, N, 4, H,
+                                P, st);
 }
 
 // As mxtt_lstm_fwd, for the GRU, on the split or the cluster route (hbuf
@@ -2165,7 +2193,7 @@ extern "C" int mxtt_gru_fwd(const void* xp, const float* wh, const float* bh,
                             int route, int NB, int JB, int dtype,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 1 ||
+  if (bad_plan(Tn, N, H, NB, JB) || dtype < 0 || dtype > 2 ||
       (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
     return (int)cudaErrorInvalidValue;
   if (route == ROUTE_CLUSTER && !cluster_plan_ok(false, N, H, NB, JB))
@@ -2173,8 +2201,11 @@ extern "C" int mxtt_gru_fwd(const void* xp, const float* wh, const float* bh,
   if (dtype == 0)
     return (int)gru_fwd<float>(xp, wh, bh, h0, ys, hn, gates, hnlin, hbuf,
                                bar, Tn, N, H, route, NB, JB, st);
-  return (int)gru_fwd<__nv_bfloat16>(xp, wh, bh, h0, ys, hn, gates, hnlin,
-                                     hbuf, bar, Tn, N, H, route, NB, JB, st);
+  if (dtype == 1)
+    return (int)gru_fwd<__nv_bfloat16>(xp, wh, bh, h0, ys, hn, gates, hnlin,
+                                       hbuf, bar, Tn, N, H, route, NB, JB, st);
+  return (int)gru_fwd<__half>(xp, wh, bh, h0, ys, hn, gates, hnlin, hbuf, bar,
+                              Tn, N, H, route, NB, JB, st);
 }
 
 // As mxtt_lstm_bwd, for the GRU, on the split or the cluster route (bar
@@ -2190,7 +2221,7 @@ extern "C" int mxtt_gru_bwd(const float* dys, const float* gates,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_plan(Tn, N, H, NB, JB) || P < 1 || P > 65535 || dtype < 0 ||
-      dtype > 1 || (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
+      dtype > 2 || (route != ROUTE_SPLIT && route != ROUTE_CLUSTER))
     return (int)cudaErrorInvalidValue;
   if (route == ROUTE_CLUSTER && !cluster_plan_ok(true, N, H, NB, JB))
     return (int)cudaErrorInvalidValue;
@@ -2198,9 +2229,13 @@ extern "C" int mxtt_gru_bwd(const float* dys, const float* gates,
     return (int)gru_bwd<float>(dys, gates, hnlin, ys, h0, wh, dhn, dxp, dgh,
                                dwh, dbh, dh0, part, bar, Tn, N, H, route, NB,
                                JB, P, st);
-  return (int)gru_bwd<__nv_bfloat16>(dys, gates, hnlin, ys, h0, wh, dhn, dxp,
-                                     dgh, dwh, dbh, dh0, part, bar, Tn, N, H,
-                                     route, NB, JB, P, st);
+  if (dtype == 1)
+    return (int)gru_bwd<__nv_bfloat16>(dys, gates, hnlin, ys, h0, wh, dhn,
+                                       dxp, dgh, dwh, dbh, dh0, part, bar, Tn,
+                                       N, H, route, NB, JB, P, st);
+  return (int)gru_bwd<__half>(dys, gates, hnlin, ys, h0, wh, dhn, dxp, dgh,
+                              dwh, dbh, dh0, part, bar, Tn, N, H, route, NB,
+                              JB, P, st);
 }
 
 extern "C" const char* mxtt_cuda_error_string(int err) {

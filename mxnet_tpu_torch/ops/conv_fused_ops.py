@@ -24,6 +24,7 @@ import torch
 from ..base import MXNetError
 from .kernels import batch_norm as _kbn
 from .kernels import conv_fused as _kcf
+from .nn import moving_average
 from .registry import register
 
 
@@ -48,10 +49,8 @@ def _fold_stats(s, q, n, gamma, beta, moving_mean, moving_var, *, eps,
         mean = (s / n).reshape(-1)
         var = torch.clamp_min((q / n).reshape(-1) - torch.square(mean), 0.0)
         with torch.no_grad():
-            new_mm = moving_mean * momentum \
-                + mean.to(moving_mean.dtype) * (1 - momentum)
-            new_mv = moving_var * momentum \
-                + var.to(moving_var.dtype) * (1 - momentum)
+            new_mm = moving_average(moving_mean, mean, momentum)
+            new_mv = moving_average(moving_var, var, momentum)
     else:
         mean, var = moving_mean.float(), moving_var.float()
         new_mm, new_mv = moving_mean, moving_var

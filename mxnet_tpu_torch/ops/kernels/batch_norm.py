@@ -13,8 +13,9 @@ source's header says what bounds it on an H100 and how it is built.
   launch plan (:func:`row_blocks`) is cached per device and shape, so a
   call costs one allocation (the sums and the partials in one buffer) and
   one ctypes call.  A 16-byte aligned tensor whose C is a multiple of 8
-  (bf16) or 4 (fp32) takes 16-byte loads; any other takes the kernel's
-  scalar route, counted in ``counts.scalar_launches``.
+  (bf16, fp16) or 4 (fp32) takes 16-byte loads; any other takes the
+  kernel's scalar route, counted in ``counts.scalar_launches``.  A float16
+  launch also counts in ``counts.float16_launches``.
 - :class:`BnStatsFunction` is its ``torch.autograd.Function``, with the
   JAX package's backward ``dx = ds + 2*x*dq`` (``_bn_stats_bwd``).
 - :func:`bn_stats` is the entry the ops call (ref: the ``jax.custom_vjp``
@@ -29,14 +30,14 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
+from .build import KernelCounts, KernelLibrary
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: channels a 16-byte load reads, by dtype code
-_VEC = (4, 8)
+_VEC = (4, 8, 8)
 # the kernel's shape (csrc/batch_norm.cu: kThreads, kStrip, kUnroll)
 THREADS, STRIP, UNROLL = 512, 64, 8
-counts = KernelCounts("scalar_launches")
+counts = KernelCounts("scalar_launches", "float16_launches")
 library = KernelLibrary("batch_norm.cu")
 
 
@@ -64,8 +65,8 @@ def bn_stats_plain(x2d):
 
 def row_groups(code, vec):
     """Row groups of a block: its threads over the threads along a strip
-    of 64 channels (64, 32 with 16-byte loads of bf16, fp32; 8 on the
-    scalar route)."""
+    of 64 channels (64, 32 with 16-byte loads of bf16 or fp16, fp32; 8 on
+    the scalar route)."""
     return THREADS * (_VEC[code] if vec else 1) // STRIP
 
 
@@ -154,7 +155,7 @@ def bn_stats_fwd(x2d):
     kernel on the current stream (one launch: the partial sums of row
     blocks and their fixed-order sum), or raises :class:`MXNetError` for
     what it does not take (not 2-D, not contiguous, no channels, dtype
-    other than float32 or bfloat16) and for a failed launch."""
+    other than float32, bfloat16 or float16) and for a failed launch."""
     if not x2d.is_cuda:
         return bn_stats_plain(x2d)
     if x2d.dim() != 2 or not x2d.is_contiguous():
@@ -163,8 +164,8 @@ def bn_stats_fwd(x2d):
                          f"{x2d.stride()}")
     code = _DTYPE_CODES.get(x2d.dtype)
     if code is None:
-        raise MXNetError(f"bn_stats kernel takes float32 or bfloat16, not "
-                         f"{x2d.dtype}{FLOAT16_LATER}")
+        raise MXNetError(f"bn_stats kernel takes float32, bfloat16 or "
+                         f"float16, not {x2d.dtype}")
     if x2d.shape[1] < 1:
         raise MXNetError("bn_stats kernel takes C >= 1 channels")
     (idx, M, C, _, vec), (P, n, tickets, dev) = _plan_of(x2d, code)
@@ -173,10 +174,8 @@ def bn_stats_fwd(x2d):
               code, vec, idx, _raw_stream(idx))
     if err:
         library.raise_on_error(err, "bn_stats")
-    if vec:
-        counts.add("launches")
-    else:
-        counts.add("launches", "scalar_launches")
+    counts.add("launches", *(() if vec else ("scalar_launches",)),
+               *(("float16_launches",) if code == 2 else ()))
     return out[n:n + C], out[n + C:]
 
 

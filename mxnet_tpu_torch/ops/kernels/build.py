@@ -28,11 +28,6 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-#: what the kernels of rows 7-14 (batch_norm.cu, conv_fused.cu, rnn.cu) add
-#: to the message for a float16 tensor, which they do not take yet
-FLOAT16_LATER = (" (float16 comes with ROADMAP queue 2's entry 'float16 for "
-                 "rows 7-14')")
-
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

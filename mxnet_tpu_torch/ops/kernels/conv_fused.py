@@ -10,14 +10,15 @@ the kernels of ``csrc/conv_fused.cu``, in three kinds:
   @ w``, the previous BatchNorm (and ReLU) applied as x is read;
 - ``bn_act_matmul_stats`` (``_bn_act_mm_stats_kernel``): both at once.
 
-x is ``(M, K)``, w ``(K, N)``, y ``(M, N)`` in x's dtype with fp32
-accumulation; scale and shift are the folded BatchNorm ``(1, K)`` fp32;
+x is ``(M, K)``, w ``(K, N)``, y ``(M, N)`` in x's dtype (float32, bfloat16
+or float16) with fp32 accumulation; scale and shift are the folded BatchNorm ``(1, K)`` fp32;
 the sums are ``(1, N)`` fp32.  The source's header says what bounds the
 kernels on an H100 and what their design does about it.
 
 Three routes, chosen by :func:`route` before any launch from kind, dtype,
 shape, pointer alignment and plan: ``"tma"``, the persistent TMA/wgmma
-kernel, for every bf16 call whose operands a TMA tensor map can address
+kernel, for every bf16 or fp16 call (all three kinds) whose operands a TMA
+tensor map can address
 (K and N multiples of 8, x, wt and y 16-byte aligned) and whose plan fits
 a block's shared memory (K up to about 20,000; every ResNet-50 training
 shape); ``"tf32"``, the persistent kernel that multiplies fp32 on the
@@ -26,7 +27,8 @@ shape and alignment rule (every shape of ResNet-50's predict forward);
 ``"simple"``, the tiled template, for the rest (fp32 ``matmul_bn_stats``
 and ``bn_act_matmul_stats``, ragged K or N, misaligned views).  Each
 launch counts in ``launches`` and, on the simple and TF32 routes, in
-``simple_launches`` or ``tf32_launches`` too.
+``simple_launches`` or ``tf32_launches`` too, and each float16 launch in
+``float16_launches``.
 
 For each of the three:
 
@@ -50,16 +52,18 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
+from .build import KernelCounts, KernelLibrary
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KINDS = {"matmul_bn_stats": 0, "bn_act_matmul": 1, "bn_act_matmul_stats": 2}
 # ROUTE_SIMPLE, ROUTE_TMA, ROUTE_TF32 in the source
 _ROUTES = {"simple": 0, "tma": 1, "tf32": 2}
 
-matmul_bn_stats_counts = KernelCounts("simple_launches")
-bn_act_matmul_counts = KernelCounts("simple_launches", "tf32_launches")
-bn_act_matmul_stats_counts = KernelCounts("simple_launches")
+matmul_bn_stats_counts = KernelCounts("simple_launches", "float16_launches")
+bn_act_matmul_counts = KernelCounts("simple_launches", "tf32_launches",
+                                    "float16_launches")
+bn_act_matmul_stats_counts = KernelCounts("simple_launches",
+                                          "float16_launches")
 library = KernelLibrary("conv_fused.cu")
 
 
@@ -67,11 +71,11 @@ def route(kind, x, wt, y, has_plan=None):
     """The route of a launch of ``kind`` (a key of ``_KINDS``) on
     contiguous ``x (M, K)``, ``wt (N, K)`` and ``y (M, N)``: where K and N
     are multiples of 8 and all three are 16-byte aligned (what a TMA tensor
-    map addresses), ``"tma"`` for bf16 and ``"tf32"`` for fp32
+    map addresses), ``"tma"`` for bf16 and fp16 and ``"tf32"`` for fp32
     ``bn_act_matmul``, each where ``has_plan(route, M, K, N)``, when given,
     finds a plan for the device; else ``"simple"``."""
     M, K, N = x.shape[0], x.shape[1], wt.shape[0]
-    if x.dtype == torch.bfloat16:
+    if x.dtype in (torch.bfloat16, torch.float16):
         fast = "tma"
     elif x.dtype == torch.float32 and kind == "bn_act_matmul":
         fast = "tf32"
@@ -191,9 +195,9 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
         raise MXNetError(f"{what}: x must be (M, K) and w (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise MXNetError(f"{what} kernel takes float32 or bfloat16 x and w of "
-                         f"one dtype, got {x.dtype} and {w.dtype}"
-                         f"{FLOAT16_LATER}")
+        raise MXNetError(f"{what} kernel takes float32, bfloat16 or float16 "
+                         f"x and w of one dtype, got {x.dtype} and "
+                         f"{w.dtype}")
     if w.device != x.device:
         raise MXNetError(f"{what}: w is on {w.device}, x on {x.device}")
     M, K = x.shape
@@ -218,7 +222,7 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
                        lambda r, *mkn: lib.mxtt_conv_fused_partials(
                            _ROUTES[r], *mkn) >= 0)
         if forced not in (None, "simple", chosen):
-            takes = ("bfloat16" if forced == "tma"
+            takes = ("bfloat16 or float16" if forced == "tma"
                      else "float32 bn_act_matmul")
             raise MXNetError(f"{what}: the {forced} route takes {takes} "
                              f"with K and N multiples of 8, 16-byte aligned "
@@ -244,9 +248,9 @@ def _launch(kind, counts, x, w, scale=None, shift=None, relu=False,
                  ptr(part), ptr(s), ptr(q), M, K, N, _DTYPE_CODES[x.dtype],
                  stream)
     library.raise_on_error(err, what)
-    counts.add("launches")
-    if chosen != "tma":
-        counts.add(f"{chosen}_launches")
+    counts.add("launches", *(() if chosen == "tma"
+                             else (f"{chosen}_launches",)),
+               *(("float16_launches",) if x.dtype == torch.float16 else ()))
     return y, s, q
 
 
@@ -254,7 +258,7 @@ def matmul_bn_stats_fwd(x, w):
     """``(y, sum, sumsq)`` as :func:`matmul_bn_stats_plain`: the plain
     version for CPU tensors, the kernel for CUDA tensors (raises for what
     it does not take: not (M, K) @ (K, N), dtypes other than one of
-    float32/bfloat16, mixed devices, a failed launch)."""
+    float32/bfloat16/float16, mixed devices, a failed launch)."""
     if not x.is_cuda:
         return matmul_bn_stats_plain(x, w)
     return _launch("matmul_bn_stats", matmul_bn_stats_counts, x, w)

@@ -14,8 +14,8 @@ what bounds them on an H100 and how they are built.
   are the wrappers.  They raise for mismatched shapes or devices, then
   dispatch on the tensor's device alone: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises (a dtype other
-  than float32 or bfloat16, a size that no plan of :func:`plan` fits, a
-  failed launch).  :func:`plan` picks the kernel's route before the
+  than float32, bfloat16 or float16, a size that no plan of :func:`plan`
+  fits, a failed launch).  :func:`plan` picks the kernel's route before the
   launch: for the LSTM forward ``"mma"`` (3xTF32 tensor-core tiles of 16
   rows) at N >= 896 and even H <= 64, else ``"reg"`` (Wh in registers) at
   H <= 96; ``"reg"`` for the LSTM backward at H <= 96 (a column of Wh in
@@ -25,7 +25,7 @@ what bounds them on an H100 and how they are built.
   memory, units split over the blocks of a cooperative launch where it
   does not fit one).
   Each count adds one per launch under ``<route>_launches`` beside
-  ``launches``.
+  ``launches``, and a float16 launch under ``float16_launches`` too.
 - :func:`input_projection` is the layers' input GEMM, outside the
   recurrence: one call with the bias.
 - :func:`lstm_layer` and :func:`gru_layer` are the differentiable entries
@@ -37,7 +37,10 @@ what bounds them on an H100 and how they are built.
 Layouts are the JAX package's: ``x_proj (T, N, G*H)`` gate-major (LSTM
 ``i, f, g, o``; GRU ``r, z, n``), ``wh (G*H, H)``, states ``(N, H)``; the
 saved gates ``(T, N, G, H)`` and cell states or ``hn_lin`` ``(T, N, H)``
-are fp32.  ``ys``, ``hn`` and ``cn`` come out in ``x_proj``'s dtype.
+are fp32.  ``ys``, ``hn`` and ``cn`` come out in ``x_proj``'s dtype.  The
+kernels keep ``wh`` in fp32: the wrappers widen a bfloat16 or float16
+``wh`` (exactly) and the autograd Functions round ``dwh`` and ``dbh`` back
+to its dtype.
 """
 from __future__ import annotations
 
@@ -46,19 +49,22 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .build import FLOAT16_LATER, KernelCounts, KernelLibrary
+from .build import KernelCounts, KernelLibrary
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NO_PLAN = 9  # cudaErrorInvalidConfiguration, from mxtt_rnn_plan
 # ROUTE_SPLIT, ROUTE_REG, ROUTE_CLUSTER and ROUTE_MMA in the source
 ROUTES = {"split": 0, "reg": 1, "cluster": 2, "mma": 3}
 _ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
 
 lstm_fwd_counts = KernelCounts("split_launches", "reg_launches",
-                               "mma_launches")
-lstm_bwd_counts = KernelCounts("split_launches", "reg_launches")
-gru_fwd_counts = KernelCounts("split_launches", "cluster_launches")
-gru_bwd_counts = KernelCounts("split_launches", "cluster_launches")
+                               "mma_launches", "float16_launches")
+lstm_bwd_counts = KernelCounts("split_launches", "reg_launches",
+                               "float16_launches")
+gru_fwd_counts = KernelCounts("split_launches", "cluster_launches",
+                              "float16_launches")
+gru_bwd_counts = KernelCounts("split_launches", "cluster_launches",
+                              "float16_launches")
 library = KernelLibrary("rnn.cu")
 
 
@@ -279,8 +285,14 @@ def _bind(lib, name, nargs_ptr, nargs_int):
 
 def _check_dtype(name, t):
     if t.is_cuda and t.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"{name} kernel takes float32 or bfloat16, not "
-                         f"{t.dtype}{FLOAT16_LATER}")
+        raise MXNetError(f"{name} kernel takes float32, bfloat16 or float16, "
+                         f"not {t.dtype}")
+
+
+def _count(counts, route, dtype):
+    """One launch on ``route`` in ``counts`` (and in its float16 count)."""
+    counts.add("launches", f"{route}_launches",
+               *(("float16_launches",) if dtype == torch.float16 else ()))
 
 
 def _check_inputs(name, like, want):
@@ -384,7 +396,7 @@ def _lstm_fwd(x_proj, wh, h0, c0, route=None):
     _launch(fn, "lstm_fwd",
             (xp, w, h0f, c0f, ys, hn, cn, gates, cs, hbuf, bar),
             (T, N, H, ROUTES[rt], NB, JB, _DTYPE_CODES[dt]), dev)
-    lstm_fwd_counts.add("launches", f"{rt}_launches")
+    _count(lstm_fwd_counts, rt, dt)
     return ys, hn, cn, gates, cs
 
 
@@ -418,7 +430,7 @@ def _lstm_bwd(wh, h0, c0, ys, gates, cs, dys, dhn, dcn, route=None):
             (*ins[:5], ys.contiguous(), *ins[5:], dxp, dwh, dh0, dc0, part,
              bar), (T, N, H, ROUTES[rt], NB, JB, P, _DTYPE_CODES[ys.dtype]),
             dev)
-    lstm_bwd_counts.add("launches", f"{rt}_launches")
+    _count(lstm_bwd_counts, rt, ys.dtype)
     return dxp, dwh, dh0, dc0
 
 
@@ -448,7 +460,7 @@ def _gru_fwd(x_proj, wh, bh, h0, route=None):
     fn = _bind(library.load(), "mxtt_gru_fwd", 10, 7)
     _launch(fn, "gru_fwd", (xp, w, b, h0f, ys, hn, gates, hn_lin, hbuf, bar),
             (T, N, H, ROUTES[rt], NB, JB, _DTYPE_CODES[dt]), dev)
-    gru_fwd_counts.add("launches", f"{rt}_launches")
+    _count(gru_fwd_counts, rt, dt)
     return ys, hn, gates, hn_lin
 
 
@@ -486,7 +498,7 @@ def _gru_bwd(wh, h0, ys, gates, hn_lin, dys, dhn, route=None):
             (d, g, hl, ys.contiguous(), h0f, w, dh, dxp, dgh, dwh, dbh, dh0,
              part, bar),
             (T, N, H, ROUTES[rt], NB, JB, P, _DTYPE_CODES[ys.dtype]), dev)
-    gru_bwd_counts.add("launches", f"{rt}_launches")
+    _count(gru_bwd_counts, rt, ys.dtype)
     return dxp, dwh, dbh, dh0
 
 

@@ -242,6 +242,37 @@ def _bn_shape(x, red):
     return [1 if i in red else d for i, d in enumerate(x.shape)]
 
 
+def moving_average(avg, value, momentum):
+    """``avg * momentum + value * (1 - momentum)`` in avg's dtype, value
+    cast to it first (ref: ops/nn.py:364-367, conv_fused_ops.py:47-50).
+    A float16 ``avg`` takes the reference's arithmetic as XLA compiles it
+    on the CPU: the momenta rounded to float16 (Python scalars take the
+    array's dtype there), ``value * (1 - momentum)`` rounded to float16,
+    then ``avg * momentum`` and the sum in fp32, rounded once (ROADMAP
+    queue 3, item 19)."""
+    value = value.to(avg.dtype)
+    if avg.dtype == torch.float16:
+        m, rest = (float(torch.tensor(v, dtype=torch.float16))
+                   for v in (momentum, 1 - momentum))
+        return (avg.float() * m + (value * rest).float()).to(avg.dtype)
+    return avg * momentum + value * (1 - momentum)
+
+
+def _scale_shift(x, scale, shift, shape):
+    """``x * scale + shift`` per channel, with scale and shift rounded to
+    x's dtype first (ref: ops/nn.py:282-283, 408-409).  The reference's op
+    is one XLA computation, which widens float16 to fp32 for the multiply
+    and the add and rounds their result once, where torch rounds each step:
+    so a float16 x is computed in fp32 and rounded once (one ulp apart
+    otherwise on ~28% of the elements, ROADMAP queue 3, item 19); bfloat16
+    and fp32 round each step, as there."""
+    sc = scale.to(x.dtype).reshape(shape)
+    sh = shift.to(x.dtype).reshape(shape)
+    if x.dtype == torch.float16:
+        return (x.float() * sc.float() + sh.float()).to(x.dtype)
+    return x * sc + sh
+
+
 def _group_sum(group, a, b):
     """``(a, b)`` summed over ``group`` in one all-reduce (no autograd:
     the closed-form Function below calls it in its forward and its
@@ -266,9 +297,7 @@ def _bn_train_impl(x, g32, b32, eps, red, group=None):
     inv = torch.rsqrt(var + eps)
     scale = g32 * inv
     shift = b32 - mean * scale
-    shape = _bn_shape(x, red)
-    out = x * scale.to(x.dtype).reshape(shape) \
-        + shift.to(x.dtype).reshape(shape)
+    out = _scale_shift(x, scale, shift, _bn_shape(x, red))
     return out, mean, var, inv
 
 
@@ -349,10 +378,8 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         out, mean, var = _BnTrainFused.apply(data, g.float(), beta.float(),
                                              float(eps), red, group)
         with torch.no_grad():
-            new_mm = moving_mean * momentum \
-                + mean.to(moving_mean.dtype) * (1 - momentum)
-            new_mv = moving_var * momentum \
-                + var.to(moving_var.dtype) * (1 - momentum)
+            new_mm = moving_average(moving_mean, mean, momentum)
+            new_mv = moving_average(moving_var, var, momentum)
         return out, new_mm, new_mv
     if train:
         n = math.prod(data.shape[i] for i in red)
@@ -374,18 +401,14 @@ def _k_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             sumsq_mean = torch.square(data).float().mean(dim=red)
         var = torch.clamp_min(sumsq_mean - torch.square(mean), 0.0)
         with torch.no_grad():
-            new_mm = moving_mean * momentum \
-                + mean.to(moving_mean.dtype) * (1 - momentum)
-            new_mv = moving_var * momentum \
-                + var.to(moving_var.dtype) * (1 - momentum)
+            new_mm = moving_average(moving_mean, mean, momentum)
+            new_mv = moving_average(moving_var, var, momentum)
     else:
         mean, var = moving_mean.float(), moving_var.float()
         new_mm, new_mv = moving_mean, moving_var
     scale = g.float() * torch.rsqrt(var + eps)
     shift = beta.float() - mean * scale
-    out = data * scale.to(data.dtype).reshape(shape) \
-        + shift.to(data.dtype).reshape(shape)
-    return out, new_mm, new_mv
+    return _scale_shift(data, scale, shift, shape), new_mm, new_mv
 
 
 register("BatchNorm", _k_batch_norm, aliases=("batch_norm",),

@@ -70,13 +70,22 @@ def _unpack(params, num_layers, input_size, state_size, mode, d):
     return ws
 
 
+def _mm(a, w):
+    """``a @ w.T`` in the dtype the two promote to, as jnp's matmul promotes
+    its operands: under float16 AMP the weights are float16 while the
+    states (and the ys of a layer below) are float32 (ROADMAP queue 3,
+    item 20)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt).T
+
+
 def _step_fn(mode):
     """One time step of ``mode``: ``step(carry, x_t, wi, wh, bi, bh) ->
     (carry, y_t)`` (ref: ops/rnn.py:67)."""
     if mode == "lstm":
         def step(carry, x_t, wi, wh, bi, bh):
             h, c = carry
-            gates = x_t @ wi.T + bi + h @ wh.T + bh
+            gates = _mm(x_t, wi) + bi + _mm(h, wh) + bh
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
@@ -85,8 +94,8 @@ def _step_fn(mode):
     if mode == "gru":
         def step(carry, x_t, wi, wh, bi, bh):
             (h,) = carry
-            ir, iz, inn = (x_t @ wi.T + bi).chunk(3, dim=-1)
-            hr, hz, hn = (h @ wh.T + bh).chunk(3, dim=-1)
+            ir, iz, inn = (_mm(x_t, wi) + bi).chunk(3, dim=-1)
+            hr, hz, hn = (_mm(h, wh) + bh).chunk(3, dim=-1)
             r = torch.sigmoid(ir + hr)
             z = torch.sigmoid(iz + hz)
             n = torch.tanh(inn + r * hn)
@@ -97,7 +106,7 @@ def _step_fn(mode):
 
     def step(carry, x_t, wi, wh, bi, bh):
         (h,) = carry
-        h = act(x_t @ wi.T + bi + h @ wh.T + bh)
+        h = act(_mm(x_t, wi) + bi + _mm(h, wh) + bh)
         return (h,), h
     return step
 

@@ -119,13 +119,17 @@ def test_amp_dtype_rules_match_jax(op, names, attrs):
     Queue 3, item 15: ``FullyConnected`` raised for float32 data or a
     float32 bias beside float16 weights, where the reference casts the
     data down to the weights' dtype and the bias to the product's."""
+    import jax
     from mxnet_tpu.ops import registry as jreg
     import jax.numpy as jnp
     from mxnet_tpu_torch.ops import registry as treg
 
     ins = _sweep_inputs()
     arrays = [ins[n] for n in names]
-    want = jreg.get(op).fn(*(jnp.asarray(a) for a in arrays), **attrs)
+    # jitted, as the package's ``invoke`` runs a registered op: one XLA
+    # computation rounds float16 where its fusions end, not after each step
+    want = jax.jit(lambda *a: jreg.get(op).fn(*a, **attrs))(
+        *(jnp.asarray(a) for a in arrays))
     got = treg.get(op)(*(torch.from_numpy(np.array(a)) for a in arrays),
                        **attrs)
     want = want if isinstance(want, tuple) else (want,)

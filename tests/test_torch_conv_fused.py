@@ -22,7 +22,13 @@ outputs within 2e-2 relative plus 2e-2 absolute (both round the same fp32
 sums to bf16, whose ulp is 2^-8 relative, and a sum in another order may
 round to the neighbouring value), sums within 1e-2 relative, gradients
 within 3e-2 relative plus 3e-2 absolute (rounded to bf16 twice: dy, then
-the product).
+the product).  fp16 (ulp 2^-11 relative, eight times finer than bf16's):
+outputs within 4e-3 relative plus 4e-3 absolute (two fp16 ulps: the same
+rounding of a sum taken in another order, and a prologue value rounded to
+the neighbouring fp16 where the JAX package's fp32 multiply-add is
+contracted), sums within 2e-3 relative (of the stored values, so only a
+neighbouring y moves them), gradients within 8e-3 relative plus 8e-3
+absolute (rounded to fp16 twice, as bf16's).
 """
 import numpy as np
 import pytest
@@ -34,11 +40,15 @@ from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops.kernels import batch_norm as tbn
 from mxnet_tpu_torch.ops.kernels import conv_fused as tcf
 
-DTYPES = ("float32", "bfloat16")
+DTYPES = ("float32", "bfloat16", "float16")
 TOL = {"float32": dict(out=(1e-5, 1e-5), stats=(1e-5, 1e-5),
                        grad=(1e-4, 1e-4)),
        "bfloat16": dict(out=(2e-2, 2e-2), stats=(1e-2, 1e-2),
-                        grad=(3e-2, 3e-2))}
+                        grad=(3e-2, 3e-2)),
+       "float16": dict(out=(4e-3, 4e-3), stats=(2e-3, 2e-3),
+                       grad=(8e-3, 8e-3))}
+#: channels a 16-byte load of the BN-statistics kernel reads, by dtype
+VEC = {"float32": 4, "bfloat16": 8, "float16": 8}
 
 
 @pytest.fixture
@@ -131,7 +141,7 @@ def test_plain_matches_jax_kernel(kind, dtype, jax_kernels):
     jcf, _ = jax_kernels
     M, K, N = 128, 64, 128
     x, w, sc, sh, cot = _inputs(M, K, N, seed=len(kind))
-    assert jcf._tile_plan(M, K, N, 2 if dtype == "bfloat16" else 4)
+    assert jcf._tile_plan(M, K, N, 4 if dtype == "float32" else 2)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
     tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
@@ -192,7 +202,9 @@ def test_bn_stats_plain_matches_jax_kernel(dtype, jax_kernels):
     (tdx,) = torch.autograd.grad((ts * torch.from_numpy(ds)).sum()
                                  + (tq * torch.from_numpy(dq)).sum(), tx)
     assert ts.dtype == torch.float32 and tdx.dtype == tx.dtype
-    rtol = 1e-5 if dtype == "float32" else 1e-2
+    # the same (rounded) values summed in fp32 in other orders; bf16's
+    # limit is looser than it needs (kept as it was set)
+    rtol = 1e-2 if dtype == "bfloat16" else 1e-5
     _close(_np(ts), np.asarray(js), (1e-4, rtol), "sum")
     _close(_np(tq), np.asarray(jq), (1e-4, rtol), "sumsq")
     _close(_np(tdx), _jnp_to_np(jdx), TOL[dtype]["grad"], "dx")
@@ -293,13 +305,15 @@ def test_bn_stats_order_model_matches_jax_kernel(M, C, P, groups, dtype,
 
 @pytest.mark.parametrize("M,C", [(401408, 64), (100352, 128), (25088, 256),
                                  (6272, 512), (1, 3), (1000, 70)])
-@pytest.mark.parametrize("code,vec", [(0, 1), (1, 1), (0, 0), (1, 0)])
+@pytest.mark.parametrize("code,vec", [(0, 1), (1, 1), (2, 1), (0, 0), (1, 0),
+                                      (2, 0)])
 def test_row_blocks_fill_the_card_once(M, C, code, vec):
     """The grid at ResNet-50's four stage shapes (b=128) and ragged ones on
     132 SMs: no more blocks than are resident at once, at least one, and
     each thread a full unrolled load of rows where M gives that many."""
     groups = tbn.row_groups(code, vec)
-    assert groups == {(0, 1): 32, (1, 1): 64}.get((code, vec), 8)
+    assert groups == {(0, 1): 32, (1, 1): 64, (2, 1): 64}.get((code, vec),
+                                                             8)
     strips = -(-C // tbn.STRIP)
     P = tbn.row_blocks(M, C, groups, 132)
     assert P >= 1 and (P == 1 or P * strips <= 132)
@@ -361,11 +375,14 @@ def _operands(M, K, N, dtype=torch.bfloat16):
     return one.expand(M, K), one.expand(N, K), one.expand(M, N)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("M,K,N", sorted(set(_resnet_training_shapes(128)
                                              + _resnet_training_shapes(2))))
-def test_route_takes_tma_for_every_resnet_training_shape(M, K, N):
+def test_route_takes_tma_for_every_resnet_training_shape(M, K, N, dtype):
+    """bf16 and fp16 take the TMA route at every training shape, in all
+    three kinds (``bn_act_matmul`` too: the fp16 predict forward)."""
     for kind in tcf._KINDS:
-        assert tcf.route(kind, *_operands(M, K, N)) == "tma", kind
+        assert tcf.route(kind, *_operands(M, K, N, dtype)) == "tma", kind
 
 
 def _resnet_predict_shapes(b):
@@ -641,7 +658,10 @@ RESNET_SHAPES = [(6272, 64, 64), (6272, 256, 64), (6272, 64, 256),
                  (1568, 512, 128), (1568, 128, 512), (392, 1024, 256),
                  (98, 2048, 512), (98, 512, 2048)]
 RAGGED_SHAPES = [(1, 1, 1), (77, 50, 33), (130, 96, 65), (1000, 3, 200)]
-CARD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# fp16: two ulps of y's O(1) values (4e-3), the products summed in another
+# order than the plain version's fp32 product
+CARD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2),
+            "float16": (4e-3, 4e-3)}
 
 
 def _card_inputs(M, K, N, dtype, dev, seed=0):
@@ -682,19 +702,24 @@ def test_fused_kernels_match_plain_on_card(M, K, N, relu, dtype,
         cases.append(("matmul_bn_stats", (x, w)))
     for name, args in cases:
         # fp32 bn_act_matmul takes the TF32 route, the other fp32 kinds the
-        # simple one; every ragged shape (K or N not a multiple of 8) too
+        # simple one; every ragged shape (K or N not a multiple of 8) too;
+        # bf16 and fp16 take the TMA route
         simple = (M, K, N) in RAGGED_SHAPES or (
             dtype == "float32" and name != "bn_act_matmul")
         tf32 = dtype == "float32" and not simple
+        f16 = dtype == "float16"
         counts = getattr(tcf, f"{name}_counts")
         before = (counts.launches, counts.simple_launches,
-                  getattr(counts, "tf32_launches", 0))
+                  getattr(counts, "tf32_launches", 0),
+                  counts.float16_launches)
         got = getattr(tcf, f"{name}_fwd")(*args)
         ref = getattr(tcf, f"{name}_plain")(*args)
         torch.cuda.synchronize()
         assert (counts.launches, counts.simple_launches,
-                getattr(counts, "tf32_launches", 0)) == (
-            before[0] + 1, before[1] + simple, before[2] + tf32)
+                getattr(counts, "tf32_launches", 0),
+                counts.float16_launches) == (
+            before[0] + 1, before[1] + simple, before[2] + tf32,
+            before[3] + f16)
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         assert got[0].dtype == x.dtype and got[0].shape == (M, N)
@@ -725,16 +750,17 @@ def _on_route(name, args, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("M,K,N", TMA_SHAPES)
-def test_tma_route_matches_plain_and_simple_on_card(M, K, N, relu,
+def test_tma_route_matches_plain_and_simple_on_card(M, K, N, relu, dtype,
                                                     cuda_device):
     """The TMA route against the plain version (y within CARD_TOL, sums
     within _check_stats) and against the simple route on the same inputs
-    (y within the bf16 CARD_TOL: the products sum in another order); two
+    (y within the dtype's CARD_TOL: the products sum in another order); two
     runs give bit-identical sums; each launch counts on its route."""
-    x, w, sc, sh = _card_inputs(M, K, N, "bfloat16", cuda_device, seed=M + N)
-    atol, rtol = CARD_TOL["bfloat16"]
+    x, w, sc, sh = _card_inputs(M, K, N, dtype, cuda_device, seed=M + N)
+    atol, rtol = CARD_TOL[dtype]
     cases = [("bn_act_matmul", (x, sc, sh, w, relu)),
              ("bn_act_matmul_stats", (x, sc, sh, w, relu))]
     if not relu:
@@ -876,13 +902,15 @@ def _bn_stats_input(M, C, dtype, dev, offset=0):
 def test_bn_stats_kernel_matches_plain_on_card(M, C, offset, dtype,
                                                cuda_device):
     x = _bn_stats_input(M, C, dtype, cuda_device, offset)
-    vec = C % (8 if dtype == "bfloat16" else 4) == 0 and offset == 0
-    before = (tbn.counts.launches, tbn.counts.scalar_launches)
+    vec = C % VEC[dtype] == 0 and offset == 0
+    c = tbn.counts
+    before = (c.launches, c.scalar_launches, c.float16_launches)
     got = tbn.bn_stats_fwd(x)
     ref = tbn.bn_stats_plain(x)
     torch.cuda.synchronize()
-    assert (tbn.counts.launches, tbn.counts.scalar_launches) == (
-        before[0] + 1, before[1] + (not vec))
+    assert (c.launches, c.scalar_launches, c.float16_launches) == (
+        before[0] + 1, before[1] + (not vec),
+        before[2] + (dtype == "float16"))
     _check_stats(got, x)
     _check_stats(ref, x)
     again = tbn.bn_stats_fwd(x)  # no atomics: bit-identical
@@ -901,8 +929,7 @@ def test_bn_stats_kernel_matches_its_order_model_on_card(M, C, offset, dtype,
     summation order (``_bn_stats_order``) on the plan it launched."""
     x = _bn_stats_input(M, C, dtype, cuda_device, offset)
     P, vec, groups = tbn.launch_plan(x)
-    assert vec == (offset == 0 and C % (8 if dtype == "bfloat16" else 4)
-                   == 0)
+    assert vec == (offset == 0 and C % VEC[dtype] == 0)
     got = tbn.bn_stats_fwd(x)
     want = _bn_stats_order(x.float().cpu().numpy(), P, groups)
     for g, w in zip(got, want):
@@ -972,11 +999,11 @@ def test_functions_on_card_match_autograd_of_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    x16 = torch.zeros(64, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tcf.matmul_bn_stats_fwd(x16, x16)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tbn.bn_stats_fwd(x16)
+    x64 = torch.zeros(64, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tcf.matmul_bn_stats_fwd(x64, x64)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tbn.bn_stats_fwd(x64)
     x = torch.zeros(64, 64, device=cuda_device)
     with pytest.raises(MXNetError, match="one dtype"):
         tcf.matmul_bn_stats_fwd(x, x.to(torch.bfloat16))

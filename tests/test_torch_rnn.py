@@ -12,7 +12,13 @@ kernel against its plain version on the card.
 
 Tolerances, fp32.  Forward outputs within 1e-5 absolute (the same sums in
 other orders, through at most 12 steps of bounded activations); gradients
-within 1e-4 absolute plus 1e-4 relative (sums over T*N rows).
+within 1e-4 absolute plus 1e-4 relative (sums over T*N rows).  fp16 (the
+AMP layers: x_proj, Wh, the states, ys, hn and cn in float16; gates, cell
+states and every sum in fp32): ys, hn and cn within 1e-3 (two fp16 ulps of
+values below 1: the same fp32 values may round to neighbouring fp16), the
+fp32 gates and cell states within fp32's 1e-5; gradients rounded to fp16
+at the end within 2e-3 of their largest magnitude plus 2e-3 relative (one
+fp16 rounding of sums that read the rounded ys as h_prev).
 """
 import numpy as np
 import pytest
@@ -25,6 +31,16 @@ from mxnet_tpu_torch.ops.kernels import rnn as tk
 
 FWD_TOL = dict(atol=1e-5, rtol=0)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+F16_OUT_TOL = dict(atol=1e-3, rtol=0)
+
+
+def _close_f16_grad(got, ref, name):
+    """A float16 gradient: 2e-3 of the largest magnitude plus 2e-3
+    relative (the module's docstring)."""
+    ref = np.asarray(ref, np.float32)
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(np.asarray(got, np.float32), ref,
+                               atol=2e-3 * scale, rtol=2e-3, err_msg=name)
 
 
 def _np(t):
@@ -110,6 +126,84 @@ def test_gru_plain_matches_jax_kernel(interpret_pallas, T, N, H):
                                    **GRAD_TOL)
         np.testing.assert_allclose(_np(f), np.asarray(r), err_msg=name,
                                    **GRAD_TOL)
+
+
+def _f16_inputs(a, keys):
+    """``a``'s arrays of ``keys`` rounded to float16, as numpy."""
+    return [a[k].astype(np.float16) for k in keys]
+
+
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (6, 32, 64)])
+def test_lstm_plain_matches_jax_kernel_in_float16(interpret_pallas, T, N, H):
+    """The plain forward and backward in float16 (as AMP runs the layer)
+    against the JAX kernels in float16: ys, hn, cn float16, gates and cell
+    states fp32, dxp, dwh, dh0, dc0 float16 through the autograd Function;
+    the plain backward's fp32 gradients before that rounding."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.pallas import rnn as jrnn
+
+    a = _inputs(T, N, H, 4, seed=T + 40, wscale=H ** -0.5)
+    keys = ("xp", "wh", "h0", "c0")
+    h16 = _f16_inputs(a, keys)
+    jin = [jnp.asarray(v) for v in h16]
+    jys, jhn, jcn, jgates, jcs = jrnn._lstm_forward(*jin)
+    _, vjp = jax.vjp(jrnn.lstm_layer, *jin)
+    cot = [a[k].astype(np.float16) for k in ("dys", "dhn", "dcn")]
+    jgrads = vjp(tuple(jnp.asarray(c) for c in cot))
+    ins = [torch.from_numpy(v.copy()) for v in h16]
+    fwd = tk.lstm_fwd_plain(*ins)
+    assert [t.dtype for t in fwd] == [torch.float16] * 3 + [torch.float32] * 2
+    for name, got, ref in zip(("ys", "hn", "cn", "gates", "cs"), fwd,
+                              (jys, jhn, jcn, jgates, jcs)):
+        tol = F16_OUT_TOL if got.dtype == torch.float16 else FWD_TOL
+        np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                                   err_msg=name, **tol)
+    tcot = [torch.from_numpy(c.copy()) for c in cot]
+    plain = tk.lstm_bwd_plain(ins[1], ins[2], ins[3], fwd[0], fwd[3],
+                              fwd[4], tcot[0].float(), *tcot[1:])
+    req = [t.clone().requires_grad_(True) for t in ins]
+    func = torch.autograd.grad(tk.lstm_layer(*req), req, tcot)
+    for name, p, f, r in zip(("dxp", "dwh", "dh0", "dc0"), plain, func,
+                             jgrads):
+        assert f.dtype == torch.float16 and r.dtype == jnp.float16, name
+        _close_f16_grad(_np(p), r, name)
+        _close_f16_grad(_np(f), r, name)
+
+
+@pytest.mark.parametrize("T,N,H", [(5, 4, 8), (12, 3, 40), (4, 32, 200)])
+def test_gru_plain_matches_jax_kernel_in_float16(interpret_pallas, T, N, H):
+    """As the LSTM's float16 test, for the GRU: dbh comes back in wh's
+    dtype (float16)."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.pallas import rnn as jrnn
+
+    a = _inputs(T, N, H, 3, seed=T + 41, wscale=H ** -0.5)
+    h16 = _f16_inputs(a, ("xp", "wh", "bh", "h0"))
+    jin = [jnp.asarray(v) for v in h16]
+    jys, jhn, jgates, jhl = jrnn._gru_forward(*jin)
+    _, vjp = jax.vjp(jrnn.gru_layer, *jin)
+    cot = [a[k].astype(np.float16) for k in ("dys", "dhn")]
+    jgrads = vjp(tuple(jnp.asarray(c) for c in cot))
+    ins = [torch.from_numpy(v.copy()) for v in h16]
+    fwd = tk.gru_fwd_plain(*ins)
+    assert [t.dtype for t in fwd] == [torch.float16] * 2 + [torch.float32] * 2
+    for name, got, ref in zip(("ys", "hn", "gates", "hn_lin"), fwd,
+                              (jys, jhn, jgates, jhl)):
+        tol = F16_OUT_TOL if got.dtype == torch.float16 else FWD_TOL
+        np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                                   err_msg=name, **tol)
+    tcot = [torch.from_numpy(c.copy()) for c in cot]
+    plain = tk.gru_bwd_plain(ins[1], ins[3], fwd[0], fwd[2], fwd[3],
+                             tcot[0].float(), tcot[1])
+    req = [t.clone().requires_grad_(True) for t in ins]
+    func = torch.autograd.grad(tk.gru_layer(*req), req, tcot)
+    for name, p, f, r in zip(("dxp", "dwh", "dbh", "dh0"), plain, func,
+                             jgrads):
+        assert f.dtype == torch.float16 and r.dtype == jnp.float16, name
+        _close_f16_grad(_np(p), r, name)
+        _close_f16_grad(_np(f), r, name)
 
 
 def _tf32_split(x):
@@ -599,8 +693,11 @@ def cuda_device():
 
 # kernel vs plain on the card: fp32 sums in other orders over up to 96
 # steps; bf16 ys/hn/cn are rounded to bf16 (2^-8 relative), and each
-# step's h_prev of the backward is the rounded ys
-CARD_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# step's h_prev of the backward is the rounded ys; fp16 ys/hn/cn within
+# two fp16 ulps of values below 1 (1e-3)
+CARD_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2),
+            "float16": (1e-3, 1e-3)}
+CARD_DTYPES = ("float32", "bfloat16", "float16")
 # (T, N, H): DeepAR training and predict (16 and 32 series), one unit tile
 # with few rows,
 # the GRU phase's width and the large-H LSTM (units split over blocks);
@@ -635,13 +732,15 @@ def _route_counts(counts):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("T,N,H", CARD_SHAPES)
 def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     t = _card(T, N, H, 4, dtype, cuda_device)
     route = tk.plan(4, False, N, H, cuda_device)[0]
     broute = tk.plan(4, True, N, H, cuda_device)[0]
-    before = (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches)
+    before = (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches,
+              tk.lstm_fwd_counts.float16_launches,
+              tk.lstm_bwd_counts.float16_launches)
     by_route = _route_counts(tk.lstm_fwd_counts)
     bby_route = _route_counts(tk.lstm_bwd_counts)
     fwd = tk.lstm_fwd(t["xp"], t["wh"], t["h0"], t["c0"])
@@ -654,8 +753,11 @@ def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     bwd = tk.lstm_bwd(*args)
     bref = tk.lstm_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches) == \
-        (before[0] + 1, before[1] + 1)
+    f16 = dtype == "float16"
+    assert (tk.lstm_fwd_counts.launches, tk.lstm_bwd_counts.launches,
+            tk.lstm_fwd_counts.float16_launches,
+            tk.lstm_bwd_counts.float16_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + f16, before[3] + f16)
     by_route[route] += 1
     assert _route_counts(tk.lstm_fwd_counts) == by_route
     for name, g, r in zip(("dxp", "dwh", "dh0", "dc0"), bwd, bref):
@@ -669,7 +771,7 @@ def test_lstm_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("T,N,H", CARD_SHAPES)
 def test_gru_kernels_match_plain_on_card(T, N, H, dtype, cuda_device):
     t = _card(T, N, H, 3, dtype, cuda_device, seed=1)
@@ -708,7 +810,7 @@ def _same_again(call, first, name):
 # past a multiple of 8) or in a cluster's last block (H = 97, 417) or rows
 # (the forward's 3 rows a cluster at N=17, H=417)
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("T,N,H", [(96, 32, 40), (35, 32, 200), (7, 19, 40),
                                    (9, 3, 18), (9, 3, 17), (5, 17, 97),
                                    (3, 1, 417), (4, 17, 417)])
@@ -782,8 +884,8 @@ def test_functions_on_card_match_autograd_of_plain(cuda_device):
 @pytest.mark.gpu
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     t = _card(4, 2, 8, 4, "float32", cuda_device)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tk.lstm_fwd(t["xp"].half(), t["wh"], t["h0"], t["c0"])
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tk.lstm_fwd(t["xp"].double(), t["wh"], t["h0"], t["c0"])
     with pytest.raises(MXNetError, match="x_proj"):
         tk.lstm_fwd(t["xp"][..., :-1], t["wh"], t["h0"], t["c0"])
     with pytest.raises(MXNetError, match="is on"):
